@@ -1,0 +1,91 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card (exact equality). They skip without a CUDA card.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine without them; there the repository's conftest (which imports
+JAX) is skipped:
+
+    python -m pytest --noconftest -q tests/test_torch_card.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+from gonomics_tpu_torch.ops import banded
+
+PLUS_MINUS_ONE = np.where(np.eye(5, dtype=bool), 1, -1).astype(np.int32)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    return torch.device("cuda")
+
+
+def _batch(B: int, L: int, W: int, seed: int):
+    """Anchored reads with SNPs and lowercase or '-.*' codes, short reads,
+    short windows and junk rows."""
+    rng = np.random.default_rng(seed)
+    wins = rng.integers(0, 4, (B, W)).astype(np.int8)
+    off = max(0, min(8, W - L))
+    reads = rng.integers(0, 4, (B, L)).astype(np.int8)
+    take = min(L, W - off)
+    reads[:, :take] = wins[:, off:off + take]
+    reads[rng.random((B, L)) < 0.03] = rng.integers(0, 13)
+    wins[rng.random((B, W)) < 0.01] = 4
+    n_vec = np.where(rng.random(B) < 0.2, rng.integers(1, L + 1, B), L)
+    m_vec = np.where(rng.random(B) < 0.2, rng.integers(1, W + 1, B), W)
+    junk = rng.random(B) < 0.1
+    reads[junk] = rng.integers(0, 4, (int(junk.sum()), L))
+    return reads, wins, n_vec.astype(np.int32), m_vec.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,W,scoring", [
+    (4096, 150, 198, "humanChimp"), (5, 40, 64, "plusMinusOne"),
+    (37, 81, 129, "humanChimp"), (64, 81, 64, "plusMinusOne")])
+def test_kernels_equal_plain(card, B, L, W, scoring):
+    scores, gap = ((HUMAN_CHIMP_TWO, -600) if scoring == "humanChimp"
+                   else (PLUS_MINUS_ONE, -1))
+    args = [torch.from_numpy(x).to(card) for x in _batch(B, L, W, B + L)]
+    sc = torch.as_tensor(scores, dtype=torch.int32, device=card)
+    before = banded.dp_launches
+    got = banded.banded_dp(*args, sc, gap)
+    want = banded.banded_dp_reference(*args, sc, gap)
+    torch.cuda.synchronize()
+    assert banded.dp_launches == before + 1
+    for name, g, w in zip(("bv", "bi", "trace"), got, want):
+        assert torch.equal(g, w), name
+    score = want[0].amax(1)
+    walk = (want[2], want[1][:, 0], torch.zeros_like(score), score > 0,
+            banded.walk_length(L))
+    before = banded.walk_launches
+    wgot = banded.banded_walk_pack(*walk)
+    wwant = banded.banded_walk_pack_reference(*walk)
+    torch.cuda.synchronize()
+    assert banded.walk_launches == before + 1
+    for name, g, w in zip(("i0", "c0", "packed"), wgot, wwant):
+        assert torch.equal(g, w), name
+    full = banded.banded_align_full(*args, sc, gap)
+    cpu = banded.banded_align_full(*[a.cpu() for a in args], sc.cpu(), gap)
+    for g, w in zip(full, cpu):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_walk_on_random_traces(card):
+    rng = np.random.default_rng(3)
+    L, B = 60, 1000
+    D = banded.walk_length(L)
+    trace = torch.from_numpy(rng.choice(4, size=(L, B, 64),
+                                        p=[0.6, 0.15, 0.15, 0.1]).astype(np.int8))
+    i_end = torch.from_numpy(rng.integers(0, L + 1, B).astype(np.int32))
+    c_end = torch.from_numpy(rng.integers(0, 64, B).astype(np.int32))
+    active = torch.from_numpy(rng.random(B) < 0.8)
+    args = [x.to(card) for x in (trace, i_end, c_end, active)]
+    for g, w in zip(banded.banded_walk_pack(*args, D),
+                    banded.banded_walk_pack_reference(*args, D)):
+        assert torch.equal(g, w)
