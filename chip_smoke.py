@@ -17,14 +17,29 @@ exits non-zero:
             stays unmapped, and that the main path launched every kernel.
 4. cli:     `gsw align` of the port on a 10 Mbp genome, single and paired,
             byte-equal to the library path's SAM for the same reads.
+5. pairwise_kernels: affine_wavefront and const_wavefront, trace mode at
+            128 pairs and score mode at 256 pairs of 1024 x 1024, each
+            held against its plain PyTorch version on the card (exact
+            equality) and timed; plus one case per kernel whose diagonal
+            state is above the shared-memory limit (global scratch).
+6. pairwise: affine_gap_batch and const_gap_batch on 128 related ~1 kb
+            pairs: every route consumes both sequences and replays to its
+            score, the first 8 pairs equal device="cpu", score mode
+            equals trace mode; pairs/s and the wall split into kernel,
+            trace copy to the host, and host walk.
+7. pairwise_cli: the port's globalAlignment and cigarToBed on the card,
+            stdout, -faOut and beds byte-equal to --device cpu.
 
-Then the kernels line (launch counts from phase 3) and, last, one JSON
+Then the kernels line (launch counts of banded_dp and banded_walk_pack
+from phase 3, of the wavefront kernels from phase 6) and, last, one JSON
 object naming the device. Without a CUDA card, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -60,6 +75,29 @@ DP_OPS_PER_WINDOW_BASE = 2
 # per walk step: trace address, load, stop test, i and c updates, pack
 # shift and or (the band walk stays inside the trace, so it needs no clip)
 WALK_OPS_PER_STEP = 7
+
+# Pairwise global alignment (BASELINE.json config 2, bench.py:120-129 and
+# :179-188): trace mode at 128 pairs, score mode at 256, 1024 x 1024.
+PAIR_LEN, PAIR_B_TRACE, PAIR_B_SCORE = 1024, 128, 256
+# the API and CLI phases: related pairs of about 1 kb
+RELATED_LEN, RELATED_PAIRS = 1000, 128
+AFFINE_GAPS, CONST_GAP = (-600, -150), -430
+# int32 operations that each wavefront function needs per cell (i, j) of
+# a pair's own n_b x m_b grid, not those of one implementation:
+# substitution address and table load (2); affine score mode: M = sub +
+# max3 of (M, I, D) at (i-1, j-1) as one DPX max3 and an add (2), I =
+# max(go+ge+M, ge+I, go+ge+D) at (i, j-1) as go+ge + max(M, D) against
+# ge+I, a max, an add and a DPX add-max (3), D the same at (i-1, j) (3).
+# Trace mode writes each state's predecessor: the three candidates of I
+# and of D as values (3 adds each), their DPX max3 (1 each), and per
+# state an argmax in tie order (2 compares, 2 selects: 4 each, M too),
+# then the code tM + 4 tI + 16 tD (2).
+AFFINE_OPS_PER_CELL = {"score": 2 + 2 + 3 + 3,
+                       "trace": 2 + (1 + 1 + 4) + 2 * (3 + 1 + 4) + 2}
+# const score mode: diag = c(i-1, j-1) + sub (1), max(c(i, j-1),
+# c(i-1, j)) and a DPX add-max with the gap against diag (2); trace mode:
+# left and up as values (2), a DPX max3 (1) and the argmax (4)
+CONST_OPS_PER_CELL = {"score": 2 + 1 + 2, "trace": 2 + 1 + 2 + 1 + 4}
 
 
 def emit(obj) -> None:
@@ -109,7 +147,7 @@ def phase_device() -> dict:
     t0 = time.perf_counter()
     host = threading.Thread(target=native.available)
     host.start()
-    _kernels.lib()
+    _kernels.build_all()
     host.join()
     info = {"phase": "device", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -426,6 +464,333 @@ def phase_cli(dev: torch.device, G: int) -> dict:
     return result
 
 
+def related_pair(rng, L: int, same_length: bool):
+    """A random sequence of L bases and a relative of it: 2% SNPs, 0.5%
+    N, a deletion and an insertion of 1-30 bp each (of the same length
+    when same_length, so that the pair stays L x L)."""
+    a = rng.integers(0, 4, L).astype(np.int8)
+    b = a.copy()
+    b[rng.random(L) < 0.02] = rng.integers(0, 4)
+    b[rng.random(L) < 0.005] = 4
+    k_del = int(rng.integers(1, 31))
+    k_ins = k_del if same_length else int(rng.integers(1, 31))
+    cut = int(rng.integers(0, L - k_del))
+    b = np.concatenate([b[:cut], b[cut + k_del:]])
+    at = int(rng.integers(0, len(b)))
+    b = np.concatenate([b[:at], rng.integers(0, 4, k_ins).astype(np.int8),
+                        b[at:]])
+    return a, b
+
+
+def pair_batch(B: int, n: int, m: int, seed: int, dev):
+    """B related pairs padded to (n, m) as tensors on dev: alpha, beta,
+    fin = n_b + m_b, and each pair's (n_b, m_b). Pair b has a prefix of
+    length n - b % 7 of one related n-bp pair against m - b % 5 bases of
+    its relative (cut or padded with random bases)."""
+    rng = np.random.default_rng(seed)
+    alpha = np.full((B, n), 4, np.int8)
+    beta = np.full((B, m), 4, np.int8)
+    dims = []
+    for b in range(B):
+        a, r = related_pair(rng, n, same_length=True)
+        nb, mb = n - b % 7, m - b % 5
+        r = np.concatenate([r, rng.integers(0, 4, max(0, mb - len(r)))])[:mb]
+        alpha[b, :nb] = a[:nb]
+        beta[b, :mb] = r
+        dims.append((nb, mb))
+    dims = np.array(dims)
+    fin = dims.sum(1).astype(np.int32)
+    return (torch.from_numpy(alpha).to(dev), torch.from_numpy(beta).to(dev),
+            torch.from_numpy(fin).to(dev), dims)
+
+
+def wavefront_bound(mode: str, kind: str, dims: np.ndarray, n: int, m: int,
+                    ) -> dict:
+    """Least time for one wavefront call: each input read once and each
+    output written once (the trace as each pair's own n_b x m_b cells)
+    at the memory rate, and the operations each pair's own cells need at
+    the int32 rate."""
+    B = len(dims)
+    cells = int((dims[:, 0].astype(np.int64) * dims[:, 1]).sum())
+    results = (3 if (mode, kind) == ("affine", "trace") else 1) * B * (n + 1)
+    nbytes = B * (n + m) + 4 * B + 100 + 4 * results
+    if kind == "trace":
+        nbytes += cells
+    per_cell = (AFFINE_OPS_PER_CELL if mode == "affine"
+                else CONST_OPS_PER_CELL)[kind]
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": per_cell * cells / INT32_OPS_PER_S * 1e3,
+            "cells": cells}
+
+
+def phase_pairwise_kernels(dev: torch.device) -> list[dict]:
+    from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+    from gonomics_tpu_torch.ops import wavefront
+
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=dev)
+    gaps = {"affine": AFFINE_GAPS, "const": (CONST_GAP, 0)}
+
+    def kernel(mode, a, b, f, with_trace):
+        go, ge = gaps[mode]
+        return wavefront.wavefront_align(a, b, f, sc, gap_open=go,
+                                         gap_extend=ge, with_trace=with_trace,
+                                         mode=mode)
+
+    def plain(mode, a, b, f, with_trace):
+        if mode == "affine":
+            return wavefront.affine_wavefront_reference(
+                a, b, f, sc, *AFFINE_GAPS, with_trace)
+        return wavefront.const_wavefront_reference(a, b, f, sc, CONST_GAP,
+                                                   with_trace)
+
+    def compare(mode, args, with_trace):
+        got = kernel(mode, *args, with_trace)
+        want = plain(mode, *args, with_trace)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        return equal, err
+
+    cases, ok = [], True
+    for mode in ("affine", "const"):
+        for kind, B in (("trace", PAIR_B_TRACE), ("score", PAIR_B_SCORE)):
+            a, b, f, dims = pair_batch(B, PAIR_LEN, PAIR_LEN,
+                                       seed=B + len(mode), dev=dev)
+            tr = kind == "trace"
+            equal, err = compare(mode, (a, b, f), tr)
+            bound = wavefront_bound(mode, kind, dims, PAIR_LEN, PAIR_LEN)
+            by = "bytes" if bound["bytes"] > bound["operations"] else \
+                "operations"
+            cases.append({
+                "mode": mode, "kind": kind, "B": B, "n": PAIR_LEN,
+                "m": PAIR_LEN, "state_in_shared_memory":
+                    wavefront.state_in_shared_memory(PAIR_LEN, mode),
+                "equal_to_plain": equal, "max_abs_err": err,
+                "ms": median_ms(lambda: kernel(mode, a, b, f, tr), runs=15,
+                                inner=5),
+                "plain_ms": median_ms(lambda: plain(mode, a, b, f, tr),
+                                      runs=3),
+                "bound_ms": bound[by], "bound_by": by,
+                "cells": bound["cells"]})
+            ok &= equal
+        # one pair set whose diagonal state is above the shared-memory
+        # limit: the kernel keeps it in a global scratch
+        n_big = 5700 if mode == "affine" else 17100
+        a, b, f, _ = pair_batch(2, n_big, 300, seed=3, dev=dev)
+        equal, err = compare(mode, (a, b, f), True)
+        cases.append({"mode": mode, "kind": "trace", "B": 2, "n": n_big,
+                      "m": 300, "state_in_shared_memory":
+                          wavefront.state_in_shared_memory(n_big, mode),
+                      "equal_to_plain": equal, "max_abs_err": err})
+        ok &= equal and not cases[-1]["state_in_shared_memory"]
+    emit({"phase": "pairwise_kernels", "tolerance": "exact", "cases": cases})
+    if not ok:
+        raise SystemExit("a wavefront kernel disagrees with its plain version")
+    rows = []
+    for mode, name in (("affine", "affine_wavefront"),
+                       ("const", "const_wavefront")):
+        trace_case, score_case, _ = [c for c in cases if c["mode"] == mode]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "gonomics_tpu_torch/csrc/wavefront.cu",
+            "replaces": (f"gonomics_tpu/ops/wavefront.py:"
+                         f"{94 if mode == 'affine' else 243} "
+                         f"(_{mode}_kernel, pallas_call :1584)"),
+            "launches": None, "tolerance": "exact",
+            "equal_to_plain": all(c["equal_to_plain"] for c in cases
+                                  if c["mode"] == mode),
+            "max_abs_err": max(c["max_abs_err"] for c in cases
+                               if c["mode"] == mode),
+            "ms": trace_case["ms"], "plain_ms": trace_case["plain_ms"],
+            "bound_ms": trace_case["bound_ms"],
+            "bound_by": trace_case["bound_by"], "library_ms": None,
+            "shape": f"trace mode, {trace_case['B']} pairs of "
+                     f"{PAIR_LEN} x {PAIR_LEN}",
+            "score_mode": {k: score_case[k] for k in (
+                "B", "ms", "plain_ms", "bound_ms", "bound_by")}})
+    return rows
+
+
+def replay_score(a, b, route, scores, gap_open: int, gap_extend: int) -> int:
+    """Score of a route, replayed from the cigar alone: scores[a, b] per
+    match column, and gap_open + gap_extend * length per gap run (a
+    linear gap g is gap_open 0, gap_extend g)."""
+    from gonomics_tpu_torch.align.cigar import COL_I, COL_M
+
+    total = i = j = 0
+    for c in route:
+        if c.op == COL_M:
+            total += int(scores[a[i:i + c.run_length],
+                                b[j:j + c.run_length]].sum())
+            i += c.run_length
+            j += c.run_length
+        else:
+            total += gap_open + gap_extend * c.run_length
+            if c.op == COL_I:
+                j += c.run_length
+            else:
+                i += c.run_length
+    return total
+
+
+def consumed(route) -> tuple[int, int]:
+    from gonomics_tpu_torch.align.cigar import COL_D, COL_I
+
+    return (sum(c.run_length for c in route if c.op != COL_I),
+            sum(c.run_length for c in route if c.op != COL_D))
+
+
+def phase_pairwise(dev: torch.device) -> dict:
+    from gonomics_tpu_torch import align
+    from gonomics_tpu_torch.align import pairwise
+    from gonomics_tpu_torch.ops import wavefront
+
+    H = align.HUMAN_CHIMP_TWO
+    rng = np.random.default_rng(17)
+    pairs = [related_pair(rng, RELATED_LEN, same_length=False)
+             for _ in range(RELATED_PAIRS)]
+    calls = {"affine": lambda p, **kw: align.affine_gap_batch(
+                 p, H, *AFFINE_GAPS, **kw),
+             "const": lambda p, **kw: align.const_gap_batch(
+                 p, H, CONST_GAP, **kw)}
+    gaps = {"affine": AFFINE_GAPS, "const": (0, CONST_GAP)}
+    calls["affine"](pairs[:2], device=dev)  # warm-up
+    calls["const"](pairs[:2], device=dev)
+
+    # split of the wall: the kernel (card clock, synchronised here so
+    # that the copy after it is timed alone), the copies to the host and
+    # the host walks
+    split = {}
+    wrapped = {}
+
+    def timed(name, fn, device_side=False):
+        def run(*args, **kw):
+            if device_side:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+                end.synchronize()
+                split[name] = split.get(name, 0.0) + start.elapsed_time(end)
+                return out
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            split[name] = (split.get(name, 0.0)
+                           + (time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    for attr, name, dev_side in (("wavefront_align", "kernel_ms", True),
+                                 ("_to_host", "copy_ms", False),
+                                 ("_walk_affine", "walk_ms", False),
+                                 ("_walk_const", "walk_ms", False)):
+        wrapped[attr] = getattr(pairwise, attr)
+        setattr(pairwise, attr, timed(name, wrapped[attr], dev_side))
+
+    # the main path: launch counts from these calls only
+    wavefront.affine_launches = wavefront.const_launches = 0
+    out = {"phase": "pairwise", "pairs": len(pairs),
+           "lengths": [int(min(len(a) for a, _ in pairs)),
+                       int(max(max(len(a), len(b)) for a, b in pairs))]}
+    results = {}
+    try:
+        for mode in ("affine", "const"):
+            split.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[mode] = calls[mode](pairs, device=dev)
+            wall = (time.perf_counter() - t0) * 1e3
+            out[mode] = {"wall_ms": wall,
+                         "pairs_per_s": len(pairs) / wall * 1e3,
+                         **split,
+                         "other_ms": wall - sum(split.values())}
+    finally:
+        for attr, fn in wrapped.items():
+            setattr(pairwise, attr, fn)
+    launches = {"affine_wavefront": wavefront.affine_launches,
+                "const_wavefront": wavefront.const_launches}
+    out["launches"] = launches
+
+    ok = all(v > 0 for v in launches.values())
+    for mode in ("affine", "const"):
+        got = results[mode]
+        consumes = all(consumed(r) == (len(a), len(b))
+                       for (a, b), (_, r) in zip(pairs, got))
+        replays = all(replay_score(a, b, r, H, *gaps[mode]) == s
+                      for (a, b), (s, r) in zip(pairs, got))
+        cpu = calls[mode](pairs[:8], device="cpu")
+        same_as_cpu = [(s, [(c.run_length, c.op) for c in r])
+                       for s, r in got[:8]] == \
+            [(s, [(c.run_length, c.op) for c in r]) for s, r in cpu]
+        scores_only = calls[mode](pairs, device=dev, with_cigar=False)
+        score_mode = [s for s, _ in scores_only] == [s for s, _ in got]
+        out[mode].update({"routes_consume_both": consumes,
+                          "routes_replay_to_score": replays,
+                          "first_8_equal_cpu": same_as_cpu,
+                          "score_mode_equal": score_mode})
+        ok &= consumes and replays and same_as_cpu and score_mode
+    emit(out)
+    if not ok:
+        raise SystemExit("pairwise check failed")
+    return out
+
+
+def phase_pairwise_cli() -> dict:
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.cli import cigar_to_bed, global_alignment
+
+    rng = np.random.default_rng(23)
+    a, b = related_pair(rng, RELATED_LEN, same_length=False)
+    inputs = {"chelsea_eric": ("TTGTTATTC", "TTGTTC"),
+              "related_1kb": (dna.to_string(a), dna.to_string(b))}
+    result = {"phase": "pairwise_cli"}
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        for case, (s_a, s_b) in inputs.items():
+            fa = []
+            for name, seq in (("chelsea", s_a), ("eric", s_b)):
+                path = os.path.join(tmp, f"{case}.{name}.fa")
+                with open(path, "w") as f:
+                    f.write(f">{name}\n")
+                    f.writelines(seq[i:i + 60] + "\n"
+                                 for i in range(0, len(seq), 60))
+                fa.append(path)
+            outputs = {}
+            for device in ("cuda", "cpu"):
+                pre = os.path.join(tmp, f"{case}.{device}")
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    global_alignment.main([*fa, "-faOut", pre + ".ga.fa",
+                                           "--device", device])
+                    cigar_to_bed.main([*fa, "-faOut", pre + ".c2b.fa",
+                                       "-insBedOut", pre + ".ins.bed",
+                                       "-delBedOut", pre + ".del.bed",
+                                       "--device", device])
+                files = []
+                for ext in (".ga.fa", ".c2b.fa", ".ins.bed", ".del.bed"):
+                    with open(pre + ext, "rb") as f:
+                        files.append(f.read())
+                outputs[device] = [buf.getvalue().encode(), *files]
+            equal = outputs["cuda"] == outputs["cpu"]
+            lines = outputs["cuda"][0].decode().split("\n")
+            result[case] = {"card_equals_cpu": equal,
+                            "stdout_bytes": len(outputs["cuda"][0]),
+                            "ins_bed_lines": outputs["cuda"][3].count(b"\n")}
+            ok &= equal
+            if case == "chelsea_eric":
+                view_ok = lines[1:3] == ["TTGTTATTC", "TTG---TTC"]
+                result[case]["view"] = lines[1:3]
+                ok &= view_ok
+    emit(result)
+    if not ok:
+        raise SystemExit("pairwise CLI output differs")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -436,8 +801,12 @@ def main() -> int:
     rows = phase_kernels(dev)
     e2e = phase_end_to_end(dev, 100_000_000)
     phase_cli(dev, 10_000_000)
+    rows += phase_pairwise_kernels(dev)
+    pairwise = phase_pairwise(dev)
+    phase_pairwise_cli()
+    launches = {**e2e["launches"], **pairwise["launches"]}
     for r in rows:
-        r["launches"] = e2e["launches"][r["name"]]
+        r["launches"] = launches[r["name"]]
     emit({"phase": "done", "total_s": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -1,11 +1,14 @@
 """Builds the CUDA kernels in ``csrc/`` with ``nvcc`` for ``sm_90a`` and
 binds their plain C entry points with ctypes.
 
-The library is compiled into the package's git-ignored ``_build/`` on
-the first launch, never at import, so the package imports on machines
-without ``nvcc``. Every pointer and the stream travel as ``c_void_p``;
-each entry returns ``cudaGetLastError()`` and ``check`` raises on a
-non-zero code.
+Each source is its own shared library (``banded.cu`` -> ``libbanded.so``,
+``wavefront.cu`` -> ``libwavefront.so``), compiled into the package's
+git-ignored ``_build/`` on the first launch of one of its kernels, never
+at import, so the package imports on machines without ``nvcc``.
+``build_all`` compiles them side by side. Every pointer and the stream
+travel as ``c_void_p``; each entry returns ``cudaGetLastError()`` and
+``check`` raises on a non-zero code, naming the kernel. ``as_vec`` and
+``expect`` are the argument checks the wrappers make before a launch.
 """
 
 from __future__ import annotations
@@ -15,25 +18,39 @@ import os
 import shutil
 import threading
 
+import torch
+
 from .._buildlib import build_shared
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
-SOURCES = [os.path.join(_CSRC, "banded.cu")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
+# library -> its entry points' argument types
 _SIGNATURES = {
-    "banded_dp_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
-                         _vp, _vp, _vp, _vp],
-    "banded_walk_pack_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
-                                _vp, _vp, _vp, _vp],
+    "banded": {
+        "banded_dp_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
+                             _vp, _vp, _vp, _vp],
+        "banded_walk_pack_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
+                                    _int, _vp, _vp, _vp, _vp],
+    },
+    "wavefront": {
+        "affine_wavefront_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
+                                    _int, _int, _int, _vp, _vp, _vp, _vp,
+                                    _vp, _vp],
+        "const_wavefront_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
+                                   _int, _int, _vp, _vp, _vp, _vp],
+    },
 }
+# kernel name (as check() is given it) -> its library
+_LIBRARY_OF = {"banded_dp": "banded", "banded_walk_pack": "banded",
+               "affine_wavefront": "wavefront", "const_wavefront": "wavefront"}
 
-_lock = threading.Lock()
-_lib = None
+_locks = {name: threading.Lock() for name in _SIGNATURES}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -43,25 +60,64 @@ def _nvcc() -> str:
     return path
 
 
-def lib() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            so = build_shared("libbanded.so", SOURCES, [_nvcc()] + NVCC_FLAGS)
+def lib(name: str) -> ctypes.CDLL:
+    """The kernel library ``name`` ("banded" or "wavefront"), built on
+    first use."""
+    with _locks[name]:
+        if name not in _libs:
+            so = build_shared(f"lib{name}.so",
+                              [os.path.join(_CSRC, f"{name}.cu")],
+                              [_nvcc()] + NVCC_FLAGS)
             cdll = ctypes.CDLL(so)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(cdll, name)
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(cdll, fn_name)
                 fn.restype = _int
                 fn.argtypes = argtypes
-            cdll.banded_error_string.restype = ctypes.c_char_p
-            cdll.banded_error_string.argtypes = [_int]
-            _lib = cdll
-        return _lib
+            err = getattr(cdll, f"{name}_error_string")
+            err.restype = ctypes.c_char_p
+            err.argtypes = [_int]
+            _libs[name] = cdll
+        return _libs[name]
 
 
-def check(rc: int, name: str) -> None:
-    """Raise when a launch returned a CUDA error code."""
+def build_all() -> None:
+    """Build every kernel library, one nvcc for each source, all started
+    together; raises the first build error."""
+    errors = []
+
+    def build(name: str) -> None:
+        try:
+            lib(name)
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(n,)) for n in _SIGNATURES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def as_vec(x, B: int, device) -> torch.Tensor:
+    """x as a (B,) int32 tensor on ``device``."""
+    return torch.as_tensor(x, dtype=torch.int32, device=device).reshape(B)
+
+
+def expect(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str,
+           device: torch.device) -> torch.Tensor:
+    """t made contiguous, after raising unless it has this dtype, shape
+    and device (the checks a wrapper makes before a launch)."""
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name}: want {dtype} {shape} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise when the launch of ``kernel`` returned a CUDA error code."""
     if rc != 0:
-        msg = lib().banded_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+        name = _LIBRARY_OF[kernel]
+        msg = getattr(lib(name), f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")

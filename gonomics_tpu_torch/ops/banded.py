@@ -27,6 +27,7 @@ import torch
 
 from .. import NEG
 from . import _kernels
+from ._kernels import as_vec, expect
 
 BW = 64
 HALF = NEG // 2  # base score of cells outside the valid region
@@ -38,18 +39,6 @@ walk_launches = 0
 def walk_length(L: int) -> int:
     """Steps of the backward walk for reads of length L (wavefront.py:874)."""
     return L + BW + 4
-
-
-def _as_vec(x, B: int, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int32, device=device).reshape(B)
-
-
-def _check(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str,
-           device: torch.device) -> torch.Tensor:
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
-        raise ValueError(f"{name}: want {dtype} {shape} on {device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    return t.contiguous()
 
 
 def banded_dp_reference(reads, windows, n_vec, m_vec, scores, gap: int):
@@ -72,8 +61,8 @@ def banded_dp_reference(reads, windows, n_vec, m_vec, scores, gap: int):
     k = min(W, L + BW)
     wc[:, :k] = windows[:, :k].to(torch.int64).clamp(0, 4)
     sc = torch.as_tensor(scores, dtype=i32, device=dev)
-    n = _as_vec(n_vec, B, dev)[:, None]
-    m = _as_vec(m_vec, B, dev)[:, None]
+    n = as_vec(n_vec, B, dev)[:, None]
+    m = as_vec(m_vec, B, dev)[:, None]
     zero_col = torch.zeros((B, 1), dtype=i32, device=dev)
     prev = torch.zeros((B, BW), dtype=i32, device=dev)
     bv = torch.zeros((B, BW), dtype=i32, device=dev)
@@ -114,18 +103,18 @@ def banded_dp(reads, windows, n_vec, m_vec, scores, gap: int):
     dev = reads.device
     if dev.type == "cpu":
         return banded_dp_reference(reads, windows, n_vec, m_vec, scores, gap)
-    reads = _check(reads, torch.int8, (B, L), "reads", dev)
-    windows = _check(windows, torch.int8, (B, W), "windows", dev)
-    n_vec = _check(_as_vec(n_vec, B, dev), torch.int32, (B,), "n_vec", dev)
-    m_vec = _check(_as_vec(m_vec, B, dev), torch.int32, (B,), "m_vec", dev)
-    sc = _check(torch.as_tensor(scores, dtype=torch.int32, device=dev),
+    reads = expect(reads, torch.int8, (B, L), "reads", dev)
+    windows = expect(windows, torch.int8, (B, W), "windows", dev)
+    n_vec = expect(as_vec(n_vec, B, dev), torch.int32, (B,), "n_vec", dev)
+    m_vec = expect(as_vec(m_vec, B, dev), torch.int32, (B,), "m_vec", dev)
+    sc = expect(torch.as_tensor(scores, dtype=torch.int32, device=dev),
                 torch.int32, (5, 5), "scores", dev)
     bv = torch.empty((B, BW), dtype=torch.int32, device=dev)
     bi = torch.empty((B, BW), dtype=torch.int32, device=dev)
     trace = torch.empty((L, B, BW), dtype=torch.int8, device=dev)
     if B == 0:
         return bv, bi, trace
-    lib = _kernels.lib()
+    lib = _kernels.lib("banded")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.banded_dp_launch(
@@ -174,17 +163,17 @@ def banded_walk_pack(trace, i_end, c_end, active, D: int):
     dev = trace.device
     if dev.type == "cpu":
         return banded_walk_pack_reference(trace, i_end, c_end, active, D)
-    trace = _check(trace, torch.int8, (L, B, BW), "trace", dev)
-    i_end = _check(i_end.to(torch.int32), torch.int32, (B,), "i_end", dev)
-    c_end = _check(c_end.to(torch.int32), torch.int32, (B,), "c_end", dev)
-    active = _check(active.to(torch.uint8), torch.uint8, (B,), "active", dev)
+    trace = expect(trace, torch.int8, (L, B, BW), "trace", dev)
+    i_end = expect(i_end.to(torch.int32), torch.int32, (B,), "i_end", dev)
+    c_end = expect(c_end.to(torch.int32), torch.int32, (B,), "c_end", dev)
+    active = expect(active.to(torch.uint8), torch.uint8, (B,), "active", dev)
     P = -(-D // 4)
     i0 = torch.empty(B, dtype=torch.int32, device=dev)
     c0 = torch.empty(B, dtype=torch.int32, device=dev)
     packed = torch.empty((B, P), dtype=torch.uint8, device=dev)
     if B == 0:
         return i0, c0, packed
-    lib = _kernels.lib()
+    lib = _kernels.lib("banded")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.banded_walk_pack_launch(

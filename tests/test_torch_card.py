@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from gonomics_tpu_torch import align
 from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
-from gonomics_tpu_torch.ops import banded
+from gonomics_tpu_torch.ops import banded, wavefront
 
 PLUS_MINUS_ONE = np.where(np.eye(5, dtype=bool), 1, -1).astype(np.int32)
 
@@ -89,3 +90,93 @@ def test_walk_on_random_traces(card):
     for g, w in zip(banded.banded_walk_pack(*args, D),
                     banded.banded_walk_pack_reference(*args, D)):
         assert torch.equal(g, w)
+
+
+def _pairs_batch(B: int, n: int, m: int, seed: int):
+    """B pairs padded to (n, m): related pairs (SNPs, indels) of mixed
+    lengths, N codes, a pair with an empty side and negative codes."""
+    rng = np.random.default_rng(seed)
+    alpha = np.full((B, n), 4, np.int8)
+    beta = np.full((B, m), 4, np.int8)
+    nb = rng.integers(max(1, n // 2), n + 1, B)
+    mb = rng.integers(max(1, m // 2), m + 1, B)
+    nb[0], mb[0] = n, m
+    for b in range(B):
+        a = rng.integers(0, 4, nb[b]).astype(np.int8)
+        rel = np.concatenate([a[:nb[b] // 3], a[nb[b] // 3 + 2:],
+                              rng.integers(0, 4, 3).astype(np.int8)])
+        rel[rng.random(len(rel)) < 0.05] = 4
+        rel = np.resize(rel, mb[b])
+        alpha[b, :nb[b]] = a
+        beta[b, :mb[b]] = rel
+    if B > 2:
+        nb[1] = 0
+        alpha[1] = 4
+        alpha[2, :min(n, 3)] = [-1, -7, 2][:n]
+        beta[2, :min(m, 3)] = [-2, 1, -1][:m]
+    return alpha, beta, (nb + mb).astype(np.int32)
+
+
+_WAVEFRONT_CASES = [
+    (mode, *shape) for mode in ("affine", "const") for shape in (
+        (5, 37, 50, "humanChimp"), (3, 1, 1, "humanChimp"),
+        (7, 90, 64, "plusMinusOne"), (129, 260, 301, "humanChimp"))]
+# diagonal state above the shared-memory limit: the global scratch
+_WAVEFRONT_BIG = [("affine", 2, 5700, 40, "humanChimp"),
+                  ("const", 2, 17100, 30, "plusMinusOne")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,B,n,m,scoring",
+                         _WAVEFRONT_CASES + _WAVEFRONT_BIG)
+def test_wavefront_kernels_equal_plain(card, mode, B, n, m, scoring):
+    big = (mode, B, n, m, scoring) in _WAVEFRONT_BIG
+    assert wavefront.state_in_shared_memory(n, mode) == (not big)
+    scores, go, ge = ((HUMAN_CHIMP_TWO, -600, -150) if scoring == "humanChimp"
+                      else (PLUS_MINUS_ONE, -1, -1))
+    if mode == "const":
+        go, ge = (-430 if scoring == "humanChimp" else -1), 0
+    alpha, beta, fin = (torch.from_numpy(x).to(card)
+                        for x in _pairs_batch(B, n, m, B + n))
+    sc = torch.as_tensor(scores, dtype=torch.int32, device=card)
+    counter = f"{mode}_launches"
+    for with_trace in (True, False):
+        args = (alpha, beta, fin, sc)
+        kw = dict(gap_open=go, gap_extend=ge, with_trace=with_trace,
+                  mode=mode)
+        before = getattr(wavefront, counter)
+        got = wavefront.wavefront_align(*args, **kw)
+        want = (wavefront.affine_wavefront_reference(
+                    *args, go, ge, with_trace) if mode == "affine" else
+                wavefront.const_wavefront_reference(*args, go, with_trace))
+        torch.cuda.synchronize()
+        assert getattr(wavefront, counter) == before + 1
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (with_trace, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["affine", "const"])
+def test_pairwise_on_card_equals_cpu(card, mode):
+    """The batch API on the card against device="cpu": scores and
+    routes, for pairs with N codes, an empty alpha and reversed
+    relatives."""
+    rng = np.random.default_rng(6)
+    pairs = []
+    for _ in range(9):
+        a = rng.integers(0, 5, int(rng.integers(0, 120))).astype(np.int8)
+        pairs.append((a, np.resize(a[::-1], int(rng.integers(1, 111)))))
+    pairs.append((np.zeros(0, np.int8), np.array([0, 1, 2], np.int8)))
+
+    def run(device):
+        if mode == "affine":
+            out = align.affine_gap_batch(pairs, HUMAN_CHIMP_TWO, -600, -150,
+                                         device=device)
+        else:
+            out = align.const_gap_batch(pairs, HUMAN_CHIMP_TWO, -430,
+                                        device=device)
+        return [(s, [(c.run_length, c.op) for c in r]) for s, r in out]
+
+    assert run(card) == run("cpu")
