@@ -29,16 +29,32 @@ exits non-zero:
             trace copy to the host, and host walk.
 7. pairwise_cli: the port's globalAlignment and cigarToBed on the card,
             stdout, -faOut and beds byte-equal to --device cpu.
+8. graph:   GraphAligner with the gsw defaults (-i 32 -w 32, humanChimpTwo,
+            gap -600) on the variant graph of a 50 Mbp chromosome (a SNP
+            every 1 kb, a 1-30 bp deletion or insertion every 10 kb): one
+            warm-up batch, then 4 batches of 2048 x 150 bp reads sampled
+            along graph paths, pipelined 2 deep; checks the mapped
+            fraction, that each read's giraf path lies on the path it was
+            sampled from, that junk gets no path, that the first 256 reads' giraf equals
+            device="cpu", and that every graph kernel was launched.
+9. graph_kernels: 2048 left and 2048 right jobs of the graph phase's
+            warm-up waves through local_wavefront, gsw_right_wavefront and
+            gsw_walk_pack, each held against its plain PyTorch version on
+            the card (exact equality) and timed.
+10. graph_cli: the port's `gsw align` on a 1 Mbp .gg, giraf and SAM, single
+            and paired, byte-equal to --device cpu.
 
 Then the kernels line (launch counts of banded_dp and banded_walk_pack
-from phase 3, of the wavefront kernels from phase 6) and, last, one JSON
-object naming the device. Without a CUDA card, or outside a checkout of
-the repository, it exits non-zero and prints no result.
+from phase 3, of the wavefront kernels from phase 6, of the graph kernels
+from phase 8) and, last, one JSON object naming the device. Without a
+CUDA card, or outside a checkout of the repository, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -48,6 +64,8 @@ import sys
 import tempfile
 import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -98,6 +116,29 @@ AFFINE_OPS_PER_CELL = {"score": 2 + 2 + 3 + 3,
 # c(i-1, j)) and a DPX add-max with the gap against diag (2); trace mode:
 # left and up as values (2), a DPX max3 (1) and the argmax (4)
 CONST_OPS_PER_CELL = {"score": 2 + 1 + 2, "trace": 2 + 1 + 2 + 1 + 4}
+
+# Graph read aligner: the gsw defaults (-i 32 -w 32, humanChimpTwo, gap
+# -600) and the CLI's batch of 2048 reads of 150 bp, on the variant graph
+# of a 50 Mbp chromosome (the size of human chr22); the CLI phase on 1 Mbp.
+GRAPH_BP, GRAPH_BATCH, GRAPH_BATCHES, GRAPH_JOBS = 50_000_000, 2048, 4, 2048
+GRAPH_CLI_BP = 1_000_000
+# int32 operations the graph DPs need per cell (i, j) of a job's own
+# n_b x m_b grid, not those of one implementation. LeftDynamicAln:
+# substitution address and table load (2), diag = c(i-1, j-1) + sub (1),
+# max(c(i, j-1), c(i-1, j)) and one DPX add-max-relu with the gap against
+# diag, which also clamps at 0 (2); left and up as values for the trace
+# (2), their argmax in tie order (2 compares, 2 selects: 4), code 3 where
+# c == 0 (1), the lane's best value and its diagonal (a DPX max with
+# predicate and a select: 2). RightDynamicAln: the same without the clamp
+# and the code 3 (13); its row 0 and column 0 are gap * d, one operation
+# a cell.
+LOCAL_OPS_PER_CELL = 2 + 1 + 2 + 2 + 4 + 1 + 2
+RIGHT_OPS_PER_CELL = 2 + 1 + 2 + 2 + 4 + 2
+# per walk step: trace address, load, stop test, i and j updates, pack
+# shift and or; the right side's end is a first-max over the job's lanes
+# (a compare and a select a lane)
+GSW_WALK_OPS_PER_STEP = 7
+GSW_ARGMAX_OPS_PER_LANE = 2
 
 
 def emit(obj) -> None:
@@ -791,6 +832,418 @@ def phase_pairwise_cli() -> dict:
     return result
 
 
+def graph_vcfs(genome: np.ndarray, seed: int) -> list:
+    """Variants of a chromosome: a SNP every 1 kb and, at 5 kb past every
+    10 kb, a deletion (odd tens of kb) or an insertion (even) of 1-30
+    bp."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.io.vcf import Vcf
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for p in range(1000, len(genome) - 1000, 1000):
+        base = genome[p - 1:p]
+        if p % 10000 == 5000:
+            k = int(rng.integers(1, 31))
+            if (p // 10000) % 2:
+                out.append(Vcf("chr1", p, ".",
+                               dna.to_string(genome[p - 1:p + k]),
+                               [dna.to_string(base)], "SVTYPE=DEL"))
+            else:
+                ins = rng.integers(0, 4, k).astype(np.int8)
+                out.append(Vcf("chr1", p, ".", dna.to_string(base),
+                               [dna.to_string(np.concatenate([base, ins]))],
+                               "SVTYPE=INS"))
+        else:
+            alt = (base + int(rng.integers(1, 4))) % 4
+            out.append(Vcf("chr1", p, ".", dna.to_string(base),
+                           [dna.to_string(alt.astype(np.int8))],
+                           "SVTYPE=SNP"))
+    return out
+
+
+def build_graph(G: int, seed: int):
+    from gonomics_tpu_torch import graph as port_graph
+    from gonomics_tpu_torch.io.fasta import Fasta
+
+    genome = np.random.default_rng(seed).integers(0, 4, G, dtype=np.int8)
+    return port_graph.variant_graph([Fasta("chr1", genome)],
+                                    {"chr1": graph_vcfs(genome, seed + 1)})
+
+
+def graph_reads(g, n: int, seed: int, prefix: str):
+    """n reads of L bp along random paths of g (start uniform over the
+    graph's bases, a random successor at every node end, so alt alleles
+    and indel branches are taken), one substitution each, every other
+    one reverse-complemented, every 100th random junk. Returns the reads
+    (FastqBig) and each one's sampled path: the nodes its bases came from,
+    in order (empty for junk)."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.io.fastq import FastqBig
+
+    rng = np.random.default_rng(seed)
+    lens = np.array([len(nd.seq) for nd in g.nodes], np.int64)
+    cum = np.concatenate([[0], np.cumsum(lens)])
+    qual = np.full(L, 30, np.uint8)
+    reads, truth = [], []
+    while len(reads) < n:
+        i = len(reads)
+        if i % 100 == 7:
+            seq, path = rng.integers(0, 4, L).astype(np.int8), []
+        else:
+            r = int(rng.integers(0, cum[-1]))
+            start = int(np.searchsorted(cum, r, side="right")) - 1
+            cur = g.nodes[start]
+            parts = [cur.seq[r - cum[start]:]]
+            path = [start]
+            got = len(parts[0])
+            while got < L and cur.next:
+                cur = g.nodes[cur.next[int(rng.integers(0, len(cur.next)))].dest]
+                parts.append(cur.seq)
+                path.append(cur.id)
+                got += len(cur.seq)
+            if got < L:
+                continue
+            seq = np.concatenate(parts)[:L].astype(np.int8)
+            p = int(rng.integers(0, L))
+            seq[p] = (seq[p] + int(rng.integers(1, 4))) % 4
+        if i % 2:
+            seq = dna.reverse_complement(seq).astype(np.int8)
+        reads.append(FastqBig(f"{prefix}{i}", seq,
+                              dna.reverse_complement(seq).astype(np.int8),
+                              qual))
+        truth.append(path)
+    return reads, truth
+
+
+def check_girafs(girafs, truth: list) -> dict:
+    """Mapped: a path and a score of at least 1200 (the SAM projection's
+    threshold). A giraf path lists the nodes of the read's winning seed
+    only (the reference's toGiraf), not those its extensions reach, so a
+    read that starts a few bases before a node boundary can have its path
+    start at the next node: placed counts the reads whose path nodes all
+    lie on their sampled path, and the start node's presence is reported
+    beside it."""
+    mapped = placed = has_start = junk_pathed = 0
+    for gr, path in zip(girafs, truth):
+        if not path:
+            junk_pathed += bool(gr.path.nodes)
+            continue
+        if gr.path.nodes and gr.aln_score >= 1200:
+            mapped += 1
+            placed += set(gr.path.nodes) <= set(path)
+            has_start += path[0] in gr.path.nodes
+    real = sum(bool(p) for p in truth)
+    return {"mapped_frac": mapped / real, "path_on_sampled_path_frac":
+            placed / real, "start_node_in_path_frac": has_start / real,
+            "junk": len(truth) - real, "junk_with_path": junk_pathed}
+
+
+def phase_graph(dev: torch.device) -> tuple[dict, list]:
+    from gonomics_tpu_torch import native
+    from gonomics_tpu_torch.graph_align import GraphAligner
+    from gonomics_tpu_torch.io import giraf
+    from gonomics_tpu_torch.ops import gsw_dp, wavefront
+
+    # the reads/s and host split below are those of the native seed path
+    if not native.available():
+        raise SystemExit("the native host library did not build")
+    t0 = time.perf_counter()
+    g = build_graph(GRAPH_BP, 5)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    al = GraphAligner(g, device=dev)
+    index_s = time.perf_counter() - t0
+    batches = [graph_reads(g, GRAPH_BATCH, 200 + t, "g")
+               for t in range(1 + GRAPH_BATCHES)]
+
+    # each wave's jobs and its span on the card's clock, from the first
+    # upload to the result copy enqueued to the host; host seeding time
+    jobs, spans, seed_ms = [], [], []
+    start_wave, find_seeds = al.dp.start_wave, al._find_seeds_arrays
+
+    def timed_start_wave(*args):
+        jobs.append(args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        wave = start_wave(*args)
+        end.record()
+        spans.append((start, end))
+        return wave
+
+    def timed_find_seeds(reads):
+        t1 = time.perf_counter()
+        out = find_seeds(reads)
+        seed_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    al.dp.start_wave, al._find_seeds_arrays = timed_start_wave, \
+        timed_find_seeds
+    al.finish_batch(al.align_batch_async(batches[0][0]))  # warm-up
+    warm_jobs = list(jobs)
+
+    # the main path: launch counts from this loop only
+    wavefront.local_launches = wavefront.gsw_right_launches = 0
+    gsw_dp.walk_launches = 0
+    jobs.clear()
+    spans.clear()
+    seed_ms.clear()
+    finish_ms, results = [], []
+
+    def finish(handle):
+        t1 = time.perf_counter()
+        out = al.finish_batch(handle)
+        finish_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        futs = deque()
+        for reads, _ in batches[1:]:
+            futs.append(ex.submit(finish, al.align_batch_async(reads)))
+            while len(futs) > 1:
+                results.extend(futs.popleft().result())
+        while futs:
+            results.extend(futs.popleft().result())
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    device_ms = [s.elapsed_time(e) for s, e in spans]
+    launches = {"local_wavefront": wavefront.local_launches,
+                "gsw_right_wavefront": wavefront.gsw_right_launches,
+                "gsw_walk_pack": gsw_dp.walk_launches}
+    del al.dp.start_wave, al._find_seeds_arrays
+
+    checks = check_girafs(results, [p for _, t in batches[1:] for p in t])
+    # the first 256 reads again, with the DPs' plain versions on the CPU
+    cpu = copy.copy(al)
+    cpu.dp = gsw_dp.GswDpBatch(al.host.scores, -600, device="cpu")
+    first = batches[1][0][:256]
+    same_as_cpu = ([giraf.to_string(x) for x in results[:256]]
+                   == [giraf.to_string(x) for x in cpu.align_batch(first)])
+    n_reads = GRAPH_BATCHES * GRAPH_BATCH
+    out = {"phase": "graph", "genome_bp": GRAPH_BP, "nodes": len(g.nodes),
+           "edges": sum(len(nd.next) for nd in g.nodes),
+           "seed_len": al.host.seed_len, "step": al.host.step_size,
+           "batches": GRAPH_BATCHES, "batch": GRAPH_BATCH, "read_len": L,
+           "graph_build_s": graph_s, "index_build_s": index_s,
+           "reads_per_s": n_reads / wall,
+           "wall_ms_per_batch": wall * 1e3 / GRAPH_BATCHES,
+           "host_seed_ms_per_batch": float(np.mean(seed_ms)),
+           "waves": len(device_ms),
+           "jobs_left": int(sum(len(j[0]) for j in jobs)),
+           "jobs_right": int(sum(len(j[4]) for j in jobs)),
+           "device_span_ms_per_batch": sum(device_ms) / GRAPH_BATCHES,
+           "device_span_share": sum(device_ms) / (wall * 1e3),
+           "host_finish_ms_per_batch": float(np.mean(finish_ms)),
+           "dims": {"left": list(al.dp._dims["left"]),
+                    "right": list(al.dp._dims["right"])},
+           "native_host_library": native.available(),
+           "first_256_equal_cpu": same_as_cpu, "launches": launches,
+           **checks}
+    emit(out)
+    if not (checks["mapped_frac"] >= 0.99
+            and checks["path_on_sampled_path_frac"] >= 0.99
+            and checks["junk_with_path"] == 0 and same_as_cpu
+            and all(v > 0 for v in launches.values())):
+        raise SystemExit("graph check failed")
+    return out, warm_jobs
+
+
+def stack_jobs(waves: list, side: int, count: int, dims: list):
+    """The first `count` jobs of one side (0 left, 4 right) over the
+    recorded waves, padded with code 4 to the widest wave or to the main
+    path's final sticky dims, whichever is wider."""
+    n = max([dims[0]] + [w[side].shape[1] for w in waves])
+    m = max([dims[1]] + [w[side + 1].shape[1] for w in waves])
+    al, be = [], []
+    for w in waves:
+        a, b = w[side], w[side + 1]
+        al.append(np.pad(a, ((0, 0), (0, n - a.shape[1])), constant_values=4))
+        be.append(np.pad(b, ((0, 0), (0, m - b.shape[1])), constant_values=4))
+    nv = np.concatenate([np.asarray(w[side + 2], np.int32) for w in waves])
+    mv = np.concatenate([np.asarray(w[side + 3], np.int32) for w in waves])
+    return (np.concatenate(al)[:count], np.concatenate(be)[:count],
+            nv[:count], mv[:count])
+
+
+def graph_dp_bound(kind: str, nv: np.ndarray, mv: np.ndarray, n: int,
+                   m: int) -> dict:
+    """Least time of one graph DP call: inputs read once and outputs
+    written once (the trace as each job's own n_b x m_b cells) at the
+    memory rate, the operations each job's own cells need at the int32
+    rate."""
+    C = len(nv)
+    cells = int((nv.astype(np.int64) * mv).sum())
+    rows = 3 if kind == "local" else 2   # bv, bd (and corner)
+    nbytes = C * (n + m) + 8 * C + 100 + rows * 4 * C * (n + 1) + cells
+    ops = (LOCAL_OPS_PER_CELL * cells if kind == "local" else
+           RIGHT_OPS_PER_CELL * cells + int((nv + mv).sum()))
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": ops / INT32_OPS_PER_S * 1e3, "cells": cells}
+
+
+def walk_bound(left_rows, right_rows, D_l: int, D_r: int, S_r: int) -> dict:
+    """Least time of one wave's two walk-packs: the trace cells each walk
+    reads (one a move, plus the cell a left walk stops on), the values it
+    needs (one corner a left job, all bv lanes and one bd a right job),
+    the rows written; the operations of those steps and of the right
+    side's first-max."""
+    from gonomics_tpu_torch.ops.banded import unpack_ops
+
+    steps = 0
+    for rows, D in ((left_rows, D_l), (right_rows, D_r)):
+        ops = unpack_ops(rows[:, 12:], D)
+        steps += int((ops < 3).sum())
+    meta = np.ascontiguousarray(left_rows[:, :12]).view(np.int32)
+    steps += int(((meta[:, 0] > 0) & (meta[:, 1] > 0) & (meta[:, 2] > 0)).sum())
+    C_l, C_r = len(left_rows), len(right_rows)
+    nbytes = (C_l * (4 + 8) + C_r * (4 * S_r + 4) + steps
+              + left_rows.size + right_rows.size)
+    ops = (GSW_WALK_OPS_PER_STEP * steps
+           + GSW_ARGMAX_OPS_PER_LANE * C_r * S_r)
+    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": ops / INT32_OPS_PER_S * 1e3, "steps": steps}
+
+
+def phase_graph_kernels(dev: torch.device, waves: list,
+                        dims: dict) -> list[dict]:
+    from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+    from gonomics_tpu_torch.ops import gsw_dp, wavefront
+
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=dev)
+    sides = {}
+    for name, side in (("left", 0), ("right", 4)):
+        al, be, nv, mv = stack_jobs(waves, side, GRAPH_JOBS, dims[name])
+        sides[name] = (nv, mv, al.shape[1], be.shape[1],
+                       tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                             for x in (al, be, nv, mv)))
+
+    def equal_err(got, want):
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        return equal, err
+
+    nv_l, mv_l, n_l, m_l, left = sides["left"]
+    nv_r, mv_r, n_r, m_r, right = sides["right"]
+    local = lambda: wavefront.local_wavefront(*left, sc, GAP, True)  # noqa: E731
+    local_plain = lambda: wavefront.local_wavefront_reference(  # noqa: E731
+        *left, sc, GAP, True)
+    rdp = lambda: wavefront.gsw_right_wavefront(*right, sc, GAP)  # noqa: E731
+    rdp_plain = lambda: wavefront.gsw_right_wavefront_reference(  # noqa: E731
+        *right, sc, GAP)
+    lres, rres = local_plain(), rdp_plain()
+    _, _, ltrace, corner = lres
+    bv, bd, rtrace = rres
+
+    def walks(fn):
+        return (fn("left", ltrace, corner, None, left[2], left[3]),
+                fn("right", rtrace, bv, bd))
+
+    wplain = walks(gsw_dp.gsw_walk_pack_reference)
+    cases = {
+        "local_wavefront": (local, local_plain,
+                            graph_dp_bound("local", nv_l, mv_l, n_l, m_l)),
+        "gsw_right_wavefront": (rdp, rdp_plain,
+                                graph_dp_bound("right", nv_r, mv_r, n_r,
+                                               m_r)),
+        "gsw_walk_pack": (lambda: walks(gsw_dp.gsw_walk_pack),
+                          lambda: walks(gsw_dp.gsw_walk_pack_reference),
+                          walk_bound(wplain[0].cpu().numpy(),
+                                     wplain[1].cpu().numpy(), n_l + m_l,
+                                     n_r + m_r, n_r + 1)),
+    }
+    replaces = {
+        "local_wavefront": "gonomics_tpu/ops/wavefront.py:179 (_local_kernel,"
+                           " pallas_call :451 in wavefront_local :415)",
+        "gsw_right_wavefront": "gonomics_tpu/ops/wavefront.py:289 "
+                               "(_gsw_right_kernel, pallas_call :368 in "
+                               "wavefront_gsw_right :348)",
+        "gsw_walk_pack": "gonomics_tpu/ops/gsw_dp.py:30-157 (_walk_left, "
+                         "_walk_right, _left_full, _right_full, "
+                         "_pack_result: jnp glue)"}
+    rows, ok = [], True
+    for name, (kernel, plain, bound) in cases.items():
+        equal, err = equal_err(kernel(), plain())
+        ok &= equal
+        by = "bytes" if bound["bytes"] > bound["operations"] else "operations"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "gonomics_tpu_torch/csrc/gsw_dp.cu",
+            "replaces": replaces[name], "launches": None,
+            "equal_to_plain": equal, "tolerance": "exact",
+            "max_abs_err": err,
+            "ms": median_ms(kernel, runs=15, inner=5),
+            "plain_ms": median_ms(plain, runs=3),
+            "bound_ms": bound[by], "bound_by": by, "library_ms": None,
+            "shape": (f"{len(nv_l)} left jobs at (n, m) = ({n_l}, {m_l}), "
+                      f"{len(nv_r)} right jobs at ({n_r}, {m_r})"
+                      + (": both walks" if name == "gsw_walk_pack" else "")),
+            **{k: v for k, v in bound.items()
+               if k not in ("bytes", "operations")}})
+    emit({"phase": "graph_kernels", "tolerance": "exact",
+          "kernels": [{k: r[k] for k in ("name", "equal_to_plain",
+                                         "max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "shape")}
+                      for r in rows]})
+    if not ok:
+        raise SystemExit("a graph kernel disagrees with its plain version")
+    return rows
+
+
+def phase_graph_cli(dev: torch.device) -> dict:
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch import graph as port_graph
+    from gonomics_tpu_torch.cli import gsw_cmd
+    from gonomics_tpu_torch.io import fastq
+
+    g = build_graph(GRAPH_CLI_BP, 9)
+    single, _ = graph_reads(g, 400, 11, "s")
+    r1, _ = graph_reads(g, 200, 12, "p")
+    r2, _ = graph_reads(g, 200, 13, "p")
+    result = {"phase": "graph_cli", "genome_bp": GRAPH_CLI_BP,
+              "nodes": len(g.nodes)}
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        gg = os.path.join(tmp, "ref.gg")
+        port_graph.write(gg, g)
+        sizes = os.path.join(tmp, "ref.sizes")
+        with open(sizes, "w") as f:
+            f.write(f"chr1\t{GRAPH_CLI_BP}\n")
+        paths = {}
+        for name, reads in (("single", single), ("r1", r1), ("r2", r2)):
+            paths[name] = os.path.join(tmp, name + ".fq")
+            with open(paths[name], "w") as f:
+                for r in reads:
+                    f.write(f"@{r.name}\n{dna.to_string(r.seq)}\n+\n"
+                            f"{fastq.qual_string(r.qual)}\n")
+        t0 = time.perf_counter()
+        for case, files in (("single", [paths["single"]]),
+                            ("paired", [paths["r1"], paths["r2"]])):
+            for fmt, extra in (("giraf", []), ("sam", ["-l", sizes])):
+                out = {}
+                for device in (dev.type, "cpu"):
+                    path = os.path.join(tmp, f"{case}.{fmt}.{device}")
+                    gsw_cmd.main(["align", gg, *files, "-o", path,
+                                  "--device", device, *extra])
+                    with open(path, "rb") as f:
+                        out[device] = f.read()
+                equal = out[dev.type] == out["cpu"]
+                lines = out[dev.type].decode().splitlines()
+                body = [ln for ln in lines if not ln.startswith("@")]
+                result[f"{case}_{fmt}"] = {"card_equals_cpu": equal,
+                                           "lines": len(body)}
+                ok &= equal and len(body) == 400
+        result["cli_s"] = time.perf_counter() - t0
+    emit(result)
+    if not ok:
+        raise SystemExit("graph CLI output on the card differs from the CPU")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -804,7 +1257,12 @@ def main() -> int:
     rows += phase_pairwise_kernels(dev)
     pairwise = phase_pairwise(dev)
     phase_pairwise_cli()
-    launches = {**e2e["launches"], **pairwise["launches"]}
+    graph, waves = phase_graph(dev)
+    rows += phase_graph_kernels(dev, waves, graph["dims"])
+    del waves
+    phase_graph_cli(dev)
+    launches = {**e2e["launches"], **pairwise["launches"],
+                **graph["launches"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"phase": "done", "total_s": time.perf_counter() - t0})

@@ -28,3 +28,25 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+class DeviceResult:
+    """A uint8 result on its way to the host: on the card, a non-blocking
+    copy into pinned memory that ``done`` records; on the CPU, the array
+    itself. ``numpy()`` waits for the copy."""
+
+    def __init__(self, res: torch.Tensor):
+        self.done = None
+        if res.device.type == "cuda":
+            self.host = torch.empty(res.shape, dtype=torch.uint8,
+                                    pin_memory=True)
+            self.host.copy_(res, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record()
+        else:
+            self.host = res
+
+    def numpy(self):
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()

@@ -1,12 +1,18 @@
-"""gsw align on the PyTorch port: the linear-reference branch of
-``gonomics_tpu/cli/gsw_cmd.py`` (``_align_tpu``, :41-144).
+"""gsw align on the PyTorch port: the device engine of
+``gonomics_tpu/cli/gsw_cmd.py`` (``_align_tpu``, :41-144, and
+``_align_tpu_graph``, :147-198).
 
     python -m gonomics_tpu_torch.cli.gsw_cmd align ref.fa R1.fq [R2.fq] -o out.sam
+    python -m gonomics_tpu_torch.cli.gsw_cmd align ref.gg R1.fq [R2.fq] \
+        [-i 32] [-w 32] [-m humanChimp] [-l ref.sizes] -o out.giraf
 
-Reads are aligned in batches by ``read_align.ReadAligner`` on the card
-(``--device cpu`` runs the kernels' plain versions on the CPU) and
-written as SAM, byte-identical to ``gsw align --engine tpu``. Graph
-references, ``--mesh``, ``--multihost`` and ``--index-sharding prefix``
+A linear .fa reference is aligned in batches by ``read_align.ReadAligner``
+and written as SAM, byte-identical to ``gsw align --engine tpu``. A graph
+reference (.gg/.sg) is aligned by ``graph_align.GraphAligner`` and
+written as giraf, or as SAM when ``-l`` names a .sizes file,
+byte-identical to ``gsw align --engine tpu`` and ``--engine host``. The
+DPs run on the card; ``--device cpu`` runs the kernels' plain versions
+on the CPU. ``--mesh``, ``--multihost`` and ``--index-sharding prefix``
 are not ported yet and exit with an error that names their ROADMAP item.
 """
 
@@ -18,8 +24,13 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
-from .. import fileio
-from ..io import fasta, fastq as fastqio
+import numpy as np
+
+from .. import fileio, graph as graphmod
+from ..align.matrices import BY_NAME, HUMAN_CHIMP_TWO
+from ..graph_align import GraphAligner
+from ..io import fasta, fastq as fastqio, giraf as girafio
+from ..io.chrom_info import read_to_slice
 from ..read_align import ReadAligner
 
 
@@ -32,9 +43,6 @@ def _progress(tool: str, n: int, t0: float, final: bool = False) -> None:
 
 
 def _refuse_unported(args) -> None:
-    if args.files[0].endswith((".gg", ".sg")):
-        raise SystemExit("gsw align: graph references (.gg/.sg) are not "
-                         "ported yet (ROADMAP queue 1, item 5: graph engine)")
     for flag, on in (("--mesh", args.mesh), ("--multihost", args.multihost),
                      ("--index-sharding prefix",
                       args.index_sharding == "prefix")):
@@ -43,14 +51,82 @@ def _refuse_unported(args) -> None:
                              "queue 1, item 7: multi-device paths)")
 
 
+def _load_reference(path: str):
+    """A .gg/.sg graph and its node names (each node's id)."""
+    g = graphmod.read(path)
+    return g, {n.id: str(n.id) for n in g.nodes}
+
+
+def _select_matrix(name: str):
+    if name in ("humanChimp", "humanChimpTwo"):
+        return HUMAN_CHIMP_TWO
+    if name in BY_NAME:
+        return np.asarray(BY_NAME[name], np.int64)
+    raise SystemExit(f"unknown score matrix: {name}")
+
+
+def _align_graph(args) -> None:
+    """Graph reference -> giraf, or SAM with ``-l x.sizes``: seeds and
+    traversal on the host, the extension DPs of each batch on the device
+    (``graph_align.GraphAligner``)."""
+    g, names = _load_reference(args.files[0])
+    aligner = GraphAligner(g, seed_len=args.index, step_size=args.window,
+                           scores=_select_matrix(args.matrix),
+                           node_names=names, device=args.device)
+    host = aligner.host
+    to_sam = args.liftover.endswith(".sizes")
+    out = fileio.easy_create(args.out)
+    if to_sam:
+        chroms = read_to_slice(args.liftover)
+        for line in (["@HD\tVN:1.6\tSO:unsorted"]
+                     + [f"@SQ\tSN:{c.name}\tLN:{c.size}" for c in chroms]):
+            out.write(line + "\n")
+
+    t0 = time.perf_counter()
+    n_reads = 0
+    if len(args.files) == 3:
+        pairs = fastqio.read_pairs_big(args.files[1], args.files[2])
+        for i in range(0, len(pairs), args.batch):
+            batch = pairs[i:i + args.batch]
+            for a, b in aligner.align_pair_batch(batch):
+                if to_sam:
+                    sa, sb = host.pair_to_sam(a, b)
+                    out.write(sa.to_string() + "\n")
+                    out.write(sb.to_string() + "\n")
+                else:
+                    out.write(girafio.to_string(a) + "\n")
+                    out.write(girafio.to_string(b) + "\n")
+            n_reads += 2 * len(batch)
+            _progress("gsw", n_reads, t0)
+    else:
+        reads = [fastqio.to_big(fq) for fq in fastqio.read(args.files[1])]
+        for i in range(0, len(reads), args.batch):
+            batch = reads[i:i + args.batch]
+            for a in aligner.align_batch(batch):
+                a.flag = host._giraf_flags(a)
+                if to_sam:
+                    out.write(host.giraf_to_sam(a).to_string() + "\n")
+                else:
+                    out.write(girafio.to_string(a) + "\n")
+            n_reads += len(batch)
+            _progress("gsw", n_reads, t0)
+    if args.out not in ("-", "/dev/stdout", "stdout"):
+        out.close()
+    _progress("gsw", n_reads, t0, final=True)
+
+
 def align_cmd(args) -> None:
-    """Linear .fa reference -> SAM through a three-stage pipeline: batch
-    i+1's host seeding (main thread) overlaps batch i's device work
-    (launched without waiting) and batch i-1's SAM assembly (worker
-    thread); writes drain in order on the main thread."""
+    """A graph reference goes to ``_align_graph``. A linear .fa reference
+    -> SAM through a three-stage pipeline: batch i+1's host seeding (main
+    thread) overlaps batch i's device work (launched without waiting) and
+    batch i-1's SAM assembly (worker thread); writes drain in order on
+    the main thread."""
     _refuse_unported(args)
     if len(args.files) not in (2, 3):
-        raise SystemExit("gsw align: want ref.fa R1.fq [R2.fq]")
+        raise SystemExit("gsw align: want ref[.gg/.fa] R1.fq [R2.fq]")
+    if args.files[0].endswith((".gg", ".sg")):
+        _align_graph(args)
+        return
     records = fasta.read(args.files[0])
     al = ReadAligner(records, index_mode=args.index_mode,
                      index_step=args.index_step, device=args.device)
@@ -101,8 +177,18 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="gsw")
     sub = p.add_subparsers(dest="cmd", required=True)
     al = sub.add_parser("align", help="align single or paired end fastqs "
-                                      "to a linear reference (SAM)")
-    al.add_argument("files", nargs="+", help="ref.fa R1.fastq [R2.fastq]")
+                                      "to a linear reference (SAM) or a "
+                                      "genome graph (giraf, or SAM with -l)")
+    al.add_argument("files", nargs="+",
+                    help="ref[.gg/.fa] R1.fastq [R2.fastq]")
+    al.add_argument("-i", "--index", type=int, default=32,
+                    help="graph references: seed length")
+    al.add_argument("-w", "--window", type=int, default=32,
+                    help="graph references: genome step of the seed index")
+    al.add_argument("-m", "--matrix", default="humanChimp",
+                    help="graph references: score matrix")
+    al.add_argument("-l", "--liftover", default="",
+                    help="graph references: a .sizes file, for SAM output")
     al.add_argument("-o", "--out", default="/dev/stdout")
     al.add_argument("--batch", type=int, default=2048,
                     help="reads per device batch")
@@ -114,7 +200,7 @@ def main(argv=None) -> None:
     al.add_argument("--index-step", type=int, default=8,
                     help="genome sampling step of the sparse index")
     al.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="where the banded DP runs; cpu runs the kernels' "
+                    help="where the DPs run; cpu runs the kernels' "
                          "plain PyTorch versions")
     al.add_argument("--index-sharding", default="replicated",
                     choices=["replicated", "prefix"],

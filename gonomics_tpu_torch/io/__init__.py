@@ -1,2 +1,2 @@
-"""Record formats the read aligner reads and writes (mirrors
+"""Record formats the aligners read and write (mirrors
 ``gonomics_tpu/io/``)."""

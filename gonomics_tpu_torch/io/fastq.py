@@ -1,5 +1,5 @@
 """FASTQ records and reading: the subset of ``gonomics_tpu/io/fastq.py``
-that the read aligner and the ``gsw`` CLI use."""
+that the read aligners and the ``gsw`` CLI use."""
 
 from __future__ import annotations
 
@@ -17,6 +17,16 @@ ASCII_OFFSET = 33
 class Fastq:
     name: str = ""
     seq: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int8))
+    qual: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint8))
+
+
+@dataclass
+class FastqBig:
+    """A read with its reverse complement (fastq.py:29)."""
+
+    name: str = ""
+    seq: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int8))
+    seq_rc: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int8))
     qual: np.ndarray = field(default_factory=lambda: np.zeros(0, np.uint8))
 
 
@@ -65,3 +75,20 @@ def read(filename: str) -> list[Fastq]:
         while (fq := _next_fastq(f)) is not None:
             out.append(fq)
     return out
+
+
+def to_big(fq: Fastq) -> FastqBig:
+    """The read as a FastqBig, its name cut at the first space
+    (fastq.py:90)."""
+    return FastqBig(name=fq.name.split(" ")[0], seq=fq.seq,
+                    seq_rc=dna.reverse_complement(fq.seq).astype(np.int8),
+                    qual=fq.qual)
+
+
+def read_pairs_big(file_one: str, file_two: str) -> list[tuple[FastqBig, FastqBig]]:
+    """Both files of a read pair, record by record (fastq.py:97)."""
+    r1 = read(file_one)
+    r2 = read(file_two)
+    if len(r1) != len(r2):
+        raise ValueError("fastq files do not end at the same time")
+    return [(to_big(a), to_big(b)) for a, b in zip(r1, r2)]

@@ -1,5 +1,5 @@
 """ctypes bindings to the repository's host runtime ``native/seqio.cpp``,
-for the helpers the read aligner calls (mirrors the matching entries of
+for the helpers the read aligners call (mirrors the matching entries of
 ``gonomics_tpu/native.py``).
 
 The shared source is compiled with ``g++`` into this package's own
@@ -54,6 +54,8 @@ _SIGNATURES = {
                                 _vp, _vp,                # cig_off, cig_cnt
                                 _vp, _vp,                # run_lens, run_ops
                                 _i64, _vp, _i64]),
+    "graph_hits": (_i64, [_vp, _i64, _i64, _vp, _i32, _vp, _i64, _vp, _vp,
+                          _vp, _vp, _vp, _vp, _vp, _i64, _i32]),
 }
 
 
@@ -246,3 +248,41 @@ def sparse_seed_vote(fwd, rev, k: int, genome, pos, rem, bucket_off,
         second.ctypes.data_as(_vp), strand.ctypes.data_as(_vp),
         _threads(nthreads))
     return diag, votes, second, strand.view(bool)
+
+
+def graph_hits(seq2: np.ndarray, row_len: np.ndarray, k: int,
+               codes: np.ndarray, packed: np.ndarray, concat: np.ndarray,
+               noff: np.ndarray, nlen: np.ndarray, has_next: np.ndarray,
+               prev_cnt: np.ndarray, nthreads: int = 0):
+    """The graph seed finder's hits in one threaded pass: rolling k-mer
+    codes of every row of seq2, binary search in the sorted (codes,
+    packed) table, maximal exact-run extents within the node and the
+    node-crossing flags. Returns an (H, 8) int64 array (row, rs, node,
+    rs0, np0, right_run, cross_right, maybe_left) in row-major probe
+    order, or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    seq2 = np.ascontiguousarray(seq2, np.int8)
+    row_len = np.ascontiguousarray(row_len, np.int32)
+    codes = np.ascontiguousarray(codes, np.uint64)
+    packed = np.ascontiguousarray(packed, np.int64)
+    concat = np.ascontiguousarray(concat, np.int8)
+    noff = np.ascontiguousarray(noff, np.int64)
+    nlen = np.ascontiguousarray(nlen, np.int64)
+    has_next = np.ascontiguousarray(has_next, np.uint8)
+    prev_cnt = np.ascontiguousarray(prev_cnt, np.int32)
+    R2, Lmax = seq2.shape
+    cap = max(1024, 64 * R2)
+    while True:
+        out = np.empty((cap, 8), np.int64)
+        total = lib.graph_hits(
+            seq2.ctypes.data_as(_vp), R2, Lmax, row_len.ctypes.data_as(_vp),
+            k, codes.ctypes.data_as(_vp), len(codes),
+            packed.ctypes.data_as(_vp), concat.ctypes.data_as(_vp),
+            noff.ctypes.data_as(_vp), nlen.ctypes.data_as(_vp),
+            has_next.ctypes.data_as(_vp), prev_cnt.ctypes.data_as(_vp),
+            out.ctypes.data_as(_vp), cap, _threads(nthreads))
+        if total <= cap:
+            return out[:total]
+        cap = int(total)  # the pass counted every hit: a second one fits

@@ -2,7 +2,8 @@
 binds their plain C entry points with ctypes.
 
 Each source is its own shared library (``banded.cu`` -> ``libbanded.so``,
-``wavefront.cu`` -> ``libwavefront.so``), compiled into the package's
+``wavefront.cu`` -> ``libwavefront.so``, ``gsw_dp.cu`` ->
+``libgsw_dp.so``), compiled into the package's
 git-ignored ``_build/`` on the first launch of one of its kernels, never
 at import, so the package imports on machines without ``nvcc``.
 ``build_all`` compiles them side by side. Every pointer and the stream
@@ -44,10 +45,20 @@ _SIGNATURES = {
         "const_wavefront_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
                                    _int, _int, _vp, _vp, _vp, _vp],
     },
+    "gsw_dp": {
+        "local_wavefront_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+                                   _int, _vp, _vp, _vp, _vp, _vp],
+        "gsw_right_wavefront_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int,
+                                       _int, _int, _vp, _vp, _vp, _vp],
+        "gsw_walk_pack_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+                                 _int, _vp, _vp],
+    },
 }
 # kernel name (as check() is given it) -> its library
 _LIBRARY_OF = {"banded_dp": "banded", "banded_walk_pack": "banded",
-               "affine_wavefront": "wavefront", "const_wavefront": "wavefront"}
+               "affine_wavefront": "wavefront", "const_wavefront": "wavefront",
+               "local_wavefront": "gsw_dp", "gsw_right_wavefront": "gsw_dp",
+               "gsw_walk_pack": "gsw_dp"}
 
 _locks = {name: threading.Lock() for name in _SIGNATURES}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -61,8 +72,8 @@ def _nvcc() -> str:
 
 
 def lib(name: str) -> ctypes.CDLL:
-    """The kernel library ``name`` ("banded" or "wavefront"), built on
-    first use."""
+    """The kernel library ``name`` ("banded", "wavefront" or "gsw_dp"),
+    built on first use."""
     with _locks[name]:
         if name not in _libs:
             so = build_shared(f"lib{name}.so",

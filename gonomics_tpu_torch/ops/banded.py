@@ -211,7 +211,9 @@ def banded_align_full(reads, windows, n_vec, m_vec, scores, gap: int):
 
 
 def unpack_ops(packed: np.ndarray, D: int) -> np.ndarray:
-    """Decode the 2-bit packed walk ops to (B, D) int8 (code 3 = stop;
-    callers treat >= 3 as the walk end)."""
+    """Decode 2-bit packed walk ops (``unpack_ops``, wavefront.py:700) to
+    (B, D) int8 (code 3 = stop; callers treat >= 3 as the walk end). Zero
+    rows decode to (0, D), where the JAX function's reshape raises."""
+    B, P = packed.shape
     crumbs = (packed[:, :, None] >> np.array([0, 2, 4, 6], np.uint8)) & 3
-    return crumbs.reshape(packed.shape[0], -1)[:, :D].astype(np.int8)
+    return crumbs.reshape(B, 4 * P)[:, :D].astype(np.int8)

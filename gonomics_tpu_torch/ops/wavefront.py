@@ -1,16 +1,23 @@
-"""Anti-diagonal wavefront DP for batched pairwise global alignment: the
-contract of ``wavefront_align`` (``gonomics_tpu/ops/wavefront.py:1534``)
-for ``mode="affine"`` and ``mode="const"``, with and without trace.
+"""Anti-diagonal wavefront DPs: batched pairwise global alignment (the
+contract of ``wavefront_align``, ``gonomics_tpu/ops/wavefront.py:1534``,
+for ``mode="affine"`` and ``mode="const"``, with and without trace) and
+the graph aligner's two extension DPs.
 
-Two kernels, each with its plain PyTorch version beside it:
+Four kernels, each with its plain PyTorch version beside it:
 
 - ``affine_wavefront`` (CUDA ``csrc/wavefront.cu``) replaces the Pallas
   kernel ``_affine_kernel`` (wavefront.py:94, ``pallas_call`` at :1584);
-- ``const_wavefront`` (same file) replaces ``_const_kernel`` (:243).
+- ``const_wavefront`` (same file) replaces ``_const_kernel`` (:243);
+- ``local_wavefront`` (CUDA ``csrc/gsw_dp.cu``) replaces
+  ``_local_kernel`` (:179, ``pallas_call`` :451 in ``wavefront_local``);
+- ``gsw_right_wavefront`` (same file) replaces ``_gsw_right_kernel``
+  (:289, ``pallas_call`` :368 in ``wavefront_gsw_right``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel, counts the launch in ``affine_launches`` or
-``const_launches``, and raises if the launch fails. It never falls back.
+launches its kernel, counts the launch in its module counter
+(``affine_launches``, ``const_launches``, ``local_launches``,
+``gsw_right_launches``), and raises if the launch fails. It never falls
+back.
 
 Layout: cell (i, j) lies on diagonal d = i + j at lane s = i, so results
 are (B, S) int32 and the trace is (n+m, B, S) int8 with row d-1 holding
@@ -23,7 +30,8 @@ column 0 and the lanes outside the grid hold 0 (there the Pallas kernel
 writes the argmax of its lane shift's junk, which no walk reads). Each
 pair's result is its diagonal n_b + m_b (``fin``), with every lane of
 the grid on that diagonal; read lane n_b. A pair whose diagonal is never
-reached keeps NEG.
+reached keeps NEG. The graph kernels' layout and trace are described at
+``local_wavefront_reference`` and ``gsw_right_wavefront_reference``.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ SMEM_STATE_BYTES_MAX = 200 * 1024
 
 affine_launches = 0
 const_launches = 0
+local_launches = 0
+gsw_right_launches = 0
 
 
 def state_in_shared_memory(n: int, mode: str) -> bool:
@@ -198,6 +208,100 @@ def const_wavefront_reference(alpha, beta, fin, scores, gap: int,
     return (res, trace) if with_trace else res
 
 
+def local_wavefront_reference(alpha, beta, n_vec, m_vec, scores, gap: int,
+                              with_corner: bool = False):
+    """Plain PyTorch local (Smith-Waterman) linear-gap DP, one diagonal at
+    a time over (C, S) tensors: the arithmetic of ``_local_kernel``
+    (wavefront.py:179-240), LeftDynamicAln of the graph aligner.
+
+    alpha (C, n) int8 (the genome windows), beta (C, m) int8 (the read
+    parts), n_vec / m_vec (C,) int32 each job's own lengths n_b, m_b;
+    scores (5, 5). Cell c = max(diag + sub, left + gap, up + gap) inside
+    1 <= i <= n_b, 1 <= j <= m_b, and 0 outside or where it is <= 0. The
+    trace (n+m, C, S) int8 holds 3 where c == 0, else the argmax in the
+    order diag (0) > left (1) > up (2), on every lane. bv, bd (C, S)
+    int32 keep each lane's best c and its diagonal by strict >, from 0.
+    Returns (bv, bd, trace), and with ``with_corner`` also corner (C, S):
+    each lane's c on diagonal n_b + m_b, so lane n_b holds cell
+    (n_b, m_b)."""
+    C, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    S = n + 1
+    gap = int(gap)
+    dg = _Diagonals(alpha, beta, scores)
+    nb = as_vec(n_vec, C, dev)[:, None]
+    mb = as_vec(m_vec, C, dev)[:, None]
+    zeros = torch.zeros((C, S), dtype=torch.int32, device=dev)
+    c1 = c2 = bv = bd = corner = zeros
+    trace = torch.empty((n + m, C, S), dtype=torch.int8, device=dev)
+    for d in range(1, n + m + 1):
+        diag = _shift(c2) + dg.sub(d)
+        left = c1 + gap
+        up = _shift(c1) + gap
+        j = d - dg.s
+        inside = (dg.s >= 1) & (dg.s <= nb) & (j >= 1) & (j <= mb)
+        c = _max3(diag, left, up)
+        c = torch.where(inside & (c > 0), c, 0).to(torch.int32)
+        trace[d - 1] = torch.where(c == 0, 3,
+                                   _argmax3(diag, left, up)).to(torch.int8)
+        upd = inside & (c > bv)
+        bd = torch.where(upd, d, bd).to(torch.int32)
+        bv = torch.where(upd, c, bv)
+        if with_corner:
+            corner = torch.where(nb + mb == d, c, corner)
+        c2, c1 = c1, c
+    return (bv, bd, trace, corner) if with_corner else (bv, bd, trace)
+
+
+def gsw_right_wavefront_reference(alpha, beta, n_vec, m_vec, scores,
+                                  gap: int):
+    """Plain PyTorch prefix-anchored linear-gap DP, one diagonal at a time
+    over (C, S) tensors: the arithmetic of ``_gsw_right_kernel``
+    (wavefront.py:289-343), RightDynamicAln of the graph aligner.
+
+    Inputs as ``local_wavefront_reference``. Unclamped over the padded
+    grid: row 0 and column 0 hold gap * d with trace codes 1 and 2, the
+    interior max(diag + sub, left + gap, up + gap) with the argmax code
+    (diag 0 > left 1 > up 2). bv, bd (C, S) int32 keep each lane's best
+    cell inside the job's own 1 <= i <= n_b, 1 <= j <= m_b by strict >,
+    from 0. Returns (bv, bd, trace); trace codes outside row 0, column 0
+    and the interior are 0 (there the Pallas kernel writes the argmax of
+    its lane shift's junk, which no walk reads)."""
+    C, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    S = n + 1
+    gap = int(gap)
+    dg = _Diagonals(alpha, beta, scores)
+    nb = as_vec(n_vec, C, dev)[:, None]
+    mb = as_vec(m_vec, C, dev)[:, None]
+    c1 = _neg(C, S, dev)
+    c1[:, 0] = 0
+    c2 = _neg(C, S, dev)
+    bv = bd = torch.zeros((C, S), dtype=torch.int32, device=dev)
+    trace = torch.empty((n + m, C, S), dtype=torch.int8, device=dev)
+    for d in range(1, n + m + 1):
+        diag = _shift(c2) + dg.sub(d)
+        left = c1 + gap
+        up = _shift(c1) + gap
+        interior = dg.interior(d)
+        row0 = (dg.s == 0) & (d <= m)
+        col0 = (dg.s == d) & (d <= n)
+        c = torch.where(interior, _max3(diag, left, up),
+                        _edge(row0 | col0, gap * d)).to(torch.int32)
+        edge_code = torch.where(row0, 1, torch.where(col0, 2, 0))
+        trace[d - 1] = torch.where(interior, _argmax3(diag, left, up),
+                                   edge_code).to(torch.int8)
+        j = d - dg.s
+        inside = (dg.s >= 1) & (dg.s <= nb) & (j >= 1) & (j <= mb)
+        upd = inside & (c > bv)
+        bd = torch.where(upd, d, bd).to(torch.int32)
+        bv = torch.where(upd, c, bv)
+        c2, c1 = c1, c
+    return bv, bd, trace
+
+
 def _launch_inputs(alpha, beta, fin, scores):
     B, n = alpha.shape
     m = beta.shape[1]
@@ -280,6 +384,91 @@ def const_wavefront(alpha, beta, fin, scores, gap: int, with_trace: bool):
     _kernels.check(rc, "const_wavefront")
     const_launches += 1
     return out
+
+
+def _graph_inputs(alpha, beta, n_vec, m_vec, scores, states: int):
+    """The graph kernels' checked inputs; raises where their state of
+    ``states`` int32 rows of n+1 lanes would not fit in shared memory."""
+    C, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    if states * (n + 1) * 4 > SMEM_STATE_BYTES_MAX:
+        raise ValueError(f"genome window of {n} bases: the graph kernels "
+                         "keep their state in shared memory, which holds "
+                         f"at most {SMEM_STATE_BYTES_MAX // (4 * states) - 1}")
+    return (expect(alpha, torch.int8, (C, n), "alpha", dev),
+            expect(beta, torch.int8, (C, m), "beta", dev),
+            expect(as_vec(n_vec, C, dev), torch.int32, (C,), "n_vec", dev),
+            expect(as_vec(m_vec, C, dev), torch.int32, (C,), "m_vec", dev),
+            expect(torch.as_tensor(scores, dtype=torch.int32, device=dev),
+                   torch.int32, (5, 5), "scores", dev))
+
+
+def local_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int,
+                    with_corner: bool = False):
+    """Local linear-gap DP of the graph aligner's left extension (see
+    ``local_wavefront_reference``): the plain version for CPU tensors, the
+    CUDA kernel for CUDA tensors."""
+    global local_launches
+    if alpha.device.type == "cpu":
+        return local_wavefront_reference(alpha, beta, n_vec, m_vec, scores,
+                                         gap, with_corner)
+    alpha, beta, n_vec, m_vec, sc = _graph_inputs(alpha, beta, n_vec, m_vec,
+                                                  scores, 6)
+    C, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    S = n + 1
+    bv = torch.empty((C, S), dtype=torch.int32, device=dev)
+    bd = torch.empty((C, S), dtype=torch.int32, device=dev)
+    corner = (torch.empty((C, S), dtype=torch.int32, device=dev)
+              if with_corner else None)
+    trace = torch.empty((n + m, C, S), dtype=torch.int8, device=dev)
+    out = (bv, bd, trace, corner) if with_corner else (bv, bd, trace)
+    if C == 0:
+        return out
+    lib = _kernels.lib("gsw_dp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.local_wavefront_launch(
+            alpha.data_ptr(), beta.data_ptr(), n_vec.data_ptr(),
+            m_vec.data_ptr(), sc.data_ptr(), int(gap), C, n, m,
+            bv.data_ptr(), bd.data_ptr(), _ptr(corner), trace.data_ptr(),
+            stream)
+    _kernels.check(rc, "local_wavefront")
+    local_launches += 1
+    return out
+
+
+def gsw_right_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int):
+    """Prefix-anchored linear-gap DP of the graph aligner's right
+    extension (see ``gsw_right_wavefront_reference``): the plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors."""
+    global gsw_right_launches
+    if alpha.device.type == "cpu":
+        return gsw_right_wavefront_reference(alpha, beta, n_vec, m_vec,
+                                             scores, gap)
+    alpha, beta, n_vec, m_vec, sc = _graph_inputs(alpha, beta, n_vec, m_vec,
+                                                  scores, 5)
+    C, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    S = n + 1
+    bv = torch.empty((C, S), dtype=torch.int32, device=dev)
+    bd = torch.empty((C, S), dtype=torch.int32, device=dev)
+    trace = torch.empty((n + m, C, S), dtype=torch.int8, device=dev)
+    if C == 0:
+        return bv, bd, trace
+    lib = _kernels.lib("gsw_dp")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gsw_right_wavefront_launch(
+            alpha.data_ptr(), beta.data_ptr(), n_vec.data_ptr(),
+            m_vec.data_ptr(), sc.data_ptr(), int(gap), C, n, m,
+            bv.data_ptr(), bd.data_ptr(), trace.data_ptr(), stream)
+    _kernels.check(rc, "gsw_right_wavefront")
+    gsw_right_launches += 1
+    return bv, bd, trace
 
 
 def wavefront_align(alpha_pad, beta_pad, fin_d, scores, *, gap_open: int,

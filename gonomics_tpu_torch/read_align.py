@@ -26,7 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import dna, native, resolve_device
+from . import DeviceResult, dna, native, resolve_device
 from .align.matrices import HUMAN_CHIMP_TWO
 from .io import sam as samio
 from .io.chrom_info import ChromInfo
@@ -121,28 +121,6 @@ class _Candidate:
     votes: np.ndarray      # (B,) votes for the best diagonal
     second: np.ndarray     # (B,) votes for the runner-up diagonal
     strand: np.ndarray     # (B,) True = forward
-
-
-class _DeviceResult:
-    """One batch's (B, 20 + P) uint8 result on its way to the host: on
-    the card, a non-blocking copy into pinned memory that ``done``
-    records; on the CPU, the array itself."""
-
-    def __init__(self, res: torch.Tensor):
-        self.done = None
-        if res.device.type == "cuda":
-            self.host = torch.empty(res.shape, dtype=torch.uint8,
-                                    pin_memory=True)
-            self.host.copy_(res, non_blocking=True)
-            self.done = torch.cuda.Event()
-            self.done.record()
-        else:
-            self.host = res
-
-    def numpy(self) -> np.ndarray:
-        if self.done is not None:
-            self.done.synchronize()
-        return self.host.numpy()
 
 
 class ReadAligner:
@@ -438,7 +416,7 @@ class ReadAligner:
                                   np.full(B, W, np.int32))
         return reads, cand, starts, lens, read_seqs, res, walk_length(L)
 
-    def _device_result(self, read_seqs, windows, n_vec, m_vec) -> _DeviceResult:
+    def _device_result(self, read_seqs, windows, n_vec, m_vec) -> DeviceResult:
         """Upload one batch, run the banded DP and the walk, and pack
         score, i_end, j_end, i0, j0 (little-endian int32) and the packed
         ops into one (B, 20 + P) uint8 array, as ``_banded_driver``
@@ -455,10 +433,10 @@ class ReadAligner:
             self._scores_dev, self.gap)
         meta8 = torch.stack([score, i_end, j_end, i0, j0], dim=1).view(
             torch.uint8)  # (B, 5) int32 -> (B, 20) little-endian bytes
-        return _DeviceResult(torch.cat([meta8, packed], dim=1))
+        return DeviceResult(torch.cat([meta8, packed], dim=1))
 
     @staticmethod
-    def _decode_res(res: _DeviceResult):
+    def _decode_res(res: DeviceResult):
         """(score, i_end, j_end, i0, j0, packed-ops), waiting for the copy."""
         buf = res.numpy()
         meta = np.ascontiguousarray(buf[:, :20]).view(np.int32)

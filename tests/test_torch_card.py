@@ -12,11 +12,19 @@ import numpy as np
 import pytest
 import torch
 
-from gonomics_tpu_torch import align
+from gonomics_tpu_torch import align, dna
+from gonomics_tpu_torch import graph as port_graph
 from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
-from gonomics_tpu_torch.ops import banded, wavefront
+from gonomics_tpu_torch.graph_align import GraphAligner
+from gonomics_tpu_torch.io import giraf
+from gonomics_tpu_torch.io.fasta import Fasta
+from gonomics_tpu_torch.io.fastq import FastqBig
+from gonomics_tpu_torch.io.vcf import Vcf
+from gonomics_tpu_torch.ops import banded, gsw_dp, wavefront
 
 PLUS_MINUS_ONE = np.where(np.eye(5, dtype=bool), 1, -1).astype(np.int32)
+ASYMMETRIC = HUMAN_CHIMP_TWO.copy()
+ASYMMETRIC[0, 1], ASYMMETRIC[1, 0] = 60, -400
 
 
 @pytest.fixture
@@ -180,3 +188,111 @@ def test_pairwise_on_card_equals_cpu(card, mode):
         return [(s, [(c.run_length, c.op) for c in r]) for s, r in out]
 
     assert run(card) == run("cpu")
+
+
+def _graph_jobs(C: int, n: int, m: int, seed: int):
+    """C graph-aligner jobs padded to (n, m): genome windows and read
+    parts copied from their ends (left jobs) or starts (right jobs) with
+    SNPs, random read parts, N codes, and jobs with an empty window, an
+    empty read part or both."""
+    rng = np.random.default_rng(seed)
+    al = np.full((C, n), 4, np.int8)
+    be = np.full((C, m), 4, np.int8)
+    nv = rng.integers(1, n + 1, C)
+    mv = rng.integers(1, m + 1, C)
+    nv[-1], mv[-1] = n, m
+    for b in range(C):
+        win = rng.integers(0, 4, nv[b]).astype(np.int8)
+        al[b, :nv[b]] = win
+        k = min(nv[b], mv[b])
+        part = rng.integers(0, 4, mv[b]).astype(np.int8)
+        if b % 3 == 1:
+            part[-k:] = win[-k:]
+        elif b % 3 == 2:
+            part[:k] = win[:k]
+        part[rng.random(mv[b]) < 0.03] = rng.integers(0, 5)
+        be[b, :mv[b]] = part
+    nv[0] = 0
+    mv[1] = 0
+    nv[2] = mv[2] = 0
+    return al, be, nv.astype(np.int32), mv.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,n,m,scoring", [
+    (2048, 192, 192, "humanChimp"), (7, 40, 33, "plusMinusOne"),
+    (5, 2048, 150, "humanChimp"), (64, 100, 70, "asymmetric")])
+def test_graph_kernels_equal_plain(card, C, n, m, scoring):
+    """local_wavefront (K4), gsw_right_wavefront (K5) and gsw_walk_pack,
+    both sides, against their plain versions; n = 2048 runs more lanes
+    than a block has threads."""
+    scores, gap = {"humanChimp": (HUMAN_CHIMP_TWO, -600),
+                   "plusMinusOne": (PLUS_MINUS_ONE, -1),
+                   "asymmetric": (ASYMMETRIC, -300)}[scoring]
+    al, be, nv, mv = (torch.from_numpy(x).to(card)
+                      for x in _graph_jobs(C, n, m, C + n))
+    sc = torch.as_tensor(scores, dtype=torch.int32, device=card)
+    args = (al, be, nv, mv, sc, gap)
+    for with_corner in (False, True):
+        before = wavefront.local_launches
+        got = wavefront.local_wavefront(*args, with_corner=with_corner)
+        want = wavefront.local_wavefront_reference(*args, with_corner)
+        torch.cuda.synchronize()
+        assert wavefront.local_launches == before + 1
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (with_corner, k)
+    _, _, ltrace, corner = want
+    before = wavefront.gsw_right_launches
+    right = wavefront.gsw_right_wavefront(*args)
+    rwant = wavefront.gsw_right_wavefront_reference(*args)
+    torch.cuda.synchronize()
+    assert wavefront.gsw_right_launches == before + 1
+    for k, (g, w) in enumerate(zip(right, rwant)):
+        assert torch.equal(g, w), ("right", k)
+    bv, bd, rtrace = rwant
+    scored = 0
+    for side, walk in (("left", (ltrace, corner, None, nv, mv)),
+                       ("right", (rtrace, bv, bd))):
+        before = gsw_dp.walk_launches
+        got = gsw_dp.gsw_walk_pack(side, *walk)
+        want = gsw_dp.gsw_walk_pack_reference(side, *walk)
+        torch.cuda.synchronize()
+        assert gsw_dp.walk_launches == before + 1
+        assert torch.equal(got, want), side
+        meta = want[:, :12].cpu().numpy().copy().view(np.int32)
+        scored += int((meta[3:, 0] > 0).sum())
+    assert scored > 0  # real alignments were walked
+
+
+@pytest.mark.cuda
+def test_graph_aligner_on_card_equals_cpu(card):
+    """GraphAligner on the card against device="cpu" on a variant graph
+    with SNP, DEL and INS nodes: giraf text equal, single and paired."""
+    rng = np.random.default_rng(12)
+    ref = rng.integers(0, 4, 3000).astype(np.int8)
+    vcfs = [Vcf(chrom="chr1", pos=p, id=".", ref=dna.to_string(ref[p - 1:p]),
+                alt=[dna.to_string((ref[p - 1:p] + 1) % 4)],
+                info="SVTYPE=SNP") for p in (400, 1200, 2500)]
+    vcfs.append(Vcf(chrom="chr1", pos=1800, id=".",
+                    ref=dna.to_string(ref[1799:1804]),
+                    alt=[dna.to_string(ref[1799:1800])], info="SVTYPE=DEL"))
+    g = port_graph.variant_graph([Fasta("chr1", ref)], {"chr1": vcfs})
+    reads = []
+    for i in range(40):
+        s = int(rng.integers(0, len(ref) - 150))
+        seq = ref[s:s + 150].copy()
+        seq[int(rng.integers(0, 150))] = (seq[0] + 1) % 4
+        if i % 2:
+            seq = dna.reverse_complement(seq).astype(np.int8)
+        reads.append(FastqBig(f"r{i}", seq,
+                              dna.reverse_complement(seq).astype(np.int8),
+                              np.full(150, 30, np.uint8)))
+    on_card = GraphAligner(g, device=card)
+    on_cpu = GraphAligner(g, device="cpu")
+    assert [giraf.to_string(x) for x in on_card.align_batch(reads)] == \
+        [giraf.to_string(x) for x in on_cpu.align_batch(reads)]
+    pairs = list(zip(reads[0::2], reads[1::2]))
+    assert [[giraf.to_string(x) for x in p]
+            for p in on_card.align_pair_batch(pairs)] == \
+        [[giraf.to_string(x) for x in p]
+         for p in on_cpu.align_pair_batch(pairs)]

@@ -1,12 +1,17 @@
 """The port's `gsw align` (gonomics_tpu_torch/cli/gsw_cmd.py, --device
 cpu) against the JAX package's `gsw align --engine tpu` (Pallas in
-interpret mode): byte-identical SAM files, single and paired."""
+interpret mode): byte-identical SAM files, single and paired, for a
+linear reference; for a graph reference byte-identical giraf, and SAM
+with -l x.sizes, against both --engine tpu and --engine host."""
 
 import numpy as np
 import pytest
 
 from gonomics_tpu import dna
+from gonomics_tpu import graph as jax_graph
 from gonomics_tpu.cli import gsw_cmd as jax_gsw
+from gonomics_tpu.io.fasta import Fasta
+from gonomics_tpu.io.vcf import Vcf
 from gonomics_tpu_torch.cli import gsw_cmd as port_gsw
 
 
@@ -69,13 +74,89 @@ def test_sparse_index_byte_identical(tmp_path):
     assert got.read_bytes() == want.read_bytes()
 
 
+# a graph reference (ported: ROADMAP item 5, the case's id) still
+# refuses the multi-device flags
+_GRAPH_MESH = ["--mesh"]
+
+
 @pytest.mark.parametrize("extra,item", [
     (["--mesh"], "item 7"), (["--multihost"], "item 7"),
-    (["--index-sharding", "prefix"], "item 7"), ([], "item 5")])
+    (["--index-sharding", "prefix"], "item 7"),
+    pytest.param(_GRAPH_MESH, "item 7", id="extra3-item 5")])
 def test_unported_options_exit(tmp_path, extra, item):
     ref, r1, _ = _write_inputs(tmp_path)
-    if not extra:
+    if extra is _GRAPH_MESH:
         ref = str(tmp_path / "ref.gg")
     with pytest.raises(SystemExit, match=item):
         port_gsw.main(["align", ref, r1, "-o", str(tmp_path / "o.sam"),
                        "--device", "cpu", *extra])
+
+
+def _write_graph_inputs(tmp_path):
+    """A variant graph (SNP, DEL and INS nodes) written as .gg by the JAX
+    package, its .sizes file, and reads along its paths as R1/R2 fastqs
+    (R2 the reverse complement of a stretch downstream of R1), one of
+    them random."""
+    rng = np.random.default_rng(31)
+    ref = rng.integers(0, 4, 900).astype(np.int8)
+
+    def rec(pos, r, a, info):
+        return Vcf(chrom="chr1", pos=pos, id=".", ref=r, alt=[a], info=info)
+
+    vcfs = [rec(100, dna.to_string(ref[99:100]),
+                dna.to_string((ref[99:100] + 1) % 4), "SVTYPE=SNP"),
+            rec(400, dna.to_string(ref[399:404]), dna.to_string(ref[399:400]),
+                "SVTYPE=DEL"),
+            rec(650, dna.to_string(ref[649:650]),
+                dna.to_string(ref[649:650]) + "GGA", "SVTYPE=INS")]
+    g = jax_graph.variant_graph([Fasta("chr1", ref)], {"chr1": vcfs})
+    gg = tmp_path / "ref.gg"
+    jax_graph.write(str(gg), g)
+    sizes = tmp_path / "ref.sizes"
+    sizes.write_text("chr1\t900\n")
+
+    def fq(path, recs):
+        with open(path, "w") as f:
+            for name, seq in recs:
+                qual = "".join(chr(33 + 20 + (i % 17)) for i in range(len(seq)))
+                f.write(f"@{name} x\n{dna.to_string(seq)}\n+\n{qual}\n")
+
+    r1, r2 = [], []
+    for i in range(8):
+        s = int(rng.integers(0, 900 - 180))
+        a = ref[s:s + 60].copy()
+        a[int(rng.integers(0, 60))] = (a[5] + 1) % 4
+        b = dna.reverse_complement(ref[s + 110:s + 170]).astype(np.int8)
+        if i == 5:
+            a = rng.integers(0, 4, 60).astype(np.int8)
+        r1.append((f"g{i}", a))
+        r2.append((f"g{i}", np.ascontiguousarray(b)))
+    fq(tmp_path / "g1.fq", r1)
+    fq(tmp_path / "g2.fq", r2)
+    return (str(gg), str(sizes), str(tmp_path / "g1.fq"),
+            str(tmp_path / "g2.fq"))
+
+
+@pytest.mark.parametrize("out", ["giraf", "sam"])
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+def test_graph_byte_identical(tmp_path, paired, out):
+    gg, sizes, r1, r2 = _write_graph_inputs(tmp_path)
+    files = [gg, r1, r2] if paired else [gg, r1]
+    flags = ["-i", "21", "-w", "8"] + (["-l", sizes] if out == "sam" else [])
+    got = tmp_path / "port.out"
+    port_gsw.main(["align", *files, "-o", str(got), "--device", "cpu",
+                   "--batch", "5", *flags])
+    text = got.read_bytes()
+    for engine in ("tpu", "host"):
+        want = tmp_path / f"{engine}.out"
+        jax_gsw.main(["align", *files, "-o", str(want), "--engine", engine,
+                      "--batch", "5", *flags])
+        assert text == want.read_bytes(), engine
+    lines = text.decode().splitlines()
+    body = [ln for ln in lines if not ln.startswith("@")]
+    assert len(body) == (16 if paired else 8)
+    if out == "sam":
+        assert lines[:2] == ["@HD\tVN:1.6\tSO:unsorted", "@SQ\tSN:chr1\tLN:900"]
+        assert sum(not int(ln.split("\t")[1]) & 4 for ln in body) >= 6
+    else:
+        assert sum(ln.split("\t")[5] != "0::0" for ln in body) >= 6
