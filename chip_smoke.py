@@ -43,12 +43,25 @@ exits non-zero:
             the card (exact equality) and timed.
 10. graph_cli: the port's `gsw align` on a 1 Mbp .gg, giraf and SAM, single
             and paired, byte-equal to --device cpu.
+11. lowmem_kernels: affine_fwd_block, affine_bwd_window and
+            lowmem_walk_block at bench.py's lowmem shape (16 pairs of
+            16,384 x 16,384, K = 1024), each once on the middle block from
+            the checkpoint and walk state the main path gives it, held
+            against its plain PyTorch version on the card (exact equality)
+            and timed, with its bound itemised.
+12. lowmem:  affine_gap_lowmem_batch on that batch: cells/s, the wall split
+            into forward, backward and host, peak device memory against
+            the full trace's; every route consumes both sequences and
+            replays to its score, every score equals K2's score mode, the
+            first 2 pairs equal the full-trace path, 4 pairs of 2 kb at
+            K = 256 equal device="cpu", and a related 100 kb pair through
+            the pairwise API (K = 4096) replays and equals K2's score.
 
 Then the kernels line (launch counts of banded_dp and banded_walk_pack
 from phase 3, of the wavefront kernels from phase 6, of the graph kernels
-from phase 8) and, last, one JSON object naming the device. Without a
-CUDA card, or outside a checkout of the repository, it exits non-zero and
-prints no result.
+from phase 8, of the lowmem kernels from phase 12) and, last, one JSON
+object naming the device. Without a CUDA card, or outside a checkout of
+the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -139,6 +152,17 @@ RIGHT_OPS_PER_CELL = 2 + 1 + 2 + 2 + 4 + 2
 # (a compare and a select a lane)
 GSW_WALK_OPS_PER_STEP = 7
 GSW_ARGMAX_OPS_PER_LANE = 2
+
+# The lowmem aligner at bench.py's own configuration (bench.py:220-231):
+# 16 random pairs of 16,384 x 16,384, humanChimpTwo, -600/-150, K = 1024,
+# seed 3 (after bench.py's two 300 bp parity pairs from the same stream).
+LOWMEM_B, LOWMEM_LEN, LOWMEM_K, LOWMEM_SEED = 16, 16384, 1024, 3
+# its other gates: 4 related pairs of 2 kb at K = 256 against the CPU, and
+# one related pair of 100 kb through the pairwise API at its default K
+LOWMEM_SMALL, LOWMEM_SMALL_K, LOWMEM_LONG = 2000, 256, 100_000
+# per walk step: trace address, load, activity test, the next state's
+# shift and mask, i and j updates
+LOWMEM_WALK_OPS_PER_STEP = 7
 
 
 def emit(obj) -> None:
@@ -1244,6 +1268,292 @@ def phase_graph_cli(dev: torch.device) -> dict:
     return result
 
 
+def lowmem_pairs():
+    """bench.py's lowmem batch: LOWMEM_B random pairs of LOWMEM_LEN bases,
+    drawn after its two 300 bp parity pairs from the seed-3 stream."""
+    rng = np.random.default_rng(LOWMEM_SEED)
+    rng.integers(0, 4, (2, 300))
+    rng.integers(0, 4, (2, 300))
+    shape = (LOWMEM_B, LOWMEM_LEN)
+    return (rng.integers(0, 4, shape).astype(np.int8),
+            rng.integers(0, 4, shape).astype(np.int8))
+
+
+def block_cells(d0: int, K: int, lo_lane, n: int, m: int, W: int) -> int:
+    """Interior cells (1 <= i <= n, 1 <= j <= m) of diagonals d0+1..d0+K
+    on lanes [lo_lane_b, lo_lane_b + W) of each pair."""
+    d = np.arange(d0 + 1, d0 + K + 1)[None, :]
+    lo = np.maximum(np.maximum(1, d - m), np.asarray(lo_lane)[:, None])
+    hi = np.minimum(np.minimum(d - 1, n),
+                    np.asarray(lo_lane)[:, None] + W - 1)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def phase_lowmem_kernels(dev: torch.device) -> list[dict]:
+    """affine_fwd_block (K6), affine_bwd_window (K7) and lowmem_walk_block
+    at the full-width shape, each on the block in the middle of the
+    forward, from the checkpoint and walk state the main path gives it."""
+    from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+    from gonomics_tpu_torch.ops import wavefront
+
+    go, ge = AFFINE_GAPS
+    K, n = LOWMEM_K, LOWMEM_LEN
+    m, B = n, LOWMEM_B
+    alpha, beta = (torch.from_numpy(x).to(dev) for x in lowmem_pairs())
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=dev)
+    ck, cap = wavefront.lowmem_forward(alpha, beta, sc, go, ge, K)
+    nb = ck.shape[0]
+    mid = nb // 2
+    d0 = mid * K
+    # the walk's state at the entry of block mid: the backward of the
+    # blocks after it
+    k = wavefront._argmax3(*cap[:, :, n]).to(torch.int32)
+    i = torch.full((B,), n, dtype=torch.int32, device=dev)
+    j = torch.full((B,), m, dtype=torch.int32, device=dev)
+    later = list(reversed(range(mid + 1, nb)))
+    wavefront.lowmem_backward(i, j, k, [b * K for b in later],
+                              [ck[b] for b in later], alpha, beta, sc, go, ge,
+                              K)
+    W = wavefront.window_width(n, K)
+    walk_from = (i.clone(), j.clone(), k.clone())
+
+    def fwd():
+        return wavefront.affine_fwd_block(alpha, beta, ck[mid], d0, n + m, sc,
+                                          go, ge, K)
+
+    def fwd_plain():
+        return wavefront.affine_fwd_block_reference(alpha, beta, ck[mid], d0,
+                                                    n + m, sc, go, ge, K)
+
+    def bwd():
+        return wavefront.affine_bwd_window(alpha, beta, ck[mid], d0, i, sc,
+                                           go, ge, K)
+
+    def bwd_plain():
+        return wavefront.affine_bwd_window_reference(alpha, beta, ck[mid], d0,
+                                                     i, sc, go, ge, K)
+
+    trace, wlo = bwd_plain()
+
+    def walk(fn):
+        # a fresh copy of the walk state each call (three 64-byte copies)
+        return lambda: fn(trace, wlo, d0, *(t.clone() for t in walk_from))
+
+    def equal_err(got, want):
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        return equal, err
+
+    fwd_want = fwd_plain()
+    checks = {"affine_fwd_block": equal_err(fwd(), fwd_want),
+              "affine_bwd_window": equal_err(bwd(), (trace, wlo))}
+    wi, wj, wk = (t.clone() for t in walk_from)
+    ops_want = wavefront.lowmem_walk_block_reference(trace, wlo, d0, wi, wj,
+                                                     wk)
+    gi, gj, gk = (t.clone() for t in walk_from)
+    ops_got = wavefront.lowmem_walk_block(trace, wlo, d0, gi, gj, gk)
+    checks["lowmem_walk_block"] = equal_err((ops_got, gi, gj, gk),
+                                            (ops_want, wi, wj, wk))
+    # the forward's end state is the next checkpoint of the main path
+    next_ck = torch.equal(fwd_want[0], ck[mid + 1])
+
+    # bounds from this run's inputs: bytes each input read once and each
+    # output written once, and the int32 operations the cells need
+    S = n + 1
+    fwd_cells = block_cells(d0, K, np.zeros(B, np.int64), n, m, S)
+    fwd_bytes = B * (n + m) + 100 + 4 * 6 * B * S + 4 * (6 + 3) * B * S
+    wlo_np = wlo.cpu().numpy()
+    bwd_cells = block_cells(d0, K, wlo_np, n, m, W)
+    # the window's part of the checkpoint, of alpha and of beta (W + K
+    # columns), i; the trace and wlo
+    bwd_bytes = (4 * 6 * B * W + B * W + B * (W + K) + 4 * B + 100
+                 + K * B * W + 4 * B)
+    steps = int((ops_want < 3).sum())
+    walk_bytes = steps + K * B + 4 * 4 * B + 3 * 4 * B
+    bounds = {
+        "affine_fwd_block": {
+            "bytes": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+            "operations": AFFINE_OPS_PER_CELL["score"] * fwd_cells
+            / INT32_OPS_PER_S * 1e3, "cells": fwd_cells},
+        "affine_bwd_window": {
+            "bytes": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+            "operations": AFFINE_OPS_PER_CELL["trace"] * bwd_cells
+            / INT32_OPS_PER_S * 1e3, "cells": bwd_cells},
+        "lowmem_walk_block": {
+            "bytes": walk_bytes / HBM_BYTES_PER_S * 1e3,
+            "operations": LOWMEM_WALK_OPS_PER_STEP * steps
+            / INT32_OPS_PER_S * 1e3, "steps": steps}}
+    smem = {"affine_fwd_block": wavefront.state_in_shared_memory(n, "affine"),
+            "affine_bwd_window": wavefront.state_in_shared_memory(W - 1,
+                                                                  "affine"),
+            "lowmem_walk_block": None}
+    timings = {
+        "affine_fwd_block": (median_ms(fwd, runs=5),
+                             median_ms(fwd_plain, runs=1)),
+        "affine_bwd_window": (median_ms(bwd, runs=15),
+                              median_ms(bwd_plain, runs=1)),
+        "lowmem_walk_block": (
+            median_ms(walk(wavefront.lowmem_walk_block), runs=15),
+            median_ms(walk(wavefront.lowmem_walk_block_reference), runs=1))}
+    replaces = {
+        "affine_fwd_block": "gonomics_tpu/ops/wavefront.py:895 "
+                            "(_affine_fwd_chunked_kernel, pallas_call :991)",
+        "affine_bwd_window": "gonomics_tpu/ops/wavefront.py:1007 "
+                             "(_affine_bwd_window_kernel, pallas_call :1085)",
+        "lowmem_walk_block": "gonomics_tpu/ops/wavefront.py:1102 "
+                             "(_walk_block: jnp glue)"}
+    rows = []
+    for name, (equal, err) in checks.items():
+        bound = bounds[name]
+        by = "bytes" if bound["bytes"] > bound["operations"] else "operations"
+        ms, plain = timings[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "gonomics_tpu_torch/csrc/wavefront.cu",
+            "replaces": replaces[name], "launches": None,
+            "equal_to_plain": equal, "tolerance": "exact",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound[by], "bound_by": by, "library_ms": None,
+            "state_in_shared_memory": smem[name],
+            "shape": (f"block {mid} of {nb} (d0 = {d0}), {B} pairs of "
+                      f"{n} x {m}, K = {K}, W = {W}"),
+            "bound_itemised": bound})
+    emit({"phase": "lowmem_kernels", "tolerance": "exact",
+          "next_checkpoint_equal": next_ck, "window_starts":
+              sorted(set(wlo_np.tolist())),
+          "kernels": [{k: r[k] for k in (
+              "name", "equal_to_plain", "max_abs_err", "ms", "plain_ms",
+              "bound_ms", "bound_by", "state_in_shared_memory", "shape",
+              "bound_itemised")} for r in rows]})
+    if not (next_ck and all(r["equal_to_plain"] for r in rows)):
+        raise SystemExit("a lowmem kernel disagrees with its plain version")
+    return rows
+
+
+def phase_lowmem(dev: torch.device) -> dict:
+    """The lowmem aligner on bench.py's batch (the main path of this
+    slice), its gates against the full-trace kernel K2, and a 100 kb pair
+    through the pairwise API."""
+    from gonomics_tpu_torch import align
+    from gonomics_tpu_torch.align import pairwise
+    from gonomics_tpu_torch.ops import wavefront
+
+    H = align.HUMAN_CHIMP_TWO
+    go, ge = AFFINE_GAPS
+    alphas, betas = lowmem_pairs()
+    B, n = alphas.shape
+    m = betas.shape[1]
+    split = {}
+    wrapped = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            end.synchronize()
+            split[name] = split.get(name, 0.0) + start.elapsed_time(end)
+            return out
+        return run
+
+    for attr, name in (("lowmem_forward", "forward_ms"),
+                       ("lowmem_backward", "backward_ms")):
+        wrapped[attr] = getattr(wavefront, attr)
+        setattr(wavefront, attr, timed(name, wrapped[attr]))
+    # the main path: launch counts from this call only
+    wavefront.affine_fwd_block_launches = 0
+    wavefront.affine_bwd_window_launches = 0
+    wavefront.lowmem_walk_launches = 0
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = wavefront.affine_gap_lowmem_batch(
+            alphas, betas, H, go, ge, checkersize=LOWMEM_K, device=dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        for attr, fn in wrapped.items():
+            setattr(wavefront, attr, fn)
+    launches = {"affine_fwd_block": wavefront.affine_fwd_block_launches,
+                "affine_bwd_window": wavefront.affine_bwd_window_launches,
+                "lowmem_walk_block": wavefront.lowmem_walk_launches}
+    full_trace_bytes = (n + m) * B * (n + 1)
+    out = {"phase": "lowmem", "pairs": B, "n": n, "m": m, "K": LOWMEM_K,
+           "blocks": (n + m - 1) // LOWMEM_K + 1,
+           "wall_ms": wall, "cells_per_s": B * n * m / wall * 1e3,
+           **split, "host_ms": wall - sum(split.values()),
+           "peak_device_bytes": peak,
+           "full_trace_bytes": full_trace_bytes, "launches": launches}
+
+    pairs = list(zip(alphas, betas))
+    routes = [pairwise.lowmem_route(ops, i0, j0) for _, ops, i0, j0 in res]
+    scores = [s for s, _, _, _ in res]
+    out["routes_consume_both"] = all(
+        consumed(r) == (n, m) for r in routes)
+    out["routes_replay_to_score"] = all(
+        replay_score(a, b, r, H, go, ge) == s
+        for (a, b), r, s in zip(pairs, routes, scores))
+    t0 = time.perf_counter()
+    k2 = align.affine_gap_batch(pairs, H, go, ge, device=dev,
+                                with_cigar=False)
+    out["k2_score_mode_s"] = time.perf_counter() - t0
+    out["scores_equal_k2"] = [s for s, _ in k2] == scores
+    t0 = time.perf_counter()
+    full = align.affine_gap_batch(pairs[:2], H, go, ge, device=dev)
+    out["k2_trace_2_pairs_s"] = time.perf_counter() - t0
+    out["first_2_equal_full_trace"] = [
+        (s, [(c.run_length, c.op) for c in r]) for s, r in full] == [
+        (s, [(c.run_length, c.op) for c in r])
+        for s, r in zip(scores[:2], routes[:2])]
+    del full
+
+    # 4 related pairs of 2 kb at K = 256 (the window moves) against the CPU
+    rng = np.random.default_rng(31)
+    small = [related_pair(rng, LOWMEM_SMALL, same_length=True)
+             for _ in range(4)]
+    sa = np.stack([a for a, _ in small])
+    sb = np.stack([b for _, b in small])
+    on_card, on_cpu = (
+        wavefront.affine_gap_lowmem_batch(sa, sb, H, go, ge,
+                                          checkersize=LOWMEM_SMALL_K,
+                                          device=d) for d in (dev, "cpu"))
+    out["small_equal_cpu"] = all(
+        (g[0], g[2], g[3]) == (w[0], w[2], w[3]) and np.array_equal(g[1], w[1])
+        for g, w in zip(on_card, on_cpu))
+
+    # one related pair of 100 kb through the pairwise API, default K
+    a, b = related_pair(np.random.default_rng(37), LOWMEM_LONG,
+                        same_length=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score, route = align.affine_gap_lowmem(a, b, H, go, ge, device=dev)
+    long_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    [(k2_score, _)] = align.affine_gap_batch([(a, b)], H, go, ge, device=dev,
+                                             with_cigar=False)
+    out["long_pair"] = {
+        "n": len(a), "m": len(b), "K": 4096, "lowmem_s": long_s,
+        "k2_score_mode_s": time.perf_counter() - t0,
+        "cigar_runs": len(route),
+        "consumes_both": consumed(route) == (len(a), len(b)),
+        "replays_to_score": replay_score(a, b, route, H, go, ge) == score,
+        "score_equal_k2": score == k2_score}
+    emit(out)
+    lp = out["long_pair"]
+    if not (all(v > 0 for v in launches.values())
+            and out["routes_consume_both"] and out["routes_replay_to_score"]
+            and out["scores_equal_k2"] and out["first_2_equal_full_trace"]
+            and out["small_equal_cpu"] and lp["consumes_both"]
+            and lp["replays_to_score"] and lp["score_equal_k2"]):
+        raise SystemExit("lowmem check failed")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1261,8 +1571,10 @@ def main() -> int:
     rows += phase_graph_kernels(dev, waves, graph["dims"])
     del waves
     phase_graph_cli(dev)
+    rows += phase_lowmem_kernels(dev)
+    lowmem = phase_lowmem(dev)
     launches = {**e2e["launches"], **pairwise["launches"],
-                **graph["launches"]}
+                **graph["launches"], **lowmem["launches"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"phase": "done", "total_s": time.perf_counter() - t0})

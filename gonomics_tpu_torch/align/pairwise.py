@@ -1,11 +1,13 @@
 """Pairwise global alignment (gonomics ``align.ConstGap`` and
 ``align.AffineGap``): the counterpart of ``gonomics_tpu/align/pairwise.py``
-(:1-198, :237-247), with the same scores, cigars and tie-breaking.
+(:1-247), with the same scores, cigars and tie-breaking.
 
 The DP runs as one batch through ``ops/wavefront.wavefront_align`` on
 ``device`` (``None`` means the card; ``"cpu"`` runs the kernels' plain
 PyTorch versions). In trace mode the trace comes to host memory in one
 copy per batch, and each pair's cigar is walked there.
+``affine_gap_lowmem`` runs the lowmem aligner instead, whose walk runs on
+the device and returns only the ops.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops import wavefront
 from ..ops.wavefront import wavefront_align
 from .cigar import COL_D, COL_I, COL_M, Cigar
 
@@ -60,20 +63,32 @@ def _prio_k(m: int, i: int, d: int) -> int:
     return 1 if i >= d else 2
 
 
+def _emit(route: list[Cigar], op: int, run: int = 1) -> None:
+    """Add a run of ``op`` to a route being built backward."""
+    if route and route[-1].op == op:
+        route[-1].run_length += run
+    else:
+        route.append(Cigar(run, op))
+
+
+def _close(route: list[Cigar], i: int, j: int) -> list[Cigar]:
+    """Finish a backward walk that stopped at (i, 0) or (0, j): add the
+    residual gap run and return the route in forward order."""
+    if i > 0:
+        _emit(route, COL_D, i)
+    elif j > 0:
+        _emit(route, COL_I, j)
+    route.reverse()
+    return route
+
+
 def _walk_affine(trace: np.ndarray, b: int, n: int, m: int, k0: int):
     """Host traceback from the packed per-diagonal trace tensor.
     trace[d-1, b, s] packs (tM + 4*tI + 16*tD) for cell (i=s, j=d-s)."""
     route: list[Cigar] = []
-
-    def emit(op: int) -> None:
-        if route and route[-1].op == op:
-            route[-1].run_length += 1
-        else:
-            route.append(Cigar(1, op))
-
     i, j, k = n, m, k0
     while i >= 1 and j >= 1:
-        emit(k)
+        _emit(route, k)
         packed = int(trace[i + j - 1, b, i])
         if k == COL_M:
             k = packed & 3
@@ -84,45 +99,22 @@ def _walk_affine(trace: np.ndarray, b: int, n: int, m: int, k0: int):
         else:
             k = (packed >> 4) & 3
             i -= 1
-    if i > 0:
-        if route and route[-1].op == COL_D:
-            route[-1].run_length += i
-        else:
-            route.append(Cigar(i, COL_D))
-    elif j > 0:
-        if route and route[-1].op == COL_I:
-            route[-1].run_length += j
-        else:
-            route.append(Cigar(j, COL_I))
-    route.reverse()
-    return route
+    return _close(route, i, j)
 
 
 def _walk_const(trace: np.ndarray, b: int, n: int, m: int):
     route: list[Cigar] = []
-
-    def emit(op: int, run: int = 1) -> None:
-        if route and route[-1].op == op:
-            route[-1].run_length += run
-        else:
-            route.append(Cigar(run, op))
-
     i, j = n, m
     while i >= 1 and j >= 1:
         t = int(trace[i + j - 1, b, i])
-        emit(t)
+        _emit(route, t)
         if t == COL_M:
             i, j = i - 1, j - 1
         elif t == COL_I:
             j -= 1
         else:
             i -= 1
-    if i > 0:
-        emit(COL_D, i)
-    elif j > 0:
-        emit(COL_I, j)
-    route.reverse()
-    return route
+    return _close(route, i, j)
 
 
 def affine_gap_batch(pairs, scores, gap_open: int, gap_extend: int,
@@ -168,6 +160,31 @@ def const_gap_batch(pairs, scores, gap_pen: int, device=None,
         alpha, beta, fin, scores, gap_open=gap_pen, gap_extend=0,
         with_trace=False, mode="const"))
     return [(int(res[b, len(a)]), None) for b, (a, _) in enumerate(pairs)]
+
+
+def affine_gap_lowmem(alpha, beta, scores, gap_open: int, gap_extend: int,
+                      checkersize: int = 4096, device=None):
+    """align.AffineGap_customizeCheckersize (affineGap.go:73): affine
+    alignment of one pair too long for a full trace, through the lowmem
+    aligner (``ops/wavefront.affine_gap_lowmem``: checkpoints every
+    ``checkersize`` diagonals and a windowed re-fill per block), on
+    ``device``. The same (score, route) contract as ``affine_gap``."""
+    alpha = _check(alpha, "alpha")
+    beta = _check(beta, "beta")
+    score, ops_back, i0, j0 = wavefront.affine_gap_lowmem(
+        alpha, beta, scores, gap_open, gap_extend, checkersize=checkersize,
+        device=device)
+    return score, lowmem_route(ops_back, i0, j0)
+
+
+def lowmem_route(ops_back, i0: int, j0: int) -> list[Cigar]:
+    """The cigar of a lowmem walk: its backward ops (0 M, 1 I, 2 D, from
+    (n, m) toward the origin) and the residual gap run from where it
+    stopped, (i0, 0) or (0, j0), in forward order."""
+    route: list[Cigar] = []
+    for op in ops_back:
+        _emit(route, int(op))
+    return _close(route, int(i0), int(j0))
 
 
 def affine_gap(alpha, beta, scores, gap_open: int, gap_extend: int,

@@ -1,6 +1,7 @@
 // Anti-diagonal wavefront DP for batched pairwise global alignment, for
 // Hopper (sm_90a): global affine (Gotoh, three states) and global linear
-// gap alignment, each with a trace mode and a score mode.
+// gap alignment, each with a trace mode and a score mode, and the three
+// kernels of the lowmem affine aligner (at the end of this file).
 //
 // affine_wavefront replaces the Pallas kernel _affine_kernel
 // (gonomics_tpu/ops/wavefront.py:94) and const_wavefront replaces
@@ -67,6 +68,28 @@ __device__ __forceinline__ int substitution(const int* sc, const int8_t* al,
   return sc[row * 5 + a];
 }
 
+// The slots of diagonals d-1 (M1, I1, D1) and d-2 (M2, I2, D2).
+struct Prev {
+  const int32_t *M1, *I1, *D1, *M2, *I2, *D2;
+};
+
+// One interior Gotoh cell at lane s of diagonal d, where lane p stands
+// for s-1 (s-1 itself, or s at a window's left edge, as the Pallas
+// kernels' _shift does): I from (d-1, s), D from (d-1, p), M from
+// (d-2, p). Returns the trace code tM + 4 tI + 16 tD, each the
+// predecessor state in tie order.
+__device__ __forceinline__ int gotoh_cell(const Prev& pv, int s, int p,
+                                          int sub, int goe, int ge, int& mv,
+                                          int& iv, int& dv) {
+  const int m2p = pv.M2[p], i2p = pv.I2[p], d2p = pv.D2[p];
+  const int ai = goe + pv.M1[s], bi = ge + pv.I1[s], ci = goe + pv.D1[s];  // I from (i, j-1)
+  const int ad = goe + pv.M1[p], bd = goe + pv.I1[p], cd = ge + pv.D1[p];  // D from (i-1, j)
+  mv = sub + max3(m2p, i2p, d2p);
+  iv = max3(ai, bi, ci);
+  dv = max3(ad, bd, cd);
+  return argmax3(m2p, i2p, d2p) + 4 * argmax3(ai, bi, ci) + 16 * argmax3(ad, bd, cd);
+}
+
 // Seeds diagonal 0 (slot 0, lane 0): state 0 (M, or const's c) with 0
 // and the others (I, D) with seed_gap; sets the pair's capture rows to
 // NEG and loads the score table. No other lane needs a value before its
@@ -112,8 +135,8 @@ affine_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
   for (int d = 1; d <= n + m; ++d) {
     // slots of diagonals d, d-1 and d-2; state k of slot t at st + (3k + t) S
     const int t0 = d % 3, t1 = (d + 2) % 3, t2 = (d + 1) % 3;
-    const int32_t *M1 = st + t1 * S, *I1 = st + (3 + t1) * S, *D1 = st + (6 + t1) * S;
-    const int32_t *M2 = st + t2 * S, *I2 = st + (3 + t2) * S, *D2 = st + (6 + t2) * S;
+    const Prev pv = {st + t1 * S, st + (3 + t1) * S, st + (6 + t1) * S,
+                     st + t2 * S, st + (3 + t2) * S, st + (6 + t2) * S};
     int32_t *M0 = st + t0 * S, *I0 = st + (3 + t0) * S, *D0 = st + (6 + t0) * S;
     const int lo = max(1, d - m), hi = min(d - 1, n);  // interior lanes
     int8_t* trow = kTrace ? trace + ((int64_t)(d - 1) * B + b) * S : nullptr;
@@ -141,17 +164,10 @@ affine_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
         if (kTrace) trow[s] = 0;
         continue;
       }
-      const int m1 = M1[s], i1 = I1[s], d1 = D1[s];
-      const int m1p = M1[s - 1], i1p = I1[s - 1], d1p = D1[s - 1];
-      const int m2p = M2[s - 1], i2p = I2[s - 1], d2p = D2[s - 1];
-      const int ai = goe + m1, bi = ge + i1, ci = goe + d1;   // I from (i, j-1)
-      const int ad = goe + m1p, bd = goe + i1p, cd = ge + d1p; // D from (i-1, j)
-      const int mv = substitution(sc, al, be, s, d - s) + max3(m2p, i2p, d2p);
-      const int iv = max3(ai, bi, ci);
-      const int dv = max3(ad, bd, cd);
-      if (kTrace)
-        trow[s] = (int8_t)(argmax3(m2p, i2p, d2p) + 4 * argmax3(ai, bi, ci) +
-                           16 * argmax3(ad, bd, cd));
+      int mv, iv, dv;
+      const int code = gotoh_cell(pv, s, s - 1, substitution(sc, al, be, s, d - s),
+                                  goe, ge, mv, iv, dv);
+      if (kTrace) trow[s] = (int8_t)code;
       M0[s] = mv;
       I0[s] = iv;
       D0[s] = dv;
@@ -225,10 +241,215 @@ const_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
   }
 }
 
-// One thread per interior lane (s = 1..n), up to kThreads.
-int threads_for(int n) {
-  const int t = (max(n, 1) + 31) / 32 * 32;
-  return t < kThreads ? t : kThreads;
+// ---------------------------------------------------------------------------
+// The lowmem affine aligner (affine_gap_lowmem_batch, wavefront.py:1212):
+// a forward that keeps the two-diagonal state every K diagonals, then per
+// block, from the last, a re-fill of its K diagonals inside a window of W
+// lanes and a walk of that window's trace.
+//
+// affine_fwd_block replaces _affine_fwd_chunked_kernel (:895, pallas_call
+// :991): K diagonals of score-mode Gotoh from a checkpoint, one launch a
+// block (as the JAX forward loop does), one thread block a pair. It writes
+// every lane 0..n of every diagonal (NEG outside the grid), so its end
+// state, the next checkpoint, equals the plain version's on every lane
+// whatever the input holds outside the grid. The checkpoint lives in
+// device memory, (3, 2, B, S) int32: state k of diagonals d0-1 and d0.
+//
+// affine_bwd_window replaces _affine_bwd_window_kernel (:1007,
+// pallas_call :1085): it re-fills diagonals d0+1..d0+K of a pair on the
+// lanes [wlo, wlo+W) only, reading the window of the checkpoint, and
+// writes the packed trace (K, B, W). Each block computes its pair's wlo
+// from the walk's current row i on the card, so the block loop needs no
+// round trip to the host. The window's lane 0 takes its own value as its
+// s-1 neighbour, as the Pallas kernel's _shift does.
+//
+// lowmem_walk_block replaces the jnp walk _walk_block (:1102): one thread
+// a pair walks K steps over the block's trace, carrying (i, j, k) in
+// device memory from block to block.
+//
+// State slots: three, as for affine_wavefront (the Pallas kernels' two
+// parity slots race on a GPU), in shared memory when 9 x lanes x 4 bytes
+// fit (the wrapper's SMEM_STATE_BYTES_MAX), else in a global scratch of
+// (B, 9 x lanes) int32 that stays in L2. At the full-width shape (16
+// pairs of 16,384 x 16,384, K = 1024) the forward's state is 590 KB a
+// pair (global), the backward's W = 2,688 lanes take 97 KB (shared); at
+// K = 4096, W = 8,832 lanes take 318 KB (global).
+//
+// What bounds them on the card: the forward by integer operations (10 a
+// cell in score mode, 4.3 G cells at full width: ~2.6 ms at the int32
+// rate of all 132 SMs), but one block a pair keeps only B SMs busy and
+// every diagonal moves ~36 bytes a lane through L2 (scratch), so this
+// design is bound by one SM's L2 traffic and its barrier per diagonal.
+// The backward window and the walk are small beside it (the walk is a
+// chain of dependent one-byte loads, bound by latency).
+
+constexpr int kLowmemThreads = 1024;
+
+// Slot of diagonal d (d may be -1).
+__device__ __forceinline__ int slot_of(int d) { return ((d % 3) + 3) % 3; }
+
+__global__ void __launch_bounds__(kLowmemThreads)
+affine_fwd_block_kernel(const int8_t* __restrict__ alpha,    // (B, n)
+                        const int8_t* __restrict__ beta,     // (B, m)
+                        const int32_t* __restrict__ scores,  // (5, 5)
+                        int go, int ge, int B, int n, int m, int d0, int K,
+                        int fin,
+                        const int32_t* __restrict__ state_in,  // (3, 2, B, S)
+                        int32_t* scratch,                      // (B, 9 S) or null
+                        int32_t* __restrict__ state_out,       // (3, 2, B, S)
+                        int32_t* __restrict__ capture) {       // (3, B, S)
+  extern __shared__ int32_t smem[];
+  __shared__ int sc[25];
+  const int S = n + 1;
+  const int b = blockIdx.x;
+  // state k of slot t at st + (3k + t) S
+  int32_t* st = scratch ? scratch + (int64_t)b * 9 * S : smem;
+  if (threadIdx.x < 25) sc[threadIdx.x] = scores[threadIdx.x];
+  for (int k = 0; k < 3; ++k) {
+    for (int p = 0; p < 2; ++p) {
+      const int32_t* src = state_in + ((int64_t)(2 * k + p) * B + b) * S;
+      int32_t* dst = st + (3 * k + slot_of(d0 - 1 + p)) * S;
+      for (int s = threadIdx.x; s < S; s += blockDim.x) dst[s] = src[s];
+    }
+    int32_t* cap = capture + ((int64_t)k * B + b) * S;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) cap[s] = kNeg;
+  }
+  __syncthreads();
+
+  const int8_t* al = alpha + (int64_t)b * n;
+  const int8_t* be = beta + (int64_t)b * m;
+  const int goe = go + ge;
+  for (int d = d0 + 1; d <= d0 + K; ++d) {
+    const int t0 = slot_of(d), t1 = slot_of(d - 1), t2 = slot_of(d - 2);
+    const Prev pv = {st + t1 * S, st + (3 + t1) * S, st + (6 + t1) * S,
+                     st + t2 * S, st + (3 + t2) * S, st + (6 + t2) * S};
+    int32_t *M0 = st + t0 * S, *I0 = st + (3 + t0) * S, *D0 = st + (6 + t0) * S;
+    const int lo = max(1, d - m), hi = min(d - 1, n);  // interior lanes
+    const int bnd = go + ge * d;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      int mv = kNeg, iv = kNeg, dv = kNeg;
+      if (s >= lo && s <= hi) {
+        gotoh_cell(pv, s, s - 1, substitution(sc, al, be, s, d - s), goe, ge,
+                   mv, iv, dv);
+      } else {
+        if (s == 0 && d <= m) iv = bnd;  // row 0
+        if (s == d && d <= n) dv = bnd;  // column 0
+      }
+      M0[s] = mv;
+      I0[s] = iv;
+      D0[s] = dv;
+      if (d == fin) {
+        capture[(int64_t)b * S + s] = mv;
+        capture[((int64_t)B + b) * S + s] = iv;
+        capture[((int64_t)2 * B + b) * S + s] = dv;
+      }
+    }
+    __syncthreads();
+  }
+  // the end state: diagonals d0+K-1 and d0+K
+  for (int k = 0; k < 3; ++k)
+    for (int p = 0; p < 2; ++p) {
+      const int32_t* src = st + (3 * k + slot_of(d0 + K - 1 + p)) * S;
+      int32_t* dst = state_out + ((int64_t)(2 * k + p) * B + b) * S;
+      for (int s = threadIdx.x; s < S; s += blockDim.x) dst[s] = src[s];
+    }
+}
+
+__global__ void __launch_bounds__(kLowmemThreads)
+affine_bwd_window_kernel(const int8_t* __restrict__ alpha,    // (B, n)
+                         const int8_t* __restrict__ beta,     // (B, m)
+                         const int32_t* __restrict__ scores,  // (5, 5)
+                         int go, int ge, int B, int n, int m, int d0, int K,
+                         int W,
+                         const int32_t* __restrict__ i_cur,     // (B,)
+                         const int32_t* __restrict__ state_in,  // (3, 2, B, S)
+                         int32_t* scratch,                      // (B, 9 W) or null
+                         int32_t* __restrict__ wlo_out,         // (B,)
+                         int8_t* __restrict__ trace) {          // (K, B, W)
+  extern __shared__ int32_t smem[];
+  __shared__ int sc[25];
+  const int S = n + 1;
+  const int b = blockIdx.x;
+  int32_t* st = scratch ? scratch + (int64_t)b * 9 * W : smem;
+  // wlo = clip(floor((i - 2K - 128) / 128) * 128, 0, S - W)
+  const int x = i_cur[b] - 2 * K - 128;
+  const int wlo = min(x > 0 ? x / 128 * 128 : 0, S - W);
+  if (threadIdx.x == 0) wlo_out[b] = wlo;
+  if (threadIdx.x < 25) sc[threadIdx.x] = scores[threadIdx.x];
+  for (int k = 0; k < 3; ++k)
+    for (int p = 0; p < 2; ++p) {
+      const int32_t* src = state_in + ((int64_t)(2 * k + p) * B + b) * S + wlo;
+      int32_t* dst = st + (3 * k + slot_of(d0 - 1 + p)) * W;
+      for (int w = threadIdx.x; w < W; w += blockDim.x) dst[w] = src[w];
+    }
+  __syncthreads();
+
+  const int8_t* al = alpha + (int64_t)b * n;
+  const int8_t* be = beta + (int64_t)b * m;
+  const int goe = go + ge;
+  for (int t = 0; t < K; ++t) {
+    const int d = d0 + 1 + t;
+    const int t0 = slot_of(d), t1 = slot_of(d - 1), t2 = slot_of(d - 2);
+    const Prev pv = {st + t1 * W, st + (3 + t1) * W, st + (6 + t1) * W,
+                     st + t2 * W, st + (3 + t2) * W, st + (6 + t2) * W};
+    int32_t *M0 = st + t0 * W, *I0 = st + (3 + t0) * W, *D0 = st + (6 + t0) * W;
+    const int lo = max(1, d - m), hi = min(d - 1, n);  // interior lanes
+    const int bnd = go + ge * d;
+    int8_t* trow = trace + ((int64_t)t * B + b) * W;
+    for (int w = threadIdx.x; w < W; w += blockDim.x) {
+      const int s = wlo + w;
+      int mv = kNeg, iv = kNeg, dv = kNeg, code = 0;
+      if (s >= lo && s <= hi) {
+        code = gotoh_cell(pv, w, w > 0 ? w - 1 : 0,
+                          substitution(sc, al, be, s, d - s), goe, ge, mv, iv, dv);
+      } else {
+        if (s == 0 && d <= m) iv = bnd;  // row 0
+        if (s == d && d <= n) dv = bnd;  // column 0
+      }
+      M0[w] = mv;
+      I0[w] = iv;
+      D0[w] = dv;
+      trow[w] = (int8_t)code;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void lowmem_walk_block_kernel(const int8_t* __restrict__ trace,  // (K, B, W)
+                                         const int32_t* __restrict__ wlo,   // (B,)
+                                         int d0, int K, int W, int B,
+                                         int32_t* __restrict__ i_io,  // (B,)
+                                         int32_t* __restrict__ j_io,  // (B,)
+                                         int32_t* __restrict__ k_io,  // (B,)
+                                         int8_t* __restrict__ ops) {  // (K, B)
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  int i = i_io[b], j = j_io[b], k = k_io[b];
+  const int soff = wlo[b];
+  for (int t = 0; t < K; ++t) {
+    const int d_rel = i + j - 1 - d0;
+    if (i < 1 || j < 1 || d_rel < 0) {  // inactive: the op is 4, nothing moves
+      ops[(int64_t)t * B + b] = 4;
+      continue;
+    }
+    const int dd = min(d_rel, K - 1);
+    const int ss = min(max(i - soff, 0), W - 1);
+    const int packed = trace[((int64_t)dd * B + b) * W + ss];
+    ops[(int64_t)t * B + b] = (int8_t)k;
+    const int kn = k == 0 ? packed & 3 : k == 1 ? (packed >> 2) & 3 : (packed >> 4) & 3;
+    if (k == 0 || k == 2) --i;
+    if (k == 0 || k == 1) --j;
+    k = kn;
+  }
+  i_io[b] = i;
+  j_io[b] = j;
+  k_io[b] = k;
+}
+
+// One thread per lane, up to cap (K2/K3 sweep the interior lanes 1..n).
+int threads_for(int lanes, int cap = kThreads) {
+  const int t = (max(lanes, 1) + 31) / 32 * 32;
+  return t < cap ? t : cap;
 }
 
 // Opts a kernel into `bytes` of dynamic shared memory where that is more
@@ -278,5 +499,50 @@ extern "C" int const_wavefront_launch(const void* alpha, const void* beta,
       (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)fin,
       (const int32_t*)scores, gap, B, n, m, (int32_t*)scratch, (int32_t*)res,
       (int8_t*)trace);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int affine_fwd_block_launch(const void* alpha, const void* beta,
+                                       const void* scores, int go, int ge,
+                                       int B, int n, int m, int d0, int K,
+                                       int fin, const void* state_in,
+                                       void* scratch, void* state_out,
+                                       void* capture, void* stream) {
+  const int S = n + 1;
+  const size_t smem = scratch ? 0 : (size_t)9 * S * sizeof(int32_t);
+  cudaError_t err = allow_smem(affine_fwd_block_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  affine_fwd_block_kernel<<<B, threads_for(S, kLowmemThreads), smem, (cudaStream_t)stream>>>(
+      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)scores, go, ge,
+      B, n, m, d0, K, fin, (const int32_t*)state_in, (int32_t*)scratch,
+      (int32_t*)state_out, (int32_t*)capture);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int affine_bwd_window_launch(const void* alpha, const void* beta,
+                                        const void* scores, int go, int ge,
+                                        int B, int n, int m, int d0, int K,
+                                        int W, const void* i_cur,
+                                        const void* state_in, void* scratch,
+                                        void* wlo, void* trace, void* stream) {
+  const size_t smem = scratch ? 0 : (size_t)9 * W * sizeof(int32_t);
+  cudaError_t err = allow_smem(affine_bwd_window_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  affine_bwd_window_kernel<<<B, threads_for(W, kLowmemThreads), smem, (cudaStream_t)stream>>>(
+      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)scores, go, ge,
+      B, n, m, d0, K, W, (const int32_t*)i_cur, (const int32_t*)state_in,
+      (int32_t*)scratch, (int32_t*)wlo, (int8_t*)trace);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lowmem_walk_block_launch(const void* trace, const void* wlo,
+                                        int d0, int K, int W, int B, void* i,
+                                        void* j, void* k, void* ops,
+                                        void* stream) {
+  const int threads = 128;
+  lowmem_walk_block_kernel<<<(B + threads - 1) / threads, threads, 0,
+                             (cudaStream_t)stream>>>(
+      (const int8_t*)trace, (const int32_t*)wlo, d0, K, W, B, (int32_t*)i,
+      (int32_t*)j, (int32_t*)k, (int8_t*)ops);
   return (int)cudaGetLastError();
 }

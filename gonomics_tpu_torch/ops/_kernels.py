@@ -44,6 +44,14 @@ _SIGNATURES = {
                                     _vp, _vp],
         "const_wavefront_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
                                    _int, _int, _vp, _vp, _vp, _vp],
+        "affine_fwd_block_launch": [_vp, _vp, _vp, _int, _int, _int, _int,
+                                    _int, _int, _int, _int, _vp, _vp, _vp,
+                                    _vp, _vp],
+        "affine_bwd_window_launch": [_vp, _vp, _vp, _int, _int, _int, _int,
+                                     _int, _int, _int, _int, _vp, _vp, _vp,
+                                     _vp, _vp, _vp],
+        "lowmem_walk_block_launch": [_vp, _vp, _int, _int, _int, _int, _vp,
+                                     _vp, _vp, _vp, _vp],
     },
     "gsw_dp": {
         "local_wavefront_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
@@ -57,6 +65,9 @@ _SIGNATURES = {
 # kernel name (as check() is given it) -> its library
 _LIBRARY_OF = {"banded_dp": "banded", "banded_walk_pack": "banded",
                "affine_wavefront": "wavefront", "const_wavefront": "wavefront",
+               "affine_fwd_block": "wavefront",
+               "affine_bwd_window": "wavefront",
+               "lowmem_walk_block": "wavefront",
                "local_wavefront": "gsw_dp", "gsw_right_wavefront": "gsw_dp",
                "gsw_walk_pack": "gsw_dp"}
 

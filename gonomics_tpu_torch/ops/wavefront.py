@@ -1,9 +1,10 @@
 """Anti-diagonal wavefront DPs: batched pairwise global alignment (the
 contract of ``wavefront_align``, ``gonomics_tpu/ops/wavefront.py:1534``,
-for ``mode="affine"`` and ``mode="const"``, with and without trace) and
-the graph aligner's two extension DPs.
+for ``mode="affine"`` and ``mode="const"``, with and without trace), the
+graph aligner's two extension DPs, and the chromosome-scale lowmem
+aligner (``affine_gap_lowmem_batch``, :1212-1303).
 
-Four kernels, each with its plain PyTorch version beside it:
+Seven kernels, each with its plain PyTorch version beside it:
 
 - ``affine_wavefront`` (CUDA ``csrc/wavefront.cu``) replaces the Pallas
   kernel ``_affine_kernel`` (wavefront.py:94, ``pallas_call`` at :1584);
@@ -11,13 +12,20 @@ Four kernels, each with its plain PyTorch version beside it:
 - ``local_wavefront`` (CUDA ``csrc/gsw_dp.cu``) replaces
   ``_local_kernel`` (:179, ``pallas_call`` :451 in ``wavefront_local``);
 - ``gsw_right_wavefront`` (same file) replaces ``_gsw_right_kernel``
-  (:289, ``pallas_call`` :368 in ``wavefront_gsw_right``).
+  (:289, ``pallas_call`` :368 in ``wavefront_gsw_right``);
+- ``affine_fwd_block`` (``csrc/wavefront.cu``) replaces
+  ``_affine_fwd_chunked_kernel`` (:895, ``pallas_call`` :991);
+- ``affine_bwd_window`` (same file) replaces ``_affine_bwd_window_kernel``
+  (:1007, ``pallas_call`` :1085);
+- ``lowmem_walk_block`` (same file) replaces the jnp walk ``_walk_block``
+  (:1102).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel, counts the launch in its module counter
 (``affine_launches``, ``const_launches``, ``local_launches``,
-``gsw_right_launches``), and raises if the launch fails. It never falls
-back.
+``gsw_right_launches``, ``affine_fwd_block_launches``,
+``affine_bwd_window_launches``, ``lowmem_walk_launches``), and raises if
+the launch fails. It never falls back.
 
 Layout: cell (i, j) lies on diagonal d = i + j at lane s = i, so results
 are (B, S) int32 and the trace is (n+m, B, S) int8 with row d-1 holding
@@ -36,9 +44,10 @@ reached keeps NEG. The graph kernels' layout and trace are described at
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .. import NEG
+from .. import NEG, resolve_device
 from . import _kernels
 from ._kernels import as_vec, expect
 
@@ -51,11 +60,15 @@ affine_launches = 0
 const_launches = 0
 local_launches = 0
 gsw_right_launches = 0
+affine_fwd_block_launches = 0
+affine_bwd_window_launches = 0
+lowmem_walk_launches = 0
 
 
 def state_in_shared_memory(n: int, mode: str) -> bool:
     """Whether the kernel for ``mode`` keeps the diagonal state of an
-    alpha of padded length n in shared memory."""
+    alpha of padded length n in shared memory (for the lowmem kernels,
+    n + 1 is the lanes they sweep: the forward's S, the backward's W)."""
     states = 3 if mode == "affine" else 1
     return states * 3 * (n + 1) * 4 <= SMEM_STATE_BYTES_MAX
 
@@ -99,13 +112,20 @@ class _Diagonals:
         self.sc = torch.as_tensor(scores, dtype=torch.int32,
                                   device=dev).reshape(25)
 
-    def sub(self, d: int):
-        """(B, S) substitution score of cell (s, d - s)."""
-        row = self.rows[:, d + self.n - self.s]
-        return self.sc[row * 5 + self.al]
+    def sub(self, d: int, s=None):
+        """Substitution score of cell (s, d - s): (B, S) over all lanes, or
+        over the lanes s (B, W) of a window. Beyond diagonal n + m (the
+        lowmem forward's last block) the column index is clamped; those
+        cells lie outside the grid, where every caller masks the score."""
+        if s is None:
+            idx = (d + self.n - self.s).clamp(max=self.rows.shape[1] - 1)
+            return self.sc[self.rows[:, idx] * 5 + self.al]
+        idx = (d + self.n - s).clamp(max=self.rows.shape[1] - 1)
+        return self.sc[self.rows.gather(1, idx) * 5 + self.al.gather(1, s)]
 
-    def interior(self, d: int):
-        return (self.s >= max(1, d - self.m)) & (self.s <= min(d - 1, self.n))
+    def interior(self, d: int, s=None):
+        s = self.s if s is None else s
+        return (s >= max(1, d - self.m)) & (s <= min(d - 1, self.n))
 
 
 def _neg(B: int, S: int, device) -> torch.Tensor:
@@ -489,3 +509,355 @@ def wavefront_align(alpha_pad, beta_pad, fin_d, scores, *, gap_open: int,
         return const_wavefront(alpha_pad, beta_pad, fin_d, scores, gap_open,
                                with_trace)
     raise ValueError(f"unknown wavefront mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# The lowmem aligner: global Gotoh alignment of pairs too long for a full
+# trace. The forward keeps a two-diagonal state, (3, 2, B, S) int32: state
+# k (M, I, D) of diagonals d0 - 1 (index 0) and d0 (index 1) on every lane
+# s = 0..n (the TPU kernel's 8 sublane chunks, S8 = round_up(n+1, 1024)
+# lanes and parity slots were its VMEM layout). The backward re-fills one
+# block of K diagonals at a time inside a window of W lanes per pair and
+# walks that block's trace.
+
+
+def window_width(n: int, K: int) -> int:
+    """W = min(S, round_up(2K + 640, 128)) lanes of a backward window
+    (the JAX's W with S = n + 1 for its S8)."""
+    return min(n + 1, (2 * K + 640 + 127) // 128 * 128)
+
+
+def initial_state(B: int, n: int, gap_open: int, device) -> torch.Tensor:
+    """The state at d0 = 0: cell (0, 0) has M = 0 and I = D = gap open;
+    every other lane, and all of diagonal -1, holds NEG."""
+    state = torch.full((3, 2, B, n + 1), NEG, dtype=torch.int32,
+                       device=device)
+    state[0, 1, :, 0] = 0
+    state[1:, 1, :, 0] = int(gap_open)
+    return state
+
+
+def affine_fwd_block_reference(alpha, beta, state, d0: int, fin: int, scores,
+                               gap_open: int, gap_extend: int, K: int):
+    """Plain PyTorch forward of K diagonals d0+1..d0+K of the score-mode
+    Gotoh DP over (B, S) tensors: the arithmetic of
+    ``_affine_fwd_chunked_kernel`` (wavefront.py:895-975), with the
+    recurrences and boundaries of ``affine_wavefront_reference``.
+
+    alpha (B, n), beta (B, m) int8; state (3, 2, B, S) int32 at diagonals
+    d0 - 1 and d0. Returns (state at d0+K-1 and d0+K, capture): capture
+    (3, B, S) holds M, I and D of diagonal ``fin`` on every lane, or NEG
+    where fin is not in the block (the capture is reset each block)."""
+    B, n = alpha.shape
+    S = n + 1
+    dev = alpha.device
+    go, ge = int(gap_open), int(gap_extend)
+    goe = go + ge
+    dg = _Diagonals(alpha, beta, scores)
+    (m2, i2, d2), (m1, i1, d1) = state[:, 0], state[:, 1]
+    cap = [_neg(B, S, dev)] * 3
+    for d in range(d0 + 1, d0 + K + 1):
+        m_new = dg.sub(d) + _shift(_max3(m2, i2, d2))
+        i_new = _max3(goe + m1, ge + i1, goe + d1)
+        d_new = _shift(_max3(goe + m1, goe + i1, ge + d1))
+        interior = dg.interior(d)
+        bnd = go + ge * d
+        m_new = torch.where(interior, m_new, NEG)
+        i_new = torch.where(interior, i_new,
+                            _edge((dg.s == 0) & (d <= dg.m), bnd))
+        d_new = torch.where(interior, d_new, _edge((dg.s == d) & (d <= n), bnd))
+        if d == fin:
+            cap = [m_new, i_new, d_new]
+        m2, i2, d2 = m1, i1, d1
+        m1, i1, d1 = m_new, i_new, d_new
+    out = torch.stack([torch.stack([m2, m1]), torch.stack([i2, i1]),
+                       torch.stack([d2, d1])])
+    return out, torch.stack(cap)
+
+
+def _window_start(i, K: int, S: int, W: int):
+    """wlo = clip(floor((i - 2K - 128) / 128) * 128, 0, S - W) per pair
+    (``_lowmem_backward``, wavefront.py:1153, with S for S8)."""
+    x = i.to(torch.int64) - 2 * K - 128
+    return (torch.div(x, 128, rounding_mode="floor") * 128).clamp(0, S - W)
+
+
+def affine_bwd_window_reference(alpha, beta, state, d0: int, i, scores,
+                                gap_open: int, gap_extend: int, K: int):
+    """Plain PyTorch re-fill of diagonals d0+1..d0+K inside each pair's
+    window of W = ``window_width(n, K)`` lanes [wlo_b, wlo_b + W): the
+    arithmetic of ``_affine_bwd_window_kernel`` (wavefront.py:1007-1071).
+
+    state (3, 2, B, S) int32 is the checkpoint at d0 - 1 and d0; i (B,)
+    int32 the walk's current row, which sets wlo_b (``_window_start``).
+    As in the Pallas kernel, the window's lane 0 takes its own value as
+    its s - 1 neighbour (``_shift``), so cells within t lanes of the
+    window's left edge on step t differ from the full DP; the walk never
+    reads them (it stays at lanes >= i - K >= wlo + K + 128). Returns
+    (trace, wlo): trace (K, B, W) int8 packs tM + 4 tI + 16 tD for the
+    interior cells of diagonal d0 + 1 + t at lane wlo_b + w, and is 0
+    elsewhere; wlo (B,) int32."""
+    B, n = alpha.shape
+    S = n + 1
+    W = window_width(n, K)
+    go, ge = int(gap_open), int(gap_extend)
+    goe = go + ge
+    dg = _Diagonals(alpha, beta, scores)
+    wlo = _window_start(torch.as_tensor(i, device=alpha.device).reshape(B),
+                        K, S, W)
+    s = wlo[:, None] + torch.arange(W, device=alpha.device)
+    win = state.gather(3, s.expand(3, 2, B, W))
+    (m2, i2, d2), (m1, i1, d1) = win[:, 0], win[:, 1]
+    trace = torch.empty((K, B, W), dtype=torch.int8, device=alpha.device)
+    for t in range(K):
+        d = d0 + 1 + t
+        m_new = dg.sub(d, s) + _shift(_max3(m2, i2, d2))
+        a_i, b_i, c_i = goe + m1, ge + i1, goe + d1
+        i_new = _max3(a_i, b_i, c_i)
+        b_d, c_d = goe + i1, ge + d1
+        d_new = _shift(_max3(a_i, b_d, c_d))
+        interior = dg.interior(d, s)
+        code = (_shift(_argmax3(m2, i2, d2)) + 4 * _argmax3(a_i, b_i, c_i)
+                + 16 * _shift(_argmax3(a_i, b_d, c_d)))
+        trace[t] = torch.where(interior, code, 0).to(torch.int8)
+        bnd = go + ge * d
+        m_new = torch.where(interior, m_new, NEG)
+        i_new = torch.where(interior, i_new, _edge((s == 0) & (d <= dg.m), bnd))
+        d_new = torch.where(interior, d_new, _edge((s == d) & (d <= n), bnd))
+        m2, i2, d2 = m1, i1, d1
+        m1, i1, d1 = m_new, i_new, d_new
+    return trace, wlo.to(torch.int32)
+
+
+def lowmem_walk_block_reference(trace, wlo, d0: int, i, j, k):
+    """Plain PyTorch traceback over one block's windowed trace: the
+    arithmetic of ``_walk_block`` (wavefront.py:1102-1126).
+
+    trace (K, B, W) int8 from ``affine_bwd_window``, wlo (B,) its window
+    starts; i, j, k (B,) int32, the walk's cell and state (0 M, 1 I,
+    2 D), are updated in place. Each of K steps emits the current state
+    as the op while the cell is active (i >= 1, j >= 1 and its diagonal
+    i + j in d0+1..d0+K), else 4, and then moves: M to (i-1, j-1), I to
+    (i, j-1), D to (i-1, j), the next state read from the cell's code.
+    Returns ops (K, B) int8."""
+    K, B, W = trace.shape
+    bidx = torch.arange(B, device=trace.device)
+    ci, cj, ck = i.clone(), j.clone(), k.clone()
+    ops = torch.empty((K, B), dtype=torch.int8, device=trace.device)
+    for t in range(K):
+        d_rel = ci + cj - 1 - d0
+        active = (ci >= 1) & (cj >= 1) & (d_rel >= 0)
+        dd = d_rel.clamp(0, K - 1).long()
+        ss = (ci - wlo).clamp(0, W - 1).long()
+        packed = trace[dd, bidx, ss].to(torch.int32)
+        ops[t] = torch.where(active, ck, 4).to(torch.int8)
+        k_next = torch.where(ck == 0, packed & 3,
+                             torch.where(ck == 1, (packed >> 2) & 3,
+                                         (packed >> 4) & 3))
+        ci = ci - (active & ((ck == 0) | (ck == 2))).to(torch.int32)
+        cj = cj - (active & ((ck == 0) | (ck == 1))).to(torch.int32)
+        ck = torch.where(active, k_next, ck).to(torch.int32)
+    i.copy_(ci)
+    j.copy_(cj)
+    k.copy_(ck)
+    return ops
+
+
+def _lowmem_inputs(alpha, beta, state, scores):
+    B, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    return (expect(alpha, torch.int8, (B, n), "alpha", dev),
+            expect(beta, torch.int8, (B, m), "beta", dev),
+            expect(state, torch.int32, (3, 2, B, n + 1), "state", dev),
+            expect(torch.as_tensor(scores, dtype=torch.int32, device=dev),
+                   torch.int32, (5, 5), "scores", dev))
+
+
+def affine_fwd_block(alpha, beta, state, d0: int, fin: int, scores,
+                     gap_open: int, gap_extend: int, K: int):
+    """K forward diagonals from a checkpoint (see
+    ``affine_fwd_block_reference``): the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors."""
+    global affine_fwd_block_launches
+    if alpha.device.type == "cpu":
+        return affine_fwd_block_reference(alpha, beta, state, d0, fin, scores,
+                                          gap_open, gap_extend, K)
+    alpha, beta, state, sc = _lowmem_inputs(alpha, beta, state, scores)
+    B, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    S = n + 1
+    out = torch.empty((3, 2, B, S), dtype=torch.int32, device=dev)
+    cap = torch.empty((3, B, S), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out, cap
+    scratch = (None if state_in_shared_memory(n, "affine") else
+               torch.empty((B, 9 * S), dtype=torch.int32, device=dev))
+    lib = _kernels.lib("wavefront")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.affine_fwd_block_launch(
+            alpha.data_ptr(), beta.data_ptr(), sc.data_ptr(), int(gap_open),
+            int(gap_extend), B, n, m, int(d0), int(K), int(fin),
+            state.data_ptr(), _ptr(scratch), out.data_ptr(), cap.data_ptr(),
+            stream)
+    _kernels.check(rc, "affine_fwd_block")
+    affine_fwd_block_launches += 1
+    return out, cap
+
+
+def affine_bwd_window(alpha, beta, state, d0: int, i, scores, gap_open: int,
+                      gap_extend: int, K: int):
+    """Windowed re-fill of one block (see ``affine_bwd_window_reference``):
+    the plain version for CPU tensors, the CUDA kernel for CUDA tensors,
+    which computes each pair's window start from i on the card."""
+    global affine_bwd_window_launches
+    if alpha.device.type == "cpu":
+        return affine_bwd_window_reference(alpha, beta, state, d0, i, scores,
+                                           gap_open, gap_extend, K)
+    alpha, beta, state, sc = _lowmem_inputs(alpha, beta, state, scores)
+    B, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    i = expect(as_vec(i, B, dev), torch.int32, (B,), "i", dev)
+    W = window_width(n, K)
+    trace = torch.empty((K, B, W), dtype=torch.int8, device=dev)
+    wlo = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return trace, wlo
+    scratch = (None if state_in_shared_memory(W - 1, "affine") else
+               torch.empty((B, 9 * W), dtype=torch.int32, device=dev))
+    lib = _kernels.lib("wavefront")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.affine_bwd_window_launch(
+            alpha.data_ptr(), beta.data_ptr(), sc.data_ptr(), int(gap_open),
+            int(gap_extend), B, n, m, int(d0), int(K), W, i.data_ptr(),
+            state.data_ptr(), _ptr(scratch), wlo.data_ptr(), trace.data_ptr(),
+            stream)
+    _kernels.check(rc, "affine_bwd_window")
+    affine_bwd_window_launches += 1
+    return trace, wlo
+
+
+def lowmem_walk_block(trace, wlo, d0: int, i, j, k):
+    """One block's traceback (see ``lowmem_walk_block_reference``): the
+    plain version for CPU tensors, the CUDA kernel (one thread a pair)
+    for CUDA tensors. i, j, k are updated in place."""
+    global lowmem_walk_launches
+    if trace.device.type == "cpu":
+        return lowmem_walk_block_reference(trace, wlo, d0, i, j, k)
+    K, B, W = trace.shape
+    dev = trace.device
+    trace = expect(trace, torch.int8, (K, B, W), "trace", dev)
+    wlo = expect(wlo, torch.int32, (B,), "wlo", dev)
+    for name, t in (("i", i), ("j", j), ("k", k)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B,) or \
+                t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous int32 ({B},) on "
+                             f"{dev}, updated in place")
+    ops = torch.empty((K, B), dtype=torch.int8, device=dev)
+    if B == 0:
+        return ops
+    lib = _kernels.lib("wavefront")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.lowmem_walk_block_launch(
+            trace.data_ptr(), wlo.data_ptr(), int(d0), K, W, B, i.data_ptr(),
+            j.data_ptr(), k.data_ptr(), ops.data_ptr(), stream)
+    _kernels.check(rc, "lowmem_walk_block")
+    lowmem_walk_launches += 1
+    return ops
+
+
+def lowmem_forward(alpha, beta, scores, gap_open: int, gap_extend: int,
+                   K: int):
+    """The forward of the lowmem aligner (``_lowmem_fwd_loop``,
+    wavefront.py:1180): fb + 1 = (n+m-1)//K + 1 blocks of K diagonals,
+    where the tensors lie. Returns (checkpoints, capture): checkpoints
+    (fb+1, 3, 2, B, S) int32, row blk the state at the entry of block blk
+    (diagonals blk*K - 1 and blk*K), and the last block's capture
+    (3, B, S) of diagonal n + m."""
+    B, n = alpha.shape
+    m = beta.shape[1]
+    K = int(K)
+    fb = (n + m - 1) // K
+    ck = torch.empty((fb + 1, 3, 2, B, n + 1), dtype=torch.int32,
+                     device=alpha.device)
+    ck[0] = initial_state(B, n, gap_open, alpha.device)
+    for blk in range(fb + 1):
+        state, cap = affine_fwd_block(alpha, beta, ck[blk], blk * K, n + m,
+                                      scores, gap_open, gap_extend, K)
+        if blk < fb:
+            ck[blk + 1] = state
+    return ck, cap
+
+
+def lowmem_backward(i, j, k, d0s, checkpoints, alpha, beta, scores,
+                    gap_open: int, gap_extend: int, K: int):
+    """The backward of the lowmem aligner (``_lowmem_backward``,
+    wavefront.py:1131): for each block in the order given, re-fill its
+    window from its checkpoint and walk it. d0s are the blocks' starts and
+    checkpoints their entry states (3, 2, B, S), both in the order walked
+    (the last block first), from any forward. i, j, k (B,) int32 are the
+    walk's start, updated in place to where it ends. Returns the ops
+    (len(d0s), K, B) int8 (0 M, 1 I, 2 D, 4 inactive) where the tensors
+    lie."""
+    ops = []
+    for d0, state in zip(d0s, checkpoints):
+        trace, wlo = affine_bwd_window(alpha, beta, state, d0, i, scores,
+                                       gap_open, gap_extend, K)
+        ops.append(lowmem_walk_block(trace, wlo, d0, i, j, k))
+        del trace  # one block's trace at a time (44 MB at full width)
+    return torch.stack(ops)
+
+
+def affine_gap_lowmem_batch(alphas, betas, scores, gap_open: int,
+                            gap_extend: int, *, checkersize: int = 2048,
+                            device=None):
+    """Chromosome-scale affine alignment of B equal-size pairs in
+    O(B (n+m)^2 / K) device memory (the contract of
+    ``affine_gap_lowmem_batch``, wavefront.py:1212): a forward that keeps
+    the state every K = checkersize diagonals, then per block, from the
+    last, a windowed re-fill and a walk, all on ``device`` (None means
+    the card) without a round trip to the host.
+
+    alphas (B, n), betas (B, m) int8 codes. Returns a list of (score, ops,
+    i0, j0) per pair: ops the backward M/I/D op codes (0/1/2, numpy int8)
+    from (n, m) toward the origin, (i0, j0) where the walk stopped on row
+    0 or column 0 (the residual gap run)."""
+    dev = resolve_device(device)
+    alpha = torch.from_numpy(np.ascontiguousarray(alphas, np.int8)).to(dev)
+    beta = torch.from_numpy(np.ascontiguousarray(betas, np.int8)).to(dev)
+    B, n = alpha.shape
+    m = beta.shape[1]
+    K = int(checkersize)
+    ck, cap = lowmem_forward(alpha, beta, scores, gap_open, gap_extend, K)
+    fm, fi, fd = cap[:, :, n]
+    k0 = _argmax3(fm, fi, fd).to(torch.int32)
+    score = torch.where(k0 == 0, fm, torch.where(k0 == 1, fi, fd))
+    nb = ck.shape[0]
+    i = torch.full((B,), n, dtype=torch.int32, device=dev)
+    j = torch.full((B,), m, dtype=torch.int32, device=dev)
+    ops = lowmem_backward(
+        i, j, k0, [blk * K for blk in reversed(range(nb))],
+        [ck[blk] for blk in reversed(range(nb))], alpha, beta, scores,
+        gap_open, gap_extend, K)
+    ops = ops.cpu().numpy().reshape(-1, B)
+    score, i, j = (t.cpu().numpy() for t in (score, i, j))
+    out = []
+    for b in range(B):
+        ob = ops[:, b]
+        out.append((int(score[b]), ob[ob != 4], int(i[b]), int(j[b])))
+    return out
+
+
+def affine_gap_lowmem(alpha, beta, scores, gap_open: int, gap_extend: int,
+                      *, checkersize: int = 2048, device=None):
+    """Single-pair ``affine_gap_lowmem_batch``; returns (score, ops, i0,
+    j0)."""
+    [res] = affine_gap_lowmem_batch(
+        np.asarray(alpha, np.int8)[None], np.asarray(beta, np.int8)[None],
+        scores, gap_open, gap_extend, checkersize=checkersize, device=device)
+    return res

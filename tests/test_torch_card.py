@@ -296,3 +296,134 @@ def test_graph_aligner_on_card_equals_cpu(card):
             for p in on_card.align_pair_batch(pairs)] == \
         [[giraf.to_string(x) for x in p]
          for p in on_cpu.align_pair_batch(pairs)]
+
+
+def _lowmem_pairs(B: int, n: int, m: int, seed: int):
+    """B pairs of n x m: relatives of their alphas (a gap, SNPs, N codes),
+    one random pair, and negative codes."""
+    rng = np.random.default_rng(seed)
+    alpha = rng.integers(0, 4, (B, n)).astype(np.int8)
+    beta = np.empty((B, m), np.int8)
+    for b in range(B):
+        rel = np.resize(np.concatenate([alpha[b, :n // 3],
+                                        alpha[b, n // 3 + 3:]]), m)
+        rel[rng.random(m) < 0.04] = rng.integers(0, 5)
+        beta[b] = rel
+    beta[-1] = rng.integers(0, 4, m)
+    alpha[0, rng.integers(0, n, 2)] = [-1, 4]
+    beta[0, rng.integers(0, m, 2)] = [-2, 4]
+    return alpha, beta
+
+
+# (B, n, m, K, scoring): the window moving and clipped (W = 768 < S), n = 1,
+# m = 1, a single block, and K = 4096 with n = 9000, where both the
+# forward's state (S = 9001 lanes) and the backward window's (W = 8832)
+# are above the shared-memory limit (global scratch)
+_LOWMEM_CASES = [(3, 900, 300, 8, "humanChimp"), (2, 1, 40, 16, "humanChimp"),
+                 (2, 40, 1, 16, "plusMinusOne"), (3, 50, 30, 128, "humanChimp"),
+                 (2, 9000, 300, 4096, "humanChimp")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m,K,scoring", _LOWMEM_CASES)
+def test_lowmem_kernels_equal_plain(card, B, n, m, K, scoring):
+    """affine_fwd_block (K6) on every forward block, then affine_bwd_window
+    (K7) and lowmem_walk_block on every block of the backward, each
+    against its plain version from the same inputs."""
+    scores, go, ge = ((HUMAN_CHIMP_TWO, -600, -150) if scoring == "humanChimp"
+                      else (PLUS_MINUS_ONE, -1, -1))
+    alpha, beta = (torch.from_numpy(x).to(card)
+                   for x in _lowmem_pairs(B, n, m, B + n))
+    sc = torch.as_tensor(scores, dtype=torch.int32, device=card)
+    W = wavefront.window_width(n, K)
+    big = n == 9000
+    assert wavefront.state_in_shared_memory(n, "affine") == (not big)
+    assert wavefront.state_in_shared_memory(W - 1, "affine") == (not big)
+    before = wavefront.affine_fwd_block_launches
+    ck, cap = wavefront.lowmem_forward(alpha, beta, sc, go, ge, K)
+    nb = ck.shape[0]
+    assert wavefront.affine_fwd_block_launches == before + nb
+    for blk in range(nb):
+        want = wavefront.affine_fwd_block_reference(alpha, beta, ck[blk],
+                                                    blk * K, n + m, sc, go, ge,
+                                                    K)
+        if blk + 1 < nb:
+            assert torch.equal(ck[blk + 1], want[0]), blk
+        got = wavefront.affine_fwd_block(alpha, beta, ck[blk], blk * K, n + m,
+                                         sc, go, ge, K)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), blk
+    assert torch.equal(cap, want[1])
+    k = wavefront._argmax3(*cap[:, :, n]).to(torch.int32)
+    i = torch.full((B,), n, dtype=torch.int32, device=card)
+    j = torch.full((B,), m, dtype=torch.int32, device=card)
+    moved = set()
+    for blk in reversed(range(nb)):
+        d0 = blk * K
+        before = (wavefront.affine_bwd_window_launches,
+                  wavefront.lowmem_walk_launches)
+        trace, wlo = wavefront.affine_bwd_window(alpha, beta, ck[blk], d0, i,
+                                                 sc, go, ge, K)
+        wtrace, wwlo = wavefront.affine_bwd_window_reference(
+            alpha, beta, ck[blk], d0, i, sc, go, ge, K)
+        torch.cuda.synchronize()
+        assert torch.equal(wlo, wwlo) and torch.equal(trace, wtrace), blk
+        moved.update(wlo.tolist())
+        ii, jj, kk = i.clone(), j.clone(), k.clone()
+        ops = wavefront.lowmem_walk_block(trace, wlo, d0, i, j, k)
+        wops = wavefront.lowmem_walk_block_reference(trace, wlo, d0, ii, jj,
+                                                     kk)
+        torch.cuda.synchronize()
+        assert (wavefront.affine_bwd_window_launches,
+                wavefront.lowmem_walk_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+        assert torch.equal(ops, wops), blk
+        for g, w in ((i, ii), (j, jj), (k, kk)):
+            assert torch.equal(g, w), blk
+    assert bool(((i == 0) | (j == 0)).all())
+    if W < n + 1:
+        assert len(moved) > 1  # the window moved
+
+
+@pytest.mark.cuda
+def test_lowmem_walk_on_random_traces(card):
+    """The walk over random codes (unknown state 3 included) from cells on
+    the block, before it and on row 0 or column 0."""
+    rng = np.random.default_rng(5)
+    K, B, W, d0 = 64, 300, 200, 1000
+    trace = torch.from_numpy(rng.integers(0, 64, (K, B, W)).astype(np.int8))
+    wlo = torch.from_numpy(rng.integers(0, 900, B).astype(np.int32))
+    i = torch.from_numpy(rng.integers(0, 1000, B).astype(np.int32))
+    j = (d0 + torch.from_numpy(rng.integers(-3, K + 1, B).astype(np.int32))
+         - i)
+    k = torch.from_numpy(rng.integers(0, 4, B).astype(np.int32))
+    got = [x.to(card) for x in (i, j, k)]
+    ops = wavefront.lowmem_walk_block(trace.to(card), wlo.to(card), d0, *got)
+    want_ops = wavefront.lowmem_walk_block_reference(trace, wlo, d0, i, j, k)
+    assert torch.equal(ops.cpu(), want_ops)
+    for g, w in zip(got, (i, j, k)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m,K", [(3, 900, 300, 8), (2, 1, 40, 16),
+                                     (2, 40, 1, 16), (3, 50, 30, 128),
+                                     (4, 300, 320, 64)])
+def test_lowmem_on_card_equals_cpu(card, B, n, m, K):
+    alpha, beta = _lowmem_pairs(B, n, m, seed=n + m)
+    kw = dict(checkersize=K)
+    on_card = wavefront.affine_gap_lowmem_batch(alpha, beta, HUMAN_CHIMP_TWO,
+                                                -600, -150, device=card, **kw)
+    on_cpu = wavefront.affine_gap_lowmem_batch(alpha, beta, HUMAN_CHIMP_TWO,
+                                               -600, -150, device="cpu", **kw)
+    for (gs, gops, gi, gj), (ws, wops, wi, wj) in zip(on_card, on_cpu):
+        assert (gs, gi, gj) == (ws, wi, wj)
+        assert np.array_equal(gops, wops)
+    route = align.affine_gap_lowmem(alpha[0], beta[0], HUMAN_CHIMP_TWO, -600,
+                                    -150, checkersize=K, device=card)
+    assert route[0] == on_card[0][0]
+    assert [(c.run_length, c.op) for c in route[1]] == \
+        [(c.run_length, c.op) for c in align.affine_gap_lowmem(
+            alpha[0], beta[0], HUMAN_CHIMP_TWO, -600, -150, checkersize=K,
+            device="cpu")[1]]
