@@ -56,11 +56,23 @@ exits non-zero:
             first 2 pairs equal the full-trace path, 4 pairs of 2 kb at
             K = 256 equal device="cpu", and a related 100 kb pair through
             the pairwise API (K = 4096) replays and equals K2's score.
+13. score_kernels: affine_stream (K8) at bench.py's P = 8 x B = 256
+            random pairs of 1024 x 1024 and affine_block (K9) on 256
+            related pairs padded to 1024 x 1024 at r_rows = 512, each held
+            against its plain PyTorch version on the card (exact equality)
+            and timed; plus P = 2 with m even and m > n, n = 1, r_rows not
+            dividing n, and r_rows + 1 > 1024 lanes.
+14. score:  bench.py's stage_score_stream: its parity gate (K2, the
+            stream, the blocked kernel) against the plain versions on the
+            CPU; K2's score mode, the stream and the blocked kernel once
+            each on the stream's 2048 pairs, where all three must give the
+            same score for every pair, with each call's peak device
+            memory; G cells/s of each at bench.py's sizes.
 
 Then the kernels line (launch counts of banded_dp and banded_walk_pack
 from phase 3, of the wavefront kernels from phase 6, of the graph kernels
-from phase 8, of the lowmem kernels from phase 12) and, last, one JSON
-object naming the device. Without a CUDA card, or outside a checkout of
+from phase 8, of the lowmem kernels from phase 12, of the score kernels
+from phase 14) and, last, one JSON object naming the device. Without a CUDA card, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 """
 
@@ -160,6 +172,15 @@ LOWMEM_B, LOWMEM_LEN, LOWMEM_K, LOWMEM_SEED = 16, 16384, 1024, 3
 # its other gates: 4 related pairs of 2 kb at K = 256 against the CPU, and
 # one related pair of 100 kb through the pairwise API at its default K
 LOWMEM_SMALL, LOWMEM_SMALL_K, LOWMEM_LONG = 2000, 256, 100_000
+
+# Score-only affine alignment at bench.py's stage_score_stream
+# (bench.py:87-150): its parity gate (B0 = 8 pairs of L0 = 96, the stream
+# at P0 = 4, seed 5), K2's score mode on B = 256 random pairs of 1024 x
+# 1024 (seeds 2, 3) and the stream on P = 8 x B = 256 pairs of that size
+# (seeds 0, 1), HUMAN_CHIMP_TWO, -600/-150; the row-blocked kernel at the
+# same B and size with its default r_rows = 512.
+SCORE_B0, SCORE_L0, SCORE_P0 = 8, 96, 4
+SCORE_B, SCORE_L, SCORE_P, SCORE_R = 256, 1024, 8, 512
 # per walk step: trace address, load, activity test, the next state's
 # shift and mask, i and j updates
 LOWMEM_WALK_OPS_PER_STEP = 7
@@ -570,14 +591,16 @@ def pair_batch(B: int, n: int, m: int, seed: int, dev):
 
 
 def wavefront_bound(mode: str, kind: str, dims: np.ndarray, n: int, m: int,
-                    ) -> dict:
+                    results: int | None = None) -> dict:
     """Least time for one wavefront call: each input read once and each
-    output written once (the trace as each pair's own n_b x m_b cells)
+    output written once (the trace as each pair's own n_b x m_b cells,
+    and `results` int32 values, by default the (B, n+1) rows of K2/K3)
     at the memory rate, and the operations each pair's own cells need at
     the int32 rate."""
     B = len(dims)
     cells = int((dims[:, 0].astype(np.int64) * dims[:, 1]).sum())
-    results = (3 if (mode, kind) == ("affine", "trace") else 1) * B * (n + 1)
+    if results is None:
+        results = (3 if (mode, kind) == ("affine", "trace") else 1) * B * (n + 1)
     nbytes = B * (n + m) + 4 * B + 100 + 4 * results
     if kind == "trace":
         nbytes += cells
@@ -1554,6 +1577,242 @@ def phase_lowmem(dev: torch.device) -> dict:
     return out
 
 
+def stream_batch(dev):
+    """bench.py's stream batch: P x B random pairs of L x L (seeds 0, 1)."""
+    shape = (SCORE_P, SCORE_B, SCORE_L)
+    return tuple(torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 4, shape).astype(np.int8)).to(dev) for seed in (0, 1))
+
+
+def random_score_batch(B: int, n: int, m: int, seed: int, dev):
+    """B random pairs padded to (n, m) with code 4, each of its own
+    n_b x m_b (pair 0 the full widths), codes 0..4; alpha, beta, fin."""
+    rng = np.random.default_rng(seed)
+    nb, mb = rng.integers(1, n + 1, B), rng.integers(1, m + 1, B)
+    nb[0], mb[0] = n, m
+    alpha = rng.integers(0, 5, (B, n)).astype(np.int8)
+    beta = rng.integers(0, 5, (B, m)).astype(np.int8)
+    alpha[np.arange(n) >= nb[:, None]] = 4
+    beta[np.arange(m) >= mb[:, None]] = 4
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (alpha, beta, (nb + mb).astype(np.int32)))
+
+
+def phase_score_kernels(dev: torch.device) -> list[dict]:
+    """affine_stream (K8) and affine_block (K9) against their plain
+    versions at bench.py's full size and on edge cases, exact."""
+    from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+    from gonomics_tpu_torch.ops import wavefront
+
+    go, ge = AFFINE_GAPS
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=dev)
+
+    def stream(a, b):
+        return wavefront.wavefront_affine_stream(
+            a, b, sc, n=a.shape[2], m=b.shape[2], gap_open=go, gap_extend=ge)
+
+    def stream_plain(a, b):
+        return wavefront.affine_stream_reference(a, b, sc, go, ge)
+
+    def blocked(a, b, f, r_rows):
+        return wavefront.wavefront_align_blocked(
+            a, b, f, sc, n=a.shape[1], m=b.shape[1], gap_open=go,
+            gap_extend=ge, r_rows=r_rows)
+
+    def blocked_plain(a, b, f, r_rows):
+        return wavefront.affine_block_reference(a, b, f, sc, go, ge, r_rows)
+
+    def check(kernel, plain, args) -> dict:
+        """The kernel against its plain version; the plain call timed."""
+        got = kernel(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(*args)
+        end.record()
+        end.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        return {"equal_to_plain": torch.equal(got, want), "max_abs_err": err,
+                "plain_ms": start.elapsed_time(end)}
+
+    L, P, B, R = SCORE_L, SCORE_P, SCORE_B, SCORE_R
+    sa, sb = stream_batch(dev)
+    ba, bb, bf, dims = pair_batch(B, L, L, seed=41, dev=dev)
+    full = {
+        "affine_stream": (stream, stream_plain, (sa, sb),
+                          f"{P} x {B} random pairs of {L} x {L}"),
+        "affine_block": (blocked, blocked_plain, (ba, bb, bf, R),
+                         f"{B} related pairs padded to {L} x {L} (n_b = "
+                         f"{int(dims[:, 0].min())}-{L}, m_b = "
+                         f"{int(dims[:, 1].min())}-{L}), r_rows = {R}")}
+    def codes(shape, seed):
+        return torch.from_numpy(np.random.default_rng(seed).integers(
+            0, 5, shape).astype(np.int8)).to(dev)
+
+    edges = [
+        ("affine_stream", "P = 2, m even and m > n (300 x 512)",
+         (codes((2, 16, 300), 51), codes((2, 16, 512), 52))),
+        ("affine_stream", "n = 1 (1 x 7)",
+         (codes((2, 8, 1), 53), codes((2, 8, 7), 54))),
+        ("affine_block", "r_rows = 384 not dividing n = 1000",
+         (*random_score_batch(16, 1000, 700, 55, dev), 384)),
+        ("affine_block", "n = 1, r_rows = 512",
+         (*random_score_batch(4, 1, 50, 56, dev), 512)),
+        ("affine_block", "r_rows + 1 = 1501 > 1024 lanes (two a thread)",
+         (*random_score_batch(8, 3000, 300, 57, dev), 1500))]
+    cases = []
+    for name, (kernel, plain, args, what) in full.items():
+        cases.append({"kernel": name, "case": "full size: " + what,
+                      **check(kernel, plain, args)})
+    for name, what, args in edges:
+        kernel, plain = full[name][:2]
+        cases.append({"kernel": name, "case": what,
+                      **check(kernel, plain, args)})
+    ok = all(c["equal_to_plain"] for c in cases)
+
+    # bounds from this run's inputs: the stream's cells are P B n m; the
+    # blocked kernel sweeps nb r_rows padded rows of every pair
+    nb = -(-L // R)
+    bounds = {
+        "affine_stream": wavefront_bound(
+            "affine", "score", np.tile([L, L], (P * B, 1)), L, L,
+            results=P * B),
+        "affine_block": wavefront_bound(
+            "affine", "score", np.tile([nb * R, L], (B, 1)), L, L,
+            results=nb * B * (R + 1))}
+    times = {"affine_stream": median_ms(lambda: stream(sa, sb), runs=10,
+                                        inner=2),
+             "affine_block": median_ms(lambda: blocked(ba, bb, bf, R),
+                                       runs=10, inner=2)}
+    replaces = {
+        "affine_stream": "gonomics_tpu/ops/wavefront.py:1306 "
+                         "(_affine_stream_kernel, pallas_call :1507 in "
+                         "wavefront_affine_stream :1449)",
+        "affine_block": "gonomics_tpu/ops/wavefront.py:466 "
+                        "(_affine_block_kernel, pallas_call :620 in "
+                        "wavefront_align_blocked :569)"}
+    rows = []
+    for name in ("affine_stream", "affine_block"):
+        mine = [c for c in cases if c["kernel"] == name]
+        bound = bounds[name]
+        by = "bytes" if bound["bytes"] > bound["operations"] else "operations"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "gonomics_tpu_torch/csrc/wavefront.cu",
+            "replaces": replaces[name], "launches": None,
+            "equal_to_plain": all(c["equal_to_plain"] for c in mine),
+            "tolerance": "exact",
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": times[name], "plain_ms": mine[0]["plain_ms"],
+            "bound_ms": bound[by], "bound_by": by, "library_ms": None,
+            "shape": full[name][3], "cells": bound["cells"]})
+    emit({"phase": "score_kernels", "tolerance": "exact", "cases": cases,
+          "kernels": [{k: r[k] for k in ("name", "equal_to_plain",
+                                         "max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "shape",
+                                         "cells")} for r in rows]})
+    if not ok:
+        raise SystemExit("a score kernel disagrees with its plain version")
+    return rows
+
+
+def phase_score(dev: torch.device) -> dict:
+    """bench.py's stage_score_stream on the card: its parity gate against
+    the plain versions on the CPU, one call each of K2's score mode, the
+    stream (K8) and the blocked kernel (K9) on the stream's batch (the
+    main path of this slice, launch counts from it) with the gate that
+    all three agree on every pair, their peak device memory, and G
+    cells/s of each at bench.py's sizes."""
+    from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+    from gonomics_tpu_torch.ops import wavefront
+
+    go, ge = AFFINE_GAPS
+    kw = dict(gap_open=go, gap_extend=ge)
+
+    def k2(a, b):
+        n, m = a.shape[1], b.shape[1]
+        fin = torch.full((a.shape[0],), n + m, dtype=torch.int32,
+                         device=a.device)
+        return wavefront.wavefront_align(a, b, fin, HUMAN_CHIMP_TWO,
+                                         with_trace=False, **kw)[:, n]
+
+    def k8(a, b):
+        return wavefront.wavefront_affine_stream(
+            a, b, HUMAN_CHIMP_TWO, n=a.shape[2], m=b.shape[2], **kw)
+
+    def k9(a, b, r_rows):
+        n, m = a.shape[1], b.shape[1]
+        fin = torch.full((a.shape[0],), n + m, dtype=torch.int32,
+                         device=a.device)
+        res = wavefront.wavefront_align_blocked(
+            a, b, fin, HUMAN_CHIMP_TWO, n=n, m=m, r_rows=r_rows, **kw)
+        k = (n - 1) // r_rows
+        return res[k, :, n - k * r_rows]
+
+    # bench.py's compiled-parity gate, held against the plain versions on
+    # the CPU (bench.py holds it against the numpy oracle)
+    B0, L0, P0 = SCORE_B0, SCORE_L0, SCORE_P0
+    rng = np.random.default_rng(5)
+    a0 = torch.from_numpy(rng.integers(0, 4, (B0, L0)).astype(np.int8))
+    b0 = torch.from_numpy(rng.integers(0, 5, (B0, L0)).astype(np.int8))
+    als = torch.from_numpy(rng.integers(0, 4, (P0, B0, L0)).astype(np.int8))
+    bes = torch.from_numpy(rng.integers(0, 5, (P0, B0, L0)).astype(np.int8))
+    r0 = L0 // 3 + 8  # three blocks, the last one short
+    gate = {
+        "k2_b0": torch.equal(k2(a0.to(dev), b0.to(dev)).cpu(), k2(a0, b0)),
+        "stream_p0": torch.equal(k8(als.to(dev), bes.to(dev)).cpu(),
+                                 k8(als, bes)),
+        "blocked_b0": torch.equal(k9(a0.to(dev), b0.to(dev), r0).cpu(),
+                                  k9(a0, b0, r0))}
+
+    # the main path: launch counts from these three calls only
+    sa, sb = stream_batch(dev)
+    P, B, L, R = SCORE_P, SCORE_B, SCORE_L, SCORE_R
+    flat_a, flat_b = sa.reshape(P * B, L), sb.reshape(P * B, L)
+    wavefront.affine_launches = 0
+    wavefront.affine_stream_launches = wavefront.affine_block_launches = 0
+    scores, peak = {}, {}
+    for name, fn in (("k2", lambda: k2(flat_a, flat_b)),
+                     ("stream", lambda: k8(sa, sb).reshape(-1)),
+                     ("blocked", lambda: k9(flat_a, flat_b, R))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        scores[name] = fn()
+        torch.cuda.synchronize()
+        peak[name] = {"peak_bytes": torch.cuda.max_memory_allocated(dev),
+                      "above_inputs_bytes":
+                          torch.cuda.max_memory_allocated(dev) - before}
+    launches = {"affine_stream": wavefront.affine_stream_launches,
+                "affine_block": wavefront.affine_block_launches}
+    k2_launches = wavefront.affine_launches
+    agree = (torch.equal(scores["k2"], scores["stream"])
+             and torch.equal(scores["k2"], scores["blocked"]))
+
+    # G cells/s at bench.py's sizes: K2 on its B = 256 batch, the stream
+    # on P x B, the blocked kernel on K2's batch
+    a1, b1 = (torch.from_numpy(np.random.default_rng(s).integers(
+        0, 4, (B, L)).astype(np.int8)).to(dev) for s in (2, 3))
+    timed = {"k2": (lambda: k2(a1, b1), B * L * L, 15, 5),
+             "stream": (lambda: k8(sa, sb), P * B * L * L, 10, 2),
+             "blocked": (lambda: k9(a1, b1, R), B * L * L, 10, 2)}
+    rates = {}
+    for name, (fn, cells, runs, inner) in timed.items():
+        ms = median_ms(fn, runs=runs, inner=inner)
+        rates[name] = {"ms": ms, "cells": cells,
+                       "g_cells_per_s": cells / ms / 1e6}
+    out = {"phase": "score", "parity_gate": gate,
+           "shared_batch": f"{P} x {B} random pairs of {L} x {L}",
+           "all_three_agree": agree, "launches": launches,
+           "k2_launches": k2_launches, "peak_device_memory": peak,
+           "r_rows": R, "rates": rates}
+    emit(out)
+    if not (all(gate.values()) and agree
+            and all(v > 0 for v in launches.values()) and k2_launches > 0):
+        raise SystemExit("score check failed")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1573,8 +1832,11 @@ def main() -> int:
     phase_graph_cli(dev)
     rows += phase_lowmem_kernels(dev)
     lowmem = phase_lowmem(dev)
+    rows += phase_score_kernels(dev)
+    score = phase_score(dev)
     launches = {**e2e["launches"], **pairwise["launches"],
-                **graph["launches"], **lowmem["launches"]}
+                **graph["launches"], **lowmem["launches"],
+                **score["launches"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
     emit({"phase": "done", "total_s": time.perf_counter() - t0})

@@ -1,7 +1,8 @@
 // Anti-diagonal wavefront DP for batched pairwise global alignment, for
 // Hopper (sm_90a): global affine (Gotoh, three states) and global linear
-// gap alignment, each with a trace mode and a score mode, and the three
-// kernels of the lowmem affine aligner (at the end of this file).
+// gap alignment, each with a trace mode and a score mode, the three
+// kernels of the lowmem affine aligner, and two score-only affine kernels
+// (the streamed and the row-blocked one, at the end of this file).
 //
 // affine_wavefront replaces the Pallas kernel _affine_kernel
 // (gonomics_tpu/ops/wavefront.py:94) and const_wavefront replaces
@@ -446,6 +447,211 @@ __global__ void lowmem_walk_block_kernel(const int8_t* __restrict__ trace,  // (
   k_io[b] = k;
 }
 
+// ---------------------------------------------------------------------------
+// Score-only global affine alignment.
+//
+// affine_stream replaces _affine_stream_kernel (:1306, pallas_call :1507
+// in wavefront_affine_stream :1449): the Gotoh score at cell (n, m) of
+// many pairs of one shape. The TPU kernel staggers two pairs through one
+// (B, S) lane set, reads a combined reversed-beta buffer by manual DMA and
+// divides by a magic multiply, to fill its lanes and to dodge its scalar
+// unit's stalls; a GPU has neither problem, and none of it is carried
+// over. Here one warp aligns one pair and no block barrier is paid: the
+// warp sweeps the DP in strips of 32 rows, lane t owning row 32k + t + 1
+// and working on column c - t + 1 at step c. A cell's left neighbour is
+// the lane's own last cell; its upper and upper-left neighbours come from
+// lane t - 1 by __shfl_up_sync (this step's value and the last step's).
+// Lane 0 takes them from the boundary row, the last row of the strip
+// before, which lane 31 writes to a per-pair scratch as (max(M, I), D),
+// all that a lower row reads, and which the warp reads back 32 columns at
+// a time, a chunk ahead, broadcasting one column a step to lane 0. The
+// substitution score is one shared-memory load from a table of the 256
+// beta codes x 5 clipped alpha codes (the scoring rule of substitution()
+// above), built by each block.
+//
+// What bounds it: the rate at which the SM dispatches integer
+// instructions. A step of 32 cells is ~30 warp instructions (four
+// shuffles, ~20 on the int32 pipe) for the ~10 int32 operations a cell
+// that the function needs; the boundary rows
+// (8 bytes a cell of every 32nd row) stay in L2. Strips of 32 rows fill a
+// warp on m + 31 steps of m: 97% at m = 1024.
+//
+// affine_block replaces _affine_block_kernel (:466, pallas_call :620 in
+// wavefront_align_blocked :569): one row block of the score-mode Gotoh DP,
+// one launch a block as the JAX loop. Lane s is row k_off + s; lane 0 is
+// the boundary row the block before left, read from (3, B, m) M/I/D
+// tensors at column d (one diagonal ahead, so the load hides behind the
+// barrier); lane r_rows writes its cell of each diagonal d > r_rows into
+// the next boundary row at column d - r_rows (the TPU kernel's 128-lane
+// capture ring and flush). Alpha rows past n read code 4, the JAX
+// function's padding. One thread block a pair, three diagonal slots and a
+// barrier a diagonal, as K2 and bound the same way (~0.74 us a diagonal,
+// PERF.md); a thread takes several lanes when r_rows + 1 > 1024; the state
+// lives in shared memory up to SMEM_STATE_BYTES_MAX and in a global
+// scratch above.
+
+constexpr int kStreamWarps = 4;  // pairs (one a warp) per block of affine_stream
+constexpr unsigned kAllLanes = 0xffffffffu;
+
+__global__ void __launch_bounds__(32 * kStreamWarps)
+affine_stream_kernel(const int8_t* __restrict__ alpha,    // (NP, n)
+                     const int8_t* __restrict__ beta,     // (NP, m)
+                     const int32_t* __restrict__ scores,  // (5, 5)
+                     int go, int ge, int NP, int n, int m,
+                     int2* __restrict__ bnd,              // (NP, m) scratch
+                     int32_t* __restrict__ out) {         // (NP,)
+  // tab[5 c + a]: the score of beta byte c against clipped alpha code a
+  __shared__ int tab[256 * 5];
+  for (int x = threadIdx.x; x < 256 * 5; x += blockDim.x) {
+    const int bc = (int8_t)(x / 5);
+    const int row = bc < 2 ? (bc == 0 ? 0 : 1) : min(bc, 4);
+    tab[x] = scores[row * 5 + x % 5];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kStreamWarps + threadIdx.x / 32;
+  if (p >= NP) return;  // the whole warp
+  if (n == 0) {  // cell (0, m) of row 0, unreached at m = 0
+    if (lane == 0) out[p] = m > 0 ? go + ge * m : kNeg;
+    return;
+  }
+  const int8_t* al = alpha + (int64_t)p * n;
+  const uint8_t* be = (const uint8_t*)beta + (int64_t)p * m;
+  int2* brow = bnd + (int64_t)p * m;  // column j at index j - 1
+  const int goe = go + ge;
+  // row 0: M = D = NEG, I = go + ge j
+  for (int j = lane; j < m; j += 32) brow[j] = make_int2(go + ge * (j + 1), kNeg);
+  __syncwarp();
+  int M = kNeg, I = kNeg, D = kNeg;
+  for (int r0 = 0; r0 < n; r0 += 32) {
+    const int i = r0 + lane + 1;  // this lane's row; rows past n read code 4
+    const int* sub = tab + (i <= n ? min(max((int)al[i - 1], 0), 4) : 4);
+    const bool last = r0 + 32 >= n;
+    // the lane's cell before its first step: (i, 0), M = I = NEG
+    M = kNeg;
+    I = kNeg;
+    D = go + ge * i;
+    // lane 0's upper-left at step 0: cell (r0, 0) as (max(M, I), D)
+    int pH = r0 == 0 ? max(0, go) : kNeg;
+    int pD = go + ge * r0;
+    const int2 none = make_int2(kNeg, kNeg);
+    int2 chunk = lane < m ? brow[lane] : none;
+    int2 ahead = lane + 32 < m ? brow[lane + 32] : none;
+    for (int c = 0; c < m + 31; ++c) {
+      if ((c & 31) == 0 && c > 0) {
+        chunk = ahead;
+        if (c + 32 + lane < m) ahead = brow[c + 32 + lane];
+      }
+      // boundary column c + 1 for lane 0
+      const int bH = __shfl_sync(kAllLanes, chunk.x, c & 31);
+      const int bD = __shfl_sync(kAllLanes, chunk.y, c & 31);
+      // cell (i - 1, j) of lane t - 1, computed on the step before
+      int uH = __shfl_up_sync(kAllLanes, max(M, I), 1);
+      int uD = __shfl_up_sync(kAllLanes, D, 1);
+      if (lane == 0) {
+        uH = bH;
+        uD = bD;
+      }
+      const int j = c - lane + 1;
+      if (j >= 1 && j <= m) {
+        const int mv = sub[5 * be[j - 1]] + max(pH, pD);  // from (i-1, j-1)
+        I = max(goe + max(M, D), ge + I);                  // from (i, j-1)
+        D = max(goe + uH, ge + uD);                        // from (i-1, j)
+        M = mv;
+        if (lane == 31 && !last) brow[j - 1] = make_int2(max(M, I), D);
+      }
+      pH = uH;
+      pD = uD;
+    }
+    __syncwarp();
+  }
+  if (lane == (n - 1) % 32) out[p] = max3(M, I, D);
+}
+
+__global__ void __launch_bounds__(kLowmemThreads)
+affine_block_kernel(const int8_t* __restrict__ alpha,     // (B, n)
+                    const int8_t* __restrict__ beta,      // (B, m)
+                    const int32_t* __restrict__ fin,      // (B,)
+                    const int32_t* __restrict__ scores,   // (5, 5)
+                    int go, int ge, int B, int n, int m, int R, int k_off,
+                    const int32_t* __restrict__ bnd_in,   // (3, B, m)
+                    int32_t* __restrict__ bnd_out,        // (3, B, m)
+                    int32_t* scratch,                     // (B, 9 (R+1)) or null
+                    int32_t* __restrict__ res) {          // (B, R+1)
+  extern __shared__ int32_t smem[];
+  __shared__ int sc[25];
+  const int S = R + 1;
+  const int b = blockIdx.x;
+  // state k of slot t at st + (3k + t) S
+  int32_t* st = scratch ? scratch + (int64_t)b * 9 * S : smem;
+  int32_t* out = res + (int64_t)b * S;
+  if (threadIdx.x < 25) sc[threadIdx.x] = scores[threadIdx.x];
+  // diagonal 0 (slot 0): lane 0 is cell (k_off, 0), the origin (M = 0,
+  // I = D = go) for the first block and D = go + ge k_off for the others
+  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    const bool origin = s == 0 && k_off == 0;
+    st[s] = origin ? 0 : kNeg;
+    st[3 * S + s] = origin ? go : kNeg;
+    st[6 * S + s] = s == 0 ? go + ge * k_off : kNeg;
+    out[s] = kNeg;
+  }
+  const int64_t at_m = (int64_t)b * m, at_i = ((int64_t)B + b) * m,
+                at_d = ((int64_t)2 * B + b) * m;
+  // lane 0's boundary cell of the next diagonal (column 1)
+  int nm = kNeg, ni = kNeg, nd = kNeg;
+  if (threadIdx.x == 0 && m >= 1) {
+    nm = bnd_in[at_m];
+    ni = bnd_in[at_i];
+    nd = bnd_in[at_d];
+  }
+  __syncthreads();
+
+  const int8_t* al = alpha + (int64_t)b * n;
+  const int8_t* be = beta + (int64_t)b * m;
+  const int f = fin[b] - k_off;  // the pair's diagonal in this block
+  const int goe = go + ge;
+  for (int d = 1; d <= R + m; ++d) {
+    const int t0 = d % 3, t1 = (d + 2) % 3, t2 = (d + 1) % 3;
+    const Prev pv = {st + t1 * S, st + (3 + t1) * S, st + (6 + t1) * S,
+                     st + t2 * S, st + (3 + t2) * S, st + (6 + t2) * S};
+    int32_t *M0 = st + t0 * S, *I0 = st + (3 + t0) * S, *D0 = st + (6 + t0) * S;
+    const int lo = max(1, d - m), hi = min(d - 1, R);  // interior lanes
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      int mv = kNeg, iv = kNeg, dv = kNeg;
+      if (s == 0) {  // the boundary row at column d (NEG past m)
+        if (d <= m) {
+          mv = nm;
+          iv = ni;
+          dv = nd;
+        }
+        if (d < m) {
+          nm = bnd_in[at_m + d];
+          ni = bnd_in[at_i + d];
+          nd = bnd_in[at_d + d];
+        }
+      } else if (s >= lo && s <= hi) {
+        const int row = k_off + s;
+        const int a = row <= n ? min(max((int)al[row - 1], 0), 4) : 4;
+        const int bc = be[d - s - 1];
+        const int brow = bc < 2 ? (bc == 0 ? 0 : 1) : min(bc, 4);
+        gotoh_cell(pv, s, s - 1, sc[brow * 5 + a], goe, ge, mv, iv, dv);
+      } else if (s == d) {  // column 0 (s <= R)
+        dv = go + ge * (k_off + s);
+      }
+      M0[s] = mv;
+      I0[s] = iv;
+      D0[s] = dv;
+      if (d == f) out[s] = max3(mv, iv, dv);
+      if (s == R && d > R) {  // cell (k_off + R, d - R) of the next boundary
+        bnd_out[at_m + d - R - 1] = mv;
+        bnd_out[at_i + d - R - 1] = iv;
+        bnd_out[at_d + d - R - 1] = dv;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // One thread per lane, up to cap (K2/K3 sweep the interior lanes 1..n).
 int threads_for(int lanes, int cap = kThreads) {
   const int t = (max(lanes, 1) + 31) / 32 * 32;
@@ -544,5 +750,32 @@ extern "C" int lowmem_walk_block_launch(const void* trace, const void* wlo,
                              (cudaStream_t)stream>>>(
       (const int8_t*)trace, (const int32_t*)wlo, d0, K, W, B, (int32_t*)i,
       (int32_t*)j, (int32_t*)k, (int8_t*)ops);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int affine_stream_launch(const void* alpha, const void* beta,
+                                    const void* scores, int go, int ge, int NP,
+                                    int n, int m, void* bnd, void* out,
+                                    void* stream) {
+  affine_stream_kernel<<<(NP + kStreamWarps - 1) / kStreamWarps, 32 * kStreamWarps,
+                         0, (cudaStream_t)stream>>>(
+      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)scores, go, ge,
+      NP, n, m, (int2*)bnd, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int affine_block_launch(const void* alpha, const void* beta,
+                                   const void* fin, const void* scores, int go,
+                                   int ge, int B, int n, int m, int R, int k_off,
+                                   const void* bnd_in, void* bnd_out,
+                                   void* scratch, void* res, void* stream) {
+  const int S = R + 1;
+  const size_t smem = scratch ? 0 : (size_t)9 * S * sizeof(int32_t);
+  cudaError_t err = allow_smem(affine_block_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  affine_block_kernel<<<B, threads_for(S, kLowmemThreads), smem, (cudaStream_t)stream>>>(
+      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)fin,
+      (const int32_t*)scores, go, ge, B, n, m, R, k_off, (const int32_t*)bnd_in,
+      (int32_t*)bnd_out, (int32_t*)scratch, (int32_t*)res);
   return (int)cudaGetLastError();
 }

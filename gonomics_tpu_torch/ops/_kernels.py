@@ -52,6 +52,10 @@ _SIGNATURES = {
                                      _vp, _vp, _vp],
         "lowmem_walk_block_launch": [_vp, _vp, _int, _int, _int, _int, _vp,
                                      _vp, _vp, _vp, _vp],
+        "affine_stream_launch": [_vp, _vp, _vp, _int, _int, _int, _int, _int,
+                                 _vp, _vp, _vp],
+        "affine_block_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
+                                _int, _int, _int, _vp, _vp, _vp, _vp, _vp],
     },
     "gsw_dp": {
         "local_wavefront_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
@@ -68,6 +72,7 @@ _LIBRARY_OF = {"banded_dp": "banded", "banded_walk_pack": "banded",
                "affine_fwd_block": "wavefront",
                "affine_bwd_window": "wavefront",
                "lowmem_walk_block": "wavefront",
+               "affine_stream": "wavefront", "affine_block": "wavefront",
                "local_wavefront": "gsw_dp", "gsw_right_wavefront": "gsw_dp",
                "gsw_walk_pack": "gsw_dp"}
 

@@ -1,10 +1,12 @@
 """Anti-diagonal wavefront DPs: batched pairwise global alignment (the
 contract of ``wavefront_align``, ``gonomics_tpu/ops/wavefront.py:1534``,
 for ``mode="affine"`` and ``mode="const"``, with and without trace), the
-graph aligner's two extension DPs, and the chromosome-scale lowmem
-aligner (``affine_gap_lowmem_batch``, :1212-1303).
+graph aligner's two extension DPs, the chromosome-scale lowmem aligner
+(``affine_gap_lowmem_batch``, :1212-1303), and the score-only affine
+entry points ``wavefront_affine_stream`` (:1449) and
+``wavefront_align_blocked`` (:569).
 
-Seven kernels, each with its plain PyTorch version beside it:
+Nine kernels, each with its plain PyTorch version beside it:
 
 - ``affine_wavefront`` (CUDA ``csrc/wavefront.cu``) replaces the Pallas
   kernel ``_affine_kernel`` (wavefront.py:94, ``pallas_call`` at :1584);
@@ -18,13 +20,18 @@ Seven kernels, each with its plain PyTorch version beside it:
 - ``affine_bwd_window`` (same file) replaces ``_affine_bwd_window_kernel``
   (:1007, ``pallas_call`` :1085);
 - ``lowmem_walk_block`` (same file) replaces the jnp walk ``_walk_block``
-  (:1102).
+  (:1102);
+- ``affine_stream`` (same file) replaces ``_affine_stream_kernel``
+  (:1306, ``pallas_call`` :1507 in ``wavefront_affine_stream``);
+- ``affine_block`` (same file) replaces ``_affine_block_kernel`` (:466,
+  ``pallas_call`` :620 in ``wavefront_align_blocked``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel, counts the launch in its module counter
 (``affine_launches``, ``const_launches``, ``local_launches``,
 ``gsw_right_launches``, ``affine_fwd_block_launches``,
-``affine_bwd_window_launches``, ``lowmem_walk_launches``), and raises if
+``affine_bwd_window_launches``, ``lowmem_walk_launches``,
+``affine_stream_launches``, ``affine_block_launches``), and raises if
 the launch fails. It never falls back.
 
 Layout: cell (i, j) lies on diagonal d = i + j at lane s = i, so results
@@ -63,6 +70,8 @@ gsw_right_launches = 0
 affine_fwd_block_launches = 0
 affine_bwd_window_launches = 0
 lowmem_walk_launches = 0
+affine_stream_launches = 0
+affine_block_launches = 0
 
 
 def state_in_shared_memory(n: int, mode: str) -> bool:
@@ -509,6 +518,173 @@ def wavefront_align(alpha_pad, beta_pad, fin_d, scores, *, gap_open: int,
         return const_wavefront(alpha_pad, beta_pad, fin_d, scores, gap_open,
                                with_trace)
     raise ValueError(f"unknown wavefront mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# Score-only global affine alignment: the streamed entry point (P x B pairs
+# of one shape, the score at cell (n, m)) and the row-blocked one (the
+# score-mode DP in blocks of r_rows rows, read out per block). Both compute
+# what K2's score mode computes.
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    """x itself when it is a tensor (used where it lies), else x as a
+    tensor on ``resolve_device(device)``."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), dtype=dtype).to(resolve_device(device))
+
+
+def affine_stream_reference(alpha, beta, scores, gap_open: int,
+                            gap_extend: int):
+    """Plain PyTorch global affine score of P x B pairs of one shape: lane
+    n of ``affine_wavefront_reference``'s score mode at fin = n + m, over
+    the pairs flattened to P·B rows (the function of
+    ``_affine_stream_kernel``, wavefront.py:1306, whose odd pad column of
+    beta never feeds cell (n, m)). alpha (P, B, n), beta (P, B, m) int8;
+    returns (P, B) int32."""
+    P, B, n = alpha.shape
+    m = beta.shape[2]
+    fin = torch.full((P * B,), n + m, dtype=torch.int32, device=alpha.device)
+    res = affine_wavefront_reference(alpha.reshape(P * B, n),
+                                     beta.reshape(P * B, m), fin, scores,
+                                     gap_open, gap_extend, False)
+    return res[:, n].reshape(P, B)
+
+
+def wavefront_affine_stream(alpha, beta, scores, *, n: int, m: int,
+                            gap_open: int, gap_extend: int, device=None):
+    """Score-only global affine alignment of P x B pairs of one shape (the
+    contract of ``wavefront_affine_stream``, wavefront.py:1449): alpha
+    (P, B, n), beta (P, B, m) int8 codes with P even and m >= n, as the
+    JAX function requires. Returns the (P, B) int32 scores of cell
+    (n, m), where the tensors lie; numpy inputs go to ``device`` (None is
+    the card). CPU tensors take ``affine_stream_reference``, CUDA tensors
+    the CUDA kernel ``affine_stream`` (one warp a pair)."""
+    global affine_stream_launches
+    alpha = _tensor(alpha, torch.int8, device)
+    dev = alpha.device
+    beta = _tensor(beta, torch.int8, dev)
+    P, B = alpha.shape[:2]
+    if P % 2:
+        raise ValueError("stream kernel needs an even pair count P")
+    if m < n:
+        raise ValueError("stream kernel needs m >= n (swap operands)")
+    alpha = expect(alpha, torch.int8, (P, B, n), "alpha", dev)
+    beta = expect(beta, torch.int8, (P, B, m), "beta", dev)
+    sc = expect(torch.as_tensor(scores, dtype=torch.int32, device=dev),
+                torch.int32, (5, 5), "scores", dev)
+    if dev.type == "cpu":
+        return affine_stream_reference(alpha, beta, sc, gap_open, gap_extend)
+    out = torch.empty((P, B), dtype=torch.int32, device=dev)
+    if P * B == 0:
+        return out
+    # per pair, the last row of the strip of 32 rows before: max(M, I), D
+    bnd = torch.empty((P * B, m, 2), dtype=torch.int32, device=dev)
+    lib = _kernels.lib("wavefront")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.affine_stream_launch(
+            alpha.data_ptr(), beta.data_ptr(), sc.data_ptr(), int(gap_open),
+            int(gap_extend), P * B, n, m, bnd.data_ptr(), out.data_ptr(),
+            stream)
+    _kernels.check(rc, "affine_stream")
+    affine_stream_launches += 1
+    return out
+
+
+def affine_block_reference(alpha, beta, fin, scores, gap_open: int,
+                           gap_extend: int, r_rows: int):
+    """Plain PyTorch result of the row-blocked score-mode Gotoh DP (the
+    function of ``_affine_block_kernel``, wavefront.py:466, as
+    ``wavefront_align_blocked`` chains it, :569-644), (nb, B, r_rows + 1)
+    int32 with nb = ceil(n / r_rows).
+
+    Lane s of block k is row k·r_rows + s; it holds max3(M, I, D) of cell
+    (k·r_rows + s, fin_b - k·r_rows - s), where alpha is padded with code
+    4 up to nb·r_rows rows, and NEG where that cell lies outside the
+    padded grid or where the block's local diagonal fin_b - k·r_rows is
+    outside 1..r_rows + m (never reached). The blocks chain their boundary
+    rows exactly, so this is one global DP over the padded grid
+    (``affine_wavefront_reference``) read out per block: every block
+    captures the same global diagonal fin_b."""
+    B, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    R = int(r_rows)
+    nb = -(-n // R)
+    padded = torch.full((B, nb * R), 4, dtype=torch.int8, device=dev)
+    padded[:, :n] = alpha
+    fin = as_vec(fin, B, dev)
+    res = affine_wavefront_reference(padded, beta, fin, scores, gap_open,
+                                     gap_extend, False)
+    k = torch.arange(nb, device=dev)
+    lanes = k[:, None] * R + torch.arange(R + 1, device=dev)
+    out = res[:, lanes].permute(1, 0, 2)
+    local = fin[None, :] - k[:, None] * R
+    reached = (local >= 1) & (local <= R + m)
+    return torch.where(reached[:, :, None], out, NEG).to(torch.int32)
+
+
+def wavefront_align_blocked(alpha_pad, beta_pad, fin_d, scores, *, n: int,
+                            m: int, gap_open: int, gap_extend: int,
+                            r_rows: int = 512, prof16: bool = False,
+                            device=None):
+    """Score-mode affine wavefront in row blocks of r_rows lanes (the
+    contract of ``wavefront_align_blocked``, wavefront.py:569): alpha_pad
+    (B, n), beta_pad (B, m) int8, fin_d (B,) or (B, 1) int32 = n_b + m_b.
+    Returns (nb, B, r_rows + 1) int32, nb = ceil(n / r_rows): pair b's
+    score lives at block (n_b - 1) // r_rows, lane n_b - k·r_rows (see
+    ``affine_block_reference`` for every lane). The JAX result has
+    round_up(r_rows + 1, 128) lanes; those above r_rows are always NEG
+    and are left out here. ``prof16`` (int16 profiles, a VMEM saving) is
+    accepted and changes nothing.
+
+    Tensors are used where they lie; numpy inputs go to ``device`` (None
+    is the card). CPU tensors take the plain version; CUDA tensors launch
+    the CUDA kernel ``affine_block`` once a block, chaining the boundary
+    rows on the card."""
+    global affine_block_launches
+    del prof16
+    alpha = _tensor(alpha_pad, torch.int8, device)
+    dev = alpha.device
+    B = alpha.shape[0]
+    alpha = expect(alpha, torch.int8, (B, n), "alpha_pad", dev)
+    beta = expect(_tensor(beta_pad, torch.int8, dev), torch.int8, (B, m),
+                  "beta_pad", dev)
+    fin = as_vec(fin_d, B, dev).contiguous()
+    sc = expect(torch.as_tensor(scores, dtype=torch.int32, device=dev),
+                torch.int32, (5, 5), "scores", dev)
+    R = int(r_rows)
+    if R < 1:
+        raise ValueError(f"r_rows must be positive, got {R}")
+    if dev.type == "cpu":
+        return affine_block_reference(alpha, beta, fin, sc, gap_open,
+                                      gap_extend, R)
+    nb = -(-n // R)
+    res = torch.empty((nb, B, R + 1), dtype=torch.int32, device=dev)
+    if nb * B == 0:
+        return res
+    go, ge = int(gap_open), int(gap_extend)
+    # boundary rows (M, I, D) x (B, m), column j at index j - 1, in and out
+    # by turns; block 0's is DP row 0: I = go + ge j, M = D = NEG
+    bnd = torch.full((2, 3, B, m), NEG, dtype=torch.int32, device=dev)
+    bnd[0, 1] = go + ge * torch.arange(1, m + 1, dtype=torch.int32,
+                                        device=dev)
+    scratch = (None if state_in_shared_memory(R, "affine") else
+               torch.empty((B, 9 * (R + 1)), dtype=torch.int32, device=dev))
+    lib = _kernels.lib("wavefront")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k in range(nb):
+            rc = lib.affine_block_launch(
+                alpha.data_ptr(), beta.data_ptr(), fin.data_ptr(),
+                sc.data_ptr(), go, ge, B, n, m, R, k * R,
+                bnd[k % 2].data_ptr(), bnd[(k + 1) % 2].data_ptr(),
+                _ptr(scratch), res[k].data_ptr(), stream)
+            _kernels.check(rc, "affine_block")
+            affine_block_launches += 1
+    return res
 
 
 # ---------------------------------------------------------------------------

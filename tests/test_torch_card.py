@@ -427,3 +427,112 @@ def test_lowmem_on_card_equals_cpu(card, B, n, m, K):
         [(c.run_length, c.op) for c in align.affine_gap_lowmem(
             alpha[0], beta[0], HUMAN_CHIMP_TWO, -600, -150, checkersize=K,
             device="cpu")[1]]
+
+
+def _score_pairs(shape: tuple, n: int, m: int, seed: int):
+    """Pairs of n x m with leading dims `shape`: relatives of their alphas
+    (a gap, SNPs, N codes), random pairs, and codes outside 0..4 (alpha
+    clips them; beta scores negatives as 1 and codes above 4 as N)."""
+    rng = np.random.default_rng(seed)
+    alpha = rng.integers(0, 4, (*shape, n)).astype(np.int8)
+    beta = rng.integers(0, 4, (*shape, m)).astype(np.int8)
+    rows = int(np.prod(shape))
+    flat_a, flat_b = alpha.reshape(rows, n), beta.reshape(rows, m)
+    for r in range(0, rows if n > 3 else 0, 2):
+        rel = np.resize(np.concatenate([flat_a[r, :n // 3],
+                                        flat_a[r, n // 3 + 3:]]), m)
+        rel[rng.random(m) < 0.04] = rng.integers(0, 5)
+        flat_b[r] = rel
+    flat_a[0, rng.integers(0, n, min(n, 2))] = [-1, 6][:min(n, 2)]
+    flat_b[0, rng.integers(0, m, min(m, 3))] = [-2, 5, 4][:min(m, 3)]
+    return alpha, beta
+
+
+# (P, B, n, m): one cell, m even (the JAX odd pad column) with m > n, n a
+# multiple of the 32-row strip, n = 0 (row 0 only), and a wider batch
+_STREAM_CASES = [(2, 3, 1, 1, "humanChimp"), (2, 5, 300, 512, "humanChimp"),
+                 (4, 7, 64, 64, "plusMinusOne"), (2, 2, 0, 5, "humanChimp"),
+                 (6, 64, 257, 300, "asymmetric")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B,n,m,scoring", _STREAM_CASES)
+def test_stream_kernel_equals_plain(card, P, B, n, m, scoring):
+    """affine_stream (K8) against affine_stream_reference."""
+    scores, go, ge = {"humanChimp": (HUMAN_CHIMP_TWO, -600, -150),
+                      "plusMinusOne": (PLUS_MINUS_ONE, -1, -1),
+                      "asymmetric": (ASYMMETRIC, -400, -30)}[scoring]
+    alpha, beta = (torch.from_numpy(x).to(card)
+                   for x in _score_pairs((P, B), n, m, P + n + m))
+    sc = torch.as_tensor(scores, dtype=torch.int32, device=card)
+    before = wavefront.affine_stream_launches
+    got = wavefront.wavefront_affine_stream(alpha, beta, sc, n=n, m=m,
+                                            gap_open=go, gap_extend=ge)
+    want = wavefront.affine_stream_reference(alpha, beta, sc, go, ge)
+    torch.cuda.synchronize()
+    assert wavefront.affine_stream_launches == before + 1
+    assert got.shape == (P, B) and torch.equal(got, want)
+
+
+# (B, n, m, r_rows): r_rows dividing n, n = 1, r_rows not dividing n, one
+# block (n < r_rows), r_rows + 1 > 1024 lanes (a thread takes two), and
+# 5,801 lanes, whose state is above the shared-memory limit (global scratch)
+_BLOCKED_CASES = [(3, 24, 23, 8), (2, 1, 9, 4), (5, 1000, 300, 384),
+                  (4, 100, 120, 512), (2, 3000, 200, 1500), (2, 6000, 40, 5800)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m,r_rows", _BLOCKED_CASES)
+def test_blocked_kernel_equals_plain(card, B, n, m, r_rows):
+    """affine_block (K9), chained over every row block, against
+    affine_block_reference on all r_rows + 1 lanes, with pairs of their
+    own n_b x m_b below the padded widths."""
+    assert wavefront.state_in_shared_memory(r_rows, "affine") == \
+        (r_rows < 5800)
+    alpha, beta = _score_pairs((B,), n, m, B + n)
+    rng = np.random.default_rng(n)
+    fin = (rng.integers(1, n + 1, B) + rng.integers(1, m + 1, B)).astype(
+        np.int32)
+    fin[0] = n + m
+    args = [torch.from_numpy(x).to(card) for x in (alpha, beta, fin)]
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
+    before = wavefront.affine_block_launches
+    got = wavefront.wavefront_align_blocked(*args, sc, n=n, m=m,
+                                            gap_open=-600, gap_extend=-150,
+                                            r_rows=r_rows)
+    want = wavefront.affine_block_reference(*args, sc, -600, -150, r_rows)
+    torch.cuda.synchronize()
+    nb = -(-n // r_rows)
+    assert wavefront.affine_block_launches == before + nb
+    assert got.shape == (nb, B, r_rows + 1) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_score_kernels_agree(card):
+    """K8, K9 and K2's score mode give the same score for every pair of
+    one batch."""
+    P, B, n, m, R = 4, 16, 200, 230, 64
+    alpha, beta = (torch.from_numpy(x).to(card)
+                   for x in _score_pairs((P, B), n, m, 9))
+    kw = dict(gap_open=-600, gap_extend=-150)
+    stream = wavefront.wavefront_affine_stream(alpha, beta, HUMAN_CHIMP_TWO,
+                                               n=n, m=m, **kw)
+    a2, b2 = alpha.reshape(P * B, n), beta.reshape(P * B, m)
+    fin = torch.full((P * B,), n + m, dtype=torch.int32, device=card)
+    k2 = wavefront.wavefront_align(a2, b2, fin, HUMAN_CHIMP_TWO,
+                                   with_trace=False, **kw)[:, n]
+    blocked = wavefront.wavefront_align_blocked(a2, b2, fin, HUMAN_CHIMP_TWO,
+                                                n=n, m=m, r_rows=R, **kw)
+    k9 = blocked[(n - 1) // R, :, n - (n - 1) // R * R]
+    assert torch.equal(stream.reshape(-1), k2)
+    assert torch.equal(k9, k2)
+    # numpy inputs go to the card by default
+    from_numpy = wavefront.wavefront_affine_stream(
+        alpha.cpu().numpy(), beta.cpu().numpy(), HUMAN_CHIMP_TWO, n=n, m=m,
+        **kw)
+    assert from_numpy.device.type == "cuda" and torch.equal(from_numpy, stream)
+    blocked_np = wavefront.wavefront_align_blocked(
+        a2.cpu().numpy(), b2.cpu().numpy(), fin.cpu().numpy(),
+        HUMAN_CHIMP_TWO, n=n, m=m, r_rows=R, **kw)
+    assert blocked_np.device.type == "cuda" and torch.equal(blocked_np,
+                                                            blocked)
