@@ -15,7 +15,8 @@ exits non-zero:
             index (step 8): 4 pipelined batches of 4096 x 150 bp reads;
             checks the mapped and correctly placed fractions, that junk
             stays unmapped, and that the main path launched every kernel.
-4. cli:     `gsw align` of the port on a 10 Mbp genome, single and paired,
+4. cli:     `gsw align ... --engine tpu -t 4` of the port (the North
+            star's command line) on a 10 Mbp genome, single and paired,
             byte-equal to the library path's SAM for the same reads.
 5. pairwise_kernels: affine_wavefront and const_wavefront, trace mode at
             128 pairs and score mode at 256 pairs of 1024 x 1024, each
@@ -40,7 +41,9 @@ exits non-zero:
 9. graph_kernels: 2048 left and 2048 right jobs of the graph phase's
             warm-up waves through local_wavefront, gsw_right_wavefront and
             gsw_walk_pack, each held against its plain PyTorch version on
-            the card (exact equality) and timed.
+            the card (exact equality) and timed; plus local_wavefront and
+            gsw_right_wavefront on 2 jobs of a 10,300-base window (state
+            in a global scratch), exact and timed.
 10. graph_cli: the port's `gsw align` on a 1 Mbp .gg, giraf and SAM, single
             and paired, byte-equal to --device cpu.
 11. lowmem_kernels: affine_fwd_block, affine_bwd_window and
@@ -48,7 +51,11 @@ exits non-zero:
             16,384 x 16,384, K = 1024), each once on the middle block from
             the checkpoint and walk state the main path gives it, held
             against its plain PyTorch version on the card (exact equality)
-            and timed, with its bound itemised.
+            and timed, with its bound itemised; affine_fwd_block's cluster
+            plan (blocks a pair, clusters the card holds at once, shared
+            memory a block); and affine_fwd_block on the middle block of
+            the 100 kb pair of phase 12 (K = 4096, a global scratch a
+            block), exact.
 12. lowmem:  affine_gap_lowmem_batch on that batch: cells/s, the wall split
             into forward, backward and host, peak device memory against
             the full trace's; every route consumes both sequences and
@@ -147,6 +154,9 @@ CONST_OPS_PER_CELL = {"score": 2 + 1 + 2, "trace": 2 + 1 + 2 + 1 + 4}
 # of a 50 Mbp chromosome (the size of human chr22); the CLI phase on 1 Mbp.
 GRAPH_BP, GRAPH_BATCH, GRAPH_BATCHES, GRAPH_JOBS = 50_000_000, 2048, 4, 2048
 GRAPH_CLI_BP = 1_000_000
+# the graph kernels above their old shared-memory limits (8,532 bases for
+# K4, 10,239 for K5): 2 jobs of a 10,300-base window and a 32-base part
+GRAPH_WIDE_N, GRAPH_WIDE_M, GRAPH_WIDE_C = 10_300, 32, 2
 # int32 operations the graph DPs need per cell (i, j) of a job's own
 # n_b x m_b grid, not those of one implementation. LeftDynamicAln:
 # substitution address and table load (2), diag = c(i-1, j-1) + sub (1),
@@ -172,6 +182,11 @@ LOWMEM_B, LOWMEM_LEN, LOWMEM_K, LOWMEM_SEED = 16, 16384, 1024, 3
 # its other gates: 4 related pairs of 2 kb at K = 256 against the CPU, and
 # one related pair of 100 kb through the pairwise API at its default K
 LOWMEM_SMALL, LOWMEM_SMALL_K, LOWMEM_LONG = 2000, 256, 100_000
+# the pairwise API's default K (align.affine_gap_lowmem), the 100 kb pair's
+LOWMEM_LONG_K = 4096
+# affine_fwd_block's time a block in its earlier design, one thread block
+# a pair (this script, NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md §6)
+K6_EARLIER_MS = 9.3823
 
 # Score-only affine alignment at bench.py's stage_score_stream
 # (bench.py:87-150): its parity gate (B0 = 8 pairs of L0 = 96, the stream
@@ -188,6 +203,19 @@ LOWMEM_WALK_OPS_PER_STEP = 7
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def once_ms(fn):
+    """fn() and its time on the card's clock, one call (for plain
+    versions too slow to repeat)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def median_ms(fn, runs: int = 25, inner: int = 1) -> float:
@@ -522,11 +550,15 @@ def phase_cli(dev: torch.device, G: int) -> dict:
                 for r in reads:
                     f.write(f"@{r.name}\n{dna.to_string(r.seq)}\n+\n"
                             f"{fastq.qual_string(r.qual)}\n")
+        # the North star's command line: gsw align ref.fa reads.fq
+        # --engine tpu, with -t as the JAX CLI takes it
+        flags = ["--engine", "tpu", "-t", "4", "--device", dev.type]
+        result["flags"] = " ".join(flags)
         t0 = time.perf_counter()
         gsw_cmd.main(["align", ref, paths["single"], "-o",
-                      os.path.join(tmp, "single.sam"), "--device", dev.type])
+                      os.path.join(tmp, "single.sam"), *flags])
         gsw_cmd.main(["align", ref, paths["r1"], paths["r2"], "-o",
-                      os.path.join(tmp, "paired.sam"), "--device", dev.type])
+                      os.path.join(tmp, "paired.sam"), *flags])
         result["cli_s"] = time.perf_counter() - t0
 
         al = ReadAligner(fasta.read(ref), device=dev)
@@ -1154,6 +1186,20 @@ def walk_bound(left_rows, right_rows, D_l: int, D_r: int, S_r: int) -> dict:
             "operations": ops / INT32_OPS_PER_S * 1e3, "steps": steps}
 
 
+def wide_window_jobs(left: bool, dev):
+    """GRAPH_WIDE_C jobs of a GRAPH_WIDE_N-base window: read parts copied
+    from the window's end (left jobs) or start (right jobs) with a SNP,
+    the second job shorter on both sides."""
+    n, m, C = GRAPH_WIDE_N, GRAPH_WIDE_M, GRAPH_WIDE_C
+    rng = np.random.default_rng(41)
+    al = rng.integers(0, 4, (C, n)).astype(np.int8)
+    be = np.ascontiguousarray(al[:, -m:] if left else al[:, :m])
+    be[:, m // 2] = (be[:, m // 2] + 1) % 4
+    nv = np.array([n, n - 700], np.int32)
+    mv = np.array([m, m - 2], np.int32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (al, be, nv, mv))
+
+
 def phase_graph_kernels(dev: torch.device, waves: list,
                         dims: dict) -> list[dict]:
     from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
@@ -1212,7 +1258,30 @@ def phase_graph_kernels(dev: torch.device, waves: list,
         "gsw_walk_pack": "gonomics_tpu/ops/gsw_dp.py:30-157 (_walk_left, "
                          "_walk_right, _left_full, _right_full, "
                          "_pack_result: jnp glue)"}
-    rows, ok = [], True
+    # K4 and K5 above their old shared-memory limits: the global scratch
+    wide, ok = {}, True
+    for name, kind in (("local_wavefront", "local"),
+                       ("gsw_right_wavefront", "gsw_right")):
+        jobs = wide_window_jobs(kind == "local", dev)
+        if kind == "local":
+            kernel = lambda: wavefront.local_wavefront(  # noqa: E731
+                *jobs, sc, GAP, True)
+            plain = lambda: wavefront.local_wavefront_reference(  # noqa: E731
+                *jobs, sc, GAP, True)
+        else:
+            kernel = lambda: wavefront.gsw_right_wavefront(  # noqa: E731
+                *jobs, sc, GAP)
+            plain = lambda: wavefront.gsw_right_wavefront_reference(  # noqa: E731
+                *jobs, sc, GAP)
+        want, plain_ms = once_ms(plain)
+        equal, err = equal_err(kernel(), want)
+        in_smem = wavefront.state_in_shared_memory(GRAPH_WIDE_N, kind)
+        ok &= equal and not in_smem and int(want[0].max()) > 0
+        wide[name] = {"jobs": GRAPH_WIDE_C, "n": GRAPH_WIDE_N,
+                      "m": GRAPH_WIDE_M, "state_in_shared_memory": in_smem,
+                      "equal_to_plain": equal, "max_abs_err": err,
+                      "ms": median_ms(kernel, runs=5), "plain_ms": plain_ms}
+    rows = []
     for name, (kernel, plain, bound) in cases.items():
         equal, err = equal_err(kernel(), plain())
         ok &= equal
@@ -1231,11 +1300,13 @@ def phase_graph_kernels(dev: torch.device, waves: list,
                       + (": both walks" if name == "gsw_walk_pack" else "")),
             **{k: v for k, v in bound.items()
                if k not in ("bytes", "operations")}})
+        if name in wide:
+            rows[-1]["wide_window"] = wide[name]
     emit({"phase": "graph_kernels", "tolerance": "exact",
           "kernels": [{k: r[k] for k in ("name", "equal_to_plain",
                                          "max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "shape")}
-                      for r in rows]})
+                      for r in rows], "wide_window": wide})
     if not ok:
         raise SystemExit("a graph kernel disagrees with its plain version")
     return rows
@@ -1310,6 +1381,39 @@ def block_cells(d0: int, K: int, lo_lane, n: int, m: int, W: int) -> int:
     hi = np.minimum(np.minimum(d - 1, n),
                     np.asarray(lo_lane)[:, None] + W - 1)
     return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def long_pair_fwd_block(dev: torch.device, sc, go: int, ge: int) -> dict:
+    """affine_fwd_block on the middle block of the lowmem phase's 100 kb
+    pair (B = 1, S = 100,001 lanes, K = 4096), from the checkpoint its
+    forward gives: a cluster whose blocks keep their state in a global
+    scratch. Exact against the plain version over that block."""
+    from gonomics_tpu_torch.ops import wavefront
+
+    a, b = related_pair(np.random.default_rng(37), LOWMEM_LONG,
+                        same_length=False)
+    alpha, beta = (torch.from_numpy(x[None]).to(dev) for x in (a, b))
+    n, m, K = len(a), len(b), LOWMEM_LONG_K
+    ck, _ = wavefront.lowmem_forward(alpha, beta, sc, go, ge, K)
+    nb = ck.shape[0]
+    mid = nb // 2
+
+    def fwd():
+        return wavefront.affine_fwd_block(alpha, beta, ck[mid], mid * K,
+                                          n + m, sc, go, ge, K)
+
+    want, plain_ms = once_ms(lambda: wavefront.affine_fwd_block_reference(
+        alpha, beta, ck[mid], mid * K, n + m, sc, go, ge, K))
+    got = fwd()
+    torch.cuda.synchronize()
+    return {"n": n, "m": m, "K": K, "shape": f"block {mid} of {nb} "
+            f"(d0 = {mid * K}), 1 pair of {n} x {m}",
+            "equal_to_plain": all(torch.equal(g, w) for g, w in zip(got, want)),
+            "max_abs_err": max(int((g.to(torch.int64) - w).abs().max())
+                               for g, w in zip(got, want)),
+            "next_checkpoint_equal": torch.equal(want[0], ck[mid + 1]),
+            "ms": median_ms(fwd, runs=3), "plain_ms": plain_ms,
+            **wavefront.fwd_block_plan(1, n, dev)}
 
 
 def phase_lowmem_kernels(dev: torch.device) -> list[dict]:
@@ -1408,7 +1512,8 @@ def phase_lowmem_kernels(dev: torch.device) -> list[dict]:
             "bytes": walk_bytes / HBM_BYTES_PER_S * 1e3,
             "operations": LOWMEM_WALK_OPS_PER_STEP * steps
             / INT32_OPS_PER_S * 1e3, "steps": steps}}
-    smem = {"affine_fwd_block": wavefront.state_in_shared_memory(n, "affine"),
+    plan = wavefront.fwd_block_plan(B, n, dev)
+    smem = {"affine_fwd_block": plan["state_in_shared_memory"],
             "affine_bwd_window": wavefront.state_in_shared_memory(W - 1,
                                                                   "affine"),
             "lowmem_walk_block": None}
@@ -1443,14 +1548,29 @@ def phase_lowmem_kernels(dev: torch.device) -> list[dict]:
             "shape": (f"block {mid} of {nb} (d0 = {d0}), {B} pairs of "
                       f"{n} x {m}, K = {K}, W = {W}"),
             "bound_itemised": bound})
+    # K6: one thread-block cluster a pair, its plan at this shape, and its
+    # case on the 100 kb pair (a global scratch a block)
+    long_pair = long_pair_fwd_block(dev, sc, go, ge)
+    rows[0].update({"design": "cluster", "cluster": plan["cluster"],
+                    "resident_clusters": plan["resident_clusters"],
+                    "waves": plan["waves"],
+                    "lanes_per_block": plan["lanes_per_block"],
+                    "smem_bytes_per_block": plan["smem_bytes_per_block"],
+                    "long_pair": long_pair})
     emit({"phase": "lowmem_kernels", "tolerance": "exact",
           "next_checkpoint_equal": next_ck, "window_starts":
               sorted(set(wlo_np.tolist())),
+          "affine_fwd_block_plan": plan,
+          "affine_fwd_block_earlier_ms": K6_EARLIER_MS,
+          "affine_fwd_block_long_pair": long_pair,
           "kernels": [{k: r[k] for k in (
               "name", "equal_to_plain", "max_abs_err", "ms", "plain_ms",
               "bound_ms", "bound_by", "state_in_shared_memory", "shape",
               "bound_itemised")} for r in rows]})
-    if not (next_ck and all(r["equal_to_plain"] for r in rows)):
+    if not (next_ck and all(r["equal_to_plain"] for r in rows)
+            and long_pair["equal_to_plain"]
+            and long_pair["next_checkpoint_equal"]
+            and not long_pair["state_in_shared_memory"]):
         raise SystemExit("a lowmem kernel disagrees with its plain version")
     return rows
 
@@ -1507,6 +1627,7 @@ def phase_lowmem(dev: torch.device) -> dict:
                 "lowmem_walk_block": wavefront.lowmem_walk_launches}
     full_trace_bytes = (n + m) * B * (n + 1)
     out = {"phase": "lowmem", "pairs": B, "n": n, "m": m, "K": LOWMEM_K,
+           "fwd_cluster": wavefront.fwd_block_plan(B, n, dev)["cluster"],
            "blocks": (n + m - 1) // LOWMEM_K + 1,
            "wall_ms": wall, "cells_per_s": B * n * m / wall * 1e3,
            **split, "host_ms": wall - sum(split.values()),
@@ -1560,7 +1681,7 @@ def phase_lowmem(dev: torch.device) -> dict:
     [(k2_score, _)] = align.affine_gap_batch([(a, b)], H, go, ge, device=dev,
                                              with_cigar=False)
     out["long_pair"] = {
-        "n": len(a), "m": len(b), "K": 4096, "lowmem_s": long_s,
+        "n": len(a), "m": len(b), "K": LOWMEM_LONG_K, "lowmem_s": long_s,
         "k2_score_mode_s": time.perf_counter() - t0,
         "cigar_runs": len(route),
         "consumes_both": consumed(route) == (len(a), len(b)),

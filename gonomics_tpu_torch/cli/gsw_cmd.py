@@ -12,19 +12,27 @@ reference (.gg/.sg) is aligned by ``graph_align.GraphAligner`` and
 written as giraf, or as SAM when ``-l`` names a .sizes file,
 byte-identical to ``gsw align --engine tpu`` and ``--engine host``. The
 DPs run on the card; ``--device cpu`` runs the kernels' plain versions
-on the CPU. ``--mesh``, ``--multihost`` and ``--index-sharding prefix``
-are not ported yet and exit with an error that names their ROADMAP item.
+on the CPU. ``--engine tpu`` (the default here) is the port's device
+engine; ``--engine host`` exits with an error, the port having no numpy
+host engine. ``-t/--threads`` is accepted and unused, as in the JAX CLI.
+``--profile DIR`` runs the alignment under ``torch.profiler`` and writes
+its trace to DIR/gsw_align.pt.trace.json. ``--mesh``, ``--multihost`` and
+``--index-sharding prefix`` are not ported yet and exit with an error
+that names their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
 
 from .. import fileio, graph as graphmod
 from ..align.matrices import BY_NAME, HUMAN_CHIMP_TWO
@@ -43,6 +51,10 @@ def _progress(tool: str, n: int, t0: float, final: bool = False) -> None:
 
 
 def _refuse_unported(args) -> None:
+    if args.engine == "host":
+        raise SystemExit("gsw align: --engine host is not ported: the port "
+                         "has no numpy host engine (ROADMAP queue 1, left "
+                         "out on purpose); --engine tpu gives the same output")
     for flag, on in (("--mesh", args.mesh), ("--multihost", args.multihost),
                      ("--index-sharding prefix",
                       args.index_sharding == "prefix")):
@@ -185,11 +197,16 @@ def main(argv=None) -> None:
                     help="graph references: seed length")
     al.add_argument("-w", "--window", type=int, default=32,
                     help="graph references: genome step of the seed index")
+    al.add_argument("-t", "--threads", type=int, default=4,
+                    help="accepted and unused, as in the JAX CLI")
     al.add_argument("-m", "--matrix", default="humanChimp",
                     help="graph references: score matrix")
     al.add_argument("-l", "--liftover", default="",
                     help="graph references: a .sizes file, for SAM output")
     al.add_argument("-o", "--out", default="/dev/stdout")
+    al.add_argument("--engine", default="tpu", choices=["host", "tpu"],
+                    help="tpu: the device engine (the port's only one); "
+                         "host is not ported")
     al.add_argument("--batch", type=int, default=2048,
                     help="reads per device batch")
     al.add_argument("--index-mode", default="dense",
@@ -208,8 +225,29 @@ def main(argv=None) -> None:
     al.add_argument("--mesh", action="store_true", help="not ported yet")
     al.add_argument("--multihost", action="store_true",
                     help="not ported yet")
+    al.add_argument("--profile", default="",
+                    help="write a torch.profiler trace of the alignment to "
+                         "this directory")
     a = p.parse_args(argv)
-    align_cmd(a)
+    if a.profile:
+        _profiled_align(a)
+    else:
+        align_cmd(a)
+
+
+def _profiled_align(args) -> None:
+    """align_cmd under torch.profiler (host activity, and the card's when
+    the DPs run there); the trace goes to DIR/gsw_align.pt.trace.json."""
+    activities = [ProfilerActivity.CPU]
+    if args.device != "cpu":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        align_cmd(args)
+        if args.device != "cpu":
+            torch.cuda.synchronize()
+    os.makedirs(args.profile, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(args.profile,
+                                          "gsw_align.pt.trace.json"))
 
 
 if __name__ == "__main__":

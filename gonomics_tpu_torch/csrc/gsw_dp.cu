@@ -20,10 +20,14 @@
 // a TPU step reads a whole slot before it overwrites it, but in a block
 // thread s reads lane s-1 of the slot that thread s-1 writes. With three,
 // one barrier per diagonal orders every read before the next overwrite.
-// The state and the per-lane bests live in shared memory (at most 200 KB,
-// n <= 8532; the wrappers refuse more). Each lane's best value, its
-// diagonal and the corner capture are touched only by the thread that
-// owns the lane.
+// The state and the per-lane bests (6 rows of S int32 for the local DP,
+// 5 for the anchored one) live in shared memory when they fit the
+// wrapper's 200 KB (n <= 8532 local, n <= 10239 anchored), else in the
+// job's part of a (C, rows x S) global scratch that stays in L1/L2; the
+// wrapper picks (ops/wavefront.py state_in_shared_memory) and passes a
+// null scratch for shared memory. Each lane's best value, its diagonal
+// and the corner capture are touched only by the thread that owns the
+// lane.
 //
 // What bounds them on the card: integer operations. A job's cells number
 // n_b x m_b (at most ~192 x 192 for 150 bp reads) at ~10 int32 operations
@@ -76,8 +80,10 @@ __device__ __forceinline__ int substitution(const int* sc, const int8_t* al,
 // 0 and trace 3 elsewhere). Otherwise RightDynamicAln (unclamped over the
 // padded grid, row 0 and column 0 at gap * d with trace 1 and 2, NEG and
 // trace 0 outside). Both keep each lane's best value inside the job's own
-// grid, with its diagonal, by strict >.
-template <bool kLocal>
+// grid, with its diagonal, by strict >. kGlobal: the state lives in the
+// global scratch (a template argument, so that the shared-memory kernel
+// addresses shared memory directly).
+template <bool kLocal, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 gsw_wavefront_kernel(const int8_t* __restrict__ alpha,   // (C, n)
                      const int8_t* __restrict__ beta,    // (C, m)
@@ -85,6 +91,7 @@ gsw_wavefront_kernel(const int8_t* __restrict__ alpha,   // (C, n)
                      const int32_t* __restrict__ m_vec,  // (C,)
                      const int32_t* __restrict__ scores, // (5, 5)
                      int gap, int C, int n, int m,
+                     int32_t* scratch,                   // (C, rows S) or null
                      int32_t* __restrict__ bv_out,       // (C, S)
                      int32_t* __restrict__ bd_out,       // (C, S)
                      int32_t* __restrict__ corner_out,   // (C, S) or null
@@ -93,8 +100,9 @@ gsw_wavefront_kernel(const int8_t* __restrict__ alpha,   // (C, n)
   __shared__ int sc[25];
   const int S = n + 1;
   const int b = blockIdx.x;
-  int32_t* st = smem;          // 3 slots of S lanes
-  int32_t* bv = smem + 3 * S;
+  // 3 slots of S lanes, then the bests (and the corner)
+  int32_t* st = kGlobal ? scratch + (int64_t)b * (kLocal ? 6 : 5) * S : smem;
+  int32_t* bv = st + 3 * S;
   int32_t* bd = bv + S;
   int32_t* cr = bd + S;        // corner capture (kLocal only)
   const int nb = n_vec[b], mb = m_vec[b];
@@ -264,16 +272,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <bool kLocal>
 int wavefront_launch(const void* alpha, const void* beta, const void* n_vec,
                      const void* m_vec, const void* scores, int gap, int C,
-                     int n, int m, void* bv, void* bd, void* corner,
-                     void* trace, void* stream) {
-  const size_t smem = (size_t)(kLocal ? 6 : 5) * (n + 1) * sizeof(int32_t);
-  auto kernel = &gsw_wavefront_kernel<kLocal>;
+                     int n, int m, void* scratch, void* bv, void* bd,
+                     void* corner, void* trace, void* stream) {
+  const size_t smem = scratch ? 0 : (size_t)(kLocal ? 6 : 5) * (n + 1) * sizeof(int32_t);
+  auto kernel = scratch ? &gsw_wavefront_kernel<kLocal, true>
+                        : &gsw_wavefront_kernel<kLocal, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<C, threads_for(n), smem, (cudaStream_t)stream>>>(
       (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)n_vec,
       (const int32_t*)m_vec, (const int32_t*)scores, gap, C, n, m,
-      (int32_t*)bv, (int32_t*)bd, (int32_t*)corner, (int8_t*)trace);
+      (int32_t*)scratch, (int32_t*)bv, (int32_t*)bd, (int32_t*)corner,
+      (int8_t*)trace);
   return (int)cudaGetLastError();
 }
 
@@ -286,20 +296,21 @@ extern "C" const char* gsw_dp_error_string(int code) {
 extern "C" int local_wavefront_launch(const void* alpha, const void* beta,
                                       const void* n_vec, const void* m_vec,
                                       const void* scores, int gap, int C,
-                                      int n, int m, void* bv, void* bd,
-                                      void* corner, void* trace,
+                                      int n, int m, void* scratch, void* bv,
+                                      void* bd, void* corner, void* trace,
                                       void* stream) {
   return wavefront_launch<true>(alpha, beta, n_vec, m_vec, scores, gap, C, n,
-                                m, bv, bd, corner, trace, stream);
+                                m, scratch, bv, bd, corner, trace, stream);
 }
 
 extern "C" int gsw_right_wavefront_launch(const void* alpha, const void* beta,
                                           const void* n_vec, const void* m_vec,
                                           const void* scores, int gap, int C,
-                                          int n, int m, void* bv, void* bd,
-                                          void* trace, void* stream) {
+                                          int n, int m, void* scratch,
+                                          void* bv, void* bd, void* trace,
+                                          void* stream) {
   return wavefront_launch<false>(alpha, beta, n_vec, m_vec, scores, gap, C,
-                                 n, m, bv, bd, nullptr, trace, stream);
+                                 n, m, scratch, bv, bd, nullptr, trace, stream);
 }
 
 extern "C" int gsw_walk_pack_launch(const void* trace, const void* values,

@@ -43,6 +43,7 @@
 // Each entry returns cudaGetLastError() so that the caller can raise on
 // a launch the runtime refused.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -74,21 +75,31 @@ struct Prev {
   const int32_t *M1, *I1, *D1, *M2, *I2, *D2;
 };
 
-// One interior Gotoh cell at lane s of diagonal d, where lane p stands
-// for s-1 (s-1 itself, or s at a window's left edge, as the Pallas
-// kernels' _shift does): I from (d-1, s), D from (d-1, p), M from
-// (d-2, p). Returns the trace code tM + 4 tI + 16 tD, each the
+// One interior Gotoh cell from its predecessors' values: (m2p, i2p,
+// d2p) at (d-2, s-1), (m1s, i1s, d1s) at (d-1, s), (m1p, i1p, d1p) at
+// (d-1, s-1). Returns the trace code tM + 4 tI + 16 tD, each the
 // predecessor state in tie order.
-__device__ __forceinline__ int gotoh_cell(const Prev& pv, int s, int p,
-                                          int sub, int goe, int ge, int& mv,
-                                          int& iv, int& dv) {
-  const int m2p = pv.M2[p], i2p = pv.I2[p], d2p = pv.D2[p];
-  const int ai = goe + pv.M1[s], bi = ge + pv.I1[s], ci = goe + pv.D1[s];  // I from (i, j-1)
-  const int ad = goe + pv.M1[p], bd = goe + pv.I1[p], cd = ge + pv.D1[p];  // D from (i-1, j)
+__device__ __forceinline__ int gotoh_values(int m2p, int i2p, int d2p, int m1s,
+                                            int i1s, int d1s, int m1p, int i1p,
+                                            int d1p, int sub, int goe, int ge,
+                                            int& mv, int& iv, int& dv) {
+  const int ai = goe + m1s, bi = ge + i1s, ci = goe + d1s;  // I from (i, j-1)
+  const int ad = goe + m1p, bd = goe + i1p, cd = ge + d1p;  // D from (i-1, j)
   mv = sub + max3(m2p, i2p, d2p);
   iv = max3(ai, bi, ci);
   dv = max3(ad, bd, cd);
   return argmax3(m2p, i2p, d2p) + 4 * argmax3(ai, bi, ci) + 16 * argmax3(ad, bd, cd);
+}
+
+// One interior Gotoh cell at lane s of diagonal d, where lane p stands
+// for s-1 (s-1 itself, or s at a window's left edge, as the Pallas
+// kernels' _shift does): I from (d-1, s), D from (d-1, p), M from
+// (d-2, p).
+__device__ __forceinline__ int gotoh_cell(const Prev& pv, int s, int p,
+                                          int sub, int goe, int ge, int& mv,
+                                          int& iv, int& dv) {
+  return gotoh_values(pv.M2[p], pv.I2[p], pv.D2[p], pv.M1[s], pv.I1[s], pv.D1[s],
+                      pv.M1[p], pv.I1[p], pv.D1[p], sub, goe, ge, mv, iv, dv);
 }
 
 // Seeds diagonal 0 (slot 0, lane 0): state 0 (M, or const's c) with 0
@@ -250,11 +261,32 @@ const_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
 //
 // affine_fwd_block replaces _affine_fwd_chunked_kernel (:895, pallas_call
 // :991): K diagonals of score-mode Gotoh from a checkpoint, one launch a
-// block (as the JAX forward loop does), one thread block a pair. It writes
-// every lane 0..n of every diagonal (NEG outside the grid), so its end
-// state, the next checkpoint, equals the plain version's on every lane
-// whatever the input holds outside the grid. The checkpoint lives in
-// device memory, (3, 2, B, S) int32: state k of diagonals d0-1 and d0.
+// block (as the JAX forward loop does), one thread-block cluster of CL
+// blocks a pair. It writes every lane 0..n of every diagonal (NEG outside
+// the grid), so its end state, the next checkpoint, equals the plain
+// version's on every lane whatever the input holds outside the grid. The
+// checkpoint lives in device memory, (3, 2, B, S) int32: state k of
+// diagonals d0-1 and d0.
+//
+// The cluster splits a pair's interior lanes 1..n into CL contiguous
+// ranges of `chunk` lanes (the last shorter, trailing ones possibly
+// empty); block r of the cluster owns lanes 1 + r chunk .. and keeps
+// their three slots x three states in its own shared memory (or, where
+// 9 (chunk + 1) int32 do not fit, in its own part of a global scratch);
+// block 0 also owns lane 0. The one value a block needs from outside its
+// range is lane s-1 at its left edge, of diagonals d-1 and d-2: block r-1
+// keeps its last lane of every slot in a 9-int `edge` array in shared
+// memory, and thread 0 of block r reads it through distributed shared
+// memory right after the barrier, before its own lanes. The per-diagonal
+// barrier is a cluster barrier. The three-slot argument holds cluster
+// wide: at diagonal d block r reads slots d-1 and d-2 of block r-1, both
+// written before the last barrier, while block r-1 writes only the slot
+// of d (= d-3). Every block, an empty one too, reaches every barrier. A
+// block of a cluster asks for more than half an SM's shared memory, so
+// that it has its SM to itself: a diagonal's time grows with the lanes an
+// SM sweeps, so two blocks on one SM would hold their clusters back. The
+// wrapper picks CL, 1 to 8 (ops/wavefront.py fwd_cluster_size), from the
+// pair count, the lanes and the clusters the card holds at once.
 //
 // affine_bwd_window replaces _affine_bwd_window_kernel (:1007,
 // pallas_call :1085): it re-fills diagonals d0+1..d0+K of a pair on the
@@ -271,88 +303,157 @@ const_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
 // State slots: three, as for affine_wavefront (the Pallas kernels' two
 // parity slots race on a GPU), in shared memory when 9 x lanes x 4 bytes
 // fit (the wrapper's SMEM_STATE_BYTES_MAX), else in a global scratch of
-// (B, 9 x lanes) int32 that stays in L2. At the full-width shape (16
+// 9 x lanes int32 a block that stays in L2. At the full-width shape (16
 // pairs of 16,384 x 16,384, K = 1024) the forward's state is 590 KB a
-// pair (global), the backward's W = 2,688 lanes take 97 KB (shared); at
-// K = 4096, W = 8,832 lanes take 318 KB (global).
+// pair, 74 KB a block of a cluster of 8 (shared); the backward's W =
+// 2,688 lanes take 97 KB (shared); at K = 4096, W = 8,832 lanes take 318
+// KB (global).
 //
-// What bounds them on the card: the forward by integer operations (10 a
-// cell in score mode, 4.3 G cells at full width: ~2.6 ms at the int32
-// rate of all 132 SMs), but one block a pair keeps only B SMs busy and
-// every diagonal moves ~36 bytes a lane through L2 (scratch), so this
-// design is bound by one SM's L2 traffic and its barrier per diagonal.
-// The backward window and the walk are small beside it (the walk is a
-// chain of dependent one-byte loads, bound by latency).
+// What bounds them on the card: the forward's function by integer
+// operations (10 a cell in score mode, 4.3 G cells a run at full width:
+// ~0.16 ms a block at the int32 rate of all 132 SMs). The cluster design
+// takes ~16x that: a diagonal costs ~0.5 ns a lane a block sweeps plus
+// ~1.1 us whatever its lanes (tools/k6_timing.py). The backward window
+// is one block a pair, K2's design; the walk is a chain of dependent
+// one-byte loads, bound by latency.
 
 constexpr int kLowmemThreads = 1024;
+// Dynamic shared memory that a block of a cluster of affine_fwd_block asks
+// for at least: more than half an SM's 228 KB, so that no SM runs two
+// blocks and every block of every cluster has an SM to itself.
+constexpr size_t kOwnSmBytes = 120 * 1024;
+
+namespace cg = cooperative_groups;
+
+// The per-diagonal barrier of a cluster: a block barrier, then a relaxed
+// cluster barrier whose wait acquires. Only `release`, the thread that
+// wrote the block's edge lane (all that another block reads), pays for a
+// fence at cluster scope; a release arrive would fence every thread.
+__device__ __forceinline__ void cluster_step(bool release) {
+  __syncthreads();
+  if (release) asm volatile("fence.acq_rel.cluster;" ::: "memory");
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n\t"
+               "barrier.cluster.wait.aligned;" ::: "memory");
+}
 
 // Slot of diagonal d (d may be -1).
 __device__ __forceinline__ int slot_of(int d) { return ((d % 3) + 3) % 3; }
 
+// kGlobal: the state lives in the global scratch (a template argument, so
+// that the shared-memory kernel addresses shared memory directly).
+template <bool kGlobal>
 __global__ void __launch_bounds__(kLowmemThreads)
 affine_fwd_block_kernel(const int8_t* __restrict__ alpha,    // (B, n)
                         const int8_t* __restrict__ beta,     // (B, m)
                         const int32_t* __restrict__ scores,  // (5, 5)
                         int go, int ge, int B, int n, int m, int d0, int K,
-                        int fin,
+                        int fin, int CL, int chunk,
                         const int32_t* __restrict__ state_in,  // (3, 2, B, S)
-                        int32_t* scratch,                      // (B, 9 S) or null
+                        int32_t* scratch,  // (B CL, 9 (chunk + 1)) or null
                         int32_t* __restrict__ state_out,       // (3, 2, B, S)
                         int32_t* __restrict__ capture) {       // (3, B, S)
   extern __shared__ int32_t smem[];
   __shared__ int sc[25];
+  __shared__ int edge[9];  // the block's last lane: state k of slot t at 3k + t
+  cg::cluster_group cluster = cg::this_cluster();
   const int S = n + 1;
-  const int b = blockIdx.x;
-  // state k of slot t at st + (3k + t) S
-  int32_t* st = scratch ? scratch + (int64_t)b * 9 * S : smem;
+  const int r = blockIdx.x % CL;  // the block's rank in its cluster
+  const int b = blockIdx.x / CL;
+  // local index x holds lane lo - 1 + x: the block's lanes at x = 1..len,
+  // and block 0's lane 0 at x = 0
+  const int P = chunk + 1;
+  const int lo = 1 + r * chunk;
+  const int len = max(0, min(n - lo + 1, chunk));
+  const int x0 = r == 0 ? 0 : 1;
+  // state k of slot t at st + (3k + t) P
+  int32_t* st = kGlobal ? scratch + (int64_t)blockIdx.x * 9 * P : smem;
+  const int* left = r > 0 ? cluster.map_shared_rank(edge, r - 1) : nullptr;
+  // the thread that owns local lane chunk, the block's last, and writes
+  // `edge` (when the block's range is full)
+  const bool edge_writer =
+      len == chunk && (int)threadIdx.x == (chunk - x0) % (int)blockDim.x;
   if (threadIdx.x < 25) sc[threadIdx.x] = scores[threadIdx.x];
   for (int k = 0; k < 3; ++k) {
     for (int p = 0; p < 2; ++p) {
-      const int32_t* src = state_in + ((int64_t)(2 * k + p) * B + b) * S;
-      int32_t* dst = st + (3 * k + slot_of(d0 - 1 + p)) * S;
-      for (int s = threadIdx.x; s < S; s += blockDim.x) dst[s] = src[s];
+      const int t = slot_of(d0 - 1 + p);
+      const int32_t* src = state_in + ((int64_t)(2 * k + p) * B + b) * S + lo - 1;
+      int32_t* dst = st + (3 * k + t) * P;
+      for (int x = x0 + threadIdx.x; x <= len; x += blockDim.x) {
+        dst[x] = src[x];
+        if (x == chunk) edge[3 * k + t] = src[x];
+      }
     }
-    int32_t* cap = capture + ((int64_t)k * B + b) * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) cap[s] = kNeg;
+    int32_t* cap = capture + ((int64_t)k * B + b) * S + lo - 1;
+    for (int x = x0 + threadIdx.x; x <= len; x += blockDim.x) cap[x] = kNeg;
   }
-  __syncthreads();
+  int32_t* cap_m = capture + (int64_t)b * S + lo - 1;
+  int32_t* cap_i = capture + ((int64_t)B + b) * S + lo - 1;
+  int32_t* cap_d = capture + ((int64_t)2 * B + b) * S + lo - 1;
+  cluster.sync();
 
   const int8_t* al = alpha + (int64_t)b * n;
   const int8_t* be = beta + (int64_t)b * m;
   const int goe = go + ge;
   for (int d = d0 + 1; d <= d0 + K; ++d) {
     const int t0 = slot_of(d), t1 = slot_of(d - 1), t2 = slot_of(d - 2);
-    const Prev pv = {st + t1 * S, st + (3 + t1) * S, st + (6 + t1) * S,
-                     st + t2 * S, st + (3 + t2) * S, st + (6 + t2) * S};
-    int32_t *M0 = st + t0 * S, *I0 = st + (3 + t0) * S, *D0 = st + (6 + t0) * S;
-    const int lo = max(1, d - m), hi = min(d - 1, n);  // interior lanes
+    const int32_t *M1 = st + t1 * P, *I1 = st + (3 + t1) * P, *D1 = st + (6 + t1) * P;
+    const int32_t *M2 = st + t2 * P, *I2 = st + (3 + t2) * P, *D2 = st + (6 + t2) * P;
+    int32_t *M0 = st + t0 * P, *I0 = st + (3 + t0) * P, *D0 = st + (6 + t0) * P;
+    const int dlo = max(1, d - m), dhi = min(d - 1, n);  // interior lanes
     const int bnd = go + ge * d;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    // lane lo - 1 of diagonals d-1 and d-2 from block r-1, first: it is on
+    // every diagonal's critical path
+    int hm1 = kNeg, hi1 = kNeg, hd1 = kNeg, hm2 = kNeg, hi2 = kNeg, hd2 = kNeg;
+    if (left != nullptr && threadIdx.x == 0 && len > 0) {
+      hm1 = left[t1];
+      hi1 = left[3 + t1];
+      hd1 = left[6 + t1];
+      hm2 = left[t2];
+      hi2 = left[3 + t2];
+      hd2 = left[6 + t2];
+    }
+    for (int x = x0 + threadIdx.x; x <= len; x += blockDim.x) {
+      const int s = lo - 1 + x;
       int mv = kNeg, iv = kNeg, dv = kNeg;
-      if (s >= lo && s <= hi) {
-        gotoh_cell(pv, s, s - 1, substitution(sc, al, be, s, d - s), goe, ge,
-                   mv, iv, dv);
+      if (s >= dlo && s <= dhi) {
+        const int sub = substitution(sc, al, be, s, d - s);
+        if (x == 1 && left != nullptr) {
+          gotoh_values(hm2, hi2, hd2, M1[x], I1[x], D1[x], hm1, hi1, hd1, sub,
+                       goe, ge, mv, iv, dv);
+        } else {
+          gotoh_values(M2[x - 1], I2[x - 1], D2[x - 1], M1[x], I1[x], D1[x],
+                       M1[x - 1], I1[x - 1], D1[x - 1], sub, goe, ge, mv, iv, dv);
+        }
       } else {
         if (s == 0 && d <= m) iv = bnd;  // row 0
         if (s == d && d <= n) dv = bnd;  // column 0
       }
-      M0[s] = mv;
-      I0[s] = iv;
-      D0[s] = dv;
+      M0[x] = mv;
+      I0[x] = iv;
+      D0[x] = dv;
+      if (x == chunk) {
+        edge[t0] = mv;
+        edge[3 + t0] = iv;
+        edge[6 + t0] = dv;
+      }
       if (d == fin) {
-        capture[(int64_t)b * S + s] = mv;
-        capture[((int64_t)B + b) * S + s] = iv;
-        capture[((int64_t)2 * B + b) * S + s] = dv;
+        cap_m[x] = mv;
+        cap_i[x] = iv;
+        cap_d[x] = dv;
       }
     }
-    __syncthreads();
+    if (CL > 1) {
+      cluster_step(edge_writer);
+    } else {
+      __syncthreads();
+    }
   }
   // the end state: diagonals d0+K-1 and d0+K
   for (int k = 0; k < 3; ++k)
     for (int p = 0; p < 2; ++p) {
-      const int32_t* src = st + (3 * k + slot_of(d0 + K - 1 + p)) * S;
-      int32_t* dst = state_out + ((int64_t)(2 * k + p) * B + b) * S;
-      for (int s = threadIdx.x; s < S; s += blockDim.x) dst[s] = src[s];
+      const int32_t* src = st + (3 * k + slot_of(d0 + K - 1 + p)) * P;
+      int32_t* dst = state_out + ((int64_t)(2 * k + p) * B + b) * S + lo - 1;
+      for (int x = x0 + threadIdx.x; x <= len; x += blockDim.x) dst[x] = src[x];
     }
 }
 
@@ -667,6 +768,27 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// The launch of affine_fwd_block on `clusters` clusters of CL blocks, each
+// block sweeping up to chunk + 1 lanes (block 0's lane 0 included) with
+// its state in shared memory when in_smem; `attr` holds the cluster size.
+cudaLaunchConfig_t fwd_block_config(int clusters, int CL, int chunk,
+                                    bool in_smem, void* stream,
+                                    cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * CL);
+  cfg.blockDim = dim3(threads_for(chunk + 1, kLowmemThreads));
+  const size_t state = in_smem ? (size_t)9 * (chunk + 1) * sizeof(int32_t) : 0;
+  cfg.dynamicSmemBytes = CL > 1 && state < kOwnSmBytes ? kOwnSmBytes : state;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
 extern "C" const char* wavefront_error_string(int code) {
@@ -708,22 +830,43 @@ extern "C" int const_wavefront_launch(const void* alpha, const void* beta,
   return (int)cudaGetLastError();
 }
 
+// The launch of affine_fwd_block with clusters of CL blocks at `chunk`
+// lanes a block, written to out (three ints): the clusters the card holds
+// at once, the dynamic shared memory a block asks for, and its threads.
+extern "C" int affine_fwd_block_clusters(int CL, int chunk, int in_smem,
+                                         void* out) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = fwd_block_config(1, CL, chunk, in_smem, nullptr, &attr);
+  auto kernel = in_smem ? &affine_fwd_block_kernel<false> : &affine_fwd_block_kernel<true>;
+  cudaError_t err = allow_smem(kernel, cfg.dynamicSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  int* res = (int*)out;
+  res[1] = (int)cfg.dynamicSmemBytes;
+  res[2] = (int)cfg.blockDim.x;
+  return (int)cudaOccupancyMaxActiveClusters(res, (const void*)kernel, &cfg);
+}
+
 extern "C" int affine_fwd_block_launch(const void* alpha, const void* beta,
                                        const void* scores, int go, int ge,
                                        int B, int n, int m, int d0, int K,
-                                       int fin, const void* state_in,
-                                       void* scratch, void* state_out,
-                                       void* capture, void* stream) {
-  const int S = n + 1;
-  const size_t smem = scratch ? 0 : (size_t)9 * S * sizeof(int32_t);
-  cudaError_t err = allow_smem(affine_fwd_block_kernel, smem);
+                                       int fin, int CL, int chunk,
+                                       const void* state_in, void* scratch,
+                                       void* state_out, void* capture,
+                                       void* stream) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = fwd_block_config(B, CL, chunk, scratch == nullptr,
+                                                  stream, &attr);
+  auto kernel = scratch ? &affine_fwd_block_kernel<true> : &affine_fwd_block_kernel<false>;
+  cudaError_t err = allow_smem(kernel, cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  affine_fwd_block_kernel<<<B, threads_for(S, kLowmemThreads), smem, (cudaStream_t)stream>>>(
-      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)scores, go, ge,
-      B, n, m, d0, K, fin, (const int32_t*)state_in, (int32_t*)scratch,
-      (int32_t*)state_out, (int32_t*)capture);
+  err = cudaLaunchKernelEx(&cfg, kernel, (const int8_t*)alpha,
+                           (const int8_t*)beta, (const int32_t*)scores, go, ge, B, n,
+                           m, d0, K, fin, CL, chunk, (const int32_t*)state_in,
+                           (int32_t*)scratch, (int32_t*)state_out, (int32_t*)capture);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
 
 extern "C" int affine_bwd_window_launch(const void* alpha, const void* beta,
                                         const void* scores, int go, int ge,

@@ -45,8 +45,9 @@ _SIGNATURES = {
         "const_wavefront_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
                                    _int, _int, _vp, _vp, _vp, _vp],
         "affine_fwd_block_launch": [_vp, _vp, _vp, _int, _int, _int, _int,
-                                    _int, _int, _int, _int, _vp, _vp, _vp,
-                                    _vp, _vp],
+                                    _int, _int, _int, _int, _int, _int, _vp,
+                                    _vp, _vp, _vp, _vp],
+        "affine_fwd_block_clusters": [_int, _int, _int, _vp],
         "affine_bwd_window_launch": [_vp, _vp, _vp, _int, _int, _int, _int,
                                      _int, _int, _int, _int, _vp, _vp, _vp,
                                      _vp, _vp, _vp],
@@ -59,9 +60,9 @@ _SIGNATURES = {
     },
     "gsw_dp": {
         "local_wavefront_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
-                                   _int, _vp, _vp, _vp, _vp, _vp],
+                                   _int, _vp, _vp, _vp, _vp, _vp, _vp],
         "gsw_right_wavefront_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int,
-                                       _int, _int, _vp, _vp, _vp, _vp],
+                                       _int, _int, _vp, _vp, _vp, _vp, _vp],
         "gsw_walk_pack_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                                  _int, _vp, _vp],
     },

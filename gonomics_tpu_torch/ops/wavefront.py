@@ -15,8 +15,9 @@ Nine kernels, each with its plain PyTorch version beside it:
   ``_local_kernel`` (:179, ``pallas_call`` :451 in ``wavefront_local``);
 - ``gsw_right_wavefront`` (same file) replaces ``_gsw_right_kernel``
   (:289, ``pallas_call`` :368 in ``wavefront_gsw_right``);
-- ``affine_fwd_block`` (``csrc/wavefront.cu``) replaces
-  ``_affine_fwd_chunked_kernel`` (:895, ``pallas_call`` :991);
+- ``affine_fwd_block`` (``csrc/wavefront.cu``, one thread-block cluster
+  a pair, see ``fwd_block_plan``) replaces ``_affine_fwd_chunked_kernel``
+  (:895, ``pallas_call`` :991);
 - ``affine_bwd_window`` (same file) replaces ``_affine_bwd_window_kernel``
   (:1007, ``pallas_call`` :1085);
 - ``lowmem_walk_block`` (same file) replaces the jnp walk ``_walk_block``
@@ -51,6 +52,8 @@ reached keeps NEG. The graph kernels' layout and trace are described at
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -62,6 +65,15 @@ from ._kernels import as_vec, expect
 # shared memory; above it the kernels keep it in a global scratch. The
 # card allows a block 227 KB.
 SMEM_STATE_BYTES_MAX = 200 * 1024
+# int32 rows of n+1 lanes that each kernel keeps per pair or job: three
+# slots of each state, and for the graph DPs the per-lane bests (local:
+# best value, its diagonal and the corner; anchored: best and diagonal)
+_STATE_ROWS = {"affine": 9, "const": 3, "local": 6, "gsw_right": 5}
+# Cluster sizes affine_fwd_block tries, largest first (8 is the portable
+# maximum of a thread-block cluster), and the fewest lanes a block of a
+# cluster keeps (below it a smaller cluster takes the pair).
+FWD_CLUSTER_SIZES = (8, 7, 6, 5, 4, 3, 2, 1)
+FWD_MIN_LANES = 1024
 
 affine_launches = 0
 const_launches = 0
@@ -75,11 +87,12 @@ affine_block_launches = 0
 
 
 def state_in_shared_memory(n: int, mode: str) -> bool:
-    """Whether the kernel for ``mode`` keeps the diagonal state of an
-    alpha of padded length n in shared memory (for the lowmem kernels,
-    n + 1 is the lanes they sweep: the forward's S, the backward's W)."""
-    states = 3 if mode == "affine" else 1
-    return states * 3 * (n + 1) * 4 <= SMEM_STATE_BYTES_MAX
+    """Whether the kernel for ``mode`` ("affine", "const", or the graph
+    DPs "local" and "gsw_right") keeps the state of n + 1 lanes in shared
+    memory rather than a global scratch (for the lowmem kernels, n + 1 is
+    the lanes a block sweeps: a forward block's chunk + 1, the backward's
+    W)."""
+    return _STATE_ROWS[mode] * (n + 1) * 4 <= SMEM_STATE_BYTES_MAX
 
 
 def _max3(a, b, c):
@@ -415,16 +428,11 @@ def const_wavefront(alpha, beta, fin, scores, gap: int, with_trace: bool):
     return out
 
 
-def _graph_inputs(alpha, beta, n_vec, m_vec, scores, states: int):
-    """The graph kernels' checked inputs; raises where their state of
-    ``states`` int32 rows of n+1 lanes would not fit in shared memory."""
+def _graph_inputs(alpha, beta, n_vec, m_vec, scores):
+    """The graph kernels' checked inputs."""
     C, n = alpha.shape
     m = beta.shape[1]
     dev = alpha.device
-    if states * (n + 1) * 4 > SMEM_STATE_BYTES_MAX:
-        raise ValueError(f"genome window of {n} bases: the graph kernels "
-                         "keep their state in shared memory, which holds "
-                         f"at most {SMEM_STATE_BYTES_MAX // (4 * states) - 1}")
     return (expect(alpha, torch.int8, (C, n), "alpha", dev),
             expect(beta, torch.int8, (C, m), "beta", dev),
             expect(as_vec(n_vec, C, dev), torch.int32, (C,), "n_vec", dev),
@@ -443,7 +451,7 @@ def local_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int,
         return local_wavefront_reference(alpha, beta, n_vec, m_vec, scores,
                                          gap, with_corner)
     alpha, beta, n_vec, m_vec, sc = _graph_inputs(alpha, beta, n_vec, m_vec,
-                                                  scores, 6)
+                                                  scores)
     C, n = alpha.shape
     m = beta.shape[1]
     dev = alpha.device
@@ -456,14 +464,16 @@ def local_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int,
     out = (bv, bd, trace, corner) if with_corner else (bv, bd, trace)
     if C == 0:
         return out
+    scratch = (None if state_in_shared_memory(n, "local") else
+               torch.empty((C, 6 * S), dtype=torch.int32, device=dev))
     lib = _kernels.lib("gsw_dp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.local_wavefront_launch(
             alpha.data_ptr(), beta.data_ptr(), n_vec.data_ptr(),
             m_vec.data_ptr(), sc.data_ptr(), int(gap), C, n, m,
-            bv.data_ptr(), bd.data_ptr(), _ptr(corner), trace.data_ptr(),
-            stream)
+            _ptr(scratch), bv.data_ptr(), bd.data_ptr(), _ptr(corner),
+            trace.data_ptr(), stream)
     _kernels.check(rc, "local_wavefront")
     local_launches += 1
     return out
@@ -478,7 +488,7 @@ def gsw_right_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int):
         return gsw_right_wavefront_reference(alpha, beta, n_vec, m_vec,
                                              scores, gap)
     alpha, beta, n_vec, m_vec, sc = _graph_inputs(alpha, beta, n_vec, m_vec,
-                                                  scores, 5)
+                                                  scores)
     C, n = alpha.shape
     m = beta.shape[1]
     dev = alpha.device
@@ -488,13 +498,16 @@ def gsw_right_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int):
     trace = torch.empty((n + m, C, S), dtype=torch.int8, device=dev)
     if C == 0:
         return bv, bd, trace
+    scratch = (None if state_in_shared_memory(n, "gsw_right") else
+               torch.empty((C, 5 * S), dtype=torch.int32, device=dev))
     lib = _kernels.lib("gsw_dp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gsw_right_wavefront_launch(
             alpha.data_ptr(), beta.data_ptr(), n_vec.data_ptr(),
             m_vec.data_ptr(), sc.data_ptr(), int(gap), C, n, m,
-            bv.data_ptr(), bd.data_ptr(), trace.data_ptr(), stream)
+            _ptr(scratch), bv.data_ptr(), bd.data_ptr(), trace.data_ptr(),
+            stream)
     _kernels.check(rc, "gsw_right_wavefront")
     gsw_right_launches += 1
     return bv, bd, trace
@@ -850,16 +863,86 @@ def _lowmem_inputs(alpha, beta, state, scores):
                    torch.int32, (5, 5), "scores", dev))
 
 
+def fwd_block_lanes(n: int, CL: int) -> int:
+    """Interior lanes a block of a cluster of CL takes in affine_fwd_block
+    (the last block fewer, trailing ones possibly none)."""
+    return max(1, -(-n // CL))
+
+
+def fwd_cluster_size(B: int, n: int, resident) -> int:
+    """The cluster size CL of affine_fwd_block for B pairs of n + 1 lanes:
+    the largest of FWD_CLUSTER_SIZES whose blocks keep at least
+    FWD_MIN_LANES lanes each and whose B clusters the card holds at once
+    (``resident(CL)`` of them), so that no pair waits for another; else 1.
+    More blocks a pair means fewer lanes a thread a diagonal, but clusters
+    that run in waves cost a whole sweep each."""
+    for CL in FWD_CLUSTER_SIZES[:-1]:
+        if fwd_block_lanes(n, CL) >= FWD_MIN_LANES and B <= resident(CL):
+            return CL
+    return 1
+
+
+_fwd_configs: dict = {}
+
+
+def _fwd_config(CL: int, n: int, device) -> tuple:
+    """The card's launch of affine_fwd_block with clusters of CL blocks
+    for n + 1 lanes, cached: the clusters it holds at once
+    (cudaOccupancyMaxActiveClusters), and the dynamic shared memory and
+    threads of a block."""
+    chunk = fwd_block_lanes(n, CL)
+    in_smem = state_in_shared_memory(chunk, "affine")
+    key = (device.index, CL, chunk, in_smem)
+    if key not in _fwd_configs:
+        out = (ctypes.c_int * 3)()
+        lib = _kernels.lib("wavefront")
+        with torch.cuda.device(device):
+            rc = lib.affine_fwd_block_clusters(CL, chunk, int(in_smem),
+                                               ctypes.addressof(out))
+        _kernels.check(rc, "affine_fwd_block")
+        _fwd_configs[key] = tuple(out)
+    return _fwd_configs[key]
+
+
+def fwd_block_plan(B: int, n: int, device) -> dict:
+    """How affine_fwd_block runs B pairs of n + 1 lanes on the card
+    ``device``: the cluster size, a block's lanes, threads and state
+    (shared memory or global scratch, and its bytes), the dynamic shared
+    memory it asks for, the clusters the card holds at once and the
+    waves B clusters take."""
+    device = torch.device(device)
+    CL = fwd_cluster_size(B, n, lambda c: _fwd_config(c, n, device)[0])
+    chunk = fwd_block_lanes(n, CL)
+    resident, smem, threads = _fwd_config(CL, n, device)
+    return {"cluster": CL, "lanes_per_block": chunk, "threads": threads,
+            "state_in_shared_memory": state_in_shared_memory(chunk, "affine"),
+            "state_bytes_per_block": 9 * (chunk + 1) * 4,
+            "smem_bytes_per_block": smem,
+            "resident_clusters": resident,
+            "waves": -(-B // resident) if resident else None}
+
+
 def affine_fwd_block(alpha, beta, state, d0: int, fin: int, scores,
                      gap_open: int, gap_extend: int, K: int):
     """K forward diagonals from a checkpoint (see
     ``affine_fwd_block_reference``): the plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors."""
-    global affine_fwd_block_launches
+    the CUDA kernel for CUDA tensors, one cluster of
+    ``fwd_block_plan(B, n)["cluster"]`` blocks a pair."""
     if alpha.device.type == "cpu":
         return affine_fwd_block_reference(alpha, beta, state, d0, fin, scores,
                                           gap_open, gap_extend, K)
     alpha, beta, state, sc = _lowmem_inputs(alpha, beta, state, scores)
+    B, n = alpha.shape
+    CL = fwd_block_plan(B, n, alpha.device)["cluster"] if B else 1
+    return _fwd_block_launch(alpha, beta, state, d0, fin, sc, gap_open,
+                             gap_extend, K, CL)
+
+
+def _fwd_block_launch(alpha, beta, state, d0: int, fin: int, sc,
+                      gap_open: int, gap_extend: int, K: int, CL: int):
+    """Launch affine_fwd_block on checked CUDA inputs with clusters of CL
+    blocks (``affine_fwd_block`` picks CL; the card tests force one)."""
+    global affine_fwd_block_launches
     B, n = alpha.shape
     m = beta.shape[1]
     dev = alpha.device
@@ -868,16 +951,18 @@ def affine_fwd_block(alpha, beta, state, d0: int, fin: int, scores,
     cap = torch.empty((3, B, S), dtype=torch.int32, device=dev)
     if B == 0:
         return out, cap
-    scratch = (None if state_in_shared_memory(n, "affine") else
-               torch.empty((B, 9 * S), dtype=torch.int32, device=dev))
+    chunk = fwd_block_lanes(n, CL)
+    scratch = (None if state_in_shared_memory(chunk, "affine") else
+               torch.empty((B * CL, 9 * (chunk + 1)), dtype=torch.int32,
+                           device=dev))
     lib = _kernels.lib("wavefront")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.affine_fwd_block_launch(
             alpha.data_ptr(), beta.data_ptr(), sc.data_ptr(), int(gap_open),
-            int(gap_extend), B, n, m, int(d0), int(K), int(fin),
-            state.data_ptr(), _ptr(scratch), out.data_ptr(), cap.data_ptr(),
-            stream)
+            int(gap_extend), B, n, m, int(d0), int(K), int(fin), int(CL),
+            chunk, state.data_ptr(), _ptr(scratch), out.data_ptr(),
+            cap.data_ptr(), stream)
     _kernels.check(rc, "affine_fwd_block")
     affine_fwd_block_launches += 1
     return out, cap

@@ -221,11 +221,16 @@ def _graph_jobs(C: int, n: int, m: int, seed: int):
 @pytest.mark.cuda
 @pytest.mark.parametrize("C,n,m,scoring", [
     (2048, 192, 192, "humanChimp"), (7, 40, 33, "plusMinusOne"),
-    (5, 2048, 150, "humanChimp"), (64, 100, 70, "asymmetric")])
+    (5, 2048, 150, "humanChimp"), (64, 100, 70, "asymmetric"),
+    (5, 10300, 32, "humanChimp")])
 def test_graph_kernels_equal_plain(card, C, n, m, scoring):
     """local_wavefront (K4), gsw_right_wavefront (K5) and gsw_walk_pack,
     both sides, against their plain versions; n = 2048 runs more lanes
-    than a block has threads."""
+    than a block has threads, and n = 10,300, above both kernels' old
+    shared-memory limits, keeps the state in a global scratch."""
+    wide = n > 10239
+    assert wavefront.state_in_shared_memory(n, "local") == (not wide)
+    assert wavefront.state_in_shared_memory(n, "gsw_right") == (not wide)
     scores, gap = {"humanChimp": (HUMAN_CHIMP_TWO, -600),
                    "plusMinusOne": (PLUS_MINUS_ONE, -1),
                    "asymmetric": (ASYMMETRIC, -300)}[scoring]
@@ -316,9 +321,9 @@ def _lowmem_pairs(B: int, n: int, m: int, seed: int):
 
 
 # (B, n, m, K, scoring): the window moving and clipped (W = 768 < S), n = 1,
-# m = 1, a single block, and K = 4096 with n = 9000, where both the
-# forward's state (S = 9001 lanes) and the backward window's (W = 8832)
-# are above the shared-memory limit (global scratch)
+# m = 1, a single block, and K = 4096 with n = 9000, where the backward
+# window's state (W = 8832) is above the shared-memory limit (global
+# scratch) and the forward splits the 9001 lanes over a cluster
 _LOWMEM_CASES = [(3, 900, 300, 8, "humanChimp"), (2, 1, 40, 16, "humanChimp"),
                  (2, 40, 1, 16, "plusMinusOne"), (3, 50, 30, 128, "humanChimp"),
                  (2, 9000, 300, 4096, "humanChimp")]
@@ -337,7 +342,9 @@ def test_lowmem_kernels_equal_plain(card, B, n, m, K, scoring):
     sc = torch.as_tensor(scores, dtype=torch.int32, device=card)
     W = wavefront.window_width(n, K)
     big = n == 9000
-    assert wavefront.state_in_shared_memory(n, "affine") == (not big)
+    plan = wavefront.fwd_block_plan(B, n, card)
+    assert plan["cluster"] == (8 if big else 1)
+    assert plan["state_in_shared_memory"]
     assert wavefront.state_in_shared_memory(W - 1, "affine") == (not big)
     before = wavefront.affine_fwd_block_launches
     ck, cap = wavefront.lowmem_forward(alpha, beta, sc, go, ge, K)
@@ -384,6 +391,51 @@ def test_lowmem_kernels_equal_plain(card, B, n, m, K, scoring):
     assert bool(((i == 0) | (j == 0)).all())
     if W < n + 1:
         assert len(moved) > 1  # the window moved
+
+
+# (B, n, m, K, CL): affine_fwd_block with clusters of CL blocks forced, at
+# its edges: S = 1001 lanes not a multiple of CL; n = 1, n = 10 and n = 12
+# (clusters of 5), where blocks 1-7, 5-7 and 4 have empty lane ranges;
+# clusters of 7 with a shorter last block; 80 pairs of clusters of 8 at
+# 1,025 lanes a block, more than the card holds at once (the clusters run
+# in waves); and 6,000 lanes a block, whose state is above the
+# shared-memory limit (global scratch), with clusters of 2 and of 1 (what
+# the wrapper picks when more pairs than the card holds clusters of 2
+# each keep more than ~5,700 lanes). In every case n + m is not a
+# multiple of K, so the diagonal fin = n + m lies inside the last block.
+_FWD_CLUSTER_CASES = [(3, 1000, 300, 96, 8), (2, 1, 40, 16, 8),
+                      (3, 10, 37, 8, 8), (2, 12, 30, 8, 5),
+                      (2, 5000, 100, 1024, 7), (80, 8200, 200, 2048, 8),
+                      (2, 12000, 100, 4096, 2), (2, 6000, 100, 4096, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m,K,CL", _FWD_CLUSTER_CASES)
+def test_fwd_block_cluster_edges(card, B, n, m, K, CL):
+    """affine_fwd_block's cluster kernel on every block of the forward,
+    exact against its plain version (the checkpoint and the capture)."""
+    assert (n + m) % K
+    lanes = wavefront.fwd_block_lanes(n, CL)
+    assert wavefront.state_in_shared_memory(lanes, "affine") == (lanes < 6000)
+    if B == 80:
+        assert B > wavefront._fwd_config(CL, n, card)[0]
+    alpha, beta = (torch.from_numpy(x).to(card)
+                   for x in _lowmem_pairs(B, n, m, B + n))
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
+    state = wavefront.initial_state(B, n, -600, card)
+    nb = (n + m - 1) // K + 1
+    before = wavefront.affine_fwd_block_launches
+    for blk in range(nb):
+        got = wavefront._fwd_block_launch(alpha, beta, state, blk * K, n + m,
+                                          sc, -600, -150, K, CL)
+        want = wavefront.affine_fwd_block_reference(
+            alpha, beta, state, blk * K, n + m, sc, -600, -150, K)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), blk
+        state = want[0]
+    assert wavefront.affine_fwd_block_launches == before + nb
+    assert int(want[1][0, :, n].max()) > -(1 << 30)  # fin was captured
 
 
 @pytest.mark.cuda

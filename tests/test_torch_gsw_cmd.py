@@ -48,15 +48,22 @@ def _write_inputs(tmp_path):
     return str(ref), str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq")
 
 
-@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
-def test_sam_byte_identical(tmp_path, paired):
+# the North star's command line, `gsw align ref.fa reads.fq --engine tpu`,
+# with -t as the JAX CLI takes it (and ignores it)
+_NORTH_STAR = ["--engine", "tpu", "-t", "4"]
+
+
+@pytest.mark.parametrize("paired,flags", [
+    (False, []), (True, []), (False, _NORTH_STAR), (True, _NORTH_STAR)],
+    ids=["single", "paired", "single-engine-tpu-t4", "paired-engine-tpu-t4"])
+def test_sam_byte_identical(tmp_path, paired, flags):
     ref, r1, r2 = _write_inputs(tmp_path)
     files = [ref, r1, r2] if paired else [ref, r1]
     want, got = tmp_path / "jax.sam", tmp_path / "port.sam"
     jax_gsw.main(["align", *files, "-o", str(want), "--engine", "tpu",
-                  "--batch", "4"])
+                  "--batch", "4", *flags])
     port_gsw.main(["align", *files, "-o", str(got), "--device", "cpu",
-                   "--batch", "4"])
+                   "--batch", "4", *flags])
     text = got.read_bytes()
     assert text == want.read_bytes()
     assert text.count(b"\n") == 3 + (20 if paired else 10)
@@ -72,6 +79,28 @@ def test_sparse_index_byte_identical(tmp_path):
     port_gsw.main(["align", ref, r1, "-o", str(got), "--device", "cpu",
                    *flags])
     assert got.read_bytes() == want.read_bytes()
+
+
+def test_engine_host_exits(tmp_path):
+    ref, r1, _ = _write_inputs(tmp_path)
+    with pytest.raises(SystemExit, match="no numpy host engine"):
+        port_gsw.main(["align", ref, r1, "-o", str(tmp_path / "o.sam"),
+                       "--device", "cpu", "--engine", "host"])
+
+
+def test_profile_writes_trace(tmp_path):
+    """--profile DIR leaves a torch.profiler trace in DIR and the same
+    SAM as a run without it."""
+    ref, r1, _ = _write_inputs(tmp_path)
+    plain, traced = tmp_path / "plain.sam", tmp_path / "traced.sam"
+    port_gsw.main(["align", ref, r1, "-o", str(plain), "--device", "cpu"])
+    prof = tmp_path / "prof"
+    port_gsw.main(["align", ref, r1, "-o", str(traced), "--device", "cpu",
+                   "--engine", "tpu", "--profile", str(prof)])
+    assert traced.read_bytes() == plain.read_bytes()
+    trace = prof / "gsw_align.pt.trace.json"
+    assert trace.stat().st_size > 0
+    assert "traceEvents" in trace.read_text()
 
 
 # a graph reference (ported: ROADMAP item 5, the case's id) still

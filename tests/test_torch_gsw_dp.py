@@ -132,6 +132,56 @@ def test_gsw_right_wavefront_matches_jax(scoring):
     assert (trace[outside] == 0).all()
 
 
+def test_state_in_shared_memory_graph_limits():
+    """The graph kernels keep their state in shared memory up to the old
+    limits (6 rows of n + 1 int32 lanes for K4, 5 for K5, within 200 KB)
+    and in a global scratch above them; the wrappers' checks take any
+    window."""
+    assert port_wf.state_in_shared_memory(8532, "local")
+    assert not port_wf.state_in_shared_memory(8533, "local")
+    assert port_wf.state_in_shared_memory(10239, "gsw_right")
+    assert not port_wf.state_in_shared_memory(10240, "gsw_right")
+    al, be, nv, mv = _torch(np.zeros((1, 10300), np.int8),
+                            np.zeros((1, 32), np.int8),
+                            np.array([10300], np.int32),
+                            np.array([32], np.int32))
+    checked = port_wf._graph_inputs(al, be, nv, mv, HUMAN_CHIMP_TWO)
+    assert checked[0].shape == (1, 10300)
+
+
+@pytest.mark.parametrize("kind,n", [("local", 8600), ("gsw_right", 10300)])
+def test_wide_window_matches_jax(kind, n):
+    """K4 and K5 at a genome window above their old shared-memory limit
+    (8,532 and 10,239 bases): the plain versions equal the JAX kernels, as
+    the card's global-scratch path equals the plain versions
+    (tests/test_torch_card.py)."""
+    assert not port_wf.state_in_shared_memory(n, kind)
+    C, m = 2, 8
+    rng = np.random.default_rng(n)
+    al = rng.integers(0, 4, (C, n)).astype(np.int8)
+    # read parts from the window's end (left jobs) or start (right jobs)
+    be = np.ascontiguousarray(al[:, -m:] if kind == "local" else al[:, :m])
+    be[1, 3] = (be[1, 3] + 1) % 4
+    nv = np.array([n, n - 700], np.int32)
+    mv = np.array([m, m - 2], np.int32)
+    scores, gap = SCORINGS["humanChimp"]
+    if kind == "local":
+        want = jax_wf.wavefront_local(*_jax(al, be, nv, mv), scores, n=n,
+                                      m=m, gap=gap, with_trace=True,
+                                      with_corner=True, interpret=True)
+        got = port_wf.local_wavefront(*_torch(al, be, nv, mv), scores, gap,
+                                      with_corner=True)
+    else:
+        want = jax_wf.wavefront_gsw_right(*_jax(al, be, nv, mv), scores, n=n,
+                                          m=m, gap=gap, interpret=True)[:2]
+        got = port_wf.gsw_right_wavefront(*_torch(al, be, nv, mv), scores,
+                                          gap)[:2]
+    for k, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w)[..., :n + 1],
+                                      err_msg=str(k))
+    assert int(got[0].max()) > 0
+
+
 @pytest.mark.parametrize("scoring", list(SCORINGS))
 @pytest.mark.parametrize("side", ["left", "right"])
 def test_walk_pack_matches_jax(side, scoring):

@@ -122,6 +122,34 @@ def test_forward_block_without_fin_captures_neg():
     assert (cap == port_wf.NEG).all()
 
 
+# (B, n, clusters of 8 / of 7 / of 6 or fewer blocks the card holds at
+# once, CL): bench.py's 16 pairs of 16,384^2 when 16 clusters of 8 fit,
+# when 15 do (an H100 80GB HBM3 at one block an SM) and when neither 8 nor
+# 7 fits; the 100 kb pair; blocks that would keep fewer than 1024 lanes;
+# and pairs that outnumber every cluster size
+@pytest.mark.parametrize("B,n,resident,CL", [
+    (16, 16384, (16, 17, 20), 8), (16, 16384, (15, 17, 20), 7),
+    (16, 16384, (15, 15, 20), 6), (1, 100_000, (15, 17, 20), 8),
+    (3, 2046, (15, 17, 20), 1), (3, 2048, (15, 17, 20), 2),
+    (3, 3072, (15, 17, 20), 3), (3, 40, (15, 17, 20), 1),
+    (200, 16384, (15, 17, 66), 1), (16, 16384, (0, 0, 0), 1)])
+def test_fwd_cluster_size(B, n, resident, CL):
+    """affine_fwd_block's cluster size from the pair count, the lanes and
+    the clusters the card holds (a query on the card, given here)."""
+    def held(c):
+        return resident[0] if c == 8 else resident[1] if c == 7 else resident[2]
+
+    assert port_wf.fwd_cluster_size(B, n, held) == CL
+    lanes = port_wf.fwd_block_lanes(n, CL)
+    assert lanes * CL >= n and (lanes - 1) * CL < n
+    if CL > 1:
+        assert lanes >= port_wf.FWD_MIN_LANES
+    # at full width a block of a cluster of 8 keeps its state in shared
+    # memory; the 100 kb pair's blocks keep theirs in a global scratch
+    assert port_wf.state_in_shared_memory(lanes, "affine") == (
+        n * 9 * 4 // CL < port_wf.SMEM_STATE_BYTES_MAX)
+
+
 @pytest.mark.parametrize("scoring", list(SCORINGS))
 def test_backward_window_matches_jax(scoring):
     """K7 on a window with wlo > 0 (and one pair at wlo = 0): every
