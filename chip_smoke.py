@@ -51,11 +51,14 @@ exits non-zero:
             16,384 x 16,384, K = 1024), each once on the middle block from
             the checkpoint and walk state the main path gives it, held
             against its plain PyTorch version on the card (exact equality)
-            and timed, with its bound itemised; affine_fwd_block's cluster
-            plan (blocks a pair, clusters the card holds at once, shared
-            memory a block); and affine_fwd_block on the middle block of
-            the 100 kb pair of phase 12 (K = 4096, a global scratch a
-            block), exact.
+            and timed, with its bound itemised; the cluster plans of
+            affine_fwd_block (blocks a pair, clusters the card holds at
+            once, shared memory a block) and of affine_bwd_window (blocks
+            a pair, lanes a thread, warps a block, clusters held at once,
+            waves), each as the kernel's own launch has it; and all three
+            on the middle block of the 100 kb pair of phase 12 (K = 4096:
+            K6 a global scratch a block, K7 a window of 8,832 lanes, the
+            walk over K7's trace), exact and timed.
 12. lowmem:  affine_gap_lowmem_batch on that batch: cells/s, the wall split
             into forward, backward and host, peak device memory against
             the full trace's; every route consumes both sequences and
@@ -1383,20 +1386,24 @@ def block_cells(d0: int, K: int, lo_lane, n: int, m: int, W: int) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def long_pair_fwd_block(dev: torch.device, sc, go: int, ge: int) -> dict:
-    """affine_fwd_block on the middle block of the lowmem phase's 100 kb
-    pair (B = 1, S = 100,001 lanes, K = 4096), from the checkpoint its
-    forward gives: a cluster whose blocks keep their state in a global
-    scratch. Exact against the plain version over that block."""
+def long_pair_blocks(dev: torch.device, sc, go: int, ge: int) -> dict:
+    """affine_fwd_block and affine_bwd_window on the middle block of the
+    lowmem phase's 100 kb pair (B = 1, S = 100,001 lanes, K = 4096): K6
+    from the checkpoint its forward gives (a cluster whose blocks keep
+    their state in a global scratch), and K7 (a window of 8,832 lanes)
+    from that checkpoint and the walk's row after the blocks above it.
+    Each exact against its plain version over that block, and the walk
+    over K7's trace of that block."""
     from gonomics_tpu_torch.ops import wavefront
 
     a, b = related_pair(np.random.default_rng(37), LOWMEM_LONG,
                         same_length=False)
     alpha, beta = (torch.from_numpy(x[None]).to(dev) for x in (a, b))
     n, m, K = len(a), len(b), LOWMEM_LONG_K
-    ck, _ = wavefront.lowmem_forward(alpha, beta, sc, go, ge, K)
+    ck, cap = wavefront.lowmem_forward(alpha, beta, sc, go, ge, K)
     nb = ck.shape[0]
     mid = nb // 2
+    shape = f"block {mid} of {nb} (d0 = {mid * K}), 1 pair of {n} x {m}"
 
     def fwd():
         return wavefront.affine_fwd_block(alpha, beta, ck[mid], mid * K,
@@ -1406,14 +1413,61 @@ def long_pair_fwd_block(dev: torch.device, sc, go: int, ge: int) -> dict:
         alpha, beta, ck[mid], mid * K, n + m, sc, go, ge, K))
     got = fwd()
     torch.cuda.synchronize()
-    return {"n": n, "m": m, "K": K, "shape": f"block {mid} of {nb} "
-            f"(d0 = {mid * K}), 1 pair of {n} x {m}",
-            "equal_to_plain": all(torch.equal(g, w) for g, w in zip(got, want)),
-            "max_abs_err": max(int((g.to(torch.int64) - w).abs().max())
-                               for g, w in zip(got, want)),
-            "next_checkpoint_equal": torch.equal(want[0], ck[mid + 1]),
-            "ms": median_ms(fwd, runs=3), "plain_ms": plain_ms,
-            **wavefront.fwd_block_plan(1, n, dev)}
+    k6 = {"n": n, "m": m, "K": K, "shape": shape,
+          "equal_to_plain": all(torch.equal(g, w) for g, w in zip(got, want)),
+          "max_abs_err": max(int((g.to(torch.int64) - w).abs().max())
+                             for g, w in zip(got, want)),
+          "next_checkpoint_equal": torch.equal(want[0], ck[mid + 1]),
+          "ms": median_ms(fwd, runs=3), "plain_ms": plain_ms,
+          **wavefront.fwd_block_plan(1, n, dev)}
+    # the walk's row at the entry of block mid
+    k = wavefront._argmax3(*cap[:, :, n]).to(torch.int32)
+    i = torch.full((1,), n, dtype=torch.int32, device=dev)
+    j = torch.full((1,), m, dtype=torch.int32, device=dev)
+    later = list(reversed(range(mid + 1, nb)))
+    wavefront.lowmem_backward(i, j, k, [blk * K for blk in later],
+                              [ck[blk] for blk in later], alpha, beta, sc, go,
+                              ge, K)
+
+    def bwd():
+        return wavefront.affine_bwd_window(alpha, beta, ck[mid], mid * K, i,
+                                           sc, go, ge, K)
+
+    want, plain_ms = once_ms(lambda: wavefront.affine_bwd_window_reference(
+        alpha, beta, ck[mid], mid * K, i, sc, go, ge, K))
+    got = bwd()
+    torch.cuda.synchronize()
+    k7 = {"n": n, "m": m, "K": K, "shape": shape,
+          "equal_to_plain": all(torch.equal(g, w) for g, w in zip(got, want)),
+          "max_abs_err": max(int((g.to(torch.int64) - w).abs().max())
+                             for g, w in zip(got, want)),
+          "ms": median_ms(bwd, runs=5), "plain_ms": plain_ms,
+          **wavefront.bwd_window_plan(1, n, K, dev)}
+    # the walk over that block's trace, from the same row
+    trace, wlo = want
+
+    def walk(fn):
+        return lambda: fn(trace, wlo, mid * K, i.clone(), j.clone(),
+                          k.clone())
+
+    wi, wj, wk = i.clone(), j.clone(), k.clone()
+    ops_want, walk_plain_ms = once_ms(
+        lambda: wavefront.lowmem_walk_block_reference(trace, wlo, mid * K,
+                                                      wi, wj, wk))
+    gi, gj, gk = i.clone(), j.clone(), k.clone()
+    ops_got = wavefront.lowmem_walk_block(trace, wlo, mid * K, gi, gj, gk)
+    torch.cuda.synchronize()
+    pairs = list(zip((ops_got, gi, gj, gk), (ops_want, wi, wj, wk)))
+    walk_row = {"n": n, "m": m, "K": K, "shape": shape,
+                "equal_to_plain": all(torch.equal(g, w) for g, w in pairs),
+                "max_abs_err": max(int((g.to(torch.int64) - w).abs().max())
+                                   for g, w in pairs),
+                "steps": int((ops_want < 3).sum()),
+                "ms": median_ms(walk(wavefront.lowmem_walk_block), runs=5,
+                                inner=5),
+                "plain_ms": walk_plain_ms}
+    return {"affine_fwd_block": k6, "affine_bwd_window": k7,
+            "lowmem_walk_block": walk_row}
 
 
 def phase_lowmem_kernels(dev: torch.device) -> list[dict]:
@@ -1513,17 +1567,17 @@ def phase_lowmem_kernels(dev: torch.device) -> list[dict]:
             "operations": LOWMEM_WALK_OPS_PER_STEP * steps
             / INT32_OPS_PER_S * 1e3, "steps": steps}}
     plan = wavefront.fwd_block_plan(B, n, dev)
+    bwd_plan = wavefront.bwd_window_plan(B, n, K, dev)
+    # K7 keeps its state in registers, the walk none
     smem = {"affine_fwd_block": plan["state_in_shared_memory"],
-            "affine_bwd_window": wavefront.state_in_shared_memory(W - 1,
-                                                                  "affine"),
-            "lowmem_walk_block": None}
+            "affine_bwd_window": None, "lowmem_walk_block": None}
     timings = {
         "affine_fwd_block": (median_ms(fwd, runs=5),
                              median_ms(fwd_plain, runs=1)),
-        "affine_bwd_window": (median_ms(bwd, runs=15),
+        "affine_bwd_window": (median_ms(bwd, runs=15, inner=5),
                               median_ms(bwd_plain, runs=1)),
         "lowmem_walk_block": (
-            median_ms(walk(wavefront.lowmem_walk_block), runs=15),
+            median_ms(walk(wavefront.lowmem_walk_block), runs=15, inner=5),
             median_ms(walk(wavefront.lowmem_walk_block_reference), runs=1))}
     replaces = {
         "affine_fwd_block": "gonomics_tpu/ops/wavefront.py:895 "
@@ -1548,29 +1602,42 @@ def phase_lowmem_kernels(dev: torch.device) -> list[dict]:
             "shape": (f"block {mid} of {nb} (d0 = {d0}), {B} pairs of "
                       f"{n} x {m}, K = {K}, W = {W}"),
             "bound_itemised": bound})
-    # K6: one thread-block cluster a pair, its plan at this shape, and its
-    # case on the 100 kb pair (a global scratch a block)
-    long_pair = long_pair_fwd_block(dev, sc, go, ge)
+    # K6 and K7: one thread-block cluster a pair, their plans at this
+    # shape, and their cases on the 100 kb pair (K6 a global scratch a
+    # block, K7 a window of 8,832 lanes)
+    long_pair = long_pair_blocks(dev, sc, go, ge)
     rows[0].update({"design": "cluster", "cluster": plan["cluster"],
                     "resident_clusters": plan["resident_clusters"],
                     "waves": plan["waves"],
                     "lanes_per_block": plan["lanes_per_block"],
                     "smem_bytes_per_block": plan["smem_bytes_per_block"],
-                    "long_pair": long_pair})
+                    "long_pair": long_pair["affine_fwd_block"]})
+    rows[1].update({"design": "warp strips in a cluster", **bwd_plan,
+                    "long_pair": long_pair["affine_bwd_window"]})
+    rows[2].update({"design": "a tile at a time",
+                    "long_pair": long_pair["lowmem_walk_block"]})
     emit({"phase": "lowmem_kernels", "tolerance": "exact",
           "next_checkpoint_equal": next_ck, "window_starts":
               sorted(set(wlo_np.tolist())),
           "affine_fwd_block_plan": plan,
+          "affine_bwd_window_plan": bwd_plan,
           "affine_fwd_block_earlier_ms": K6_EARLIER_MS,
-          "affine_fwd_block_long_pair": long_pair,
+          "affine_fwd_block_long_pair": long_pair["affine_fwd_block"],
+          "affine_bwd_window_long_pair": long_pair["affine_bwd_window"],
+          "lowmem_walk_block_long_pair": long_pair["lowmem_walk_block"],
           "kernels": [{k: r[k] for k in (
               "name", "equal_to_plain", "max_abs_err", "ms", "plain_ms",
               "bound_ms", "bound_by", "state_in_shared_memory", "shape",
               "bound_itemised")} for r in rows]})
+    k6_long, k7_long = (long_pair["affine_fwd_block"],
+                        long_pair["affine_bwd_window"])
     if not (next_ck and all(r["equal_to_plain"] for r in rows)
-            and long_pair["equal_to_plain"]
-            and long_pair["next_checkpoint_equal"]
-            and not long_pair["state_in_shared_memory"]):
+            and k6_long["equal_to_plain"] and k6_long["next_checkpoint_equal"]
+            and not k6_long["state_in_shared_memory"]
+            and k7_long["equal_to_plain"]
+            and long_pair["lowmem_walk_block"]["equal_to_plain"]
+            and k7_long["window_lanes"] == wavefront.window_width(
+                k7_long["n"], LOWMEM_LONG_K)):
         raise SystemExit("a lowmem kernel disagrees with its plain version")
     return rows
 
@@ -1628,6 +1695,8 @@ def phase_lowmem(dev: torch.device) -> dict:
     full_trace_bytes = (n + m) * B * (n + 1)
     out = {"phase": "lowmem", "pairs": B, "n": n, "m": m, "K": LOWMEM_K,
            "fwd_cluster": wavefront.fwd_block_plan(B, n, dev)["cluster"],
+           "bwd_cluster": wavefront.bwd_window_plan(B, n, LOWMEM_K,
+                                                    dev)["cluster"],
            "blocks": (n + m - 1) // LOWMEM_K + 1,
            "wall_ms": wall, "cells_per_s": B * n * m / wall * 1e3,
            **split, "host_ms": wall - sum(split.values()),

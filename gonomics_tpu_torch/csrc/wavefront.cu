@@ -51,6 +51,7 @@ namespace {
 
 constexpr int kNeg = -(1 << 30);  // NEG = -(2**30)
 constexpr int kThreads = 512;
+constexpr unsigned kAllLanes = 0xffffffffu;
 
 __device__ __forceinline__ int max3(int a, int b, int c) { return max(max(a, b), c); }
 
@@ -62,12 +63,13 @@ __device__ __forceinline__ int argmax3(int a, int b, int c) {
 // Substitution score of interior cell (s, j): alpha codes are clipped
 // to 0..4; a beta code picks the score row as _select_score does: 0 -> 0,
 // 1 or negative -> 1, 2 -> 2, 3 -> 3, 4 or more -> 4.
+__device__ __forceinline__ int alpha_column(int a) { return min(max(a, 0), 4); }
+__device__ __forceinline__ int beta_row(int bc) {
+  return bc < 2 ? (bc == 0 ? 0 : 1) : min(bc, 4);
+}
 __device__ __forceinline__ int substitution(const int* sc, const int8_t* al,
                                             const int8_t* be, int s, int j) {
-  const int a = min(max((int)al[s - 1], 0), 4);
-  const int bc = be[j - 1];
-  const int row = bc < 2 ? (bc == 0 ? 0 : 1) : min(bc, 4);
-  return sc[row * 5 + a];
+  return sc[beta_row(be[j - 1]) * 5 + alpha_column(al[s - 1])];
 }
 
 // The slots of diagonals d-1 (M1, I1, D1) and d-2 (M2, I2, D2).
@@ -91,13 +93,11 @@ __device__ __forceinline__ int gotoh_values(int m2p, int i2p, int d2p, int m1s,
   return argmax3(m2p, i2p, d2p) + 4 * argmax3(ai, bi, ci) + 16 * argmax3(ad, bd, cd);
 }
 
-// One interior Gotoh cell at lane s of diagonal d, where lane p stands
-// for s-1 (s-1 itself, or s at a window's left edge, as the Pallas
-// kernels' _shift does): I from (d-1, s), D from (d-1, p), M from
-// (d-2, p).
-__device__ __forceinline__ int gotoh_cell(const Prev& pv, int s, int p,
-                                          int sub, int goe, int ge, int& mv,
-                                          int& iv, int& dv) {
+// One interior Gotoh cell at lane s of diagonal d: I from (d-1, s), D
+// from (d-1, s-1), M from (d-2, s-1).
+__device__ __forceinline__ int gotoh_cell(const Prev& pv, int s, int sub, int goe,
+                                          int ge, int& mv, int& iv, int& dv) {
+  const int p = s - 1;
   return gotoh_values(pv.M2[p], pv.I2[p], pv.D2[p], pv.M1[s], pv.I1[s], pv.D1[s],
                       pv.M1[p], pv.I1[p], pv.D1[p], sub, goe, ge, mv, iv, dv);
 }
@@ -177,7 +177,7 @@ affine_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
         continue;
       }
       int mv, iv, dv;
-      const int code = gotoh_cell(pv, s, s - 1, substitution(sc, al, be, s, d - s),
+      const int code = gotoh_cell(pv, s, substitution(sc, al, be, s, d - s),
                                   goe, ge, mv, iv, dv);
       if (kTrace) trow[s] = (int8_t)code;
       M0[s] = mv;
@@ -291,36 +291,78 @@ const_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
 // affine_bwd_window replaces _affine_bwd_window_kernel (:1007,
 // pallas_call :1085): it re-fills diagonals d0+1..d0+K of a pair on the
 // lanes [wlo, wlo+W) only, reading the window of the checkpoint, and
-// writes the packed trace (K, B, W). Each block computes its pair's wlo
-// from the walk's current row i on the card, so the block loop needs no
-// round trip to the host. The window's lane 0 takes its own value as its
-// s-1 neighbour, as the Pallas kernel's _shift does.
+// writes the packed trace (K, B, W). Each pair computes its wlo from the
+// walk's current row i on the card, so the block loop needs no round trip
+// to the host. The window's lane 0 takes its own value as its s-1
+// neighbour, as the Pallas kernel's _shift does.
 //
-// lowmem_walk_block replaces the jnp walk _walk_block (:1102): one thread
-// a pair walks K steps over the block's trace, carrying (i, j, k) in
-// device memory from block to block.
+// Its design has no barrier a diagonal. The window is cut into strips of
+// 32 L lanes, one warp a strip; lane l of a warp owns L consecutive
+// window lanes and keeps their M, I, D of diagonals d-1 and d-2 in
+// registers, with their alpha codes and a sliding window of their beta
+// score rows (one new beta byte a diagonal, loaded a diagonal ahead). A
+// cell reads only lane s-1, so within a thread that is its own register,
+// across threads of a warp three shuffles of the last diagonal's values
+// (the d-2 triple is the one received the step before), and across
+// strips the last lane of the strip below: lane 31 of warp g writes it
+// each diagonal into a ring of kBwdRing slots in the shared memory of
+// warp g+1's block, each of M, I, D as one 64-bit word that carries the
+// diagonal's tag beside the value, and warp g+1 reads the words of
+// diagonal d-1 until their tags say they are written, so no fence and no
+// separate flag stand between the two. The whole warp waits, all lanes
+// reading the same word: a lane that spins alone while the others wait
+// for it to reconverge made a step about three times as slow. Warp g+1
+// reports every kBwdPeriod diagonals how many it has read, and warp g
+// does not overwrite a slot still unread, so the strips run pipelined,
+// each a diagonal or two behind the one below. One pair is one thread-block
+// cluster of CL blocks of NW warps; the strip edge between blocks goes
+// through distributed shared memory. A cluster barrier before the loop
+// (the rings are cleared) and after it (no block leaves while another may
+// still write into its shared memory) are the only barriers. A window
+// wider than CL NW strips (above 32,768 lanes at 8 blocks of 16 warps of
+// 8 lanes) is swept in passes: warp g takes strip g of each pass in turn,
+// the ring's tags and counts run on over the passes, and the last strip
+// of a pass hands its edge, all K diagonals of it, to the first strip of
+// the next through a zeroed global buffer of tagged words, which needs no
+// count since nothing in it is overwritten. The wrapper picks L and CL
+// (ops/wavefront.py bwd_window_plan); the launch sets NW and the passes.
 //
-// State slots: three, as for affine_wavefront (the Pallas kernels' two
-// parity slots race on a GPU), in shared memory when 9 x lanes x 4 bytes
-// fit (the wrapper's SMEM_STATE_BYTES_MAX), else in a global scratch of
-// 9 x lanes int32 a block that stays in L2. At the full-width shape (16
-// pairs of 16,384 x 16,384, K = 1024) the forward's state is 590 KB a
-// pair, 74 KB a block of a cluster of 8 (shared); the backward's W =
-// 2,688 lanes take 97 KB (shared); at K = 4096, W = 8,832 lanes take 318
-// KB (global).
+// lowmem_walk_block replaces the jnp walk _walk_block (:1102): one warp
+// a pair walks K steps back over the block's trace, carrying (i, j, k) in
+// device memory from block to block. A step moves the walk at most one
+// lane and two diagonals down, so a tile of 32 diagonals x 16 lanes whose
+// corner is the current cell holds at least 15 steps: lane x of the warp
+// loads the 16 bytes of diagonal dtop - x in one round of independent
+// loads (one or two aligned 16-byte loads; byte by byte, each row and
+// column clamped as the walk clamps them, at the window's edges), and the
+// warp then walks inside the tile from registers, one shuffle a step,
+// until the walk leaves it. About K/15 rounds of loads replace the K
+// dependent loads of a walk that reads one byte a step.
+//
+// State of the forward: three slots, as for affine_wavefront (the Pallas
+// kernels' two parity slots race on a GPU), in shared memory when 9 x
+// lanes x 4 bytes fit (the wrapper's SMEM_STATE_BYTES_MAX), else in a
+// global scratch of 9 x lanes int32 a block that stays in L2. At the
+// full-width shape (16 pairs of 16,384 x 16,384, K = 1024) the forward's
+// state is 590 KB a pair, 98 KB a block of a cluster of 6 (shared).
 //
 // What bounds them on the card: the forward's function by integer
 // operations (10 a cell in score mode, 4.3 G cells a run at full width:
 // ~0.16 ms a block at the int32 rate of all 132 SMs). The cluster design
 // takes ~16x that: a diagonal costs ~0.5 ns a lane a block sweeps plus
-// ~1.1 us whatever its lanes (tools/k6_timing.py). The backward window
-// is one block a pair, K2's design; the walk is a chain of dependent
-// one-byte loads, bound by latency.
+// ~1.1 us whatever its lanes (tools/lowmem_timing.py k6). The backward
+// window by operations too (26 a cell with its trace, ~0.07 ms a block at
+// full width); the strips take ~10x that, bound by the latency of a
+// warp-step: ~800 cycles for one strip alone, ~1,400 at the main shape,
+// where two warps share each of an SM's schedulers and wait on each
+// other's edges (tools/lowmem_timing.py k7). The walk by the latency of a
+// tile's loads and of one shuffle a step.
 
 constexpr int kLowmemThreads = 1024;
-// Dynamic shared memory that a block of a cluster of affine_fwd_block asks
-// for at least: more than half an SM's 228 KB, so that no SM runs two
-// blocks and every block of every cluster has an SM to itself.
+// Dynamic shared memory that a block of a cluster of affine_fwd_block
+// asks for at least, and every block of affine_bwd_window: more than half
+// an SM's 228 KB, so that no SM runs two blocks and every block of every
+// cluster has an SM to itself.
 constexpr size_t kOwnSmBytes = 120 * 1024;
 
 namespace cg = cooperative_groups;
@@ -457,95 +499,363 @@ affine_fwd_block_kernel(const int8_t* __restrict__ alpha,    // (B, n)
     }
 }
 
-__global__ void __launch_bounds__(kLowmemThreads)
+// affine_bwd_window: warps (strips of 32 L lanes) a block at most, slots
+// of a strip's edge ring (a power of two), and the diagonals between two
+// reports of a strip's progress to the strip below it. A strip may run up
+// to kBwdRing - 2 diagonals ahead of the one above it, which keeps both
+// moving while the period is at most a quarter of the ring.
+constexpr int kBwdMaxWarps = 16;
+constexpr int kBwdLanesBuilt[] = {2, 4, 8};
+constexpr int kMaxCluster = 8;  // the portable maximum of a cluster
+constexpr int kBwdRing = 32;
+constexpr int kBwdPeriod = 4;
+static_assert(4 * kBwdPeriod <= kBwdRing, "the ring must outlast two periods");
+
+// Shared-memory accesses of the strips' hand-off, by 32-bit shared-window
+// addresses; `remote` addresses are in the cluster window (mapa) and may
+// lie in another block of the cluster.
+__device__ __forceinline__ uint32_t cta_address(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ uint32_t cluster_address(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(cta_address(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ void store_u32(uint32_t a, int v, bool remote) {
+  if (remote) {
+    asm volatile("st.relaxed.cluster.shared::cluster.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+  } else {
+    asm volatile("st.volatile.shared.u32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
+  }
+}
+__device__ __forceinline__ int load_u32(uint32_t a) {
+  int v;
+  asm volatile("ld.volatile.shared.u32 %0, [%1];" : "=r"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// A ring word: a value in its low half and its tag (the step that wrote
+// it, plus one) in its high half, stored and loaded whole, so that a
+// reader that sees the tag it waits for sees the value with it; no fence
+// orders the value before a flag.
+__device__ __forceinline__ void put_tagged(uint32_t a, int v, int tag, bool remote) {
+  const unsigned long long w = (unsigned long long)(unsigned)tag << 32 | (unsigned)v;
+  if (remote) {
+    asm volatile("st.relaxed.cluster.shared::cluster.u64 [%0], %1;" ::"r"(a), "l"(w) : "memory");
+  } else {
+    asm volatile("st.volatile.shared.u64 [%0], %1;" ::"r"(a), "l"(w) : "memory");
+  }
+}
+__device__ __forceinline__ int get_tagged(uint32_t a, int tag) {
+  unsigned long long w;
+  do {
+    asm volatile("ld.volatile.shared.u64 %0, [%1];" : "=l"(w) : "r"(a) : "memory");
+  } while ((int)(w >> 32) != tag);
+  return (int)(unsigned)w;
+}
+// The same words in global memory (the edge between two passes).
+__device__ __forceinline__ void put_tagged_global(unsigned long long* a, int v, int tag) {
+  const unsigned long long w = (unsigned long long)(unsigned)tag << 32 | (unsigned)v;
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(a), "l"(w) : "memory");
+}
+__device__ __forceinline__ int get_tagged_global(const unsigned long long* a, int tag) {
+  unsigned long long w;
+  do {
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w) : "l"(a) : "memory");
+  } while ((int)(w >> 32) != tag);
+  return (int)(unsigned)w;
+}
+
+template <int L>
+__global__ void __launch_bounds__(32 * kBwdMaxWarps)
 affine_bwd_window_kernel(const int8_t* __restrict__ alpha,    // (B, n)
                          const int8_t* __restrict__ beta,     // (B, m)
                          const int32_t* __restrict__ scores,  // (5, 5)
                          int go, int ge, int B, int n, int m, int d0, int K,
-                         int W,
+                         int W, int CL, int passes,
                          const int32_t* __restrict__ i_cur,     // (B,)
                          const int32_t* __restrict__ state_in,  // (3, 2, B, S)
-                         int32_t* scratch,                      // (B, 9 W) or null
+                         unsigned long long* __restrict__ edge,  // (passes-1, B, K, 3)
                          int32_t* __restrict__ wlo_out,         // (B,)
                          int8_t* __restrict__ trace) {          // (K, B, W)
-  extern __shared__ int32_t smem[];
+  // ring[q]: M, I, D of the edge lane of the strip below warp q, a slot a
+  // diagonal; drained[q]: the diagonals the strip above warp q has read
+  // from its ring
+  __shared__ unsigned long long ring[kBwdMaxWarps][kBwdRing][3];
+  __shared__ int drained[kBwdMaxWarps];
   __shared__ int sc[25];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int NW = blockDim.x / 32;
+  const int G = CL * NW;  // strips a pass
+  const int r = blockIdx.x % CL;  // the block's rank in its cluster
+  const int b = blockIdx.x / CL;
+  const int q = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = r * NW + q;  // the warp's strip in each pass
   const int S = n + 1;
-  const int b = blockIdx.x;
-  int32_t* st = scratch ? scratch + (int64_t)b * 9 * W : smem;
   // wlo = clip(floor((i - 2K - 128) / 128) * 128, 0, S - W)
   const int x = i_cur[b] - 2 * K - 128;
   const int wlo = min(x > 0 ? x / 128 * 128 : 0, S - W);
-  if (threadIdx.x == 0) wlo_out[b] = wlo;
+  if (r == 0 && threadIdx.x == 0) wlo_out[b] = wlo;
   if (threadIdx.x < 25) sc[threadIdx.x] = scores[threadIdx.x];
-  for (int k = 0; k < 3; ++k)
-    for (int p = 0; p < 2; ++p) {
-      const int32_t* src = state_in + ((int64_t)(2 * k + p) * B + b) * S + wlo;
-      int32_t* dst = st + (3 * k + slot_of(d0 - 1 + p)) * W;
-      for (int w = threadIdx.x; w < W; w += blockDim.x) dst[w] = src[w];
-    }
-  __syncthreads();
+  for (int x = threadIdx.x; x < NW * kBwdRing * 3; x += blockDim.x) (&ring[0][0][0])[x] = 0;
+  if (threadIdx.x < NW) drained[threadIdx.x] = 0;
+  // lane 31 writes its edge into the ring of the strip above; lane 0
+  // reports what it has read to the strip below; in another block for
+  // the block's last and first warp; the last strip of a pass writes, and
+  // the first reads, the global edge between passes
+  const bool up_remote = q == NW - 1, down_remote = q == 0;
+  uint32_t up_ring = 0, down_drained = 0;
+  if (g + 1 < G)
+    up_ring = up_remote ? cluster_address(&ring[0][0][0], r + 1) : cta_address(&ring[q + 1][0][0]);
+  if (g > 0)
+    down_drained = down_remote ? cluster_address(&drained[NW - 1], r - 1)
+                               : cta_address(&drained[q - 1]);
+  const uint32_t my_ring = cta_address(&ring[q][0][0]), my_drained = cta_address(&drained[q]);
+  cluster.sync();  // every block's rings are cleared before any is written
 
   const int8_t* al = alpha + (int64_t)b * n;
   const int8_t* be = beta + (int64_t)b * m;
   const int goe = go + ge;
-  for (int t = 0; t < K; ++t) {
-    const int d = d0 + 1 + t;
-    const int t0 = slot_of(d), t1 = slot_of(d - 1), t2 = slot_of(d - 2);
-    const Prev pv = {st + t1 * W, st + (3 + t1) * W, st + (6 + t1) * W,
-                     st + t2 * W, st + (3 + t2) * W, st + (6 + t2) * W};
-    int32_t *M0 = st + t0 * W, *I0 = st + (3 + t0) * W, *D0 = st + (6 + t0) * W;
-    const int lo = max(1, d - m), hi = min(d - 1, n);  // interior lanes
-    const int bnd = go + ge * d;
-    int8_t* trow = trace + ((int64_t)t * B + b) * W;
-    for (int w = threadIdx.x; w < W; w += blockDim.x) {
-      const int s = wlo + w;
-      int mv = kNeg, iv = kNeg, dv = kNeg, code = 0;
-      if (s >= lo && s <= hi) {
-        code = gotoh_cell(pv, w, w > 0 ? w - 1 : 0,
-                          substitution(sc, al, be, s, d - s), goe, ge, mv, iv, dv);
-      } else {
-        if (s == 0 && d <= m) iv = bnd;  // row 0
-        if (s == d && d <= n) dv = bnd;  // column 0
-      }
-      M0[w] = mv;
-      I0[w] = iv;
-      D0[w] = dv;
-      trow[w] = (int8_t)code;
+  const int32_t* st = state_in + (int64_t)b * S;
+  const int64_t plane = (int64_t)B * S;  // state (k, p) at st + (2k + p) plane
+  const int64_t row_step = (int64_t)B * W;
+  int drained_seen = 0, until_report = kBwdPeriod;
+  for (int p = 0; p < passes; ++p) {
+    const int w0 = (p * G + g) * 32 * L;  // the strip's first window lane
+    if (w0 >= W) break;
+    const bool below = w0 > 0;            // a strip below feeds lane 0
+    const bool above = w0 + 32 * L < W;   // a strip above reads lane 31
+    const bool ring_below = below && g > 0, ring_above = above && g + 1 < G;
+    // the edge from the last strip of pass p-1, to the first of pass p+1
+    const unsigned long long* edge_in =
+        below && g == 0 ? edge + ((int64_t)(p - 1) * B + b) * K * 3 : nullptr;
+    unsigned long long* edge_out =
+        above && g + 1 == G ? edge + ((int64_t)p * B + b) * K * 3 : nullptr;
+    const int T0 = p * K;  // the ring's steps run on over the passes
+    const int lw = w0 + lane * L;  // the thread's first window lane
+    const int s0 = wlo + lw;
+    // lanes s0 + e: M, I, D of diagonals d-1 (1) and d-2 (2), the clipped
+    // alpha code, and 5 x the score row of the beta code that cell
+    // (d, s0 + e) reads
+    int M1[L], I1[L], D1[L], M2[L], I2[L], D2[L], A[L], R5[L];
+#pragma unroll
+    for (int e = 0; e < L; ++e) {
+      const int s = s0 + e;
+      const bool in = lw + e < W;
+      M2[e] = in ? st[s] : kNeg;
+      M1[e] = in ? st[plane + s] : kNeg;
+      I2[e] = in ? st[2 * plane + s] : kNeg;
+      I1[e] = in ? st[3 * plane + s] : kNeg;
+      D2[e] = in ? st[4 * plane + s] : kNeg;
+      D1[e] = in ? st[5 * plane + s] : kNeg;
+      A[e] = s >= 1 && s <= n ? alpha_column(al[s - 1]) : 0;
+      const int j = d0 + 1 - s;
+      R5[e] = j >= 1 && j <= m ? 5 * beta_row(be[j - 1]) : 0;
     }
-    __syncthreads();
+    // lane s0 - 1 of diagonals d-1 (n1) and d-2 (n2): from lane l-1 by
+    // shuffles; for lane 0 of a strip with one below it the edge of that
+    // strip (e1, e2: the checkpoint at the first diagonal, then the ring
+    // or the edge between passes); for lane 0 of strip 0 the lane itself
+    // (_shift)
+    int n1m = __shfl_up_sync(kAllLanes, M2[L - 1], 1);
+    int n1i = __shfl_up_sync(kAllLanes, I2[L - 1], 1);
+    int n1d = __shfl_up_sync(kAllLanes, D2[L - 1], 1);
+    int e1m = kNeg, e1i = kNeg, e1d = kNeg, e2m = kNeg, e2i = kNeg, e2d = kNeg;
+    if (below) {
+      e2m = st[s0 - 1];
+      e1m = st[plane + s0 - 1];
+      e2i = st[2 * plane + s0 - 1];
+      e1i = st[3 * plane + s0 - 1];
+      e2d = st[4 * plane + s0 - 1];
+      e1d = st[5 * plane + s0 - 1];
+    }
+    const bool pack = L % 4 == 0 && W % 4 == 0 && lw + L <= W;
+    int8_t* trow = trace + (int64_t)b * W + lw;  // diagonal d0+1+t at + t B W
+    for (int t = 0; t < K; ++t) {
+      const int d = d0 + 1 + t, T = T0 + t;
+      // the beta code of lane s0 at the next diagonal, loaded a step ahead
+      const int jn = d + 1 - s0;
+      const int bn = jn >= 1 && jn <= m ? be[jn - 1] : 0;
+      int n2m = n1m, n2i = n1i, n2d = n1d;
+      n1m = __shfl_up_sync(kAllLanes, M1[L - 1], 1);
+      n1i = __shfl_up_sync(kAllLanes, I1[L - 1], 1);
+      n1d = __shfl_up_sync(kAllLanes, D1[L - 1], 1);
+      if (below && t > 0) {
+        // the whole warp waits for the strip below's diagonal d-1 (one
+        // word read by all lanes), so that no lane spins alone
+        e2m = e1m;
+        e2i = e1i;
+        e2d = e1d;
+        if (ring_below) {
+          const uint32_t slot = my_ring + 24 * ((T - 1) & (kBwdRing - 1));
+          e1m = get_tagged(slot, T);
+          e1i = get_tagged(slot + 8, T);
+          e1d = get_tagged(slot + 16, T);
+        } else {
+          const unsigned long long* w = edge_in + 3 * (t - 1);
+          e1m = get_tagged_global(w, t);
+          e1i = get_tagged_global(w + 1, t);
+          e1d = get_tagged_global(w + 2, t);
+        }
+      }
+      if (lane == 0) {
+        n1m = below ? e1m : M1[0];
+        n1i = below ? e1i : I1[0];
+        n1d = below ? e1d : D1[0];
+        n2m = below ? e2m : M2[0];
+        n2i = below ? e2i : I2[0];
+        n2d = below ? e2d : D2[0];
+      }
+      const int lo = max(1, d - m), hi = min(min(d - 1, n), wlo + W - 1);
+      const int bnd = go + ge * d;
+      int code[L];
+      // from the last lane down, so that lane e-1 still holds diagonals
+      // d-1 and d-2 when lane e reads it
+#pragma unroll
+      for (int e = L - 1; e >= 0; --e) {
+        const int s = s0 + e;
+        const int pm1 = e ? M1[e - 1] : n1m, pi1 = e ? I1[e - 1] : n1i,
+                  pd1 = e ? D1[e - 1] : n1d;
+        const int pm2 = e ? M2[e - 1] : n2m, pi2 = e ? I2[e - 1] : n2i,
+                  pd2 = e ? D2[e - 1] : n2d;
+        int mv = kNeg, iv = kNeg, dv = kNeg, c = 0;
+        if (s >= lo && s <= hi) {
+          c = gotoh_values(pm2, pi2, pd2, M1[e], I1[e], D1[e], pm1, pi1, pd1,
+                           sc[R5[e] + A[e]], goe, ge, mv, iv, dv);
+        } else {
+          if (s == 0 && d <= m) iv = bnd;  // row 0
+          if (s == d && d <= n) dv = bnd;  // column 0
+        }
+        M2[e] = M1[e];
+        I2[e] = I1[e];
+        D2[e] = D1[e];
+        M1[e] = mv;
+        I1[e] = iv;
+        D1[e] = dv;
+        code[e] = c;
+      }
+      if (pack) {
+#pragma unroll
+        for (int e = 0; e < L; e += 4)
+          *(uint32_t*)(trow + e) = (uint32_t)(code[e] | code[e + 1] << 8 |
+                                              code[e + 2] << 16 | code[e + 3] << 24);
+      } else {
+#pragma unroll
+        for (int e = 0; e < L; ++e)
+          if (lw + e < W) trow[e] = (int8_t)code[e];
+      }
+      trow += row_step;
+#pragma unroll
+      for (int e = L - 1; e > 0; --e) R5[e] = R5[e - 1];
+      R5[0] = 5 * beta_row(bn);
+      if (ring_above) {
+        // slot T held step T - kBwdRing, which the strip above read at its
+        // step T - kBwdRing + 1 (the whole warp reads the count)
+        while (drained_seen < T - kBwdRing + 2) drained_seen = load_u32(my_drained);
+        const uint32_t slot = up_ring + 24 * (T & (kBwdRing - 1));
+        if (lane == 31) {
+          put_tagged(slot, M1[L - 1], T + 1, up_remote);
+          put_tagged(slot + 8, I1[L - 1], T + 1, up_remote);
+          put_tagged(slot + 16, D1[L - 1], T + 1, up_remote);
+        }
+      } else if (above && lane == 31) {
+        unsigned long long* w = edge_out + 3 * t;
+        put_tagged_global(w, M1[L - 1], t + 1);
+        put_tagged_global(w + 1, I1[L - 1], t + 1);
+        put_tagged_global(w + 2, D1[L - 1], t + 1);
+      }
+      // the warp has read slot T - 1 (its values are in this step's cells)
+      if (--until_report == 0 || t + 1 == K) {
+        until_report = kBwdPeriod;
+        if (lane == 0 && ring_below) store_u32(down_drained, T + 1, down_remote);
+      }
+    }
   }
+  cluster.sync();  // no block leaves while another may still write into it
 }
 
-__global__ void lowmem_walk_block_kernel(const int8_t* __restrict__ trace,  // (K, B, W)
-                                         const int32_t* __restrict__ wlo,   // (B,)
-                                         int d0, int K, int W, int B,
-                                         int32_t* __restrict__ i_io,  // (B,)
-                                         int32_t* __restrict__ j_io,  // (B,)
-                                         int32_t* __restrict__ k_io,  // (B,)
-                                         int8_t* __restrict__ ops) {  // (K, B)
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+constexpr int kWalkWarps = 4;  // pairs (one a warp) per block of the walk
+
+// Word z (0..7) of the 32 bytes a, b.
+__device__ __forceinline__ uint32_t word_of(const uint4& a, const uint4& b, int z) {
+  return z == 0 ? a.x : z == 1 ? a.y : z == 2 ? a.z : z == 3 ? a.w
+       : z == 4 ? b.x : z == 5 ? b.y : z == 6 ? b.z : b.w;
+}
+
+__global__ void __launch_bounds__(32 * kWalkWarps)
+lowmem_walk_block_kernel(const int8_t* __restrict__ trace,  // (K, B, W)
+                         const int32_t* __restrict__ wlo,   // (B,)
+                         int d0, int K, int W, int B,
+                         int32_t* __restrict__ i_io,  // (B,)
+                         int32_t* __restrict__ j_io,  // (B,)
+                         int32_t* __restrict__ k_io,  // (B,)
+                         int8_t* __restrict__ ops) {  // (K, B)
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWalkWarps + threadIdx.x / 32;
+  if (b >= B) return;  // the whole warp
   int i = i_io[b], j = j_io[b], k = k_io[b];
   const int soff = wlo[b];
-  for (int t = 0; t < K; ++t) {
+  const int8_t* tb = trace + (int64_t)b * W;  // diagonal dd at + dd B W
+  const int64_t row_step = (int64_t)B * W;
+  // the tile: lane x holds the bytes of rows itop - 15 .. itop (columns
+  // c_lo + z, z = 0..15, four to a word, each clamped as the walk clamps
+  // it) on diagonal dtop - x; none is loaded yet
+  int dtop = -1, itop = -1;
+  uint32_t tile[4] = {0, 0, 0, 0};
+  int t = 0;
+  for (; t < K; ++t) {
     const int d_rel = i + j - 1 - d0;
-    if (i < 1 || j < 1 || d_rel < 0) {  // inactive: the op is 4, nothing moves
-      ops[(int64_t)t * B + b] = 4;
-      continue;
+    if (i < 1 || j < 1 || d_rel < 0) break;  // inactive from here on
+    int x = dtop - d_rel, y = itop - i;
+    if ((unsigned)x > 31u || (unsigned)y > 15u) {
+      dtop = d_rel;
+      itop = i;
+      x = y = 0;
+      const int c_lo = itop - 15 - soff;
+      const int8_t* row = tb + min(max(dtop - lane, 0), K - 1) * row_step;
+      if (c_lo >= 0 && c_lo + 15 <= W - 1) {
+        // no clamp: two aligned 16-byte loads hold the 16 bytes (the
+        // second only when they straddle; it holds a byte of the trace,
+        // so it lies inside the allocation)
+        const uintptr_t a0 = (uintptr_t)(row + c_lo);
+        const uint4* q = (const uint4*)(a0 & ~(uintptr_t)15);
+        const int off = (int)(a0 & 15);
+        const uint4 q0 = q[0];
+        const uint4 q1 = off ? q[1] : make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          tile[w] = __funnelshift_r(word_of(q0, q1, (off >> 2) + w),
+                                    word_of(q0, q1, (off >> 2) + w + 1), 8 * (off & 3));
+      } else {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          uint32_t v = 0;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int ss = min(max(c_lo + 4 * w + u, 0), W - 1);
+            v |= (uint32_t)(uint8_t)row[ss] << (8 * u);
+          }
+          tile[w] = v;
+        }
+      }
     }
-    const int dd = min(d_rel, K - 1);
-    const int ss = min(max(i - soff, 0), W - 1);
-    const int packed = trace[((int64_t)dd * B + b) * W + ss];
-    ops[(int64_t)t * B + b] = (int8_t)k;
+    const int z = 15 - y;  // the cell's byte in the tile
+    const int zw = z >> 2;
+    const uint32_t word = zw == 0 ? tile[0] : zw == 1 ? tile[1] : zw == 2 ? tile[2] : tile[3];
+    const int packed = (int)(__shfl_sync(kAllLanes, word, x) >> (8 * (z & 3))) & 0xff;
+    if (lane == 0) ops[(int64_t)t * B + b] = (int8_t)k;
     const int kn = k == 0 ? packed & 3 : k == 1 ? (packed >> 2) & 3 : (packed >> 4) & 3;
     if (k == 0 || k == 2) --i;
     if (k == 0 || k == 1) --j;
     k = kn;
   }
-  i_io[b] = i;
-  j_io[b] = j;
-  k_io[b] = k;
+  for (int u = t + lane; u < K; u += 32) ops[(int64_t)u * B + b] = 4;
+  if (lane == 0) {
+    i_io[b] = i;
+    j_io[b] = j;
+    k_io[b] = k;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -592,7 +902,6 @@ __global__ void lowmem_walk_block_kernel(const int8_t* __restrict__ trace,  // (
 // scratch above.
 
 constexpr int kStreamWarps = 4;  // pairs (one a warp) per block of affine_stream
-constexpr unsigned kAllLanes = 0xffffffffu;
 
 __global__ void __launch_bounds__(32 * kStreamWarps)
 affine_stream_kernel(const int8_t* __restrict__ alpha,    // (NP, n)
@@ -732,10 +1041,8 @@ affine_block_kernel(const int8_t* __restrict__ alpha,     // (B, n)
         }
       } else if (s >= lo && s <= hi) {
         const int row = k_off + s;
-        const int a = row <= n ? min(max((int)al[row - 1], 0), 4) : 4;
-        const int bc = be[d - s - 1];
-        const int brow = bc < 2 ? (bc == 0 ? 0 : 1) : min(bc, 4);
-        gotoh_cell(pv, s, s - 1, sc[brow * 5 + a], goe, ge, mv, iv, dv);
+        const int a = row <= n ? alpha_column(al[row - 1]) : 4;
+        gotoh_cell(pv, s, sc[beta_row(be[d - s - 1]) * 5 + a], goe, ge, mv, iv, dv);
       } else if (s == d) {  // column 0 (s <= R)
         dv = go + ge * (k_off + s);
       }
@@ -768,17 +1075,15 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// The launch of affine_fwd_block on `clusters` clusters of CL blocks, each
-// block sweeping up to chunk + 1 lanes (block 0's lane 0 included) with
-// its state in shared memory when in_smem; `attr` holds the cluster size.
-cudaLaunchConfig_t fwd_block_config(int clusters, int CL, int chunk,
-                                    bool in_smem, void* stream,
-                                    cudaLaunchAttribute* attr) {
+// A launch of `blocks` blocks in clusters of CL, with `threads` threads
+// and `smem` bytes of dynamic shared memory a block; `attr` holds the
+// cluster size.
+cudaLaunchConfig_t cluster_config(int blocks, int CL, int threads, size_t smem,
+                                  void* stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * CL);
-  cfg.blockDim = dim3(threads_for(chunk + 1, kLowmemThreads));
-  const size_t state = in_smem ? (size_t)9 * (chunk + 1) * sizeof(int32_t) : 0;
-  cfg.dynamicSmemBytes = CL > 1 && state < kOwnSmBytes ? kOwnSmBytes : state;
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = CL;
@@ -787,6 +1092,41 @@ cudaLaunchConfig_t fwd_block_config(int clusters, int CL, int chunk,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+// The launch of affine_fwd_block on `clusters` clusters of CL blocks, each
+// block sweeping up to chunk + 1 lanes (block 0's lane 0 included) with
+// its state in shared memory when in_smem.
+cudaLaunchConfig_t fwd_block_config(int clusters, int CL, int chunk,
+                                    bool in_smem, void* stream,
+                                    cudaLaunchAttribute* attr) {
+  const size_t state = in_smem ? (size_t)9 * (chunk + 1) * sizeof(int32_t) : 0;
+  return cluster_config(clusters * CL, CL, threads_for(chunk + 1, kLowmemThreads),
+                        CL > 1 && state < kOwnSmBytes ? kOwnSmBytes : state,
+                        stream, attr);
+}
+
+// affine_bwd_window at L lanes a thread, or null for an L it is not built
+// for (kBwdLanesBuilt).
+using BwdWindowKernel = decltype(&affine_bwd_window_kernel<2>);
+BwdWindowKernel bwd_window_kernel(int L) {
+  switch (L) {
+    case 2: return &affine_bwd_window_kernel<2>;
+    case 4: return &affine_bwd_window_kernel<4>;
+    case 8: return &affine_bwd_window_kernel<8>;
+    default: return nullptr;
+  }
+}
+
+// Warps (strips of 32 L lanes) a block of a cluster of CL takes for a
+// window of W lanes, at most kBwdMaxWarps, and the passes over the window
+// that CL blocks of as many warps make.
+int bwd_window_warps(int W, int CL, int L, int* passes) {
+  const int strips = (W + 32 * L - 1) / (32 * L);
+  const int per_block = (strips + CL - 1) / CL;
+  const int NW = per_block < kBwdMaxWarps ? per_block : kBwdMaxWarps;
+  *passes = (strips + CL * NW - 1) / (CL * NW);
+  return NW;
 }
 
 }  // namespace
@@ -868,19 +1208,73 @@ extern "C" int affine_fwd_block_launch(const void* alpha, const void* beta,
 }
 
 
+// What affine_bwd_window is built for, written to out (3 ints and the
+// lane counts): the most warps a block has, the largest cluster it takes,
+// the number of lane counts a thread it is built for, and those counts,
+// smallest first.
+extern "C" int affine_bwd_window_built(void* out) {
+  constexpr int built = sizeof(kBwdLanesBuilt) / sizeof(kBwdLanesBuilt[0]);
+  int* res = (int*)out;
+  res[0] = kBwdMaxWarps;
+  res[1] = kMaxCluster;
+  res[2] = built;
+  for (int x = 0; x < built; ++x) res[3 + x] = kBwdLanesBuilt[x];
+  return 0;
+}
+
+// The launch of affine_bwd_window with clusters of CL blocks for a window
+// of W lanes at L lanes a thread, written to out (six ints): the clusters
+// the card holds at once, the warps a block, the passes over the window,
+// a block's threads, its static shared memory with the dynamic shared
+// memory it asks for, and the diagonals between two progress reports.
+// Every block asks for kOwnSmBytes, so that it has an SM to itself: the
+// card would otherwise place several blocks of a cluster on one SM, which
+// then issues the instructions of all their strips.
+extern "C" int affine_bwd_window_clusters(int W, int CL, int L, void* out) {
+  const BwdWindowKernel kernel = bwd_window_kernel(L);
+  if (kernel == nullptr || CL < 1 || CL > kMaxCluster || W < 1) return (int)cudaErrorInvalidValue;
+  int passes;
+  const int NW = bwd_window_warps(W, CL, L, &passes);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, (const void*)kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, kOwnSmBytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(CL, CL, 32 * NW, kOwnSmBytes, nullptr, &attr);
+  int* res = (int*)out;
+  res[1] = NW;
+  res[2] = passes;
+  res[3] = 32 * NW;
+  res[4] = (int)(fa.sharedSizeBytes + kOwnSmBytes);
+  res[5] = kBwdPeriod;
+  return (int)cudaOccupancyMaxActiveClusters(res, (const void*)kernel, &cfg);
+}
+
+// edge: (passes - 1, B, K, 3) zeroed 64-bit words where the launch makes
+// more than one pass (affine_bwd_window_clusters), else unused.
 extern "C" int affine_bwd_window_launch(const void* alpha, const void* beta,
                                         const void* scores, int go, int ge,
                                         int B, int n, int m, int d0, int K,
-                                        int W, const void* i_cur,
-                                        const void* state_in, void* scratch,
-                                        void* wlo, void* trace, void* stream) {
-  const size_t smem = scratch ? 0 : (size_t)9 * W * sizeof(int32_t);
-  cudaError_t err = allow_smem(affine_bwd_window_kernel, smem);
+                                        int W, int CL, int L,
+                                        const void* i_cur, const void* state_in,
+                                        void* edge, void* wlo, void* trace,
+                                        void* stream) {
+  const BwdWindowKernel kernel = bwd_window_kernel(L);
+  if (kernel == nullptr || CL < 1 || CL > kMaxCluster || W < 1) return (int)cudaErrorInvalidValue;
+  int passes;
+  const int NW = bwd_window_warps(W, CL, L, &passes);
+  if (passes > 1 && edge == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, kOwnSmBytes);
   if (err != cudaSuccess) return (int)err;
-  affine_bwd_window_kernel<<<B, threads_for(W, kLowmemThreads), smem, (cudaStream_t)stream>>>(
-      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)scores, go, ge,
-      B, n, m, d0, K, W, (const int32_t*)i_cur, (const int32_t*)state_in,
-      (int32_t*)scratch, (int32_t*)wlo, (int8_t*)trace);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(B * CL, CL, 32 * NW, kOwnSmBytes, stream, &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, (const int8_t*)alpha, (const int8_t*)beta,
+      (const int32_t*)scores, go, ge, B, n, m, d0, K, W, CL, passes,
+      (const int32_t*)i_cur, (const int32_t*)state_in, (unsigned long long*)edge,
+      (int32_t*)wlo, (int8_t*)trace);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -888,8 +1282,7 @@ extern "C" int lowmem_walk_block_launch(const void* trace, const void* wlo,
                                         int d0, int K, int W, int B, void* i,
                                         void* j, void* k, void* ops,
                                         void* stream) {
-  const int threads = 128;
-  lowmem_walk_block_kernel<<<(B + threads - 1) / threads, threads, 0,
+  lowmem_walk_block_kernel<<<(B + kWalkWarps - 1) / kWalkWarps, 32 * kWalkWarps, 0,
                              (cudaStream_t)stream>>>(
       (const int8_t*)trace, (const int32_t*)wlo, d0, K, W, B, (int32_t*)i,
       (int32_t*)j, (int32_t*)k, (int8_t*)ops);

@@ -48,9 +48,11 @@ _SIGNATURES = {
                                     _int, _int, _int, _int, _int, _int, _vp,
                                     _vp, _vp, _vp, _vp],
         "affine_fwd_block_clusters": [_int, _int, _int, _vp],
+        "affine_bwd_window_built": [_vp],
+        "affine_bwd_window_clusters": [_int, _int, _int, _vp],
         "affine_bwd_window_launch": [_vp, _vp, _vp, _int, _int, _int, _int,
-                                     _int, _int, _int, _int, _vp, _vp, _vp,
-                                     _vp, _vp, _vp],
+                                     _int, _int, _int, _int, _int, _int,
+                                     _vp, _vp, _vp, _vp, _vp, _vp],
         "lowmem_walk_block_launch": [_vp, _vp, _int, _int, _int, _int, _vp,
                                      _vp, _vp, _vp, _vp],
         "affine_stream_launch": [_vp, _vp, _vp, _int, _int, _int, _int, _int,

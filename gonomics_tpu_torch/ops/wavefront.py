@@ -69,10 +69,11 @@ SMEM_STATE_BYTES_MAX = 200 * 1024
 # slots of each state, and for the graph DPs the per-lane bests (local:
 # best value, its diagonal and the corner; anchored: best and diagonal)
 _STATE_ROWS = {"affine": 9, "const": 3, "local": 6, "gsw_right": 5}
-# Cluster sizes affine_fwd_block tries, largest first (8 is the portable
+# Cluster sizes the lowmem kernels try, largest first (8 is the portable
 # maximum of a thread-block cluster), and the fewest lanes a block of a
-# cluster keeps (below it a smaller cluster takes the pair).
-FWD_CLUSTER_SIZES = (8, 7, 6, 5, 4, 3, 2, 1)
+# cluster of affine_fwd_block keeps (below it a smaller cluster takes the
+# pair).
+CLUSTER_SIZES = (8, 7, 6, 5, 4, 3, 2, 1)
 FWD_MIN_LANES = 1024
 
 affine_launches = 0
@@ -89,9 +90,8 @@ affine_block_launches = 0
 def state_in_shared_memory(n: int, mode: str) -> bool:
     """Whether the kernel for ``mode`` ("affine", "const", or the graph
     DPs "local" and "gsw_right") keeps the state of n + 1 lanes in shared
-    memory rather than a global scratch (for the lowmem kernels, n + 1 is
-    the lanes a block sweeps: a forward block's chunk + 1, the backward's
-    W)."""
+    memory rather than a global scratch (for the lowmem forward, n + 1 is
+    the lanes a block sweeps, its chunk + 1)."""
     return _STATE_ROWS[mode] * (n + 1) * 4 <= SMEM_STATE_BYTES_MAX
 
 
@@ -869,17 +869,31 @@ def fwd_block_lanes(n: int, CL: int) -> int:
     return max(1, -(-n // CL))
 
 
-def fwd_cluster_size(B: int, n: int, resident) -> int:
-    """The cluster size CL of affine_fwd_block for B pairs of n + 1 lanes:
-    the largest of FWD_CLUSTER_SIZES whose blocks keep at least
-    FWD_MIN_LANES lanes each and whose B clusters the card holds at once
-    (``resident(CL)`` of them), so that no pair waits for another; else 1.
-    More blocks a pair means fewer lanes a thread a diagonal, but clusters
-    that run in waves cost a whole sweep each."""
-    for CL in FWD_CLUSTER_SIZES[:-1]:
-        if fwd_block_lanes(n, CL) >= FWD_MIN_LANES and B <= resident(CL):
+def cluster_size(B: int, units: int, min_units: int, resident,
+                 max_units: int | None = None) -> int:
+    """The cluster size of a lowmem kernel for B pairs of ``units`` lanes
+    (or strips) each: the largest CL > 1 of CLUSTER_SIZES whose blocks
+    keep at least ``min_units`` and at most ``max_units`` each and whose B
+    clusters the card holds at once (``resident(CL)`` of them), so that
+    no pair waits for another; else the smallest CL whose blocks keep at
+    most ``max_units`` (1 without a maximum). More blocks a pair means
+    less work a block a diagonal, but clusters that run in waves cost a
+    whole sweep each."""
+    fits = [CL for CL in CLUSTER_SIZES
+            if max_units is None or -(-units // CL) <= max_units]
+    if not fits:
+        raise ValueError(f"{units} lanes or strips do not fit a cluster of "
+                         f"{CLUSTER_SIZES[0]} blocks of {max_units}")
+    for CL in fits:
+        if CL > 1 and -(-units // CL) >= min_units and B <= resident(CL):
             return CL
-    return 1
+    return fits[-1]
+
+
+def fwd_cluster_size(B: int, n: int, resident) -> int:
+    """The cluster size CL of affine_fwd_block for B pairs of n + 1 lanes
+    (``cluster_size`` with blocks of at least FWD_MIN_LANES lanes)."""
+    return cluster_size(B, n, FWD_MIN_LANES, resident)
 
 
 _fwd_configs: dict = {}
@@ -968,35 +982,137 @@ def _fwd_block_launch(alpha, beta, state, d0: int, fin: int, sc,
     return out, cap
 
 
+def bwd_lanes_per_thread(W: int, built: dict) -> int:
+    """L, the window lanes a thread of affine_bwd_window owns for a window
+    of W lanes, from what the kernel is ``built`` for (``_bwd_built``): the
+    smallest L at which its largest cluster of blocks of the most warps
+    covers W, else the largest L (the kernel then sweeps W in passes)."""
+    for L in built["lanes"]:
+        if built["max_cluster"] * built["max_warps"] * 32 * L >= W:
+            return L
+    return built["lanes"][-1]
+
+
+def bwd_cluster_size(B: int, W: int, L: int, built: dict, resident) -> int:
+    """The cluster size CL of affine_bwd_window for B windows of W lanes
+    at L lanes a thread: ``cluster_size`` over the window's strips of 32 L
+    lanes, at most ``built["max_warps"]`` a block where the largest
+    cluster holds them all (else any: the kernel makes passes), then as
+    few blocks as keep that many strips a block (no block without a
+    strip)."""
+    strips = -(-W // (32 * L))
+    cap = built["max_warps"]
+    CL = cluster_size(B, strips, 1, resident,
+                      cap if strips <= built["max_cluster"] * cap else None)
+    return -(-strips // -(-strips // CL))
+
+
+_bwd_configs: dict = {}
+
+
+def _bwd_built(device) -> dict:
+    """What affine_bwd_window is built for, as the kernel's library
+    reports it: the most warps (strips) a block has, the largest cluster
+    it takes and the lanes a thread it is built for."""
+    key = ("built", device.index)
+    if key not in _bwd_configs:
+        out = (ctypes.c_int * 16)()
+        lib = _kernels.lib("wavefront")
+        _kernels.check(lib.affine_bwd_window_built(ctypes.addressof(out)),
+                       "affine_bwd_window")
+        _bwd_configs[key] = {"max_warps": out[0], "max_cluster": out[1],
+                             "lanes": tuple(out[3:3 + out[2]])}
+    return _bwd_configs[key]
+
+
+def _bwd_config(W: int, CL: int, L: int, device) -> tuple:
+    """The card's launch of affine_bwd_window with clusters of CL blocks
+    for a window of W lanes at L lanes a thread, cached: the clusters it
+    holds at once, a block's warps, the passes over the window, a block's
+    threads and shared memory, and the diagonals between two progress
+    reports of a strip."""
+    key = (device.index, W, CL, L)
+    if key not in _bwd_configs:
+        out = (ctypes.c_int * 6)()
+        lib = _kernels.lib("wavefront")
+        with torch.cuda.device(device):
+            rc = lib.affine_bwd_window_clusters(W, CL, L,
+                                                ctypes.addressof(out))
+        _kernels.check(rc, "affine_bwd_window")
+        _bwd_configs[key] = tuple(out)
+    return _bwd_configs[key]
+
+
+def bwd_window_plan(B: int, n: int, K: int, device) -> dict:
+    """How affine_bwd_window runs B pairs of n + 1 lanes at K diagonals a
+    block on the card ``device``: the window's lanes, the lanes a thread
+    owns, the cluster size, a block's warps (strips), lanes, threads and
+    shared memory, the passes over the window, the diagonals between two
+    progress reports of a strip, the clusters the card holds at once and
+    the waves B clusters take."""
+    device = torch.device(device)
+    W = window_width(n, K)
+    built = _bwd_built(device)
+    L = bwd_lanes_per_thread(W, built)
+    CL = bwd_cluster_size(B, W, L, built,
+                          lambda c: _bwd_config(W, c, L, device)[0])
+    resident, warps, passes, threads, smem, period = _bwd_config(W, CL, L,
+                                                                 device)
+    return {"cluster": CL, "lanes_per_thread": L, "warps_per_block": warps,
+            "lanes_per_block": 32 * L * warps, "window_lanes": W,
+            "passes": passes, "threads": threads,
+            "smem_bytes_per_block": smem, "publish_period": period,
+            "resident_clusters": resident,
+            "waves": -(-B // resident) if resident else None}
+
+
 def affine_bwd_window(alpha, beta, state, d0: int, i, scores, gap_open: int,
                       gap_extend: int, K: int):
     """Windowed re-fill of one block (see ``affine_bwd_window_reference``):
     the plain version for CPU tensors, the CUDA kernel for CUDA tensors,
-    which computes each pair's window start from i on the card."""
-    global affine_bwd_window_launches
+    which computes each pair's window start from i on the card, one
+    thread-block cluster a pair as ``bwd_window_plan`` gives it."""
     if alpha.device.type == "cpu":
         return affine_bwd_window_reference(alpha, beta, state, d0, i, scores,
                                            gap_open, gap_extend, K)
     alpha, beta, state, sc = _lowmem_inputs(alpha, beta, state, scores)
     B, n = alpha.shape
-    m = beta.shape[1]
     dev = alpha.device
     i = expect(as_vec(i, B, dev), torch.int32, (B,), "i", dev)
+    # no pair: nothing is launched, the plan does not matter
+    plan = bwd_window_plan(B, n, K, dev) if B else {
+        "cluster": 1, "lanes_per_thread": 0}
+    return _bwd_window_launch(alpha, beta, state, d0, i, sc, gap_open,
+                              gap_extend, K, plan["cluster"],
+                              plan["lanes_per_thread"])
+
+
+def _bwd_window_launch(alpha, beta, state, d0: int, i, sc, gap_open: int,
+                       gap_extend: int, K: int, CL: int, L: int):
+    """Launch affine_bwd_window on checked CUDA inputs with clusters of CL
+    blocks at L lanes a thread (``affine_bwd_window`` picks CL and L, the
+    card tests and tools/lowmem_timing.py force them)."""
+    global affine_bwd_window_launches
+    B, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
     W = window_width(n, K)
     trace = torch.empty((K, B, W), dtype=torch.int8, device=dev)
     wlo = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return trace, wlo
-    scratch = (None if state_in_shared_memory(W - 1, "affine") else
-               torch.empty((B, 9 * W), dtype=torch.int32, device=dev))
+    passes = _bwd_config(W, CL, L, dev)[2]
+    # the edge between passes: tagged words, zero so that no tag is stale
+    edge = (torch.zeros((passes - 1, B, K, 3), dtype=torch.int64, device=dev)
+            if passes > 1 else None)
     lib = _kernels.lib("wavefront")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.affine_bwd_window_launch(
             alpha.data_ptr(), beta.data_ptr(), sc.data_ptr(), int(gap_open),
-            int(gap_extend), B, n, m, int(d0), int(K), W, i.data_ptr(),
-            state.data_ptr(), _ptr(scratch), wlo.data_ptr(), trace.data_ptr(),
-            stream)
+            int(gap_extend), B, n, m, int(d0), int(K), W, int(CL), int(L),
+            i.data_ptr(), state.data_ptr(), _ptr(edge), wlo.data_ptr(),
+            trace.data_ptr(), stream)
     _kernels.check(rc, "affine_bwd_window")
     affine_bwd_window_launches += 1
     return trace, wlo
@@ -1004,8 +1120,9 @@ def affine_bwd_window(alpha, beta, state, d0: int, i, scores, gap_open: int,
 
 def lowmem_walk_block(trace, wlo, d0: int, i, j, k):
     """One block's traceback (see ``lowmem_walk_block_reference``): the
-    plain version for CPU tensors, the CUDA kernel (one thread a pair)
-    for CUDA tensors. i, j, k are updated in place."""
+    plain version for CPU tensors, the CUDA kernel (one warp a pair,
+    walking a tile of the trace at a time) for CUDA tensors. i, j, k are
+    updated in place."""
     global lowmem_walk_launches
     if trace.device.type == "cpu":
         return lowmem_walk_block_reference(trace, wlo, d0, i, j, k)

@@ -322,8 +322,8 @@ def _lowmem_pairs(B: int, n: int, m: int, seed: int):
 
 # (B, n, m, K, scoring): the window moving and clipped (W = 768 < S), n = 1,
 # m = 1, a single block, and K = 4096 with n = 9000, where the backward
-# window's state (W = 8832) is above the shared-memory limit (global
-# scratch) and the forward splits the 9001 lanes over a cluster
+# window (W = 8832) needs 4 lanes a thread over a cluster of 8 and the
+# forward splits the 9001 lanes over a cluster
 _LOWMEM_CASES = [(3, 900, 300, 8, "humanChimp"), (2, 1, 40, 16, "humanChimp"),
                  (2, 40, 1, 16, "plusMinusOne"), (3, 50, 30, 128, "humanChimp"),
                  (2, 9000, 300, 4096, "humanChimp")]
@@ -438,24 +438,156 @@ def test_fwd_block_cluster_edges(card, B, n, m, K, CL):
     assert int(want[1][0, :, n].max()) > -(1 << 30)  # fin was captured
 
 
+# (B, n, m, K, CL, L): affine_bwd_window with clusters of CL blocks at L
+# lanes a thread forced, on every block of a backward: a moving window of
+# 768 lanes (n = 900, K = 8) that starts clipped at S - W and reaches 0,
+# at CL = 1, 2 and 8 (the largest the card allows; 12 strips of 64 lanes,
+# 2 a block, the last two blocks without one) and at 4 and 8 lanes a
+# thread; a window of 701 lanes (W = S, n = 700, K = 256), not a multiple
+# of a strip; n = 40 (W = S = 41, one strip) at CL = 1 and at CL = 2,
+# whose second block has no strip; m = 1; the 100 kb pair's K = 4096 at W
+# = 8,832 lanes (n = 9,000) at CL = 8 and 4 lanes a thread, and at CL = 3
+# and 8 lanes a thread (12 strips a block); with B = None, more pairs
+# than the card holds clusters of 8 at once (the clusters run in waves);
+# windows the blocks sweep in passes, the edge between two passes in
+# global memory: bench.py's 2,688 lanes (K = 1024) at CL = 1 (42 strips,
+# 16 a block, 3 passes) and at CL = 2 (2 passes, the second block without
+# a strip in the last), and a window of 33,408 lanes (K = 16,384, n =
+# 34,000), wider than 8 blocks of 16 strips of 8 lanes cover, at the plan
+_BWD_CLUSTER_CASES = [(3, 900, 300, 8, 1, 2), (3, 900, 300, 8, 2, 2),
+                      (3, 900, 300, 8, 8, 2), (3, 900, 300, 8, 2, 4),
+                      (2, 900, 300, 8, 1, 8), (3, 700, 90, 256, 3, 2),
+                      (2, 40, 300, 16, 1, 2), (2, 40, 300, 16, 2, 2),
+                      (2, 50, 1, 16, 1, 2), (1, 9000, 300, 4096, 8, 4),
+                      (1, 9000, 300, 4096, 3, 8), (None, 900, 300, 64, 8, 2),
+                      (2, 3000, 300, 1024, 1, 2), (2, 3000, 300, 1024, 2, 2),
+                      (1, 34000, 300, 16384, None, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m,K,CL,L", _BWD_CLUSTER_CASES)
+def test_bwd_window_cluster_edges(card, B, n, m, K, CL, L):
+    """affine_bwd_window at forced cluster sizes and lanes a thread on
+    every block of a backward, from the forward's checkpoints and the
+    walk's rows: every byte of the trace and every window start exactly
+    equal to the plain version's."""
+    W = wavefront.window_width(n, K)
+    if CL is None:
+        plan = wavefront.bwd_window_plan(B, n, K, card)
+        CL, L = plan["cluster"], plan["lanes_per_thread"]
+        assert plan["passes"] > 1
+    resident = wavefront._bwd_config(W, CL, L, card)[0]
+    if B is None:
+        B = resident + 3
+    assert B <= resident or B == resident + 3
+    alpha, beta = (torch.from_numpy(x).to(card)
+                   for x in _lowmem_pairs(B, n, m, B + n))
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
+    ck, cap = wavefront.lowmem_forward(alpha, beta, sc, -600, -150, K)
+    k = wavefront._argmax3(*cap[:, :, n]).to(torch.int32)
+    i = torch.full((B,), n, dtype=torch.int32, device=card)
+    j = torch.full((B,), m, dtype=torch.int32, device=card)
+    starts = set()
+    before = wavefront.affine_bwd_window_launches
+    nb = ck.shape[0]
+    for blk in reversed(range(nb)):
+        d0 = blk * K
+        got = wavefront._bwd_window_launch(alpha, beta, ck[blk], d0, i, sc,
+                                           -600, -150, K, CL, L)
+        want = wavefront.affine_bwd_window_reference(alpha, beta, ck[blk], d0,
+                                                     i, sc, -600, -150, K)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), blk
+        assert torch.equal(got[0], want[0]), blk
+        starts.update(want[1].tolist())
+        wavefront.lowmem_walk_block_reference(*want, d0, i, j, k)
+    assert wavefront.affine_bwd_window_launches == before + nb
+    assert bool(((i == 0) | (j == 0)).all())
+    if W < n + 1:
+        assert {0, n + 1 - W} <= starts  # clipped at S - W, and at 0
+
+
+@pytest.mark.cuda
+def test_bwd_window_repeats(card):
+    """The main path's plan on 16 pairs of 3,000 x 3,000 at K = 1024
+    (W = 2,688, the full-width window), 200 launches of one block: the
+    strips' rings and counters are reused each launch, and every launch
+    must give the same trace."""
+    B, n, K = 16, 3000, 1024
+    alpha, beta = (torch.from_numpy(x).to(card)
+                   for x in _lowmem_pairs(B, n, n, 7))
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
+    ck, _ = wavefront.lowmem_forward(alpha, beta, sc, -600, -150, K)
+    d0 = 2 * K
+    i = torch.full((B,), n, dtype=torch.int32, device=card)
+    i -= torch.arange(B, dtype=torch.int32, device=card) * 37
+    want = wavefront.affine_bwd_window_reference(alpha, beta, ck[2], d0, i,
+                                                 sc, -600, -150, K)
+    plan = wavefront.bwd_window_plan(B, n, K, card)
+    assert plan["window_lanes"] == 2688 and plan["cluster"] > 1
+    for _ in range(200):
+        got = wavefront.affine_bwd_window(alpha, beta, ck[2], d0, i, sc, -600,
+                                          -150, K)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _walk_cases(rng):
+    """(trace, wlo, d0, i, j, k) cases for the walk: random codes (the
+    unknown state 3 included) from cells on the block, before it and on
+    row 0 or column 0; then B = 301 walks (not a multiple of the warps a
+    block) that start at the clamps (i below wlo, i past wlo + W - 1, the
+    diagonal above K - 1), on row 0 or column 0, in state 3, or a few
+    diagonals above the block's start (they leave it early), over random
+    codes and over codes that move by M, I or D only (tiles left by the
+    diagonal, by the row, or by both)."""
+    K, B, W, d0 = 64, 300, 200, 1000
+    trace = rng.integers(0, 64, (K, B, W)).astype(np.int8)
+    wlo = rng.integers(0, 900, B).astype(np.int32)
+    i = rng.integers(0, 1000, B).astype(np.int32)
+    j = (d0 + rng.integers(-3, K + 1, B) - i).astype(np.int32)
+    k = rng.integers(0, 4, B).astype(np.int32)
+    yield trace, wlo, d0, i, j, k
+    K, B, W, d0 = 96, 301, 160, 500
+    wlo = rng.integers(0, 400, B).astype(np.int32)
+    kind = np.arange(B) % 6
+    i = np.where(kind == 0, wlo - rng.integers(1, 40, B),       # ss < 0
+        np.where(kind == 1, wlo + W + rng.integers(0, 40, B),   # ss > W - 1
+                 wlo + rng.integers(0, W, B))).astype(np.int32)
+    i = np.maximum(i, 1)
+    d_rel = np.where(kind == 2, K + rng.integers(0, 20, B),     # d above K - 1
+            np.where(kind == 3, rng.integers(0, 6, B),          # leaves early
+                     rng.integers(0, K, B)))
+    j = (d0 + 1 + d_rel - i).astype(np.int32)
+    i[kind == 4] = np.where(rng.random(int((kind == 4).sum())) < 0.5, 0,
+                            i[kind == 4])                       # row 0
+    j[kind == 4] = np.where(i[kind == 4] == 0, j[kind == 4], 0)  # or col 0
+    k = np.where(kind == 5, 3, rng.integers(0, 3, B)).astype(np.int32)
+    for code in (None, 0, 1, 2):
+        if code is None:
+            trace = rng.integers(0, 64, (K, B, W)).astype(np.int8)
+        else:  # every state's predecessor is `code`
+            trace = np.full((K, B, W), code * 21, np.int8)
+        yield trace, wlo, d0, i.copy(), j.copy(), k.copy()
+
+
 @pytest.mark.cuda
 def test_lowmem_walk_on_random_traces(card):
-    """The walk over random codes (unknown state 3 included) from cells on
-    the block, before it and on row 0 or column 0."""
-    rng = np.random.default_rng(5)
-    K, B, W, d0 = 64, 300, 200, 1000
-    trace = torch.from_numpy(rng.integers(0, 64, (K, B, W)).astype(np.int8))
-    wlo = torch.from_numpy(rng.integers(0, 900, B).astype(np.int32))
-    i = torch.from_numpy(rng.integers(0, 1000, B).astype(np.int32))
-    j = (d0 + torch.from_numpy(rng.integers(-3, K + 1, B).astype(np.int32))
-         - i)
-    k = torch.from_numpy(rng.integers(0, 4, B).astype(np.int32))
-    got = [x.to(card) for x in (i, j, k)]
-    ops = wavefront.lowmem_walk_block(trace.to(card), wlo.to(card), d0, *got)
-    want_ops = wavefront.lowmem_walk_block_reference(trace, wlo, d0, i, j, k)
-    assert torch.equal(ops.cpu(), want_ops)
-    for g, w in zip(got, (i, j, k)):
-        assert torch.equal(g.cpu(), w)
+    """The tile walk against the plain walk, exactly: ops and the walk's
+    end (i, j, k), for each of ``_walk_cases``."""
+    for case, (trace, wlo, d0, i, j, k) in enumerate(
+            _walk_cases(np.random.default_rng(5))):
+        trace, wlo, i, j, k = (torch.from_numpy(x)
+                               for x in (trace, wlo, i, j, k))
+        got = [x.to(card) for x in (i, j, k)]
+        before = wavefront.lowmem_walk_launches
+        ops = wavefront.lowmem_walk_block(trace.to(card), wlo.to(card), d0,
+                                          *got)
+        assert wavefront.lowmem_walk_launches == before + 1
+        want_ops = wavefront.lowmem_walk_block_reference(trace, wlo, d0, i, j,
+                                                         k)
+        assert torch.equal(ops.cpu(), want_ops), case
+        for g, w in zip(got, (i, j, k)):
+            assert torch.equal(g.cpu(), w), case
 
 
 @pytest.mark.cuda

@@ -150,6 +150,45 @@ def test_fwd_cluster_size(B, n, resident, CL):
         n * 9 * 4 // CL < port_wf.SMEM_STATE_BYTES_MAX)
 
 
+# What affine_bwd_window's library reports it is built for
+# (``_bwd_built`` on the card, given here).
+_BWD_BUILT = {"max_warps": 16, "max_cluster": 8, "lanes": (2, 4, 8)}
+
+
+# (B, W, clusters the card holds at once at CL = 8 / 7 / fewer, L, CL):
+# bench.py's 16 windows of 2,688 lanes (K = 1024) when 16 clusters of 8
+# fit (8 blocks of 6 strips would leave the last without one: 7 of 6) and
+# when only 15 do; the 100 kb pair's 8,832 lanes (K = 4096), which need 4
+# lanes a thread to fit 8 blocks of 16 strips; a window of 41 lanes (n =
+# 40), one strip; more pairs than the card holds clusters of any size
+# (the smallest that fits 16 strips a block, in waves); and windows too
+# wide for 8 blocks even at 8 lanes a thread (K = 16,384: the kernel
+# sweeps them in passes, at the largest cluster the card holds at once,
+# or at one block a pair in waves)
+@pytest.mark.parametrize("B,W,resident,L,CL", [
+    (16, 2688, (30, 30, 30), 2, 7), (16, 2688, (15, 20, 20), 2, 7),
+    (16, 2688, (15, 15, 20), 2, 6), (1, 8832, (15, 17, 20), 4, 8),
+    (3, 41, (15, 17, 20), 2, 1), (200, 2688, (15, 17, 66), 2, 3),
+    (16, 40_000, (15, 17, 20), 8, 7), (1, 33_408, (15, 17, 20), 8, 8),
+    (200, 40_000, (15, 17, 66), 8, 1)])
+def test_bwd_cluster_size(B, W, resident, L, CL):
+    """affine_bwd_window's lanes a thread and cluster size from the pair
+    count, the window, what the kernel is built for and the clusters the
+    card holds (queries on the card, given here)."""
+    def held(c):
+        return resident[0] if c == 8 else resident[1] if c == 7 else resident[2]
+
+    assert port_wf.bwd_lanes_per_thread(W, _BWD_BUILT) == L
+    assert port_wf.bwd_cluster_size(B, W, L, _BWD_BUILT, held) == CL
+    strips = -(-W // (32 * L))
+    warps = -(-strips // CL)
+    assert (CL - 1) * warps < strips  # every block has a strip
+    one_pass = strips <= 8 * 16
+    assert (warps <= 16) == one_pass
+    if one_pass:
+        assert L == min(x for x in (2, 4, 8) if 8 * 16 * 32 * x >= W)
+
+
 @pytest.mark.parametrize("scoring", list(SCORINGS))
 def test_backward_window_matches_jax(scoring):
     """K7 on a window with wlo > 0 (and one pair at wlo = 0): every
