@@ -41,9 +41,12 @@ exits non-zero:
 9. graph_kernels: 2048 left and 2048 right jobs of the graph phase's
             warm-up waves through local_wavefront, gsw_right_wavefront and
             gsw_walk_pack, each held against its plain PyTorch version on
-            the card (exact equality) and timed; plus local_wavefront and
-            gsw_right_wavefront on 2 jobs of a 10,300-base window (state
-            in a global scratch), exact and timed.
+            the card (exact equality) and timed, with each DP's launch
+            plan (graph_dp_plan: one warp a job) and two bounds, the
+            contract's whole trace and each job's own cells; plus both
+            DPs on 2 jobs of a 10,300-base window (the warp design) and on
+            16 jobs of 600-base read parts (past its reach: the block
+            design), each checked to take that plan, exact and timed.
 10. graph_cli: the port's `gsw align` on a 1 Mbp .gg, giraf and SAM, single
             and paired, byte-equal to --device cpu.
 11. lowmem_kernels: affine_fwd_block, affine_bwd_window and
@@ -157,9 +160,13 @@ CONST_OPS_PER_CELL = {"score": 2 + 1 + 2, "trace": 2 + 1 + 2 + 1 + 4}
 # of a 50 Mbp chromosome (the size of human chr22); the CLI phase on 1 Mbp.
 GRAPH_BP, GRAPH_BATCH, GRAPH_BATCHES, GRAPH_JOBS = 50_000_000, 2048, 4, 2048
 GRAPH_CLI_BP = 1_000_000
-# the graph kernels above their old shared-memory limits (8,532 bases for
-# K4, 10,239 for K5): 2 jobs of a 10,300-base window and a 32-base part
+# a wide genome window, above the block design's shared-memory limits
+# (8,532 bases for K4, 10,239 for K5): 2 jobs of a 10,300-base window and
+# a 32-base part
 GRAPH_WIDE_N, GRAPH_WIDE_M, GRAPH_WIDE_C = 10_300, 32, 2
+# read parts past the graph DPs' warp design (m + 1 > 512 slots): the
+# block design, 16 jobs of an 800-base window and 600-base read parts
+GRAPH_BLOCK_N, GRAPH_BLOCK_M, GRAPH_BLOCK_C = 800, 600, 16
 # int32 operations the graph DPs need per cell (i, j) of a job's own
 # n_b x m_b grid, not those of one implementation. LeftDynamicAln:
 # substitution address and table load (2), diag = c(i-1, j-1) + sub (1),
@@ -168,10 +175,12 @@ GRAPH_WIDE_N, GRAPH_WIDE_M, GRAPH_WIDE_C = 10_300, 32, 2
 # (2), their argmax in tie order (2 compares, 2 selects: 4), code 3 where
 # c == 0 (1), the lane's best value and its diagonal (a DPX max with
 # predicate and a select: 2). RightDynamicAln: the same without the clamp
-# and the code 3 (13); its row 0 and column 0 are gap * d, one operation
-# a cell.
-LOCAL_OPS_PER_CELL = 2 + 1 + 2 + 2 + 4 + 1 + 2
-RIGHT_OPS_PER_CELL = 2 + 1 + 2 + 2 + 4 + 2
+# and the code 3 (13); the cells of its padded rectangle outside the
+# job's own grid need all but the best (11); its row 0 and column 0 are
+# gap * d, one operation a cell.
+BEST_OPS_PER_CELL = 2
+LOCAL_OPS_PER_CELL = 2 + 1 + 2 + 2 + 4 + 1 + BEST_OPS_PER_CELL
+RIGHT_OPS_PER_CELL = 2 + 1 + 2 + 2 + 4 + BEST_OPS_PER_CELL
 # per walk step: trace address, load, stop test, i and j updates, pack
 # shift and or; the right side's end is a first-max over the job's lanes
 # (a compare and a select a lane)
@@ -1152,18 +1161,31 @@ def stack_jobs(waves: list, side: int, count: int, dims: list):
 
 def graph_dp_bound(kind: str, nv: np.ndarray, mv: np.ndarray, n: int,
                    m: int) -> dict:
-    """Least time of one graph DP call: inputs read once and outputs
-    written once (the trace as each job's own n_b x m_b cells) at the
-    memory rate, the operations each job's own cells need at the int32
-    rate."""
+    """Least time of one graph DP call. bytes: the inputs read once and
+    the outputs written once, the trace whole as the contract has it (C
+    (n+m) S bytes, most of them its constant), at the memory rate;
+    operations: the cells whose values the contract needs at the int32
+    rate (K4 each job's own n_b x m_b cells; K5 its padded rectangle, n x m
+    interior cells and n + m edge cells a job, since the trace there is
+    part of the contract, with the row's best updated on the job's own
+    cells only). The job-cells figure (the trace as each job's own cells,
+    the operations of those cells) is what a DP fused with its walk could
+    reach."""
     C = len(nv)
     cells = int((nv.astype(np.int64) * mv).sum())
     rows = 3 if kind == "local" else 2   # bv, bd (and corner)
-    nbytes = C * (n + m) + 8 * C + 100 + rows * 4 * C * (n + 1) + cells
-    ops = (LOCAL_OPS_PER_CELL * cells if kind == "local" else
-           RIGHT_OPS_PER_CELL * cells + int((nv + mv).sum()))
-    return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-            "operations": ops / INT32_OPS_PER_S * 1e3, "cells": cells}
+    inputs = C * (n + m) + 8 * C + 100 + rows * 4 * C * (n + 1)
+    nbytes = inputs + C * (n + m) * (n + 1)
+    job_ops = (LOCAL_OPS_PER_CELL * cells if kind == "local" else
+               RIGHT_OPS_PER_CELL * cells + int((nv + mv).sum()))
+    ops = (job_ops if kind == "local" else
+           C * ((RIGHT_OPS_PER_CELL - BEST_OPS_PER_CELL) * n * m + n + m)
+           + BEST_OPS_PER_CELL * cells)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return {"bytes": t_bytes, "operations": t_ops, "cells": cells,
+            "bound_job_cells_ms": max((inputs + cells) / HBM_BYTES_PER_S,
+                                      job_ops / INT32_OPS_PER_S) * 1e3}
 
 
 def walk_bound(left_rows, right_rows, D_l: int, D_r: int, S_r: int) -> dict:
@@ -1200,6 +1222,21 @@ def wide_window_jobs(left: bool, dev):
     be[:, m // 2] = (be[:, m // 2] + 1) % 4
     nv = np.array([n, n - 700], np.int32)
     mv = np.array([m, m - 2], np.int32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (al, be, nv, mv))
+
+
+def block_design_jobs(left: bool, dev):
+    """GRAPH_BLOCK_C jobs of a GRAPH_BLOCK_N-base window and read parts of
+    GRAPH_BLOCK_M bases, past the warp design's reach: read parts copied
+    from the window's end (left jobs) or start (right jobs) with a SNP
+    every 50 bases, every other job shorter on both sides."""
+    n, m, C = GRAPH_BLOCK_N, GRAPH_BLOCK_M, GRAPH_BLOCK_C
+    rng = np.random.default_rng(43)
+    al = rng.integers(0, 4, (C, n)).astype(np.int8)
+    be = np.ascontiguousarray(al[:, -m:] if left else al[:, :m])
+    be[:, 25::50] = (be[:, 25::50] + 1) % 4
+    nv = np.where(np.arange(C) % 2, n - 100, n).astype(np.int32)
+    mv = np.where(np.arange(C) % 2, m - 40, m).astype(np.int32)
     return tuple(torch.from_numpy(x).to(dev) for x in (al, be, nv, mv))
 
 
@@ -1261,29 +1298,52 @@ def phase_graph_kernels(dev: torch.device, waves: list,
         "gsw_walk_pack": "gonomics_tpu/ops/gsw_dp.py:30-157 (_walk_left, "
                          "_walk_right, _left_full, _right_full, "
                          "_pack_result: jnp glue)"}
-    # K4 and K5 above their old shared-memory limits: the global scratch
-    wide, ok = {}, True
-    for name, kind in (("local_wavefront", "local"),
-                       ("gsw_right_wavefront", "gsw_right")):
-        jobs = wide_window_jobs(kind == "local", dev)
-        if kind == "local":
-            kernel = lambda: wavefront.local_wavefront(  # noqa: E731
-                *jobs, sc, GAP, True)
-            plain = lambda: wavefront.local_wavefront_reference(  # noqa: E731
-                *jobs, sc, GAP, True)
-        else:
-            kernel = lambda: wavefront.gsw_right_wavefront(  # noqa: E731
-                *jobs, sc, GAP)
-            plain = lambda: wavefront.gsw_right_wavefront_reference(  # noqa: E731
-                *jobs, sc, GAP)
-        want, plain_ms = once_ms(plain)
-        equal, err = equal_err(kernel(), want)
-        in_smem = wavefront.state_in_shared_memory(GRAPH_WIDE_N, kind)
-        ok &= equal and not in_smem and int(want[0].max()) > 0
-        wide[name] = {"jobs": GRAPH_WIDE_C, "n": GRAPH_WIDE_N,
-                      "m": GRAPH_WIDE_M, "state_in_shared_memory": in_smem,
-                      "equal_to_plain": equal, "max_abs_err": err,
-                      "ms": median_ms(kernel, runs=5), "plain_ms": plain_ms}
+    # K4 and K5 on the main path's jobs at their plans, then on 2 jobs of
+    # a 10,300-base window (the warp design, the trace filled first) and
+    # on jobs whose read part is past the warp design's reach (the block
+    # design, a barrier a diagonal), each with the plan it should take
+    plans = {"local_wavefront": wavefront.graph_dp_plan(len(nv_l), n_l, m_l,
+                                                        "local"),
+             "gsw_right_wavefront": wavefront.graph_dp_plan(
+                 len(nv_r), n_r, m_r, "gsw_right")}
+    ok = all(p["design"] == "warp" for p in plans.values())
+    extra = {"wide_window": {}, "block_design": {}}
+    # the job-cells bounds go to this phase's line only: the kernels line
+    # keeps bound_ms as each kernel's one bound
+    job_cells = {}
+    for case, make, design in (("wide_window", wide_window_jobs, "warp"),
+                               ("block_design", block_design_jobs,
+                                "block")):
+        for name, kind in (("local_wavefront", "local"),
+                           ("gsw_right_wavefront", "gsw_right")):
+            jobs = make(kind == "local", dev)
+            if kind == "local":
+                kernel = lambda: wavefront.local_wavefront(  # noqa: E731
+                    *jobs, sc, GAP, True)
+                plain = lambda: wavefront.local_wavefront_reference(  # noqa: E731
+                    *jobs, sc, GAP, True)
+            else:
+                kernel = lambda: wavefront.gsw_right_wavefront(  # noqa: E731
+                    *jobs, sc, GAP)
+                plain = lambda: wavefront.gsw_right_wavefront_reference(  # noqa: E731
+                    *jobs, sc, GAP)
+            C, n = jobs[0].shape
+            m = jobs[1].shape[1]
+            plan = wavefront.graph_dp_plan(C, n, m, kind)
+            want, plain_ms = once_ms(plain)
+            equal, err = equal_err(kernel(), want)
+            ok &= (equal and plan["design"] == design
+                   and int(want[0].max()) > 0)
+            bound = graph_dp_bound(kind, jobs[2].cpu().numpy(),
+                                   jobs[3].cpu().numpy(), n, m)
+            by = ("bytes" if bound["bytes"] > bound["operations"]
+                  else "operations")
+            extra[case][name] = {
+                "jobs": C, "n": n, "m": m, "plan": plan,
+                "equal_to_plain": equal, "max_abs_err": err,
+                "ms": median_ms(kernel, runs=5), "plain_ms": plain_ms,
+                "bound_ms": bound[by], "bound_by": by}
+            job_cells[(case, name)] = bound["bound_job_cells_ms"]
     rows = []
     for name, (kernel, plain, bound) in cases.items():
         equal, err = equal_err(kernel(), plain())
@@ -1302,16 +1362,25 @@ def phase_graph_kernels(dev: torch.device, waves: list,
                       f"{len(nv_r)} right jobs at ({n_r}, {m_r})"
                       + (": both walks" if name == "gsw_walk_pack" else "")),
             **{k: v for k, v in bound.items()
-               if k not in ("bytes", "operations")}})
-        if name in wide:
-            rows[-1]["wide_window"] = wide[name]
+               if k not in ("bytes", "operations", "bound_job_cells_ms")}})
+        if "bound_job_cells_ms" in bound:
+            job_cells[("main", name)] = bound["bound_job_cells_ms"]
+        if name in plans:
+            rows[-1]["plan"] = plans[name]
+            for case in extra:
+                rows[-1][case] = extra[case][name]
     emit({"phase": "graph_kernels", "tolerance": "exact",
-          "kernels": [{k: r[k] for k in ("name", "equal_to_plain",
-                                         "max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by", "shape")}
-                      for r in rows], "wide_window": wide})
+          "kernels": [{**{k: r.get(k) for k in (
+              "name", "equal_to_plain", "max_abs_err", "ms", "plain_ms",
+              "bound_ms", "bound_by", "plan", "shape")},
+              "bound_job_cells_ms": job_cells.get(("main", r["name"]))}
+              for r in rows],
+          **{case: {name: {**v, "bound_job_cells_ms": job_cells[(case, name)]}
+                    for name, v in by_name.items()}
+             for case, by_name in extra.items()}})
     if not ok:
-        raise SystemExit("a graph kernel disagrees with its plain version")
+        raise SystemExit("a graph kernel disagrees with its plain version "
+                         "or did not take its plan")
     return rows
 
 

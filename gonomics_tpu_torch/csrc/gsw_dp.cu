@@ -14,30 +14,37 @@
 // Cell (i, j) of a job lies on diagonal d = i + j at lane s = i (i walks
 // the genome window alpha, j the read part beta); results are (C, S)
 // int32 and the trace (n+m, C, S) int8, row d-1 holding diagonal d, for
-// S = n + 1 lanes. One block runs one job: the n+m diagonals in a loop
-// with a barrier between them, the block's threads striding over the S
-// lanes. Three diagonal slots (d, d-1, d-2) and not the TPU kernels' two:
-// a TPU step reads a whole slot before it overwrites it, but in a block
-// thread s reads lane s-1 of the slot that thread s-1 writes. With three,
-// one barrier per diagonal orders every read before the next overwrite.
-// The state and the per-lane bests (6 rows of S int32 for the local DP,
-// 5 for the anchored one) live in shared memory when they fit the
-// wrapper's 200 KB (n <= 8532 local, n <= 10239 anchored), else in the
-// job's part of a (C, rows x S) global scratch that stays in L1/L2; the
-// wrapper picks (ops/wavefront.py state_in_shared_memory) and passes a
-// null scratch for shared memory. Each lane's best value, its diagonal
-// and the corner capture are touched only by the thread that owns the
-// lane.
+// S = n + 1 lanes. Two designs, picked by shape in the wrapper
+// (ops/wavefront.py graph_dp_design):
 //
-// What bounds them on the card: integer operations. A job's cells number
-// n_b x m_b (at most ~192 x 192 for 150 bp reads) at ~10 int32 operations
-// each; a wave of 2048 jobs a side is ~0.7 G operations (~0.09 ms at the
-// int32 rate) against ~150 MB of trace (~0.045 ms at 3.35 TB/s). This
-// design runs every cell of the padded grid and pays a barrier a
-// diagonal; making it fast (a warp per job, the trace kept on chip for
-// the walk) is later work. The TPU kernels' beta window, five profiles
-// and 128-lane S are TPU mechanisms and are not carried over: the score
-// is scores[row(beta code), clip(alpha code)], the profile's orientation
+// - The warp design (gsw_warp_kernel), wherever a job's m + 1 read-part
+//   slots fit 32 L for an L it is built for (m <= 511): one warp a job,
+//   its state along the read part in registers, no block barrier (see
+//   the note above the kernel). The graph path's jobs always take it.
+// - The block design (gsw_wavefront_kernel), for longer read parts: one
+//   block a job, the n+m diagonals in a loop with a barrier between
+//   them, the block's threads striding over the S lanes. Three diagonal
+//   slots (d, d-1, d-2) and not the TPU kernels' two: a TPU step reads a
+//   whole slot before it overwrites it, but in a block thread s reads
+//   lane s-1 of the slot that thread s-1 writes. With three, one barrier
+//   per diagonal orders every read before the next overwrite. The state
+//   and the per-lane bests (6 rows of S int32 for the local DP, 5 for the
+//   anchored one) live in shared memory when they fit the wrapper's 200
+//   KB (n <= 8532 local, n <= 10239 anchored), else in the job's part of
+//   a (C, rows x S) global scratch that stays in L1/L2; the wrapper picks
+//   (state_in_shared_memory) and passes a null scratch for shared memory.
+//
+// What bounds them on the card: the trace's bytes and the cells' integer
+// operations. At the graph path's wave (2048 jobs a side at (n, m) =
+// (192, 128)) the contract writes C (n+m) S = 126 MB of trace a side
+// (~0.038 ms at 3.35 TB/s), most of it the constant outside the cells;
+// K5's padded rectangle is 51 M cells (~0.04 ms of int32 operations),
+// K4's own grids ~3 M. The warp design runs only those cells, but one
+// warp's diagonal step is a chain of ~30-40 instructions a cell, so it
+// is bound by that latency and the issue rate of the ~16 warps an SM
+// (PERF.md). The TPU kernels' beta window, five profiles and 128-lane S
+// are TPU mechanisms and are not carried over: the score is
+// scores[row(beta code), clip(alpha code)], the profile's orientation
 // (_select_score :85, _build_inputs :393).
 //
 // The walk is one warp per job: the warp finds the right side's first
@@ -178,6 +185,229 @@ gsw_wavefront_kernel(const int8_t* __restrict__ alpha,   // (C, n)
   }
 }
 
+// The warp design: one warp a job, no block barrier. The state runs
+// along the read part j (the short side on the graph path), not the
+// window lane s: lane l holds the R contiguous slots j = l R + r, and
+// slot j holds cell (d - j, j) of diagonal d, its values of d-1 and d-2
+// in registers. Cell (i, j) reads diag from slot j-1 at d-2, left from
+// slot j-1 at d-1 and up from slot j at d-1: within a lane all but its
+// first slot read their own registers, and a diagonal exchanges only the
+// lane's edge by __shfl_up_sync. A row i of the grid enters slot 0 on
+// diagonal i and moves one slot a diagonal; its clipped alpha code,
+// running best value and that value's diagonal (strict >, so the
+// smallest d of a tie) move with it, and the lane holding slot m_b stores
+// them at lane i, the row's last own column. Slot 0 takes a fresh row's
+// alpha code from a register chunk of 32 codes loaded 32 diagonals ahead.
+// The beta code of a slot is fixed: its score row offset stays in a
+// register. K5 sweeps the padded rectangle [0, n] x [0, m] over all n+m
+// diagonals with R = L (the kernel's template, 32 L >= m + 1); K4 only
+// diagonals 1..n_b+m_b with R = m_b / 32 + 1, the slots of the job's own
+// grid. The launch fills the trace with its constant (3 for K4, 0 for
+// K5) at the card's write rate first (cudaMemsetAsync on the stream), and
+// the slots write only their cells: the warps writing every byte of their
+// jobs' rows themselves was slower at every shape measured (PERF.md).
+constexpr int kWarpJobs = 4;  // jobs (warps) a block
+constexpr unsigned kFull = 0xffffffffu;
+
+// What one warp knows of its job.
+struct WarpJob {
+  const int8_t* al;  // the job's alpha row (n codes)
+  const int* sc;     // the score table in shared memory
+  int8_t* trace;     // trace row of diagonal 1 of the job: + (d-1) C S
+  int32_t* bv;       // the job's rows of bv, bd and the corner (or null)
+  int32_t* bd;
+  int32_t* cr;
+  int64_t pitch;     // C S, the bytes between two diagonals' rows
+  int n, m, nb, mb, gap;
+};
+
+// The clipped alpha code of row i + 1 (4 past the window).
+__device__ __forceinline__ int alpha_code(const WarpJob& g, int i) {
+  return i < g.n ? min(max((int)g.al[i], 0), 4) : 4;
+}
+
+// Diagonals 1..dmax of one job, lane l holding the R contiguous slots
+// j = l R + r. Within a thread a cell's left and diag neighbours are its
+// own slot r-1, so a diagonal exchanges only the lane's edge (slot l R - 1
+// and the row state moving into slot l R) by __shfl_up_sync. The slots
+// are swept from r = R-1 down, so each one reads slot r-1's values of
+// diagonal d-1 before they are overwritten.
+template <bool kLocal, int R>
+__device__ __forceinline__ void warp_sweep(const WarpJob& g, const int8_t* be,
+                                           int dmax) {
+  const int lane = threadIdx.x & 31;
+  const int n = g.n, m = g.m, nb = g.nb, mb = g.mb, gap = g.gap;
+  const int j0 = lane * R;  // the lane's first slot
+  // diagonal 0 and "diagonal -1": all 0 for K4; for K5 cell (0, 0) = 0
+  // and NEG elsewhere. Per slot: its cells of d-1 and d-2, and the best
+  // value, best diagonal and alpha code of the row passing through
+  int c1[R], c2[R], rv[R], rd[R], ac[R], soff[R];
+  bool jin[R], jown[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = j0 + r;
+    c1[r] = (kLocal || j == 0) ? 0 : kNeg;
+    c2[r] = kLocal ? 0 : kNeg;
+    rv[r] = rd[r] = ac[r] = 0;
+    int row = 4;
+    if (j >= 1 && j <= m) {
+      const int bc = be[j - 1];
+      row = bc < 2 ? (bc == 0 ? 0 : 1) : min(bc, 4);
+    }
+    soff[r] = 5 * row;
+    jin[r] = j <= m;                  // K5: columns of the rectangle
+    jown[r] = j >= 1 && j <= mb;      // columns of the job's own grid
+  }
+  // the lane's slot of the rows' last own column m_b, if it holds it
+  const int rl = mb - j0;
+  const bool last = mb >= 1 && rl >= 0 && rl < R;
+  // lane l holds the code of alpha[base + l], base = 32 floor((d-1)/32)
+  int acur = alpha_code(g, lane), anext = alpha_code(g, 32 + lane);
+  int e2 = kLocal ? 0 : kNeg;  // the edge slot's cell of d-2
+  int8_t* trow = g.trace;
+#pragma unroll 2  // two diagonals a pass: the slots' values rotate by name
+  for (int d = 1; d <= dmax; ++d, trow += g.pitch) {
+    const int q = (d - 1) & 31;
+    const int afresh = __shfl_sync(kFull, acur, q);
+    if (q == 31) {
+      acur = anext;
+      anext = alpha_code(g, d + 32 + lane);
+    }
+    // slot l R - 1 of diagonal d-1 and its row; slot 0 takes row d fresh
+    int e1 = __shfl_up_sync(kFull, c1[R - 1], 1);
+    int ev = __shfl_up_sync(kFull, rv[R - 1], 1);
+    int ed = __shfl_up_sync(kFull, rd[R - 1], 1);
+    int ea = __shfl_up_sync(kFull, ac[R - 1], 1);
+    if (lane == 0) {
+      e1 = kLocal ? 0 : kNeg;
+      ev = ed = 0;
+      ea = afresh;
+    }
+    const int i0 = d - j0;  // the row of slot r is i0 - r
+    int8_t* tp = trow + i0;
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r) {
+      const int left = r ? c1[r - 1] : e1;
+      const int dg = r ? c2[r - 1] : e2;
+      const int a = r ? ac[r - 1] : ea;
+      int v = r ? rv[r - 1] : ev;
+      int bdg = r ? rd[r - 1] : ed;
+      const int i = i0 - r;
+      const int diag = dg + g.sc[soff[r] + a];
+      const int lf = left + gap, up = c1[r] + gap;
+      const int mlu = max(lf, up);
+      const int cm = max(diag, mlu);
+      const int tm = diag >= mlu ? 0 : (lf >= up ? 1 : 2);
+      const bool own = jown[r] && (unsigned)(i - 1) < (unsigned)nb;
+      int c, t;
+      bool cell, upd;  // the slot writes its trace byte; the best moves
+      if (kLocal) {
+        cell = own;
+        const bool pos = own && cm > 0;
+        c = pos ? cm : 0;
+        t = pos ? tm : 3;
+        upd = pos && cm > v;
+      } else {
+        // Row 0 and column 0 need no case of their own: their cells'
+        // other neighbours are NEG (the rows above row 0, and column -1
+        // at lane 0's edge), so the cell gives gap * d with code 1
+        // (left) or 2 (up), as the contract has them. Cells past the
+        // rectangle are computed and never read nor written.
+        cell = jin[r] && (unsigned)i <= (unsigned)n;
+        c = i >= 0 ? cm : kNeg;
+        t = tm;
+        upd = own && cm > v;
+      }
+      v = upd ? c : v;
+      bdg = upd ? d : bdg;
+      c2[r] = c1[r];
+      c1[r] = c;
+      rv[r] = v;
+      rd[r] = bdg;
+      ac[r] = a;
+      if (cell) tp[-r] = (int8_t)t;
+    }
+    if (last) {  // one lane: its row at column m_b stores its best
+      int lv = 0, ld = 0, lc = 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        lv = r == rl ? rv[r] : lv;
+        ld = r == rl ? rd[r] : ld;
+        lc = r == rl ? c1[r] : lc;
+      }
+      const int i = i0 - rl;
+      if ((unsigned)(i - 1) < (unsigned)nb) {
+        g.bv[i] = lv;
+        g.bd[i] = ld;
+        if (kLocal && g.cr && i == nb) g.cr[i] = lc;
+      }
+    }
+    e2 = e1;
+  }
+}
+
+// K4's sweep over the rows its job's read part fills: R = m_b / 32 + 1,
+// one of 1..L.
+template <int R, int L>
+__device__ __forceinline__ void local_sweep(const WarpJob& g, const int8_t* be,
+                                            int rows, int dmax) {
+  if constexpr (R <= L) {
+    if (rows <= R) warp_sweep<true, R>(g, be, dmax);
+    else local_sweep<R + 1, L>(g, be, rows, dmax);
+  }
+}
+
+template <bool kLocal, int L>
+__global__ void __launch_bounds__(32 * kWarpJobs)
+gsw_warp_kernel(const int8_t* __restrict__ alpha,   // (C, n)
+                const int8_t* __restrict__ beta,    // (C, m)
+                const int32_t* __restrict__ n_vec,  // (C,)
+                const int32_t* __restrict__ m_vec,  // (C,)
+                const int32_t* __restrict__ scores, // (5, 5)
+                int gap, int C, int n, int m,
+                int32_t* __restrict__ bv_out,       // (C, S)
+                int32_t* __restrict__ bd_out,       // (C, S)
+                int32_t* __restrict__ corner_out,   // (C, S) or null
+                int8_t* __restrict__ trace) {       // (n+m, C, S)
+  __shared__ int sc[25];
+  if (threadIdx.x < 25) sc[threadIdx.x] = scores[threadIdx.x];
+  __syncthreads();  // once, before any diagonal
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarpJobs + threadIdx.x / 32;
+  if (b >= C) return;  // the whole warp leaves together
+  const int S = n + 1;
+  WarpJob g;
+  g.al = alpha + (int64_t)b * n;
+  g.sc = sc;
+  g.trace = trace + (int64_t)b * S;
+  g.pitch = (int64_t)C * S;
+  g.bv = bv_out + (int64_t)b * S;
+  g.bd = bd_out + (int64_t)b * S;
+  g.cr = kLocal && corner_out ? corner_out + (int64_t)b * S : nullptr;
+  g.n = n;
+  g.m = m;
+  g.nb = min(max(n_vec[b], 0), n);
+  g.mb = min(max(m_vec[b], 0), m);
+  g.gap = gap;
+  const bool any = g.nb >= 1 && g.mb >= 1;  // the job has an own cell
+  // lanes that no row stores to hold 0
+  for (int s = lane; s < S; s += 32) {
+    if (!(any && s >= 1 && s <= g.nb)) {
+      g.bv[s] = 0;
+      g.bd[s] = 0;
+    }
+    if (g.cr && !(any && s == g.nb)) g.cr[s] = 0;
+  }
+  const int8_t* be = beta + (int64_t)b * m;
+  int dmax = n + m;  // K5: the padded rectangle, every diagonal
+  if (kLocal) {  // K4: the job's own grid
+    dmax = any ? g.nb + g.mb : 0;
+    if (any) local_sweep<1, L>(g, be, g.mb / 32 + 1, dmax);
+  } else {
+    warp_sweep<false, L>(g, be, dmax);
+  }
+}
+
 // One warp per job. kLeft (_left_full): score = corner at lane n_b; walk
 // from (n_b, m_b) while the score is > 0, i and j are > 0 and the code is
 // not 3; the meta holds (score, i, j) where the walk stopped. Otherwise
@@ -256,10 +486,23 @@ gsw_walk_pack_kernel(const int8_t* __restrict__ trace,    // (D, C, S)
   for (int k = 0; k < 12; ++k) row[k] = (uint8_t)((unsigned)meta[k / 4] >> (8 * (k % 4)));
 }
 
-// One thread per lane (s = 0..n), up to kThreads.
-int threads_for(int n) {
+// The slots a lane of the warp design is built for (L): a job's m + 1
+// slots fit in 32 L (the wrapper's graph_dp_design picks the smallest L
+// that holds them from what gsw_dp_built reports; larger m goes to the
+// block design).
+#define GSW_WARP_SLOTS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(12) X(16)
+
+// The launch of C jobs padded to a window of n bases: the warp design
+// (slots > 0) kWarpJobs warps a block; the block design one block a job,
+// one thread a lane (s = 0..n) up to kThreads.
+struct LaunchShape {
+  int threads, blocks;
+};
+
+LaunchShape launch_shape(int C, int n, int slots) {
+  if (slots > 0) return {32 * kWarpJobs, (C + kWarpJobs - 1) / kWarpJobs};
   const int t = (n + 1 + 31) / 32 * 32;
-  return t < kThreads ? t : kThreads;
+  return {t < kThreads ? t : kThreads, C};
 }
 
 template <typename Kernel>
@@ -269,17 +512,51 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+template <bool kLocal, int L>
+cudaError_t warp_launch_l(const void* alpha, const void* beta,
+                          const void* n_vec, const void* m_vec,
+                          const void* scores, int gap, int C, int n, int m,
+                          void* bv, void* bd, void* corner, void* trace,
+                          cudaStream_t stream) {
+  const LaunchShape ls = launch_shape(C, n, L);
+  gsw_warp_kernel<kLocal, L><<<ls.blocks, ls.threads, 0, stream>>>(
+      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)n_vec,
+      (const int32_t*)m_vec, (const int32_t*)scores, gap, C, n, m,
+      (int32_t*)bv, (int32_t*)bd, (int32_t*)corner, (int8_t*)trace);
+  return cudaGetLastError();
+}
+
 template <bool kLocal>
 int wavefront_launch(const void* alpha, const void* beta, const void* n_vec,
                      const void* m_vec, const void* scores, int gap, int C,
-                     int n, int m, void* scratch, void* bv, void* bd,
-                     void* corner, void* trace, void* stream) {
+                     int n, int m, int slots, void* scratch,
+                     void* bv, void* bd, void* corner, void* trace,
+                     void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (slots > 0) {  // the warp design, L = slots a lane
+    if (32 * slots < m + 1) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaMemsetAsync(
+        trace, kLocal ? 3 : 0, (size_t)(n + m) * C * (n + 1), st);
+    if (err != cudaSuccess) return (int)err;
+    switch (slots) {
+#define GSW_WARP_CASE(R)                                                   \
+      case R:                                                              \
+        return (int)warp_launch_l<kLocal, R>(alpha, beta, n_vec, m_vec,    \
+                                             scores, gap, C, n, m, bv, bd, \
+                                             corner, trace, st);
+      GSW_WARP_SLOTS(GSW_WARP_CASE)
+#undef GSW_WARP_CASE
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   const size_t smem = scratch ? 0 : (size_t)(kLocal ? 6 : 5) * (n + 1) * sizeof(int32_t);
   auto kernel = scratch ? &gsw_wavefront_kernel<kLocal, true>
                         : &gsw_wavefront_kernel<kLocal, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<C, threads_for(n), smem, (cudaStream_t)stream>>>(
+  const LaunchShape ls = launch_shape(C, n, 0);
+  kernel<<<ls.blocks, ls.threads, smem, st>>>(
       (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)n_vec,
       (const int32_t*)m_vec, (const int32_t*)scores, gap, C, n, m,
       (int32_t*)scratch, (int32_t*)bv, (int32_t*)bd, (int32_t*)corner,
@@ -289,6 +566,28 @@ int wavefront_launch(const void* alpha, const void* beta, const void* n_vec,
 
 }  // namespace
 
+// What the warp design is built for: out[0] its jobs (warps) a block,
+// out[1] the count k of slots a lane it takes, out[2..k+1] those, rising.
+extern "C" int gsw_dp_built(int* out) {
+  int k = 0;
+  out[0] = kWarpJobs;
+#define GSW_WARP_REPORT(R) out[2 + k++] = R;
+  GSW_WARP_SLOTS(GSW_WARP_REPORT)
+#undef GSW_WARP_REPORT
+  out[1] = k;
+  return 0;
+}
+
+// The launch local_wavefront_launch and gsw_right_wavefront_launch make
+// for C jobs padded to a window of n bases at slots a lane (0: the block
+// design): out[0] a block's threads, out[1] the blocks.
+extern "C" int gsw_dp_launch_shape(int C, int n, int slots, int* out) {
+  const LaunchShape ls = launch_shape(C, n, slots);
+  out[0] = ls.threads;
+  out[1] = ls.blocks;
+  return 0;
+}
+
 extern "C" const char* gsw_dp_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -296,21 +595,24 @@ extern "C" const char* gsw_dp_error_string(int code) {
 extern "C" int local_wavefront_launch(const void* alpha, const void* beta,
                                       const void* n_vec, const void* m_vec,
                                       const void* scores, int gap, int C,
-                                      int n, int m, void* scratch, void* bv,
-                                      void* bd, void* corner, void* trace,
+                                      int n, int m, int slots, void* scratch,
+                                      void* bv, void* bd,
+                                      void* corner, void* trace,
                                       void* stream) {
   return wavefront_launch<true>(alpha, beta, n_vec, m_vec, scores, gap, C, n,
-                                m, scratch, bv, bd, corner, trace, stream);
+                                m, slots, scratch, bv, bd, corner, trace,
+                                stream);
 }
 
 extern "C" int gsw_right_wavefront_launch(const void* alpha, const void* beta,
                                           const void* n_vec, const void* m_vec,
                                           const void* scores, int gap, int C,
-                                          int n, int m, void* scratch,
-                                          void* bv, void* bd, void* trace,
-                                          void* stream) {
+                                          int n, int m, int slots,
+                                          void* scratch, void* bv, void* bd,
+                                          void* trace, void* stream) {
   return wavefront_launch<false>(alpha, beta, n_vec, m_vec, scores, gap, C,
-                                 n, m, scratch, bv, bd, nullptr, trace, stream);
+                                 n, m, slots, scratch, bv, bd, nullptr,
+                                 trace, stream);
 }
 
 extern "C" int gsw_walk_pack_launch(const void* trace, const void* values,

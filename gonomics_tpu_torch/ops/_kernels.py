@@ -62,9 +62,12 @@ _SIGNATURES = {
     },
     "gsw_dp": {
         "local_wavefront_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
-                                   _int, _vp, _vp, _vp, _vp, _vp, _vp],
+                                   _int, _int, _vp, _vp, _vp, _vp, _vp, _vp],
         "gsw_right_wavefront_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int,
-                                       _int, _int, _vp, _vp, _vp, _vp, _vp],
+                                       _int, _int, _int, _vp, _vp, _vp, _vp,
+                                       _vp],
+        "gsw_dp_built": [_vp],
+        "gsw_dp_launch_shape": [_int, _int, _int, _vp],
         "gsw_walk_pack_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                                  _int, _vp, _vp],
     },

@@ -11,7 +11,8 @@ Nine kernels, each with its plain PyTorch version beside it:
 - ``affine_wavefront`` (CUDA ``csrc/wavefront.cu``) replaces the Pallas
   kernel ``_affine_kernel`` (wavefront.py:94, ``pallas_call`` at :1584);
 - ``const_wavefront`` (same file) replaces ``_const_kernel`` (:243);
-- ``local_wavefront`` (CUDA ``csrc/gsw_dp.cu``) replaces
+- ``local_wavefront`` (CUDA ``csrc/gsw_dp.cu``, one warp a job, or one
+  block a job past the warp's reach, see ``graph_dp_design``) replaces
   ``_local_kernel`` (:179, ``pallas_call`` :451 in ``wavefront_local``);
 - ``gsw_right_wavefront`` (same file) replaces ``_gsw_right_kernel``
   (:289, ``pallas_call`` :368 in ``wavefront_gsw_right``);
@@ -441,17 +442,93 @@ def _graph_inputs(alpha, beta, n_vec, m_vec, scores):
                    torch.int32, (5, 5), "scores", dev))
 
 
+_graph_configs: dict = {}
+
+
+def _graph_built() -> dict:
+    """What the graph DPs' warp design is built for, as the kernels'
+    library reports it: the slots a lane it takes (32 L slots a warp),
+    rising."""
+    if "built" not in _graph_configs:
+        out = (ctypes.c_int * 16)()
+        lib = _kernels.lib("gsw_dp")
+        _kernels.check(lib.gsw_dp_built(ctypes.addressof(out)),
+                       "local_wavefront")
+        _graph_configs["built"] = {"slots": tuple(out[2:2 + out[1]])}
+    return _graph_configs["built"]
+
+
+def graph_dp_design(n: int, m: int, mode: str, built: dict) -> dict:
+    """How local_wavefront ("local") or gsw_right_wavefront ("gsw_right")
+    runs jobs padded to (n, m), chosen by shape alone from what the warp
+    design is ``built`` for (``_graph_built``). The warp design (one warp
+    a job, no block barrier, the state along the read part in registers,
+    the trace filled with its constant before the warps write their
+    cells) wherever its m + 1 slots fit the slots a lane it is built for:
+    ``slots_per_lane`` is the smallest L with 32 L >= m + 1. Beyond it the
+    block design (one block a job, a barrier a diagonal), its state in
+    shared memory or a global scratch as ``state_in_shared_memory``
+    says."""
+    if mode not in ("local", "gsw_right"):
+        raise ValueError(f"unknown graph DP mode {mode!r}")
+    L = next((r for r in built["slots"] if 32 * r >= m + 1), 0)
+    if L:
+        return {"design": "warp", "slots_per_lane": L, "state": "registers"}
+    return {"design": "block", "slots_per_lane": 0,
+            "state": ("shared" if state_in_shared_memory(n, mode)
+                      else "global")}
+
+
+def graph_dp_plan(C: int, n: int, m: int, mode: str) -> dict:
+    """``graph_dp_design`` for C jobs padded to (n, m) from the card's
+    library, with the launch it makes as the library reports it: a
+    block's threads and warps, and the blocks."""
+    plan = graph_dp_design(n, m, mode, _graph_built())
+    out = (ctypes.c_int * 2)()
+    lib = _kernels.lib("gsw_dp")
+    _kernels.check(lib.gsw_dp_launch_shape(C, n, plan["slots_per_lane"],
+                                           ctypes.addressof(out)),
+                   "local_wavefront")
+    return {**plan, "threads": out[0], "warps_per_block": out[0] // 32,
+            "blocks": out[1]}
+
+
 def local_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int,
                     with_corner: bool = False):
     """Local linear-gap DP of the graph aligner's left extension (see
     ``local_wavefront_reference``): the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors."""
-    global local_launches
+    CUDA kernel for CUDA tensors, as ``graph_dp_design`` picks it."""
     if alpha.device.type == "cpu":
         return local_wavefront_reference(alpha, beta, n_vec, m_vec, scores,
                                          gap, with_corner)
-    alpha, beta, n_vec, m_vec, sc = _graph_inputs(alpha, beta, n_vec, m_vec,
-                                                  scores)
+    args = _graph_inputs(alpha, beta, n_vec, m_vec, scores)
+    plan = graph_dp_design(args[0].shape[1], args[1].shape[1], "local",
+                           _graph_built())
+    return _graph_launch("local", *args, gap, with_corner, plan)
+
+
+def gsw_right_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int):
+    """Prefix-anchored linear-gap DP of the graph aligner's right
+    extension (see ``gsw_right_wavefront_reference``): the plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors, as
+    ``graph_dp_design`` picks it."""
+    if alpha.device.type == "cpu":
+        return gsw_right_wavefront_reference(alpha, beta, n_vec, m_vec,
+                                             scores, gap)
+    args = _graph_inputs(alpha, beta, n_vec, m_vec, scores)
+    plan = graph_dp_design(args[0].shape[1], args[1].shape[1], "gsw_right",
+                           _graph_built())
+    return _graph_launch("gsw_right", *args, gap, False, plan)
+
+
+def _graph_launch(mode: str, alpha, beta, n_vec, m_vec, sc, gap: int,
+                  with_corner: bool, plan: dict):
+    """Launch local_wavefront ("local") or gsw_right_wavefront
+    ("gsw_right") on checked CUDA inputs with ``plan`` (the wrappers take
+    ``graph_dp_design``'s; the card tests and tools/graph_timing.py force
+    the design and the slots a lane). Returns the wrapper's outputs."""
+    global local_launches, gsw_right_launches
+    local = mode == "local"
     C, n = alpha.shape
     m = beta.shape[1]
     dev = alpha.device
@@ -461,56 +538,33 @@ def local_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int,
     corner = (torch.empty((C, S), dtype=torch.int32, device=dev)
               if with_corner else None)
     trace = torch.empty((n + m, C, S), dtype=torch.int8, device=dev)
-    out = (bv, bd, trace, corner) if with_corner else (bv, bd, trace)
+    out = ((bv, bd, trace, corner) if with_corner else (bv, bd, trace))
     if C == 0:
         return out
-    scratch = (None if state_in_shared_memory(n, "local") else
-               torch.empty((C, 6 * S), dtype=torch.int32, device=dev))
+    scratch = (torch.empty((C, _STATE_ROWS[mode] * S), dtype=torch.int32,
+                           device=dev)
+               if plan["design"] == "block" and plan["state"] == "global"
+               else None)
+    slots = plan["slots_per_lane"] if plan["design"] == "warp" else 0
     lib = _kernels.lib("gsw_dp")
+    name = "local_wavefront" if local else "gsw_right_wavefront"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.local_wavefront_launch(
-            alpha.data_ptr(), beta.data_ptr(), n_vec.data_ptr(),
-            m_vec.data_ptr(), sc.data_ptr(), int(gap), C, n, m,
-            _ptr(scratch), bv.data_ptr(), bd.data_ptr(), _ptr(corner),
-            trace.data_ptr(), stream)
-    _kernels.check(rc, "local_wavefront")
-    local_launches += 1
+        common = (alpha.data_ptr(), beta.data_ptr(), n_vec.data_ptr(),
+                  m_vec.data_ptr(), sc.data_ptr(), int(gap), C, n, m, slots,
+                  _ptr(scratch), bv.data_ptr(), bd.data_ptr())
+        if local:
+            rc = lib.local_wavefront_launch(*common, _ptr(corner),
+                                            trace.data_ptr(), stream)
+        else:
+            rc = lib.gsw_right_wavefront_launch(*common, trace.data_ptr(),
+                                                stream)
+    _kernels.check(rc, name)
+    if local:
+        local_launches += 1
+    else:
+        gsw_right_launches += 1
     return out
-
-
-def gsw_right_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int):
-    """Prefix-anchored linear-gap DP of the graph aligner's right
-    extension (see ``gsw_right_wavefront_reference``): the plain version
-    for CPU tensors, the CUDA kernel for CUDA tensors."""
-    global gsw_right_launches
-    if alpha.device.type == "cpu":
-        return gsw_right_wavefront_reference(alpha, beta, n_vec, m_vec,
-                                             scores, gap)
-    alpha, beta, n_vec, m_vec, sc = _graph_inputs(alpha, beta, n_vec, m_vec,
-                                                  scores)
-    C, n = alpha.shape
-    m = beta.shape[1]
-    dev = alpha.device
-    S = n + 1
-    bv = torch.empty((C, S), dtype=torch.int32, device=dev)
-    bd = torch.empty((C, S), dtype=torch.int32, device=dev)
-    trace = torch.empty((n + m, C, S), dtype=torch.int8, device=dev)
-    if C == 0:
-        return bv, bd, trace
-    scratch = (None if state_in_shared_memory(n, "gsw_right") else
-               torch.empty((C, 5 * S), dtype=torch.int32, device=dev))
-    lib = _kernels.lib("gsw_dp")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gsw_right_wavefront_launch(
-            alpha.data_ptr(), beta.data_ptr(), n_vec.data_ptr(),
-            m_vec.data_ptr(), sc.data_ptr(), int(gap), C, n, m,
-            _ptr(scratch), bv.data_ptr(), bd.data_ptr(), trace.data_ptr(),
-            stream)
-    _kernels.check(rc, "gsw_right_wavefront")
-    gsw_right_launches += 1
-    return bv, bd, trace
 
 
 def wavefront_align(alpha_pad, beta_pad, fin_d, scores, *, gap_open: int,

@@ -218,19 +218,52 @@ def _graph_jobs(C: int, n: int, m: int, seed: int):
     return al, be, nv.astype(np.int32), mv.astype(np.int32)
 
 
+# (C, n, m, scoring, (design, slots a lane, state)) of graph_dp_plan,
+# the same for both kernels unless a dict by mode
+_GRAPH_CASES = [
+    (2048, 192, 192, "humanChimp", ("warp", 8, "registers")),
+    (7, 40, 33, "plusMinusOne", ("warp", 2, "registers")),
+    (5, 2048, 150, "humanChimp", ("warp", 5, "registers")),
+    (64, 100, 70, "asymmetric", ("warp", 3, "registers")),
+    (5, 10300, 32, "humanChimp", ("warp", 2, "registers")),
+    # the warp design's reach, m + 1 = 32 x 16, and one above it
+    (6, 300, 511, "humanChimp", ("warp", 16, "registers")),
+    (6, 300, 512, "asymmetric", ("block", 0, "shared")),
+    # the block design with its state in a global scratch
+    (5, 10300, 600, "humanChimp", ("block", 0, "global")),
+    (5, 9000, 600, "plusMinusOne",
+     {"local": ("block", 0, "global"), "gsw_right": ("block", 0, "shared")}),
+]
+
+
+def _graph_plan_of(C, n, m, mode):
+    """graph_dp_plan's design, with its launch as the library reports it
+    checked: a warp a job, or a block a job of at most 512 threads that
+    covers the window's lanes or strides over them."""
+    plan = wavefront.graph_dp_plan(C, n, m, mode)
+    assert plan["threads"] == 32 * plan["warps_per_block"]
+    if plan["design"] == "warp":
+        per = plan["warps_per_block"]
+        assert (plan["blocks"] - 1) * per < C <= plan["blocks"] * per
+    else:
+        assert plan["blocks"] == C
+        assert plan["threads"] == min(512, -(-(n + 1) // 32) * 32)
+    return plan["design"], plan["slots_per_lane"], plan["state"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,n,m,scoring", [
-    (2048, 192, 192, "humanChimp"), (7, 40, 33, "plusMinusOne"),
-    (5, 2048, 150, "humanChimp"), (64, 100, 70, "asymmetric"),
-    (5, 10300, 32, "humanChimp")])
-def test_graph_kernels_equal_plain(card, C, n, m, scoring):
+@pytest.mark.parametrize("C,n,m,scoring,plan", _GRAPH_CASES)
+def test_graph_kernels_equal_plain(card, C, n, m, scoring, plan):
     """local_wavefront (K4), gsw_right_wavefront (K5) and gsw_walk_pack,
-    both sides, against their plain versions; n = 2048 runs more lanes
-    than a block has threads, and n = 10,300, above both kernels' old
-    shared-memory limits, keeps the state in a global scratch."""
-    wide = n > 10239
-    assert wavefront.state_in_shared_memory(n, "local") == (not wide)
-    assert wavefront.state_in_shared_memory(n, "gsw_right") == (not wide)
+    both sides, against their plain versions, at the plan each case
+    should take: the warp design at the main shape (192 x 128 on the
+    main path), at n = 2048, at the 10,300-base window and at its reach
+    m = 511; the block design one above it
+    and with its state in a global scratch (n above 8,532 for K4, above
+    10,239 for K5)."""
+    for mode in ("local", "gsw_right"):
+        want_plan = plan[mode] if isinstance(plan, dict) else plan
+        assert _graph_plan_of(C, n, m, mode) == want_plan, mode
     scores, gap = {"humanChimp": (HUMAN_CHIMP_TWO, -600),
                    "plusMinusOne": (PLUS_MINUS_ONE, -1),
                    "asymmetric": (ASYMMETRIC, -300)}[scoring]
@@ -267,6 +300,39 @@ def test_graph_kernels_equal_plain(card, C, n, m, scoring):
         meta = want[:, :12].cpu().numpy().copy().view(np.int32)
         scored += int((meta[3:, 0] > 0).sum())
     assert scored > 0  # real alignments were walked
+
+
+@pytest.mark.cuda
+def test_graph_warp_slots(card):
+    """The warp design at every count of slots a lane it is built for that
+    holds the job's slots, exactly equal to the plain versions; too few
+    slots for the read part is refused by the launch (it raises). The
+    library reports the slots the CPU tests assume."""
+    C, n, m = 37, 150, 40
+    al, be, nv, mv = (torch.from_numpy(x).to(card)
+                      for x in _graph_jobs(C, n, m, 99))
+    sc = torch.as_tensor(ASYMMETRIC, dtype=torch.int32, device=card)
+    args = (al, be, nv, mv, sc, -300)
+    lwant = wavefront.local_wavefront_reference(*args, True)
+    rwant = wavefront.gsw_right_wavefront_reference(*args)
+    slots = wavefront._graph_built()["slots"]
+    assert slots == (1, 2, 3, 4, 5, 6, 8, 12, 16)
+    base = wavefront.graph_dp_plan(C, n, m, "local")
+    assert base["slots_per_lane"] == 2
+    for L in slots[1:]:
+        plan = {**base, "slots_per_lane": L}
+        lgot = wavefront._graph_launch("local", al, be, nv, mv, sc, -300,
+                                       True, plan)
+        rgot = wavefront._graph_launch("gsw_right", al, be, nv, mv, sc,
+                                       -300, False, plan)
+        torch.cuda.synchronize()
+        for k, (g, w) in enumerate(zip(lgot, lwant)):
+            assert torch.equal(g, w), ("local", L, k)
+        for k, (g, w) in enumerate(zip(rgot, rwant)):
+            assert torch.equal(g, w), ("right", L, k)
+    with pytest.raises(RuntimeError, match="local_wavefront"):
+        wavefront._graph_launch("local", al, be, nv, mv, sc, -300, True,
+                                {**base, "slots_per_lane": 1})
 
 
 @pytest.mark.cuda

@@ -149,12 +149,54 @@ def test_state_in_shared_memory_graph_limits():
     assert checked[0].shape == (1, 10300)
 
 
+# What the graph DPs' library reports it is built for (``_graph_built``
+# on the card, given here).
+_GRAPH_BUILT = {"slots": (1, 2, 3, 4, 5, 6, 8, 12, 16)}
+
+
+# (C, n, m, mode, (design, slots a lane, state)): the main
+# shape, the wide window, row-count edges, the warp design's reach (m + 1
+# = 32 x 16) and one past it, where the block design keeps its state in
+# shared memory or a global scratch as state_in_shared_memory says
+@pytest.mark.parametrize("C,n,m,mode,want", [
+    (2048, 192, 128, "local", ("warp", 5, "registers")),
+    (2048, 192, 128, "gsw_right", ("warp", 5, "registers")),
+    (2, 10300, 32, "local", ("warp", 2, "registers")),
+    (1, 40, 31, "gsw_right", ("warp", 1, "registers")),
+    (1, 40, 191, "local", ("warp", 6, "registers")),
+    (1, 40, 192, "local", ("warp", 8, "registers")),
+    (6, 300, 511, "gsw_right", ("warp", 16, "registers")),
+    (6, 300, 512, "local", ("block", 0, "shared")),
+    (5, 9000, 600, "local", ("block", 0, "global")),
+    (5, 9000, 600, "gsw_right", ("block", 0, "shared")),
+    (5, 10300, 600, "gsw_right", ("block", 0, "global")),
+])
+def test_graph_dp_plan(C, n, m, mode, want):
+    """graph_dp_design's boundaries (graph_dp_plan's choice, from what the
+    library is built for): one warp a job with its m + 1 slots in the
+    fewest slots a lane built, the block design past the warp's reach."""
+    plan = port_wf.graph_dp_design(n, m, mode, _GRAPH_BUILT)
+    assert (plan["design"], plan["slots_per_lane"], plan["state"]) == want
+    if plan["design"] == "warp":
+        L = plan["slots_per_lane"]
+        assert L in _GRAPH_BUILT["slots"] and 32 * L >= m + 1
+        assert L == 1 or 32 * _GRAPH_BUILT["slots"][
+            _GRAPH_BUILT["slots"].index(L) - 1] < m + 1
+    else:
+        assert 32 * _GRAPH_BUILT["slots"][-1] < m + 1
+        assert plan["state"] == ("shared" if port_wf.state_in_shared_memory(
+            n, mode) else "global")
+    with pytest.raises(ValueError):
+        port_wf.graph_dp_design(n, m, "affine", _GRAPH_BUILT)
+
+
 @pytest.mark.parametrize("kind,n", [("local", 8600), ("gsw_right", 10300)])
 def test_wide_window_matches_jax(kind, n):
     """K4 and K5 at a genome window above their old shared-memory limit
     (8,532 and 10,239 bases): the plain versions equal the JAX kernels, as
-    the card's global-scratch path equals the plain versions
-    (tests/test_torch_card.py)."""
+    the card's kernels equal the plain versions there (one warp a job, and
+    the block design's global scratch for longer read parts;
+    tests/test_torch_card.py)."""
     assert not port_wf.state_in_shared_memory(n, kind)
     C, m = 2, 8
     rng = np.random.default_rng(n)
