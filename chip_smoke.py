@@ -73,8 +73,11 @@ exits non-zero:
             random pairs of 1024 x 1024 and affine_block (K9) on 256
             related pairs padded to 1024 x 1024 at r_rows = 512, each held
             against its plain PyTorch version on the card (exact equality)
-            and timed; plus P = 2 with m even and m > n, n = 1, r_rows not
-            dividing n, and r_rows + 1 > 1024 lanes.
+            and timed, with K8's plan (stream_launch_plan: rows a lane,
+            warps a block, blocks, registers, spills); plus P = 2 with m
+            even and m > n, n = 1, n below one strip with odd m, m much
+            wider than n, r_rows not dividing n, and r_rows + 1 > 1024
+            lanes.
 14. score:  bench.py's stage_score_stream: its parity gate (K2, the
             stream, the blocked kernel) against the plain versions on the
             CPU; K2's score mode, the stream and the blocked kernel once
@@ -139,16 +142,21 @@ PAIR_LEN, PAIR_B_TRACE, PAIR_B_SCORE = 1024, 128, 256
 RELATED_LEN, RELATED_PAIRS = 1000, 128
 AFFINE_GAPS, CONST_GAP = (-600, -150), -430
 # int32 operations that each wavefront function needs per cell (i, j) of
-# a pair's own n_b x m_b grid, not those of one implementation:
-# substitution address and table load (2); affine score mode: M = sub +
-# max3 of (M, I, D) at (i-1, j-1) as one DPX max3 and an add (2), I =
-# max(go+ge+M, ge+I, go+ge+D) at (i, j-1) as go+ge + max(M, D) against
-# ge+I, a max, an add and a DPX add-max (3), D the same at (i-1, j) (3).
-# Trace mode writes each state's predecessor: the three candidates of I
-# and of D as values (3 adds each), their DPX max3 (1 each), and per
-# state an argmax in tie order (2 compares, 2 selects: 4 each, M too),
-# then the code tM + 4 tI + 16 tD (2).
-AFFINE_OPS_PER_CELL = {"score": 2 + 2 + 3 + 3,
+# a pair's own n_b x m_b grid, not those of one implementation. Score
+# mode, int32 operations only (the substitution score is a table load at
+# an offset the cell's row and column fix, not an int32 operation): H =
+# max(M, I), which the cell below reads for its D and, one step later,
+# for its M (1); M = sub + max(H, D) at (i-1, j-1), a max and an add (2);
+# I = max(go+ge+max(M, D), ge+I) at (i, j-1), a max, an add and a DPX
+# add-max (3); D = max(go+ge+H, ge+D) at (i-1, j), an add and a DPX
+# add-max (2). (An earlier count, 10, took the table's address and load
+# as 2 and did not share H between D and M.) Trace mode counts the
+# substitution address and table load (2) and writes each state's
+# predecessor: the three candidates of I and of D as values (3 adds
+# each), their DPX max3 (1 each), and per state an argmax in tie order (2
+# compares, 2 selects: 4 each, M too), then the code tM + 4 tI + 16 tD
+# (2).
+AFFINE_OPS_PER_CELL = {"score": 1 + 2 + 3 + 2,
                        "trace": 2 + (1 + 1 + 4) + 2 * (3 + 1 + 4) + 2}
 # const score mode: diag = c(i-1, j-1) + sub (1), max(c(i, j-1),
 # c(i-1, j)) and a DPX add-max with the gap against diag (2); trace mode:
@@ -1913,6 +1921,10 @@ def phase_score_kernels(dev: torch.device) -> list[dict]:
          (codes((2, 16, 300), 51), codes((2, 16, 512), 52))),
         ("affine_stream", "n = 1 (1 x 7)",
          (codes((2, 8, 1), 53), codes((2, 8, 7), 54))),
+        ("affine_stream", "n below one strip, odd m (100 x 301)",
+         (codes((2, 16, 100), 58), codes((2, 16, 301), 59))),
+        ("affine_stream", "m much wider than n (64 x 4096)",
+         (codes((2, 4, 64), 60), codes((2, 4, 4096), 61))),
         ("affine_block", "r_rows = 384 not dividing n = 1000",
          (*random_score_batch(16, 1000, 700, 55, dev), 384)),
         ("affine_block", "n = 1, r_rows = 512",
@@ -1965,7 +1977,9 @@ def phase_score_kernels(dev: torch.device) -> list[dict]:
             "ms": times[name], "plain_ms": mine[0]["plain_ms"],
             "bound_ms": bound[by], "bound_by": by, "library_ms": None,
             "shape": full[name][3], "cells": bound["cells"]})
+    plan = wavefront.stream_launch_plan(P * B, L, L)
     emit({"phase": "score_kernels", "tolerance": "exact", "cases": cases,
+          "affine_stream_plan": plan,
           "kernels": [{k: r[k] for k in ("name", "equal_to_plain",
                                          "max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "shape",

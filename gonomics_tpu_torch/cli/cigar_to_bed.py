@@ -3,10 +3,11 @@ FASTA files and write the insertions and deletions as beds; the
 counterpart of ``gonomics_tpu/cli/cigar_to_bed.py``.
 
     python -m gonomics_tpu_torch.cli.cigar_to_bed a.fa b.fa
-        [-insBedOut f] [-delBedOut f] [-faOut f] [--device cpu]
+        [-insBedOut f] [-delBedOut f] [-faOut f] [--device cpu] [--backend b]
 
 affineGap -600/-150 with the humanChimpTwo matrix on the card
-(``--device cpu`` runs the kernels' plain versions).
+(``--device cpu``, or ``--backend numpy`` or ``interpret`` as the JAX
+tool takes them, runs the kernels' plain versions on the CPU).
 
 Parity note: gonomics' deletion pass re-uses the insertion condition
 (M followed by I, cigarToBed.go:121); it is reproduced verbatim so that
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from . import PLAIN_BACKENDS
 from .. import dna, fileio
 from ..align import COL_D, COL_I, COL_M, HUMAN_CHIMP_TWO, affine_gap
 from ..align import go_format, view
@@ -88,11 +90,16 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the DP runs; cpu runs the kernels' plain "
                         "PyTorch versions")
+    p.add_argument("--backend", default="auto",
+                   help="as the JAX tool takes it: numpy or interpret is "
+                        "the caller's choice of the plain PyTorch versions "
+                        "on the CPU; any other value runs on --device")
     a = p.parse_args(argv)
+    device = "cpu" if a.backend in PLAIN_BACKENDS else a.device
     cigar_to_bed(a.target, a.query, out_fa=a.faOut,
                  ins_bed_out=a.insBedOut, del_bed_out=a.delBedOut,
                  first_pos_ins=a.FirstPos_Ins, first_pos_del=a.FirstPos_Del,
-                 chrom=a.Chr, device=a.device)
+                 chrom=a.Chr, device=device)
 
 
 if __name__ == "__main__":

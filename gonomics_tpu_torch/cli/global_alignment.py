@@ -2,9 +2,12 @@
 files, the counterpart of ``gonomics_tpu/cli/global_alignment.py``.
 
     python -m gonomics_tpu_torch.cli.global_alignment a.fa b.fa [-faOut f] [--device cpu]
+        [--backend auto|tpu|numpy|interpret]
 
 constGap Needleman-Wunsch with the humanChimpTwo matrix and gap penalty
--430 on the card (``--device cpu`` runs the kernels' plain versions);
+-430 on the card (``--device cpu``, or ``--backend numpy`` or
+``interpret`` as the JAX tool takes them, runs the kernels' plain
+versions on the CPU);
 prints the Go-formatted score and cigar line and the two-row alignment
 view, and optionally writes the alignment as FASTA (-faOut), byte for
 byte as gonomics' ``cmd/globalAlignment`` does.
@@ -15,6 +18,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from . import PLAIN_BACKENDS
 from .. import fileio
 from ..align import HUMAN_CHIMP_TWO, const_gap, go_format, view
 from ..io import fasta
@@ -59,8 +63,14 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the DP runs; cpu runs the kernels' plain "
                         "PyTorch versions")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "tpu", "numpy", "interpret"],
+                   help="as the JAX tool takes it: numpy or interpret is "
+                        "the caller's choice of the plain PyTorch versions "
+                        "on the CPU; any other value runs on --device")
     a = p.parse_args(argv)
-    global_alignment(a.target, a.query, a.fa_out, device=a.device)
+    device = "cpu" if a.backend in PLAIN_BACKENDS else a.device
+    global_alignment(a.target, a.query, a.fa_out, device=device)
 
 
 if __name__ == "__main__":

@@ -1,26 +1,29 @@
-"""gsw align on the PyTorch port: the device engine of
-``gonomics_tpu/cli/gsw_cmd.py`` (``_align_tpu``, :41-144, and
-``_align_tpu_graph``, :147-198).
+"""gsw align on the PyTorch port: the counterpart of
+``gonomics_tpu/cli/gsw_cmd.py`` (``align_cmd``, :214-257, ``_align_tpu``,
+:41-144, and ``_align_tpu_graph``, :147-198).
 
-    python -m gonomics_tpu_torch.cli.gsw_cmd align ref.fa R1.fq [R2.fq] -o out.sam
-    python -m gonomics_tpu_torch.cli.gsw_cmd align ref.gg R1.fq [R2.fq] \
+    python -m gonomics_tpu_torch.cli.gsw_cmd align ref.fa R1.fq [R2.fq] \
         [-i 32] [-w 32] [-m humanChimp] [-l ref.sizes] -o out.giraf
+    python -m gonomics_tpu_torch.cli.gsw_cmd align ref.fa R1.fq [R2.fq] \
+        --engine tpu -o out.sam
 
-A linear .fa reference is aligned in batches by ``read_align.ReadAligner``
-and written as SAM, byte-identical to ``gsw align --engine tpu``. A graph
-reference (.gg/.sg) is aligned by ``graph_align.GraphAligner`` and
-written as giraf, or as SAM when ``-l`` names a .sizes file,
-byte-identical to ``gsw align --engine tpu`` and ``--engine host``. The
-DPs run on the card; ``--device cpu`` runs the kernels' plain versions
-on the CPU. ``--engine tpu`` (the default here) is the port's device
-engine; ``--engine host`` exits with an error, the port having no numpy
-host engine. ``-t/--threads`` is accepted and unused, as in the JAX CLI.
-``--profile DIR`` runs the alignment under ``torch.profiler`` and writes
-its trace to DIR/gsw_align.pt.trace.json. ``--mesh``, ``--multihost`` and
-``--index-sharding prefix`` are not ported yet and exit with an error
-that names their ROADMAP item.
+``--engine host`` (the default, as in the JAX CLI) aligns against a
+genome graph with ``graph_align.GraphAligner``: a .gg/.sg reference as
+read, a .fa reference as a linear graph of one node a record
+(``graph.from_fasta``). It writes giraf, or SAM when ``-l`` names a
+.sizes file, byte-identical to the JAX ``gsw align`` without
+``--engine``. ``--engine tpu`` aligns a .fa reference in batches with
+``read_align.ReadAligner`` and writes SAM, byte-identical to ``gsw align
+--engine tpu``; a .gg/.sg reference goes to ``GraphAligner`` as with the
+host engine. Both engines run their DPs on the card; ``--device cpu``
+runs the kernels' plain versions on the CPU. ``-t/--threads`` is
+accepted and unused, as in the JAX CLI. ``--profile DIR`` runs the
+alignment under ``torch.profiler`` and writes its trace to
+DIR/gsw_align.pt.trace.json. ``--mesh``, ``--multihost`` and
+``--index-sharding prefix`` of ``--engine tpu`` are not ported yet and
+exit with an error that names their ROADMAP item; the host engine
+ignores them, as the JAX one does.
 """
-
 from __future__ import annotations
 
 import argparse
@@ -51,10 +54,6 @@ def _progress(tool: str, n: int, t0: float, final: bool = False) -> None:
 
 
 def _refuse_unported(args) -> None:
-    if args.engine == "host":
-        raise SystemExit("gsw align: --engine host is not ported: the port "
-                         "has no numpy host engine (ROADMAP queue 1, left "
-                         "out on purpose); --engine tpu gives the same output")
     for flag, on in (("--mesh", args.mesh), ("--multihost", args.multihost),
                      ("--index-sharding prefix",
                       args.index_sharding == "prefix")):
@@ -64,9 +63,12 @@ def _refuse_unported(args) -> None:
 
 
 def _load_reference(path: str):
-    """A .gg/.sg graph and its node names (each node's id)."""
-    g = graphmod.read(path)
-    return g, {n.id: str(n.id) for n in g.nodes}
+    """A .gg/.sg graph and its node names (each node's id), or the linear
+    graph of a .fa reference and its record names."""
+    if path.endswith((".gg", ".sg")):
+        g = graphmod.read(path)
+        return g, {n.id: str(n.id) for n in g.nodes}
+    return graphmod.from_fasta(fasta.read(path))
 
 
 def _select_matrix(name: str):
@@ -78,7 +80,7 @@ def _select_matrix(name: str):
 
 
 def _align_graph(args) -> None:
-    """Graph reference -> giraf, or SAM with ``-l x.sizes``: seeds and
+    """Graph (or a .fa reference's linear graph) -> giraf, or SAM with ``-l x.sizes``: seeds and
     traversal on the host, the extension DPs of each batch on the device
     (``graph_align.GraphAligner``)."""
     g, names = _load_reference(args.files[0])
@@ -128,14 +130,18 @@ def _align_graph(args) -> None:
 
 
 def align_cmd(args) -> None:
-    """A graph reference goes to ``_align_graph``. A linear .fa reference
-    -> SAM through a three-stage pipeline: batch i+1's host seeding (main
+    """The host engine, and a graph reference on either engine, go to
+    ``_align_graph``. The tpu engine's linear .fa reference -> SAM
+    through a three-stage pipeline: batch i+1's host seeding (main
     thread) overlaps batch i's device work (launched without waiting) and
     batch i-1's SAM assembly (worker thread); writes drain in order on
     the main thread."""
-    _refuse_unported(args)
     if len(args.files) not in (2, 3):
         raise SystemExit("gsw align: want ref[.gg/.fa] R1.fq [R2.fq]")
+    if args.engine == "host":
+        _align_graph(args)
+        return
+    _refuse_unported(args)
     if args.files[0].endswith((".gg", ".sg")):
         _align_graph(args)
         return
@@ -194,19 +200,23 @@ def main(argv=None) -> None:
     al.add_argument("files", nargs="+",
                     help="ref[.gg/.fa] R1.fastq [R2.fastq]")
     al.add_argument("-i", "--index", type=int, default=32,
-                    help="graph references: seed length")
+                    help="host engine and graph references: seed length")
     al.add_argument("-w", "--window", type=int, default=32,
-                    help="graph references: genome step of the seed index")
+                    help="host engine and graph references: genome step "
+                         "of the seed index")
     al.add_argument("-t", "--threads", type=int, default=4,
                     help="accepted and unused, as in the JAX CLI")
     al.add_argument("-m", "--matrix", default="humanChimp",
-                    help="graph references: score matrix")
+                    help="host engine and graph references: score matrix")
     al.add_argument("-l", "--liftover", default="",
-                    help="graph references: a .sizes file, for SAM output")
+                    help="host engine and graph references: a .sizes "
+                         "file, for SAM output")
     al.add_argument("-o", "--out", default="/dev/stdout")
-    al.add_argument("--engine", default="tpu", choices=["host", "tpu"],
-                    help="tpu: the device engine (the port's only one); "
-                         "host is not ported")
+    al.add_argument("--engine", default="host", choices=["host", "tpu"],
+                    help="host: the graph aligner, giraf (SAM with -l), "
+                         "a .fa reference as a linear graph; tpu: the "
+                         "batched read aligner, SAM, for .fa references. "
+                         "Both run their DPs on --device")
     al.add_argument("--batch", type=int, default=2048,
                     help="reads per device batch")
     al.add_argument("--index-mode", default="dense",
@@ -221,10 +231,11 @@ def main(argv=None) -> None:
                          "plain PyTorch versions")
     al.add_argument("--index-sharding", default="replicated",
                     choices=["replicated", "prefix"],
-                    help="prefix is not ported yet")
-    al.add_argument("--mesh", action="store_true", help="not ported yet")
+                    help="tpu engine: prefix is not ported yet")
+    al.add_argument("--mesh", action="store_true",
+                    help="tpu engine: not ported yet")
     al.add_argument("--multihost", action="store_true",
-                    help="not ported yet")
+                    help="tpu engine: not ported yet")
     al.add_argument("--profile", default="",
                     help="write a torch.profiler trace of the alignment to "
                          "this directory")

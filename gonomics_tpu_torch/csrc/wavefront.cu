@@ -27,7 +27,7 @@
 // barrier per diagonal orders every read before the next overwrite.
 //
 // What bounds it on the card: integer operations. A 1024 x 1024 pair has
-// 1.05 M interior cells at 10-26 int32 operations each (itemised in
+// 1.05 M interior cells at 8-26 int32 operations each (itemised in
 // chip_smoke.py), while its trace is one byte a cell; at B = 128 with
 // trace that is ~3.5 G operations (~0.21 ms at the int32 rate) against
 // 134 MB of interior trace (~0.04 ms at 3.35 TB/s). This design takes
@@ -867,25 +867,48 @@ lowmem_walk_block_kernel(const int8_t* __restrict__ trace,  // (K, B, W)
 // (B, S) lane set, reads a combined reversed-beta buffer by manual DMA and
 // divides by a magic multiply, to fill its lanes and to dodge its scalar
 // unit's stalls; a GPU has neither problem, and none of it is carried
-// over. Here one warp aligns one pair and no block barrier is paid: the
-// warp sweeps the DP in strips of 32 rows, lane t owning row 32k + t + 1
-// and working on column c - t + 1 at step c. A cell's left neighbour is
-// the lane's own last cell; its upper and upper-left neighbours come from
-// lane t - 1 by __shfl_up_sync (this step's value and the last step's).
-// Lane 0 takes them from the boundary row, the last row of the strip
-// before, which lane 31 writes to a per-pair scratch as (max(M, I), D),
-// all that a lower row reads, and which the warp reads back 32 columns at
-// a time, a chunk ahead, broadcasting one column a step to lane 0. The
-// substitution score is one shared-memory load from a table of the 256
-// beta codes x 5 clipped alpha codes (the scoring rule of substitution()
-// above), built by each block.
+// over. One warp aligns one pair with no block barrier, sweeping the DP in
+// strips of 32 R rows (R, the rows a lane, is a template argument): row r
+// of lane t is row r0 + t R + r + 1 and works on column c - t R - r + 1 at
+// step c. Row r's left neighbour is its own last cell; its upper and
+// upper-left neighbours are row r - 1 of the same lane, one and two steps
+// back, so a step updates the rows from r = R - 1 down to 0 and all of
+// them stay in registers. Only row 0 takes its upper neighbour from lane
+// t - 1 (row R - 1), by one rotating __shfl_sync of (max(M, I), D); lane 0
+// gets lane 31's instead, which lane 31 sends from the boundary row, the
+// strip before's last row. That row is a per-pair scratch of (max(M, I),
+// D), all a lower row reads, which lane 31 alone writes (its row R - 1)
+// and reads back R columns a load, one block of R steps ahead. The
+// shuffles, the boundary and the loop are paid once for R cells, and the
+// R cells of a step are independent of each other.
 //
-// What bounds it: the rate at which the SM dispatches integer
-// instructions. A step of 32 cells is ~30 warp instructions (four
-// shuffles, ~20 on the int32 pipe) for the ~10 int32 operations a cell
-// that the function needs; the boundary rows
-// (8 bytes a cell of every 32nd row) stay in L2. Strips of 32 rows fill a
-// warp on m + 31 steps of m: 97% at m = 1024.
+// The substitution score: each lane keeps, per strip, a profile of its R
+// rows in shared memory (the score of each of the 5 beta score rows
+// against each row's clipped alpha code, lane-minor so that a warp's
+// loads hit 32 banks); a beta column enters a lane once, on row 0, as one
+// byte load a block ahead and one lookup of its profile offset
+// (_select_score's rule for beta codes, once a column), and rows r > 0
+// reuse it r steps later from a ring of R registers. A cell's score is
+// then one ld.shared at an immediate offset. The recurrences use DPX
+// add-max (__viaddmax_s32).
+//
+// Rows before their first column compute junk, and each is reset to its
+// column-0 cell (M = I = NEG, D = go + ge i) on the step it reaches
+// column 0, one lane a step, only in the first 32 blocks of steps; past
+// column m a row's junk feeds only columns past m. The last strip stops
+// on the step that computes cell (n, m) and its lane writes the score.
+//
+// What bounds it: the SM's int32 pipe (16 lanes a scheduler, so two
+// cycles a warp instruction). At R = 8 a step of the blocks without edge
+// tests is 87 SASS instructions for 8 cells, 58 of them on that pipe
+// (VIMNMX, VIADD and the DPX VIADDMNMX: ~7.25 a cell), which at two cycles
+// each is the ~117 cycles a warp-step that 4 warps a scheduler take on
+// the card (PERF.md); the boundary rows (8 bytes a column every 32 R
+// rows) stay in L2. A strip costs m + 32 R - 1 steps for m columns: the
+// ramp, 20% at R = 8 and m = 1024. Strips that wrap into each other with
+// no ramp (columns 0..m a strip, two profiles a warp, the column-0 reset
+// every step) were timed slower, 1.38 against 1.20-1.23 ms for 2048
+// pairs of 1024 x 1024 (NVIDIA H100 80GB HBM3, 700 W power limit).
 //
 // affine_block replaces _affine_block_kernel (:466, pallas_call :620 in
 // wavefront_align_blocked :569): one row block of the score-mode Gotoh DP,
@@ -902,24 +925,116 @@ lowmem_walk_block_kernel(const int8_t* __restrict__ trace,  // (K, B, W)
 // scratch above.
 
 constexpr int kStreamWarps = 4;  // pairs (one a warp) per block of affine_stream
+// The rows a lane affine_stream is built for (affine_stream_built).
+#define STREAM_ROWS(X) X(2) X(4) X(8)
 
-__global__ void __launch_bounds__(32 * kStreamWarps)
+// Columns of the boundary row of a pair: column j at index j - 1, padded
+// to a multiple of R so that lane 31 reads R columns at a time, aligned.
+int stream_ld(int m, int R) { return ((m > 1 ? m : 1) + R - 1) / R * R; }
+
+// One block of R steps c = k R + s of a strip of affine_stream, for one
+// lane (see the note above). kEdge: the block may hold a step on which a
+// row reaches column 0 (k < 32) or the step of cell (n, m) (c_cap); the
+// other blocks skip both tests. Returns true once the score is written.
+template <int R, bool kEdge>
+__device__ __forceinline__ bool stream_block(
+    int k, int (&M)[R], int (&I)[R], int (&D)[R], int (&G)[R], int (&cb)[R],
+    int (&bq)[R], int2 (&bn)[R], const char* prof, const int* lut,
+    const uint8_t* be, int2* brow, int lane, int m, int ld, int go, int ge,
+    int i0, int w_lo, int c_cap, int cap_lane, int cap_row, int32_t* out) {
+  const int goe = go + ge;
+  // this block's new columns (row 0's) and lane 31's boundary columns,
+  // then the loads of the next block's
+  int cn[R];
+  int2 bc[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    cn[s] = lut[bq[s]] + 4 * lane;
+    bc[s] = bn[s];
+  }
+  const int x0 = (k + 1 - lane) * R;  // column x0 + s + 1 of the next block
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+    bq[s] = (unsigned)(x0 + s) < (unsigned)m ? __ldg(be + x0 + s) : 0;
+  if (lane == 31 && (k + 1) * R < ld) {
+    const int4* src = reinterpret_cast<const int4*>(brow + (k + 1) * R);
+#pragma unroll
+    for (int q = 0; q < R / 2; ++q) {
+      const int4 v = src[q];
+      bn[2 * q] = make_int2(v.x, v.y);
+      bn[2 * q + 1] = make_int2(v.z, v.w);
+    }
+  }
+  const int from = (lane + 31) & 31;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int c = k * R + s;
+    cb[(s + 1) % R] = cn[s];
+    // row 0's upper neighbour: row R - 1 of lane t - 1 on the step before,
+    // and for lane 0 the boundary row, which lane 31 sends
+    int sH = max(M[R - 1], I[R - 1]), sD = D[R - 1];
+    if (lane == 31) {
+      sH = bc[s].x;
+      sD = bc[s].y;
+    }
+    const int u0H = __shfl_sync(kAllLanes, sH, from);
+    const int u0D = __shfl_sync(kAllLanes, sD, from);
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r) {
+      const int up = r > 0 ? r - 1 : 0;
+      const int uH = r > 0 ? max(M[up], I[up]) : u0H;  // cell (i - 1, j)
+      const int uD = r > 0 ? D[up] : u0D;
+      const int sub = *reinterpret_cast<const int*>(prof + cb[(s + 1 - r + R) % R] + 128 * r);
+      const int mv = sub + G[r];                                  // from (i-1, j-1)
+      I[r] = __viaddmax_s32(max(M[r], D[r]), goe, ge + I[r]);    // from (i, j-1)
+      D[r] = __viaddmax_s32(uH, goe, ge + uD);                    // from (i-1, j)
+      G[r] = max(uH, uD);
+      M[r] = mv;
+    }
+    if (lane == 31 && (unsigned)(c - w_lo) < (unsigned)m)
+      brow[c - w_lo] = make_int2(max(M[R - 1], I[R - 1]), D[R - 1]);
+    if (kEdge) {
+      // the row that reached column 0 on this step takes cell (i, 0)
+      const int rr = (s + 1) % R;
+      if (lane == k + (s == R - 1 ? 1 : 0)) {
+        M[rr] = kNeg;
+        I[rr] = kNeg;
+        D[rr] = go + ge * (i0 + rr);
+      }
+      if (c == c_cap) {
+        if (lane == cap_lane) {
+          int v = kNeg;
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r == cap_row) v = max3(M[r], I[r], D[r]);
+          *out = v;
+        }
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+template <int R>
+__global__ void __launch_bounds__(32 * kStreamWarps, 4)
 affine_stream_kernel(const int8_t* __restrict__ alpha,    // (NP, n)
                      const int8_t* __restrict__ beta,     // (NP, m)
                      const int32_t* __restrict__ scores,  // (5, 5)
-                     int go, int ge, int NP, int n, int m,
-                     int2* __restrict__ bnd,              // (NP, m) scratch
+                     int go, int ge, int NP, int n, int m, int ld,
+                     int2* __restrict__ bnd,              // (NP, ld) scratch
                      int32_t* __restrict__ out) {         // (NP,)
-  // tab[5 c + a]: the score of beta byte c against clipped alpha code a
-  __shared__ int tab[256 * 5];
-  for (int x = threadIdx.x; x < 256 * 5; x += blockDim.x) {
-    const int bc = (int8_t)(x / 5);
-    const int row = bc < 2 ? (bc == 0 ? 0 : 1) : min(bc, 4);
-    tab[x] = scores[row * 5 + x % 5];
-  }
+  // lut[c]: the profile offset of beta byte c's score row; prof[w]: warp
+  // w's profile, the score of beta row b against row r of lane t at int
+  // (b R + r) 32 + t
+  __shared__ int lut[256];
+  __shared__ int prof_all[kStreamWarps][5 * R * 32];
+  for (int x = threadIdx.x; x < 256; x += blockDim.x)
+    lut[x] = beta_row((int8_t)x) * R * 128;
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kStreamWarps + threadIdx.x / 32;
+  const int w = threadIdx.x / 32;
+  const int p = blockIdx.x * kStreamWarps + w;
   if (p >= NP) return;  // the whole warp
   if (n == 0) {  // cell (0, m) of row 0, unreached at m = 0
     if (lane == 0) out[p] = m > 0 ? go + ge * m : kNeg;
@@ -927,55 +1042,57 @@ affine_stream_kernel(const int8_t* __restrict__ alpha,    // (NP, n)
   }
   const int8_t* al = alpha + (int64_t)p * n;
   const uint8_t* be = (const uint8_t*)beta + (int64_t)p * m;
-  int2* brow = bnd + (int64_t)p * m;  // column j at index j - 1
-  const int goe = go + ge;
-  // row 0: M = D = NEG, I = go + ge j
-  for (int j = lane; j < m; j += 32) brow[j] = make_int2(go + ge * (j + 1), kNeg);
+  int2* brow = bnd + (int64_t)p * ld;
+  int* prof = prof_all[w];
+  // the boundary row of the first strip is row 0: M = D = NEG, I = go + ge j
+  for (int x = lane; x < ld; x += 32)
+    brow[x] = x < m ? make_int2(go + ge * (x + 1), kNeg) : make_int2(kNeg, kNeg);
   __syncwarp();
-  int M = kNeg, I = kNeg, D = kNeg;
-  for (int r0 = 0; r0 < n; r0 += 32) {
-    const int i = r0 + lane + 1;  // this lane's row; rows past n read code 4
-    const int* sub = tab + (i <= n ? min(max((int)al[i - 1], 0), 4) : 4);
-    const bool last = r0 + 32 >= n;
-    // the lane's cell before its first step: (i, 0), M = I = NEG
-    M = kNeg;
-    I = kNeg;
-    D = go + ge * i;
-    // lane 0's upper-left at step 0: cell (r0, 0) as (max(M, I), D)
-    int pH = r0 == 0 ? max(0, go) : kNeg;
-    int pD = go + ge * r0;
-    const int2 none = make_int2(kNeg, kNeg);
-    int2 chunk = lane < m ? brow[lane] : none;
-    int2 ahead = lane + 32 < m ? brow[lane + 32] : none;
-    for (int c = 0; c < m + 31; ++c) {
-      if ((c & 31) == 0 && c > 0) {
-        chunk = ahead;
-        if (c + 32 + lane < m) ahead = brow[c + 32 + lane];
-      }
-      // boundary column c + 1 for lane 0
-      const int bH = __shfl_sync(kAllLanes, chunk.x, c & 31);
-      const int bD = __shfl_sync(kAllLanes, chunk.y, c & 31);
-      // cell (i - 1, j) of lane t - 1, computed on the step before
-      int uH = __shfl_up_sync(kAllLanes, max(M, I), 1);
-      int uD = __shfl_up_sync(kAllLanes, D, 1);
-      if (lane == 0) {
-        uH = bH;
-        uD = bD;
-      }
-      const int j = c - lane + 1;
-      if (j >= 1 && j <= m) {
-        const int mv = sub[5 * be[j - 1]] + max(pH, pD);  // from (i-1, j-1)
-        I = max(goe + max(M, D), ge + I);                  // from (i, j-1)
-        D = max(goe + uH, ge + uD);                        // from (i-1, j)
-        M = mv;
-        if (lane == 31 && !last) brow[j - 1] = make_int2(max(M, I), D);
-      }
-      pH = uH;
-      pD = uD;
+  int M[R], I[R], D[R], G[R], cb[R], bq[R];
+  int2 bn[R];
+  for (int r0 = 0;; r0 += 32 * R) {
+    const bool last = r0 + 32 * R >= n;
+    const int i0 = r0 + lane * R + 1;  // this lane's first row
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      // rows past n read code 4
+      const int a = i0 + r <= n ? alpha_column(al[i0 + r - 1]) : 4;
+#pragma unroll
+      for (int b = 0; b < 5; ++b) prof[(b * R + r) * 32 + lane] = __ldg(scores + b * 5 + a);
+      M[r] = kNeg;
+      I[r] = kNeg;
+      D[r] = go + ge * (i0 + r);
+      G[r] = kNeg;
+      cb[r] = 4 * lane;
     }
-    __syncwarp();
+    // lane 0's upper-left before its first step: cell (r0, 0) as max3
+    G[0] = r0 == 0 ? max(0, go) : go + ge * r0;
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+      bq[s] = (unsigned)(s - lane * R) < (unsigned)m ? __ldg(be + s - lane * R) : 0;
+    if (lane == 31) {
+#pragma unroll
+      for (int s = 0; s < R; ++s) bn[s] = brow[s];
+    }
+    // the last strip stops on the step of cell (n, m), q rows into it
+    const int q = n - 1 - r0;
+    const int c_end = last ? m - 1 + q : m + 32 * R - 2;
+    const int nblk = c_end / R + 1;
+    const int w_lo = last ? (1 << 30) : 32 * R - 1;  // lane 31 writes column c - w_lo + 1
+    const int c_cap = last ? c_end : -1;
+    for (int k = 0; k < nblk; ++k) {
+      if (k < 32 || k == nblk - 1) {
+        if (stream_block<R, true>(k, M, I, D, G, cb, bq, bn, (const char*)prof, lut, be,
+                                  brow, lane, m, ld, go, ge, i0, w_lo, c_cap, q / R,
+                                  q % R, out + p))
+          return;
+      } else {
+        stream_block<R, false>(k, M, I, D, G, cb, bq, bn, (const char*)prof, lut, be,
+                               brow, lane, m, ld, go, ge, i0, w_lo, c_cap, q / R,
+                               q % R, out + p);
+      }
+    }
   }
-  if (lane == (n - 1) % 32) out[p] = max3(M, I, D);
 }
 
 __global__ void __launch_bounds__(kLowmemThreads)
@@ -1289,14 +1406,63 @@ extern "C" int lowmem_walk_block_launch(const void* trace, const void* wlo,
   return (int)cudaGetLastError();
 }
 
+using StreamKernel = void (*)(const int8_t*, const int8_t*, const int32_t*, int, int, int,
+                             int, int, int, int2*, int32_t*);
+
+StreamKernel stream_kernel(int R) {
+#define STREAM_CASE(X) \
+  if (R == X) return affine_stream_kernel<X>;
+  STREAM_ROWS(STREAM_CASE)
+#undef STREAM_CASE
+  return nullptr;
+}
+
+// What affine_stream is built for, written to out: the warps (pairs) a
+// block, the number of row counts a lane, and those counts, rising.
+extern "C" int affine_stream_built(void* out) {
+  int* res = (int*)out;
+  int k = 0;
+  res[0] = kStreamWarps;
+#define STREAM_REPORT(X) res[2 + k++] = X;
+  STREAM_ROWS(STREAM_REPORT)
+#undef STREAM_REPORT
+  res[1] = k;
+  return 0;
+}
+
+// The launch of affine_stream for NP pairs of m columns at R rows a lane,
+// written to out (seven ints): a block's threads, the blocks, the int2
+// columns of a pair's boundary row (the scratch the caller allocates),
+// the registers and local (spill) bytes a thread, the static shared
+// memory a block and the blocks an SM holds at once.
+extern "C" int affine_stream_shape(int NP, int m, int R, void* out) {
+  const StreamKernel kernel = stream_kernel(R);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, (const void*)kernel);
+  int* res = (int*)out;
+  res[0] = 32 * kStreamWarps;
+  res[1] = (NP + kStreamWarps - 1) / kStreamWarps;
+  res[2] = stream_ld(m, R);
+  res[3] = fa.numRegs;
+  res[4] = (int)fa.localSizeBytes;
+  res[5] = (int)fa.sharedSizeBytes;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(res + 6, kernel, 32 * kStreamWarps, 0);
+  return (int)err;
+}
+
+// bnd: (NP, stream_ld(m, R)) int2 scratch.
 extern "C" int affine_stream_launch(const void* alpha, const void* beta,
                                     const void* scores, int go, int ge, int NP,
-                                    int n, int m, void* bnd, void* out,
+                                    int n, int m, int R, void* bnd, void* out,
                                     void* stream) {
-  affine_stream_kernel<<<(NP + kStreamWarps - 1) / kStreamWarps, 32 * kStreamWarps,
-                         0, (cudaStream_t)stream>>>(
-      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)scores, go, ge,
-      NP, n, m, (int2*)bnd, (int32_t*)out);
+  const StreamKernel kernel = stream_kernel(R);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  kernel<<<(NP + kStreamWarps - 1) / kStreamWarps, 32 * kStreamWarps, 0,
+           (cudaStream_t)stream>>>((const int8_t*)alpha, (const int8_t*)beta,
+                                   (const int32_t*)scores, go, ge, NP, n, m,
+                                   stream_ld(m, R), (int2*)bnd, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """Genome graphs: nodes of sequence joined by weighted edges. Mirrors the
 parts of ``gonomics_tpu/graph.py`` that the graph aligner uses: the
 records, the .gg/.sg reader and writer (:45-96), the topological sort
-(:99-147), the construction of a variant graph from VCF records
+(:99-147), the linear graph of a FASTA reference (:150-158), the construction of a variant graph from VCF records
 (:325-556) and the k-mer seed index (:563-615).
 
 Nodes live in an index-addressed list (edges hold node indices) and
@@ -143,9 +143,22 @@ def sort_graph(g: GenomeGraph) -> GenomeGraph:
     return out
 
 
+def from_fasta(records) -> tuple[GenomeGraph, dict[int, str]]:
+    """A linear graph of a FASTA reference: one node a record, its
+    sequence upper-cased, no edges, and the node -> record-name map
+    (``gonomics_tpu/graph.py:150``, the .fa path of ``gsw align``)."""
+    g = GenomeGraph()
+    names: dict[int, str] = {}
+    for i, rec in enumerate(records):
+        g.nodes.append(Node(id=i, seq=dna.to_upper(rec.seq).astype(np.int8)))
+        names[i] = rec.name
+    return g, names
+
+
 # ---------------------------------------------------------------------------
 # VCF -> variant graph
 # ---------------------------------------------------------------------------
+
 
 def _is_inv(v) -> bool:
     data = v.info.split(";")

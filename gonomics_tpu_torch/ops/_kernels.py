@@ -55,8 +55,10 @@ _SIGNATURES = {
                                      _vp, _vp, _vp, _vp, _vp, _vp],
         "lowmem_walk_block_launch": [_vp, _vp, _int, _int, _int, _int, _vp,
                                      _vp, _vp, _vp, _vp],
+        "affine_stream_built": [_vp],
+        "affine_stream_shape": [_int, _int, _int, _vp],
         "affine_stream_launch": [_vp, _vp, _vp, _int, _int, _int, _int, _int,
-                                 _vp, _vp, _vp],
+                                 _int, _vp, _vp, _vp],
         "affine_block_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
                                 _int, _int, _int, _vp, _vp, _vp, _vp, _vp],
     },

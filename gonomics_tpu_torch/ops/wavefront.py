@@ -23,8 +23,9 @@ Nine kernels, each with its plain PyTorch version beside it:
   (:1007, ``pallas_call`` :1085);
 - ``lowmem_walk_block`` (same file) replaces the jnp walk ``_walk_block``
   (:1102);
-- ``affine_stream`` (same file) replaces ``_affine_stream_kernel``
-  (:1306, ``pallas_call`` :1507 in ``wavefront_affine_stream``);
+- ``affine_stream`` (same file, one warp a pair, R rows a lane, see
+  ``stream_plan``) replaces ``_affine_stream_kernel`` (:1306,
+  ``pallas_call`` :1507 in ``wavefront_affine_stream``);
 - ``affine_block`` (same file) replaces ``_affine_block_kernel`` (:466,
   ``pallas_call`` :620 in ``wavefront_align_blocked``).
 
@@ -619,6 +620,70 @@ def affine_stream_reference(alpha, beta, scores, gap_open: int,
     return res[:, n].reshape(P, B)
 
 
+# Rows a lane of affine_stream at the main shape (bench.py's 8 x 256 pairs
+# of 1024 x 1024), the fastest of the built counts there (PERF.md §6,
+# tools/score_timing.py plans).
+STREAM_ROWS_PER_LANE = 8
+
+_stream_configs: dict = {}
+
+
+def _stream_built() -> dict:
+    """What affine_stream is built for, as the kernels' library reports
+    it: the pairs (warps) a block and the rows a lane it takes, rising."""
+    if "built" not in _stream_configs:
+        out = (ctypes.c_int * 16)()
+        lib = _kernels.lib("wavefront")
+        _kernels.check(lib.affine_stream_built(ctypes.addressof(out)),
+                       "affine_stream")
+        _stream_configs["built"] = {"warps_per_block": out[0],
+                                    "rows_per_lane": tuple(out[2:2 + out[1]])}
+    return _stream_configs["built"]
+
+
+def stream_plan(n: int, m: int, built: dict) -> dict:
+    """The rows a lane R with which affine_stream runs pairs of n x m,
+    chosen by shape alone from the counts it is ``built`` for
+    (``_stream_built``): the smallest R whose strip of 32 R rows holds
+    all n rows, where that is below ``STREAM_ROWS_PER_LANE``, else
+    ``STREAM_ROWS_PER_LANE`` (strips of 32 of its rows), which must be
+    built."""
+    main = STREAM_ROWS_PER_LANE
+    rows = built["rows_per_lane"]
+    if main not in rows:
+        raise ValueError(f"affine_stream is not built for {main} rows a lane")
+    return _strips(next((r for r in rows if 32 * r >= n and r < main), main),
+                   n, m)
+
+
+def _strips(R: int, n: int, m: int) -> dict:
+    return {"rows_per_lane": R, "strip_rows": 32 * R,
+            "strips": -(-n // (32 * R)), "steps_a_strip": m + 32 * R - 1}
+
+
+def stream_launch_plan(P: int, n: int, m: int, R: int | None = None) -> dict:
+    """``stream_plan`` for P pairs of n x m (or the forced rows a lane R)
+    with the launch the card's library makes of it: a block's threads and
+    warps, the blocks, the boundary row's columns a pair, a thread's
+    registers and spilled bytes, a block's static shared memory and the
+    blocks an SM holds."""
+    key = (P, n, m, R)
+    if key not in _stream_configs:
+        plan = (stream_plan(n, m, _stream_built()) if R is None
+                else _strips(R, n, m))
+        out = (ctypes.c_int * 7)()
+        lib = _kernels.lib("wavefront")
+        _kernels.check(lib.affine_stream_shape(P, m, plan["rows_per_lane"],
+                                               ctypes.addressof(out)),
+                       "affine_stream")
+        _stream_configs[key] = {
+            **plan, "threads": out[0], "warps_per_block": out[0] // 32,
+            "blocks": out[1], "boundary_columns": out[2],
+            "registers": out[3], "spill_bytes": out[4],
+            "smem_bytes_per_block": out[5], "blocks_per_sm": out[6]}
+    return _stream_configs[key]
+
+
 def wavefront_affine_stream(alpha, beta, scores, *, n: int, m: int,
                             gap_open: int, gap_extend: int, device=None):
     """Score-only global affine alignment of P x B pairs of one shape (the
@@ -627,8 +692,8 @@ def wavefront_affine_stream(alpha, beta, scores, *, n: int, m: int,
     JAX function requires. Returns the (P, B) int32 scores of cell
     (n, m), where the tensors lie; numpy inputs go to ``device`` (None is
     the card). CPU tensors take ``affine_stream_reference``, CUDA tensors
-    the CUDA kernel ``affine_stream`` (one warp a pair)."""
-    global affine_stream_launches
+    the CUDA kernel ``affine_stream`` (one warp a pair, ``stream_plan``'s
+    rows a lane)."""
     alpha = _tensor(alpha, torch.int8, device)
     dev = alpha.device
     beta = _tensor(beta, torch.int8, dev)
@@ -646,15 +711,28 @@ def wavefront_affine_stream(alpha, beta, scores, *, n: int, m: int,
     out = torch.empty((P, B), dtype=torch.int32, device=dev)
     if P * B == 0:
         return out
-    # per pair, the last row of the strip of 32 rows before: max(M, I), D
-    bnd = torch.empty((P * B, m, 2), dtype=torch.int32, device=dev)
+    return _stream_launch(alpha, beta, sc, gap_open, gap_extend,
+                          stream_launch_plan(P * B, n, m), out)
+
+
+def _stream_launch(alpha, beta, sc, gap_open: int, gap_extend: int,
+                   plan: dict, out):
+    """Launch affine_stream on checked CUDA inputs with ``plan``
+    (``stream_launch_plan``) into out, (P, B) int32."""
+    global affine_stream_launches
+    dev = alpha.device
+    P, B, n = alpha.shape
+    m = beta.shape[2]
+    # per pair, the last row of the strip before: max(M, I), D a column
+    bnd = torch.empty((P * B, plan["boundary_columns"], 2), dtype=torch.int32,
+                      device=dev)
     lib = _kernels.lib("wavefront")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.affine_stream_launch(
             alpha.data_ptr(), beta.data_ptr(), sc.data_ptr(), int(gap_open),
-            int(gap_extend), P * B, n, m, bnd.data_ptr(), out.data_ptr(),
-            stream)
+            int(gap_extend), P * B, n, m, plan["rows_per_lane"],
+            bnd.data_ptr(), out.data_ptr(), stream)
     _kernels.check(rc, "affine_stream")
     affine_stream_launches += 1
     return out

@@ -699,10 +699,16 @@ def _score_pairs(shape: tuple, n: int, m: int, seed: int):
 
 
 # (P, B, n, m): one cell, m even (the JAX odd pad column) with m > n, n a
-# multiple of the 32-row strip, n = 0 (row 0 only), and a wider batch
+# multiple of the 32-row strip, n = 0 (row 0 only), a wider batch, and
+# the edges of stream_plan: n below the main plan's strip of 32 R rows
+# (100 and 129: a smaller R, or one ragged strip), n < 64 (the smallest
+# R), m much wider than n, odd m, and a ragged last strip
 _STREAM_CASES = [(2, 3, 1, 1, "humanChimp"), (2, 5, 300, 512, "humanChimp"),
                  (4, 7, 64, 64, "plusMinusOne"), (2, 2, 0, 5, "humanChimp"),
-                 (6, 64, 257, 300, "asymmetric")]
+                 (6, 64, 257, 300, "asymmetric"),
+                 (2, 9, 100, 100, "humanChimp"), (2, 5, 129, 301, "asymmetric"),
+                 (2, 4, 40, 40, "plusMinusOne"), (2, 3, 64, 4096, "humanChimp"),
+                 (4, 6, 513, 1023, "asymmetric")]
 
 
 @pytest.mark.cuda
@@ -722,6 +728,27 @@ def test_stream_kernel_equals_plain(card, P, B, n, m, scoring):
     torch.cuda.synchronize()
     assert wavefront.affine_stream_launches == before + 1
     assert got.shape == (P, B) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1, 1), (77, 77), (300, 513), (1000, 1030)])
+def test_stream_kernel_each_rows_per_lane(card, n, m):
+    """affine_stream at every count of rows a lane it is built for (one
+    strip, several, a ragged last strip), against affine_stream_reference,
+    with the launch its library reports: no spill, at most 128 registers,
+    so that 4 blocks of 4 warps share an SM."""
+    alpha, beta = (torch.from_numpy(x).to(card)
+                   for x in _score_pairs((2, 6), n, m, n + m))
+    sc = torch.as_tensor(ASYMMETRIC, dtype=torch.int32, device=card)
+    want = wavefront.affine_stream_reference(alpha, beta, sc, -400, -30)
+    for R in wavefront._stream_built()["rows_per_lane"]:
+        plan = wavefront.stream_launch_plan(12, n, m, R)
+        assert plan["spill_bytes"] == 0 and plan["registers"] <= 128, plan
+        assert plan["blocks_per_sm"] >= 4, plan
+        out = torch.empty((2, 6), dtype=torch.int32, device=card)
+        got = wavefront._stream_launch(alpha, beta, sc, -400, -30, plan, out)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), R
 
 
 # (B, n, m, r_rows): r_rows dividing n, n = 1, r_rows not dividing n, one

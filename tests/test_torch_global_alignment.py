@@ -119,3 +119,44 @@ def test_mains_with_device_flag(tmp_path, capsys):
     for ext in (".ga.fa", ".ins.bed", ".del.bed"):
         assert (tmp_path / f"port{ext}").read_bytes() == \
             (tmp_path / f"jax{ext}").read_bytes()
+
+
+# The JAX tools' --backend values; on the CPU the JAX's tpu backend runs
+# its Pallas kernels in interpret mode, and auto picks numpy.
+_BACKENDS = ["auto", "tpu", "numpy", "interpret"]
+_JAX_ON_CPU = {"tpu": "interpret"}
+
+
+@pytest.mark.parametrize("backend", _BACKENDS)
+@pytest.mark.parametrize("tool", ["globalAlignment", "cigarToBed"])
+def test_mains_take_backend(tmp_path, capsys, tool, backend):
+    """Both entry points take --backend as the JAX parsers do: numpy and
+    interpret run the plain versions on the CPU, any other value runs on
+    --device (cpu here). Stdout and files equal the JAX tools' with the
+    same backend on the CPU."""
+    fa_a = _write_fa(tmp_path / "a.fa", "a", "ACGTACGTTT")
+    fa_b = _write_fa(tmp_path / "b.fa", "b", "ACGTCGTTT")
+    device = [] if backend in ("numpy", "interpret") else ["--device", "cpu"]
+    jax_backend = _JAX_ON_CPU.get(backend, backend)
+    buf = io.StringIO()
+    if tool == "globalAlignment":
+        outs = (".fa",)
+        port_ga.main([fa_a, fa_b, "-faOut", str(tmp_path / "port.fa"),
+                      "--backend", backend, *device])
+        jax_ga.global_alignment(fa_a, fa_b, str(tmp_path / "jax.fa"),
+                                backend=jax_backend, out=buf)
+    else:
+        outs = (".ins.bed", ".del.bed")
+        port_c2b.main([fa_a, fa_b, "-insBedOut", str(tmp_path / "port.ins.bed"),
+                       "-delBedOut", str(tmp_path / "port.del.bed"),
+                       "--backend", backend, *device])
+        jax_c2b.cigar_to_bed(fa_a, fa_b,
+                             ins_bed_out=str(tmp_path / "jax.ins.bed"),
+                             del_bed_out=str(tmp_path / "jax.del.bed"),
+                             backend=jax_backend, out=buf)
+    got = capsys.readouterr().out
+    assert got == buf.getvalue()
+    assert "Alignment score is " in got
+    for ext in outs:
+        assert (tmp_path / f"port{ext}").read_bytes() == \
+            (tmp_path / f"jax{ext}").read_bytes()

@@ -2,7 +2,10 @@
 cpu) against the JAX package's `gsw align --engine tpu` (Pallas in
 interpret mode): byte-identical SAM files, single and paired, for a
 linear reference; for a graph reference byte-identical giraf, and SAM
-with -l x.sizes, against both --engine tpu and --engine host."""
+with -l x.sizes, against both --engine tpu and --engine host; and both
+tools without --engine (the host engine) on .fa and .gg references."""
+
+import random
 
 import numpy as np
 import pytest
@@ -63,7 +66,7 @@ def test_sam_byte_identical(tmp_path, paired, flags):
     jax_gsw.main(["align", *files, "-o", str(want), "--engine", "tpu",
                   "--batch", "4", *flags])
     port_gsw.main(["align", *files, "-o", str(got), "--device", "cpu",
-                   "--batch", "4", *flags])
+                   "--engine", "tpu", "--batch", "4", *flags])
     text = got.read_bytes()
     assert text == want.read_bytes()
     assert text.count(b"\n") == 3 + (20 if paired else 10)
@@ -77,15 +80,8 @@ def test_sparse_index_byte_identical(tmp_path):
     jax_gsw.main(["align", ref, r1, "-o", str(want), "--engine", "tpu",
                   *flags])
     port_gsw.main(["align", ref, r1, "-o", str(got), "--device", "cpu",
-                   *flags])
+                   "--engine", "tpu", *flags])
     assert got.read_bytes() == want.read_bytes()
-
-
-def test_engine_host_exits(tmp_path):
-    ref, r1, _ = _write_inputs(tmp_path)
-    with pytest.raises(SystemExit, match="no numpy host engine"):
-        port_gsw.main(["align", ref, r1, "-o", str(tmp_path / "o.sam"),
-                       "--device", "cpu", "--engine", "host"])
 
 
 def test_profile_writes_trace(tmp_path):
@@ -93,7 +89,8 @@ def test_profile_writes_trace(tmp_path):
     SAM as a run without it."""
     ref, r1, _ = _write_inputs(tmp_path)
     plain, traced = tmp_path / "plain.sam", tmp_path / "traced.sam"
-    port_gsw.main(["align", ref, r1, "-o", str(plain), "--device", "cpu"])
+    port_gsw.main(["align", ref, r1, "-o", str(plain), "--device", "cpu",
+                   "--engine", "tpu"])
     prof = tmp_path / "prof"
     port_gsw.main(["align", ref, r1, "-o", str(traced), "--device", "cpu",
                    "--engine", "tpu", "--profile", str(prof)])
@@ -118,7 +115,7 @@ def test_unported_options_exit(tmp_path, extra, item):
         ref = str(tmp_path / "ref.gg")
     with pytest.raises(SystemExit, match=item):
         port_gsw.main(["align", ref, r1, "-o", str(tmp_path / "o.sam"),
-                       "--device", "cpu", *extra])
+                       "--device", "cpu", "--engine", "tpu", *extra])
 
 
 def _write_graph_inputs(tmp_path):
@@ -189,3 +186,72 @@ def test_graph_byte_identical(tmp_path, paired, out):
         assert sum(not int(ln.split("\t")[1]) & 4 for ln in body) >= 6
     else:
         assert sum(ln.split("\t")[5] != "0::0" for ln in body) >= 6
+
+
+def _write_default_engine_inputs(tmp_path):
+    """A 3,000-base chr1 (random.seed(1)) as .fa, and as a .gg variant
+    graph with a SNP and a deletion; its .sizes; 150-base reads at 100,
+    600 and 1,100 (one with a mismatch) and a random one, with R2 the
+    reverse complement of the 150 bases 250 downstream."""
+    random.seed(1)
+    ref = "".join(random.choice("ACGT") for _ in range(3000))
+    (tmp_path / "ref.fa").write_text(
+        ">chr1\n" + "".join(ref[i:i + 60] + "\n" for i in range(0, 3000, 60)))
+    codes = dna.from_string(ref)
+    vcfs = [Vcf(chrom="chr1", pos=700, id=".", ref=ref[699],
+                alt=["ACGT"[("ACGT".index(ref[699]) + 1) % 4]],
+                info="SVTYPE=SNP"),
+            Vcf(chrom="chr1", pos=1200, id=".", ref=ref[1199:1204],
+                alt=[ref[1199]], info="SVTYPE=DEL")]
+    g = jax_graph.variant_graph([Fasta("chr1", codes)], {"chr1": vcfs})
+    jax_graph.write(str(tmp_path / "ref.gg"), g)
+    (tmp_path / "ref.sizes").write_text("chr1\t3000\n")
+
+    def rc(s):
+        return s[::-1].translate(str.maketrans("ACGT", "TGCA"))
+
+    r1, r2 = [], []
+    for k, s in enumerate((100, 600, 1100)):
+        read = ref[s:s + 150]
+        if k == 1:
+            read = read[:40] + ("A" if read[40] != "A" else "C") + read[41:]
+        r1.append(read)
+        r2.append(rc(ref[s + 250:s + 400]))
+    r1.append("".join(random.choice("ACGT") for _ in range(150)))
+    r2.append(rc(ref[2000:2150]))
+    for name, reads in (("r1.fq", r1), ("r2.fq", r2)):
+        (tmp_path / name).write_text("".join(
+            f"@r{k}\n{read}\n+\n{'I' * len(read)}\n"
+            for k, read in enumerate(reads)))
+    return {ext: str(tmp_path / f"ref.{ext}") for ext in ("fa", "gg", "sizes")}
+
+
+@pytest.mark.parametrize("sizes", [False, True], ids=["giraf", "sam"])
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+@pytest.mark.parametrize("ext", ["fa", "gg"])
+def test_default_engine_byte_identical(tmp_path, ext, paired, sizes):
+    """Without --engine both tools run the host engine: a .fa reference
+    as a linear graph, giraf (SAM with -l); the port's output is the
+    JAX's byte for byte, and an explicit --engine host is the same."""
+    refs = _write_default_engine_inputs(tmp_path)
+    files = [refs[ext], str(tmp_path / "r1.fq")]
+    if paired:
+        files.append(str(tmp_path / "r2.fq"))
+    flags = ["-l", refs["sizes"]] if sizes else []
+    want = tmp_path / "jax.out"
+    jax_gsw.main(["align", *files, "-o", str(want), *flags])
+    text = want.read_bytes()
+    for engine in ([], ["--engine", "host"]):
+        got = tmp_path / "port.out"
+        port_gsw.main(["align", *files, "-o", str(got), "--device", "cpu",
+                       *engine, *flags])
+        assert got.read_bytes() == text, engine
+    lines = text.decode().splitlines()
+    body = [ln for ln in lines if not ln.startswith("@")]
+    assert len(body) == (8 if paired else 4)
+    if sizes:
+        assert lines[:2] == ["@HD\tVN:1.6\tSO:unsorted",
+                             "@SQ\tSN:chr1\tLN:3000"]
+    else:
+        assert not lines[0].startswith("@")
+        assert sum(ln.split("\t")[5] != "0::0" for ln in body) >= 3

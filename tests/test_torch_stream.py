@@ -84,3 +84,30 @@ def test_stream_rejects_bad_shapes(P, n, m):
     with pytest.raises(ValueError):
         port_wf.wavefront_affine_stream(alpha, beta, HUMAN_CHIMP_TWO, n=n,
                                         m=m, device="cpu", **GAPS)
+
+
+# what affine_stream's library reports it is built for (affine_stream_built),
+# written here so that the plan is checked without a card
+_STREAM_BUILT = {"warps_per_block": 4, "rows_per_lane": (2, 4, 8)}
+
+
+@pytest.mark.parametrize("n,m,R", [
+    (1024, 1024, 8), (0, 5, 2), (1, 1, 2), (64, 64, 2), (65, 70, 4),
+    (128, 4096, 4), (129, 300, 8), (100, 100, 4), (200, 300, 8),
+    (257, 300, 8), (513, 1023, 8)])
+def test_stream_plan(n, m, R):
+    """stream_plan by shape alone: the smallest built R whose strip of 32 R
+    rows holds all n rows where that is below the main plan's R (8), else
+    the main plan's; its strips, and the steps of one (m + 32 R - 1),
+    follow."""
+    assert port_wf.STREAM_ROWS_PER_LANE == 8
+    plan = port_wf.stream_plan(n, m, _STREAM_BUILT)
+    assert plan == {"rows_per_lane": R, "strip_rows": 32 * R,
+                    "strips": -(-n // (32 * R)),
+                    "steps_a_strip": m + 32 * R - 1}
+
+
+def test_stream_plan_needs_a_built_main():
+    with pytest.raises(ValueError, match="not built for 8 rows"):
+        port_wf.stream_plan(1024, 1024, {"warps_per_block": 4,
+                                         "rows_per_lane": (2, 4)})

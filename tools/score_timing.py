@@ -1,0 +1,207 @@
+#!/usr/bin/env python3
+"""Where the score-only stream kernel affine_stream (K8) spends its time,
+on one CUDA card.
+
+    python3 tools/score_timing.py plans
+    python3 tools/score_timing.py compare [--root DIR]
+    python3 tools/score_timing.py sass
+
+All modes work on the main shape chip_smoke.py times: bench.py's stream
+batch, P = 8 x B = 256 random pairs of 1024 x 1024 (seeds 0 and 1),
+humanChimpTwo, gaps -600/-150. Times are medians of CUDA events; each case
+prints one JSON line with its time and whether its result equals the
+plain version's.
+
+plans: K8 at every count R of rows a lane it is built for, each with the
+    launch its library reports (registers, spilled bytes, blocks an SM
+    holds), at the main shape (median of 15 samples of 2 launches) and on
+    one pair alone (median of 15 samples of 5 launches), whose time over
+    its steps is the latency of a warp-step.
+compare: K8 through its public wrapper at the main shape, the median of 15
+    samples of 2 launches. With --root DIR the package is imported from
+    the checkout at DIR (say a `git archive` of another commit in a
+    git-ignored directory), so that two commits are timed the same way on
+    one card: run parent, change, change, parent in one sitting.
+sass: compiles csrc/wavefront.cu to a cubin with `nvcc -Xptxas -v`
+    (registers, spills) and counts, in `cuobjdump -sass` of each
+    affine_stream_kernel<R>, the instructions of its longest straight run
+    (the block of R steps that needs no edge test) by opcode, and per
+    step.
+
+Needs a CUDA card (sass needs only nvcc and cuobjdump); the package builds
+its kernels into the git-ignored gonomics_tpu_torch/_build/ of the
+checkout it is imported from.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+
+GO, GE = chip_smoke.AFFINE_GAPS
+
+
+def equal(got, want) -> bool:
+    torch.cuda.synchronize()
+    return torch.equal(got, want)
+
+
+def plans(wavefront, dev, smi: str) -> int:
+    from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=dev)
+    sa, sb = chip_smoke.stream_batch(dev)
+    P, B, n = sa.shape
+    m = sb.shape[2]
+    want = wavefront.affine_stream_reference(sa, sb, sc, GO, GE)
+    main = wavefront.stream_launch_plan(P * B, n, m)
+    failed = 0
+    for R in wavefront._stream_built()["rows_per_lane"]:
+        for shape, (a, b, w, inner) in (
+                ("main", (sa, sb, want, 2)),
+                ("one_pair", (sa[:1, :1].contiguous(), sb[:1, :1].contiguous(),
+                              want[:1, :1], 5))):
+            pairs = a.shape[0] * a.shape[1]
+            plan = wavefront.stream_launch_plan(pairs, n, m, R)
+            out = torch.empty(a.shape[:2], dtype=torch.int32, device=dev)
+
+            def run():
+                return wavefront._stream_launch(a, b, sc, GO, GE, plan, out)
+
+            ok = equal(run().clone(), w)
+            ms = chip_smoke.median_ms(run, runs=15, inner=inner)
+            # the steps to cell (n, m): whole strips, then row n's of the last
+            last = n - 1 - (plan["strips"] - 1) * plan["strip_rows"]
+            steps = (plan["strips"] - 1) * plan["steps_a_strip"] + last + m
+            print(json.dumps({
+                "kernel": "affine_stream", "shape": shape, "pairs": pairs,
+                "n": n, "m": m, "plan": plan,
+                "is_wrapper_plan": R == main["rows_per_lane"], "ms": ms,
+                "g_cells_per_s": pairs * n * m / ms / 1e6,
+                "us_per_step": ms * 1e3 / steps,
+                "cycles_per_step_at_1980_MHz": ms * 1e-3 / steps * 1.98e9,
+                "equal_to_plain": ok, "card": smi}), flush=True)
+            failed += not ok
+    return failed
+
+
+def compare(wavefront, dev, smi: str, root: str) -> int:
+    from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=dev)
+    sa, sb = chip_smoke.stream_batch(dev)
+    P, B, n = sa.shape
+    m = sb.shape[2]
+
+    def kernel():
+        return wavefront.wavefront_affine_stream(sa, sb, sc, n=n, m=m,
+                                                 gap_open=GO, gap_extend=GE)
+
+    ok = equal(kernel(), wavefront.affine_stream_reference(sa, sb, sc, GO, GE))
+    ms = chip_smoke.median_ms(kernel, runs=15, inner=2)
+    print(json.dumps({
+        "kernel": "affine_stream", "shape": "main", "pairs": P * B, "n": n,
+        "m": m, "root": root, "ms_2_launches_a_sample": ms,
+        "g_cells_per_s": P * B * n * m / ms / 1e6,
+        "equal_to_plain": ok, "card": smi}), flush=True)
+    return 0 if ok else 1
+
+
+def sass() -> int:
+    """ptxas's report and the SASS instruction counts of each
+    affine_stream_kernel<R>."""
+    from gonomics_tpu_torch import _buildlib
+    from gonomics_tpu_torch.ops import _kernels
+
+    src = os.path.join(ROOT, "gonomics_tpu_torch", "csrc", "wavefront.cu")
+    os.makedirs(_buildlib.BUILD_DIR, exist_ok=True)
+    cubin = os.path.join(_buildlib.BUILD_DIR, "wavefront_sass.cubin")
+    flags = [f for f in _kernels.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    res = subprocess.run([_kernels._nvcc(), *flags, "-cubin", "-Xptxas", "-v",
+                          "-o", cubin, src], check=True, capture_output=True,
+                         text=True)
+    lines = res.stderr.splitlines()
+    for k, line in enumerate(lines):
+        if "affine_stream_kernel" in line and "Compiling" in line:
+            print(json.dumps({"ptxas": lines[k:k + 4]}), flush=True)
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    dump = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                          capture_output=True, text=True).stdout
+    funcs = re.split(r"\n\s*Function : ", dump)
+    for body in funcs[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "affine_stream_kernel" not in name:
+            continue
+        R = int(re.search(r"affine_stream_kernelILi(\d+)E", name).group(1))
+        runs, cur, total = [], [], 0
+        for line in body.splitlines():
+            ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                           line)
+            if line.strip().startswith(".L_"):
+                runs.append(cur)
+                cur = []
+            if not ins:
+                continue
+            op = ins.group(2)
+            total += 1
+            cur.append(op)
+            if op.startswith(("BRA", "EXIT", "RET", "BSYNC", "WARPSYNC")):
+                runs.append(cur)
+                cur = []
+        runs.append(cur)
+        run = max(runs, key=len)
+        ops = collections.Counter(o.split(".")[0] for o in run)
+        print(json.dumps({
+            "kernel": f"affine_stream_kernel<{R}>", "instructions": total,
+            "longest_straight_run": len(run),
+            "run_instructions_a_step": len(run) / R,
+            "run_by_opcode": dict(ops.most_common())}), flush=True)
+    return 0
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("mode", choices=("plans", "compare", "sass"))
+    parser.add_argument("--root", default=ROOT,
+                        help="checkout to import gonomics_tpu_torch from "
+                             "(compare only)")
+    args = parser.parse_args()
+    if args.mode == "sass":
+        return sass()
+    if not torch.cuda.is_available():
+        print("score_timing: no CUDA card", file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.root)
+    if args.mode != "compare" and root != ROOT:
+        parser.error("--root is for compare only")
+    sys.path.insert(0, root)
+    from gonomics_tpu_torch.ops import wavefront
+    assert os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(wavefront.__file__)))) == root
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    if args.mode == "compare":
+        failed = compare(wavefront, dev, smi, root)
+    else:
+        failed = plans(wavefront, dev, smi)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
