@@ -19,10 +19,11 @@ exits non-zero:
             star's command line) on a 10 Mbp genome, single and paired,
             byte-equal to the library path's SAM for the same reads.
 5. pairwise_kernels: affine_wavefront and const_wavefront, trace mode at
-            128 pairs and score mode at 256 pairs of 1024 x 1024, each
-            held against its plain PyTorch version on the card (exact
-            equality) and timed; plus one case per kernel whose diagonal
-            state is above the shared-memory limit (global scratch).
+            128 pairs and score mode at 256 pairs of 1024 x 1024 (the
+            affine score mode is affine_score_diag's), each held against
+            its plain PyTorch version on the card (exact equality) and
+            timed; plus one case per kernel whose diagonal state is above
+            the shared-memory limit (global scratch).
 6. pairwise: affine_gap_batch and const_gap_batch on 128 related ~1 kb
             pairs: every route consumes both sequences and replays to its
             score, the first 8 pairs equal device="cpu", score mode
@@ -70,20 +71,24 @@ exits non-zero:
             K = 256 equal device="cpu", and a related 100 kb pair through
             the pairwise API (K = 4096) replays and equals K2's score.
 13. score_kernels: affine_stream (K8) at bench.py's P = 8 x B = 256
-            random pairs of 1024 x 1024 and affine_block (K9) on 256
-            related pairs padded to 1024 x 1024 at r_rows = 512, each held
-            against its plain PyTorch version on the card (exact equality)
-            and timed, with K8's plan (stream_launch_plan: rows a lane,
-            warps a block, blocks, registers, spills); plus P = 2 with m
-            even and m > n, n = 1, n below one strip with odd m, m much
-            wider than n, r_rows not dividing n, and r_rows + 1 > 1024
-            lanes.
+            random pairs of 1024 x 1024, and affine_score_diag through
+            wavefront_align_blocked (K9's contract) on 256 related pairs
+            padded to 1024 x 1024 at r_rows = 512 and through K2's score
+            mode on the 256 pairs of phase 5, each held against its plain
+            PyTorch version on the card (exact equality) and timed, with
+            each plan (stream_launch_plan, score_diag_launch_plan: rows a
+            lane, warps a pair and a block, blocks, registers, spills);
+            plus P = 2 with m even and m > n, n = 1, n below one strip
+            with odd m, m much wider than n, r_rows not dividing n,
+            r_rows + 1 > 1024 lanes, and K2's score mode with fin_b below
+            and past n_b + m_b, m < n, n = 0 and one pair of 20,000 rows.
 14. score:  bench.py's stage_score_stream: its parity gate (K2, the
             stream, the blocked kernel) against the plain versions on the
             CPU; K2's score mode, the stream and the blocked kernel once
             each on the stream's 2048 pairs, where all three must give the
             same score for every pair, with each call's peak device
-            memory; G cells/s of each at bench.py's sizes.
+            memory and the plans of affine_score_diag; G cells/s of each
+            at bench.py's sizes.
 
 Then the kernels line (launch counts of banded_dp and banded_walk_pack
 from phase 3, of the wavefront kernels from phase 6, of the graph kernels
@@ -643,14 +648,16 @@ def pair_batch(B: int, n: int, m: int, seed: int, dev):
 
 
 def wavefront_bound(mode: str, kind: str, dims: np.ndarray, n: int, m: int,
-                    results: int | None = None) -> dict:
+                    results: int | None = None, cells: int | None = None
+                    ) -> dict:
     """Least time for one wavefront call: each input read once and each
     output written once (the trace as each pair's own n_b x m_b cells,
     and `results` int32 values, by default the (B, n+1) rows of K2/K3)
-    at the memory rate, and the operations each pair's own cells need at
-    the int32 rate."""
+    at the memory rate, and the operations that `cells` (by default each
+    pair's own n_b x m_b) need at the int32 rate."""
     B = len(dims)
-    cells = int((dims[:, 0].astype(np.int64) * dims[:, 1]).sum())
+    if cells is None:
+        cells = int((dims[:, 0].astype(np.int64) * dims[:, 1]).sum())
     if results is None:
         results = (3 if (mode, kind) == ("affine", "trace") else 1) * B * (n + 1)
     nbytes = B * (n + m) + 4 * B + 100 + 4 * results
@@ -661,6 +668,15 @@ def wavefront_bound(mode: str, kind: str, dims: np.ndarray, n: int, m: int,
     return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
             "operations": per_cell * cells / INT32_OPS_PER_S * 1e3,
             "cells": cells}
+
+
+def diagonal_cells(rows: int, m: int, fin) -> int:
+    """The cells (i, j), 1 <= i <= rows and 1 <= j <= m, on or before each
+    pair's diagonal fin_b, summed over the pairs: what affine_score_diag's
+    function needs to read out diagonal fin_b of a grid of rows x m."""
+    i = np.arange(1, rows + 1, dtype=np.int64)
+    f = np.asarray(fin, np.int64).reshape(-1, 1)
+    return int(np.clip(f - i, 0, m).sum())
 
 
 def phase_pairwise_kernels(dev: torch.device) -> list[dict]:
@@ -748,9 +764,10 @@ def phase_pairwise_kernels(dev: torch.device) -> list[dict]:
             "bound_ms": trace_case["bound_ms"],
             "bound_by": trace_case["bound_by"], "library_ms": None,
             "shape": f"trace mode, {trace_case['B']} pairs of "
-                     f"{PAIR_LEN} x {PAIR_LEN}",
-            "score_mode": {k: score_case[k] for k in (
-                "B", "ms", "plain_ms", "bound_ms", "bound_by")}})
+                     f"{PAIR_LEN} x {PAIR_LEN}"})
+        if mode == "const":  # the affine score mode is affine_score_diag's
+            rows[-1]["score_mode"] = {k: score_case[k] for k in (
+                "B", "ms", "plain_ms", "bound_ms", "bound_by")}
     return rows
 
 
@@ -1866,8 +1883,9 @@ def random_score_batch(B: int, n: int, m: int, seed: int, dev):
 
 
 def phase_score_kernels(dev: torch.device) -> list[dict]:
-    """affine_stream (K8) and affine_block (K9) against their plain
-    versions at bench.py's full size and on edge cases, exact."""
+    """affine_stream (K8) and affine_score_diag (through K9's contract and
+    K2's score mode) against their plain versions at full size and on edge
+    cases, exact."""
     from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
     from gonomics_tpu_torch.ops import wavefront
 
@@ -1889,6 +1907,13 @@ def phase_score_kernels(dev: torch.device) -> list[dict]:
     def blocked_plain(a, b, f, r_rows):
         return wavefront.affine_block_reference(a, b, f, sc, go, ge, r_rows)
 
+    def k2_score(a, b, f):
+        return wavefront.affine_wavefront(a, b, f, sc, go, ge, False)
+
+    def k2_score_plain(a, b, f):
+        return wavefront.affine_wavefront_reference(a, b, f, sc, go, ge,
+                                                    False)
+
     def check(kernel, plain, args) -> dict:
         """The kernel against its plain version; the plain call timed."""
         got = kernel(*args)
@@ -1905,16 +1930,38 @@ def phase_score_kernels(dev: torch.device) -> list[dict]:
     L, P, B, R = SCORE_L, SCORE_P, SCORE_B, SCORE_R
     sa, sb = stream_batch(dev)
     ba, bb, bf, dims = pair_batch(B, L, L, seed=41, dev=dev)
+    # phase 5's score-mode batch
+    ka, kb, kf, kdims = pair_batch(PAIR_B_SCORE, PAIR_LEN, PAIR_LEN,
+                                   seed=PAIR_B_SCORE + len("affine"), dev=dev)
     full = {
         "affine_stream": (stream, stream_plain, (sa, sb),
                           f"{P} x {B} random pairs of {L} x {L}"),
         "affine_block": (blocked, blocked_plain, (ba, bb, bf, R),
                          f"{B} related pairs padded to {L} x {L} (n_b = "
                          f"{int(dims[:, 0].min())}-{L}, m_b = "
-                         f"{int(dims[:, 1].min())}-{L}), r_rows = {R}")}
+                         f"{int(dims[:, 1].min())}-{L}), r_rows = {R}"),
+        "k2_score_mode": (k2_score, k2_score_plain, (ka, kb, kf),
+                          f"{PAIR_B_SCORE} related pairs padded to "
+                          f"{PAIR_LEN} x {PAIR_LEN} (n_b = "
+                          f"{int(kdims[:, 0].min())}-{PAIR_LEN}, m_b = "
+                          f"{int(kdims[:, 1].min())}-{PAIR_LEN})")}
+
     def codes(shape, seed):
         return torch.from_numpy(np.random.default_rng(seed).integers(
             0, 5, shape).astype(np.int8)).to(dev)
+
+    def k2_batch(B, n, m, seed, fin_of=lambda f: f):
+        """random_score_batch with fin_b = fin_of(n_b + m_b)."""
+        a, b, f = random_score_batch(B, max(n, 1), m, seed, dev)
+        return (a[:, :n].contiguous(), b,
+                fin_of(f).to(torch.int32).contiguous())
+
+    def edges_of(n, m):
+        def fin_of(f):
+            f = f.clone()
+            f[:4] = torch.tensor([n + m + 1, 0, 1, n + m])[:len(f)]
+            return f
+        return fin_of
 
     edges = [
         ("affine_stream", "P = 2, m even and m > n (300 x 512)",
@@ -1929,8 +1976,18 @@ def phase_score_kernels(dev: torch.device) -> list[dict]:
          (*random_score_batch(16, 1000, 700, 55, dev), 384)),
         ("affine_block", "n = 1, r_rows = 512",
          (*random_score_batch(4, 1, 50, 56, dev), 512)),
-        ("affine_block", "r_rows + 1 = 1501 > 1024 lanes (two a thread)",
-         (*random_score_batch(8, 3000, 300, 57, dev), 1500))]
+        ("affine_block", "r_rows + 1 = 1501 > 1024 lanes",
+         (*random_score_batch(8, 3000, 300, 57, dev), 1500)),
+        ("k2_score_mode", "fin_b 1-3 below n_b + m_b (300 x 200)",
+         k2_batch(12, 300, 200, 62,
+                  lambda f: f - 1 - torch.arange(len(f), device=dev) % 3)),
+        ("k2_score_mode", "fin_b past n + m, 0, 1 and n + m (90 x 70)",
+         k2_batch(6, 90, 70, 63, edges_of(90, 70))),
+        ("k2_score_mode", "m < n (600 x 50)", k2_batch(8, 600, 50, 64)),
+        ("k2_score_mode", "n = 0 (0 x 7)",
+         k2_batch(3, 0, 7, 65, lambda f: f - 1)),
+        ("k2_score_mode", "one pair of 20,000 x 300 (79 strips)",
+         k2_batch(1, 20_000, 300, 66))]
     cases = []
     for name, (kernel, plain, args, what) in full.items():
         cases.append({"kernel": name, "case": "full size: " + what,
@@ -1941,61 +1998,78 @@ def phase_score_kernels(dev: torch.device) -> list[dict]:
                       **check(kernel, plain, args)})
     ok = all(c["equal_to_plain"] for c in cases)
 
-    # bounds from this run's inputs: the stream's cells are P B n m; the
-    # blocked kernel sweeps nb r_rows padded rows of every pair
+    # bounds from this run's inputs: the stream's cells are P B n m;
+    # affine_score_diag's are those on or before each pair's diagonal
+    # fin_b, over nb r_rows padded rows for K9 and n rows for K2
     nb = -(-L // R)
     bounds = {
         "affine_stream": wavefront_bound(
             "affine", "score", np.tile([L, L], (P * B, 1)), L, L,
             results=P * B),
         "affine_block": wavefront_bound(
-            "affine", "score", np.tile([nb * R, L], (B, 1)), L, L,
-            results=nb * B * (R + 1))}
+            "affine", "score", dims, L, L, results=nb * B * (R + 1),
+            cells=diagonal_cells(nb * R, L, bf.cpu().numpy())),
+        "k2_score_mode": wavefront_bound(
+            "affine", "score", kdims, PAIR_LEN, PAIR_LEN,
+            cells=diagonal_cells(PAIR_LEN, PAIR_LEN, kf.cpu().numpy()))}
     times = {"affine_stream": median_ms(lambda: stream(sa, sb), runs=10,
                                         inner=2),
              "affine_block": median_ms(lambda: blocked(ba, bb, bf, R),
-                                       runs=10, inner=2)}
-    replaces = {
-        "affine_stream": "gonomics_tpu/ops/wavefront.py:1306 "
-                         "(_affine_stream_kernel, pallas_call :1507 in "
-                         "wavefront_affine_stream :1449)",
-        "affine_block": "gonomics_tpu/ops/wavefront.py:466 "
-                        "(_affine_block_kernel, pallas_call :620 in "
-                        "wavefront_align_blocked :569)"}
-    rows = []
-    for name in ("affine_stream", "affine_block"):
-        mine = [c for c in cases if c["kernel"] == name]
-        bound = bounds[name]
+                                       runs=10, inner=2),
+             "k2_score_mode": median_ms(lambda: k2_score(ka, kb, kf),
+                                        runs=10, inner=2)}
+    plans = {"affine_stream": wavefront.stream_launch_plan(P * B, L, L),
+             "affine_block": wavefront.score_diag_launch_plan(B, nb * R, L),
+             "k2_score_mode": wavefront.score_diag_launch_plan(
+                 PAIR_B_SCORE, PAIR_LEN, PAIR_LEN)}
+    summary = {}
+    for name, bound in bounds.items():
         by = "bytes" if bound["bytes"] > bound["operations"] else "operations"
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "gonomics_tpu_torch/csrc/wavefront.cu",
-            "replaces": replaces[name], "launches": None,
+        mine = [c for c in cases if c["kernel"] == name]
+        summary[name] = {
+            "shape": full[name][3], "ms": times[name],
+            "plain_ms": mine[0]["plain_ms"], "bound_ms": bound[by],
+            "bound_by": by, "cells": bound["cells"], "plan": plans[name],
             "equal_to_plain": all(c["equal_to_plain"] for c in mine),
-            "tolerance": "exact",
-            "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "ms": times[name], "plain_ms": mine[0]["plain_ms"],
-            "bound_ms": bound[by], "bound_by": by, "library_ms": None,
-            "shape": full[name][3], "cells": bound["cells"]})
-    plan = wavefront.stream_launch_plan(P * B, L, L)
+            "max_abs_err": max(c["max_abs_err"] for c in mine)}
     emit({"phase": "score_kernels", "tolerance": "exact", "cases": cases,
-          "affine_stream_plan": plan,
-          "kernels": [{k: r[k] for k in ("name", "equal_to_plain",
-                                         "max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by", "shape",
-                                         "cells")} for r in rows]})
+          "kernels": summary})
     if not ok:
         raise SystemExit("a score kernel disagrees with its plain version")
-    return rows
+    common = {"route": "cuda", "source": "gonomics_tpu_torch/csrc/wavefront.cu",
+              "launches": None, "tolerance": "exact", "library_ms": None}
+    row_keys = ("equal_to_plain", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "shape", "cells")
+    k2 = summary["k2_score_mode"]
+    return [
+        {"name": "affine_stream", **common,
+         "replaces": "gonomics_tpu/ops/wavefront.py:1306 "
+                     "(_affine_stream_kernel, pallas_call :1507 in "
+                     "wavefront_affine_stream :1449)",
+         **{k: summary["affine_stream"][k] for k in row_keys}},
+        {"name": "affine_score_diag", **common,
+         "replaces": "gonomics_tpu/ops/wavefront.py:466 "
+                     "(_affine_block_kernel, pallas_call :620 in "
+                     "wavefront_align_blocked :569) and :94 (_affine_kernel's "
+                     "score mode, pallas_call :1584)",
+         **{k: summary["affine_block"][k] for k in row_keys},
+         "equal_to_plain": (summary["affine_block"]["equal_to_plain"]
+                            and k2["equal_to_plain"]),
+         "max_abs_err": max(summary["affine_block"]["max_abs_err"],
+                            k2["max_abs_err"]),
+         "k2_score_mode": {k: k2[k] for k in (
+             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "cells")}}]
 
 
 def phase_score(dev: torch.device) -> dict:
     """bench.py's stage_score_stream on the card: its parity gate against
     the plain versions on the CPU, one call each of K2's score mode, the
-    stream (K8) and the blocked kernel (K9) on the stream's batch (the
-    main path of this slice, launch counts from it) with the gate that
-    all three agree on every pair, their peak device memory, and G
-    cells/s of each at bench.py's sizes."""
+    stream (K8) and the blocked entry point (K9's contract) on the
+    stream's batch (the main path of this slice, launch counts from it)
+    with the gate that all three agree on every pair, their peak device
+    memory, the plans of affine_score_diag (which K2's score mode and the
+    blocked entry point launch), and G cells/s of each at bench.py's
+    sizes."""
     from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
     from gonomics_tpu_torch.ops import wavefront
 
@@ -2042,8 +2116,8 @@ def phase_score(dev: torch.device) -> dict:
     sa, sb = stream_batch(dev)
     P, B, L, R = SCORE_P, SCORE_B, SCORE_L, SCORE_R
     flat_a, flat_b = sa.reshape(P * B, L), sb.reshape(P * B, L)
-    wavefront.affine_launches = 0
-    wavefront.affine_stream_launches = wavefront.affine_block_launches = 0
+    wavefront.affine_launches = wavefront.affine_block_launches = 0
+    wavefront.affine_stream_launches = wavefront.affine_score_diag_launches = 0
     scores, peak = {}, {}
     for name, fn in (("k2", lambda: k2(flat_a, flat_b)),
                      ("stream", lambda: k8(sa, sb).reshape(-1)),
@@ -2057,8 +2131,9 @@ def phase_score(dev: torch.device) -> dict:
                       "above_inputs_bytes":
                           torch.cuda.max_memory_allocated(dev) - before}
     launches = {"affine_stream": wavefront.affine_stream_launches,
-                "affine_block": wavefront.affine_block_launches}
-    k2_launches = wavefront.affine_launches
+                "affine_score_diag": wavefront.affine_score_diag_launches}
+    wrapper_launches = {"k2_score_mode": wavefront.affine_launches,
+                        "blocked": wavefront.affine_block_launches}
     agree = (torch.equal(scores["k2"], scores["stream"])
              and torch.equal(scores["k2"], scores["blocked"]))
 
@@ -2074,14 +2149,23 @@ def phase_score(dev: torch.device) -> dict:
         ms = median_ms(fn, runs=runs, inner=inner)
         rates[name] = {"ms": ms, "cells": cells,
                        "g_cells_per_s": cells / ms / 1e6}
+    nb = -(-L // R)
+    plans = {"shared_batch": {
+                 "k2_score_mode": wavefront.score_diag_launch_plan(P * B, L, L),
+                 "blocked": wavefront.score_diag_launch_plan(P * B, nb * R, L)},
+             "rates": {
+                 "k2_score_mode": wavefront.score_diag_launch_plan(B, L, L),
+                 "blocked": wavefront.score_diag_launch_plan(B, nb * R, L)}}
     out = {"phase": "score", "parity_gate": gate,
            "shared_batch": f"{P} x {B} random pairs of {L} x {L}",
            "all_three_agree": agree, "launches": launches,
-           "k2_launches": k2_launches, "peak_device_memory": peak,
-           "r_rows": R, "rates": rates}
+           "wrapper_launches": wrapper_launches,
+           "peak_device_memory": peak, "r_rows": R,
+           "affine_score_diag_plans": plans, "rates": rates}
     emit(out)
     if not (all(gate.values()) and agree
-            and all(v > 0 for v in launches.values()) and k2_launches > 0):
+            and all(v > 0 for v in launches.values())
+            and all(v > 0 for v in wrapper_launches.values())):
         raise SystemExit("score check failed")
     return out
 

@@ -1,13 +1,15 @@
 // Anti-diagonal wavefront DP for batched pairwise global alignment, for
-// Hopper (sm_90a): global affine (Gotoh, three states) and global linear
-// gap alignment, each with a trace mode and a score mode, the three
-// kernels of the lowmem affine aligner, and two score-only affine kernels
-// (the streamed and the row-blocked one, at the end of this file).
+// Hopper (sm_90a): global affine (Gotoh, three states) alignment with a
+// trace, global linear gap alignment with a trace and in score mode, the
+// three kernels of the lowmem affine aligner, and two score-only affine
+// kernels (the streamed one, and the diagonal readout that serves the
+// affine score mode and the row-blocked entry point, at the end of this
+// file).
 //
 // affine_wavefront replaces the Pallas kernel _affine_kernel
-// (gonomics_tpu/ops/wavefront.py:94) and const_wavefront replaces
-// _const_kernel (:243); both are launched there by the pallas_call of
-// wavefront_align (:1584).
+// (gonomics_tpu/ops/wavefront.py:94) in trace mode (its score mode is
+// affine_score_diag's) and const_wavefront replaces _const_kernel (:243);
+// both are launched there by the pallas_call of wavefront_align (:1584).
 //
 // Cell (i, j) lies on diagonal d = i + j at lane s = i. On a diagonal the
 // three Gotoh states have no dependency between lanes: I reads (d-1, s),
@@ -117,7 +119,6 @@ __device__ void init_state(int32_t* st, int n_states, int S, int seed_gap,
   __syncthreads();
 }
 
-template <bool kTrace>
 __global__ void __launch_bounds__(kThreads)
 affine_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
                         const int8_t* __restrict__ beta,    // (B, m)
@@ -125,20 +126,19 @@ affine_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
                         const int32_t* __restrict__ scores, // (5, 5)
                         int go, int ge, int B, int n, int m,
                         int32_t* scratch,                   // (B, 9 S) or null
-                        int32_t* __restrict__ res_m,        // (B, S); score mode: max3
-                        int32_t* __restrict__ res_i,        // (B, S); trace mode only
-                        int32_t* __restrict__ res_d,        // (B, S); trace mode only
+                        int32_t* __restrict__ res_m,        // (B, S)
+                        int32_t* __restrict__ res_i,        // (B, S)
+                        int32_t* __restrict__ res_d,        // (B, S)
                         int8_t* __restrict__ trace) {       // (n+m, B, S)
   extern __shared__ int32_t smem[];
   __shared__ int sc[25];
   const int S = n + 1;
   const int b = blockIdx.x;
   int32_t* st = scratch ? scratch + (int64_t)b * 9 * S : smem;
-  int32_t* const rows[3] = {res_m + (int64_t)b * S,
-                            kTrace ? res_i + (int64_t)b * S : nullptr,
-                            kTrace ? res_d + (int64_t)b * S : nullptr};
+  int32_t* const rows[3] = {res_m + (int64_t)b * S, res_i + (int64_t)b * S,
+                            res_d + (int64_t)b * S};
   // cell (0,0): M = 0, I = D = gap open (affineGap.go:159-165)
-  init_state(st, 3, S, go, sc, scores, rows, kTrace ? 3 : 1);
+  init_state(st, 3, S, go, sc, scores, rows, 3);
 
   const int8_t* al = alpha + (int64_t)b * n;
   const int8_t* be = beta + (int64_t)b * m;
@@ -151,46 +151,35 @@ affine_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
                      st + t2 * S, st + (3 + t2) * S, st + (6 + t2) * S};
     int32_t *M0 = st + t0 * S, *I0 = st + (3 + t0) * S, *D0 = st + (6 + t0) * S;
     const int lo = max(1, d - m), hi = min(d - 1, n);  // interior lanes
-    int8_t* trow = kTrace ? trace + ((int64_t)(d - 1) * B + b) * S : nullptr;
+    int8_t* trow = trace + ((int64_t)(d - 1) * B + b) * S;
     if (threadIdx.x == 0) {
       // row 0 (I = go + ge d) and column 0 (D = go + ge d) of the grid
       const int bnd = go + ge * d;
-      if (kTrace) trow[0] = 0;
+      trow[0] = 0;
       if (d <= m) {
         M0[0] = kNeg; I0[0] = bnd; D0[0] = kNeg;
-        if (d == f) {
-          if (kTrace) { rows[0][0] = kNeg; rows[1][0] = bnd; rows[2][0] = kNeg; }
-          else rows[0][0] = bnd;
-        }
+        if (d == f) { rows[0][0] = kNeg; rows[1][0] = bnd; rows[2][0] = kNeg; }
       }
       if (d <= n) {
         M0[d] = kNeg; I0[d] = kNeg; D0[d] = bnd;
-        if (d == f) {
-          if (kTrace) { rows[0][d] = kNeg; rows[1][d] = kNeg; rows[2][d] = bnd; }
-          else rows[0][d] = bnd;
-        }
+        if (d == f) { rows[0][d] = kNeg; rows[1][d] = kNeg; rows[2][d] = bnd; }
       }
     }
     for (int s = threadIdx.x + 1; s <= n; s += blockDim.x) {
       if (s < lo || s > hi) {
-        if (kTrace) trow[s] = 0;
+        trow[s] = 0;
         continue;
       }
       int mv, iv, dv;
-      const int code = gotoh_cell(pv, s, substitution(sc, al, be, s, d - s),
-                                  goe, ge, mv, iv, dv);
-      if (kTrace) trow[s] = (int8_t)code;
+      trow[s] = (int8_t)gotoh_cell(pv, s, substitution(sc, al, be, s, d - s),
+                                   goe, ge, mv, iv, dv);
       M0[s] = mv;
       I0[s] = iv;
       D0[s] = dv;
       if (d == f) {
-        if (kTrace) {
-          rows[0][s] = mv;
-          rows[1][s] = iv;
-          rows[2][s] = dv;
-        } else {
-          rows[0][s] = max3(mv, iv, dv);
-        }
+        rows[0][s] = mv;
+        rows[1][s] = iv;
+        rows[2][s] = dv;
       }
     }
     __syncthreads();
@@ -910,19 +899,60 @@ lowmem_walk_block_kernel(const int8_t* __restrict__ trace,  // (K, B, W)
 // every step) were timed slower, 1.38 against 1.20-1.23 ms for 2048
 // pairs of 1024 x 1024 (NVIDIA H100 80GB HBM3, 700 W power limit).
 //
-// affine_block replaces _affine_block_kernel (:466, pallas_call :620 in
-// wavefront_align_blocked :569): one row block of the score-mode Gotoh DP,
-// one launch a block as the JAX loop. Lane s is row k_off + s; lane 0 is
-// the boundary row the block before left, read from (3, B, m) M/I/D
-// tensors at column d (one diagonal ahead, so the load hides behind the
-// barrier); lane r_rows writes its cell of each diagonal d > r_rows into
-// the next boundary row at column d - r_rows (the TPU kernel's 128-lane
-// capture ring and flush). Alpha rows past n read code 4, the JAX
-// function's padding. One thread block a pair, three diagonal slots and a
-// barrier a diagonal, as K2 and bound the same way (~0.74 us a diagonal,
-// PERF.md); a thread takes several lanes when r_rows + 1 > 1024; the state
-// lives in shared memory up to SMEM_STATE_BYTES_MAX and in a global
-// scratch above.
+// affine_score_diag replaces _affine_kernel's score mode (:94, pallas_call
+// :1584 in wavefront_align :1534) and _affine_block_kernel (:466,
+// pallas_call :620 in wavefront_align_blocked :569). Both compute one
+// function: max3(M, I, D) of every row's cell on the pair's diagonal fin,
+// over the padded grid (n rows for the first; nb r_rows rows for the
+// second, alpha rows past n reading code 4 as the JAX function pads them),
+// laid out as (nb, B, r_rows + 1) with nb = 1 and r_rows = n for the
+// first. It runs affine_stream's step: at step c every cell of a strip
+// lies on diagonal r0 + c + 2, so diagonal fin is one warp-uniform step of
+// each strip, c = fin - r0 - 2, on which each lane writes its R rows whose
+// column lies in 0..m (a row reset to column 0 on that step first), and a
+// strip runs no step past it: the cells after diagonal fin feed nothing
+// that is read out, and the strip below needs the boundary row only up to
+// diagonal fin - 1. A pair stops after the strip that holds row
+// min(fin, rows); a pair whose fin is outside 1..rows + m computes
+// nothing. The kernel writes every lane of the result first, NEG but row
+// 0's cell (0, fin); then lane i - k r_rows of block k holds row i and,
+// where i = k r_rows, so does lane r_rows of block k - 1 (lane 0 of block
+// k stays NEG at column 0: the block's local diagonal 0 is never reached).
+// The JAX loop's one launch a block, its boundary M/I/D tensors and its
+// capture ring are gone: all row blocks run in one launch.
+//
+// A pair's strips are pipelined over W warps of one block: warp w takes
+// strips w, w + W, ..., strip s writes its last row into ring row s mod W
+// of the pair's (W, ld) scratch (row 0, the boundary of strip 0, starts in
+// ring row W - 1) and reads the boundary from ring row (s - 1) mod W.
+// After each block of R steps lane 31 of the producer stores its progress
+// (the strip in the high half, the blocks done in the low) into one
+// shared-memory word with release semantics at block scope; before each
+// of its block-ahead boundary loads the whole consumer warp reads that
+// word with acquire semantics until the strip before has done kDiagLag
+// blocks more than it (lane 31 of that strip writes column j at step j +
+// 32 R - 2, and the load at block k reads columns up to (k + 2) R). Ring
+// row s mod W is rewritten by strip s + W only after strip s + 1 has read
+// it: strip s + W runs behind s + W - 1, which runs behind s + W - 2, ...,
+// down to s + 1, each by at least kDiagLag blocks, while strip s + W
+// writes column j only at its step j + 32 R - 2 and strip s + 1 has read
+// it before its step j. The progress word is monotone over a warp's strips, so
+// a consumer whose producer has finished and moved on never waits on a
+// later strip's count. W = 1 where a launch's pairs fill the card (one
+// warp a pair, four pairs a block, as affine_stream); below that the plan
+// (ops/wavefront.py score_diag_plan) gives each pair up to kDiagMaxWarps
+// warps, one block a pair.
+//
+// What bounds it: as affine_stream, the int32 pipe at 8 operations a cell
+// where many pairs fill the card; at the main shapes (256 pairs, 4 strips
+// each) the latency of a warp-step, which the pipeline pays for the steps
+// of one strip plus the lag of each strip behind the one before, not for
+// every strip in turn: 256 pairs of 1024 x 1024 at W = 4 take ~0.31 ms, 4
+// strips in turn (W = 1) ~0.52 ms. A step alone costs ~190 cycles here
+// against affine_stream's ~150 (NVIDIA H100 80GB HBM3, 700 W;
+// tools/score_timing.py plans): at 128 registers ptxas spills a few
+// values and issues the adds as IMAD.IADD, where affine_stream gets
+// VIADD.
 
 constexpr int kStreamWarps = 4;  // pairs (one a warp) per block of affine_stream
 // The rows a lane affine_stream is built for (affine_stream_built).
@@ -932,16 +962,20 @@ constexpr int kStreamWarps = 4;  // pairs (one a warp) per block of affine_strea
 // to a multiple of R so that lane 31 reads R columns at a time, aligned.
 int stream_ld(int m, int R) { return ((m > 1 ? m : 1) + R - 1) / R * R; }
 
-// One block of R steps c = k R + s of a strip of affine_stream, for one
-// lane (see the note above). kEdge: the block may hold a step on which a
-// row reaches column 0 (k < 32) or the step of cell (n, m) (c_cap); the
-// other blocks skip both tests. Returns true once the score is written.
-template <int R, bool kEdge>
+// One block of R steps c = k R + s of a strip of affine_stream or
+// affine_score_diag, for one lane (see the notes above): the boundary row
+// is read from bin and this strip's last row written to bout (the same
+// row in affine_stream). kEdge: the block may hold a step on which a row
+// reaches column 0 (k < 32) or the strip's last step (c_cap), on which
+// capture(r, max3(M, I, D)) reads out row r of the lane, for each r (by
+// value: an array passed by reference would leave registers); the other
+// blocks skip both tests. Returns true after the capture.
+template <int R, bool kEdge, typename Capture>
 __device__ __forceinline__ bool stream_block(
     int k, int (&M)[R], int (&I)[R], int (&D)[R], int (&G)[R], int (&cb)[R],
     int (&bq)[R], int2 (&bn)[R], const char* prof, const int* lut,
-    const uint8_t* be, int2* brow, int lane, int m, int ld, int go, int ge,
-    int i0, int w_lo, int c_cap, int cap_lane, int cap_row, int32_t* out) {
+    const uint8_t* be, const int2* bin, int2* bout, int lane, int m, int ld,
+    int go, int ge, int i0, int w_lo, int c_cap, const Capture& capture) {
   const int goe = go + ge;
   // this block's new columns (row 0's) and lane 31's boundary columns,
   // then the loads of the next block's
@@ -957,7 +991,7 @@ __device__ __forceinline__ bool stream_block(
   for (int s = 0; s < R; ++s)
     bq[s] = (unsigned)(x0 + s) < (unsigned)m ? __ldg(be + x0 + s) : 0;
   if (lane == 31 && (k + 1) * R < ld) {
-    const int4* src = reinterpret_cast<const int4*>(brow + (k + 1) * R);
+    const int4* src = reinterpret_cast<const int4*>(bin + (k + 1) * R);
 #pragma unroll
     for (int q = 0; q < R / 2; ++q) {
       const int4 v = src[q];
@@ -992,7 +1026,7 @@ __device__ __forceinline__ bool stream_block(
       M[r] = mv;
     }
     if (lane == 31 && (unsigned)(c - w_lo) < (unsigned)m)
-      brow[c - w_lo] = make_int2(max(M[R - 1], I[R - 1]), D[R - 1]);
+      bout[c - w_lo] = make_int2(max(M[R - 1], I[R - 1]), D[R - 1]);
     if (kEdge) {
       // the row that reached column 0 on this step takes cell (i, 0)
       const int rr = (s + 1) % R;
@@ -1002,18 +1036,40 @@ __device__ __forceinline__ bool stream_block(
         D[rr] = go + ge * (i0 + rr);
       }
       if (c == c_cap) {
-        if (lane == cap_lane) {
-          int v = kNeg;
 #pragma unroll
-          for (int r = 0; r < R; ++r)
-            if (r == cap_row) v = max3(M[r], I[r], D[r]);
-          *out = v;
-        }
+        for (int r = 0; r < R; ++r) capture(r, max3(M[r], I[r], D[r]));
         return true;
       }
     }
   }
   return false;
+}
+
+// The start of the strip at row r0 of affine_stream or affine_score_diag,
+// for one lane whose first row is i0: the profile of its rows (rows past n
+// read code 4), each row's column-0 cell, the ring of beta offsets and the
+// beta codes of the first block of steps.
+template <int R>
+__device__ __forceinline__ void stream_strip_start(
+    int r0, int i0, int lane, const int8_t* al, int n, const uint8_t* be, int m,
+    const int32_t* scores, int* prof, int go, int ge, int (&M)[R], int (&I)[R],
+    int (&D)[R], int (&G)[R], int (&cb)[R], int (&bq)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int a = i0 + r <= n ? alpha_column(al[i0 + r - 1]) : 4;
+#pragma unroll
+    for (int b = 0; b < 5; ++b) prof[(b * R + r) * 32 + lane] = __ldg(scores + b * 5 + a);
+    M[r] = kNeg;
+    I[r] = kNeg;
+    D[r] = go + ge * (i0 + r);
+    G[r] = kNeg;
+    cb[r] = 4 * lane;
+  }
+  // lane 0's upper-left before its first step: cell (r0, 0) as max3
+  G[0] = r0 == 0 ? max(0, go) : go + ge * r0;
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+    bq[s] = (unsigned)(s - lane * R) < (unsigned)m ? __ldg(be + s - lane * R) : 0;
 }
 
 template <int R>
@@ -1053,23 +1109,8 @@ affine_stream_kernel(const int8_t* __restrict__ alpha,    // (NP, n)
   for (int r0 = 0;; r0 += 32 * R) {
     const bool last = r0 + 32 * R >= n;
     const int i0 = r0 + lane * R + 1;  // this lane's first row
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      // rows past n read code 4
-      const int a = i0 + r <= n ? alpha_column(al[i0 + r - 1]) : 4;
-#pragma unroll
-      for (int b = 0; b < 5; ++b) prof[(b * R + r) * 32 + lane] = __ldg(scores + b * 5 + a);
-      M[r] = kNeg;
-      I[r] = kNeg;
-      D[r] = go + ge * (i0 + r);
-      G[r] = kNeg;
-      cb[r] = 4 * lane;
-    }
-    // lane 0's upper-left before its first step: cell (r0, 0) as max3
-    G[0] = r0 == 0 ? max(0, go) : go + ge * r0;
-#pragma unroll
-    for (int s = 0; s < R; ++s)
-      bq[s] = (unsigned)(s - lane * R) < (unsigned)m ? __ldg(be + s - lane * R) : 0;
+    stream_strip_start<R>(r0, i0, lane, al, n, be, m, scores, prof, go, ge, M, I, D, G,
+                          cb, bq);
     if (lane == 31) {
 #pragma unroll
       for (int s = 0; s < R; ++s) bn[s] = brow[s];
@@ -1080,100 +1121,148 @@ affine_stream_kernel(const int8_t* __restrict__ alpha,    // (NP, n)
     const int nblk = c_end / R + 1;
     const int w_lo = last ? (1 << 30) : 32 * R - 1;  // lane 31 writes column c - w_lo + 1
     const int c_cap = last ? c_end : -1;
+    // the score: row q % R of lane q / R
+    auto capture = [&](int r, int v) {
+      if (lane == q / R && r == q % R) out[p] = v;
+    };
     for (int k = 0; k < nblk; ++k) {
       if (k < 32 || k == nblk - 1) {
         if (stream_block<R, true>(k, M, I, D, G, cb, bq, bn, (const char*)prof, lut, be,
-                                  brow, lane, m, ld, go, ge, i0, w_lo, c_cap, q / R,
-                                  q % R, out + p))
+                                  brow, brow, lane, m, ld, go, ge, i0, w_lo, c_cap, capture))
           return;
       } else {
         stream_block<R, false>(k, M, I, D, G, cb, bq, bn, (const char*)prof, lut, be,
-                               brow, lane, m, ld, go, ge, i0, w_lo, c_cap, q / R,
-                               q % R, out + p);
+                               brow, brow, lane, m, ld, go, ge, i0, w_lo, c_cap, capture);
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kLowmemThreads)
-affine_block_kernel(const int8_t* __restrict__ alpha,     // (B, n)
-                    const int8_t* __restrict__ beta,      // (B, m)
-                    const int32_t* __restrict__ fin,      // (B,)
-                    const int32_t* __restrict__ scores,   // (5, 5)
-                    int go, int ge, int B, int n, int m, int R, int k_off,
-                    const int32_t* __restrict__ bnd_in,   // (3, B, m)
-                    int32_t* __restrict__ bnd_out,        // (3, B, m)
-                    int32_t* scratch,                     // (B, 9 (R+1)) or null
-                    int32_t* __restrict__ res) {          // (B, R+1)
-  extern __shared__ int32_t smem[];
-  __shared__ int sc[25];
-  const int S = R + 1;
-  const int b = blockIdx.x;
-  // state k of slot t at st + (3k + t) S
-  int32_t* st = scratch ? scratch + (int64_t)b * 9 * S : smem;
-  int32_t* out = res + (int64_t)b * S;
-  if (threadIdx.x < 25) sc[threadIdx.x] = scores[threadIdx.x];
-  // diagonal 0 (slot 0): lane 0 is cell (k_off, 0), the origin (M = 0,
-  // I = D = go) for the first block and D = go + ge k_off for the others
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const bool origin = s == 0 && k_off == 0;
-    st[s] = origin ? 0 : kNeg;
-    st[3 * S + s] = origin ? go : kNeg;
-    st[6 * S + s] = s == 0 ? go + ge * k_off : kNeg;
-    out[s] = kNeg;
-  }
-  const int64_t at_m = (int64_t)b * m, at_i = ((int64_t)B + b) * m,
-                at_d = ((int64_t)2 * B + b) * m;
-  // lane 0's boundary cell of the next diagonal (column 1)
-  int nm = kNeg, ni = kNeg, nd = kNeg;
-  if (threadIdx.x == 0 && m >= 1) {
-    nm = bnd_in[at_m];
-    ni = bnd_in[at_i];
-    nd = bnd_in[at_d];
+// affine_score_diag: the most warps a block has (one pair's, at 128
+// registers a thread), the warps (pairs) a block takes at one warp a
+// pair, and the blocks of R steps a strip keeps ahead of the strip below
+// it (see the note above).
+constexpr int kDiagMaxWarps = 16;
+constexpr int kDiagPairWarps = 4;
+constexpr int kDiagLag = 34;
+
+// The progress word of a strip of affine_score_diag at shared address a:
+// stored by the lane that wrote the ring, read by a whole warp, which
+// keeps the blocks done of strip s (0xffffffff once it is done or a later
+// strip has begun).
+__device__ __forceinline__ void publish(uint32_t a, int s, unsigned blocks) {
+  const unsigned long long v = (unsigned long long)(unsigned)s << 32 | blocks;
+  asm volatile("st.release.cta.shared.u64 [%0], %1;" ::"r"(a), "l"(v) : "memory");
+}
+__device__ __forceinline__ unsigned observe(uint32_t a, int s) {
+  unsigned long long v;
+  asm volatile("ld.acquire.cta.shared.u64 %0, [%1];" : "=l"(v) : "r"(a) : "memory");
+  const int strip = (int)(v >> 32);
+  return strip > s ? 0xffffffffu : strip == s ? (unsigned)v : 0u;
+}
+
+// Writes v, the cell of row i on the pair's diagonal (column j), into
+// every lane of the result (nb, NP, Rb + 1) that holds row i (see the note
+// above).
+__device__ __forceinline__ void put_row(int32_t* out, int NP, int p, int Rb, int nb, int i,
+                                        int j, int v) {
+  const int k = i / Rb, x = i - k * Rb;
+  if (k < nb && (x != 0 || j != 0)) out[((int64_t)k * NP + p) * (Rb + 1) + x] = v;
+  if (x == 0 && k > 0) out[((int64_t)(k - 1) * NP + p) * (Rb + 1) + Rb] = v;
+}
+
+template <int R>
+__global__ void __launch_bounds__(32 * kDiagMaxWarps, 1)
+affine_score_diag_kernel(const int8_t* __restrict__ alpha,    // (NP, n)
+                         const int8_t* __restrict__ beta,     // (NP, m)
+                         const int32_t* __restrict__ fin,     // (NP,)
+                         const int32_t* __restrict__ scores,  // (5, 5)
+                         int go, int ge, int NP, int n, int m, int rows, int Rb,
+                         int nb, int W, int ld,
+                         int2* ring,                          // (NP, W, ld) scratch
+                         int32_t* __restrict__ out) {         // (nb, NP, Rb + 1)
+  // lut and the profiles as in affine_stream (a warp's at diag_prof + 5 R
+  // 32 w); progress[w]: warp w's strip (high half) and blocks done (low)
+  __shared__ int lut[256];
+  __shared__ unsigned long long progress[kDiagMaxWarps];
+  extern __shared__ int diag_prof[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x / 32;
+  const int slot = w / W, phase = w % W;  // the warp's pair in the block, its strips
+  const int p = blockIdx.x * (blockDim.x / 32 / W) + slot;
+  for (int x = threadIdx.x; x < 256; x += blockDim.x) lut[x] = beta_row((int8_t)x) * R * 128;
+  if (lane == 0) progress[w] = 0;
+  const int f = p < NP ? fin[p] : 0;
+  if (p < NP) {
+    // every lane of the pair's result NEG but row 0's cell (0, f), and
+    // the boundary of strip 0, row 0 (M = D = NEG, I = go + ge j), in
+    // ring row W - 1
+    const int t = phase * 32 + lane;
+    for (int k = 0; k < nb; ++k) {
+      int32_t* o = out + ((int64_t)k * NP + p) * (Rb + 1);
+      for (int x = t; x <= Rb; x += 32 * W)
+        o[x] = k == 0 && x == 0 && f >= 1 && f <= m ? go + ge * f : kNeg;
+    }
+    int2* row0 = ring + ((int64_t)p * W + W - 1) * ld;
+    for (int x = t; x < ld; x += 32 * W)
+      row0[x] = x < m ? make_int2(go + ge * (x + 1), kNeg) : make_int2(kNeg, kNeg);
   }
   __syncthreads();
-
-  const int8_t* al = alpha + (int64_t)b * n;
-  const int8_t* be = beta + (int64_t)b * m;
-  const int f = fin[b] - k_off;  // the pair's diagonal in this block
-  const int goe = go + ge;
-  for (int d = 1; d <= R + m; ++d) {
-    const int t0 = d % 3, t1 = (d + 2) % 3, t2 = (d + 1) % 3;
-    const Prev pv = {st + t1 * S, st + (3 + t1) * S, st + (6 + t1) * S,
-                     st + t2 * S, st + (3 + t2) * S, st + (6 + t2) * S};
-    int32_t *M0 = st + t0 * S, *I0 = st + (3 + t0) * S, *D0 = st + (6 + t0) * S;
-    const int lo = max(1, d - m), hi = min(d - 1, R);  // interior lanes
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      int mv = kNeg, iv = kNeg, dv = kNeg;
-      if (s == 0) {  // the boundary row at column d (NEG past m)
-        if (d <= m) {
-          mv = nm;
-          iv = ni;
-          dv = nd;
-        }
-        if (d < m) {
-          nm = bnd_in[at_m + d];
-          ni = bnd_in[at_i + d];
-          nd = bnd_in[at_d + d];
-        }
-      } else if (s >= lo && s <= hi) {
-        const int row = k_off + s;
-        const int a = row <= n ? alpha_column(al[row - 1]) : 4;
-        gotoh_cell(pv, s, sc[beta_row(be[d - s - 1]) * 5 + a], goe, ge, mv, iv, dv);
-      } else if (s == d) {  // column 0 (s <= R)
-        dv = go + ge * (k_off + s);
-      }
-      M0[s] = mv;
-      I0[s] = iv;
-      D0[s] = dv;
-      if (d == f) out[s] = max3(mv, iv, dv);
-      if (s == R && d > R) {  // cell (k_off + R, d - R) of the next boundary
-        bnd_out[at_m + d - R - 1] = mv;
-        bnd_out[at_i + d - R - 1] = iv;
-        bnd_out[at_d + d - R - 1] = dv;
-      }
+  if (p >= NP || rows == 0 || f < 1 || f > rows + m) return;  // the whole warp
+  const int8_t* al = alpha + (int64_t)p * n;
+  const uint8_t* be = (const uint8_t*)beta + (int64_t)p * m;
+  int* prof = diag_prof + w * 5 * R * 32;
+  const uint32_t mine = cta_address(progress + w),
+                 before = cta_address(progress + slot * W + (phase + W - 1) % W);
+  const int s_last = (min(f, rows) - 1) / (32 * R);  // the strip of row min(f, rows)
+  int M[R], I[R], D[R], G[R], cb[R], bq[R];
+  int2 bn[R];
+  for (int s = phase; s <= s_last; s += W) {
+    const int r0 = s * 32 * R;
+    const int c_f = f - r0 - 2;  // the step of diagonal f
+    if (c_f < 0) {  // f = r0 + 1 (s = s_last): cell (f, 0), the strip's first row
+      if (lane == 0) put_row(out, NP, p, Rb, nb, f, 0, go + ge * f);
+      break;
     }
-    __syncthreads();
+    const int i0 = r0 + lane * R + 1;
+    stream_strip_start<R>(r0, i0, lane, al, n, be, m, scores, prof, go, ge, M, I, D, G, cb,
+                          bq);
+    const int2* bin = ring + ((int64_t)p * W + (s + W - 1) % W) * ld;
+    int2* bout = ring + ((int64_t)p * W + s % W) * ld;
+    // the blocks the strip before has done, as far as this warp has seen
+    // (the whole warp waits)
+    const bool waits = W > 1 && s > 0;
+    unsigned seen = 0;
+    if (waits)
+      while (seen < kDiagLag - 1) seen = observe(before, s - 1);
+    if (lane == 31) {
+#pragma unroll
+      for (int x = 0; x < R; ++x) bn[x] = bin[x];
+    }
+    const bool last = r0 + 32 * R >= rows;
+    const int c_end = last ? m - 1 + (rows - 1 - r0) : m + 32 * R - 2;
+    const bool cap = c_f <= c_end;  // the strip has a cell on diagonal f
+    const int c_stop = cap ? c_f : c_end;
+    const int nblk = c_stop / R + 1;
+    const bool feeds = s < s_last;  // a strip below reads this one's last row
+    const int w_lo = feeds ? 32 * R - 1 : (1 << 30);
+    auto capture = [&](int r, int v) {
+      const int i = i0 + r, j = f - i;
+      if (cap && i <= rows && (unsigned)j <= (unsigned)m) put_row(out, NP, p, Rb, nb, i, j, v);
+    };
+    for (int k = 0; k < nblk; ++k) {
+      if (waits)
+        while (seen < (unsigned)(k + kDiagLag)) seen = observe(before, s - 1);
+      if (k < 32 || k == nblk - 1) {
+        if (stream_block<R, true>(k, M, I, D, G, cb, bq, bn, (const char*)prof, lut, be, bin,
+                                  bout, lane, m, ld, go, ge, i0, w_lo, c_stop, capture))
+          break;
+      } else {
+        stream_block<R, false>(k, M, I, D, G, cb, bq, bn, (const char*)prof, lut, be, bin,
+                               bout, lane, m, ld, go, ge, i0, w_lo, c_stop, capture);
+      }
+      if (feeds && W > 1 && lane == 31) publish(mine, s, k + 1);
+    }
+    if (feeds && W > 1 && lane == 31) publish(mine, s, 0xffffffffu);
   }
 }
 
@@ -1255,15 +1344,13 @@ extern "C" const char* wavefront_error_string(int code) {
 extern "C" int affine_wavefront_launch(const void* alpha, const void* beta,
                                        const void* fin, const void* scores,
                                        int go, int ge, int B, int n, int m,
-                                       int with_trace, void* scratch,
-                                       void* res_m, void* res_i, void* res_d,
-                                       void* trace, void* stream) {
+                                       void* scratch, void* res_m, void* res_i,
+                                       void* res_d, void* trace, void* stream) {
   const int S = n + 1;
   const size_t smem = scratch ? 0 : (size_t)9 * S * sizeof(int32_t);
-  auto kernel = with_trace ? &affine_wavefront_kernel<true> : &affine_wavefront_kernel<false>;
-  cudaError_t err = allow_smem(kernel, smem);
+  cudaError_t err = allow_smem(affine_wavefront_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<B, threads_for(n), smem, (cudaStream_t)stream>>>(
+  affine_wavefront_kernel<<<B, threads_for(n), smem, (cudaStream_t)stream>>>(
       (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)fin,
       (const int32_t*)scores, go, ge, B, n, m, (int32_t*)scratch,
       (int32_t*)res_m, (int32_t*)res_i, (int32_t*)res_d, (int8_t*)trace);
@@ -1466,18 +1553,84 @@ extern "C" int affine_stream_launch(const void* alpha, const void* beta,
   return (int)cudaGetLastError();
 }
 
-extern "C" int affine_block_launch(const void* alpha, const void* beta,
-                                   const void* fin, const void* scores, int go,
-                                   int ge, int B, int n, int m, int R, int k_off,
-                                   const void* bnd_in, void* bnd_out,
-                                   void* scratch, void* res, void* stream) {
-  const int S = R + 1;
-  const size_t smem = scratch ? 0 : (size_t)9 * S * sizeof(int32_t);
-  cudaError_t err = allow_smem(affine_block_kernel, smem);
+using DiagKernel = void (*)(const int8_t*, const int8_t*, const int32_t*, const int32_t*,
+                           int, int, int, int, int, int, int, int, int, int, int2*, int32_t*);
+
+DiagKernel diag_kernel(int R) {
+#define DIAG_CASE(X) \
+  if (R == X) return affine_score_diag_kernel<X>;
+  STREAM_ROWS(DIAG_CASE)
+#undef DIAG_CASE
+  return nullptr;
+}
+
+// Warps a block of affine_score_diag takes at W warps a pair: one pair's
+// W warps, or kDiagPairWarps / W pairs of W warps where W is smaller.
+int diag_block_warps(int W) { return W >= kDiagPairWarps ? W : kDiagPairWarps / W * W; }
+
+// Its dynamic shared memory: a profile of 5 R x 32 int a warp.
+size_t diag_smem(int R, int W) { return (size_t)diag_block_warps(W) * 5 * R * 32 * sizeof(int); }
+
+// What affine_score_diag is built for, written to out: the most warps a
+// block (and a pair) has, the warps (pairs) a block at one warp a pair,
+// the number of row counts a lane, and those counts, rising.
+extern "C" int affine_score_diag_built(void* out) {
+  int* res = (int*)out;
+  int k = 0;
+  res[0] = kDiagMaxWarps;
+  res[1] = kDiagPairWarps;
+#define DIAG_REPORT(X) res[3 + k++] = X;
+  STREAM_ROWS(DIAG_REPORT)
+#undef DIAG_REPORT
+  res[2] = k;
+  return 0;
+}
+
+// The launch of affine_score_diag for NP pairs of m columns at R rows a
+// lane and W warps a pair, written to out (seven ints): a block's threads,
+// the blocks, the int2 columns of a ring row (the caller's scratch is NP W
+// of them), the registers and local (spill) bytes a thread, a block's
+// shared memory (static and dynamic) and the blocks an SM holds at once.
+extern "C" int affine_score_diag_shape(int NP, int m, int R, int W, void* out) {
+  const DiagKernel kernel = diag_kernel(R);
+  if (kernel == nullptr || W < 1 || W > kDiagMaxWarps) return (int)cudaErrorInvalidValue;
+  const int threads = 32 * diag_block_warps(W);
+  const size_t smem = diag_smem(R, W);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, (const void*)kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem);
+  int* res = (int*)out;
+  const int pairs = threads / 32 / W;
+  res[0] = threads;
+  res[1] = (NP + pairs - 1) / pairs;
+  res[2] = stream_ld(m, R);
+  res[3] = fa.numRegs;
+  res[4] = (int)fa.localSizeBytes;
+  res[5] = (int)(fa.sharedSizeBytes + smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(res + 6, kernel, threads, smem);
+  return (int)err;
+}
+
+// The readout of diagonal fin of the score-mode Gotoh DP over rows rows
+// (alpha rows past n read code 4) into out (nb, NP, Rb + 1); ring: (NP,
+// W, stream_ld(m, R)) int2 scratch.
+extern "C" int affine_score_diag_launch(const void* alpha, const void* beta,
+                                        const void* fin, const void* scores, int go,
+                                        int ge, int NP, int n, int m, int rows, int Rb,
+                                        int nb, int R, int W, void* ring, void* out,
+                                        void* stream) {
+  const DiagKernel kernel = diag_kernel(R);
+  if (kernel == nullptr || W < 1 || W > kDiagMaxWarps || rows > nb * Rb)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = diag_smem(R, W);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  affine_block_kernel<<<B, threads_for(S, kLowmemThreads), smem, (cudaStream_t)stream>>>(
+  const int threads = 32 * diag_block_warps(W);
+  const int pairs = threads / 32 / W;
+  kernel<<<(NP + pairs - 1) / pairs, threads, smem, (cudaStream_t)stream>>>(
       (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)fin,
-      (const int32_t*)scores, go, ge, B, n, m, R, k_off, (const int32_t*)bnd_in,
-      (int32_t*)bnd_out, (int32_t*)scratch, (int32_t*)res);
+      (const int32_t*)scores, go, ge, NP, n, m, rows, Rb, nb, W, stream_ld(m, R),
+      (int2*)ring, (int32_t*)out);
   return (int)cudaGetLastError();
 }

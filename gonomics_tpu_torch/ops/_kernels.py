@@ -40,8 +40,8 @@ _SIGNATURES = {
     },
     "wavefront": {
         "affine_wavefront_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
-                                    _int, _int, _int, _vp, _vp, _vp, _vp,
-                                    _vp, _vp],
+                                    _int, _int, _vp, _vp, _vp, _vp, _vp,
+                                    _vp],
         "const_wavefront_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
                                    _int, _int, _vp, _vp, _vp, _vp],
         "affine_fwd_block_launch": [_vp, _vp, _vp, _int, _int, _int, _int,
@@ -59,8 +59,11 @@ _SIGNATURES = {
         "affine_stream_shape": [_int, _int, _int, _vp],
         "affine_stream_launch": [_vp, _vp, _vp, _int, _int, _int, _int, _int,
                                  _int, _vp, _vp, _vp],
-        "affine_block_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
-                                _int, _int, _int, _vp, _vp, _vp, _vp, _vp],
+        "affine_score_diag_built": [_vp],
+        "affine_score_diag_shape": [_int, _int, _int, _int, _vp],
+        "affine_score_diag_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
+                                     _int, _int, _int, _int, _int, _int, _int,
+                                     _vp, _vp, _vp],
     },
     "gsw_dp": {
         "local_wavefront_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
@@ -80,7 +83,7 @@ _LIBRARY_OF = {"banded_dp": "banded", "banded_walk_pack": "banded",
                "affine_fwd_block": "wavefront",
                "affine_bwd_window": "wavefront",
                "lowmem_walk_block": "wavefront",
-               "affine_stream": "wavefront", "affine_block": "wavefront",
+               "affine_stream": "wavefront", "affine_score_diag": "wavefront",
                "local_wavefront": "gsw_dp", "gsw_right_wavefront": "gsw_dp",
                "gsw_walk_pack": "gsw_dp"}
 

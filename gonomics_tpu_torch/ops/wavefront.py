@@ -9,7 +9,8 @@ entry points ``wavefront_affine_stream`` (:1449) and
 Nine kernels, each with its plain PyTorch version beside it:
 
 - ``affine_wavefront`` (CUDA ``csrc/wavefront.cu``) replaces the Pallas
-  kernel ``_affine_kernel`` (wavefront.py:94, ``pallas_call`` at :1584);
+  kernel ``_affine_kernel`` (wavefront.py:94, ``pallas_call`` at :1584) in
+  trace mode;
 - ``const_wavefront`` (same file) replaces ``_const_kernel`` (:243);
 - ``local_wavefront`` (CUDA ``csrc/gsw_dp.cu``, one warp a job, or one
   block a job past the warp's reach, see ``graph_dp_design``) replaces
@@ -26,16 +27,22 @@ Nine kernels, each with its plain PyTorch version beside it:
 - ``affine_stream`` (same file, one warp a pair, R rows a lane, see
   ``stream_plan``) replaces ``_affine_stream_kernel`` (:1306,
   ``pallas_call`` :1507 in ``wavefront_affine_stream``);
-- ``affine_block`` (same file) replaces ``_affine_block_kernel`` (:466,
-  ``pallas_call`` :620 in ``wavefront_align_blocked``).
+- ``affine_score_diag`` (same file, affine_stream's strips read out on
+  each pair's diagonal fin, a pair's strips pipelined over warps, see
+  ``score_diag_plan``) replaces ``_affine_kernel``'s score mode and
+  ``_affine_block_kernel`` (:466, ``pallas_call`` :620 in
+  ``wavefront_align_blocked``); ``affine_wavefront(..., with_trace=False)``
+  and ``wavefront_align_blocked`` launch it.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel, counts the launch in its module counter
 (``affine_launches``, ``const_launches``, ``local_launches``,
 ``gsw_right_launches``, ``affine_fwd_block_launches``,
 ``affine_bwd_window_launches``, ``lowmem_walk_launches``,
-``affine_stream_launches``, ``affine_block_launches``), and raises if
-the launch fails. It never falls back.
+``affine_stream_launches``, ``affine_score_diag_launches``; the score
+mode's ``affine_launches`` and ``wavefront_align_blocked``'s
+``affine_block_launches`` count its launches of affine_score_diag too),
+and raises if the launch fails. It never falls back.
 
 Layout: cell (i, j) lies on diagonal d = i + j at lane s = i, so results
 are (B, S) int32 and the trace is (n+m, B, S) int8 with row d-1 holding
@@ -86,6 +93,7 @@ affine_fwd_block_launches = 0
 affine_bwd_window_launches = 0
 lowmem_walk_launches = 0
 affine_stream_launches = 0
+affine_score_diag_launches = 0
 affine_block_launches = 0
 
 
@@ -364,7 +372,9 @@ def _ptr(t):
 def affine_wavefront(alpha, beta, fin, scores, gap_open: int,
                      gap_extend: int, with_trace: bool):
     """Global affine wavefront (see ``affine_wavefront_reference``): the
-    plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    plain version for CPU tensors; for CUDA tensors the CUDA kernel
+    affine_wavefront in trace mode, affine_score_diag (its one row block
+    of n rows, ``score_diag_plan``) in score mode."""
     global affine_launches
     if alpha.device.type == "cpu":
         return affine_wavefront_reference(alpha, beta, fin, scores, gap_open,
@@ -374,27 +384,31 @@ def affine_wavefront(alpha, beta, fin, scores, gap_open: int,
     m = beta.shape[1]
     dev = alpha.device
     S = n + 1
-    res = [torch.empty((B, S), dtype=torch.int32, device=dev)
-           for _ in range(3 if with_trace else 1)]
-    trace = (torch.empty((n + m, B, S), dtype=torch.int8, device=dev)
-             if with_trace else None)
-    out = (*res, trace) if with_trace else res[0]
+    if not with_trace:
+        res = torch.empty((B, S), dtype=torch.int32, device=dev)
+        if B:
+            _score_diag_launch(alpha, beta, fin, sc, gap_open, gap_extend, n,
+                               n, 1, score_diag_launch_plan(B, n, m), res)
+            affine_launches += 1
+        return res
+    rm, ri, rd = (torch.empty((B, S), dtype=torch.int32, device=dev)
+                  for _ in range(3))
+    trace = torch.empty((n + m, B, S), dtype=torch.int8, device=dev)
     if B == 0:
-        return out
+        return rm, ri, rd, trace
     scratch = (None if state_in_shared_memory(n, "affine") else
                torch.empty((B, 9 * S), dtype=torch.int32, device=dev))
-    rm, ri, rd = res if with_trace else (res[0], None, None)
     lib = _kernels.lib("wavefront")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.affine_wavefront_launch(
             alpha.data_ptr(), beta.data_ptr(), fin.data_ptr(), sc.data_ptr(),
-            int(gap_open), int(gap_extend), B, n, m, int(with_trace),
-            _ptr(scratch), rm.data_ptr(), _ptr(ri), _ptr(rd), _ptr(trace),
+            int(gap_open), int(gap_extend), B, n, m, _ptr(scratch),
+            rm.data_ptr(), ri.data_ptr(), rd.data_ptr(), trace.data_ptr(),
             stream)
     _kernels.check(rc, "affine_wavefront")
     affine_launches += 1
-    return out
+    return rm, ri, rd, trace
 
 
 def const_wavefront(alpha, beta, fin, scores, gap: int, with_trace: bool):
@@ -592,7 +606,8 @@ def wavefront_align(alpha_pad, beta_pad, fin_d, scores, *, gap_open: int,
 # Score-only global affine alignment: the streamed entry point (P x B pairs
 # of one shape, the score at cell (n, m)) and the row-blocked one (the
 # score-mode DP in blocks of r_rows rows, read out per block). Both compute
-# what K2's score mode computes.
+# what K2's score mode computes; the row-blocked one and K2's score mode
+# run one kernel, affine_score_diag.
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -738,6 +753,109 @@ def _stream_launch(alpha, beta, sc, gap_open: int, gap_extend: int,
     return out
 
 
+# Warps that fill the card with affine_stream's step at R = 8: 4 a
+# scheduler, at 128 registers a thread (PERF.md §6). A launch of
+# affine_score_diag with fewer pairs gives each pair more warps.
+SCORE_DIAG_FILL_WARPS = 2048
+
+
+def _score_diag_built() -> dict:
+    """What affine_score_diag is built for, as the kernels' library
+    reports it: the most warps a block (and a pair) has, the warps a block
+    takes at one warp a pair, and the rows a lane it takes, rising."""
+    if "diag_built" not in _stream_configs:
+        out = (ctypes.c_int * 16)()
+        lib = _kernels.lib("wavefront")
+        _kernels.check(lib.affine_score_diag_built(ctypes.addressof(out)),
+                       "affine_score_diag")
+        _stream_configs["diag_built"] = {
+            "max_warps": out[0], "pair_warps": out[1],
+            "rows_per_lane": tuple(out[3:3 + out[2]])}
+    return _stream_configs["diag_built"]
+
+
+def _diag_block(B: int, W: int, built: dict) -> dict:
+    """The block shape of affine_score_diag at W warps a pair: one
+    pair's W warps, or built["pair_warps"] // W pairs of W warps where W is
+    smaller; and the blocks B pairs take."""
+    per = built["pair_warps"]
+    warps = W if W >= per else per // W * W
+    return {"warps_per_pair": W, "warps_per_block": warps,
+            "pairs_per_block": warps // W, "blocks": -(-B // (warps // W))}
+
+
+def score_diag_plan(B: int, rows: int, m: int, built: dict) -> dict:
+    """How affine_score_diag runs B pairs of rows x m, chosen by shape
+    alone from what it is ``built`` for (``_score_diag_built``): R rows a
+    lane as ``stream_plan`` picks it for rows rows, and W warps a pair: 1
+    where the B pairs alone fill the card (SCORE_DIAG_FILL_WARPS of them),
+    else the fewest that fill it with B W warps, at most the pair's strips
+    and the warps a block holds (``_diag_block`` gives the block)."""
+    R = stream_plan(rows, m, built)["rows_per_lane"]
+    plan = _strips(R, rows, m)
+    fill = -(-SCORE_DIAG_FILL_WARPS // max(B, 1))
+    W = max(1, min(plan["strips"], built["max_warps"], fill))
+    return {**plan, **_diag_block(B, W, built)}
+
+
+def score_diag_launch_plan(B: int, rows: int, m: int, R: int | None = None,
+                           W: int | None = None) -> dict:
+    """``score_diag_plan`` for B pairs of rows x m (or the forced rows a
+    lane R and warps a pair W) with the launch the card's library makes
+    of it: a block's threads, the blocks, the int2 columns of a ring row,
+    a thread's registers and spilled bytes, a block's shared memory and
+    the blocks an SM holds."""
+    key = ("diag", B, rows, m, R, W)
+    if key not in _stream_configs:
+        built = _score_diag_built()
+        plan = score_diag_plan(B, rows, m, built)
+        if R is not None or W is not None:
+            R = plan["rows_per_lane"] if R is None else R
+            plan = {**_strips(R, rows, m),
+                    **_diag_block(B, plan["warps_per_pair"] if W is None
+                                  else W, built)}
+        out = (ctypes.c_int * 7)()
+        lib = _kernels.lib("wavefront")
+        _kernels.check(lib.affine_score_diag_shape(
+            B, m, plan["rows_per_lane"], plan["warps_per_pair"],
+            ctypes.addressof(out)), "affine_score_diag")
+        _stream_configs[key] = {
+            **plan, "threads": out[0], "launch_blocks": out[1],
+            "ring_columns": out[2], "registers": out[3],
+            "spill_bytes": out[4], "smem_bytes_per_block": out[5],
+            "blocks_per_sm": out[6]}
+    return _stream_configs[key]
+
+
+def _score_diag_launch(alpha, beta, fin, sc, gap_open: int, gap_extend: int,
+                       rows: int, Rb: int, nb: int, plan: dict, out):
+    """Launch affine_score_diag on checked CUDA inputs with ``plan``
+    (``score_diag_launch_plan``): diagonal fin_b of the score-mode DP over
+    rows rows (alpha rows past n read code 4) read out into out,
+    (nb, B, Rb + 1) int32 with rows <= nb·Rb (see
+    ``affine_block_reference``; K2's score mode is nb = 1, Rb = rows =
+    n)."""
+    global affine_score_diag_launches
+    B, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    W = plan["warps_per_pair"]
+    # per pair, W ring rows of (max(M, I), D) a column
+    ring = torch.empty((B, W * plan["ring_columns"] * 2), dtype=torch.int32,
+                       device=dev)
+    lib = _kernels.lib("wavefront")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.affine_score_diag_launch(
+            alpha.data_ptr(), beta.data_ptr(), fin.data_ptr(), sc.data_ptr(),
+            int(gap_open), int(gap_extend), B, n, m, rows, Rb, nb,
+            plan["rows_per_lane"], W, ring.data_ptr(), out.data_ptr(),
+            stream)
+    _kernels.check(rc, "affine_score_diag")
+    affine_score_diag_launches += 1
+    return out
+
+
 def affine_block_reference(alpha, beta, fin, scores, gap_open: int,
                            gap_extend: int, r_rows: int):
     """Plain PyTorch result of the row-blocked score-mode Gotoh DP (the
@@ -787,8 +905,8 @@ def wavefront_align_blocked(alpha_pad, beta_pad, fin_d, scores, *, n: int,
 
     Tensors are used where they lie; numpy inputs go to ``device`` (None
     is the card). CPU tensors take the plain version; CUDA tensors launch
-    the CUDA kernel ``affine_block`` once a block, chaining the boundary
-    rows on the card."""
+    the CUDA kernel ``affine_score_diag`` once for all row blocks (the DP
+    over the nb·r_rows padded rows, ``score_diag_plan``)."""
     global affine_block_launches
     del prof16
     alpha = _tensor(alpha_pad, torch.int8, device)
@@ -810,25 +928,9 @@ def wavefront_align_blocked(alpha_pad, beta_pad, fin_d, scores, *, n: int,
     res = torch.empty((nb, B, R + 1), dtype=torch.int32, device=dev)
     if nb * B == 0:
         return res
-    go, ge = int(gap_open), int(gap_extend)
-    # boundary rows (M, I, D) x (B, m), column j at index j - 1, in and out
-    # by turns; block 0's is DP row 0: I = go + ge j, M = D = NEG
-    bnd = torch.full((2, 3, B, m), NEG, dtype=torch.int32, device=dev)
-    bnd[0, 1] = go + ge * torch.arange(1, m + 1, dtype=torch.int32,
-                                        device=dev)
-    scratch = (None if state_in_shared_memory(R, "affine") else
-               torch.empty((B, 9 * (R + 1)), dtype=torch.int32, device=dev))
-    lib = _kernels.lib("wavefront")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for k in range(nb):
-            rc = lib.affine_block_launch(
-                alpha.data_ptr(), beta.data_ptr(), fin.data_ptr(),
-                sc.data_ptr(), go, ge, B, n, m, R, k * R,
-                bnd[k % 2].data_ptr(), bnd[(k + 1) % 2].data_ptr(),
-                _ptr(scratch), res[k].data_ptr(), stream)
-            _kernels.check(rc, "affine_block")
-            affine_block_launches += 1
+    _score_diag_launch(alpha, beta, fin, sc, gap_open, gap_extend, nb * R, R,
+                       nb, score_diag_launch_plan(B, nb * R, m), res)
+    affine_block_launches += 1
     return res
 
 

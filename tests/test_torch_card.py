@@ -752,36 +752,123 @@ def test_stream_kernel_each_rows_per_lane(card, n, m):
 
 
 # (B, n, m, r_rows): r_rows dividing n, n = 1, r_rows not dividing n, one
-# block (n < r_rows), r_rows + 1 > 1024 lanes (a thread takes two), and
-# 5,801 lanes, whose state is above the shared-memory limit (global scratch)
+# block (n < r_rows), r_rows + 1 > 1024 lanes, and 5,801 lanes (two row
+# blocks of more rows than one strip of the widest plan)
 _BLOCKED_CASES = [(3, 24, 23, 8), (2, 1, 9, 4), (5, 1000, 300, 384),
                   (4, 100, 120, 512), (2, 3000, 200, 1500), (2, 6000, 40, 5800)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,n,m,r_rows", _BLOCKED_CASES)
-def test_blocked_kernel_equals_plain(card, B, n, m, r_rows):
-    """affine_block (K9), chained over every row block, against
-    affine_block_reference on all r_rows + 1 lanes, with pairs of their
-    own n_b x m_b below the padded widths."""
-    assert wavefront.state_in_shared_memory(r_rows, "affine") == \
-        (r_rows < 5800)
+def _blocked_args(card, B, n, m):
+    """_score_pairs of n x m with fin_b of their own n_b x m_b (pair 0
+    the full widths) on the card."""
     alpha, beta = _score_pairs((B,), n, m, B + n)
     rng = np.random.default_rng(n)
     fin = (rng.integers(1, n + 1, B) + rng.integers(1, m + 1, B)).astype(
         np.int32)
     fin[0] = n + m
-    args = [torch.from_numpy(x).to(card) for x in (alpha, beta, fin)]
+    return [torch.from_numpy(x).to(card) for x in (alpha, beta, fin)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m,r_rows", _BLOCKED_CASES)
+def test_blocked_kernel_equals_plain(card, B, n, m, r_rows):
+    """wavefront_align_blocked (K9's contract, one launch of
+    affine_score_diag for all row blocks) against affine_block_reference
+    on all r_rows + 1 lanes, with pairs of their own n_b x m_b below the
+    padded widths."""
+    args = _blocked_args(card, B, n, m)
     sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
     before = wavefront.affine_block_launches
+    kernel_before = wavefront.affine_score_diag_launches
     got = wavefront.wavefront_align_blocked(*args, sc, n=n, m=m,
                                             gap_open=-600, gap_extend=-150,
                                             r_rows=r_rows)
     want = wavefront.affine_block_reference(*args, sc, -600, -150, r_rows)
     torch.cuda.synchronize()
     nb = -(-n // r_rows)
-    assert wavefront.affine_block_launches == before + nb
+    assert wavefront.affine_block_launches == before + 1
+    assert wavefront.affine_score_diag_launches == kernel_before + 1
     assert got.shape == (nb, B, r_rows + 1) and torch.equal(got, want)
+
+
+# K2's score mode, (B, n, m, fin): fin_b of each pair's own n_b x m_b
+# ("own"; _pairs_batch: one pair of n_b = 0, negative codes), those one
+# below ("below"), past n + m, 0, and 1 ("edges"); m < n; n = 0; one pair
+# of 20,000 rows (79 strips at R = 8)
+_SCORE_MODE_CASES = [(6, 300, 200, "own"), (6, 300, 200, "below"),
+                     (5, 90, 70, "edges"), (4, 200, 50, "own"),
+                     (3, 0, 7, "edges"), (1, 20_000, 300, "own")]
+
+
+def _score_mode_args(card, B, n, m, fin_kind):
+    alpha, beta, fin = _pairs_batch(B, max(n, 1), m, B + n + m)
+    alpha = alpha[:, :n]
+    if n == 0:
+        fin = np.minimum(fin, m)
+    if fin_kind == "below":
+        fin = fin - 1 - np.arange(B) % 3
+    elif fin_kind == "edges":
+        fin[:4] = [n + m + 1, 0, 1, n + m][:min(B, 4)]
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(card)
+            for x in (alpha, beta, fin.astype(np.int32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m,fin_kind", _SCORE_MODE_CASES)
+def test_score_mode_kernel_equals_plain(card, B, n, m, fin_kind):
+    """K2's score mode (affine_wavefront with_trace=False, one launch of
+    affine_score_diag) against affine_wavefront_reference on all n + 1
+    lanes."""
+    args = _score_mode_args(card, B, n, m, fin_kind)
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
+    before = wavefront.affine_launches
+    kernel_before = wavefront.affine_score_diag_launches
+    got = wavefront.affine_wavefront(*args, sc, -600, -150, False)
+    want = wavefront.affine_wavefront_reference(*args, sc, -600, -150, False)
+    torch.cuda.synchronize()
+    assert wavefront.affine_launches == before + 1
+    assert wavefront.affine_score_diag_launches == kernel_before + 1
+    assert got.shape == (B, n + 1) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [("blocked", *c) for c in _BLOCKED_CASES]
+                         + [("score", *c) for c in _SCORE_MODE_CASES])
+def test_score_diag_each_plan(card, case):
+    """affine_score_diag at every rows a lane it is built for and at 1, 2,
+    3 and 16 warps a pair (one warp a strip in turn, strips pipelined over
+    warps, more warps than strips), against the plain versions, with the
+    launch its library reports: the plan's block shape, at most 128
+    registers a thread, so that an SM holds 4 blocks of one warp a pair
+    (16 warps, as affine_stream), and no spill below 8 rows a lane. At 8
+    rows a lane ptxas keeps 24-48 bytes on the stack (tools/score_timing.py
+    sass); 64 bytes bound it."""
+    kind, B, n, m, extra = case
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
+    if kind == "blocked":
+        r_rows = extra
+        args = _blocked_args(card, B, n, m)
+        want = wavefront.affine_block_reference(*args, sc, -600, -150, r_rows)
+        nb = -(-n // r_rows)
+        rows, Rb = nb * r_rows, r_rows
+    else:
+        args = _score_mode_args(card, B, n, m, extra)
+        want = wavefront.affine_wavefront_reference(*args, sc, -600, -150,
+                                                    False)[None]
+        nb, rows, Rb = 1, n, n
+    for R in wavefront._score_diag_built()["rows_per_lane"]:
+        for W in (1, 2, 3, 16):
+            plan = wavefront.score_diag_launch_plan(B, rows, m, R, W)
+            assert plan["threads"] == 32 * plan["warps_per_block"], plan
+            assert plan["launch_blocks"] == plan["blocks"], plan
+            assert plan["registers"] <= 128, plan
+            assert plan["spill_bytes"] <= (64 if R == 8 else 0), plan
+            assert W > 1 or plan["blocks_per_sm"] >= 4, plan
+            out = torch.empty_like(want)
+            got = wavefront._score_diag_launch(*args, sc, -600, -150, rows, Rb,
+                                               nb, plan, out)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (R, W)
 
 
 @pytest.mark.cuda

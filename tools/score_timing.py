@@ -1,32 +1,42 @@
 #!/usr/bin/env python3
-"""Where the score-only stream kernel affine_stream (K8) spends its time,
-on one CUDA card.
+"""Where the score-only kernels affine_stream (K8) and affine_score_diag
+(K2's score mode and K9's contract) spend their time, on one CUDA card.
 
     python3 tools/score_timing.py plans
     python3 tools/score_timing.py compare [--root DIR]
     python3 tools/score_timing.py sass
 
-All modes work on the main shape chip_smoke.py times: bench.py's stream
-batch, P = 8 x B = 256 random pairs of 1024 x 1024 (seeds 0 and 1),
-humanChimpTwo, gaps -600/-150. Times are medians of CUDA events; each case
-prints one JSON line with its time and whether its result equals the
-plain version's.
+The main shapes are those chip_smoke.py times, humanChimpTwo, gaps
+-600/-150: for K8 bench.py's stream batch, P = 8 x B = 256 random pairs of
+1024 x 1024 (seeds 0 and 1); for K2's score mode the 256 related pairs
+padded to 1024 x 1024 of its pairwise_kernels phase; for K9 the 256
+related pairs of its score_kernels phase at r_rows = 512. Times are
+medians of CUDA events; each case prints one JSON line with its time and
+whether its result equals the plain version's.
 
 plans: K8 at every count R of rows a lane it is built for, each with the
     launch its library reports (registers, spilled bytes, blocks an SM
-    holds), at the main shape (median of 15 samples of 2 launches) and on
+    holds), at its main shape (median of 15 samples of 2 launches) and on
     one pair alone (median of 15 samples of 5 launches), whose time over
-    its steps is the latency of a warp-step.
-compare: K8 through its public wrapper at the main shape, the median of 15
-    samples of 2 launches. With --root DIR the package is imported from
-    the checkout at DIR (say a `git archive` of another commit in a
-    git-ignored directory), so that two commits are timed the same way on
-    one card: run parent, change, change, parent in one sitting.
+    its steps is the latency of a warp-step; then affine_score_diag at
+    every R and at 1, 2, 4, 8 and 16 warps a pair, at K2's and K9's main
+    shapes and on one pair alone, marking the plan the wrappers take.
+compare: K8, K2's score mode and K9 through their public wrappers at their
+    main shapes, the median of 15 samples of 2 launches; then, as
+    chip_smoke.py's lowmem phase times it (`k2_score_mode_s`, the host's
+    clock around one call of the pairwise API without cigars), K2's score
+    mode on bench.py's lowmem batch (16 pairs of 16,384 x 16,384) and on
+    the phase's related 100 kb pair, with a checksum of the scores. With
+    --root DIR
+    the package is imported from the checkout at DIR (say a `git archive`
+    of another commit in a git-ignored directory), so that two commits
+    are timed the same way on one card: run parent, change, change,
+    parent in one sitting.
 sass: compiles csrc/wavefront.cu to a cubin with `nvcc -Xptxas -v`
     (registers, spills) and counts, in `cuobjdump -sass` of each
-    affine_stream_kernel<R>, the instructions of its longest straight run
-    (the block of R steps that needs no edge test) by opcode, and per
-    step.
+    affine_stream_kernel<R> and affine_score_diag_kernel<R>, the
+    instructions of its longest straight run (the block of R steps that
+    needs no edge test) by opcode, and per step.
 
 Needs a CUDA card (sass needs only nvcc and cuobjdump); the package builds
 its kernels into the git-ignored gonomics_tpu_torch/_build/ of the
@@ -42,7 +52,9 @@ import os
 import re
 import subprocess
 import sys
+import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,6 +68,19 @@ GO, GE = chip_smoke.AFFINE_GAPS
 def equal(got, want) -> bool:
     torch.cuda.synchronize()
     return torch.equal(got, want)
+
+
+def score_batches(dev) -> dict:
+    """K2's and K9's main shapes: (alpha, beta, fin, rows, r_rows, nb)."""
+    L, R = chip_smoke.SCORE_L, chip_smoke.SCORE_R
+    k2 = chip_smoke.pair_batch(chip_smoke.PAIR_B_SCORE, chip_smoke.PAIR_LEN,
+                               chip_smoke.PAIR_LEN,
+                               seed=chip_smoke.PAIR_B_SCORE + len("affine"),
+                               dev=dev)[:3]
+    k9 = chip_smoke.pair_batch(chip_smoke.SCORE_B, L, L, seed=41, dev=dev)[:3]
+    nb = -(-L // R)
+    return {"k2_score_mode": (*k2, chip_smoke.PAIR_LEN, chip_smoke.PAIR_LEN, 1),
+            "k9": (*k9, nb * R, R, nb)}
 
 
 def plans(wavefront, dev, smi: str) -> int:
@@ -94,6 +119,38 @@ def plans(wavefront, dev, smi: str) -> int:
                 "cycles_per_step_at_1980_MHz": ms * 1e-3 / steps * 1.98e9,
                 "equal_to_plain": ok, "card": smi}), flush=True)
             failed += not ok
+    for name, (a, b, f, rows, Rb, nb) in score_batches(dev).items():
+        want = (wavefront.affine_block_reference(a, b, f, sc, GO, GE, Rb)
+                if name == "k9" else wavefront.affine_wavefront_reference(
+                    a, b, f, sc, GO, GE, False)[None])
+        m = b.shape[1]
+        main = wavefront.score_diag_launch_plan(a.shape[0], rows, m)
+        for shape, sel in (("main", slice(None)), ("one_pair", slice(0, 1))):
+            pa, pb, pf = a[sel].contiguous(), b[sel].contiguous(), f[sel]
+            pw = want[:, sel].contiguous()
+            pairs = pa.shape[0]
+            for R in wavefront._score_diag_built()["rows_per_lane"]:
+                for W in (1, 2, 4, 8, 16):
+                    plan = wavefront.score_diag_launch_plan(pairs, rows, m, R, W)
+                    out = torch.empty_like(pw)
+
+                    def run():
+                        return wavefront._score_diag_launch(
+                            pa, pb, pf, sc, GO, GE, rows, Rb, nb, plan, out)
+
+                    ok = equal(run().clone(), pw)
+                    ms = chip_smoke.median_ms(run, runs=15,
+                                              inner=2 if pairs > 1 else 5)
+                    cells = chip_smoke.diagonal_cells(rows, m, pf.cpu().numpy())
+                    print(json.dumps({
+                        "kernel": "affine_score_diag", "caller": name,
+                        "shape": shape, "pairs": pairs, "rows": rows, "m": m,
+                        "plan": plan,
+                        "is_wrapper_plan": shape == "main" and (R, W) == (
+                            main["rows_per_lane"], main["warps_per_pair"]),
+                        "ms": ms, "g_cells_per_s": cells / ms / 1e6,
+                        "equal_to_plain": ok, "card": smi}), flush=True)
+                    failed += not ok
     return failed
 
 
@@ -116,7 +173,49 @@ def compare(wavefront, dev, smi: str, root: str) -> int:
         "m": m, "root": root, "ms_2_launches_a_sample": ms,
         "g_cells_per_s": P * B * n * m / ms / 1e6,
         "equal_to_plain": ok, "card": smi}), flush=True)
-    return 0 if ok else 1
+    failed = not ok
+    for name, (a, b, f, rows, Rb, nb) in score_batches(dev).items():
+        m = b.shape[1]
+        if name == "k9":
+            def call(a=a, b=b, f=f, m=m, Rb=Rb):
+                return wavefront.wavefront_align_blocked(
+                    a, b, f, sc, n=a.shape[1], m=m, gap_open=GO,
+                    gap_extend=GE, r_rows=Rb)
+            want = wavefront.affine_block_reference(a, b, f, sc, GO, GE, Rb)
+        else:
+            def call(a=a, b=b, f=f):
+                return wavefront.affine_wavefront(a, b, f, sc, GO, GE, False)
+            want = wavefront.affine_wavefront_reference(a, b, f, sc, GO, GE,
+                                                        False)
+        ok = equal(call(), want)
+        ms = chip_smoke.median_ms(call, runs=15, inner=2)
+        cells = chip_smoke.diagonal_cells(rows, m, f.cpu().numpy())
+        print(json.dumps({
+            "kernel": name, "shape": "main", "pairs": a.shape[0], "rows": rows,
+            "m": m, "root": root, "ms_2_launches_a_sample": ms,
+            "g_cells_per_s": cells / ms / 1e6, "equal_to_plain": ok,
+            "card": smi}), flush=True)
+        failed += not ok
+    from gonomics_tpu_torch import align
+    H = align.HUMAN_CHIMP_TWO
+    alphas, betas = chip_smoke.lowmem_pairs()
+    long_pair = chip_smoke.related_pair(np.random.default_rng(37),
+                                        chip_smoke.LOWMEM_LONG,
+                                        same_length=False)
+    for name, pairs in (("lowmem_batch", list(zip(alphas, betas))),
+                        ("long_pair", [long_pair])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = align.affine_gap_batch(pairs, H, GO, GE, device=dev,
+                                     with_cigar=False)
+        secs = time.perf_counter() - t0
+        print(json.dumps({
+            "kernel": "k2_score_mode", "shape": name, "pairs": len(pairs),
+            "n": len(pairs[0][0]), "m": len(pairs[0][1]), "root": root,
+            "k2_score_mode_s": secs,
+            "score_sum": int(sum(s for s, _ in res)), "card": smi}),
+            flush=True)
+    return 1 if failed else 0
 
 
 def sass() -> int:
@@ -134,8 +233,9 @@ def sass() -> int:
                           "-o", cubin, src], check=True, capture_output=True,
                          text=True)
     lines = res.stderr.splitlines()
+    kernels = ("affine_stream_kernel", "affine_score_diag_kernel")
     for k, line in enumerate(lines):
-        if "affine_stream_kernel" in line and "Compiling" in line:
+        if any(x in line for x in kernels) and "Compiling" in line:
             print(json.dumps({"ptxas": lines[k:k + 4]}), flush=True)
     cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
     dump = subprocess.run([cuobjdump, "-sass", cubin], check=True,
@@ -143,9 +243,10 @@ def sass() -> int:
     funcs = re.split(r"\n\s*Function : ", dump)
     for body in funcs[1:]:
         name = body.split("\n", 1)[0].strip()
-        if "affine_stream_kernel" not in name:
+        kernel = next((x for x in kernels if x in name), None)
+        if kernel is None:
             continue
-        R = int(re.search(r"affine_stream_kernelILi(\d+)E", name).group(1))
+        R = int(re.search(kernel + r"ILi(\d+)E", name).group(1))
         runs, cur, total = [], [], 0
         for line in body.splitlines():
             ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)",
@@ -165,7 +266,7 @@ def sass() -> int:
         run = max(runs, key=len)
         ops = collections.Counter(o.split(".")[0] for o in run)
         print(json.dumps({
-            "kernel": f"affine_stream_kernel<{R}>", "instructions": total,
+            "kernel": f"{kernel}<{R}>", "instructions": total,
             "longest_straight_run": len(run),
             "run_instructions_a_step": len(run) / R,
             "run_by_opcode": dict(ops.most_common())}), flush=True)
