@@ -20,10 +20,12 @@ exits non-zero:
             byte-equal to the library path's SAM for the same reads.
 5. pairwise_kernels: affine_wavefront and const_wavefront, trace mode at
             128 pairs and score mode at 256 pairs of 1024 x 1024 (the
-            affine score mode is affine_score_diag's), each held against
-            its plain PyTorch version on the card (exact equality) and
-            timed; plus one case per kernel whose diagonal state is above
-            the shared-memory limit (global scratch).
+            kernel trace_diag but for the affine score mode, which is
+            affine_score_diag's), each held against its plain PyTorch
+            version on the card (exact equality, whole tensors) and timed,
+            with its plan (rows a lane, warps a pair, registers, spills)
+            and the device memory a call allocates above its inputs;
+            plus trace mode on 2 pairs of 20,000 x 300 for each.
 6. pairwise: affine_gap_batch and const_gap_batch on 128 related ~1 kb
             pairs: every route consumes both sequences and replays to its
             score, the first 8 pairs equal device="cpu", score mode
@@ -91,10 +93,13 @@ exits non-zero:
             at bench.py's sizes.
 
 Then the kernels line (launch counts of banded_dp and banded_walk_pack
-from phase 3, of the wavefront kernels from phase 6, of the graph kernels
+from phase 3, of the wavefront kernels from phase 6 (affine_wavefront's
+and const_wavefront's, and under "trace_diag_launches" the launches of
+the one CUDA kernel, "kernel", both take there), of the graph kernels
 from phase 8, of the lowmem kernels from phase 12, of the score kernels
-from phase 14) and, last, one JSON object naming the device. Without a CUDA card, or outside a checkout of
-the repository, it exits non-zero and prints no result.
+from phase 14) and, last, one JSON object naming the device. Without a
+CUDA card, or outside a checkout of the repository, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -145,6 +150,8 @@ WALK_OPS_PER_STEP = 7
 PAIR_LEN, PAIR_B_TRACE, PAIR_B_SCORE = 1024, 128, 256
 # the API and CLI phases: related pairs of about 1 kb
 RELATED_LEN, RELATED_PAIRS = 1000, 128
+# the pairwise kernels' long case: 2 pairs of 20,000 x 300
+BIG_N, BIG_M = 20_000, 300
 AFFINE_GAPS, CONST_GAP = (-600, -150), -430
 # int32 operations that each wavefront function needs per cell (i, j) of
 # a pair's own n_b x m_b grid, not those of one implementation. Score
@@ -651,10 +658,10 @@ def wavefront_bound(mode: str, kind: str, dims: np.ndarray, n: int, m: int,
                     results: int | None = None, cells: int | None = None
                     ) -> dict:
     """Least time for one wavefront call: each input read once and each
-    output written once (the trace as each pair's own n_b x m_b cells,
-    and `results` int32 values, by default the (B, n+1) rows of K2/K3)
-    at the memory rate, and the operations that `cells` (by default each
-    pair's own n_b x m_b) need at the int32 rate."""
+    output written once (in trace mode the whole (n+m, B, n+1) trace, and
+    `results` int32 values, by default the (B, n+1) rows of K2/K3) at the
+    memory rate, and the operations that `cells` (by default each pair's
+    own n_b x m_b) need at the int32 rate."""
     B = len(dims)
     if cells is None:
         cells = int((dims[:, 0].astype(np.int64) * dims[:, 1]).sum())
@@ -662,7 +669,7 @@ def wavefront_bound(mode: str, kind: str, dims: np.ndarray, n: int, m: int,
         results = (3 if (mode, kind) == ("affine", "trace") else 1) * B * (n + 1)
     nbytes = B * (n + m) + 4 * B + 100 + 4 * results
     if kind == "trace":
-        nbytes += cells
+        nbytes += (n + m) * B * (n + 1)
     per_cell = (AFFINE_OPS_PER_CELL if mode == "affine"
                 else CONST_OPS_PER_CELL)[kind]
     return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -710,6 +717,14 @@ def phase_pairwise_kernels(dev: torch.device) -> list[dict]:
                   for g, w in zip(got, want))
         return equal, err
 
+    def plan_of(mode, kind, B, n, m):
+        """trace_diag's launch plan (K2's score mode is
+        affine_score_diag's)."""
+        if (mode, kind) == ("affine", "score"):
+            return wavefront.score_diag_launch_plan(B, n, m)
+        return wavefront.trace_diag_launch_plan(
+            B, n, m, mode if kind == "trace" else "const_score")
+
     cases, ok = [], True
     for mode in ("affine", "const"):
         for kind, B in (("trace", PAIR_B_TRACE), ("score", PAIR_B_SCORE)):
@@ -717,41 +732,56 @@ def phase_pairwise_kernels(dev: torch.device) -> list[dict]:
                                        seed=B + len(mode), dev=dev)
             tr = kind == "trace"
             equal, err = compare(mode, (a, b, f), tr)
-            bound = wavefront_bound(mode, kind, dims, PAIR_LEN, PAIR_LEN)
+            # device memory the call allocates above its inputs, at its peak
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            out = kernel(mode, a, b, f, tr)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - before
+            del out
+            # trace mode: the whole padded grid; score mode: the cells on
+            # or before each pair's diagonal fin_b, where the kernel stops
+            cells = (B * PAIR_LEN * PAIR_LEN if tr else diagonal_cells(
+                PAIR_LEN, PAIR_LEN, f.cpu().numpy()))
+            bound = wavefront_bound(mode, kind, dims, PAIR_LEN, PAIR_LEN,
+                                    cells=cells)
             by = "bytes" if bound["bytes"] > bound["operations"] else \
                 "operations"
             cases.append({
                 "mode": mode, "kind": kind, "B": B, "n": PAIR_LEN,
-                "m": PAIR_LEN, "state_in_shared_memory":
-                    wavefront.state_in_shared_memory(PAIR_LEN, mode),
+                "m": PAIR_LEN,
+                "plan": plan_of(mode, kind, B, PAIR_LEN, PAIR_LEN),
                 "equal_to_plain": equal, "max_abs_err": err,
                 "ms": median_ms(lambda: kernel(mode, a, b, f, tr), runs=15,
                                 inner=5),
                 "plain_ms": median_ms(lambda: plain(mode, a, b, f, tr),
                                       runs=3),
                 "bound_ms": bound[by], "bound_by": by,
-                "cells": bound["cells"]})
+                "cells": bound["cells"], "peak_above_inputs_bytes": peak})
             ok &= equal
-        # one pair set whose diagonal state is above the shared-memory
-        # limit: the kernel keeps it in a global scratch
-        n_big = 5700 if mode == "affine" else 17100
-        a, b, f, _ = pair_batch(2, n_big, 300, seed=3, dev=dev)
+        # 2 pairs of 20,000 rows against a small m: 157 strips a pair at
+        # R = 4, over the most warps a pair
+        a, b, f, _ = pair_batch(2, BIG_N, BIG_M, seed=3, dev=dev)
         equal, err = compare(mode, (a, b, f), True)
-        cases.append({"mode": mode, "kind": "trace", "B": 2, "n": n_big,
-                      "m": 300, "state_in_shared_memory":
-                          wavefront.state_in_shared_memory(n_big, mode),
+        cases.append({"mode": mode, "kind": "trace", "B": 2, "n": BIG_N,
+                      "m": BIG_M, "plan": plan_of(mode, "trace", 2, BIG_N,
+                                                  BIG_M),
                       "equal_to_plain": equal, "max_abs_err": err})
-        ok &= equal and not cases[-1]["state_in_shared_memory"]
+        ok &= equal
     emit({"phase": "pairwise_kernels", "tolerance": "exact", "cases": cases})
     if not ok:
         raise SystemExit("a wavefront kernel disagrees with its plain version")
     rows = []
+    plan_keys = ("rows_per_lane", "warps_per_pair", "registers",
+                 "spill_bytes")
     for mode, name in (("affine", "affine_wavefront"),
                        ("const", "const_wavefront")):
         trace_case, score_case, _ = [c for c in cases if c["mode"] == mode]
         rows.append({
             "name": name, "route": "cuda",
             "source": "gonomics_tpu_torch/csrc/wavefront.cu",
+            "kernel": "trace_diag",
             "replaces": (f"gonomics_tpu/ops/wavefront.py:"
                          f"{94 if mode == 'affine' else 243} "
                          f"(_{mode}_kernel, pallas_call :1584)"),
@@ -764,10 +794,13 @@ def phase_pairwise_kernels(dev: torch.device) -> list[dict]:
             "bound_ms": trace_case["bound_ms"],
             "bound_by": trace_case["bound_by"], "library_ms": None,
             "shape": f"trace mode, {trace_case['B']} pairs of "
-                     f"{PAIR_LEN} x {PAIR_LEN}"})
+                     f"{PAIR_LEN} x {PAIR_LEN}",
+            "plan": {k: trace_case["plan"][k] for k in plan_keys}})
         if mode == "const":  # the affine score mode is affine_score_diag's
-            rows[-1]["score_mode"] = {k: score_case[k] for k in (
-                "B", "ms", "plain_ms", "bound_ms", "bound_by")}
+            rows[-1]["score_mode"] = {
+                **{k: score_case[k] for k in (
+                    "B", "ms", "plain_ms", "bound_ms", "bound_by")},
+                "plan": {k: score_case["plan"][k] for k in plan_keys}}
     return rows
 
 
@@ -850,6 +883,7 @@ def phase_pairwise(dev: torch.device) -> dict:
 
     # the main path: launch counts from these calls only
     wavefront.affine_launches = wavefront.const_launches = 0
+    wavefront.trace_diag_launches = 0
     out = {"phase": "pairwise", "pairs": len(pairs),
            "lengths": [int(min(len(a) for a, _ in pairs)),
                        int(max(max(len(a), len(b)) for a, b in pairs))]}
@@ -869,7 +903,8 @@ def phase_pairwise(dev: torch.device) -> dict:
         for attr, fn in wrapped.items():
             setattr(pairwise, attr, fn)
     launches = {"affine_wavefront": wavefront.affine_launches,
-                "const_wavefront": wavefront.const_launches}
+                "const_wavefront": wavefront.const_launches,
+                "trace_diag": wavefront.trace_diag_launches}
     out["launches"] = launches
 
     ok = all(v > 0 for v in launches.values())
@@ -2196,6 +2231,8 @@ def main() -> int:
                 **score["launches"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r.get("kernel") == "trace_diag":
+            r["trace_diag_launches"] = launches["trace_diag"]
     emit({"phase": "done", "total_s": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

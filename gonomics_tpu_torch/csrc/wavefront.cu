@@ -1,46 +1,18 @@
 // Anti-diagonal wavefront DP for batched pairwise global alignment, for
-// Hopper (sm_90a): global affine (Gotoh, three states) alignment with a
-// trace, global linear gap alignment with a trace and in score mode, the
-// three kernels of the lowmem affine aligner, and two score-only affine
-// kernels (the streamed one, and the diagonal readout that serves the
-// affine score mode and the row-blocked entry point, at the end of this
-// file).
-//
-// affine_wavefront replaces the Pallas kernel _affine_kernel
-// (gonomics_tpu/ops/wavefront.py:94) in trace mode (its score mode is
-// affine_score_diag's) and const_wavefront replaces _const_kernel (:243);
-// both are launched there by the pallas_call of wavefront_align (:1584).
+// Hopper (sm_90a): the three kernels of the lowmem affine aligner, two
+// score-only affine kernels (the streamed one, and the diagonal readout
+// that serves the affine score mode and the row-blocked entry point), and
+// the kernel of the pairwise aligner's trace (global affine alignment with
+// a trace, global linear-gap alignment with a trace and in score mode),
+// the last three at the end of this file, in that order.
 //
 // Cell (i, j) lies on diagonal d = i + j at lane s = i. On a diagonal the
 // three Gotoh states have no dependency between lanes: I reads (d-1, s),
-// D reads (d-1, s-1), M reads (d-2, s-1). So the n+m diagonals run in a
-// loop inside one block per pair, with a barrier between diagonals, and
-// the block's threads stride over the interior lanes 1..n of a diagonal.
-// Row 0 and column 0 are constants, written by thread 0; their trace
-// codes, and those of lanes outside the grid, are written as 0.
-//
-// Diagonal state (per pair: 3 states x 3 slots x (n+1) int32 for affine,
-// 3 slots x (n+1) for const) lives in shared memory when it fits and in
-// a global scratch (L1/L2 resident) otherwise; the wrapper picks and
-// passes a null scratch for shared memory. Three slots (diagonals d,
-// d-1, d-2) and not the TPU kernel's two: a TPU step reads a whole slot
-// before it overwrites it, but in a block thread s would read lane s-1
-// of the slot that thread s-1 is overwriting. With three slots, one
-// barrier per diagonal orders every read before the next overwrite.
-//
-// What bounds it on the card: integer operations. A 1024 x 1024 pair has
-// 1.05 M interior cells at 8-26 int32 operations each (itemised in
-// chip_smoke.py), while its trace is one byte a cell; at B = 128 with
-// trace that is ~3.5 G operations (~0.21 ms at the int32 rate) against
-// 134 MB of interior trace (~0.04 ms at 3.35 TB/s). This design takes
-// several times that: every diagonal costs a barrier, nine state loads a
-// lane through a generic pointer and the per-diagonal set-up of every
-// warp (~0.74 us a diagonal on an H100, PERF.md), and a block runs one
-// pair. The TPU kernel's (B, S) lane layout, sliding beta window and
-// five precomputed profiles are TPU mechanisms and are not carried over:
-// the substitution score is a lookup in the 5x5 table, held in shared
-// memory, as scores[row(beta code), clip(alpha code)] like the TPU
-// kernel's profile select (_select_score :85, _build_inputs :393).
+// D reads (d-1, s-1), M reads (d-2, s-1). The TPU kernels' (B, S) lane
+// layout, sliding beta window and five precomputed profiles are TPU
+// mechanisms and are not carried over: the substitution score is a lookup
+// in the 5x5 table, as scores[row(beta code), clip(alpha code)] like the
+// TPU kernels' profile select (_select_score :85, _build_inputs :393).
 //
 // Each entry returns cudaGetLastError() so that the caller can raise on
 // a launch the runtime refused.
@@ -52,7 +24,6 @@
 namespace {
 
 constexpr int kNeg = -(1 << 30);  // NEG = -(2**30)
-constexpr int kThreads = 512;
 constexpr unsigned kAllLanes = 0xffffffffu;
 
 __device__ __forceinline__ int max3(int a, int b, int c) { return max(max(a, b), c); }
@@ -74,11 +45,6 @@ __device__ __forceinline__ int substitution(const int* sc, const int8_t* al,
   return sc[beta_row(be[j - 1]) * 5 + alpha_column(al[s - 1])];
 }
 
-// The slots of diagonals d-1 (M1, I1, D1) and d-2 (M2, I2, D2).
-struct Prev {
-  const int32_t *M1, *I1, *D1, *M2, *I2, *D2;
-};
-
 // One interior Gotoh cell from its predecessors' values: (m2p, i2p,
 // d2p) at (d-2, s-1), (m1s, i1s, d1s) at (d-1, s), (m1p, i1p, d1p) at
 // (d-1, s-1). Returns the trace code tM + 4 tI + 16 tD, each the
@@ -93,153 +59,6 @@ __device__ __forceinline__ int gotoh_values(int m2p, int i2p, int d2p, int m1s,
   iv = max3(ai, bi, ci);
   dv = max3(ad, bd, cd);
   return argmax3(m2p, i2p, d2p) + 4 * argmax3(ai, bi, ci) + 16 * argmax3(ad, bd, cd);
-}
-
-// One interior Gotoh cell at lane s of diagonal d: I from (d-1, s), D
-// from (d-1, s-1), M from (d-2, s-1).
-__device__ __forceinline__ int gotoh_cell(const Prev& pv, int s, int sub, int goe,
-                                          int ge, int& mv, int& iv, int& dv) {
-  const int p = s - 1;
-  return gotoh_values(pv.M2[p], pv.I2[p], pv.D2[p], pv.M1[s], pv.I1[s], pv.D1[s],
-                      pv.M1[p], pv.I1[p], pv.D1[p], sub, goe, ge, mv, iv, dv);
-}
-
-// Seeds diagonal 0 (slot 0, lane 0): state 0 (M, or const's c) with 0
-// and the others (I, D) with seed_gap; sets the pair's capture rows to
-// NEG and loads the score table. No other lane needs a value before its
-// diagonal writes it: an interior cell reads only cells of the grid.
-__device__ void init_state(int32_t* st, int n_states, int S, int seed_gap,
-                           int* sc, const int32_t* scores,
-                           int32_t* const* rows, int n_rows) {
-  for (int r = 0; r < n_rows; ++r)
-    for (int s = threadIdx.x; s < S; s += blockDim.x) rows[r][s] = kNeg;
-  if (threadIdx.x < 25) sc[threadIdx.x] = scores[threadIdx.x];
-  if (threadIdx.x == 0)
-    for (int k = 0; k < n_states; ++k) st[k * 3 * S] = k ? seed_gap : 0;
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-affine_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
-                        const int8_t* __restrict__ beta,    // (B, m)
-                        const int32_t* __restrict__ fin,    // (B,)
-                        const int32_t* __restrict__ scores, // (5, 5)
-                        int go, int ge, int B, int n, int m,
-                        int32_t* scratch,                   // (B, 9 S) or null
-                        int32_t* __restrict__ res_m,        // (B, S)
-                        int32_t* __restrict__ res_i,        // (B, S)
-                        int32_t* __restrict__ res_d,        // (B, S)
-                        int8_t* __restrict__ trace) {       // (n+m, B, S)
-  extern __shared__ int32_t smem[];
-  __shared__ int sc[25];
-  const int S = n + 1;
-  const int b = blockIdx.x;
-  int32_t* st = scratch ? scratch + (int64_t)b * 9 * S : smem;
-  int32_t* const rows[3] = {res_m + (int64_t)b * S, res_i + (int64_t)b * S,
-                            res_d + (int64_t)b * S};
-  // cell (0,0): M = 0, I = D = gap open (affineGap.go:159-165)
-  init_state(st, 3, S, go, sc, scores, rows, 3);
-
-  const int8_t* al = alpha + (int64_t)b * n;
-  const int8_t* be = beta + (int64_t)b * m;
-  const int f = fin[b];
-  const int goe = go + ge;
-  for (int d = 1; d <= n + m; ++d) {
-    // slots of diagonals d, d-1 and d-2; state k of slot t at st + (3k + t) S
-    const int t0 = d % 3, t1 = (d + 2) % 3, t2 = (d + 1) % 3;
-    const Prev pv = {st + t1 * S, st + (3 + t1) * S, st + (6 + t1) * S,
-                     st + t2 * S, st + (3 + t2) * S, st + (6 + t2) * S};
-    int32_t *M0 = st + t0 * S, *I0 = st + (3 + t0) * S, *D0 = st + (6 + t0) * S;
-    const int lo = max(1, d - m), hi = min(d - 1, n);  // interior lanes
-    int8_t* trow = trace + ((int64_t)(d - 1) * B + b) * S;
-    if (threadIdx.x == 0) {
-      // row 0 (I = go + ge d) and column 0 (D = go + ge d) of the grid
-      const int bnd = go + ge * d;
-      trow[0] = 0;
-      if (d <= m) {
-        M0[0] = kNeg; I0[0] = bnd; D0[0] = kNeg;
-        if (d == f) { rows[0][0] = kNeg; rows[1][0] = bnd; rows[2][0] = kNeg; }
-      }
-      if (d <= n) {
-        M0[d] = kNeg; I0[d] = kNeg; D0[d] = bnd;
-        if (d == f) { rows[0][d] = kNeg; rows[1][d] = kNeg; rows[2][d] = bnd; }
-      }
-    }
-    for (int s = threadIdx.x + 1; s <= n; s += blockDim.x) {
-      if (s < lo || s > hi) {
-        trow[s] = 0;
-        continue;
-      }
-      int mv, iv, dv;
-      trow[s] = (int8_t)gotoh_cell(pv, s, substitution(sc, al, be, s, d - s),
-                                   goe, ge, mv, iv, dv);
-      M0[s] = mv;
-      I0[s] = iv;
-      D0[s] = dv;
-      if (d == f) {
-        rows[0][s] = mv;
-        rows[1][s] = iv;
-        rows[2][s] = dv;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <bool kTrace>
-__global__ void __launch_bounds__(kThreads)
-const_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
-                       const int8_t* __restrict__ beta,    // (B, m)
-                       const int32_t* __restrict__ fin,    // (B,)
-                       const int32_t* __restrict__ scores, // (5, 5)
-                       int gap, int B, int n, int m,
-                       int32_t* scratch,                   // (B, 3 S) or null
-                       int32_t* __restrict__ res,          // (B, S)
-                       int8_t* __restrict__ trace) {       // (n+m, B, S)
-  extern __shared__ int32_t smem[];
-  __shared__ int sc[25];
-  const int S = n + 1;
-  const int b = blockIdx.x;
-  int32_t* st = scratch ? scratch + (int64_t)b * 3 * S : smem;
-  int32_t* const rows[3] = {res + (int64_t)b * S, nullptr, nullptr};
-  init_state(st, 1, S, 0, sc, scores, rows, 1);
-
-  const int8_t* al = alpha + (int64_t)b * n;
-  const int8_t* be = beta + (int64_t)b * m;
-  const int f = fin[b];
-  for (int d = 1; d <= n + m; ++d) {
-    const int32_t* C1 = st + ((d + 2) % 3) * S;  // diagonal d-1
-    const int32_t* C2 = st + ((d + 1) % 3) * S;  // diagonal d-2
-    int32_t* C0 = st + (d % 3) * S;
-    const int lo = max(1, d - m), hi = min(d - 1, n);  // interior lanes
-    int8_t* trow = kTrace ? trace + ((int64_t)(d - 1) * B + b) * S : nullptr;
-    if (threadIdx.x == 0) {
-      // row 0 and column 0 of the grid: gap * d
-      if (kTrace) trow[0] = 0;
-      if (d <= m) {
-        C0[0] = gap * d;
-        if (d == f) rows[0][0] = gap * d;
-      }
-      if (d <= n) {
-        C0[d] = gap * d;
-        if (d == f) rows[0][d] = gap * d;
-      }
-    }
-    for (int s = threadIdx.x + 1; s <= n; s += blockDim.x) {
-      if (s < lo || s > hi) {
-        if (kTrace) trow[s] = 0;
-        continue;
-      }
-      const int diag = C2[s - 1] + substitution(sc, al, be, s, d - s);  // M
-      const int left = C1[s] + gap;                                     // I
-      const int up = C1[s - 1] + gap;                                   // D
-      if (kTrace) trow[s] = (int8_t)argmax3(diag, left, up);
-      const int c = max3(diag, left, up);
-      C0[s] = c;
-      if (d == f) rows[0][s] = c;
-    }
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -328,8 +147,9 @@ const_wavefront_kernel(const int8_t* __restrict__ alpha,   // (B, n)
 // until the walk leaves it. About K/15 rounds of loads replace the K
 // dependent loads of a walk that reads one byte a step.
 //
-// State of the forward: three slots, as for affine_wavefront (the Pallas
-// kernels' two parity slots race on a GPU), in shared memory when 9 x
+// State of the forward: three slots (the Pallas kernels' two parity
+// slots race on a GPU: a thread would read lane s-1 of the slot that
+// thread s-1 is overwriting), in shared memory when 9 x
 // lanes x 4 bytes fit (the wrapper's SMEM_STATE_BYTES_MAX), else in a
 // global scratch of 9 x lanes int32 a block that stays in L2. At the
 // full-width shape (16 pairs of 16,384 x 16,384, K = 1024) the forward's
@@ -1266,8 +1086,471 @@ affine_score_diag_kernel(const int8_t* __restrict__ alpha,    // (NP, n)
   }
 }
 
-// One thread per lane, up to cap (K2/K3 sweep the interior lanes 1..n).
-int threads_for(int lanes, int cap = kThreads) {
+// trace_diag replaces _affine_kernel in trace mode (:94) and _const_kernel
+// (:243) in both of its modes, all launched there by the pallas_call of
+// wavefront_align (:1584 in :1534). In trace mode it writes the whole
+// (n+m, B, S) trace, tM + 4 tI + 16 tD (affine) or the argmax of (diag,
+// left, up) (const) for every interior cell and 0 for every other byte
+// (row 0, column 0, lanes outside the grid), and each row's M, I and D
+// (const: its score) on the pair's diagonal fin into (B, S) rows that are
+// NEG elsewhere; in const's score mode only the scores on diagonal fin.
+// It runs affine_score_diag's strips and pipeline (see the notes above:
+// strips of 32 R rows, R rows a lane in registers, a pair's strips
+// pipelined over W warps through a ring of boundary rows and a progress
+// word a warp, kDiagLag blocks of R steps of lag) with steps of its own,
+// so that affine_stream's and affine_score_diag's steps stay as they are:
+// - Affine trace: a row keeps M, I and D of its last cell, and max3 (G)
+//   and argmax3 (T) of its next upper-left cell. I's code needs M >= D of
+//   the left cell and D's needs M >= I of the upper one, so the upper
+//   neighbour travels as (M, I, D), three shuffles a step; the boundary
+//   row holds (max(M, I), 2 D + (M >= I)) a column, which lane 31 turns
+//   back into an (M, I, D) with the same max and the same tie. The
+//   boundary is written and read at the same steps as affine_score_diag's,
+//   so its lag is the same: 34 blocks is the least the block-ahead load
+//   allows (lane 31 of a strip writes column j at step j + 32 R - 2; the
+//   load at block k reads columns up to (k + 2) R).
+// - Const: one state; a row keeps its last cell and its next upper-left
+//   one; the boundary row holds one int a column. In score mode a strip
+//   stops on its step of diagonal fin and a pair after the strip of row
+//   min(fin, n), as affine_score_diag's; in trace mode every strip runs
+//   to the last diagonal of its rows.
+//
+// The trace write. Step c of a strip is diagonal d = r0 + c + 2, and the
+// R cells of a lane on it are R consecutive bytes of trace row (d - 1, b).
+// The kernel writes rows of pitch P = 16 + round_up(n, 16) with lane s at
+// byte 15 + s (the wrapper returns the (n+m, B, S) view of them), so the
+// first row of lane t, r0 + t R + 1, lies at byte 16 + r0 + t R: the lane
+// packs its R codes into one aligned store of R bytes a step (0 for a cell
+// outside columns 1..m, tested only in the blocks that can hold one);
+// lanes whose rows all lie past n store nothing, and a lane's bytes past
+// n fall into the row's padding. The other bytes of the view are zeros
+// written as aligned 16-byte chunks: lane 0's (with the 15 bytes of
+// padding before it) on every diagonal by the pair's warps before the
+// pipeline starts, and a strip's lanes on the diagonals its steps do not
+// reach (1..r0 + 1 before its first step, written while the warp waits for
+// the strip before; those past its last step after it). Every byte of the
+// view is written once, and no fill of the whole trace precedes it.
+//
+// What bounds it: at the main shapes (128 pairs of 1024 x 1024 with trace,
+// 8 strips a pair at R = 4, W = 8; 256 in const's score mode, 4 strips at
+// R = 8, W = 4) the latency of a warp-step over the pipeline's critical
+// path, as affine_score_diag, with ~33 SASS instructions a cell in affine
+// trace mode against the ~10 of the score step. The trace itself, one
+// byte a cell and ~269 MB at the main shape, is ~0.08 ms of device memory
+// writes.
+
+constexpr int kTraceMaxWarps = 8;
+enum { kAffineTrace = 0, kConstTrace = 1, kConstScore = 2 };
+
+// The pitch of trace_diag's trace rows (see the note above).
+int trace_pitch(int n) { return 16 + (n + 15) / 16 * 16; }
+
+// The R trace codes of a lane, a byte each, in one aligned store.
+template <int R>
+__device__ __forceinline__ void store_codes(int8_t* a, const uint32_t (&w)[(R + 3) / 4]) {
+  static_assert(R == 2 || R == 4 || R == 8, "rows a lane");
+  if constexpr (R == 2) {
+    *reinterpret_cast<uint16_t*>(a) = (uint16_t)w[0];
+  } else if constexpr (R == 4) {
+    *reinterpret_cast<uint32_t*>(a) = w[0];
+  } else {
+    *reinterpret_cast<uint2*>(a) = make_uint2(w[0], w[1]);
+  }
+}
+
+// Zeros into the trace rows of diagonals d0..d1 of pair p over bytes
+// [x0, x1) of each padded row (multiples of 16), a 16-byte chunk a lane.
+__device__ void zero_trace(int8_t* trace, int NP, int p, int P, int d0, int d1, int x0,
+                           int x1, int lane) {
+  const int chunks = (x1 - x0) / 16;
+  if (chunks <= 0) return;
+  // chunk q = lane + 32 u is chunk x of row d, moved on without a division
+  const int dd = 32 / chunks, dx = 32 % chunks;
+  int d = d0 + lane / chunks, x = lane % chunks;
+  for (; d <= d1; d += dd, x += dx) {
+    if (x >= chunks) {
+      x -= chunks;
+      ++d;
+      if (d > d1) break;
+    }
+    *reinterpret_cast<int4*>(trace + ((int64_t)(d - 1) * NP + p) * P + x0 + 16 * x) =
+        make_int4(0, 0, 0, 0);
+  }
+}
+
+// R entries of a boundary row from src (16-byte aligned, or 8 for R = 2
+// ints): lane 31's boundary columns of the next block.
+template <int R>
+__device__ __forceinline__ void load_boundary(const int2* src, int2 (&bn)[R]) {
+  const int4* v = reinterpret_cast<const int4*>(src);
+#pragma unroll
+  for (int q = 0; q < R / 2; ++q) {
+    const int4 x = v[q];
+    bn[2 * q] = make_int2(x.x, x.y);
+    bn[2 * q + 1] = make_int2(x.z, x.w);
+  }
+}
+template <int R>
+__device__ __forceinline__ void load_boundary(const int* src, int (&bn)[R]) {
+  if constexpr (R == 2) {
+    const int2 x = *reinterpret_cast<const int2*>(src);
+    bn[0] = x.x;
+    bn[1] = x.y;
+  } else {
+    const int4* v = reinterpret_cast<const int4*>(src);
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q) {
+      const int4 x = v[q];
+      bn[4 * q] = x.x;
+      bn[4 * q + 1] = x.y;
+      bn[4 * q + 2] = x.z;
+      bn[4 * q + 3] = x.w;
+    }
+  }
+}
+
+// The boundary entry of an affine cell: max(M, I) and 2 D + (M >= I).
+__device__ __forceinline__ int2 gotoh_boundary(int M, int I, int D) {
+  return make_int2(max(M, I), (int)((unsigned)D << 1) | (M >= I ? 1 : 0));
+}
+
+// What the blocks of a strip of trace_diag share: the pair's result rows
+// (res0: rm, or const's res; res1, res2: ri, rd), the grid, the lane's
+// first row, the ring column lane 31 writes at step c (c - w_lo), the step
+// of diagonal fin and the strip's last step, whether the lane stores trace
+// codes, its trace bytes on the next step, and the bytes from one
+// diagonal's trace row to the next.
+struct TraceStrip {
+  int32_t *res0, *res1, *res2;
+  int n, m, ld, i0, w_lo, c_f, c_end;
+  bool writes;
+  int8_t* trow;
+  int64_t tstep;
+};
+
+// One block of R steps c = k R + s of a strip of trace_diag in affine
+// trace mode, for one lane (see the notes above; its loads as
+// stream_block's). kEdge: the block may hold a step on which a row
+// reaches column 0 (k < 32), a cell outside columns 1..m, the step of
+// diagonal fin (M, I and D of each row whose cell is on the grid go to
+// the results) or the strip's last step, after which it returns true; the
+// other blocks skip those tests.
+template <int R, bool kEdge>
+__device__ __forceinline__ bool gotoh_trace_block(
+    int k, int (&M)[R], int (&I)[R], int (&D)[R], int (&G)[R], int (&T)[R], int (&cb)[R],
+    int (&bq)[R], int2 (&bn)[R], const char* prof, const int* lut, const uint8_t* be,
+    const int2* bin, int2* bout, int lane, int go, int ge, TraceStrip& st) {
+  const int goe = go + ge, m = st.m;
+  int cn[R];
+  int2 bc[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    cn[s] = lut[bq[s]] + 4 * lane;
+    bc[s] = bn[s];
+  }
+  const int x0 = (k + 1 - lane) * R;
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+    bq[s] = (unsigned)(x0 + s) < (unsigned)m ? __ldg(be + x0 + s) : 0;
+  if (lane == 31 && (k + 1) * R < st.ld) load_boundary<R>(bin + (k + 1) * R, bn);
+  const int from = (lane + 31) & 31;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int c = k * R + s;
+    cb[(s + 1) % R] = cn[s];
+    // row 0's upper neighbour: row R - 1 of lane t - 1 on the step before,
+    // and for lane 0 the boundary row's cell, which lane 31 rebuilds
+    int sM = M[R - 1], sI = I[R - 1], sD = D[R - 1];
+    if (lane == 31) {
+      sI = bc[s].x;
+      sM = (bc[s].y & 1) ? sI : sI - 1;
+      sD = bc[s].y >> 1;
+    }
+    const int u0M = __shfl_sync(kAllLanes, sM, from);
+    const int u0I = __shfl_sync(kAllLanes, sI, from);
+    const int u0D = __shfl_sync(kAllLanes, sD, from);
+    uint32_t w[(R + 3) / 4] = {};
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r) {
+      const int uM = r > 0 ? M[r - 1] : u0M;  // cell (i - 1, j)
+      const int uI = r > 0 ? I[r - 1] : u0I;
+      const int uD = r > 0 ? D[r - 1] : u0D;
+      const int sub = *reinterpret_cast<const int*>(prof + cb[(s + 1 - r + R) % R] + 128 * r);
+      const int mv = sub + G[r];  // from (i - 1, j - 1), whose code is T[r]
+      // I from (i, j - 1): goe + M, ge + I, goe + D; M wins a tie with I,
+      // I a tie with D (each max with its tie in one DPX instruction)
+      const bool md = M[r] >= D[r];
+      const int x = max(M[r], D[r]);
+      const int iv = __viaddmax_s32(x, goe, ge + I[r]);
+      const int ti = x + go - (md ? 0 : 1) >= I[r] ? (md ? 0 : 2) : 1;
+      // D from (i - 1, j): goe + M, goe + I, ge + D
+      const bool mi = uM >= uI;
+      const int uH = max(uM, uI);
+      const int dv = __viaddmax_s32(uH, goe, ge + uD);
+      const int td = uH + go >= uD ? (mi ? 0 : 1) : 2;
+      int code = T[r] + 4 * ti + 16 * td;
+      if (kEdge && (unsigned)(c - lane * R - r) >= (unsigned)m) code = 0;
+      w[r / 4] |= (uint32_t)code << (8 * (r % 4));
+      // the next step's upper-left cell is this step's upper one
+      G[r] = max(uH, uD);
+      T[r] = uH >= uD ? (mi ? 0 : 1) : 2;
+      M[r] = mv;
+      I[r] = iv;
+      D[r] = dv;
+    }
+    if (lane == 31 && (unsigned)(c - st.w_lo) < (unsigned)m)
+      bout[c - st.w_lo] = gotoh_boundary(M[R - 1], I[R - 1], D[R - 1]);
+    if (st.writes) store_codes<R>(st.trow, w);
+    st.trow += st.tstep;
+    if (kEdge) {
+      // the row that reached column 0 on this step takes cell (i, 0)
+      const int rr = (s + 1) % R;
+      if (lane == k + (s == R - 1 ? 1 : 0)) {
+        M[rr] = kNeg;
+        I[rr] = kNeg;
+        D[rr] = go + ge * (st.i0 + rr);
+      }
+      if (c == st.c_f) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int i = st.i0 + r, j = c - lane * R - r + 1;
+          if (i <= st.n && (unsigned)j <= (unsigned)m) {
+            st.res0[i] = M[r];
+            st.res1[i] = I[r];
+            st.res2[i] = D[r];
+          }
+        }
+      }
+      if (c == st.c_end) return true;
+    }
+  }
+  return false;
+}
+
+// One block of R steps of a strip of trace_diag in const's modes (kTrace:
+// trace mode), for one lane: C holds the rows' last cells, G their next
+// upper-left cells; the boundary row is one int a column. kEdge as for
+// gotoh_trace_block.
+template <int R, bool kEdge, bool kTrace>
+__device__ __forceinline__ bool linear_diag_block(int k, int (&C)[R], int (&G)[R], int (&cb)[R],
+                                                  int (&bq)[R], int (&bn)[R], const char* prof,
+                                                  const int* lut, const uint8_t* be,
+                                                  const int* bin, int* bout, int lane, int gap,
+                                                  TraceStrip& st) {
+  const int m = st.m;
+  int cn[R], bc[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    cn[s] = lut[bq[s]] + 4 * lane;
+    bc[s] = bn[s];
+  }
+  const int x0 = (k + 1 - lane) * R;
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+    bq[s] = (unsigned)(x0 + s) < (unsigned)m ? __ldg(be + x0 + s) : 0;
+  if (lane == 31 && (k + 1) * R < st.ld) load_boundary<R>(bin + (k + 1) * R, bn);
+  const int from = (lane + 31) & 31;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int c = k * R + s;
+    cb[(s + 1) % R] = cn[s];
+    const int u0 = __shfl_sync(kAllLanes, lane == 31 ? bc[s] : C[R - 1], from);
+    uint32_t w[(R + 3) / 4] = {};
+#pragma unroll
+    for (int r = R - 1; r >= 0; --r) {
+      const int uC = r > 0 ? C[r - 1] : u0;  // cell (i - 1, j)
+      const int sub = *reinterpret_cast<const int*>(prof + cb[(s + 1 - r + R) % R] + 128 * r);
+      const int dg = G[r] + sub, lf = C[r] + gap, up = uC + gap;
+      if (kTrace) {
+        int code = argmax3(dg, lf, up);
+        C[r] = __vimax3_s32(dg, lf, up);
+        if (kEdge && (unsigned)(c - lane * R - r) >= (unsigned)m) code = 0;
+        w[r / 4] |= (uint32_t)code << (8 * (r % 4));
+      } else {
+        C[r] = __vimax3_s32(dg, lf, up);
+      }
+      G[r] = uC;
+    }
+    if (lane == 31 && (unsigned)(c - st.w_lo) < (unsigned)m) bout[c - st.w_lo] = C[R - 1];
+    if (kTrace) {
+      if (st.writes) store_codes<R>(st.trow, w);
+      st.trow += st.tstep;
+    }
+    if (kEdge) {
+      const int rr = (s + 1) % R;
+      if (lane == k + (s == R - 1 ? 1 : 0)) C[rr] = gap * (st.i0 + rr);
+      if (c == st.c_f) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int i = st.i0 + r, j = c - lane * R - r + 1;
+          if (i <= st.n && (unsigned)j <= (unsigned)m) st.res0[i] = C[r];
+        }
+      }
+      if (c == st.c_end) return true;
+    }
+  }
+  return false;
+}
+
+// kMode: kAffineTrace (go, ge: the affine gaps), kConstTrace or
+// kConstScore (go: the linear gap). ring: per pair W rows of ld boundary
+// entries (int2 affine, int const); trace: (n + m, NP, P) bytes, the
+// padded rows of the trace modes.
+template <int R, int kMode>
+__global__ void __launch_bounds__(32 * kTraceMaxWarps, 1)
+trace_diag_kernel(const int8_t* __restrict__ alpha,    // (NP, n)
+                  const int8_t* __restrict__ beta,     // (NP, m)
+                  const int32_t* __restrict__ fin,     // (NP,)
+                  const int32_t* __restrict__ scores,  // (5, 5)
+                  int go, int ge, int NP, int n, int m, int W, int ld, int P, void* ring,
+                  int32_t* __restrict__ res0,          // (NP, n + 1): rm, or res
+                  int32_t* __restrict__ res1,          // ri (affine)
+                  int32_t* __restrict__ res2,          // rd (affine)
+                  int8_t* __restrict__ trace) {
+  constexpr bool kAffine = kMode == kAffineTrace, kTrace = kMode != kConstScore;
+  // lut and the profiles as in affine_score_diag; progress[w]: warp w's
+  // strip (high half) and blocks done (low)
+  __shared__ int lut[256];
+  __shared__ unsigned long long progress[kTraceMaxWarps];
+  extern __shared__ int diag_prof[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x / 32;
+  const int slot = w / W, phase = w % W;  // the warp's pair in the block, its strips
+  const int p = blockIdx.x * (blockDim.x / 32 / W) + slot;
+  const int S = n + 1;
+  for (int x = threadIdx.x; x < 256; x += blockDim.x) lut[x] = beta_row((int8_t)x) * R * 128;
+  if (lane == 0) progress[w] = 0;
+  const int f = p < NP ? fin[p] : 0;
+  int2* ring2 = reinterpret_cast<int2*>(ring) + (int64_t)p * W * ld;
+  int* ring1 = reinterpret_cast<int*>(ring) + (int64_t)p * W * ld;
+  TraceStrip st;
+  st.res0 = res0 + (int64_t)p * S;
+  st.res1 = kAffine ? res1 + (int64_t)p * S : nullptr;
+  st.res2 = kAffine ? res2 + (int64_t)p * S : nullptr;
+  if (p < NP) {
+    // every lane of the results NEG but row 0's cell (0, f) (affine: I =
+    // go + ge f; const: gap f), the boundary of strip 0, row 0, in ring
+    // row W - 1, and lane 0's trace byte of every diagonal
+    const int t = phase * 32 + lane;
+    const int e = kAffine ? go + ge * f : go * f;
+    for (int x = t; x < S; x += 32 * W) {
+      const bool row0 = x == 0 && f >= 1 && f <= m;
+      st.res0[x] = !kAffine && row0 ? e : kNeg;
+      if (kAffine) {
+        st.res1[x] = row0 ? e : kNeg;
+        st.res2[x] = kNeg;
+      }
+    }
+    for (int x = t; x < ld; x += 32 * W) {
+      if (kAffine)
+        ring2[(W - 1) * ld + x] = gotoh_boundary(kNeg, x < m ? go + ge * (x + 1) : kNeg, kNeg);
+      else
+        ring1[(W - 1) * ld + x] = x < m ? go * (x + 1) : kNeg;
+    }
+    if (kTrace)
+      for (int d = t; d < n + m; d += 32 * W)
+        *reinterpret_cast<int4*>(trace + ((int64_t)d * NP + p) * P) = make_int4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  if (p >= NP || n == 0 || (!kTrace && (f < 1 || f > n + m))) return;  // the whole warp
+  const int8_t* al = alpha + (int64_t)p * n;
+  const uint8_t* be = (const uint8_t*)beta + (int64_t)p * m;
+  int* prof = diag_prof + w * 5 * R * 32;
+  const uint32_t mine = cta_address(progress + w),
+                 before = cta_address(progress + slot * W + (phase + W - 1) % W);
+  const int strips = (n + 32 * R - 1) / (32 * R);
+  const int s_last = kTrace ? strips - 1 : (min(f, n) - 1) / (32 * R);
+  st.n = n;
+  st.m = m;
+  st.ld = ld;
+  st.tstep = (int64_t)NP * P;
+  int M[R], I[R], D[R], G[R], T[R], cb[R], bq[R];
+  int2 bn2[R];
+  int bn1[R];
+  for (int s = phase; s <= s_last; s += W) {
+    const int r0 = s * 32 * R;
+    const int c_f = f - r0 - 2;  // the step of diagonal f
+    if (!kTrace && c_f < 0) {  // f = r0 + 1 (s = s_last): cell (f, 0), the strip's first row
+      if (lane == 0) st.res0[f] = go * f;
+      break;
+    }
+    const int i0 = r0 + lane * R + 1;  // this lane's first row
+    const bool last = r0 + 32 * R >= n;
+    const int c_end = last ? m - 1 + (n - 1 - r0) : m + 32 * R - 2;  // the strip's last step
+    const int x_lo = 16 + r0, x_hi = 16 + min(r0 + 32 * R, (n + 15) / 16 * 16);
+    if (kTrace) zero_trace(trace, NP, p, P, 1, r0 + 1, x_lo, x_hi, lane);
+    // the profile and the rows' column-0 cells: affine (NEG, NEG, go + ge
+    // i), const gap i in D; G[0] of lane 0 the cell (r0, 0)
+    stream_strip_start<R>(r0, i0, lane, al, n, be, m, scores, prof, kAffine ? go : 0,
+                          kAffine ? ge : go, M, I, D, G, cb, bq);
+    if (kAffine) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) T[r] = 0;
+      T[0] = r0 == 0 ? argmax3(0, go, go) : argmax3(kNeg, kNeg, go + ge * r0);
+    }
+    if (kTrace && c_f == -1 && lane == 0) {  // cell (f, 0), the strip's first row, on no step
+      st.res0[f] = kAffine ? kNeg : go * f;
+      if (kAffine) {
+        st.res1[f] = kNeg;
+        st.res2[f] = go + ge * f;
+      }
+    }
+    const int2* bin2 = ring2 + (int64_t)((s + W - 1) % W) * ld;
+    int2* bout2 = ring2 + (int64_t)(s % W) * ld;
+    const int* bin1 = ring1 + (int64_t)((s + W - 1) % W) * ld;
+    int* bout1 = ring1 + (int64_t)(s % W) * ld;
+    // the blocks the strip before has done, as far as this warp has seen
+    // (the whole warp waits)
+    const bool waits = W > 1 && s > 0;
+    unsigned seen = 0;
+    if (waits)
+      while (seen < kDiagLag - 1) seen = observe(before, s - 1);
+    if (lane == 31) {
+      if (kAffine)
+        load_boundary<R>(bin2, bn2);
+      else
+        load_boundary<R>(bin1, bn1);
+    }
+    const int c_stop = kTrace || c_f > c_end ? c_end : c_f;
+    const int nblk = c_stop < 0 ? 0 : c_stop / R + 1;
+    const bool feeds = s < s_last;  // a strip below reads this one's last row
+    st.i0 = i0;
+    st.w_lo = feeds ? 32 * R - 1 : (1 << 30);
+    st.c_f = c_f;
+    st.c_end = c_stop;
+    st.writes = kTrace && i0 <= n;
+    st.trow = kTrace ? trace + ((int64_t)(r0 + 1) * NP + p) * P + 15 + i0 : nullptr;
+    const int k_f = c_f >= 0 && c_f <= c_stop ? c_f / R : -1;
+    const int k_tail = m / R;  // the first block that may hold a cell past column m
+    for (int k = 0; k < nblk; ++k) {
+      if (waits)
+        while (seen < (unsigned)(k + kDiagLag)) seen = observe(before, s - 1);
+      const bool edge = k < 32 || k >= k_tail || k == k_f || k == nblk - 1;
+      bool done;
+      if constexpr (kAffine) {
+        done = edge ? gotoh_trace_block<R, true>(k, M, I, D, G, T, cb, bq, bn2,
+                                                  (const char*)prof, lut, be, bin2, bout2, lane,
+                                                  go, ge, st)
+                    : gotoh_trace_block<R, false>(k, M, I, D, G, T, cb, bq, bn2,
+                                                   (const char*)prof, lut, be, bin2, bout2, lane,
+                                                   go, ge, st);
+      } else {
+        done = edge ? linear_diag_block<R, true, kTrace>(k, D, G, cb, bq, bn1,
+                                                         (const char*)prof, lut, be, bin1,
+                                                         bout1, lane, go, st)
+                    : linear_diag_block<R, false, kTrace>(k, D, G, cb, bq, bn1,
+                                                          (const char*)prof, lut, be, bin1,
+                                                          bout1, lane, go, st);
+      }
+      if (feeds && W > 1 && lane == 31) publish(mine, s, k + 1);
+      if (done) break;
+    }
+    if (feeds && W > 1 && lane == 31) publish(mine, s, 0xffffffffu);
+    if (kTrace) zero_trace(trace, NP, p, P, r0 + c_end + 3, n + m, x_lo, x_hi, lane);
+  }
+}
+
+// One thread per lane, up to cap.
+int threads_for(int lanes, int cap) {
   const int t = (max(lanes, 1) + 31) / 32 * 32;
   return t < cap ? t : cap;
 }
@@ -1339,39 +1622,6 @@ int bwd_window_warps(int W, int CL, int L, int* passes) {
 
 extern "C" const char* wavefront_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
-}
-
-extern "C" int affine_wavefront_launch(const void* alpha, const void* beta,
-                                       const void* fin, const void* scores,
-                                       int go, int ge, int B, int n, int m,
-                                       void* scratch, void* res_m, void* res_i,
-                                       void* res_d, void* trace, void* stream) {
-  const int S = n + 1;
-  const size_t smem = scratch ? 0 : (size_t)9 * S * sizeof(int32_t);
-  cudaError_t err = allow_smem(affine_wavefront_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  affine_wavefront_kernel<<<B, threads_for(n), smem, (cudaStream_t)stream>>>(
-      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)fin,
-      (const int32_t*)scores, go, ge, B, n, m, (int32_t*)scratch,
-      (int32_t*)res_m, (int32_t*)res_i, (int32_t*)res_d, (int8_t*)trace);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int const_wavefront_launch(const void* alpha, const void* beta,
-                                      const void* fin, const void* scores,
-                                      int gap, int B, int n, int m,
-                                      int with_trace, void* scratch, void* res,
-                                      void* trace, void* stream) {
-  const int S = n + 1;
-  const size_t smem = scratch ? 0 : (size_t)3 * S * sizeof(int32_t);
-  auto kernel = with_trace ? &const_wavefront_kernel<true> : &const_wavefront_kernel<false>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<B, threads_for(n), smem, (cudaStream_t)stream>>>(
-      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)fin,
-      (const int32_t*)scores, gap, B, n, m, (int32_t*)scratch, (int32_t*)res,
-      (int8_t*)trace);
-  return (int)cudaGetLastError();
 }
 
 // The launch of affine_fwd_block with clusters of CL blocks at `chunk`
@@ -1632,5 +1882,106 @@ extern "C" int affine_score_diag_launch(const void* alpha, const void* beta,
       (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)fin,
       (const int32_t*)scores, go, ge, NP, n, m, rows, Rb, nb, W, stream_ld(m, R),
       (int2*)ring, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+using TraceKernel = void (*)(const int8_t*, const int8_t*, const int32_t*, const int32_t*, int,
+                            int, int, int, int, int, int, int, void*, int32_t*, int32_t*,
+                            int32_t*, int8_t*);
+
+// The rows a lane trace_diag is built for in its trace modes: those
+// trace_diag_plan can take there (K2's trace mode ran 2.2x slower at R = 8
+// than at R = 4 at the main shapes, PERF.md §6). Const's score mode takes
+// STREAM_ROWS.
+#define TRACE_ROWS(X) X(2) X(4)
+
+TraceKernel trace_kernel(int R, int mode) {
+#define TRACE_CASE(X)                                                 \
+  if (R == X)                                                         \
+    return mode == kAffineTrace ? trace_diag_kernel<X, kAffineTrace> \
+                                : trace_diag_kernel<X, kConstTrace>;
+#define SCORE_CASE(X) \
+  if (R == X) return trace_diag_kernel<X, kConstScore>;
+  if (mode == kAffineTrace || mode == kConstTrace) {
+    TRACE_ROWS(TRACE_CASE)
+  } else if (mode == kConstScore) {
+    STREAM_ROWS(SCORE_CASE)
+  }
+#undef SCORE_CASE
+#undef TRACE_CASE
+  return nullptr;
+}
+
+// What trace_diag is built for in `mode`, written to out: the most warps a
+// block (and a pair) has, the warps (pairs) a block at one warp a pair,
+// the number of row counts a lane, and those counts, rising.
+extern "C" int trace_diag_built(int mode, void* out) {
+  if (mode < kAffineTrace || mode > kConstScore) return (int)cudaErrorInvalidValue;
+  int* res = (int*)out;
+  int k = 0;
+  res[0] = kTraceMaxWarps;
+  res[1] = kDiagPairWarps;
+#define TRACE_REPORT(X) res[3 + k++] = X;
+  if (mode == kConstScore) {
+    STREAM_ROWS(TRACE_REPORT)
+  } else {
+    TRACE_ROWS(TRACE_REPORT)
+  }
+#undef TRACE_REPORT
+  res[2] = k;
+  return 0;
+}
+
+// The launch of trace_diag in `mode` (0 affine trace, 1 const trace, 2
+// const score) for NP pairs of n x m at R rows a lane and W warps a pair,
+// written to out (eight ints): a block's threads, the blocks, the entries
+// of a ring row (the caller's scratch is NP W rows: int2 entries for
+// affine, int for const), the registers and local (spill) bytes a thread,
+// a block's shared memory (static and dynamic), the blocks an SM holds at
+// once, and the pitch in bytes of a trace row (the caller's trace is
+// (n + m, NP, pitch) bytes, lane s of a row at byte 15 + s).
+extern "C" int trace_diag_shape(int NP, int n, int m, int R, int W, int mode, void* out) {
+  const TraceKernel kernel = trace_kernel(R, mode);
+  if (kernel == nullptr || W < 1 || W > kTraceMaxWarps) return (int)cudaErrorInvalidValue;
+  const int threads = 32 * diag_block_warps(W);
+  const size_t smem = diag_smem(R, W);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, (const void*)kernel);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem);
+  int* res = (int*)out;
+  const int pairs = threads / 32 / W;
+  res[0] = threads;
+  res[1] = (NP + pairs - 1) / pairs;
+  res[2] = stream_ld(m, R);
+  res[3] = fa.numRegs;
+  res[4] = (int)fa.localSizeBytes;
+  res[5] = (int)(fa.sharedSizeBytes + smem);
+  res[7] = trace_pitch(n);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(res + 6, kernel, threads, smem);
+  return (int)err;
+}
+
+// K2's trace mode (mode 0: rm, ri, rd in res0..res2) and K3 (mode 1 with
+// trace, mode 2 without: res in res0) of NP pairs padded to n x m, at R
+// rows a lane and W warps a pair; ring and the trace's padded rows as
+// trace_diag_shape gives them (trace unused in mode 2).
+extern "C" int trace_diag_launch(const void* alpha, const void* beta, const void* fin,
+                                 const void* scores, int go, int ge, int NP, int n, int m,
+                                 int R, int W, int mode, void* ring, void* res0, void* res1,
+                                 void* res2, void* trace, void* stream) {
+  const TraceKernel kernel = trace_kernel(R, mode);
+  if (kernel == nullptr || W < 1 || W > kTraceMaxWarps ||
+      (mode != kConstScore && trace == nullptr && n + m > 0))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = diag_smem(R, W);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 32 * diag_block_warps(W);
+  const int pairs = threads / 32 / W;
+  kernel<<<(NP + pairs - 1) / pairs, threads, smem, (cudaStream_t)stream>>>(
+      (const int8_t*)alpha, (const int8_t*)beta, (const int32_t*)fin, (const int32_t*)scores,
+      go, ge, NP, n, m, W, stream_ld(m, R), trace_pitch(n), ring, (int32_t*)res0,
+      (int32_t*)res1, (int32_t*)res2, (int8_t*)trace);
   return (int)cudaGetLastError();
 }

@@ -39,11 +39,6 @@ _SIGNATURES = {
                                     _int, _vp, _vp, _vp, _vp],
     },
     "wavefront": {
-        "affine_wavefront_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
-                                    _int, _int, _vp, _vp, _vp, _vp, _vp,
-                                    _vp],
-        "const_wavefront_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
-                                   _int, _int, _vp, _vp, _vp, _vp],
         "affine_fwd_block_launch": [_vp, _vp, _vp, _int, _int, _int, _int,
                                     _int, _int, _int, _int, _int, _int, _vp,
                                     _vp, _vp, _vp, _vp],
@@ -64,6 +59,11 @@ _SIGNATURES = {
         "affine_score_diag_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
                                      _int, _int, _int, _int, _int, _int, _int,
                                      _vp, _vp, _vp],
+        "trace_diag_built": [_int, _vp],
+        "trace_diag_shape": [_int, _int, _int, _int, _int, _int, _vp],
+        "trace_diag_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
+                              _int, _int, _int, _int, _vp, _vp, _vp, _vp,
+                              _vp, _vp],
     },
     "gsw_dp": {
         "local_wavefront_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
@@ -79,7 +79,7 @@ _SIGNATURES = {
 }
 # kernel name (as check() is given it) -> its library
 _LIBRARY_OF = {"banded_dp": "banded", "banded_walk_pack": "banded",
-               "affine_wavefront": "wavefront", "const_wavefront": "wavefront",
+               "trace_diag": "wavefront",
                "affine_fwd_block": "wavefront",
                "affine_bwd_window": "wavefront",
                "lowmem_walk_block": "wavefront",

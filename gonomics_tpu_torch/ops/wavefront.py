@@ -8,10 +8,12 @@ entry points ``wavefront_affine_stream`` (:1449) and
 
 Nine kernels, each with its plain PyTorch version beside it:
 
-- ``affine_wavefront`` (CUDA ``csrc/wavefront.cu``) replaces the Pallas
-  kernel ``_affine_kernel`` (wavefront.py:94, ``pallas_call`` at :1584) in
-  trace mode;
-- ``const_wavefront`` (same file) replaces ``_const_kernel`` (:243);
+- ``trace_diag`` (CUDA ``csrc/wavefront.cu``, affine_score_diag's strips
+  and pipeline with a trace step of its own, see ``trace_diag_plan``)
+  replaces the Pallas kernel ``_affine_kernel`` (wavefront.py:94,
+  ``pallas_call`` at :1584) in trace mode and ``_const_kernel`` (:243) in
+  both modes; ``affine_wavefront(..., with_trace=True)`` and
+  ``const_wavefront`` launch it;
 - ``local_wavefront`` (CUDA ``csrc/gsw_dp.cu``, one warp a job, or one
   block a job past the warp's reach, see ``graph_dp_design``) replaces
   ``_local_kernel`` (:179, ``pallas_call`` :451 in ``wavefront_local``);
@@ -36,13 +38,13 @@ Nine kernels, each with its plain PyTorch version beside it:
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel, counts the launch in its module counter
-(``affine_launches``, ``const_launches``, ``local_launches``,
-``gsw_right_launches``, ``affine_fwd_block_launches``,
-``affine_bwd_window_launches``, ``lowmem_walk_launches``,
-``affine_stream_launches``, ``affine_score_diag_launches``; the score
-mode's ``affine_launches`` and ``wavefront_align_blocked``'s
-``affine_block_launches`` count its launches of affine_score_diag too),
-and raises if the launch fails. It never falls back.
+(``trace_diag_launches``, ``local_launches``, ``gsw_right_launches``,
+``affine_fwd_block_launches``, ``affine_bwd_window_launches``,
+``lowmem_walk_launches``, ``affine_stream_launches``,
+``affine_score_diag_launches``; ``affine_launches``, ``const_launches``
+and ``affine_block_launches`` count the launches of affine_wavefront,
+const_wavefront and wavefront_align_blocked, whichever kernel each
+takes), and raises if the launch fails. It never falls back.
 
 Layout: cell (i, j) lies on diagonal d = i + j at lane s = i, so results
 are (B, S) int32 and the trace is (n+m, B, S) int8 with row d-1 holding
@@ -52,7 +54,9 @@ predecessor state in tie order M(0) > I(1) > D(2); const codes are that
 argmax of (diag, left, up). Every interior cell (1 <= i <= n,
 1 <= j <= m) holds the code the Pallas kernel writes there; row 0,
 column 0 and the lanes outside the grid hold 0 (there the Pallas kernel
-writes the argmax of its lane shift's junk, which no walk reads). Each
+writes the argmax of its lane shift's junk, which no walk reads). On the
+card the trace is a view of rows padded to ``trace_diag_launch_plan``'s
+pitch (lane s at byte 15 + s), so its stride along B is that pitch. Each
 pair's result is its diagonal n_b + m_b (``fin``), with every lane of
 the grid on that diagonal; read lane n_b. A pair whose diagonal is never
 reached keeps NEG. The graph kernels' layout and trace are described at
@@ -70,14 +74,15 @@ from .. import NEG, resolve_device
 from . import _kernels
 from ._kernels import as_vec, expect
 
-# Largest diagonal state (3 slots of (n+1) int32 lanes per state) kept in
-# shared memory; above it the kernels keep it in a global scratch. The
-# card allows a block 227 KB.
+# Largest diagonal state (3 slots of (n+1) int32 lanes per state) that the
+# lowmem forward and the graph DPs' block design keep in shared memory;
+# above it they keep it in a global scratch. The card allows a block 227
+# KB.
 SMEM_STATE_BYTES_MAX = 200 * 1024
-# int32 rows of n+1 lanes that each kernel keeps per pair or job: three
+# int32 rows of n+1 lanes that each of them keeps per pair or job: three
 # slots of each state, and for the graph DPs the per-lane bests (local:
 # best value, its diagonal and the corner; anchored: best and diagonal)
-_STATE_ROWS = {"affine": 9, "const": 3, "local": 6, "gsw_right": 5}
+_STATE_ROWS = {"affine": 9, "local": 6, "gsw_right": 5}
 # Cluster sizes the lowmem kernels try, largest first (8 is the portable
 # maximum of a thread-block cluster), and the fewest lanes a block of a
 # cluster of affine_fwd_block keeps (below it a smaller cluster takes the
@@ -95,13 +100,15 @@ lowmem_walk_launches = 0
 affine_stream_launches = 0
 affine_score_diag_launches = 0
 affine_block_launches = 0
+trace_diag_launches = 0
 
 
 def state_in_shared_memory(n: int, mode: str) -> bool:
-    """Whether the kernel for ``mode`` ("affine", "const", or the graph
-    DPs "local" and "gsw_right") keeps the state of n + 1 lanes in shared
-    memory rather than a global scratch (for the lowmem forward, n + 1 is
-    the lanes a block sweeps, its chunk + 1)."""
+    """Whether the kernel for ``mode`` ("affine", the lowmem forward, or
+    the graph DPs "local" and "gsw_right" in their block design) keeps the
+    state of n + 1 lanes in shared memory rather than a global scratch
+    (for the lowmem forward, n + 1 is the lanes a block sweeps, its
+    chunk + 1)."""
     return _STATE_ROWS[mode] * (n + 1) * 4 <= SMEM_STATE_BYTES_MAX
 
 
@@ -373,8 +380,8 @@ def affine_wavefront(alpha, beta, fin, scores, gap_open: int,
                      gap_extend: int, with_trace: bool):
     """Global affine wavefront (see ``affine_wavefront_reference``): the
     plain version for CPU tensors; for CUDA tensors the CUDA kernel
-    affine_wavefront in trace mode, affine_score_diag (its one row block
-    of n rows, ``score_diag_plan``) in score mode."""
+    trace_diag in trace mode (``trace_diag_plan``), affine_score_diag (its
+    one row block of n rows, ``score_diag_plan``) in score mode."""
     global affine_launches
     if alpha.device.type == "cpu":
         return affine_wavefront_reference(alpha, beta, fin, scores, gap_open,
@@ -393,28 +400,21 @@ def affine_wavefront(alpha, beta, fin, scores, gap_open: int,
         return res
     rm, ri, rd = (torch.empty((B, S), dtype=torch.int32, device=dev)
                   for _ in range(3))
-    trace = torch.empty((n + m, B, S), dtype=torch.int8, device=dev)
     if B == 0:
-        return rm, ri, rd, trace
-    scratch = (None if state_in_shared_memory(n, "affine") else
-               torch.empty((B, 9 * S), dtype=torch.int32, device=dev))
-    lib = _kernels.lib("wavefront")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.affine_wavefront_launch(
-            alpha.data_ptr(), beta.data_ptr(), fin.data_ptr(), sc.data_ptr(),
-            int(gap_open), int(gap_extend), B, n, m, _ptr(scratch),
-            rm.data_ptr(), ri.data_ptr(), rd.data_ptr(), trace.data_ptr(),
-            stream)
-    _kernels.check(rc, "affine_wavefront")
+        return rm, ri, rd, torch.empty((n + m, 0, S), dtype=torch.int8,
+                                       device=dev)
+    trace = _trace_diag_launch("affine", alpha, beta, fin, sc, gap_open,
+                               gap_extend,
+                               trace_diag_launch_plan(B, n, m, "affine"),
+                               (rm, ri, rd))
     affine_launches += 1
     return rm, ri, rd, trace
 
 
 def const_wavefront(alpha, beta, fin, scores, gap: int, with_trace: bool):
     """Global linear-gap wavefront (see ``const_wavefront_reference``):
-    the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors."""
+    the plain version for CPU tensors, the CUDA kernel trace_diag
+    (``trace_diag_plan``) for CUDA tensors."""
     global const_launches
     if alpha.device.type == "cpu":
         return const_wavefront_reference(alpha, beta, fin, scores, gap,
@@ -423,25 +423,17 @@ def const_wavefront(alpha, beta, fin, scores, gap: int, with_trace: bool):
     B, n = alpha.shape
     m = beta.shape[1]
     dev = alpha.device
-    S = n + 1
-    res = torch.empty((B, S), dtype=torch.int32, device=dev)
-    trace = (torch.empty((n + m, B, S), dtype=torch.int8, device=dev)
-             if with_trace else None)
-    out = (res, trace) if with_trace else res
+    res = torch.empty((B, n + 1), dtype=torch.int32, device=dev)
+    mode = "const" if with_trace else "const_score"
     if B == 0:
-        return out
-    scratch = (None if state_in_shared_memory(n, "const") else
-               torch.empty((B, 3 * S), dtype=torch.int32, device=dev))
-    lib = _kernels.lib("wavefront")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.const_wavefront_launch(
-            alpha.data_ptr(), beta.data_ptr(), fin.data_ptr(), sc.data_ptr(),
-            int(gap), B, n, m, int(with_trace), _ptr(scratch), res.data_ptr(),
-            _ptr(trace), stream)
-    _kernels.check(rc, "const_wavefront")
-    const_launches += 1
-    return out
+        trace = (torch.empty((n + m, 0, n + 1), dtype=torch.int8, device=dev)
+                 if with_trace else None)
+    else:
+        trace = _trace_diag_launch(mode, alpha, beta, fin, sc, gap, 0,
+                                   trace_diag_launch_plan(B, n, m, mode),
+                                   (res,))
+        const_launches += 1
+    return (res, trace) if with_trace else res
 
 
 def _graph_inputs(alpha, beta, n_vec, m_vec, scores):
@@ -656,17 +648,17 @@ def _stream_built() -> dict:
     return _stream_configs["built"]
 
 
-def stream_plan(n: int, m: int, built: dict) -> dict:
+def stream_plan(n: int, m: int, built: dict,
+                main: int = STREAM_ROWS_PER_LANE) -> dict:
     """The rows a lane R with which affine_stream runs pairs of n x m,
     chosen by shape alone from the counts it is ``built`` for
     (``_stream_built``): the smallest R whose strip of 32 R rows holds
-    all n rows, where that is below ``STREAM_ROWS_PER_LANE``, else
-    ``STREAM_ROWS_PER_LANE`` (strips of 32 of its rows), which must be
-    built."""
-    main = STREAM_ROWS_PER_LANE
+    all n rows, where that is below ``main`` (``STREAM_ROWS_PER_LANE``;
+    the other kernels of R rows a lane pass their own), else ``main``
+    (strips of 32 of its rows), which must be built."""
     rows = built["rows_per_lane"]
     if main not in rows:
-        raise ValueError(f"affine_stream is not built for {main} rows a lane")
+        raise ValueError(f"kernel not built for {main} rows a lane")
     return _strips(next((r for r in rows if 32 * r >= n and r < main), main),
                    n, m)
 
@@ -759,19 +751,26 @@ def _stream_launch(alpha, beta, sc, gap_open: int, gap_extend: int,
 SCORE_DIAG_FILL_WARPS = 2048
 
 
-def _score_diag_built() -> dict:
-    """What affine_score_diag is built for, as the kernels' library
-    reports it: the most warps a block (and a pair) has, the warps a block
-    takes at one warp a pair, and the rows a lane it takes, rising."""
-    if "diag_built" not in _stream_configs:
+def _diag_built(kernel: str, *mode: int) -> dict:
+    """What ``kernel`` (affine_score_diag, or trace_diag in one mode) is
+    built for, as the kernels' library reports it: the most warps a block
+    (and a pair) has, the warps a block takes at one warp a pair, and the
+    rows a lane it takes, rising."""
+    key = (kernel, "built", *mode)
+    if key not in _stream_configs:
         out = (ctypes.c_int * 16)()
         lib = _kernels.lib("wavefront")
-        _kernels.check(lib.affine_score_diag_built(ctypes.addressof(out)),
-                       "affine_score_diag")
-        _stream_configs["diag_built"] = {
+        _kernels.check(getattr(lib, kernel + "_built")(
+            *mode, ctypes.addressof(out)), kernel)
+        _stream_configs[key] = {
             "max_warps": out[0], "pair_warps": out[1],
             "rows_per_lane": tuple(out[3:3 + out[2]])}
-    return _stream_configs["diag_built"]
+    return _stream_configs[key]
+
+
+def _score_diag_built() -> dict:
+    """``_diag_built`` of affine_score_diag."""
+    return _diag_built("affine_score_diag")
 
 
 def _diag_block(B: int, W: int, built: dict) -> dict:
@@ -787,11 +786,18 @@ def _diag_block(B: int, W: int, built: dict) -> dict:
 def score_diag_plan(B: int, rows: int, m: int, built: dict) -> dict:
     """How affine_score_diag runs B pairs of rows x m, chosen by shape
     alone from what it is ``built`` for (``_score_diag_built``): R rows a
-    lane as ``stream_plan`` picks it for rows rows, and W warps a pair: 1
-    where the B pairs alone fill the card (SCORE_DIAG_FILL_WARPS of them),
-    else the fewest that fill it with B W warps, at most the pair's strips
-    and the warps a block holds (``_diag_block`` gives the block)."""
-    R = stream_plan(rows, m, built)["rows_per_lane"]
+    lane as ``stream_plan`` picks it for rows rows, and W warps a pair as
+    ``_diag_plan`` picks them."""
+    return _diag_plan(B, stream_plan(rows, m, built)["rows_per_lane"], rows,
+                      m, built)
+
+
+def _diag_plan(B: int, R: int, rows: int, m: int, built: dict) -> dict:
+    """The strips of R rows a lane of B pairs of rows x m and W warps a
+    pair: 1 where the B pairs alone fill the card (SCORE_DIAG_FILL_WARPS
+    of them), else the fewest that fill it with B W warps, at most the
+    pair's strips and the warps a block holds (``_diag_block`` gives the
+    block)."""
     plan = _strips(R, rows, m)
     fill = -(-SCORE_DIAG_FILL_WARPS // max(B, 1))
     W = max(1, min(plan["strips"], built["max_warps"], fill))
@@ -854,6 +860,108 @@ def _score_diag_launch(alpha, beta, fin, sc, gap_open: int, gap_extend: int,
     _kernels.check(rc, "affine_score_diag")
     affine_score_diag_launches += 1
     return out
+
+
+# trace_diag's modes as its library numbers them: K2's trace mode, K3's
+# trace mode, K3's score mode
+_TRACE_MODES = {"affine": 0, "const": 1, "const_score": 2}
+# The byte of lane 0 in a padded trace row of trace_diag (lane 1 starts a
+# 16-byte chunk)
+TRACE_LANE0 = 15
+# Rows a lane of trace_diag's trace modes. At the main shapes (128 pairs of
+# 1024 x 1024) K2's trace mode ran in 0.68-0.72 ms at 4 rows a lane (8
+# strips over 8 warps a pair) and in 1.56-1.58 at 8 (4 strips over 4
+# warps) (NVIDIA H100 80GB HBM3, 700 W power limit; PERF.md §6,
+# tools/pairwise_timing.py plans). Const's score mode takes
+# STREAM_ROWS_PER_LANE, as affine_score_diag.
+TRACE_ROWS_PER_LANE = 4
+
+
+def _trace_diag_built(mode: str) -> dict:
+    """``_diag_built`` of trace_diag in ``mode`` ("affine", "const" or
+    "const_score"): its trace modes are built for the rows a lane their
+    plans can take (2 and 4), const's score mode for STREAM_ROWS'."""
+    return _diag_built("trace_diag", _TRACE_MODES[mode])
+
+
+def trace_diag_plan(B: int, n: int, m: int, mode: str, built: dict) -> dict:
+    """How trace_diag runs B pairs of n x m in ``mode`` ("affine", "const"
+    or "const_score"), chosen by shape alone from what it is ``built`` for
+    in that mode (``_trace_diag_built``): in the trace modes R as
+    ``stream_plan`` picks it with TRACE_ROWS_PER_LANE as its main count,
+    in const's score mode as ``score_diag_plan`` picks it; W warps a pair
+    as ``_diag_plan`` picks them (at most built["max_warps"])."""
+    main = STREAM_ROWS_PER_LANE if mode == "const_score" else \
+        TRACE_ROWS_PER_LANE
+    return _diag_plan(B, stream_plan(n, m, built, main)["rows_per_lane"], n,
+                      m, built)
+
+
+def trace_diag_launch_plan(B: int, n: int, m: int, mode: str,
+                           R: int | None = None, W: int | None = None
+                           ) -> dict:
+    """``trace_diag_plan`` for B pairs of n x m in ``mode`` ("affine",
+    "const" or "const_score"), or the forced rows a lane R and warps a
+    pair W, with the launch the card's library makes of it: a block's
+    threads, the blocks, the entries of a ring row, a thread's registers
+    and spilled bytes, a block's shared memory, the blocks an SM holds and
+    the pitch of a trace row."""
+    key = ("trace", B, n, m, mode, R, W)
+    if key not in _stream_configs:
+        built = _trace_diag_built(mode)
+        plan = trace_diag_plan(B, n, m, mode, built)
+        if R is not None or W is not None:
+            R = plan["rows_per_lane"] if R is None else R
+            plan = {**_strips(R, n, m),
+                    **_diag_block(B, plan["warps_per_pair"] if W is None
+                                  else W, built)}
+        out = (ctypes.c_int * 8)()
+        lib = _kernels.lib("wavefront")
+        _kernels.check(lib.trace_diag_shape(
+            B, n, m, plan["rows_per_lane"], plan["warps_per_pair"],
+            _TRACE_MODES[mode], ctypes.addressof(out)), "trace_diag")
+        _stream_configs[key] = {
+            **plan, "threads": out[0], "launch_blocks": out[1],
+            "ring_columns": out[2], "registers": out[3],
+            "spill_bytes": out[4], "smem_bytes_per_block": out[5],
+            "blocks_per_sm": out[6], "trace_pitch": out[7]}
+    return _stream_configs[key]
+
+
+def _trace_diag_launch(mode: str, alpha, beta, fin, sc, gap_open: int,
+                       gap_extend: int, plan: dict, res):
+    """Launch trace_diag in ``mode`` ("affine", "const" or "const_score";
+    const's gap is gap_open) on checked CUDA inputs with ``plan``
+    (``trace_diag_launch_plan``) into res, the (B, n + 1) int32 results
+    (rm, ri, rd for affine; res for const). Returns the trace, the
+    (n + m, B, n + 1) int8 view of its padded rows, or None in
+    const_score."""
+    global trace_diag_launches
+    B, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    W = plan["warps_per_pair"]
+    # per pair, W ring rows of (max(M, I), 2 D + (M >= I)) or C a column
+    ring = torch.empty((B, W * plan["ring_columns"]
+                        * (2 if mode == "affine" else 1)),
+                       dtype=torch.int32, device=dev)
+    rows = trace = None
+    if mode != "const_score":
+        rows = torch.empty((n + m, B, plan["trace_pitch"]), dtype=torch.int8,
+                           device=dev)
+        trace = rows[:, :, TRACE_LANE0:TRACE_LANE0 + n + 1]
+    res = (*res, None, None)[:3]
+    lib = _kernels.lib("wavefront")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.trace_diag_launch(
+            alpha.data_ptr(), beta.data_ptr(), fin.data_ptr(), sc.data_ptr(),
+            int(gap_open), int(gap_extend), B, n, m, plan["rows_per_lane"], W,
+            _TRACE_MODES[mode], ring.data_ptr(), *(_ptr(r) for r in res),
+            _ptr(rows), stream)
+    _kernels.check(rc, "trace_diag")
+    trace_diag_launches += 1
+    return trace
 
 
 def affine_block_reference(alpha, beta, fin, scores, gap_open: int,

@@ -129,7 +129,7 @@ _WAVEFRONT_CASES = [
     (mode, *shape) for mode in ("affine", "const") for shape in (
         (5, 37, 50, "humanChimp"), (3, 1, 1, "humanChimp"),
         (7, 90, 64, "plusMinusOne"), (129, 260, 301, "humanChimp"))]
-# diagonal state above the shared-memory limit: the global scratch
+# many strips a pair, over the most warps a pair
 _WAVEFRONT_BIG = [("affine", 2, 5700, 40, "humanChimp"),
                   ("const", 2, 17100, 30, "plusMinusOne")]
 
@@ -138,8 +138,12 @@ _WAVEFRONT_BIG = [("affine", 2, 5700, 40, "humanChimp"),
 @pytest.mark.parametrize("mode,B,n,m,scoring",
                          _WAVEFRONT_CASES + _WAVEFRONT_BIG)
 def test_wavefront_kernels_equal_plain(card, mode, B, n, m, scoring):
+    """K2 (trace mode: trace_diag; score mode: affine_score_diag) and K3
+    (trace_diag in both modes) against their plain versions, whole
+    tensors, with trace_diag's plan as its library reports it: the
+    shape's rows a lane and warps a pair (8, the most, for the big
+    cases), its block shape, and no spill."""
     big = (mode, B, n, m, scoring) in _WAVEFRONT_BIG
-    assert wavefront.state_in_shared_memory(n, mode) == (not big)
     scores, go, ge = ((HUMAN_CHIMP_TWO, -600, -150) if scoring == "humanChimp"
                       else (PLUS_MINUS_ONE, -1, -1))
     if mode == "const":
@@ -149,20 +153,86 @@ def test_wavefront_kernels_equal_plain(card, mode, B, n, m, scoring):
     sc = torch.as_tensor(scores, dtype=torch.int32, device=card)
     counter = f"{mode}_launches"
     for with_trace in (True, False):
+        on_trace_diag = with_trace or mode == "const"
+        if on_trace_diag:
+            kind = mode if with_trace else "const_score"
+            plan = wavefront.trace_diag_launch_plan(B, n, m, kind)
+            want_plan = wavefront.trace_diag_plan(
+                B, n, m, kind, wavefront._trace_diag_built(kind))
+            assert plan == {**plan, **want_plan}, plan
+            assert (plan["warps_per_pair"] == 8) == big, plan
+            assert plan["launch_blocks"] == plan["blocks"], plan
+            assert plan["spill_bytes"] == 0, plan
         args = (alpha, beta, fin, sc)
         kw = dict(gap_open=go, gap_extend=ge, with_trace=with_trace,
                   mode=mode)
         before = getattr(wavefront, counter)
+        kernel_before = wavefront.trace_diag_launches
         got = wavefront.wavefront_align(*args, **kw)
         want = (wavefront.affine_wavefront_reference(
                     *args, go, ge, with_trace) if mode == "affine" else
                 wavefront.const_wavefront_reference(*args, go, with_trace))
         torch.cuda.synchronize()
         assert getattr(wavefront, counter) == before + 1
+        assert wavefront.trace_diag_launches == kernel_before + on_trace_diag
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for k, (g, w) in enumerate(zip(got, want)):
             assert torch.equal(g, w), (with_trace, k)
+
+
+# trace_diag's cases, (mode, B, n, m): K2's and K3's trace modes and K3's
+# score mode on a ragged strip, m < n, n = 0 and one pair of 20,000 rows
+# (157 strips at R = 4, 79 at R = 8), with fin_b of pair 0's own n_b x m_b
+# and, for the pairs after it, past n + m, 0 and 1
+_TRACE_DIAG_CASES = [
+    (mode, *shape) for mode in ("affine", "const", "const_score")
+    for shape in ((6, 300, 200), (5, 90, 70), (4, 600, 50), (3, 0, 7),
+                  (1, 20_000, 300))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,B,n,m", _TRACE_DIAG_CASES)
+def test_trace_diag_each_plan(card, mode, B, n, m):
+    """trace_diag at every rows a lane it is built for in the mode and at
+    1, 2, 3 and
+    its most warps a pair (8: one warp a strip in turn, strips pipelined
+    over warps, more warps than strips), against the plain versions on
+    whole tensors, with the launch its library reports: the plan's block
+    shape and no spill."""
+    alpha, beta, fin = _pairs_batch(B, max(n, 1), m, B + n + m)
+    alpha = np.ascontiguousarray(alpha[:, :n])
+    if n == 0:
+        fin = np.minimum(fin, m)
+    edges = [n + m + 1, 0, 1][:max(B - 1, 0)]
+    fin[1:1 + len(edges)] = edges
+    args = [torch.from_numpy(x).to(card) for x in (alpha, beta, fin)]
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
+    go, ge = (-600, -150) if mode == "affine" else (-430, 0)
+    if mode == "affine":
+        want = wavefront.affine_wavefront_reference(*args, sc, go, ge, True)
+    else:
+        want = wavefront.const_wavefront_reference(*args, sc, go,
+                                                   mode == "const")
+    want = want if isinstance(want, tuple) else (want,)
+    built = wavefront._trace_diag_built(mode)
+    for R in built["rows_per_lane"]:
+        for W in (1, 2, 3, built["max_warps"]):
+            plan = wavefront.trace_diag_launch_plan(B, n, m, mode, R, W)
+            assert plan["threads"] == 32 * plan["warps_per_block"], plan
+            assert plan["launch_blocks"] == plan["blocks"], plan
+            assert plan["spill_bytes"] == 0, plan
+            res = [torch.empty_like(want[0])
+                   for _ in range(3 if mode == "affine" else 1)]
+            before = wavefront.trace_diag_launches
+            trace = wavefront._trace_diag_launch(mode, *args, sc, go, ge,
+                                                 plan, res)
+            torch.cuda.synchronize()
+            assert wavefront.trace_diag_launches == before + 1
+            got = res + ([trace] if trace is not None else [])
+            assert len(got) == len(want)
+            for k, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g, w), (R, W, k)
 
 
 @pytest.mark.cuda

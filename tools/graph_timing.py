@@ -37,10 +37,8 @@ gonomics_tpu_torch/_build/ of the checkout it is imported from.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -49,6 +47,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import _timing  # noqa: E402
 import chip_smoke  # noqa: E402
 
 GAP = chip_smoke.GAP
@@ -102,11 +101,6 @@ def kernel_calls(wavefront, kind: str, jobs, sc):
             lambda: wavefront.gsw_right_wavefront_reference(*jobs, sc, GAP))
 
 
-def equal(got, want) -> bool:
-    torch.cuda.synchronize()
-    return all(torch.equal(g, w) for g, w in zip(got, want))
-
-
 def plans(wavefront, dev, smi: str, jobs_path: str) -> int:
     from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
 
@@ -146,7 +140,7 @@ def plans(wavefront, dev, smi: str, jobs_path: str) -> int:
                                            plan)
 
         want = kernel_calls(wavefront, kind, jobs, sc)[1]()
-        ok = equal(run(), want)
+        ok = _timing.equal(run(), want)
         ms = chip_smoke.median_ms(run, runs=15 if inner > 1 else 5,
                                   inner=inner)
         print(json.dumps({
@@ -173,7 +167,7 @@ def compare(wavefront, dev, smi: str, root: str, jobs_path: str) -> int:
                 ("wide_window",
                  chip_smoke.wide_window_jobs(kind == "local", dev))):
             kernel, plain = kernel_calls(wavefront, kind, jobs, sc)
-            ok = equal(kernel(), plain())
+            ok = _timing.equal(kernel(), plain())
             print(json.dumps({
                 "kernel": ("local_wavefront" if kind == "local"
                            else "gsw_right_wavefront"),
@@ -187,31 +181,16 @@ def compare(wavefront, dev, smi: str, root: str, jobs_path: str) -> int:
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=("plans", "compare"))
-    parser.add_argument("--root", default=ROOT,
-                        help="checkout to import gonomics_tpu_torch from "
-                             "(compare only)")
+    parser = _timing.parser(__doc__, ("plans", "compare"))
     parser.add_argument("--jobs",
                         default=os.path.join(ROOT, "gonomics_tpu_torch",
                                              "_build", "graph_jobs.npz"),
                         help="the main shape's jobs, built once and kept")
     args = parser.parse_args()
-    if not torch.cuda.is_available():
-        print("graph_timing: no CUDA card", file=sys.stderr)
+    card = _timing.open_card(parser, args, "graph_timing")
+    if card is None:
         return 1
-    root = os.path.abspath(args.root)
-    if args.mode != "compare" and root != ROOT:
-        parser.error("--root is for compare only")
-    sys.path.insert(0, root)
-    from gonomics_tpu_torch.ops import wavefront
-    assert os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(wavefront.__file__)))) == root
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout.strip()
-    print(smi, flush=True)
-    dev = torch.device("cuda")
+    wavefront, dev, smi, root = card
     if args.mode == "compare":
         failed = compare(wavefront, dev, smi, root, args.jobs)
     else:

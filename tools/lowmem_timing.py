@@ -37,10 +37,8 @@ gonomics_tpu_torch/_build/ of the checkout it is imported from.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -49,6 +47,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import _timing  # noqa: E402
 import chip_smoke  # noqa: E402
 
 GO, GE, K, BLOCK = -600, -150, chip_smoke.LOWMEM_K, 16
@@ -226,27 +225,12 @@ def compare(wavefront, dev, smi: str, root: str) -> int:
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=("k6", "k7", "compare"))
-    parser.add_argument("--root", default=ROOT,
-                        help="checkout to import gonomics_tpu_torch from "
-                             "(compare only)")
+    parser = _timing.parser(__doc__, ("k6", "k7", "compare"))
     args = parser.parse_args()
-    if not torch.cuda.is_available():
-        print("lowmem_timing: no CUDA card", file=sys.stderr)
+    card = _timing.open_card(parser, args, "lowmem_timing")
+    if card is None:
         return 1
-    root = os.path.abspath(args.root)
-    if args.mode != "compare" and root != ROOT:
-        parser.error("--root is for compare only")
-    sys.path.insert(0, root)
-    from gonomics_tpu_torch.ops import wavefront
-    assert os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(wavefront.__file__)))) == root
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout.strip()
-    print(smi, flush=True)
-    dev = torch.device("cuda")
+    wavefront, dev, smi, root = card
     if args.mode == "compare":
         failed = compare(wavefront, dev, smi, root)
     else:

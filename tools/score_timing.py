@@ -34,9 +34,10 @@ compare: K8, K2's score mode and K9 through their public wrappers at their
     parent in one sitting.
 sass: compiles csrc/wavefront.cu to a cubin with `nvcc -Xptxas -v`
     (registers, spills) and counts, in `cuobjdump -sass` of each
-    affine_stream_kernel<R> and affine_score_diag_kernel<R>, the
-    instructions of its longest straight run (the block of R steps that
-    needs no edge test) by opcode, and per step.
+    affine_stream_kernel<R>, affine_score_diag_kernel<R> and
+    trace_diag_kernel<R, mode> (mode 0 K2's trace mode, 1 K3's trace mode,
+    2 K3's score mode), the instructions of its longest straight run (the
+    block of R steps that needs no edge test) by opcode, and per step.
 
 Needs a CUDA card (sass needs only nvcc and cuobjdump); the package builds
 its kernels into the git-ignored gonomics_tpu_torch/_build/ of the
@@ -45,7 +46,6 @@ checkout it is imported from.
 
 from __future__ import annotations
 
-import argparse
 import collections
 import json
 import os
@@ -60,14 +60,10 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import _timing  # noqa: E402
 import chip_smoke  # noqa: E402
 
 GO, GE = chip_smoke.AFFINE_GAPS
-
-
-def equal(got, want) -> bool:
-    torch.cuda.synchronize()
-    return torch.equal(got, want)
 
 
 def score_batches(dev) -> dict:
@@ -105,7 +101,7 @@ def plans(wavefront, dev, smi: str) -> int:
             def run():
                 return wavefront._stream_launch(a, b, sc, GO, GE, plan, out)
 
-            ok = equal(run().clone(), w)
+            ok = _timing.equal(run().clone(), w)
             ms = chip_smoke.median_ms(run, runs=15, inner=inner)
             # the steps to cell (n, m): whole strips, then row n's of the last
             last = n - 1 - (plan["strips"] - 1) * plan["strip_rows"]
@@ -138,7 +134,7 @@ def plans(wavefront, dev, smi: str) -> int:
                         return wavefront._score_diag_launch(
                             pa, pb, pf, sc, GO, GE, rows, Rb, nb, plan, out)
 
-                    ok = equal(run().clone(), pw)
+                    ok = _timing.equal(run().clone(), pw)
                     ms = chip_smoke.median_ms(run, runs=15,
                                               inner=2 if pairs > 1 else 5)
                     cells = chip_smoke.diagonal_cells(rows, m, pf.cpu().numpy())
@@ -166,7 +162,8 @@ def compare(wavefront, dev, smi: str, root: str) -> int:
         return wavefront.wavefront_affine_stream(sa, sb, sc, n=n, m=m,
                                                  gap_open=GO, gap_extend=GE)
 
-    ok = equal(kernel(), wavefront.affine_stream_reference(sa, sb, sc, GO, GE))
+    ok = _timing.equal(kernel(), wavefront.affine_stream_reference(
+        sa, sb, sc, GO, GE))
     ms = chip_smoke.median_ms(kernel, runs=15, inner=2)
     print(json.dumps({
         "kernel": "affine_stream", "shape": "main", "pairs": P * B, "n": n,
@@ -187,7 +184,7 @@ def compare(wavefront, dev, smi: str, root: str) -> int:
                 return wavefront.affine_wavefront(a, b, f, sc, GO, GE, False)
             want = wavefront.affine_wavefront_reference(a, b, f, sc, GO, GE,
                                                         False)
-        ok = equal(call(), want)
+        ok = _timing.equal(call(), want)
         ms = chip_smoke.median_ms(call, runs=15, inner=2)
         cells = chip_smoke.diagonal_cells(rows, m, f.cpu().numpy())
         print(json.dumps({
@@ -219,8 +216,8 @@ def compare(wavefront, dev, smi: str, root: str) -> int:
 
 
 def sass() -> int:
-    """ptxas's report and the SASS instruction counts of each
-    affine_stream_kernel<R>."""
+    """ptxas's report and the SASS instruction counts of each kernel with
+    R rows a lane."""
     from gonomics_tpu_torch import _buildlib
     from gonomics_tpu_torch.ops import _kernels
 
@@ -233,7 +230,8 @@ def sass() -> int:
                           "-o", cubin, src], check=True, capture_output=True,
                          text=True)
     lines = res.stderr.splitlines()
-    kernels = ("affine_stream_kernel", "affine_score_diag_kernel")
+    kernels = ("affine_stream_kernel", "affine_score_diag_kernel",
+               "trace_diag_kernel")
     for k, line in enumerate(lines):
         if any(x in line for x in kernels) and "Compiling" in line:
             print(json.dumps({"ptxas": lines[k:k + 4]}), flush=True)
@@ -246,7 +244,7 @@ def sass() -> int:
         kernel = next((x for x in kernels if x in name), None)
         if kernel is None:
             continue
-        R = int(re.search(kernel + r"ILi(\d+)E", name).group(1))
+        args = re.findall(r"Li(\d+)E", name.split(kernel, 1)[1])
         runs, cur, total = [], [], 0
         for line in body.splitlines():
             ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)",
@@ -266,37 +264,22 @@ def sass() -> int:
         run = max(runs, key=len)
         ops = collections.Counter(o.split(".")[0] for o in run)
         print(json.dumps({
-            "kernel": f"{kernel}<{R}>", "instructions": total,
+            "kernel": f"{kernel}<{', '.join(args)}>", "instructions": total,
             "longest_straight_run": len(run),
-            "run_instructions_a_step": len(run) / R,
+            "run_instructions_a_step": len(run) / int(args[0]),
             "run_by_opcode": dict(ops.most_common())}), flush=True)
     return 0
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("mode", choices=("plans", "compare", "sass"))
-    parser.add_argument("--root", default=ROOT,
-                        help="checkout to import gonomics_tpu_torch from "
-                             "(compare only)")
+    parser = _timing.parser(__doc__, ("plans", "compare", "sass"))
     args = parser.parse_args()
     if args.mode == "sass":
         return sass()
-    if not torch.cuda.is_available():
-        print("score_timing: no CUDA card", file=sys.stderr)
+    card = _timing.open_card(parser, args, "score_timing")
+    if card is None:
         return 1
-    root = os.path.abspath(args.root)
-    if args.mode != "compare" and root != ROOT:
-        parser.error("--root is for compare only")
-    sys.path.insert(0, root)
-    from gonomics_tpu_torch.ops import wavefront
-    assert os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(wavefront.__file__)))) == root
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout.strip()
-    print(smi, flush=True)
-    dev = torch.device("cuda")
+    wavefront, dev, smi, root = card
     if args.mode == "compare":
         failed = compare(wavefront, dev, smi, root)
     else:
