@@ -10,7 +10,10 @@ exits non-zero:
             kernels and the host library from the checkout's sources.
 2. kernels: a full-size batch (4096 reads x 150 bp, 198 bp windows) through
             banded_dp and banded_walk_pack, each held against its plain
-            PyTorch version on the card (exact equality) and timed.
+            PyTorch version on the card (exact equality) and timed; the
+            walk also in a CUDA graph (graph_ms), with its longest walk
+            (max_steps) and the tiles its kernel loads (rounds: the most
+            a read, and in all), counted on the plain walk's path.
 3. end_to_end: ReadAligner on a 100 Mbp seeded genome with the sparse
             index (step 8): 4 pipelined batches of 4096 x 150 bp reads;
             checks the mapped and correctly placed fractions, that junk
@@ -44,9 +47,11 @@ exits non-zero:
 9. graph_kernels: 2048 left and 2048 right jobs of the graph phase's
             warm-up waves through local_wavefront, gsw_right_wavefront and
             gsw_walk_pack, each held against its plain PyTorch version on
-            the card (exact equality) and timed, with each DP's launch
-            plan (graph_dp_plan: one warp a job) and two bounds, the
-            contract's whole trace and each job's own cells; plus both
+            the card (exact equality) and timed (the walks also in a
+            CUDA graph, with their max_steps and rounds as in phase 2),
+            with each DP's launch plan (graph_dp_plan: one warp a job)
+            and two bounds, the contract's whole trace and each job's
+            own cells; plus both
             DPs on 2 jobs of a 10,300-base window (the warp design) and on
             16 jobs of 600-base read parts (past its reach: the block
             design), each checked to take that plan, exact and timed.
@@ -269,6 +274,31 @@ def median_ms(fn, runs: int = 25, inner: int = 1) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, runs: int = 15, inner: int = 20) -> float:
+    """Median over `runs` replays of a CUDA graph of `inner` calls of fn,
+    per call: the card's time for back-to-back launches without the
+    host's time a call (tens of microseconds of Python and ctypes), which
+    a kernel shorter than it would otherwise wait for between launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
 def dp_operations(n_vec: np.ndarray, m_vec: np.ndarray) -> int:
     """int32 operations banded_dp's function needs for reads of lengths
     n_vec in windows of lengths m_vec (see DP_OPS_PER_VALID_CELL)."""
@@ -365,10 +395,10 @@ def phase_kernels(dev: torch.device) -> list[dict]:
     dp_ops = dp_operations(n_vec.cpu().numpy(), m_vec.cpu().numpy())
     dp_bound = {"bytes": dp_bytes / HBM_BYTES_PER_S * 1e3,
                 "operations": dp_ops / INT32_OPS_PER_S * 1e3}
-    ops = banded.unpack_ops(wwant[2].cpu().numpy(), D)
-    i0 = wwant[0].cpu().numpy()
-    # the walk reads one trace cell per move, plus the cell it stops on
-    steps = int((ops < 3).sum() + ((score > 0).cpu().numpy() & (i0 > 0)).sum())
+    # the cells the walk reads (one a move, plus the one it stops on) and
+    # the tiles its kernel enters, from the plain walk's path
+    w_steps, w_rounds = banded.walk_rounds(*walk_args)
+    steps = int(w_steps.sum())
     P = wwant[2].shape[1]
     walk_bytes = B * (4 + 4 + 1) + B * (4 + 4 + P) + steps
     walk_bound = {"bytes": walk_bytes / HBM_BYTES_PER_S * 1e3,
@@ -382,6 +412,13 @@ def phase_kernels(dev: torch.device) -> list[dict]:
         "walk_plain": median_ms(
             lambda: banded.banded_walk_pack_reference(*walk_args)),
     }
+    # the walk also in a CUDA graph (graph_ms): launched eagerly, its
+    # calls may wait on the host's time a call
+    walk_path = {"graph_ms": graph_ms(
+                     lambda: banded.banded_walk_pack(*walk_args)),
+                 "max_steps": int(w_steps.max()),
+                 "rounds": int(w_rounds.max()),
+                 "rounds_total": int(w_rounds.sum())}
     rows = []
     for name, equal, err, ms, plain, bound, src, rep in (
             ("banded_dp", dp_equal, dp_err, timings["dp"], timings["dp_plain"],
@@ -399,12 +436,16 @@ def phase_kernels(dev: torch.device) -> list[dict]:
                      "equal_to_plain": equal, "tolerance": "exact",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": bound[by], "bound_by": by,
-                     "library_ms": None})
+                     "library_ms": None,
+                     **(walk_path if name == "banded_walk_pack" else {})})
     emit({"phase": "kernels", "shape": {"B": B, "L": L, "W": W},
           "dp_operations": dp_ops, "walk_steps": steps,
           "kernels": [{k: r[k] for k in ("name", "equal_to_plain",
                                          "max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by")}
+                                         "bound_ms", "bound_by", "graph_ms",
+                                         "max_steps", "rounds",
+                                         "rounds_total")
+                       if k in r}
                       for r in rows]})
     if not (dp_equal and walk_equal):
         raise SystemExit("a kernel disagrees with its plain version")
@@ -1248,20 +1289,12 @@ def graph_dp_bound(kind: str, nv: np.ndarray, mv: np.ndarray, n: int,
                                       job_ops / INT32_OPS_PER_S) * 1e3}
 
 
-def walk_bound(left_rows, right_rows, D_l: int, D_r: int, S_r: int) -> dict:
-    """Least time of one wave's two walk-packs: the trace cells each walk
-    reads (one a move, plus the cell a left walk stops on), the values it
-    needs (one corner a left job, all bv lanes and one bd a right job),
-    the rows written; the operations of those steps and of the right
-    side's first-max."""
-    from gonomics_tpu_torch.ops.banded import unpack_ops
-
-    steps = 0
-    for rows, D in ((left_rows, D_l), (right_rows, D_r)):
-        ops = unpack_ops(rows[:, 12:], D)
-        steps += int((ops < 3).sum())
-    meta = np.ascontiguousarray(left_rows[:, :12]).view(np.int32)
-    steps += int(((meta[:, 0] > 0) & (meta[:, 1] > 0) & (meta[:, 2] > 0)).sum())
+def walk_bound(left_rows, right_rows, steps: int, S_r: int) -> dict:
+    """Least time of one wave's two walk-packs: the trace cells the walks
+    read (`steps`: one a move, plus the cell a left walk stops on), the
+    values they need (one corner a left job, all bv lanes and one bd a
+    right job), the rows written; the operations of those steps and of
+    the right side's first-max."""
     C_l, C_r = len(left_rows), len(right_rows)
     nbytes = (C_l * (4 + 8) + C_r * (4 * S_r + 4) + steps
               + left_rows.size + right_rows.size)
@@ -1337,6 +1370,17 @@ def phase_graph_kernels(dev: torch.device, waves: list,
                 fn("right", rtrace, bv, bd))
 
     wplain = walks(gsw_dp.gsw_walk_pack_reference)
+    # the cells the walks read and the tiles the kernel loads, from the
+    # plain walks' paths
+    paths = [gsw_dp.walk_rounds("left", ltrace, corner, None, left[2],
+                                left[3]),
+             gsw_dp.walk_rounds("right", rtrace, bv, bd)]
+    walk_steps = int(sum(st.sum() for st, _ in paths))
+    walk_path = {"max_steps": max(int(st.max()) for st, _ in paths),
+                 "rounds": max(int(rd.max()) for _, rd in paths),
+                 "rounds_total": int(sum(rd.sum() for _, rd in paths)),
+                 "max_steps_by_side": [int(st.max()) for st, _ in paths],
+                 "rounds_by_side": [int(rd.max()) for _, rd in paths]}
     cases = {
         "local_wavefront": (local, local_plain,
                             graph_dp_bound("local", nv_l, mv_l, n_l, m_l)),
@@ -1346,8 +1390,8 @@ def phase_graph_kernels(dev: torch.device, waves: list,
         "gsw_walk_pack": (lambda: walks(gsw_dp.gsw_walk_pack),
                           lambda: walks(gsw_dp.gsw_walk_pack_reference),
                           walk_bound(wplain[0].cpu().numpy(),
-                                     wplain[1].cpu().numpy(), n_l + m_l,
-                                     n_r + m_r, n_r + 1)),
+                                     wplain[1].cpu().numpy(), walk_steps,
+                                     n_r + 1)),
     }
     replaces = {
         "local_wavefront": "gonomics_tpu/ops/wavefront.py:179 (_local_kernel,"
@@ -1429,10 +1473,13 @@ def phase_graph_kernels(dev: torch.device, waves: list,
             rows[-1]["plan"] = plans[name]
             for case in extra:
                 rows[-1][case] = extra[case][name]
+        if name == "gsw_walk_pack":
+            rows[-1].update(walk_path, graph_ms=graph_ms(kernel))
     emit({"phase": "graph_kernels", "tolerance": "exact",
           "kernels": [{**{k: r.get(k) for k in (
               "name", "equal_to_plain", "max_abs_err", "ms", "plain_ms",
-              "bound_ms", "bound_by", "plan", "shape")},
+              "bound_ms", "bound_by", "plan", "shape", "graph_ms",
+              "max_steps", "rounds", "rounds_total")},
               "bound_job_cells_ms": job_cells.get(("main", r["name"]))}
               for r in rows],
           **{case: {name: {**v, "bound_job_cells_ms": job_cells[(case, name)]}

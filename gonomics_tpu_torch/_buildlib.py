@@ -18,14 +18,16 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 
 def build_shared(out_name: str, sources: list[str], cmd: list[str],
-                 libs: tuple[str, ...] = ()) -> str:
+                 libs: tuple[str, ...] = (),
+                 headers: tuple[str, ...] = ()) -> str:
     """Return the path of BUILD_DIR/out_name, compiling it first when it
-    is missing or older than any source. ``cmd`` is the compiler argv up
-    to the output: ``cmd + ["-o", tmp] + sources + libs`` is run. Raises
-    CalledProcessError, with the compiler's output attached, on failure."""
+    is missing or older than any source or any of the ``headers`` the
+    sources include. ``cmd`` is the compiler argv up to the output: ``cmd
+    + ["-o", tmp] + sources + libs`` is run. Raises CalledProcessError,
+    with the compiler's output attached, on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, out_name)
-    newest = max(os.path.getmtime(s) for s in sources)
+    newest = max(os.path.getmtime(s) for s in (*sources, *headers))
 
     def fresh() -> bool:
         return os.path.exists(out) and os.path.getmtime(out) >= newest

@@ -24,14 +24,18 @@
 // carried over: the substitution score is a lookup in a 5x5 table held
 // in shared memory.
 //
-// banded_walk_pack is one thread per read: a dependent chain of one-byte
-// trace reads, bounded by memory latency, and small next to banded_dp.
+// banded_walk_pack is one warp a read walking a tile of the trace at a
+// time (see the note above its kernel): bound by the latency of its
+// dependent steps and of the rounds of loads that bring the tiles, not by
+// bytes or operations.
 //
 // Each entry returns cudaGetLastError() so that the caller can raise on
 // a launch the runtime refused.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "walk_ops.cuh"
 
 namespace {
 
@@ -135,40 +139,88 @@ banded_dp_kernel(const int8_t* __restrict__ reads,     // (B, L)
 }
 
 // Backward walk from (i_end, c_end): code 0 -> i-1; 1 -> c-1; 2 -> i-1,
-// c+1; 3, or an inactive read, emits 4 and stops. Ops are packed four
-// per byte, low bits first, as min(op, 3), padded with 3.
-__global__ void banded_walk_pack_kernel(const int8_t* __restrict__ trace,  // (L, B, 64)
-                                        const int32_t* __restrict__ i_end,
-                                        const int32_t* __restrict__ c_end,
-                                        const uint8_t* __restrict__ active,
-                                        int B, int L, int D, int P,
-                                        int32_t* __restrict__ i0_out,
-                                        int32_t* __restrict__ c0_out,
-                                        uint8_t* __restrict__ packed) {    // (B, P)
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// c+1; 3, or an inactive read, emits 4 and stops (trace codes are 0-3).
+// Cell (i, c) lies on row clamp(i - 1, 0, L-1) at column clamp(c, 0, 63);
+// the rows of a read lie B 64 bytes apart, so a walk that reads one byte a
+// step makes up to D dependent round trips to L2 or HBM. One warp walks
+// one read. A step lowers the row by at most 1 and every column is in a
+// 64-byte row, so a tile of the 32 rows rtop - 31 .. rtop whose top is the
+// current row holds at least 32 steps, and the walk leaves it only through
+// its top row: lane x loads row clamp(rtop - x, 0, L-1), 64-byte aligned,
+// as four aligned 16-byte loads, all lanes in one round, into the warp's
+// 2 KB tile in shared memory, and the warp walks the tile, one byte load a
+// step, its row moved by the step itself: from row x of the tile the next
+// 32 - x steps stay in it, which the warp takes with no test of the
+// tile's edge. Ops are packed four a byte, low bits first, as min(op, 3),
+// padded with 3, as OpWords stores them; i0 and c0 from lane 0. Steps, not
+// rounds of loads, set the pace (PERF.md): the tile held in registers (a
+// shuffle a step) and the next tile loaded while one is walked were both
+// timed slower.
+constexpr int kWalkWarps = 8;  // reads (warps) a block of the walk
+
+__global__ void __launch_bounds__(32 * kWalkWarps)
+banded_walk_pack_kernel(const int8_t* __restrict__ trace,  // (L, B, 64)
+                        const int32_t* __restrict__ i_end,
+                        const int32_t* __restrict__ c_end,
+                        const uint8_t* __restrict__ active,
+                        int B, int L, int D, int P,
+                        int32_t* __restrict__ i0_out,
+                        int32_t* __restrict__ c0_out,
+                        uint8_t* __restrict__ packed) {    // (B, P)
+  __shared__ uint4 smem[kWalkWarps * 32 * 4];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWalkWarps + warp;
+  if (b >= B) return;  // the whole warp leaves together
   int i = i_end[b], c = c_end[b];
-  bool act = active[b] != 0;
   uint8_t* out = packed + (int64_t)b * P;
-  int byte = 0, k = 0, step = 0;
-  for (; step < D; ++step) {
-    if (!(act && i > 0)) break;  // every later op is 4
-    const int row = min(max(i - 1, 0), L - 1);
-    const int col = min(max(c, 0), kBand - 1);
-    const int t = trace[((int64_t)row * B + b) * kBand + col];
-    if (t == 3) break;
-    i -= (t == 0 || t == 2) ? 1 : 0;
-    c += (t == 2 ? 1 : 0) - (t == 1 ? 1 : 0);
-    byte |= min(t, 3) << (2 * k);
-    if (++k == 4) { out[step >> 2] = (uint8_t)byte; byte = 0; k = 0; }
+  const int8_t* tb = trace + (int64_t)b * kBand;  // row r at tb + r B 64
+  const int64_t pitch = (int64_t)B * kBand;
+  int rtop = -1;  // no tile yet (the walk reads rows >= 0)
+  uint4* mine = smem + (warp * 32 + lane) * 4;
+  const uint8_t* tile = (const uint8_t*)(smem + warp * 32 * 4);
+  OpWords ops;
+  int t = 0;
+  bool live = active[b] != 0 && i > 0;
+  while (live && t < D) {
+    int x = rtop - (i - 1);
+    if ((unsigned)x > 31u) {
+      rtop = i - 1;
+      x = 0;
+      const uint4* src = (const uint4*)(tb + (int64_t)min(max(rtop - lane, 0), L - 1) * pitch);
+      uint4 cur[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) cur[q] = __ldg(src + q);
+      __syncwarp();  // every lane has read the tile before
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mine[q] = cur[q];
+      __syncwarp();
+    }
+    // the steps that surely stay in the tile, each a byte load in row x
+    const int n = min(32 - x, D - t);
+    const uint8_t* p = tile + x * kBand;
+    for (int k = 0; k < n; ++k) {
+      const uint32_t code = p[min(max(c, 0), kBand - 1)];
+      if (code == 3) {  // inactive from here on
+        live = false;
+        break;
+      }
+      const int di = ~code & 1;               // 0 and 2 lower i
+      c += (int)(code >> 1) - (int)(code & 1);  // 1 lowers c, 2 raises it
+      i -= di;
+      p += di * kBand;
+      ops.push(t, code, out, P, lane);
+      ++t;
+      if (i == 0) {
+        live = false;
+        break;
+      }
+    }
   }
-  // the stop op (4) and the padding both pack as 3
-  for (; step < 4 * P; ++step) {
-    byte |= 3 << (2 * k);
-    if (++k == 4) { out[step >> 2] = (uint8_t)byte; byte = 0; k = 0; }
+  ops.finish(t, out, P, lane);
+  if (lane == 0) {
+    i0_out[b] = i;
+    c0_out[b] = c;
   }
-  i0_out[b] = i;
-  c0_out[b] = c;
 }
 
 }  // namespace
@@ -190,13 +242,13 @@ extern "C" int banded_dp_launch(const void* reads, const void* windows,
   return (int)cudaGetLastError();
 }
 
+// The trace must be 16-byte aligned (the wrapper's check).
 extern "C" int banded_walk_pack_launch(const void* trace, const void* i_end,
                                        const void* c_end, const void* active,
                                        int B, int L, int D, int P, void* i0,
                                        void* c0, void* packed, void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  banded_walk_pack_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (B + kWalkWarps - 1) / kWalkWarps;
+  banded_walk_pack_kernel<<<blocks, 32 * kWalkWarps, 0, (cudaStream_t)stream>>>(
       (const int8_t*)trace, (const int32_t*)i_end, (const int32_t*)c_end,
       (const uint8_t*)active, B, L, D, P, (int32_t*)i0, (int32_t*)c0,
       (uint8_t*)packed);

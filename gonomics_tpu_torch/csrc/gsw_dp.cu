@@ -47,10 +47,11 @@
 // scores[row(beta code), clip(alpha code)], the profile's orientation
 // (_select_score :85, _build_inputs :393).
 //
-// The walk is one warp per job: the warp finds the right side's first
-// maximal lane, then one thread walks the trace (D = n+m dependent
-// one-byte loads) and packs the ops; latency-bound, and small beside the
-// DPs.
+// The walk is one warp a job walking a tile of the trace at a time (see
+// the note above gsw_walk_pack_kernel): a round of independent loads by
+// the whole warp brings the cells of many steps into shared memory, which
+// the warp then walks. It is bound by the latency of its dependent steps
+// and of those rounds, not by bytes or operations.
 //
 // Each entry returns cudaGetLastError() so that the caller can raise on
 // a launch the runtime refused.
@@ -59,11 +60,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "walk_ops.cuh"
+
 namespace {
 
 constexpr int kNeg = -(1 << 30);  // NEG = -(2**30)
 constexpr int kThreads = 512;
-constexpr int kWalkWarps = 4;
 
 __device__ __forceinline__ int max3(int a, int b, int c) { return max(max(a, b), c); }
 
@@ -408,14 +410,60 @@ gsw_warp_kernel(const int8_t* __restrict__ alpha,   // (C, n)
   }
 }
 
-// One warp per job. kLeft (_left_full): score = corner at lane n_b; walk
-// from (n_b, m_b) while the score is > 0, i and j are > 0 and the code is
-// not 3; the meta holds (score, i, j) where the walk stopped. Otherwise
-// (_right_full): the first lane of the maximal best value; a max <= 0
-// gives (0, 0) and score 0; walk from there to the origin with i and j
-// clamped at 0; the meta holds (score, start i, start j). Both run D
-// steps, code 4 once inactive, and pack min(op, 3) four to a byte, low
-// bits first, padded with 3, after the 12-byte little-endian meta.
+// The walk, gsw_walk_pack: one warp a job, the tile walk of
+// lowmem_walk_block taken to this trace's layout. kLeft (_left_full):
+// score = corner at lane n_b; walk from (n_b, m_b) while the score is
+// > 0, i and j are > 0 and the code is not 3; the meta holds (score, i,
+// j) where the walk stopped. Otherwise (_right_full): the first lane of
+// the maximal best value (a warp-wide first-max; a max <= 0 gives (0, 0)
+// and score 0); walk from there to the origin with i and j clamped at 0;
+// the meta holds (score, start i, start j). Both run D steps, code 4 once
+// inactive, and pack min(op, 3) four to a byte, low bits first, padded
+// with 3, after the 12-byte little-endian meta. Trace codes are 0-3.
+//
+// Cell (i, j) lies on row dd = clamp(u, 0, D-1) of the trace, u = i + j
+// - 1, at lane clamp(i, 0, S-1); rows of a job lie C S bytes apart, so a
+// walk that reads one byte a step makes up to D dependent round trips to
+// L2 or HBM. A step lowers u by at most 2 and i by at most 1, so a tile
+// of TD = 32 diagonals x TL = 16 lanes whose corner (dtop, itop) is the
+// current cell holds at least 16 steps: every lane of the warp takes part
+// in one round of independent loads (lane x loads diagonal dtop - x, the
+// 16 bytes of lanes itop - 15 .. itop, every row and lane clamped as the
+// walk clamps them) into the warp's tile in shared memory, row x at 16 x
+// bytes. The warp then walks the tile, one byte load a step, its address
+// moved by the step itself: from cell (x, y) = (dtop - u, itop - i) of
+// the tile at least min((TD - 1 - x) / 2, TL - 1 - y) + 1 steps stay in
+// it, which the warp takes with no test of the tile's edges. A
+// right-side step clamped at i = 0 or j = 0 that does not move stays in
+// the tile. The ops go into 32-bit words, 16 steps a word, the lane g mod
+// 32 keeping word g; the warp stores 32 words at a time, then, once the
+// walk has stopped, its last words, the 3s after them and the meta, every
+// lane a few bytes. Tiles of 32 or 64 diagonals x 16 or 32 lanes were
+// timed; 32 x 16 was the fastest (PERF.md): steps, not rounds of loads,
+// set the pace, and a larger tile's loads cost more than the rounds they
+// save.
+constexpr int kWalkWarps = 4;   // jobs (warps) a block of the walk
+constexpr int kTileDiags = 32;  // TD: a diagonal a lane
+constexpr int kTileLanes = 16;  // TL
+
+// The 16 bytes at p as 4 words, from an aligned 16-byte load and one
+// more where they straddle a 16-byte boundary; the words are shifted into
+// place by whole words and then by a funnel shift.
+__device__ __forceinline__ void load_words(const int8_t* p, uint32_t* w) {
+  const uintptr_t a = (uintptr_t)p;
+  const uint4* q = (const uint4*)(a & ~(uintptr_t)15);
+  const int off = (int)(a & 15);
+  const uint4 c0 = __ldg(q), c1 = off ? __ldg(q + 1) : make_uint4(0, 0, 0, 0);
+  const uint32_t v[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const int s = off >> 2, sh = 8 * (off & 3);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t lo = s == 0 ? v[k] : s == 1 ? v[k + 1] : s == 2 ? v[k + 2] : v[k + 3];
+    const uint32_t hi = s == 0 ? v[k + 1] : s == 1 ? v[k + 2] : s == 2 ? v[k + 3] : v[k + 4];
+    w[k] = __funnelshift_r(lo, hi, sh);
+  }
+}
+
 template <bool kLeft>
 __global__ void __launch_bounds__(32 * kWalkWarps)
 gsw_walk_pack_kernel(const int8_t* __restrict__ trace,    // (D, C, S)
@@ -425,9 +473,12 @@ gsw_walk_pack_kernel(const int8_t* __restrict__ trace,    // (D, C, S)
                      const int32_t* __restrict__ m_vec,   // (C,) (left)
                      int C, int S, int D, int P,
                      uint8_t* __restrict__ out) {         // (C, 12 + P)
-  const int b = blockIdx.x * kWalkWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  constexpr int TD = kTileDiags, TL = kTileLanes;
+  __shared__ uint4 smem[kWalkWarps * TD];  // a row of TL bytes a diagonal
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x * kWalkWarps + warp;
   if (b >= C) return;  // the whole warp leaves together
+  uint8_t* tile = (uint8_t*)(smem + warp * TD);
   const int32_t* vrow = values + (int64_t)b * S;
   int score, i, j;
   if (kLeft) {
@@ -441,8 +492,8 @@ gsw_walk_pack_kernel(const int8_t* __restrict__ trace,    // (D, C, S)
       if (v > best) { best = v; arg = s; }
     }
     for (int k = 16; k > 0; k >>= 1) {
-      const int ob = __shfl_xor_sync(0xffffffffu, best, k);
-      const int oa = __shfl_xor_sync(0xffffffffu, arg, k);
+      const int ob = __shfl_xor_sync(kFull, best, k);
+      const int oa = __shfl_xor_sync(kFull, arg, k);
       if (ob > best || (ob == best && oa < arg)) { best = ob; arg = oa; }
     }
     if (best <= 0) {
@@ -453,37 +504,83 @@ gsw_walk_pack_kernel(const int8_t* __restrict__ trace,    // (D, C, S)
       j = diags[(int64_t)b * S + arg] - arg;
     }
   }
-  if (lane != 0) return;
+  const int i_start = i, j_start = j;
   uint8_t* row = out + (int64_t)b * (12 + P);
-  int meta[3] = {score, i, j};
-  bool active = !kLeft || score > 0;
-  unsigned byte = 0;
-  for (int step = 0; step < D; ++step) {
-    int t = 4;
-    const bool cont = kLeft ? (active && i > 0 && j > 0) : (i > 0 || j > 0);
-    if (cont) {
-      const int dd = min(max(i + j - 1, 0), D - 1);
-      const int t_raw = trace[((int64_t)dd * C + b) * S + min(max(i, 0), S - 1)];
-      if (kLeft && t_raw == 3) active = false;
-      else t = t_raw;
-    } else if (kLeft) {
-      active = false;
+  const int8_t* tb = trace + (int64_t)b * S;  // row dd at tb + dd C S
+  const int64_t pitch = (int64_t)C * S;
+  int dtop = 0, itop = -TL;  // no tile yet
+  OpWords ops;
+  int t = 0;
+  bool live = kLeft ? (score > 0 && i > 0 && j > 0) : (i > 0 || j > 0);
+  while (live && t < D) {
+    const int u = i + j - 1;
+    int x = dtop - u, y = itop - i;
+    if ((unsigned)x >= (unsigned)TD || (unsigned)y >= (unsigned)TL) {
+      dtop = u;
+      itop = i;
+      x = y = 0;
+      const int lo = itop - TL + 1;
+      const int dd = min(max(dtop - lane, 0), D - 1);
+      const int8_t* rp = tb + dd * pitch;
+      uint32_t w[4];
+      if (lo >= 0 && itop <= S - 1 && !(dd == D - 1 && b == C - 1)) {
+        // no clamp: every aligned 16-byte chunk loaded holds a byte of the
+        // tile. It starts at or after the 16-byte boundary below a byte
+        // of the trace, never before the allocation, which starts on a
+        // 256-byte boundary; it ends before the next boundary above a
+        // byte of the trace, past the trace's end only on its last row
+        // (S >= TL = 16), which is loaded byte by byte.
+        load_words(rp + lo, w);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t v = 0;
+#pragma unroll
+          for (int z = 0; z < 4; ++z) {
+            const int ss = min(max(lo + 4 * q + z, 0), S - 1);
+            v |= (uint32_t)(uint8_t)rp[ss] << (8 * z);
+          }
+          w[q] = v;
+        }
+      }
+      __syncwarp();  // every lane has read the tile before
+      smem[warp * TD + lane] = make_uint4(w[0], w[1], w[2], w[3]);
+      __syncwarp();
     }
-    if (t == 0 || t == 2) i -= 1;
-    if (t == 0 || t == 1) j -= 1;
-    if (!kLeft) { i = max(i, 0); j = max(j, 0); }
-    byte |= (unsigned)min(t, 3) << (2 * (step & 3));
-    if ((step & 3) == 3) {
-      row[12 + step / 4] = (uint8_t)byte;
-      byte = 0;
+    // the steps that surely stay in the tile, each a byte load at p (a
+    // right walk's start may have j < 0, which its first step clamps to
+    // 0: that step alone, then the tile is found anew)
+    int n = min(min((TD - 1 - x) >> 1, TL - 1 - y) + 1, D - t);
+    if (!kLeft && j < 0) n = 1;
+    const uint8_t* p = tile + x * TL + (TL - 1 - y);
+    for (int k = 0; k < n; ++k) {
+      const uint32_t code = *p;
+      if (kLeft && code == 3) {  // inactive from here on
+        live = false;
+        break;
+      }
+      // 0 and 2 lower i, 0 and 1 lower j (right: clamped at 0); x grows
+      // by both, y by i's
+      int i2 = i - ((0x5 >> code) & 1), j2 = j - ((0x3 >> code) & 1);
+      if (!kLeft) {
+        i2 = max(i2, 0);
+        j2 = max(j2, 0);
+      }
+      p += (TL - 1) * (i - i2) + TL * (j - j2);
+      i = i2;
+      j = j2;
+      ops.push(t, code, row + 12, P, lane);
+      ++t;
+      live = kLeft ? (i > 0 && j > 0) : (i > 0 || j > 0);
+      if (!live) break;
     }
   }
-  if (D & 3) {
-    for (int k = D & 3; k < 4; ++k) byte |= 3u << (2 * k);
-    row[12 + D / 4] = (uint8_t)byte;
+  ops.finish(t, row + 12, P, lane);
+  if (lane < 12) {  // the meta, a byte a lane
+    const int v = lane < 4 ? score : lane < 8 ? (kLeft ? i : i_start)
+                                              : (kLeft ? j : j_start);
+    row[lane] = (uint8_t)((unsigned)v >> (8 * (lane % 4)));
   }
-  if (kLeft) { meta[1] = i; meta[2] = j; }
-  for (int k = 0; k < 12; ++k) row[k] = (uint8_t)((unsigned)meta[k / 4] >> (8 * (k % 4)));
 }
 
 // The slots a lane of the warp design is built for (L): a job's m + 1

@@ -25,6 +25,8 @@ from .._buildlib import build_shared
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
+# the headers that sources in csrc/ include
+_HEADERS = (os.path.join(_CSRC, "walk_ops.cuh"),)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -105,7 +107,7 @@ def lib(name: str) -> ctypes.CDLL:
         if name not in _libs:
             so = build_shared(f"lib{name}.so",
                               [os.path.join(_CSRC, f"{name}.cu")],
-                              [_nvcc()] + NVCC_FLAGS)
+                              [_nvcc()] + NVCC_FLAGS, headers=_HEADERS)
             cdll = ctypes.CDLL(so)
             for fn_name, argtypes in _SIGNATURES[name].items():
                 fn = getattr(cdll, fn_name)

@@ -126,33 +126,67 @@ def banded_dp(reads, windows, n_vec, m_vec, scores, gap: int):
     return bv, bi, trace
 
 
+def _walk_step(trace, i, c, act):
+    """One step of every walk (``_banded_walk``, wavefront.py:789-810):
+    the cells read (the live reads with i > 0, at row clamp(i - 1, 0, L -
+    1), column clamp(c, 0, 63)), the op taken (code 4 once inactive; a 3
+    ends the walk) and the next i, c and liveness."""
+    L, B, _ = trace.shape
+    reads = act & (i > 0)
+    t_raw = trace[(i - 1).clamp(0, L - 1), torch.arange(B, device=i.device),
+                  c.clamp(0, BW - 1)].to(torch.int64)
+    act = reads & (t_raw != 3)
+    t_eff = torch.where(act, t_raw, 4)
+    i = i - ((t_eff == 0) | (t_eff == 2)).to(torch.int64)
+    c = c - (t_eff == 1).to(torch.int64) + (t_eff == 2).to(torch.int64)
+    return reads, t_eff, i, c, act
+
+
 def banded_walk_pack_reference(trace, i_end, c_end, active, D: int):
     """Plain PyTorch backward walk (``_banded_walk``, wavefront.py:789-810)
     plus packing (:878-883): D steps from (i_end, c_end) for the reads
     where ``active``; returns i0, c0 (B,) int32 and the ops packed four
     per byte, low bits first, as min(op, 3) and padded with 3:
     (B, ceil(D / 4)) uint8."""
-    L, B, _ = trace.shape
+    B = trace.shape[1]
     dev = trace.device
-    bidx = torch.arange(B, device=dev)
     i = i_end.to(torch.int64)
     c = c_end.to(torch.int64)
     act = active.to(torch.bool)
     P = -(-D // 4)
     ops = torch.full((B, 4 * P), 3, dtype=torch.int64, device=dev)
     for step in range(D):
-        cont = act & (i > 0)
-        t_raw = trace[(i - 1).clamp(0, L - 1), bidx,
-                      c.clamp(0, BW - 1)].to(torch.int64)
-        moves = cont & (t_raw != 3)
-        t_eff = torch.where(moves, t_raw, 4)
-        i = i - ((t_eff == 0) | (t_eff == 2)).to(torch.int64)
-        c = c - (t_eff == 1).to(torch.int64) + (t_eff == 2).to(torch.int64)
-        act = moves
-        ops[:, step] = t_eff
+        _, ops[:, step], i, c, act = _walk_step(trace, i, c, act)
     weights = torch.tensor([1, 4, 16, 64], dtype=torch.int64, device=dev)
     packed = (ops.clamp(max=3).reshape(B, P, 4) * weights).sum(-1)
     return i.to(torch.int32), c.to(torch.int32), packed.to(torch.uint8)
+
+
+TILE_ROWS = 32  # rows of the walk's tile: one a lane of its warp
+
+
+def walk_rounds(trace, i_end, c_end, active, D: int):
+    """The steps that read a cell and the tiles ``banded_walk_pack``'s
+    kernel walks, per read (two (B,) int64 tensors), from the plain walk's
+    path: a tile of TILE_ROWS rows is entered, a round of loads that the
+    walk waits for, where a walk reads a row outside the tile before (its
+    first read, and then the row TILE_ROWS below the tile's top), with its
+    top at that row."""
+    i = i_end.to(torch.int64)
+    c = c_end.to(torch.int64)
+    act = active.to(torch.bool)
+    steps = torch.zeros_like(i)
+    rounds = torch.zeros_like(i)
+    rtop = torch.full_like(i, -1)  # no tile yet (the walk reads rows >= 0)
+    for _ in range(D):
+        x = rtop - (i - 1)
+        reads, _, i_next, c, act = _walk_step(trace, i, c, act)
+        load = reads & ((x < 0) | (x >= TILE_ROWS))
+        rtop = torch.where(load, i - 1, rtop)
+        steps += reads
+        rounds += load
+        i = i_next
+    return steps, rounds
 
 
 def banded_walk_pack(trace, i_end, c_end, active, D: int):
@@ -164,6 +198,8 @@ def banded_walk_pack(trace, i_end, c_end, active, D: int):
     if dev.type == "cpu":
         return banded_walk_pack_reference(trace, i_end, c_end, active, D)
     trace = expect(trace, torch.int8, (L, B, BW), "trace", dev)
+    if trace.data_ptr() % 16:  # the kernel loads 16-byte chunks of rows
+        trace = trace.clone()
     i_end = expect(i_end.to(torch.int32), torch.int32, (B,), "i_end", dev)
     c_end = expect(c_end.to(torch.int32), torch.int32, (B,), "c_end", dev)
     active = expect(active.to(torch.uint8), torch.uint8, (B,), "active", dev)

@@ -45,6 +45,56 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def _walk_start(side: str, values, diags, n_vec, m_vec, C: int, S: int):
+    """Where one side's walks start: score, i, j (int64) and whether each
+    walk is live. Left (``_left_full``): score = corner at lane n_b, the
+    walk from (n_b, m_b) while the score is > 0. Right (``_right_full``):
+    the first lane of the maximal bv, j = bd - i there; a max <= 0 gives
+    (0, 0) and score 0."""
+    if side not in ("left", "right"):
+        raise ValueError(f"unknown walk side {side!r}")
+    dev = values.device
+    if side == "left":
+        i = as_vec(n_vec, C, dev).to(torch.int64)
+        j = as_vec(m_vec, C, dev).to(torch.int64)
+        score = values.gather(1, i.clamp(0, S - 1)[:, None])[:, 0]
+        return score, i, j, score > 0
+    max_v = values.amax(dim=1)
+    lanes = torch.arange(S, dtype=torch.int64, device=dev)
+    max_i = torch.where(values == max_v[:, None], lanes, S).amin(dim=1)
+    max_j = diags.gather(1, max_i[:, None])[:, 0].to(torch.int64) - max_i
+    none = max_v <= 0
+    return (torch.where(none, 0, max_v), torch.where(none, 0, max_i),
+            torch.where(none, 0, max_j), ~none)
+
+
+def _walk_step(side: str, trace, i, j, act):
+    """One step of every walk: the cells read (the jobs that read one, at
+    (i, j) before the step), the op taken (code 4 once inactive) and the
+    next i, j and liveness. Cell (i, j) lies on row clamp(i + j - 1, 0, D
+    - 1) at lane clamp(i, 0, S - 1). Left: a walk reads while live with i
+    and j > 0, and a code 3 ends it; right: while i or j is > 0, with i and
+    j clamped at 0."""
+    D, C, S = trace.shape
+    bidx = torch.arange(C, device=trace.device)
+    if side == "left":
+        reads = act & (i > 0) & (j > 0)
+    else:
+        reads = (i > 0) | (j > 0)
+    t_raw = trace[(i + j - 1).clamp(0, D - 1), bidx,
+                  i.clamp(0, S - 1)].to(torch.int64)
+    if side == "left":
+        act = reads & (t_raw != 3)
+        t_eff = torch.where(act, t_raw, 4)
+    else:
+        t_eff = torch.where(reads, t_raw, 4)
+    i = i - ((t_eff == 0) | (t_eff == 2)).to(torch.int64)
+    j = j - ((t_eff == 0) | (t_eff == 1)).to(torch.int64)
+    if side == "right":
+        i, j = i.clamp(min=0), j.clamp(min=0)
+    return reads, t_eff, i, j, act
+
+
 def gsw_walk_pack_reference(side: str, trace, values, diags=None,
                             n_vec=None, m_vec=None):
     """Plain PyTorch walk and packing of one side's DP results.
@@ -60,45 +110,14 @@ def gsw_walk_pack_reference(side: str, trace, values, diags=None,
     origin with i and j clamped at 0; the meta is (score, i, j) of the
     end. Both run D steps, code 4 once inactive. Returns (C, 12 + P)
     uint8 rows, P = ceil(D / 4)."""
-    if side not in ("left", "right"):
-        raise ValueError(f"unknown walk side {side!r}")
     D, C, S = trace.shape
     dev = trace.device
-    bidx = torch.arange(C, device=dev)
-    if side == "left":
-        i = as_vec(n_vec, C, dev).to(torch.int64)
-        j = as_vec(m_vec, C, dev).to(torch.int64)
-        score = values.gather(1, i.clamp(0, S - 1)[:, None])[:, 0]
-        act = score > 0
-    else:
-        max_v = values.amax(dim=1)
-        lanes = torch.arange(S, dtype=torch.int64, device=dev)
-        max_i = torch.where(values == max_v[:, None], lanes, S).amin(dim=1)
-        max_j = diags.gather(1, max_i[:, None])[:, 0].to(torch.int64) - max_i
-        none = max_v <= 0
-        i = torch.where(none, 0, max_i)
-        j = torch.where(none, 0, max_j)
-        score = torch.where(none, 0, max_v)
-        start = (i, j)
+    score, i, j, act = _walk_start(side, values, diags, n_vec, m_vec, C, S)
+    start = (i, j)
     P = -(-D // 4)
     ops = torch.full((C, 4 * P), 3, dtype=torch.int64, device=dev)
     for step in range(D):
-        if side == "left":
-            cont = act & (i > 0) & (j > 0)
-        else:
-            cont = (i > 0) | (j > 0)
-        t_raw = trace[(i + j - 1).clamp(0, D - 1), bidx,
-                      i.clamp(0, S - 1)].to(torch.int64)
-        if side == "left":
-            act = cont & (t_raw != 3)
-            t_eff = torch.where(act, t_raw, 4)
-        else:
-            t_eff = torch.where(cont, t_raw, 4)
-        i = i - ((t_eff == 0) | (t_eff == 2)).to(torch.int64)
-        j = j - ((t_eff == 0) | (t_eff == 1)).to(torch.int64)
-        if side == "right":
-            i, j = i.clamp(min=0), j.clamp(min=0)
-        ops[:, step] = t_eff
+        _, ops[:, step], i, j, act = _walk_step(side, trace, i, j, act)
     if side == "right":
         i, j = start
     meta = torch.stack([score.to(torch.int64), i, j], dim=1).to(torch.int32)
@@ -106,6 +125,36 @@ def gsw_walk_pack_reference(side: str, trace, values, diags=None,
     packed = (ops.clamp(max=3).reshape(C, P, 4) * weights).sum(-1)
     return torch.cat([meta.contiguous().view(torch.uint8),
                       packed.to(torch.uint8)], dim=1)
+
+
+GSW_TILE = (32, 16)  # the walk's tile, (diagonals, lanes), as gsw_dp.cu's
+
+
+def walk_rounds(side: str, trace, values, diags=None, n_vec=None,
+                m_vec=None):
+    """The steps that read a cell and the tiles ``gsw_walk_pack``'s kernel
+    loads, per job (two (C,) int64 tensors), from the plain walk's path
+    with tiles of GSW_TILE: a tile is loaded where a walk reads a cell
+    outside the one before, with its corner (u, i) = (i + j - 1, i) at
+    that cell."""
+    TD, TL = GSW_TILE
+    D, C, S = trace.shape
+    _, i, j, act = _walk_start(side, values, diags, n_vec, m_vec, C, S)
+    steps = torch.zeros(C, dtype=torch.int64, device=trace.device)
+    rounds = torch.zeros_like(steps)
+    dtop = torch.zeros_like(steps)
+    itop = torch.full_like(steps, -TL)  # no tile yet
+    for _ in range(D):
+        u = i + j - 1
+        x, y = dtop - u, itop - i
+        reads, _, i_next, j_next, act = _walk_step(side, trace, i, j, act)
+        load = reads & ((x < 0) | (x >= TD) | (y < 0) | (y >= TL))
+        dtop = torch.where(load, u, dtop)
+        itop = torch.where(load, i, itop)
+        steps += reads
+        rounds += load
+        i, j = i_next, j_next
+    return steps, rounds
 
 
 def gsw_walk_pack(side: str, trace, values, diags=None, n_vec=None,

@@ -86,17 +86,42 @@ def test_kernels_equal_plain(card, B, L, W, scoring):
 
 @pytest.mark.cuda
 def test_walk_on_random_traces(card):
+    """banded_walk_pack's tile walk against the plain walk: random traces
+    (codes 0-3, and mostly left or up moves that run past the band's
+    columns) and traces of one code, from starts at i_end = L, i_end 0,
+    columns 0 and 63 and random ones, active or not, over 1000 reads (not
+    a multiple of the warps a block) and at the linear path's shape (4096
+    reads of 150 bp), each launch counted; and from a view of the trace
+    that is not 16-byte aligned."""
     rng = np.random.default_rng(3)
-    L, B = 60, 1000
-    D = banded.walk_length(L)
-    trace = torch.from_numpy(rng.choice(4, size=(L, B, 64),
-                                        p=[0.6, 0.15, 0.15, 0.1]).astype(np.int8))
-    i_end = torch.from_numpy(rng.integers(0, L + 1, B).astype(np.int32))
-    c_end = torch.from_numpy(rng.integers(0, 64, B).astype(np.int32))
-    active = torch.from_numpy(rng.random(B) < 0.8)
-    args = [x.to(card) for x in (trace, i_end, c_end, active)]
-    for g, w in zip(banded.banded_walk_pack(*args, D),
-                    banded.banded_walk_pack_reference(*args, D)):
+    for L, B in ((60, 1000), (150, 4096)):
+        D = banded.walk_length(L)
+        i_end = rng.integers(0, L + 1, B).astype(np.int32)
+        c_end = rng.integers(0, 64, B).astype(np.int32)
+        active = rng.random(B) < 0.8
+        i_end[:4], c_end[:4], active[:4] = L, [0, 63, 0, 63], True
+        i_end[4] = 0
+        traces = [rng.choice(4, size=(L, B, 64), p=[0.6, 0.15, 0.15, 0.1]),
+                  rng.choice(4, size=(L, B, 64), p=[0.3, 0.35, 0.34, 0.01])]
+        traces += [np.full((L, B, 64), code) for code in (0, 1, 2)]
+        for k, trace in enumerate(traces):
+            args = [torch.from_numpy(x).to(card) for x in (
+                trace.astype(np.int8), i_end, c_end, active)]
+            want = banded.banded_walk_pack_reference(*args, D)
+            before = banded.walk_launches
+            got = banded.banded_walk_pack(*args, D)
+            assert banded.walk_launches == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (L, k)
+    # a view one byte into its storage: the wrapper copies it aligned
+    flat = torch.from_numpy(traces[0].astype(np.int8).reshape(-1)).to(card)
+    store = torch.zeros(flat.numel() + 1, dtype=torch.int8, device=card)
+    store[1:] = flat
+    view = store[1:].view(L, B, 64)
+    assert view.data_ptr() % 16
+    args = [torch.from_numpy(x).to(card) for x in (i_end, c_end, active)]
+    for g, w in zip(banded.banded_walk_pack(view, *args, D),
+                    banded.banded_walk_pack_reference(view, *args, D)):
         assert torch.equal(g, w)
 
 
@@ -370,6 +395,89 @@ def test_graph_kernels_equal_plain(card, C, n, m, scoring, plan):
         meta = want[:, :12].cpu().numpy().copy().view(np.int32)
         scored += int((meta[3:, 0] > 0).sum())
     assert scored > 0  # real alignments were walked
+
+
+def _junk_walk_inputs(D: int, C: int, S: int, seed: int):
+    """Random traces and starts for both sides of gsw_walk_pack: codes 0-3
+    everywhere (right walks stall on a 3 or clamp at i = 0 or j = 0
+    without moving; left walks stop), left starts at lane 0, at S - 1, on
+    diagonal 1, past the trace's last row and lane, on the allocation's
+    last row, with a score <= 0; right bests with a max <= 0, ties (the
+    first lane wins), starts at lanes 0 and S - 1, at j = 0, on diagonal 0
+    and with j < 0."""
+    rng = np.random.default_rng(seed)
+    n = S - 1
+    trace = rng.choice(4, size=(D, C, S), p=[0.55, 0.2, 0.2, 0.05])
+    nv = rng.integers(1, n + 1, C).astype(np.int32)
+    mv = rng.integers(1, D - n + 1, C).astype(np.int32)
+    corner = rng.integers(-5, 60, (C, S)).astype(np.int32)
+    nv[0], mv[0] = n, D - n
+    nv[1], mv[1] = 1, 1
+    nv[2], mv[2] = n + 5, D
+    nv[3] = 0
+    nv[-1], mv[-1] = n, D - n
+    corner[4, nv[4]] = 0
+    bv = rng.integers(-20, 40, (C, S)).astype(np.int32)
+    bd = (np.arange(S)[None, :]
+          + rng.integers(-3, D - n + 2, (C, S))).astype(np.int32)
+    bv[0] = -1
+    bv[1] = 0
+    bv[2, :] = 7
+    bv[3, :] = 1
+    bv[3, S - 1] = 9
+    bv[4, :] = 1
+    bv[4, 5], bd[4, 5] = 9, 5
+    bv[5, :] = 1
+    bv[5, 0], bd[5, 0] = 9, 1
+    bd[6] = np.arange(S) - 2
+    return trace.astype(np.int8), nv, mv, corner, bv, bd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,C,S", [(320, 2048, 193), (67, 9, 40),
+                                   (131, 13, 71), (551, 8, 301), (9, 8, 6)])
+def test_graph_walk_tiles_on_junk_traces(card, D, C, S):
+    """gsw_walk_pack, both sides, each launch counted, against the plain
+    walk on random traces from `_junk_walk_inputs` and on traces of one
+    code (walks that leave their tiles through each edge): the graph
+    path's wave (2048 jobs at (n, m) = (192, 128)), the CPU emulation's
+    shapes (D not a multiple of 4, C not a multiple of the warps a block,
+    D past 512 steps), and a window narrower than the tile (S = 6: every
+    load byte by byte)."""
+    trace, nv, mv, corner, bv, bd = _junk_walk_inputs(D, C, S, D + C)
+    traces = [trace] + [np.full((D, C, S), code, np.int8)
+                        for code in (0, 1, 2)]
+    starts = [torch.from_numpy(x).to(card) for x in (nv, mv, corner, bv, bd)]
+    nv, mv, corner, bv, bd = starts
+    for k, tr in enumerate(traces):
+        tr = torch.from_numpy(tr).to(card)
+        for side, walk in (("left", (tr, corner, None, nv, mv)),
+                           ("right", (tr, bv, bd, None, None))):
+            want = gsw_dp.gsw_walk_pack_reference(side, *walk)
+            before = gsw_dp.walk_launches
+            assert torch.equal(gsw_dp.gsw_walk_pack(side, *walk), want), (
+                k, side)
+            assert gsw_dp.walk_launches == before + 1
+
+
+@pytest.mark.cuda
+def test_graph_walk_tiles_on_real_traces(card):
+    """gsw_walk_pack against the plain walk on the plain DPs' traces of
+    2048 jobs at (192, 128), the graph path's wave, and of 13 jobs at (70,
+    61)."""
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
+    for C, n, m in ((2048, 192, 128), (13, 70, 61)):
+        jobs = [torch.from_numpy(x).to(card)
+                for x in _graph_jobs(C, n, m, C + n)]
+        _, _, ltrace, corner = wavefront.local_wavefront_reference(
+            *jobs, sc, -600, True)
+        bv, bd, rtrace = wavefront.gsw_right_wavefront_reference(*jobs, sc,
+                                                                 -600)
+        for side, walk in (("left", (ltrace, corner, None, *jobs[2:])),
+                           ("right", (rtrace, bv, bd, None, None))):
+            want = gsw_dp.gsw_walk_pack_reference(side, *walk)
+            assert torch.equal(gsw_dp.gsw_walk_pack(side, *walk), want), (
+                C, side)
 
 
 @pytest.mark.cuda
