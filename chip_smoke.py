@@ -9,15 +9,29 @@ exits non-zero:
 1. device:  the card's name and power limit (nvidia-smi); builds the CUDA
             kernels and the host library from the checkout's sources.
 2. kernels: a full-size batch (4096 reads x 150 bp, 198 bp windows) through
-            banded_dp and banded_walk_pack, each held against its plain
-            PyTorch version on the card (exact equality) and timed; the
-            walk also in a CUDA graph (graph_ms), with its longest walk
-            (max_steps) and the tiles its kernel loads (rounds: the most
-            a read, and in all), counted on the plain walk's path.
+            banded_align_fused, the main path's kernel (the DP kernel's
+            fused mode: the DP, best cell, walk and packing in one
+            launch), held against the plain banded_align_full on the card
+            (exact equality) and timed eagerly (ms) and in a CUDA graph
+            (graph_ms), with its plan (lanes a thread, warps a block,
+            registers, spills, shared memory). The same for banded_dp (the
+            trace mode) and banded_walk_pack at this shape, which the main
+            path does not take, in this phase's line only.
 3. end_to_end: ReadAligner on a 100 Mbp seeded genome with the sparse
             index (step 8): 4 pipelined batches of 4096 x 150 bp reads;
             checks the mapped and correctly placed fractions, that junk
-            stays unmapped, and that the main path launched every kernel.
+            stays unmapped, and that the main path launched the kernel its
+            plan names (banded_align_fused); then one batch of 64 reads of
+            13,000 bp, whose traces do not fit a block's shared memory,
+            through the same aligner: mapped, placed, and launching
+            banded_dp and banded_walk_pack. Then (line long_read_kernels)
+            those two kernels on that batch's own inputs, as the aligner
+            gave them: held against their plain versions (the walk from the
+            plain DP's trace and best cells), timed, with banded_dp's plan,
+            the walk's longest walk (max_steps) and the tiles its kernel
+            loads (rounds: the most a read, and in all), counted on the
+            plain walk's path; their rows of the kernels line come from
+            here.
 4. cli:     `gsw align ... --engine tpu -t 4` of the port (the North
             star's command line) on a 10 Mbp genome, single and paired,
             byte-equal to the library path's SAM for the same reads.
@@ -97,9 +111,10 @@ exits non-zero:
             memory and the plans of affine_score_diag; G cells/s of each
             at bench.py's sizes.
 
-Then the kernels line (launch counts of banded_dp and banded_walk_pack
-from phase 3, of the wavefront kernels from phase 6 (affine_wavefront's
-and const_wavefront's, and under "trace_diag_launches" the launches of
+Then the kernels line (launch counts of banded_align_fused from phase 3's
+main batches, of banded_dp and banded_walk_pack from its long reads, of
+the wavefront kernels from phase 6 (affine_wavefront's and
+const_wavefront's, and under "trace_diag_launches" the launches of
 the one CUDA kernel, "kernel", both take there), of the graph kernels
 from phase 8, of the lowmem kernels from phase 12, of the score kernels
 from phase 14) and, last, one JSON object naming the device. Without a
@@ -128,6 +143,10 @@ import torch
 
 B, L, PAD = 4096, 150, 24
 W = L + 2 * PAD
+# the end-to-end phase's long-read batch: reads whose traces do not fit a
+# block's shared memory (banded_plan), which take banded_dp and
+# banded_walk_pack
+LONG_READS, LONG_L = 64, 13_000
 GAP = -600
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 # int32 lanes: 132 SMs x 64 INT32 units x 1.98 GHz boost clock
@@ -299,11 +318,12 @@ def graph_ms(fn, runs: int = 15, inner: int = 20) -> float:
     return float(np.median(times))
 
 
-def dp_operations(n_vec: np.ndarray, m_vec: np.ndarray) -> int:
+def dp_operations(n_vec: np.ndarray, m_vec: np.ndarray, length: int = L) -> int:
     """int32 operations banded_dp's function needs for reads of lengths
-    n_vec in windows of lengths m_vec (see DP_OPS_PER_VALID_CELL)."""
-    rows = np.minimum(n_vec.astype(np.int64), L)
-    i = np.arange(1, L + 1)
+    n_vec (at most `length`) in windows of lengths m_vec (see
+    DP_OPS_PER_VALID_CELL)."""
+    rows = np.minimum(n_vec.astype(np.int64), length)
+    i = np.arange(1, length + 1)
     lanes = np.clip(m_vec[:, None].astype(np.int64) - i + 1, 0, 64)
     valid = int(np.where(i <= rows[:, None], lanes, 0).sum())
     bases = int(np.clip(np.minimum(m_vec, rows + 63), 0, None).sum())
@@ -334,65 +354,106 @@ def phase_device() -> dict:
     return info
 
 
-def kernel_batch(seed: int):
-    """B anchored (read, window) pairs: SNPs, 5 bp deletions and
-    insertions, short reads, lowercase bases and junk rows."""
+def kernel_batch(seed: int, n: int = B, length: int = L):
+    """n anchored (read, window) pairs of reads of `length` in windows of
+    length + 2 PAD: SNPs, 5 bp deletions and insertions, short reads,
+    lowercase bases and junk rows."""
     rng = np.random.default_rng(seed)
-    wins = rng.integers(0, 4, (B, W)).astype(np.int8)
-    wins[rng.random((B, W)) < 0.001] = 4
-    reads = wins[:, PAD:PAD + L].copy()
-    n_vec = np.full(B, L, np.int32)
-    for b in range(B):
+    width = length + 2 * PAD
+    wins = rng.integers(0, 4, (n, width)).astype(np.int8)
+    wins[rng.random((n, width)) < 0.001] = 4
+    reads = wins[:, PAD:PAD + length].copy()
+    n_vec = np.full(n, length, np.int32)
+    for b in range(n):
         kind = b % 10
         if kind == 1:      # 5 bp deletion from the read
-            reads[b, 75:] = wins[b, PAD + 80:PAD + 80 + L - 75]
+            reads[b, 75:] = wins[b, PAD + 80:PAD + 80 + length - 75]
         elif kind == 2:    # 5 bp insertion into the read
-            reads[b, 80:] = reads[b, 75:L - 5].copy()
+            reads[b, 80:] = reads[b, 75:length - 5].copy()
             reads[b, 75:80] = rng.integers(0, 4, 5)
         elif kind == 3:    # short read
-            n_vec[b] = int(rng.integers(100, L))
+            n_vec[b] = int(rng.integers(100, length))
             reads[b, n_vec[b]:] = 4
         elif kind == 4:    # lowercase bases
-            reads[b, rng.integers(0, L, 12)] += 5
+            reads[b, rng.integers(0, length, 12)] += 5
         elif kind == 5:    # junk
-            reads[b] = rng.integers(0, 4, L)
-        snp = rng.integers(0, L, 1 + b % 3)
+            reads[b] = rng.integers(0, 4, length)
+        snp = rng.integers(0, length, 1 + b % 3)
         reads[b, snp] = (reads[b, snp] % 5 + 1) % 4
-    return reads, wins, n_vec, np.full(B, W, np.int32)
+    return reads, wins, n_vec, np.full(n, width, np.int32)
 
 
-def phase_kernels(dev: torch.device) -> list[dict]:
-    from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+def equal_err(got, want):
+    """Whether two tuples of tensors are equal, and their largest absolute
+    difference."""
+    torch.cuda.synchronize()
+    return (all(torch.equal(g, w) for g, w in zip(got, want)),
+            max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                for g, w in zip(got, want)))
+
+
+BANDED_DP_REPLACES = ("gonomics_tpu/ops/wavefront.py:709 (_banded_kernel, "
+                      "pallas_call :850)")
+BANDED_WALK_REPLACES = ("gonomics_tpu/ops/wavefront.py:789 (_banded_walk) + "
+                        ":874-883 (packing)")
+
+
+def banded_row(name: str, equal: bool, err: int, bound: dict, replaces: str,
+               timing: tuple, **extra) -> dict:
+    """One kernel's row of the kernels line (launches filled in later):
+    timing is (ms, graph_ms, plain_ms); bound the bytes and operations
+    times, the larger of which is bound_ms."""
+    by = max(bound, key=bound.get)
+    ms, gms, plain = timing
+    return {"name": name, "route": "cuda",
+            "source": "gonomics_tpu_torch/csrc/banded.cu",
+            "replaces": replaces, "launches": None,
+            "equal_to_plain": equal, "tolerance": "exact",
+            "max_abs_err": err, "ms": ms, "graph_ms": gms,
+            "plain_ms": plain, "bound_ms": bound[by], "bound_by": by,
+            "library_ms": None, **extra}
+
+
+def dp_and_walk_rows(dp_args: tuple, length: int, plain_once: bool):
+    """banded_dp and banded_walk_pack on one batch, dp_args = (reads,
+    windows, n_vec, m_vec, scores, gap) on the card: each held against
+    its plain version (the walk from the plain DP's trace and best cells)
+    and timed eagerly (ms) and in a CUDA graph (graph_ms), with bounds
+    from this batch's inputs, banded_dp's plan and the walk's longest
+    walk (max_steps) and the tiles its kernel loads (rounds: the most a
+    read, and in all), counted on the plain walk's path. The plain
+    versions are timed once where plain_once (long reads), else as the
+    kernels are. Returns (rows, the plain DP's result, the walk's steps
+    and ops bytes a read)."""
     from gonomics_tpu_torch.ops import banded
 
-    reads, wins, n_vec, m_vec = (torch.from_numpy(x).to(dev)
-                                 for x in kernel_batch(1))
-    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=dev)
-    dp_args = (reads, wins, n_vec, m_vec, sc, GAP)
-    got = banded.banded_dp(*dp_args)
-    want = banded.banded_dp_reference(*dp_args)
-    torch.cuda.synchronize()
-    dp_equal = all(torch.equal(g, w) for g, w in zip(got, want))
-    dp_err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                 for g, w in zip(got, want))
+    reads, wins, n_vec, m_vec = dp_args[:4]
+    n, width = wins.shape
+    plain_dp = (lambda: banded.banded_dp_reference(*dp_args))
+    if plain_once:
+        want, dp_plain_ms = once_ms(plain_dp)
+    else:
+        want, dp_plain_ms = plain_dp(), median_ms(plain_dp)
+    dp_equal, dp_err = equal_err(banded.banded_dp(*dp_args), want)
 
     bv, bi, trace = want
     score, i_star, c_star = banded.best_cell(bv, bi)
-    D = banded.walk_length(L)
-    walk_args = (trace, i_star, c_star, score > 0, D)
-    wgot = banded.banded_walk_pack(*walk_args)
-    wwant = banded.banded_walk_pack_reference(*walk_args)
-    torch.cuda.synchronize()
-    walk_equal = all(torch.equal(g, w) for g, w in zip(wgot, wwant))
-    walk_err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                   for g, w in zip(wgot, wwant))
+    walk_args = (trace, i_star, c_star, score > 0,
+                 banded.walk_length(length))
+    plain_walk = (lambda: banded.banded_walk_pack_reference(*walk_args))
+    if plain_once:
+        wwant, walk_plain_ms = once_ms(plain_walk)
+    else:
+        wwant, walk_plain_ms = plain_walk(), median_ms(plain_walk)
+    walk_equal, walk_err = equal_err(banded.banded_walk_pack(*walk_args),
+                                     wwant)
 
     # bounds from this batch: bytes each input read once and each output
     # written once, and the operations this batch's cells need over the
     # int32 rate
-    cells = L * B * 64
-    dp_bytes = (B * L + B * W + 8 * B + 100 + 2 * B * 64 * 4 + cells)
-    dp_ops = dp_operations(n_vec.cpu().numpy(), m_vec.cpu().numpy())
+    in_bytes = n * length + n * width + 8 * n + 100
+    dp_bytes = in_bytes + 2 * n * 64 * 4 + length * n * 64
+    dp_ops = dp_operations(n_vec.cpu().numpy(), m_vec.cpu().numpy(), length)
     dp_bound = {"bytes": dp_bytes / HBM_BYTES_PER_S * 1e3,
                 "operations": dp_ops / INT32_OPS_PER_S * 1e3}
     # the cells the walk reads (one a move, plus the one it stops on) and
@@ -400,59 +461,104 @@ def phase_kernels(dev: torch.device) -> list[dict]:
     w_steps, w_rounds = banded.walk_rounds(*walk_args)
     steps = int(w_steps.sum())
     P = wwant[2].shape[1]
-    walk_bytes = B * (4 + 4 + 1) + B * (4 + 4 + P) + steps
+    walk_bytes = n * (4 + 4 + 1) + n * (4 + 4 + P) + steps
     walk_bound = {"bytes": walk_bytes / HBM_BYTES_PER_S * 1e3,
                   "operations": WALK_OPS_PER_STEP * steps / INT32_OPS_PER_S * 1e3}
 
-    timings = {
-        "dp": median_ms(lambda: banded.banded_dp(*dp_args), inner=20),
-        "dp_plain": median_ms(lambda: banded.banded_dp_reference(*dp_args)),
-        "walk": median_ms(lambda: banded.banded_walk_pack(*walk_args),
-                          inner=20),
-        "walk_plain": median_ms(
-            lambda: banded.banded_walk_pack_reference(*walk_args)),
-    }
-    # the walk also in a CUDA graph (graph_ms): launched eagerly, its
-    # calls may wait on the host's time a call
-    walk_path = {"graph_ms": graph_ms(
-                     lambda: banded.banded_walk_pack(*walk_args)),
-                 "max_steps": int(w_steps.max()),
-                 "rounds": int(w_rounds.max()),
-                 "rounds_total": int(w_rounds.sum())}
-    rows = []
-    for name, equal, err, ms, plain, bound, src, rep in (
-            ("banded_dp", dp_equal, dp_err, timings["dp"], timings["dp_plain"],
-             dp_bound, "gonomics_tpu_torch/csrc/banded.cu",
-             "gonomics_tpu/ops/wavefront.py:709 (_banded_kernel, "
-             "pallas_call :850)"),
-            ("banded_walk_pack", walk_equal, walk_err, timings["walk"],
-             timings["walk_plain"], walk_bound,
-             "gonomics_tpu_torch/csrc/banded.cu",
-             "gonomics_tpu/ops/wavefront.py:789 (_banded_walk) + "
-             ":874-883 (packing)")):
-        by = max(bound, key=bound.get)
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": None,
-                     "equal_to_plain": equal, "tolerance": "exact",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": bound[by], "bound_by": by,
-                     "library_ms": None,
-                     **(walk_path if name == "banded_walk_pack" else {})})
+    def dp():
+        return banded.banded_dp(*dp_args)
+
+    def walk():
+        return banded.banded_walk_pack(*walk_args)
+
+    # eager (`ms`) and in a CUDA graph (`graph_ms`): launched eagerly, a
+    # call may wait on the host's time a call
+    rows = [banded_row("banded_dp", dp_equal, dp_err, dp_bound,
+                       BANDED_DP_REPLACES,
+                       (median_ms(dp, inner=20), graph_ms(dp), dp_plain_ms),
+                       plan=banded.banded_launch_plan(n, length, "dp"),
+                       dp_operations=dp_ops),
+            banded_row("banded_walk_pack", walk_equal, walk_err, walk_bound,
+                       BANDED_WALK_REPLACES,
+                       (median_ms(walk, inner=20), graph_ms(walk),
+                        walk_plain_ms),
+                       max_steps=int(w_steps.max()),
+                       rounds=int(w_rounds.max()),
+                       rounds_total=int(w_rounds.sum()), walk_steps=steps)]
+    return rows, want, (steps, P)
+
+
+ROW_KEYS = ("name", "equal_to_plain", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "graph_ms", "plan", "dp_operations",
+            "max_steps", "rounds", "rounds_total", "walk_steps")
+
+
+def phase_kernels(dev: torch.device) -> list[dict]:
+    """The main path's kernel, banded_align_fused, on the main batch;
+    banded_dp and banded_walk_pack at the same shape too, in this phase's
+    line only (the main path does not take them: their rows come from
+    the long reads, phase_long_read_kernels)."""
+    from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+    from gonomics_tpu_torch.ops import banded
+
+    reads, wins, n_vec, m_vec = (torch.from_numpy(x).to(dev)
+                                 for x in kernel_batch(1))
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=dev)
+    dp_args = (reads, wins, n_vec, m_vec, sc, GAP)
+    off_path, _, (steps, P) = dp_and_walk_rows(dp_args, L, plain_once=False)
+    fwant = banded.banded_align_full_reference(*dp_args)
+    fused_equal, fused_err = equal_err(banded.banded_align_fused(*dp_args),
+                                       fwant)
+    # the fused mode: the DP's and the walk's operations; its bytes are
+    # the inputs and the six outputs (no trace leaves the chip)
+    dp_ops = off_path[0]["dp_operations"]
+    fused_bytes = B * L + B * W + 8 * B + 100 + B * (5 * 4 + P)
+    fused_bound = {"bytes": fused_bytes / HBM_BYTES_PER_S * 1e3,
+                   "operations": (dp_ops + WALK_OPS_PER_STEP * steps)
+                   / INT32_OPS_PER_S * 1e3}
+
+    def fused():
+        return banded.banded_align_fused(*dp_args)
+
+    row = banded_row(
+        "banded_align_fused", fused_equal, fused_err, fused_bound,
+        BANDED_DP_REPLACES + " + :789 (_banded_walk) + :874-883 (packing) "
+        "in banded_align_full :815",
+        (median_ms(fused, inner=20), graph_ms(fused),
+         median_ms(lambda: banded.banded_align_full_reference(*dp_args),
+                   runs=5)),
+        plan=banded.banded_launch_plan(B, L, "fused"))
     emit({"phase": "kernels", "shape": {"B": B, "L": L, "W": W},
-          "dp_operations": dp_ops, "walk_steps": steps,
-          "kernels": [{k: r[k] for k in ("name", "equal_to_plain",
-                                         "max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by", "graph_ms",
-                                         "max_steps", "rounds",
-                                         "rounds_total")
-                       if k in r}
-                      for r in rows]})
-    if not (dp_equal and walk_equal):
+          "kernels": [{k: r[k] for k in ROW_KEYS if k in r} for r in [row]],
+          "trace_mode_at_this_shape": [{k: r[k] for k in ROW_KEYS if k in r}
+                                       for r in off_path]})
+    if not (fused_equal and all(r["equal_to_plain"] for r in off_path)):
+        raise SystemExit("a kernel disagrees with its plain version")
+    return [row]
+
+
+def phase_long_read_kernels(dev: torch.device, batch: tuple) -> list[dict]:
+    """banded_dp and banded_walk_pack on the inputs the end-to-end phase's
+    long-read batch gave them (batch: its reads, windows, n_vec and m_vec
+    as the aligner made them, and the aligner's scores and gap), the path
+    that takes them: each held against its plain version, timed, with its
+    bound and plan from these inputs."""
+    reads, wins, n_vec, m_vec, scores = (
+        torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in batch[:5])
+    n, length = reads.shape
+    rows, _, _ = dp_and_walk_rows(
+        (reads, wins, n_vec, m_vec, scores.to(torch.int32), int(batch[5])),
+        length, plain_once=True)
+    emit({"phase": "long_read_kernels",
+          "shape": {"B": n, "L": length, "W": wins.shape[1]},
+          "kernels": [{k: r[k] for k in ROW_KEYS if k in r} for r in rows]})
+    if not all(r["equal_to_plain"] for r in rows):
         raise SystemExit("a kernel disagrees with its plain version")
     return rows
 
 
-def make_reads(genome: np.ndarray, n: int, seed: int, prefix: str = "r"):
+def make_reads(genome: np.ndarray, n: int, seed: int, prefix: str = "r",
+               L: int = L):
     """n reads of L bp with one SNP each, every other one reverse-
     complemented; every 64th a 5 bp deletion, every 64th (offset 32) a
     5 bp insertion, every 100th junk. Returns (reads, truth) with truth
@@ -505,7 +611,11 @@ def check_sam(text: str, truth: np.ndarray) -> dict:
             "junk": len(truth) - real, "junk_mapped": junk_mapped}
 
 
-def phase_end_to_end(dev: torch.device, G: int) -> dict:
+def phase_end_to_end(dev: torch.device, G: int) -> tuple[dict, tuple]:
+    """ReadAligner end to end on the main batches, then on one batch of
+    long reads; returns the phase's line and the long batch's inputs to
+    the device step with the aligner's scores and gap
+    (phase_long_read_kernels)."""
     from gonomics_tpu_torch import dna, native
     from gonomics_tpu_torch.io.fasta import Fasta
     from gonomics_tpu_torch.ops import banded
@@ -525,8 +635,10 @@ def phase_end_to_end(dev: torch.device, G: int) -> dict:
     # upload to the result in host memory (host enqueue gaps included)
     spans = []
     device_result = al._device_result
+    last_inputs = []  # the last batch's (read_seqs, windows, n_vec, m_vec)
 
     def timed_device_result(*args):
+        last_inputs[:] = [args]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -549,7 +661,7 @@ def phase_end_to_end(dev: torch.device, G: int) -> dict:
         seed_ms.append((time.perf_counter() - t1) * 1e3)
 
     # the main path: launch counts from this loop only
-    banded.dp_launches = banded.walk_launches = 0
+    banded.dp_launches = banded.walk_launches = banded.fused_launches = 0
     spans.clear()
     texts, dispatch_ms, finish_ms = [], [], []
 
@@ -571,11 +683,31 @@ def phase_end_to_end(dev: torch.device, G: int) -> dict:
     finish(pending)
     wall = time.perf_counter() - t0
     device_ms = [s.elapsed_time(e) for s, e in spans]
-    launches = {"banded_dp": banded.dp_launches,
+    launches = {"banded_align_fused": banded.fused_launches,
+                "banded_dp": banded.dp_launches,
                 "banded_walk_pack": banded.walk_launches}
+    # the kernel banded_plan gives the main path's batches
+    main_kernel = ("banded_align_fused"
+                   if banded.banded_launch_plan(B, L)["mode"] == "fused"
+                   else "banded_dp")
 
     checks = check_sam("".join(texts),
                        np.concatenate([t for _, t in batches]))
+    # the long-read path: reads whose traces do not fit a block's shared
+    # memory take banded_dp and banded_walk_pack; launch counts from this
+    # batch only
+    long_reads, long_truth = make_reads(genome, LONG_READS, 200, "long",
+                                        LONG_L)
+    banded.dp_launches = banded.walk_launches = banded.fused_launches = 0
+    t1 = time.perf_counter()
+    long_text = al.finish_batch_lines(al.align_batch_async(long_reads))
+    long_path = {"reads": LONG_READS, "read_len": LONG_L,
+                 "plan": banded.banded_launch_plan(LONG_READS, LONG_L)["mode"],
+                 "wall_ms": (time.perf_counter() - t1) * 1e3,
+                 "launches": {"banded_align_fused": banded.fused_launches,
+                              "banded_dp": banded.dp_launches,
+                              "banded_walk_pack": banded.walk_launches},
+                 **check_sam(long_text, long_truth)}
     out = {"phase": "end_to_end", "genome_bp": G, "index": "sparse step 8",
            "batches": len(batches), "batch": B, "read_len": L,
            "index_build_s": build_s, "reads_per_s": len(batches) * B / wall,
@@ -589,13 +721,27 @@ def phase_end_to_end(dev: torch.device, G: int) -> dict:
            "host_finish_ms_per_batch": float(np.mean(finish_ms)),
            "device_ms_per_batch": float(np.mean(device_ms)),
            "native_host_library": native.available(),
-           "launches": launches, **checks}
+           "main_kernel": main_kernel, "launches": launches, **checks,
+           "long_reads": long_path}
     emit(out)
+    long_launches = long_path["launches"]
     if not (checks["mapped_frac"] >= 0.99 and checks["placed_frac"] >= 0.99
             and checks["junk_mapped"] == 0
-            and all(v > 0 for v in launches.values())):
+            and main_kernel == "banded_align_fused"
+            and launches["banded_align_fused"] > 0
+            and long_path["plan"] == "dp"
+            and long_launches["banded_dp"] > 0
+            and long_launches["banded_walk_pack"] > 0
+            and long_launches["banded_align_fused"] == 0
+            and long_path["mapped_frac"] >= 0.99
+            and long_path["placed_frac"] >= 0.99
+            and long_path["junk_mapped"] == 0):
         raise SystemExit("end-to-end check failed")
-    return out
+    # each kernel's launches from the path that takes it
+    out["launches"] = {"banded_align_fused": launches["banded_align_fused"],
+                       "banded_dp": long_launches["banded_dp"],
+                       "banded_walk_pack": long_launches["banded_walk_pack"]}
+    return out, (*last_inputs[0], al.scores, al.gap)
 
 
 def phase_cli(dev: torch.device, G: int) -> dict:
@@ -2260,7 +2406,9 @@ def main() -> int:
     dev = torch.device("cuda")
     info = phase_device()
     rows = phase_kernels(dev)
-    e2e = phase_end_to_end(dev, 100_000_000)
+    e2e, long_batch = phase_end_to_end(dev, 100_000_000)
+    rows += phase_long_read_kernels(dev, long_batch)
+    del long_batch
     phase_cli(dev, 10_000_000)
     rows += phase_pairwise_kernels(dev)
     pairwise = phase_pairwise(dev)

@@ -35,8 +35,13 @@ _int = ctypes.c_int
 # library -> its entry points' argument types
 _SIGNATURES = {
     "banded": {
+        "banded_built": [_vp],
+        "banded_shape": [_int, _int, _int, _int, _int, _vp],
         "banded_dp_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
-                             _vp, _vp, _vp, _vp],
+                             _int, _int, _vp, _vp, _vp, _vp],
+        "banded_fused_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+                                _int, _int, _int, _int, _int, _vp, _vp, _vp,
+                                _vp, _vp, _vp, _vp],
         "banded_walk_pack_launch": [_vp, _vp, _vp, _vp, _int, _int, _int,
                                     _int, _vp, _vp, _vp, _vp],
     },
@@ -80,7 +85,8 @@ _SIGNATURES = {
     },
 }
 # kernel name (as check() is given it) -> its library
-_LIBRARY_OF = {"banded_dp": "banded", "banded_walk_pack": "banded",
+_LIBRARY_OF = {"banded_dp": "banded", "banded_align_fused": "banded",
+               "banded_walk_pack": "banded",
                "trace_diag": "wavefront",
                "affine_fwd_block": "wavefront",
                "affine_bwd_window": "wavefront",

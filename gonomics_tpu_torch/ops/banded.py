@@ -3,16 +3,26 @@ traceback: the counterpart of ``gonomics_tpu/ops/wavefront.py:700-884``
 (``unpack_ops``, ``_banded_kernel``, ``_banded_walk`` and
 ``banded_align_full``).
 
-Two kernels, each with its plain PyTorch version beside it:
+The CUDA kernels of ``csrc/banded.cu``, each with its plain PyTorch
+version beside it:
 
-- ``banded_dp`` (CUDA ``csrc/banded.cu``) replaces the Pallas kernel
-  ``_banded_kernel`` (wavefront.py:709, ``pallas_call`` at :850);
-- ``banded_walk_pack`` (same file) replaces the ``lax.scan`` walk
-  ``_banded_walk`` (:789) and the 2-bit packing after it (:874-883).
+- ``banded_dp`` replaces the Pallas kernel ``_banded_kernel``
+  (wavefront.py:709, ``pallas_call`` at :850): the banded DP with its
+  int8 trace and per-lane bests;
+- ``banded_align_fused`` is the same kernel in its fused mode: the DP,
+  with the trace kept in shared memory at 2 bits a code, then the best
+  cell, the walk and the packing in the same block, the whole of
+  ``banded_align_full`` in one launch;
+- ``banded_walk_pack`` replaces the ``lax.scan`` walk ``_banded_walk``
+  (:789) and the 2-bit packing after it (:874-883).
 
-A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches its kernel, counts the launch in ``dp_launches`` or
-``walk_launches``, and raises if the launch fails. It never falls back.
+``banded_align_full`` on CUDA tensors takes the fused kernel wherever
+``banded_plan`` finds that a block's traces fit its shared memory (a
+choice by read length), else ``banded_dp``, ``best_cell`` and
+``banded_walk_pack``. A wrapper given CPU tensors runs the plain version;
+given CUDA tensors it launches its kernel, counts the launch in
+``dp_launches``, ``fused_launches`` or ``walk_launches``, and raises if
+the launch fails. It never falls back.
 
 Band layout: lane ``c`` of row ``i`` (1-based read position) holds
 window column ``j = i + c``, for BW = 64 lanes. Trace codes: 0 diagonal,
@@ -21,6 +31,8 @@ I), 3 local stop.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -33,12 +45,186 @@ BW = 64
 HALF = NEG // 2  # base score of cells outside the valid region
 
 dp_launches = 0
+fused_launches = 0
 walk_launches = 0
+
+# The plan of banded_dp's kernel (banded_plan). A mode takes its most
+# lanes a thread (BANDED_LANES_PER_THREAD) where the reads give at least
+# BANDED_FILL_WARPS warps at that count, else half as many; and
+# BANDED_WARPS warps a block where they give that many warps (blocks of 8
+# then take 128 or more of the H100's 132 SMs), else 4, one a scheduler
+# of each SM a block takes, so that fewer reads spread over more SMs.
+# tools/banded_timing.py plans (CUDA graph ms; NVIDIA H100 80GB HBM3, 700
+# W power limit; PERF.md §6) has a workload on each side of each choice,
+# those at 1024 warps fastest at the most lanes and 8 warps, those at 512
+# or fewer at half the lanes and 4 warps or fewer. Fused: 4096 x 150 bp
+# reads 0.0796 at 8 lanes against 0.0827 at 4; 2048 x 150 0.0554 at 4
+# against 0.0623 at 8; 400 x 150 0.0463 at 4 lanes and 2 warps (0.0465 at
+# 4 warps) against 0.0554 at 8 warps and 0.0474 at 2 lanes. Trace mode:
+# 4096 x 150 0.0672 at 4 against 0.0834 at 2; 1024 x 13,000 2.946 at 2
+# against 3.100 at 4; 64 x 13,000 2.728 at 2 lanes and 1 warp (2.736 at 4
+# warps) against 2.949 at 8 warps and 3.093 at 4 lanes.
+BANDED_LANES_PER_THREAD = {"fused": 8, "dp": 4}
+BANDED_WARPS = 8
+BANDED_FILL_WARPS = 1024
+
+_configs: dict = {}
 
 
 def walk_length(L: int) -> int:
     """Steps of the backward walk for reads of length L (wavefront.py:874)."""
     return L + BW + 4
+
+
+def _round_up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def _staged_pitch(cols: int) -> int:
+    """``staged_pitch`` of banded.cu: the bytes of a staged row of cols
+    codes in shared memory."""
+    return _round_up(cols, 128) + 64
+
+
+def smem_bytes(R: int, WB: int, L: int, fused: bool) -> int:
+    """``banded_smem`` of banded.cu: the dynamic shared memory of a block
+    of WB warps at R lanes a thread for reads of L, the staged read and
+    window codes of its WB R / 2 reads and, fused, their traces at 16
+    bytes a row."""
+    return WB * R // 2 * (_staged_pitch(L) + _staged_pitch(L + BW)
+                          + (16 * L if fused else 0))
+
+
+def _banded_built(dev: torch.device) -> dict:
+    """What banded_dp's kernel is built for, as its library reports it on
+    the card ``dev``: the most warps a block, the most dynamic shared
+    memory a block can take, the lanes a thread (rising), and for each the
+    registers and spilled bytes a thread of the trace mode and of the
+    fused mode. The first call on a card also lets the kernel take that
+    shared memory there."""
+    key = ("built", dev.index)
+    if key not in _configs:
+        out = (ctypes.c_int * 32)()
+        with torch.cuda.device(dev):
+            _kernels.check(_kernels.lib("banded").banded_built(
+                ctypes.addressof(out)), "banded_dp")
+        lanes = tuple(out[3 + 5 * k] for k in range(out[2]))
+        _configs[key] = {
+            "max_warps": out[0], "smem_limit": out[1],
+            "lanes_per_thread": lanes,
+            "registers": {R: (out[4 + 5 * k], out[6 + 5 * k])
+                          for k, R in enumerate(lanes)},
+            "spill_bytes": {R: (out[5 + 5 * k], out[7 + 5 * k])
+                            for k, R in enumerate(lanes)}}
+    return _configs[key]
+
+
+def _block(R: int, WB: int) -> dict:
+    return {"lanes_per_thread": R, "threads_per_read": BW // R,
+            "warps_per_block": WB, "reads_per_block": WB * R // 2}
+
+
+def _warps(B: int, R: int) -> int:
+    """The warps B reads take at R lanes a thread (2 R reads a warp)."""
+    return -(-2 * B // R)
+
+
+def _lanes(B: int, mode: str, built: dict) -> int:
+    """The lanes a thread banded_plan takes for B reads in ``mode``: the
+    mode's BANDED_LANES_PER_THREAD where the reads give BANDED_FILL_WARPS
+    warps at it, else half that; the nearest count whose kernels spill
+    nothing where that one spills."""
+    most = BANDED_LANES_PER_THREAD[mode]
+    want = most if _warps(B, most) >= BANDED_FILL_WARPS else most // 2
+    lanes = built["lanes_per_thread"]
+    clean = [r for r in lanes if not any(built["spill_bytes"][r])] or lanes
+    return min(clean, key=lambda r: (abs(r - want), r))
+
+
+def banded_plan(B: int, L: int, built: dict, mode: str | None = None,
+                R: int | None = None, WB: int | None = None) -> dict:
+    """How banded_dp's kernel runs B reads of L, chosen by shape alone
+    from what it is ``built`` for (``_banded_built``): the mode, "fused"
+    where a block holds its reads' traces in shared memory, else "dp",
+    the trace mode (``mode`` forces one); R lanes a thread (forced, or
+    ``_lanes``); and WB warps a block (forced, or BANDED_WARPS where the
+    reads give BANDED_FILL_WARPS warps, else 4; no more than the reads
+    need, or the most below that whose shared memory fits). Raises where
+    the plan does not fit: a block stages its reads and windows whole, so
+    reads longer than about half the card's shared memory a block (some
+    116 kbp on an H100) do not fit at all."""
+    lanes = built["lanes_per_thread"]
+    if R is not None and R not in lanes:
+        raise ValueError(f"banded_dp is not built for {R} lanes a thread")
+    if WB is not None and not 1 <= WB <= built["max_warps"]:
+        raise ValueError(f"banded_dp takes 1-{built['max_warps']} warps a "
+                         "block")
+    for m in ((mode,) if mode else ("fused", "dp")):
+        r = R or _lanes(B, m, built)
+        warps = _warps(B, r)
+        most = WB or max(1, min(BANDED_WARPS if warps >= BANDED_FILL_WARPS
+                                else 4, built["max_warps"], warps))
+        fit = [w for w in range(most, 0 if WB is None else most - 1, -1)
+               if smem_bytes(r, w, L, m == "fused") <= built["smem_limit"]]
+        if fit:
+            block = _block(r, fit[0])
+            return {"mode": m, **block,
+                    "blocks": -(-B // block["reads_per_block"]),
+                    "smem_bytes": smem_bytes(r, fit[0], L, m == "fused")}
+    raise ValueError(
+        f"reads of {L} bp do not fit banded_dp's shared memory "
+        f"({built['smem_limit']} bytes a block) in this plan: a block "
+        "stages its reads and windows whole, about 2 L bytes a read, so "
+        f"reads above about {built['smem_limit'] // 2} bp cannot be "
+        "aligned on the card")
+
+
+def banded_launch_plan(B: int, L: int, mode: str | None = None,
+                       R: int | None = None, WB: int | None = None,
+                       dev: torch.device | None = None) -> dict:
+    """``banded_plan`` for B reads of L on the card ``dev`` (or the forced
+    mode, lanes a thread R and warps a block WB) with the launch the
+    card's library makes of it: a block's threads, the blocks, its shared
+    memory (all, and the dynamic part), the blocks an SM holds, and a
+    thread's registers and spilled bytes. For reports and tests; a launch
+    takes ``banded_plan`` alone."""
+    if dev is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    built = _banded_built(dev)
+    plan = banded_plan(B, L, built, mode, R, WB)
+    R = plan["lanes_per_thread"]
+    fused = plan["mode"] == "fused"
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(dev):
+        _kernels.check(_kernels.lib("banded").banded_shape(
+            B, L, R, plan["warps_per_block"], int(fused),
+            ctypes.addressof(out)), "banded_dp")
+    if out[3] != plan["smem_bytes"]:
+        raise RuntimeError("banded_dp: the library's shared memory "
+                           f"{out[3]} is not the plan's")
+    return {**plan, "threads": out[0], "launch_blocks": out[1],
+            "smem_bytes_per_block": out[2], "blocks_per_sm": out[4],
+            "registers": built["registers"][R][fused],
+            "spill_bytes": built["spill_bytes"][R][fused]}
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, copied where it does not start on 16 bytes (the kernel stages
+    rows with 16-byte loads)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _dp_inputs(reads, windows, n_vec, m_vec, scores):
+    """The checked CUDA inputs of banded_dp's kernel."""
+    B, L = reads.shape
+    W = windows.shape[1]
+    dev = reads.device
+    return (_aligned(expect(reads, torch.int8, (B, L), "reads", dev)),
+            _aligned(expect(windows, torch.int8, (B, W), "windows", dev)),
+            expect(as_vec(n_vec, B, dev), torch.int32, (B,), "n_vec", dev),
+            expect(as_vec(m_vec, B, dev), torch.int32, (B,), "m_vec", dev),
+            expect(torch.as_tensor(scores, dtype=torch.int32, device=dev),
+                   torch.int32, (5, 5), "scores", dev))
 
 
 def banded_dp_reference(reads, windows, n_vec, m_vec, scores, gap: int):
@@ -92,38 +278,81 @@ def banded_dp_reference(reads, windows, n_vec, m_vec, scores, gap: int):
     return bv, bi, trace
 
 
-def banded_dp(reads, windows, n_vec, m_vec, scores, gap: int):
-    """Banded DP (see ``banded_dp_reference``): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
-    global dp_launches
+def _banded_launch(plan: dict, reads, windows, n_vec, m_vec, scores,
+                   gap: int):
+    """One launch of banded_dp's kernel on CUDA tensors in the mode, lanes
+    a thread and warps a block of ``plan`` (``banded_plan``), counted in
+    ``dp_launches`` or ``fused_launches``. Returns the trace mode's bv,
+    bi and trace, or the fused mode's score, i_end, j_end, i0, j0 and
+    packed ops."""
+    global dp_launches, fused_launches
     B, L = reads.shape
     W = windows.shape[1]
-    if W < BW:
+    dev = reads.device
+    args = _dp_inputs(reads, windows, n_vec, m_vec, scores)
+    fused = plan["mode"] == "fused"
+    if fused:
+        D = walk_length(L)
+        P = -(-D // 4)
+        outs = [torch.empty(B, dtype=torch.int32, device=dev)
+                for _ in range(5)]
+        outs.append(torch.empty((B, P), dtype=torch.uint8, device=dev))
+    else:
+        outs = [torch.empty((B, BW), dtype=torch.int32, device=dev),
+                torch.empty((B, BW), dtype=torch.int32, device=dev),
+                torch.empty((L, B, BW), dtype=torch.int8, device=dev)]
+    if B == 0:
+        return tuple(outs)
+    _banded_built(dev)  # lets the kernel take its shared memory here
+    lib = _kernels.lib("banded")
+    shape = (plan["lanes_per_thread"], plan["warps_per_block"])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if fused:
+            rc = lib.banded_fused_launch(
+                *(a.data_ptr() for a in args), int(gap), B, L, W, D, P,
+                *shape, *(o.data_ptr() for o in outs), stream)
+        else:
+            rc = lib.banded_dp_launch(
+                *(a.data_ptr() for a in args), int(gap), B, L, W, *shape,
+                *(o.data_ptr() for o in outs), stream)
+    _kernels.check(rc, "banded_align_fused" if fused else "banded_dp")
+    if fused:
+        fused_launches += 1
+    else:
+        dp_launches += 1
+    return tuple(outs)
+
+
+def _check_window(windows) -> None:
+    if windows.shape[1] < BW:
         raise ValueError("window must be at least the band width")
+
+
+def banded_dp(reads, windows, n_vec, m_vec, scores, gap: int):
+    """Banded DP (see ``banded_dp_reference``): the plain version for CPU
+    tensors, the CUDA kernel in its trace mode for CUDA tensors, with
+    ``banded_plan``'s lanes a thread and warps a block."""
+    _check_window(windows)
     dev = reads.device
     if dev.type == "cpu":
         return banded_dp_reference(reads, windows, n_vec, m_vec, scores, gap)
-    reads = expect(reads, torch.int8, (B, L), "reads", dev)
-    windows = expect(windows, torch.int8, (B, W), "windows", dev)
-    n_vec = expect(as_vec(n_vec, B, dev), torch.int32, (B,), "n_vec", dev)
-    m_vec = expect(as_vec(m_vec, B, dev), torch.int32, (B,), "m_vec", dev)
-    sc = expect(torch.as_tensor(scores, dtype=torch.int32, device=dev),
-                torch.int32, (5, 5), "scores", dev)
-    bv = torch.empty((B, BW), dtype=torch.int32, device=dev)
-    bi = torch.empty((B, BW), dtype=torch.int32, device=dev)
-    trace = torch.empty((L, B, BW), dtype=torch.int8, device=dev)
-    if B == 0:
-        return bv, bi, trace
-    lib = _kernels.lib("banded")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.banded_dp_launch(
-            reads.data_ptr(), windows.data_ptr(), n_vec.data_ptr(),
-            m_vec.data_ptr(), sc.data_ptr(), int(gap), B, L, W,
-            bv.data_ptr(), bi.data_ptr(), trace.data_ptr(), stream)
-    _kernels.check(rc, "banded_dp")
-    dp_launches += 1
-    return bv, bi, trace
+    plan = banded_plan(*reads.shape, _banded_built(dev), "dp")
+    return _banded_launch(plan, reads, windows, n_vec, m_vec, scores, gap)
+
+
+def banded_align_fused(reads, windows, n_vec, m_vec, scores, gap: int):
+    """``banded_align_full`` in one launch: the CUDA kernel of
+    ``banded_dp`` in its fused mode for CUDA tensors (raises where its
+    plan does not fit), its plain version
+    (``banded_align_full_reference``) for CPU tensors."""
+    _check_window(windows)
+    dev = reads.device
+    if dev.type == "cpu":
+        return banded_align_full_reference(reads, windows, n_vec, m_vec,
+                                           scores, gap)
+    plan = banded_plan(*reads.shape, _banded_built(dev), "fused")
+    return _banded_launch(plan, reads, windows, n_vec, m_vec, scores, gap)
 
 
 def _walk_step(trace, i, c, act):
@@ -233,17 +462,47 @@ def best_cell(bv, bi):
     return score, i_star, c_star
 
 
+def _align_full(dp, walk, reads, windows, n_vec, m_vec, scores, gap: int):
+    """banded_align_full's contract from a DP (``banded_dp`` or its plain
+    version), ``best_cell`` and a walk (``banded_walk_pack`` or its plain
+    version)."""
+    L = reads.shape[1]
+    bv, bi, trace = dp(reads, windows, n_vec, m_vec, scores, gap)
+    score, i_star, c_star = best_cell(bv, bi)
+    i0, c0, packed = walk(trace, i_star, c_star, score > 0, walk_length(L))
+    return score, i_star, i_star + c_star, i0, i0 + c0, packed
+
+
+def banded_align_full_reference(reads, windows, n_vec, m_vec, scores,
+                                gap: int):
+    """Plain ``banded_align_full``: ``banded_dp_reference``,
+    ``best_cell`` and ``banded_walk_pack_reference``."""
+    return _align_full(banded_dp_reference, banded_walk_pack_reference,
+                       reads, windows, n_vec, m_vec, scores, gap)
+
+
 def banded_align_full(reads, windows, n_vec, m_vec, scores, gap: int):
     """Banded local alignment with packed traceback, the contract of
     ``banded_align_full`` (wavefront.py:815): returns score, i_end,
     j_end, i0, j0 (B,) int32 and the packed walk ops (B, ceil(D/4))
-    uint8 with D = L + 68. Runs where ``reads`` lies."""
-    L = reads.shape[1]
-    bv, bi, trace = banded_dp(reads, windows, n_vec, m_vec, scores, gap)
-    score, i_star, c_star = best_cell(bv, bi)
-    i0, c0, packed = banded_walk_pack(trace, i_star, c_star, score > 0,
-                                      walk_length(L))
-    return score, i_star, i_star + c_star, i0, i0 + c0, packed
+    uint8 with D = L + 68. Runs where ``reads`` lies: on the card as one
+    fused launch where ``banded_plan`` says it fits, else as
+    ``banded_dp``, ``best_cell`` and ``banded_walk_pack``."""
+    dev = reads.device
+    if dev.type == "cpu":
+        return banded_align_full_reference(reads, windows, n_vec, m_vec,
+                                           scores, gap)
+    _check_window(windows)
+    plan = banded_plan(*reads.shape, _banded_built(dev))
+    if plan["mode"] == "fused":
+        return _banded_launch(plan, reads, windows, n_vec, m_vec, scores,
+                              gap)
+
+    def dp(*args):
+        return _banded_launch(plan, *args)
+
+    return _align_full(dp, banded_walk_pack, reads, windows, n_vec, m_vec,
+                       scores, gap)
 
 
 def unpack_ops(packed: np.ndarray, D: int) -> np.ndarray:

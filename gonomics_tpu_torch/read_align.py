@@ -7,11 +7,14 @@ The counterpart of ``TpuReadAligner`` (``gonomics_tpu/tpu_align.py``):
     - a sorted (code, pos) k-mer table (dense) or the step-sampled
       two-level table (sparse), probed for every read k-mer at once;
     - the modal diagonal of the seed hits anchors each read's window.
-  device (``ops/banded.py``):
-    - ``banded_dp`` fills a 64-lane band per read and writes its trace;
-    - ``banded_walk_pack`` walks the trace back and packs the ops, and
-      one uint8 array per batch (20 bytes of meta + packed ops) comes
-      back to pinned host memory.
+  device (``ops/banded.py`` ``banded_align_full``):
+    - one launch of the fused kernel fills a 64-lane band per read,
+      keeps its trace in shared memory, finds the best cell, walks the
+      trace back and packs the ops (reads too long for the trace to fit
+      a block's shared memory take ``banded_dp``, which writes the trace,
+      then ``best_cell`` and ``banded_walk_pack``); one uint8 array per
+      batch (20 bytes of meta + packed ops) comes back to pinned host
+      memory.
   host:
     - cigars, soft clips and SAM text; MapQ from the vote margin.
 
@@ -417,7 +420,7 @@ class ReadAligner:
         return reads, cand, starts, lens, read_seqs, res, walk_length(L)
 
     def _device_result(self, read_seqs, windows, n_vec, m_vec) -> DeviceResult:
-        """Upload one batch, run the banded DP and the walk, and pack
+        """Upload one batch, run the banded DP and its walk, and pack
         score, i_end, j_end, i0, j0 (little-endian int32) and the packed
         ops into one (B, 20 + P) uint8 array, as ``_banded_driver``
         (tpu_align.py:595-631) does."""

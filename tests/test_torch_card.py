@@ -84,6 +84,119 @@ def test_kernels_equal_plain(card, B, L, W, scoring):
         assert torch.equal(g.cpu(), w)
 
 
+def _scores(scoring: str, card):
+    scores, gap = ((HUMAN_CHIMP_TWO, -600) if scoring == "humanChimp"
+                   else (PLUS_MINUS_ONE, -1))
+    return torch.as_tensor(scores, dtype=torch.int32, device=card), gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", (2, 4, 8))
+@pytest.mark.parametrize("B,L,W,scoring", [
+    (4096, 150, 198, "humanChimp"), (1, 40, 64, "plusMinusOne"),
+    (3, 150, 64, "humanChimp"), (37, 81, 129, "plusMinusOne")])
+def test_banded_dp_each_lanes(card, R, B, L, W, scoring):
+    """banded_dp's trace mode at each built R, forced, against its plain
+    version; its plan as the library reports it; each launch counted."""
+    args = [torch.from_numpy(x).to(card) for x in _batch(B, L, W, B + L + R)]
+    sc, gap = _scores(scoring, card)
+    plan = banded.banded_launch_plan(B, L, "dp", R)
+    assert plan["lanes_per_thread"] == R and plan["spill_bytes"] == 0
+    assert plan["threads"] == 32 * plan["warps_per_block"]
+    before = banded.dp_launches
+    got = banded._banded_launch(plan, *args, sc, gap)
+    want = banded.banded_dp_reference(*args, sc, gap)
+    torch.cuda.synchronize()
+    assert banded.dp_launches == before + 1
+    for name, g, w in zip(("bv", "bi", "trace"), got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", (None, 2, 4, 8))
+@pytest.mark.parametrize("B,L,W,scoring", [
+    (4096, 150, 198, "humanChimp"), (1, 40, 64, "plusMinusOne"),
+    (3, 150, 64, "humanChimp"), (37, 81, 129, "plusMinusOne"),
+    (37, 40, 88, "humanChimp")])
+def test_fused_equals_plain(card, R, B, L, W, scoring):
+    """The fused mode (plan's R, or each built R forced) against the plain
+    banded_align_full, each launch counted; banded_align_full takes it."""
+    args = [torch.from_numpy(x).to(card) for x in _batch(B, L, W, B * L + 1)]
+    sc, gap = _scores(scoring, card)
+    want = banded.banded_align_full_reference(*args, sc, gap)
+    before = banded.fused_launches
+    got = (banded.banded_align_fused(*args, sc, gap) if R is None else
+           banded._banded_launch(banded.banded_launch_plan(B, L, "fused", R),
+                                 *args, sc, gap))
+    torch.cuda.synchronize()
+    assert banded.fused_launches == before + 1
+    names = ("score", "i_end", "j_end", "i0", "j0", "packed")
+    for name, g, w in zip(names, got, want):
+        assert torch.equal(g, w), name
+    if R is None:
+        assert banded.banded_launch_plan(B, L)["mode"] == "fused"
+        counts = (banded.dp_launches, banded.walk_launches)
+        full = banded.banded_align_full(*args, sc, gap)
+        torch.cuda.synchronize()
+        assert banded.fused_launches == before + 2
+        assert (banded.dp_launches, banded.walk_launches) == counts
+        for g, w in zip(full, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_fused_at_forced_warps_and_unaligned_inputs(card):
+    """The fused mode at 1 and 8 warps a block, and on views of the reads
+    and windows that do not start on 16 bytes (the wrapper copies them)."""
+    B, L, W = 300, 150, 198
+    reads, wins, n_vec, m_vec = (torch.from_numpy(x).to(card)
+                                 for x in _batch(B, L, W, 11))
+    sc, gap = _scores("humanChimp", card)
+    want = banded.banded_align_full_reference(reads, wins, n_vec, m_vec, sc,
+                                              gap)
+    for WB in (1, 8):
+        plan = banded.banded_launch_plan(B, L, "fused", WB=WB)
+        assert plan["warps_per_block"] == WB
+        got = banded._banded_launch(plan, reads, wins, n_vec, m_vec, sc, gap)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), WB
+    store_r = torch.zeros(B * L + 3, dtype=torch.int8, device=card)
+    store_w = torch.zeros(B * W + 5, dtype=torch.int8, device=card)
+    store_r[3:] = reads.reshape(-1)
+    store_w[5:] = wins.reshape(-1)
+    view_r, view_w = store_r[3:].view(B, L), store_w[5:].view(B, W)
+    assert view_r.data_ptr() % 16 and view_w.data_ptr() % 16
+    for g, w in zip(banded.banded_align_fused(view_r, view_w, n_vec, m_vec,
+                                              sc, gap), want):
+        assert torch.equal(g, w)
+    for g, w in zip(banded.banded_dp(view_r, view_w, n_vec, m_vec, sc, gap),
+                    banded.banded_dp_reference(reads, wins, n_vec, m_vec, sc,
+                                               gap)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_long_reads_take_two_kernels(card):
+    """Reads whose traces do not fit a block's shared memory: the plan is
+    the trace mode, and banded_align_full launches banded_dp and
+    banded_walk_pack, equal to the plain version."""
+    B, L, W = 3, 13000, 13048
+    assert banded.banded_launch_plan(B, L)["mode"] == "dp"
+    args = [torch.from_numpy(x).to(card) for x in _batch(B, L, W, 5)]
+    sc, gap = _scores("humanChimp", card)
+    counts = (banded.dp_launches, banded.walk_launches, banded.fused_launches)
+    got = banded.banded_align_full(*args, sc, gap)
+    torch.cuda.synchronize()
+    assert (banded.dp_launches, banded.walk_launches,
+            banded.fused_launches) == (counts[0] + 1, counts[1] + 1,
+                                       counts[2])
+    want = banded.banded_align_full_reference(*args, sc, gap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        banded.banded_align_fused(*args, sc, gap)
+
+
 @pytest.mark.cuda
 def test_walk_on_random_traces(card):
     """banded_walk_pack's tile walk against the plain walk: random traces
