@@ -31,11 +31,37 @@ exits non-zero:
             the walk's longest walk (max_steps) and the tiles its kernel
             loads (rounds: the most a read, and in all), counted on the
             plain walk's path; their rows of the kernels line come from
-            here.
+            here. banded_dp's global-codes variant (codes read from
+            device memory), forced on that batch, is held against the
+            same plain DP and timed. Then one read of 120,000 bp, past
+            the staged codes' reach, through the same aligner: mapped,
+            placed, its plan the global-codes variant, one launch each of
+            banded_dp and banded_walk_pack; (line huge_read) its device
+            step on its own inputs held against the plain
+            banded_align_full on the card (the plain version timed once)
+            and timed.
 4. cli:     `gsw align ... --engine tpu -t 4` of the port (the North
             star's command line) on a 10 Mbp genome, single and paired,
-            byte-equal to the library path's SAM for the same reads.
-5. pairwise_kernels: affine_wavefront and const_wavefront, trace mode at
+            byte-equal to the library path's SAM for the same reads; and
+            with --mesh, byte-equal to the runs without it.
+5. mesh:    ReadAligner(mesh=make_mesh(data=1)) on that genome: 3
+            batches of 4096 x 150 bp reads through the mesh path
+            (shard_local_align: local_wavefront over each read's whole
+            150 x 198 grid, then gsw_walk_pack's local side), the wall
+            split into seeding, device, wait and emit; mapped and placed
+            fractions >= 0.99, junk unmapped; the same SAM on a mesh of
+            two data slices on the one card; the first 256 reads equal
+            the mesh path on device="cpu"; the lines equal to the banded
+            path's, counted; K4 and the local walk launched once a batch
+            (twice on two slices), no banded kernel.
+6. mesh_kernels: local_wavefront (K4) on the mesh phase's first batch
+            (4096 x 150 x 198, the warp design at 8 slots a lane) and the
+            local walk on K4's own trace, each held against its plain
+            version on the card (exact, whole tensors) and timed eagerly
+            and in a CUDA graph, with K4's plan, each bound, and the
+            walk's longest walk and tiles; the walk's row of the kernels
+            line comes from here, and K4's figures join its row there.
+7. pairwise_kernels: affine_wavefront and const_wavefront, trace mode at
             128 pairs and score mode at 256 pairs of 1024 x 1024 (the
             kernel trace_diag but for the affine score mode, which is
             affine_score_diag's), each held against its plain PyTorch
@@ -43,14 +69,14 @@ exits non-zero:
             with its plan (rows a lane, warps a pair, registers, spills)
             and the device memory a call allocates above its inputs;
             plus trace mode on 2 pairs of 20,000 x 300 for each.
-6. pairwise: affine_gap_batch and const_gap_batch on 128 related ~1 kb
+8. pairwise: affine_gap_batch and const_gap_batch on 128 related ~1 kb
             pairs: every route consumes both sequences and replays to its
             score, the first 8 pairs equal device="cpu", score mode
             equals trace mode; pairs/s and the wall split into kernel,
             trace copy to the host, and host walk.
-7. pairwise_cli: the port's globalAlignment and cigarToBed on the card,
+9. pairwise_cli: the port's globalAlignment and cigarToBed on the card,
             stdout, -faOut and beds byte-equal to --device cpu.
-8. graph:   GraphAligner with the gsw defaults (-i 32 -w 32, humanChimpTwo,
+10. graph:   GraphAligner with the gsw defaults (-i 32 -w 32, humanChimpTwo,
             gap -600) on the variant graph of a 50 Mbp chromosome (a SNP
             every 1 kb, a 1-30 bp deletion or insertion every 10 kb): one
             warm-up batch, then 4 batches of 2048 x 150 bp reads sampled
@@ -58,7 +84,7 @@ exits non-zero:
             fraction, that each read's giraf path lies on the path it was
             sampled from, that junk gets no path, that the first 256 reads' giraf equals
             device="cpu", and that every graph kernel was launched.
-9. graph_kernels: 2048 left and 2048 right jobs of the graph phase's
+11. graph_kernels: 2048 left and 2048 right jobs of the graph phase's
             warm-up waves through local_wavefront, gsw_right_wavefront and
             gsw_walk_pack, each held against its plain PyTorch version on
             the card (exact equality) and timed (the walks also in a
@@ -69,9 +95,9 @@ exits non-zero:
             DPs on 2 jobs of a 10,300-base window (the warp design) and on
             16 jobs of 600-base read parts (past its reach: the block
             design), each checked to take that plan, exact and timed.
-10. graph_cli: the port's `gsw align` on a 1 Mbp .gg, giraf and SAM, single
+12. graph_cli: the port's `gsw align` on a 1 Mbp .gg, giraf and SAM, single
             and paired, byte-equal to --device cpu.
-11. lowmem_kernels: affine_fwd_block, affine_bwd_window and
+13. lowmem_kernels: affine_fwd_block, affine_bwd_window and
             lowmem_walk_block at bench.py's lowmem shape (16 pairs of
             16,384 x 16,384, K = 1024), each once on the middle block from
             the checkpoint and walk state the main path gives it, held
@@ -81,21 +107,21 @@ exits non-zero:
             once, shared memory a block) and of affine_bwd_window (blocks
             a pair, lanes a thread, warps a block, clusters held at once,
             waves), each as the kernel's own launch has it; and all three
-            on the middle block of the 100 kb pair of phase 12 (K = 4096:
+            on the middle block of the 100 kb pair of phase 14 (K = 4096:
             K6 a global scratch a block, K7 a window of 8,832 lanes, the
             walk over K7's trace), exact and timed.
-12. lowmem:  affine_gap_lowmem_batch on that batch: cells/s, the wall split
+14. lowmem:  affine_gap_lowmem_batch on that batch: cells/s, the wall split
             into forward, backward and host, peak device memory against
             the full trace's; every route consumes both sequences and
             replays to its score, every score equals K2's score mode, the
             first 2 pairs equal the full-trace path, 4 pairs of 2 kb at
             K = 256 equal device="cpu", and a related 100 kb pair through
             the pairwise API (K = 4096) replays and equals K2's score.
-13. score_kernels: affine_stream (K8) at bench.py's P = 8 x B = 256
+15. score_kernels: affine_stream (K8) at bench.py's P = 8 x B = 256
             random pairs of 1024 x 1024, and affine_score_diag through
             wavefront_align_blocked (K9's contract) on 256 related pairs
             padded to 1024 x 1024 at r_rows = 512 and through K2's score
-            mode on the 256 pairs of phase 5, each held against its plain
+            mode on the 256 pairs of phase 7, each held against its plain
             PyTorch version on the card (exact equality) and timed, with
             each plan (stream_launch_plan, score_diag_launch_plan: rows a
             lane, warps a pair and a block, blocks, registers, spills);
@@ -103,7 +129,7 @@ exits non-zero:
             with odd m, m much wider than n, r_rows not dividing n,
             r_rows + 1 > 1024 lanes, and K2's score mode with fin_b below
             and past n_b + m_b, m < n, n = 0 and one pair of 20,000 rows.
-14. score:  bench.py's stage_score_stream: its parity gate (K2, the
+16. score:  bench.py's stage_score_stream: its parity gate (K2, the
             stream, the blocked kernel) against the plain versions on the
             CPU; K2's score mode, the stream and the blocked kernel once
             each on the stream's 2048 pairs, where all three must give the
@@ -113,11 +139,12 @@ exits non-zero:
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
-the wavefront kernels from phase 6 (affine_wavefront's and
+the local walk from phase 5 (and K4's there as mesh_launches), of
+the wavefront kernels from phase 8 (affine_wavefront's and
 const_wavefront's, and under "trace_diag_launches" the launches of
 the one CUDA kernel, "kernel", both take there), of the graph kernels
-from phase 8, of the lowmem kernels from phase 12, of the score kernels
-from phase 14) and, last, one JSON object naming the device. Without a
+from phase 10, of the lowmem kernels from phase 14, of the score kernels
+from phase 16) and, last, one JSON object naming the device. Without a
 CUDA card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
@@ -147,6 +174,12 @@ W = L + 2 * PAD
 # block's shared memory (banded_plan), which take banded_dp and
 # banded_walk_pack
 LONG_READS, LONG_L = 64, 13_000
+# and one read whose staged codes do not fit a block's shared memory at
+# one warp: banded_dp's global-codes variant
+HUGE_L = 120_000
+# the mesh phase: the CLI's 10 Mbp genome, MESH_BATCHES batches of B reads
+# of L bp; its first MESH_CPU_READS reads against the CPU
+CLI_BP, MESH_BATCHES, MESH_CPU_READS = 10_000_000, 3, 256
 GAP = -600
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 # int32 lanes: 132 SMs x 64 INT32 units x 1.98 GHz boost clock
@@ -543,18 +576,73 @@ def phase_long_read_kernels(dev: torch.device, batch: tuple) -> list[dict]:
     as the aligner made them, and the aligner's scores and gap), the path
     that takes them: each held against its plain version, timed, with its
     bound and plan from these inputs."""
+    from gonomics_tpu_torch.ops import banded
+
     reads, wins, n_vec, m_vec, scores = (
         torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in batch[:5])
     n, length = reads.shape
-    rows, _, _ = dp_and_walk_rows(
-        (reads, wins, n_vec, m_vec, scores.to(torch.int32), int(batch[5])),
-        length, plain_once=True)
+    dp_args = (reads, wins, n_vec, m_vec, scores.to(torch.int32),
+               int(batch[5]))
+    rows, want, _ = dp_and_walk_rows(dp_args, length, plain_once=True)
+    # banded_dp's global-codes variant (the plan of reads past the staged
+    # codes' reach), forced on these inputs, against the same plain DP
+    plan = banded.banded_launch_plan(n, length, "dp", codes="global")
+
+    def dp_global():
+        return banded._banded_launch(plan, *dp_args)
+
+    g_equal, g_err = equal_err(dp_global(), want)
+    global_codes = {"plan": plan, "equal_to_plain": g_equal,
+                    "max_abs_err": g_err,
+                    "ms": median_ms(dp_global, runs=5, inner=3),
+                    "graph_ms": graph_ms(dp_global, runs=5, inner=3)}
     emit({"phase": "long_read_kernels",
           "shape": {"B": n, "L": length, "W": wins.shape[1]},
-          "kernels": [{k: r[k] for k in ROW_KEYS if k in r} for r in rows]})
-    if not all(r["equal_to_plain"] for r in rows):
+          "kernels": [{k: r[k] for k in ROW_KEYS if k in r} for r in rows],
+          "banded_dp_global_codes_at_this_shape": global_codes})
+    if not (g_equal and all(r["equal_to_plain"] for r in rows)):
         raise SystemExit("a kernel disagrees with its plain version")
+    rows[0]["global_codes"] = {k: global_codes[k] for k in (
+        "equal_to_plain", "ms", "graph_ms")}
     return rows
+
+
+def phase_huge_read(dev: torch.device, batch: tuple) -> dict:
+    """The device step of the end-to-end phase's HUGE_L bp read, on its
+    own inputs (batch as phase_long_read_kernels takes it): the plan
+    banded_plan gives it (the trace mode's global-codes variant), the
+    step through banded_align_full held against
+    banded_align_full_reference on the card (exact; the plain version
+    timed once) and timed, banded_dp and banded_walk_pack each timed."""
+    from gonomics_tpu_torch.ops import banded
+
+    reads, wins, n_vec, m_vec, scores = (
+        torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in batch[:5])
+    n, length = reads.shape
+    args = (reads, wins, n_vec, m_vec, scores.to(torch.int32), int(batch[5]))
+    plan = banded.banded_launch_plan(n, length)
+    want, plain_ms = once_ms(lambda: banded.banded_align_full_reference(
+        *args))
+    equal, err = equal_err(banded.banded_align_full(*args), want)
+    bv, bi, trace = banded.banded_dp(*args)
+    score, i_star, c_star = banded.best_cell(bv, bi)
+    walk_args = (trace, i_star, c_star, score > 0,
+                 banded.walk_length(length))
+    out = {"phase": "huge_read", "shape": {"B": n, "L": length,
+                                           "W": wins.shape[1]},
+           "plan": plan, "equal_to_plain": equal, "max_abs_err": err,
+           "tolerance": "exact", "score": int(want[0][0]),
+           "ms": median_ms(lambda: banded.banded_align_full(*args), runs=5),
+           "plain_ms": plain_ms,
+           "banded_dp_ms": median_ms(lambda: banded.banded_dp(*args),
+                                     runs=5),
+           "banded_walk_pack_ms": median_ms(
+               lambda: banded.banded_walk_pack(*walk_args), runs=5)}
+    emit(out)
+    if not (equal and plan["codes"] == "global"):
+        raise SystemExit("the huge read's device step disagrees with its "
+                         "plain version")
+    return out
 
 
 def make_reads(genome: np.ndarray, n: int, seed: int, prefix: str = "r",
@@ -611,11 +699,13 @@ def check_sam(text: str, truth: np.ndarray) -> dict:
             "junk": len(truth) - real, "junk_mapped": junk_mapped}
 
 
-def phase_end_to_end(dev: torch.device, G: int) -> tuple[dict, tuple]:
+def phase_end_to_end(dev: torch.device, G: int) -> tuple[dict, tuple,
+                                                          tuple]:
     """ReadAligner end to end on the main batches, then on one batch of
-    long reads; returns the phase's line and the long batch's inputs to
-    the device step with the aligner's scores and gap
-    (phase_long_read_kernels)."""
+    long reads and on one read of HUGE_L bp; returns the phase's line and
+    the long batch's and the huge read's inputs to the device step, each
+    with the aligner's scores and gap (phase_long_read_kernels,
+    phase_huge_read)."""
     from gonomics_tpu_torch import dna, native
     from gonomics_tpu_torch.io.fasta import Fasta
     from gonomics_tpu_torch.ops import banded
@@ -708,6 +798,23 @@ def phase_end_to_end(dev: torch.device, G: int) -> tuple[dict, tuple]:
                               "banded_dp": banded.dp_launches,
                               "banded_walk_pack": banded.walk_launches},
                  **check_sam(long_text, long_truth)}
+    long_inputs = last_inputs[0]
+    # one read past the staged codes' reach (fault 3.3 before): the trace
+    # mode's global-codes variant and the walk
+    huge_reads, huge_truth = make_reads(genome, 1, 201, "huge", HUGE_L)
+    banded.dp_launches = banded.walk_launches = banded.fused_launches = 0
+    t1 = time.perf_counter()
+    huge_text = al.finish_batch_lines(al.align_batch_async(huge_reads))
+    huge_plan = banded.banded_launch_plan(1, HUGE_L)
+    huge_path = {"reads": 1, "read_len": HUGE_L,
+                 "plan": {k: huge_plan[k] for k in (
+                     "mode", "codes", "lanes_per_thread", "warps_per_block",
+                     "smem_bytes", "registers", "spill_bytes")},
+                 "wall_ms": (time.perf_counter() - t1) * 1e3,
+                 "launches": {"banded_align_fused": banded.fused_launches,
+                              "banded_dp": banded.dp_launches,
+                              "banded_walk_pack": banded.walk_launches},
+                 **check_sam(huge_text, huge_truth)}
     out = {"phase": "end_to_end", "genome_bp": G, "index": "sparse step 8",
            "batches": len(batches), "batch": B, "read_len": L,
            "index_build_s": build_s, "reads_per_s": len(batches) * B / wall,
@@ -722,9 +829,10 @@ def phase_end_to_end(dev: torch.device, G: int) -> tuple[dict, tuple]:
            "device_ms_per_batch": float(np.mean(device_ms)),
            "native_host_library": native.available(),
            "main_kernel": main_kernel, "launches": launches, **checks,
-           "long_reads": long_path}
+           "long_reads": long_path, "huge_read": huge_path}
     emit(out)
     long_launches = long_path["launches"]
+    huge_launches = huge_path["launches"]
     if not (checks["mapped_frac"] >= 0.99 and checks["placed_frac"] >= 0.99
             and checks["junk_mapped"] == 0
             and main_kernel == "banded_align_fused"
@@ -735,23 +843,35 @@ def phase_end_to_end(dev: torch.device, G: int) -> tuple[dict, tuple]:
             and long_launches["banded_align_fused"] == 0
             and long_path["mapped_frac"] >= 0.99
             and long_path["placed_frac"] >= 0.99
-            and long_path["junk_mapped"] == 0):
+            and long_path["junk_mapped"] == 0
+            and huge_path["plan"]["codes"] == "global"
+            and huge_launches["banded_dp"] == 1
+            and huge_launches["banded_walk_pack"] == 1
+            and huge_path["mapped_frac"] == 1.0
+            and huge_path["placed_frac"] == 1.0):
         raise SystemExit("end-to-end check failed")
     # each kernel's launches from the path that takes it
     out["launches"] = {"banded_align_fused": launches["banded_align_fused"],
                        "banded_dp": long_launches["banded_dp"],
                        "banded_walk_pack": long_launches["banded_walk_pack"]}
-    return out, (*last_inputs[0], al.scores, al.gap)
+    return (out, (*long_inputs, al.scores, al.gap),
+            (*last_inputs[0], al.scores, al.gap))
+
+
+def cli_genome(G: int) -> np.ndarray:
+    """The CLI and mesh phases' genome of G bases, from seed 2."""
+    return np.random.default_rng(2).integers(0, 4, G, dtype=np.int8)
 
 
 def phase_cli(dev: torch.device, G: int) -> dict:
+    """`gsw align --engine tpu` single and paired, byte-equal to the
+    library path; then with --mesh, byte-equal to the runs without it."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli import gsw_cmd
     from gonomics_tpu_torch.io import fasta, fastq
     from gonomics_tpu_torch.read_align import ReadAligner
 
-    rng = np.random.default_rng(2)
-    genome = rng.integers(0, 4, G, dtype=np.int8)
+    genome = cli_genome(G)
     single, _ = make_reads(genome, 3000, 7)
     r1, _ = make_reads(genome, 1000, 8, prefix="p")
     r2, _ = make_reads(genome, 1000, 9, prefix="p")
@@ -795,10 +915,239 @@ def phase_cli(dev: torch.device, G: int) -> dict:
                 got = f.read()
             result[f"{name}_equal"] = got == want
             result[f"{name}_lines"] = got.count("\n")
+        # --mesh: every CUDA device of the process, the mesh path
+        t0 = time.perf_counter()
+        gsw_cmd.main(["align", ref, paths["single"], "-o",
+                      os.path.join(tmp, "single_mesh.sam"), *flags,
+                      "--mesh"])
+        gsw_cmd.main(["align", ref, paths["r1"], paths["r2"], "-o",
+                      os.path.join(tmp, "paired_mesh.sam"), *flags,
+                      "--mesh"])
+        result["mesh_cli_s"] = time.perf_counter() - t0
+        for name in ("single", "paired"):
+            with open(os.path.join(tmp, name + ".sam"), "rb") as f:
+                plain = f.read()
+            with open(os.path.join(tmp, name + "_mesh.sam"), "rb") as f:
+                result[f"{name}_mesh_equal"] = f.read() == plain
     emit(result)
     if not (result["single_equal"] and result["paired_equal"]):
         raise SystemExit("CLI SAM differs from the library path")
+    if not (result["single_mesh_equal"] and result["paired_mesh_equal"]):
+        raise SystemExit("gsw align --mesh differs from the run without it")
     return result
+
+
+def phase_mesh(dev: torch.device, G: int) -> dict:
+    """ReadAligner's mesh path (ReadAligner(mesh=), each batch through
+    shard_local_align: local_wavefront over every read's whole (L, W)
+    grid and the local walk) on the CLI phase's genome: MESH_BATCHES
+    batches of B reads of L bp on make_mesh(data=1), one after another,
+    with the wall split into seeding (host), device (the card's span from
+    the upload to the result in host memory), the wait for it and emit
+    (SAM text); the same batches on a mesh of two data slices on the one
+    card (the device repeated), which must give the same SAM; the first
+    MESH_CPU_READS reads against the mesh path on the CPU; the lines equal
+    to the banded path's, counted (a full local DP and a 64-lane band may
+    end differently on ties). Returns the phase's line, with the first
+    batch's inputs to the device step for phase_mesh_kernels."""
+    from gonomics_tpu_torch import native
+    from gonomics_tpu_torch.io.fasta import Fasta
+    from gonomics_tpu_torch.ops import banded, gsw_dp, wavefront
+    from gonomics_tpu_torch.parallel import make_mesh
+    from gonomics_tpu_torch.read_align import ReadAligner
+
+    genome = cli_genome(G)
+    t0 = time.perf_counter()
+    base = ReadAligner([Fasta("chrS", genome)], device=dev)
+    build_s = time.perf_counter() - t0
+    state = base.state()
+    al = ReadAligner.from_state(state, device=dev, mesh=make_mesh(data=1))
+    al2 = ReadAligner.from_state(
+        state, device=dev, mesh=make_mesh(devices=["cuda:0"] * 2, data=2))
+    batches = [make_reads(genome, B, 300 + t) for t in range(MESH_BATCHES)]
+
+    spans, seeding, inputs = [], [], []
+    device_result, candidates = al._device_result, al._candidates
+
+    def timed_device_result(*args):
+        inputs.append(args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = device_result(*args)
+        end.record()
+        spans.append((start, end))
+        return res
+
+    def timed_candidates(*args):
+        t1 = time.perf_counter()
+        out = candidates(*args)
+        seeding.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    al._device_result, al._candidates = timed_device_result, timed_candidates
+    al.finish_batch_lines(al.align_batch_async(batches[0][0]))  # warm-up
+    al2.finish_batch_lines(al2.align_batch_async(batches[0][0]))
+    spans.clear()
+    seeding.clear()
+    inputs.clear()
+
+    # the main path: launch counts from this loop only
+    wavefront.local_launches = gsw_dp.local_walk_launches = 0
+    banded.fused_launches = banded.dp_launches = banded.walk_launches = 0
+    texts, dispatch_ms, wait_ms, emit_ms = [], [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for reads, _ in batches:
+        t1 = time.perf_counter()
+        handle = al.align_batch_async(reads)
+        t2 = time.perf_counter()
+        handle[5].numpy()  # the device result in host memory
+        t3 = time.perf_counter()
+        texts.append(al.finish_batch_lines(handle))
+        t4 = time.perf_counter()
+        dispatch_ms.append((t2 - t1) * 1e3)
+        wait_ms.append((t3 - t2) * 1e3)
+        emit_ms.append((t4 - t3) * 1e3)
+    wall = time.perf_counter() - t0
+    launches = {"local_wavefront": wavefront.local_launches,
+                "local_walk_pack": gsw_dp.local_walk_launches,
+                "banded_kernels": banded.fused_launches + banded.dp_launches
+                + banded.walk_launches}
+    device_ms = [s.elapsed_time(e) for s, e in spans]
+    checks = check_sam("".join(texts),
+                       np.concatenate([t for _, t in batches]))
+
+    # two data slices on the one card
+    wavefront.local_launches = gsw_dp.local_walk_launches = 0
+    texts2 = [al2.finish_batch_lines(al2.align_batch_async(reads))
+              for reads, _ in batches]
+    launches2 = {"local_wavefront": wavefront.local_launches,
+                 "local_walk_pack": gsw_dp.local_walk_launches}
+    # the mesh path on the CPU, the first reads
+    cpu = ReadAligner.from_state(state, device="cpu",
+                                 mesh=make_mesh(devices=["cpu"], data=1))
+    head = batches[0][0][:MESH_CPU_READS]
+    cpu_text = cpu.finish_batch_lines(cpu.align_batch_async(head))
+    card_head = "".join(texts[0].splitlines(True)[:MESH_CPU_READS])
+    # the banded path on the same batches
+    lines = "".join(texts).splitlines()
+    banded_lines = "".join(
+        base.finish_batch_lines(base.align_batch_async(reads))
+        for reads, _ in batches).splitlines()
+    same = sum(a == b for a, b in zip(lines, banded_lines))
+    n_reads = MESH_BATCHES * B
+    out = {"phase": "mesh", "genome_bp": G, "batches": MESH_BATCHES,
+           "batch": B, "read_len": L, "window": W, "walk_steps": L + W,
+           "index_build_s": build_s, "reads_per_s": n_reads / wall,
+           "wall_ms_per_batch": wall * 1e3 / MESH_BATCHES,
+           "host_seed_vote_ms_per_batch": float(np.mean(seeding)),
+           "host_dispatch_ms_per_batch": float(np.mean(dispatch_ms)),
+           "device_ms_per_batch": float(np.mean(device_ms)),
+           "wait_ms_per_batch": float(np.mean(wait_ms)),
+           "host_emit_ms_per_batch": float(np.mean(emit_ms)),
+           "device_span_share": sum(device_ms) / (wall * 1e3),
+           "native_host_library": native.available(),
+           "launches": launches, **checks,
+           "data2_same_sam": texts2 == texts, "data2_launches": launches2,
+           "cpu_reads": MESH_CPU_READS, "cpu_equal": cpu_text == card_head,
+           "banded_equal_lines": same, "banded_equal_frac": same / n_reads}
+    emit(out)
+    if not (checks["mapped_frac"] >= 0.99 and checks["placed_frac"] >= 0.99
+            and checks["junk_mapped"] == 0 and out["data2_same_sam"]
+            and out["cpu_equal"] and len(lines) == n_reads
+            and launches["local_wavefront"] == MESH_BATCHES
+            and launches["local_walk_pack"] == MESH_BATCHES
+            and launches["banded_kernels"] == 0
+            and launches2["local_wavefront"] == 2 * MESH_BATCHES
+            and launches2["local_walk_pack"] == 2 * MESH_BATCHES):
+        raise SystemExit("mesh check failed")
+    out["inputs"] = (*inputs[0], al.scores, al.gap)
+    return out
+
+
+MESH_WALK_REPLACES = ("gonomics_tpu/ops/wavefront.py:661-696 "
+                      "(local_align_full's best cell, lax.scan walk and "
+                      "packing: jnp glue after K4)")
+
+
+def phase_mesh_kernels(dev: torch.device, batch: tuple) -> tuple[dict, dict]:
+    """local_wavefront (K4) at the mesh path's shape, on the inputs the
+    mesh phase's first batch gave it, and the local walk on K4's own
+    trace: each held against its plain version on the card (exact, whole
+    tensors) and timed eagerly (ms) and in a CUDA graph (graph_ms), with
+    K4's plan, each bound from these inputs (K4: its inputs, bv and bd,
+    and the whole trace, or its job's own cells' operations; the walk: the
+    cells its steps read, the bests its first-max reads, the rows it
+    writes, or those steps' and lanes' operations) and the walk's longest
+    walk and tiles. Returns the walk's row of the kernels line and K4's
+    figures at this shape."""
+    from gonomics_tpu_torch.ops import gsw_dp, wavefront
+
+    alpha, beta, nv, mv, scores = (
+        torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in batch[:5])
+    args = (alpha, beta, nv, mv, scores.to(torch.int32), int(batch[5]))
+    C, n = alpha.shape
+    m = beta.shape[1]
+    S = n + 1
+
+    def k4():
+        return wavefront.local_wavefront(*args)
+
+    want, k4_plain_ms = once_ms(lambda: wavefront.local_wavefront_reference(
+        *args))
+    k4_equal, k4_err = equal_err(k4(), want)
+    bv, bd, trace = want
+    walk_args = ("local", trace, bv, bd)
+
+    def walk():
+        return gsw_dp.gsw_walk_pack(*walk_args)
+
+    wwant, walk_plain_ms = once_ms(lambda: gsw_dp.gsw_walk_pack_reference(
+        *walk_args))
+    walk_equal, walk_err = equal_err((walk(),), (wwant,))
+    steps, rounds = gsw_dp.walk_rounds(*walk_args)
+    n_steps = int(steps.sum())
+
+    k4_bound = graph_dp_bound("local", nv.cpu().numpy(), mv.cpu().numpy(),
+                              n, m, corner=False)
+    walk_bytes = C * (4 * S + 4) + n_steps + wwant.numel()
+    walk_bound = {"bytes": walk_bytes / HBM_BYTES_PER_S * 1e3,
+                  "operations": (GSW_WALK_OPS_PER_STEP * n_steps
+                                 + GSW_ARGMAX_OPS_PER_LANE * C * S)
+                  / INT32_OPS_PER_S * 1e3}
+    k4_by = max(("bytes", "operations"), key=k4_bound.get)
+    walk_by = max(walk_bound, key=walk_bound.get)
+    k4_row = {"shape": {"B": C, "n": n, "m": m},
+              "plan": wavefront.graph_dp_plan(C, n, m, "local"),
+              "equal_to_plain": k4_equal, "max_abs_err": k4_err,
+              "ms": median_ms(k4, runs=15, inner=5),
+              "graph_ms": graph_ms(k4, runs=10, inner=5),
+              "plain_ms": k4_plain_ms, "bound_ms": k4_bound[k4_by],
+              "bound_by": k4_by, "trace_bytes": C * (n + m) * S,
+              "cells": k4_bound["cells"],
+              "bound_job_cells_ms": k4_bound["bound_job_cells_ms"]}
+    walk_row = {"name": "local_walk_pack", "route": "cuda",
+                "source": "gonomics_tpu_torch/csrc/gsw_dp.cu",
+                "replaces": MESH_WALK_REPLACES, "launches": None,
+                "equal_to_plain": walk_equal, "tolerance": "exact",
+                "max_abs_err": walk_err,
+                "ms": median_ms(walk, runs=15, inner=20),
+                "graph_ms": graph_ms(walk), "plain_ms": walk_plain_ms,
+                "bound_ms": walk_bound[walk_by], "bound_by": walk_by,
+                "library_ms": None,
+                "shape": f"{C} reads of {n} bp in {m} bp windows",
+                "max_steps": int(steps.max()), "rounds": int(rounds.max()),
+                "rounds_total": int(rounds.sum()), "walk_steps": n_steps}
+    emit({"phase": "mesh_kernels", "tolerance": "exact",
+          "local_wavefront": k4_row,
+          "local_walk_pack": {k: v for k, v in walk_row.items()
+                              if k not in ("route", "source", "launches",
+                                           "library_ms")}})
+    if not (k4_equal and walk_equal and k4_row["plan"]["design"] == "warp"):
+        raise SystemExit("a mesh kernel disagrees with its plain version or "
+                         "did not take its plan")
+    return walk_row, k4_row
 
 
 def related_pair(rng, L: int, same_length: bool):
@@ -1407,7 +1756,7 @@ def stack_jobs(waves: list, side: int, count: int, dims: list):
 
 
 def graph_dp_bound(kind: str, nv: np.ndarray, mv: np.ndarray, n: int,
-                   m: int) -> dict:
+                   m: int, corner: bool = True) -> dict:
     """Least time of one graph DP call. bytes: the inputs read once and
     the outputs written once, the trace whole as the contract has it (C
     (n+m) S bytes, most of them its constant), at the memory rate;
@@ -1420,7 +1769,7 @@ def graph_dp_bound(kind: str, nv: np.ndarray, mv: np.ndarray, n: int,
     reach."""
     C = len(nv)
     cells = int((nv.astype(np.int64) * mv).sum())
-    rows = 3 if kind == "local" else 2   # bv, bd (and corner)
+    rows = 3 if kind == "local" and corner else 2   # bv, bd (and corner)
     inputs = C * (n + m) + 8 * C + 100 + rows * 4 * C * (n + 1)
     nbytes = inputs + C * (n + m) * (n + 1)
     job_ops = (LOCAL_OPS_PER_CELL * cells if kind == "local" else
@@ -2158,7 +2507,7 @@ def phase_score_kernels(dev: torch.device) -> list[dict]:
     L, P, B, R = SCORE_L, SCORE_P, SCORE_B, SCORE_R
     sa, sb = stream_batch(dev)
     ba, bb, bf, dims = pair_batch(B, L, L, seed=41, dev=dev)
-    # phase 5's score-mode batch
+    # phase 7's score-mode batch
     ka, kb, kf, kdims = pair_batch(PAIR_B_SCORE, PAIR_LEN, PAIR_LEN,
                                    seed=PAIR_B_SCORE + len("affine"), dev=dev)
     full = {
@@ -2406,10 +2755,14 @@ def main() -> int:
     dev = torch.device("cuda")
     info = phase_device()
     rows = phase_kernels(dev)
-    e2e, long_batch = phase_end_to_end(dev, 100_000_000)
+    e2e, long_batch, huge_batch = phase_end_to_end(dev, 100_000_000)
     rows += phase_long_read_kernels(dev, long_batch)
-    del long_batch
-    phase_cli(dev, 10_000_000)
+    phase_huge_read(dev, huge_batch)
+    del long_batch, huge_batch
+    phase_cli(dev, CLI_BP)
+    mesh = phase_mesh(dev, CLI_BP)
+    walk_row, k4_mesh = phase_mesh_kernels(dev, mesh.pop("inputs"))
+    rows.append(walk_row)
     rows += phase_pairwise_kernels(dev)
     pairwise = phase_pairwise(dev)
     phase_pairwise_cli()
@@ -2423,9 +2776,15 @@ def main() -> int:
     score = phase_score(dev)
     launches = {**e2e["launches"], **pairwise["launches"],
                 **graph["launches"], **lowmem["launches"],
-                **score["launches"]}
+                **score["launches"],
+                "local_walk_pack": mesh["launches"]["local_walk_pack"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] == "local_wavefront":  # K4 on the mesh path too
+            r["mesh_launches"] = mesh["launches"]["local_wavefront"]
+            r["mesh_path"] = {k: k4_mesh[k] for k in (
+                "shape", "ms", "graph_ms", "plain_ms", "bound_ms",
+                "bound_by", "equal_to_plain")}
         if r.get("kernel") == "trace_diag":
             r["trace_diag_launches"] = launches["trace_diag"]
     emit({"phase": "done", "total_s": time.perf_counter() - t0})

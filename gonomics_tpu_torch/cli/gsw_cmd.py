@@ -19,10 +19,15 @@ host engine. Both engines run their DPs on the card; ``--device cpu``
 runs the kernels' plain versions on the CPU. ``-t/--threads`` is
 accepted and unused, as in the JAX CLI. ``--profile DIR`` runs the
 alignment under ``torch.profiler`` and writes its trace to
-DIR/gsw_align.pt.trace.json. ``--mesh``, ``--multihost`` and
-``--index-sharding prefix`` of ``--engine tpu`` are not ported yet and
-exit with an error that names their ROADMAP item; the host engine
-ignores them, as the JAX one does.
+DIR/gsw_align.pt.trace.json. ``--mesh`` with ``--engine tpu`` and a .fa
+reference shards each batch data-parallel over every CUDA device of the
+process (``parallel.make_mesh(data=<devices>, seq=1)``; one CPU device
+with ``--device cpu``), as the JAX CLI does over its local devices: each
+read's whole (L, L + 48) grid on the card, a trace of (2 L + 48)(L + 1)
+bytes a read, and the same SAM. ``--multihost`` and ``--index-sharding
+prefix`` with a .fa reference are not ported yet and exit with an error
+that names their ROADMAP item. The host engine, and a .gg/.sg reference
+on either engine, ignore all three, as the JAX CLI does.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from ..align.matrices import BY_NAME, HUMAN_CHIMP_TWO
 from ..graph_align import GraphAligner
 from ..io import fasta, fastq as fastqio, giraf as girafio
 from ..io.chrom_info import read_to_slice
+from ..parallel import make_mesh
 from ..read_align import ReadAligner
 
 
@@ -54,7 +60,7 @@ def _progress(tool: str, n: int, t0: float, final: bool = False) -> None:
 
 
 def _refuse_unported(args) -> None:
-    for flag, on in (("--mesh", args.mesh), ("--multihost", args.multihost),
+    for flag, on in (("--multihost", args.multihost),
                      ("--index-sharding prefix",
                       args.index_sharding == "prefix")):
         if on:
@@ -131,23 +137,26 @@ def _align_graph(args) -> None:
 
 def align_cmd(args) -> None:
     """The host engine, and a graph reference on either engine, go to
-    ``_align_graph``. The tpu engine's linear .fa reference -> SAM
+    ``_align_graph`` before any multi-device flag is read, as in the JAX
+    CLI (gsw_cmd.py:55-57). The tpu engine's linear .fa reference -> SAM
     through a three-stage pipeline: batch i+1's host seeding (main
     thread) overlaps batch i's device work (launched without waiting) and
     batch i-1's SAM assembly (worker thread); writes drain in order on
     the main thread."""
     if len(args.files) not in (2, 3):
         raise SystemExit("gsw align: want ref[.gg/.fa] R1.fq [R2.fq]")
-    if args.engine == "host":
+    if args.engine == "host" or args.files[0].endswith((".gg", ".sg")):
         _align_graph(args)
         return
     _refuse_unported(args)
-    if args.files[0].endswith((".gg", ".sg")):
-        _align_graph(args)
-        return
+    mesh = None
+    if args.mesh:
+        mesh = (make_mesh(devices=["cpu"], data=1) if args.device == "cpu"
+                else make_mesh(data=torch.cuda.device_count(), seq=1))
     records = fasta.read(args.files[0])
     al = ReadAligner(records, index_mode=args.index_mode,
-                     index_step=args.index_step, device=args.device)
+                     index_step=args.index_step, device=args.device,
+                     mesh=mesh)
     out = fileio.easy_create(args.out)
     for line in al.header().text:
         out.write(line + "\n")
@@ -233,7 +242,9 @@ def main(argv=None) -> None:
                     choices=["replicated", "prefix"],
                     help="tpu engine: prefix is not ported yet")
     al.add_argument("--mesh", action="store_true",
-                    help="tpu engine: not ported yet")
+                    help="tpu engine, .fa reference: shard each batch "
+                         "data-parallel over every CUDA device (the whole "
+                         "local DP a read)")
     al.add_argument("--multihost", action="store_true",
                     help="tpu engine: not ported yet")
     al.add_argument("--profile", default="",

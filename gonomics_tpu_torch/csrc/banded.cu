@@ -35,7 +35,11 @@
 // read's codes and its window's codes are staged once, clipped to 0..4
 // and the window padded with N to L + 64 columns, in shared memory with
 // 16-byte loads, so the row loop loads nothing from device memory; the
-// substitution score is a lookup in the 5x5 table in shared memory. The
+// substitution score is a lookup in the 5x5 table in shared memory. Reads
+// whose staged codes do not fit a block's shared memory even at one warp
+// (above about 116 kbp) take the trace mode's global-codes variant, which
+// keeps a thread's R window codes in registers and loads one byte a row
+// (see the note above the kernel; ops/banded.py banded_plan). The
 // TPU kernel's five sliding profiles, int16 profiles and 4-bit input
 // packing were TPU mechanisms and are not carried over. The fused mode
 // writes a thread's R codes of a row into the read's trace in shared
@@ -84,8 +88,9 @@ __host__ __device__ __forceinline__ int reads_per_block(int R, int WB) { return 
 
 // A block's dynamic shared memory: the staged read and window codes of
 // its reads and, in the fused mode, their traces at 2 bits a code (16
-// bytes a row).
-size_t banded_smem(int R, int WB, int L, bool fused) {
+// bytes a row); none where the codes stay in device memory.
+size_t banded_smem(int R, int WB, int L, bool fused, bool global) {
+  if (global) return 0;
   return (size_t)reads_per_block(R, WB) *
          (staged_pitch(L) + staged_pitch(L + kBand) + (fused ? (size_t)16 * L : 0));
 }
@@ -130,6 +135,13 @@ __device__ void stage_rows(const int8_t* __restrict__ g, int B, int S, int b0, i
   }
 }
 
+// The clipped code of column q of a (B, S) row g of codes in device
+// memory, 4 (N) at columns at or past S and for rows past B (g null): the
+// staged copy's contents, for the trace mode's global-codes variant.
+__device__ __forceinline__ int global_code(const int8_t* g, int S, int q) {
+  return g != nullptr && q < S ? min(max((int)__ldg(g + q), 0), 4) : 4;
+}
+
 // The outputs of banded_dp_kernel: bv, bi and trace in the trace mode;
 // score .. packed in the fused mode.
 struct BandedOut {
@@ -161,7 +173,17 @@ __device__ __forceinline__ void store_lanes(int32_t* p, const int (&v)[R]) {
 // G r' .. G r' + G - 1 of warp r / (32 / G), and thread t of a read owns
 // lanes c = t R .. t R + R - 1. Lanes whose read is past B take part in
 // every shuffle (their cells are all invalid) and store nothing.
-template <int R, bool kFused>
+//
+// kGlobal (the trace mode only): the codes stay in device memory, for
+// reads whose staged read and window do not fit a block's shared memory
+// even at one warp (above about 116 kbp on an H100). A thread keeps the
+// window codes of its R lanes in registers: row i's lane c reads column
+// i - 1 + c, so from one row to the next its codes move down one lane and
+// it loads one byte, column i - 1 + t R + R - 1, through the read-only
+// cache; the read's code of the row is one byte that its G threads load
+// alike. The values read are those of the staged copy: clipped to 0..4, 4
+// at columns at or past W and for reads past B.
+template <int R, bool kFused, bool kGlobal = false>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 banded_dp_kernel(const int8_t* __restrict__ reads,     // (B, L)
                  const int8_t* __restrict__ windows,   // (B, W)
@@ -171,6 +193,7 @@ banded_dp_kernel(const int8_t* __restrict__ reads,     // (B, L)
                  int gap, int B, int L, int W, int D, int P, BandedOut out) {
   constexpr int G = kBand / R;
   constexpr int RW = 32 / G;  // reads a warp
+  static_assert(!(kFused && kGlobal), "the fused mode stages its codes");
   extern __shared__ uint4 dyn[];
   __shared__ int sc[25];
   const int RB = (blockDim.x >> 5) * RW;
@@ -179,8 +202,10 @@ banded_dp_kernel(const int8_t* __restrict__ reads,     // (B, L)
   uint8_t* rs = reinterpret_cast<uint8_t*>(dyn);
   uint8_t* ws = rs + RB * pr;
   if (threadIdx.x < 25) sc[threadIdx.x] = scores[threadIdx.x];
-  stage_rows(reads, B, L, b0, RB, rs, pr, L);
-  stage_rows(windows, B, W, b0, RB, ws, pw, L + kBand);
+  if constexpr (!kGlobal) {
+    stage_rows(reads, B, L, b0, RB, rs, pr, L);
+    stage_rows(windows, B, W, b0, RB, ws, pw, L + kBand);
+  }
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -192,19 +217,35 @@ banded_dp_kernel(const int8_t* __restrict__ reads,     // (B, L)
   const uint8_t* rrow = rs + r * pr;
   const uint8_t* wrow = ws + r * pw + t * R;
   uint8_t* tr = ws + RB * pw + r * 16 * L;  // the fused mode's trace, 16 bytes a row
+  // kGlobal: the read's and its window's codes in device memory (null
+  // past B), and the window codes of the thread's lanes for the row
+  const int8_t* gread = live ? reads + (int64_t)b * L : nullptr;
+  const int8_t* gwin = live ? windows + (int64_t)b * W : nullptr;
+  int wv[R];
 
   int gc[R], p[R], bv[R], bi[R];
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     gc[k] = gap * (t * R + k);
     p[k] = bv[k] = bi[k] = 0;  // row 0 of the band is zeros
+    // "row 0"'s columns t R + k - 1; lane 0's is shifted out unread
+    if constexpr (kGlobal) wv[k] = k ? global_code(gwin, W, t * R + k - 1) : 4;
   }
   for (int i = 1; i <= L; ++i) {
     // cell (i, c) is valid where i <= n and j = i + c <= m (j >= 1 always
     // holds): lane k of this thread where k <= lim
     const int lim = (i <= n ? m : 0) - i - t * R;
-    const int* srow = sc + 5 * rrow[i - 1];
     const uint8_t* wq = wrow + i - 1;  // window column i - 1 + c, c = t R + k
+    int rcode;
+    if constexpr (kGlobal) {
+#pragma unroll
+      for (int k = 0; k + 1 < R; ++k) wv[k] = wv[k + 1];
+      wv[R - 1] = global_code(gwin, W, i - 1 + t * R + R - 1);
+      rcode = global_code(gread, L, i - 1);
+    } else {
+      rcode = rrow[i - 1];
+    }
+    const int* srow = sc + 5 * rcode;
     // up = prev[c + 1] + gap; lane 64 reads 0
     int next = __shfl_down_sync(kFull, p[0], 1, G);
     if (t == G - 1) next = 0;
@@ -212,7 +253,7 @@ banded_dp_kernel(const int8_t* __restrict__ reads,     // (B, L)
     int s = kNegHalf;  // the TPU scan's NEG//2 fill
 #pragma unroll
     for (int k = 0; k < R; ++k) {
-      diag[k] = p[k] + srow[wq[k]];
+      diag[k] = p[k] + srow[kGlobal ? wv[k] : wq[k]];
       // base = max(diag, up + gap) as one DPX add-max, NEG//2 where invalid;
       // then the inclusive max-prefix of a = base - gap c over the thread
       const int base = k <= lim ? __viaddmax_s32(k + 1 < R ? p[k + 1] : next, gap, diag[k])
@@ -450,24 +491,34 @@ using DpKernel = void (*)(const int8_t*, const int8_t*, const int32_t*, const in
 // The lanes a thread banded_dp_kernel is built for.
 #define BANDED_LANES(X) X(2) X(4) X(8)
 
-DpKernel dp_kernel(int R, bool fused) {
-#define DP_CASE(X) \
-  if (R == X) return fused ? banded_dp_kernel<X, true> : banded_dp_kernel<X, false>;
+// The kernel's variants: the trace mode with its codes staged, the fused
+// mode, and the trace mode with its codes in device memory.
+constexpr int kVariants = 3;
+
+DpKernel dp_kernel(int R, bool fused, bool global) {
+#define DP_CASE(X)                                                        \
+  if (R == X)                                                             \
+    return fused ? (global ? nullptr : banded_dp_kernel<X, true>)         \
+                 : (global ? banded_dp_kernel<X, false, true> : banded_dp_kernel<X, false>);
   BANDED_LANES(DP_CASE)
 #undef DP_CASE
   return nullptr;
 }
 
+DpKernel dp_variant(int R, int v) { return dp_kernel(R, v == 1, v == 2); }
+
 // A launch of either mode for B reads of L at R lanes a thread and WB
-// warps a block; out: the mode's outputs (BandedOut).
-int dp_launch(bool fused, const void* reads, const void* windows, const void* n_vec,
-              const void* m_vec, const void* scores, int gap, int B, int L, int W, int D,
-              int P, int R, int WB, const BandedOut& out, void* stream) {
-  const DpKernel kernel = dp_kernel(R, fused);
+// warps a block, its codes staged or (global, the trace mode) read from
+// device memory; out: the mode's outputs (BandedOut).
+int dp_launch(bool fused, bool global, const void* reads, const void* windows,
+              const void* n_vec, const void* m_vec, const void* scores, int gap, int B,
+              int L, int W, int D, int P, int R, int WB, const BandedOut& out,
+              void* stream) {
+  const DpKernel kernel = dp_kernel(R, fused, global);
   if (kernel == nullptr || WB < 1 || WB > kMaxWarps || L < 0 ||
       (uintptr_t)reads % 16 || (uintptr_t)windows % 16)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = banded_smem(R, WB, L, fused);
+  const size_t smem = banded_smem(R, WB, L, fused, global);
   const int RB = reads_per_block(R, WB);
   kernel<<<(B + RB - 1) / RB, 32 * WB, smem, (cudaStream_t)stream>>>(
       (const int8_t*)reads, (const int8_t*)windows, (const int32_t*)n_vec,
@@ -481,10 +532,11 @@ int dp_launch(bool fused, const void* reads, const void* windows, const void* n_
 // block has, the most dynamic shared memory every instance can take on
 // this device (bytes: the opt-in less the instance's static part), the
 // number of lane counts a thread, and for each count, rising: the count,
-// then the registers and local (spill) bytes a thread of the trace mode
-// and of the fused mode. It also lets every instance take its most on the
-// current device, once (a launch above 48 KB needs it), so that no launch
-// sets an attribute.
+// then the registers and local (spill) bytes a thread of the trace mode,
+// of the fused mode and of the trace mode with its codes in device
+// memory. It also lets every instance take its most on the current
+// device, once (a launch above 48 KB needs it), so that no launch sets an
+// attribute.
 extern "C" int banded_built(void* out) {
   int* res = (int*)out;
   int dev = 0, optin = 0;
@@ -496,16 +548,16 @@ extern "C" int banded_built(void* out) {
   int k = 0;
 #define DP_REPORT(X)                                                     \
   {                                                                      \
-    int* e = res + 3 + 5 * k++;                                          \
+    int* e = res + 3 + (1 + 2 * kVariants) * k++;                        \
     e[0] = X;                                                            \
-    for (int f = 0; f < 2 && err == cudaSuccess; ++f) {                  \
+    for (int v = 0; v < kVariants && err == cudaSuccess; ++v) {          \
       cudaFuncAttributes fa;                                             \
-      err = cudaFuncGetAttributes(&fa, (const void*)dp_kernel(X, f));    \
-      e[1 + 2 * f] = fa.numRegs;                                         \
-      e[2 + 2 * f] = (int)fa.localSizeBytes;                             \
+      err = cudaFuncGetAttributes(&fa, (const void*)dp_variant(X, v));   \
+      e[1 + 2 * v] = fa.numRegs;                                         \
+      e[2 + 2 * v] = (int)fa.localSizeBytes;                             \
       res[1] = min(res[1], optin - (int)fa.sharedSizeBytes);             \
       if (err == cudaSuccess)                                            \
-        err = cudaFuncSetAttribute(dp_kernel(X, f),                      \
+        err = cudaFuncSetAttribute(dp_variant(X, v),                     \
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, \
                                    optin - (int)fa.sharedSizeBytes);     \
     }                                                                    \
@@ -516,15 +568,16 @@ extern "C" int banded_built(void* out) {
   return (int)err;
 }
 
-// The launch of banded_dp_kernel (fused or not) for B reads of L at R
-// lanes a thread and WB warps a block, written to out (five ints): a
-// block's threads, the blocks, a block's shared memory (static and
-// dynamic; the dynamic part is banded_smem), and the blocks an SM holds
-// at once. Above 48 KB of shared memory it needs banded_built first.
-extern "C" int banded_shape(int B, int L, int R, int WB, int fused, void* out) {
-  const DpKernel kernel = dp_kernel(R, fused != 0);
+// The launch of banded_dp_kernel (fused or not, its codes staged or
+// global) for B reads of L at R lanes a thread and WB warps a block,
+// written to out (five ints): a block's threads, the blocks, a block's
+// shared memory (static and dynamic; the dynamic part is banded_smem),
+// and the blocks an SM holds at once. Above 48 KB of shared memory it
+// needs banded_built first.
+extern "C" int banded_shape(int B, int L, int R, int WB, int fused, int global, void* out) {
+  const DpKernel kernel = dp_kernel(R, fused != 0, global != 0);
   if (kernel == nullptr || WB < 1 || WB > kMaxWarps || L < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = banded_smem(R, WB, L, fused != 0);
+  const size_t smem = banded_smem(R, WB, L, fused != 0, global != 0);
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, (const void*)kernel);
   int* res = (int*)out;
@@ -538,19 +591,20 @@ extern "C" int banded_shape(int B, int L, int R, int WB, int fused, void* out) {
   return (int)err;
 }
 
-// The trace mode: bv, bi (B, 64) int32 and the trace (L, B, 64) int8.
+// The trace mode: bv, bi (B, 64) int32 and the trace (L, B, 64) int8,
+// its codes staged in shared memory or (global) read from device memory.
 // reads and windows must be 16-byte aligned (the wrapper's check).
 extern "C" int banded_dp_launch(const void* reads, const void* windows,
                                 const void* n_vec, const void* m_vec,
                                 const void* scores, int gap, int B, int L,
-                                int W, int R, int WB, void* bv, void* bi,
-                                void* trace, void* stream) {
+                                int W, int R, int WB, int global, void* bv,
+                                void* bi, void* trace, void* stream) {
   BandedOut out = {};
   out.bv = (int32_t*)bv;
   out.bi = (int32_t*)bi;
   out.trace = (int8_t*)trace;
-  return dp_launch(false, reads, windows, n_vec, m_vec, scores, gap, B, L, W, 0, 0, R, WB,
-                   out, stream);
+  return dp_launch(false, global != 0, reads, windows, n_vec, m_vec, scores, gap, B, L, W,
+                   0, 0, R, WB, out, stream);
 }
 
 // The fused mode: score, i_end, j_end, i0, j0 (B,) int32 and the walk's
@@ -569,8 +623,8 @@ extern "C" int banded_fused_launch(const void* reads, const void* windows,
   out.i0 = (int32_t*)i0;
   out.j0 = (int32_t*)j0;
   out.packed = (uint8_t*)packed;
-  return dp_launch(true, reads, windows, n_vec, m_vec, scores, gap, B, L, W, D, P, R, WB,
-                   out, stream);
+  return dp_launch(true, false, reads, windows, n_vec, m_vec, scores, gap, B, L, W, D, P,
+                   R, WB, out, stream);
 }
 
 extern "C" int banded_walk_pack_launch(const void* trace, const void* i_end,

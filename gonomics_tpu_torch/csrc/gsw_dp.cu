@@ -9,7 +9,10 @@
 // (:289, pallas_call :368 in wavefront_gsw_right), the RightDynamicAln DP;
 // gsw_walk_pack replaces the jnp glue of gonomics_tpu/ops/gsw_dp.py
 // (_left_full / _right_full, _walk_left / _walk_right, _pack_result,
-// :30-157).
+// :30-157); its local side replaces the jnp glue of local_align_full
+// after K4 (gonomics_tpu/ops/wavefront.py:661-696: the best cell, the
+// lax.scan walk and the packing), the read aligner's mesh path, where K4
+// runs over a read's whole (L, L + 2 pad) grid.
 //
 // Cell (i, j) of a job lies on diagonal d = i + j at lane s = i (i walks
 // the genome window alpha, j the read part beta); results are (C, S)
@@ -411,15 +414,19 @@ gsw_warp_kernel(const int8_t* __restrict__ alpha,   // (C, n)
 }
 
 // The walk, gsw_walk_pack: one warp a job, the tile walk of
-// lowmem_walk_block taken to this trace's layout. kLeft (_left_full):
-// score = corner at lane n_b; walk from (n_b, m_b) while the score is
-// > 0, i and j are > 0 and the code is not 3; the meta holds (score, i,
-// j) where the walk stopped. Otherwise (_right_full): the first lane of
-// the maximal best value (a warp-wide first-max; a max <= 0 gives (0, 0)
-// and score 0); walk from there to the origin with i and j clamped at 0;
-// the meta holds (score, start i, start j). Both run D steps, code 4 once
-// inactive, and pack min(op, 3) four to a byte, low bits first, padded
-// with 3, after the 12-byte little-endian meta. Trace codes are 0-3.
+// lowmem_walk_block taken to this trace's layout, on one of three sides.
+// kLeftSide (_left_full): score = corner at lane n_b; walk from (n_b,
+// m_b) while the score is > 0, i and j are > 0 and the code is not 3; the
+// meta holds (score, i, j) where the walk stopped. kRightSide
+// (_right_full): the first lane of the maximal best value (a warp-wide
+// first-max; a max <= 0 gives (0, 0) and score 0); walk from there to the
+// origin with i and j clamped at 0; the meta holds (score, start i, start
+// j). kLocalSide (local_align_full's glue after K4, gonomics_tpu/ops/
+// wavefront.py:661-696): the right side's start on K4's bests, the left
+// side's walk and stop; the meta holds (score, start i, start j, i, j)
+// where it stopped, 20 bytes. All run D steps, code 4 once inactive, and
+// pack min(op, 3) four to a byte, low bits first, padded with 3, after
+// the little-endian meta. Trace codes are 0-3.
 //
 // Cell (i, j) lies on row dd = clamp(u, 0, D-1) of the trace, u = i + j
 // - 1, at lane clamp(i, 0, S-1); rows of a job lie C S bytes apart, so a
@@ -445,6 +452,8 @@ gsw_warp_kernel(const int8_t* __restrict__ alpha,   // (C, n)
 constexpr int kWalkWarps = 4;   // jobs (warps) a block of the walk
 constexpr int kTileDiags = 32;  // TD: a diagonal a lane
 constexpr int kTileLanes = 16;  // TL
+// the walk's sides, as gsw_walk_pack_launch takes them
+constexpr int kRightSide = 0, kLeftSide = 1, kLocalSide = 2;
 
 // The 16 bytes at p as 4 words, from an aligned 16-byte load and one
 // more where they straddle a 16-byte boundary; the words are shifted into
@@ -464,16 +473,19 @@ __device__ __forceinline__ void load_words(const int8_t* p, uint32_t* w) {
   }
 }
 
-template <bool kLeft>
+template <int kSide>
 __global__ void __launch_bounds__(32 * kWalkWarps)
 gsw_walk_pack_kernel(const int8_t* __restrict__ trace,    // (D, C, S)
                      const int32_t* __restrict__ values,  // (C, S) corner or bv
-                     const int32_t* __restrict__ diags,   // (C, S) bd (right)
+                     const int32_t* __restrict__ diags,   // (C, S) bd (right, local)
                      const int32_t* __restrict__ n_vec,   // (C,) (left)
                      const int32_t* __restrict__ m_vec,   // (C,) (left)
                      int C, int S, int D, int P,
-                     uint8_t* __restrict__ out) {         // (C, 12 + P)
+                     uint8_t* __restrict__ out) {         // (C, meta + P)
   constexpr int TD = kTileDiags, TL = kTileLanes;
+  // the left side's corner start; the left and local sides' stop on code 3
+  constexpr bool kLeft = kSide == kLeftSide, kStop = kSide != kRightSide;
+  constexpr int kMeta = kSide == kLocalSide ? 20 : 12;  // meta bytes
   __shared__ uint4 smem[kWalkWarps * TD];  // a row of TL bytes a diagonal
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x * kWalkWarps + warp;
@@ -505,13 +517,13 @@ gsw_walk_pack_kernel(const int8_t* __restrict__ trace,    // (D, C, S)
     }
   }
   const int i_start = i, j_start = j;
-  uint8_t* row = out + (int64_t)b * (12 + P);
+  uint8_t* row = out + (int64_t)b * (kMeta + P);
   const int8_t* tb = trace + (int64_t)b * S;  // row dd at tb + dd C S
   const int64_t pitch = (int64_t)C * S;
   int dtop = 0, itop = -TL;  // no tile yet
   OpWords ops;
   int t = 0;
-  bool live = kLeft ? (score > 0 && i > 0 && j > 0) : (i > 0 || j > 0);
+  bool live = kStop ? (score > 0 && i > 0 && j > 0) : (i > 0 || j > 0);
   while (live && t < D) {
     const int u = i + j - 1;
     int x = dtop - u, y = itop - i;
@@ -551,34 +563,37 @@ gsw_walk_pack_kernel(const int8_t* __restrict__ trace,    // (D, C, S)
     // right walk's start may have j < 0, which its first step clamps to
     // 0: that step alone, then the tile is found anew)
     int n = min(min((TD - 1 - x) >> 1, TL - 1 - y) + 1, D - t);
-    if (!kLeft && j < 0) n = 1;
+    if (!kStop && j < 0) n = 1;
     const uint8_t* p = tile + x * TL + (TL - 1 - y);
     for (int k = 0; k < n; ++k) {
       const uint32_t code = *p;
-      if (kLeft && code == 3) {  // inactive from here on
+      if (kStop && code == 3) {  // inactive from here on
         live = false;
         break;
       }
       // 0 and 2 lower i, 0 and 1 lower j (right: clamped at 0); x grows
       // by both, y by i's
       int i2 = i - ((0x5 >> code) & 1), j2 = j - ((0x3 >> code) & 1);
-      if (!kLeft) {
+      if (!kStop) {
         i2 = max(i2, 0);
         j2 = max(j2, 0);
       }
       p += (TL - 1) * (i - i2) + TL * (j - j2);
       i = i2;
       j = j2;
-      ops.push(t, code, row + 12, P, lane);
+      ops.push(t, code, row + kMeta, P, lane);
       ++t;
-      live = kLeft ? (i > 0 && j > 0) : (i > 0 || j > 0);
+      live = kStop ? (i > 0 && j > 0) : (i > 0 || j > 0);
       if (!live) break;
     }
   }
-  ops.finish(t, row + 12, P, lane);
-  if (lane < 12) {  // the meta, a byte a lane
-    const int v = lane < 4 ? score : lane < 8 ? (kLeft ? i : i_start)
-                                              : (kLeft ? j : j_start);
+  ops.finish(t, row + kMeta, P, lane);
+  if (lane < kMeta) {  // the meta, a byte a lane
+    const int f = lane / 4;  // its field
+    const int v = f == 0 ? score
+                : f == 1 ? (kLeft ? i : i_start)
+                : f == 2 ? (kLeft ? j : j_start)
+                : f == 3 ? i : j;
     row[lane] = (uint8_t)((unsigned)v >> (8 * (lane % 4)));
   }
 }
@@ -712,13 +727,19 @@ extern "C" int gsw_right_wavefront_launch(const void* alpha, const void* beta,
                                  trace, stream);
 }
 
+// side: kRightSide (0), kLeftSide (1) or kLocalSide (2); out (C, 12 + P)
+// uint8, (C, 20 + P) for the local side.
 extern "C" int gsw_walk_pack_launch(const void* trace, const void* values,
                                     const void* diags, const void* n_vec,
-                                    const void* m_vec, int left, int C,
+                                    const void* m_vec, int side, int C,
                                     int S, int D, void* out, void* stream) {
   const int P = (D + 3) / 4;
   const int blocks = (C + kWalkWarps - 1) / kWalkWarps;
-  auto kernel = left ? &gsw_walk_pack_kernel<true> : &gsw_walk_pack_kernel<false>;
+  auto kernel = side == kLeftSide    ? &gsw_walk_pack_kernel<kLeftSide>
+                : side == kLocalSide ? &gsw_walk_pack_kernel<kLocalSide>
+                : side == kRightSide ? &gsw_walk_pack_kernel<kRightSide>
+                                     : nullptr;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   kernel<<<blocks, 32 * kWalkWarps, 0, (cudaStream_t)stream>>>(
       (const int8_t*)trace, (const int32_t*)values, (const int32_t*)diags,
       (const int32_t*)n_vec, (const int32_t*)m_vec, C, S, D, P,

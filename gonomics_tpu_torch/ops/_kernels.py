@@ -36,9 +36,9 @@ _int = ctypes.c_int
 _SIGNATURES = {
     "banded": {
         "banded_built": [_vp],
-        "banded_shape": [_int, _int, _int, _int, _int, _vp],
+        "banded_shape": [_int, _int, _int, _int, _int, _int, _vp],
         "banded_dp_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
-                             _int, _int, _vp, _vp, _vp, _vp],
+                             _int, _int, _int, _vp, _vp, _vp, _vp],
         "banded_fused_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                                 _int, _int, _int, _int, _int, _vp, _vp, _vp,
                                 _vp, _vp, _vp, _vp],

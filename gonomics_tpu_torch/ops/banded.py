@@ -19,7 +19,10 @@ version beside it:
 ``banded_align_full`` on CUDA tensors takes the fused kernel wherever
 ``banded_plan`` finds that a block's traces fit its shared memory (a
 choice by read length), else ``banded_dp``, ``best_cell`` and
-``banded_walk_pack``. A wrapper given CPU tensors runs the plain version;
+``banded_walk_pack``. ``banded_dp`` stages its codes in shared memory
+wherever one read's read and window fit there, and past that (reads above
+about 116 kbp on an H100) reads them from device memory (``banded_plan``'s
+``codes``). A wrapper given CPU tensors runs the plain version;
 given CUDA tensors it launches its kernel, counts the launch in
 ``dp_launches``, ``fused_launches`` or ``walk_launches``, and raises if
 the launch fails. It never falls back.
@@ -86,11 +89,14 @@ def _staged_pitch(cols: int) -> int:
     return _round_up(cols, 128) + 64
 
 
-def smem_bytes(R: int, WB: int, L: int, fused: bool) -> int:
+def smem_bytes(R: int, WB: int, L: int, fused: bool,
+               codes: str = "staged") -> int:
     """``banded_smem`` of banded.cu: the dynamic shared memory of a block
     of WB warps at R lanes a thread for reads of L, the staged read and
     window codes of its WB R / 2 reads and, fused, their traces at 16
-    bytes a row."""
+    bytes a row; 0 where the codes stay in device memory ("global")."""
+    if codes == "global":
+        return 0
     return WB * R // 2 * (_staged_pitch(L) + _staged_pitch(L + BW)
                           + (16 * L if fused else 0))
 
@@ -99,24 +105,30 @@ def _banded_built(dev: torch.device) -> dict:
     """What banded_dp's kernel is built for, as its library reports it on
     the card ``dev``: the most warps a block, the most dynamic shared
     memory a block can take, the lanes a thread (rising), and for each the
-    registers and spilled bytes a thread of the trace mode and of the
-    fused mode. The first call on a card also lets the kernel take that
-    shared memory there."""
+    registers and spilled bytes a thread of the trace mode, of the fused
+    mode and of the trace mode with its codes in device memory. The first
+    call on a card also lets the kernel take that shared memory there."""
     key = ("built", dev.index)
     if key not in _configs:
         out = (ctypes.c_int * 32)()
         with torch.cuda.device(dev):
             _kernels.check(_kernels.lib("banded").banded_built(
                 ctypes.addressof(out)), "banded_dp")
-        lanes = tuple(out[3 + 5 * k] for k in range(out[2]))
+        e = [out[3 + 7 * k:10 + 7 * k] for k in range(out[2])]
+        lanes = tuple(x[0] for x in e)
         _configs[key] = {
             "max_warps": out[0], "smem_limit": out[1],
             "lanes_per_thread": lanes,
-            "registers": {R: (out[4 + 5 * k], out[6 + 5 * k])
-                          for k, R in enumerate(lanes)},
-            "spill_bytes": {R: (out[5 + 5 * k], out[7 + 5 * k])
-                            for k, R in enumerate(lanes)}}
+            "registers": {x[0]: tuple(x[1::2]) for x in e},
+            "spill_bytes": {x[0]: tuple(x[2::2]) for x in e}}
     return _configs[key]
+
+
+def _variant(plan: dict) -> int:
+    """The index of a plan's kernel in ``_banded_built``'s registers and
+    spills: 0 the trace mode, 1 the fused mode, 2 the trace mode with its
+    codes in device memory."""
+    return 1 if plan["mode"] == "fused" else 2 * (plan["codes"] == "global")
 
 
 def _block(R: int, WB: int) -> dict:
@@ -133,79 +145,96 @@ def _lanes(B: int, mode: str, built: dict) -> int:
     """The lanes a thread banded_plan takes for B reads in ``mode``: the
     mode's BANDED_LANES_PER_THREAD where the reads give BANDED_FILL_WARPS
     warps at it, else half that; the nearest count whose kernels spill
-    nothing where that one spills."""
+    nothing where that one spills (in its staged trace or fused mode)."""
     most = BANDED_LANES_PER_THREAD[mode]
     want = most if _warps(B, most) >= BANDED_FILL_WARPS else most // 2
     lanes = built["lanes_per_thread"]
-    clean = [r for r in lanes if not any(built["spill_bytes"][r])] or lanes
+    clean = ([r for r in lanes if not any(built["spill_bytes"][r][:2])]
+             or lanes)
     return min(clean, key=lambda r: (abs(r - want), r))
 
 
+def _plan(B: int, L: int, mode: str, codes: str, R: int, WB: int) -> dict:
+    block = _block(R, WB)
+    return {"mode": mode, "codes": codes, **block,
+            "blocks": -(-B // block["reads_per_block"]),
+            "smem_bytes": smem_bytes(R, WB, L, mode == "fused", codes)}
+
+
 def banded_plan(B: int, L: int, built: dict, mode: str | None = None,
-                R: int | None = None, WB: int | None = None) -> dict:
+                R: int | None = None, WB: int | None = None,
+                codes: str | None = None) -> dict:
     """How banded_dp's kernel runs B reads of L, chosen by shape alone
     from what it is ``built`` for (``_banded_built``): the mode, "fused"
     where a block holds its reads' traces in shared memory, else "dp",
     the trace mode (``mode`` forces one); R lanes a thread (forced, or
-    ``_lanes``); and WB warps a block (forced, or BANDED_WARPS where the
-    reads give BANDED_FILL_WARPS warps, else 4; no more than the reads
-    need, or the most below that whose shared memory fits). Raises where
-    the plan does not fit: a block stages its reads and windows whole, so
-    reads longer than about half the card's shared memory a block (some
-    116 kbp on an H100) do not fit at all."""
+    ``_lanes``); WB warps a block (forced, or BANDED_WARPS where the reads
+    give BANDED_FILL_WARPS warps, else 4; no more than the reads need, or
+    the most below that whose shared memory fits); and where the codes
+    are, "staged" in shared memory, or "global", read from device memory,
+    which only the trace mode takes, and only where its staged codes do
+    not fit at one warp a block (reads longer than about half the card's
+    shared memory a block, some 116 kbp on an H100); ``codes`` forces
+    one. Raises where a forced choice does not fit."""
     lanes = built["lanes_per_thread"]
     if R is not None and R not in lanes:
         raise ValueError(f"banded_dp is not built for {R} lanes a thread")
     if WB is not None and not 1 <= WB <= built["max_warps"]:
         raise ValueError(f"banded_dp takes 1-{built['max_warps']} warps a "
                          "block")
-    for m in ((mode,) if mode else ("fused", "dp")):
+    if codes not in (None, "staged", "global"):
+        raise ValueError(f"unknown codes {codes!r}")
+    if codes == "global" and mode == "fused":
+        raise ValueError("the fused mode stages its codes")
+    limit = built["smem_limit"]
+    modes = ("dp",) if codes == "global" else ("fused", "dp")
+    for m in ((mode,) if mode else modes):
         r = R or _lanes(B, m, built)
         warps = _warps(B, r)
         most = WB or max(1, min(BANDED_WARPS if warps >= BANDED_FILL_WARPS
                                 else 4, built["max_warps"], warps))
+        if codes == "global" or (
+                m == "dp" and codes is None
+                and smem_bytes(r, 1, L, False) > limit):
+            return _plan(B, L, "dp", "global", r, most)
         fit = [w for w in range(most, 0 if WB is None else most - 1, -1)
-               if smem_bytes(r, w, L, m == "fused") <= built["smem_limit"]]
+               if smem_bytes(r, w, L, m == "fused") <= limit]
         if fit:
-            block = _block(r, fit[0])
-            return {"mode": m, **block,
-                    "blocks": -(-B // block["reads_per_block"]),
-                    "smem_bytes": smem_bytes(r, fit[0], L, m == "fused")}
+            return _plan(B, L, m, "staged", r, fit[0])
     raise ValueError(
         f"reads of {L} bp do not fit banded_dp's shared memory "
-        f"({built['smem_limit']} bytes a block) in this plan: a block "
-        "stages its reads and windows whole, about 2 L bytes a read, so "
-        f"reads above about {built['smem_limit'] // 2} bp cannot be "
-        "aligned on the card")
+        f"({limit} bytes a block) in this plan")
 
 
 def banded_launch_plan(B: int, L: int, mode: str | None = None,
                        R: int | None = None, WB: int | None = None,
-                       dev: torch.device | None = None) -> dict:
+                       dev: torch.device | None = None,
+                       codes: str | None = None) -> dict:
     """``banded_plan`` for B reads of L on the card ``dev`` (or the forced
-    mode, lanes a thread R and warps a block WB) with the launch the
-    card's library makes of it: a block's threads, the blocks, its shared
-    memory (all, and the dynamic part), the blocks an SM holds, and a
-    thread's registers and spilled bytes. For reports and tests; a launch
-    takes ``banded_plan`` alone."""
+    mode, lanes a thread R, warps a block WB and codes) with the launch
+    the card's library makes of it: a block's threads, the blocks, its
+    shared memory (all, and the dynamic part), the blocks an SM holds, and
+    a thread's registers and spilled bytes. For reports and tests; a
+    launch takes ``banded_plan`` alone."""
     if dev is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     built = _banded_built(dev)
-    plan = banded_plan(B, L, built, mode, R, WB)
+    plan = banded_plan(B, L, built, mode, R, WB, codes)
     R = plan["lanes_per_thread"]
-    fused = plan["mode"] == "fused"
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(dev):
         _kernels.check(_kernels.lib("banded").banded_shape(
-            B, L, R, plan["warps_per_block"], int(fused),
-            ctypes.addressof(out)), "banded_dp")
+            B, L, R, plan["warps_per_block"], int(plan["mode"] == "fused"),
+            int(plan["codes"] == "global"), ctypes.addressof(out)),
+            "banded_dp")
     if out[3] != plan["smem_bytes"]:
         raise RuntimeError("banded_dp: the library's shared memory "
                            f"{out[3]} is not the plan's")
+    v = _variant(plan)
     return {**plan, "threads": out[0], "launch_blocks": out[1],
             "smem_bytes_per_block": out[2], "blocks_per_sm": out[4],
-            "registers": built["registers"][R][fused],
-            "spill_bytes": built["spill_bytes"][R][fused]}
+            "registers": built["registers"][R][v],
+            "spill_bytes": built["spill_bytes"][R][v]}
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -315,6 +344,7 @@ def _banded_launch(plan: dict, reads, windows, n_vec, m_vec, scores,
         else:
             rc = lib.banded_dp_launch(
                 *(a.data_ptr() for a in args), int(gap), B, L, W, *shape,
+                int(plan["codes"] == "global"),
                 *(o.data_ptr() for o in outs), stream)
     _kernels.check(rc, "banded_align_fused" if fused else "banded_dp")
     if fused:
@@ -332,7 +362,7 @@ def _check_window(windows) -> None:
 def banded_dp(reads, windows, n_vec, m_vec, scores, gap: int):
     """Banded DP (see ``banded_dp_reference``): the plain version for CPU
     tensors, the CUDA kernel in its trace mode for CUDA tensors, with
-    ``banded_plan``'s lanes a thread and warps a block."""
+    ``banded_plan``'s lanes a thread, warps a block and codes."""
     _check_window(windows)
     dev = reads.device
     if dev.type == "cpu":

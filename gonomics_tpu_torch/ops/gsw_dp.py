@@ -11,7 +11,9 @@ replaces the jnp glue ``_left_full`` / ``_right_full``, ``_walk_left`` /
 ``_walk_right`` and ``_pack_result``, gsw_dp.py:30-157). Its plain
 PyTorch version is ``gsw_walk_pack_reference``; the wrapper takes it for
 CPU tensors and launches the kernel, counted in ``walk_launches``, for
-CUDA tensors.
+CUDA tensors. Its third side, "local", is the walk of the read aligner's
+mesh path (``ops.wavefront.local_align_full``: the jnp glue of
+wavefront.py:661-696), counted in ``local_walk_launches``.
 
 A wave's result keeps the layout of ``_both_full`` (:160-184): one uint8
 row per job, a 12-byte little-endian meta (score, i, j) and then the
@@ -39,6 +41,8 @@ from .banded import unpack_ops
 from .wavefront import gsw_right_wavefront, local_wavefront
 
 walk_launches = 0
+local_walk_launches = 0
+SIDES = {"right": 0, "left": 1, "local": 2}  # as gsw_walk_pack_launch's
 
 
 def _round_up(x: int, m: int) -> int:
@@ -48,10 +52,12 @@ def _round_up(x: int, m: int) -> int:
 def _walk_start(side: str, values, diags, n_vec, m_vec, C: int, S: int):
     """Where one side's walks start: score, i, j (int64) and whether each
     walk is live. Left (``_left_full``): score = corner at lane n_b, the
-    walk from (n_b, m_b) while the score is > 0. Right (``_right_full``):
-    the first lane of the maximal bv, j = bd - i there; a max <= 0 gives
-    (0, 0) and score 0."""
-    if side not in ("left", "right"):
+    walk from (n_b, m_b) while the score is > 0. Right (``_right_full``)
+    and local (``local_align_full``): the first lane of the maximal bv, j
+    = bd - i there; a max <= 0 gives (0, 0) and score 0. (The local
+    side's bv is >= 0, so its max <= 0 is jnp.argmax's lane 0, whose bd is
+    0.)"""
+    if side not in SIDES:
         raise ValueError(f"unknown walk side {side!r}")
     dev = values.device
     if side == "left":
@@ -72,18 +78,19 @@ def _walk_step(side: str, trace, i, j, act):
     """One step of every walk: the cells read (the jobs that read one, at
     (i, j) before the step), the op taken (code 4 once inactive) and the
     next i, j and liveness. Cell (i, j) lies on row clamp(i + j - 1, 0, D
-    - 1) at lane clamp(i, 0, S - 1). Left: a walk reads while live with i
-    and j > 0, and a code 3 ends it; right: while i or j is > 0, with i and
-    j clamped at 0."""
+    - 1) at lane clamp(i, 0, S - 1). Left and local: a walk reads while
+    live with i and j > 0, and a code 3 ends it; right: while i or j is >
+    0, with i and j clamped at 0."""
     D, C, S = trace.shape
     bidx = torch.arange(C, device=trace.device)
-    if side == "left":
+    stops = side != "right"
+    if stops:
         reads = act & (i > 0) & (j > 0)
     else:
         reads = (i > 0) | (j > 0)
     t_raw = trace[(i + j - 1).clamp(0, D - 1), bidx,
                   i.clamp(0, S - 1)].to(torch.int64)
-    if side == "left":
+    if stops:
         act = reads & (t_raw != 3)
         t_eff = torch.where(act, t_raw, 4)
     else:
@@ -108,8 +115,12 @@ def gsw_walk_pack_reference(side: str, trace, values, diags=None,
     bd (C, S); the end is the first lane of the maximal bv (a max <= 0
     gives (0, 0) and score 0), j = bd - i there, and the walk goes to the
     origin with i and j clamped at 0; the meta is (score, i, j) of the
-    end. Both run D steps, code 4 once inactive. Returns (C, 12 + P)
-    uint8 rows, P = ceil(D / 4)."""
+    end. side "local" (``local_align_full``, wavefront.py:661-696):
+    values, diags are K4's bv, bd; the right side's end, the left side's
+    walk while the score is > 0; the meta is (score, i_end, j_end, i0,
+    j0), the end and where the walk stopped. All run D steps, code 4 once
+    inactive. Returns (C, 12 + P) uint8 rows, (C, 20 + P) for the local
+    side, P = ceil(D / 4)."""
     D, C, S = trace.shape
     dev = trace.device
     score, i, j, act = _walk_start(side, values, diags, n_vec, m_vec, C, S)
@@ -118,9 +129,9 @@ def gsw_walk_pack_reference(side: str, trace, values, diags=None,
     ops = torch.full((C, 4 * P), 3, dtype=torch.int64, device=dev)
     for step in range(D):
         _, ops[:, step], i, j, act = _walk_step(side, trace, i, j, act)
-    if side == "right":
-        i, j = start
-    meta = torch.stack([score.to(torch.int64), i, j], dim=1).to(torch.int32)
+    fields = {"left": (i, j), "right": start, "local": (*start, i, j)}[side]
+    meta = torch.stack([score.to(torch.int64), *fields],
+                       dim=1).to(torch.int32)
     weights = torch.tensor([1, 4, 16, 64], dtype=torch.int64, device=dev)
     packed = (ops.clamp(max=3).reshape(C, P, 4) * weights).sum(-1)
     return torch.cat([meta.contiguous().view(torch.uint8),
@@ -161,9 +172,12 @@ def gsw_walk_pack(side: str, trace, values, diags=None, n_vec=None,
                   m_vec=None):
     """Walk and packing of one side's DP results (see
     ``gsw_walk_pack_reference``): the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors."""
-    global walk_launches
-    if side not in ("left", "right"):
+    CUDA kernel for CUDA tensors. The kernel's tile loads read whole
+    aligned 16-byte words around the trace's rows, so ``trace`` must be
+    its own allocation (as the DP wrappers return it), not a view into a
+    larger one."""
+    global walk_launches, local_walk_launches
+    if side not in SIDES:
         raise ValueError(f"unknown walk side {side!r}")
     D, C, S = trace.shape
     dev = trace.device
@@ -179,7 +193,8 @@ def gsw_walk_pack(side: str, trace, values, diags=None, n_vec=None,
     else:
         diags = expect(diags, torch.int32, (C, S), "diags", dev)
     P = -(-D // 4)
-    out = torch.empty((C, 12 + P), dtype=torch.uint8, device=dev)
+    meta = 20 if side == "local" else 12
+    out = torch.empty((C, meta + P), dtype=torch.uint8, device=dev)
     if C == 0:
         return out
     lib = _kernels.lib("gsw_dp")
@@ -189,10 +204,13 @@ def gsw_walk_pack(side: str, trace, values, diags=None, n_vec=None,
             trace.data_ptr(), values.data_ptr(),
             None if left else diags.data_ptr(),
             n_vec.data_ptr() if left else None,
-            m_vec.data_ptr() if left else None, int(left), C, S, D,
+            m_vec.data_ptr() if left else None, SIDES[side], C, S, D,
             out.data_ptr(), stream)
     _kernels.check(rc, "gsw_walk_pack")
-    walk_launches += 1
+    if side == "local":
+        local_walk_launches += 1
+    else:
+        walk_launches += 1
     return out
 
 

@@ -17,6 +17,8 @@ Nine kernels, each with its plain PyTorch version beside it:
 - ``local_wavefront`` (CUDA ``csrc/gsw_dp.cu``, one warp a job, or one
   block a job past the warp's reach, see ``graph_dp_design``) replaces
   ``_local_kernel`` (:179, ``pallas_call`` :451 in ``wavefront_local``);
+  ``local_align_full`` (:649, the read aligner's mesh path) runs it and
+  the local side of ``ops.gsw_dp.gsw_walk_pack``;
 - ``gsw_right_wavefront`` (same file) replaces ``_gsw_right_kernel``
   (:289, ``pallas_call`` :368 in ``wavefront_gsw_right``);
 - ``affine_fwd_block`` (``csrc/wavefront.cu``, one thread-block cluster
@@ -526,6 +528,51 @@ def gsw_right_wavefront(alpha, beta, n_vec, m_vec, scores, gap: int):
     plan = graph_dp_design(args[0].shape[1], args[1].shape[1], "gsw_right",
                            _graph_built())
     return _graph_launch("gsw_right", *args, gap, False, plan)
+
+
+def _split_local_rows(rows: torch.Tensor):
+    """(score, i_end, j_end, i0, j0, packed) of the local walk's (B, 20 +
+    P) rows: five (B,) int32 from the little-endian meta and the packed
+    ops (B, P) uint8."""
+    meta = torch.empty((rows.shape[0], 20), dtype=torch.uint8,
+                       device=rows.device)
+    meta.copy_(rows[:, :20])  # a fresh row-major copy, also for B = 0
+    return (*meta.view(torch.int32).T.contiguous(),
+            rows[:, 20:].contiguous())
+
+
+def local_align_full_reference(alpha, beta, n_vec, m_vec, scores, gap: int):
+    """Plain ``local_align_full``: ``local_wavefront_reference`` and the
+    local side of ``gsw_walk_pack_reference``."""
+    from .gsw_dp import gsw_walk_pack_reference  # gsw_dp imports this module
+
+    bv, bd, trace = local_wavefront_reference(alpha, beta, n_vec, m_vec,
+                                              scores, gap)
+    return _split_local_rows(gsw_walk_pack_reference("local", trace, bv, bd))
+
+
+def local_align_full(alpha, beta, n_vec, m_vec, scores, gap: int):
+    """Batched local alignment with its traceback on the device, the
+    contract of ``local_align_full`` (wavefront.py:649-697), the read
+    aligner's mesh path: K4 over each pair's whole grid (alpha (B, n) the
+    reads, beta (B, m) the windows, n_vec / m_vec (B,) their lengths);
+    score = the max of bv over the lanes, its first lane s* (jnp.argmax),
+    i_end = s*, j_end = bd[s*] - s*; then a walk of D = n + m steps from
+    (i_end, j_end) while score > 0, stopping on code 3 or at i = 0 or j =
+    0, ops 0 M, 1 left (j - 1), 2 up (i - 1), 4 once inactive, packed as
+    min(op, 3) four to a byte, low bits first, padded with 3. Returns
+    score, i_end, j_end, i0, j0 (B,) int32 and packed (B, ceil(D / 4))
+    uint8. Runs where ``alpha`` lies: the plain version on the CPU; on the
+    card ``local_wavefront`` and the local side of ``gsw_walk_pack``, two
+    launches, the trace ((n + m) (n + 1) bytes a pair) never leaving the
+    card."""
+    if alpha.device.type == "cpu":
+        return local_align_full_reference(alpha, beta, n_vec, m_vec, scores,
+                                          gap)
+    from .gsw_dp import gsw_walk_pack  # gsw_dp imports this module
+
+    bv, bd, trace = local_wavefront(alpha, beta, n_vec, m_vec, scores, gap)
+    return _split_local_rows(gsw_walk_pack("local", trace, bv, bd))
 
 
 def _graph_launch(mode: str, alpha, beta, n_vec, m_vec, sc, gap: int,

@@ -15,11 +15,18 @@ The counterpart of ``TpuReadAligner`` (``gonomics_tpu/tpu_align.py``):
       then ``best_cell`` and ``banded_walk_pack``); one uint8 array per
       batch (20 bytes of meta + packed ops) comes back to pinned host
       memory.
+    - with a mesh (``parallel.make_mesh``), as the JAX aligner's mesh
+      path: the batch split over the mesh's "data" axis, each slice
+      through ``ops.wavefront.local_align_full`` (K4 over each read's
+      whole (L, L + 2 pad) grid, then the best cell, the walk and the
+      packing; a trace of (2 L + 2 pad)(L + 1) bytes a read on the card)
+      on its own device, the results gathered in batch order
+      (``parallel.shard_local_align``).
   host:
     - cigars, soft clips and SAM text; MapQ from the vote margin.
 
-The data-parallel mesh and the prefix-sharded index of the JAX aligner
-are not ported yet (ROADMAP queue 1, item 7).
+The prefix-sharded index of the JAX aligner is not ported yet (ROADMAP
+queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from .io.cigar import CigarOp
 from .io.fasta import Fasta
 from .io.fastq import Fastq, qual_string
 from .ops.banded import banded_align_full, unpack_ops, walk_length
+from .parallel import normal_device, shard_local_align
 
 _NOT_PORTED = ("not ported to the PyTorch package yet "
                "(ROADMAP queue 1, item 7: multi-device paths)")
@@ -137,9 +145,18 @@ class ReadAligner:
 
         device: where the banded DP runs; None means the card, and the
         CPU (the kernels' plain versions) only when "cpu" is passed.
+        mesh: a ``parallel.Mesh``; when given, the device step runs
+        data-parallel over its "data" axis (``shard_local_align``), and
+        the aligner's device is the mesh's first (a ``device`` that
+        differs raises ValueError). Outputs stay in batch order, so the
+        SAM is the same for any mesh.
         _index: a prebuilt (codes, pos) table from from_state()/load()."""
         if mesh is not None:
-            raise NotImplementedError(f"mesh: {_NOT_PORTED}")
+            first = mesh.devices[0][0]
+            if device is not None and normal_device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {first}")
+            device = first
         if index_sharding == "prefix":
             raise NotImplementedError(f"index_sharding='prefix': {_NOT_PORTED}")
         if index_sharding != "replicated":
@@ -147,6 +164,8 @@ class ReadAligner:
         if index_mode not in ("dense", "sparse"):
             raise ValueError(f"unknown index_mode: {index_mode}")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._sharded_fns: dict = {}  # (L, W) -> shard_local_align's
         self.k = seed_len
         self.read_kmers = read_kmers
         self.max_hits = max_hits_per_kmer
@@ -417,12 +436,28 @@ class ReadAligner:
         windows = self.genome[starts[:, None] + np.arange(W)]
         res = self._device_result(read_seqs, windows, lens.astype(np.int32),
                                   np.full(B, W, np.int32))
-        return reads, cand, starts, lens, read_seqs, res, walk_length(L)
+        # the mesh path walks the whole (L, W) grid
+        walk_d = walk_length(L) if self.mesh is None else L + W
+        return reads, cand, starts, lens, read_seqs, res, walk_d
+
+    def _align_full(self, L: int, W: int):
+        """The device step for reads of L in windows of W: the banded
+        ``banded_align_full``, or with a mesh its ``shard_local_align``
+        (made once a shape, as the JAX aligner caches it)."""
+        if self.mesh is None:
+            return lambda *args: banded_align_full(*args, self._scores_dev,
+                                                   self.gap)
+        fn = self._sharded_fns.get((L, W))
+        if fn is None:
+            fn = shard_local_align(self.mesh, self.scores, n=L, m=W,
+                                   gap=self.gap)
+            self._sharded_fns[(L, W)] = fn
+        return fn
 
     def _device_result(self, read_seqs, windows, n_vec, m_vec) -> DeviceResult:
-        """Upload one batch, run the banded DP and its walk, and pack
-        score, i_end, j_end, i0, j0 (little-endian int32) and the packed
-        ops into one (B, 20 + P) uint8 array, as ``_banded_driver``
+        """Upload one batch, run the device step (``_align_full``) and
+        pack score, i_end, j_end, i0, j0 (little-endian int32) and the
+        packed ops into one (B, 20 + P) uint8 array, as ``_banded_driver``
         (tpu_align.py:595-631) does."""
         dev = self.device
         on_card = dev.type == "cuda"
@@ -431,9 +466,9 @@ class ReadAligner:
             t = torch.from_numpy(np.ascontiguousarray(x))
             return t.pin_memory().to(dev, non_blocking=True) if on_card else t
 
-        score, i_end, j_end, i0, j0, packed = banded_align_full(
-            up(read_seqs), up(windows), up(n_vec), up(m_vec),
-            self._scores_dev, self.gap)
+        align = self._align_full(read_seqs.shape[1], windows.shape[1])
+        score, i_end, j_end, i0, j0, packed = align(
+            up(read_seqs), up(windows), up(n_vec), up(m_vec))
         meta8 = torch.stack([score, i_end, j_end, i0, j0], dim=1).view(
             torch.uint8)  # (B, 5) int32 -> (B, 20) little-endian bytes
         return DeviceResult(torch.cat([meta8, packed], dim=1))

@@ -124,30 +124,37 @@ class _Lanes:
 
 
 def emulate(reads, wins, n_vec, m_vec, scores, gap: int, R: int, WB: int,
-            fused: bool, seed: int):
+            fused: bool, seed: int, codes: str = "staged"):
     """The kernel's launch at R lanes a thread and WB warps a block: the
     trace mode's (bv, bi, trace) or the fused mode's (score, i_end, j_end,
-    i0, j0, packed)."""
+    i0, j0, packed). codes "global": the trace mode's variant that reads
+    its codes from device memory, a thread's window codes shifted down a
+    lane a row and one column loaded."""
     rng = np.random.default_rng(seed)
     B, L = reads.shape
     W = wins.shape[1]
     G, RW = BW // R, R // 2
     RB, T = WB * RW, 32 * WB
     NB = -(-B // RB)
+    glob = codes == "global"
+    assert not (glob and fused)
     pr, pw = banded._staged_pitch(L), banded._staged_pitch(L + BW)
-    size = banded.smem_bytes(R, WB, L, fused)
-    assert size == RB * (pr + pw + (16 * L if fused else 0))
+    size = banded.smem_bytes(R, WB, L, fused, codes)
+    assert size == (0 if glob else RB * (pr + pw + (16 * L if fused else 0)))
     smem = rng.integers(0, 256, (NB, size)).astype(np.int64)
     writes = np.zeros((NB, size), np.int64)
-    for blk in range(NB):
-        _stage(reads, B, L, blk * RB, RB, smem[blk], writes[blk], 0, pr, L)
-        _stage(wins, B, W, blk * RB, RB, smem[blk], writes[blk], RB * pr, pw,
-               L + BW)
-    staged = np.zeros(size, bool)
-    rr = np.arange(RB)[:, None]
-    staged[(rr * pr + np.arange(L)).reshape(-1)] = True
-    staged[(RB * pr + rr * pw + np.arange(L + BW)).reshape(-1)] = True
-    assert (writes[:, staged] == 1).all() and (writes[:, ~staged] == 0).all()
+    if not glob:
+        for blk in range(NB):
+            _stage(reads, B, L, blk * RB, RB, smem[blk], writes[blk], 0, pr,
+                   L)
+            _stage(wins, B, W, blk * RB, RB, smem[blk], writes[blk],
+                   RB * pr, pw, L + BW)
+        staged = np.zeros(size, bool)
+        rr = np.arange(RB)[:, None]
+        staged[(rr * pr + np.arange(L)).reshape(-1)] = True
+        staged[(RB * pr + rr * pw + np.arange(L + BW)).reshape(-1)] = True
+        assert ((writes[:, staged] == 1).all()
+                and (writes[:, ~staged] == 0).all())
     sc = np.asarray(scores, np.int64).reshape(-1)
 
     lanes = _Lanes(T, G)
@@ -166,20 +173,36 @@ def emulate(reads, wins, n_vec, m_vec, scores, gap: int, R: int, WB: int,
         assert (writes[np.broadcast_to(blk, addr.shape), addr] >= 1).all()
         return smem[np.broadcast_to(blk, addr.shape), addr]
 
+    def global_code(g, S: int, q):
+        """global_code: column q of row b of g (B, S), clipped; 4 at
+        columns >= S and for reads past B."""
+        q = q + 0 * b
+        assert (q >= 0).all()
+        load = live & (q < S)
+        v = g[bc, np.minimum(q, S - 1)].astype(np.int64)
+        return np.where(load, np.clip(v, 0, 4), 4)
+
     gc = [_wrap(gap * (t * R + k)) + 0 * b for k in range(R)]
     p = [np.zeros((NB, T), np.int64) for _ in range(R)]
     bv = [np.zeros((NB, T), np.int64) for _ in range(R)]
     bi = [np.zeros((NB, T), np.int64) for _ in range(R)]
     trace = _Buffer(L * B * BW, rng) if not fused else None
+    wv = [global_code(wins, W, t * R + k - 1) if k else 4 + 0 * b
+          for k in range(R)] if glob else None
     for i in range(1, L + 1):
         lim = np.where(i <= n, m, 0) - i - t * R
-        rc = lds(r * pr + i - 1 + 0 * b)
+        if glob:
+            wv = wv[1:] + [global_code(wins, W, i - 1 + t * R + R - 1)]
+            rc = global_code(reads, L, i - 1 + 0 * t)
+        else:
+            rc = lds(r * pr + i - 1 + 0 * b)
         nxt = lanes.down(p[0], 1)
         nxt = np.where(t == G - 1, 0, nxt)
         s = np.full((NB, T), NEG_HALF, np.int64)
         diag, pre = [], []
         for k in range(R):
-            w = lds(RB * pr + r * pw + t * R + i - 1 + k + 0 * b)
+            w = (wv[k] if glob else
+                 lds(RB * pr + r * pw + t * R + i - 1 + k + 0 * b))
             diag.append(_wrap(p[k] + sc[5 * rc + w]))
             up = p[k + 1] if k + 1 < R else nxt
             base = np.where(k <= lim, np.maximum(_wrap(up + gap), diag[k]),
@@ -361,6 +384,23 @@ def test_fused_mode_emulation(B, L, W, R):
         np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
 
 
+@pytest.mark.parametrize("R", (2, 4, 8))
+@pytest.mark.parametrize("B,L,W", [(1, 40, 64), (3, 150, 198), (37, 81, 64),
+                                   (37, 81, 129)])
+def test_global_codes_emulation(B, L, W, R):
+    # the trace mode's variant for reads whose codes do not fit shared
+    # memory: windows shorter than L + 64 (columns past W read N), short
+    # reads and windows, reads past B in the last warp
+    seed, scores, gap, _, args = _case(B, L, W, R)
+    WB = banded.banded_plan(B, L, BUILT, "dp", R=R,
+                            codes="global")["warps_per_block"]
+    got = emulate(*args, scores, gap, R, WB, False, seed, codes="global")
+    want = banded.banded_dp_reference(*(torch.from_numpy(a) for a in args),
+                                      scores, gap)
+    for name, g, w in zip(("bv", "bi", "trace"), got, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+
+
 @pytest.mark.parametrize("WB", (1, 3, 8))
 def test_emulation_at_forced_warps(WB):
     # blocks of other sizes: partial last blocks and warps past B
@@ -417,19 +457,25 @@ def test_fused_equals_trace_mode_path():
     (4096, 2000, {"mode": "fused", "lanes_per_thread": 8,
                   "warps_per_block": 1, "reads_per_block": 4}),
     (3, 13000, {"mode": "dp", "lanes_per_thread": 2, "warps_per_block": 3}),
+    # past a block's shared memory at one warp: the codes in device memory
+    (1, 120_000, {"mode": "dp", "codes": "global", "lanes_per_thread": 2,
+                  "warps_per_block": 1, "blocks": 1, "smem_bytes": 0}),
+    (4096, 120_000, {"mode": "dp", "codes": "global", "lanes_per_thread": 4,
+                     "warps_per_block": 8, "blocks": 256}),
 ])
 def test_banded_plan(B, L, want):
     plan = banded.banded_plan(B, L, BUILT)
     assert {k: plan[k] for k in want} == want
+    assert plan["codes"] == ("global" if L > 116_000 else "staged")
     assert plan["smem_bytes"] == banded.smem_bytes(
         plan["lanes_per_thread"], plan["warps_per_block"], L,
-        plan["mode"] == "fused") <= BUILT["smem_limit"]
+        plan["mode"] == "fused", plan["codes"]) <= BUILT["smem_limit"]
 
 
 def test_banded_plan_choices():
     # the trace mode's own lanes a thread; a spilling kernel is not
     # chosen; a mode and R can be forced; reads too long for one warp's
-    # staged codes raise
+    # staged codes read them from device memory in the trace mode
     dp = banded.banded_plan(4096, 150, BUILT, "dp")
     assert (dp["mode"], dp["lanes_per_thread"], dp["warps_per_block"],
             dp["smem_bytes"]) == ("dp", 4, 8, 16 * (320 + 320))
@@ -438,12 +484,28 @@ def test_banded_plan_choices():
     assert banded.banded_plan(4096, 150, BUILT, R=2)["reads_per_block"] == 8
     with pytest.raises(ValueError):
         banded.banded_plan(4096, 150, BUILT, R=16)
+    far = banded.banded_plan(1, 200_000, BUILT)
+    assert (far["mode"], far["codes"], far["lanes_per_thread"],
+            far["warps_per_block"], far["smem_bytes"]) == ("dp", "global", 2,
+                                                           1, 0)
     with pytest.raises(ValueError):
-        banded.banded_plan(1, 200_000, BUILT)
+        banded.banded_plan(1, 200_000, BUILT, "fused")
     with pytest.raises(ValueError):
         banded.banded_plan(3, 13000, BUILT, "fused")
     # the longest reads the trace mode stages: one a block at 2 lanes
-    assert banded.banded_plan(1, 116_000, BUILT)["mode"] == "dp"
+    near = banded.banded_plan(1, 116_000, BUILT)
+    assert (near["mode"], near["codes"]) == ("dp", "staged")
+    assert banded.banded_plan(1, 116_100, BUILT)["codes"] == "global"
+    # the global codes can be forced, in the trace mode only
+    forced = banded.banded_plan(4096, 150, BUILT, codes="global")
+    assert (forced["mode"], forced["lanes_per_thread"],
+            forced["warps_per_block"], forced["smem_bytes"]) == ("dp", 4, 8, 0)
+    assert banded.banded_plan(64, 13000, BUILT, "dp", R=8, WB=8,
+                              codes="global")["blocks"] == 2
+    with pytest.raises(ValueError):
+        banded.banded_plan(4096, 150, BUILT, "fused", codes="global")
+    with pytest.raises(ValueError):
+        banded.banded_plan(4096, 150, BUILT, codes="shared")
     # warps a block can be forced, and raise where they do not fit
     forced = banded.banded_plan(4096, 150, BUILT, "fused", R=2, WB=3)
     assert (forced["warps_per_block"], forced["reads_per_block"],

@@ -198,6 +198,40 @@ def test_long_reads_take_two_kernels(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R", (2, 4, 8))
+@pytest.mark.parametrize("B,L,W,scoring", [
+    (4096, 150, 198, "humanChimp"), (1, 40, 64, "plusMinusOne"),
+    (3, 150, 64, "humanChimp"), (37, 81, 129, "plusMinusOne"),
+    (5, 3000, 3048, "humanChimp")])
+def test_banded_global_codes_equal_plain(card, R, B, L, W, scoring):
+    """The trace mode's global-codes variant (the plan of reads whose
+    staged codes do not fit a block's shared memory, about 116 kbp and
+    up), forced at each R: banded_dp against its plain version, then
+    banded_align_full's path (best_cell, banded_walk_pack) against
+    banded_align_full_reference; its plan as the library reports it."""
+    plan = banded.banded_launch_plan(B, L, "dp", R, codes="global")
+    assert (plan["codes"], plan["lanes_per_thread"], plan["smem_bytes"],
+            plan["spill_bytes"]) == ("global", R, 0, 0)
+    args = [torch.from_numpy(x).to(card) for x in _batch(B, L, W, B + L + R)]
+    sc, gap = _scores(scoring, card)
+
+    def dp(*a):
+        return banded._banded_launch(plan, *a)
+
+    before = banded.dp_launches
+    got = dp(*args, sc, gap)
+    want = banded.banded_dp_reference(*args, sc, gap)
+    torch.cuda.synchronize()
+    assert banded.dp_launches == before + 1
+    for name, g, w in zip(("bv", "bi", "trace"), got, want):
+        assert torch.equal(g, w), name
+    full = banded._align_full(dp, banded.banded_walk_pack, *args, sc, gap)
+    for g, w in zip(full, banded.banded_align_full_reference(*args, sc,
+                                                             gap)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
 def test_walk_on_random_traces(card):
     """banded_walk_pack's tile walk against the plain walk: random traces
     (codes 0-3, and mostly left or up moves that run past the band's
@@ -550,13 +584,15 @@ def _junk_walk_inputs(D: int, C: int, S: int, seed: int):
 @pytest.mark.parametrize("D,C,S", [(320, 2048, 193), (67, 9, 40),
                                    (131, 13, 71), (551, 8, 301), (9, 8, 6)])
 def test_graph_walk_tiles_on_junk_traces(card, D, C, S):
-    """gsw_walk_pack, both sides, each launch counted, against the plain
-    walk on random traces from `_junk_walk_inputs` and on traces of one
-    code (walks that leave their tiles through each edge): the graph
+    """gsw_walk_pack, its three sides, each launch counted (the local
+    side, local_align_full's walk, in local_walk_launches), against the
+    plain walk on random traces from `_junk_walk_inputs` and on traces of
+    one code (walks that leave their tiles through each edge): the graph
     path's wave (2048 jobs at (n, m) = (192, 128)), the CPU emulation's
     shapes (D not a multiple of 4, C not a multiple of the warps a block,
     D past 512 steps), and a window narrower than the tile (S = 6: every
-    load byte by byte)."""
+    load byte by byte). The local side starts from the right side's
+    bests."""
     trace, nv, mv, corner, bv, bd = _junk_walk_inputs(D, C, S, D + C)
     traces = [trace] + [np.full((D, C, S), code, np.int8)
                         for code in (0, 1, 2)]
@@ -565,12 +601,15 @@ def test_graph_walk_tiles_on_junk_traces(card, D, C, S):
     for k, tr in enumerate(traces):
         tr = torch.from_numpy(tr).to(card)
         for side, walk in (("left", (tr, corner, None, nv, mv)),
-                           ("right", (tr, bv, bd, None, None))):
+                           ("right", (tr, bv, bd, None, None)),
+                           ("local", (tr, bv, bd, None, None))):
             want = gsw_dp.gsw_walk_pack_reference(side, *walk)
-            before = gsw_dp.walk_launches
+            before = (gsw_dp.walk_launches, gsw_dp.local_walk_launches)
             assert torch.equal(gsw_dp.gsw_walk_pack(side, *walk), want), (
                 k, side)
-            assert gsw_dp.walk_launches == before + 1
+            local = side == "local"
+            assert (gsw_dp.walk_launches, gsw_dp.local_walk_launches) == (
+                before[0] + (not local), before[1] + local)
 
 
 @pytest.mark.cuda
@@ -591,6 +630,68 @@ def test_graph_walk_tiles_on_real_traces(card):
             want = gsw_dp.gsw_walk_pack_reference(side, *walk)
             assert torch.equal(gsw_dp.gsw_walk_pack(side, *walk), want), (
                 C, side)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,W,scoring", [
+    (4096, 150, 198, "humanChimp"), (13, 70, 118, "plusMinusOne"),
+    (37, 81, 129, "humanChimp"), (5, 300, 348, "humanChimp")])
+def test_local_align_full_equals_plain(card, B, L, W, scoring):
+    """local_align_full, the read aligner's mesh path (K4 over the whole
+    (L, W) grid, then the walk's local side), against its plain version
+    on anchored reads: the mesh path's shape (4096 reads of 150 bp in
+    198 bp windows, K4's warp design at 8 slots a lane) and others; one
+    launch of each kernel; the walk also on the plain DP's trace."""
+    args = [torch.from_numpy(x).to(card) for x in _batch(B, L, W, B + W)]
+    sc, gap = _scores(scoring, card)
+    counts = (wavefront.local_launches, gsw_dp.local_walk_launches)
+    got = wavefront.local_align_full(*args, sc, gap)
+    want = wavefront.local_align_full_reference(*args, sc, gap)
+    torch.cuda.synchronize()
+    assert (wavefront.local_launches,
+            gsw_dp.local_walk_launches) == (counts[0] + 1, counts[1] + 1)
+    for name, g, w in zip(("score", "i_end", "j_end", "i0", "j0", "packed"),
+                          got, want):
+        assert torch.equal(g, w), name
+    assert int((want[0] > 0).sum()) > B // 2
+    bv, bd, trace = wavefront.local_wavefront_reference(*args, sc, gap)
+    assert torch.equal(gsw_dp.gsw_walk_pack("local", trace, bv, bd),
+                       gsw_dp.gsw_walk_pack_reference("local", trace, bv,
+                                                      bd))
+
+
+@pytest.mark.cuda
+def test_read_aligner_mesh_on_card_equals_cpu(card):
+    """ReadAligner on a mesh of two data slices on the one card (the
+    device repeated) gives the SAM of the mesh path on the CPU and of a
+    mesh of one slice, launching K4 and the local walk once a slice."""
+    from gonomics_tpu_torch.io.fastq import Fastq
+    from gonomics_tpu_torch.parallel import make_mesh
+    from gonomics_tpu_torch.read_align import ReadAligner
+
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, 200_000).astype(np.int8)
+    reads = []
+    for i in range(301):
+        s = int(rng.integers(0, len(genome) - 100))
+        seq = genome[s:s + 100].copy()
+        seq[int(rng.integers(0, 100))] ^= 1
+        if i % 2:
+            seq = dna.reverse_complement(seq).astype(np.int8)
+        reads.append(Fastq(f"r{i}", seq, np.full(100, 30, np.uint8)))
+    cpu = ReadAligner([Fasta("chr1", genome)], device="cpu",
+                      mesh=make_mesh(devices=["cpu"], data=1))
+    want = cpu.finish_batch_lines(cpu.align_batch_async(reads))
+    for data in (1, 2):
+        al = ReadAligner.from_state(
+            cpu.state(), mesh=make_mesh(devices=[card] * data, data=data))
+        assert al.device == torch.device("cuda", card.index or 0)
+        counts = (wavefront.local_launches, gsw_dp.local_walk_launches)
+        got = al.finish_batch_lines(al.align_batch_async(reads))
+        assert got == want, data
+        assert (wavefront.local_launches - counts[0],
+                gsw_dp.local_walk_launches - counts[1]) == (data, data)
+    assert want.count("\tchr1\t") > 290
 
 
 @pytest.mark.cuda

@@ -100,22 +100,36 @@ def test_profile_writes_trace(tmp_path):
     assert "traceEvents" in trace.read_text()
 
 
-# a graph reference (ported: ROADMAP item 5, the case's id) still
-# refuses the multi-device flags
-_GRAPH_MESH = ["--mesh"]
-
-
 @pytest.mark.parametrize("extra,item", [
-    (["--mesh"], "item 7"), (["--multihost"], "item 7"),
-    (["--index-sharding", "prefix"], "item 7"),
-    pytest.param(_GRAPH_MESH, "item 7", id="extra3-item 5")])
+    pytest.param(["--multihost"], "item 7", id="extra1-item 7"),
+    pytest.param(["--index-sharding", "prefix"], "item 7",
+                 id="extra2-item 7")])
 def test_unported_options_exit(tmp_path, extra, item):
     ref, r1, _ = _write_inputs(tmp_path)
-    if extra is _GRAPH_MESH:
-        ref = str(tmp_path / "ref.gg")
     with pytest.raises(SystemExit, match=item):
         port_gsw.main(["align", ref, r1, "-o", str(tmp_path / "o.sam"),
                        "--device", "cpu", "--engine", "tpu", *extra])
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+def test_mesh_byte_identical(tmp_path, paired):
+    """--mesh on a .fa reference (the mesh path: the whole local DP a
+    read, over one CPU device with --device cpu) writes the SAM of the
+    run without it, and of the JAX CLI's --mesh (its 8 virtual devices)."""
+    ref, r1, r2 = _write_inputs(tmp_path)
+    files = [ref, r1, r2] if paired else [ref, r1]
+    plain, meshed = tmp_path / "plain.sam", tmp_path / "mesh.sam"
+    flags = ["--device", "cpu", "--engine", "tpu", "--batch", "4"]
+    port_gsw.main(["align", *files, "-o", str(plain), *flags])
+    port_gsw.main(["align", *files, "-o", str(meshed), *flags, "--mesh"])
+    text = meshed.read_bytes()
+    assert text == plain.read_bytes()
+    assert text.count(b"\n") == 3 + (20 if paired else 10)
+    if not paired:
+        want = tmp_path / "jax.sam"
+        jax_gsw.main(["align", *files, "-o", str(want), "--engine", "tpu",
+                      "--batch", "4", "--mesh"])
+        assert text == want.read_bytes()
 
 
 def _write_graph_inputs(tmp_path):
@@ -161,6 +175,23 @@ def _write_graph_inputs(tmp_path):
     fq(tmp_path / "g2.fq", r2)
     return (str(gg), str(sizes), str(tmp_path / "g1.fq"),
             str(tmp_path / "g2.fq"))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--mesh"], ["--multihost"], ["--index-sharding", "prefix"]],
+    ids=["mesh", "multihost", "index-sharding-prefix"])
+def test_graph_ignores_multi_device_flags(tmp_path, extra):
+    """A .gg reference on --engine tpu goes to the graph engine before any
+    multi-device flag is read (JAX cli/gsw_cmd.py:55-57): the giraf of
+    the run without the flag."""
+    gg, _, r1, _ = _write_graph_inputs(tmp_path)
+    plain, flagged = tmp_path / "plain.giraf", tmp_path / "flagged.giraf"
+    for out, flags in ((plain, []), (flagged, extra)):
+        port_gsw.main(["align", gg, r1, "-o", str(out), "--device", "cpu",
+                       "--engine", "tpu", "--batch", "5", "-i", "21", "-w",
+                       "8", *flags])
+    assert flagged.read_bytes() == plain.read_bytes()
+    assert plain.read_bytes().count(b"\n") == 8
 
 
 @pytest.mark.parametrize("out", ["giraf", "sam"])

@@ -178,8 +178,7 @@ def test_default_device_is_the_card(monkeypatch):
         read_align.ReadAligner(records, device="cuda")
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()},
-                                    {"index_sharding": "prefix"}])
+@pytest.mark.parametrize("kwargs", [{"index_sharding": "prefix"}])
 def test_multi_device_options_not_ported(kwargs):
     with pytest.raises(NotImplementedError, match="item 7"):
         read_align.ReadAligner([TFasta("chr1", _genome()[:2_000])],

@@ -1,7 +1,7 @@
 """The tile walks of the CUDA kernels gsw_walk_pack
 (gonomics_tpu_torch/csrc/gsw_dp.cu) and banded_walk_pack
 (csrc/banded.cu), emulated lane by lane and held exactly against their
-plain versions `gsw_walk_pack_reference` (both sides) and
+plain versions `gsw_walk_pack_reference` (its three sides) and
 `banded_walk_pack_reference`; and `walk_rounds`, the steps and tiles
 that chip_smoke.py reports, against the emulation's own count.
 
@@ -140,16 +140,18 @@ def _clamp(x: int, lo: int, hi: int) -> int:
 
 def emulate_gsw(side: str, trace, values, diags, n_vec, m_vec, base: int,
                 rng):
-    """gsw_walk_pack_kernel<side == "left"> on every job: the (C, 12 + P)
-    rows, and the steps that read a cell and the tiles loaded by each
-    job's warp."""
+    """gsw_walk_pack_kernel<side> on every job: the (C, 12 + P) rows
+    ((C, 20 + P) for the local side), and the steps that read a cell and
+    the tiles loaded by each job's warp."""
     TD, TL = gsw_dp.GSW_TILE
     D, C, S = trace.shape
     P = -(-D // 4)
+    meta = 20 if side == "local" else 12
     mem = _Memory(trace, base, base + trace.size, rng)
-    out = np.zeros((C, 12 + P), np.uint8)
+    out = np.zeros((C, meta + P), np.uint8)
     steps, rounds = np.zeros(C, np.int64), np.zeros(C, np.int64)
     left = side == "left"
+    stop = side != "right"  # left and local: score > 0, stop on a 3
     for b in range(C):
         vrow = values[b]
         if left:
@@ -162,12 +164,12 @@ def emulate_gsw(side: str, trace, values, diags, n_vec, m_vec, base: int,
             else:
                 score, i, j = best, arg, int(diags[b, arg]) - arg
         i_start, j_start = i, j
-        row = _Row(12 + P, rng)
-        ops = _OpWords(row, 12, P)
+        row = _Row(meta + P, rng)
+        ops = _OpWords(row, meta, P)
         tile = np.zeros(TD * TL, np.uint8)  # the warp's shared memory
         dtop, itop = 0, -TL
         t = 0
-        live = (score > 0 and i > 0 and j > 0) if left else (i > 0 or j > 0)
+        live = (score > 0 and i > 0 and j > 0) if stop else (i > 0 or j > 0)
         while live and t < D:
             u = i + j - 1
             x, y = dtop - u, itop - i
@@ -188,7 +190,7 @@ def emulate_gsw(side: str, trace, values, diags, n_vec, m_vec, base: int,
                     tile[lane * TL:(lane + 1) * TL] = np.array(
                         words, "<u4").view(np.uint8)
             n = min(min((TD - 1 - x) >> 1, TL - 1 - y) + 1, D - t)
-            if not left and j < 0:
+            if not stop and j < 0:
                 n = 1
             p = x * TL + (TL - 1 - y)
             for _ in range(n):
@@ -198,24 +200,25 @@ def emulate_gsw(side: str, trace, values, diags, n_vec, m_vec, base: int,
                 assert p == cx * TL + TL - 1 - cy
                 code = int(tile[p])
                 steps[b] += 1
-                if left and code == 3:
+                if stop and code == 3:
                     live = False
                     break
                 i2, j2 = i - ((0x5 >> code) & 1), j - ((0x3 >> code) & 1)
-                if not left:
+                if not stop:
                     i2, j2 = max(i2, 0), max(j2, 0)
                 p += (TL - 1) * (i - i2) + TL * (j - j2)
                 i, j = i2, j2
                 ops.push(t, code)
                 t += 1
-                live = (i > 0 and j > 0) if left else (i > 0 or j > 0)
+                live = (i > 0 and j > 0) if stop else (i > 0 or j > 0)
                 if not live:
                     break
         ops.finish(t)
-        mi, mj = (i, j) if left else (i_start, j_start)
-        for lane in range(12):
-            v = score if lane < 4 else mi if lane < 8 else mj
-            row.put(lane, (v & M32) >> (8 * (lane % 4)))
+        fields = [score, *((i, j) if left else (i_start, j_start))]
+        if side == "local":
+            fields += [i, j]
+        for lane in range(meta):
+            row.put(lane, (fields[lane // 4] & M32) >> (8 * (lane % 4)))
         assert (row.writes == 1).all(), (side, b)
         out[b] = row.bytes
     return out, steps, rounds
@@ -318,6 +321,12 @@ def test_gsw_tile_walk_on_real_traces(base):
                                bd.numpy(), None, None, base, rng)
     assert (lw[:, :4].copy().view(np.int32) > 0).sum() > 0
     assert lrounds.max() >= 2 and rrounds.max() >= 2  # walks leave tiles
+    # the local side on K4's own bests (local_align_full's walk)
+    kbv, kbd, _ = wavefront.local_wavefront_reference(*args)
+    kw, _, krounds = _check_gsw("local", ltrace.numpy(), kbv.numpy(),
+                                kbd.numpy(), None, None, base, rng)
+    assert (kw[:, :4].copy().view(np.int32) > 0).sum() > C // 2
+    assert krounds.max() >= 2
 
 
 def _junk_trace(name: str, rng):
@@ -380,6 +389,9 @@ def test_gsw_tile_walk_on_junk_traces(name):
     _check_gsw("left", trace, corner, None, nv, mv, 16, rng)
     _, rsteps, _ = _check_gsw("right", trace, bv, bd, None, None, 16, rng)
     assert rsteps.max() == D or name != "mixed"  # a right walk stalls
+    # the local side from the right side's bests: the first max, a max
+    # <= 0, starts past the last row and lane, j <= 0
+    _check_gsw("local", trace, bv, bd, None, None, 16, rng)
 
 
 def test_gsw_tile_walk_flushes_words():
