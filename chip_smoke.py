@@ -136,10 +136,31 @@ exits non-zero:
             same score for every pair, with each call's peak device
             memory and the plans of affine_score_diag; G cells/s of each
             at bench.py's sizes.
+17. prefix: ReadAligner(index_sharding="prefix") on phase 3's 100 Mbp
+            genome with the dense index (~100 M entries, ~1.2 GB on the
+            card), split over 4 data slices of a mesh that repeats the
+            card: the mesh phase's 3 batches of 4096 x 150 bp reads, the
+            k-mers looked up on the card, the votes in numpy on the host;
+            reads/s and the wall of a batch split into seeding (lookup,
+            also on the card's clock, and votes), device, wait and emit,
+            beside the replicated index on a mesh of one slice timed
+            alike; its SAM equal to the replicated one line for line, the
+            first 256 reads equal to the CPU, K4 and the local walk
+            launched once a slice of each batch and exactly equal to
+            their plain versions on its first batch's inputs.
+18. multihost: `gsw align --engine tpu --multihost` in two processes on
+            the card (gloo over loopback) on phase 4's 10 Mbp genome, 5
+            batches of 4096 x 150 bp reads, with and without
+            --index-sharding prefix: each merged SAM byte-identical to
+            one process's --mesh output, every child's exit code 0 within
+            its time limit, K4 and the local walk launched once a batch
+            over the children, and both exactly equal to their plain
+            versions on the first batch's inputs.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
-the local walk from phase 5 (and K4's there as mesh_launches), of
+the local walk from phase 5 (and K4's there as mesh_launches; both
+kernels' on phases 17 and 18 as prefix_launches and multihost_launches), of
 the wavefront kernels from phase 8 (affine_wavefront's and
 const_wavefront's, and under "trace_diag_launches" the launches of
 the one CUDA kernel, "kernel", both take there), of the graph kernels
@@ -180,6 +201,13 @@ HUGE_L = 120_000
 # the mesh phase: the CLI's 10 Mbp genome, MESH_BATCHES batches of B reads
 # of L bp; its first MESH_CPU_READS reads against the CPU
 CLI_BP, MESH_BATCHES, MESH_CPU_READS = 10_000_000, 3, 256
+# the prefix phase: the end-to-end genome's dense index split into
+# PREFIX_SLICES chunks on the card, the mesh phase's batches
+PREFIX_SLICES = 4
+# the multihost phase: MULTIHOST_PROCS processes of `gsw align --multihost`
+# on the card over MULTIHOST_BATCHES batches of B reads, each child under
+# MULTIHOST_TIMEOUT_S
+MULTIHOST_PROCS, MULTIHOST_BATCHES, MULTIHOST_TIMEOUT_S = 2, 5, 300
 GAP = -600
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 # int32 lanes: 132 SMs x 64 INT32 units x 1.98 GHz boost clock
@@ -2747,6 +2775,304 @@ def phase_score(dev: torch.device) -> dict:
     return out
 
 
+def hold_local_kernels(dev: torch.device, batch: tuple) -> dict:
+    """local_wavefront (K4) and the local walk on one batch's inputs to
+    the mesh path's device step (read_seqs, windows, n_vec, m_vec, scores,
+    gap), each against its plain version on the card (exact, whole
+    tensors; the walk on the plain DP's trace). These calls are not the
+    path's launches."""
+    from gonomics_tpu_torch.ops import gsw_dp, wavefront
+
+    alpha, beta, nv, mv, scores = (
+        torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in batch[:5])
+    args = (alpha, beta, nv, mv, scores.to(torch.int32), int(batch[5]))
+    want = wavefront.local_wavefront_reference(*args)
+    k4_equal, k4_err = equal_err(wavefront.local_wavefront(*args), want)
+    walk_args = ("local", want[2], want[0], want[1])  # trace, bv, bd
+    walk_equal, walk_err = equal_err(
+        (gsw_dp.gsw_walk_pack(*walk_args),),
+        (gsw_dp.gsw_walk_pack_reference(*walk_args),))
+    return {"shape": {"B": alpha.shape[0], "n": alpha.shape[1],
+                      "m": beta.shape[1]},
+            "local_wavefront": {"equal_to_plain": k4_equal,
+                                "max_abs_err": k4_err},
+            "local_walk_pack": {"equal_to_plain": walk_equal,
+                                "max_abs_err": walk_err}}
+
+
+def phase_prefix(dev: torch.device, G: int) -> dict:
+    """ReadAligner(index_sharding="prefix") on the end-to-end phase's G bp
+    genome with the dense index, split into PREFIX_SLICES chunks, one a
+    data slice of a mesh that repeats the card (``split_index_prefix``,
+    ``place_index_chunks``): the mesh phase's MESH_BATCHES batches of B
+    reads of L bp, one after another, the read k-mers looked up on the
+    card (``shard_seed_lookup``) and voted on the host in numpy; the wall
+    of a batch split into seeding (of it: the lookup, also on the card's
+    clock, and the votes), device step, wait and emit. Gates: its SAM
+    equals the replicated index's on a mesh of one slice (the same loop,
+    timed alike) line for line; the first MESH_CPU_READS reads equal the
+    prefix path on the CPU; K4 and the local walk launched once a slice
+    of each batch, and exactly equal to their plain versions on the first
+    batch's inputs."""
+    from gonomics_tpu_torch.io.fasta import Fasta
+    from gonomics_tpu_torch.ops import banded, gsw_dp, wavefront
+    from gonomics_tpu_torch.parallel import make_mesh
+    from gonomics_tpu_torch.read_align import ReadAligner
+
+    genome = np.random.default_rng(0).integers(0, 4, G, dtype=np.int8)
+    t0 = time.perf_counter()
+    repl = ReadAligner([Fasta("chr1", genome)], device=dev,
+                       mesh=make_mesh(data=1))
+    build_s = time.perf_counter() - t0
+    state = repl.state()
+    t0 = time.perf_counter()
+    al = ReadAligner.from_state(
+        state, device=dev, index_sharding="prefix",
+        mesh=make_mesh(devices=["cuda:0"] * PREFIX_SLICES,
+                       data=PREFIX_SLICES))
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    card_bytes = sum(t.numel() * t.element_size()
+                     for ts in al._shards for t in ts)
+    batches = [make_reads(genome, B, 300 + t) for t in range(MESH_BATCHES)]
+
+    timers = {"seed": [], "lookup": [], "vote": []}
+    lookup_spans, device_spans, inputs = [], [], []
+
+    def timed(name, fn, spans=None):
+        def wrapped(*args):
+            if spans is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t1 = time.perf_counter()
+            out = fn(*args)
+            if name:
+                timers[name].append((time.perf_counter() - t1) * 1e3)
+            if spans is not None:
+                end.record()
+                spans.append((start, end))
+            return out
+        return wrapped
+
+    device_result = al._device_result
+
+    def capture(*args):
+        inputs.append(args)
+        return device_result(*args)
+
+    al._candidates = timed("seed", al._candidates)
+    al._lookup_hits = timed("lookup", al._lookup_hits, lookup_spans)
+    al._vote = timed("vote", al._vote)
+    al._device_result = timed(None, capture, device_spans)
+
+    def run(aligner) -> tuple[list, dict]:
+        texts, dispatch, wait, emit_ms = [], [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for reads, _ in batches:
+            t1 = time.perf_counter()
+            handle = aligner.align_batch_async(reads)
+            t2 = time.perf_counter()
+            handle[5].numpy()  # the device result in host memory
+            t3 = time.perf_counter()
+            texts.append(aligner.finish_batch_lines(handle))
+            t4 = time.perf_counter()
+            dispatch.append((t2 - t1) * 1e3)
+            wait.append((t3 - t2) * 1e3)
+            emit_ms.append((t4 - t3) * 1e3)
+        wall = time.perf_counter() - t0
+        return texts, {"reads_per_s": len(batches) * B / wall,
+                       "wall_ms_per_batch": wall * 1e3 / len(batches),
+                       "host_dispatch_ms_per_batch": float(np.mean(dispatch)),
+                       "wait_ms_per_batch": float(np.mean(wait)),
+                       "host_emit_ms_per_batch": float(np.mean(emit_ms))}
+
+    for aligner in (al, repl):  # warm-up
+        aligner.finish_batch_lines(aligner.align_batch_async(batches[0][0]))
+    for v in (*timers.values(), lookup_spans, device_spans, inputs):
+        v.clear()
+    # the main path: launch counts from this loop only
+    wavefront.local_launches = gsw_dp.local_walk_launches = 0
+    banded.fused_launches = banded.dp_launches = banded.walk_launches = 0
+    texts, split = run(al)
+    launches = {"local_wavefront": wavefront.local_launches,
+                "local_walk_pack": gsw_dp.local_walk_launches,
+                "banded_kernels": banded.fused_launches + banded.dp_launches
+                + banded.walk_launches}
+    lookup_card = [s.elapsed_time(e) for s, e in lookup_spans]
+    device_ms = [s.elapsed_time(e) for s, e in device_spans]
+    repl_texts, repl_split = run(repl)
+    lines, repl_lines = ("".join(t).splitlines() for t in (texts, repl_texts))
+    same = sum(a == b for a, b in zip(lines, repl_lines))
+    checks = check_sam("".join(texts),
+                       np.concatenate([t for _, t in batches]))
+    cpu = ReadAligner.from_state(
+        state, device="cpu", index_sharding="prefix",
+        mesh=make_mesh(devices=["cpu"] * PREFIX_SLICES, data=PREFIX_SLICES))
+    head = batches[0][0][:MESH_CPU_READS]
+    cpu_text = cpu.finish_batch_lines(cpu.align_batch_async(head))
+    del cpu
+    card_head = "".join(texts[0].splitlines(True)[:MESH_CPU_READS])
+    kernels = hold_local_kernels(dev, (*inputs[0], al.scores, al.gap))
+    n_reads = MESH_BATCHES * B
+    out = {"phase": "prefix", "genome_bp": G, "index": "dense",
+           "index_entries": len(state["codes"]), "slices": PREFIX_SLICES,
+           "batches": MESH_BATCHES, "batch": B, "read_len": L,
+           "index_build_s": build_s, "index_split_place_s": split_s,
+           "index_bytes_on_card": card_bytes, **split,
+           "host_seed_vote_ms_per_batch": float(np.mean(timers["seed"])),
+           "lookup_ms_per_batch": float(np.mean(timers["lookup"])),
+           "lookup_card_ms_per_batch": float(np.mean(lookup_card)),
+           # two votes a batch, one a strand
+           "vote_ms_per_batch": sum(timers["vote"]) / MESH_BATCHES,
+           "device_ms_per_batch": float(np.mean(device_ms)),
+           "device_span_share": sum(device_ms) / (split["wall_ms_per_batch"]
+                                                  * MESH_BATCHES),
+           "replicated": repl_split, "launches": launches, **checks,
+           "replicated_equal_lines": same, "replicated_lines": len(repl_lines),
+           "cpu_reads": MESH_CPU_READS, "cpu_equal": cpu_text == card_head,
+           "kernels_on_its_inputs": kernels}
+    emit(out)
+    if not (same == n_reads == len(lines) == len(repl_lines)
+            and out["cpu_equal"] and checks["mapped_frac"] >= 0.99
+            and checks["placed_frac"] >= 0.99 and checks["junk_mapped"] == 0
+            and launches["local_wavefront"] == MESH_BATCHES * PREFIX_SLICES
+            and launches["local_walk_pack"] == MESH_BATCHES * PREFIX_SLICES
+            and launches["banded_kernels"] == 0
+            and kernels["local_wavefront"]["equal_to_plain"]
+            and kernels["local_walk_pack"]["equal_to_plain"]):
+        raise SystemExit("prefix check failed")
+    return out
+
+
+# a child of the multihost phase: `python -m gonomics_tpu_torch.cli.gsw_cmd`
+# run as Python runs it (runpy), then the launch counts of the mesh path's
+# kernels in this process, on the last line of its standard output
+MULTIHOST_CHILD = (
+    "import json, runpy, sys\n"
+    "from gonomics_tpu_torch.ops import gsw_dp, wavefront\n"
+    "runpy.run_module('gonomics_tpu_torch.cli.gsw_cmd', run_name='__main__',"
+    " alter_sys=True)\n"
+    "print(json.dumps({'local_wavefront': wavefront.local_launches,"
+    " 'local_walk_pack': gsw_dp.local_walk_launches}))\n")
+
+
+def run_multihost(argv: list[str], nproc: int) -> dict:
+    """`gsw align ... --multihost` in nproc processes of this checkout on
+    the card, meeting over loopback gloo (MASTER_ADDR 127.0.0.1, a free
+    port); each under MULTIHOST_TIMEOUT_S, killed past it. Raises where a
+    child fails or times out; returns the wall and each child's
+    launches."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MULTIHOST_CHILD, *argv, "--multihost"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "RANK": str(r), "WORLD_SIZE": str(nproc),
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port})
+        for r in range(nproc)]
+    try:
+        outs = [p.communicate(timeout=MULTIHOST_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        raise SystemExit("a multihost child timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, (_, err) in zip(procs, outs):
+        if p.returncode != 0:
+            print(err[-4000:], file=sys.stderr)
+            raise SystemExit(f"a multihost child exited {p.returncode}")
+    return {"wall_s": wall, "exit_codes": [p.returncode for p in procs],
+            "launches": [json.loads(out.splitlines()[-1]) for out, _ in outs]}
+
+
+def phase_multihost(dev: torch.device, G: int) -> dict:
+    """`gsw align --engine tpu --multihost` in MULTIHOST_PROCS processes on
+    the one card (each its own mesh of the card, as one process a host
+    has its host's devices) on the CLI phase's genome and
+    MULTIHOST_BATCHES batches of B reads of L bp, with and without
+    --index-sharding prefix: each merged SAM byte-identical to one
+    process's --mesh output on the same files (mapped and placed checked
+    there), every child's exit code 0, K4 and the local walk launched
+    once a batch over the children; then both kernels on the inputs the
+    first batch gives the mesh path, exactly equal to their plain
+    versions."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.cli import gsw_cmd
+    from gonomics_tpu_torch.io import fasta, fastq
+    from gonomics_tpu_torch.parallel import make_mesh
+    from gonomics_tpu_torch.read_align import ReadAligner
+
+    genome = cli_genome(G)
+    reads, truth = make_reads(genome, MULTIHOST_BATCHES * B, 400)
+    out = {"phase": "multihost", "genome_bp": G, "procs": MULTIHOST_PROCS,
+           "batches": MULTIHOST_BATCHES, "batch": B, "read_len": L,
+           "backend": "gloo"}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, fq = os.path.join(tmp, "ref.fa"), os.path.join(tmp, "reads.fq")
+        s = dna.to_string(genome)
+        with open(ref, "w") as f:
+            f.write(">chrS\n")
+            f.writelines(s[i:i + 60] + "\n" for i in range(0, len(s), 60))
+        with open(fq, "w") as f:
+            for r in reads:
+                f.write(f"@{r.name}\n{dna.to_string(r.seq)}\n+\n"
+                        f"{fastq.qual_string(r.qual)}\n")
+        flags = ["--engine", "tpu", "--batch", str(B)]
+        one = os.path.join(tmp, "one.sam")
+        t0 = time.perf_counter()
+        gsw_cmd.main(["align", ref, fq, "-o", one, *flags, "--mesh"])
+        out["one_process_s"] = time.perf_counter() - t0
+        with open(one, "rb") as f:
+            want = f.read()
+        body = "".join(ln for ln in want.decode().splitlines(True)
+                       if not ln.startswith("@"))
+        out.update(check_sam(body, truth))
+        for name, extra in (("replicated", []),
+                            ("prefix", ["--index-sharding", "prefix"])):
+            merged = os.path.join(tmp, f"{name}.sam")
+            got = run_multihost(["align", ref, fq, "-o", merged, *flags,
+                                 *extra], MULTIHOST_PROCS)
+            with open(merged, "rb") as f:
+                got["byte_identical"] = f.read() == want
+            out[name] = got
+        al = ReadAligner(fasta.read(ref), device=dev, mesh=make_mesh(data=1))
+    inputs = []
+    device_result = al._device_result
+
+    def capture(*args):
+        inputs.append(args)
+        return device_result(*args)
+
+    al._device_result = capture
+    al.finish_batch_lines(al.align_batch_async(reads[:B]))
+    out["kernels_on_its_inputs"] = hold_local_kernels(
+        dev, (*inputs[0], al.scores, al.gap))
+    emit(out)
+    kernels = out["kernels_on_its_inputs"]
+    if not (all(out[n]["byte_identical"]
+                and sum(c["local_wavefront"] for c in out[n]["launches"])
+                == MULTIHOST_BATCHES
+                and sum(c["local_walk_pack"] for c in out[n]["launches"])
+                == MULTIHOST_BATCHES
+                for n in ("replicated", "prefix"))
+            and out["mapped_frac"] >= 0.99 and out["placed_frac"] >= 0.99
+            and out["junk_mapped"] == 0
+            and kernels["local_wavefront"]["equal_to_plain"]
+            and kernels["local_walk_pack"]["equal_to_plain"]):
+        raise SystemExit("multihost check failed")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2774,12 +3100,20 @@ def main() -> int:
     lowmem = phase_lowmem(dev)
     rows += phase_score_kernels(dev)
     score = phase_score(dev)
+    prefix = phase_prefix(dev, 100_000_000)
+    multihost = phase_multihost(dev, CLI_BP)
     launches = {**e2e["launches"], **pairwise["launches"],
                 **graph["launches"], **lowmem["launches"],
                 **score["launches"],
                 "local_walk_pack": mesh["launches"]["local_walk_pack"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] in ("local_wavefront", "local_walk_pack"):
+            # the mesh path's kernels on the prefix and multihost paths
+            r["prefix_launches"] = prefix["launches"][r["name"]]
+            r["multihost_launches"] = sum(
+                c[r["name"]] for run in ("replicated", "prefix")
+                for c in multihost[run]["launches"])
         if r["name"] == "local_wavefront":  # K4 on the mesh path too
             r["mesh_launches"] = mesh["launches"]["local_wavefront"]
             r["mesh_path"] = {k: k4_mesh[k] for k in (

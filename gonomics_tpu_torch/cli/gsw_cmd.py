@@ -24,10 +24,20 @@ reference shards each batch data-parallel over every CUDA device of the
 process (``parallel.make_mesh(data=<devices>, seq=1)``; one CPU device
 with ``--device cpu``), as the JAX CLI does over its local devices: each
 read's whole (L, L + 48) grid on the card, a trace of (2 L + 48)(L + 1)
-bytes a read, and the same SAM. ``--multihost`` and ``--index-sharding
-prefix`` with a .fa reference are not ported yet and exit with an error
-that names their ROADMAP item. The host engine, and a .gg/.sg reference
-on either engine, ignore all three, as the JAX CLI does.
+bytes a read, and the same SAM. ``--index-sharding prefix`` splits the
+dense seed table over the mesh's data slices and looks the read k-mers
+up on their devices (the same SAM; without ``--mesh`` or
+``--multihost`` it raises the JAX CLI's ValueError, no mesh).
+``--multihost`` joins a process group (``parallel.init_distributed``:
+torch.distributed on gloo, from ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` and ``MASTER_PORT``, as torchrun sets them), one process
+a host, each with its host's devices as its mesh: process p of n aligns
+the batches b with b % n == p into <out>.shard<p>, a ``#BATCH`` line
+after each, and after a barrier process 0 merges the shards under the
+header into the output, byte-identical to one process's (a single
+process writes the output directly). The host engine, and a .gg/.sg
+reference on either engine, ignore all three flags, as the JAX CLI
+does.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from .. import fileio, graph as graphmod
@@ -47,7 +58,8 @@ from ..align.matrices import BY_NAME, HUMAN_CHIMP_TWO
 from ..graph_align import GraphAligner
 from ..io import fasta, fastq as fastqio, giraf as girafio
 from ..io.chrom_info import read_to_slice
-from ..parallel import make_mesh
+from ..parallel import (init_distributed, make_mesh, merge_shard_files,
+                        process_count, process_index)
 from ..read_align import ReadAligner
 
 
@@ -57,15 +69,6 @@ def _progress(tool: str, n: int, t0: float, final: bool = False) -> None:
     tag = "finished" if final else "progress"
     print(f"{tool}: {tag} {n} reads in {dt:.1f}s ({n / dt:.0f} reads/s)",
           file=sys.stderr)
-
-
-def _refuse_unported(args) -> None:
-    for flag, on in (("--multihost", args.multihost),
-                     ("--index-sharding prefix",
-                      args.index_sharding == "prefix")):
-        if on:
-            raise SystemExit(f"gsw align: {flag} is not ported yet (ROADMAP "
-                             "queue 1, item 7: multi-device paths)")
 
 
 def _load_reference(path: str):
@@ -138,28 +141,47 @@ def _align_graph(args) -> None:
 def align_cmd(args) -> None:
     """The host engine, and a graph reference on either engine, go to
     ``_align_graph`` before any multi-device flag is read, as in the JAX
-    CLI (gsw_cmd.py:55-57). The tpu engine's linear .fa reference -> SAM
-    through a three-stage pipeline: batch i+1's host seeding (main
-    thread) overlaps batch i's device work (launched without waiting) and
-    batch i-1's SAM assembly (worker thread); writes drain in order on
-    the main thread."""
+    CLI (gsw_cmd.py:55-57). The tpu engine's linear .fa reference goes
+    to ``_align_linear``; with ``--multihost``, in a process group that
+    this process joins first and leaves at the end."""
     if len(args.files) not in (2, 3):
         raise SystemExit("gsw align: want ref[.gg/.fa] R1.fq [R2.fq]")
     if args.engine == "host" or args.files[0].endswith((".gg", ".sg")):
         _align_graph(args)
         return
-    _refuse_unported(args)
+    if not args.multihost:
+        _align_linear(args)
+        return
+    init_distributed()
+    try:
+        _align_linear(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _align_linear(args) -> None:
+    """The tpu engine's .fa reference -> SAM, as the JAX ``_align_tpu``
+    (gsw_cmd.py:41-144), through a three-stage pipeline: batch i+1's host
+    seeding (main thread) overlaps batch i's device work (launched
+    without waiting) and batch i-1's SAM assembly (worker thread); writes
+    drain in order on the main thread. In a group of several processes,
+    this process's batches go to its shard file, and after the barrier
+    process 0 merges the shards."""
     mesh = None
-    if args.mesh:
+    if args.mesh or args.multihost:
         mesh = (make_mesh(devices=["cpu"], data=1) if args.device == "cpu"
                 else make_mesh(data=torch.cuda.device_count(), seq=1))
     records = fasta.read(args.files[0])
     al = ReadAligner(records, index_mode=args.index_mode,
                      index_step=args.index_step, device=args.device,
-                     mesh=mesh)
-    out = fileio.easy_create(args.out)
-    for line in al.header().text:
-        out.write(line + "\n")
+                     mesh=mesh, index_sharding=args.index_sharding)
+    nproc, pid = process_count(), process_index()
+    sharded_out = nproc > 1
+    out_path = f"{args.out}.shard{pid}" if sharded_out else args.out
+    out = fileio.easy_create(out_path)
+    if not sharded_out:
+        for line in al.header().text:
+            out.write(line + "\n")
 
     t0 = time.perf_counter()
     n_done = 0
@@ -173,6 +195,8 @@ def align_cmd(args) -> None:
             for s in sams:
                 out.write(s.to_string() + "\n")
             n_done += len(sams)
+        if sharded_out:
+            out.write("#BATCH\n")
         _progress("gsw", n_done, t0)
 
     if len(args.files) == 3:
@@ -188,15 +212,23 @@ def align_cmd(args) -> None:
         dispatch, finish = al.align_batch_async, al.finish_batch_lines
     with ThreadPoolExecutor(max_workers=1) as ex:
         futs = deque()
-        for batch in inputs:
+        for bi, batch in enumerate(inputs):
+            if sharded_out and bi % nproc != pid:
+                continue
             futs.append(ex.submit(finish, dispatch(batch)))
             while len(futs) > 2:
                 emit(futs.popleft().result())
         while futs:
             emit(futs.popleft().result())
     _progress("gsw", n_done, t0, final=True)
-    if args.out not in ("-", "/dev/stdout", "stdout"):
+    if out_path not in ("-", "/dev/stdout", "stdout"):
         out.close()
+    if sharded_out:
+        dist.barrier()
+        if pid == 0:
+            merge_shard_files(args.out,
+                              [f"{args.out}.shard{p}" for p in range(nproc)],
+                              header_lines=al.header().text)
 
 
 def main(argv=None) -> None:
@@ -240,13 +272,21 @@ def main(argv=None) -> None:
                          "plain PyTorch versions")
     al.add_argument("--index-sharding", default="replicated",
                     choices=["replicated", "prefix"],
-                    help="tpu engine: prefix is not ported yet")
+                    help="tpu engine: k-mer index layout; prefix splits "
+                         "the sorted (code,pos) table over the mesh's "
+                         "data slices, looked up on their devices (needs "
+                         "--mesh or --multihost; the same SAM)")
     al.add_argument("--mesh", action="store_true",
                     help="tpu engine, .fa reference: shard each batch "
                          "data-parallel over every CUDA device (the whole "
                          "local DP a read)")
     al.add_argument("--multihost", action="store_true",
-                    help="tpu engine: not ported yet")
+                    help="tpu engine, .fa reference: one process a host "
+                         "in a torch.distributed group (gloo; RANK, "
+                         "WORLD_SIZE, MASTER_ADDR, MASTER_PORT from the "
+                         "environment), each on its host's devices as "
+                         "--mesh; process 0 merges the shard outputs "
+                         "into read order")
     al.add_argument("--profile", default="",
                     help="write a torch.profiler trace of the alignment to "
                          "this directory")

@@ -22,11 +22,13 @@ The counterpart of ``TpuReadAligner`` (``gonomics_tpu/tpu_align.py``):
       packing; a trace of (2 L + 2 pad)(L + 1) bytes a read on the card)
       on its own device, the results gathered in batch order
       (``parallel.shard_local_align``).
+    - with a mesh and ``index_sharding="prefix"``, the dense table split
+      into one chunk a row of the mesh's "data" axis, each on its row's
+      device (``split_index_prefix``, ``parallel.place_index_chunks``);
+      the read k-mers are looked up there (``parallel.shard_seed_lookup``)
+      and the votes counted on the host in numpy.
   host:
     - cigars, soft clips and SAM text; MapQ from the vote margin.
-
-The prefix-sharded index of the JAX aligner is not ported yet (ROADMAP
-queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -44,10 +46,8 @@ from .io.cigar import CigarOp
 from .io.fasta import Fasta
 from .io.fastq import Fastq, qual_string
 from .ops.banded import banded_align_full, unpack_ops, walk_length
-from .parallel import normal_device, shard_local_align
-
-_NOT_PORTED = ("not ported to the PyTorch package yet "
-               "(ROADMAP queue 1, item 7: multi-device paths)")
+from .parallel import (code_keys, normal_device, place_index_chunks,
+                       shard_local_align, shard_seed_lookup)
 
 
 def _window_codes_fast(s: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -112,6 +112,38 @@ def build_seed_index(genome: np.ndarray, k: int,
             torch.from_numpy(pos)[order].numpy())
 
 
+_PAD_CODE = np.uint64(1) << np.uint64(63)  # > any real or bad-window code
+
+
+def split_index_prefix(codes: np.ndarray, pos: np.ndarray,
+                       n_shards: int) -> tuple[np.ndarray, np.ndarray]:
+    """The sorted (code, pos) table split into n_shards contiguous chunks
+    whose boundaries fall between distinct codes, so that every k-mer's
+    run lies in one chunk; the chunks padded with ``_PAD_CODE`` (position
+    0) to the longest one's length L >= 1. Returns (codes (n, L) uint64,
+    pos (n, L)), as ``gonomics_tpu/tpu_align.py:136-159`` does; the
+    positions are int32 where every one fits, else int64 (the JAX casts
+    them to int32, which wraps past 2^31 bases)."""
+    N = len(codes)
+    bounds = [0]
+    for i in range(1, n_shards):
+        t = i * N // n_shards
+        if 0 < t < N:
+            # move back to the first occurrence of codes[t]: a boundary
+            t = int(np.searchsorted(codes, codes[t], side="left"))
+        bounds.append(max(bounds[-1], min(t, N)))
+    bounds.append(N)
+    L = max(1, max(bounds[i + 1] - bounds[i] for i in range(n_shards)))
+    fits = N == 0 or int(pos.max()) < 2 ** 31
+    ck = np.full((n_shards, L), _PAD_CODE, np.uint64)
+    ps = np.zeros((n_shards, L), np.int32 if fits else np.int64)
+    for i in range(n_shards):
+        lo, hi = bounds[i], bounds[i + 1]
+        ck[i, :hi - lo] = codes[lo:hi]
+        ps[i, :hi - lo] = pos[lo:hi]
+    return ck, ps
+
+
 def _batch_codes(seqs: np.ndarray, offsets: np.ndarray, k: int) -> np.ndarray:
     """(B, K) codes of the k-mers starting at the given offsets."""
     B = seqs.shape[0]
@@ -150,6 +182,10 @@ class ReadAligner:
         the aligner's device is the mesh's first (a ``device`` that
         differs raises ValueError). Outputs stay in batch order, so the
         SAM is the same for any mesh.
+        index_sharding: "replicated" (the whole table on the host) or
+        "prefix" (one chunk of the dense table a row of the mesh's
+        "data" axis, looked up on its device; needs a mesh and the dense
+        index). The SAM is the same for both.
         _index: a prebuilt (codes, pos) table from from_state()/load()."""
         if mesh is not None:
             first = mesh.devices[0][0]
@@ -157,12 +193,15 @@ class ReadAligner:
                 raise ValueError(f"device {device} is not the mesh's first "
                                  f"device {first}")
             device = first
-        if index_sharding == "prefix":
-            raise NotImplementedError(f"index_sharding='prefix': {_NOT_PORTED}")
-        if index_sharding != "replicated":
+        if index_sharding not in ("replicated", "prefix"):
             raise ValueError(f"unknown index_sharding: {index_sharding}")
+        if index_sharding == "prefix" and mesh is None:
+            raise ValueError("index_sharding='prefix' needs a mesh")
         if index_mode not in ("dense", "sparse"):
             raise ValueError(f"unknown index_mode: {index_mode}")
+        if index_sharding == "prefix" and index_mode != "dense":
+            raise ValueError("index_sharding='prefix' needs "
+                             "index_mode='dense'")
         self.device = resolve_device(device)
         self.mesh = mesh
         self._sharded_fns: dict = {}  # (L, W) -> shard_local_align's
@@ -216,6 +255,13 @@ class ReadAligner:
         else:
             self.idx_codes, self.idx_pos = build_seed_index(self.genome,
                                                             self.k)
+        self.index_sharding = index_sharding
+        self._shard_lookup = self._shards = None
+        if index_sharding == "prefix":
+            self._shards = place_index_chunks(mesh, *split_index_prefix(
+                self.idx_codes, self.idx_pos, mesh.shape["data"]))
+            self._shard_lookup = shard_seed_lookup(mesh,
+                                                   max_hits=self.max_hits)
 
     # ---- index persistence ----
 
@@ -277,11 +323,16 @@ class ReadAligner:
     # ---- seeding ----
 
     def _lookup_hits(self, codes: np.ndarray):
-        """(B, K) k-mer codes -> (hitpos (B, K, H), valid) from the
-        dense host table, in numpy (the native library does lookup and
-        vote in one pass, ``native.seed_vote``)."""
+        """(B, K) k-mer codes -> (hitpos (B, K, H), valid): from the
+        prefix-sharded chunks on the mesh's devices, or from the dense
+        host table in numpy (where the native library is there, the
+        replicated table's lookup and vote are one pass of
+        ``native.seed_vote``)."""
         B, K = codes.shape
         H = self.max_hits
+        if self._shard_lookup is not None:
+            hp, valid = self._shard_lookup(*self._shards, code_keys(codes))
+            return hp.cpu().numpy().astype(np.int64), valid.cpu().numpy()
         # probe in sorted-query order for locality
         q = codes.ravel()
         order = np.argsort(q, kind="stable")
@@ -390,13 +441,15 @@ class ReadAligner:
             return self._candidates_sparse(fwd, rev)
         B, L = fwd.shape
         offs = np.linspace(0, L - self.k, self.read_kmers).astype(np.int64)
-        got = native.seed_vote(fwd, rev, offs, self.k, self.idx_codes,
-                               self.idx_pos, self.max_hits)
-        if got is not None:  # whole seed+vote stage, one C pass
-            diag, votes, second, strand = got
-            return _Candidate(diag=diag, votes=votes, second=second,
-                              strand=strand)
-        # numpy fallback: one index lookup for both strands
+        if self._shard_lookup is None:
+            got = native.seed_vote(fwd, rev, offs, self.k, self.idx_codes,
+                                   self.idx_pos, self.max_hits)
+            if got is not None:  # whole seed+vote stage, one C pass
+                diag, votes, second, strand = got
+                return _Candidate(diag=diag, votes=votes, second=second,
+                                  strand=strand)
+        # the prefix-sharded lookup, or the numpy fallback: one index
+        # lookup for both strands
         codes = np.concatenate([_batch_codes(fwd, offs, self.k),
                                 _batch_codes(rev, offs, self.k)])
         hitpos, valid = self._lookup_hits(codes)

@@ -694,6 +694,136 @@ def test_read_aligner_mesh_on_card_equals_cpu(card):
     assert want.count("\tchr1\t") > 290
 
 
+def _mesh_reads(genome, n: int, L: int, seed: int):
+    """n reads of L bp with a SNP each, every other one reverse-
+    complemented."""
+    from gonomics_tpu_torch.io.fastq import Fastq
+
+    rng = np.random.default_rng(seed)
+    reads = []
+    for i in range(n):
+        s = int(rng.integers(0, len(genome) - L))
+        seq = genome[s:s + L].copy()
+        seq[int(rng.integers(0, L))] ^= 1
+        if i % 2:
+            seq = dna.reverse_complement(seq).astype(np.int8)
+        reads.append(Fastq(f"r{i}", seq, np.full(L, 30, np.uint8)))
+    return reads
+
+
+@pytest.mark.cuda
+def test_prefix_lookup_on_card_equals_cpu(card):
+    """shard_seed_lookup over 4 chunks on the one card equals the same
+    lookup over 4 chunks on the CPU, queries at every chunk's edges, the
+    pad and bad-window codes and a run past max_hits among them."""
+    from gonomics_tpu_torch import parallel
+    from gonomics_tpu_torch.read_align import (_PAD_CODE, build_seed_index,
+                                               split_index_prefix)
+
+    rng = np.random.default_rng(12)
+    unit = rng.integers(0, 4, 30).astype(np.int8)
+    genome = np.concatenate([np.tile(unit, 40),
+                             rng.integers(0, 4, 300_000).astype(np.int8)])
+    codes, pos = build_seed_index(genome, 21)
+    ck, ps = split_index_prefix(codes, pos, 4)
+    edges = [row[row != _PAD_CODE][[0, -1]] for row in ck]
+    q = np.concatenate([*edges, [_PAD_CODE, np.uint64(1) << np.uint64(62)],
+                        rng.choice(codes, 4086),
+                        rng.integers(0, 1 << 42, 4096).astype(np.uint64)])
+    q = q.astype(np.uint64).reshape(-1, 8)
+    got = []
+    for devices in ([card] * 4, ["cpu"] * 4):
+        mesh = parallel.make_mesh(devices=devices, data=4)
+        keys, cpos = parallel.place_index_chunks(mesh, ck, ps)
+        assert all(k.device == mesh.devices[0][0] for k in keys)
+        hp, valid = parallel.shard_seed_lookup(mesh, max_hits=8)(
+            keys, cpos, parallel.code_keys(q))
+        got.append((hp.cpu(), valid.cpu()))
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1], got[1][1])
+    assert int(got[0][1].sum(dim=2).max()) == 8
+
+
+@pytest.mark.cuda
+def test_prefix_aligner_on_card_equals_replicated(card):
+    """ReadAligner(index_sharding="prefix") on a mesh of four data slices
+    on the one card gives the SAM of the replicated index on a mesh of
+    one, single reads and pairs, launching K4 and the local walk once a
+    slice."""
+    from gonomics_tpu_torch.parallel import make_mesh
+    from gonomics_tpu_torch.read_align import ReadAligner
+
+    rng = np.random.default_rng(13)
+    genome = rng.integers(0, 4, 500_000).astype(np.int8)
+    reads = _mesh_reads(genome, 402, 120, 13)
+    repl = ReadAligner([Fasta("chr1", genome)], mesh=make_mesh(
+        devices=[card], data=1))
+    pref = ReadAligner.from_state(
+        repl.state(), mesh=make_mesh(devices=[card] * 4, data=4),
+        index_sharding="prefix")
+    want = repl.finish_batch_lines(repl.align_batch_async(reads))
+    counts = (wavefront.local_launches, gsw_dp.local_walk_launches)
+    got = pref.finish_batch_lines(pref.align_batch_async(reads))
+    assert (wavefront.local_launches - counts[0],
+            gsw_dp.local_walk_launches - counts[1]) == (4, 4)
+    assert got == want
+    assert want.count("\tchr1\t") > 395
+    pairs = list(zip(reads[0::2], reads[1::2]))
+    assert [s.to_string() for s in pref.align_pairs(pairs)] == [
+        s.to_string() for s in repl.align_pairs(pairs)]
+
+
+@pytest.mark.cuda
+def test_multihost_on_card(card, tmp_path):
+    """gsw align --multihost in two processes on the one card (gloo over
+    loopback), with and without --index-sharding prefix: the merged SAM
+    is byte-identical to one process's --mesh output."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from gonomics_tpu_torch.cli import gsw_cmd
+    from gonomics_tpu_torch.io.fastq import qual_string
+
+    rng = np.random.default_rng(14)
+    genome = rng.integers(0, 4, 400_000).astype(np.int8)
+    ref, fq = tmp_path / "ref.fa", tmp_path / "reads.fq"
+    s = dna.to_string(genome)
+    ref.write_text(">chrM\n" + "".join(s[i:i + 60] + "\n"
+                                       for i in range(0, len(s), 60)))
+    fq.write_text("".join(f"@{r.name}\n{dna.to_string(r.seq)}\n+\n"
+                          f"{qual_string(r.qual)}\n"
+                          for r in _mesh_reads(genome, 1000, 150, 14)))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for extra in ([], ["--index-sharding", "prefix"]):
+        flags = ["--engine", "tpu", "--batch", "256", *extra]
+        one = tmp_path / "one.sam"
+        gsw_cmd.main(["align", str(ref), str(fq), "-o", str(one), *flags,
+                      "--mesh"])
+        merged = tmp_path / "merged.sam"
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = str(sock.getsockname()[1])
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "gonomics_tpu_torch.cli.gsw_cmd", "align",
+             str(ref), str(fq), "-o", str(merged), *flags, "--multihost"],
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env={**os.environ, "RANK": str(r), "WORLD_SIZE": "2",
+                            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port})
+            for r in range(2)]
+        try:
+            errs = [p.communicate(timeout=300)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        assert [p.returncode for p in procs] == [0, 0], errs
+        assert merged.read_bytes() == one.read_bytes(), extra
+        assert one.read_text().count("\tchrM\t") > 990
+
+
 @pytest.mark.cuda
 def test_graph_warp_slots(card):
     """The warp design at every count of slots a lane it is built for that

@@ -100,15 +100,43 @@ def test_profile_writes_trace(tmp_path):
     assert "traceEvents" in trace.read_text()
 
 
-@pytest.mark.parametrize("extra,item", [
-    pytest.param(["--multihost"], "item 7", id="extra1-item 7"),
-    pytest.param(["--index-sharding", "prefix"], "item 7",
-                 id="extra2-item 7")])
-def test_unported_options_exit(tmp_path, extra, item):
+@pytest.mark.parametrize("extra", [
+    pytest.param(["--multihost"], id="extra1-item 7"),
+    pytest.param(["--index-sharding", "prefix"], id="extra2-item 7")])
+def test_unported_options_exit(tmp_path, monkeypatch, extra):
+    """The two options that exited before their port (ROADMAP item 7)
+    now run as the JAX CLI's: --multihost in a group of one process (from
+    torchrun's environment) writes the plain SAM and leaves the group;
+    --index-sharding prefix without --mesh or --multihost raises the JAX
+    aligner's ValueError (no mesh)."""
+    import socket
+
+    import torch.distributed as dist
+
     ref, r1, _ = _write_inputs(tmp_path)
-    with pytest.raises(SystemExit, match=item):
-        port_gsw.main(["align", ref, r1, "-o", str(tmp_path / "o.sam"),
-                       "--device", "cpu", "--engine", "tpu", *extra])
+    flags = ["--engine", "tpu", "--batch", "4"]
+    plain, got = tmp_path / "plain.sam", tmp_path / "o.sam"
+    if extra == ["--multihost"]:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                           ("MASTER_ADDR", "127.0.0.1"),
+                           ("MASTER_PORT", str(port))):
+            monkeypatch.setenv(key, value)
+        port_gsw.main(["align", ref, r1, "-o", str(plain), *flags,
+                       "--device", "cpu"])
+        port_gsw.main(["align", ref, r1, "-o", str(got), *flags,
+                       "--device", "cpu", *extra])
+        assert not dist.is_initialized()
+        assert got.read_bytes() == plain.read_bytes()
+        return
+    with pytest.raises(ValueError, match="needs a mesh") as port_err:
+        port_gsw.main(["align", ref, r1, "-o", str(got), *flags,
+                       "--device", "cpu", *extra])
+    with pytest.raises(ValueError) as jax_err:
+        jax_gsw.main(["align", ref, r1, "-o", str(plain), *flags, *extra])
+    assert str(port_err.value) == str(jax_err.value)
 
 
 @pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])

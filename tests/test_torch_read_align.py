@@ -180,6 +180,22 @@ def test_default_device_is_the_card(monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [{"index_sharding": "prefix"}])
 def test_multi_device_options_not_ported(kwargs):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        read_align.ReadAligner([TFasta("chr1", _genome()[:2_000])],
-                               device="cpu", **kwargs)
+    """The option that raised NotImplementedError before its port (ROADMAP
+    item 7) runs as the JAX aligner's: without a mesh it raises the JAX's
+    ValueError; on a mesh it gives the replicated index's SAM."""
+    from gonomics_tpu_torch.parallel import make_mesh
+
+    genome = _genome()
+    with pytest.raises(ValueError) as port_err:
+        read_align.ReadAligner([TFasta("chr1", genome)], device="cpu",
+                               **kwargs)
+    with pytest.raises(ValueError) as jax_err:
+        TpuReadAligner([Fasta("chr1", genome)], **kwargs)
+    assert str(port_err.value) == str(jax_err.value)
+    mesh = make_mesh(devices=["cpu"] * 2, data=2)
+    sharded = read_align.ReadAligner([TFasta("chr1", genome)], mesh=mesh,
+                                     **kwargs)
+    plain = read_align.ReadAligner([TFasta("chr1", genome)], device="cpu")
+    reads = [TFastq(r.name, r.seq, r.qual) for r in _reads(genome)]
+    assert ([s.to_string() for s in sharded.align_batch(reads)]
+            == [s.to_string() for s in plain.align_batch(reads)])
