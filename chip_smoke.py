@@ -156,6 +156,27 @@ exits non-zero:
             its time limit, K4 and the local walk launched once a batch
             over the children, and both exactly equal to their plain
             versions on the first batch's inputs.
+19. variants: the variant caller's path on a 2 Mbp seeded chromosome,
+            an experimental and a normal sample of paired 150 bp reads at
+            20x as coordinate-sorted SAM (~40 M pileup events a sample),
+            2,000 SNVs and 200 1-5 bp indels planted in the experimental
+            one: the port's `callVariants --mesh` on the card (a (1, 1)
+            mesh), the library call on a 4 x 2 mesh of the repeated card,
+            the call without a mesh (host counts), and the CLI again with
+            --profile DIR: the four VCFs byte-identical, each sample's
+            card counts equal to the host's, every planted SNV called with
+            its alt, the trace written; the wall split into load and
+            parse, the count on the card's clock, calling and write; the
+            calls off planted sites and the count tensor's bytes printed.
+20. motif_popgen: the motif scan of a 50 Mbp seeded sequence (N runs,
+            lowercase stretches) with a 20-column PWM, its first 1 Mbp
+            against the CPU (the same -inf windows, rtol 1e-5); the AFS
+            grid on 262,144 (n, k, alpha) triples at 2049 points, its
+            first 4,096 against the CPU (NaN in the same places, the rest
+            within the bound of tests/test_torch_popgen.py);
+            wright_fisher_sim(10_000, 1_000, s=0.01) twice from one seed,
+            identical; each timed. None of these has a hand-written
+            kernel: the JAX device code they port is no Pallas kernel.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -316,6 +337,21 @@ SCORE_B, SCORE_L, SCORE_P, SCORE_R = 256, 1024, 8, 512
 # per walk step: trace address, load, activity test, the next state's
 # shift and mask, i and j updates
 LOWMEM_WALK_OPS_PER_STEP = 7
+
+# the variants phase: a VARIANT_BP chromosome, an experimental and a normal
+# sample at VARIANT_DEPTH x coverage of VARIANT_L bp paired reads (evenly
+# spaced starts), VARIANT_SNVS SNVs and VARIANT_INDELS 1-5 bp indels
+# planted in the experimental sample, where 3 of every 4 reads carry them;
+# VARIANT_ERR sequencing errors a base in both
+VARIANT_BP, VARIANT_DEPTH, VARIANT_L = 2_000_000, 20, 150
+VARIANT_SNVS, VARIANT_INDELS, VARIANT_ERR = 2000, 200, 0.002
+# the motif_popgen phase: the scan of a MOTIF_BP sequence with a MOTIF_L
+# column PWM, its first MOTIF_CPU_BP windows against the CPU; the AFS grid
+# on AFS_TRIPLES (n, k, alpha) at AFS_POINTS points, its first AFS_CPU
+# against the CPU; wright_fisher_sim(*WF_ARGS) twice from one seed
+MOTIF_BP, MOTIF_L, MOTIF_CPU_BP = 50_000_000, 20, 1_000_000
+AFS_TRIPLES, AFS_POINTS, AFS_CPU = 262_144, 2049, 4096
+WF_ARGS = (10_000, 1_000, 0.01)
 
 
 def emit(obj) -> None:
@@ -1563,17 +1599,17 @@ def graph_vcfs(genome: np.ndarray, seed: int) -> list:
             if (p // 10000) % 2:
                 out.append(Vcf("chr1", p, ".",
                                dna.to_string(genome[p - 1:p + k]),
-                               [dna.to_string(base)], "SVTYPE=DEL"))
+                               [dna.to_string(base)], info="SVTYPE=DEL"))
             else:
                 ins = rng.integers(0, 4, k).astype(np.int8)
                 out.append(Vcf("chr1", p, ".", dna.to_string(base),
                                [dna.to_string(np.concatenate([base, ins]))],
-                               "SVTYPE=INS"))
+                               info="SVTYPE=INS"))
         else:
             alt = (base + int(rng.integers(1, 4))) % 4
             out.append(Vcf("chr1", p, ".", dna.to_string(base),
                            [dna.to_string(alt.astype(np.int8))],
-                           "SVTYPE=SNP"))
+                           info="SVTYPE=SNP"))
     return out
 
 
@@ -3073,6 +3109,339 @@ def phase_multihost(dev: torch.device, G: int) -> dict:
     return out
 
 
+def walk_read(genome: np.ndarray, start: int, L: int, kind: str, p: int,
+              payload):
+    """The bases and cigar of a read of L bases whose alignment starts at
+    0-based start, through one deletion ("del", payload its length) or
+    insertion ("ins", payload its bases) at p."""
+    bases, ops = [], []
+    pos = start
+    while len(bases) < L:
+        if pos == p and ops and kind == "del":
+            ops.append(["D", payload])
+            pos += payload
+            continue
+        if pos == p and ops and kind == "ins" and L - len(bases) > len(payload):
+            bases.extend(payload.tolist())
+            ops.append(["I", len(payload)])
+        bases.append(int(genome[pos]))
+        if ops and ops[-1][0] == "M":
+            ops[-1][1] += 1
+        else:
+            ops.append(["M", 1])
+        pos += 1
+    return (np.asarray(bases[:L], np.int8),
+            "".join(f"{n}{op}" for op, n in ops))
+
+
+def variant_data(tmp: str, seed: int = 800):
+    """ref.fa (+ .fai), exp.sam and norm.sam under tmp (see VARIANT_BP):
+    coordinate-sorted paired reads (flag R1 or R2 alternately, every
+    other pair on the reverse strand, mapq 60). Planted variants lie at
+    least 300 bp apart, so a read holds at most one. Returns (ref, exp,
+    norm, variants {0-based pos: (kind, payload)})."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.io import fai
+
+    rng = np.random.default_rng(seed)
+    G, Lr = VARIANT_BP, VARIANT_L
+    genome = rng.integers(0, 4, G).astype(np.int8)
+    slots = np.arange(1000, G - 1000, 400)
+    count = VARIANT_SNVS + VARIANT_INDELS
+    pos = np.sort(rng.choice(slots, count, replace=False)
+                  + rng.integers(0, 100, count))
+    kinds = np.array(["snv"] * VARIANT_SNVS + ["del"] * (VARIANT_INDELS // 2)
+                     + ["ins"] * (VARIANT_INDELS - VARIANT_INDELS // 2))
+    rng.shuffle(kinds)
+    variants = {}
+    for p, kind in zip(pos.tolist(), kinds.tolist()):
+        if kind == "snv":
+            variants[p] = (kind, int((genome[p] + rng.integers(1, 4)) % 4))
+        elif kind == "del":
+            variants[p] = (kind, int(rng.integers(1, 6)))
+        else:
+            variants[p] = (kind, rng.integers(0, 4, int(rng.integers(1, 6)))
+                           .astype(np.int8))
+    ref = os.path.join(tmp, "ref.fa")
+    s = dna.to_string(genome)
+    with open(ref, "w") as f:
+        f.write(">chrS\n")
+        f.writelines(s[i:i + 60] + "\n" for i in range(0, len(s), 60))
+    fai.write_index(fai.create_index(ref), ref + ".fai")
+    n = G * VARIANT_DEPTH // Lr
+    vpos = np.array(sorted(variants))
+    ascii_ = np.frombuffer(b"ACGTN", np.uint8)
+    paths = []
+    for name, tumour, shift in (("exp", True, 0), ("norm", False, 3)):
+        starts = (np.arange(n, dtype=np.int64) * (G - Lr - 20)) // n + shift
+        seqs = genome[starts[:, None] + np.arange(Lr)]
+        cigars = np.full(n, f"{Lr}M", dtype=object)
+        if tumour:
+            mutant = np.arange(n) % 4 != 0
+            at = vpos[np.minimum(np.searchsorted(vpos, starts), len(vpos) - 1)]
+            inside = mutant & (at >= starts) & (at < starts + Lr)
+            for i in np.nonzero(inside)[0].tolist():
+                p = int(at[i])
+                kind, payload = variants[p]
+                if kind == "snv":
+                    seqs[i, p - starts[i]] = payload
+                else:
+                    seqs[i], cigars[i] = walk_read(genome, int(starts[i]), Lr,
+                                                   kind, p, payload)
+        err = rng.random(seqs.shape) < VARIANT_ERR
+        seqs[err] = (seqs[err] + rng.integers(1, 4, int(err.sum()))) % 4
+        text = ascii_[seqs]
+        flags = 1 + np.where(np.arange(n) % 2 == 0, 64, 128) + np.where(
+            (np.arange(n) // 2) % 2 == 1, 16, 0)
+        path = os.path.join(tmp, f"{name}.sam")
+        with open(path, "w") as f:
+            f.write(f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chrS\tLN:{G}\n")
+            f.writelines(
+                f"{name}{i}\t{flags[i]}\tchrS\t{starts[i] + 1}\t60\t"
+                f"{cigars[i]}\t=\t{starts[i] + 201}\t0\t"
+                f"{text[i].tobytes().decode()}\t*\n" for i in range(n))
+        paths.append(path)
+    return ref, paths[0], paths[1], variants
+
+
+def phase_variants(dev: torch.device) -> dict:
+    """The variant caller's path (``callVariants``) on the seeded samples
+    of ``variant_data``: (1) the port's CLI ``-i exp.sam -n norm.sam -r
+    ref.fa --mesh`` on the card (``make_mesh()`` over the one card, a (1,
+    1) mesh); (2) the library ``call_variants`` on a mesh that repeats the
+    card 8 times (data 4 x seq 2); (3) the same call without a mesh (the
+    native host counts); (4) run 1 again with ``--profile DIR``. Each
+    run's wall split into load and parse (from the first file's load to
+    the last's, their counts taken out), the count on the card (CUDA
+    events around each ``shard_pileup_counts`` call), calling (the rest:
+    the header, the reference, the prescreen, the per-site caller) and
+    write. Gates: the four
+    VCFs byte-identical; each sample's card counts equal to the host
+    ``runs_to_counts`` tensor exactly, chromosome for chromosome; every
+    planted SNV called with its alt; the profiler's trace written; every
+    count made on the card."""
+    from gonomics_tpu_torch import parallel, pileup
+    from gonomics_tpu_torch.cli import call_variants as cv
+    from gonomics_tpu_torch.io import vcf as vcfio
+    from gonomics_tpu_torch.parallel import make_mesh
+
+    out = {"phase": "variants", "chrom_bp": VARIANT_BP,
+           "depth": VARIANT_DEPTH, "read_len": VARIANT_L,
+           "snvs": VARIANT_SNVS, "indels": VARIANT_INDELS}
+    orig = (pileup.pileup_dense_from_sam_path, parallel.shard_pileup_counts,
+            vcfio.write_vcf)
+    stats: dict = {}
+    dense: dict = {}
+
+    def load(path, header, min_mapq, mesh=None, nthreads=0):
+        t = time.perf_counter()
+        res = orig[0](path, header, min_mapq, mesh=mesh, nthreads=nthreads)
+        stats["loads"].append((t, time.perf_counter()))
+        dense[stats["run"]][os.path.basename(path)] = res
+        return res
+
+    def shard(mesh, *, span, n_base=13):
+        fn = orig[1](mesh, span=span, n_base=n_base)
+
+        def timed(rel, code, valid):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn(rel, code, valid)
+            end.record()
+            end.synchronize()
+            stats["count_ms"].append(start.elapsed_time(end))
+            stats["count_events"] += len(rel)
+            stats["count_bytes"] += res.numel() * res.element_size()
+            stats["count_devices"].add(res.device.type)
+            return res
+        return timed
+
+    def write(f, record):
+        t = time.perf_counter()
+        orig[2](f, record)
+        stats["write_s"] += time.perf_counter() - t
+
+    def run(name: str, fn) -> dict:
+        stats.clear()
+        stats.update(run=name, loads=[], write_s=0.0, count_ms=[],
+                     count_events=0, count_bytes=0, count_devices=set())
+        dense[name] = {}
+        t = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t
+        # the files load one after another on a mesh, in threads without
+        # one: their wall runs from the first load's start to the last's end
+        loads = stats["loads"]
+        load_s = max(e for _, e in loads) - min(b for b, _ in loads)
+        count_s = sum(stats["count_ms"]) / 1e3
+        return {"wall_s": wall, "load_and_parse_s": load_s - count_s,
+                "count_ms": stats["count_ms"],
+                "calling_s": wall - load_s - stats["write_s"],
+                "write_s": stats["write_s"],
+                "count_events": stats["count_events"],
+                "count_tensor_bytes": stats["count_bytes"],
+                "count_devices": sorted(stats["count_devices"])}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref, exp, norm, variants = variant_data(tmp)
+        out["data_s"] = time.perf_counter() - t0
+        out["reads_per_sample"] = VARIANT_BP * VARIANT_DEPTH // VARIANT_L
+        vcfs = [os.path.join(tmp, f"v{i}.vcf") for i in range(4)]
+        prof = os.path.join(tmp, "prof")
+        pileup.pileup_dense_from_sam_path = load
+        parallel.shard_pileup_counts = shard
+        vcfio.write_vcf = write
+        try:
+            argv = ["-i", exp, "-n", norm, "-r", ref, "--mesh"]
+            out["cli_mesh"] = run("cli_mesh", lambda: cv.main(
+                [*argv, "-o", vcfs[0]]))
+            mesh8 = make_mesh(devices=[dev] * 8, data=4, seq=2)
+            out["mesh_4x2"] = run("mesh_4x2", lambda: cv.call_variants(
+                [exp], [norm], ref, vcfs[1], mesh=mesh8))
+            out["host"] = run("host", lambda: cv.call_variants(
+                [exp], [norm], ref, vcfs[2]))
+            out["cli_mesh_profiled"] = run("profiled", lambda: cv.main(
+                [*argv, "-o", vcfs[3], "--profile", prof]))
+        finally:
+            (pileup.pileup_dense_from_sam_path, parallel.shard_pileup_counts,
+             vcfio.write_vcf) = orig
+        texts = []
+        for v in vcfs:
+            with open(v, "rb") as f:
+                texts.append(f.read())
+        trace = os.path.join(prof, "call_variants.pt.trace.json")
+        out["trace_bytes"] = (os.path.getsize(trace)
+                              if os.path.exists(trace) else 0)
+    out["vcf_byte_identical"] = texts[0] == texts[1] == texts[2] == texts[3]
+    counts_equal = []
+    for run_name in ("cli_mesh", "mesh_4x2", "profiled"):
+        for f, cds in dense[run_name].items():
+            host = dense["host"][f]
+            counts_equal.append(sorted(cds) == sorted(host) and all(
+                cds[k].lo == host[k].lo and np.array_equal(
+                    cds[k].counts, host[k].counts.astype(np.int32))
+                for k in cds))
+    out["card_counts_equal_host"] = counts_equal
+    rows = [ln.split("\t") for ln in texts[0].decode().splitlines()
+            if not ln.startswith("#")]
+    called = {int(r[1]): r[4].split(",") for r in rows}
+    snvs = {p: a for p, (k, a) in variants.items() if k == "snv"}
+    out["records"] = len(rows)
+    out["snvs_called_with_alt"] = sum(
+        "ACGT"[a] in called.get(p + 1, []) for p, a in snvs.items())
+    indel_sites = {p for p, (k, _) in variants.items() if k != "snv"}
+    out["indels_called"] = sum(p in called or p + 1 in called
+                               for p in indel_sites)
+    planted = {p + 1 for p in snvs} | indel_sites | {p + 1
+                                                     for p in indel_sites}
+    out["calls_off_planted_sites"] = sum(p not in planted for p in called)
+    emit(out)
+    if not (out["vcf_byte_identical"] and all(counts_equal)
+            and len(counts_equal) == 6
+            and out["snvs_called_with_alt"] == len(snvs)
+            and out["trace_bytes"] > 0
+            and all(out[r]["count_devices"] == ["cuda"]
+                    and len(out[r]["count_ms"]) == 2
+                    for r in ("cli_mesh", "mesh_4x2", "cli_mesh_profiled"))
+            and out["host"]["count_ms"] == []):
+        raise SystemExit("variants check failed")
+    return out
+
+
+def phase_motif_popgen(dev: torch.device) -> dict:
+    """The motif scan, the AFS grid and the Wright-Fisher simulation on
+    the card (device=None): the scan of a MOTIF_BP seeded sequence with N
+    runs and lowercase stretches and a MOTIF_L column PWM, its first
+    MOTIF_CPU_BP scores against the CPU (the same -inf windows, rtol
+    1e-5); the grid on AFS_TRIPLES triples, its first AFS_CPU against the
+    CPU (NaN in the same places, the rest within rtol 1e-5, atol 1e-6 and
+    8 float32 ulp of lgamma(n + 1) + |F|: tests/test_torch_popgen.py);
+    wright_fisher_sim(*WF_ARGS) twice from one seed, identical. Each
+    timed on the card's clock."""
+    import math
+
+    from gonomics_tpu_torch import motif, popgen
+
+    out = {"phase": "motif_popgen"}
+    rng = np.random.default_rng(900)
+    seq = rng.integers(0, 4, MOTIF_BP).astype(np.int8)
+    for s, n in zip(rng.integers(0, MOTIF_BP - 1000, 500),
+                    rng.integers(1, 1000, 500)):
+        seq[s:s + n] = 4
+    for s, n in zip(rng.integers(0, MOTIF_BP - 5000, 2000),
+                    rng.integers(1, 5000, 2000)):
+        part = seq[s:s + n]
+        part[part <= 4] += 5
+    pfm = rng.integers(0, 100, (4, MOTIF_L)) + 0.5
+    pm = motif.PositionMatrix(id="M0", name="seeded", type="Weight",
+                              mat=np.log2(pfm / pfm.sum(0) / 0.25))
+    seq_dev = torch.from_numpy(seq).to(dev)
+    scores, first_ms = once_ms(lambda: motif.scan_scores_device(pm, seq_dev))
+    cpu = motif.scan_scores_device(pm, seq[:MOTIF_CPU_BP + MOTIF_L - 1],
+                                   device="cpu").numpy()
+    got = scores[:MOTIF_CPU_BP].cpu().numpy()
+    fin = np.isfinite(cpu)
+    out["motif"] = {
+        "bp": MOTIF_BP, "columns": MOTIF_L, "device": scores.device.type,
+        "windows": scores.numel(), "first_ms": first_ms,
+        "ms": median_ms(lambda: motif.scan_scores_device(pm, seq_dev),
+                        runs=5),
+        "neg_inf_windows": int(torch.isinf(scores).sum()),
+        "same_neg_inf": bool(np.array_equal(np.isfinite(got), fin)),
+        "allclose_rtol_1e-5": bool(np.allclose(got[fin], cpu[fin],
+                                               rtol=1e-5, atol=0)),
+        "equal_to_cpu": bool(np.array_equal(got, cpu))}
+    del scores, seq_dev
+    n = rng.integers(2, 200, AFS_TRIPLES)
+    k = (rng.random(AFS_TRIPLES) * (n - 1)).astype(np.int64) + 1
+    alpha = rng.uniform(-20, 20, AFS_TRIPLES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grid, first_ms = once_ms(lambda: popgen.afs_sample_density_grid(
+        n, k, alpha, grid_points=AFS_POINTS))
+    peak = torch.cuda.max_memory_allocated() - base
+    cpu = popgen.afs_sample_density_grid(
+        n[:AFS_CPU], k[:AFS_CPU], alpha[:AFS_CPU], grid_points=AFS_POINTS,
+        device="cpu").numpy()
+    got = grid[:AFS_CPU].cpu().numpy()
+    nan = np.isnan(cpu)
+    lg = np.array([math.lgamma(float(x) + 1) for x in n[:AFS_CPU]])
+    bound = (1e-6 + 1e-5 * np.abs(cpu)
+             + 8 * float(np.finfo(np.float32).eps) * (lg + np.abs(cpu)))
+    ratio = (np.abs(got - cpu) / bound)[~nan]
+    out["afs_grid"] = {
+        "triples": AFS_TRIPLES, "points": AFS_POINTS,
+        "device": grid.device.type, "first_ms": first_ms,
+        "ms": median_ms(lambda: popgen.afs_sample_density_grid(
+            n, k, alpha, grid_points=AFS_POINTS), runs=3),
+        "peak_bytes": peak, "nan": int(torch.isnan(grid).sum()),
+        "same_nan": bool(np.array_equal(np.isnan(got), nan)),
+        "max_err_over_bound": float(ratio.max()),
+        "max_abs_err": float(np.abs(got - cpu)[~nan].max()),
+        "equal_to_cpu_frac": float((got == cpu)[~nan].mean())}
+    del grid
+    pop, gens, sel = WF_ARGS
+    a, a_ms = once_ms(lambda: popgen.wright_fisher_sim(pop, gens, s=sel,
+                                                       seed=17))
+    b, b_ms = once_ms(lambda: popgen.wright_fisher_sim(pop, gens, s=sel,
+                                                       seed=17))
+    out["wright_fisher"] = {
+        "pop_size": pop, "generations": gens, "s": sel,
+        "device": a.device.type, "ms": [a_ms, b_ms],
+        "identical": bool(torch.equal(a, b)), "final": float(a[-1])}
+    emit(out)
+    m, g, w = out["motif"], out["afs_grid"], out["wright_fisher"]
+    if not (m["device"] == g["device"] == w["device"] == "cuda"
+            and m["same_neg_inf"] and m["allclose_rtol_1e-5"]
+            and g["same_nan"] and g["max_err_over_bound"] <= 1
+            and w["identical"] and a.shape == (gens,)):
+        raise SystemExit("motif_popgen check failed")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -3102,6 +3471,8 @@ def main() -> int:
     score = phase_score(dev)
     prefix = phase_prefix(dev, 100_000_000)
     multihost = phase_multihost(dev, CLI_BP)
+    phase_variants(dev)
+    phase_motif_popgen(dev)
     launches = {**e2e["launches"], **pairwise["launches"],
                 **graph["launches"], **lowmem["launches"],
                 **score["launches"],

@@ -1,5 +1,6 @@
 """DNA base codes and sequence conversion: the subset of
-``gonomics_tpu/dna.py`` that the read aligner uses.
+``gonomics_tpu/dna.py`` that the read aligners and the variant caller
+use.
 
 A sequence is an int8 numpy array of base codes 0..12, the same integer
 codes as the reference's ``dna`` package.
@@ -55,6 +56,23 @@ def from_string(s: str | bytes) -> np.ndarray:
             f"invalid base {bad!r}: only AaCcGgTtNn-.* are supported"
         )
     return codes.astype(np.int8)
+
+
+_CHAR_TO_BASE_UPPER = np.full(256, N, dtype=np.int8)
+for _i, _ch in enumerate(b"ACGTN"):
+    _CHAR_TO_BASE_UPPER[_ch] = _i
+    _CHAR_TO_BASE_UPPER[_ch + 32] = _i  # lowercase -> upper code
+_CHAR_TO_BASE_UPPER[ord("-")] = GAP
+_CHAR_TO_BASE_UPPER[ord(".")] = DOT
+_CHAR_TO_BASE_UPPER[ord("*")] = NIL
+
+
+def from_string_upper_forced(s: str | bytes) -> np.ndarray:
+    """Case folded, invalid characters to N, in one table lookup: how the
+    SAM reader parses a read's bases (dna.py:97)."""
+    raw = np.frombuffer(s.encode() if isinstance(s, str) else s,
+                        dtype=np.uint8)
+    return _CHAR_TO_BASE_UPPER[raw]
 
 
 def to_string(seq: np.ndarray) -> str:

@@ -1,5 +1,6 @@
 """File handles that read gzip transparently: the subset of
-``gonomics_tpu/fileio.py`` that the readers and the ``gsw`` CLI use.
+``gonomics_tpu/fileio.py`` that the readers, the ``gsw`` CLI and the
+motif reader use.
 
 ``easy_open`` sniffs the gzip magic rather than the extension;
 ``easy_create`` gzips when the name ends in ``.gz``; ``"-"`` means stdin
@@ -49,3 +50,9 @@ def real_lines(f: IO[str]) -> Iterator[str]:
     for ln in f:
         if not ln.startswith("#"):
             yield ln.rstrip("\n")
+
+
+def read(filename: str) -> list[str]:
+    """Every non-comment line of a file (fileio.go:24)."""
+    with easy_open(filename) as f:
+        return [ln.rstrip("\n") for ln in f if not ln.startswith("#")]

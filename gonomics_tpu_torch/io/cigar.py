@@ -1,9 +1,14 @@
 """SAM cigar run-length ops: the subset of ``gonomics_tpu/io/cigar.py``
-that SAM and giraf emission use."""
+that SAM and giraf emission, the SAM readers and the pileup use."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+OP_TABLE = "MIDNSHP=X"  # BAM numeric op -> char
+
+_CONSUMES_REF = set("MDN=X")
+_CONSUMES_QUERY = set("MIS=X")
 
 
 @dataclass
@@ -12,7 +17,17 @@ class CigarOp:
     op: str
 
 
-_CONSUMES_QUERY = set("MIS=X")
+def consumes_reference(op: str) -> bool:
+    return op in _CONSUMES_REF
+
+
+def consumes_query(op: str) -> bool:
+    return op in _CONSUMES_QUERY
+
+
+def is_unmapped(cig: list[CigarOp]) -> bool:
+    """'*' cigar or empty (cigar.IsUnmapped)."""
+    return len(cig) == 0 or cig[0].op == "*"
 
 
 def query_length(cig: list[CigarOp]) -> int:
@@ -26,3 +41,17 @@ def to_string(cig: list[CigarOp]) -> str:
     if cig[0].op == "*":
         return "*"
     return "".join(f"{c.run_length}{c.op}" for c in cig)
+
+
+def from_string(s: str) -> list[CigarOp]:
+    if s == "*" or s == "":
+        return [CigarOp(0, "*")] if s == "*" else []
+    out: list[CigarOp] = []
+    n = 0
+    for ch in s:
+        if ch.isdigit():
+            n = n * 10 + ord(ch) - 48
+        else:
+            out.append(CigarOp(n, ch))
+            n = 0
+    return out

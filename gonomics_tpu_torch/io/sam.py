@@ -1,15 +1,32 @@
-"""SAM records and headers: the subset of ``gonomics_tpu/io/sam.py``
-that the read aligner emits."""
+"""SAM records and headers, and the SAM and BAM readers: the subset of
+``gonomics_tpu/io/sam.py`` that the read aligner emits and the variant
+caller reads (the flag tests :72-83, ``parse_header_text`` :94, the text
+reader :122-153, the BAM decoder :156-259 and its tag text :311-366,
+``read`` :262 and ``read_header_text`` :469). Records match the JAX
+reader's field for field."""
 
 from __future__ import annotations
 
+import gzip
+import struct
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import dna
+from .. import dna, fileio
 from . import cigar as samcigar
 from .chrom_info import ChromInfo
+
+BAM_MAGIC = b"BAM\x01"
+
+# 4-bit BAM base -> dna code ("=ACMGRSVTWYHKDBN", unsupported -> NIL;
+# bamRead.go baseDecoder)
+_BASE_DECODER = np.full(16, dna.NIL, dtype=np.int8)
+_BASE_DECODER[1] = dna.A
+_BASE_DECODER[2] = dna.C
+_BASE_DECODER[4] = dna.G
+_BASE_DECODER[8] = dna.T
+_BASE_DECODER[15] = dna.N
 
 
 @dataclass
@@ -35,8 +52,270 @@ class Sam:
         return base + (f"\t{self.extra}" if self.extra else "")
 
 
+# flag predicates (sam/flag.go)
+def is_paired(s: Sam) -> bool: return bool(s.flag & 1)
+def properly_aligned(s: Sam) -> bool: return bool(s.flag & 2)
+def is_unmapped_flag(s: Sam) -> bool: return bool(s.flag & 4)
+def mate_is_unmapped(s: Sam) -> bool: return bool(s.flag & 8)
+def is_pos_strand(s: Sam) -> bool: return not s.flag & 16
+def mate_is_pos_strand(s: Sam) -> bool: return not s.flag & 32
+def is_forward_read(s: Sam) -> bool: return bool(s.flag & 64)
+def is_reverse_read(s: Sam) -> bool: return bool(s.flag & 128)
+def is_not_primary_align(s: Sam) -> bool: return bool(s.flag & 256)
+def read_fails_qc(s: Sam) -> bool: return bool(s.flag & 512)
+def is_duplicate(s: Sam) -> bool: return bool(s.flag & 1024)
+def is_supplementary(s: Sam) -> bool: return bool(s.flag & 2048)
+
+
 @dataclass
 class Header:
     text: list[str] = field(default_factory=list)
     chroms: list[ChromInfo] = field(default_factory=list)
     sort_order: list[str] = field(default_factory=list)
+    grouping: str = ""
+
+
+def parse_header_text(text: list[str]) -> Header:
+    """@SQ SN/LN -> chroms, @HD SO/SS -> sort_order, GO -> grouping
+    (metadata.go:87)."""
+    h = Header(text=list(text))
+    order = 0
+    for line in text:
+        if line.startswith("@SQ"):
+            name, size = "", 0
+            for f in line.split("\t")[1:]:
+                if f.startswith("SN:"):
+                    name = f[3:]
+                elif f.startswith("LN:"):
+                    size = int(f[3:])
+            h.chroms.append(ChromInfo(name, size, order))
+            order += 1
+        elif line.startswith("@HD"):
+            for f in line.split("\t")[1:]:
+                if f.startswith("SO:"):
+                    h.sort_order = [f[3:]]
+                elif f.startswith("SS:"):
+                    h.sort_order = f[3:].split(":")[-1].split(",")
+                elif f.startswith("GO:"):
+                    h.grouping = f[3:]
+    if not h.sort_order:
+        h.sort_order = ["unknown"]
+    return h
+
+
+def _parse_sam_line(line: str) -> Sam:
+    f = line.split("\t")
+    seq = (np.zeros(0, np.int8) if f[9] == "*"
+           else dna.from_string_upper_forced(f[9]))
+    return Sam(qname=f[0], flag=int(f[1]), rname=f[2], pos=int(f[3]),
+               mapq=int(f[4]), cigar=samcigar.from_string(f[5]), rnext=f[6],
+               pnext=int(f[7]), tlen=int(f[8]), seq=seq, qual=f[10],
+               extra="\t".join(f[11:]) if len(f) > 11 else "")
+
+
+def _is_bam(filename: str) -> bool:
+    with open(filename, "rb") as f:
+        magic = f.read(2)
+        if magic != fileio.GZIP_MAGIC:
+            return False
+    with gzip.open(filename, "rb") as g:
+        return g.read(4) == BAM_MAGIC
+
+
+def read_sam_text(filename: str):
+    """(header, records) of a text SAM file, gzipped or not."""
+    header_lines: list[str] = []
+    records: list[Sam] = []
+    with fileio.easy_open(filename) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            if line.startswith("@"):
+                header_lines.append(line)
+            else:
+                records.append(_parse_sam_line(line))
+    return parse_header_text(header_lines), records
+
+
+def _decode_seq(packed: bytes, l_seq: int) -> np.ndarray:
+    raw = np.frombuffer(packed, dtype=np.uint8)
+    out = np.empty(len(raw) * 2, dtype=np.int8)
+    out[0::2] = _BASE_DECODER[raw >> 4]
+    out[1::2] = _BASE_DECODER[raw & 0xF]
+    return out[:l_seq]
+
+
+def read_bam(filename: str):
+    """Decode a BAM file: (header, refs, records), with sam.DecodeBam's
+    field semantics (bamRead.go:157-270): RNext '=' where it names the
+    read's own reference, qual 0xff -> '*'."""
+    with open(filename, "rb") as f:
+        raw = f.read()
+    from .. import native
+
+    data = native.bgzf_decompress(raw)  # threaded C++ path
+    if data is None:
+        data = gzip.decompress(raw)     # generic gzip fallback
+    if data[:4] != BAM_MAGIC:
+        raise ValueError("missing BAM magic bytes")
+    mv = memoryview(data)
+    off = 4
+    l_text = struct.unpack_from("<I", mv, off)[0]
+    off += 4
+    text = bytes(mv[off:off + l_text]).decode().rstrip("\x00")
+    off += l_text
+    n_ref = struct.unpack_from("<I", mv, off)[0]
+    off += 4
+    refs: list[ChromInfo] = []
+    for i in range(n_ref):
+        l_name = struct.unpack_from("<I", mv, off)[0]
+        off += 4
+        name = bytes(mv[off:off + l_name - 1]).decode()
+        off += l_name
+        size = struct.unpack_from("<I", mv, off)[0]
+        off += 4
+        refs.append(ChromInfo(name, size, i))
+
+    lines = text.split("\n")
+    if lines and lines[-1] == "":
+        lines.pop()
+    header = parse_header_text(lines)
+
+    records: list[Sam] = []
+    end = len(data)
+    while off + 4 <= end:
+        s, off = decode_bam_record(mv, off, refs)
+        records.append(s)
+    return header, refs, records
+
+
+def decode_bam_record(mv, off: int, refs: list[ChromInfo]):
+    """Decode one BAM alignment record starting at `off` (its 4-byte
+    block_size prefix); returns (Sam, next offset). The tag bytes stay raw
+    in ``_raw_tags``; ``_tags_to_text`` gives their SAM text."""
+    blk = struct.unpack_from("<I", mv, off)[0]
+    off += 4
+    rec_end = off + blk
+    (ref_id, pos, l_read_name, mapq, _bin, n_cig, flag, l_seq,
+     next_ref, next_pos, tlen) = struct.unpack_from("<iiBBHHHIiii", mv,
+                                                    off)
+    off += 32
+    s = Sam()
+    s.rname = refs[ref_id].name if ref_id != -1 else "*"
+    s.pos = pos + 1
+    s.mapq = mapq
+    s.flag = flag
+    s.rnext = refs[next_ref].name if next_ref != -1 else "*"
+    if s.rnext == s.rname and next_ref != -1:
+        s.rnext = "="
+    s.pnext = next_pos + 1
+    s.tlen = tlen
+    s.qname = bytes(mv[off:off + l_read_name - 1]).decode()
+    off += l_read_name
+    cigs = struct.unpack_from(f"<{n_cig}I", mv, off)
+    off += 4 * n_cig
+    s.cigar = [samcigar.CigarOp(c >> 4, samcigar.OP_TABLE[c & 0xF])
+               for c in cigs]
+    n_packed = (l_seq + 1) // 2
+    s.seq = _decode_seq(bytes(mv[off:off + n_packed]), l_seq)
+    off += n_packed
+    qual = np.frombuffer(mv[off:off + l_seq], dtype=np.uint8)
+    off += l_seq
+    if l_seq > 0 and qual[0] == 0xFF:
+        s.qual = "*"
+    else:
+        s.qual = (qual + 33).tobytes().decode("latin-1")
+    s.extra = ""
+    s._raw_tags = bytes(mv[off:rec_end])  # type: ignore[attr-defined]
+    return s, rec_end
+
+
+def read(filename: str):
+    """(header, records) of a SAM or BAM file, sniffed by content."""
+    if _is_bam(filename):
+        header, _refs, records = read_bam(filename)
+        return header, records
+    return read_sam_text(filename)
+
+
+def read_header_text(filename: str) -> Header:
+    """Parse only the @ header lines of a SAM text file (the native
+    pileup path tokenizes the alignment lines in C)."""
+    lines = []
+    with fileio.easy_open(filename) as f:
+        for ln in f:
+            if not ln.startswith("@"):
+                break
+            lines.append(ln.rstrip("\n"))
+    return parse_header_text(lines)
+
+
+# ---------------------------------------------------------------------------
+# BAM auxiliary tags as SAM text (sam/tag.go)
+
+def _f32_shortest(v: float) -> str:
+    """strconv.FormatFloat(float64(v), 'f', -1, 32): shortest positional
+    decimal that round-trips as float32 (tag.go:356,396)."""
+    return np.format_float_positional(np.float32(v), unique=True, trim="-")
+
+
+_TAG_SIZES = {"c": 1, "C": 1, "s": 2, "S": 2, "i": 4, "I": 4, "f": 4}
+_TAG_FMT = {"c": "<b", "C": "<B", "s": "<h", "S": "<H", "i": "<i",
+            "I": "<I", "f": "<f"}
+
+
+def _tags_to_text(raw: bytes) -> str:
+    """BAM tag bytes -> SAM text extra, as parseExtra +
+    parsedExtraToString (tag.go:132-404): single c/C/s/S values print as
+    ':i:'; single 'A' (char) tags are dropped."""
+    parts: list[str] = []
+    off = 0
+    n = len(raw)
+    while off < n:
+        tag = raw[off:off + 2].decode("latin-1")
+        typ = chr(raw[off + 2])
+        off += 3
+        if typ == "B":
+            sub = chr(raw[off])
+            count = struct.unpack_from("<I", raw, off + 1)[0]
+            off += 5
+            vals = []
+            for _ in range(count):
+                if sub == "Z":
+                    end = raw.index(0, off)
+                    vals.append(raw[off:end].decode("latin-1"))
+                    off = end + 1
+                elif sub == "H":
+                    end = raw.index(0, off)
+                    vals.append(raw[off:end].decode("latin-1").lower())
+                    off = end + 1
+                elif sub == "f":
+                    vals.append(_f32_shortest(
+                        struct.unpack_from("<f", raw, off)[0]))
+                    off += 4
+                else:
+                    vals.append(str(struct.unpack_from(
+                        _TAG_FMT[sub], raw, off)[0]))
+                    off += _TAG_SIZES[sub]
+            parts.append(f"{tag}:B:{sub}," + ",".join(vals))
+        elif typ == "A":
+            off += 1  # dropped from text (tag.go:parsedExtraToString)
+        elif typ == "Z":
+            end = raw.index(0, off)
+            parts.append(f"{tag}:Z:" + raw[off:end].decode("latin-1"))
+            off = end + 1
+        elif typ == "H":
+            end = raw.index(0, off)
+            parts.append(f"{tag}:H:"
+                         + raw[off:end].decode("latin-1").lower())
+            off = end + 1
+        elif typ == "f":
+            parts.append(f"{tag}:f:" + _f32_shortest(
+                struct.unpack_from("<f", raw, off)[0]))
+            off += 4
+        else:
+            parts.append(f"{tag}:i:%d" % struct.unpack_from(
+                _TAG_FMT[typ], raw, off)[0])
+            off += _TAG_SIZES[typ]
+    return "\t".join(parts)

@@ -1,6 +1,6 @@
 """ctypes bindings to the repository's host runtime ``native/seqio.cpp``,
-for the helpers the read aligners call (mirrors the matching entries of
-``gonomics_tpu/native.py``).
+for the helpers the read aligners, the BAM reader and the variant caller
+call (mirrors the matching entries of ``gonomics_tpu/native.py``).
 
 The shared source is compiled with ``g++`` into this package's own
 ``_build/`` directory on first use. These are host helpers, not device
@@ -56,6 +56,27 @@ _SIGNATURES = {
                                 _i64, _vp, _i64]),
     "graph_hits": (_i64, [_vp, _i64, _i64, _vp, _i32, _vp, _i64, _vp, _vp,
                           _vp, _vp, _vp, _vp, _vp, _i64, _i32]),
+    "bgzf_scan": (_i64, [ctypes.c_char_p, _i64]),
+    "bgzf_decompress": (ctypes.c_int, [ctypes.c_char_p, _i64, _vp, _i64,
+                                       ctypes.c_int]),
+    "sam_scatter": (ctypes.c_int, [ctypes.c_char_p, _i64,
+                                   ctypes.c_char_p, _i64, _i32,
+                                   _vp, _vp, _vp, _vp, _i64,   # runs
+                                   _vp, _i64,                  # bases
+                                   _vp, _i64,                  # deletions
+                                   _vp, _i64,                  # insertions
+                                   _vp, _i64,                  # ins_str
+                                   _vp]),                      # counts
+    "runs_to_counts": (_i32, [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i64,
+                              _i64, _vp, _vp, _vp, _vp, _i32]),
+    "cv_prescreen": (_i64, [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                            _i32, _i32, _i64, _i64, _vp, _i64, _i32,
+                            _vp, _vp, _vp, _vp, _vp, _i32]),
+    "cv_snv_pass": (_i64, [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                           _i64, _i64, _i64, _i32, _i32,
+                           ctypes.c_double, ctypes.c_double,
+                           ctypes.c_double, ctypes.c_double,
+                           _i32, _i32, _i32, _vp, _i32]),
 }
 
 
@@ -286,3 +307,159 @@ def graph_hits(seq2: np.ndarray, row_len: np.ndarray, k: int,
         if total <= cap:
             return out[:total]
         cap = int(total)  # the pass counted every hit: a second one fits
+
+
+def bgzf_decompress(data: bytes, nthreads: int | None = None) -> bytes | None:
+    """BGZF decompression over threads; None where data is not BGZF or
+    the library is unavailable (the caller then uses gzip)."""
+    lib = _load()
+    if lib is None:
+        return None
+    if nthreads is None:
+        nthreads = os.cpu_count() or 2
+    total = lib.bgzf_scan(data, len(data))
+    if total < 0:
+        return None
+    out = np.empty(total, np.uint8)
+    if lib.bgzf_decompress(data, len(data), out.ctypes.data_as(_vp), total,
+                           nthreads) != 0:
+        return None
+    return out.tobytes()
+
+
+def sam_scatter(text: bytes, chrom_names: list[str], min_mapq: int):
+    """Tokenize SAM text into pileup scatter runs and indel events in one
+    C pass (the GoPileup per-read walk, sam/pileup.go:221-311). Returns
+    (starts, lens, fwds, refidxs, bases, del_ev (n, 4), ins_ev (n, 5),
+    ins_str bytes) or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    nm = "\n".join(chrom_names).encode()
+    n = len(text)
+    run_cap = max(1024, n // 8)
+    base_cap = max(4096, n)
+    del_cap = ins_cap = max(1024, n // 64)
+    starts = np.empty(run_cap, np.int32)
+    lens = np.empty(run_cap, np.int32)
+    fwds = np.empty(run_cap, np.uint8)
+    ridx = np.empty(run_cap, np.int32)
+    bases = np.empty(base_cap, np.int8)
+    del_ev = np.empty(del_cap * 4, np.int32)
+    ins_ev = np.empty(ins_cap * 5, np.int32)
+    ins_str = np.empty(base_cap, np.uint8)
+    counts = np.zeros(5, np.int64)
+    rc = lib.sam_scatter(
+        text, n, nm, len(nm), min_mapq,
+        starts.ctypes.data_as(_vp), lens.ctypes.data_as(_vp),
+        fwds.ctypes.data_as(_vp), ridx.ctypes.data_as(_vp), run_cap,
+        bases.ctypes.data_as(_vp), base_cap,
+        del_ev.ctypes.data_as(_vp), del_cap,
+        ins_ev.ctypes.data_as(_vp), ins_cap,
+        ins_str.ctypes.data_as(_vp), base_cap,
+        counts.ctypes.data_as(_vp))
+    if rc != 0:
+        return None
+    n_runs, n_bases, n_del, n_ins, ins_len = (int(x) for x in counts)
+    return (starts[:n_runs], lens[:n_runs], fwds[:n_runs], ridx[:n_runs],
+            bases[:n_bases], del_ev[:n_del * 4].reshape(-1, 4),
+            ins_ev[:n_ins * 5].reshape(-1, 5),
+            ins_str[:ins_len].tobytes())
+
+
+def runs_to_counts(starts, lens, fwds, ridx, bases, want_refidx: int,
+                   lo: int, span: int, nthreads: int = 0):
+    """Scatter the (start, len, fwd, refidx) pileup runs of one chromosome
+    into a dense (span, 13, 2) count tensor in one C pass, with the
+    strand-summed (span, 13) matrix and the depth a position of the same
+    pass. The counts are int16 unless a cell passes 32,767, then int32.
+    None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    if nthreads <= 0:
+        nthreads = min(8, os.cpu_count() or 1)
+    starts = np.ascontiguousarray(starts, np.int32)
+    lens = np.ascontiguousarray(lens, np.int32)
+    fwds = np.ascontiguousarray(fwds, np.uint8)
+    ridx = np.ascontiguousarray(ridx, np.int32)
+    bases = np.ascontiguousarray(bases, np.int8)
+    cnt2 = np.zeros((span, 13), np.int32)
+    depth = np.zeros(span, np.int32)
+    ins = [x.ctypes.data_as(_vp) for x in (starts, lens, fwds, ridx, bases)]
+    outs = (cnt2.ctypes.data_as(_vp), depth.ctypes.data_as(_vp), nthreads)
+    counts16 = np.zeros((span, 13, 2), np.int16)
+    if lib.runs_to_counts(*ins, len(starts), want_refidx, lo, span, None,
+                          counts16.ctypes.data_as(_vp), *outs) == 0:
+        return counts16, cnt2, depth
+    counts = np.zeros((span, 13, 2), np.int32)
+    lib.runs_to_counts(*ins, len(starts), want_refidx, lo, span,
+                       counts.ctypes.data_as(_vp), None, *outs)
+    return counts, cnt2, depth
+
+
+def cv_prescreen(cnt2_list, depth_list, offs, spans, ins_pos, ins_tot,
+                 ins_off, del_pos, del_off, n_exp: int, L: int, lo: int,
+                 refarr, min_coverage: int, nthreads: int = 0):
+    """The variant caller's candidate prescreen in one threaded C pass:
+    (exists bool (n_samp, L), depths int32, expsum int32 (L, 13), cand
+    bool, indel_pos bool, n_sites), or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    n_samp = len(cnt2_list)
+    cnt2_list = [np.ascontiguousarray(x, np.int32) for x in cnt2_list]
+    depth_list = [np.ascontiguousarray(x, np.int32) for x in depth_list]
+    cptr = np.array([x.ctypes.data for x in cnt2_list], np.uintp)
+    dptr = np.array([x.ctypes.data for x in depth_list], np.uintp)
+    args = [np.ascontiguousarray(x, t) for x, t in (
+        (offs, np.int64), (spans, np.int64), (ins_pos, np.int32),
+        (ins_tot, np.int32), (ins_off, np.int64), (del_pos, np.int32),
+        (del_off, np.int64))]
+    refarr = np.ascontiguousarray(refarr, np.int8)
+    exists = np.empty((n_samp, L), np.uint8)
+    depths = np.empty((n_samp, L), np.int32)
+    expsum = np.empty((L, 13), np.int32)
+    cand = np.empty(L, np.uint8)
+    indel_pos = np.empty(L, np.uint8)
+    n_sites = lib.cv_prescreen(
+        cptr.ctypes.data_as(_vp), dptr.ctypes.data_as(_vp),
+        *[x.ctypes.data_as(_vp) for x in args],
+        n_samp, n_exp, L, lo, refarr.ctypes.data_as(_vp), len(refarr),
+        min_coverage, *[x.ctypes.data_as(_vp) for x in (
+            exists, depths, expsum, cand, indel_pos)], _threads(nthreads))
+    return (exists.view(bool), depths, expsum, cand.view(bool),
+            indel_pos.view(bool), int(n_sites))
+
+
+def cv_snv_pass(counts_list, clo, cspan, exists, depths, expsum,
+                ref_codes, idx, n_exp: int, max_p: float, min_af: float,
+                max_af: float, max_strand_bias: float, min_coverage: int,
+                min_alt_reads: int, nthreads: int = 0):
+    """The variant caller's SNV decision cascade and Fisher tail over
+    candidate sites in one threaded C pass (``_vector_snv_pass``'s
+    semantics, no miss): a bool (C,) site-pass mask, or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    n_samp = len(counts_list)
+    dts = {c.dtype for c in counts_list if c is not None}
+    # mixed dtypes (one sample's scatter saturated to int32): widen all
+    dt = np.int16 if dts == {np.dtype(np.int16)} else np.int32
+    keep = [None if c is None else np.ascontiguousarray(c, dt)
+            for c in counts_list]
+    ptrs = np.array([0 if c is None else c.ctypes.data for c in keep],
+                    np.uintp)
+    args = [np.ascontiguousarray(x, t) for x, t in (
+        (clo, np.int64), (cspan, np.int64), (exists, np.uint8),
+        (depths, np.int32), (expsum, np.int32), (ref_codes, np.int8),
+        (idx, np.int64))]
+    L = args[2].shape[1]
+    out = np.zeros(len(args[6]), np.uint8)
+    lib.cv_snv_pass(ptrs.ctypes.data_as(_vp),
+                    *[x.ctypes.data_as(_vp) for x in args],
+                    len(args[6]), L, 0, n_samp, n_exp,
+                    max_p, min_af, max_af, max_strand_bias,
+                    min_coverage, min_alt_reads, int(dt == np.int16),
+                    out.ctypes.data_as(_vp), _threads(nthreads))
+    return out.view(bool)

@@ -2,7 +2,8 @@
 several processes over loopback or a cluster: the counterpart of
 ``gonomics_tpu/parallel/__init__.py``'s ``make_mesh`` (:27-40),
 ``init_distributed`` (:96-114), ``shard_local_align`` (:117-141),
-``shard_seed_lookup`` (:144-207) and ``merge_shard_files`` (:242-269).
+``shard_seed_lookup`` (:144-207), ``shard_pileup_counts`` (:210-240) and
+``merge_shard_files`` (:242-269).
 
 A mesh is a ("data", "seq") grid of ``torch.device``s in this process, as
 a ``jax.sharding.Mesh`` is a grid of one process's local devices: the
@@ -10,14 +11,14 @@ a ``jax.sharding.Mesh`` is a grid of one process's local devices: the
 the grid, whose results come back in batch order, so the output is the
 same for any mesh. A device may repeat in the grid, so that one card can
 hold several data slices. The prefix-sharded seed index puts one chunk
-of the sorted (code, pos) table on each row. Processes meet through
-``init_distributed`` (``torch.distributed`` on gloo), one a host, each
-with its host's mesh; ``gsw align --multihost`` writes a shard file a
-process and ``merge_shard_files`` restores read order. The rest of the
-JAX module waits for later slices of the port (ROADMAP queue 1, item 7):
-the pileup reduction (``shard_pileup_counts``, 7.4), the
-sequence-sharded Gotoh wavefront (``shard_seq_*``, 7.5) and
-``pipeline_step`` (7.6).
+of the sorted (code, pos) table on each row. The pileup count splits its
+events over "data" and the genome span over "seq". Processes meet
+through ``init_distributed`` (``torch.distributed`` on gloo), one a
+host, each with its host's mesh; ``gsw align --multihost`` writes a
+shard file a process and ``merge_shard_files`` restores read order. The
+rest of the JAX module waits for later slices of the port (ROADMAP queue
+1, item 7): the sequence-sharded Gotoh wavefront (``shard_seq_*``, 7.5)
+and ``pipeline_step`` (7.6).
 """
 
 from __future__ import annotations
@@ -183,6 +184,71 @@ def shard_seed_lookup(mesh: Mesh, *, max_hits: int):
         valid = valid > 0
         return (torch.where(valid, hits, -1).reshape(shape),
                 valid.reshape(shape))
+
+    return run
+
+
+def shard_pileup_counts(mesh: Mesh, *, span: int, n_base: int = 13):
+    """Dense pileup scatter-add over the mesh: a function of (rel, code,
+    valid), 1-D arrays or tensors of one length, a multiple of
+    ``mesh.shape["data"]`` (rel = position - lo, code = base * 2 +
+    strand, valid masking the pad), returning (span_pad, 2 n_base) int32
+    counts on the mesh's first device, span_pad = span rounded up to a
+    multiple of ``mesh.shape["seq"]``.
+
+    The same function as the JAX's one-hot psum, not its steps: the
+    events split into "data" contiguous slices and the span into "seq"
+    slices of span_pad // seq positions; cell (d, s) counts slice d's
+    valid events whose rel falls in span slice s, and whose code is in
+    [0, 2 n_base), on its device with ``index_add_`` at the flat int64
+    index rel * 2 n_base + code (int32 would wrap past ~82 Mbp), and the
+    cells of a span slice are summed over "data" on the first device. The
+    cells that share a device add into one buffer a span slice, so a card
+    that the mesh repeats holds span_pad * 2 n_base * 4 bytes of counts,
+    not "data" times that."""
+    seq_shards = mesh.shape["seq"]
+    ndata = mesh.shape["data"]
+    span_pad = -(-span // seq_shards) * seq_shards
+    shard_span = span_pad // seq_shards
+    n_code = n_base * 2
+    first = mesh.devices[0][0]
+
+    def run(rel, code, valid):
+        rel, code, valid = (torch.as_tensor(x) for x in (rel, code, valid))
+        n = rel.shape[0]
+        if n % ndata or code.shape[0] != n or valid.shape[0] != n:
+            raise ValueError(f"shard_pileup_counts: {n} events for "
+                             f"{ndata} data slices")
+        per = n // ndata
+        bufs: dict = {}   # (device, span slice) -> flat counts + a dump
+        for d, row in enumerate(mesh.devices):
+            on: dict = {}
+            for s, dev in enumerate(row):
+                if dev not in on:
+                    on[dev] = [x[d * per:(d + 1) * per].to(
+                        dev, non_blocking=True) for x in (rel, code, valid)]
+                r, c, v = on[dev]
+                r = r.to(torch.int64) - s * shard_span
+                c = c.to(torch.int64)
+                ok = (v.to(torch.bool) & (r >= 0) & (r < shard_span)
+                      & (c >= 0) & (c < n_code))
+                dump = shard_span * n_code   # invalid events land here
+                idx = torch.where(ok, r * n_code + c, dump)
+                buf = bufs.get((dev, s))
+                if buf is None:
+                    buf = bufs[(dev, s)] = torch.zeros(
+                        dump + 1, dtype=torch.int32, device=dev)
+                buf.index_add_(0, idx, torch.ones(
+                    idx.shape, dtype=torch.int32, device=dev))
+        parts = []
+        for s in range(seq_shards):
+            tot = None
+            for (dev, s2), buf in bufs.items():
+                if s2 == s:
+                    part = buf[:-1].to(first, non_blocking=True)
+                    tot = part if tot is None else tot + part
+            parts.append(tot)
+        return torch.cat(parts).view(span_pad, n_code)
 
     return run
 

@@ -1422,3 +1422,286 @@ def test_score_kernels_agree(card):
         HUMAN_CHIMP_TWO, n=n, m=m, r_rows=R, **kw)
     assert blocked_np.device.type == "cuda" and torch.equal(blocked_np,
                                                             blocked)
+
+
+# --- the variant caller, the motif scan and popgen -----------------------
+
+def _variant_genome(rng, sizes=(("chr1", 12_000), ("chr2", 6_000))):
+    """Random chromosomes with an N run, as base codes."""
+    genome = {}
+    for name, size in sizes:
+        g = rng.integers(0, 4, size).astype(np.int8)
+        g[size // 3:size // 3 + 40] = dna.N
+        genome[name] = g
+    return genome
+
+
+def _plant(genome, rng, n_snv: int, n_indel: int, min_gap: int = 25):
+    """{chrom: {pos0: (kind, payload)}}: SNVs (alt code) and 1-5 bp
+    deletions (length) and insertions (codes), at least min_gap apart and
+    away from the N run."""
+    out = {}
+    for name, g in genome.items():
+        cands = [p for p in range(200, len(g) - 200, min_gap)
+                 if not (g[max(0, p - 10):p + 10] == dna.N).any()]
+        pick = rng.choice(cands, n_snv + n_indel, replace=False).tolist()
+        v = {}
+        for i, p in enumerate(pick):
+            if i < n_indel and i % 2:
+                v[p] = ("del", int(rng.integers(1, 6)))
+            elif i < n_indel:
+                v[p] = ("ins", rng.integers(0, 4, int(rng.integers(1, 6)))
+                        .astype(np.int8))
+            else:
+                v[p] = ("snv", int((g[p] + rng.integers(1, 4)) % 4))
+        out[name] = v
+    return out
+
+
+def _walk_read(g, start: int, qlen: int, variants: dict):
+    """The bases and cigar ops of a read of qlen bases whose alignment
+    starts at 0-based start, through the variants given."""
+    bases, ops = [], []
+    pos = start
+    while len(bases) < qlen and pos < len(g):
+        kind, payload = variants.get(pos, (None, None))
+        if kind == "del" and ops:
+            ops.append(("D", payload))
+            pos += payload
+            continue
+        if kind == "ins" and ops and qlen - len(bases) > len(payload) + 1:
+            bases.extend(payload.tolist())
+            ops.append(("I", len(payload)))
+        bases.append(payload if kind == "snv" else int(g[pos]))
+        ops.append(("M", 1))
+        pos += 1
+    merged = []
+    for op, n in ops:
+        if merged and merged[-1][0] == op:
+            merged[-1] = (op, merged[-1][1] + n)
+        else:
+            merged.append((op, n))
+    return np.asarray(bases, np.int8), merged
+
+
+def _sample_sam(genome, variants, n_reads: int, read_len: int, seed: int,
+                mutant_frac: float) -> str:
+    """Coordinate-sorted SAM text of n_reads reads: a fraction from the
+    mutant haplotype; sequencing errors, N and lowercase bases; paired and
+    unpaired flags on both strands; low mapq; soft clips and terminal
+    insertions; tags; a few unmapped reads at the end."""
+    rng = np.random.default_rng(seed)
+    names = list(genome)
+    sizes = np.array([len(genome[n]) for n in names], np.float64)
+    recs = []
+    for r in range(n_reads):
+        ci = int(rng.choice(len(names), p=sizes / sizes.sum()))
+        g = genome[names[ci]]
+        clip = int(rng.integers(1, 6)) if rng.random() < 0.1 else 0
+        term_ins = int(rng.integers(1, 3)) if rng.random() < 0.03 else 0
+        start = int(rng.integers(0, len(g) - read_len - 20))
+        mutant = rng.random() < mutant_frac
+        seq, ops = _walk_read(g, start, read_len - clip - term_ins,
+                              variants[names[ci]] if mutant else {})
+        err = rng.random(len(seq)) < 0.005
+        seq[err] = (seq[err] + rng.integers(1, 4, int(err.sum()))) % 4
+        seq[rng.random(len(seq)) < 0.001] = dna.N
+        head = rng.integers(0, 4, clip + term_ins).astype(np.int8)
+        seq = np.concatenate([head, seq])
+        cig = ([("S", clip)] if clip else []) + (
+            [("I", term_ins)] if term_ins else []) + ops
+        text = dna.to_string(seq)
+        if rng.random() < 0.05:
+            k = int(rng.integers(0, len(text)))
+            text = text[:k] + text[k:].lower()
+        if rng.random() < 0.5:
+            flag = 1 + (64 if rng.random() < 0.5 else 128)
+            rnext, pnext = "=", start + 200
+        else:
+            flag, rnext, pnext = 0, "*", 0
+        flag |= 16 if rng.random() < 0.5 else 0
+        mapq = 60 if rng.random() < 0.9 else int(rng.integers(0, 30))
+        qual = "*" if rng.random() < 0.3 else "I" * len(text)
+        tags = ("\tNM:i:1\tRG:Z:g1\tXS:f:1.5" if rng.random() < 0.3
+                else "")
+        cigar = "".join(f"{n}{op}" for op, n in cig)
+        recs.append((ci, start + 1, f"r{seed}_{r}\t{flag}\t{names[ci]}\t"
+                     f"{start + 1}\t{mapq}\t{cigar}\t{rnext}\t{pnext}\t0\t"
+                     f"{text}\t{qual}{tags}"))
+    recs.sort(key=lambda x: (x[0], x[1]))
+    lines = ["@HD\tVN:1.6\tSO:coordinate"]
+    lines += [f"@SQ\tSN:{n}\tLN:{len(genome[n])}" for n in names]
+    lines += [r[2] for r in recs]
+    for u in range(3):
+        seq = dna.to_string(rng.integers(0, 4, read_len).astype(np.int8))
+        lines.append(f"u{seed}_{u}\t4\t*\t0\t0\t*\t*\t0\t0\t{seq}\t*")
+    return "".join(ln + "\n" for ln in lines)
+
+
+def _write_reference(path: str, genome) -> None:
+    """FASTA of 60-base lines, lowercase from the 500th base of each
+    chromosome for 300 bases, and its .fai."""
+    from gonomics_tpu_torch.io import fai
+
+    with open(path, "w") as f:
+        for name, g in genome.items():
+            s = dna.to_string(g)
+            s = s[:500] + s[500:800].lower() + s[800:]
+            f.write(f">{name}\n")
+            f.writelines(s[i:i + 60] + "\n" for i in range(0, len(s), 60))
+    fai.write_index(fai.create_index(path), path + ".fai")
+
+
+def _variant_inputs(tmp, seed: int = 0, n_reads: int = 6000,
+                    read_len: int = 100):
+    """ref.fa (+ .fai), exp.sam (half its reads from the mutant haplotype)
+    and norm.sam under the directory tmp; returns (ref, exp, norm,
+    variants)."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    genome = _variant_genome(rng)
+    variants = _plant(genome, rng, n_snv=12, n_indel=6)
+    ref = os.path.join(tmp, "ref.fa")
+    _write_reference(ref, genome)
+    paths = []
+    for name, frac, s in (("exp", 0.5, seed + 1), ("norm", 0.0, seed + 2)):
+        p = os.path.join(tmp, f"{name}.sam")
+        with open(p, "w") as f:
+            f.write(_sample_sam(genome, variants, n_reads, read_len, s, frac))
+        paths.append(p)
+    return ref, paths[0], paths[1], variants
+
+
+def _card_mesh(card, shape):
+    from gonomics_tpu_torch.parallel import make_mesh
+
+    d, s = shape
+    return make_mesh(devices=[card] * (d * s), data=d, seq=s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (4, 2)])
+def test_pileup_counts_on_card_equal_cpu(card, shape, tmp_path):
+    """shard_pileup_counts on a mesh of the repeated card equals the same
+    mesh of CPU devices (whole int32 tensor), and the pileup counted on
+    the card equals the host's native scatter, chromosome for
+    chromosome."""
+    from gonomics_tpu_torch import parallel, pileup
+    from gonomics_tpu_torch.io import sam
+
+    d, s = shape
+    rng = np.random.default_rng(d * 10 + s)
+    span, n = 100_003, 400_000
+    rel = rng.integers(-5, span + 5, n).astype(np.int32)
+    code = rng.integers(0, 26, n).astype(np.int32)
+    valid = rng.random(n) < 0.95
+    got = parallel.shard_pileup_counts(_card_mesh(card, shape), span=span)(
+        rel, code, valid)
+    cpu = parallel.make_mesh(devices=["cpu"] * (d * s), data=d, seq=s)
+    want = parallel.shard_pileup_counts(cpu, span=span)(rel, code, valid)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    _, exp, _, _ = _variant_inputs(str(tmp_path))
+    header = sam.read_header_text(exp)
+    host = pileup.pileup_dense_from_sam_path(exp, header, 10)
+    dev = pileup.pileup_dense_from_sam_path(exp, header, 10,
+                                            mesh=_card_mesh(card, shape))
+    assert sorted(host) == sorted(dev) == [0, 1]
+    for k in host:
+        assert dev[k].lo == host[k].lo
+        assert dev[k].counts.dtype == np.int32
+        assert np.array_equal(dev[k].counts, host[k].counts.astype(np.int32))
+        assert dev[k].ins == host[k].ins and dev[k].dels == host[k].dels
+
+
+@pytest.mark.cuda
+def test_call_variants_on_card_equals_cpu(card, tmp_path):
+    """callVariants with the pileup counted on the card (meshes (1, 1) and
+    (4, 2) of the repeated card, and the CLI's --mesh) writes the VCF of
+    the host count, byte for byte, at default and loosened thresholds."""
+    from gonomics_tpu_torch.cli import call_variants as cv
+
+    ref, exp, norm, _ = _variant_inputs(str(tmp_path))
+    default = None
+    for loose in ({}, {"max_p": 1.1, "min_af": 0, "min_coverage": 0}):
+        outs = []
+        for mesh in (None, _card_mesh(card, (1, 1)),
+                     _card_mesh(card, (4, 2))):
+            out = str(tmp_path / f"v{len(outs)}.vcf")
+            cv.call_variants([exp], [norm], ref, out, mesh=mesh, **loose)
+            with open(out, "rb") as f:
+                outs.append(f.read())
+        assert outs[0] == outs[1] == outs[2]
+        assert outs[0].count(b"\n") > 9 + (1000 if loose else 10)
+        default = default or outs[0]
+    out = str(tmp_path / "cli.vcf")
+    cv.main(["-i", exp, "-n", norm, "-r", ref, "-o", out, "--mesh"])
+    with open(out, "rb") as f:
+        assert f.read() == default
+
+
+@pytest.mark.cuda
+def test_motif_scan_on_card_equals_cpu(card):
+    """The scan on the card (device=None) equals the CPU's bit for bit,
+    with TF32 allowed for cuDNN and matmuls, which the scan does not use."""
+    from gonomics_tpu_torch import motif
+
+    rng = np.random.default_rng(2)
+    pm = motif.PositionMatrix(mat=rng.normal(0, 1.5, (4, 20)))
+    seq = rng.integers(0, 4, 300_000).astype(np.int8)
+    seq[rng.random(seq.size) < 0.01] = rng.integers(4, 11)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = motif.scan_scores_device(pm, seq)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    assert got.device.type == "cuda"
+    want = motif.scan_scores_device(pm, seq, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    assert bool(torch.isinf(want).any()) and bool(torch.isfinite(want).any())
+
+
+def _grid_bound(n, want):
+    """rtol 1e-5, atol 1e-6, plus 8 float32 ulp of the grid's largest
+    terms, lgamma(n + 1) + |F| (tests/test_torch_popgen.py)."""
+    import math
+
+    lg = np.array([math.lgamma(float(x) + 1) for x in n])
+    return (1e-6 + 1e-5 * np.abs(want)
+            + 8 * float(np.finfo(np.float32).eps) * (lg + np.abs(want)))
+
+
+@pytest.mark.cuda
+def test_popgen_grid_on_card_equals_cpu(card):
+    """afs_sample_density_grid on the card (device=None) against the CPU:
+    NaN in the same places (k = n - 1), the rest within the float32 bound
+    of tests/test_torch_popgen.py."""
+    from gonomics_tpu_torch import popgen
+
+    rng = np.random.default_rng(6)
+    n = rng.integers(2, 200, 8192)
+    k = (rng.random(8192) * (n - 1)).astype(np.int64) + 1
+    alpha = rng.uniform(-20, 20, 8192)
+    got = popgen.afs_sample_density_grid(n, k, alpha)
+    assert got.device.type == "cuda"
+    got = got.cpu().numpy()
+    want = popgen.afs_sample_density_grid(n, k, alpha, device="cpu").numpy()
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan) and nan[k == n - 1].all()
+    assert (np.abs(got - want) <= _grid_bound(n, want))[~nan].all()
+
+
+@pytest.mark.cuda
+def test_wright_fisher_on_card_reproducible(card):
+    from gonomics_tpu_torch import popgen
+
+    a = popgen.wright_fisher_sim(10_000, 1_000, s=0.01, seed=5)
+    b = popgen.wright_fisher_sim(10_000, 1_000, s=0.01, seed=5)
+    assert a.device.type == "cuda" and a.shape == (1_000,)
+    assert torch.equal(a, b)
+    assert bool(((a >= 0) & (a <= 1)).all()) and float(a[-1]) > 0.9
