@@ -177,6 +177,26 @@ exits non-zero:
             wright_fisher_sim(10_000, 1_000, s=0.01) twice from one seed,
             identical; each timed. None of these has a hand-written
             kernel: the JAX device code they port is no Pallas kernel.
+21. seq_parallel: the sequence-sharded aligner on meshes that repeat the
+            card (a CUDA stream a strip): shard_seq_affine_align on the
+            lowmem batch of phase 14 at seq = 4 (the main path: its
+            launches of affine_fwd_strip, K7 and the walk) and seq = 2,
+            every pair's (score, ops, i0, j0) equal to
+            affine_gap_lowmem_batch on the card and the gathered
+            checkpoints equal to lowmem_forward's, the wall split into
+            forward, backward and host beside phase 14's and beside
+            lowmem_forward timed here, peak memory; the 100 kb pair of
+            phase 14 at seq = 2 (K = 4096) equal to affine_gap_lowmem;
+            shard_seq_affine_score on 256 random pairs up to 1024 x 1024
+            at seq = 4, equal to K2's score mode at lane n_b;
+            pipeline_step at the dry run's shapes on 4 x 2 and on 256
+            pairs of 1024^2 with a 2 Mbp genome on 2 x 2, scores equal to
+            the unsharded call and counts to numpy's np.add.at. The strip
+            kernel's row (affine_fwd_strip, K6's strip mode): each strip
+            of the seq = 4 cut of the lowmem batch's middle block, an
+            empty strip past lane n and the whole block as one strip in
+            a global scratch, exact against the plain version, timed
+            eagerly and in a CUDA graph beside K6 on the same block.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -186,7 +206,8 @@ the wavefront kernels from phase 8 (affine_wavefront's and
 const_wavefront's, and under "trace_diag_launches" the launches of
 the one CUDA kernel, "kernel", both take there), of the graph kernels
 from phase 10, of the lowmem kernels from phase 14, of the score kernels
-from phase 16) and, last, one JSON object naming the device. Without a
+from phase 16, of affine_fwd_strip from phase 21, where K7's and the
+walk's are seq_parallel_launches) and, last, one JSON object naming the device. Without a
 CUDA card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
@@ -337,6 +358,12 @@ SCORE_B, SCORE_L, SCORE_P, SCORE_R = 256, 1024, 8, 512
 # per walk step: trace address, load, activity test, the next state's
 # shift and mask, i and j updates
 LOWMEM_WALK_OPS_PER_STEP = 7
+
+# the seq_parallel phase: the lowmem batch on (1, 4) and (1, 2) meshes of
+# the repeated card (the first the main path), and pipeline_step at
+# PIPE_B pairs of PIPE_L x PIPE_L with a PIPE_GENOME bp genome
+SEQ_SHARDS = (4, 2)
+PIPE_B, PIPE_L, PIPE_GENOME = 256, 1024, 2_000_000
 
 # the variants phase: a VARIANT_BP chromosome, an experimental and a normal
 # sample at VARIANT_DEPTH x coverage of VARIANT_L bp paired reads (evenly
@@ -3442,6 +3469,328 @@ def phase_motif_popgen(dev: torch.device) -> dict:
     return out
 
 
+def card_mesh(dev: torch.device, data: int, seq: int):
+    """A (data, seq) mesh that repeats the card."""
+    from gonomics_tpu_torch import parallel
+
+    return parallel.make_mesh(devices=[dev] * (data * seq), data=data,
+                              seq=seq)
+
+
+def event_ms(fn):
+    """fn() and its wall on the card's clock, from a synchronised start to
+    its last enqueued work (several streams and host round trips
+    included)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def score_batch_rows(B: int, n: int, seed: int) -> np.ndarray:
+    """The n_b of random_score_batch(B, n, m, seed): its first draw."""
+    nb = np.random.default_rng(seed).integers(1, n + 1, B)
+    nb[0] = n
+    return nb
+
+
+def strip_row(dev: torch.device, alpha, beta, sc, ck, mesh) -> dict:
+    """affine_fwd_strip (K6's strip mode) on the middle block of the
+    lowmem batch as the (1, 4) mesh cuts it: each of its strips, in lane
+    order, from the main path's checkpoint and the edge its plain left
+    neighbour hands on, held against the plain version (end state, edge,
+    and a capture on each pair's own diagonal inside the block, written
+    into junk); an empty strip past lane n; the whole block as one strip
+    forced to clusters of 2 (8,193 lanes a block: the state in a global
+    scratch) against the whole block's plain forward. Timed: strip 1 (an
+    edge in and out) eagerly and in a CUDA graph, its plain version once,
+    the four strips one after another, and K6 on the same block."""
+    from gonomics_tpu_torch import NEG, parallel
+    from gonomics_tpu_torch.ops import wavefront
+
+    go, ge = AFFINE_GAPS
+    B, n = alpha.shape
+    m, K = beta.shape[1], LOWMEM_K
+    nb = ck.shape[0]
+    mid = nb // 2
+    d0 = mid * K
+    strips = [(lo, hi) for _, lo, hi in parallel.seq_strips(mesh, n)]
+    rng = np.random.default_rng(19)
+    fin_in = torch.from_numpy(rng.integers(d0 + 1, d0 + K + 1, B).astype(
+        np.int32)).to(dev)
+    fin_main = torch.full((B,), n + m, dtype=torch.int32, device=dev)
+    args, checks, edge = [], [], None
+    for lo, hi in strips:
+        st = ck[mid][..., lo:hi].contiguous()
+        junk = torch.from_numpy(rng.integers(-9, 9, (3, B, hi - lo)).astype(
+            np.int32)).to(dev)
+        cap, cap_want = junk.clone(), junk.clone()
+        got = wavefront.affine_fwd_strip(alpha, beta, st, edge, d0, fin_in,
+                                         cap, lo, sc, go, ge, K)
+        want = wavefront.affine_fwd_strip_reference(
+            alpha, beta, st, edge, d0, fin_in, cap_want, lo, sc, go, ge, K)
+        checks.append(equal_err((*got, cap), (*want, cap_want)))
+        args.append((st, edge, lo, hi))
+        edge = want[1]
+    # an empty strip past lane n launches nothing and hands its edge on
+    before = wavefront.affine_fwd_strip_launches
+    empty = wavefront.affine_fwd_strip(
+        alpha, beta, torch.empty((3, 2, B, 0), dtype=torch.int32, device=dev),
+        edge, d0, fin_in, torch.empty((3, B, 0), dtype=torch.int32,
+                                      device=dev), n + 1, sc, go, ge, K)
+    empty_ok = (wavefront.affine_fwd_strip_launches == before
+                and torch.equal(empty[1], edge) and empty[0].shape[3] == 0)
+    # the whole block as one strip at clusters of 2: global scratch
+    whole_want, whole_plain_ms = once_ms(
+        lambda: wavefront.affine_fwd_block_reference(
+            alpha, beta, ck[mid], d0, n + m, sc, go, ge, K)[0])
+    chunk = wavefront.fwd_block_lanes(n + 1, 2)
+    cap_all = torch.full((3, B, n + 1), NEG, dtype=torch.int32, device=dev)
+
+    def whole():
+        return wavefront._fwd_strip_launch(alpha, beta, ck[mid], None, d0,
+                                           fin_main, cap_all, 0, sc, go, ge,
+                                           K, 2)
+
+    whole_got = whole()
+    scratch = {"cluster": 2, "lanes_per_block": chunk,
+               "state_in_shared_memory": wavefront.state_in_shared_memory(
+                   chunk, "affine"),
+               "equal_to_plain": equal_err((whole_got[0],), (whole_want,))[0],
+               "ms": median_ms(whole, runs=3), "plain_ms": whole_plain_ms}
+    # strip 1 on the main path's inputs: timed, and its bound
+    st, e_in, lo, hi = args[1]
+    w = hi - lo
+    cap1 = torch.full((3, B, w), NEG, dtype=torch.int32, device=dev)
+
+    def one():
+        return wavefront.affine_fwd_strip(alpha, beta, st, e_in, d0, fin_main,
+                                          cap1, lo, sc, go, ge, K)
+
+    _, plain_ms = once_ms(lambda: wavefront.affine_fwd_strip_reference(
+        alpha, beta, st, e_in, d0, fin_main, cap1.clone(), lo, sc, go, ge, K))
+    caps = [torch.full((3, B, b - a), NEG, dtype=torch.int32, device=dev)
+            for _, _, a, b in args]
+
+    def four():
+        for (s_, e_, a_, _), c_ in zip(args, caps):
+            wavefront.affine_fwd_strip(alpha, beta, s_, e_, d0, fin_main, c_,
+                                       a_, sc, go, ge, K)
+
+    cells = block_cells(d0, K, np.full(B, lo), n, m, w)
+    ops_ms = AFFINE_OPS_PER_CELL["score"] * cells / INT32_OPS_PER_S * 1e3
+    # alpha and the beta bases the block's diagonals touch, the state in
+    # and out, the edge in and out, the scores
+    nbytes = B * (w + w + K) + 2 * 4 * 6 * B * w + 2 * 4 * 3 * B * (K + 1) \
+        + 100
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    by = "bytes" if bytes_ms > ops_ms else "operations"
+    plan = wavefront.fwd_block_plan(B, w, dev, strip=True)
+    k6 = lambda: wavefront.affine_fwd_block(alpha, beta, ck[mid], d0, n + m,
+                                            sc, go, ge, K)
+    return {
+        "name": "affine_fwd_strip", "route": "cuda",
+        "source": "gonomics_tpu_torch/csrc/wavefront.cu",
+        "replaces": "gonomics_tpu/parallel/__init__.py:323-368 (block_fwd) "
+                    "and :482-537 (local): jnp glue",
+        "launches": None, "equal_to_plain": all(e for e, _ in checks)
+        and empty_ok and scratch["equal_to_plain"],
+        "tolerance": "exact", "max_abs_err": max(err for _, err in checks),
+        "ms": median_ms(one, runs=5), "graph_ms": graph_ms(one, runs=5,
+                                                           inner=3),
+        "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": by, "library_ms": None,
+        "shape": (f"block {mid} of {nb} (d0 = {d0}), {B} pairs of {n} x {m}, "
+                  f"K = {K}, strip 1 of {len(strips)}: lanes [{lo}, {hi})"),
+        "bound_itemised": {"operations": ops_ms, "bytes": bytes_ms,
+                           "cells": cells},
+        "plan": plan, "strips": strips,
+        "strips_equal": [e for e, _ in checks], "empty_strip_ok": empty_ok,
+        "four_strips_ms": median_ms(four, runs=3),
+        "affine_fwd_block_same_block_ms": median_ms(k6, runs=3),
+        "global_scratch": scratch}
+
+
+def phase_seq_parallel(dev: torch.device, lowmem: dict) -> tuple[dict,
+                                                                 dict]:
+    """The sequence-sharded aligner and the sharded pipeline step on
+    meshes that repeat the card: shard_seq_affine_align on bench.py's
+    lowmem batch at seq = 4 (the main path: launch counts from it) and 2,
+    the 100 kb pair at seq = 2, shard_seq_affine_score on the score
+    phase's 256 random pairs at seq = 4, pipeline_step at the dry run's
+    shapes (4 x 2) and at 256 pairs of 1024^2 on a 2 Mbp genome (2 x 2),
+    and the strip kernel's row (``strip_row``)."""
+    from gonomics_tpu_torch import align, parallel
+    from gonomics_tpu_torch.ops import wavefront
+
+    H = align.HUMAN_CHIMP_TWO
+    go, ge = AFFINE_GAPS
+    K = LOWMEM_K
+    alphas, betas = lowmem_pairs()
+    B, n = alphas.shape
+    m = betas.shape[1]
+    alpha, beta = (torch.from_numpy(x).to(dev) for x in (alphas, betas))
+    sc = torch.as_tensor(H, dtype=torch.int32, device=dev)
+    want = wavefront.affine_gap_lowmem_batch(alphas, betas, H, go, ge,
+                                             checkersize=K, device=dev)
+    lowmem_ck, lowmem_fwd_ms = event_ms(
+        lambda: wavefront.lowmem_forward(alpha, beta, sc, go, ge, K)[0])
+
+    def same(got, ref) -> bool:
+        return len(got) == len(ref) and all(
+            (g[0], g[2], g[3]) == (r[0], r[2], r[3])
+            and np.array_equal(g[1], r[1]) for g, r in zip(got, ref))
+
+    out = {"phase": "seq_parallel", "pairs": B, "n": n, "m": m, "K": K,
+           "lowmem_forward_ms": lowmem_fwd_ms,
+           "lowmem_phase": {k: lowmem.get(k) for k in (
+               "wall_ms", "forward_ms", "backward_ms",
+               "peak_device_bytes")}}
+    checks = {}
+    main_launches = None
+    for seq in SEQ_SHARDS:
+        mesh = card_mesh(dev, 1, seq)
+        run = parallel.shard_seq_affine_align(mesh, H, n=n, m=m, gap_open=go,
+                                              gap_extend=ge, checkersize=K)
+        split, wrapped = {}, {}
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                res, ms = event_ms(lambda: fn(*a, **kw))
+                split[name] = split.get(name, 0.0) + ms
+                return res
+            return call
+
+        for mod, attr, name in ((parallel, "shard_seq_forward", "forward_ms"),
+                                (wavefront, "lowmem_backward",
+                                 "backward_ms")):
+            wrapped[(mod, attr)] = getattr(mod, attr)
+            setattr(mod, attr, timed(name, wrapped[(mod, attr)]))
+        wavefront.affine_fwd_strip_launches = 0
+        wavefront.affine_bwd_window_launches = 0
+        wavefront.lowmem_walk_launches = 0
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            res = run(alphas, betas)
+            wall = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            for (mod, attr), fn in wrapped.items():
+                setattr(mod, attr, fn)
+        launches = {"affine_fwd_strip": wavefront.affine_fwd_strip_launches,
+                    "affine_bwd_window": wavefront.affine_bwd_window_launches,
+                    "lowmem_walk_block": wavefront.lowmem_walk_launches}
+        if seq == SEQ_SHARDS[0]:
+            main_launches = launches
+        ck, _ = parallel.shard_seq_forward(mesh, alpha, beta, sc, go, ge, K)
+        # the forward alone, three more times (the first call of a
+        # process also makes its streams and the strips' plans)
+        fwd_ms = [event_ms(lambda: parallel.shard_seq_forward(
+            mesh, alpha, beta, sc, go, ge, K))[1] for _ in range(3)]
+        checks[f"seq{seq}_equal_lowmem"] = same(res, want)
+        checks[f"seq{seq}_checkpoints_equal"] = torch.equal(ck, lowmem_ck)
+        out[f"seq{seq}"] = {
+            "strips": [(lo, hi) for _, lo, hi in parallel.seq_strips(mesh,
+                                                                      n)],
+            "wall_ms": wall, "cells_per_s": B * n * m / wall * 1e3, **split,
+            "host_ms": wall - sum(split.values()),
+            "forward_over_lowmem_forward": split["forward_ms"] / lowmem_fwd_ms,
+            "forward_repeats_ms": fwd_ms,
+            "peak_device_bytes": peak, "launches": launches,
+            "strip_plan": wavefront.fwd_block_plan(
+                B, -(-(n + 1) // seq), dev, strip=True)}
+        if seq == SEQ_SHARDS[0]:
+            row = strip_row(dev, alpha, beta, sc, ck, mesh)
+        del ck
+    del lowmem_ck
+
+    # the chromosome-scale case: the 100 kb related pair at seq = 2
+    a, b = related_pair(np.random.default_rng(37), LOWMEM_LONG,
+                        same_length=False)
+    run = parallel.shard_seq_affine_align(
+        card_mesh(dev, 1, 2), H, n=len(a), m=len(b), gap_open=go,
+        gap_extend=ge, checkersize=LOWMEM_LONG_K)
+    got, long_ms = event_ms(lambda: run(a[None], b[None]))
+    ref, ref_ms = event_ms(lambda: wavefront.affine_gap_lowmem(
+        a, b, H, go, ge, checkersize=LOWMEM_LONG_K, device=dev))
+    checks["long_pair_equal_lowmem"] = same(got, [ref])
+    out["long_pair"] = {"n": len(a), "m": len(b), "K": LOWMEM_LONG_K,
+                        "seq": 2, "wall_ms": long_ms,
+                        "lowmem_wall_ms": ref_ms}
+
+    # the score variant on the score phase's 256 random pairs at seq = 4
+    sa, sb, sfin = random_score_batch(SCORE_B, SCORE_L, SCORE_L, 2, dev)
+    nv = torch.from_numpy(score_batch_rows(SCORE_B, SCORE_L, 2)).to(dev)
+    score_fn = parallel.shard_seq_affine_score(
+        card_mesh(dev, 1, SEQ_SHARDS[0]), H, n=SCORE_L, m=SCORE_L,
+        gap_open=go, gap_extend=ge)
+    before = wavefront.affine_fwd_strip_launches
+    sgot, score_ms = event_ms(lambda: score_fn(sa, sb, sfin, nv))
+    score_launches = wavefront.affine_fwd_strip_launches - before
+    score_repeats = [event_ms(lambda: score_fn(sa, sb, sfin, nv))[1]
+                     for _ in range(3)]
+    k2, k2_ms = event_ms(lambda: wavefront.affine_wavefront(
+        sa, sb, sfin, sc, go, ge, False)[torch.arange(SCORE_B, device=dev),
+                                        nv.long()])
+    checks["score_equal_k2"] = torch.equal(sgot, k2)
+    out["score"] = {"pairs": SCORE_B, "n": SCORE_L, "m": SCORE_L,
+                    "seq": SEQ_SHARDS[0], "K": parallel.SEQ_SCORE_K,
+                    "ms": score_ms, "repeats_ms": score_repeats,
+                    "k2_score_mode_ms": k2_ms,
+                    "strip_launches": score_launches}
+
+    # pipeline_step: the dry run's shapes on 4 x 2, then 256 pairs of
+    # 1024^2 on a 2 Mbp genome on 2 x 2
+    out["pipeline_step"] = {}
+    for (data, seq), (Bp, L, genome_len) in (
+            ((4, 2), (8, 32, 128)), ((2, 2), (PIPE_B, PIPE_L, PIPE_GENOME))):
+        mesh = card_mesh(dev, data, seq)
+        step = parallel.pipeline_step(mesh, n=L, m=L, genome_len=genome_len,
+                                      scores=H, gap_open=go, gap_extend=ge)
+        args = parallel.example_step_inputs(mesh, B=Bp, n=L, m=L,
+                                            genome_len=genome_len)
+        wavefront.affine_score_diag_launches = 0
+        (scores, counts), ms = event_ms(lambda: step(*args))
+        step_launches = wavefront.affine_score_diag_launches
+        whole = wavefront.wavefront_align(*args[:3], sc, gap_open=go,
+                                          gap_extend=ge, with_trace=False)
+        pos, base = args[3].cpu().numpy(), args[4].cpu().numpy()
+        ref = np.zeros((genome_len, 13), np.int32)
+        np.add.at(ref, (pos.ravel(), base.ravel()), 1)
+        key = f"{data}x{seq}"
+        checks[f"pipeline_{key}_scores_equal"] = torch.equal(scores, whole)
+        checks[f"pipeline_{key}_counts_equal"] = np.array_equal(
+            counts.cpu().numpy(), ref)
+        out["pipeline_step"][key] = {
+            "pairs": Bp, "n": L, "m": L, "genome_len": genome_len,
+            "ms": ms, "median_ms": median_ms(lambda: step(*args), runs=5),
+            "scores_shape": list(scores.shape),
+            "counts_shape": list(counts.shape),
+            "affine_score_diag_launches": step_launches}
+    out["launches"] = main_launches
+    out["strip_row"] = {k: row[k] for k in (
+        "equal_to_plain", "ms", "graph_ms", "plain_ms", "bound_ms",
+        "bound_by", "four_strips_ms", "affine_fwd_block_same_block_ms",
+        "global_scratch", "empty_strip_ok", "plan")}
+    out["checks"] = checks
+    emit(out)
+    if not (all(checks.values()) and row["equal_to_plain"]
+            and all(v > 0 for v in main_launches.values())
+            and not row["global_scratch"]["state_in_shared_memory"]
+            and out["score"]["strip_launches"] > 0
+            and all(p["affine_score_diag_launches"] == data
+                    for (data, _), p in zip(((4, 2), (2, 2)),
+                                            out["pipeline_step"].values()))):
+        raise SystemExit("seq_parallel check failed")
+    return out, row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -3473,10 +3822,13 @@ def main() -> int:
     multihost = phase_multihost(dev, CLI_BP)
     phase_variants(dev)
     phase_motif_popgen(dev)
+    seq_par, strip = phase_seq_parallel(dev, lowmem)
+    rows.append(strip)
     launches = {**e2e["launches"], **pairwise["launches"],
                 **graph["launches"], **lowmem["launches"],
                 **score["launches"],
-                "local_walk_pack": mesh["launches"]["local_walk_pack"]}
+                "local_walk_pack": mesh["launches"]["local_walk_pack"],
+                "affine_fwd_strip": seq_par["launches"]["affine_fwd_strip"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in ("local_wavefront", "local_walk_pack"):
@@ -3490,6 +3842,9 @@ def main() -> int:
             r["mesh_path"] = {k: k4_mesh[k] for k in (
                 "shape", "ms", "graph_ms", "plain_ms", "bound_ms",
                 "bound_by", "equal_to_plain")}
+        if r["name"] in ("affine_bwd_window", "lowmem_walk_block"):
+            # the sequence-sharded aligner's backward runs them too
+            r["seq_parallel_launches"] = seq_par["launches"][r["name"]]
         if r.get("kernel") == "trace_diag":
             r["trace_diag_launches"] = launches["trace_diag"]
     emit({"phase": "done", "total_s": time.perf_counter() - t0})

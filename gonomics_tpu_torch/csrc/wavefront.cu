@@ -1,5 +1,6 @@
 // Anti-diagonal wavefront DP for batched pairwise global alignment, for
-// Hopper (sm_90a): the three kernels of the lowmem affine aligner, two
+// Hopper (sm_90a): the three kernels of the lowmem affine aligner (the
+// forward with a strip mode, the sequence-sharded aligner's forward), two
 // score-only affine kernels (the streamed one, and the diagonal readout
 // that serves the affine score mode and the row-blocked entry point), and
 // the kernel of the pairwise aligner's trace (global affine alignment with
@@ -192,33 +193,61 @@ __device__ __forceinline__ int slot_of(int d) { return ((d % 3) + 3) % 3; }
 
 // kGlobal: the state lives in the global scratch (a template argument, so
 // that the shared-memory kernel addresses shared memory directly).
-template <bool kGlobal>
+//
+// kStrip: the strip mode, the forward of the sequence-sharded aligner
+// (shard_seq_affine_align's block_fwd, parallel/__init__.py:323-368, and
+// shard_seq_affine_score's local, :482-537). It runs the same K diagonals
+// over the lanes [lo_strip, lo_strip + width) of each pair only: its
+// state is the strip's own, (3, 2, B, width); block r of the cluster owns
+// lanes lo_strip + r chunk .. (no block owns a lane 0 apart: where
+// lo_strip is 0, lane 0 is block 0's first lane, never interior). Block 0
+// reads lane lo_strip - 1 from `edge_in`, (B, K + 1, 3) int32 in device
+// memory (M, I, D of diagonals d0-1 .. d0+K-1 at that lane, written by
+// the strip to the left; null where lo_strip is 0), one diagonal ahead of
+// its use; the thread of the strip's last lane writes the same record of
+// that lane to `edge_out`. The capture is each pair's own diagonal
+// fin_vec[b], into a buffer the caller filled with NEG once: no block
+// resets it, so a pair's capture survives the blocks after its fin.
+template <bool kGlobal, bool kStrip>
 __global__ void __launch_bounds__(kLowmemThreads)
 affine_fwd_block_kernel(const int8_t* __restrict__ alpha,    // (B, n)
                         const int8_t* __restrict__ beta,     // (B, m)
                         const int32_t* __restrict__ scores,  // (5, 5)
                         int go, int ge, int B, int n, int m, int d0, int K,
                         int fin, int CL, int chunk,
-                        const int32_t* __restrict__ state_in,  // (3, 2, B, S)
+                        const int32_t* __restrict__ state_in,  // (3, 2, B, row)
                         int32_t* scratch,  // (B CL, 9 (chunk + 1)) or null
-                        int32_t* __restrict__ state_out,       // (3, 2, B, S)
-                        int32_t* __restrict__ capture) {       // (3, B, S)
+                        int32_t* __restrict__ state_out,       // (3, 2, B, row)
+                        int32_t* __restrict__ capture,         // (3, B, row)
+                        int lo_strip, int width,
+                        const int32_t* __restrict__ edge_in,   // (B, K + 1, 3) or null
+                        int32_t* __restrict__ edge_out,        // (B, K + 1, 3)
+                        const int32_t* __restrict__ fin_vec) {  // (B,)
   extern __shared__ int32_t smem[];
   __shared__ int sc[25];
   __shared__ int edge[9];  // the block's last lane: state k of slot t at 3k + t
   cg::cluster_group cluster = cg::this_cluster();
-  const int S = n + 1;
   const int r = blockIdx.x % CL;  // the block's rank in its cluster
   const int b = blockIdx.x / CL;
   // local index x holds lane lo - 1 + x: the block's lanes at x = 1..len,
-  // and block 0's lane 0 at x = 0
+  // and (not in the strip mode) block 0's lane 0 at x = 0; a state row
+  // holds local index x at off + x
   const int P = chunk + 1;
-  const int lo = 1 + r * chunk;
-  const int len = max(0, min(n - lo + 1, chunk));
-  const int x0 = r == 0 ? 0 : 1;
+  const int lo = kStrip ? lo_strip + r * chunk : 1 + r * chunk;
+  const int len = max(0, min((kStrip ? lo_strip + width : n + 1) - lo, chunk));
+  const int x0 = !kStrip && r == 0 ? 0 : 1;
+  const int row = kStrip ? width : n + 1;
+  const int off = kStrip ? lo - 1 - lo_strip : lo - 1;
   // state k of slot t at st + (3k + t) P
   int32_t* st = kGlobal ? scratch + (int64_t)blockIdx.x * 9 * P : smem;
   const int* left = r > 0 ? cluster.map_shared_rank(edge, r - 1) : nullptr;
+  // strip mode: block 0 reads its left lane from edge_in, and the strip's
+  // last lane (local x_last where this block holds it) goes to edge_out
+  const bool from_edge_in = kStrip && r == 0 && edge_in != nullptr;
+  const int x_last = kStrip ? lo_strip + width - lo : -1;
+  const int fin_b = kStrip ? fin_vec[b] : fin;
+  int32_t* e_out = kStrip ? edge_out + (int64_t)b * (K + 1) * 3 : nullptr;
+  const int32_t* e_in = from_edge_in ? edge_in + (int64_t)b * (K + 1) * 3 : nullptr;
   // the thread that owns local lane chunk, the block's last, and writes
   // `edge` (when the block's range is full)
   const bool edge_writer =
@@ -227,19 +256,32 @@ affine_fwd_block_kernel(const int8_t* __restrict__ alpha,    // (B, n)
   for (int k = 0; k < 3; ++k) {
     for (int p = 0; p < 2; ++p) {
       const int t = slot_of(d0 - 1 + p);
-      const int32_t* src = state_in + ((int64_t)(2 * k + p) * B + b) * S + lo - 1;
+      const int32_t* src = state_in + ((int64_t)(2 * k + p) * B + b) * row + off;
       int32_t* dst = st + (3 * k + t) * P;
       for (int x = x0 + threadIdx.x; x <= len; x += blockDim.x) {
         dst[x] = src[x];
         if (x == chunk) edge[3 * k + t] = src[x];
+        if (kStrip && x == x_last) e_out[3 * p + k] = src[x];
       }
     }
-    int32_t* cap = capture + ((int64_t)k * B + b) * S + lo - 1;
-    for (int x = x0 + threadIdx.x; x <= len; x += blockDim.x) cap[x] = kNeg;
+    if (!kStrip) {
+      int32_t* cap = capture + ((int64_t)k * B + b) * row + off;
+      for (int x = x0 + threadIdx.x; x <= len; x += blockDim.x) cap[x] = kNeg;
+    }
   }
-  int32_t* cap_m = capture + (int64_t)b * S + lo - 1;
-  int32_t* cap_i = capture + ((int64_t)B + b) * S + lo - 1;
-  int32_t* cap_d = capture + ((int64_t)2 * B + b) * S + lo - 1;
+  int32_t* cap_m = capture + (int64_t)b * row + off;
+  int32_t* cap_i = capture + ((int64_t)B + b) * row + off;
+  int32_t* cap_d = capture + ((int64_t)2 * B + b) * row + off;
+  // strip mode, block 0: lane lo - 1 of diagonals d-1 (e*1) and d-2 (e*2)
+  int em1 = kNeg, ei1 = kNeg, ed1 = kNeg, em2 = kNeg, ei2 = kNeg, ed2 = kNeg;
+  if (from_edge_in && threadIdx.x == 0) {
+    em2 = e_in[0];
+    ei2 = e_in[1];
+    ed2 = e_in[2];
+    em1 = e_in[3];
+    ei1 = e_in[4];
+    ed1 = e_in[5];
+  }
   cluster.sync();
 
   const int8_t* al = alpha + (int64_t)b * n;
@@ -252,8 +294,8 @@ affine_fwd_block_kernel(const int8_t* __restrict__ alpha,    // (B, n)
     int32_t *M0 = st + t0 * P, *I0 = st + (3 + t0) * P, *D0 = st + (6 + t0) * P;
     const int dlo = max(1, d - m), dhi = min(d - 1, n);  // interior lanes
     const int bnd = go + ge * d;
-    // lane lo - 1 of diagonals d-1 and d-2 from block r-1, first: it is on
-    // every diagonal's critical path
+    // lane lo - 1 of diagonals d-1 and d-2 from block r-1 (or edge_in),
+    // first: it is on every diagonal's critical path
     int hm1 = kNeg, hi1 = kNeg, hd1 = kNeg, hm2 = kNeg, hi2 = kNeg, hd2 = kNeg;
     if (left != nullptr && threadIdx.x == 0 && len > 0) {
       hm1 = left[t1];
@@ -263,12 +305,20 @@ affine_fwd_block_kernel(const int8_t* __restrict__ alpha,    // (B, n)
       hi2 = left[3 + t2];
       hd2 = left[6 + t2];
     }
+    if (from_edge_in) {
+      hm1 = em1;
+      hi1 = ei1;
+      hd1 = ed1;
+      hm2 = em2;
+      hi2 = ei2;
+      hd2 = ed2;
+    }
     for (int x = x0 + threadIdx.x; x <= len; x += blockDim.x) {
       const int s = lo - 1 + x;
       int mv = kNeg, iv = kNeg, dv = kNeg;
       if (s >= dlo && s <= dhi) {
         const int sub = substitution(sc, al, be, s, d - s);
-        if (x == 1 && left != nullptr) {
+        if (x == 1 && (left != nullptr || from_edge_in)) {
           gotoh_values(hm2, hi2, hd2, M1[x], I1[x], D1[x], hm1, hi1, hd1, sub,
                        goe, ge, mv, iv, dv);
         } else {
@@ -287,11 +337,27 @@ affine_fwd_block_kernel(const int8_t* __restrict__ alpha,    // (B, n)
         edge[3 + t0] = iv;
         edge[6 + t0] = dv;
       }
-      if (d == fin) {
+      if (kStrip && x == x_last && d < d0 + K) {
+        int32_t* e = e_out + 3 * (d - d0 + 1);
+        e[0] = mv;
+        e[1] = iv;
+        e[2] = dv;
+      }
+      if (d == fin_b) {
         cap_m[x] = mv;
         cap_i[x] = iv;
         cap_d[x] = dv;
       }
+    }
+    // the next diagonal's left lane, loaded before the barrier hides it
+    if (from_edge_in && threadIdx.x == 0 && d < d0 + K) {
+      em2 = em1;
+      ei2 = ei1;
+      ed2 = ed1;
+      const int32_t* e = e_in + 3 * (d - d0 + 1);
+      em1 = e[0];
+      ei1 = e[1];
+      ed1 = e[2];
     }
     if (CL > 1) {
       cluster_step(edge_writer);
@@ -303,7 +369,7 @@ affine_fwd_block_kernel(const int8_t* __restrict__ alpha,    // (B, n)
   for (int k = 0; k < 3; ++k)
     for (int p = 0; p < 2; ++p) {
       const int32_t* src = st + (3 * k + slot_of(d0 + K - 1 + p)) * P;
-      int32_t* dst = state_out + ((int64_t)(2 * k + p) * B + b) * S + lo - 1;
+      int32_t* dst = state_out + ((int64_t)(2 * k + p) * B + b) * row + off;
       for (int x = x0 + threadIdx.x; x <= len; x += blockDim.x) dst[x] = src[x];
     }
 }
@@ -1618,20 +1684,51 @@ int bwd_window_warps(int W, int CL, int L, int* passes) {
   return NW;
 }
 
+// affine_fwd_block's kernel: its state in shared memory or a global
+// scratch, in K6's own mode or the strip mode.
+using FwdBlockKernel = decltype(&affine_fwd_block_kernel<false, false>);
+FwdBlockKernel fwd_block_kernel(bool global, bool strip) {
+  if (strip) return global ? &affine_fwd_block_kernel<true, true> : &affine_fwd_block_kernel<false, true>;
+  return global ? &affine_fwd_block_kernel<true, false> : &affine_fwd_block_kernel<false, false>;
+}
+
+// Launches affine_fwd_block's kernel on B clusters of CL blocks.
+int fwd_block_launch(bool strip, const void* alpha, const void* beta, const void* scores,
+                     int go, int ge, int B, int n, int m, int d0, int K, int fin, int CL,
+                     int chunk, const void* state_in, void* scratch, void* state_out,
+                     void* capture, int lo, int width, const void* edge_in, void* edge_out,
+                     const void* fin_vec, void* stream) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = fwd_block_config(B, CL, chunk, scratch == nullptr,
+                                                  stream, &attr);
+  auto kernel = fwd_block_kernel(scratch != nullptr, strip);
+  cudaError_t err = allow_smem(kernel, cfg.dynamicSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const int8_t*)alpha,
+                           (const int8_t*)beta, (const int32_t*)scores, go, ge, B, n,
+                           m, d0, K, fin, CL, chunk, (const int32_t*)state_in,
+                           (int32_t*)scratch, (int32_t*)state_out, (int32_t*)capture,
+                           lo, width, (const int32_t*)edge_in, (int32_t*)edge_out,
+                           (const int32_t*)fin_vec);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* wavefront_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The launch of affine_fwd_block with clusters of CL blocks at `chunk`
-// lanes a block, written to out (three ints): the clusters the card holds
-// at once, the dynamic shared memory a block asks for, and its threads.
+// The launch of affine_fwd_block (in the strip mode where `strip`) with
+// clusters of CL blocks at `chunk` lanes a block, written to out (three
+// ints): the clusters the card holds at once, the dynamic shared memory a
+// block asks for, and its threads.
 extern "C" int affine_fwd_block_clusters(int CL, int chunk, int in_smem,
-                                         void* out) {
+                                         int strip, void* out) {
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = fwd_block_config(1, CL, chunk, in_smem, nullptr, &attr);
-  auto kernel = in_smem ? &affine_fwd_block_kernel<false> : &affine_fwd_block_kernel<true>;
+  auto kernel = fwd_block_kernel(!in_smem, strip);
   cudaError_t err = allow_smem(kernel, cfg.dynamicSmemBytes);
   if (err != cudaSuccess) return (int)err;
   int* res = (int*)out;
@@ -1647,18 +1744,25 @@ extern "C" int affine_fwd_block_launch(const void* alpha, const void* beta,
                                        const void* state_in, void* scratch,
                                        void* state_out, void* capture,
                                        void* stream) {
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = fwd_block_config(B, CL, chunk, scratch == nullptr,
-                                                  stream, &attr);
-  auto kernel = scratch ? &affine_fwd_block_kernel<true> : &affine_fwd_block_kernel<false>;
-  cudaError_t err = allow_smem(kernel, cfg.dynamicSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, kernel, (const int8_t*)alpha,
-                           (const int8_t*)beta, (const int32_t*)scores, go, ge, B, n,
-                           m, d0, K, fin, CL, chunk, (const int32_t*)state_in,
-                           (int32_t*)scratch, (int32_t*)state_out, (int32_t*)capture);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return fwd_block_launch(false, alpha, beta, scores, go, ge, B, n, m, d0, K, fin, CL,
+                          chunk, state_in, scratch, state_out, capture, 0, n + 1,
+                          nullptr, nullptr, nullptr, stream);
+}
+
+// The strip mode: lanes [lo, lo + width) of each pair, the state (3, 2,
+// B, width), edge_in (B, K + 1, 3) or null where lo is 0, edge_out (B,
+// K + 1, 3), capture (3, B, width) written where d == fin[b].
+extern "C" int affine_fwd_strip_launch(const void* alpha, const void* beta,
+                                       const void* scores, int go, int ge,
+                                       int B, int n, int m, int d0, int K,
+                                       int CL, int chunk, int lo, int width,
+                                       const void* state_in, void* scratch,
+                                       void* state_out, void* capture,
+                                       const void* edge_in, void* edge_out,
+                                       const void* fin, void* stream) {
+  return fwd_block_launch(true, alpha, beta, scores, go, ge, B, n, m, d0, K, 0, CL,
+                          chunk, state_in, scratch, state_out, capture, lo, width,
+                          edge_in, edge_out, fin, stream);
 }
 
 

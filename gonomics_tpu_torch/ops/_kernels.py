@@ -49,7 +49,10 @@ _SIGNATURES = {
         "affine_fwd_block_launch": [_vp, _vp, _vp, _int, _int, _int, _int,
                                     _int, _int, _int, _int, _int, _int, _vp,
                                     _vp, _vp, _vp, _vp],
-        "affine_fwd_block_clusters": [_int, _int, _int, _vp],
+        "affine_fwd_block_clusters": [_int, _int, _int, _int, _vp],
+        "affine_fwd_strip_launch": [_vp, _vp, _vp, _int, _int, _int, _int,
+                                    _int, _int, _int, _int, _int, _int, _int,
+                                    _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
         "affine_bwd_window_built": [_vp],
         "affine_bwd_window_clusters": [_int, _int, _int, _vp],
         "affine_bwd_window_launch": [_vp, _vp, _vp, _int, _int, _int, _int,
@@ -89,6 +92,7 @@ _LIBRARY_OF = {"banded_dp": "banded", "banded_align_fused": "banded",
                "banded_walk_pack": "banded",
                "trace_diag": "wavefront",
                "affine_fwd_block": "wavefront",
+               "affine_fwd_strip": "wavefront",
                "affine_bwd_window": "wavefront",
                "lowmem_walk_block": "wavefront",
                "affine_stream": "wavefront", "affine_score_diag": "wavefront",

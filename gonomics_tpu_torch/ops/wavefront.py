@@ -23,7 +23,12 @@ Nine kernels, each with its plain PyTorch version beside it:
   (:289, ``pallas_call`` :368 in ``wavefront_gsw_right``);
 - ``affine_fwd_block`` (``csrc/wavefront.cu``, one thread-block cluster
   a pair, see ``fwd_block_plan``) replaces ``_affine_fwd_chunked_kernel``
-  (:895, ``pallas_call`` :991);
+  (:895, ``pallas_call`` :991); its strip mode ``affine_fwd_strip`` (the
+  same kernel over one range of lanes, their left neighbour read from an
+  edge buffer) replaces the sequence-sharded aligner's jnp forward
+  (``gonomics_tpu/parallel/__init__.py`` ``block_fwd`` :323-368 and
+  ``local`` :482-537), which ``parallel.shard_seq_affine_align`` and
+  ``shard_seq_affine_score`` run;
 - ``affine_bwd_window`` (same file) replaces ``_affine_bwd_window_kernel``
   (:1007, ``pallas_call`` :1085);
 - ``lowmem_walk_block`` (same file) replaces the jnp walk ``_walk_block``
@@ -41,7 +46,8 @@ Nine kernels, each with its plain PyTorch version beside it:
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel, counts the launch in its module counter
 (``trace_diag_launches``, ``local_launches``, ``gsw_right_launches``,
-``affine_fwd_block_launches``, ``affine_bwd_window_launches``,
+``affine_fwd_block_launches``, ``affine_fwd_strip_launches``,
+``affine_bwd_window_launches``,
 ``lowmem_walk_launches``, ``affine_stream_launches``,
 ``affine_score_diag_launches``; ``affine_launches``, ``const_launches``
 and ``affine_block_launches`` count the launches of affine_wavefront,
@@ -97,6 +103,7 @@ const_launches = 0
 local_launches = 0
 gsw_right_launches = 0
 affine_fwd_block_launches = 0
+affine_fwd_strip_launches = 0
 affine_bwd_window_launches = 0
 lowmem_walk_launches = 0
 affine_stream_launches = 0
@@ -1288,35 +1295,38 @@ def fwd_cluster_size(B: int, n: int, resident) -> int:
 _fwd_configs: dict = {}
 
 
-def _fwd_config(CL: int, n: int, device) -> tuple:
+def _fwd_config(CL: int, n: int, device, strip: bool = False) -> tuple:
     """The card's launch of affine_fwd_block with clusters of CL blocks
-    for n + 1 lanes, cached: the clusters it holds at once
-    (cudaOccupancyMaxActiveClusters), and the dynamic shared memory and
-    threads of a block."""
+    for n + 1 lanes (in the strip mode, for a strip of n lanes), cached:
+    the clusters it holds at once (cudaOccupancyMaxActiveClusters), and
+    the dynamic shared memory and threads of a block."""
     chunk = fwd_block_lanes(n, CL)
     in_smem = state_in_shared_memory(chunk, "affine")
-    key = (device.index, CL, chunk, in_smem)
+    key = (device.index, CL, chunk, in_smem, strip)
     if key not in _fwd_configs:
         out = (ctypes.c_int * 3)()
         lib = _kernels.lib("wavefront")
         with torch.cuda.device(device):
             rc = lib.affine_fwd_block_clusters(CL, chunk, int(in_smem),
+                                               int(strip),
                                                ctypes.addressof(out))
         _kernels.check(rc, "affine_fwd_block")
         _fwd_configs[key] = tuple(out)
     return _fwd_configs[key]
 
 
-def fwd_block_plan(B: int, n: int, device) -> dict:
+def fwd_block_plan(B: int, n: int, device, strip: bool = False) -> dict:
     """How affine_fwd_block runs B pairs of n + 1 lanes on the card
-    ``device``: the cluster size, a block's lanes, threads and state
-    (shared memory or global scratch, and its bytes), the dynamic shared
-    memory it asks for, the clusters the card holds at once and the
-    waves B clusters take."""
+    ``device`` (with ``strip``, how its strip mode runs a strip of n
+    lanes): the cluster size, a block's lanes, threads and state (shared
+    memory or global scratch, and its bytes), the dynamic shared memory it
+    asks for, the clusters the card holds at once and the waves B
+    clusters take."""
     device = torch.device(device)
-    CL = fwd_cluster_size(B, n, lambda c: _fwd_config(c, n, device)[0])
+    CL = fwd_cluster_size(B, n, lambda c: _fwd_config(c, n, device,
+                                                        strip)[0])
     chunk = fwd_block_lanes(n, CL)
-    resident, smem, threads = _fwd_config(CL, n, device)
+    resident, smem, threads = _fwd_config(CL, n, device, strip)
     return {"cluster": CL, "lanes_per_block": chunk, "threads": threads,
             "state_in_shared_memory": state_in_shared_memory(chunk, "affine"),
             "state_bytes_per_block": 9 * (chunk + 1) * 4,
@@ -1369,6 +1379,142 @@ def _fwd_block_launch(alpha, beta, state, d0: int, fin: int, sc,
     _kernels.check(rc, "affine_fwd_block")
     affine_fwd_block_launches += 1
     return out, cap
+
+
+def affine_fwd_strip_reference(alpha, beta, state, edge, d0: int, fin,
+                               capture, lo: int, scores, gap_open: int,
+                               gap_extend: int, K: int):
+    """Plain PyTorch forward of K diagonals d0+1..d0+K of the score-mode
+    Gotoh DP over the lanes [lo, lo + w) of each pair only: one strip of
+    the sequence-sharded forward (``block_fwd``,
+    gonomics_tpu/parallel/__init__.py:323-368, with the per-pair capture
+    of ``local``, :482-537), the arithmetic of
+    ``affine_fwd_block_reference`` on those lanes.
+
+    state (3, 2, B, w) int32 is the strip's own state at diagonals d0 - 1
+    and d0. edge (B, K + 1, 3) int32 holds M, I and D of lane lo - 1 on
+    diagonals d0 - 1 .. d0 + K - 1 (row t is diagonal d0 - 1 + t), the
+    left strip's ``edge_out``; None where lo is 0 (lane 0 is never
+    interior, so nothing reads it). fin (B,) int32; capture (3, B, w)
+    int32 takes M, I and D of diagonal fin_b where it falls in this block,
+    in place, and is otherwise left as it is (the caller fills it with
+    NEG once). Returns (state at d0+K-1 and d0+K, edge_out): edge_out the
+    same record of the strip's last lane, lo + w - 1; for an empty strip
+    (w = 0) the edge given (that lane is lo - 1)."""
+    B, n = alpha.shape
+    w = state.shape[3]
+    dev = alpha.device
+    K = int(K)
+    go, ge = int(gap_open), int(gap_extend)
+    goe = go + ge
+    if edge is None:
+        edge = torch.full((B, K + 1, 3), NEG, dtype=torch.int32, device=dev)
+    if w == 0:
+        return state.clone(), edge.clone()
+    dg = _Diagonals(alpha, beta, scores)
+    s = (lo + torch.arange(w, device=dev)).expand(B, w)
+    fin = as_vec(fin, B, dev)
+    (m2, i2, d2), (m1, i1, d1) = state[:, 0], state[:, 1]
+    edge_out = torch.empty((B, K + 1, 3), dtype=torch.int32, device=dev)
+    edge_out[:, :2] = state[:, :, :, -1].permute(2, 1, 0)
+
+    def with_left(left, x):
+        return torch.cat([left[:, None], x[:, :-1]], dim=1)
+
+    for d in range(d0 + 1, d0 + K + 1):
+        t = d - d0  # edge row of diagonal d - 1
+        em1, ei1, ed1 = edge[:, t].unbind(1)
+        m_new = dg.sub(d, s) + with_left(_max3(*edge[:, t - 1].unbind(1)),
+                                         _max3(m2, i2, d2))
+        i_new = _max3(goe + m1, ge + i1, goe + d1)
+        d_new = with_left(_max3(goe + em1, goe + ei1, ge + ed1),
+                          _max3(goe + m1, goe + i1, ge + d1))
+        interior = dg.interior(d, s)
+        bnd = go + ge * d
+        m_new = torch.where(interior, m_new, NEG)
+        i_new = torch.where(interior, i_new, _edge((s == 0) & (d <= dg.m), bnd))
+        d_new = torch.where(interior, d_new, _edge((s == d) & (d <= n), bnd))
+        at = (fin == d)[:, None]
+        for k, v in enumerate((m_new, i_new, d_new)):
+            capture[k] = torch.where(at, v, capture[k])
+        if t < K:
+            edge_out[:, t + 1] = torch.stack([m_new[:, -1], i_new[:, -1],
+                                              d_new[:, -1]], dim=1)
+        m2, i2, d2 = m1, i1, d1
+        m1, i1, d1 = m_new, i_new, d_new
+    out = torch.stack([torch.stack([m2, m1]), torch.stack([i2, i1]),
+                       torch.stack([d2, d1])])
+    return out, edge_out
+
+
+def affine_fwd_strip(alpha, beta, state, edge, d0: int, fin, capture,
+                     lo: int, scores, gap_open: int, gap_extend: int, K: int):
+    """One strip's K forward diagonals (see ``affine_fwd_strip_reference``):
+    the plain version for CPU tensors, for CUDA tensors affine_fwd_block's
+    kernel in its strip mode, one cluster of ``fwd_block_plan(B, w,
+    strip=True)["cluster"]`` blocks a pair. An empty strip launches
+    nothing."""
+    if alpha.device.type == "cpu":
+        return affine_fwd_strip_reference(alpha, beta, state, edge, d0, fin,
+                                          capture, lo, scores, gap_open,
+                                          gap_extend, K)
+    B = alpha.shape[0]
+    w = state.shape[3]
+    CL = fwd_block_plan(B, w, alpha.device, strip=True)["cluster"] \
+        if B and w else 1
+    return _fwd_strip_launch(alpha, beta, state, edge, d0, fin, capture, lo,
+                             scores, gap_open, gap_extend, K, CL)
+
+
+def _fwd_strip_launch(alpha, beta, state, edge, d0: int, fin, capture,
+                      lo: int, scores, gap_open: int, gap_extend: int,
+                      K: int, CL: int):
+    """Check the strip's CUDA inputs and launch the strip mode with
+    clusters of CL blocks (``affine_fwd_strip`` picks CL; the card tests
+    force one)."""
+    global affine_fwd_strip_launches
+    B, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
+    w = state.shape[3]
+    K = int(K)
+    if not 0 <= lo <= lo + w <= n + 1:
+        raise ValueError(f"strip [{lo}, {lo + w}) outside lanes 0..{n}")
+    if edge is None and lo > 0:
+        raise ValueError(f"the strip at lane {lo} needs its left edge")
+    alpha = expect(alpha, torch.int8, (B, n), "alpha", dev)
+    beta = expect(beta, torch.int8, (B, m), "beta", dev)
+    state = expect(state, torch.int32, (3, 2, B, w), "state", dev)
+    sc = expect(torch.as_tensor(scores, dtype=torch.int32, device=dev),
+                torch.int32, (5, 5), "scores", dev)
+    fin = expect(as_vec(fin, B, dev), torch.int32, (B,), "fin", dev)
+    if edge is not None:
+        edge = expect(edge, torch.int32, (B, K + 1, 3), "edge", dev)
+    if capture.dtype != torch.int32 or tuple(capture.shape) != (3, B, w) or \
+            capture.device != dev or not capture.is_contiguous():
+        raise ValueError(f"capture: want a contiguous int32 (3, {B}, {w}) on "
+                         f"{dev}, updated in place")
+    out = torch.empty((3, 2, B, w), dtype=torch.int32, device=dev)
+    if B == 0 or w == 0:
+        return out, (edge.clone() if edge is not None else torch.full(
+            (B, K + 1, 3), NEG, dtype=torch.int32, device=dev))
+    edge_out = torch.empty((B, K + 1, 3), dtype=torch.int32, device=dev)
+    chunk = fwd_block_lanes(w, CL)
+    scratch = (None if state_in_shared_memory(chunk, "affine") else
+               torch.empty((B * CL, 9 * (chunk + 1)), dtype=torch.int32,
+                           device=dev))
+    lib = _kernels.lib("wavefront")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.affine_fwd_strip_launch(
+            alpha.data_ptr(), beta.data_ptr(), sc.data_ptr(), int(gap_open),
+            int(gap_extend), B, n, m, int(d0), K, int(CL), chunk, int(lo), w,
+            state.data_ptr(), _ptr(scratch), out.data_ptr(),
+            capture.data_ptr(), _ptr(edge), edge_out.data_ptr(),
+            fin.data_ptr(), stream)
+    _kernels.check(rc, "affine_fwd_strip")
+    affine_fwd_strip_launches += 1
+    return out, edge_out
 
 
 def bwd_lanes_per_thread(W: int, built: dict) -> int:
@@ -1597,10 +1743,22 @@ def affine_gap_lowmem_batch(alphas, betas, scores, gap_open: int,
     dev = resolve_device(device)
     alpha = torch.from_numpy(np.ascontiguousarray(alphas, np.int8)).to(dev)
     beta = torch.from_numpy(np.ascontiguousarray(betas, np.int8)).to(dev)
-    B, n = alpha.shape
-    m = beta.shape[1]
     K = int(checkersize)
     ck, cap = lowmem_forward(alpha, beta, scores, gap_open, gap_extend, K)
+    return lowmem_finish(ck, cap, alpha, beta, scores, gap_open, gap_extend,
+                         K)
+
+
+def lowmem_finish(ck, cap, alpha, beta, scores, gap_open: int,
+                  gap_extend: int, K: int):
+    """The lowmem aligner after its forward, where the tensors lie: the
+    score and start state from the capture at lane n (cap (3, B, n + 1)
+    of diagonal n + m), the backward over the checkpoints ck (nb, 3, 2,
+    B, n + 1) in block order, and the list of (score, ops, i0, j0) per
+    pair that ``affine_gap_lowmem_batch`` returns."""
+    B, n = alpha.shape
+    m = beta.shape[1]
+    dev = alpha.device
     fm, fi, fd = cap[:, :, n]
     k0 = _argmax3(fm, fi, fd).to(torch.int32)
     score = torch.where(k0 == 0, fm, torch.where(k0 == 1, fi, fd))

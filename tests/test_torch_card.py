@@ -1705,3 +1705,195 @@ def test_wright_fisher_on_card_reproducible(card):
     assert a.device.type == "cuda" and a.shape == (1_000,)
     assert torch.equal(a, b)
     assert bool(((a >= 0) & (a <= 1)).all()) and float(a[-1]) > 0.9
+
+
+# (B, n, m, K, cuts, CL): one forward block cut into strips [cuts[k],
+# cuts[k + 1]) of lanes, each strip a launch of affine_fwd_block's strip
+# mode taking its left edge from the strip before it, exact against the
+# plain version: CL None is the wrapper's plan, else CL forced. Uneven
+# strips of 1001 lanes at clusters of 8, 3 and 1; an empty strip in the
+# middle and one at the end; strips of 1 and 2 lanes; m = 1; 12,001 lanes
+# in two strips, the first at a cluster of 1 (6,001 lanes a block: its
+# state in a global scratch), the second at clusters of 2 (3,000 a block,
+# shared memory); and 8 pairs of 16,385 lanes in 4 strips at the plan,
+# bench.py's width on a (1, 4) mesh.
+_STRIP_CASES = [(3, 1000, 300, 96, (0, 300, 301, 640, 1001), 8),
+                (3, 1000, 300, 96, (0, 250, 1001), 3),
+                (3, 1000, 300, 96, (0, 500, 500, 1001, 1001), 1),
+                (2, 40, 1, 16, (0, 1, 3, 41), None),
+                (2, 12000, 100, 512, (0, 6001, 12001), 1),
+                (2, 12000, 100, 512, (0, 6001, 12001), 2),
+                (8, 16384, 16384, 1024, (0, 4097, 8194, 12291, 16385), None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,m,K,cuts,CL", _STRIP_CASES)
+def test_seq_parallel_strip_equals_plain(card, B, n, m, K, cuts, CL):
+    """affine_fwd_strip on the first, a middle and the last block of a
+    forward, strip after strip: the end state, the edge handed to the
+    next strip and the per-pair capture (into junk that only diagonal
+    fin_b may change) exactly equal to the plain version's; the strips
+    stitched equal affine_fwd_block's end state; an empty strip launches
+    nothing and hands on the edge it was given."""
+    alpha, beta = (torch.from_numpy(x).to(card)
+                   for x in _lowmem_pairs(B, n, m, B + n + len(cuts)))
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
+    nb = (n + m - 1) // K + 1
+    rng = np.random.default_rng(n + K)
+    if 6001 in cuts:
+        assert not wavefront.state_in_shared_memory(
+            wavefront.fwd_block_lanes(6001, 1), "affine")
+    for blk in sorted({0, nb // 2, nb - 1}):
+        d0 = blk * K
+        state = (wavefront.initial_state(B, n, -600, card) if blk == 0 else
+                 wavefront.lowmem_forward(alpha, beta, sc, -600, -150,
+                                          K)[0][blk])
+        # each pair's fin inside this block, or past it
+        fin = torch.from_numpy(rng.integers(d0 + 1, d0 + K + 3, B).astype(
+            np.int32)).to(card)
+        whole = wavefront.affine_fwd_block_reference(alpha, beta, state, d0,
+                                                     n + m, sc, -600, -150, K)
+        edge = edge_want = None
+        outs = []
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            junk = torch.from_numpy(rng.integers(-9, 9, (3, B, hi - lo)).astype(
+                np.int32)).to(card)
+            cap, cap_want = junk.clone(), junk.clone()
+            st = state[..., lo:hi].contiguous()
+            before = wavefront.affine_fwd_strip_launches
+            if CL is None:
+                got = wavefront.affine_fwd_strip(alpha, beta, st, edge, d0,
+                                                 fin, cap, lo, sc, -600, -150,
+                                                 K)
+            else:
+                got = wavefront._fwd_strip_launch(alpha, beta, st, edge, d0,
+                                                  fin, cap, lo, sc, -600,
+                                                  -150, K, CL)
+            want = wavefront.affine_fwd_strip_reference(
+                alpha, beta, st, edge_want, d0, fin, cap_want, lo, sc, -600,
+                -150, K)
+            torch.cuda.synchronize()
+            assert wavefront.affine_fwd_strip_launches == before + (hi > lo)
+            assert torch.equal(got[0], want[0]), (blk, lo)
+            assert torch.equal(got[1], want[1]), (blk, lo)
+            assert torch.equal(cap, cap_want), (blk, lo)
+            if hi == lo and edge is not None:
+                assert torch.equal(got[1], edge)
+            outs.append(got[0])
+            edge, edge_want = got[1], want[1]
+        assert torch.equal(torch.cat(outs, dim=3), whole[0]), blk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [2, 4])
+def test_seq_parallel_on_card_equals_cpu(card, seq):
+    """shard_seq_affine_align and shard_seq_affine_score on a (1, seq)
+    mesh of the repeated card (a stream a strip) equal the same mesh of
+    CPU devices and, for the cigars, affine_gap_lowmem_batch on the card;
+    the checkpoints equal lowmem_forward's."""
+    from gonomics_tpu_torch import parallel
+
+    B, n, m, K = 3, 2000, 1900, 256
+    alpha, beta = _lowmem_pairs(B, n, m, seq)
+    meshes = (_card_mesh(card, (1, seq)),
+              parallel.make_mesh(devices=["cpu"] * seq, data=1, seq=seq))
+    before = wavefront.affine_fwd_strip_launches
+    got, cpu = (parallel.shard_seq_affine_align(
+        mesh, HUMAN_CHIMP_TWO, n=n, m=m, gap_open=-600, gap_extend=-150,
+        checkersize=K)(alpha, beta) for mesh in meshes)
+    nb = (n + m - 1) // K + 1
+    assert wavefront.affine_fwd_strip_launches == before + nb * seq
+    lowmem = wavefront.affine_gap_lowmem_batch(alpha, beta, HUMAN_CHIMP_TWO,
+                                               -600, -150, checkersize=K,
+                                               device=card)
+    for g, c, w in zip(got, cpu, lowmem):
+        assert (g[0], g[2], g[3]) == (c[0], c[2], c[3]) == (w[0], w[2], w[3])
+        assert np.array_equal(g[1], c[1]) and np.array_equal(g[1], w[1])
+    ta, tb = (torch.from_numpy(x).to(card) for x in (alpha, beta))
+    sc = torch.as_tensor(HUMAN_CHIMP_TWO, dtype=torch.int32, device=card)
+    # the unsharded forward still queued on the caller's stream when the
+    # strips start: they must wait for the state it leaves them
+    want_ck, want_cap = wavefront.lowmem_forward(ta, tb, sc, -600, -150, K)
+    ck, cap = parallel.shard_seq_forward(meshes[0], ta, tb, sc, -600, -150, K)
+    assert torch.equal(ck, want_ck) and torch.equal(cap, want_cap)
+    # the score variant on random-length pairs, at blocks of 512
+    rng = np.random.default_rng(seq)
+    nv = rng.integers(1, n + 1, B).astype(np.int32)
+    fin = (nv + rng.integers(1, m + 1, B)).astype(np.int32)
+    parallel.SEQ_SCORE_K, K_default = 512, parallel.SEQ_SCORE_K
+    try:
+        scores = [parallel.shard_seq_affine_score(
+            mesh, HUMAN_CHIMP_TWO, n=n, m=m, gap_open=-600,
+            gap_extend=-150)(alpha, beta, fin, nv) for mesh in meshes]
+    finally:
+        parallel.SEQ_SCORE_K = K_default
+    assert scores[0].device.type == "cuda"
+    assert torch.equal(scores[0].cpu(), scores[1])
+    res = wavefront.affine_wavefront(ta, tb, torch.from_numpy(fin).to(card),
+                                     sc, -600, -150, False)
+    assert torch.equal(scores[0], res[torch.arange(B), torch.from_numpy(
+        nv).long().to(card)])
+
+
+@pytest.mark.cuda
+def test_pipeline_step_on_card_equals_cpu(card):
+    """pipeline_step on a 2 x 2 mesh of the repeated card equals the same
+    mesh of CPU devices: scores and counts, whole int32 tensors."""
+    from gonomics_tpu_torch import parallel
+
+    out = []
+    for mesh in (_card_mesh(card, (2, 2)),
+                 parallel.make_mesh(devices=["cpu"] * 4, data=2, seq=2)):
+        step = parallel.pipeline_step(mesh, n=300, m=280, genome_len=10_000,
+                                      scores=HUMAN_CHIMP_TWO, gap_open=-600,
+                                      gap_extend=-150)
+        args = parallel.example_step_inputs(mesh, B=12, n=300, m=280,
+                                            genome_len=10_000, seed=3)
+        out.append(step(*args))
+    (gs, gc), (cs, cc) = out
+    assert gs.device.type == "cuda" and gs.shape == (12, 301)
+    assert torch.equal(gs.cpu(), cs) and torch.equal(gc.cpu(), cc)
+    assert int(cc.sum()) == 12 * 300
+
+
+@pytest.mark.cuda
+def test_seq_parallel_across_cards(card):
+    """On a machine with several cards, the sharded paths over distinct
+    cards (each strip's edge copied to the next card, the checkpoints and
+    counts gathered on the first): shard_seq_affine_align and
+    shard_seq_affine_score on a (1, cards) mesh, pipeline_step on
+    make_mesh()'s grid, each equal to the same mesh of CPU devices."""
+    from gonomics_tpu_torch import parallel
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more CUDA cards")
+    B, n, m, K = 3, 2000, 1900, 256
+    alpha, beta = _lowmem_pairs(B, n, m, count)
+    cards = parallel.make_mesh(data=1, seq=count)
+    assert len({d for d in cards.devices[0]}) == count
+    cpu = parallel.make_mesh(devices=["cpu"] * count, data=1, seq=count)
+    got, want = (parallel.shard_seq_affine_align(
+        mesh, HUMAN_CHIMP_TWO, n=n, m=m, gap_open=-600, gap_extend=-150,
+        checkersize=K)(alpha, beta) for mesh in (cards, cpu))
+    for g, w in zip(got, want):
+        assert (g[0], g[2], g[3]) == (w[0], w[2], w[3])
+        assert np.array_equal(g[1], w[1])
+    nv = np.full(B, n, np.int32)
+    fin = np.full(B, n + m, np.int32)
+    scores = [parallel.shard_seq_affine_score(
+        mesh, HUMAN_CHIMP_TWO, n=n, m=m, gap_open=-600,
+        gap_extend=-150)(alpha, beta, fin, nv).cpu() for mesh in (cards, cpu)]
+    assert torch.equal(*scores)
+    assert scores[0].tolist() == [g[0] for g in got]
+    grid = parallel.make_mesh()
+    shape = grid.shape["data"], grid.shape["seq"]
+    out = []
+    for mesh in (grid, parallel.make_mesh(devices=["cpu"] * count,
+                                          data=shape[0], seq=shape[1])):
+        step = parallel.pipeline_step(mesh, n=300, m=280, genome_len=10_000,
+                                      scores=HUMAN_CHIMP_TWO, gap_open=-600,
+                                      gap_extend=-150)
+        out.append([x.cpu() for x in step(*parallel.example_step_inputs(
+            mesh, B=4 * shape[0], n=300, m=280, genome_len=10_000))])
+    assert all(torch.equal(g, w) for g, w in zip(*out))
