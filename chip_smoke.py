@@ -197,6 +197,22 @@ exits non-zero:
             empty strip past lane n and the whole block as one strip in
             a global scratch, exact against the plain version, timed
             eagerly and in a CUDA graph beside K6 on the same block.
+22. tools_cli: the tools around the engines through the umbrella
+            command (gonomics_tpu_torch.cli.main), in process, on a
+            seeded 200 kbp chr1 and 50 kbp chr2 and a query with a SNP
+            every ~1 kbp and a 1-10 bp indel every ~20 kbp, joined by a
+            chain of the blocks between the indels: gsw ggtools (chain
+            to axt, vcf and gg, the VCF to gg, the axt to vcf); gsw align
+            of the VCF's graph on the card, 2,000 reads of 150 bp from
+            the query (K4, K5 and the graph walk), the first 400 against
+            --device cpu; gsw align --engine tpu of 10x of the query on
+            the target (the fused K1); pileup, samConsensus -multiFaDir
+            and samToBed on that SAM, sorted. Gates: every planted SNP in
+            the chain's VCF; graph reads mapped >= 0.99 and giraf equal
+            to the CPU's; the query's base at >= 99% of the covered
+            planted SNPs of the consensus; one bed line a mapped read;
+            pileup's rows the covered positions; the four kernels
+            launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -207,7 +223,8 @@ const_wavefront's, and under "trace_diag_launches" the launches of
 the one CUDA kernel, "kernel", both take there), of the graph kernels
 from phase 10, of the lowmem kernels from phase 14, of the score kernels
 from phase 16, of affine_fwd_strip from phase 21, where K7's and the
-walk's are seq_parallel_launches) and, last, one JSON object naming the device. Without a
+walk's are seq_parallel_launches; the fused K1's, K4's, K5's and the
+graph walk's in phase 22 as tools_launches) and, last, one JSON object naming the device. Without a
 CUDA card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
@@ -379,6 +396,16 @@ VARIANT_SNVS, VARIANT_INDELS, VARIANT_ERR = 2000, 200, 0.002
 MOTIF_BP, MOTIF_L, MOTIF_CPU_BP = 50_000_000, 20, 1_000_000
 AFS_TRIPLES, AFS_POINTS, AFS_CPU = 262_144, 2049, 4096
 WF_ARGS = (10_000, 1_000, 0.01)
+
+# the tools_cli phase: a target of TOOLS_SIZES; its query has a SNP every
+# ~TOOLS_SNP_EVERY bp (none within TOOLS_SNP_GAP bp of an indel) and a
+# 1-10 bp indel every ~TOOLS_INDEL_EVERY bp; TOOLS_GRAPH_READS reads of L
+# bp from the query through the chain's graph (the first TOOLS_CPU_READS
+# against the CPU), and TOOLS_DEPTH x of the query through the linear
+# aligner for pileup, samConsensus and samToBed
+TOOLS_SIZES = (("chr1", 200_000), ("chr2", 50_000))
+TOOLS_SNP_EVERY, TOOLS_INDEL_EVERY, TOOLS_SNP_GAP = 1000, 20_000, 50
+TOOLS_GRAPH_READS, TOOLS_CPU_READS, TOOLS_DEPTH = 2000, 400, 10
 
 
 def emit(obj) -> None:
@@ -3791,6 +3818,278 @@ def phase_seq_parallel(dev: torch.device, lowmem: dict) -> tuple[dict,
     return out, row
 
 
+def tools_data(tmp: str, seed: int = 2200):
+    """t.fa, q.fa and t_q.chain under tmp (see TOOLS_SIZES): each target
+    chromosome random; its query with the planted edits; one chain a
+    chromosome of the ungapped blocks between the indels, written from the
+    edits. Returns (paths, planted SNPs {chrom: [(1-based pos, ref,
+    alt)]}, query sequences {chrom: codes})."""
+    from gonomics_tpu_torch import dna
+
+    rng = np.random.default_rng(seed)
+    snps, queries, chains, fastas = {}, {}, [], ([], [])
+    for k, (name, n) in enumerate(TOOLS_SIZES):
+        g = rng.integers(0, 4, n).astype(np.int8)
+        step = TOOLS_INDEL_EVERY
+        at = np.arange(step, n - step // 2, step)
+        at = (at + rng.integers(-step // 4, step // 4 + 1, len(at))).tolist()
+        sizes = rng.integers(1, 11, len(at)).tolist()
+        near = np.zeros(n, bool)
+        for p, size in zip(at, sizes):
+            near[max(0, p - TOOLS_SNP_GAP):p + size + TOOLS_SNP_GAP] = True
+        step = TOOLS_SNP_EVERY
+        cand = np.arange(step // 2, n - step // 2, step)
+        cand = cand + rng.integers(-step // 4, step // 4 + 1, len(cand))
+        cand = cand[~near[cand]]
+        q = g.copy()
+        q[cand] = (g[cand] + rng.integers(1, 4, len(cand))) % 4
+        parts, blocks, t0 = [], [], 0
+        for i, (p, size) in enumerate(zip(at, sizes)):
+            parts.append(q[t0:p])
+            if i % 2:  # a deletion of the query
+                blocks.append(f"{p - t0}\t{size}\t0")
+                t0 = p + size
+            else:  # an insertion into the query
+                parts.append(rng.integers(0, 4, size).astype(np.int8))
+                blocks.append(f"{p - t0}\t0\t{size}")
+                t0 = p
+        parts.append(q[t0:])
+        blocks.append(str(n - t0))
+        queries[name] = np.concatenate(parts)
+        snps[name] = [(int(c) + 1, dna.to_string(g[c:c + 1]),
+                       dna.to_string(q[c:c + 1])) for c in cand]
+        m = len(queries[name])
+        chains.append(f"chain {m} {name} {n} + 0 {n} {name} {m} + 0 {m} "
+                      f"{k + 1}\n" + "\n".join(blocks) + "\n\n")
+        fastas[0].append((name, g))
+        fastas[1].append((name, queries[name]))
+    paths = [os.path.join(tmp, f) for f in ("t.fa", "q.fa", "t_q.chain")]
+    for path, records in zip(paths, fastas):
+        with open(path, "w") as f:
+            for name, seq in records:
+                s = dna.to_string(seq)
+                f.write(f">{name}\n")
+                f.writelines(s[i:i + 60] + "\n" for i in range(0, len(s), 60))
+    with open(paths[2], "w") as f:
+        f.write("".join(chains))
+    return paths, snps, queries
+
+
+def tools_reads(path: str, queries: dict, n: int, seed: int) -> list[str]:
+    """n reads of L bp drawn from the query chromosomes in proportion to
+    their length, every other one reverse-complemented, as FASTQ; returns
+    the reads' names."""
+    from gonomics_tpu_torch import dna
+
+    rng = np.random.default_rng(seed)
+    names = list(queries)
+    sizes = np.array([len(queries[c]) for c in names], np.float64)
+    pick = rng.choice(len(names), n, p=sizes / sizes.sum())
+    out = []
+    with open(path, "w") as f:
+        for i, ci in enumerate(pick.tolist()):
+            q = queries[names[ci]]
+            s = int(rng.integers(0, len(q) - L))
+            seq = q[s:s + L]
+            if i % 2:
+                seq = dna.reverse_complement(seq)
+            out.append(f"t{i}_{names[ci]}_{s}")
+            f.write(f"@{out[-1]}\n{dna.to_string(seq)}\n+\n{'I' * L}\n")
+    return out
+
+
+def sort_sam(src: str, dst: str) -> int:
+    """src's records by (reference order, position), under its header
+    with SO:coordinate, as pileup and samConsensus want them; the
+    unmapped last. Returns the mapped records' count."""
+    head, body = [], []
+    with open(src) as f:
+        for line in f:
+            (head if line.startswith("@") else body).append(line)
+    order = {ln.split("\t")[1][3:]: i for i, ln in enumerate(head)
+             if ln.startswith("@SQ")}
+    rows = [ln.split("\t", 6) for ln in body]
+    keys = [(order.get(r[2], len(order)), int(r[3])) for r in rows]
+    head = [ln.replace("SO:unsorted", "SO:coordinate") for ln in head]
+    with open(dst, "w") as f:
+        f.writelines(head)
+        f.writelines(body[i] for i in sorted(range(len(body)),
+                                             key=keys.__getitem__))
+    return sum(r[5] != "*" for r in rows)
+
+
+def covered_positions(sam: str) -> dict:
+    """{chrom: sorted 1-based positions} that the mapped reads of sam span
+    (the aligner writes M, I, D and S: a read covers [pos, pos + its
+    reference length), and its insertions lie inside that span)."""
+    spans: dict = {}
+    with open(sam) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            r = line.split("\t", 6)
+            if r[5] == "*":
+                continue
+            ref_len = sum(int(n) for n, op in re.findall(r"(\d+)([MDN=X])",
+                                                         r[5]))
+            spans.setdefault(r[2], []).append((int(r[3]), ref_len))
+    out = {}
+    for chrom, s in spans.items():
+        starts = np.array([a for a, _ in s], np.int64)
+        ends = starts + np.array([b for _, b in s], np.int64)
+        cover = np.zeros(int(ends.max()) + 1, np.int64)
+        np.add.at(cover, starts, 1)
+        np.add.at(cover, ends, -1)
+        out[chrom] = np.flatnonzero(np.cumsum(cover) > 0)
+    return out
+
+
+def phase_tools_cli(dev: torch.device) -> dict:
+    """The tools around the engines, through the umbrella
+    (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
+    ``tools_data``: (1) ``gsw ggtools`` chain to axt, vcf and gg, the VCF
+    to gg and the axt to vcf; (2) ``gsw align <vcf>.gg`` of
+    TOOLS_GRAPH_READS reads on the card with the default engine (K4, K5
+    and the graph walk) and of the first TOOLS_CPU_READS with ``--device
+    cpu``; (3) ``gsw align t.fa --engine tpu`` of TOOLS_DEPTH x of the
+    query (the fused K1); (4) ``pileup``, ``samConsensus -multiFaDir``
+    and ``samToBed`` on that SAM, sorted. Gates: every planted SNP in the
+    chain's VCF with its position, ref and alt; graph reads mapped >=
+    0.99 and the first TOOLS_CPU_READS girafs byte-equal to the CPU's;
+    the consensus carries the query's base at >= 99% of the planted SNPs
+    that reads cover (read through the multiFa alignment); one bed line
+    a mapped read; pileup's rows are the covered positions; each of the
+    four kernels launched in this phase."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.cli.main import main as gonomics_torch
+    from gonomics_tpu_torch.io import fasta
+    from gonomics_tpu_torch.io import vcf as vcfio
+    from gonomics_tpu_torch.ops import banded, gsw_dp, wavefront
+
+    out = {"phase": "tools_cli", "target_bp": dict(TOOLS_SIZES),
+           "snp_every": TOOLS_SNP_EVERY, "indel_every": TOOLS_INDEL_EVERY}
+    times = {}
+
+    def step(name: str, *argv: str) -> None:
+        t = time.perf_counter()
+        gonomics_torch(list(argv))
+        times[name] = time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (t_fa, q_fa, chain), snps, queries = tools_data(tmp)
+        planted = {(c, *s) for c in snps for s in snps[c]}
+        out["planted_snps"] = len(planted)
+        out["query_bp"] = sum(len(q) for q in queries.values())
+        f = {k: os.path.join(tmp, k) for k in (
+            "c.axt", "c.vcf", "c.gg", "v.gg", "a.vcf", "g.fq", "g400.fq",
+            "g.giraf", "g400.giraf", "r.fq", "aln.sam", "s.sam",
+            "pileup.txt", "cons.fa", "multi", "aln.bed")}
+        for fmt in ("axt", "vcf", "gg"):
+            step(f"ggtools_chain_to_{fmt}", "gsw", "ggtools", chain, "-t",
+                 t_fa, "-q", q_fa, "-f", fmt, "-o", f["c." + fmt])
+        step("ggtools_vcf_to_gg", "gsw", "ggtools", f["c.vcf"], "-t", t_fa,
+             "-o", f["v.gg"])
+        step("ggtools_axt_to_vcf", "gsw", "ggtools", f["c.axt"], "-f", "vcf",
+             "-o", f["a.vcf"])
+        records, _ = vcfio.read(f["c.vcf"])
+        called = {(v.chrom, v.pos, v.ref, v.alt[0]) for v in records}
+        out["ggtools"] = {
+            "vcf_records": len(records),
+            "planted_snps_in_vcf": len(planted & called),
+            "axt_vcf_records": len(vcfio.read(f["a.vcf"])[0])}
+
+        names = tools_reads(f["g.fq"], queries, TOOLS_GRAPH_READS, 2201)
+        with open(f["g.fq"]) as src, open(f["g400.fq"], "w") as dst:
+            dst.writelines(src.readlines()[:4 * TOOLS_CPU_READS])
+        wavefront.local_launches = wavefront.gsw_right_launches = 0
+        gsw_dp.walk_launches = 0
+        step("graph_align_card", "gsw", "align", f["v.gg"], f["g.fq"], "-o",
+             f["g.giraf"], "--device", dev.type)
+        launches = {"local_wavefront": wavefront.local_launches,
+                    "gsw_right_wavefront": wavefront.gsw_right_launches,
+                    "gsw_walk_pack": gsw_dp.walk_launches}
+        step("graph_align_cpu", "gsw", "align", f["v.gg"], f["g400.fq"],
+             "-o", f["g400.giraf"], "--device", "cpu")
+        with open(f["g.giraf"]) as a, open(f["g400.giraf"]) as b:
+            card, cpu = a.read().splitlines(), b.read().splitlines()
+        mapped = sum(ln.split("\t")[5].split(":")[1] != ""
+                     and int(ln.split("\t")[7]) >= 1200 for ln in card)
+        out["graph"] = {
+            "reads": len(names), "lines": len(card),
+            "mapped_frac": mapped / len(names),
+            "cpu_reads": TOOLS_CPU_READS,
+            "card_equals_cpu": card[:TOOLS_CPU_READS] == cpu,
+            "reads_per_s": len(names) / times["graph_align_card"]}
+
+        n_reads = TOOLS_DEPTH * out["query_bp"] // L
+        tools_reads(f["r.fq"], queries, n_reads, 2202)
+        banded.fused_launches = 0
+        step("linear_align_card", "gsw", "align", t_fa, f["r.fq"],
+             "--engine", "tpu", "-o", f["aln.sam"], "--device", dev.type)
+        launches["banded_align_fused"] = banded.fused_launches
+        t = time.perf_counter()
+        sam_mapped = sort_sam(f["aln.sam"], f["s.sam"])
+        times["sort_sam"] = time.perf_counter() - t
+        out["linear"] = {"reads": n_reads, "mapped_frac": sam_mapped / n_reads,
+                         "reads_per_s": n_reads / times["linear_align_card"]}
+
+        step("pileup", "pileup", f["s.sam"], "-o", f["pileup.txt"])
+        os.mkdir(f["multi"])
+        step("samConsensus", "samConsensus", f["s.sam"], t_fa,
+             f["cons.fa"], "-multiFaDir", f["multi"])
+        step("samToBed", "samToBed", f["s.sam"], f["aln.bed"])
+
+        rows = {}
+        with open(f["pileup.txt"]) as fh:
+            for line in fh:
+                if not line.startswith("#"):
+                    c, p, a, cc, g, tt = line.split("\t")[:6]
+                    rows.setdefault(c, []).append(
+                        (int(p), int(a) + int(cc) + int(g) + int(tt)))
+        covered = covered_positions(f["s.sam"])
+        rows_equal = (set(rows) == set(covered) and all(
+            np.array_equal([p for p, _ in rows[c]], covered[c])
+            for c in covered))
+        depth = {(c, p): d for c in rows for p, d in rows[c]}
+        # a target position's column in the multiFa alignment is the
+        # position-th non-gap column of its target record
+        carried = covered_snps = 0
+        for c, pos_snps in snps.items():
+            path = os.path.join(f["multi"], c + ".fa")
+            if not os.path.exists(path):
+                continue
+            target, query = fasta.read(path)
+            cols = np.flatnonzero(target.seq != dna.GAP)
+            for p, _, alt in pos_snps:
+                if depth.get((c, p), 0) == 0:
+                    continue
+                covered_snps += 1
+                base = dna.to_string(dna.to_upper(query.seq[cols[p - 1]:
+                                                            cols[p - 1] + 1]))
+                carried += base == alt
+        with open(f["aln.bed"]) as fh:
+            bed_lines = sum(1 for _ in fh)
+        out["consensus"] = {
+            "pileup_rows": sum(len(v) for v in rows.values()),
+            "pileup_rows_equal_covered": rows_equal,
+            "covered_planted_snps": covered_snps,
+            "carried_frac": carried / max(covered_snps, 1),
+            "bed_lines": bed_lines, "mapped_reads": sam_mapped,
+            "consensus_records": [r.name for r in fasta.read(f["cons.fa"])]}
+    out["times_s"] = times
+    out["launches"] = launches
+    emit(out)
+    g, c = out["graph"], out["consensus"]
+    if not (out["ggtools"]["planted_snps_in_vcf"] == len(planted)
+            and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
+            and c["covered_planted_snps"] > 0.9 * len(planted)
+            and c["carried_frac"] >= 0.99 and c["pileup_rows_equal_covered"]
+            and c["bed_lines"] == sam_mapped
+            and all(v > 0 for v in launches.values())):
+        raise SystemExit("tools_cli check failed")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -3824,6 +4123,7 @@ def main() -> int:
     phase_motif_popgen(dev)
     seq_par, strip = phase_seq_parallel(dev, lowmem)
     rows.append(strip)
+    tools = phase_tools_cli(dev)
     launches = {**e2e["launches"], **pairwise["launches"],
                 **graph["launches"], **lowmem["launches"],
                 **score["launches"],
@@ -3847,6 +4147,8 @@ def main() -> int:
             r["seq_parallel_launches"] = seq_par["launches"][r["name"]]
         if r.get("kernel") == "trace_diag":
             r["trace_diag_launches"] = launches["trace_diag"]
+        if r["name"] in tools["launches"]:
+            r["tools_launches"] = tools["launches"][r["name"]]
     emit({"phase": "done", "total_s": time.perf_counter() - t0})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -1,6 +1,7 @@
-"""gsw align on the PyTorch port: the counterpart of
+"""gsw on the PyTorch port: the counterpart of
 ``gonomics_tpu/cli/gsw_cmd.py`` (``align_cmd``, :214-257, ``_align_tpu``,
-:41-144, and ``_align_tpu_graph``, :147-198).
+:41-144, ``_align_tpu_graph``, :147-198, and ``ggtools_cmd`` with its
+helpers, :259-381).
 
     python -m gonomics_tpu_torch.cli.gsw_cmd align ref.fa R1.fq [R2.fq] \
         [-i 32] [-w 32] [-m humanChimp] [-l ref.sizes] -o out.giraf
@@ -38,6 +39,15 @@ header into the output, byte-identical to one process's (a single
 process writes the output directly). The host engine, and a .gg/.sg
 reference on either engine, ignore all three flags, as the JAX CLI
 does.
+
+    python -m gonomics_tpu_torch.cli.gsw_cmd ggtools in.chain -t t.fa \
+        -q q.fa -f axt|vcf|gg -o out
+    python -m gonomics_tpu_torch.cli.gsw_cmd ggtools in.vcf -t t.fa -o out.gg
+    python -m gonomics_tpu_torch.cli.gsw_cmd ggtools in.axt -f vcf|gg \
+        [-t t.fa] -o out
+
+``ggtools`` builds and converts genome graphs on the host, as the JAX
+subcommand does, byte-identical to it.
 """
 from __future__ import annotations
 
@@ -53,10 +63,13 @@ import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
-from .. import fileio, graph as graphmod
+from .. import dna, fileio, graph as graphmod
 from ..align.matrices import BY_NAME, HUMAN_CHIMP_TWO
 from ..graph_align import GraphAligner
 from ..io import fasta, fastq as fastqio, giraf as girafio
+from ..io import vcf as vcfio
+from ..io.formats import (axt_to_string, axt_to_vcf, chain_to_axt,
+                          is_axt_file, is_chain_file, read_axt, read_chain)
 from ..io.chrom_info import read_to_slice
 from ..parallel import (init_distributed, make_mesh, merge_shard_files,
                         process_count, process_index)
@@ -231,6 +244,106 @@ def _align_linear(args) -> None:
                               header_lines=al.header().text)
 
 
+def _filter_vcf_pos(vcfs: list[vcfio.Vcf]) -> list[vcfio.Vcf]:
+    """Sorted, the first record at each position of a chromosome kept,
+    records whose ref or alt holds N dropped; chromosomes in the order
+    they are first seen (the reference iterates a Go map)."""
+    vcfs = list(vcfs)
+    vcfio.sort(vcfs)
+    by_chrom: dict[str, list[vcfio.Vcf]] = {}
+    for v in vcfs:
+        by_chrom.setdefault(v.chrom, []).append(v)
+    answer = []
+    for chrom in by_chrom:
+        encountered = set()
+        for v in by_chrom[chrom]:
+            if v.pos in encountered:
+                continue
+            encountered.add(v.pos)
+            contains_n = (dna.from_string(v.ref) == dna.N).any()
+            for alt in v.alt:
+                if (dna.from_string(alt) == dna.N).any():
+                    contains_n = True
+            if not contains_n:
+                answer.append(v)
+    return answer
+
+
+def _axts_to_vcfs(axts) -> list[vcfio.Vcf]:
+    """Each block's records through ``_filter_vcf_pos``, in block order,
+    then those holding an "N" dropped."""
+    out = []
+    for a in axts:
+        for v in _filter_vcf_pos(axt_to_vcf(a)):
+            if "N" not in v.ref and "N" not in v.alt[0]:
+                out.append(v)
+    return out
+
+
+def _chains_to_axts(chain_file: str, target_fa: str, query_fa: str):
+    """Each chain as an axt block over the two FASTA files' sequences."""
+    chains, _ = read_chain(chain_file)
+    tmap = {r.name: r.seq for r in fasta.read(target_fa)}
+    qmap = {r.name: r.seq for r in fasta.read(query_fa)}
+    return [chain_to_axt(c, tmap[c.t_name], qmap[c.q_name]) for c in chains]
+
+
+def _variant_graph_of(vcfs, fa_file: str) -> graphmod.GenomeGraph:
+    by_chrom: dict[str, list[vcfio.Vcf]] = {}
+    for v in vcfs:
+        by_chrom.setdefault(v.chrom, []).append(v)
+    return graphmod.variant_graph(fasta.read(fa_file), by_chrom)
+
+
+def ggtools_cmd(args) -> None:
+    """Chain to axt, vcf or gg; vcf to gg; axt to vcf or gg."""
+    in_file = args.input
+    if is_chain_file(in_file):
+        if not args.target or not args.query:
+            raise SystemExit("Error: Must specify both target and query "
+                             "fasta files...")
+        axts = _chains_to_axts(in_file, args.target, args.query)
+        if args.format == "axt":
+            with fileio.easy_create(args.out) as f:
+                for a in axts:
+                    # the reference never increments its block counter:
+                    # every block is written as 0
+                    f.write(axt_to_string(a, 0))
+        elif args.format == "vcf":
+            with fileio.easy_create(args.out) as f:
+                vcfio.new_write_header(f, vcfio.new_header())
+                for v in _axts_to_vcfs(axts):
+                    vcfio.write_vcf(f, v)
+        elif args.format == "gg":
+            graphmod.write(args.out, _variant_graph_of(_axts_to_vcfs(axts),
+                                                       args.target))
+        else:
+            raise SystemExit(f"unsupported chain output format: "
+                             f"{args.format}")
+    elif vcfio.is_vcf_file(in_file):
+        if not args.target:
+            raise SystemExit("Error: Must specify target reference fasta "
+                             "file...")
+        records, _ = vcfio.read(in_file)
+        graphmod.write(args.out, _variant_graph_of(records, args.target))
+    elif is_axt_file(in_file):
+        axts = read_axt(in_file)
+        if args.format == "vcf":
+            ans = _axts_to_vcfs(axts)
+            vcfio.sort(ans)
+            with fileio.easy_create(args.out) as f:
+                vcfio.new_write_header(f, vcfio.new_header())
+                for v in ans:
+                    vcfio.write_vcf(f, v)
+        elif args.format == "gg":
+            graphmod.write(args.out, _variant_graph_of(_axts_to_vcfs(axts),
+                                                       args.target))
+        else:
+            raise SystemExit(f"unsupported axt output format: {args.format}")
+    else:
+        raise SystemExit(f"unrecognized input file type: {in_file}")
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     p = argparse.ArgumentParser(prog="gsw")
@@ -290,8 +403,20 @@ def main(argv=None) -> None:
     al.add_argument("--profile", default="",
                     help="write a torch.profiler trace of the alignment to "
                          "this directory")
+    gg = sub.add_parser("ggtools", help="create and convert genome graphs "
+                        "from chain, vcf and axt files")
+    gg.add_argument("input", help="input file [.chain/.vcf/.axt]")
+    gg.add_argument("-t", "--target", default="",
+                    help="Target reference fasta file")
+    gg.add_argument("-q", "--query", default="",
+                    help="Query fasta file (chain inputs)")
+    gg.add_argument("-f", "--format", default="",
+                    help="Output format for conversions [axt/vcf/gg]")
+    gg.add_argument("-o", "--out", default="/dev/stdout")
     a = p.parse_args(argv)
-    if a.profile:
+    if a.cmd == "ggtools":
+        ggtools_cmd(a)
+    elif a.profile:
         _profiled_align(a)
     else:
         align_cmd(a)

@@ -1,0 +1,55 @@
+"""gonomics-torch: the port's umbrella command, the counterpart of
+``gonomics_tpu/cli/main.py`` (``main``, :300-316) for the tools the port
+has.
+
+    gonomics-torch <tool> [args...]
+    python -m gonomics_tpu_torch.cli.main <tool> [args...]
+
+``gonomics-torch`` alone, or with ``help``, lists the tools. Each tool
+keeps its name in the JAX package's ``COMMANDS`` and is imported only
+when it is dispatched, so listing them starts no CUDA.
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+
+COMMANDS = {
+    "globalAlignment": ("gonomics_tpu_torch.cli.global_alignment",
+                        "Align 2 single-record fasta files (card kernels)"),
+    "cigarToBed": ("gonomics_tpu_torch.cli.cigar_to_bed",
+                   "Affine-gap align two fastas, emit indel beds (card "
+                   "kernels)"),
+    "gsw": ("gonomics_tpu_torch.cli.gsw_cmd",
+            "Graph-Smith-Waterman read aligner (host or card engine) and "
+            "genome-graph tools (ggtools)"),
+    "callVariants": ("gonomics_tpu_torch.cli.call_variants",
+                     "Joint variant caller over experimental+normal samples "
+                     "(host count; the card's with --mesh)"),
+    "pileup": ("gonomics_tpu_torch.cli.pileup_cmd",
+               "Count bases from sequencing data (host)"),
+    "samConsensus": ("gonomics_tpu_torch.cli.sam_consensus",
+                     "Consensus fasta from a sam/bam over a reference "
+                     "(host)"),
+    "samToBed": ("gonomics_tpu_torch.cli.sam_to_bed",
+                 "Aligned read positions as bed records (host)"),
+}
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        print("gonomics_tpu_torch — sequence analysis on a CUDA card\n\n"
+              "Commands:")
+        for name, (_, desc) in sorted(COMMANDS.items()):
+            print(f"  {name:18s} {desc}")
+        return
+    cmd = argv[0]
+    if cmd not in COMMANDS:
+        raise SystemExit(f"unknown command: {cmd} (run 'gonomics-torch help')")
+    importlib.import_module(COMMANDS[cmd][0]).main(argv[1:])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """DNA base codes and sequence conversion: the subset of
-``gonomics_tpu/dna.py`` that the read aligners and the variant caller
-use.
+``gonomics_tpu/dna.py`` that the read aligners, the variant caller and
+the consensus tools use.
 
 A sequence is an int8 numpy array of base codes 0..12, the same integer
 codes as the reference's ``dna`` package.
@@ -34,6 +34,8 @@ for _i, _ch in enumerate(b"ACGTNacgtn-.*"):
 
 _TO_UPPER = np.arange(NUM_BASES, dtype=np.int8)
 _TO_UPPER[LOWER_A:LOWER_N + 1] = np.arange(A, N + 1, dtype=np.int8)
+_TO_LOWER = np.arange(NUM_BASES, dtype=np.int8)
+_TO_LOWER[A:N + 1] = np.arange(LOWER_A, LOWER_N + 1, dtype=np.int8)
 
 # A<->T, C<->G, case preserved; N, gap, dot and nil map to themselves
 _COMPLEMENT = np.array(
@@ -82,6 +84,16 @@ def to_string(seq: np.ndarray) -> str:
 
 def to_upper(seq: np.ndarray) -> np.ndarray:
     return _TO_UPPER[np.asarray(seq)]
+
+
+def to_lower(seq: np.ndarray) -> np.ndarray:
+    """A..N to a..n; other codes unchanged (dna.py:117)."""
+    return _TO_LOWER[np.asarray(seq)]
+
+
+def all_gaps(n: int) -> np.ndarray:
+    """n gap codes (dna.py:165)."""
+    return np.full(n, GAP, dtype=np.int8)
 
 
 def complement(seq: np.ndarray) -> np.ndarray:

@@ -1,6 +1,6 @@
 """BED records and writing: the subset of ``gonomics_tpu/io/bed.py`` that
-``cigarToBed`` uses. Field-count-aware formatting matches gonomics'
-``bed.ToString``."""
+``cigarToBed`` and ``samToBed`` use. Field-count-aware formatting matches
+gonomics' ``bed.ToString``."""
 
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """SAM cigar run-length ops: the subset of ``gonomics_tpu/io/cigar.py``
-that SAM and giraf emission, the SAM readers and the pileup use."""
+that SAM and giraf emission, the SAM readers, the pileup and
+``samToBed`` use."""
 
 from __future__ import annotations
 
@@ -33,6 +34,11 @@ def is_unmapped(cig: list[CigarOp]) -> bool:
 def query_length(cig: list[CigarOp]) -> int:
     """Read bases the cigar consumes (cigar.py:58)."""
     return sum(c.run_length for c in cig if c.op in _CONSUMES_QUERY)
+
+
+def reference_length(cig: list[CigarOp]) -> int:
+    """Reference bases the cigar consumes (cigar.py:62)."""
+    return sum(c.run_length for c in cig if c.op in _CONSUMES_REF)
 
 
 def to_string(cig: list[CigarOp]) -> str:

@@ -1,5 +1,6 @@
-"""FASTA records and reading: the subset of ``gonomics_tpu/io/fasta.py``
-that the read aligner and the ``gsw`` CLI use."""
+"""FASTA records, reading and writing: the subset of
+``gonomics_tpu/io/fasta.py`` that the read aligner, the ``gsw`` CLI and
+``samConsensus`` use (``read`` :57, ``write_fasta`` :86, ``write`` :95)."""
 
 from __future__ import annotations
 
@@ -48,3 +49,18 @@ def read(filename: str) -> list[Fasta]:
     if len(set(names)) != len(names):
         raise ValueError("fasta record names must be unique")
     return records
+
+
+def write_fasta(f: IO[str], rec: Fasta, line_length: int = 50) -> None:
+    """One record, its sequence in lines of line_length characters."""
+    f.write(f">{rec.name}\n")
+    s = np.asarray(rec.seq)
+    for i in range(0, len(s), line_length):
+        f.write(dna.to_string(s[i:i + line_length]))
+        f.write("\n")
+
+
+def write(filename: str, records: list[Fasta], line_length: int = 50) -> None:
+    with fileio.easy_create(filename) as f:
+        for rec in records:
+            write_fasta(f, rec, line_length)

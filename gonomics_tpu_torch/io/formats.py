@@ -1,0 +1,252 @@
+"""Chain and axt records, as ``gsw ggtools`` reads and converts them: the
+chain and axt parts of ``gonomics_tpu/io/formats.py`` that ``ggtools``
+reaches (``Axt`` :22, ``read_axt`` :60, ``_parse_axt_lines`` :64,
+``axt_to_string`` :82, ``_axt_info``, ``_b2s_upper`` and ``axt_to_vcf``
+:159-254, ``chain_to_axt`` :255, ``is_chain_file`` :291, ``is_axt_file``
+:296, ``BaseStats`` and ``Chain`` :343-365, ``read_chain`` :366). PSL,
+genePred, MAF and GTF are not ported."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from .. import dna, fileio
+from . import vcf as vcfio
+
+
+@dataclass
+class Axt:
+    r_name: str = ""
+    r_start: int = 0
+    r_end: int = 0
+    q_name: str = ""
+    q_start: int = 0
+    q_end: int = 0
+    q_strand_pos: bool = True
+    score: int = 0
+    r_seq: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int8))
+    q_seq: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int8))
+
+
+def read_axt(filename: str) -> list[Axt]:
+    """The blocks of an axt file; '#' lines are skipped."""
+    with fileio.easy_open(filename) as f:
+        lines = [ln.rstrip("\n") for ln in f if not ln.startswith("#")]
+    return _parse_axt_lines(lines)
+
+
+def _parse_axt_lines(lines: list[str]) -> list[Axt]:
+    out: list[Axt] = []
+    i = 0
+    while i < len(lines):
+        if not lines[i].strip():
+            i += 1
+            continue
+        w = lines[i].split(" ")
+        out.append(Axt(r_name=w[1], r_start=int(w[2]), r_end=int(w[3]),
+                       q_name=w[4], q_start=int(w[5]), q_end=int(w[6]),
+                       q_strand_pos=w[7] == "+", score=int(w[8]),
+                       r_seq=dna.from_string(lines[i + 1]),
+                       q_seq=dna.from_string(lines[i + 2])))
+        i += 3
+    return out
+
+
+def axt_to_string(a: Axt, aln_id: int) -> str:
+    """A block's three lines and the blank line after them."""
+    strand = "+" if a.q_strand_pos else "-"
+    return (f"{aln_id} {a.r_name} {a.r_start} {a.r_end} {a.q_name} "
+            f"{a.q_start} {a.q_end} {strand} {a.score}\n"
+            f"{dna.to_string(a.r_seq)}\n{dna.to_string(a.q_seq)}\n\n")
+
+
+def _axt_info(a: Axt) -> str:
+    """The block's fields as the info tag gives them (Go's %t: true and
+    false)."""
+    strand = "true" if a.q_strand_pos else "false"
+    return (f"{a.r_name};{a.r_start};{a.r_end};{a.q_name};{a.q_start};"
+            f"{a.q_end};{strand};{a.score}")
+
+
+def _b2s_upper(base: int) -> str:
+    return dna.to_string(dna.to_upper(np.array([base], np.int8)))
+
+
+def axt_to_vcf(a: Axt) -> list[vcfio.Vcf]:
+    """SNP, INS and DEL records of one axt block, with the reference's
+    quirks: an insertion carries SVTYPE=SNP in its info and is appended
+    twice (``ggtools`` drops the copy by position), and the branches that
+    rewrite info to "SVTYPE=SNP;INS" or ";DEL" compare the last record's
+    info to the bare "SVTYPE=SNP", which the query=...-prefixed tags never
+    equal."""
+    answer: list[vcfio.Vcf] = []
+    rs, qs = np.asarray(a.r_seq), np.asarray(a.q_seq)
+    rs_u, qs_u = dna.to_upper(rs), dna.to_upper(qs)
+    n = len(rs)
+    r_count = a.r_start - 1
+    q_count = a.q_start - 1
+    i = 0
+    while i < n:
+        if rs[i] != dna.GAP and qs[i] != dna.GAP:
+            r_count += 1
+            q_count += 1
+            if rs_u[i] != qs_u[i]:
+                answer.append(vcfio.Vcf(
+                    chrom=a.r_name, pos=r_count, id=a.q_name,
+                    ref=_b2s_upper(rs[i]), alt=[_b2s_upper(qs[i])],
+                    qual=30, filter="PASS",
+                    info=f"query={q_count};SVTYPE=SNP;{_axt_info(a)}"))
+        if rs[i] == dna.GAP:
+            if i == 0:
+                raise IndexError("axt alignment begins with a target gap")
+            q_count += 1
+            curr = vcfio.Vcf(
+                chrom=a.r_name, pos=r_count, id=a.q_name,
+                ref=_b2s_upper(rs[i - 1]), alt=[_b2s_upper(qs[i - 1])],
+                qual=24, filter="PASS",
+                info=f"query={q_count};SVTYPE=SNP;{_axt_info(a)}")
+            j = i
+            while j < n:
+                if rs_u[j] == dna.GAP:
+                    curr.alt[0] += _b2s_upper(qs[j])
+                    q_count += 1
+                    j += 1
+                else:
+                    if not answer:
+                        answer.append(curr)
+                    elif answer[-1].pos == curr.pos and \
+                            answer[-1].info == "SVTYPE=SNP":
+                        curr.info = "SVTYPE=SNP;INS"
+                        answer[-1] = curr
+                    else:
+                        answer.append(curr)
+                    answer.append(curr)
+                    i = j - 1
+                    break
+        if qs[i] == dna.GAP:
+            if i == 0:
+                raise IndexError("axt alignment begins with a query gap")
+            temp_r = 0
+            curr = vcfio.Vcf(
+                chrom=a.r_name, pos=r_count, id=a.q_name,
+                ref=_b2s_upper(rs[i - 1]), alt=[_b2s_upper(qs[i - 1])],
+                qual=24, filter="PASS",
+                info=f"query={q_count};SVTYPE=DEL;{_axt_info(a)}")
+            j = i
+            while j < n:
+                if qs_u[j] == dna.GAP:
+                    curr.ref += _b2s_upper(rs[j])
+                    temp_r += 1
+                    j += 1
+                else:
+                    if not answer:
+                        answer.append(curr)
+                    elif answer[-1].pos == curr.pos and \
+                            answer[-1].info == "SVTYPE=SNP":
+                        curr.info = "SVTYPE=SNP;DEL"
+                        answer[-1] = curr
+                    else:
+                        answer.append(curr)
+                    r_count += temp_r
+                    i = j - 1
+                    break
+        i += 1
+    return answer
+
+
+@dataclass
+class BaseStats:
+    size: int
+    t_bases: int = 0
+    q_bases: int = 0
+
+
+@dataclass
+class Chain:
+    score: int = 0
+    t_name: str = ""
+    t_size: int = 0
+    t_strand: bool = True
+    t_start: int = 0
+    t_end: int = 0
+    q_name: str = ""
+    q_size: int = 0
+    q_strand: bool = True
+    q_start: int = 0
+    q_end: int = 0
+    alignment: list[BaseStats] = field(default_factory=list)
+    id: int = 0
+
+
+def chain_to_axt(ch: Chain, target: np.ndarray, query: np.ndarray) -> Axt:
+    """A chain's blocks expanded into the gapped axt sequences from the
+    two chromosomes' sequences."""
+    ans = Axt(r_name=ch.t_name, r_start=ch.t_start + 1, r_end=ch.t_end,
+              q_name=ch.q_name, q_start=ch.q_start + 1, q_end=ch.q_end,
+              q_strand_pos=ch.q_strand, score=ch.score)
+    t = np.array(target, np.int8, copy=True)
+    q = np.array(query, np.int8, copy=True)
+    if not ch.t_strand and ch.q_strand:
+        t = dna.reverse_complement(t).astype(np.int8)
+        q = dna.reverse_complement(q).astype(np.int8)
+    elif ch.t_strand and not ch.q_strand:
+        q = dna.reverse_complement(q).astype(np.int8)
+    elif not ch.t_strand and not ch.q_strand:
+        t = dna.reverse_complement(t).astype(np.int8)
+    r_parts, q_parts = [], []
+    ti, qi = ch.t_start, ch.q_start
+    for blk in ch.alignment:
+        r_parts.append(t[ti:ti + blk.size])
+        q_parts.append(q[qi:qi + blk.size])
+        ti += blk.size
+        qi += blk.size
+        if blk.t_bases > 0:
+            r_parts.append(t[ti:ti + blk.t_bases])
+            q_parts.append(np.full(blk.t_bases, dna.GAP, np.int8))
+            ti += blk.t_bases
+        if blk.q_bases > 0:
+            q_parts.append(q[qi:qi + blk.q_bases])
+            r_parts.append(np.full(blk.q_bases, dna.GAP, np.int8))
+            qi += blk.q_bases
+    ans.r_seq = np.concatenate(r_parts) if r_parts else np.zeros(0, np.int8)
+    ans.q_seq = np.concatenate(q_parts) if q_parts else np.zeros(0, np.int8)
+    return ans
+
+
+def is_chain_file(filename: str) -> bool:
+    return filename.endswith(".chain") or filename.endswith(".chain.gz")
+
+
+def is_axt_file(filename: str) -> bool:
+    return filename.endswith(".axt") or filename.endswith(".axt.gz")
+
+
+def read_chain(filename: str) -> tuple[list[Chain], list[str]]:
+    """(chains, '#' comment lines) of a chain file."""
+    comments: list[str] = []
+    chains: list[Chain] = []
+    cur: Chain | None = None
+    with fileio.easy_open(filename) as f:
+        for raw in f:
+            line = raw.rstrip("\n")
+            if line.startswith("#"):
+                comments.append(line)
+                continue
+            if line.startswith("chain "):
+                w = line.split(" ")
+                cur = Chain(score=int(w[1]), t_name=w[2], t_size=int(w[3]),
+                            t_strand=w[4] == "+", t_start=int(w[5]),
+                            t_end=int(w[6]), q_name=w[7], q_size=int(w[8]),
+                            q_strand=w[9] == "+", q_start=int(w[10]),
+                            q_end=int(w[11]), id=int(w[12]))
+                chains.append(cur)
+            elif line.strip() and cur is not None:
+                w = line.split("\t") if "\t" in line else line.split()
+                if len(w) == 1:
+                    cur.alignment.append(BaseStats(int(w[0])))
+                else:
+                    cur.alignment.append(BaseStats(int(w[0]), int(w[1]),
+                                                   int(w[2])))
+    return chains, comments

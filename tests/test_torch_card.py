@@ -1897,3 +1897,161 @@ def test_seq_parallel_across_cards(card):
         out.append([x.cpu() for x in step(*parallel.example_step_inputs(
             mesh, B=4 * shape[0], n=300, m=280, genome_len=10_000))])
     assert all(torch.equal(g, w) for g, w in zip(*out))
+
+
+def _plant_edits(g, rng, snp_every: int, indel_every: int,
+                 min_gap: int = 50):
+    """The query of one target chromosome g: an insertion or a deletion of
+    1-10 bp every ~indel_every bases (alternately), a SNP every
+    ~snp_every bases at least min_gap from any indel and off N. Returns
+    (query, snps [(1-based pos, ref, alt)], chain blocks [(size, dt,
+    dq)])."""
+    n = len(g)
+    step = indel_every
+    at = np.arange(step, n - step // 2, step)
+    at = at + rng.integers(-step // 4, step // 4 + 1, len(at))
+    indels = []
+    for k, p in enumerate(at.tolist()):
+        size = int(rng.integers(1, 11))
+        indels.append((p, "del" if k % 2 else "ins", size))
+    cand = np.arange(snp_every // 2, n - snp_every // 2, snp_every)
+    cand = cand + rng.integers(-snp_every // 4, snp_every // 4 + 1,
+                               len(cand))
+    near = np.zeros(n + 1, bool)
+    for p, _, size in indels:
+        near[max(0, p - min_gap):p + size + min_gap] = True
+    up = dna.to_upper(g)
+    snps = {}
+    for p in cand.tolist():
+        if not near[p] and up[p] < dna.N and (up[p - 2:p + 3] < dna.N).all():
+            snps[p] = int((up[p] + rng.integers(1, 4)) % 4)
+    parts, blocks, t0 = [], [], 0
+    for p, kind, size in indels + [(n, "end", 0)]:
+        seg = g[t0:p].copy()
+        for s, alt in snps.items():
+            if t0 <= s < p:
+                seg[s - t0] = alt
+        parts.append(seg)
+        if kind == "ins":
+            parts.append(rng.integers(0, 4, size).astype(np.int8))
+            blocks.append((p - t0, 0, size))
+            t0 = p
+        elif kind == "del":
+            blocks.append((p - t0, size, 0))
+            t0 = p + size
+        else:
+            blocks.append((p - t0, 0, 0))
+    truth = [(s + 1, dna.to_string(up[s:s + 1]),
+              dna.to_string(np.array([a], np.int8)))
+             for s, a in sorted(snps.items())]
+    return np.concatenate(parts), truth, blocks
+
+
+def _write_fasta(path: str, records) -> None:
+    with open(path, "w") as f:
+        for name, seq in records:
+            s = dna.to_string(seq)
+            f.write(f">{name}\n")
+            f.writelines(s[i:i + 60] + "\n" for i in range(0, len(s), 60))
+
+
+def _tools_inputs(tmp: str, seed: int = 0,
+                  sizes=(("chr1", 6000), ("chr2", 3000)),
+                  snp_every: int = 150, indel_every: int = 900,
+                  minus_strand: tuple = ("chr2",)):
+    """t.fa, q.fa and t_q.chain under the directory tmp: random target
+    chromosomes (the first with an N run and a lower-case stretch), their
+    queries from ``_plant_edits`` (the chromosomes named in minus_strand
+    stored reverse-complemented, their chains on the query's - strand),
+    one chain a chromosome of the ungapped blocks between the indels.
+    Returns (target, query, chain, snps {chrom: [(pos, ref, alt)]}, query
+    sequences {chrom: codes as aligned})."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    target, query, snps, qseqs, chains = [], [], {}, {}, []
+    for k, (name, size) in enumerate(sizes):
+        g = rng.integers(0, 4, size).astype(np.int8)
+        if k == 0:
+            g[size // 3:size // 3 + 30] = dna.N
+            g[size // 2:size // 2 + 200] += dna.LOWER_A
+        q, snps[name], blocks = _plant_edits(g, rng, snp_every, indel_every)
+        if k == 0:  # a query base against the N run: a record ggtools drops
+            q[size // 3 + 5] = dna.A
+        qseqs[name] = q
+        minus = name in minus_strand
+        target.append((name, g))
+        query.append((name, dna.reverse_complement(q) if minus else q))
+        head = (f"chain {1000 * (k + 1)} {name} {size} + 0 {size} {name} "
+                f"{len(q)} {'-' if minus else '+'} 0 {len(q)} {k + 1}")
+        body = [f"{s}\t{dt}\t{dq}" for s, dt, dq in blocks[:-1]]
+        chains.append("\n".join([head, *body, str(blocks[-1][0])]) + "\n\n")
+    paths = [os.path.join(tmp, n) for n in ("t.fa", "q.fa", "t_q.chain")]
+    _write_fasta(paths[0], target)
+    _write_fasta(paths[1], query)
+    with open(paths[2], "w") as f:
+        f.write("#a chain file\n" + "".join(chains))
+    return (*paths, snps, qseqs)
+
+
+def _tool_reads(qseqs, n: int, length: int, seed: int) -> list:
+    """n reads of length bases drawn from the query chromosomes, every
+    other one reverse-complemented, as (name, codes)."""
+    rng = np.random.default_rng(seed)
+    names = list(qseqs)
+    sizes = np.array([len(qseqs[c]) for c in names], np.float64)
+    reads = []
+    for i in range(n):
+        c = names[int(rng.choice(len(names), p=sizes / sizes.sum()))]
+        s = int(rng.integers(0, len(qseqs[c]) - length))
+        seq = dna.to_upper(qseqs[c][s:s + length]).astype(np.int8)
+        if i % 2:
+            seq = dna.reverse_complement(seq).astype(np.int8)
+        reads.append((f"q{i}_{c}_{s}", seq))
+    return reads
+
+
+def _giraf_mapped(line: str) -> bool:
+    """A path and a score of at least 1200 (the SAM projection's
+    threshold)."""
+    f = line.split("\t")
+    return f[5].split(":")[1] != "" and int(f[7]) >= 1200
+
+
+def _write_fastq(path: str, reads) -> None:
+    with open(path, "w") as f:
+        for name, seq in reads:
+            f.write(f"@{name}\n{dna.to_string(seq)}\n+\n{'I' * len(seq)}\n")
+
+
+@pytest.mark.cuda
+def test_tools_ggtools_graph_on_card_equals_cpu(card, tmp_path):
+    """gonomics-torch gsw ggtools (chain to vcf, vcf to gg), then gsw align
+    of the graph on the card (the default engine: K4, K5 and the graph
+    walk) against --device cpu: giraf byte-equal, every read mapped."""
+    import os
+
+    from gonomics_tpu_torch.cli import main as umbrella
+
+    tmp = str(tmp_path)
+    t, q, chain, snps, qseqs = _tools_inputs(tmp, seed=5)
+    vcf, gg = os.path.join(tmp, "c.vcf"), os.path.join(tmp, "c.gg")
+    umbrella.main(["gsw", "ggtools", chain, "-t", t, "-q", q, "-f", "vcf",
+                   "-o", vcf])
+    umbrella.main(["gsw", "ggtools", vcf, "-t", t, "-o", gg])
+    from gonomics_tpu_torch.io import vcf as vcfio
+    got = {(v.chrom, v.pos, v.ref, v.alt[0]) for v in vcfio.read(vcf)[0]}
+    assert all((c, *s) in got for c in snps for s in snps[c])
+    fq = os.path.join(tmp, "r.fq")
+    _write_fastq(fq, _tool_reads(qseqs, 120, 150, seed=6))
+    out = {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"r.{device}.giraf")
+        umbrella.main(["gsw", "align", gg, fq, "-o", path,
+                       "--device", device])
+        with open(path, "rb") as f:
+            out[device] = f.read()
+    assert out["cuda"] == out["cpu"]
+    lines = out["cuda"].decode().splitlines()
+    assert len(lines) == 120
+    assert all(_giraf_mapped(ln) for ln in lines)

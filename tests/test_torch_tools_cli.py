@@ -1,0 +1,322 @@
+"""The port's ``pileup``, ``samConsensus`` and ``samToBed``
+(gonomics_tpu_torch/cli/) and its umbrella ``gonomics-torch``
+(gonomics_tpu_torch/cli/main.py) on the CPU against the JAX package:
+output bytes on the same SAM and BAM files. Two inputs, each as SAM text
+and as BAM written by the JAX package's bam_writer: tests/test_torch_card.py
+``_variant_inputs`` (two chromosomes of 12 and 6 kb, coordinate-sorted
+reads with M, I, D and S on both strands, planted SNVs and indels), and
+a small hand-made file of the edge cases (an insertion near a
+chromosome's start, a deletion running to a chromosome's end, an N
+skip and an insertion at the uncovered base before the next reads, a
+chromosome with no reads, an unmapped read). Also: the umbrella
+lists and dispatches exactly the port's tools, imports none of them
+before dispatch, and its ``gsw align`` wants the card; ``pyproject.toml``
+installs it as ``gonomics-torch``; no new module imports JAX.
+"""
+
+import os
+import subprocess
+import sys
+import tomllib
+
+import numpy as np
+import pytest
+import torch
+
+from gonomics_tpu.cli import main as jmain
+from gonomics_tpu.cli import pileup_cmd as jpileup
+from gonomics_tpu.cli import sam_consensus as jcons
+from gonomics_tpu.cli import sam_to_bed as jbed
+from gonomics_tpu.io import bam_writer
+from gonomics_tpu.io import sam as jsam
+from gonomics_tpu_torch import dna
+from gonomics_tpu_torch.cli import gsw_cmd as tgsw
+from gonomics_tpu_torch.cli import main as umbrella
+from gonomics_tpu_torch.cli import pileup_cmd as tpileup
+from gonomics_tpu_torch.cli import sam_consensus as tcons
+from gonomics_tpu_torch.cli import sam_to_bed as tbed
+
+from test_torch_card import _variant_inputs, _write_reference
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORTED = ["callVariants", "cigarToBed", "globalAlignment", "gsw", "pileup",
+          "samConsensus", "samToBed"]
+
+
+def _edge_sam(genome) -> str:
+    """Coordinate-sorted SAM text over chrA (240 bp), chrB (180 bp) and
+    chrC (90 bp, no reads)."""
+    rng = np.random.default_rng(4)
+
+    def seq(chrom, pos, cigar, alt=None):
+        """Read bases for a cigar [(n, op)] at 1-based pos; alt {0-based
+        ref pos: code}."""
+        g, p, out = genome[chrom], pos - 1, []
+        for n, op in cigar:
+            if op == "M":
+                part = g[p:p + n].copy()
+                for k, a in (alt or {}).items():
+                    if p <= k < p + n:
+                        part[k - p] = a
+                out.append(part)
+                p += n
+            elif op in "IS":
+                out.append(rng.integers(0, 4, n).astype(np.int8))
+            else:
+                p += n
+        return dna.to_string(np.concatenate(out))
+
+    reads = []
+    ins = [(2, "S"), (5, "M"), (3, "I"), (40, "M")]
+    ins_seq = seq("chrA", 1, ins)
+    for i in range(4):  # the same insertion in every read
+        reads.append(("chrA", 1, f"ins{i}", 16 * (i % 2), ins, ins_seq))
+    reads.append(("chrA", 30, "nskip", 0, [(10, "M"), (20, "N"), (2, "I"),
+                                           (15, "M")], None))
+    for i, pos in enumerate(range(60, 151, 10)):
+        cig = [(50, "M")]
+        alt = {99: (genome["chrA"][99] + 1) % 4} if i % 4 else None
+        flag = (1 | (64 if i % 2 else 128)) | (16 * (i % 3 == 0))
+        reads.append(("chrA", pos, f"mid{i}", flag, cig, seq("chrA", pos,
+                                                            cig, alt)))
+    for i in range(3):  # a deletion to the end of chrA
+        cig = [(35, "M"), (6, "D")]
+        reads.append(("chrA", 200, f"end{i}", 16 * i % 32, cig, None))
+    reads.append(("chrB", 1, "b0", 0, [(20, "M")], None))
+    for i in range(3):
+        cig = [(3, "M"), (2, "D"), (30, "M"), (4, "S")]
+        reads.append(("chrB", 100, f"b{i + 1}", 1 | 64 | 16 * i % 32, cig,
+                      None))
+    lines = ["@HD\tVN:1.6\tSO:coordinate"]
+    lines += [f"@SQ\tSN:{c}\tLN:{len(g)}" for c, g in genome.items()]
+    for chrom, pos, name, flag, cig, text in reads:
+        text = text or seq(chrom, pos, cig)
+        cigar = "".join(f"{n}{op}" for n, op in cig)
+        lines.append(f"{name}\t{flag}\t{chrom}\t{pos}\t60\t{cigar}\t*\t0\t0\t"
+                     f"{text}\t*")
+    lines.append("u0\t4\t*\t0\t0\t*\t*\t0\t0\tACGTACGT\t*")
+    return "".join(ln + "\n" for ln in lines)
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("tools"))
+    ref, exp, _, _ = _variant_inputs(tmp, seed=11, n_reads=1500)
+    rng = np.random.default_rng(2)
+    genome = {c: rng.integers(0, 4, n).astype(np.int8)
+              for c, n in (("chrA", 240), ("chrB", 180), ("chrC", 90))}
+    edge_ref = os.path.join(tmp, "edge.fa")
+    _write_reference(edge_ref, genome)
+    edge = os.path.join(tmp, "edge.sam")
+    with open(edge, "w") as f:
+        f.write(_edge_sam(genome))
+    files = {"tmp": tmp}
+    for name, sam, fa in (("variants", exp, ref), ("edge", edge, edge_ref)):
+        header, records = jsam.read(sam)
+        bam = sam[:-4] + ".bam"
+        bam_writer.write_bam(bam, header, records)
+        files[name] = {"sam": sam, "bam": bam, "ref": fa}
+    return files
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("data", ["variants", "edge"])
+@pytest.mark.parametrize("fmt", ["sam", "bam"])
+@pytest.mark.parametrize("min_dp", [0, 5])
+def test_pileup_byte_identical(inputs, tmp_path, data, fmt, min_dp):
+    """pileup's table, with and without -minDP (which counts insertions
+    too), equals the JAX tool's."""
+    src = inputs[data][fmt]
+    jpileup.main([src, "-o", str(tmp_path / "jax.txt"),
+                  "-minDP", str(min_dp)])
+    tpileup.main([src, "-o", str(tmp_path / "port.txt"),
+                  "-minDP", str(min_dp)])
+    got, want = _read(tmp_path / "port.txt"), _read(tmp_path / "jax.txt")
+    assert got == want
+    assert got.count(b"\n") > 10
+
+
+@pytest.mark.parametrize("data", ["variants", "edge"])
+@pytest.mark.parametrize("fmt", ["sam", "bam"])
+@pytest.mark.parametrize("subs", [False, True])
+@pytest.mark.parametrize("multi_fa", [False, True])
+def test_sam_consensus_byte_identical(inputs, tmp_path, data, fmt, subs,
+                                      multi_fa):
+    """samConsensus's FASTA, and with -multiFaDir each chromosome's
+    two-record alignment, equal the JAX tool's, with
+    -substitutionsOnly and without."""
+    out = {}
+    for name, mod in (("jax", jcons), ("port", tcons)):
+        d = tmp_path / name
+        d.mkdir()
+        args = [inputs[data][fmt], inputs[data]["ref"], str(d / "out.fa")]
+        if subs:
+            args.append("-substitutionsOnly")
+        if multi_fa:
+            (d / "multi").mkdir()
+            args += ["-multiFaDir", str(d / "multi")]
+        mod.main(args)
+        out[name] = {p: _read(os.path.join(root, p))
+                     for root, _, files in os.walk(d) for p in files}
+    assert out["port"] == out["jax"]
+    # out.fa, and a file a chromosome with reads (chrC of "edge" has none)
+    assert len(out["port"]) == 1 + 2 * multi_fa
+
+
+@pytest.mark.parametrize("threshold", ["-0.1", "1.5"])
+def test_sam_consensus_threshold_refused(inputs, tmp_path, threshold):
+    args = [inputs["edge"]["sam"], inputs["edge"]["ref"],
+            str(tmp_path / "out.fa"), "-insertionThreshold", threshold]
+    with pytest.raises(SystemExit) as want:
+        jcons.main(args)
+    with pytest.raises(SystemExit) as got:
+        tcons.main(args)
+    assert str(got.value) == str(want.value)
+    assert "between 0 and 1" in str(got.value)
+
+
+@pytest.mark.parametrize("data", ["variants", "edge"])
+@pytest.mark.parametrize("fmt", ["sam", "bam"])
+@pytest.mark.parametrize("frag", [-1, 150])
+def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
+    """samToBed's records, one per mapped read, and with -fragLength the
+    fragments clipped to the chromosome, equal the JAX tool's."""
+    src = inputs[data][fmt]
+    args = ["-fragLength", str(frag)]
+    jbed.main([src, str(tmp_path / "jax.bed"), *args])
+    tbed.main([src, str(tmp_path / "port.bed"), *args])
+    got, want = _read(tmp_path / "port.bed"), _read(tmp_path / "jax.bed")
+    assert got == want
+    _, records = jsam.read(src)
+    mapped = sum(bool(r.cigar) and r.cigar[0].op != "*" for r in records)
+    assert got.count(b"\n") == mapped
+
+
+def test_umbrella_lists_the_ported_tools(capsys):
+    """help (and no argument) lists the seven ported tools, each a key of
+    the JAX umbrella's COMMANDS."""
+    for argv in ([], ["help"], ["-h"]):
+        umbrella.main(argv)
+        lines = capsys.readouterr().out.splitlines()
+        listed = [ln.split()[0] for ln in lines if ln.startswith("  ")]
+        assert listed == PORTED
+    assert sorted(umbrella.COMMANDS) == PORTED
+    assert set(PORTED) <= set(jmain.COMMANDS)
+    assert all("TPU" not in desc for _, desc in umbrella.COMMANDS.values())
+
+
+def test_umbrella_unknown_tool_exits():
+    """An unknown tool exits as in the JAX umbrella; so does a JAX tool
+    that the port does not have."""
+    for mod in (umbrella, jmain):
+        with pytest.raises(SystemExit, match="unknown command: noSuchTool"):
+            mod.main(["noSuchTool"])
+    with pytest.raises(SystemExit, match="unknown command: faFormat"):
+        umbrella.main(["faFormat", "x.fa"])
+
+
+@pytest.mark.parametrize("tool", ["pileup", "samToBed", "samConsensus",
+                                  "gsw"])
+def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
+                                              tool):
+    """A tool run through the umbrella writes what its own main writes."""
+    src, ref = inputs["edge"]["sam"], inputs["edge"]["ref"]
+    direct = {"pileup": tpileup.main, "samToBed": tbed.main,
+              "samConsensus": tcons.main, "gsw": tgsw.main}[tool]
+    out = {}
+    for how in ("umbrella", "direct"):
+        path = str(tmp_path / how)
+        args = {"pileup": [src, "-o", path], "samToBed": [src, path],
+                "samConsensus": [src, ref, path],
+                "gsw": ["ggtools", axt_input, "-f", "vcf", "-o",
+                        path]}[tool]
+        if how == "umbrella":
+            umbrella.main([tool, *args])
+        else:
+            direct(args)
+        out[how] = _read(path)
+    assert out["umbrella"] == out["direct"]
+    assert out["umbrella"]
+
+
+@pytest.fixture(scope="module")
+def axt_input(tmp_path_factory):
+    path = tmp_path_factory.mktemp("axt") / "a.axt"
+    path.write_text("0 chr1 1 8 chrQ 1 8 + 100\nAAATAAAA\nAAACAAAA\n\n")
+    return str(path)
+
+
+def test_umbrella_imports_no_tool_before_dispatch():
+    """Importing the umbrella, and listing the tools, loads no tool
+    module; dispatching one loads that one."""
+    code = ("import sys, gonomics_tpu_torch.cli.main as m\n"
+            "m.main(['help'])\n"
+            "tools = {t for t, _ in m.COMMANDS.values()}\n"
+            "print(sorted(tools & set(sys.modules)))\n"
+            "sys.exit(1 if tools & set(sys.modules) else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_umbrella_gsw_align_wants_the_card(tmp_path, monkeypatch):
+    """gsw align through the umbrella runs on the card unless told
+    --device cpu: without a card it raises, for a graph and a FASTA
+    reference, on both engines."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    ref = tmp_path / "ref.fa"
+    ref.write_text(">chr1\n" + "ACGTTGCA" * 40 + "\n")
+    fq = tmp_path / "r.fq"
+    fq.write_text("@r\nACGTTGCAACGTTGCAACGTTGCAACGTTGCAACGT\n+\n"
+                  + "I" * 36 + "\n")
+    for engine in ("host", "tpu"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            umbrella.main(["gsw", "align", str(ref), str(fq), "--engine",
+                           engine, "-o", str(tmp_path / "out")])
+
+
+def test_pyproject_installs_the_umbrella():
+    """gonomics-torch names the umbrella's main; the JAX package's 13
+    entries stay as they were."""
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    mod, _, fn = scripts["gonomics-torch"].partition(":")
+    assert getattr(__import__(mod, fromlist=[fn]), fn) is umbrella.main
+    jax_entries = {k: v for k, v in scripts.items() if k != "gonomics-torch"}
+    assert jax_entries == {
+        "gonomics": "gonomics_tpu.cli.main:main",
+        "globalAlignment": "gonomics_tpu.cli.global_alignment:main",
+        "faFindFast": "gonomics_tpu.cli.fa_find_fast:main",
+        "faFormat": "gonomics_tpu.cli.fa_format:main",
+        "gsw": "gonomics_tpu.cli.gsw_cmd:main",
+        "callVariants": "gonomics_tpu.cli.call_variants:main",
+        "samConsensus": "gonomics_tpu.cli.sam_consensus:main",
+        "pileup": "gonomics_tpu.cli.pileup_cmd:main",
+        "reconstructSeq": "gonomics_tpu.cli.reconstruct_seq:main",
+        "bedMerge": "gonomics_tpu.cli.bed_merge:main",
+        "bedToWig": "gonomics_tpu.cli.bed_to_wig:main",
+        "intervalOverlap": "gonomics_tpu.cli.interval_overlap:main",
+        "mergesort": "gonomics_tpu.cli.mergesort:main"}
+
+
+def test_new_modules_import_no_jax():
+    """The slice's modules import neither JAX nor the JAX package."""
+    code = ("import sys, gonomics_tpu_torch.consensus,"
+            " gonomics_tpu_torch.io.formats, gonomics_tpu_torch.io.vcf,"
+            " gonomics_tpu_torch.io.fasta, gonomics_tpu_torch.cli.main,"
+            " gonomics_tpu_torch.cli.pileup_cmd,"
+            " gonomics_tpu_torch.cli.sam_consensus,"
+            " gonomics_tpu_torch.cli.sam_to_bed,"
+            " gonomics_tpu_torch.cli.gsw_cmd\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gonomics_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
