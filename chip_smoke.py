@@ -207,12 +207,23 @@ exits non-zero:
             the query (K4, K5 and the graph walk), the first 400 against
             --device cpu; gsw align --engine tpu of 10x of the query on
             the target (the fused K1); pileup, samConsensus -multiFaDir
-            and samToBed on that SAM, sorted. Gates: every planted SNP in
-            the chain's VCF; graph reads mapped >= 0.99 and giraf equal
-            to the CPU's; the query's base at >= 99% of the covered
-            planted SNPs of the consensus; one bed line a mapped read;
-            pileup's rows the covered positions; the four kernels
-            launched. Wall time of each step.
+            and samToBed on that SAM, sorted; then mergesort of the SAM
+            in chunks of 4096 records (spilled and merged), bedMerge and
+            bedToWig Reads of samToBed's records, intervalOverlap of a
+            bed of the planted SNPs with the merged records, and
+            faFormat of the target (60 bases a line, the SNPs lower-cased
+            from that bed, an index). Gates: every planted SNP in the
+            chain's VCF; graph reads mapped >= 0.99 and giraf equal to
+            the CPU's; the query's base at >= 99% of the covered planted
+            SNPs of the consensus; one bed line a mapped read; pileup's
+            rows the covered positions; mergesort's mapped records those
+            of the sorted SAM in order, under the input's header; the
+            merged bases and the wig's covered positions pileup's rows,
+            the wig's sum the records' length; intervalOverlap's lines
+            the covered planted SNPs; faFormat's lower-case bases the
+            planted SNPs, its sequence the target's, its index that of
+            its output. The four kernels launched. Wall time of each
+            step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -406,6 +417,7 @@ WF_ARGS = (10_000, 1_000, 0.01)
 TOOLS_SIZES = (("chr1", 200_000), ("chr2", 50_000))
 TOOLS_SNP_EVERY, TOOLS_INDEL_EVERY, TOOLS_SNP_GAP = 1000, 20_000, 50
 TOOLS_GRAPH_READS, TOOLS_CPU_READS, TOOLS_DEPTH = 2000, 400, 10
+TOOLS_SORT_CHUNK = 4096  # mergesort's records a chunk: ~5 chunks spilled
 
 
 def emit(obj) -> None:
@@ -3944,6 +3956,55 @@ def covered_positions(sam: str) -> dict:
     return out
 
 
+def host_tools_checks(f: dict, t_fa: str) -> dict:
+    """What the gates of phase_tools_cli's mergesort, bedMerge,
+    bedToWig, intervalOverlap and faFormat steps read from their files
+    (f: the phase's file names)."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.io import fai, fasta
+
+    def sam_parts(path):
+        with open(path) as fh:
+            lines = fh.readlines()
+        head = [ln for ln in lines if ln.startswith("@")]
+        mapped = [ln for ln in lines if not ln.startswith("@")
+                  and ln.split("\t", 6)[5] != "*"]
+        return head, mapped
+
+    head_in, _ = sam_parts(f["aln.sam"])
+    _, mapped_sorted = sam_parts(f["s.sam"])
+    head_m, mapped_m = sam_parts(f["m.sam"])
+
+    def bed_bases(path):
+        with open(path) as fh:
+            return sum(int(end) - int(start) for _, start, end, *_ in
+                       (ln.split("\t") for ln in fh))
+
+    with open(f["reads.wig"]) as fh:
+        wig_values = [float(ln) for ln in fh
+                      if not ln.startswith("fixedStep")]
+    with open(f["hit.bed"]) as fh:
+        overlap_lines = sum(1 for _ in fh)
+    formatted, target = fasta.read(f["t60.fa"]), fasta.read(t_fa)
+    lower = sum(int((r.seq >= dna.LOWER_A).sum()) for r in formatted)
+    upper_equal = [r.name for r in formatted] == [r.name for r in target] \
+        and all(np.array_equal(dna.to_upper(a.seq), b.seq)
+                for a, b in zip(formatted, target))
+    with open(f["m.sam"]) as fh:
+        n_records = sum(1 for ln in fh if not ln.startswith("@"))
+    return {
+        "mergesort_chunks": -(-n_records // TOOLS_SORT_CHUNK),
+        "mergesort_mapped_equal_sorted": mapped_m == mapped_sorted,
+        "mergesort_header_equal_input": head_m == head_in,
+        "bed_bases": bed_bases(f["aln.bed"]),
+        "merged_bases": bed_bases(f["merged.bed"]),
+        "wig_covered": len(wig_values), "wig_sum": sum(wig_values),
+        "overlap_lines": overlap_lines,
+        "fa_lower_bases": lower, "fa_upper_equals_target": upper_equal,
+        "fai_equals_index": fai.read_index(f["t60.fa"] + ".fai")
+        == fai.create_index(f["t60.fa"])}
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -3959,7 +4020,18 @@ def phase_tools_cli(dev: torch.device) -> dict:
     the consensus carries the query's base at >= 99% of the planted SNPs
     that reads cover (read through the multiFa alignment); one bed line
     a mapped read; pileup's rows are the covered positions; each of the
-    four kernels launched in this phase."""
+    four kernels launched in this phase. (5) Five more host tools on
+    those files: ``mergesort`` of the aligner's SAM in chunks of
+    4096 records (the spill-and-merge path), gated on its mapped records
+    being the sorted SAM's in order under the input's header;
+    ``bedMerge`` and ``bedToWig Reads`` of samToBed's records, gated on
+    the merged bases and the wig's non-default positions being pileup's
+    rows and the wig's sum the records' total length;
+    ``intervalOverlap`` of a bed of the planted SNPs with the merged
+    records, gated on its lines being the covered planted SNPs;
+    ``faFormat -lineLength 60 -toLower snps.bed -index`` of the target,
+    gated on its lower-case bases being the planted SNPs, its sequence
+    upper-cased the target's, and its .fai the index of its output."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fasta
@@ -3983,7 +4055,9 @@ def phase_tools_cli(dev: torch.device) -> dict:
         f = {k: os.path.join(tmp, k) for k in (
             "c.axt", "c.vcf", "c.gg", "v.gg", "a.vcf", "g.fq", "g400.fq",
             "g.giraf", "g400.giraf", "r.fq", "aln.sam", "s.sam",
-            "pileup.txt", "cons.fa", "multi", "aln.bed")}
+            "pileup.txt", "cons.fa", "multi", "aln.bed", "m.sam",
+            "merged.bed", "t.sizes", "reads.wig", "snps.bed", "hit.bed",
+            "t60.fa")}
         for fmt in ("axt", "vcf", "gg"):
             step(f"ggtools_chain_to_{fmt}", "gsw", "ggtools", chain, "-t",
                  t_fa, "-q", q_fa, "-f", fmt, "-o", f["c." + fmt])
@@ -4039,6 +4113,22 @@ def phase_tools_cli(dev: torch.device) -> dict:
              f["cons.fa"], "-multiFaDir", f["multi"])
         step("samToBed", "samToBed", f["s.sam"], f["aln.bed"])
 
+        step("mergesort", "mergesort", f["aln.sam"], f["m.sam"],
+             "-numRecordsPerChunk", str(TOOLS_SORT_CHUNK))
+        step("bedMerge", "bedMerge", f["aln.bed"], f["merged.bed"])
+        with open(f["t.sizes"], "w") as fh:
+            fh.writelines(f"{c}\t{n}\n" for c, n in TOOLS_SIZES)
+        step("bedToWig", "bedToWig", "Reads", f["aln.bed"], f["t.sizes"],
+             f["reads.wig"])
+        with open(f["snps.bed"], "w") as fh:
+            fh.writelines(f"{c}\t{p - 1}\t{p}\n" for c in snps
+                          for p, _, _ in snps[c])
+        step("intervalOverlap", "intervalOverlap", f["merged.bed"],
+             f["snps.bed"], f["hit.bed"])
+        step("faFormat", "faFormat", t_fa, f["t60.fa"], "-lineLength", "60",
+             "-toLower", f["snps.bed"], "-index")
+        out["host_tools"] = host_tools_checks(f, t_fa)
+
         rows = {}
         with open(f["pileup.txt"]) as fh:
             for line in fh:
@@ -4079,8 +4169,16 @@ def phase_tools_cli(dev: torch.device) -> dict:
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
-    g, c = out["graph"], out["consensus"]
-    if not (out["ggtools"]["planted_snps_in_vcf"] == len(planted)
+    g, c, h = out["graph"], out["consensus"], out["host_tools"]
+    host_ok = (h["mergesort_mapped_equal_sorted"]
+               and h["mergesort_header_equal_input"]
+               and h["merged_bases"] == c["pileup_rows"]
+               and h["wig_covered"] == c["pileup_rows"]
+               and h["wig_sum"] == h["bed_bases"]
+               and h["overlap_lines"] == c["covered_planted_snps"]
+               and h["fa_lower_bases"] == len(planted)
+               and h["fa_upper_equals_target"] and h["fai_equals_index"])
+    if not (host_ok and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)
             and c["carried_frac"] >= 0.99 and c["pileup_rows_equal_covered"]

@@ -34,6 +34,16 @@ COMMANDS = {
                      "(host)"),
     "samToBed": ("gonomics_tpu_torch.cli.sam_to_bed",
                  "Aligned read positions as bed records (host)"),
+    "faFormat": ("gonomics_tpu_torch.cli.fa_format",
+                 "Reformat fasta records (host)"),
+    "bedMerge": ("gonomics_tpu_torch.cli.bed_merge",
+                 "Combine overlapping bed entries (host)"),
+    "bedToWig": ("gonomics_tpu_torch.cli.bed_to_wig",
+                 "Convert bed values to wig (host)"),
+    "intervalOverlap": ("gonomics_tpu_torch.cli.interval_overlap",
+                        "Find non/overlapping genomic regions (host)"),
+    "mergesort": ("gonomics_tpu_torch.cli.mergesort",
+                  "External merge sort of genomic records (host)"),
 }
 
 

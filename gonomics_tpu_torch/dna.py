@@ -1,6 +1,6 @@
 """DNA base codes and sequence conversion: the subset of
-``gonomics_tpu/dna.py`` that the read aligners, the variant caller and
-the consensus tools use.
+``gonomics_tpu/dna.py`` that the read aligners, the variant caller, the
+consensus tools and ``faFormat`` use.
 
 A sequence is an int8 numpy array of base codes 0..12, the same integer
 codes as the reference's ``dna`` package.
@@ -57,6 +57,17 @@ def from_string(s: str | bytes) -> np.ndarray:
         raise InvalidBaseError(
             f"invalid base {bad!r}: only AaCcGgTtNn-.* are supported"
         )
+    return codes.astype(np.int8)
+
+
+def from_string_forced(s: str | bytes) -> np.ndarray:
+    """Invalid characters masked to N, or to LOWER_N where the character
+    is lowercase (dna.py:77-85)."""
+    raw = np.frombuffer(s.encode() if isinstance(s, str) else s, dtype=np.uint8)
+    codes = _CHAR_TO_BASE[raw]
+    lower = (raw >= ord("a")) & (raw <= ord("z"))
+    codes = np.where(codes == 255,
+                     np.where(lower, np.uint8(LOWER_N), np.uint8(N)), codes)
     return codes.astype(np.int8)
 
 

@@ -1,11 +1,17 @@
-"""BED records and writing: the subset of ``gonomics_tpu/io/bed.py`` that
-``cigarToBed`` and ``samToBed`` use. Field-count-aware formatting matches
-gonomics' ``bed.ToString``."""
+"""BED records, reading, writing and the region algebra: the parts of
+``gonomics_tpu/io/bed.py`` that ``cigarToBed``, ``samToBed``,
+``faFormat``, ``bedMerge``, ``bedToWig``, ``intervalOverlap`` and
+``mergesort`` use (``Bed`` :18, ``process_bed_line`` :45, ``read`` :60,
+``write_to_handle`` :64, ``write`` :68, ``sort_by_coord`` :85,
+``overlap`` :93, ``minimum_distance`` :111, ``merge_high_mem`` :122).
+Field-count-aware formatting matches gonomics' ``bed.ToString``."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import IO
+
+from .. import fileio
 
 NONE = "."  # strand not given
 
@@ -38,5 +44,82 @@ class Bed:
         return out
 
 
+def process_bed_line(line: str) -> Bed:
+    """One tab-separated line; the fields it has are the fields it
+    writes back."""
+    w = line.split("\t")
+    b = Bed(chrom=w[0], chrom_start=int(w[1]), chrom_end=int(w[2]),
+            fields_initialized=len(w))
+    if len(w) >= 4:
+        b.name = w[3]
+    if len(w) >= 5:
+        b.score = int(w[4])
+    if len(w) >= 6:
+        b.strand = w[5] if w[5] in "+-." else NONE
+    if len(w) >= 7:
+        b.annotation = w[6:]
+    return b
+
+
+def read(filename: str) -> list[Bed]:
+    """Every non-empty, non-comment line of a bed file."""
+    return [process_bed_line(ln) for ln in fileio.read(filename) if ln]
+
+
 def write_to_handle(f: IO[str], b: Bed) -> None:
     f.write(b.to_string() + "\n")
+
+
+def write(filename: str, records: list[Bed]) -> None:
+    with fileio.easy_create(filename) as f:
+        for b in records:
+            write_to_handle(f, b)
+
+
+def sort_by_coord(records: list[Bed]) -> None:
+    records.sort(key=lambda b: (b.chrom, b.chrom_start, b.chrom_end))
+
+
+def overlap(a: Bed, b: Bed) -> bool:
+    return (a.chrom == b.chrom
+            and max(a.chrom_start, b.chrom_start)
+            < min(a.chrom_end, b.chrom_end))
+
+
+def minimum_distance(a: Bed, b: Bed) -> int | None:
+    """bed.MinimumDistance; None for different chromosomes, 0 for
+    overlapping records, and one more than the bases between them
+    otherwise."""
+    if a.chrom != b.chrom:
+        return None
+    if overlap(a, b):
+        return 0
+    if a.chrom_start - b.chrom_end >= 0:
+        return a.chrom_start - b.chrom_end + 1
+    return b.chrom_start - a.chrom_end + 1
+
+
+def merge_high_mem(records: list[Bed], merge_adjacent: int = -1,
+                   keep_all_names: bool = False) -> list[Bed]:
+    """bed.MergeHighMem: sorted copies merged greedily where they overlap
+    or lie within merge_adjacent, keeping the highest score (and, with
+    keep_all_names, the names joined by commas)."""
+    if not records:
+        return records
+    records = [Bed(**vars(b)) for b in records]
+    sort_by_coord(records)
+    out: list[Bed] = []
+    cur = records[0]
+    for b in records[1:]:
+        dist = minimum_distance(cur, b)
+        if overlap(cur, b) or (dist is not None and dist <= merge_adjacent):
+            if b.score > cur.score:
+                cur.score = b.score
+            cur.chrom_end = max(b.chrom_end, cur.chrom_end)
+            if keep_all_names and b.name:
+                cur.name = f"{cur.name},{b.name}" if cur.name else b.name
+        else:
+            out.append(cur)
+            cur = b
+    out.append(cur)
+    return out

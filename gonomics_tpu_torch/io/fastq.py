@@ -1,5 +1,6 @@
-"""FASTQ records and reading: the subset of ``gonomics_tpu/io/fastq.py``
-that the read aligners and the ``gsw`` CLI use."""
+"""FASTQ records, reading and writing: the subset of
+``gonomics_tpu/io/fastq.py`` that the read aligners, the ``gsw`` CLI and
+``mergesort`` use (``write`` :106-110)."""
 
 from __future__ import annotations
 
@@ -92,3 +93,11 @@ def read_pairs_big(file_one: str, file_two: str) -> list[tuple[FastqBig, FastqBi
     if len(r1) != len(r2):
         raise ValueError("fastq files do not end at the same time")
     return [(to_big(a), to_big(b)) for a, b in zip(r1, r2)]
+
+
+def write(filename: str, records: list[Fastq]) -> None:
+    """Each record as its four lines (fastq.py:106-110)."""
+    with fileio.easy_create(filename) as f:
+        for fq in records:
+            f.write(f"@{fq.name}\n{dna.to_string(fq.seq)}\n+\n"
+                    f"{qual_string(fq.qual)}\n")

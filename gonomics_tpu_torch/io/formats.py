@@ -1,10 +1,11 @@
-"""Chain and axt records, as ``gsw ggtools`` reads and converts them: the
-chain and axt parts of ``gonomics_tpu/io/formats.py`` that ``ggtools``
-reaches (``Axt`` :22, ``read_axt`` :60, ``_parse_axt_lines`` :64,
-``axt_to_string`` :82, ``_axt_info``, ``_b2s_upper`` and ``axt_to_vcf``
-:159-254, ``chain_to_axt`` :255, ``is_chain_file`` :291, ``is_axt_file``
-:296, ``BaseStats`` and ``Chain`` :343-365, ``read_chain`` :366). PSL,
-genePred, MAF and GTF are not ported."""
+"""Chain and axt records, as ``gsw ggtools`` and ``mergesort`` read and
+write them: the chain and axt parts of ``gonomics_tpu/io/formats.py``
+that they reach (``Axt`` :22, ``read_axt_with_header`` :48, ``read_axt``
+:60, ``_parse_axt_lines`` :64, ``axt_to_string`` :82, ``_axt_info``,
+``_b2s_upper`` and ``axt_to_vcf`` :159-254, ``chain_to_axt`` :255,
+``is_chain_file`` :291, ``is_axt_file`` :296, ``BaseStats`` and ``Chain``
+:343-365, ``read_chain`` :366). PSL, genePred, MAF and GTF are not
+ported."""
 
 from __future__ import annotations
 
@@ -30,11 +31,19 @@ class Axt:
     q_seq: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int8))
 
 
+def read_axt_with_header(filename: str) -> tuple[list[Axt], list[str]]:
+    """The blocks of an axt file and its '#' lines, in file order
+    (formats.py:48-57)."""
+    with fileio.easy_open(filename) as f:
+        raw = [ln.rstrip("\n") for ln in f]
+    header = [ln for ln in raw if ln.startswith("#")]
+    lines = [ln for ln in raw if not ln.startswith("#")]
+    return _parse_axt_lines(lines), header
+
+
 def read_axt(filename: str) -> list[Axt]:
     """The blocks of an axt file; '#' lines are skipped."""
-    with fileio.easy_open(filename) as f:
-        lines = [ln.rstrip("\n") for ln in f if not ln.startswith("#")]
-    return _parse_axt_lines(lines)
+    return read_axt_with_header(filename)[0]
 
 
 def _parse_axt_lines(lines: list[str]) -> list[Axt]:

@@ -1,9 +1,9 @@
-"""SAM records and headers, and the SAM and BAM readers: the subset of
-``gonomics_tpu/io/sam.py`` that the read aligner emits and the variant
-caller reads (the flag tests :72-83, ``parse_header_text`` :94, the text
+"""SAM records and headers, the SAM and BAM readers and the writer: the
+subset of ``gonomics_tpu/io/sam.py`` that the read aligner emits, the
+variant caller reads and ``mergesort`` writes (the flag tests :72-83, ``parse_header_text`` :94, the text
 reader :122-153, the BAM decoder :156-259 and its tag text :311-366,
-``read`` :262 and ``read_header_text`` :469). Records match the JAX
-reader's field for field."""
+``read`` :262, ``write_sam`` :283 and ``read_header_text`` :469).
+Records match the JAX reader's field for field."""
 
 from __future__ import annotations
 
@@ -237,6 +237,21 @@ def read(filename: str):
         header, _refs, records = read_bam(filename)
         return header, records
     return read_sam_text(filename)
+
+
+def write_sam(filename: str, header: Header, records: list[Sam]) -> None:
+    """Text SAM, or BGZF BAM where the name ends in .bam
+    (sam.py:283-297)."""
+    if filename.endswith(".bam"):
+        from .bam_writer import write_bam
+
+        write_bam(filename, header, records)
+        return
+    with fileio.easy_create(filename) as f:
+        for line in header.text:
+            f.write(line + "\n")
+        for r in records:
+            f.write(r.to_string() + "\n")
 
 
 def read_header_text(filename: str) -> Header:

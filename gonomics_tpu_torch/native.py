@@ -1,6 +1,7 @@
 """ctypes bindings to the repository's host runtime ``native/seqio.cpp``,
-for the helpers the read aligners, the BAM reader and the variant caller
-call (mirrors the matching entries of ``gonomics_tpu/native.py``).
+for the helpers the read aligners, the BAM reader and writer and the
+variant caller call (mirrors the matching entries of
+``gonomics_tpu/native.py``).
 
 The shared source is compiled with ``g++`` into this package's own
 ``_build/`` directory on first use. These are host helpers, not device
@@ -59,6 +60,8 @@ _SIGNATURES = {
     "bgzf_scan": (_i64, [ctypes.c_char_p, _i64]),
     "bgzf_decompress": (ctypes.c_int, [ctypes.c_char_p, _i64, _vp, _i64,
                                        ctypes.c_int]),
+    "compress_blocks": (_i64, [ctypes.c_char_p, _i64, _vp, _i64, _i32, _i32,
+                               _i32]),
     "sam_scatter": (ctypes.c_int, [ctypes.c_char_p, _i64,
                                    ctypes.c_char_p, _i64, _i32,
                                    _vp, _vp, _vp, _vp, _i64,   # runs
@@ -325,6 +328,26 @@ def bgzf_decompress(data: bytes, nthreads: int | None = None) -> bytes | None:
                            nthreads) != 0:
         return None
     return out.tobytes()
+
+
+def compress_blocks(data: bytes, *, bgzf: bool, level: int = 6,
+                    nthreads: int | None = None) -> bytes | None:
+    """Blocks of data deflated over threads: BGZF members (bgzf=True,
+    0xff00 bytes a block, no EOF block) or multi-member gzip; None where
+    the library is unavailable (native.py:552-568)."""
+    lib = _load()
+    if lib is None:
+        return None
+    if nthreads is None:
+        nthreads = os.cpu_count() or 2
+    n = len(data)
+    cap = n + n // 2 + 65536
+    out = np.empty(cap, np.uint8)
+    wrote = lib.compress_blocks(data, n, out.ctypes.data_as(_vp), cap,
+                                nthreads, level, 1 if bgzf else 0)
+    if wrote < 0:
+        return None
+    return out[:int(wrote)].tobytes()
 
 
 def sam_scatter(text: bytes, chrom_names: list[str], min_mapq: int):

@@ -30,8 +30,13 @@ from gonomics_tpu.cli import sam_to_bed as jbed
 from gonomics_tpu.io import bam_writer
 from gonomics_tpu.io import sam as jsam
 from gonomics_tpu_torch import dna
+from gonomics_tpu_torch.cli import bed_merge as tbed_merge
+from gonomics_tpu_torch.cli import bed_to_wig as tbed_to_wig
+from gonomics_tpu_torch.cli import fa_format as tfa_format
 from gonomics_tpu_torch.cli import gsw_cmd as tgsw
+from gonomics_tpu_torch.cli import interval_overlap as tinterval_overlap
 from gonomics_tpu_torch.cli import main as umbrella
+from gonomics_tpu_torch.cli import mergesort as tmergesort
 from gonomics_tpu_torch.cli import pileup_cmd as tpileup
 from gonomics_tpu_torch.cli import sam_consensus as tcons
 from gonomics_tpu_torch.cli import sam_to_bed as tbed
@@ -39,7 +44,8 @@ from gonomics_tpu_torch.cli import sam_to_bed as tbed
 from test_torch_card import _variant_inputs, _write_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORTED = ["callVariants", "cigarToBed", "globalAlignment", "gsw", "pileup",
+PORTED = ["bedMerge", "bedToWig", "callVariants", "cigarToBed", "faFormat",
+          "globalAlignment", "gsw", "intervalOverlap", "mergesort", "pileup",
           "samConsensus", "samToBed"]
 
 
@@ -197,7 +203,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the seven ported tools, each a key of
+    """help (and no argument) lists the twelve ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -215,25 +221,41 @@ def test_umbrella_unknown_tool_exits():
     for mod in (umbrella, jmain):
         with pytest.raises(SystemExit, match="unknown command: noSuchTool"):
             mod.main(["noSuchTool"])
-    with pytest.raises(SystemExit, match="unknown command: faFormat"):
-        umbrella.main(["faFormat", "x.fa"])
+    with pytest.raises(SystemExit, match="unknown command: faFilter"):
+        umbrella.main(["faFilter", "x.fa"])
 
 
 @pytest.mark.parametrize("tool", ["pileup", "samToBed", "samConsensus",
-                                  "gsw"])
+                                  "gsw", "faFormat", "bedMerge", "bedToWig",
+                                  "intervalOverlap", "mergesort"])
 def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                                               tool):
     """A tool run through the umbrella writes what its own main writes."""
     src, ref = inputs["edge"]["sam"], inputs["edge"]["ref"]
+    beds = str(tmp_path / "reads.bed")
+    tbed.main([src, beds])
+    sizes = tmp_path / "edge.sizes"
+    sizes.write_text("chrA\t240\nchrB\t180\nchrC\t90\n")
     direct = {"pileup": tpileup.main, "samToBed": tbed.main,
-              "samConsensus": tcons.main, "gsw": tgsw.main}[tool]
+              "samConsensus": tcons.main, "gsw": tgsw.main,
+              "faFormat": tfa_format.main, "bedMerge": tbed_merge.main,
+              "bedToWig": tbed_to_wig.main,
+              "intervalOverlap": tinterval_overlap.main,
+              "mergesort": tmergesort.main}[tool]
     out = {}
     for how in ("umbrella", "direct"):
         path = str(tmp_path / how)
         args = {"pileup": [src, "-o", path], "samToBed": [src, path],
                 "samConsensus": [src, ref, path],
                 "gsw": ["ggtools", axt_input, "-f", "vcf", "-o",
-                        path]}[tool]
+                        path],
+                "faFormat": [ref, path, "-lineLength", "70", "-toLower",
+                             beds],
+                "bedMerge": [beds, path],
+                "bedToWig": ["Reads", beds, str(sizes), path],
+                "intervalOverlap": [beds, beds, path, "-relationship",
+                                    "within"],
+                "mergesort": [src, path, "-numRecordsPerChunk", "5"]}[tool]
         if how == "umbrella":
             umbrella.main([tool, *args])
         else:
@@ -312,7 +334,14 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.pileup_cmd,"
             " gonomics_tpu_torch.cli.sam_consensus,"
             " gonomics_tpu_torch.cli.sam_to_bed,"
-            " gonomics_tpu_torch.cli.gsw_cmd\n"
+            " gonomics_tpu_torch.cli.gsw_cmd,"
+            " gonomics_tpu_torch.interval, gonomics_tpu_torch.sortio,"
+            " gonomics_tpu_torch.io.wig, gonomics_tpu_torch.io.bam_writer,"
+            " gonomics_tpu_torch.cli.fa_format,"
+            " gonomics_tpu_torch.cli.bed_merge,"
+            " gonomics_tpu_torch.cli.bed_to_wig,"
+            " gonomics_tpu_torch.cli.interval_overlap,"
+            " gonomics_tpu_torch.cli.mergesort\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
