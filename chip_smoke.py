@@ -222,8 +222,23 @@ exits non-zero:
             the wig's sum the records' length; intervalOverlap's lines
             the covered planted SNPs; faFormat's lower-case bases the
             planted SNPs, its sequence the target's, its index that of
-            its output. The four kernels launched. Wall time of each
-            step.
+            its output. Then the fasta tools: faFindFast of
+            samConsensus's chr1 alignment in windows of 1000 bases, short
+            and with -longOutput -divergenceRate 0.01; assemblyStats,
+            faInfo, faFilter -minSize 100000 and faBin -binNum 2 of the
+            target; gcContent of the planted SNPs +-50 bp; catMultiFa of
+            the chr1 and chr2 alignments; faUniq of the target's records
+            written twice. Gates: a window a first-query base; in every
+            window with no gap and no N, muts the differing columns
+            (numpy prefix sums); muts >= 1 in every window that holds a
+            covered planted SNP the consensus carries; the long output's
+            first five columns the short one's; N50, L50, the contig
+            count and the length numpy's; faInfo's counts numpy's;
+            gcContent's values numpy's; faFilter keeps chr1 alone; faBin
+            writes one file a record, named after it, and puts each
+            record in one bin; catMultiFa's rows the
+            concatenations; faUniq one record a sequence, in order. The
+            four kernels launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -418,6 +433,7 @@ TOOLS_SIZES = (("chr1", 200_000), ("chr2", 50_000))
 TOOLS_SNP_EVERY, TOOLS_INDEL_EVERY, TOOLS_SNP_GAP = 1000, 20_000, 50
 TOOLS_GRAPH_READS, TOOLS_CPU_READS, TOOLS_DEPTH = 2000, 400, 10
 TOOLS_SORT_CHUNK = 4096  # mergesort's records a chunk: ~5 chunks spilled
+TOOLS_WINDOW, TOOLS_GC_FLANK = 1000, 50  # faFindFast's window; gcContent's
 
 
 def emit(obj) -> None:
@@ -4005,6 +4021,119 @@ def host_tools_checks(f: dict, t_fa: str) -> dict:
         == fai.create_index(f["t60.fa"])}
 
 
+def fasta_tools_checks(f: dict, t_fa: str, snps: dict, depth: dict) -> dict:
+    """What the gates of phase_tools_cli's fasta-tool steps read from
+    their files (f: the phase's file names; depth: {(chrom, 1-based
+    position): pileup depth}), beside what numpy gives from the inputs."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.io import fasta
+
+    def rows(path):
+        with open(path) as fh:
+            return [ln.rstrip("\n").split("\t") for ln in fh]
+
+    target = fasta.read(t_fa)
+    seqs = {r.name: r.seq for r in target}
+    out = {}
+
+    # faFindFast: a window is W first-query (target) bases, from column
+    # cols[s] to cols[e - 1] of the alignment
+    t_rec, q_rec = fasta.read(os.path.join(f["multi"], "chr1.fa"))
+    t, q = t_rec.seq, q_rec.seq
+    cols = np.flatnonzero(t != dna.GAP)
+    bad = ((t == dna.GAP) | (q == dna.GAP) | (dna.to_upper(t) == dna.N)
+           | (dna.to_upper(q) == dna.N))
+    c_bad = np.concatenate(([0], np.cumsum(bad)))
+    c_diff = np.concatenate(([0], np.cumsum(t != q)))
+    short = rows(f["ff.bed"])
+    s = np.array([int(r[1]) for r in short], np.int64)
+    e = np.array([int(r[2]) for r in short], np.int64)
+    muts = np.array([int(r[4]) for r in short], np.int64)
+    lo, hi = cols[s], cols[e - 1] + 1
+    clean = c_bad[hi] == c_bad[lo]
+    carried = np.array(sorted(
+        p - 1 for p, _, alt in snps["chr1"] if depth.get(("chr1", p), 0)
+        and dna.to_string(dna.to_upper(q[cols[p - 1]:cols[p - 1] + 1]))
+        == alt), np.int64)
+    with_snp = (np.searchsorted(carried, e) - np.searchsorted(carried, s)) > 0
+    out["fa_find_fast"] = {
+        "windows": len(short), "first_query_bases": len(cols),
+        "widths_equal_window": bool((e - s == TOOLS_WINDOW).all()),
+        "clean_windows": int(clean.sum()),
+        "clean_muts_equal_differing": bool(np.array_equal(
+            muts[clean], (c_diff[hi] - c_diff[lo])[clean])),
+        "carried_snps": len(carried),
+        "snp_windows": int(with_snp.sum()),
+        "snp_windows_muts_min": int(muts[with_snp].min())
+        if with_snp.any() else 0,
+        "total_muts": int(muts.sum()),
+        "long_first_five_equal_short": [r[:5] for r in rows(
+            f["ff_long.bed"])] == short}
+
+    # assemblyStats and faInfo against numpy on the target's records
+    contigs = []
+    for seq in seqs.values():
+        edges = np.flatnonzero(np.diff(np.concatenate(
+            ([1], (seq == dna.N).astype(np.int8), [1]))))
+        contigs += (edges[1::2] - edges[0::2]).tolist()
+    contigs.sort(reverse=True)
+    length = sum(contigs)
+    l50 = int(np.searchsorted(np.cumsum(contigs), length // 2)) + 1
+    with open(f["stats.txt"]) as fh:
+        stats = dict(ln.rstrip("\n").split(": ", 1) for ln in fh)
+    out["assembly_stats"] = {
+        "tool": [int(stats[k]) for k in ("N50", "L50", "Number of contigs",
+                                         "genomeLength")],
+        "numpy": [contigs[l50 - 1], l50, len(contigs), length]}
+    order = [dna.A, dna.T, dna.C, dna.G, dna.GAP, dna.N]
+    want = [[name] + [str(int(x)) for x in np.bincount(
+        seq, minlength=dna.NUM_BASES)[order]] for name, seq in seqs.items()]
+    total = np.sum([[int(x) for x in w[1:]] for w in want], axis=0)
+    want.append(["total"] + [str(int(x)) for x in total])
+    out["fa_info_counts_equal"] = rows(f["info.txt"])[1:] == want
+
+    # gcContent of the planted SNPs +- TOOLS_GC_FLANK
+    gc_rows = rows(f["gc.bed"])
+    values = []
+    for c, start, end, _ in gc_rows:
+        up = dna.to_upper(seqs[c][int(start):int(end)])
+        acgt = int((up <= dna.T).sum())
+        gc = int(((up == dna.C) | (up == dna.G)).sum())
+        values.append(f"{float(gc) * 100 / float(acgt):e}")
+    out["gc_content"] = {
+        "lines": len(gc_rows),
+        "values_equal_numpy": [r[3] for r in gc_rows] == values}
+
+    def records(path):
+        return [(r.name, r.seq) for r in fasta.read(path)]
+
+    def same(a, b):
+        return [n for n, _ in a] == [n for n, _ in b] and all(
+            np.array_equal(x, y) for (_, x), (_, y) in zip(a, b))
+
+    tgt = list(seqs.items())
+    out["fa_filter_keeps_chr1"] = same(records(f["big.fa"]), tgt[:1])
+    bin_files = sorted(os.listdir(f["bins"]))
+    binned = [rec for name in bin_files
+              for rec in records(os.path.join(f["bins"], name))]
+    out["fa_bin"] = {"files": len(bin_files),
+                     "each_record_once": same(
+                         sorted(binned, key=lambda r: r[0]), tgt),
+                     "a_file_a_record_named_after_it":
+                         bin_files == sorted(c + ".fa" for c in seqs)
+                         and all(same(records(os.path.join(f["bins"], n)),
+                                      [(n[:-3], seqs[n[:-3]])])
+                                 for n in bin_files)}
+    parts = [records(os.path.join(f["multi"], c + ".fa"))
+             for c in ("chr1", "chr2")]
+    joined = [(n, np.concatenate([x, y]))
+              for (n, x), (_, y) in zip(*parts)]
+    out["cat_multi_fa_rows_joined"] = same(records(f["cat.fa"]), joined)
+    out["fa_uniq_one_a_sequence"] = same(
+        records(f["uniq.fa"]), [(f"{n}; {n}_copy", x) for n, x in tgt])
+    return out
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -4031,7 +4160,18 @@ def phase_tools_cli(dev: torch.device) -> dict:
     records, gated on its lines being the covered planted SNPs;
     ``faFormat -lineLength 60 -toLower snps.bed -index`` of the target,
     gated on its lower-case bases being the planted SNPs, its sequence
-    upper-cased the target's, and its .fai the index of its output."""
+    upper-cased the target's, and its .fai the index of its output.
+    (6) The fasta tools (``fasta_tools_checks`` reads their files):
+    ``faFindFast`` of samConsensus's ``multi/chr1.fa`` in windows of
+    TOOLS_WINDOW, gated on a window a first-query base, on muts being the
+    differing columns in every window with no gap and no N, and on muts
+    >= 1 in every window holding a covered planted SNP the consensus
+    carries; with ``-longOutput -divergenceRate 0.01``, gated on its
+    first five columns being the short output; ``assemblyStats``,
+    ``faInfo``, ``faFilter -minSize 100000`` and ``faBin -binNum 2`` of
+    the target, ``gcContent`` of the planted SNPs +- TOOLS_GC_FLANK,
+    ``catMultiFa`` of the chr1 and chr2 alignments and ``faUniq`` of the
+    target's records written twice, each gated on what numpy gives."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fasta
@@ -4057,7 +4197,9 @@ def phase_tools_cli(dev: torch.device) -> dict:
             "g.giraf", "g400.giraf", "r.fq", "aln.sam", "s.sam",
             "pileup.txt", "cons.fa", "multi", "aln.bed", "m.sam",
             "merged.bed", "t.sizes", "reads.wig", "snps.bed", "hit.bed",
-            "t60.fa")}
+            "t60.fa", "ff.bed", "ff_long.bed", "stats.txt", "info.txt",
+            "snps_gc.bed", "gc.bed", "big.fa", "bins", "cat.fa", "t2.fa",
+            "uniq.fa")}
         for fmt in ("axt", "vcf", "gg"):
             step(f"ggtools_chain_to_{fmt}", "gsw", "ggtools", chain, "-t",
                  t_fa, "-q", q_fa, "-f", fmt, "-o", f["c." + fmt])
@@ -4129,6 +4271,28 @@ def phase_tools_cli(dev: torch.device) -> dict:
              "-toLower", f["snps.bed"], "-index")
         out["host_tools"] = host_tools_checks(f, t_fa)
 
+        aln = [os.path.join(f["multi"], c + ".fa") for c in ("chr1", "chr2")]
+        step("faFindFast", "faFindFast", aln[0], f["ff.bed"], "-chrom",
+             "chr1", "-windowSize", str(TOOLS_WINDOW))
+        step("faFindFast_long", "faFindFast", aln[0], f["ff_long.bed"],
+             "-chrom", "chr1", "-windowSize", str(TOOLS_WINDOW),
+             "-longOutput", "-divergenceRate", "0.01")
+        step("assemblyStats", "assemblyStats", t_fa, f["stats.txt"])
+        step("faInfo", "faInfo", t_fa, "-outFile", f["info.txt"])
+        with open(f["snps_gc.bed"], "w") as fh:
+            fh.writelines(f"{c}\t{p - 1 - TOOLS_GC_FLANK}\t"
+                          f"{p + TOOLS_GC_FLANK}\n"
+                          for c in snps for p, _, _ in snps[c])
+        step("gcContent", "gcContent", f["snps_gc.bed"], t_fa, f["gc.bed"])
+        step("faFilter", "faFilter", t_fa, f["big.fa"], "-minSize", "100000")
+        os.mkdir(f["bins"])
+        step("faBin", "faBin", t_fa, f["bins"], "-binNum", "2")
+        step("catMultiFa", "catMultiFa", *aln, "-o", f["cat.fa"])
+        target = fasta.read(t_fa)
+        fasta.write(f["t2.fa"], target + [fasta.Fasta(r.name + "_copy", r.seq)
+                                          for r in target])
+        step("faUniq", "faUniq", f["t2.fa"], f["uniq.fa"])
+
         rows = {}
         with open(f["pileup.txt"]) as fh:
             for line in fh:
@@ -4166,10 +4330,31 @@ def phase_tools_cli(dev: torch.device) -> dict:
             "carried_frac": carried / max(covered_snps, 1),
             "bed_lines": bed_lines, "mapped_reads": sam_mapped,
             "consensus_records": [r.name for r in fasta.read(f["cons.fa"])]}
+        out["fasta_tools"] = fasta_tools_checks(f, t_fa, snps, depth)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
     g, c, h = out["graph"], out["consensus"], out["host_tools"]
+    ft = out["fasta_tools"]
+    ff, stats = ft["fa_find_fast"], ft["assembly_stats"]
+    fasta_ok = (ff["windows"] == ff["first_query_bases"] - TOOLS_WINDOW + 1
+                and ff["widths_equal_window"] and ff["clean_windows"] > 0
+                and ff["clean_muts_equal_differing"]
+                and ff["snp_windows"] > 0 and ff["snp_windows_muts_min"] >= 1
+                and ff["long_first_five_equal_short"]
+                and stats["tool"] == stats["numpy"]
+                and stats["numpy"] == [max(n for _, n in TOOLS_SIZES), 1,
+                                       len(TOOLS_SIZES),
+                                       sum(n for _, n in TOOLS_SIZES)]
+                and ft["fa_info_counts_equal"]
+                and ft["gc_content"]["lines"] == len(planted)
+                and ft["gc_content"]["values_equal_numpy"]
+                and ft["fa_filter_keeps_chr1"]
+                and ft["fa_bin"]["each_record_once"]
+                and ft["fa_bin"]["files"] == len(TOOLS_SIZES)
+                and ft["fa_bin"]["a_file_a_record_named_after_it"]
+                and ft["cat_multi_fa_rows_joined"]
+                and ft["fa_uniq_one_a_sequence"])
     host_ok = (h["mergesort_mapped_equal_sorted"]
                and h["mergesort_header_equal_input"]
                and h["merged_bases"] == c["pileup_rows"]
@@ -4178,7 +4363,8 @@ def phase_tools_cli(dev: torch.device) -> dict:
                and h["overlap_lines"] == c["covered_planted_snps"]
                and h["fa_lower_bases"] == len(planted)
                and h["fa_upper_equals_target"] and h["fai_equals_index"])
-    if not (host_ok and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
+    if not (host_ok and fasta_ok
+            and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)
             and c["carried_frac"] >= 0.99 and c["pileup_rows_equal_covered"]

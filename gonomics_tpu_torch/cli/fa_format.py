@@ -23,14 +23,10 @@ from ..io import bed as bedio
 from ..io import fai, fasta as fastaio
 
 
-def _define_base(x: np.ndarray) -> np.ndarray:
-    return (x <= dna.T) | ((x >= dna.LOWER_A) & (x <= dna.LOWER_T))
-
-
 def ungapped_regions_from_fa(rec: fastaio.Fasta) -> list[bedio.Bed]:
     """bed.UngappedRegionsFromFa: the maximal runs of A, C, G and T (either
     case) of a record, as 4-field beds named chrom_start_end."""
-    ok = _define_base(np.asarray(rec.seq))
+    ok = dna.define_base_mask(np.asarray(rec.seq))
     out: list[bedio.Bed] = []
     if not len(ok):
         return out
@@ -56,7 +52,7 @@ def multi_fa_ungapped_regions(records, chrom_name: str,
     if len(idxs) != 1:
         raise SystemExit(f"seqName {seq_name} not found exactly once")
     seq = np.asarray(records[idxs[0]].seq)
-    ok = _define_base(seq)
+    ok = dna.define_base_mask(seq)
     out: list[bedio.Bed] = []
     in_region = False
     start_ref = 0

@@ -44,6 +44,28 @@ COMMANDS = {
                         "Find non/overlapping genomic regions (host)"),
     "mergesort": ("gonomics_tpu_torch.cli.mergesort",
                   "External merge sort of genomic records (host)"),
+    "faFindFast": ("gonomics_tpu_torch.cli.fa_find_fast",
+                   "Sliding-window divergence between two sequences "
+                   "(host)"),
+    "faFilter": ("gonomics_tpu_torch.cli.fa_filter",
+                 "Filter fasta records by name/size/GC/range (host)"),
+    "gcContent": ("gonomics_tpu_torch.cli.gc_content",
+                  "GC content of fasta sequence over bed regions (host)"),
+    "faInfo": ("gonomics_tpu_torch.cli.fa_info",
+               "Per-record fasta base counts (host)"),
+    "faUniq": ("gonomics_tpu_torch.cli.fa_uniq",
+               "Pull unique sequences from a fasta (host)"),
+    "faBin": ("gonomics_tpu_torch.cli.fa_bin",
+              "Bin fasta records into grouped files (host)"),
+    "catMultiFa": ("gonomics_tpu_torch.cli.cat_multi_fa",
+                   "Concatenate multiFa alignments by sequence (host)"),
+    "assemblyStats": ("gonomics_tpu_torch.cli.assembly_stats",
+                      "Scaffold/contig N50 statistics (host)"),
+    "locateCG": ("gonomics_tpu_torch.cli.locate_cg",
+                 "Locate/compare CpG sites (host)"),
+    "countPairOfBases": ("gonomics_tpu_torch.cli.count_pair_of_bases",
+                         "Count base pairs in sequences or bed regions "
+                         "(host)"),
 }
 
 

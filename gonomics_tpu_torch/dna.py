@@ -1,6 +1,6 @@
 """DNA base codes and sequence conversion: the subset of
 ``gonomics_tpu/dna.py`` that the read aligners, the variant caller, the
-consensus tools and ``faFormat`` use.
+consensus tools and the fasta tools use.
 
 A sequence is an int8 numpy array of base codes 0..12, the same integer
 codes as the reference's ``dna`` package.
@@ -100,6 +100,13 @@ def to_upper(seq: np.ndarray) -> np.ndarray:
 def to_lower(seq: np.ndarray) -> np.ndarray:
     """A..N to a..n; other codes unchanged (dna.py:117)."""
     return _TO_LOWER[np.asarray(seq)]
+
+
+def define_base_mask(seq: np.ndarray) -> np.ndarray:
+    """dna.DefineBase over an array (dna.py:226): True for A, C, G and T
+    in either case; False for N, gaps, dots and Nil."""
+    s = np.asarray(seq)
+    return (s < 4) | ((s >= LOWER_A) & (s <= LOWER_T))
 
 
 def all_gaps(n: int) -> np.ndarray:

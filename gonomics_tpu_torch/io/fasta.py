@@ -1,8 +1,12 @@
-"""FASTA records, reading and writing: the subset of
-``gonomics_tpu/io/fasta.py`` that the read aligner, the ``gsw`` CLI,
-``samConsensus`` and ``faFormat`` use (``_parse`` :34, ``read`` :57,
-``read_forced`` :67, ``write_fasta`` :86, ``write`` :95,
-``aln_pos_to_ref_pos_counter`` :133)."""
+"""FASTA records, reading and writing, multiFa coordinates and assembly
+statistics: the subset of ``gonomics_tpu/io/fasta.py`` that the read
+aligner, the ``gsw`` CLI, ``samConsensus`` and the fasta tools use
+(``_parse`` :34, ``read`` :57, ``read_forced`` :67, ``to_map`` :73,
+``write_fasta`` :86, ``write`` :95, ``ref_pos_to_aln_pos`` and
+``ref_pos_to_aln_pos_counter`` :105-126, ``aln_pos_to_ref_pos_counter``
+:133, ``make_contig_list``, ``calculate_n50_l50``, ``assembly_stats``
+and ``write_assembly_stats`` :157-219, ``bin_genome_no_breaks``
+:312-350)."""
 
 from __future__ import annotations
 
@@ -61,6 +65,16 @@ def read_forced(filename: str) -> list[Fasta]:
         return list(_parse(f, dna.from_string_forced))
 
 
+def to_map(records: list[Fasta]) -> dict[str, np.ndarray]:
+    """{name: sequence}; a name used twice raises (fasta.py:73-79)."""
+    m: dict[str, np.ndarray] = {}
+    for r in records:
+        if r.name in m:
+            raise ValueError(f"{r.name} used for multiple fasta records")
+        m[r.name] = r.seq
+    return m
+
+
 def write_fasta(f: IO[str], rec: Fasta, line_length: int = 50) -> None:
     """One record, its sequence in lines of line_length characters."""
     f.write(f">{rec.name}\n")
@@ -76,6 +90,29 @@ def write(filename: str, records: list[Fasta], line_length: int = 50) -> None:
             write_fasta(f, rec, line_length)
 
 
+def ref_pos_to_aln_pos(record: Fasta, ref_pos: int) -> int:
+    """The alignment column of reference position ref_pos in a multiFa
+    record (multiFa.go:10)."""
+    return ref_pos_to_aln_pos_counter(record, ref_pos, 0, 0)
+
+
+def ref_pos_to_aln_pos_counter(record: Fasta, ref_pos: int,
+                               ref_start: int, aln_start: int) -> int:
+    """The column, after aln_start, where the count of non-gap columns
+    from ref_start reaches ref_pos (multiFa.go:24); IndexError past the
+    record's end."""
+    if ref_start > ref_pos:
+        raise ValueError("refStart > RefPos")
+    if ref_start == ref_pos:
+        return aln_start
+    seq = np.asarray(record.seq)
+    ng = np.cumsum(seq[aln_start + 1:] != dna.GAP)
+    idx = int(np.searchsorted(ng, ref_pos - ref_start, side="left"))
+    if idx >= len(ng):
+        raise IndexError("Ran out of chromosome.")
+    return aln_start + 1 + idx
+
+
 def aln_pos_to_ref_pos_counter(record: Fasta, aln_pos: int,
                                ref_start: int, aln_start: int) -> int:
     """The reference position of alignment column aln_pos: ref_start plus
@@ -87,3 +124,106 @@ def aln_pos_to_ref_pos_counter(record: Fasta, aln_pos: int,
     if aln_pos > len(seq):
         raise IndexError("Ran out of chromosome.")
     return ref_start + int((seq[aln_start:aln_pos] != dna.GAP).sum())
+
+
+def make_contig_list(records: list[Fasta], count_lower_as_gaps: bool):
+    """The contig lengths of records, split on N (and on lower case with
+    count_lower_as_gaps) (assemblyStats.go:62)."""
+    out: list[int] = []
+    for rec in records:
+        seq = np.asarray(rec.seq)
+        is_gap = seq == dna.N
+        if count_lower_as_gaps:
+            is_gap |= (seq >= dna.LOWER_A) & (seq <= dna.LOWER_N)
+        run = 0
+        for g in is_gap:
+            if g:
+                if run:
+                    out.append(run)
+                run = 0
+            else:
+                run += 1
+        if run:
+            out.append(run)
+    return out
+
+
+def calculate_n50_l50(sorted_contigs: list[int], half_genome: int):
+    """(N50, L50) of ascending contig lengths (assemblyStats.go:44)."""
+    total = 0
+    l50 = 0
+    for i in range(len(sorted_contigs) - 1, -1, -1):
+        l50 += 1
+        total += sorted_contigs[i]
+        if total >= half_genome:
+            return sorted_contigs[i], l50
+    raise ValueError("unable to calculate N50/L50")
+
+
+def assembly_stats(infile: str, count_lower_as_gaps: bool):
+    """(N50, L50, halfGenome, genomeLength, largestContig, numContigs)
+    of a FASTA file (assemblyStats.go:15)."""
+    contigs = make_contig_list(read(infile), count_lower_as_gaps)
+    if not contigs:
+        raise ValueError("contig list is empty")
+    genome_length = sum(contigs)
+    contigs.sort()
+    half = genome_length // 2
+    n50, l50 = calculate_n50_l50(contigs, half)
+    return n50, l50, half, genome_length, contigs[-1], len(contigs)
+
+
+def write_assembly_stats(name: str, outfile: str, n50: int, l50: int,
+                         half: int, genome_length: int, largest: int,
+                         num_contigs: int) -> None:
+    """WriteAssemblyStats (assemblyStats.go:110)."""
+    with fileio.easy_create(outfile) as f:
+        f.write(f"Assembly Name: {name}\n")
+        f.write(f"halfGenome: {half}\n")
+        f.write(f"genomeLength: {genome_length}\n")
+        f.write(f"Number of contigs: {num_contigs}\n")
+        f.write(f"Largest Contig: {largest}\n")
+        f.write(f"N50: {n50}\n")
+        f.write(f"L50: {l50}\n")
+
+
+def bin_genome_no_breaks(genome: list[Fasta], bin_num: int,
+                         min_size: int) -> dict[int, list[Fasta]]:
+    """Whole records into bins (faBin.go:17): with min_size != -1 a
+    record longer than min_size opens a bin and a shorter one joins the
+    last bin still under min_size; else bin_num bins, each next record
+    into the bin that the reference's smallest-bin search picks."""
+    bins: dict[int, list[Fasta]] = {}
+    if min_size != -1:
+        for j, rec in enumerate(genome):
+            if not bins:
+                bins[0] = [rec]
+            elif len(rec.seq) > min_size:
+                bins[len(bins)] = [rec]
+            else:
+                k = -1  # findBinBelowMin: LAST bin below min (faBin.go:108)
+                for i in range(len(bins)):
+                    if sum(len(f.seq) for f in bins[i]) < min_size:
+                        k = i
+                if k < 0 and j + 1 == len(genome):
+                    bins[len(bins) - 1].append(rec)  # faBin.go:90
+                elif k < 0:
+                    bins[len(bins)] = [rec]
+                else:
+                    bins[k].append(rec)
+        return bins
+    if len(genome) < bin_num:
+        raise SystemExit("Number of bins is greater than the number of "
+                         "contigs in the given genome. Reduce bin number.")
+    for n in range(bin_num):
+        bins[n] = [genome[n]]
+    for rec in genome[bin_num:]:  # fillSmallestBin (faBin.go:40)
+        sizes = {i: sum(len(f.seq) for f in bins[i]) for i in bins}
+        smallest, size_smallest = 0, 0
+        for i in range(len(bins)):
+            if sizes[i] < size_smallest:
+                smallest, size_smallest = i, sizes[i]
+            elif size_smallest == 0:
+                size_smallest = sizes[i]
+        bins[smallest].append(rec)
+    return bins

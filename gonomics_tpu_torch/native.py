@@ -1,6 +1,6 @@
 """ctypes bindings to the repository's host runtime ``native/seqio.cpp``,
-for the helpers the read aligners, the BAM reader and writer and the
-variant caller call (mirrors the matching entries of
+for the helpers the read aligners, the BAM reader and writer, the
+variant caller and faFindFast call (mirrors the matching entries of
 ``gonomics_tpu/native.py``).
 
 The shared source is compiled with ``g++`` into this package's own
@@ -57,6 +57,8 @@ _SIGNATURES = {
                                 _i64, _vp, _i64]),
     "graph_hits": (_i64, [_vp, _i64, _i64, _vp, _i32, _vp, _i64, _vp, _vp,
                           _vp, _vp, _vp, _vp, _vp, _i64, _i32]),
+    "fa_find_windows": (_i64, [_vp, _vp, _vp, _i64, _i32, _i32,
+                               ctypes.c_char_p, _vp, _i64, _i32]),
     "bgzf_scan": (_i64, [ctypes.c_char_p, _i64]),
     "bgzf_decompress": (ctypes.c_int, [ctypes.c_char_p, _i64, _vp, _i64,
                                        ctypes.c_int]),
@@ -166,6 +168,31 @@ def format_sam_lines(qnames: str, names: list[str], flags, rsel, poss,
     if wrote < 0:
         return None
     return ctypes.string_at(buf, int(wrote)).decode()
+
+
+def fa_find_windows(ref, fq, sq, window: int, remove_n: bool,
+                    name: str, nthreads: int = 0) -> bytes | None:
+    """faFindFast's whole short-format scan in one threaded C pass (the
+    event pass, the window sweep with O(1) edge updates, the bed lines),
+    as ASCII bytes; None without the library (native.py:571-595)."""
+    lib = _load()
+    if lib is None:
+        return None
+    if nthreads <= 0:
+        nthreads = min(8, os.cpu_count() or 1)
+    ref = np.ascontiguousarray(ref, np.int8)
+    fq = np.ascontiguousarray(fq, np.int8)
+    sq = np.ascontiguousarray(sq, np.int8)
+    n = len(fq)
+    cap = max(1024, (2 * len(name.encode()) + 48) * max(1, n - window + 1))
+    buf = np.empty(cap, np.uint8)  # C writes the span it uses
+    wrote = lib.fa_find_windows(
+        ref.ctypes.data_as(_vp), fq.ctypes.data_as(_vp),
+        sq.ctypes.data_as(_vp), n, window, 1 if remove_n else 0,
+        name.encode(), buf.ctypes.data_as(_vp), cap, nthreads)
+    if wrote < 0:
+        return None
+    return buf[:int(wrote)].tobytes()
 
 
 def walk_to_cigars(packed, D: int, i0, i_end, lens, mapped,

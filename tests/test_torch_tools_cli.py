@@ -9,7 +9,7 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's tools, imports none of them
+lists and dispatches exactly the port's 22 tools, imports none of them
 before dispatch, and its ``gsw align`` wants the card; ``pyproject.toml``
 installs it as ``gonomics-torch``; no new module imports JAX.
 """
@@ -31,10 +31,16 @@ from gonomics_tpu.io import bam_writer
 from gonomics_tpu.io import sam as jsam
 from gonomics_tpu_torch import dna
 from gonomics_tpu_torch.cli import bed_merge as tbed_merge
+from gonomics_tpu_torch.cli import assembly_stats as tassembly_stats
 from gonomics_tpu_torch.cli import bed_to_wig as tbed_to_wig
+from gonomics_tpu_torch.cli import fa_filter as tfa_filter
+from gonomics_tpu_torch.cli import fa_find_fast as tfa_find_fast
 from gonomics_tpu_torch.cli import fa_format as tfa_format
+from gonomics_tpu_torch.cli import fa_uniq as tfa_uniq
+from gonomics_tpu_torch.cli import gc_content as tgc_content
 from gonomics_tpu_torch.cli import gsw_cmd as tgsw
 from gonomics_tpu_torch.cli import interval_overlap as tinterval_overlap
+from gonomics_tpu_torch.cli import locate_cg as tlocate_cg
 from gonomics_tpu_torch.cli import main as umbrella
 from gonomics_tpu_torch.cli import mergesort as tmergesort
 from gonomics_tpu_torch.cli import pileup_cmd as tpileup
@@ -44,9 +50,11 @@ from gonomics_tpu_torch.cli import sam_to_bed as tbed
 from test_torch_card import _variant_inputs, _write_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORTED = ["bedMerge", "bedToWig", "callVariants", "cigarToBed", "faFormat",
-          "globalAlignment", "gsw", "intervalOverlap", "mergesort", "pileup",
-          "samConsensus", "samToBed"]
+PORTED = ["assemblyStats", "bedMerge", "bedToWig", "callVariants",
+          "catMultiFa", "cigarToBed", "countPairOfBases", "faBin", "faFilter",
+          "faFindFast", "faFormat", "faInfo", "faUniq", "gcContent",
+          "globalAlignment", "gsw", "intervalOverlap", "locateCG",
+          "mergesort", "pileup", "samConsensus", "samToBed"]
 
 
 def _edge_sam(genome) -> str:
@@ -203,7 +211,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the twelve ported tools, each a key of
+    """help (and no argument) lists the 22 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -221,13 +229,15 @@ def test_umbrella_unknown_tool_exits():
     for mod in (umbrella, jmain):
         with pytest.raises(SystemExit, match="unknown command: noSuchTool"):
             mod.main(["noSuchTool"])
-    with pytest.raises(SystemExit, match="unknown command: faFilter"):
-        umbrella.main(["faFilter", "x.fa"])
+    with pytest.raises(SystemExit, match="unknown command: digestGenome"):
+        umbrella.main(["digestGenome", "x.fa"])
 
 
 @pytest.mark.parametrize("tool", ["pileup", "samToBed", "samConsensus",
                                   "gsw", "faFormat", "bedMerge", "bedToWig",
-                                  "intervalOverlap", "mergesort"])
+                                  "intervalOverlap", "mergesort",
+                                  "faFindFast", "faFilter", "gcContent",
+                                  "assemblyStats", "faUniq", "locateCG"])
 def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                                               tool):
     """A tool run through the umbrella writes what its own main writes."""
@@ -236,12 +246,21 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
     tbed.main([src, beds])
     sizes = tmp_path / "edge.sizes"
     sizes.write_text("chrA\t240\nchrB\t180\nchrC\t90\n")
+    multi = tmp_path / "multi"
+    multi.mkdir()
+    tcons.main([src, ref, str(tmp_path / "cons.fa"), "-multiFaDir",
+                str(multi)])
+    aln = str(multi / "chrA.fa")
     direct = {"pileup": tpileup.main, "samToBed": tbed.main,
               "samConsensus": tcons.main, "gsw": tgsw.main,
               "faFormat": tfa_format.main, "bedMerge": tbed_merge.main,
               "bedToWig": tbed_to_wig.main,
               "intervalOverlap": tinterval_overlap.main,
-              "mergesort": tmergesort.main}[tool]
+              "mergesort": tmergesort.main,
+              "faFindFast": tfa_find_fast.main, "faFilter": tfa_filter.main,
+              "gcContent": tgc_content.main,
+              "assemblyStats": tassembly_stats.main,
+              "faUniq": tfa_uniq.main, "locateCG": tlocate_cg.main}[tool]
     out = {}
     for how in ("umbrella", "direct"):
         path = str(tmp_path / how)
@@ -255,7 +274,15 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                 "bedToWig": ["Reads", beds, str(sizes), path],
                 "intervalOverlap": [beds, beds, path, "-relationship",
                                     "within"],
-                "mergesort": [src, path, "-numRecordsPerChunk", "5"]}[tool]
+                "mergesort": [src, path, "-numRecordsPerChunk", "5"],
+                "faFindFast": [aln, path, "-windowSize", "20", "-chrom",
+                               "chrA"],
+                "faFilter": [ref, path, "-minSize", "100"],
+                "gcContent": [beds, ref, path],
+                "assemblyStats": [ref, path],
+                "faUniq": [ref, path],
+                "locateCG": [aln, "chrA", path, "-compare", "-cgtype",
+                             "cons"]}[tool]
         if how == "umbrella":
             umbrella.main([tool, *args])
         else:
@@ -341,7 +368,18 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.bed_merge,"
             " gonomics_tpu_torch.cli.bed_to_wig,"
             " gonomics_tpu_torch.cli.interval_overlap,"
-            " gonomics_tpu_torch.cli.mergesort\n"
+            " gonomics_tpu_torch.cli.mergesort,"
+            " gonomics_tpu_torch.numbers, gonomics_tpu_torch.numbers.logspace,"
+            " gonomics_tpu_torch.native,"
+            " gonomics_tpu_torch.cli.fa_find_fast,"
+            " gonomics_tpu_torch.cli.fa_filter,"
+            " gonomics_tpu_torch.cli.gc_content,"
+            " gonomics_tpu_torch.cli.fa_info, gonomics_tpu_torch.cli.fa_uniq,"
+            " gonomics_tpu_torch.cli.fa_bin,"
+            " gonomics_tpu_torch.cli.cat_multi_fa,"
+            " gonomics_tpu_torch.cli.assembly_stats,"
+            " gonomics_tpu_torch.cli.locate_cg,"
+            " gonomics_tpu_torch.cli.count_pair_of_bases\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
