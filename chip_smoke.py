@@ -237,8 +237,29 @@ exits non-zero:
             gcContent's values numpy's; faFilter keeps chr1 alone; faBin
             writes one file a record, named after it, and puts each
             record in one bin; catMultiFa's rows the
-            concatenations; faUniq one record a sequence, in order. The
-            four kernels launched. Wall time of each step.
+            concatenations; faUniq one record a sequence, in order. Then
+            slices 11.2b and 11.3a: digestGenome MboI of the target;
+            bedToFasta -revComp of the planted SNPs +-50 bp on alternating
+            strands; bedToAminoAcid of 200 regions of chr1 whose lengths
+            are multiples of 3; faToPredictSet --windowSize 400 --stride
+            1000 of the target; prcompFormat of the chr1 alignment;
+            findAndReplace -column 0 renaming chr1 in the SNP bed;
+            reconstructSeq (and with -subMatrix -unitBranchLength 0.1)
+            on four rows, the chr1 alignment's two and two seeded mutants
+            of its target row, with 75 all-gap columns inserted;
+            primateRecon -mleHcaHumanBiased and -mleHgaGorillaBiased on
+            five seeded rows of chr2; mouseRecon -mleTree on four.
+            Gates: digestGenome's cut ends the GATC sites under the JAX
+            tool's rule, its fragments tiling each record; bedToFasta's
+            records numpy's slices, reverse-complemented and named
+            _RevComp on -; bedToAminoAcid's lines the script's own
+            translation; faToPredictSet numpy's windows, upper-cased;
+            prcompFormat numpy's one-hot of the variable columns with no
+            gap and no N; findAndReplace the input with chr1 renamed;
+            each reconstruction's leaves the input rows, and each
+            ancestor the rows' base where they all agree on one and a
+            gap where they are all gaps. The four kernels launched. Wall
+            time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -434,6 +455,23 @@ TOOLS_SNP_EVERY, TOOLS_INDEL_EVERY, TOOLS_SNP_GAP = 1000, 20_000, 50
 TOOLS_GRAPH_READS, TOOLS_CPU_READS, TOOLS_DEPTH = 2000, 400, 10
 TOOLS_SORT_CHUNK = 4096  # mergesort's records a chunk: ~5 chunks spilled
 TOOLS_WINDOW, TOOLS_GC_FLANK = 1000, 50  # faFindFast's window; gcContent's
+# faToPredictSet's window and stride; bedToAminoAcid's regions of chr1
+TOOLS_PREDICT_WINDOW, TOOLS_PREDICT_STRIDE, TOOLS_AA_REGIONS = 400, 1000, 200
+# the ancestral reconstructions' trees (reconstructSeq's leaves: the chr1
+# alignment's two rows and two mutants of its target row; primateRecon's
+# and mouseRecon's: seeded rows of chr2 under the reference tools' names)
+TOOLS_RECON_TREE = ("((Target:0.01,Query:0.02)tq:0.01,"
+                    "(mutA:0.03,mutB:0.02)ab:0.01)root;")
+TOOLS_PRIMATE_TREE = ("(((hg38:0.0065,(panTro6:0.0027,panPan2:0.0027)pan:"
+                      "0.004)hca:0.0012,gorGor5:0.0089)hga:0.008,"
+                      "ponAbe3:0.018)root;")
+TOOLS_MOUSE_TREE = ("(((mm10:0.02,rn7:0.03)mra:0.05,criGriChoV2:0.06)mrh:"
+                    "0.02,speTri2:0.1)root;")
+# the standard code in TCAG order, and the three-letter names
+CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
+    "Ala Arg Asn Asp Cys Gln Glu Gly His Ile Leu Lys Met Phe Pro Ser Thr "
+    "Trp Tyr Val Ter").split()))
 
 
 def emit(obj) -> None:
@@ -4134,6 +4172,239 @@ def fasta_tools_checks(f: dict, t_fa: str, snps: dict, depth: dict) -> dict:
     return out
 
 
+def fasta_strings(path: str) -> dict:
+    """{name: sequence text} of a FASTA file, through the port's reader,
+    as the neighbouring fasta checks read theirs."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.io import fasta
+    return {r.name: dna.to_string(r.seq) for r in fasta.read(path)}
+
+
+def write_fasta_strings(path: str, records) -> None:
+    """(name, sequence text) records to a FASTA file, through the port's
+    writer."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.io import fasta
+    fasta.write(path, [fasta.Fasta(n, dna.from_string(x))
+                       for n, x in records])
+
+
+def mutant_rows(rng, base: str, n_rows: int, rate: float, gap_runs: int):
+    """n_rows rows from base (an aligned row): substitutions shared by all
+    at rate / 2, private ones at rate each, and gap_runs runs of 5-40
+    gaps a row; the base's own gaps kept."""
+    b = np.frombuffer(base.encode(), np.uint8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    shared = rng.random(len(b)) < rate / 2
+    rows = []
+    for _ in range(n_rows):
+        r = b.copy()
+        sub = (shared | (rng.random(len(b)) < rate)) & (b != ord("-"))
+        r[sub] = acgt[(np.searchsorted(acgt, b[sub])
+                       + rng.integers(1, 4, int(sub.sum()))) % 4]
+        for _ in range(gap_runs):
+            a = int(rng.integers(0, len(b) - 40))
+            r[a:a + int(rng.integers(5, 41))] = ord("-")
+        rows.append(r.tobytes().decode())
+    return rows
+
+
+def seq_recon_inputs(f: dict, t_fa: str, snps: dict, seed: int = 2203):
+    """The input files of phase_tools_cli's 11.2b and reconstruction
+    steps, written from the target, the planted SNPs and samConsensus's
+    chr1 alignment (f: the phase's file names). Returns what their gates
+    need beside those files: the bedToAminoAcid regions, the four
+    reconstructSeq rows (with three blocks of all-gap columns inserted)
+    and the primate and rodent rows, each as (name, row text)."""
+    rng = np.random.default_rng(seed)
+    target = fasta_strings(t_fa)
+    meta = {}
+    with open(f["snps_strand.bed"], "w") as fh:
+        for i, (c, p) in enumerate((c, p) for c in snps
+                                   for p, _, _ in snps[c]):
+            fh.write(f"{c}\t{p - 1 - TOOLS_GC_FLANK}\t{p + TOOLS_GC_FLANK}\t"
+                     f"snp{i}\t0\t{'+-'[i % 2]}\n")
+    n1 = len(target["chr1"])
+    widths = 3 * rng.integers(5, 120, TOOLS_AA_REGIONS)
+    starts = rng.integers(0, n1 - int(widths.max()), TOOLS_AA_REGIONS)
+    meta["aa_regions"] = list(zip(starts.tolist(), (starts + widths).tolist()))
+    with open(f["aa.bed"], "w") as fh:
+        fh.writelines(f"chr1\t{s}\t{e}\n" for s, e in meta["aa_regions"])
+    with open(f["rename.txt"], "w") as fh:
+        fh.write("chr1\tchrOne\n")
+    # reconstructSeq: the chr1 alignment's rows and two mutants of its
+    # target row, with three blocks of 25 all-gap columns inserted
+    aln = fasta_strings(os.path.join(f["multi"], "chr1.fa"))
+    (t_name, t_row), (q_name, q_row) = aln.items()
+    rows = [t_row, q_row] + mutant_rows(rng, t_row, 2, 0.02, 8)
+    cuts = sorted(rng.integers(1, len(t_row), 3).tolist())
+    block = "-" * 25
+    rows = [block.join([r[:cuts[0]], r[cuts[0]:cuts[1]], r[cuts[1]:cuts[2]],
+                        r[cuts[2]:]]) for r in rows]
+    meta["recon_rows"] = list(zip((t_name, q_name, "mutA", "mutB"), rows))
+    write_fasta_strings(f["recon.fa"], meta["recon_rows"])
+    with open(f["recon.nh"], "w") as fh:
+        fh.write(TOOLS_RECON_TREE + "\n")
+    chr2 = target["chr2"]
+    meta["primate_rows"] = list(zip(
+        ("hg38", "panTro6", "panPan2", "gorGor5", "ponAbe3"),
+        mutant_rows(rng, chr2, 5, 0.01, 4)))
+    write_fasta_strings(f["primates.fa"], meta["primate_rows"])
+    meta["mouse_rows"] = list(zip(("mm10", "rn7", "criGriChoV2", "speTri2"),
+                                  mutant_rows(rng, chr2, 4, 0.03, 4)))
+    write_fasta_strings(f["rodents.fa"], meta["mouse_rows"])
+    for name, tree in (("primates.nh", TOOLS_PRIMATE_TREE),
+                       ("rodents.nh", TOOLS_MOUSE_TREE)):
+        with open(f[name], "w") as fh:
+            fh.write(tree + "\n")
+    return meta
+
+
+def agreed_columns(rows) -> tuple:
+    """(the columns where every row holds one upper-case base, that base;
+    the columns where every row holds a gap) of equal-length rows."""
+    m = np.stack([np.frombuffer(r.encode(), np.uint8) for r in rows])
+    base = np.isin(m[0], np.frombuffer(b"ACGT", np.uint8)) \
+        & (m == m[0]).all(axis=0)
+    return np.flatnonzero(base), m[0][base], np.flatnonzero(
+        (m == ord("-")).all(axis=0))
+
+
+def ancestor_checks(path: str, rows, internal: list) -> dict:
+    """What a reconstruction's gates read: the output's names, its leaves
+    against the input rows, and each internal node's bases at the
+    columns where the rows agree on a base or are all gaps."""
+    out = fasta_strings(path)
+    cols, bases, gaps = agreed_columns([r for _, r in rows])
+    keep = {}
+    for name in internal:
+        seq = np.frombuffer(out.get(name, "").encode(), np.uint8)
+        same_len = len(seq) == len(rows[0][1])
+        keep[name] = {
+            "length_equal": same_len,
+            "agreed_base_kept": same_len
+            and bool((seq[cols] == bases).all()),
+            "all_gap_kept": same_len and bool((seq[gaps] == ord("-")).all())}
+    return {"names": list(out), "leaves": len(rows),
+            "agreed_columns": len(cols),
+            "all_gap_columns": len(gaps),
+            "leaves_equal_input": [(n, out.get(n)) for n, _ in rows]
+            == [(n, r) for n, r in rows], "nodes": keep}
+
+
+def seq_recon_checks(f: dict, t_fa: str, meta: dict) -> dict:
+    """What the gates of phase_tools_cli's 11.2b and reconstruction steps
+    read from their files, beside what numpy gives from the inputs."""
+    target = fasta_strings(t_fa)
+    out = {}
+
+    def rows(path):
+        with open(path) as fh:
+            return [ln.rstrip("\n").split("\t") for ln in fh]
+
+    # digestGenome MboI: the cut ends are the GATC sites in order, with
+    # the fragment to the record's end where ``last`` fires, one window
+    # before the final one
+    frags = rows(f["digest.bed"])
+    want, tiled, named = [], True, True
+    gatc = np.frombuffer(b"GATC", np.uint8)
+    for c, seq in target.items():
+        n, k = len(seq), len(gatc)
+        windows = np.lib.stride_tricks.sliding_window_view(
+            np.frombuffer(seq.upper().encode(), np.uint8), k)
+        sites = np.flatnonzero((windows == gatc).all(axis=1)).tolist()
+        prev = 0
+        for p in sorted(set(sites) | {n - k - 1}):
+            if p == n - k - 1:
+                want.append((c, prev, n))
+            else:
+                want.append((c, prev, p))
+                prev = p
+        got = [r for r in frags if r[0] == c]
+        ends = [int(r[2]) for r in got]
+        upto = ends.index(n) + 1 if n in ends else 0
+        tiled = tiled and upto > 0 and int(got[0][1]) == 0 and all(
+            int(got[j][1]) == ends[j - 1] for j in range(1, upto))
+        named = named and all(r[3] == f"MboI_{c}_{j}" and r[5] == "+"
+                              for j, r in enumerate(got))
+    out["digest_genome"] = {
+        "fragments": len(frags),
+        "cut_ends_equal_numpy": [(r[0], int(r[1]), int(r[2]))
+                                 for r in frags] == want,
+        "tiles_each_record": tiled, "names_and_strands": named}
+
+    # bedToFasta -revComp: numpy's slice, reverse-complemented on -
+    comp = str.maketrans("ACGTacgtNn", "TGCAtgcaNn")
+    got = fasta_strings(f["snps_rc.fa"])
+    want = []
+    for c, s, e, name, _, strand in rows(f["snps_strand.bed"]):
+        seq = target[c][int(s):int(e)]
+        if strand == "-":
+            want.append((name + "_RevComp", seq.translate(comp)[::-1]))
+        else:
+            want.append((name, seq))
+    out["bed_to_fasta"] = {"records": len(got),
+                           "equal_numpy": list(got.items()) == want}
+
+    # bedToAminoAcid: the script's own translation of the regions
+    tcag = {"T": 0, "C": 1, "A": 2, "G": 3}
+    chr1 = target["chr1"].upper()
+    names = []
+    for s, e in meta["aa_regions"]:
+        seq = chr1[s:e]
+        names += [AA_NAMES[CODE_TCAG[16 * tcag[seq[i]] + 4 * tcag[seq[i + 1]]
+                                     + tcag[seq[i + 2]]]]
+                  for i in range(0, e - s, 3)]
+    with open(f["aa.txt"]) as fh:
+        aa = fh.read().split("\n")[:-1]
+    out["bed_to_amino_acid"] = {"lines": len(aa), "equal_numpy": aa == names}
+
+    # faToPredictSet: numpy's window count, each window upper-cased
+    lines = rows(f["predict.txt"])
+    want = [[f"{c}:{j}-{j + TOOLS_PREDICT_WINDOW}",
+             seq[j:j + TOOLS_PREDICT_WINDOW].upper()]
+            for c, seq in target.items()
+            for j in range(0, len(seq) - TOOLS_PREDICT_WINDOW,
+                           TOOLS_PREDICT_STRIDE)]
+    count = int(sum(max(0, -(-(len(seq) - TOOLS_PREDICT_WINDOW)
+                             // TOOLS_PREDICT_STRIDE))
+                    for seq in target.values()))
+    out["fa_to_predict_set"] = {"lines": len(lines), "numpy_count": count,
+                                "windows_equal": lines == want}
+
+    # prcompFormat of the chr1 alignment: four columns a variable column
+    # with no gap and no N, each row's one-hot
+    aln = fasta_strings(os.path.join(f["multi"], "chr1.fa"))
+    m = np.stack([np.frombuffer(r.upper().encode(), np.uint8)
+                  for r in aln.values()])
+    bad = np.isin(m, np.frombuffer(b"-N", np.uint8)).any(axis=0)
+    keep = ~bad & ~(m == m[0]).all(axis=0)
+    hot = {ord(b): "\t" + "\t".join("1" if b == x else "0" for x in "ACGT")
+           for b in "ACGT"}
+    want = [["Sample"] + [f"Var_{j}" for j in range(4 * int(keep.sum()))]]
+    want += [(name + "".join(hot[int(x)] for x in row[keep])).split("\t")
+             for name, row in zip(aln, m)]
+    out["prcomp_format"] = {"variable_columns": int(keep.sum()),
+                            "equal_numpy": rows(f["prcomp.txt"]) == want}
+
+    # findAndReplace -column 0: the SNP bed with chr1 renamed
+    want = [[("chrOne" if w[0] == "chr1" else w[0])] + w[1:]
+            for w in rows(f["snps.bed"])]
+    out["find_and_replace_equal"] = rows(f["renamed.bed"]) == want
+
+    out["reconstruct_seq"] = ancestor_checks(
+        f["recon_out.fa"], meta["recon_rows"], ["root", "tq", "ab"])
+    out["reconstruct_seq_sub_matrix"] = ancestor_checks(
+        f["recon_sub.fa"], meta["recon_rows"], ["root", "tq", "ab"])
+    out["primate_recon_hca"] = ancestor_checks(
+        f["hca.fa"], meta["primate_rows"], ["hca"])
+    out["primate_recon_hga"] = ancestor_checks(
+        f["hga.fa"], meta["primate_rows"], ["hga"])
+    out["mouse_recon"] = ancestor_checks(
+        f["mra.fa"], meta["mouse_rows"], ["mra"])
+    return out
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -4171,7 +4442,14 @@ def phase_tools_cli(dev: torch.device) -> dict:
     ``faInfo``, ``faFilter -minSize 100000`` and ``faBin -binNum 2`` of
     the target, ``gcContent`` of the planted SNPs +- TOOLS_GC_FLANK,
     ``catMultiFa`` of the chr1 and chr2 alignments and ``faUniq`` of the
-    target's records written twice, each gated on what numpy gives."""
+    target's records written twice, each gated on what numpy gives.
+    (7) Slices 11.2b and 11.3a (``seq_recon_inputs`` writes their inputs,
+    ``seq_recon_checks`` reads their files): ``digestGenome``,
+    ``bedToFasta -revComp``, ``bedToAminoAcid``, ``faToPredictSet``,
+    ``prcompFormat``, ``findAndReplace``, ``reconstructSeq`` (twice),
+    ``primateRecon`` (hca and hga) and ``mouseRecon``, each gated on what
+    numpy gives from the inputs; the checks import none of these tools'
+    modules."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fasta
@@ -4199,7 +4477,11 @@ def phase_tools_cli(dev: torch.device) -> dict:
             "merged.bed", "t.sizes", "reads.wig", "snps.bed", "hit.bed",
             "t60.fa", "ff.bed", "ff_long.bed", "stats.txt", "info.txt",
             "snps_gc.bed", "gc.bed", "big.fa", "bins", "cat.fa", "t2.fa",
-            "uniq.fa")}
+            "uniq.fa", "digest.bed", "snps_strand.bed", "snps_rc.fa",
+            "aa.bed", "aa.txt", "predict.txt", "prcomp.txt", "rename.txt",
+            "renamed.bed", "recon.fa", "recon.nh", "recon_out.fa",
+            "recon_sub.fa", "primates.fa", "primates.nh", "hca.fa", "hga.fa",
+            "rodents.fa", "rodents.nh", "mra.fa")}
         for fmt in ("axt", "vcf", "gg"):
             step(f"ggtools_chain_to_{fmt}", "gsw", "ggtools", chain, "-t",
                  t_fa, "-q", q_fa, "-f", fmt, "-o", f["c." + fmt])
@@ -4293,6 +4575,30 @@ def phase_tools_cli(dev: torch.device) -> dict:
                                           for r in target])
         step("faUniq", "faUniq", f["t2.fa"], f["uniq.fa"])
 
+        meta = seq_recon_inputs(f, t_fa, snps)
+        step("digestGenome", "digestGenome", t_fa, "MboI", f["digest.bed"])
+        step("bedToFasta", "bedToFasta", t_fa, f["snps_strand.bed"],
+             f["snps_rc.fa"], "-revComp")
+        step("bedToAminoAcid", "bedToAminoAcid", f["aa.bed"], t_fa,
+             f["aa.txt"])
+        step("faToPredictSet", "faToPredictSet", "--windowSize",
+             str(TOOLS_PREDICT_WINDOW), "--stride", str(TOOLS_PREDICT_STRIDE),
+             t_fa, f["predict.txt"])
+        step("prcompFormat", "prcompFormat", aln[0], f["prcomp.txt"])
+        step("findAndReplace", "findAndReplace", f["snps.bed"],
+             f["rename.txt"], f["renamed.bed"], "-column", "0")
+        step("reconstructSeq", "reconstructSeq", f["recon.nh"], f["recon.fa"],
+             f["recon_out.fa"])
+        step("reconstructSeq_subMatrix", "reconstructSeq", f["recon.nh"],
+             f["recon.fa"], f["recon_sub.fa"], "-subMatrix",
+             "-unitBranchLength", "0.1")
+        step("primateRecon_hca", "primateRecon", "-mleHcaHumanBiased", "-mle",
+             f["primates.nh"], f["primates.fa"], f["hca.fa"])
+        step("primateRecon_hga", "primateRecon", "-mleHgaGorillaBiased",
+             "-mle", f["primates.nh"], f["primates.fa"], f["hga.fa"])
+        step("mouseRecon", "mouseRecon", "-mleTree", f["rodents.nh"],
+             f["rodents.fa"], f["mra.fa"])
+
         rows = {}
         with open(f["pileup.txt"]) as fh:
             for line in fh:
@@ -4331,6 +4637,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
             "bed_lines": bed_lines, "mapped_reads": sam_mapped,
             "consensus_records": [r.name for r in fasta.read(f["cons.fa"])]}
         out["fasta_tools"] = fasta_tools_checks(f, t_fa, snps, depth)
+        out["seq_recon_tools"] = seq_recon_checks(f, t_fa, meta)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -4355,6 +4662,29 @@ def phase_tools_cli(dev: torch.device) -> dict:
                 and ft["fa_bin"]["a_file_a_record_named_after_it"]
                 and ft["cat_multi_fa_rows_joined"]
                 and ft["fa_uniq_one_a_sequence"])
+    sr = out["seq_recon_tools"]
+    dg = sr["digest_genome"]
+    recon_ok = all(
+        r["leaves_equal_input"] and r["agreed_columns"] > 0
+        and len(r["names"]) == r["leaves"] + len(r["nodes"])
+        and all(v["length_equal"] and v["agreed_base_kept"]
+                and v["all_gap_kept"] for v in r["nodes"].values())
+        for r in (sr["reconstruct_seq"], sr["reconstruct_seq_sub_matrix"],
+                  sr["primate_recon_hca"], sr["primate_recon_hga"],
+                  sr["mouse_recon"]))
+    seq_ok = (recon_ok and sr["reconstruct_seq"]["all_gap_columns"] >= 75
+              and dg["fragments"] > 0 and dg["cut_ends_equal_numpy"]
+              and dg["tiles_each_record"] and dg["names_and_strands"]
+              and sr["bed_to_fasta"]["records"] == len(planted)
+              and sr["bed_to_fasta"]["equal_numpy"]
+              and sr["bed_to_amino_acid"]["lines"] > 0
+              and sr["bed_to_amino_acid"]["equal_numpy"]
+              and sr["fa_to_predict_set"]["lines"]
+              == sr["fa_to_predict_set"]["numpy_count"] > 0
+              and sr["fa_to_predict_set"]["windows_equal"]
+              and sr["prcomp_format"]["variable_columns"] > 0
+              and sr["prcomp_format"]["equal_numpy"]
+              and sr["find_and_replace_equal"])
     host_ok = (h["mergesort_mapped_equal_sorted"]
                and h["mergesort_header_equal_input"]
                and h["merged_bases"] == c["pileup_rows"]
@@ -4363,7 +4693,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
                and h["overlap_lines"] == c["covered_planted_snps"]
                and h["fa_lower_bases"] == len(planted)
                and h["fa_upper_equals_target"] and h["fai_equals_index"])
-    if not (host_ok and fasta_ok
+    if not (host_ok and fasta_ok and seq_ok
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

@@ -66,6 +66,28 @@ COMMANDS = {
     "countPairOfBases": ("gonomics_tpu_torch.cli.count_pair_of_bases",
                          "Count base pairs in sequences or bed regions "
                          "(host)"),
+    "digestGenome": ("gonomics_tpu_torch.cli.digest_genome",
+                     "Restriction-fragment bed from fasta + motif (host)"),
+    "faToPredictSet": ("gonomics_tpu_torch.cli.fa_to_predict_set",
+                       "Sliding-window prediction TSVs for deep learning "
+                       "(host)"),
+    "prcompFormat": ("gonomics_tpu_torch.cli.prcomp_format",
+                     "Binary one-hot matrix of variable columns for PCA "
+                     "(host)"),
+    "findAndReplace": ("gonomics_tpu_torch.cli.find_and_replace",
+                       "Find values in a file and replace them (host)"),
+    "bedToFasta": ("gonomics_tpu_torch.cli.bed_to_fasta",
+                   "Extract fasta subsequences for bed regions (host)"),
+    "bedToAminoAcid": ("gonomics_tpu_torch.cli.bed_to_amino_acid",
+                       "Translate bed-region DNA to amino acids (host)"),
+    "reconstructSeq": ("gonomics_tpu_torch.cli.reconstruct_seq",
+                       "Ancestral sequence reconstruction (host)"),
+    "primateRecon": ("gonomics_tpu_torch.cli.primate_recon",
+                     "[DEPRECATED] HBCGO primate ancestor estimation "
+                     "(host)"),
+    "mouseRecon": ("gonomics_tpu_torch.cli.mouse_recon",
+                   "[DEPRECATED] Mouse-Rat-Hamster-Squirrel ancestor MLE "
+                   "(host)"),
 }
 
 

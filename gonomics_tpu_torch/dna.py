@@ -1,6 +1,6 @@
 """DNA base codes and sequence conversion: the subset of
 ``gonomics_tpu/dna.py`` that the read aligners, the variant caller, the
-consensus tools and the fasta tools use.
+consensus tools, the fasta tools and digestGenome use.
 
 A sequence is an int8 numpy array of base codes 0..12, the same integer
 codes as the reference's ``dna`` package.
@@ -120,3 +120,20 @@ def complement(seq: np.ndarray) -> np.ndarray:
 
 def reverse_complement(seq: np.ndarray) -> np.ndarray:
     return complement(np.asarray(seq))[::-1]
+
+
+def compare_seqs_case_sensitive(a: np.ndarray, b: np.ndarray) -> int:
+    """dna.CompareSeqsCaseSensitive (dna.py:150): -1, 0 or 1 by the first
+    differing code, else by length."""
+    a, b = np.asarray(a), np.asarray(b)
+    n = min(len(a), len(b))
+    neq = np.nonzero(a[:n] != b[:n])[0]
+    if len(neq):
+        i = neq[0]
+        return -1 if a[i] < b[i] else 1
+    return (len(a) > len(b)) - (len(a) < len(b))
+
+
+def compare_seqs_ignore_case(a: np.ndarray, b: np.ndarray) -> int:
+    """dna.CompareSeqsIgnoreCase (dna.py:161)."""
+    return compare_seqs_case_sensitive(to_upper(a), to_upper(b))

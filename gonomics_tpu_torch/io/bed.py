@@ -1,9 +1,11 @@
 """BED records, reading, writing and the region algebra: the parts of
 ``gonomics_tpu/io/bed.py`` that ``cigarToBed``, ``samToBed``,
 ``faFormat``, ``bedMerge``, ``bedToWig``, ``intervalOverlap`` and
-``mergesort`` use (``Bed`` :18, ``process_bed_line`` :45, ``read`` :60,
-``write_to_handle`` :64, ``write`` :68, ``sort_by_coord`` :85,
-``overlap`` :93, ``minimum_distance`` :111, ``merge_high_mem`` :122).
+``mergesort`` use, with the strand constants that bedToFasta reads
+(``POSITIVE``, ``NEGATIVE``, ``NONE`` :14, ``Bed`` :18,
+``process_bed_line`` :45, ``read`` :60, ``write_to_handle`` :64,
+``write`` :68, ``sort_by_coord`` :85, ``overlap`` :93,
+``minimum_distance`` :111, ``merge_high_mem`` :122).
 Field-count-aware formatting matches gonomics' ``bed.ToString``."""
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import IO
 
 from .. import fileio
 
-NONE = "."  # strand not given
+POSITIVE, NEGATIVE, NONE = "+", "-", "."  # NONE: strand not given
 
 
 @dataclass

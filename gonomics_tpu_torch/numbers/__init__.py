@@ -2,7 +2,8 @@
 ``gonomics_tpu/numbers/__init__.py`` that the variant caller (:16-72)
 and faFindFast (:74-115) use, the same float64 steps in the same order,
 so that every p value is bit for bit the JAX package's. ``logspace`` is
-a copy of the JAX's module of that name."""
+a copy of the JAX's module of that name; ``matrix`` holds the fractional
+matrix powers of the substitution matrices."""
 
 from __future__ import annotations
 

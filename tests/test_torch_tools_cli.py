@@ -9,7 +9,7 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 22 tools, imports none of them
+lists and dispatches exactly the port's 31 tools, imports none of them
 before dispatch, and its ``gsw align`` wants the card; ``pyproject.toml``
 installs it as ``gonomics-torch``; no new module imports JAX.
 """
@@ -31,6 +31,13 @@ from gonomics_tpu.io import bam_writer
 from gonomics_tpu.io import sam as jsam
 from gonomics_tpu_torch import dna
 from gonomics_tpu_torch.cli import bed_merge as tbed_merge
+from gonomics_tpu_torch.cli import bed_to_amino_acid as tbed_to_amino_acid
+from gonomics_tpu_torch.cli import bed_to_fasta as tbed_to_fasta
+from gonomics_tpu_torch.cli import digest_genome as tdigest_genome
+from gonomics_tpu_torch.cli import fa_to_predict_set as tfa_to_predict_set
+from gonomics_tpu_torch.cli import find_and_replace as tfind_and_replace
+from gonomics_tpu_torch.cli import prcomp_format as tprcomp_format
+from gonomics_tpu_torch.cli import reconstruct_seq as treconstruct_seq
 from gonomics_tpu_torch.cli import assembly_stats as tassembly_stats
 from gonomics_tpu_torch.cli import bed_to_wig as tbed_to_wig
 from gonomics_tpu_torch.cli import fa_filter as tfa_filter
@@ -50,11 +57,14 @@ from gonomics_tpu_torch.cli import sam_to_bed as tbed
 from test_torch_card import _variant_inputs, _write_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORTED = ["assemblyStats", "bedMerge", "bedToWig", "callVariants",
-          "catMultiFa", "cigarToBed", "countPairOfBases", "faBin", "faFilter",
-          "faFindFast", "faFormat", "faInfo", "faUniq", "gcContent",
-          "globalAlignment", "gsw", "intervalOverlap", "locateCG",
-          "mergesort", "pileup", "samConsensus", "samToBed"]
+PORTED = ["assemblyStats", "bedMerge", "bedToAminoAcid", "bedToFasta",
+          "bedToWig", "callVariants", "catMultiFa", "cigarToBed",
+          "countPairOfBases", "digestGenome", "faBin", "faFilter",
+          "faFindFast", "faFormat", "faInfo", "faToPredictSet", "faUniq",
+          "findAndReplace", "gcContent", "globalAlignment", "gsw",
+          "intervalOverlap", "locateCG", "mergesort", "mouseRecon", "pileup",
+          "prcompFormat", "primateRecon", "reconstructSeq", "samConsensus",
+          "samToBed"]
 
 
 def _edge_sam(genome) -> str:
@@ -211,7 +221,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 22 ported tools, each a key of
+    """help (and no argument) lists the 31 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -229,15 +239,19 @@ def test_umbrella_unknown_tool_exits():
     for mod in (umbrella, jmain):
         with pytest.raises(SystemExit, match="unknown command: noSuchTool"):
             mod.main(["noSuchTool"])
-    with pytest.raises(SystemExit, match="unknown command: digestGenome"):
-        umbrella.main(["digestGenome", "x.fa"])
+    with pytest.raises(SystemExit, match="unknown command: vcfFormat"):
+        umbrella.main(["vcfFormat", "x.vcf"])
 
 
 @pytest.mark.parametrize("tool", ["pileup", "samToBed", "samConsensus",
                                   "gsw", "faFormat", "bedMerge", "bedToWig",
                                   "intervalOverlap", "mergesort",
                                   "faFindFast", "faFilter", "gcContent",
-                                  "assemblyStats", "faUniq", "locateCG"])
+                                  "assemblyStats", "faUniq", "locateCG",
+                                  "digestGenome", "faToPredictSet",
+                                  "prcompFormat", "findAndReplace",
+                                  "bedToFasta", "bedToAminoAcid",
+                                  "reconstructSeq"])
 def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                                               tool):
     """A tool run through the umbrella writes what its own main writes."""
@@ -251,6 +265,12 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
     tcons.main([src, ref, str(tmp_path / "cons.fa"), "-multiFaDir",
                 str(multi)])
     aln = str(multi / "chrA.fa")
+    pairs = tmp_path / "pairs.tsv"
+    pairs.write_text("chrA\tchrZ\n")
+    tree = tmp_path / "tree.nh"
+    with open(aln) as fh:
+        names = [ln[1:].strip() for ln in fh if ln.startswith(">")]
+    tree.write_text(f"({names[0]}:0.1,{names[1]}:0.2)anc;")
     direct = {"pileup": tpileup.main, "samToBed": tbed.main,
               "samConsensus": tcons.main, "gsw": tgsw.main,
               "faFormat": tfa_format.main, "bedMerge": tbed_merge.main,
@@ -260,7 +280,14 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
               "faFindFast": tfa_find_fast.main, "faFilter": tfa_filter.main,
               "gcContent": tgc_content.main,
               "assemblyStats": tassembly_stats.main,
-              "faUniq": tfa_uniq.main, "locateCG": tlocate_cg.main}[tool]
+              "faUniq": tfa_uniq.main, "locateCG": tlocate_cg.main,
+              "digestGenome": tdigest_genome.main,
+              "faToPredictSet": tfa_to_predict_set.main,
+              "prcompFormat": tprcomp_format.main,
+              "findAndReplace": tfind_and_replace.main,
+              "bedToFasta": tbed_to_fasta.main,
+              "bedToAminoAcid": tbed_to_amino_acid.main,
+              "reconstructSeq": treconstruct_seq.main}[tool]
     out = {}
     for how in ("umbrella", "direct"):
         path = str(tmp_path / how)
@@ -282,7 +309,15 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                 "assemblyStats": [ref, path],
                 "faUniq": [ref, path],
                 "locateCG": [aln, "chrA", path, "-compare", "-cgtype",
-                             "cons"]}[tool]
+                             "cons"],
+                "digestGenome": [ref, "MboI", path],
+                "faToPredictSet": ["--windowSize", "30", "--stride", "5",
+                                   "--withRevComp", ref, path],
+                "prcompFormat": [aln, path],
+                "findAndReplace": [beds, str(pairs), path, "-column", "0"],
+                "bedToFasta": [ref, beds, path, "-revComp"],
+                "bedToAminoAcid": [beds, ref, path],
+                "reconstructSeq": [str(tree), aln, path]}[tool]
         if how == "umbrella":
             umbrella.main([tool, *args])
         else:
@@ -379,7 +414,20 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.cat_multi_fa,"
             " gonomics_tpu_torch.cli.assembly_stats,"
             " gonomics_tpu_torch.cli.locate_cg,"
-            " gonomics_tpu_torch.cli.count_pair_of_bases\n"
+            " gonomics_tpu_torch.cli.count_pair_of_bases,"
+            " gonomics_tpu_torch.codon, gonomics_tpu_torch.numbers.matrix,"
+            " gonomics_tpu_torch.io.pfasta, gonomics_tpu_torch.phylo,"
+            " gonomics_tpu_torch.phylo.etree,"
+            " gonomics_tpu_torch.phylo.reconstruct,"
+            " gonomics_tpu_torch.cli.digest_genome,"
+            " gonomics_tpu_torch.cli.fa_to_predict_set,"
+            " gonomics_tpu_torch.cli.prcomp_format,"
+            " gonomics_tpu_torch.cli.find_and_replace,"
+            " gonomics_tpu_torch.cli.bed_to_fasta,"
+            " gonomics_tpu_torch.cli.bed_to_amino_acid,"
+            " gonomics_tpu_torch.cli.reconstruct_seq,"
+            " gonomics_tpu_torch.cli.primate_recon,"
+            " gonomics_tpu_torch.cli.mouse_recon\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
