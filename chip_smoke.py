@@ -249,6 +249,12 @@ exits non-zero:
             of its target row, with 75 all-gap columns inserted;
             primateRecon -mleHcaHumanBiased and -mleHgaGorillaBiased on
             five seeded rows of chr2; mouseRecon -mleTree on four.
+            Then slice 11.4 and bedFormat: vcfFilter -substitutionsOnly
+            -biAllelicOnly of the chain's VCF; vcfToFa -useAlt of that
+            on the target; vcfInfo -types -context; multiFaToVcf
+            -substitutionsOnly of the chr1 alignment; vcfFormat -csv
+            -clearInfo and -UCSCToEnsembl of the filtered VCF; bedFormat
+            -UCSCToEnsembl -evenPadLength 10 of the SNP bed.
             Gates: digestGenome's cut ends the GATC sites under the JAX
             tool's rule, its fragments tiling each record; bedToFasta's
             records numpy's slices, reverse-complemented and named
@@ -258,8 +264,13 @@ exits non-zero:
             gap and no N; findAndReplace the input with chr1 renamed;
             each reconstruction's leaves the input rows, and each
             ancestor the rows' base where they all agree on one and a
-            gap where they are all gaps. The four kernels launched. Wall
-            time of each step.
+            gap where they are all gaps; vcfFilter's records the planted
+            SNPs; vcfToFa's sequence numpy's edit; vcfInfo's substitution
+            and trinucleotide counts numpy's; a multiFaToVcf record with
+            the query's base at each covered planted SNP the consensus
+            carries, every REF the target's; a csv row a record;
+            vcfFormat's chroms 1 and 2; bedFormat's records numpy's. The
+            four kernels launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -4405,6 +4416,100 @@ def seq_recon_checks(f: dict, t_fa: str, meta: dict) -> dict:
     return out
 
 
+def vcf_tools_checks(f: dict, t_fa: str, snps: dict, depth: dict) -> dict:
+    """What the gates of phase_tools_cli's slice 11.4 and bedFormat steps
+    read from their files, beside what numpy gives from the target and
+    the planted SNPs (depth: {(chrom, 1-based position): pileup depth});
+    none of these tools' modules is imported."""
+    def records(path):
+        with open(path) as fh:
+            return [ln.rstrip("\n").split("\t") for ln in fh
+                    if not ln.startswith("#")]
+
+    target = fasta_strings(t_fa)
+    planted = sorted((c, p, r, a) for c in snps for p, r, a in snps[c])
+    out = {}
+    filtered = records(f["snv.vcf"])
+    out["vcf_filter"] = {
+        "chain_vcf_records": len(records(f["c.vcf"])),
+        "records": len(filtered),
+        "equal_planted": sorted((r[0], int(r[1]), r[3], r[4])
+                                for r in filtered) == planted}
+
+    want = {c: list(s) for c, s in target.items()}
+    for c, p, _, a in planted:
+        want[c][p - 1] = a
+    out["vcf_to_fa_equal_numpy"] = fasta_strings(f["alt.fa"]) == {
+        c: "".join(s) for c, s in want.items()}
+
+    # vcfInfo: the twelve substitution counts; each SNP's trinucleotide,
+    # a top strand of C or T kept and the others reverse-complemented
+    with open(f["types.txt"]) as fh:
+        counts = {ln.split(":\t")[0]: int(ln.split(":\t")[1]) for ln in fh
+                  if ":\t" in ln and " to " in ln}
+    subs = {f"{a} to {b}": 0 for a in "ACGT" for b in "ACGT" if a != b}
+    for _, _, r, a in planted:
+        subs[f"{r} to {a}"] += 1
+    comp = str.maketrans("ACGT", "TGCA")
+    ctx = {f"{r}>{a}\t{x}{r}{y}": 0 for r in "CT" for a in "ACGT"
+           if a != r for x in "ACGT" for y in "ACGT"}
+    for c, p, r, a in planted:
+        tri = target[c][p - 2:p + 1]
+        if r in "AG":
+            r, a, tri = r.translate(comp), a.translate(comp), \
+                tri.translate(comp)[::-1]
+        ctx[f"{r}>{a}\t{tri}"] += 1
+    with open(f["context.txt"]) as fh:
+        got = {ln.rsplit("\t", 1)[0]: int(ln.rsplit("\t", 1)[1])
+               for ln in list(fh)[1:]}
+    out["vcf_info"] = {
+        "types_equal_numpy": {k: counts.get(k) for k in subs} == subs,
+        "context_lines": len(got), "context_sum": sum(got.values()),
+        "context_equal_numpy": got == ctx}
+
+    # multiFaToVcf of the chr1 alignment: a record at each covered
+    # planted SNP the consensus carries, every REF the target's base
+    t_rec, q_rec = fasta_strings(os.path.join(f["multi"],
+                                              "chr1.fa")).values()
+    cols = np.flatnonzero(np.frombuffer(t_rec.encode(), np.uint8)
+                          != ord("-"))
+    carried = {p: a for c, p, _, a in planted if c == "chr1"
+               and depth.get((c, p), 0) and q_rec[cols[p - 1]] == a}
+    multi = records(f["multi.vcf"])
+    at = {int(r[1]): r for r in multi}
+    out["multi_fa_to_vcf"] = {
+        "records": len(multi), "carried_snps": len(carried),
+        "carried_with_record": sum(p in at and at[p][4] == a
+                                   for p, a in carried.items()),
+        "refs_equal_target": all(r[3] == target["chr1"][int(r[1]) - 1]
+                                 for r in multi),
+        "substitutions_only": all(len(r[3]) == len(r[4]) == 1
+                                  for r in multi)}
+
+    with open(f["snv.csv"]) as fh:
+        csv = [ln.rstrip("\n") for ln in fh]
+    ens = records(f["ens.vcf"])
+    out["vcf_format"] = {
+        "csv_lines": len(csv),
+        "csv_header": csv[0].split(",")[:7] if csv else [],
+        "csv_rows_equal_records": [ln.split(",")[:5] for ln in csv[1:]]
+        == [r[:5] for r in filtered],
+        "ensembl_chroms": sorted({r[0] for r in ens}),
+        "ensembl_rest_equal": [r[1:] for r in ens]
+        == [r[1:] for r in filtered]}
+
+    sizes = dict(TOOLS_SIZES)
+    with open(f["snps.bed"]) as fh:
+        want_bed = [f"{c[3:]}\t{max(int(s) - 10, 0)}\t"
+                    f"{min(int(e) + 10, sizes[c])}"
+                    for c, s, e in (ln.split() for ln in fh)]
+    with open(f["snps_pad.bed"]) as fh:
+        got_bed = [ln.rstrip("\n") for ln in fh]
+    out["bed_format"] = {"lines": len(got_bed),
+                         "equal_numpy": got_bed == want_bed}
+    return out
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -4449,10 +4554,25 @@ def phase_tools_cli(dev: torch.device) -> dict:
     ``prcompFormat``, ``findAndReplace``, ``reconstructSeq`` (twice),
     ``primateRecon`` (hca and hga) and ``mouseRecon``, each gated on what
     numpy gives from the inputs; the checks import none of these tools'
-    modules."""
+    modules. (8) Slice 11.4 and bedFormat (``vcf_tools_checks`` reads
+    their files): ``vcfFilter -substitutionsOnly -biAllelicOnly`` of the
+    chain's VCF, gated on its records being the planted SNPs; ``vcfToFa
+    -useAlt`` of that VCF on the target, gated on numpy's edit;
+    ``vcfInfo -types -context`` of it (the target's .fai written by the
+    port's ``fai``), gated on the twelve substitution counts and the
+    trinucleotide counts (complements merged) numpy gives;
+    ``multiFaToVcf -substitutionsOnly`` of the chr1 alignment, gated on a
+    record with the query's base at each covered planted SNP the
+    consensus carries and every REF the target's; ``vcfFormat -csv
+    -clearInfo`` and ``-UCSCToEnsembl`` of the filtered VCF, gated on a
+    row a record and on chroms 1 and 2 with the rest unchanged (``-csv``
+    raises without ``-clearInfo`` on ggtools' INFO, and on multiFaToVcf's
+    FORMAT ".", in the JAX too: neither is a header key);
+    ``bedFormat -UCSCToEnsembl -evenPadLength 10`` of the SNP bed, gated
+    on numpy's renamed, padded and clipped records."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
-    from gonomics_tpu_torch.io import fasta
+    from gonomics_tpu_torch.io import fai, fasta
     from gonomics_tpu_torch.io import vcf as vcfio
     from gonomics_tpu_torch.ops import banded, gsw_dp, wavefront
 
@@ -4481,7 +4601,9 @@ def phase_tools_cli(dev: torch.device) -> dict:
             "aa.bed", "aa.txt", "predict.txt", "prcomp.txt", "rename.txt",
             "renamed.bed", "recon.fa", "recon.nh", "recon_out.fa",
             "recon_sub.fa", "primates.fa", "primates.nh", "hca.fa", "hga.fa",
-            "rodents.fa", "rodents.nh", "mra.fa")}
+            "rodents.fa", "rodents.nh", "mra.fa", "snv.vcf", "alt.fa",
+            "types.txt", "context.txt", "multi.vcf", "snv.csv", "ens.vcf",
+            "snps_pad.bed")}
         for fmt in ("axt", "vcf", "gg"):
             step(f"ggtools_chain_to_{fmt}", "gsw", "ggtools", chain, "-t",
                  t_fa, "-q", q_fa, "-f", fmt, "-o", f["c." + fmt])
@@ -4599,6 +4721,23 @@ def phase_tools_cli(dev: torch.device) -> dict:
         step("mouseRecon", "mouseRecon", "-mleTree", f["rodents.nh"],
              f["rodents.fa"], f["mra.fa"])
 
+        step("vcfFilter", "vcfFilter", f["c.vcf"], f["snv.vcf"],
+             "-substitutionsOnly", "-biAllelicOnly")
+        step("vcfToFa", "vcfToFa", f["snv.vcf"], t_fa, f["alt.fa"],
+             "-useAlt")
+        fai.write_index(fai.create_index(t_fa), t_fa + ".fai")
+        step("vcfInfo", "vcfInfo", "-i", f["snv.vcf"], "-types",
+             f["types.txt"], "-context", f["context.txt"], "-r", t_fa)
+        step("multiFaToVcf", "multiFaToVcf", aln[0], "chr1", f["multi.vcf"],
+             "-substitutionsOnly")
+        step("vcfFormat_csv", "vcfFormat", f["snv.vcf"], f["snv.csv"], "-csv",
+             "-clearInfo")
+        step("vcfFormat_ensembl", "vcfFormat", f["snv.vcf"], f["ens.vcf"],
+             "-UCSCToEnsembl")
+        step("bedFormat", "bedFormat", f["snps.bed"], f["snps_pad.bed"],
+             "-UCSCToEnsembl", "-evenPadLength", "10", "-chromSizeFile",
+             f["t.sizes"])
+
         rows = {}
         with open(f["pileup.txt"]) as fh:
             for line in fh:
@@ -4638,6 +4777,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
             "consensus_records": [r.name for r in fasta.read(f["cons.fa"])]}
         out["fasta_tools"] = fasta_tools_checks(f, t_fa, snps, depth)
         out["seq_recon_tools"] = seq_recon_checks(f, t_fa, meta)
+        out["vcf_tools"] = vcf_tools_checks(f, t_fa, snps, depth)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -4685,6 +4825,23 @@ def phase_tools_cli(dev: torch.device) -> dict:
               and sr["prcomp_format"]["variable_columns"] > 0
               and sr["prcomp_format"]["equal_numpy"]
               and sr["find_and_replace_equal"])
+    vt = out["vcf_tools"]
+    mv, vf = vt["multi_fa_to_vcf"], vt["vcf_format"]
+    vcf_ok = (vt["vcf_filter"]["records"] == len(planted)
+              and vt["vcf_filter"]["equal_planted"]
+              and vt["vcf_to_fa_equal_numpy"]
+              and vt["vcf_info"]["types_equal_numpy"]
+              and vt["vcf_info"]["context_equal_numpy"]
+              and vt["vcf_info"]["context_sum"] == len(planted)
+              and mv["carried_snps"] > 0
+              and mv["carried_with_record"] == mv["carried_snps"]
+              and mv["refs_equal_target"] and mv["substitutions_only"]
+              and vf["csv_lines"] == len(planted) + 1
+              and vf["csv_rows_equal_records"]
+              and vf["ensembl_chroms"] == ["1", "2"]
+              and vf["ensembl_rest_equal"]
+              and vt["bed_format"]["lines"] == len(planted)
+              and vt["bed_format"]["equal_numpy"])
     host_ok = (h["mergesort_mapped_equal_sorted"]
                and h["mergesort_header_equal_input"]
                and h["merged_bases"] == c["pileup_rows"]
@@ -4693,7 +4850,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
                and h["overlap_lines"] == c["covered_planted_snps"]
                and h["fa_lower_bases"] == len(planted)
                and h["fa_upper_equals_target"] and h["fai_equals_index"])
-    if not (host_ok and fasta_ok and seq_ok
+    if not (host_ok and fasta_ok and seq_ok and vcf_ok
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

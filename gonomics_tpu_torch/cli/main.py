@@ -88,6 +88,18 @@ COMMANDS = {
     "mouseRecon": ("gonomics_tpu_torch.cli.mouse_recon",
                    "[DEPRECATED] Mouse-Rat-Hamster-Squirrel ancestor MLE "
                    "(host)"),
+    "vcfFormat": ("gonomics_tpu_torch.cli.vcf_format",
+                  "Options alter VCF formatting (host)"),
+    "vcfToFa": ("gonomics_tpu_torch.cli.vcf_to_fa",
+                "Edit a reference fasta with vcf variant data (host)"),
+    "vcfFilter": ("gonomics_tpu_torch.cli.vcf_filter",
+                  "Filter vcf records (host)"),
+    "vcfInfo": ("gonomics_tpu_torch.cli.vcf_info",
+                "VCF summary statistics (types/divergence/context) (host)"),
+    "multiFaToVcf": ("gonomics_tpu_torch.cli.multi_fa_to_vcf",
+                     "VCF from a pairwise multiFa alignment (host)"),
+    "bedFormat": ("gonomics_tpu_torch.cli.bed_format",
+                  "Options alter bed formatting (host)"),
 }
 
 

@@ -1,11 +1,12 @@
 """BED records, reading, writing and the region algebra: the parts of
 ``gonomics_tpu/io/bed.py`` that ``cigarToBed``, ``samToBed``,
-``faFormat``, ``bedMerge``, ``bedToWig``, ``intervalOverlap`` and
-``mergesort`` use, with the strand constants that bedToFasta reads
-(``POSITIVE``, ``NEGATIVE``, ``NONE`` :14, ``Bed`` :18,
+``faFormat``, ``bedMerge``, ``bedToWig``, ``intervalOverlap``,
+``mergesort`` and ``bedFormat`` use, with the strand constants that
+bedToFasta reads (``POSITIVE``, ``NEGATIVE``, ``NONE`` :14, ``Bed`` :18,
 ``process_bed_line`` :45, ``read`` :60, ``write_to_handle`` :64,
 ``write`` :68, ``sort_by_coord`` :85, ``overlap`` :93,
-``minimum_distance`` :111, ``merge_high_mem`` :122).
+``minimum_distance`` :111, ``merge_high_mem`` :122), and the
+``to_midpoint`` and ``to_tss`` trims (:179-195) that bedFormat uses.
 Field-count-aware formatting matches gonomics' ``bed.ToString``."""
 
 from __future__ import annotations
@@ -124,4 +125,26 @@ def merge_high_mem(records: list[Bed], merge_adjacent: int = -1,
             out.append(cur)
             cur = b
     out.append(cur)
+    return out
+
+
+def to_midpoint(b: Bed) -> Bed:
+    """A copy of b cut to its one midpoint base, (start + end) // 2."""
+    out = Bed(**vars(b))
+    mid = (b.chrom_start + b.chrom_end) // 2
+    out.chrom_start = mid
+    out.chrom_end = mid + 1
+    return out
+
+
+def to_tss(b: Bed) -> Bed:
+    """A copy of b cut to its first base on its strand; ValueError for a
+    record without + or - strand."""
+    out = Bed(**vars(b))
+    if b.strand == POSITIVE:
+        out.chrom_end = b.chrom_start + 1
+    elif b.strand == NEGATIVE:
+        out.chrom_start = b.chrom_end - 1
+    else:
+        raise ValueError("bed must have +/- strand for Tss")
     return out

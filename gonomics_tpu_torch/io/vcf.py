@@ -4,7 +4,11 @@ construction and ``gsw ggtools`` read them and the variant caller and
 (:48), ``Header`` (:71), ``new_write_header`` (:75), ``write_vcf`` (:80),
 the reader (``_parse_samples`` :84, ``read`` :114, ``process_vcf_line``
 :130), the type tests and ``sort`` (:305-328), ``is_vcf_file`` (:326) and
-``new_header`` (:331) of ``gonomics_tpu/io/vcf.py``. ``to_string`` gives
+``new_header`` (:331) of ``gonomics_tpu/io/vcf.py``, and its header
+metadata and typed INFO/FORMAT parsing (:150-284: the type constants,
+``Key``, ``HeaderMeta``, ``_angle_fields``, ``parse_header_meta``,
+``get_number``, ``_parse_value``, ``parse_info``, ``parse_format``) that
+vcfFormat, vcfToFa and vcfFilter read. ``to_string`` gives
 Vcf.String()/Sample.String() byte for byte."""
 
 from __future__ import annotations
@@ -141,6 +145,146 @@ def process_vcf_line(line: str) -> Vcf:
         v.format = f[8].split(":")
         v.samples = _parse_samples(f[9:], v.format)
     return v
+
+
+# --- header metadata and typed INFO/FORMAT parsing (vcf/header.go,
+#     queryInfo.go) ---
+
+INTEGER, FLOAT, FLAG, CHARACTER, STRING = ("Integer", "Float", "Flag",
+                                           "Character", "String")
+
+
+@dataclass
+class Key:
+    """vcf.Key (header.go): tag id + Number spec + data type."""
+    id: str = ""
+    number: str = "1"
+    data_type: str = STRING
+    is_format: bool = False
+
+
+@dataclass
+class HeaderMeta:
+    """Parsed ##INFO / ##FORMAT lines + sample column order
+    (vcf.Header Info/Format/Samples maps; file order preserved)."""
+    info: dict[str, Key] = field(default_factory=dict)
+    format: dict[str, Key] = field(default_factory=dict)
+    samples: list[str] = field(default_factory=list)
+
+
+def _angle_fields(body: str) -> dict[str, str]:
+    """KEY=value pairs of a ##INFO/##FORMAT line's <...> body, split at
+    commas outside double quotes; values lose their outer quotes."""
+    out, cur, in_q = {}, [], False
+    parts = []
+    for ch in body:
+        if ch == '"':
+            in_q = not in_q
+        if ch == "," and not in_q:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    if cur:
+        parts.append("".join(cur))
+    for p in parts:
+        if "=" in p:
+            k, v = p.split("=", 1)
+            out[k] = v.strip('"')
+    return out
+
+
+def parse_header_meta(header: Header) -> HeaderMeta:
+    """The ##INFO and ##FORMAT keys in file order, and the #CHROM line's
+    sample names."""
+    m = HeaderMeta()
+    for line in header.text:
+        if line.startswith("##INFO=<") and line.endswith(">"):
+            f = _angle_fields(line[len("##INFO=<"):-1])
+            m.info[f["ID"]] = Key(f["ID"], f.get("Number", "1"),
+                                  f.get("Type", STRING), False)
+        elif line.startswith("##FORMAT=<") and line.endswith(">"):
+            f = _angle_fields(line[len("##FORMAT=<"):-1])
+            m.format[f["ID"]] = Key(f["ID"], f.get("Number", "1"),
+                                    f.get("Type", STRING), True)
+        elif line.startswith("#CHROM"):
+            cols = line.split("\t")
+            if len(cols) > 9:
+                m.samples = cols[9:]
+    return m
+
+
+def get_number(v: Vcf, k: Key) -> int:
+    """queryInfo.go:208 getNumber."""
+    if k.number == "A":
+        return len(v.alt)
+    if k.number == "R":
+        return len(v.alt) + 1
+    if k.number == "G":
+        return 1
+    if k.number == ".":
+        return 0
+    return int(k.number)
+
+
+def _parse_value(v: Vcf, values: list[str], k: Key):
+    """queryInfo.go:75 parseValue: a list of per-sample strings as typed
+    lists. '.' reads as zero, and a numeric list that is one zero becomes
+    get_number zeros; String keeps its commas; Character is the first
+    character of the first field."""
+    if k.data_type == INTEGER:
+        data = [[0 if x == "." else int(x) for x in s.split(",")]
+                for s in values]
+        data = [([0] * get_number(v, k) if len(d) == 1 and d[0] == 0 else d)
+                for d in data]
+        return data
+    if k.data_type == FLOAT:
+        data = [[0.0 if x == "." else float(x) for x in s.split(",")]
+                for s in values]
+        data = [([0.0] * get_number(v, k)
+                 if len(d) == 1 and d[0] == 0 else d) for d in data]
+        return data
+    if k.data_type == STRING:
+        return [[s] for s in values]  # literal commas kept (queryInfo.go:140)
+    if k.data_type == CHARACTER:
+        return [list(s.split(",")[0][:1]) if s else [] for s in values]
+    raise ValueError(f"unknown type {k.data_type}")
+
+
+def parse_info(v: Vcf, meta: HeaderMeta) -> dict:
+    """vcf.ParseInfo (queryInfo.go:14)."""
+    parsed: dict = {}
+    if v.info == ".":
+        return parsed
+    for fld in v.info.split(";"):
+        pair = fld.split("=")
+        tag = meta.info.get(pair[0])
+        if tag is None:
+            raise ValueError(f"Info tag '{pair[0]}' not in header")
+        if tag.number == "0":
+            parsed[pair[0]] = True
+            continue
+        parsed[pair[0]] = _parse_value(v, pair[1:], tag)
+    return parsed
+
+
+def parse_format(v: Vcf, meta: HeaderMeta) -> dict:
+    """vcf.ParseFormat (queryInfo.go:46): GT is skipped."""
+    parsed: dict = {}
+    if not v.format:
+        return parsed
+    for i, name in enumerate(v.format):
+        if name == "GT":
+            continue
+        tag = meta.format.get(name)
+        if tag is None:
+            raise ValueError(f"Format tag '{name}' not in header")
+        vals = []
+        for s in v.samples:
+            fd = s.format_data or []
+            vals.append(fd[i] if i < len(fd) else "")
+        parsed[name] = _parse_value(v, vals, tag)
+    return parsed
 
 
 def snp(v: Vcf) -> bool:

@@ -9,7 +9,7 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 31 tools, imports none of them
+lists and dispatches exactly the port's 37 tools, imports none of them
 before dispatch, and its ``gsw align`` wants the card; ``pyproject.toml``
 installs it as ``gonomics-torch``; no new module imports JAX.
 """
@@ -53,18 +53,26 @@ from gonomics_tpu_torch.cli import mergesort as tmergesort
 from gonomics_tpu_torch.cli import pileup_cmd as tpileup
 from gonomics_tpu_torch.cli import sam_consensus as tcons
 from gonomics_tpu_torch.cli import sam_to_bed as tbed
+from gonomics_tpu_torch.cli import bed_format as tbed_format
+from gonomics_tpu_torch.cli import multi_fa_to_vcf as tmulti_fa_to_vcf
+from gonomics_tpu_torch.cli import vcf_filter as tvcf_filter
+from gonomics_tpu_torch.cli import vcf_format as tvcf_format
+from gonomics_tpu_torch.cli import vcf_info as tvcf_info
+from gonomics_tpu_torch.cli import vcf_to_fa as tvcf_to_fa
+from gonomics_tpu_torch.io import fasta as tfasta
 
 from test_torch_card import _variant_inputs, _write_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORTED = ["assemblyStats", "bedMerge", "bedToAminoAcid", "bedToFasta",
-          "bedToWig", "callVariants", "catMultiFa", "cigarToBed",
-          "countPairOfBases", "digestGenome", "faBin", "faFilter",
-          "faFindFast", "faFormat", "faInfo", "faToPredictSet", "faUniq",
-          "findAndReplace", "gcContent", "globalAlignment", "gsw",
-          "intervalOverlap", "locateCG", "mergesort", "mouseRecon", "pileup",
-          "prcompFormat", "primateRecon", "reconstructSeq", "samConsensus",
-          "samToBed"]
+PORTED = ["assemblyStats", "bedFormat", "bedMerge", "bedToAminoAcid",
+          "bedToFasta", "bedToWig", "callVariants", "catMultiFa",
+          "cigarToBed", "countPairOfBases", "digestGenome", "faBin",
+          "faFilter", "faFindFast", "faFormat", "faInfo", "faToPredictSet",
+          "faUniq", "findAndReplace", "gcContent", "globalAlignment", "gsw",
+          "intervalOverlap", "locateCG", "mergesort", "mouseRecon",
+          "multiFaToVcf", "pileup", "prcompFormat", "primateRecon",
+          "reconstructSeq", "samConsensus", "samToBed", "vcfFilter",
+          "vcfFormat", "vcfInfo", "vcfToFa"]
 
 
 def _edge_sam(genome) -> str:
@@ -221,7 +229,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 31 ported tools, each a key of
+    """help (and no argument) lists the 37 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -239,8 +247,9 @@ def test_umbrella_unknown_tool_exits():
     for mod in (umbrella, jmain):
         with pytest.raises(SystemExit, match="unknown command: noSuchTool"):
             mod.main(["noSuchTool"])
-    with pytest.raises(SystemExit, match="unknown command: vcfFormat"):
-        umbrella.main(["vcfFormat", "x.vcf"])
+    with pytest.raises(SystemExit,
+                       match="unknown command: vcfEffectPrediction"):
+        umbrella.main(["vcfEffectPrediction", "x.vcf"])
 
 
 @pytest.mark.parametrize("tool", ["pileup", "samToBed", "samConsensus",
@@ -251,7 +260,9 @@ def test_umbrella_unknown_tool_exits():
                                   "digestGenome", "faToPredictSet",
                                   "prcompFormat", "findAndReplace",
                                   "bedToFasta", "bedToAminoAcid",
-                                  "reconstructSeq"])
+                                  "reconstructSeq", "vcfFormat", "vcfToFa",
+                                  "vcfFilter", "vcfInfo", "multiFaToVcf",
+                                  "bedFormat"])
 def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                                               tool):
     """A tool run through the umbrella writes what its own main writes."""
@@ -271,6 +282,15 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
     with open(aln) as fh:
         names = [ln[1:].strip() for ln in fh if ln.startswith(">")]
     tree.write_text(f"({names[0]}:0.1,{names[1]}:0.2)anc;")
+    chr_a = tfasta.to_map(tfasta.read(ref))["chrA"]
+    snvs = [(p, "ACGT"[chr_a[p - 1]], "ACGT"[(chr_a[p - 1] + 1) % 4])
+            for p in (10, 57, 200)]
+    vcf = tmp_path / "v.vcf"
+    vcf.write_text(
+        "##fileformat=VCFv4.2\n##INFO=<ID=DP,Number=1,Type=Integer,"
+        'Description="Depth">\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\t'
+        "INFO\n" + "".join(f"chrA\t{p}\t.\t{r}\t{a}\t30\tPASS\tDP={p}\n"
+                           for p, r, a in snvs))
     direct = {"pileup": tpileup.main, "samToBed": tbed.main,
               "samConsensus": tcons.main, "gsw": tgsw.main,
               "faFormat": tfa_format.main, "bedMerge": tbed_merge.main,
@@ -287,7 +307,11 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
               "findAndReplace": tfind_and_replace.main,
               "bedToFasta": tbed_to_fasta.main,
               "bedToAminoAcid": tbed_to_amino_acid.main,
-              "reconstructSeq": treconstruct_seq.main}[tool]
+              "reconstructSeq": treconstruct_seq.main,
+              "vcfFormat": tvcf_format.main, "vcfToFa": tvcf_to_fa.main,
+              "vcfFilter": tvcf_filter.main, "vcfInfo": tvcf_info.main,
+              "multiFaToVcf": tmulti_fa_to_vcf.main,
+              "bedFormat": tbed_format.main}[tool]
     out = {}
     for how in ("umbrella", "direct"):
         path = str(tmp_path / how)
@@ -317,7 +341,14 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                 "findAndReplace": [beds, str(pairs), path, "-column", "0"],
                 "bedToFasta": [ref, beds, path, "-revComp"],
                 "bedToAminoAcid": [beds, ref, path],
-                "reconstructSeq": [str(tree), aln, path]}[tool]
+                "reconstructSeq": [str(tree), aln, path],
+                "vcfFormat": [str(vcf), path, "-csv"],
+                "vcfToFa": [str(vcf), ref, path, "-useAlt"],
+                "vcfFilter": [str(vcf), path, "-info", "DP>20"],
+                "vcfInfo": ["-i", str(vcf), "-types", path],
+                "multiFaToVcf": [aln, "chrA", path],
+                "bedFormat": [beds, path, "-evenPadLength", "5",
+                              "-chromSizeFile", str(sizes)]}[tool]
         if how == "umbrella":
             umbrella.main([tool, *args])
         else:
@@ -427,7 +458,13 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.bed_to_amino_acid,"
             " gonomics_tpu_torch.cli.reconstruct_seq,"
             " gonomics_tpu_torch.cli.primate_recon,"
-            " gonomics_tpu_torch.cli.mouse_recon\n"
+            " gonomics_tpu_torch.cli.mouse_recon,"
+            " gonomics_tpu_torch.cli.vcf_format,"
+            " gonomics_tpu_torch.cli.vcf_to_fa,"
+            " gonomics_tpu_torch.cli.vcf_filter,"
+            " gonomics_tpu_torch.cli.vcf_info,"
+            " gonomics_tpu_torch.cli.multi_fa_to_vcf,"
+            " gonomics_tpu_torch.cli.bed_format\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
