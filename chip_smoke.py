@@ -269,8 +269,18 @@ exits non-zero:
             and trinucleotide counts numpy's; a multiFaToVcf record with
             the query's base at each covered planted SNP the consensus
             carries, every REF the target's; a csv row a record;
-            vcfFormat's chroms 1 and 2; bedFormat's records numpy's. The
-            four kernels launched. Wall time of each step.
+            vcfFormat's chroms 1 and 2; bedFormat's records numpy's.
+            Then slices 11.5 and 11.6, each output against numpy's lines
+            from its inputs: bedFilter, bedSplit, bedShear, bedTrim,
+            bedMath, bedSimilarity, bedOverlapByWindow (the prefix sums
+            of the merged records' coverage), bedDistanceFromChrEnds,
+            bedMinimumDistanceName, bedValueWig (bedToWig's wig) and
+            bedGraphToWig on the reads, merged records and SNPs;
+            multiFaCount, multiFaScan (N planted at the chr1 SNPs),
+            multiFaExtract -bed, multiFaReduce -bedFilename,
+            multiFaSequenceSwap and mergeMultiFa on the chr1 alignment;
+            multiFaToChain of chr1 aligned by the chain, its blocks the
+            chain's. The four kernels launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -4070,16 +4080,18 @@ def host_tools_checks(f: dict, t_fa: str) -> dict:
         == fai.create_index(f["t60.fa"])}
 
 
+def bed_rows(path: str) -> list:
+    """The tab-split lines of a bed-like file."""
+    with open(path) as fh:
+        return [ln.rstrip("\n").split("\t") for ln in fh]
+
+
 def fasta_tools_checks(f: dict, t_fa: str, snps: dict, depth: dict) -> dict:
     """What the gates of phase_tools_cli's fasta-tool steps read from
     their files (f: the phase's file names; depth: {(chrom, 1-based
     position): pileup depth}), beside what numpy gives from the inputs."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.io import fasta
-
-    def rows(path):
-        with open(path) as fh:
-            return [ln.rstrip("\n").split("\t") for ln in fh]
 
     target = fasta.read(t_fa)
     seqs = {r.name: r.seq for r in target}
@@ -4094,7 +4106,7 @@ def fasta_tools_checks(f: dict, t_fa: str, snps: dict, depth: dict) -> dict:
            | (dna.to_upper(q) == dna.N))
     c_bad = np.concatenate(([0], np.cumsum(bad)))
     c_diff = np.concatenate(([0], np.cumsum(t != q)))
-    short = rows(f["ff.bed"])
+    short = bed_rows(f["ff.bed"])
     s = np.array([int(r[1]) for r in short], np.int64)
     e = np.array([int(r[2]) for r in short], np.int64)
     muts = np.array([int(r[4]) for r in short], np.int64)
@@ -4116,7 +4128,7 @@ def fasta_tools_checks(f: dict, t_fa: str, snps: dict, depth: dict) -> dict:
         "snp_windows_muts_min": int(muts[with_snp].min())
         if with_snp.any() else 0,
         "total_muts": int(muts.sum()),
-        "long_first_five_equal_short": [r[:5] for r in rows(
+        "long_first_five_equal_short": [r[:5] for r in bed_rows(
             f["ff_long.bed"])] == short}
 
     # assemblyStats and faInfo against numpy on the target's records
@@ -4139,10 +4151,10 @@ def fasta_tools_checks(f: dict, t_fa: str, snps: dict, depth: dict) -> dict:
         seq, minlength=dna.NUM_BASES)[order]] for name, seq in seqs.items()]
     total = np.sum([[int(x) for x in w[1:]] for w in want], axis=0)
     want.append(["total"] + [str(int(x)) for x in total])
-    out["fa_info_counts_equal"] = rows(f["info.txt"])[1:] == want
+    out["fa_info_counts_equal"] = bed_rows(f["info.txt"])[1:] == want
 
     # gcContent of the planted SNPs +- TOOLS_GC_FLANK
-    gc_rows = rows(f["gc.bed"])
+    gc_rows = bed_rows(f["gc.bed"])
     values = []
     for c, start, end, _ in gc_rows:
         up = dna.to_upper(seqs[c][int(start):int(end)])
@@ -4309,14 +4321,10 @@ def seq_recon_checks(f: dict, t_fa: str, meta: dict) -> dict:
     target = fasta_strings(t_fa)
     out = {}
 
-    def rows(path):
-        with open(path) as fh:
-            return [ln.rstrip("\n").split("\t") for ln in fh]
-
     # digestGenome MboI: the cut ends are the GATC sites in order, with
     # the fragment to the record's end where ``last`` fires, one window
     # before the final one
-    frags = rows(f["digest.bed"])
+    frags = bed_rows(f["digest.bed"])
     want, tiled, named = [], True, True
     gatc = np.frombuffer(b"GATC", np.uint8)
     for c, seq in target.items():
@@ -4348,7 +4356,7 @@ def seq_recon_checks(f: dict, t_fa: str, meta: dict) -> dict:
     comp = str.maketrans("ACGTacgtNn", "TGCAtgcaNn")
     got = fasta_strings(f["snps_rc.fa"])
     want = []
-    for c, s, e, name, _, strand in rows(f["snps_strand.bed"]):
+    for c, s, e, name, _, strand in bed_rows(f["snps_strand.bed"]):
         seq = target[c][int(s):int(e)]
         if strand == "-":
             want.append((name + "_RevComp", seq.translate(comp)[::-1]))
@@ -4371,7 +4379,7 @@ def seq_recon_checks(f: dict, t_fa: str, meta: dict) -> dict:
     out["bed_to_amino_acid"] = {"lines": len(aa), "equal_numpy": aa == names}
 
     # faToPredictSet: numpy's window count, each window upper-cased
-    lines = rows(f["predict.txt"])
+    lines = bed_rows(f["predict.txt"])
     want = [[f"{c}:{j}-{j + TOOLS_PREDICT_WINDOW}",
              seq[j:j + TOOLS_PREDICT_WINDOW].upper()]
             for c, seq in target.items()
@@ -4396,12 +4404,12 @@ def seq_recon_checks(f: dict, t_fa: str, meta: dict) -> dict:
     want += [(name + "".join(hot[int(x)] for x in row[keep])).split("\t")
              for name, row in zip(aln, m)]
     out["prcomp_format"] = {"variable_columns": int(keep.sum()),
-                            "equal_numpy": rows(f["prcomp.txt"]) == want}
+                            "equal_numpy": bed_rows(f["prcomp.txt"]) == want}
 
     # findAndReplace -column 0: the SNP bed with chr1 renamed
     want = [[("chrOne" if w[0] == "chr1" else w[0])] + w[1:]
-            for w in rows(f["snps.bed"])]
-    out["find_and_replace_equal"] = rows(f["renamed.bed"]) == want
+            for w in bed_rows(f["snps.bed"])]
+    out["find_and_replace_equal"] = bed_rows(f["renamed.bed"]) == want
 
     out["reconstruct_seq"] = ancestor_checks(
         f["recon_out.fa"], meta["recon_rows"], ["root", "tq", "ab"])
@@ -4510,6 +4518,293 @@ def vcf_tools_checks(f: dict, t_fa: str, snps: dict, depth: dict) -> dict:
     return out
 
 
+def wig_arrays(path: str, sizes: dict, default: float) -> dict:
+    """{chrom: float64 values} of a fixed-step wig of step 1, default
+    where it sets nothing."""
+    out = {c: np.full(n, default) for c, n in sizes.items()}
+    chrom = pos = None
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("fixedStep"):
+                kv = dict(x.split("=", 1) for x in line.split()[1:])
+                chrom, pos = kv["chrom"], int(kv["start"]) - 1
+            else:
+                out[chrom][pos] = float(line)
+                pos += 1
+    return out
+
+
+def go_g(x: float) -> str:
+    """Go's %g of a float64: the shortest text that reads back equal."""
+    s = repr(float(x))
+    return s[:-2] if s.endswith(".0") else s
+
+
+def merged_columns(ref_a: np.ndarray, ref_b: np.ndarray) -> tuple:
+    """mergeMultiFa's columns rebuilt from the gap positions of its two
+    reference rows (uint8 text, the same bases in both): for each merged
+    column, the column of A and of B it takes, -1 for a gap. Between two
+    bases the two rows' gap runs pair up as far as the shorter goes, the
+    longer's rest stands alone, then the base; after the last base only
+    the pairs."""
+    a_nz = np.flatnonzero(ref_a != ord("-"))
+    b_nz = np.flatnonzero(ref_b != ord("-"))
+    a0, b0 = np.concatenate([[0], a_nz + 1]), np.concatenate([[0], b_nz + 1])
+    ga = np.concatenate([a_nz, [len(ref_a)]]) - a0
+    gb = np.concatenate([b_nz, [len(ref_b)]]) - b0
+    pair, extra = np.minimum(ga, gb), np.abs(ga - gb)
+    extra[-1] = 0
+    length = pair + extra + (np.arange(len(ga)) < len(a_nz))
+    seg = np.repeat(np.arange(len(ga)), length)
+    off = np.arange(len(seg)) - np.repeat(np.cumsum(length) - length, length)
+    alone = (off >= pair[seg]) & (off < pair[seg] + extra[seg])
+    ia = np.where((off < pair[seg]) | (alone & (ga[seg] > gb[seg])),
+                  a0[seg] + off, -1)
+    ib = np.where((off < pair[seg]) | (alone & (gb[seg] > ga[seg])),
+                  b0[seg] + off, -1)
+    base = off == pair[seg] + extra[seg]
+    ia[base], ib[base] = a_nz[seg[base]], b_nz[seg[base]]
+    return ia, ib
+
+
+def bed_multifa_inputs(f: dict, t_fa: str, chain: str, snps: dict,
+                       meta: dict, seed: int = 2504) -> dict:
+    """The input files of phase_tools_cli's slice 11.5 and 11.6 steps,
+    written from the merged records, the planted SNPs, samConsensus's
+    chr1 alignment, the reconstruction rows and the chain's chr1 blocks
+    (f: the phase's file names). Returns what their gates need beside
+    those files."""
+    rng = np.random.default_rng(seed)
+    bm = {}
+    with open(f["num.bed"], "w") as fh:
+        fh.writelines(f"{c}\t{p - 1 - TOOLS_GC_FLANK}\t{p + TOOLS_GC_FLANK}\t"
+                      f"{p / 8}\n" for c in snps for p, _, _ in snps[c])
+    merged = bed_rows(f["merged.bed"])
+    with open(f["merged.bedGraph"], "w") as fh:
+        fh.writelines(f"{c}\t{s}\t{e}\t{i % 9 + 0.5}\n"
+                      for i, (c, s, e, *_) in enumerate(merged))
+    # bedMinimumDistanceName: a 10-base record a SNP, within 500 bases of
+    # it, named after its snps_strand.bed record
+    sizes = dict(TOOLS_SIZES)
+    with open(f["snps_near.bed"], "w") as fh:
+        for i, (c, p) in enumerate((c, p) for c in snps
+                                   for p, _, _ in snps[c]):
+            s = min(max(p - 1 + int(rng.integers(-500, 501)), 0),
+                    sizes[c] - 10)
+            fh.write(f"{c}\t{s}\t{s + 10}\tsnp{i}\n")
+    n1 = sizes["chr1"]
+    # the last region ends a base short of chr1's end: the column of the
+    # end base itself is where the reference's walk runs out
+    bm["extract_regions"] = [(1000, 2000), (50_000, 52_500),
+                             (n1 - 777, n1 - 1)]
+    with open(f["extract.bed"], "w") as fh:
+        fh.writelines(f"chr1\t{s}\t{e}\n" for s, e in bm["extract_regions"])
+    # multiFaScan: the chr1 alignment with N in the query row at the
+    # planted chr1 SNPs' columns
+    (t_name, t_row), (q_name, q_row) = fasta_strings(
+        os.path.join(f["multi"], "chr1.fa")).items()
+    cols = np.flatnonzero(np.frombuffer(t_row.encode(), np.uint8)
+                          != ord("-"))
+    q = np.frombuffer(q_row.encode(), np.uint8).copy()
+    q[cols[[p - 1 for p, _, _ in snps["chr1"]]]] = ord("N")
+    write_fasta_strings(f["chr1_n.fa"], [(t_name, t_row),
+                                         (q_name, q.tobytes().decode())])
+    # mergeMultiFa: the reconstruction's target row (three blocks of
+    # all-gap columns inserted) and its two mutants
+    write_fasta_strings(f["merge_b.fa"], [(t_name, meta["recon_rows"][0][1])]
+                        + meta["recon_rows"][2:])
+    # multiFaToChain: chr1's target and query aligned by the chain's
+    # blocks (an insertion or a deletion of the query between two)
+    with open(chain) as fh:
+        text = fh.read().split("\n\n")[0].splitlines()
+    bm["chain_head"], bm["chain_blocks"] = text[0].split(), text[1:]
+    seqs = [fasta_strings(t_fa)["chr1"], fasta_strings(f["q.fa"])["chr1"]]
+    rows, ti, qi = ["", ""], 0, 0
+    for block in bm["chain_blocks"]:
+        size, dt, dq = (list(map(int, block.split("\t"))) + [0, 0])[:3]
+        rows[0] += seqs[0][ti:ti + size + dt] + "-" * dq
+        rows[1] += seqs[1][qi:qi + size] + "-" * dt \
+            + seqs[1][qi + size:qi + size + dq]
+        ti, qi = ti + size + dt, qi + size + dq
+    write_fasta_strings(f["pair.fa"], [("chr1", rows[0]),
+                                       ("chr1q", rows[1])])
+    bm["pair_rows_whole"] = (ti, qi) == (len(seqs[0]), len(seqs[1]))
+    return bm
+
+
+def bed_multifa_checks(f: dict, t_fa: str, snps: dict, meta: dict,
+                       bm: dict) -> dict:
+    """What the gates of phase_tools_cli's slice 11.5 and 11.6 steps read
+    from their files, each beside what numpy gives from the inputs (bm:
+    what bed_multifa_inputs returned); none of these tools' modules is
+    imported. Each entry holds the lines (or count) it compared and
+    whether they equal numpy's."""
+    sizes = dict(TOOLS_SIZES)
+    target = fasta_strings(t_fa)
+    out = {}
+
+    def entry(got, want, n=None):
+        return {"lines": len(want) if n is None else n,
+                "equal_numpy": got == want}
+
+    aln = bed_rows(f["aln.bed"])
+    out["bed_filter"] = entry(bed_rows(f["filt.bed"]), [
+        r for r in aln if r[0] == "chr1" and int(r[2]) - int(r[1]) >= 100])
+    split = {n: bed_rows(os.path.join(f["split"], n))
+             for n in sorted(os.listdir(f["split"]))}
+    out["bed_split"] = entry(split, {
+        f"{c}.bed": [r for r in aln if r[0] == c] for c in sorted(sizes)},
+        n=len(aln))
+    merged = bed_rows(f["merged.bed"])
+    out["bed_shear"] = entry(bed_rows(f["shear.bed"]), [
+        [c, str(s), str(min(s + 50, int(e))), *rest]
+        for c, s0, e, *rest in merged for s in range(int(s0), int(e), 50)])
+    trimmed = []
+    for c, s, e, *rest in aln:
+        s, e = int(s), int(e)
+        rm = int(np.floor((e - s) * 0.2 + 0.5))
+        s, e = s + rm // 2 + rm % 2, e - rm // 2
+        if e > s:
+            trimmed.append([c, str(s), str(e), *rest])
+    out["bed_trim"] = entry(bed_rows(f["trim.bed"]), trimmed)
+
+    # the merged records' coverage a chrom, and the planted SNPs under it
+    cover = {}
+    for c, n in sizes.items():
+        d = np.zeros(n + 1, np.int64)
+        for cc, s, e, *_ in merged:
+            if cc == c:
+                d[int(s)] += 1
+                d[int(e)] -= 1
+        cover[c] = np.cumsum(d[:-1])
+    snp_at = [(c, p) for c in snps for p, _, _ in snps[c]]
+    hit = sum(bool(cover[c][p - 1]) for c, p in snp_at)
+    by_chrom = {c: np.array(sorted(p for cc, p in snp_at if cc == c))
+                for c in sizes}
+    with_snp = sum(bool(((by_chrom[c] > int(s))
+                         & (by_chrom[c] <= int(e))).any())
+                   for c, s, e, *_ in merged)
+    with open(f["sim.txt"]) as fh:
+        sim = fh.read().splitlines()
+    pa, pb = with_snp / len(merged), hit / len(snp_at)
+    out["bed_similarity"] = entry(
+        sim[1:], [f"{pa:f}\t{pb:f}\t{(pa + pb) / 2:f}"], n=hit)
+
+    want = []
+    for c, n in sizes.items():
+        csum = np.concatenate([[0], np.cumsum(np.concatenate(
+            [cover[c], np.zeros(TOOLS_WINDOW, np.int64)]))])
+        counts = csum[TOOLS_WINDOW:TOOLS_WINDOW + n] - csum[:n]
+        want += [[c, str(j), str(j + TOOLS_WINDOW), ".", str(v)]
+                 for j, v in enumerate(counts.tolist())]
+    out["bed_overlap_by_window"] = entry(bed_rows(f["win.bed"]), want)
+
+    snp_bed = bed_rows(f["snps.bed"])
+    out["bed_distance_from_chr_ends"] = entry(bed_rows(f["dist.bed"]), [
+        [c, s, e, "", str(min(sizes[c] - int(e), int(s)))]
+        for c, s, e in snp_bed])
+    genome = {r[3]: r for r in bed_rows(f["snps_strand.bed"])}
+    want = []
+    for c, s, e, name in bed_rows(f["snps_near.bed"]):
+        g = genome[name]
+        s, e, gs, ge = int(s), int(e), int(g[1]), int(g[2])
+        dist = 0 if max(s, gs) < min(e, ge) else (
+            gs - e + 1 if gs - e >= 0 else s - ge + 1)
+        up = s <= gs if g[5] == "+" else e >= ge
+        want.append([c, str(s), str(e), name, str(dist), "-" if up else "+"])
+    out["bed_minimum_distance_name"] = entry(bed_rows(f["mind.bed"]), want)
+    out["bed_math"] = entry(bed_rows(f["math.bed"]), [
+        [c, s, e, f"{2 * float(v):.8g}"]
+        for c, s, e, v in bed_rows(f["num.bed"])])
+    reads = wig_arrays(f["reads.wig"], sizes, np.finfo(np.float64).max)
+    out["bed_value_wig"] = entry(bed_rows(f["val.bed"]), [
+        [c, s, e, "", "0", ".", go_g(reads[c][int(s)])]
+        for c, s, e in snp_bed])
+    want = {c: np.zeros(n) for c, n in sizes.items()}
+    for c, s, e, v in bed_rows(f["merged.bedGraph"]):
+        want[c][int(s):int(e)] = float(v)
+    got = wig_arrays(f["bg.wig"], sizes, 0.0)
+    out["bed_graph_to_wig"] = entry(
+        all(np.array_equal(got[c], want[c]) for c in sizes), True,
+        n=int(sum((v != 0).sum() for v in want.values())))
+
+    # the multiFa tools, on samConsensus's chr1 alignment
+    (t_name, t_row), (q_name, q_row) = fasta_strings(
+        os.path.join(f["multi"], "chr1.fa")).items()
+    t_b = np.frombuffer(t_row.encode(), np.uint8)
+    q_b = np.frombuffer(q_row.encode(), np.uint8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(f["count.txt"]) as fh:
+        count = fh.read().splitlines()
+    present = int(np.isin(q_b, acgt).sum())
+    out["multi_fa_count"] = entry(count, [
+        "#querySequenceName\tpresentBaseCount", f"{q_name}\t{present}"],
+        n=present)
+    with open(f["count_both.txt"]) as fh:
+        both = int(fh.read().splitlines()[1].split("\t")[-1])
+    want = int((np.isin(q_b, acgt) & np.isin(t_b, acgt)).sum())
+    out["multi_fa_count_both"] = entry(both, want, n=want)
+    ref_pos = np.cumsum(t_b != ord("-")) - (t_b != ord("-"))
+    n_cols = np.flatnonzero(np.frombuffer(
+        fasta_strings(f["chr1_n.fa"])[q_name].encode(), np.uint8) == ord("N"))
+    out["multi_fa_scan"] = entry(bed_rows(f["scan.bed"]), [
+        ["chr1", str(ref_pos[c]), str(ref_pos[c] + 1), t_name]
+        for c in n_cols])
+    extracted = {}
+    for s, e in bm["extract_regions"]:
+        path = os.path.join(f["extract"], f"chr1.{s}.{e}.fa")
+        extracted[(s, e)] = fasta_strings(path).get(t_name) \
+            if os.path.exists(path) else None
+    out["multi_fa_extract"] = entry(extracted, {
+        (s, e): target["chr1"][s:e] for s, e in bm["extract_regions"]})
+
+    cols = np.flatnonzero(t_b != q_b)
+    out["multi_fa_reduce"] = entry(
+        (fasta_strings(f["red.fa"]), bed_rows(f["red.bed"])),
+        ({t_name: t_b[cols].tobytes().decode(),
+          q_name: q_b[cols].tobytes().decode()},
+         [["chr1", str(ref_pos[i]), str(ref_pos[i] + 1),
+           f"{t_row[i]}_{q_row[i]}", str(i)] for i in cols]),
+        n=len(cols))
+    # multiFaSequenceSwap: the query row with the target's bases in the
+    # columns whose reference position is a planted chr1 SNP's
+    swap = np.isin(ref_pos, [p - 1 for p, _, _ in snps["chr1"]])
+    want = q_b.copy()
+    want[swap] = t_b[swap]
+    out["multi_fa_sequence_swap"] = entry(
+        list(fasta_strings(f["swap.fa"]).items()),
+        [(t_name, t_row), (q_name, q_row),
+         (f"{q_name}.swapped", want.tobytes().decode())],
+        n=int(swap.sum()))
+
+    # mergeMultiFa of the chr1 alignment (A) with the reconstruction's
+    # target row and its mutants (B)
+    b_rows = [np.frombuffer(r.encode(), np.uint8)
+              for _, r in [meta["recon_rows"][0]] + meta["recon_rows"][2:]]
+    ia, ib = merged_columns(t_b, b_rows[0])
+
+    def gather(row, idx):
+        return np.where(idx < 0, ord("-"), row[np.maximum(idx, 0)]
+                        ).astype(np.uint8).tobytes().decode()
+
+    out["merge_multi_fa"] = entry(
+        list(fasta_strings(f["merged.fa"]).items()),
+        [(t_name, gather(t_b, ia)), (q_name, gather(q_b, ia))]
+        + [(n, gather(r, ib)) for (n, _), r in
+           zip(meta["recon_rows"][2:], b_rows[1:])],
+        n=len(ia))
+
+    with open(f["pair.chain"]) as fh:
+        lines = fh.read().split("\n")
+    n_t, n_q = int(bm["chain_head"][3]), int(bm["chain_head"][8])
+    out["multi_fa_to_chain"] = entry(
+        (lines[0], lines[1:-3], lines[-3:], bm["pair_rows_whole"]),
+        (f"chain 100 chr1 {n_t} + 0 {n_t} chr1q {n_q} + 0 {n_q} 1",
+         bm["chain_blocks"][:-1], [bm["chain_blocks"][-1], "", ""], True),
+        n=len(bm["chain_blocks"]))
+    return out
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -4569,7 +4864,32 @@ def phase_tools_cli(dev: torch.device) -> dict:
     raises without ``-clearInfo`` on ggtools' INFO, and on multiFaToVcf's
     FORMAT ".", in the JAX too: neither is a header key);
     ``bedFormat -UCSCToEnsembl -evenPadLength 10`` of the SNP bed, gated
-    on numpy's renamed, padded and clipped records."""
+    on numpy's renamed, padded and clipped records. (9) Slice 11.5's bed
+    tools and (10) slice 11.6's multiFa tools (``bed_multifa_inputs``
+    writes their inputs, ``bed_multifa_checks`` reads their files and
+    imports none of these tools' modules; each gate is numpy's lines from
+    the inputs): ``bedFilter -minLength 100 -chrom chr1`` and ``bedSplit
+    byChrom`` of samToBed's records; ``bedShear -fragmentSize 50``
+    of the merged records; ``bedTrim -trimPercent 20`` of samToBed's;
+    ``bedMath add`` of a numeric-named bed of the SNPs +- TOOLS_GC_FLANK
+    with itself; ``bedSimilarity`` of the merged records against the SNP
+    bed; ``bedOverlapByWindow -windowSize
+    TOOLS_WINDOW`` of the merged records, gated on the prefix sums of
+    their coverage; ``bedDistanceFromChrEnds`` of the SNP bed;
+    ``bedMinimumDistanceName`` of a named record near each SNP against
+    ``snps_strand.bed``; ``bedValueWig`` of the SNP bed on bedToWig's
+    wig, gated on the wig's values; ``bedGraphToWig`` of a bedGraph of
+    the merged records; ``multiFaCount`` (alone and ``-both``),
+    ``multiFaExtract -bed -removeGaps`` (into a directory of its own,
+    the working directory restored after), ``multiFaReduce
+    -bedFilename`` and ``multiFaSequenceSwap`` (the query row with the
+    target's bases at the chr1 SNPs) of the chr1 alignment;
+    ``multiFaScan`` of that alignment with N planted in the query row at
+    the chr1 SNPs; ``mergeMultiFa`` of it with the reconstruction's
+    target row and mutants, gated on the rows that ``merged_columns``
+    rebuilds from the two target rows' gaps; ``multiFaToChain`` of chr1's target and
+    query aligned by the chain, gated on its blocks being chr1's blocks
+    in ``t_q.chain``."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -4603,7 +4923,12 @@ def phase_tools_cli(dev: torch.device) -> dict:
             "recon_sub.fa", "primates.fa", "primates.nh", "hca.fa", "hga.fa",
             "rodents.fa", "rodents.nh", "mra.fa", "snv.vcf", "alt.fa",
             "types.txt", "context.txt", "multi.vcf", "snv.csv", "ens.vcf",
-            "snps_pad.bed")}
+            "snps_pad.bed", "q.fa", "filt.bed", "split", "shear.bed",
+            "trim.bed", "sim.txt", "win.bed", "dist.bed", "snps_near.bed",
+            "mind.bed", "num.bed", "math.bed", "val.bed", "merged.bedGraph",
+            "bg.wig", "count.txt", "count_both.txt", "chr1_n.fa",
+            "scan.bed", "extract", "extract.bed", "red.fa", "red.bed",
+            "swap.fa", "merge_b.fa", "merged.fa", "pair.fa", "pair.chain")}
         for fmt in ("axt", "vcf", "gg"):
             step(f"ggtools_chain_to_{fmt}", "gsw", "ggtools", chain, "-t",
                  t_fa, "-q", q_fa, "-f", fmt, "-o", f["c." + fmt])
@@ -4738,6 +5063,51 @@ def phase_tools_cli(dev: torch.device) -> dict:
              "-UCSCToEnsembl", "-evenPadLength", "10", "-chromSizeFile",
              f["t.sizes"])
 
+        bm = bed_multifa_inputs(f, t_fa, chain, snps, meta)
+        step("bedFilter", "bedFilter", f["aln.bed"], f["filt.bed"],
+             "-minLength", "100", "-chrom", "chr1")
+        step("bedSplit", "bedSplit", "byChrom", f["aln.bed"], f["split"])
+        step("bedShear", "bedShear", f["merged.bed"], f["shear.bed"],
+             "-fragmentSize", "50")
+        step("bedTrim", "bedTrim", "-trimPercent", "20", f["aln.bed"],
+             f["trim.bed"])
+        step("bedSimilarity", "bedSimilarity", f["merged.bed"], f["snps.bed"],
+             f["sim.txt"])
+        step("bedOverlapByWindow", "bedOverlapByWindow", f["merged.bed"],
+             f["t.sizes"], f["win.bed"], "-windowSize", str(TOOLS_WINDOW))
+        step("bedDistanceFromChrEnds", "bedDistanceFromChrEnds",
+             f["snps.bed"], f["t.sizes"], f["dist.bed"])
+        step("bedMinimumDistanceName", "bedMinimumDistanceName",
+             f["snps_near.bed"], f["snps_strand.bed"], f["mind.bed"])
+        step("bedMath", "bedMath", f["num.bed"], "add", f["num.bed"],
+             f["math.bed"])
+        step("bedValueWig", "bedValueWig", f["snps.bed"], f["reads.wig"],
+             f["t.sizes"], f["val.bed"])
+        step("bedGraphToWig", "bedGraphToWig", f["merged.bedGraph"],
+             f["t.sizes"], f["bg.wig"])
+        step("multiFaCount", "multiFaCount", "Query", aln[0], f["count.txt"])
+        step("multiFaCount_both", "multiFaCount", "Query", aln[0],
+             f["count_both.txt"], "-both", "-secondQueryName", "Target")
+        step("multiFaScan", "multiFaScan", "--queryName", "Query", "--chrom",
+             "chr1", f["chr1_n.fa"], f["scan.bed"])
+        # multiFaExtract -bed writes into the working directory
+        os.mkdir(f["extract"])
+        cwd = os.getcwd()
+        os.chdir(f["extract"])
+        try:
+            step("multiFaExtract", "multiFaExtract", aln[0], "-bed",
+                 f["extract.bed"], "-removeGaps")
+        finally:
+            os.chdir(cwd)
+        step("multiFaReduce", "multiFaReduce", aln[0], f["red.fa"],
+             "-bedFilename", f["red.bed"], "-chrom", "chr1")
+        step("multiFaSequenceSwap", "multiFaSequenceSwap", aln[0],
+             f["snps.bed"], "Query", "Target", "chr1", f["swap.fa"])
+        step("mergeMultiFa", "mergeMultiFa", aln[0], f["merge_b.fa"],
+             f["merged.fa"])
+        step("multiFaToChain", "multiFaToChain", f["pair.fa"], "chr1",
+             "chr1q", f["pair.chain"])
+
         rows = {}
         with open(f["pileup.txt"]) as fh:
             for line in fh:
@@ -4778,6 +5148,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["fasta_tools"] = fasta_tools_checks(f, t_fa, snps, depth)
         out["seq_recon_tools"] = seq_recon_checks(f, t_fa, meta)
         out["vcf_tools"] = vcf_tools_checks(f, t_fa, snps, depth)
+        out["bed_multifa_tools"] = bed_multifa_checks(f, t_fa, snps, meta, bm)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -4842,6 +5213,13 @@ def phase_tools_cli(dev: torch.device) -> dict:
               and vf["ensembl_rest_equal"]
               and vt["bed_format"]["lines"] == len(planted)
               and vt["bed_format"]["equal_numpy"])
+    bmt = out["bed_multifa_tools"]
+    bed_multifa_ok = (all(v["equal_numpy"] and v["lines"] > 0
+                          for v in bmt.values())
+                      and bmt["multi_fa_scan"]["lines"]
+                      == len(snps["chr1"])
+                      and bmt["bed_distance_from_chr_ends"]["lines"]
+                      == len(planted))
     host_ok = (h["mergesort_mapped_equal_sorted"]
                and h["mergesort_header_equal_input"]
                and h["merged_bases"] == c["pileup_rows"]
@@ -4850,7 +5228,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
                and h["overlap_lines"] == c["covered_planted_snps"]
                and h["fa_lower_bases"] == len(planted)
                and h["fa_upper_equals_target"] and h["fai_equals_index"])
-    if not (host_ok and fasta_ok and seq_ok and vcf_ok
+    if not (host_ok and fasta_ok and seq_ok and vcf_ok and bed_multifa_ok
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

@@ -100,6 +100,49 @@ COMMANDS = {
                      "VCF from a pairwise multiFa alignment (host)"),
     "bedFormat": ("gonomics_tpu_torch.cli.bed_format",
                   "Options alter bed formatting (host)"),
+    "bedFilter": ("gonomics_tpu_torch.cli.bed_filter",
+                  "Filter bed records by score/length/position/name "
+                  "(host)"),
+    "bedMath": ("gonomics_tpu_torch.cli.bed_math",
+                "Arithmetic on float values in bed files (host)"),
+    "bedSplit": ("gonomics_tpu_torch.cli.bed_split",
+                 "Partition a bed by name or chrom (host)"),
+    "bedShear": ("gonomics_tpu_torch.cli.bed_shear",
+                 "Split bed entries into fragments (host)"),
+    "bedSimilarity": ("gonomics_tpu_torch.cli.bed_similarity",
+                      "Overlap-proportion statistics between bed files "
+                      "(host)"),
+    "bedOverlapByWindow": ("gonomics_tpu_torch.cli.bed_overlap_by_window",
+                           "Count bp in bed regions per window (host)"),
+    "bedDistanceFromChrEnds": (
+        "gonomics_tpu_torch.cli.bed_distance_from_chr_ends",
+        "Score = min distance to chromosome end (host)"),
+    "bedMinimumDistanceName": (
+        "gonomics_tpu_torch.cli.bed_minimum_distance_name",
+        "Min distance between name-matched beds (host)"),
+    "bedTrim": ("gonomics_tpu_torch.cli.bed_trim",
+                "Trim bed records by N percent, split across both sides "
+                "(host)"),
+    "bedValueWig": ("gonomics_tpu_torch.cli.bed_value_wig",
+                    "Annotate beds with wig max/min/average (host)"),
+    "bedGraphToWig": ("gonomics_tpu_torch.cli.bed_graph_to_wig",
+                      "Convert bedGraph to wig (host)"),
+    "multiFaCount": ("gonomics_tpu_torch.cli.multi_fa_count",
+                     "Count present bases in multiFa sequences (host)"),
+    "multiFaExtract": ("gonomics_tpu_torch.cli.multi_fa_extract",
+                       "Pull sub-sequence from a multiFa alignment (host)"),
+    "multiFaReduce": ("gonomics_tpu_torch.cli.multi_fa_reduce",
+                      "Keep only variable multiFa columns (host)"),
+    "mergeMultiFa": ("gonomics_tpu_torch.cli.merge_multi_fa",
+                     "Merge two multiFa files on a shared reference "
+                     "(host)"),
+    "multiFaSequenceSwap": ("gonomics_tpu_torch.cli.multi_fa_sequence_swap",
+                            "Swap bed regions between multiFa sequences "
+                            "(host)"),
+    "multiFaScan": ("gonomics_tpu_torch.cli.multi_fa_scan",
+                    "Bed spans of N bases in a multiFa sequence (host)"),
+    "multiFaToChain": ("gonomics_tpu_torch.cli.multi_fa_to_chain",
+                       "Pairwise multiFa alignment to UCSC chain (host)"),
 }
 
 

@@ -1,10 +1,11 @@
 """BED records, reading, writing and the region algebra: the parts of
 ``gonomics_tpu/io/bed.py`` that ``cigarToBed``, ``samToBed``,
 ``faFormat``, ``bedMerge``, ``bedToWig``, ``intervalOverlap``,
-``mergesort`` and ``bedFormat`` use, with the strand constants that
-bedToFasta reads (``POSITIVE``, ``NEGATIVE``, ``NONE`` :14, ``Bed`` :18,
-``process_bed_line`` :45, ``read`` :60, ``write_to_handle`` :64,
-``write`` :68, ``sort_by_coord`` :85, ``overlap`` :93,
+``mergesort``, ``bedFormat`` and the bed tools use, with the strand
+constants that bedToFasta reads (``POSITIVE``, ``NEGATIVE``, ``NONE``
+:14, ``Bed`` :18, ``process_bed_line`` :45, ``read`` :60,
+``write_to_handle`` :64, ``write`` :68, ``compare`` :74,
+``sort_by_coord`` :85, ``overlap`` :93,
 ``minimum_distance`` :111, ``merge_high_mem`` :122), and the
 ``to_midpoint`` and ``to_tss`` trims (:179-195) that bedFormat uses.
 Field-count-aware formatting matches gonomics' ``bed.ToString``."""
@@ -77,6 +78,18 @@ def write(filename: str, records: list[Bed]) -> None:
     with fileio.easy_create(filename) as f:
         for b in records:
             write_to_handle(f, b)
+
+
+def compare(a: Bed, b: Bed) -> int:
+    """-1, 0 or 1 as a sorts before, with or after b: by chrom (as
+    strings), then start, then end (bed.Compare, compare.go:160)."""
+    if a.chrom != b.chrom:
+        return -1 if a.chrom < b.chrom else 1
+    if a.chrom_start != b.chrom_start:
+        return -1 if a.chrom_start < b.chrom_start else 1
+    if a.chrom_end != b.chrom_end:
+        return -1 if a.chrom_end < b.chrom_end else 1
+    return 0
 
 
 def sort_by_coord(records: list[Bed]) -> None:

@@ -3,10 +3,15 @@ statistics: the subset of ``gonomics_tpu/io/fasta.py`` that the read
 aligner, the ``gsw`` CLI, ``samConsensus`` and the fasta tools use
 (``_parse`` :34, ``read`` :57, ``read_forced`` :67, ``to_map`` :73,
 ``write_fasta`` :86, ``write`` :95, ``ref_pos_to_aln_pos`` and
-``ref_pos_to_aln_pos_counter`` :105-126, ``aln_pos_to_ref_pos_counter``
-:133, ``make_contig_list``, ``calculate_n50_l50``, ``assembly_stats``
-and ``write_assembly_stats`` :157-219, ``bin_genome_no_breaks``
-:312-350)."""
+``ref_pos_to_aln_pos_counter`` :105-126, ``aln_pos_to_ref_pos`` :127,
+``aln_pos_to_ref_pos_counter`` :133, ``make_contig_list``,
+``calculate_n50_l50``, ``assembly_stats`` and ``write_assembly_stats``
+:157-219), the multiFa helpers of the multiFa tools (``copy``,
+``extract``, ``remove_gaps``, ``find_sequence_index`` :221-255,
+``_present``, ``scan_n``, ``scan_present_base``,
+``scan_present_base_both``, ``scan_present_base_either`` :258-296,
+``segregating_columns`` and ``segregating_sites_fasta`` :299-310) and
+``bin_genome_no_breaks`` (:312-350)."""
 
 from __future__ import annotations
 
@@ -113,6 +118,12 @@ def ref_pos_to_aln_pos_counter(record: Fasta, ref_pos: int,
     return aln_start + 1 + idx
 
 
+def aln_pos_to_ref_pos(record: Fasta, aln_pos: int) -> int:
+    """The reference position of the base at alignment column aln_pos:
+    the non-gap columns before it (multiFa.go:84)."""
+    return aln_pos_to_ref_pos_counter(record, aln_pos, 0, 0)
+
+
 def aln_pos_to_ref_pos_counter(record: Fasta, aln_pos: int,
                                ref_start: int, aln_start: int) -> int:
     """The reference position of alignment column aln_pos: ref_start plus
@@ -185,6 +196,94 @@ def write_assembly_stats(name: str, outfile: str, n50: int, l50: int,
         f.write(f"Largest Contig: {largest}\n")
         f.write(f"N50: {n50}\n")
         f.write(f"L50: {l50}\n")
+
+
+def copy(rec: Fasta) -> Fasta:
+    """A record with its own copy of the sequence (modify.go:55)."""
+    return Fasta(rec.name, np.array(rec.seq, dtype=np.int8, copy=True))
+
+
+def extract(rec: Fasta, start: int, end: int, name: str) -> Fasta:
+    """Columns [start, end) of rec under name (fasta.go:184)."""
+    return Fasta(name, np.asarray(rec.seq)[start:end])
+
+
+def remove_gaps(records: list[Fasta]) -> list[Fasta]:
+    """records with their gaps taken out, in place (modify.go:15)."""
+    for r in records:
+        s = np.asarray(r.seq)
+        r.seq = s[s != dna.GAP]
+    return records
+
+
+def find_sequence_index(records: list[Fasta], query_name: str) -> int:
+    """The index of the record named query_name; ValueError on a name
+    used twice, exit on one not found (multiFa.go:441)."""
+    idx: dict[str, int] = {}
+    for i, r in enumerate(records):
+        if r.name in idx:
+            raise ValueError(f"{r.name} used for multiple fasta records. "
+                             "record names must be unique.")
+        idx[r.name] = i
+    if query_name not in idx:
+        raise SystemExit(f"queryName {query_name} not found in fasta "
+                         "records.")
+    return idx[query_name]
+
+
+def _present(seq: np.ndarray) -> np.ndarray:
+    return np.asarray(seq) <= dna.T  # upper-case A, C, G, T are 0..3
+
+
+def scan_n(records: list[Fasta], query_name: str) -> list[tuple[int, int]]:
+    """The upper-case N of the query record, each as a one-base [start,
+    end) span in reference (records[0]) coordinates (multiFa.go:353)."""
+    query = np.asarray(records[find_sequence_index(records, query_name)].seq)
+    out: list[tuple[int, int]] = []
+    last_ref = last_aln = 0
+    for i in np.flatnonzero(query == dna.N):
+        start = aln_pos_to_ref_pos_counter(records[0], int(i),
+                                           last_ref, last_aln)
+        last_ref, last_aln = start, int(i)
+        out.append((start, start + 1))
+    return out
+
+
+def scan_present_base(records: list[Fasta], query: str) -> int:
+    """The query's upper-case A, C, G and T (multiFa.go:376)."""
+    return int(_present(records[find_sequence_index(records, query)].seq)
+               .sum())
+
+
+def scan_present_base_both(records: list[Fasta], q1: str, q2: str) -> int:
+    """The columns where both queries hold a present base
+    (multiFa.go:394)."""
+    a = _present(records[find_sequence_index(records, q1)].seq)
+    b = _present(records[find_sequence_index(records, q2)].seq)
+    return int((a & b).sum())
+
+
+def scan_present_base_either(records: list[Fasta], q1: str, q2: str,
+                             q3: str) -> int:
+    """The columns where any of three queries holds a present base
+    (multiFa.go:415)."""
+    a = _present(records[find_sequence_index(records, q1)].seq)
+    b = _present(records[find_sequence_index(records, q2)].seq)
+    c = _present(records[find_sequence_index(records, q3)].seq)
+    return int((a | b | c).sum())
+
+
+def segregating_columns(records: list[Fasta]) -> np.ndarray:
+    """The columns where any record differs from the first, gaps and N
+    included (fasta.IsSegregating, multiFa.go:179)."""
+    mat = np.stack([np.asarray(r.seq) for r in records])
+    return np.nonzero((mat != mat[0]).any(axis=0))[0]
+
+
+def segregating_sites_fasta(records: list[Fasta]) -> list[Fasta]:
+    """records cut to their segregating columns (multiFa.go:211)."""
+    cols = segregating_columns(records)
+    return [Fasta(r.name, np.asarray(r.seq)[cols]) for r in records]
 
 
 def bin_genome_no_breaks(genome: list[Fasta], bin_num: int,

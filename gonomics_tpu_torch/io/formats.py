@@ -4,8 +4,9 @@ that they reach (``Axt`` :22, ``read_axt_with_header`` :48, ``read_axt``
 :60, ``_parse_axt_lines`` :64, ``axt_to_string`` :82, ``_axt_info``,
 ``_b2s_upper`` and ``axt_to_vcf`` :159-254, ``chain_to_axt`` :255,
 ``is_chain_file`` :291, ``is_axt_file`` :296, ``BaseStats`` and ``Chain``
-:343-365, ``read_chain`` :366). PSL, genePred, MAF and GTF are not
-ported."""
+:343-365, ``read_chain`` :366), and the chain writer of multiFaToChain
+(``chain_to_string`` and ``write_chain`` :394-413). PSL, genePred, MAF
+and GTF are not ported."""
 
 from __future__ import annotations
 
@@ -259,3 +260,27 @@ def read_chain(filename: str) -> tuple[list[Chain], list[str]]:
                     cur.alignment.append(BaseStats(int(w[0]), int(w[1]),
                                                    int(w[2])))
     return chains, comments
+
+
+def chain_to_string(c: Chain) -> str:
+    """The chain's header line and its blocks, the last block its size
+    alone (chain.ToString)."""
+    ts = "+" if c.t_strand else "-"
+    qs = "+" if c.q_strand else "-"
+    s = (f"chain {c.score} {c.t_name} {c.t_size} {ts} {c.t_start} "
+         f"{c.t_end} {c.q_name} {c.q_size} {qs} {c.q_start} {c.q_end} "
+         f"{c.id}\n")
+    for a in c.alignment[:-1]:
+        s += f"{a.size}\t{a.t_bases}\t{a.q_bases}\n"
+    s += f"{c.alignment[-1].size}\n"
+    return s
+
+
+def write_chain(filename: str, chains: list[Chain],
+                comments: list[str] | None = None) -> None:
+    """The comments, then each chain followed by a blank line."""
+    with fileio.easy_create(filename) as f:
+        for cm in comments or []:
+            f.write(cm + "\n")
+        for c in chains:
+            f.write(chain_to_string(c) + "\n")

@@ -9,7 +9,7 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 37 tools, imports none of them
+lists and dispatches exactly the port's 55 tools, imports none of them
 before dispatch, and its ``gsw align`` wants the card; ``pyproject.toml``
 installs it as ``gonomics-torch``; no new module imports JAX.
 """
@@ -53,7 +53,9 @@ from gonomics_tpu_torch.cli import mergesort as tmergesort
 from gonomics_tpu_torch.cli import pileup_cmd as tpileup
 from gonomics_tpu_torch.cli import sam_consensus as tcons
 from gonomics_tpu_torch.cli import sam_to_bed as tbed
+from gonomics_tpu_torch.cli import bed_filter as tbed_filter
 from gonomics_tpu_torch.cli import bed_format as tbed_format
+from gonomics_tpu_torch.cli import multi_fa_to_chain as tmulti_fa_to_chain
 from gonomics_tpu_torch.cli import multi_fa_to_vcf as tmulti_fa_to_vcf
 from gonomics_tpu_torch.cli import vcf_filter as tvcf_filter
 from gonomics_tpu_torch.cli import vcf_format as tvcf_format
@@ -64,15 +66,20 @@ from gonomics_tpu_torch.io import fasta as tfasta
 from test_torch_card import _variant_inputs, _write_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORTED = ["assemblyStats", "bedFormat", "bedMerge", "bedToAminoAcid",
-          "bedToFasta", "bedToWig", "callVariants", "catMultiFa",
-          "cigarToBed", "countPairOfBases", "digestGenome", "faBin",
-          "faFilter", "faFindFast", "faFormat", "faInfo", "faToPredictSet",
-          "faUniq", "findAndReplace", "gcContent", "globalAlignment", "gsw",
-          "intervalOverlap", "locateCG", "mergesort", "mouseRecon",
-          "multiFaToVcf", "pileup", "prcompFormat", "primateRecon",
-          "reconstructSeq", "samConsensus", "samToBed", "vcfFilter",
-          "vcfFormat", "vcfInfo", "vcfToFa"]
+PORTED = ["assemblyStats", "bedDistanceFromChrEnds", "bedFilter",
+          "bedFormat", "bedGraphToWig", "bedMath", "bedMerge",
+          "bedMinimumDistanceName", "bedOverlapByWindow", "bedShear",
+          "bedSimilarity", "bedSplit", "bedToAminoAcid", "bedToFasta",
+          "bedToWig", "bedTrim", "bedValueWig", "callVariants",
+          "catMultiFa", "cigarToBed", "countPairOfBases", "digestGenome",
+          "faBin", "faFilter", "faFindFast", "faFormat", "faInfo",
+          "faToPredictSet", "faUniq", "findAndReplace", "gcContent",
+          "globalAlignment", "gsw", "intervalOverlap", "locateCG",
+          "mergeMultiFa", "mergesort", "mouseRecon", "multiFaCount",
+          "multiFaExtract", "multiFaReduce", "multiFaScan",
+          "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf", "pileup",
+          "prcompFormat", "primateRecon", "reconstructSeq", "samConsensus",
+          "samToBed", "vcfFilter", "vcfFormat", "vcfInfo", "vcfToFa"]
 
 
 def _edge_sam(genome) -> str:
@@ -229,7 +236,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 37 ported tools, each a key of
+    """help (and no argument) lists the 55 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -262,7 +269,8 @@ def test_umbrella_unknown_tool_exits():
                                   "bedToFasta", "bedToAminoAcid",
                                   "reconstructSeq", "vcfFormat", "vcfToFa",
                                   "vcfFilter", "vcfInfo", "multiFaToVcf",
-                                  "bedFormat"])
+                                  "bedFormat", "bedFilter",
+                                  "multiFaToChain"])
 def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                                               tool):
     """A tool run through the umbrella writes what its own main writes."""
@@ -311,7 +319,9 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
               "vcfFormat": tvcf_format.main, "vcfToFa": tvcf_to_fa.main,
               "vcfFilter": tvcf_filter.main, "vcfInfo": tvcf_info.main,
               "multiFaToVcf": tmulti_fa_to_vcf.main,
-              "bedFormat": tbed_format.main}[tool]
+              "bedFormat": tbed_format.main,
+              "bedFilter": tbed_filter.main,
+              "multiFaToChain": tmulti_fa_to_chain.main}[tool]
     out = {}
     for how in ("umbrella", "direct"):
         path = str(tmp_path / how)
@@ -348,7 +358,10 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                 "vcfInfo": ["-i", str(vcf), "-types", path],
                 "multiFaToVcf": [aln, "chrA", path],
                 "bedFormat": [beds, path, "-evenPadLength", "5",
-                              "-chromSizeFile", str(sizes)]}[tool]
+                              "-chromSizeFile", str(sizes)],
+                "bedFilter": [beds, path, "-minLength", "30", "-chrom",
+                              "chrA"],
+                "multiFaToChain": [aln, "chrA", "cons", path]}[tool]
         if how == "umbrella":
             umbrella.main([tool, *args])
         else:
@@ -464,7 +477,26 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.vcf_filter,"
             " gonomics_tpu_torch.cli.vcf_info,"
             " gonomics_tpu_torch.cli.multi_fa_to_vcf,"
-            " gonomics_tpu_torch.cli.bed_format\n"
+            " gonomics_tpu_torch.cli.bed_format,"
+            " gonomics_tpu_torch.io.bed_graph, gonomics_tpu_torch.io.bed,"
+            " gonomics_tpu_torch.cli.bed_filter,"
+            " gonomics_tpu_torch.cli.bed_math,"
+            " gonomics_tpu_torch.cli.bed_split,"
+            " gonomics_tpu_torch.cli.bed_shear,"
+            " gonomics_tpu_torch.cli.bed_trim,"
+            " gonomics_tpu_torch.cli.bed_distance_from_chr_ends,"
+            " gonomics_tpu_torch.cli.bed_minimum_distance_name,"
+            " gonomics_tpu_torch.cli.bed_similarity,"
+            " gonomics_tpu_torch.cli.bed_overlap_by_window,"
+            " gonomics_tpu_torch.cli.bed_value_wig,"
+            " gonomics_tpu_torch.cli.bed_graph_to_wig,"
+            " gonomics_tpu_torch.cli.multi_fa_count,"
+            " gonomics_tpu_torch.cli.multi_fa_scan,"
+            " gonomics_tpu_torch.cli.multi_fa_extract,"
+            " gonomics_tpu_torch.cli.multi_fa_reduce,"
+            " gonomics_tpu_torch.cli.merge_multi_fa,"
+            " gonomics_tpu_torch.cli.multi_fa_sequence_swap,"
+            " gonomics_tpu_torch.cli.multi_fa_to_chain\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
