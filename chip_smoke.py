@@ -476,7 +476,8 @@ TOOLS_SNP_EVERY, TOOLS_INDEL_EVERY, TOOLS_SNP_GAP = 1000, 20_000, 50
 TOOLS_GRAPH_READS, TOOLS_CPU_READS, TOOLS_DEPTH = 2000, 400, 10
 TOOLS_SORT_CHUNK = 4096  # mergesort's records a chunk: ~5 chunks spilled
 TOOLS_WINDOW, TOOLS_GC_FLANK = 1000, 50  # faFindFast's window; gcContent's
-# faToPredictSet's window and stride; bedToAminoAcid's regions of chr1
+# faToPredictSet's (and wigTools toTrainingSet's) window and stride;
+# bedToAminoAcid's regions of chr1
 TOOLS_PREDICT_WINDOW, TOOLS_PREDICT_STRIDE, TOOLS_AA_REGIONS = 400, 1000, 200
 # the ancestral reconstructions' trees (reconstructSeq's leaves: the chr1
 # alignment's two rows and two mutants of its target row; primateRecon's
@@ -488,6 +489,12 @@ TOOLS_PRIMATE_TREE = ("(((hg38:0.0065,(panTro6:0.0027,panPan2:0.0027)pan:"
                       "ponAbe3:0.018)root;")
 TOOLS_MOUSE_TREE = ("(((mm10:0.02,rn7:0.03)mra:0.05,criGriChoV2:0.06)mrh:"
                     "0.02,speTri2:0.1)root;")
+# slice 11.7a and wigTools: every TOOLS_FQ_EVERY-th read listed for
+# fastqFilter, which keeps a seeded TOOLS_FQ_SUBSET of the reads; every
+# TOOLS_BAM_EVERY-th planted SNP +- TOOLS_BAM_FLANK as a region of
+# bedCountBam and samInfo mapq -bedfile; wigTools peaks' threshold
+TOOLS_FQ_EVERY, TOOLS_FQ_SUBSET, TOOLS_FQ_SEED = 7, 0.5, 11
+TOOLS_BAM_EVERY, TOOLS_BAM_FLANK, TOOLS_PEAK = 8, 300, 15
 # the standard code in TCAG order, and the three-letter names
 CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
 AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
@@ -4805,6 +4812,429 @@ def bed_multifa_checks(f: dict, t_fa: str, snps: dict, meta: dict,
     return out
 
 
+def write_bai(bam: str, path: str) -> dict:
+    """A BAI index of a coordinate-sorted BAM, written to path, as the SAM
+    spec (section 5.2) builds one: each BGZF block inflated in turn, its
+    compressed offset noted, so that a record's start and end in the
+    stream become virtual offsets (coffset << 16 | uoffset); a record
+    joins the bin its own ``bin`` field names, as one chunk, merged with
+    that bin's last chunk where they touch; each 16 kbp window of a
+    reference takes the smallest start of the records overlapping it, a
+    window with none its predecessor's (the reference's first start before
+    any); records with no reference count as no-coordinate reads. The
+    repository has no BAI writer: this one is held against the JAX
+    package's ``read_bai`` and seek by tests/test_torch_sam_tools.py.
+    Returns {"refs": references, "records": mapped records,
+    "no_coord": no-coordinate reads}."""
+    import struct
+    import zlib
+
+    with open(bam, "rb") as fh:
+        raw = fh.read()
+    coffs, ustarts, blocks, off, u = [], [], [], 0, 0
+    while off < len(raw):
+        xlen = struct.unpack_from("<H", raw, off + 10)[0]
+        i, bsize = off + 12, None
+        while i < off + 12 + xlen:
+            slen = struct.unpack_from("<H", raw, i + 2)[0]
+            if raw[i:i + 2] == b"BC":
+                bsize = struct.unpack_from("<H", raw, i + 4)[0] + 1
+            i += 4 + slen
+        data = zlib.decompress(raw[off + 12 + xlen:off + bsize - 8], -15)
+        if data:
+            coffs.append(off)
+            ustarts.append(u)
+            blocks.append(data)
+        u, off = u + len(data), off + bsize
+    stream, starts = b"".join(blocks), np.array(ustarts, np.int64)
+
+    def voff(x: int) -> int:
+        b = int(np.searchsorted(starts, x, side="right")) - 1
+        return coffs[b] << 16 | (x - ustarts[b])
+
+    l_text = struct.unpack_from("<I", stream, 4)[0]
+    pos = 8 + l_text
+    n_ref = struct.unpack_from("<I", stream, pos)[0]
+    pos += 4
+    for _ in range(n_ref):
+        pos += 8 + struct.unpack_from("<I", stream, pos)[0]
+    bins = [{} for _ in range(n_ref)]
+    windows = [{} for _ in range(n_ref)]
+    mapped = no_coord = 0
+    while pos + 4 <= len(stream):
+        blk = struct.unpack_from("<I", stream, pos)[0]
+        ref_id, start, l_name, _, bin_id, n_cig = struct.unpack_from(
+            "<iiBBHH", stream, pos + 4)
+        cigar = struct.unpack_from(f"<{n_cig}I", stream, pos + 36 + l_name)
+        ref_len = sum(c >> 4 for c in cigar if (c & 0xF) in (0, 2, 3, 7, 8))
+        beg, end = voff(pos), voff(pos + 4 + blk)
+        pos += 4 + blk
+        if ref_id < 0:
+            no_coord += 1
+            continue
+        mapped += 1
+        chunks = bins[ref_id].setdefault(bin_id, [])
+        if chunks and chunks[-1][1] == beg:
+            chunks[-1][1] = end
+        else:
+            chunks.append([beg, end])
+        last = start + max(ref_len, 1) - 1
+        for w in range(start >> 14, (last >> 14) + 1):
+            windows[ref_id][w] = min(windows[ref_id].get(w, beg), beg)
+    out = bytearray(b"BAI\x01" + struct.pack("<I", n_ref))
+    for ref_bins, ref_windows in zip(bins, windows):
+        out += struct.pack("<I", len(ref_bins))
+        for bin_id in sorted(ref_bins):
+            chunks = ref_bins[bin_id]
+            out += struct.pack("<II", bin_id, len(chunks))
+            out += b"".join(struct.pack("<QQ", a, b) for a, b in chunks)
+        n_win = max(ref_windows, default=-1) + 1
+        offsets = []
+        for w in range(n_win):
+            offsets.append(ref_windows.get(w, offsets[-1] if offsets else
+                                           min(ref_windows.values())))
+        out += struct.pack(f"<I{n_win}Q", n_win, *offsets)
+    out += struct.pack("<Q", no_coord)
+    with open(path, "wb") as fh:
+        fh.write(bytes(out))
+    return {"refs": n_ref, "records": mapped, "no_coord": no_coord}
+
+
+def fastq_records(path: str) -> list:
+    """(name, sequence, quality) of each record of a FASTQ file."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    return list(zip([n[1:] for n in lines[0::4]], lines[1::4], lines[3::4]))
+
+
+def sam_rows(path: str) -> list:
+    """The tab-split alignment lines of a SAM file."""
+    with open(path) as fh:
+        return [ln.rstrip("\n").split("\t") for ln in fh
+                if not ln.startswith("@")]
+
+
+def ref_span(row) -> tuple:
+    """A SAM row's (0-based start, end) on its reference, and its M runs
+    as (start, end) pairs."""
+    pos, runs, ms = int(row[3]) - 1, re.findall(r"(\d+)([MIDNSHP=X])",
+                                                row[5]), []
+    for n, op in runs:
+        if op == "M":
+            ms.append((pos, pos + int(n)))
+        if op in "MDN=X":
+            pos += int(n)
+    return int(row[3]) - 1, pos, ms
+
+
+def bam_payload(path: str) -> tuple:
+    """A BAM's header text and, for each record, (name, flag, {tag: value})
+    of its i and Z tags, read with gzip and struct alone."""
+    import gzip
+    import struct
+
+    with open(path, "rb") as fh:
+        data = gzip.decompress(fh.read())
+    l_text = struct.unpack_from("<I", data, 4)[0]
+    text = data[8:8 + l_text].decode()
+    off = 8 + l_text
+    n_ref = struct.unpack_from("<I", data, off)[0]
+    off += 4
+    for _ in range(n_ref):
+        off += 8 + struct.unpack_from("<I", data, off)[0]
+    records = []
+    while off + 4 <= len(data):
+        blk = struct.unpack_from("<I", data, off)[0]
+        l_name, _, _, n_cig, flag, l_seq = struct.unpack_from(
+            "<BBHHHI", data, off + 12)
+        name = data[off + 36:off + 35 + l_name].decode()
+        t = off + 36 + l_name + 4 * n_cig + (l_seq + 1) // 2 + l_seq
+        end, tags = off + 4 + blk, {}
+        while t < end:
+            tag, typ = data[t:t + 2].decode(), chr(data[t + 2])
+            if typ == "Z":
+                stop = data.index(0, t + 3)
+                tags[tag] = data[t + 3:stop].decode()
+                t = stop + 1
+            else:
+                size = {"c": 1, "C": 1, "A": 1, "s": 2, "S": 2}.get(typ, 4)
+                fmt = {"c": "<b", "C": "<B", "s": "<h", "S": "<H",
+                       "i": "<i", "I": "<I"}.get(typ)
+                tags[tag] = (struct.unpack_from(fmt, data, t + 3)[0]
+                             if fmt else None)
+                t += 3 + size
+        records.append((name, flag, tags))
+        off = end
+    return text, records
+
+
+def sam_wig_steps(step, f: dict, t_fa: str, snps: dict, times: dict) -> dict:
+    """The steps of slice 11.7a and wigTools in phase_tools_cli, with the
+    inputs they need, on the phase's r.fq, aln.sam, s.sam, t.sizes,
+    reads.wig, bg.wig, planted SNPs and target (f: the phase's file
+    names; step: its umbrella runner; the .bai's wall goes into times).
+    Returns what sam_wig_checks needs beside the files."""
+    reads = fastq_records(f["r.fq"])
+    sw = {"listed": [n for n, _, _ in reads[::TOOLS_FQ_EVERY]]}
+    with open(f["names.txt"], "w") as fh:
+        fh.writelines(n + "\n" for n in sw["listed"])
+    step("fastqFilter", "fastqFilter", f["r.fq"], f["fq_filt.fq"],
+         "-minSize", "100", "-subSet", str(TOOLS_FQ_SUBSET), "-setSeed",
+         str(TOOLS_FQ_SEED), "-retainNamesList", f["names.txt"])
+    step("fastqFormat", "fastqFormat", "-pairedEnd", "-singleCell",
+         f["r.fq"], f["r.fq"], f["fmt1.fq"], f["fmt2.fq"])
+    sw["pairs"] = [(seq[:8], seq[:8][::-1]) for _, seq, _ in reads[::700]]
+    with open(f["replace.tsv"], "w") as fh:
+        fh.writelines(f"{a}\t{b}\n" for a, b in sw["pairs"])
+    step("fastqReplaceSeq", "fastqReplaceSeq", f["r.fq"], f["replace.tsv"],
+         f["replaced.fq"])
+    step("longReadLibStats", "longReadLibStats", f["r.fq"], f["lrs.txt"],
+         "-readLengths", f["lens.txt"])
+
+    step("samInfo_readLength", "samInfo", "readLength", f["s.sam"],
+         f["rl.txt"])
+    step("samInfo_coverage", "samInfo", "coverage", f["s.sam"],
+         f["cov_hist.txt"], f["cov_stats.txt"])
+    step("samInfo_mapq", "samInfo", "mapq", f["s.sam"], f["mapq.txt"])
+    step("samToWig", "samToWig", f["s.sam"], f["t.sizes"], f["cov.wig"])
+    step("mergesort_bam", "mergesort", f["aln.sam"], f["sorted.bam"])
+    t = time.perf_counter()
+    sw["bai"] = write_bai(f["sorted.bam"], f["sorted.bam"] + ".bai")
+    times["write_bai"] = time.perf_counter() - t
+    sw["regions"] = [(c, max(p - 1 - TOOLS_BAM_FLANK, 0), p + TOOLS_BAM_FLANK)
+                     for c in snps for p, _, _ in snps[c][::TOOLS_BAM_EVERY]]
+    with open(f["regions.bed"], "w") as fh:
+        fh.writelines(f"{c}\t{s}\t{e}\tsnp{i}\n"
+                      for i, (c, s, e) in enumerate(sw["regions"]))
+    step("bedCountBam", "bedCountBam", f["sorted.bam"], f["regions.bed"],
+         f["bcb.txt"])
+    step("samInfo_mapq_bedfile", "samInfo", "mapq", f["sorted.bam"],
+         f["mapq_bed.txt"], "-bedfile", f["regions.bed"])
+    scores = [r[11][5:] for r in sam_rows(f["s.sam"]) if len(r) > 11]
+    values, counts = np.unique(scores, return_counts=True)
+    sw["as_values"] = values[np.argsort(-counts, kind="stable")[:3]].tolist()
+    with open(f["as.txt"], "w") as fh:
+        fh.writelines(v + "\n" for v in sw["as_values"])
+    step("bamTagToReadGroup", "bamTagToReadGroup", "-i", f["sorted.bam"],
+         "-o", f["rg.bam"], "-tagId", "AS", "-tagValues", f["as.txt"])
+
+    step("wigTools_filter", "wigTools", "filter", f["reads.wig"],
+         f["t.sizes"], f["wf.wig"], "-chrom", "chr1")
+    step("wigTools_peaks", "wigTools", "peaks", f["cov.wig"], f["t.sizes"],
+         f["peaks.bed"], "-threshold", str(TOOLS_PEAK))
+    step("wigTools_subtract", "wigTools", "math", f["cov.wig"], f["t.sizes"],
+         f["sub.wig"], "-elementWiseSubtract", f["bg.wig"])
+    step("wigTools_smooth", "wigTools", "math", f["cov.wig"], f["t.sizes"],
+         f["smooth.wig"], "-movingAverageSmoothing", "5")
+    step("wigTools_pearson", "wigTools", "math", f["cov.wig"], f["t.sizes"],
+         f["pcc.txt"], "-pearson", f["bg.wig"], "-sampleFrequency", "1")
+    with open(f["nogap.bed"], "w") as fh:
+        fh.writelines(f"{c}\t0\t{n}\n" for c, n in TOOLS_SIZES)
+    step("wigTools_stats", "wigTools", "stats", f["cov.wig"], f["t.sizes"],
+         f["nogap.bed"], f["wstats.txt"])
+    step("wigTools_toTrainingSet", "wigTools", "toTrainingSet", f["cov.wig"],
+         t_fa, f["train.txt"], f["val.txt"], f["test.txt"], "-windowSize",
+         str(TOOLS_PREDICT_WINDOW), "-stride", str(TOOLS_PREDICT_STRIDE),
+         "-setSeed", "3", "-missing", "0")
+    return sw
+
+
+def sam_wig_checks(f: dict, t_fa: str, sw: dict) -> dict:
+    """What the gates of phase_tools_cli's slice 11.7a and wigTools steps
+    read from their files, each beside what numpy and plain Python give
+    from the steps' inputs (sw: what sam_wig_steps returned); none of
+    these tools' modules is imported. Each entry holds the lines (or
+    count) it compared and whether they equal numpy's."""
+    sizes = dict(TOOLS_SIZES)
+    out = {}
+
+    def entry(got, want, n=None):
+        return {"lines": len(want) if n is None else n,
+                "equal_numpy": got == want}
+
+    reads = fastq_records(f["r.fq"])
+    listed = set(sw["listed"])
+    draws = np.random.default_rng(TOOLS_FQ_SEED).random(len(reads))
+    out["fastq_filter"] = entry(
+        [n for n, _, _ in fastq_records(f["fq_filt.fq"])],
+        [n for (n, _, _), d in zip(reads, draws)
+         if d <= TOOLS_FQ_SUBSET and n in listed])
+    out["fastq_format"] = entry(
+        (fastq_records(f["fmt1.fq"]), fastq_records(f["fmt2.fq"])),
+        ([(f"{n}_UMI:{s[16:28]}_BX:{s[:16]}", s[28:], q[28:])
+          for n, s, q in reads],
+         [(f"{n}_UMI:{s[16:28]}_BX:{s[:16]}", s, q) for n, s, q in reads]),
+        n=len(reads))
+    replaced, want = 0, []
+    for n, s, q in reads:
+        for a, b in sw["pairs"]:
+            if s.startswith(a):
+                s, replaced = b + s[len(a):], replaced + 1
+                break
+        want.append((n, s, q))
+    out["fastq_replace_seq"] = entry(fastq_records(f["replaced.fq"]), want)
+    out["fastq_replace_seq"]["replaced"] = replaced
+    lens = sorted(len(s) for _, s, _ in reads)
+    n50 = lens[int(np.searchsorted(np.cumsum(lens), sum(lens) // 2))]
+    with open(f["lrs.txt"]) as fh, open(f["lens.txt"]) as fl:
+        out["long_read_lib_stats"] = entry(
+            (fh.read(), fl.read().split()),
+            (f"Total number of reads: {len(reads)}\nN50: {n50}\n",
+             [str(len(s)) for _, s, _ in reads]), n=len(reads))
+
+    rows = sam_rows(f["s.sam"])
+    mapped = [r for r in rows if not int(r[1]) & 4]
+    hist = np.bincount([len(r[9]) if r[9] != "*" else 0 for r in rows])
+    want = np.zeros(max(200, len(hist)), np.int64)
+    want[:len(hist)] += hist
+    out["sam_info_read_length"] = entry(
+        bed_rows(f["rl.txt"]), [["ReadLength", "Count"]]
+        + [[str(i), str(c)] for i, c in enumerate(want)])
+    # coverage: a covered position's depth is its M bases; its rows past
+    # numpy's histogram must be zero
+    depth = {c: np.zeros(n + 1, np.int64) for c, n in sizes.items()}
+    spans = {c: np.zeros(n + 1, np.int64) for c, n in sizes.items()}
+    mapped_spans = [(r, *ref_span(r)) for r in mapped]
+    for r, start, end, ms in mapped_spans:
+        np.add.at(spans[r[2]], [start, end], [1, -1])
+        for a, b in ms:
+            np.add.at(depth[r[2]], [a, b], [1, -1])
+    covered = np.concatenate([np.cumsum(depth[c])[np.cumsum(spans[c]) > 0]
+                              for c in sizes])
+    emp = [(int(i), int(n)) for i, n, g, _ in bed_rows(f["cov_hist.txt"])[1:]
+           if g == "Empirical"]
+    want = np.bincount(covered)
+    with open(f["cov_stats.txt"]) as fh:
+        lam = float(fh.readline().split("\t")[1])
+    out["sam_info_coverage"] = entry(
+        ([n for _, n in emp[:len(want)]], sum(n for _, n in emp[len(want):]),
+         [i for i, _ in emp] == list(range(len(emp))), lam),
+        (want.tolist(), 0, True, int(covered.sum()) / len(covered)),
+        n=len(emp))
+    mq = np.bincount([int(r[4]) for r in mapped], minlength=61)
+    out["sam_info_mapq"] = entry(bed_rows(f["mapq.txt"]),
+                                 [["mapQ", "count"]]
+                                 + [[str(i), str(c)] for i, c in
+                                    enumerate(mq)])
+    cov = {c: np.cumsum(spans[c])[:-1].astype(np.float64) for c in sizes}
+    out["sam_to_wig"] = entry(
+        {c: v.tolist() for c, v in wig_arrays(f["cov.wig"], sizes,
+                                              0.0).items()},
+        {c: v.tolist() for c, v in cov.items()}, n=len(covered))
+
+    aln = sam_rows(f["aln.sam"])
+    n_unmapped = sum(int(r[1]) & 4 > 0 for r in aln)
+    out["bai"] = {**sw["bai"], "lines": sw["bai"]["records"],
+                  "equal_numpy": sw["bai"] == {
+        "refs": len(sizes), "records": len(aln) - n_unmapped,
+        "no_coord": n_unmapped}}
+    hits, mq_bed = [], np.zeros(61, np.int64)
+    for c, s, e in sw["regions"]:
+        names = set()
+        for r, start, end, _ in mapped_spans:
+            if r[2] == c and start < e and end > s:
+                names.add((r[0], int(r[1]) & 64))
+                mq_bed[int(r[4])] += 1
+        hits.append(len(names))
+    out["bed_count_bam"] = entry(
+        bed_rows(f["bcb.txt"]), [["bedRegion", "counts"]]
+        + [[f"snp{i}", str(n)] for i, n in enumerate(hits)])
+    out["bed_count_bam"]["reads"] = sum(hits)
+    out["sam_info_mapq_bedfile"] = entry(
+        bed_rows(f["mapq_bed.txt"]), [["mapQ", "count"]]
+        + [[str(i), str(c)] for i, c in enumerate(mq_bed)])
+    text, records = bam_payload(f["rg.bam"])
+    values = set(sw["as_values"])
+    out["bam_tag_to_read_group"] = entry(
+        ([ln for ln in text.split("\n") if ln.startswith("@RG")],
+         [t.get("RG") for _, _, t in records]),
+        ([f"@RG\tID:{v}\tSM:{v}\tLB:{v}" for v in sw["as_values"]],
+         [str(t["AS"]) if str(t.get("AS")) in values else None
+          for _, _, t in records]), n=len(records))
+    out["bam_tag_to_read_group"]["grouped"] = sum(
+        "RG" in t for _, _, t in records)
+
+    reads_wig = wig_arrays(f["reads.wig"], sizes, 0.0)
+    bg = wig_arrays(f["bg.wig"], sizes, 0.0)
+    out["wig_filter"] = entry(
+        {c: v.tolist() for c, v in wig_arrays(f["wf.wig"], sizes,
+                                              0.0).items()},
+        {c: (reads_wig[c] if c == "chr1" else 0 * reads_wig[c]).tolist()
+         for c in sizes}, n=int((reads_wig["chr1"] != 0).sum()))
+    peaks = []
+    for c in sorted(sizes):
+        hit = np.concatenate([[False], cov[c] >= TOOLS_PEAK, [False]])
+        edges = np.flatnonzero(hit[1:] != hit[:-1]).reshape(-1, 2)
+        # the skeleton's start of 1 shifts every peak a base right
+        peaks += [[c, str(a + 1), str(b + 1), "", str(int(cov[c][a:b].max()))]
+                  for a, b in edges]
+    out["wig_peaks"] = entry(bed_rows(f["peaks.bed"]), peaks)
+    out["wig_subtract"] = entry(
+        {c: v.tolist() for c, v in wig_arrays(f["sub.wig"], sizes,
+                                              0.0).items()},
+        {c: np.where((cov[c] != 0) & (bg[c] != 0), cov[c] - bg[c],
+                     0.0).tolist() for c in sizes},
+        n=sum(int(((cov[c] != 0) & (bg[c] != 0)).sum()) for c in sizes))
+    smooth = {}
+    for c in sizes:
+        win = np.lib.stride_tricks.sliding_window_view(cov[c], 5)[:-1]
+        v = np.zeros(len(cov[c]))
+        ok = (win != 0).all(axis=1)
+        v[np.flatnonzero(ok) + 2] = win[ok].sum(axis=1) / 5
+        smooth[c] = v.tolist()
+    out["wig_smooth"] = entry(
+        {c: v.tolist() for c, v in wig_arrays(f["smooth.wig"], sizes,
+                                              0.0).items()}, smooth,
+        n=sum(int((np.array(v) != 0).sum()) for v in smooth.values()))
+    keep = {c: (cov[c] != 0) & (bg[c] != 0) for c in sizes}
+    a = np.concatenate([cov[c][keep[c]] for c in sorted(sizes)])
+    b = np.concatenate([bg[c][keep[c]] for c in sorted(sizes)])
+    r = float(((a - a.mean()) * (b - b.mean())).sum()) / float(
+        np.sqrt(float(((a - a.mean()) ** 2).sum()))
+        * np.sqrt(float(((b - b.mean()) ** 2).sum())))
+    with open(f["pcc.txt"]) as fh:
+        pcc = float(fh.read().split("\t")[1])
+    out["wig_pearson"] = {"lines": len(a), "pcc": pcc, "numpy": r,
+                          "equal_numpy": abs(pcc - r) <= 5e-7}
+    values = np.concatenate([cov[c][cov[c] != 0] for c in sizes])
+    stat = np.bincount(values.astype(np.int64))
+    want = np.zeros(max(1000, len(stat)), np.int64)
+    want[:len(stat)] += stat
+    out["wig_stats"] = entry(bed_rows(f["wstats.txt"]),
+                             [["coverage", "count"]]
+                             + [[str(i), str(c)] for i, c in enumerate(want)])
+    # toTrainingSet: each entry of cov.wig from index 0, the target's bases
+    # from the chrom's start whatever the entry's start, a draw a window
+    target = fasta_strings(t_fa)
+    rng = np.random.default_rng(3)
+    shards = {"train": [], "val": [], "test": []}
+    entries = []
+    with open(f["cov.wig"]) as fh:
+        for line in fh:
+            if line.startswith("fixedStep"):
+                kv = dict(x.split("=", 1) for x in line.split()[1:])
+                entries.append((kv["chrom"], []))
+            else:
+                entries[-1][1].append(float(line))
+    for chrom, vals in entries:
+        for s in range(0, len(vals) - TOOLS_PREDICT_WINDOW,
+                       TOOLS_PREDICT_STRIDE):
+            mid = (2 * s + TOOLS_PREDICT_WINDOW) // 2
+            if vals[mid] == 0:  # -missing 0
+                continue
+            seq = target[chrom][s:s + TOOLS_PREDICT_WINDOW].upper()
+            line = [f"{chrom}:{s}-{s + TOOLS_PREDICT_WINDOW}", seq,
+                    go_g(vals[mid])]
+            x = rng.random()
+            shards["test" if x < 0.1 else "val" if x < 0.2
+                   else "train"].append(line)
+    out["wig_to_training_set"] = entry(
+        {k: bed_rows(f[k + ".txt"]) for k in shards},
+        {k: [["name", "seq", "value"]] + v for k, v in shards.items()},
+        n=sum(len(v) for v in shards.values()))
+    return out
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -4889,7 +5319,22 @@ def phase_tools_cli(dev: torch.device) -> dict:
     target row and mutants, gated on the rows that ``merged_columns``
     rebuilds from the two target rows' gaps; ``multiFaToChain`` of chr1's target and
     query aligned by the chain, gated on its blocks being chr1's blocks
-    in ``t_q.chain``."""
+    in ``t_q.chain``. (11) Slice 11.7a and wigTools (``sam_wig_steps``
+    writes their inputs and runs them, ``sam_wig_checks`` reads their
+    files and imports none of these tools' modules; each gate is what
+    numpy or plain Python gives from the inputs): ``fastqFilter`` of
+    r.fq with a seeded ``-subSet`` and a names list; ``fastqFormat
+    -pairedEnd -singleCell`` of r.fq as both mates; ``fastqReplaceSeq``
+    of a table of some reads' prefixes; ``longReadLibStats``; ``samInfo``
+    ``readLength``, ``coverage`` and ``mapq`` of the sorted SAM;
+    ``samToWig`` of it; ``mergesort`` of the aligner's SAM to a BAM, then
+    ``write_bai``'s index of it (gated on its counts); ``bedCountBam``
+    and ``samInfo mapq -bedfile`` of regions around every
+    TOOLS_BAM_EVERY-th SNP; ``bamTagToReadGroup -tagId AS`` with the
+    three commonest scores; ``wigTools filter -chrom chr1`` of bedToWig's
+    wig; ``peaks``, ``math -movingAverageSmoothing 5``,
+    ``-elementWiseSubtract`` and ``-pearson`` (against bedGraphToWig's
+    wig), ``stats`` and ``toTrainingSet`` of samToWig's wig."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -4928,7 +5373,13 @@ def phase_tools_cli(dev: torch.device) -> dict:
             "mind.bed", "num.bed", "math.bed", "val.bed", "merged.bedGraph",
             "bg.wig", "count.txt", "count_both.txt", "chr1_n.fa",
             "scan.bed", "extract", "extract.bed", "red.fa", "red.bed",
-            "swap.fa", "merge_b.fa", "merged.fa", "pair.fa", "pair.chain")}
+            "swap.fa", "merge_b.fa", "merged.fa", "pair.fa", "pair.chain",
+            "names.txt", "fq_filt.fq", "fmt1.fq", "fmt2.fq", "replace.tsv",
+            "replaced.fq", "lrs.txt", "lens.txt", "rl.txt", "cov_hist.txt",
+            "cov_stats.txt", "mapq.txt", "cov.wig", "sorted.bam",
+            "regions.bed", "bcb.txt", "mapq_bed.txt", "as.txt", "rg.bam",
+            "wf.wig", "peaks.bed", "sub.wig", "smooth.wig", "pcc.txt",
+            "nogap.bed", "wstats.txt", "train.txt", "val.txt", "test.txt")}
         for fmt in ("axt", "vcf", "gg"):
             step(f"ggtools_chain_to_{fmt}", "gsw", "ggtools", chain, "-t",
                  t_fa, "-q", q_fa, "-f", fmt, "-o", f["c." + fmt])
@@ -5107,6 +5558,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
              f["merged.fa"])
         step("multiFaToChain", "multiFaToChain", f["pair.fa"], "chr1",
              "chr1q", f["pair.chain"])
+        sw = sam_wig_steps(step, f, t_fa, snps, times)
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -5149,6 +5601,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["seq_recon_tools"] = seq_recon_checks(f, t_fa, meta)
         out["vcf_tools"] = vcf_tools_checks(f, t_fa, snps, depth)
         out["bed_multifa_tools"] = bed_multifa_checks(f, t_fa, snps, meta, bm)
+        out["sam_wig_tools"] = sam_wig_checks(f, t_fa, sw)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -5220,6 +5673,12 @@ def phase_tools_cli(dev: torch.device) -> dict:
                       == len(snps["chr1"])
                       and bmt["bed_distance_from_chr_ends"]["lines"]
                       == len(planted))
+    swt = out["sam_wig_tools"]
+    sam_wig_ok = (all(v["equal_numpy"] and v["lines"] > 0
+                      for v in swt.values())
+                  and swt["fastq_replace_seq"]["replaced"] >= len(sw["pairs"])
+                  and swt["bed_count_bam"]["reads"] > 0
+                  and swt["bam_tag_to_read_group"]["grouped"] > 0)
     host_ok = (h["mergesort_mapped_equal_sorted"]
                and h["mergesort_header_equal_input"]
                and h["merged_bases"] == c["pileup_rows"]
@@ -5229,6 +5688,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
                and h["fa_lower_bases"] == len(planted)
                and h["fa_upper_equals_target"] and h["fai_equals_index"])
     if not (host_ok and fasta_ok and seq_ok and vcf_ok and bed_multifa_ok
+            and sam_wig_ok
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

@@ -143,6 +143,27 @@ COMMANDS = {
                     "Bed spans of N bases in a multiFa sequence (host)"),
     "multiFaToChain": ("gonomics_tpu_torch.cli.multi_fa_to_chain",
                        "Pairwise multiFa alignment to UCSC chain (host)"),
+    "fastqFilter": ("gonomics_tpu_torch.cli.fastq_filter",
+                    "Filter fastq records by size/name/UMI/cell (host)"),
+    "fastqFormat": ("gonomics_tpu_torch.cli.fastq_format",
+                    "10x single-cell renaming of paired fastq reads "
+                    "(host)"),
+    "fastqReplaceSeq": ("gonomics_tpu_torch.cli.fastq_replace_seq",
+                        "Replace fastq read prefixes by a find/replace "
+                        "table (host)"),
+    "longReadLibStats": ("gonomics_tpu_torch.cli.long_read_lib_stats",
+                         "Read count and N50 of a long-read fastq (host)"),
+    "samInfo": ("gonomics_tpu_torch.cli.sam_info",
+                "Read-length, coverage and MAPQ histograms of a sam/bam "
+                "(host)"),
+    "samToWig": ("gonomics_tpu_torch.cli.sam_to_wig",
+                 "Read coverage of a sam/bam as wig (host)"),
+    "bedCountBam": ("gonomics_tpu_torch.cli.bed_count_bam",
+                    "Read counts in bed regions of an indexed bam (host)"),
+    "bamTagToReadGroup": ("gonomics_tpu_torch.cli.bam_tag_to_read_group",
+                          "Bam read groups from a tag's values (host)"),
+    "wigTools": ("gonomics_tpu_torch.cli.wig_tools",
+                 "Wig filter/peaks/math/stats/toTrainingSet (host)"),
 }
 
 

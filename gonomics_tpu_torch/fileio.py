@@ -1,6 +1,7 @@
 """File handles that read gzip transparently: the subset of
 ``gonomics_tpu/fileio.py`` that the readers, the ``gsw`` CLI and the
-motif reader use.
+motif reader use, with ``go_v`` (:184-187), which ``samInfo`` writes
+with.
 
 ``easy_open`` sniffs the gzip magic rather than the extension;
 ``easy_create`` gzips when the name ends in ``.gz``; ``"-"`` means stdin
@@ -56,3 +57,9 @@ def read(filename: str) -> list[str]:
     """Every non-comment line of a file (fileio.go:24)."""
     with easy_open(filename) as f:
         return [ln.rstrip("\n") for ln in f if not ln.startswith("#")]
+
+
+def go_v(x: float) -> str:
+    """Go's %v of a float64: the shortest text that reads back equal."""
+    s = repr(float(x))
+    return s[:-2] if s.endswith(".0") else s

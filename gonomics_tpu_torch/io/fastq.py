@@ -1,6 +1,8 @@
 """FASTQ records, reading and writing: the subset of
-``gonomics_tpu/io/fastq.py`` that the read aligners, the ``gsw`` CLI and
-``mergesort`` use (``write`` :106-110)."""
+``gonomics_tpu/io/fastq.py`` that the read aligners, the ``gsw`` CLI,
+``mergesort`` and the FASTQ tools use (``write`` :106-110, and the pair
+I/O ``write_pairs``, ``write_to_handle``, ``read_pairs`` and
+``to_single_cell_pair`` :113-148)."""
 
 from __future__ import annotations
 
@@ -99,5 +101,43 @@ def write(filename: str, records: list[Fastq]) -> None:
     """Each record as its four lines (fastq.py:106-110)."""
     with fileio.easy_create(filename) as f:
         for fq in records:
-            f.write(f"@{fq.name}\n{dna.to_string(fq.seq)}\n+\n"
-                    f"{qual_string(fq.qual)}\n")
+            write_to_handle(f, fq)
+
+
+def write_pairs(file_one: str, file_two: str,
+                records: list[tuple[Fastq, Fastq]]) -> None:
+    """The first mates to file_one, the second to file_two."""
+    write(file_one, [a for a, _ in records])
+    write(file_two, [b for _, b in records])
+
+
+def write_to_handle(f, fq: Fastq) -> None:
+    """One record's four lines to an open text handle."""
+    f.write(f"@{fq.name}\n{dna.to_string(fq.seq)}\n+\n"
+            f"{qual_string(fq.qual)}\n")
+
+
+def read_pairs(file_one: str, file_two: str) -> list[tuple[Fastq, Fastq]]:
+    """Both files of a read pair, record by record, each name cut at its
+    first space; ValueError where the files differ in read count."""
+    a, b = read(file_one), read(file_two)
+    if len(a) != len(b):
+        raise ValueError("paired fastq files have different read counts")
+    for fq in a + b:
+        fq.name = fq.name.split(" ")[0]
+    return list(zip(a, b))
+
+
+def to_single_cell_pair(fwd: Fastq, rev: Fastq, barcode_length: int,
+                        umi_length: int):
+    """A 10x pair renamed with its UMI and barcode, both taken off the
+    forward read's start: (trimmed fwd, rev, barcode, umi)."""
+    bx = np.array(fwd.seq[:barcode_length], copy=True)
+    umi = np.array(fwd.seq[barcode_length:barcode_length + umi_length],
+                   copy=True)
+    tag = f"_UMI:{dna.to_string(umi)}_BX:{dna.to_string(bx)}"
+    new_fwd = Fastq(fwd.name + tag,
+                    fwd.seq[barcode_length + umi_length:],
+                    fwd.qual[barcode_length + umi_length:])
+    new_rev = Fastq(rev.name + tag, rev.seq, rev.qual)
+    return new_fwd, new_rev, bx, umi

@@ -231,6 +231,19 @@ def decode_bam_record(mv, off: int, refs: list[ChromInfo]):
     return s, rec_end
 
 
+def get_chrom_start(s: Sam) -> int:
+    """The record's 0-based start."""
+    return s.pos - 1
+
+
+def get_chrom_end(s: Sam) -> int:
+    """The record's 0-based end: its start plus its cigar's reference
+    length, the start itself where it has no cigar."""
+    if not s.cigar or all(c.op == "*" for c in s.cigar):
+        return s.pos - 1
+    return s.pos - 1 + samcigar.reference_length(s.cigar)
+
+
 def read(filename: str):
     """(header, records) of a SAM or BAM file, sniffed by content."""
     if _is_bam(filename):
@@ -334,3 +347,46 @@ def _tags_to_text(raw: bytes) -> str:
                 _TAG_FMT[typ], raw, off)[0])
             off += _TAG_SIZES[typ]
     return "\t".join(parts)
+
+
+def parse_extra(s: Sam) -> None:
+    """A BAM record's raw tag bytes as its SAM text ``extra``, so that it
+    can be edited; the raw bytes are dropped."""
+    raw = getattr(s, "_raw_tags", None)
+    if raw is not None:
+        s.extra = _tags_to_text(raw)
+        s._raw_tags = None  # type: ignore[attr-defined]
+
+
+def remove_tag(s: Sam, tag_id: str) -> None:
+    """Drops the first tag named tag_id from ``extra``; a tag at the start
+    of ``extra`` is matched by its two letters alone."""
+    if len(tag_id) != 2:
+        raise ValueError("input tagId must be 2 characters")
+    if s.extra == "":
+        parse_extra(s)
+    if s.extra.startswith(tag_id):
+        end = s.extra.find("\t")
+        s.extra = "" if end == -1 else s.extra[end + 1:]
+        return
+    start = s.extra.find("\t" + tag_id + ":")
+    if start == -1:
+        return
+    end = s.extra.find("\t", start + 1)
+    if end == -1:
+        end = len(s.extra)
+    s.extra = s.extra[:start] + s.extra[end:]
+
+
+def add_tag(s: Sam, tag_id: str, typ: str, val: str) -> None:
+    """Appends ``tag_id:typ:val`` to ``extra``."""
+    if len(tag_id) != 2:
+        raise ValueError("input tagId must be 2 characters")
+    if typ not in ("A", "i", "f", "Z", "H", "B"):
+        raise ValueError("input type must be one of A,i,f,Z,H,B")
+    if s.extra == "":
+        parse_extra(s)
+    if s.extra == "":
+        s.extra = f"{tag_id}:{typ}:{val}"
+    else:
+        s.extra = f"{s.extra}\t{tag_id}:{typ}:{val}"

@@ -9,7 +9,7 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 55 tools, imports none of them
+lists and dispatches exactly the port's 64 tools, imports none of them
 before dispatch, and its ``gsw align`` wants the card; ``pyproject.toml``
 installs it as ``gonomics-torch``; no new module imports JAX.
 """
@@ -61,25 +61,31 @@ from gonomics_tpu_torch.cli import vcf_filter as tvcf_filter
 from gonomics_tpu_torch.cli import vcf_format as tvcf_format
 from gonomics_tpu_torch.cli import vcf_info as tvcf_info
 from gonomics_tpu_torch.cli import vcf_to_fa as tvcf_to_fa
+from gonomics_tpu_torch.cli import fastq_filter as tfastq_filter
+from gonomics_tpu_torch.cli import sam_info as tsam_info
+from gonomics_tpu_torch.cli import wig_tools as twig_tools
 from gonomics_tpu_torch.io import fasta as tfasta
 
 from test_torch_card import _variant_inputs, _write_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORTED = ["assemblyStats", "bedDistanceFromChrEnds", "bedFilter",
+PORTED = ["assemblyStats", "bamTagToReadGroup", "bedCountBam",
+          "bedDistanceFromChrEnds", "bedFilter",
           "bedFormat", "bedGraphToWig", "bedMath", "bedMerge",
           "bedMinimumDistanceName", "bedOverlapByWindow", "bedShear",
           "bedSimilarity", "bedSplit", "bedToAminoAcid", "bedToFasta",
           "bedToWig", "bedTrim", "bedValueWig", "callVariants",
           "catMultiFa", "cigarToBed", "countPairOfBases", "digestGenome",
           "faBin", "faFilter", "faFindFast", "faFormat", "faInfo",
-          "faToPredictSet", "faUniq", "findAndReplace", "gcContent",
+          "faToPredictSet", "faUniq", "fastqFilter", "fastqFormat",
+          "fastqReplaceSeq", "findAndReplace", "gcContent",
           "globalAlignment", "gsw", "intervalOverlap", "locateCG",
-          "mergeMultiFa", "mergesort", "mouseRecon", "multiFaCount",
-          "multiFaExtract", "multiFaReduce", "multiFaScan",
+          "longReadLibStats", "mergeMultiFa", "mergesort", "mouseRecon",
+          "multiFaCount", "multiFaExtract", "multiFaReduce", "multiFaScan",
           "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf", "pileup",
           "prcompFormat", "primateRecon", "reconstructSeq", "samConsensus",
-          "samToBed", "vcfFilter", "vcfFormat", "vcfInfo", "vcfToFa"]
+          "samInfo", "samToBed", "samToWig", "vcfFilter", "vcfFormat",
+          "vcfInfo", "vcfToFa", "wigTools"]
 
 
 def _edge_sam(genome) -> str:
@@ -236,7 +242,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 55 ported tools, each a key of
+    """help (and no argument) lists the 64 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -270,7 +276,8 @@ def test_umbrella_unknown_tool_exits():
                                   "reconstructSeq", "vcfFormat", "vcfToFa",
                                   "vcfFilter", "vcfInfo", "multiFaToVcf",
                                   "bedFormat", "bedFilter",
-                                  "multiFaToChain"])
+                                  "multiFaToChain", "fastqFilter",
+                                  "samInfo", "wigTools"])
 def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                                               tool):
     """A tool run through the umbrella writes what its own main writes."""
@@ -293,6 +300,12 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
     chr_a = tfasta.to_map(tfasta.read(ref))["chrA"]
     snvs = [(p, "ACGT"[chr_a[p - 1]], "ACGT"[(chr_a[p - 1] + 1) % 4])
             for p in (10, 57, 200)]
+    fq = tmp_path / "r.fq"
+    fq.write_text("".join(f"@r{i}\n{'ACGT' * i}\n+\n{'I' * 4 * i}\n"
+                          for i in range(1, 20)))
+    wig = tmp_path / "r.wig"
+    wig.write_text("fixedStep chrom=chrA start=3 step=1\n"
+                   + "".join(f"{i % 7}\n" for i in range(200)))
     vcf = tmp_path / "v.vcf"
     vcf.write_text(
         "##fileformat=VCFv4.2\n##INFO=<ID=DP,Number=1,Type=Integer,"
@@ -321,7 +334,9 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
               "multiFaToVcf": tmulti_fa_to_vcf.main,
               "bedFormat": tbed_format.main,
               "bedFilter": tbed_filter.main,
-              "multiFaToChain": tmulti_fa_to_chain.main}[tool]
+              "multiFaToChain": tmulti_fa_to_chain.main,
+              "fastqFilter": tfastq_filter.main, "samInfo": tsam_info.main,
+              "wigTools": twig_tools.main}[tool]
     out = {}
     for how in ("umbrella", "direct"):
         path = str(tmp_path / how)
@@ -361,7 +376,12 @@ def test_umbrella_dispatch_equals_direct_call(inputs, axt_input, tmp_path,
                               "-chromSizeFile", str(sizes)],
                 "bedFilter": [beds, path, "-minLength", "30", "-chrom",
                               "chrA"],
-                "multiFaToChain": [aln, "chrA", "cons", path]}[tool]
+                "multiFaToChain": [aln, "chrA", "cons", path],
+                "fastqFilter": [str(fq), path, "-minSize", "30",
+                                "-setSeed", "4", "-subSet", "0.7"],
+                "samInfo": ["mapq", src, path],
+                "wigTools": ["math", str(wig), str(sizes), path,
+                             "-movingAverageSmoothing", "3"]}[tool]
         if how == "umbrella":
             umbrella.main([tool, *args])
         else:
@@ -496,7 +516,18 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.multi_fa_reduce,"
             " gonomics_tpu_torch.cli.merge_multi_fa,"
             " gonomics_tpu_torch.cli.multi_fa_sequence_swap,"
-            " gonomics_tpu_torch.cli.multi_fa_to_chain\n"
+            " gonomics_tpu_torch.cli.multi_fa_to_chain,"
+            " gonomics_tpu_torch.io.bai, gonomics_tpu_torch.io.sam,"
+            " gonomics_tpu_torch.io.fastq, gonomics_tpu_torch.fileio,"
+            " gonomics_tpu_torch.cli.fastq_filter,"
+            " gonomics_tpu_torch.cli.fastq_format,"
+            " gonomics_tpu_torch.cli.fastq_replace_seq,"
+            " gonomics_tpu_torch.cli.long_read_lib_stats,"
+            " gonomics_tpu_torch.cli.sam_info,"
+            " gonomics_tpu_torch.cli.sam_to_wig,"
+            " gonomics_tpu_torch.cli.bed_count_bam,"
+            " gonomics_tpu_torch.cli.bam_tag_to_read_group,"
+            " gonomics_tpu_torch.cli.wig_tools\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
