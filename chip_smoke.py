@@ -280,7 +280,15 @@ exits non-zero:
             multiFaExtract -bed, multiFaReduce -bedFilename,
             multiFaSequenceSwap and mergeMultiFa on the chr1 alignment;
             multiFaToChain of chr1 aligned by the chain, its blocks the
-            chain's. The four kernels launched. Wall time of each step.
+            chain's. Then slice 11.7a and wigTools (sam_wig_steps), each
+            output against numpy. Then slice 11.8a: randSeq of 20 x
+            50,000 bases at seed 2207, of its first two records and of
+            10 bases at seed 1, and the port's Go rand. Gates: 20
+            records in 50-base lines, GC share 0.41 +- 0.002 and the
+            |G-C|, |A-T| shares under 0.002; the second file the first's
+            head; TATTTTGGGC; GoRand(1)'s Int63 and ten Intn(100) Go's
+            published values, its burn-in table compute_cooked's. The
+            four kernels launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -495,6 +503,16 @@ TOOLS_MOUSE_TREE = ("(((mm10:0.02,rn7:0.03)mra:0.05,criGriChoV2:0.06)mrh:"
 # bedCountBam and samInfo mapq -bedfile; wigTools peaks' threshold
 TOOLS_FQ_EVERY, TOOLS_FQ_SUBSET, TOOLS_FQ_SEED = 7, 0.5, 11
 TOOLS_BAM_EVERY, TOOLS_BAM_FLANK, TOOLS_PEAK = 8, 300, 15
+# slice 11.8a: randSeq's records, their length, seed and -GC (1 Mbp); its
+# GC share within RAND_GC_TOL of -GC (4 sigma on 1 M draws) and the |G-C|,
+# |A-T| shares under it (3.1 and 2.6 sigma; the seed fixes the draws);
+# Go's published seed-1 stream (rand.Int63, ten rand.Intn(100)) and the
+# first ten bases it gives at -GC 0.41
+RAND_NUM, RAND_LEN, RAND_SEED, RAND_GC, RAND_GC_TOL = 20, 50_000, 2207, \
+    0.41, 0.002
+GO_SEED1_INT63 = 5577006791947779410
+GO_SEED1_INTN100 = [81, 87, 47, 59, 81, 18, 25, 40, 56, 0]
+GO_SEED1_BASES = "TATTTTGGGC"
 # the standard code in TCAG order, and the three-letter names
 CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
 AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
@@ -5235,6 +5253,73 @@ def sam_wig_checks(f: dict, t_fa: str, sw: dict) -> dict:
     return out
 
 
+def rand_seq_steps(step, f: dict, times: dict) -> dict:
+    """The steps of slice 11.8a in phase_tools_cli: randSeq of RAND_NUM
+    records of RAND_LEN bases (rs.fa), of the first two of them (rs2.fa)
+    and of Go's seed-1 stream (rs1.fa); then the host check of the port's
+    Go rand (its wall into times): GoRand(1)'s Int63 and ten Intn(100)
+    against Go's published values, and the stored burn-in table against
+    its jump-ahead rebuild."""
+    from gonomics_tpu_torch.numbers import gorand
+
+    step("randSeq", "randSeq", f["rs.fa"], "-numSeq", str(RAND_NUM),
+         "-lenSeq", str(RAND_LEN), "-setSeed", str(RAND_SEED))
+    step("randSeq_two", "randSeq", f["rs2.fa"], "-numSeq", "2", "-lenSeq",
+         str(RAND_LEN), "-setSeed", str(RAND_SEED))
+    step("randSeq_seed1", "randSeq", f["rs1.fa"], "-numSeq", "1",
+         "-lenSeq", "10", "-setSeed", "1")
+    t = time.perf_counter()
+    first = gorand.GoRand(1).int63()
+    rng = gorand.GoRand(1)
+    intn = [rng.intn(100) for _ in range(10)]
+    cooked = bool((gorand._load_cooked()
+                   == gorand.compute_cooked(7_800_000_000_000)).all())
+    times["gorand_check"] = time.perf_counter() - t
+    return {"seed1_int63": first,
+            "seed1_int63_equal_go": first == GO_SEED1_INT63,
+            "seed1_intn100": intn,
+            "seed1_intn100_equal_go": intn == GO_SEED1_INTN100,
+            "cooked_equal_rebuilt": cooked}
+
+
+def rand_seq_checks(f: dict) -> dict:
+    """What the gates of phase_tools_cli's randSeq steps read from their
+    files, with numpy and text alone: the records' names, lengths and
+    line widths, the base shares, rs2.fa against the head of rs.fa, and
+    rs1.fa's sequence."""
+    with open(f["rs.fa"], "rb") as fh:
+        text = fh.read()
+    lines = text.decode().splitlines()
+    names = [ln[1:] for ln in lines if ln.startswith(">")]
+    seqs, widths = [], set()
+    for ln in lines:
+        if ln.startswith(">"):
+            seqs.append([])
+        else:
+            seqs[-1].append(ln)
+            widths.add(len(ln))
+    joined = "".join("".join(x) for x in seqs)
+    counts = np.bincount(np.frombuffer(joined.encode(), np.uint8),
+                         minlength=256)
+    n = max(len(joined), 1)
+    a, c, g, t = (int(counts[ord(x)]) for x in "ACGT")
+    with open(f["rs2.fa"], "rb") as fh:
+        two = fh.read()
+    head = b"".join(ln + b"\n" for ln in text.split(b"\n")[
+        :2 * (1 - -RAND_LEN // 50)])
+    with open(f["rs1.fa"]) as fh:
+        one = fh.read().splitlines()
+    return {"names": names,
+            "names_equal": names == [f"Sequence_{i}" for i in range(RAND_NUM)],
+            "lengths": sorted({sum(map(len, x)) for x in seqs}),
+            "line_widths": sorted(widths), "bases": n,
+            "acgt_only": a + c + g + t == n,
+            "gc_share": (g + c) / n, "g_minus_c_share": abs(g - c) / n,
+            "a_minus_t_share": abs(a - t) / n,
+            "two_equal_head": two == head, "seed1": one,
+            "seed1_equal_go": one == [">Sequence_0", GO_SEED1_BASES]}
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -5334,7 +5419,17 @@ def phase_tools_cli(dev: torch.device) -> dict:
     three commonest scores; ``wigTools filter -chrom chr1`` of bedToWig's
     wig; ``peaks``, ``math -movingAverageSmoothing 5``,
     ``-elementWiseSubtract`` and ``-pearson`` (against bedGraphToWig's
-    wig), ``stats`` and ``toTrainingSet`` of samToWig's wig."""
+    wig), ``stats`` and ``toTrainingSet`` of samToWig's wig. (12) Slice
+    11.8a (``rand_seq_steps`` runs the steps and the library check,
+    ``rand_seq_checks`` reads their files with numpy and text alone):
+    ``randSeq`` of RAND_NUM records of RAND_LEN bases at seed RAND_SEED,
+    gated on the records' names, 50-base lines, a GC share within
+    RAND_GC_TOL of 0.41 and |G-C|, |A-T| shares under it; of the first
+    two records, gated on its bytes being the head of the first file's;
+    of 10 bases at seed 1, gated on Go's published ``TATTTTGGGC``; and
+    the port's ``GoRand(1)`` gated on Go's published Int63 and ten
+    Intn(100), its stored burn-in table on ``compute_cooked``'s rebuild
+    (``rand_seq`` in the phase line)."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -5379,7 +5474,8 @@ def phase_tools_cli(dev: torch.device) -> dict:
             "cov_stats.txt", "mapq.txt", "cov.wig", "sorted.bam",
             "regions.bed", "bcb.txt", "mapq_bed.txt", "as.txt", "rg.bam",
             "wf.wig", "peaks.bed", "sub.wig", "smooth.wig", "pcc.txt",
-            "nogap.bed", "wstats.txt", "train.txt", "val.txt", "test.txt")}
+            "nogap.bed", "wstats.txt", "train.txt", "val.txt", "test.txt",
+            "rs.fa", "rs2.fa", "rs1.fa")}
         for fmt in ("axt", "vcf", "gg"):
             step(f"ggtools_chain_to_{fmt}", "gsw", "ggtools", chain, "-t",
                  t_fa, "-q", q_fa, "-f", fmt, "-o", f["c." + fmt])
@@ -5559,6 +5655,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         step("multiFaToChain", "multiFaToChain", f["pair.fa"], "chr1",
              "chr1q", f["pair.chain"])
         sw = sam_wig_steps(step, f, t_fa, snps, times)
+        gorand_check = rand_seq_steps(step, f, times)
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -5602,6 +5699,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["vcf_tools"] = vcf_tools_checks(f, t_fa, snps, depth)
         out["bed_multifa_tools"] = bed_multifa_checks(f, t_fa, snps, meta, bm)
         out["sam_wig_tools"] = sam_wig_checks(f, t_fa, sw)
+        out["rand_seq"] = {**rand_seq_checks(f), "gorand": gorand_check}
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -5679,6 +5777,15 @@ def phase_tools_cli(dev: torch.device) -> dict:
                   and swt["fastq_replace_seq"]["replaced"] >= len(sw["pairs"])
                   and swt["bed_count_bam"]["reads"] > 0
                   and swt["bam_tag_to_read_group"]["grouped"] > 0)
+    rs, go = out["rand_seq"], out["rand_seq"]["gorand"]
+    rand_ok = (rs["names_equal"] and rs["lengths"] == [RAND_LEN]
+               and rs["line_widths"] == [50] and rs["acgt_only"]
+               and abs(rs["gc_share"] - RAND_GC) <= RAND_GC_TOL
+               and rs["g_minus_c_share"] < RAND_GC_TOL
+               and rs["a_minus_t_share"] < RAND_GC_TOL
+               and rs["two_equal_head"] and rs["seed1_equal_go"]
+               and go["seed1_int63_equal_go"] and go["seed1_intn100_equal_go"]
+               and go["cooked_equal_rebuilt"])
     host_ok = (h["mergesort_mapped_equal_sorted"]
                and h["mergesort_header_equal_input"]
                and h["merged_bases"] == c["pileup_rows"]
@@ -5688,7 +5795,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
                and h["fa_lower_bases"] == len(planted)
                and h["fa_upper_equals_target"] and h["fai_equals_index"])
     if not (host_ok and fasta_ok and seq_ok and vcf_ok and bed_multifa_ok
-            and sam_wig_ok
+            and sam_wig_ok and rand_ok
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

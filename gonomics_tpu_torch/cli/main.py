@@ -164,6 +164,8 @@ COMMANDS = {
                           "Bam read groups from a tag's values (host)"),
     "wigTools": ("gonomics_tpu_torch.cli.wig_tools",
                  "Wig filter/peaks/math/stats/toTrainingSet (host)"),
+    "randSeq": ("gonomics_tpu_torch.cli.rand_seq",
+                "Generate pseudorandom DNA fasta (host)"),
 }
 
 

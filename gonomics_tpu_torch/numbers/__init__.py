@@ -3,7 +3,9 @@
 and faFindFast (:74-115) use, the same float64 steps in the same order,
 so that every p value is bit for bit the JAX package's. ``logspace`` is
 a copy of the JAX's module of that name; ``matrix`` holds the fractional
-matrix powers of the substitution matrices."""
+matrix powers of the substitution matrices; ``gorand`` (Go's
+``math/rand``), ``distributions``, ``gosamplers`` and ``fit`` are whole
+copies of the JAX's modules of those names."""
 
 from __future__ import annotations
 

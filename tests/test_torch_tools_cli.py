@@ -9,7 +9,7 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 64 tools, imports none of them
+lists and dispatches exactly the port's 65 tools, imports none of them
 before dispatch, and its ``gsw align`` wants the card; ``pyproject.toml``
 installs it as ``gonomics-torch``; no new module imports JAX.
 """
@@ -83,9 +83,9 @@ PORTED = ["assemblyStats", "bamTagToReadGroup", "bedCountBam",
           "longReadLibStats", "mergeMultiFa", "mergesort", "mouseRecon",
           "multiFaCount", "multiFaExtract", "multiFaReduce", "multiFaScan",
           "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf", "pileup",
-          "prcompFormat", "primateRecon", "reconstructSeq", "samConsensus",
-          "samInfo", "samToBed", "samToWig", "vcfFilter", "vcfFormat",
-          "vcfInfo", "vcfToFa", "wigTools"]
+          "prcompFormat", "primateRecon", "randSeq", "reconstructSeq",
+          "samConsensus", "samInfo", "samToBed", "samToWig", "vcfFilter",
+          "vcfFormat", "vcfInfo", "vcfToFa", "wigTools"]
 
 
 def _edge_sam(genome) -> str:
@@ -242,7 +242,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 64 ported tools, each a key of
+    """help (and no argument) lists the 65 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -527,7 +527,12 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.sam_to_wig,"
             " gonomics_tpu_torch.cli.bed_count_bam,"
             " gonomics_tpu_torch.cli.bam_tag_to_read_group,"
-            " gonomics_tpu_torch.cli.wig_tools\n"
+            " gonomics_tpu_torch.cli.wig_tools,"
+            " gonomics_tpu_torch.numbers.gorand,"
+            " gonomics_tpu_torch.numbers.distributions,"
+            " gonomics_tpu_torch.numbers.gosamplers,"
+            " gonomics_tpu_torch.numbers.fit,"
+            " gonomics_tpu_torch.cli.rand_seq\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
