@@ -287,8 +287,21 @@ exits non-zero:
             records in 50-base lines, GC share 0.41 +- 0.002 and the
             |G-C|, |A-T| shares under 0.002; the second file the first's
             head; TATTTTGGGC; GoRand(1)'s Int63 and ten Intn(100) Go's
-            published values, its burn-in table compute_cooked's. The
-            four kernels launched. Wall time of each step.
+            published values, its burn-in table compute_cooked's. Then
+            slice 11.8b (popgen_steps, popgen_checks): statCalc,
+            plotFunctions, selectionMle of 2,000 sites drawn from the
+            AFS at alpha 4 (and the library's estimate), selectionMcmc
+            twice and mcmcTraceStats of its trace, dunnIndex with and
+            without -realign, simulateWrightFisher twice and with no
+            mutation. Gates: statCalc's values scipy's, its samples'
+            means and variances their distributions'; plotFunctions'
+            rows scipy's pdfs, its AFS pmfs summing to 1; the estimate
+            within 1.2 of 4 and the library's; the traces' bytes equal,
+            mcmcTraceStats' mean and HDI numpy's; dunnIndex's index and
+            segregating sites numpy's Hamming counts; the Wright-Fisher
+            runs' bytes equal, frequencies summing to 1, no absent base
+            appearing without mutation. The four kernels launched. Wall
+            time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -513,6 +526,26 @@ RAND_NUM, RAND_LEN, RAND_SEED, RAND_GC, RAND_GC_TOL = 20, 50_000, 2207, \
 GO_SEED1_INT63 = 5577006791947779410
 GO_SEED1_INTN100 = [81, 87, 47, 59, 81, 18, 25, 40, 56, 0]
 GO_SEED1_BASES = "TATTTTGGGC"
+# slice 11.8b: selectionMle's VCF, POP_SITES sites of POP_N haplotypes
+# drawn with numpy (seed POP_SEED) from the stationary AFS at POP_ALPHA,
+# its estimate within POP_MLE_TOL of POP_ALPHA (4.1 standard deviations
+# of the estimate over 12 seeds at this size, 0.29); selectionMcmc's
+# VCF of MCMC_SITES sites of MCMC_N, MCMC_ITER iterations at seed
+# MCMC_SEED; dunnIndex's DUNN_ROWS rows (two groups) of DUNN_LEN columns,
+# windows of DUNN_WINDOW every DUNN_STEP, the first DUNN_REALIGN of
+# DUNN_REALIGN_LEN with -realign; simulateWrightFisher's -N, -t, -g, -m;
+# statCalc's samplers' draws, their means within STAT_SE_TOL standard
+# errors and variances within STAT_VAR_RTOL; its densities and sums
+# within STAT_RTOL (its %e's 7 digits), its integrals within
+# STAT_INT_RTOL; plotFunctions' %f values within PLOT_ATOL of scipy's
+POP_ALPHA, POP_SITES, POP_N, POP_SEED, POP_MLE_TOL = 4.0, 2000, 20, 2208, \
+    1.2
+MCMC_SITES, MCMC_N, MCMC_ITER, MCMC_SEED = 10, 10, 20, 7
+DUNN_ROWS, DUNN_LEN, DUNN_WINDOW, DUNN_STEP = 8, 6000, 500, 700
+DUNN_REALIGN, DUNN_REALIGN_LEN = 2, 200
+WF_N, WF_T, WF_G, WF_M, WF_SEED = 100, 100, 4, 0.001, 3
+STAT_DRAWS, STAT_SE_TOL, STAT_VAR_RTOL = 20_000, 4.0, 0.06
+STAT_RTOL, STAT_INT_RTOL, PLOT_ATOL = 1e-6, 1e-5, 6e-7
 # the standard code in TCAG order, and the three-letter names
 CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
 AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
@@ -5320,6 +5353,378 @@ def rand_seq_checks(f: dict) -> dict:
             "seed1_equal_go": one == [">Sequence_0", GO_SEED1_BASES]}
 
 
+def afs_pmf(n: int, alpha: float) -> np.ndarray:
+    """P(i | n, alpha) for i = 1 .. n - 1 under the stationary allele
+    frequency density of selection alpha, by scipy's quad: C(n, i) times
+    the integral of p^(i-1) (1-p)^(n-i-1) 2 (1 - e^(-alpha (1-p))) /
+    (1 - e^(-alpha)) over [0, 1], normalised."""
+    from scipy import integrate, special
+
+    def f(p, i):
+        return (p ** (i - 1) * (1 - p) ** (n - i - 1) * 2
+                * -np.expm1(-alpha * (1 - p)) / -np.expm1(-alpha))
+
+    w = np.array([special.comb(n, i) * integrate.quad(f, 0, 1, args=(i,))[0]
+                  for i in range(1, n)])
+    return w / w.sum()
+
+
+def afs_vcf(path: str, sites: int, n: int, alpha: float, seed: int) -> list:
+    """A VCF of sites biallelic SNPs over n / 2 phased diploid samples,
+    each site's ALT count drawn from afs_pmf(n, alpha) and placed on
+    random haplotypes, AA the REF (so the counts are derived counts);
+    the counts."""
+    rng = np.random.default_rng(seed)
+    counts = rng.choice(np.arange(1, n), size=sites, p=afs_pmf(n, alpha))
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                "FILTER\tINFO\tFORMAT\t"
+                + "\t".join(f"s{j}" for j in range(n // 2)) + "\n")
+        for s, k in enumerate(counts):
+            hap = np.zeros(n, np.int64)
+            hap[rng.permutation(n)[:k]] = 1
+            f.write(f"chr1\t{s + 1}\t.\tA\tG\t50\tPASS\tAA=A\tGT\t"
+                    + "\t".join(f"{a}|{b}" for a, b in hap.reshape(-1, 2))
+                    + "\n")
+    return [int(k) for k in counts]
+
+
+def dunn_inputs(tmp: str, seed: int = 2209) -> dict:
+    """dunnIndex's inputs: DUNN_ROWS rows of DUNN_LEN columns, row 0 (the
+    reference) gap-free so that a reference position is its column, the
+    others with gap runs, lower case runs and an N or two, the first half
+    of the rows group "close" (1% apart from a common row), the second
+    "far" (8%); a bed of windows of DUNN_WINDOW every DUNN_STEP, and one
+    of the first DUNN_REALIGN windows cut to DUNN_REALIGN_LEN for
+    -realign; the groups list (with a member the alignment lacks)."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(np.frombuffer(b"ACGT", np.uint8), DUNN_LEN)
+    rows, names, half = [], [], DUNN_ROWS // 2
+    far = base.copy()
+    far[rng.random(DUNN_LEN) < 0.06] = rng.choice(
+        np.frombuffer(b"ACGT", np.uint8))
+    for r in range(DUNN_ROWS):
+        row = (base if r < half else far).copy()
+        flip = rng.random(DUNN_LEN) < (0.01 if r < half else 0.03)
+        row[flip] = rng.choice(np.frombuffer(b"ACGT", np.uint8),
+                               int(flip.sum()))
+        if r:
+            for start in rng.integers(0, DUNN_LEN - 10, 12):
+                row[start:start + int(rng.integers(1, 8))] = ord("-")
+            for start in rng.integers(0, DUNN_LEN - 10, 4):
+                run = row[start:start + 5]
+                row[start:start + 5] = np.where(run == ord("-"), run,
+                                                run | 0x20)   # lower case
+            row[rng.integers(0, DUNN_LEN, 2)] = ord("N")
+        rows.append(row)
+        names.append(f"{'close' if r < half else 'far'}{r % half}")
+    paths = {k: os.path.join(tmp, k) for k in (
+        "dunn.fa", "dunn.groups", "dunn.bed", "dunn_re.bed")}
+    with open(paths["dunn.fa"], "w") as f:
+        f.writelines(f">{n}\n{r.tobytes().decode()}\n"
+                     for n, r in zip(names, rows))
+    with open(paths["dunn.groups"], "w") as f:
+        f.write(">close\n" + "".join(n + "\n" for n in names[:half])
+                + ">far\n" + "".join(n + "\n" for n in names[half:])
+                + "farMissing\n")
+    starts = list(range(0, DUNN_LEN - DUNN_WINDOW, DUNN_STEP))
+    with open(paths["dunn.bed"], "w") as f:
+        f.writelines(f"chr1\t{a}\t{a + DUNN_WINDOW}\n" for a in starts)
+    with open(paths["dunn_re.bed"], "w") as f:
+        f.writelines(f"chr1\t{a}\t{a + DUNN_REALIGN_LEN}\n"
+                     for a in starts[:DUNN_REALIGN])
+    return {"paths": paths, "names": names, "rows": rows, "starts": starts}
+
+
+def popgen_steps(step, tmp: str, times: dict) -> dict:
+    """The steps of slice 11.8b in phase_tools_cli: statCalc's densities,
+    sums, integrals and seeded samplers; plotFunctions' Normal, Beta,
+    Gamma and AFS pmf rows; selectionMle of afs_vcf's POP_SITES sites at
+    POP_ALPHA, then the port's library selection_maximum_likelihood_
+    estimate on the same VCF (its wall into times); selectionMcmc twice
+    from one seed, mcmcTraceStats of its trace for Mu and for Sigma
+    after a burn-in; dunnIndex without and with -realign; and
+    simulateWrightFisher twice from one seed and once with no mutation
+    and two of the four bases at the start. Returns the paths and what
+    the checks need."""
+    from gonomics_tpu_torch import popgen
+
+    p = {k: os.path.join(tmp, k) for k in (
+        "sel.vcf", "mle.txt", "mcmc.vcf", "mc1.trace", "mc2.trace",
+        "mts_mu.txt", "mts_sigma.txt", "dunn.out.bed", "dunn_re.out.bed",
+        "wf1.tsv", "wf2.tsv", "wf0.tsv")}
+    stat = {
+        "normal_density": ["-normal", "0.5,2", "1.3"],
+        "normal_window": ["-normal", "1,2", "0.5", "1.5"],
+        "normal_left_tail": ["-normal", "0,0.1", "--", "-INF", "-0.4"],
+        "binomial_mass": ["-binomial", "20,0.3", "4"],
+        "binomial_right": ["-binomial", "20,0.3", "3", "N"],
+        "binomial_left": ["-binomial", "20,0.3", "0", "7"],
+        "poisson_mass": ["-poisson", "3.5", "2"],
+        "poisson_right": ["-poisson", "3.5", "4", "INF"],
+        "beta_density": ["-beta", "2,5", "0.3"],
+        "beta_window": ["-beta", "2,5", "0", "1"],
+        "gamma_density": ["-gamma", "2,1.5", "0.7"],
+        "gamma_window": ["-gamma", "2,1.5", "0.5", "1.5"],
+        "gamma_right": ["-gamma", "3,1", "1", "Inf"],
+        "sample_normal": ["-sampleNormal", f"1,2,{STAT_DRAWS}", "-setSeed",
+                          "21"],
+        "sample_beta": ["-sampleBeta", f"2,3,{STAT_DRAWS}", "-setSeed",
+                        "22"],
+        "sample_gamma": ["-sampleGamma", f"2,1.5,{STAT_DRAWS}", "-setSeed",
+                         "23"],
+        "sample_afs": ["-sampleAfs", f"2,{STAT_DRAWS},50,100,0.01,0.99",
+                       "-setSeed", "24"]}
+    for k, argv in stat.items():
+        p["sc_" + k] = os.path.join(tmp, f"sc_{k}.txt")
+        step("statCalc_" + k, "statCalc", "-outFile", p["sc_" + k], *argv)
+    plots = {"normal": ["Normal", "0,1", "-3", "3", "60"],
+             "beta": ["Beta", "2,3", "0", "1", "50"],
+             "gamma": ["Gamma", "2,1.5", "0", "6", "60"],
+             "afs": ["AfsProbability", "2,12,1e-6"],
+             "afs_ancestral": ["AfsProbabilityAncestral", "2,12,1e-6"],
+             "afs_derived": ["AfsProbabilityDerived", "2,12,1e-6"]}
+    for k, argv in plots.items():
+        p["pf_" + k] = os.path.join(tmp, f"pf_{k}.txt")
+        step("plotFunctions_" + k, "plotFunctions", *argv, p["pf_" + k])
+
+    afs_vcf(p["sel.vcf"], POP_SITES, POP_N, POP_ALPHA, POP_SEED)
+    step("selectionMle", "selectionMle", p["sel.vcf"], p["mle.txt"])
+    t = time.perf_counter()
+    library = popgen.selection_maximum_likelihood_estimate(
+        popgen.vcf_to_afs(p["sel.vcf"]))
+    times["selection_mle_library"] = time.perf_counter() - t
+
+    afs_vcf(p["mcmc.vcf"], MCMC_SITES, MCMC_N, POP_ALPHA, POP_SEED + 1)
+    for k in ("mc1.trace", "mc2.trace"):
+        step("selectionMcmc_" + k[:3], "selectionMcmc", p["mcmc.vcf"], p[k],
+             "-iterations", str(MCMC_ITER), "-setSeed", str(MCMC_SEED))
+    step("mcmcTraceStats", "mcmcTraceStats", p["mc1.trace"],
+         p["mts_mu.txt"])
+    step("mcmcTraceStats_sigma", "mcmcTraceStats", p["mc1.trace"],
+         p["mts_sigma.txt"], "-parameterName", "Sigma", "-burnIn", "5",
+         "-hdiProportion", "0.5")
+
+    dunn = dunn_inputs(tmp)
+    d = dunn["paths"]
+    step("dunnIndex", "dunnIndex", d["dunn.bed"], d["dunn.fa"],
+         d["dunn.groups"], p["dunn.out.bed"])
+    step("dunnIndex_realign", "dunnIndex", d["dunn_re.bed"], d["dunn.fa"],
+         d["dunn.groups"], p["dunn_re.out.bed"], "-realign")
+
+    wf = ["-N", str(WF_N), "-t", str(WF_T), "-g", str(WF_G)]
+    for k in ("wf1.tsv", "wf2.tsv"):
+        step("simulateWrightFisher_" + k[:3], "simulateWrightFisher", p[k],
+             *wf, "-m", str(WF_M), "-setSeed", str(WF_SEED))
+    step("simulateWrightFisher_m0", "simulateWrightFisher", p["wf0.tsv"],
+         *wf, "-m", "0", "-i", "0.5,0,0.5,0,A", "-setSeed", str(WF_SEED))
+    return {"paths": p, "library_mle": library, "dunn": dunn}
+
+
+def popgen_checks(pg: dict) -> dict:
+    """What the gates of phase_tools_cli's slice 11.8b steps read from
+    their files, each against numpy or scipy alone: statCalc's values
+    against scipy.stats (its integrals as differences of cdfs), its
+    samples' means and variances against their distributions'; the
+    plotFunctions rows against scipy's pdfs, the AFS pmfs summed in
+    linear space; selectionMle's estimate against POP_ALPHA and the
+    library's; the traces' header, rows and bytes, mcmcTraceStats' mean
+    and HDI against numpy's from the trace; dunnIndex's index and
+    segregating sites against numpy's Hamming distances on each window,
+    the realigned output's rows; simulateWrightFisher's frequencies a
+    site and generation, its two runs' bytes, the absent bases with no
+    mutation."""
+    from scipy import integrate, stats
+
+    p = pg["paths"]
+
+    def lines(path):
+        with open(path) as fh:
+            return fh.read().splitlines()
+
+    def rel(got, want):
+        return abs(got - want) / max(abs(want), 1e-300)
+
+    one = {k: float(lines(p["sc_" + k])[0]) for k in (
+        "normal_density", "normal_window", "normal_left_tail",
+        "binomial_mass", "binomial_right", "binomial_left", "poisson_mass",
+        "poisson_right", "beta_density", "beta_window", "gamma_density",
+        "gamma_window", "gamma_right")}
+    gam = stats.gamma(2, scale=1 / 1.5)
+    want = {"normal_density": stats.norm(0.5, 2).pdf(1.3),
+            "normal_window": stats.norm(1, 2).cdf(1.5)
+            - stats.norm(1, 2).cdf(0.5),
+            "normal_left_tail": stats.norm(0, 0.1).cdf(-0.4),
+            "binomial_mass": stats.binom(20, 0.3).pmf(4),
+            "binomial_right": stats.binom(20, 0.3).sf(2),
+            "binomial_left": stats.binom(20, 0.3).cdf(7),
+            "poisson_mass": stats.poisson(3.5).pmf(2),
+            "poisson_right": stats.poisson(3.5).sf(3),
+            "beta_density": stats.beta(2, 5).pdf(0.3), "beta_window": 1.0,
+            "gamma_density": gam.pdf(0.7),
+            "gamma_window": gam.cdf(1.5) - gam.cdf(0.5),
+            "gamma_right": stats.gamma(3).sf(1)}
+    integral = ("normal_window", "normal_left_tail", "beta_window",
+                "gamma_window", "gamma_right")
+    stat_err = {k: rel(one[k], float(want[k])) for k in one}
+    stat_ok = all(stat_err[k] <= (STAT_INT_RTOL if k in integral
+                                  else STAT_RTOL) for k in one)
+
+    def afs_f(x):
+        return 2 * -np.expm1(-2 * (1 - x)) / (-np.expm1(-2) * x * (1 - x))
+    z = integrate.quad(afs_f, 0.01, 0.99)[0]
+    afs_mean = integrate.quad(lambda x: x * afs_f(x), 0.01, 0.99)[0] / z
+    afs_var = integrate.quad(lambda x: x * x * afs_f(x), 0.01,
+                             0.99)[0] / z - afs_mean ** 2
+    # (mean, variance, support) of each sampler's distribution
+    dists = {"sample_normal": (1.0, 4.0, (-np.inf, np.inf)),
+             "sample_beta": (0.4, 0.04, (0, 1)),
+             "sample_gamma": (2 / 1.5, 2 / 1.5 ** 2, (0, np.inf)),
+             "sample_afs": (afs_mean, afs_var, (0.01, 0.99))}
+    samples = {}
+    for k, (mean, var, (lo, hi)) in dists.items():
+        x = np.array([float(v) for v in lines(p["sc_" + k])])
+        se = np.sqrt(var / len(x))
+        samples[k] = {"draws": len(x), "mean": float(x.mean()),
+                      "mean_se": float(abs(x.mean() - mean) / se),
+                      "var_rel": float(rel(x.var(ddof=1), var)),
+                      "ok": bool(len(x) == STAT_DRAWS
+                                 and ((x >= lo) & (x <= hi)).all()
+                                 and abs(x.mean() - mean) <= STAT_SE_TOL * se
+                                 and rel(x.var(ddof=1), var)
+                                 <= STAT_VAR_RTOL)}
+
+    pdfs = {"normal": (stats.norm(0, 1).pdf, -3.0, 3.0, 60),
+            "beta": (stats.beta(2, 3).pdf, 0.0, 1.0, 50),
+            "gamma": (gam.pdf, 0.0, 6.0, 60)}
+    plot = {}
+    for k, (pdf, left, right, bins) in pdfs.items():
+        rows = [r.split("\t") for r in lines(p["pf_" + k])]
+        xs, cur, step_ = [], left, (right - left) / bins
+        for _ in range(bins):
+            xs.append(cur)
+            cur += step_
+        err = max(abs(float(r[1]) - pdf(x)) for r, x in zip(rows[1:], xs))
+        plot[k] = {"rows": len(rows) - 1, "max_abs_err": float(err),
+                   "ok": bool(rows[0] == ["X", "f(X)"]
+                              and len(rows) == bins + 1
+                              and [r[0] for r in rows[1:]]
+                              == [f"{x:f}" for x in xs]
+                              and err <= PLOT_ATOL)}
+    for k in ("afs", "afs_ancestral", "afs_derived"):
+        rows = [r.split("\t") for r in lines(p["pf_" + k])[1:]]
+        total = float(np.exp([float(r[1]) for r in rows]).sum())
+        plot[k] = {"rows": len(rows), "sum": total,
+                   "ok": bool(len(rows) == 11
+                              and [int(r[0]) for r in rows]
+                              == list(range(1, 12))
+                              and abs(total - 1) <= 1e-5)}
+
+    head, row = lines(p["mle.txt"])
+    est = float(row.split("\t")[1])
+    mle = {"estimate": est, "library": pg["library_mle"],
+           "ok": bool(head == "#FILENAME\tMaximumLikelihood"
+                      and row.split("\t")[0] == p["sel.vcf"]
+                      and abs(est - POP_ALPHA) <= POP_MLE_TOL
+                      and row.split("\t")[1] == f"{pg['library_mle']:e}")}
+
+    with open(p["mc1.trace"], "rb") as a, open(p["mc2.trace"], "rb") as b:
+        t1, t2 = a.read(), b.read()
+    trace = [r.split("\t") for r in t1.decode().splitlines()]
+    mcmc = {"rows": len(trace) - 1, "same_bytes": t1 == t2,
+            "accepted": sum(r[3] == "true" for r in trace[1:])}
+    mcmc["ok"] = bool(trace[0] == ["Iteration", "Mu", "Sigma", "Accept"]
+                      and mcmc["rows"] == MCMC_ITER and t1 == t2
+                      and [int(r[0]) for r in trace[1:]]
+                      == list(range(MCMC_ITER))
+                      and all(r[3] in ("true", "false") for r in trace[1:]))
+    for k, col, burn, prop in (("mts_mu.txt", 1, 0, 0.95),
+                               ("mts_sigma.txt", 2, 5, 0.5)):
+        vals = np.array([float(r[col]) for r in trace[1:]])[burn:]
+        mean = float(np.cumsum(vals)[-1] / len(vals))   # left to right
+        srt = np.sort(vals)
+        pi = int(np.ceil(prop * len(srt))) - 1
+        i0 = int(np.argmin(srt[pi:] - srt[:len(srt) - pi]))
+        h, r = lines(p[k])
+        got = r.split("\t")
+        mcmc[k] = {"mean": float(got[1]), "hdi": got[3:5],
+                   "ok": bool(h == "#FILENAME\tMEAN\tPROPORTION\tSTART\tEND"
+                              and float(got[1]) == mean
+                              and got[2] == f"{prop:f}"
+                              and got[3:5] == [f"{srt[i0]:f}",
+                                               f"{srt[i0 + pi]:f}"])}
+
+    dn = pg["dunn"]
+    aln = np.stack(dn["rows"])
+    half = DUNN_ROWS // 2
+    out_rows = [r.split("\t") for r in lines(p["dunn.out.bed"])]
+    dunn = {"windows": len(out_rows), "equal": 0}
+    for a, r in zip(dn["starts"], out_rows):
+        win = aln[:, a:a + DUNN_WINDOW]
+        keep = [i for i in range(DUNN_ROWS)
+                if (win[i] != ord("-")).any()]
+        sub = win[keep]
+        cols = ~(((sub == ord("-")) | (sub >= ord("a"))).any(axis=0))
+        sub = sub[:, cols]
+        pos = {i: k for k, i in enumerate(keep)}
+
+        def ham(i, j):
+            return int((sub[pos[i]] != sub[pos[j]]).sum())
+        intra = max(ham(i, j) for grp in (range(half),
+                                          range(half, DUNN_ROWS))
+                    for i in grp for j in grp if i < j and i in pos
+                    and j in pos)
+        inter = min(ham(i, j) for i in range(half)
+                    for j in range(half, DUNN_ROWS) if i in pos and j in pos)
+        seg = int((sub != sub[0]).any(axis=0).sum())
+        dunn["equal"] += (r[:3] == ["chr1", str(a), str(a + DUNN_WINDOW)]
+                          and r[6] == f"{inter / intra:f}"
+                          and r[7] == str(seg)
+                          and r[8] == "Missing: close: far: farMissing, ")
+    re_rows = [r.split("\t") for r in lines(p["dunn_re.out.bed"])]
+    dunn["realign_rows"] = len(re_rows)
+    dunn["realign_index"] = [r[6] for r in re_rows]
+    dunn["ok"] = bool(dunn["windows"] == len(dn["starts"])
+                      and dunn["equal"] == dunn["windows"]
+                      and len(re_rows) == DUNN_REALIGN
+                      and all(len(r) == 9 and float(r[6]) >= 0
+                              and int(r[7]) >= 0 for r in re_rows))
+
+    with open(p["wf1.tsv"], "rb") as a, open(p["wf2.tsv"], "rb") as b:
+        w1, w2 = a.read(), b.read()
+    wf_rows = [r.split("\t") for r in w1.decode().splitlines()[2:]]
+    freqs = np.array([[float(x) for x in r[2:6]] for r in wf_rows])
+    w0 = [r.split("\t") for r in lines(p["wf0.tsv"])[2:]]
+    wf = {"rows": len(wf_rows), "same_bytes": w1 == w2,
+          "max_sum_err": float(np.abs(freqs.sum(axis=1) - 1).max()),
+          "absent_appear": sum(r[3] != "0.00000" or r[5] != "0.00000"
+                               for r in w0)}
+    wf["ok"] = bool(wf["rows"] == (WF_T + 1) * WF_G and w1 == w2
+                    and [(int(r[0]), int(r[1])) for r in wf_rows]
+                    == [(t, g) for t in range(WF_T + 1)
+                        for g in range(WF_G)]
+                    and wf["max_sum_err"] <= 2e-5
+                    and np.allclose(freqs * WF_N, np.round(freqs * WF_N),
+                                    atol=1e-3)
+                    and len(w0) == (WF_T + 1) * WF_G
+                    and wf["absent_appear"] == 0)
+    return {"stat_calc": {"rel_err": stat_err, "ok": stat_ok,
+                          "samples": samples},
+            "plot_functions": plot, "selection_mle": mle, "mcmc": mcmc,
+            "dunn_index": dunn, "wright_fisher": wf}
+
+
+def popgen_ok(pt: dict) -> bool:
+    """Every gate of popgen_checks met."""
+    return bool(pt["stat_calc"]["ok"]
+                and all(v["ok"] for v in pt["stat_calc"]["samples"].values())
+                and all(v["ok"] for v in pt["plot_functions"].values())
+                and pt["selection_mle"]["ok"] and pt["mcmc"]["ok"]
+                and pt["mcmc"]["mts_mu.txt"]["ok"]
+                and pt["mcmc"]["mts_sigma.txt"]["ok"]
+                and pt["dunn_index"]["ok"] and pt["wright_fisher"]["ok"])
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -5429,7 +5834,22 @@ def phase_tools_cli(dev: torch.device) -> dict:
     of 10 bases at seed 1, gated on Go's published ``TATTTTGGGC``; and
     the port's ``GoRand(1)`` gated on Go's published Int63 and ten
     Intn(100), its stored burn-in table on ``compute_cooked``'s rebuild
-    (``rand_seq`` in the phase line)."""
+    (``rand_seq`` in the phase line). (13) Slice 11.8b (``popgen_steps``
+    writes the inputs and runs the steps, ``popgen_checks`` reads their
+    files with numpy and scipy alone, ``popgen_ok`` gates them;
+    ``popgen_tools`` in the phase line): ``statCalc`` densities, sums and
+    integrals against scipy.stats, its seeded samplers against their
+    means and variances; ``plotFunctions`` Normal, Beta and Gamma rows
+    against scipy's pdfs, its three AFS pmfs summing to 1; ``selectionMle``
+    of POP_SITES sites drawn from the AFS at POP_ALPHA, its estimate
+    within POP_MLE_TOL of it and equal to the library's;
+    ``selectionMcmc`` twice from one seed (the same bytes, MCMC_ITER
+    rows) and ``mcmcTraceStats`` of its trace against numpy's mean and
+    HDI; ``dunnIndex`` of DUNN_ROWS rows in two groups against numpy's
+    Hamming distances on each window, and with ``-realign`` a row a
+    window; ``simulateWrightFisher`` twice from one seed (the same
+    bytes, frequencies summing to 1) and with ``-m 0`` from two bases,
+    the other two never appearing."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -5656,6 +6076,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
              "chr1q", f["pair.chain"])
         sw = sam_wig_steps(step, f, t_fa, snps, times)
         gorand_check = rand_seq_steps(step, f, times)
+        pg = popgen_steps(step, tmp, times)
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -5700,6 +6121,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["bed_multifa_tools"] = bed_multifa_checks(f, t_fa, snps, meta, bm)
         out["sam_wig_tools"] = sam_wig_checks(f, t_fa, sw)
         out["rand_seq"] = {**rand_seq_checks(f), "gorand": gorand_check}
+        out["popgen_tools"] = popgen_checks(pg)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -5795,7 +6217,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
                and h["fa_lower_bases"] == len(planted)
                and h["fa_upper_equals_target"] and h["fai_equals_index"])
     if not (host_ok and fasta_ok and seq_ok and vcf_ok and bed_multifa_ok
-            and sam_wig_ok and rand_ok
+            and sam_wig_ok and rand_ok and popgen_ok(out["popgen_tools"])
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

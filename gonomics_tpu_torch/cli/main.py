@@ -7,7 +7,9 @@ has.
 
 ``gonomics-torch`` alone, or with ``help``, lists the tools. Each tool
 keeps its name in the JAX package's ``COMMANDS`` and is imported only
-when it is dispatched, so listing them starts no CUDA.
+when it is dispatched, so listing them starts no CUDA. A target is a
+module, whose ``main`` runs, or ``module:function``, as in the JAX
+umbrella (:310-313).
 """
 
 from __future__ import annotations
@@ -166,6 +168,23 @@ COMMANDS = {
                  "Wig filter/peaks/math/stats/toTrainingSet (host)"),
     "randSeq": ("gonomics_tpu_torch.cli.rand_seq",
                 "Generate pseudorandom DNA fasta (host)"),
+    "statCalc": ("gonomics_tpu_torch.cli.stat_calc",
+                 "Command line statistics calculator (host)"),
+    "plotFunctions": ("gonomics_tpu_torch.cli.plot_functions",
+                      "Tab-separated function evaluations for plotting "
+                      "(host)"),
+    "selectionMle": ("gonomics_tpu_torch.cli.popgen_tools:main_mle",
+                     "MLE of selection from a VCF AFS (host)"),
+    "selectionMcmc": ("gonomics_tpu_torch.cli.popgen_tools:main_mcmc",
+                      "MCMC posterior for selection parameters (host)"),
+    "dunnIndex": ("gonomics_tpu_torch.cli.popgen_tools:main_dunn",
+                  "Dunn index per bed region of a multiFa (host)"),
+    "mcmcTraceStats": (
+        "gonomics_tpu_torch.cli.popgen_tools:main_trace_stats",
+        "Summary statistics on an MCMC trace (host)"),
+    "simulateWrightFisher": (
+        "gonomics_tpu_torch.cli.popgen_tools:main_wright_fisher",
+        "Multiallelic Wright-Fisher simulation (host)"),
 }
 
 
@@ -180,7 +199,8 @@ def main(argv=None) -> None:
     cmd = argv[0]
     if cmd not in COMMANDS:
         raise SystemExit(f"unknown command: {cmd} (run 'gonomics-torch help')")
-    importlib.import_module(COMMANDS[cmd][0]).main(argv[1:])
+    mod_name, _, fn_name = COMMANDS[cmd][0].partition(":")
+    getattr(importlib.import_module(mod_name), fn_name or "main")(argv[1:])
 
 
 if __name__ == "__main__":

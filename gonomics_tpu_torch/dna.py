@@ -1,6 +1,7 @@
 """DNA base codes and sequence conversion: the subset of
 ``gonomics_tpu/dna.py`` that the read aligners, the variant caller, the
-consensus tools, the fasta tools and digestGenome use.
+consensus tools, the fasta tools, digestGenome and the Dunn index
+use.
 
 A sequence is an int8 numpy array of base codes 0..12, the same integer
 codes as the reference's ``dna`` package.
@@ -112,6 +113,15 @@ def define_base_mask(seq: np.ndarray) -> np.ndarray:
 def all_gaps(n: int) -> np.ndarray:
     """n gap codes (dna.py:165)."""
     return np.full(n, GAP, dtype=np.int8)
+
+
+def dist(a: np.ndarray, b: np.ndarray) -> int:
+    """Hamming distance over equal-length seqs (dna/examine.go Dist;
+    dna.py:175-180), which the Dunn index reads."""
+    a, b = np.asarray(a), np.asarray(b)
+    if len(a) != len(b):
+        raise ValueError("Dist requires equal-length sequences")
+    return int((a != b).sum())
 
 
 def complement(seq: np.ndarray) -> np.ndarray:

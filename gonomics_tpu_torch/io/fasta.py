@@ -10,8 +10,10 @@ aligner, the ``gsw`` CLI, ``samConsensus`` and the fasta tools use
 ``extract``, ``remove_gaps``, ``find_sequence_index`` :221-255,
 ``_present``, ``scan_n``, ``scan_present_base``,
 ``scan_present_base_both``, ``scan_present_base_either`` :258-296,
-``segregating_columns`` and ``segregating_sites_fasta`` :299-310) and
-``bin_genome_no_breaks`` (:312-350)."""
+``segregating_columns`` and ``segregating_sites_fasta`` :299-310),
+``bin_genome_no_breaks`` (:312-350) and the Dunn index's helpers
+``copy_subset``, ``remove_missing_mult``, ``dist_column`` and
+``num_segregating_sites`` (:351-375)."""
 
 from __future__ import annotations
 
@@ -326,3 +328,30 @@ def bin_genome_no_breaks(genome: list[Fasta], bin_num: int,
                 size_smallest = sizes[i]
         bins[smallest].append(rec)
     return bins
+
+
+def copy_subset(records: list[Fasta], start: int, end: int) -> list[Fasta]:
+    """fasta.CopySubset (multiFa.go:109)."""
+    return [Fasta(r.name, np.array(np.asarray(r.seq)[start:end],
+                                   copy=True)) for r in records]
+
+
+def remove_missing_mult(records: list[Fasta]) -> list[Fasta]:
+    """fasta.RemoveMissingMult (multiFa.go:121): drop all-gap entries."""
+    return [r for r in records
+            if len(r.seq) and bool((np.asarray(r.seq) != dna.GAP).any())]
+
+
+def dist_column(records: list[Fasta]) -> list[Fasta]:
+    """fasta.DistColumn (multiFa.go:140): columns with no gaps or
+    lowercase bases in any sequence."""
+    mat = np.stack([np.asarray(r.seq) for r in records])
+    bad = (mat == dna.GAP) | ((mat >= dna.LOWER_A) & (mat <= dna.LOWER_N))
+    keep = ~bad.any(axis=0)
+    return [Fasta(r.name, mat[i][keep]) for i, r in enumerate(records)]
+
+
+def num_segregating_sites(records: list[Fasta]) -> int:
+    """fasta.NumSegregatingSites (multiFa.go:225)."""
+    segregating = segregating_sites_fasta(records)
+    return len(segregating[0].seq) if segregating else 0

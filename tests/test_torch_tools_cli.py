@@ -9,9 +9,11 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 65 tools, imports none of them
-before dispatch, and its ``gsw align`` wants the card; ``pyproject.toml``
-installs it as ``gonomics-torch``; no new module imports JAX.
+lists and dispatches exactly the port's 72 tools, imports none of them
+before dispatch, resolves a ``module:function`` target as the JAX
+umbrella does, runs the popgen tools to the JAX umbrella's bytes, and
+its ``gsw align`` wants the card; ``pyproject.toml`` installs it as
+``gonomics-torch``; no new module imports JAX.
 """
 
 import os
@@ -67,6 +69,7 @@ from gonomics_tpu_torch.cli import wig_tools as twig_tools
 from gonomics_tpu_torch.io import fasta as tfasta
 
 from test_torch_card import _variant_inputs, _write_reference
+from test_torch_popgen import GROUPS, _aln, popgen_vcf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ["assemblyStats", "bamTagToReadGroup", "bedCountBam",
@@ -76,16 +79,19 @@ PORTED = ["assemblyStats", "bamTagToReadGroup", "bedCountBam",
           "bedSimilarity", "bedSplit", "bedToAminoAcid", "bedToFasta",
           "bedToWig", "bedTrim", "bedValueWig", "callVariants",
           "catMultiFa", "cigarToBed", "countPairOfBases", "digestGenome",
-          "faBin", "faFilter", "faFindFast", "faFormat", "faInfo",
-          "faToPredictSet", "faUniq", "fastqFilter", "fastqFormat",
-          "fastqReplaceSeq", "findAndReplace", "gcContent",
+          "dunnIndex", "faBin", "faFilter", "faFindFast", "faFormat",
+          "faInfo", "faToPredictSet", "faUniq", "fastqFilter",
+          "fastqFormat", "fastqReplaceSeq", "findAndReplace", "gcContent",
           "globalAlignment", "gsw", "intervalOverlap", "locateCG",
-          "longReadLibStats", "mergeMultiFa", "mergesort", "mouseRecon",
-          "multiFaCount", "multiFaExtract", "multiFaReduce", "multiFaScan",
-          "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf", "pileup",
+          "longReadLibStats", "mcmcTraceStats", "mergeMultiFa",
+          "mergesort", "mouseRecon", "multiFaCount", "multiFaExtract",
+          "multiFaReduce", "multiFaScan", "multiFaSequenceSwap",
+          "multiFaToChain", "multiFaToVcf", "pileup", "plotFunctions",
           "prcompFormat", "primateRecon", "randSeq", "reconstructSeq",
-          "samConsensus", "samInfo", "samToBed", "samToWig", "vcfFilter",
-          "vcfFormat", "vcfInfo", "vcfToFa", "wigTools"]
+          "samConsensus", "samInfo", "samToBed", "samToWig",
+          "selectionMcmc", "selectionMle", "simulateWrightFisher",
+          "statCalc", "vcfFilter", "vcfFormat", "vcfInfo", "vcfToFa",
+          "wigTools"]
 
 
 def _edge_sam(genome) -> str:
@@ -242,7 +248,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 65 ported tools, each a key of
+    """help (and no argument) lists the 72 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -250,6 +256,7 @@ def test_umbrella_lists_the_ported_tools(capsys):
         listed = [ln.split()[0] for ln in lines if ln.startswith("  ")]
         assert listed == PORTED
     assert sorted(umbrella.COMMANDS) == PORTED
+    assert len(PORTED) == 72
     assert set(PORTED) <= set(jmain.COMMANDS)
     assert all("TPU" not in desc for _, desc in umbrella.COMMANDS.values())
 
@@ -532,7 +539,13 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.numbers.distributions,"
             " gonomics_tpu_torch.numbers.gosamplers,"
             " gonomics_tpu_torch.numbers.fit,"
-            " gonomics_tpu_torch.cli.rand_seq\n"
+            " gonomics_tpu_torch.cli.rand_seq,"
+            " gonomics_tpu_torch.popgen, gonomics_tpu_torch.dna,"
+            " gonomics_tpu_torch.align.multi,"
+            " gonomics_tpu_torch.align.oracle,"
+            " gonomics_tpu_torch.cli.stat_calc,"
+            " gonomics_tpu_torch.cli.plot_functions,"
+            " gonomics_tpu_torch.cli.popgen_tools\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
@@ -540,3 +553,78 @@ def test_new_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_umbrella_module_function_targets(tmp_path, monkeypatch):
+    """A ``module:function`` target runs that function with the rest of
+    the argv, as the JAX umbrella's target.partition(":") does; a bare
+    module runs its main. The popgen tools' targets name their JAX
+    targets' functions."""
+    (tmp_path / "fake_tool_mod.py").write_text(
+        "calls = []\n"
+        "def main(argv):\n    calls.append(('main', argv))\n"
+        "def other(argv):\n    calls.append(('other', argv))\n")
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.setitem(umbrella.COMMANDS, "fakeOther",
+                        ("fake_tool_mod:other", "a test target"))
+    monkeypatch.setitem(umbrella.COMMANDS, "fakeMain",
+                        ("fake_tool_mod", "a test target"))
+    umbrella.main(["fakeOther", "a", "-b"])
+    umbrella.main(["fakeMain", "c"])
+    import fake_tool_mod
+    assert fake_tool_mod.calls == [("other", ["a", "-b"]), ("main", ["c"])]
+    for name in ("selectionMle", "selectionMcmc", "dunnIndex",
+                 "mcmcTraceStats", "simulateWrightFisher", "statCalc",
+                 "plotFunctions"):
+        port, jax = umbrella.COMMANDS[name][0], jmain.COMMANDS[name][0]
+        assert port.replace("gonomics_tpu_torch.", "gonomics_tpu.") == jax
+
+
+@pytest.fixture(scope="module")
+def popgen_inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("popgen_umbrella")
+    popgen_vcf(str(d / "p.vcf"), 60, sites=10, samples=5)
+    (d / "groups.list").write_text(GROUPS)
+    (d / "aln.fa").write_text(_aln(61))
+    (d / "r.bed").write_text("chr1\t0\t50\nchr1\t30\t110\n")
+    jmain.main(["selectionMcmc", str(d / "p.vcf"), str(d / "t.trace"),
+                "-iterations", "12", "-setSeed", "2", "-integralError",
+                "1e-5"])
+    return {k: str(d / k) for k in ("p.vcf", "groups.list", "aln.fa",
+                                    "r.bed", "t.trace")}
+
+
+@pytest.mark.parametrize("tool", ["statCalc", "plotFunctions",
+                                  "selectionMle", "selectionMcmc",
+                                  "dunnIndex", "dunnIndex_realign",
+                                  "mcmcTraceStats", "simulateWrightFisher"])
+def test_umbrella_popgen_tools_equal_jax_umbrella(popgen_inputs, tmp_path,
+                                                  tool):
+    """Each popgen tool through gonomics-torch writes what the JAX
+    umbrella's writes."""
+    f = popgen_inputs
+    out = {}
+    for side, mod in (("jax", jmain), ("port", umbrella)):
+        path = str(tmp_path / side)
+        argv = {
+            "statCalc": ["statCalc", "-outFile", path, "-sampleNormal",
+                         "1,2,12", "-setSeed", "3"],
+            "plotFunctions": ["plotFunctions", "AfsProbabilityDerived",
+                              "1.5,9,1e-5", path],
+            "selectionMle": ["selectionMle", f["p.vcf"], path,
+                             "-unPolarized", "-integralError", "1e-5"],
+            "selectionMcmc": ["selectionMcmc", f["p.vcf"], path,
+                              "-iterations", "6", "-setSeed", "5"],
+            "dunnIndex": ["dunnIndex", f["r.bed"], f["aln.fa"],
+                          f["groups.list"], path],
+            "dunnIndex_realign": ["dunnIndex", f["r.bed"], f["aln.fa"],
+                                  f["groups.list"], path, "-realign"],
+            "mcmcTraceStats": ["mcmcTraceStats", f["t.trace"], path,
+                               "-parameterName", "Sigma"],
+            "simulateWrightFisher": ["simulateWrightFisher", path, "-N",
+                                     "25", "-t", "9", "-g", "2",
+                                     "-setSeed", "8"]}[tool]
+        mod.main(argv)
+        out[side] = _read(path)
+    assert out["port"] == out["jax"]
+    assert out["jax"]
