@@ -300,8 +300,28 @@ exits non-zero:
             mcmcTraceStats' mean and HDI numpy's; dunnIndex's index and
             segregating sites numpy's Hamming counts; the Wright-Fisher
             runs' bytes equal, frequencies summing to 1, no absent base
-            appearing without mutation. The four kernels launched. Wall
-            time of each step.
+            appearing without mutation. Then slice 11.9 and
+            divergenceSpectrum (interval_lift_steps,
+            interval_lift_checks): liftCoordinates of samToBed's records
+            (-minMatch 0.95 and 0.99) and of the chain's VCF with -faFile
+            q.fa; bedpeFilter, bedpeOverlap -bedSelect and
+            intervalContacts of 20,000 seeded contacts between 2 kb
+            windows against merged.bed and seeded tiles;
+            intervalSubsetMatrix (binary and -fraction) over 1 kb
+            windows; geneAssignmentStats of a planted truth;
+            overlapEnrichments (upperBound, lowerBound, exact,
+            normalApproximate) of merged.bed and the tiles against the
+            planted SNPs; divergenceSpectrum of 10 kb windows of chr1.
+            Gates: the lifted records numpy's map through the chain's
+            blocks, the unmapped ones numpy's failures; every SNP of the
+            VCF lifted with REF and ALT swapped, its insertions under
+            the INDEL message, its deletions failing -minMatch; each
+            bedpe output numpy's overlaps of the feet; the matrices
+            numpy's; the printed share and lines the planted ones; the
+            overlap count numpy's, the p-values scipy's binomial tails,
+            numpy's Poisson-binomial convolution and scipy's normal
+            densities; the six counts a window numpy's. The four kernels
+            launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -546,6 +566,26 @@ DUNN_REALIGN, DUNN_REALIGN_LEN = 2, 200
 WF_N, WF_T, WF_G, WF_M, WF_SEED = 100, 100, 4, 0.001, 3
 STAT_DRAWS, STAT_SE_TOL, STAT_VAR_RTOL = 20_000, 4.0, 0.06
 STAT_RTOL, STAT_INT_RTOL, PLOT_ATOL = 1e-6, 1e-5, 6e-7
+# slice 11.9 and divergenceSpectrum: IL_CONTACTS bedpe contacts between
+# IL_WINDOW bp windows of the target, IL_INTRA of them within a
+# chromosome, at seed IL_SEED; bedpeFilter's -minDistance IL_MIN_DIST; a
+# bed of named tiles, one in a IL_TILE bp cell with probability
+# IL_TILE_KEEP, beside merged.bed as a select file and elements1;
+# intervalSubsetMatrix's union of IL_ISM_WINDOW bp windows;
+# geneAssignmentStats' truth region every IL_GENE_EVERY bp, every
+# IL_GENE_PAIR-th with a second contact over it, IL_GENE_SHARE of them
+# matched; divergenceSpectrum's windows of IL_DIV_WINDOW bp over chr1;
+# overlapEnrichments' printed values (%f, %e: 7 digits) within
+# IL_PRINT_RTOL of numpy's and scipy's, the library's bounds within
+# IL_BINOM_RTOL of scipy.stats.binom; liftCoordinates of the reads again
+# at -minMatch IL_STRICT_MATCH (the planted deletions, 1-10 bp, are too
+# short to fail 0.95 under a 150 bp read)
+IL_CONTACTS, IL_WINDOW, IL_INTRA, IL_SEED = 20_000, 2000, 0.5, 2290
+IL_MIN_DIST, IL_TILE, IL_TILE_KEEP = 20_000, 4000, 0.5
+IL_ISM_WINDOW, IL_GENE_EVERY, IL_GENE_PAIR, IL_GENE_SHARE = 1000, 1000, 5, \
+    0.6
+IL_DIV_WINDOW, IL_PRINT_RTOL, IL_BINOM_RTOL = 10_000, 1e-6, 1e-9
+IL_STRICT_MATCH = 0.99  # a read over a deletion of 2+ bases fails it
 # the standard code in TCAG order, and the three-letter names
 CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
 AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
@@ -5725,6 +5765,551 @@ def popgen_ok(pt: dict) -> bool:
                 and pt["dunn_index"]["ok"] and pt["wright_fisher"]["ok"])
 
 
+def interval_lift_inputs(f: dict, tmp: str, snps: dict) -> dict:
+    """The seeded inputs of slice 11.9 and divergenceSpectrum in
+    phase_tools_cli, under tmp: IL_CONTACTS bedpe contacts of 10 fields
+    between IL_WINDOW bp windows of the target (IL_INTRA of them within one
+    chromosome); a bed of non-overlapping named tiles, at most one a
+    IL_TILE bp cell; intervalSubsetMatrix's union of IL_ISM_WINDOW bp
+    windows and its list (merged.bed, snps.bed, the tiles);
+    geneAssignmentStats' truth, a region every IL_GENE_EVERY bp (every
+    IL_GENE_PAIR-th with a second contact overlapping it), and its test
+    bed, one record inside each region, IL_GENE_SHARE of them named as a
+    truth name of the region; the search space of the chromosomes' spans;
+    a VCF of the planted SNPs and divergenceSpectrum's IL_DIV_WINDOW bp
+    windows of chr1. Returns the paths and what the checks need."""
+    rng = np.random.default_rng(IL_SEED)
+    p = {k: os.path.join(tmp, k) for k in (
+        "contacts.bedpe", "tiles.bed", "ism_union.bed", "ism_list.txt",
+        "truth.bedpe", "test.bed", "space.bed", "snps.vcf", "div.bed")}
+    sizes = dict(TOOLS_SIZES)
+    names = [c for c, _ in TOOLS_SIZES]
+    weights = np.array([n for _, n in TOOLS_SIZES], np.float64)
+    weights /= weights.sum()
+
+    def window(chrom):
+        k = int(rng.integers(0, sizes[chrom] // IL_WINDOW))
+        return chrom, k * IL_WINDOW, (k + 1) * IL_WINDOW
+
+    with open(p["contacts.bedpe"], "w") as fh:
+        for i in range(IL_CONTACTS):
+            a = window(names[int(rng.choice(len(names), p=weights))])
+            b = window(a[0] if rng.random() < IL_INTRA else
+                       names[int(rng.choice(len(names), p=weights))])
+            fh.write("\t".join(map(str, (*a, *b, f"c{i}",
+                                         int(rng.integers(0, 1000)),
+                                         "+-."[int(rng.integers(0, 3))],
+                                         "+-."[int(rng.integers(0, 3))])))
+                     + "\n")
+    with open(p["tiles.bed"], "w") as fh:
+        i = 0
+        for c, n in TOOLS_SIZES:
+            for cell in range(0, n, IL_TILE):
+                if rng.random() < IL_TILE_KEEP:
+                    s = cell + int(rng.integers(0, IL_TILE // 2))
+                    e = min(n, s + int(rng.integers(200, cell + IL_TILE
+                                                    - s + 1)))
+                    fh.write(f"{c}\t{s}\t{e}\tt{i}\n")
+                    i += 1
+    with open(p["ism_union.bed"], "w") as fh:
+        fh.writelines(f"{c}\t{s}\t{s + IL_ISM_WINDOW}\n"
+                      for c, n in TOOLS_SIZES
+                      for s in range(0, n, IL_ISM_WINDOW))
+    with open(p["ism_list.txt"], "w") as fh:
+        fh.writelines(x + "\n" for x in (f["merged.bed"], f["snps.bed"],
+                                         p["tiles.bed"]))
+    regions = [(c, s) for c, n in TOOLS_SIZES
+               for s in range(0, n, IL_GENE_EVERY)]
+    matched = set(rng.permutation(len(regions))[
+        :round(IL_GENE_SHARE * len(regions))].tolist())
+    truth, test, want = [], [], {"matched": [], "non_matched": []}
+    for k, (c, s) in enumerate(regions):
+        mates = [f"g{k}"] + ([f"g{k}b"] if k % IL_GENE_PAIR == 0 else [])
+        for j, name in enumerate(mates):
+            b = window(names[int(rng.integers(0, len(names)))])
+            truth.append((c, s + 100 + 200 * j, s + 500 + 200 * j, *b, name,
+                          0, "+", "-"))
+        name = (mates[int(rng.integers(0, len(mates)))] if k in matched
+                else f"x{k}")
+        test.append(f"{c}\t{s + 350}\t{s + 380}\t{name}\n")
+        if k in matched:
+            want["matched"].append(f"{name},{name}")
+        else:
+            want["non_matched"].append(f"{mates[-1]},{name}")
+    with open(p["truth.bedpe"], "w") as fh:
+        fh.writelines("\t".join(map(str, t)) + "\n" for t in truth)
+    with open(p["test.bed"], "w") as fh:
+        fh.writelines(test)
+    with open(p["space.bed"], "w") as fh:
+        fh.writelines(f"{c}\t0\t{n}\n" for c, n in TOOLS_SIZES)
+    with open(p["snps.vcf"], "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                 "FILTER\tINFO\n")
+        fh.writelines(f"{c}\t{pos}\t.\t{ref}\t{alt}\t30\tPASS\t.\n"
+                      for c in snps for pos, ref, alt in snps[c])
+    with open(p["div.bed"], "w") as fh:
+        fh.writelines(f"chr1\t{s}\t{s + IL_DIV_WINDOW}\n"
+                      for s in range(0, sizes["chr1"], IL_DIV_WINDOW))
+    return {"paths": p, "genes": len(regions), "gene_names": want}
+
+
+def interval_lift_steps(step, f: dict, q_fa: str, chain: str, snps: dict,
+                        tmp: str, times: dict) -> dict:
+    """The steps of slice 11.9 and divergenceSpectrum in phase_tools_cli,
+    on the inputs of interval_lift_inputs: liftCoordinates of samToBed's
+    records (at the default -minMatch 0.95 and at IL_STRICT_MATCH) and,
+    with -faFile q.fa (its .fai written first), of the
+    chain's VCF; bedpeFilter -minDistance IL_MIN_DIST -onlyIntraChrom;
+    bedpeOverlap -bedSelect of merged.bed (threshold 0, 0.5 and
+    -overlapBoth) and of the tiles (-overlapThreshold 0.5 -keepNames, and
+    -overlapBoth at 0.5); intervalContacts of merged.bed and of the tiles;
+    intervalSubsetMatrix binary and -fraction; geneAssignmentStats (its
+    stdout kept); overlapEnrichments upperBound, lowerBound and exact of
+    merged.bed and the planted SNPs, upperBound, normalApproximate and
+    exact of the tiles, then the port's library bounds at full precision
+    (their wall into times); divergenceSpectrum of the SNP VCF. Returns
+    the paths and what the checks need."""
+    from gonomics_tpu_torch import lift_enrichment
+    from gonomics_tpu_torch.io import fai
+
+    il = interval_lift_inputs(f, tmp, snps)
+    p = il["paths"]
+    p.update({k: os.path.join(tmp, k) for k in (
+        "lift.bed", "lift_un.txt", "lift_strict.bed", "lift_strict_un.txt",
+        "lift.vcf", "lift_vcf_un.txt", "bpf.bedpe", "bpo0.bedpe",
+        "bpo5.bedpe", "bpob.bedpe", "bpo_tiles.bedpe", "bpob_tiles.bedpe", "ic.bed", "ic_tiles.bed",
+        "ism.tsv", "ism_frac.tsv", "gas_m.bed", "gas_n.bed", "oe_upper.tsv",
+        "oe_lower.tsv", "oe_exact.tsv", "oe_tiles_upper.tsv",
+        "oe_tiles_normal.tsv", "oe_tiles_exact.tsv", "div.out.bed")})
+    step("liftCoordinates_reads", "liftCoordinates", chain, f["aln.bed"],
+         p["lift.bed"], p["lift_un.txt"])
+    step("liftCoordinates_reads_strict", "liftCoordinates", chain,
+         f["aln.bed"], p["lift_strict.bed"], p["lift_strict_un.txt"],
+         "-minMatch", str(IL_STRICT_MATCH))
+    fai.write_index(fai.create_index(q_fa), q_fa + ".fai")
+    step("liftCoordinates_vcf", "liftCoordinates", chain, f["c.vcf"],
+         p["lift.vcf"], p["lift_vcf_un.txt"], "-faFile", q_fa)
+    step("bedpeFilter", "bedpeFilter", p["contacts.bedpe"], p["bpf.bedpe"],
+         "-minDistance", str(IL_MIN_DIST), "-onlyIntraChrom")
+    for k, sel, flags in (
+            ("bpo0", "merged.bed", []),
+            ("bpo5", "merged.bed", ["-overlapThreshold", "0.5"]),
+            ("bpob", "merged.bed", ["-overlapBoth"]),
+            ("bpo_tiles", "tiles.bed", ["-overlapThreshold", "0.5",
+                                        "-keepNames"]),
+            ("bpob_tiles", "tiles.bed", ["-overlapBoth",
+                                         "-overlapThreshold", "0.5"])):
+        step("bedpeOverlap_" + k, "bedpeOverlap", "-bedSelect", *flags,
+             f.get(sel) or p[sel], p["contacts.bedpe"], p[k + ".bedpe"])
+    step("intervalContacts", "intervalContacts", p["contacts.bedpe"],
+         f["merged.bed"], p["ic.bed"])
+    step("intervalContacts_tiles", "intervalContacts", p["contacts.bedpe"],
+         p["tiles.bed"], p["ic_tiles.bed"])
+    step("intervalSubsetMatrix", "intervalSubsetMatrix", p["ism_union.bed"],
+         p["ism_list.txt"], p["ism.tsv"])
+    step("intervalSubsetMatrix_fraction", "intervalSubsetMatrix",
+         p["ism_union.bed"], p["ism_list.txt"], p["ism_frac.tsv"],
+         "-fraction")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        step("geneAssignmentStats", "geneAssignmentStats", p["truth.bedpe"],
+             p["test.bed"], p["gas_m.bed"], p["gas_n.bed"])
+    for k, e1, method in (("oe_upper", f["merged.bed"], "upperBound"),
+                          ("oe_lower", f["merged.bed"], "lowerBound"),
+                          ("oe_exact", f["merged.bed"], "exact"),
+                          ("oe_tiles_upper", p["tiles.bed"], "upperBound"),
+                          ("oe_tiles_normal", p["tiles.bed"],
+                           "normalApproximate"),
+                          ("oe_tiles_exact", p["tiles.bed"], "exact")):
+        step("overlapEnrichments_" + k[3:], "overlapEnrichments", method, e1,
+             f["snps.bed"], p["space.bed"], p[k + ".tsv"])
+    t = time.perf_counter()
+    library = {}
+    for key, e1 in (("merged", f["merged.bed"]), ("tiles", p["tiles.bed"])):
+        recs = {k: lift_enrichment.go_read(x) for k, x in (
+            ("e1", e1), ("e2", f["snps.bed"]), ("space", p["space.bed"]))}
+        for r in recs.values():
+            lift_enrichment.sort_by_coord(r)
+        k = lift_enrichment.overlap_count(recs["e2"], recs["e1"])
+        library[key] = {m: lift_enrichment.enrichment_p_value_bound(
+            recs["e1"], recs["e2"], recs["space"], k, m == "upper")
+            for m in ("upper", "lower")}
+    times["overlap_enrichments_library"] = time.perf_counter() - t
+    step("divergenceSpectrum", "divergenceSpectrum", p["div.bed"],
+         p["snps.vcf"], p["div.out.bed"])
+    return {**il, "inputs": {k: f[k] for k in (
+        "aln.bed", "merged.bed", "snps.bed", "c.vcf")}, "chain": chain,
+        "q_fa": q_fa, "gas_stdout": buf.getvalue(), "library": library}
+
+
+def chain_maps(path: str) -> dict:
+    """{target name: (query name, block target starts, block query starts,
+    block sizes, gaps as (target start, target end, query bases) rows)}
+    of a chain file with plus strands, parsed as text."""
+    out, cur = {}, None
+    with open(path) as fh:
+        for line in fh:
+            w = line.split()
+            if not w:
+                continue
+            if w[0] == "chain":
+                cur = [w[7], [], [], [], []]
+                t, q = int(w[5]), int(w[10])
+                out[w[2]] = cur
+                continue
+            size = int(w[0])
+            cur[1].append(t)
+            cur[2].append(q)
+            cur[3].append(size)
+            t, q = t + size, q + size
+            if len(w) == 3:
+                dt, dq = int(w[1]), int(w[2])
+                cur[4].append((t, t + dt, dq))
+                t, q = t + dt, q + dq
+    return {k: (v[0], *(np.array(x, np.int64) for x in v[1:4]),
+                np.array(v[4], np.int64).reshape(-1, 3))
+            for k, v in out.items()}
+
+
+def lift_numpy(cm: tuple, s: np.ndarray, e: np.ndarray,
+               min_match: float = 0.95) -> tuple:
+    """What liftCoordinates does to target spans [s, e) through one chain,
+    in numpy: (passes min_match, lifted start, lifted end). A span's
+    matched bases are its bases in blocks; its target gap bases and the
+    query bases of the gaps it touches make the two shares; a position
+    in a gap maps to the query position where the gap starts."""
+    _, t0, q0, size, gaps = cm
+    d_t = np.zeros(len(s), np.int64)
+    d_q = np.zeros(len(s), np.int64)
+    for gs, ge, gq in gaps.tolist():
+        ot = np.maximum(0, np.minimum(e, ge) - np.maximum(s, gs))
+        d_t += ot
+        d_q += np.where(ot > 0, gq, 0)
+    match = (e - s) - d_t
+    with np.errstate(invalid="ignore", divide="ignore"):
+        a = match / (match + d_t)
+        b = match / (match + d_q)
+    ok = (match > 0) & (a >= min_match) & (b >= min_match)
+
+    def to_q(t):
+        k = np.searchsorted(t0, t, "right") - 1
+        return q0[k] + np.minimum(t - t0[k], size[k])
+
+    return ok, to_q(s), to_q(e - 1) + 1
+
+
+def spans_index(rows) -> dict:
+    """{chrom: (starts, ends)} of disjoint bed rows, sorted."""
+    out: dict = {}
+    for r in rows:
+        out.setdefault(r[0], []).append((int(r[1]), int(r[2])))
+    return {c: tuple(np.array(x, np.int64).T) for c, x in
+            ((c, sorted(v)) for c, v in out.items())}
+
+
+def span_hits(idx: dict, c: str, s: int, e: int) -> tuple:
+    """(first index, overlap lengths) of [s, e) with idx[c]'s spans."""
+    if c not in idx:
+        return 0, np.zeros(0, np.int64)
+    st, en = idx[c]
+    lo = int(np.searchsorted(en, s, "right"))
+    hi = int(np.searchsorted(st, e, "left"))
+    return lo, np.minimum(en[lo:hi], e) - np.maximum(st[lo:hi], s)
+
+
+def interval_lift_checks(il: dict) -> dict:
+    """What the gates of phase_tools_cli's slice 11.9 and
+    divergenceSpectrum steps read from their files, each against numpy
+    (or scipy) from the inputs, importing none of these tools' modules:
+    the lifted reads and their unmapped file against lift_numpy through
+    the chain's blocks; the VCF's SNPs lifted with REF and ALT swapped,
+    its insertions under the INDEL message and its deletions (whose probe
+    covers the deleted bases alone) failing -minMatch; bedpeFilter's
+    lines numpy's filter; bedpeOverlap's and intervalContacts' lines
+    numpy's overlaps of each foot with merged.bed and the tiles;
+    intervalSubsetMatrix's matrices numpy's, value for value;
+    geneAssignmentStats' share and lines the planted ones;
+    overlapEnrichments' count numpy's covered SNPs, its bounds scipy's
+    binomial tails at numpy's probability, its exact values numpy's
+    convolution of the Poisson-binomial, its normal approximation scipy's
+    densities summed, the library's bounds scipy's to IL_BINOM_RTOL;
+    divergenceSpectrum's six counts a window numpy's."""
+    from scipy import stats
+
+    p, f = il["paths"], il["inputs"]
+
+    def lines(path):
+        with open(path) as fh:
+            return fh.read().splitlines()
+
+    def rel(got, want):
+        return abs(got - want) / max(abs(want), 1e-300)
+
+    cms = chain_maps(il["chain"])
+    out = {}
+    # liftCoordinates of the reads, at -minMatch 0.95 and IL_STRICT_MATCH
+    rows = bed_rows(f["aln.bed"])
+    by_chrom: dict = {}
+    for i, r in enumerate(rows):
+        by_chrom.setdefault(r[0], []).append(i)
+    for key, mm, suffix in (("lift_reads", 0.95, ""),
+                            ("lift_reads_strict", IL_STRICT_MATCH,
+                             "_strict")):
+        lifted = [None] * len(rows)
+        for c, idx in by_chrom.items():
+            s = np.array([int(rows[i][1]) for i in idx], np.int64)
+            e = np.array([int(rows[i][2]) for i in idx], np.int64)
+            ok, ns, ne = lift_numpy(cms[c], s, e, mm)
+            for j, i in enumerate(idx):
+                lifted[i] = (bool(ok[j]), int(ns[j]), int(ne[j]))
+        want_out = ["\t".join([cms[r[0]][0], str(ns), str(ne)] + r[3:])
+                    for r, (ok, ns, ne) in zip(rows, lifted) if ok]
+        want_un = ["\t".join(r) for r, x in zip(rows, lifted) if not x[0]]
+        un = lines(p[f"lift{suffix}_un.txt"])
+        out[key] = {
+            "records": len(rows), "lifted": len(want_out),
+            "unmapped": len(want_un),
+            "lifted_equal_numpy": lines(p[f"lift{suffix}.bed"]) == want_out,
+            "unmapped_equal_numpy": un[1::2] == want_un
+            and all(x.startswith("Record below fails minMatch")
+                    for x in un[0::2])}
+    # liftCoordinates -faFile of the chain's VCF
+    query = fasta_strings(il["q_fa"])
+    vcf = lines(f["c.vcf"])
+    head = [x for x in vcf if x.startswith("#")]
+    want_out, want_un = list(head), []
+    kinds = {"snps": 0, "insertions": 0, "deletions": 0}
+    for line in vcf[len(head):]:
+        w = line.split("\t")
+        pos, ref, alt = int(w[1]), w[3], w[4]
+        s, e = (pos - 1, pos) if len(ref) == 1 else (pos, pos + len(ref) - 1)
+        ok, ns, _ = lift_numpy(cms[w[0]], np.array([s]), np.array([e]))
+        kind = ("snps" if len(ref) == len(alt) == 1 else "insertions"
+                if len(ref) == 1 else "deletions")
+        kinds[kind] += 1
+        if not ok[0]:
+            want_un += ["fails minMatch", line]
+            continue
+        lw = [cms[w[0]][0], str(int(ns[0]) + 1)] + w[2:]
+        if kind != "snps":
+            want_un += ["INDEL records", "\t".join(lw)]
+        elif query[lw[0]][int(lw[1]) - 1].upper() == ref:
+            want_out.append("\t".join(lw))
+        elif query[lw[0]][int(lw[1]) - 1].upper() == alt:
+            want_un += ["alleles are inverted", "\t".join(lw)]
+            want_out.append("\t".join(lw[:3] + [alt, ref] + lw[5:]))
+        else:
+            want_un += ["neither the Ref nor the Alt", "\t".join(lw)]
+    got_un = lines(p["lift_vcf_un.txt"])
+    messages = want_un[0::2]
+    out["lift_vcf"] = {
+        **kinds,
+        "snps_swapped": sum(m == "alleles are inverted" for m in messages),
+        "insertions_indel_message": sum(m == "INDEL records"
+                                        for m in messages),
+        "deletions_fail_min_match": sum(m == "fails minMatch"
+                                        for m in messages),
+        "out_equal_numpy": lines(p["lift.vcf"]) == want_out,
+        "unmapped_equal_numpy": got_un[1::2] == want_un[1::2]
+        and len(got_un) == len(want_un)
+        and all(m in g for m, g in zip(messages, got_un[0::2]))}
+    # bedpeFilter, bedpeOverlap, intervalContacts
+    contacts = bed_rows(p["contacts.bedpe"])
+    keep = [r for r in contacts if r[0] == r[3]
+            and abs(int(r[1]) - int(r[4])) >= IL_MIN_DIST]
+    bpf = lines(p["bpf.bedpe"])
+    out["bedpe_filter"] = {"lines": len(bpf), "intra": sum(
+        r[0] == r[3] for r in contacts),
+        "equal_numpy": bpf == ["\t".join(r) for r in keep]}
+    sel = {"merged": spans_index(bed_rows(f["merged.bed"])),
+           "tiles": spans_index(bed_rows(p["tiles.bed"]))}
+    tile_names = {}
+    for r in bed_rows(p["tiles.bed"]):
+        tile_names.setdefault(r[0], []).append((int(r[1]), r[3]))
+    tile_names = {c: [n for _, n in sorted(v)] for c, v in tile_names.items()}
+    want = {k: [] for k in ("bpo0", "bpo5", "bpob", "bpo_tiles",
+                            "bpob_tiles", "ic", "ic_tiles")}
+    for r in contacts:
+        line = "\t".join(r)
+        feet = ((r[0], int(r[1]), int(r[2])), (r[3], int(r[4]), int(r[5])))
+        # the foot across from each: B's bed where A overlaps, and A's
+        across = ("\t".join(r[3:6] + r[6:8] + [r[9]]),
+                  "\t".join(r[0:3] + r[6:9]))
+        hits = {k: [span_hits(sel[k], *ft) for ft in feet] for k in sel}
+        frac = {k: [ov / (ft[2] - ft[1])
+                    for (_, ov), ft in zip(hits[k], feet)] for k in sel}
+        ha, hb = (len(h[1]) > 0 for h in hits["merged"])
+        if ha or hb:
+            want["bpo0"].append(line)
+        if ha:
+            want["bpo5"] += [line] * bool((frac["merged"][0] >= 0.5).any())
+        else:
+            want["bpo5"] += [line] * int((frac["merged"][1] >= 0.5).sum())
+        if ha and hb:
+            want["bpob"].append(line)
+        for key, k in (("ic", "merged"), ("ic_tiles", "tiles")):
+            for side in (0, 1):
+                if len(hits[k][side][1]):
+                    want[key].append(across[side])
+        ta = len(hits["tiles"][0][1]) > 0
+        for side, n_rows in ((0, int(ta and (frac["tiles"][0] >= 0.5).any())),
+                             (1, 0 if ta else int((frac["tiles"][1] >= 0.5)
+                                                  .sum()))):
+            lo, ov = hits["tiles"][side]
+            names = sorted(tile_names[feet[side][0]][lo:lo + len(ov)])
+            want["bpo_tiles"] += [(r[:6], names)] * n_rows
+        if all((x >= 0.5).any() for x in frac["tiles"]):
+            want["bpob_tiles"].append(line)
+    bp = {}
+    for k in ("bpo0", "bpo5", "bpob", "bpob_tiles"):
+        got = lines(p[k + ".bedpe"])
+        bp[k] = {"lines": len(got), "equal_numpy": got == want[k]}
+    got = [x.split("\t") for x in lines(p["bpo_tiles.bedpe"])]
+    bp["bpo_tiles"] = {"lines": len(got), "equal_numpy": [
+        (w[:6], sorted(w[6].split(","))) for w in got] == want["bpo_tiles"]
+        and all(len(w) == 7 for w in got)}
+    out["bedpe_overlap"] = bp
+    out["interval_contacts"] = {}
+    for k in ("ic", "ic_tiles"):
+        got = lines(p[k + ".bed"])
+        out["interval_contacts"][k] = {"lines": len(got),
+                                       "equal_numpy": got == want[k]}
+    # intervalSubsetMatrix
+    files = lines(p["ism_list.txt"])
+    W = IL_ISM_WINDOW
+    keys = [f"{c}:{s}-{s + W}" for c, n in TOOLS_SIZES
+            for s in range(0, n, W)]
+    col = {k: i for i, k in enumerate(keys)}
+    binary = np.zeros((len(keys), len(files)))
+    fraction = [[0.0] * len(files) for _ in keys]
+    for j, path in enumerate(files):
+        for r in bed_rows(path):
+            s, e = int(r[1]), int(r[2])
+            for ws in range(s // W * W, e, W):
+                i = col[f"{r[0]}:{ws}-{ws + W}"]
+                binary[i, j] = 1
+                fraction[i][j] += (min(e, ws + W) - max(s, ws)) / W
+    ism = {}
+    for name, m in (("binary", binary.tolist()), ("fraction", fraction)):
+        want_rows = [["Region", *files]] + [[k, *m[col[k]]]
+                                            for k in sorted(keys)]
+        got = [x.split("\t") for x in lines(
+            p["ism.tsv" if name == "binary" else "ism_frac.tsv"])]
+        ism[name] = {"rows": len(got) - 1, "equal_numpy": got[0]
+                     == want_rows[0] and len(got) == len(want_rows)
+                     and all(g[0] == w[0] and [float(x) for x in g[1:]]
+                             == w[1:] for g, w in zip(got[1:],
+                                                      want_rows[1:]))}
+    ism["nonzero_fraction_cells"] = int(sum(v > 0 for r in fraction
+                                            for v in r))
+    out["interval_subset_matrix"] = ism
+    # geneAssignmentStats
+    gm = [x.split("\t") for x in lines(p["gas_m.bed"])]
+    gn = [x.split("\t") for x in lines(p["gas_n.bed"])]
+    names = il["gene_names"]
+    share = len(names["matched"]) / il["genes"]
+    out["gene_assignment_stats"] = {
+        "regions": il["genes"], "planted_share": share,
+        "printed": il["gas_stdout"].strip(),
+        "matched": len(gm), "non_matched": len(gn),
+        "equal_planted": il["gas_stdout"] == repr(share) + "\n"
+        and len(gm) == len(names["matched"])
+        and len(gn) == il["genes"] - len(names["matched"])
+        and [w[3] for w in gm] == names["matched"]
+        and [w[3] for w in gn] == names["non_matched"]}
+    # overlapEnrichments
+    snp_rows = bed_rows(f["snps.bed"])
+    space = sum(n for _, n in TOOLS_SIZES)
+    oe = {}
+    for key, e1 in (("merged", f["merged.bed"]), ("tiles", p["tiles.bed"])):
+        idx = spans_index(bed_rows(e1))
+        covered = sum(len(span_hits(idx, r[0], int(r[1]), int(r[2]))[1]) > 0
+                      for r in snp_rows)
+        prob = sum(int(e) - int(s) for st, en in idx.values()
+                   for s, e in zip(st, en)) / space
+        n = len(snp_rows)
+        binom = stats.binom(n, prob)
+        want_b = {"enrich": float(binom.sf(covered - 1)),
+                  "deplete": float(binom.cdf(covered))}
+        pmf = np.array([1.0])
+        for _ in range(n):
+            pmf = np.convolve(pmf, [1 - prob, prob])
+        want_x = [float(pmf.sum()), float(np.arange(n + 1) @ pmf),
+                  float(pmf[covered:].sum()), float(pmf[:covered + 1].sum())]
+        mu = sum([prob] * n)
+        sigma = float(np.sqrt(sum([prob * (1 - prob)] * n)))
+        dens = stats.norm(mu, sigma).pdf(np.arange(n + 1))
+        want_n = [1.0, mu, float(dens[covered:].sum()),
+                  float(dens[:covered + 1].sum())]
+        kinds = (("upper", "lower", "exact") if key == "merged"
+                 else ("upper", "normal", "exact"))
+        res = {"elements2": n, "covered_snps": covered, "probability": prob}
+        for kind in kinds:
+            fk = "oe_" + ("" if key == "merged" else "tiles_") + kind
+            w = lines(p[fk + ".tsv"])[1].split("\t")
+            vals = [float(x) for x in w[6:]]
+            want_v = {"exact": want_x, "normal": want_n}.get(
+                kind, [1.0, prob * n, want_b["enrich"], want_b["deplete"]])
+            want_v = want_v[:2] + [covered / want_v[1]] + want_v[2:]
+            err = max(rel(g, v) for g, v in zip(vals, want_v))
+            res[kind] = {
+                "count": int(w[5]), "values": vals, "max_rel_err": err,
+                "ok": int(w[5]) == covered and err <= IL_PRINT_RTOL
+                and (kind not in ("upper", "lower")
+                     or w[7] == f"{prob * n:f}")}
+        for m, v in il["library"][key].items():
+            err = max(rel(v[2], want_b["enrich"]),
+                      rel(v[3], want_b["deplete"]))
+            res["library_" + m] = {"max_rel_err": err,
+                                   "ok": err <= IL_BINOM_RTOL
+                                   and v[1] == prob * n}
+        oe[key] = res
+    out["overlap_enrichments"] = oe
+    # divergenceSpectrum
+    cls = {("A", "C"): 5, ("A", "G"): 1, ("A", "T"): 2, ("C", "A"): 4,
+           ("C", "G"): 3, ("C", "T"): 0, ("G", "A"): 0, ("G", "C"): 3,
+           ("G", "T"): 4, ("T", "A"): 2, ("T", "C"): 1, ("T", "G"): 5}
+    recs = [x.split("\t") for x in lines(p["snps.vcf"]) if x[0] != "#"]
+    chr1 = [(int(w[1]) - 1) // IL_DIV_WINDOW * 6 + cls[(w[3], w[4])]
+            for w in recs if w[0] == "chr1"]
+    n_win = dict(TOOLS_SIZES)["chr1"] // IL_DIV_WINDOW
+    counts = np.bincount(chr1, minlength=n_win * 6).reshape(n_win, 6)
+    want_div = [f"chr1\t{k * IL_DIV_WINDOW}\t{(k + 1) * IL_DIV_WINDOW}\t\t0"
+                "\t.\t" + "\t".join(map(str, counts[k])) for k in range(n_win)]
+    got = lines(p["div.out.bed"])
+    out["divergence_spectrum"] = {"windows": len(got),
+                                  "snps": int(counts.sum()),
+                                  "equal_numpy": got == want_div}
+    return out
+
+
+def interval_lift_ok(x: dict) -> bool:
+    """Every gate of interval_lift_checks met."""
+    lr, ls, lv = x["lift_reads"], x["lift_reads_strict"], x["lift_vcf"]
+    ism, oe = x["interval_subset_matrix"], x["overlap_enrichments"]
+    return bool(
+        lr["lifted_equal_numpy"] and lr["unmapped_equal_numpy"]
+        and lr["lifted"] > 0.9 * lr["records"]
+        and ls["lifted_equal_numpy"] and ls["unmapped_equal_numpy"]
+        and ls["unmapped"] > 0
+        and lv["out_equal_numpy"] and lv["unmapped_equal_numpy"]
+        and lv["snps"] > 0 and lv["snps_swapped"] == lv["snps"]
+        and lv["insertions_indel_message"] == lv["insertions"] > 0
+        and lv["deletions_fail_min_match"] == lv["deletions"] > 0
+        and x["bedpe_filter"]["equal_numpy"] and x["bedpe_filter"]["lines"]
+        and all(v["equal_numpy"] and v["lines"] > 0
+                for v in x["bedpe_overlap"].values())
+        and all(v["equal_numpy"] and v["lines"] > 0
+                for v in x["interval_contacts"].values())
+        and ism["binary"]["equal_numpy"] and ism["fraction"]["equal_numpy"]
+        and ism["nonzero_fraction_cells"] > 0
+        and x["gene_assignment_stats"]["equal_planted"]
+        and all(v["ok"] for r in oe.values() for v in r.values()
+                if isinstance(v, dict))
+        and x["divergence_spectrum"]["equal_numpy"]
+        and x["divergence_spectrum"]["snps"] > 0)
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -5849,7 +6434,32 @@ def phase_tools_cli(dev: torch.device) -> dict:
     Hamming distances on each window, and with ``-realign`` a row a
     window; ``simulateWrightFisher`` twice from one seed (the same
     bytes, frequencies summing to 1) and with ``-m 0`` from two bases,
-    the other two never appearing."""
+    the other two never appearing. (14) Slice 11.9 and
+    divergenceSpectrum (``interval_lift_inputs`` writes the seeded
+    inputs, ``interval_lift_steps`` runs the steps, ``interval_lift_checks``
+    reads their files with numpy and scipy alone, ``interval_lift_ok``
+    gates them; ``interval_lift_tools`` in the phase line):
+    ``liftCoordinates`` of samToBed's records at -minMatch 0.95 and
+    IL_STRICT_MATCH, gated on numpy's map through the chain's blocks and
+    its list of the reads that fail; of the chain's VCF with ``-faFile
+    q.fa``, gated on every SNP written with REF and ALT swapped (the query
+    carries the alt), every insertion under the INDEL message and every
+    deletion failing -minMatch (its probe, from pos, covers the deleted
+    bases alone); ``bedpeFilter``, ``bedpeOverlap -bedSelect`` (merged.bed
+    at thresholds 0 and 0.5 and with -overlapBoth; the seeded tiles with
+    -keepNames and with -overlapBoth at 0.5) and ``intervalContacts`` (of
+    merged.bed and of the tiles) of IL_CONTACTS seeded contacts, gated on
+    numpy's overlaps of each foot; ``intervalSubsetMatrix`` binary and
+    -fraction of merged.bed, snps.bed and the tiles over 1 kb windows,
+    value for value; ``geneAssignmentStats`` of a planted truth, its
+    printed share and lines the planted ones; ``overlapEnrichments``
+    upperBound, lowerBound and exact of merged.bed, and upperBound,
+    normalApproximate and exact of the tiles, against the planted SNPs,
+    gated on numpy's covered SNPs, scipy.stats.binom at numpy's
+    probability, numpy's convolution of the Poisson-binomial and scipy's
+    normal densities, the library's bounds on scipy's to IL_BINOM_RTOL;
+    ``divergenceSpectrum`` of 10 kb windows of chr1 with a VCF of the
+    planted SNPs, its six counts a window numpy's."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -6077,6 +6687,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         sw = sam_wig_steps(step, f, t_fa, snps, times)
         gorand_check = rand_seq_steps(step, f, times)
         pg = popgen_steps(step, tmp, times)
+        il = interval_lift_steps(step, f, q_fa, chain, snps, tmp, times)
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -6122,6 +6733,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["sam_wig_tools"] = sam_wig_checks(f, t_fa, sw)
         out["rand_seq"] = {**rand_seq_checks(f), "gorand": gorand_check}
         out["popgen_tools"] = popgen_checks(pg)
+        out["interval_lift_tools"] = interval_lift_checks(il)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -6218,6 +6830,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
                and h["fa_upper_equals_target"] and h["fai_equals_index"])
     if not (host_ok and fasta_ok and seq_ok and vcf_ok and bed_multifa_ok
             and sam_wig_ok and rand_ok and popgen_ok(out["popgen_tools"])
+            and interval_lift_ok(out["interval_lift_tools"])
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

@@ -185,6 +185,29 @@ COMMANDS = {
     "simulateWrightFisher": (
         "gonomics_tpu_torch.cli.popgen_tools:main_wright_fisher",
         "Multiallelic Wright-Fisher simulation (host)"),
+    "bedpeFilter": ("gonomics_tpu_torch.cli.bedpe_filter",
+                    "Filter bedpe contacts by score/distance/position/"
+                    "chrom (host)"),
+    "bedpeOverlap": ("gonomics_tpu_torch.cli.bedpe_overlap",
+                     "Filter bedpe contacts by overlap with a select file "
+                     "(host)"),
+    "intervalContacts": ("gonomics_tpu_torch.cli.interval_contacts",
+                         "Regions contacting an interval set via bedpe "
+                         "links (host)"),
+    "intervalSubsetMatrix": ("gonomics_tpu_torch.cli.interval_subset_matrix",
+                             "Binary/fraction overlap matrix of interval "
+                             "files over union regions (host)"),
+    "geneAssignmentStats": ("gonomics_tpu_torch.cli.gene_assignment_stats",
+                            "Truth bedpe gene assignments against a test "
+                            "bed (host)"),
+    "overlapEnrichments": ("gonomics_tpu_torch.cli.overlap_enrichments",
+                           "Enrichment/depletion p-values of element "
+                           "overlaps (host)"),
+    "liftCoordinates": ("gonomics_tpu_torch.cli.lift_coordinates",
+                        "Lift bed/vcf coordinates through a chain (host)"),
+    "divergenceSpectrum": ("gonomics_tpu_torch.cli.divergence_spectrum",
+                           "Six-class substitution spectrum per bed region "
+                           "(host)"),
 }
 
 

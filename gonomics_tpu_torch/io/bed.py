@@ -6,7 +6,9 @@ constants that bedToFasta reads (``POSITIVE``, ``NEGATIVE``, ``NONE``
 :14, ``Bed`` :18, ``process_bed_line`` :45, ``read`` :60,
 ``write_to_handle`` :64, ``write`` :68, ``compare`` :74,
 ``sort_by_coord`` :85, ``overlap`` :93,
-``minimum_distance`` :111, ``merge_high_mem`` :122), and the
+``minimum_distance`` :111, ``merge_high_mem`` :122,
+``merge_beds_keep_names_and_annotations`` :147-165, which
+geneAssignmentStats merges its truth with), and the
 ``to_midpoint`` and ``to_tss`` trims (:179-195) that bedFormat uses.
 Field-count-aware formatting matches gonomics' ``bed.ToString``."""
 
@@ -139,6 +141,29 @@ def merge_high_mem(records: list[Bed], merge_adjacent: int = -1,
             cur = b
     out.append(cur)
     return out
+
+
+def merge_beds_keep_names_and_annotations(records: list[Bed]) -> list[Bed]:
+    """records sorted, then each overlapping neighbour merged into the
+    record before it (bed.MergeBedsKeepNamesAndAnnotations,
+    compare.go:49): the names joined by commas, the scores summed, and
+    the first annotation appended once again for each merge, as gonomics
+    does. Sorts and edits records in place and returns them."""
+    sort_by_coord(records)
+    i = 0
+    while i < len(records) - 1:
+        if not overlap(records[i], records[i + 1]):
+            i += 1
+        else:
+            records[i].chrom_start = min(records[i].chrom_start,
+                                         records[i + 1].chrom_start)
+            records[i].chrom_end = max(records[i].chrom_end,
+                                       records[i + 1].chrom_end)
+            records[i].score += records[i + 1].score
+            records[i].name += "," + records[i + 1].name
+            records[i].annotation.append(records[i].annotation[0])
+            del records[i + 1]
+    return records
 
 
 def to_midpoint(b: Bed) -> Bed:

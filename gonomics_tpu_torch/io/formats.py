@@ -4,9 +4,10 @@ that they reach (``Axt`` :22, ``read_axt_with_header`` :48, ``read_axt``
 :60, ``_parse_axt_lines`` :64, ``axt_to_string`` :82, ``_axt_info``,
 ``_b2s_upper`` and ``axt_to_vcf`` :159-254, ``chain_to_axt`` :255,
 ``is_chain_file`` :291, ``is_axt_file`` :296, ``BaseStats`` and ``Chain``
-:343-365, ``read_chain`` :366), and the chain writer of multiFaToChain
-(``chain_to_string`` and ``write_chain`` :394-413). PSL, genePred, MAF
-and GTF are not ported."""
+:343-365, ``read_chain`` :366), the chain writer of multiFaToChain
+(``chain_to_string`` and ``write_chain`` :394-413), and the liftover of
+a target position that liftCoordinates uses (``t_pos_to_q_pos``
+:415-445). PSL, genePred, MAF and GTF are not ported."""
 
 from __future__ import annotations
 
@@ -284,3 +285,37 @@ def write_chain(filename: str, chains: list[Chain],
             f.write(cm + "\n")
         for c in chains:
             f.write(chain_to_string(c) + "\n")
+
+
+def t_pos_to_q_pos(c: Chain, t_pos: int) -> tuple[int, bool]:
+    """The query position of target position t_pos (chain.TPosToQPos,
+    lift.go:10), and False where t_pos falls in a gap (the query
+    position where the gap starts) or past the last block ((0, False)).
+    Raises ValueError on a minus target strand or a position outside
+    the chain."""
+    if not c.t_strand:
+        raise ValueError("all target strands should be positive")
+    curr_t = c.t_start
+    curr_q = c.q_start if c.q_strand else c.q_end - 1
+    if t_pos < c.t_start or t_pos > c.t_end:
+        raise ValueError("TPos not within the range of the chain")
+    for a in c.alignment:
+        if c.q_strand:
+            if curr_t + a.size > t_pos:
+                return curr_q + (t_pos - curr_t), True
+            curr_t += a.size
+            curr_q += a.size
+            if curr_t + a.t_bases > t_pos:
+                return curr_q, False
+            curr_t += a.t_bases
+            curr_q += a.q_bases
+        else:
+            if curr_t + a.size > t_pos:
+                return curr_q - (t_pos - curr_t), True
+            curr_t += a.size
+            curr_q -= a.size
+            if curr_t + a.t_bases > t_pos:
+                return curr_q, False
+            curr_t += a.t_bases
+            curr_q -= a.q_bases
+    return 0, False

@@ -9,9 +9,10 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 72 tools, imports none of them
+lists and dispatches exactly the port's 80 tools, imports none of them
 before dispatch, resolves a ``module:function`` target as the JAX
-umbrella does, runs the popgen tools to the JAX umbrella's bytes, and
+umbrella does, runs the popgen tools and the interval and lift tools to
+the JAX umbrella's bytes, and
 its ``gsw align`` wants the card; ``pyproject.toml`` installs it as
 ``gonomics-torch``; no new module imports JAX.
 """
@@ -69,29 +70,32 @@ from gonomics_tpu_torch.cli import wig_tools as twig_tools
 from gonomics_tpu_torch.io import fasta as tfasta
 
 from test_torch_card import _variant_inputs, _write_reference
+from test_torch_interval_tools import (VCF_HEAD, _bed_rows, _bedpe_rows,
+                                       _chain_text, _vcf_line)
 from test_torch_popgen import GROUPS, _aln, popgen_vcf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ["assemblyStats", "bamTagToReadGroup", "bedCountBam",
-          "bedDistanceFromChrEnds", "bedFilter",
-          "bedFormat", "bedGraphToWig", "bedMath", "bedMerge",
-          "bedMinimumDistanceName", "bedOverlapByWindow", "bedShear",
-          "bedSimilarity", "bedSplit", "bedToAminoAcid", "bedToFasta",
-          "bedToWig", "bedTrim", "bedValueWig", "callVariants",
+          "bedDistanceFromChrEnds", "bedFilter", "bedFormat", "bedGraphToWig",
+          "bedMath", "bedMerge", "bedMinimumDistanceName",
+          "bedOverlapByWindow", "bedShear", "bedSimilarity", "bedSplit",
+          "bedToAminoAcid", "bedToFasta", "bedToWig", "bedTrim",
+          "bedValueWig", "bedpeFilter", "bedpeOverlap", "callVariants",
           "catMultiFa", "cigarToBed", "countPairOfBases", "digestGenome",
-          "dunnIndex", "faBin", "faFilter", "faFindFast", "faFormat",
-          "faInfo", "faToPredictSet", "faUniq", "fastqFilter",
-          "fastqFormat", "fastqReplaceSeq", "findAndReplace", "gcContent",
-          "globalAlignment", "gsw", "intervalOverlap", "locateCG",
-          "longReadLibStats", "mcmcTraceStats", "mergeMultiFa",
-          "mergesort", "mouseRecon", "multiFaCount", "multiFaExtract",
-          "multiFaReduce", "multiFaScan", "multiFaSequenceSwap",
-          "multiFaToChain", "multiFaToVcf", "pileup", "plotFunctions",
-          "prcompFormat", "primateRecon", "randSeq", "reconstructSeq",
-          "samConsensus", "samInfo", "samToBed", "samToWig",
-          "selectionMcmc", "selectionMle", "simulateWrightFisher",
-          "statCalc", "vcfFilter", "vcfFormat", "vcfInfo", "vcfToFa",
-          "wigTools"]
+          "divergenceSpectrum", "dunnIndex", "faBin", "faFilter",
+          "faFindFast", "faFormat", "faInfo", "faToPredictSet", "faUniq",
+          "fastqFilter", "fastqFormat", "fastqReplaceSeq", "findAndReplace",
+          "gcContent", "geneAssignmentStats", "globalAlignment", "gsw",
+          "intervalContacts", "intervalOverlap", "intervalSubsetMatrix",
+          "liftCoordinates", "locateCG", "longReadLibStats", "mcmcTraceStats",
+          "mergeMultiFa", "mergesort", "mouseRecon", "multiFaCount",
+          "multiFaExtract", "multiFaReduce", "multiFaScan",
+          "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf",
+          "overlapEnrichments", "pileup", "plotFunctions", "prcompFormat",
+          "primateRecon", "randSeq", "reconstructSeq", "samConsensus",
+          "samInfo", "samToBed", "samToWig", "selectionMcmc", "selectionMle",
+          "simulateWrightFisher", "statCalc", "vcfFilter", "vcfFormat",
+          "vcfInfo", "vcfToFa", "wigTools"]
 
 
 def _edge_sam(genome) -> str:
@@ -248,7 +252,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 72 ported tools, each a key of
+    """help (and no argument) lists the 80 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -256,7 +260,7 @@ def test_umbrella_lists_the_ported_tools(capsys):
         listed = [ln.split()[0] for ln in lines if ln.startswith("  ")]
         assert listed == PORTED
     assert sorted(umbrella.COMMANDS) == PORTED
-    assert len(PORTED) == 72
+    assert len(PORTED) == 80
     assert set(PORTED) <= set(jmain.COMMANDS)
     assert all("TPU" not in desc for _, desc in umbrella.COMMANDS.values())
 
@@ -545,7 +549,17 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.align.oracle,"
             " gonomics_tpu_torch.cli.stat_calc,"
             " gonomics_tpu_torch.cli.plot_functions,"
-            " gonomics_tpu_torch.cli.popgen_tools\n"
+            " gonomics_tpu_torch.cli.popgen_tools,"
+            " gonomics_tpu_torch.io.bedpe,"
+            " gonomics_tpu_torch.lift_enrichment,"
+            " gonomics_tpu_torch.cli.bedpe_filter,"
+            " gonomics_tpu_torch.cli.bedpe_overlap,"
+            " gonomics_tpu_torch.cli.interval_contacts,"
+            " gonomics_tpu_torch.cli.interval_subset_matrix,"
+            " gonomics_tpu_torch.cli.gene_assignment_stats,"
+            " gonomics_tpu_torch.cli.overlap_enrichments,"
+            " gonomics_tpu_torch.cli.lift_coordinates,"
+            " gonomics_tpu_torch.cli.divergence_spectrum\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
@@ -628,3 +642,71 @@ def test_umbrella_popgen_tools_equal_jax_umbrella(popgen_inputs, tmp_path,
         out[side] = _read(path)
     assert out["port"] == out["jax"]
     assert out["jax"]
+
+
+@pytest.fixture(scope="module")
+def interval_inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("interval_umbrella")
+    rng = np.random.default_rng(2902)
+    rows = _bedpe_rows(rng, 30)
+    beds = _bed_rows(rng, 20)
+    files = {
+        "pe.bedpe": ["\t".join(r[:10]) for r in rows],
+        "b.bed": ["\t".join(r[:6]) for r in beds],
+        "a.bed": ["\t".join(r[:6]) for r in beds[:8]],
+        "list.txt": [str(d / "b.bed"), str(d / "a.bed")],
+        "union.bed": [f"chr1\t{s}\t{s + 300}" for s in range(0, 2700, 300)],
+        "truth.bedpe": ["\t".join(r[:3] + r[:3] + [r[3], "0", "+", "-"])
+                        for r in beds],
+        "test.bed": ["\t".join(r[:4]) for r in beds[::2]]
+        + ["\t".join(r[:3] + ["other"]) for r in beds[1::2]],
+        "e1.bed": [f"chr1\t{s}\t{s + 40}" for s in range(0, 2900, 150)],
+        "e2.bed": [f"chr1\t{s}\t{s + 9}" for s in range(5, 2900, 97)],
+        "space.bed": ["chr1\t0\t3000"],
+        "t.chain": [_chain_text(50, "chr1", 3000, "+", 0, 3000, "q1", 2998,
+                                "+", 0, 2998, 1, [(1000, 2, 0),
+                                                  (1998, 0, 0)])],
+        "s.vcf": VCF_HEAD + [_vcf_line("chr1", p, "ACGT"[p % 4],
+                                       "ACGT"[(p + 1) % 4])
+                             for p in range(7, 2990, 61)]}
+    for name, lines in files.items():
+        (d / name).write_text("".join(ln + "\n" for ln in lines))
+    return {k: str(d / k) for k in files}
+
+
+@pytest.mark.parametrize("tool", ["bedpeFilter", "bedpeOverlap",
+                                  "intervalContacts", "intervalSubsetMatrix",
+                                  "geneAssignmentStats", "overlapEnrichments",
+                                  "liftCoordinates", "divergenceSpectrum"])
+def test_umbrella_interval_tools_equal_jax_umbrella(interval_inputs,
+                                                    tmp_path, capsys, tool):
+    """Each interval and lift tool through gonomics-torch writes what the
+    JAX umbrella's writes, files and stdout."""
+    f = interval_inputs
+    out = {}
+    for side, mod in (("jax", jmain), ("port", umbrella)):
+        path = str(tmp_path / side)
+        argv = {
+            "bedpeFilter": ["bedpeFilter", f["pe.bedpe"], path,
+                            "-minDistance", "200"],
+            "bedpeOverlap": ["bedpeOverlap", "-bedSelect", f["b.bed"],
+                             f["pe.bedpe"], path],
+            "intervalContacts": ["intervalContacts", f["pe.bedpe"],
+                                 f["b.bed"], path],
+            "intervalSubsetMatrix": ["intervalSubsetMatrix", f["union.bed"],
+                                     f["list.txt"], path, "-fraction"],
+            "geneAssignmentStats": ["geneAssignmentStats", f["truth.bedpe"],
+                                    f["test.bed"], path, path + ".non"],
+            "overlapEnrichments": ["overlapEnrichments", "exact",
+                                   f["e1.bed"], f["e2.bed"], f["space.bed"],
+                                   path],
+            "liftCoordinates": ["liftCoordinates", f["t.chain"], f["b.bed"],
+                                path, path + ".non"],
+            "divergenceSpectrum": ["divergenceSpectrum", f["union.bed"],
+                                   f["s.vcf"], path]}[tool]
+        mod.main(argv)
+        out[side] = (_read(path), capsys.readouterr().out)
+        if os.path.exists(path + ".non"):
+            out[side] += (_read(path + ".non"),)
+    assert out["port"] == out["jax"]
+    assert out["jax"][0]
