@@ -320,8 +320,24 @@ exits non-zero:
             numpy's; the printed share and lines the planted ones; the
             overlap count numpy's, the p-values scipy's binomial tails,
             numpy's Poisson-binomial convolution and scipy's normal
-            densities; the six counts a window numpy's. The four kernels
-            launched. Wall time of each step.
+            densities; the six counts a window numpy's. Then item 10 and
+            item 11's MAF and axt tools (vcf_maf_axt_steps,
+            vcf_maf_axt_checks): the genotype caller
+            (diploid_base_call_batch) on pileup's covered positions on
+            the card and on the CPU; a trio VCF of the planted SNPs
+            (momma 0/0, poppa 1/1, kiddo 0/1) and 200 decoys through
+            filterGenotypes (trio and -byname), alleleSplit of the
+            aligner's SAM, haplotypeGenerator -includeRef over 10 kb
+            windows of chr1, sampleVcf and proximityBlockVcf at seeds;
+            vcfAncestorAnnotation of the chr1 SNPs over the chain's chr1
+            pair; vcfAfs of the AFS VCF with a 7-point likelihood grid;
+            mafFilter, mafToBed, mafToMultiFa and mafIndels of a MAF of
+            the chain's blocks (q e lines in every fifth); axTools
+            --stats, --minScore, --swap, --gap and --fasta, and axtSam.
+            Gates: the card's calls the CPU's and numpy's argmax, >= 99%
+            of the covered planted SNPs at depth >= 10 homozygous for the
+            query's base; each output numpy's from its inputs. The four
+            kernels launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -586,6 +602,24 @@ IL_ISM_WINDOW, IL_GENE_EVERY, IL_GENE_PAIR, IL_GENE_SHARE = 1000, 1000, 5, \
     0.6
 IL_DIV_WINDOW, IL_PRINT_RTOL, IL_BINOM_RTOL = 10_000, 1e-6, 1e-9
 IL_STRICT_MATCH = 0.99  # a read over a deletion of 2+ bases fails it
+# item 10 and item 11's MAF and axt tools: the trio's samples; the seed of
+# the decoys, MAF scores and axt scores, VMA_DECOYS trio sites failing
+# the trio test; haplotypeGenerator's windows of chr1; sampleVcf's
+# (-setSeed, -numVariants, -numSamples) and proximityBlockVcf's
+# (distance, -setSeed); vcfAfs' (-leftBound, -rightBound,
+# -numberOfPoints), whose grid steps over alpha 0 (where the likelihood
+# raises); the MAF's blocks of at most VMA_MAF_BLOCK bp, each
+# VMA_E_EVERY-th with a q e line alone, mafIndels' -eiThreshold VMA_EI;
+# the axt's pieces of VMA_AXT_PIECE bp; mafFilter's and axTools'
+# thresholds; the genotype caller's epsilon and prior (delta, gamma), and
+# the share of covered planted SNPs at depth >= VMA_MIN_DEPTH it must
+# call homozygous for the query's base
+VMA_TRIO = ("momma", "poppa", "kiddo")
+VMA_SEED, VMA_DECOYS, VMA_WINDOW = 2300, 200, 10_000
+VMA_SAMPLE, VMA_PROX, VMA_AFS = (2301, 100, 2), (1000, 2302), (-1.0, 11.0, 6)
+VMA_MAF_BLOCK, VMA_E_EVERY, VMA_EI, VMA_AXT_PIECE = 2000, 5, 0.1, 500
+VMA_MAF_THRESHOLD, VMA_AXT_MIN_SCORE = 500, 50_000
+VMA_EPS, VMA_PRIOR, VMA_MIN_DEPTH, VMA_HOM_SHARE = 0.01, (0.01, 3.0), 10, 0.99
 # the standard code in TCAG order, and the three-letter names
 CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
 AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
@@ -6310,6 +6344,599 @@ def interval_lift_ok(x: dict) -> bool:
         and x["divergence_spectrum"]["snps"] > 0)
 
 
+def vcf_maf_axt_inputs(f: dict, t_fa: str, chain: str, snps: dict,
+                       tmp: str) -> dict:
+    """The seeded inputs of item 10 and item 11's MAF and axt tools in
+    phase_tools_cli, under tmp: the trio VCF (every planted SNP with
+    momma 0/0, poppa 1/1 and kiddo 0/1, and VMA_DECOYS sites whose
+    genotypes fail the trio test), the names file of -byname, a VCF of
+    the chr1 SNPs, VMA_WINDOW bp windows of chr1; a pairwise MAF of the
+    chain's ungapped blocks cut to VMA_MAF_BLOCK bp, seeded scores, a
+    block in VMA_E_EVERY carrying only a q e line (status C or I, I of
+    sizes about and under VMA_EI of the block's), its chr1 part and its
+    target FASTA; an axt of the blocks cut to VMA_AXT_PIECE bp and one of
+    the blocks whole, N planted in the target row at the SNPs; q.sizes.
+    Returns the paths and what the checks need."""
+    rng = np.random.default_rng(VMA_SEED)
+    p = {k: os.path.join(tmp, k) for k in (
+        "trio.vcf", "trio_names.txt", "chr1_snps.vcf", "hap.bed",
+        "blocks.maf", "chr1.maf", "t_chr1.fa", "maf_species.txt",
+        "n.axt", "nf.axt", "q.sizes")}
+    target, query = fasta_strings(t_fa), fasta_strings(f["q.fa"])
+    sizes = dict(TOOLS_SIZES)
+    names = [c for c, _ in TOOLS_SIZES]
+    snp_at = {(c, pos): (ref, alt) for c in snps for pos, ref, alt in snps[c]}
+    rows = {(c, pos): (ref, alt, "0/0", "1/1", "0/1")
+            for (c, pos), (ref, alt) in snp_at.items()}
+    decoy_gts = (("0/0", "0/0", "0/1"), ("1/1", "1/1", "0/1"),
+                 ("0/1", "1/1", "0/1"), ("0/0", "1/1", "1/1"),
+                 ("1|1", "0|0", "0|0"))
+    while len(rows) < len(snp_at) + VMA_DECOYS:
+        c = names[int(rng.integers(0, len(names)))]
+        pos = int(rng.integers(1, sizes[c] + 1))
+        if (c, pos) in rows:
+            continue
+        ref = target[c][pos - 1]
+        alt = "ACGT"[("ACGT".index(ref) + int(rng.integers(1, 4))) % 4]
+        rows[(c, pos)] = (ref, alt, *decoy_gts[len(rows) % len(decoy_gts)])
+    order = sorted(rows, key=lambda k: (names.index(k[0]), k[1]))
+    head = ("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\t"
+            "INFO")
+    with open(p["trio.vcf"], "w") as fh:
+        fh.write(head + "\tFORMAT\t" + "\t".join(VMA_TRIO) + "\n")
+        fh.writelines(f"{c}\t{pos}\t.\t{rows[c, pos][0]}\t{rows[c, pos][1]}"
+                      "\t30\tPASS\t.\tGT\t" + "\t".join(rows[c, pos][2:])
+                      + "\n" for c, pos in order)
+    with open(p["trio_names.txt"], "w") as fh:
+        fh.write("poppa\nkiddo\n")
+    with open(p["chr1_snps.vcf"], "w") as fh:
+        fh.write(head + "\n")
+        fh.writelines(f"chr1\t{pos}\t.\t{ref}\t{alt}\t30\tPASS\t.\n"
+                      for pos, ref, alt in snps["chr1"])
+    with open(p["hap.bed"], "w") as fh:
+        fh.writelines(f"chr1\t{s}\t{s + VMA_WINDOW}\n"
+                      for s in range(0, sizes["chr1"], VMA_WINDOW))
+    with open(p["q.sizes"], "w") as fh:
+        fh.writelines(f"{c}\t{len(q)}\n" for c, q in query.items())
+
+    # the chain's ungapped blocks, cut to pieces of at most `cut` bases
+    cm = chain_maps(chain)
+
+    def pieces(cut):
+        for c in names:
+            _, t0, q0, size, _ = cm[c]
+            for ts, qs, n in zip(t0.tolist(), q0.tolist(), size.tolist()):
+                for k in range(0, n, cut):
+                    yield c, ts + k, qs + k, min(cut, n - k)
+
+    blocks = []
+    with open(p["blocks.maf"], "w") as fh, open(p["chr1.maf"], "w") as c1:
+        for out in (fh, c1):
+            out.write("##maf version=1 scoring=chip_smoke\n")
+        for c, ts, qs, n in pieces(VMA_MAF_BLOCK):
+            score = float(rng.integers(0, 2000)) + 0.25 * int(
+                rng.integers(0, 4))
+            e = None
+            if len(blocks) % VMA_E_EVERY == VMA_E_EVERY - 1:
+                status = "CI"[len(blocks) // VMA_E_EVERY % 2]
+                e_size = (int(n * VMA_EI * rng.uniform(0.2, 1.8))
+                          if status == "I" else n)
+                e = (status, e_size)
+            blocks.append((c, ts, qs, n, score, e))
+            text = (f"a score={score}\ns t.{c} {ts} {n} + {sizes[c]} "
+                    f"{target[c][ts:ts + n]}\n")
+            if e is None:
+                text += (f"s q.{c} {qs} {n} + {len(query[c])} "
+                         f"{query[c][qs:qs + n]}\n\n")
+            else:
+                text += f"e q.{c} {qs} {e[1]} + {len(query[c])} {e[0]}\n\n"
+            fh.write(text)
+            if c == "chr1":
+                c1.write(text)
+    write_fasta_strings(p["t_chr1.fa"], [("chr1", target["chr1"])])
+    with open(p["maf_species.txt"], "w") as fh:
+        fh.write("t\nq\n")
+
+    def axt(path, cut):
+        out = []
+        with open(path, "w") as fh:
+            for k, (c, ts, qs, n) in enumerate(pieces(cut)):
+                r = bytearray(target[c][ts:ts + n].encode())
+                hit = [pos for pos in range(ts + 1, ts + n + 1)
+                       if (c, pos) in snp_at]
+                for pos in hit:
+                    r[pos - 1 - ts] = ord("N")
+                score = int(rng.integers(100, 100_000))
+                fh.write(f"{k} {c} {ts + 1} {ts + n} {c} {qs + 1} {qs + n} + "
+                         f"{score}\n{r.decode()}\n{query[c][qs:qs + n]}\n\n")
+                out.append((c, ts, qs, n, score, hit))
+        return out
+
+    return {"paths": p, "blocks": blocks, "n_axt": axt(p["n.axt"],
+                                                       VMA_AXT_PIECE),
+            "nf_axt": axt(p["nf.axt"], 10 ** 9), "rows": rows,
+            "order": order, "target": target, "query": query,
+            "snp_at": snp_at}
+
+
+def vcf_maf_axt_steps(step, f: dict, t_fa: str, chain: str, snps: dict,
+                      pg: dict, tmp: str, times: dict,
+                      dev: torch.device) -> dict:
+    """The steps of item 10 and item 11's MAF and axt tools in
+    phase_tools_cli, on the inputs of vcf_maf_axt_inputs: the genotype
+    caller (``genotype.diploid_base_call_batch``) on pileup's covered
+    positions on the card and with device="cpu" (its walls into times);
+    filterGenotypes (the trio, and -byname poppa,kiddo), alleleSplit of
+    the aligner's SAM (in a directory of its own, the working directory
+    restored after), haplotypeGenerator -includeRef, sampleVcf and
+    proximityBlockVcf of the trio VCF; vcfAncestorAnnotation of the chr1
+    SNPs over multiFaToChain's chr1 pair; vcfAfs of popgen_steps' AFS
+    VCF; mafFilter, mafToBed, mafToMultiFa and mafIndels of the MAF;
+    axTools --stats (the swapped wiring), --minScore, --swap, --gap and
+    --fasta; axtSam --fasta of c.axt. Returns the paths and what the
+    checks need."""
+    from gonomics_tpu_torch import genotype
+
+    vm = vcf_maf_axt_inputs(f, t_fa, chain, snps, tmp)
+    p = vm["paths"]
+    p.update({k: os.path.join(tmp, k) for k in (
+        "trio_f.vcf", "trio_n.vcf", "allele_split", "hap", "sample.vcf",
+        "prox.vcf", "aa.vcf", "afs.txt", "afs_lik.tsv", "maf_f.maf",
+        "maf.bed", "maf.fa", "maf_ins.bed", "maf_del.bed", "axt_stats.txt",
+        "axt_min.axt", "axt_swap.axt", "axt_gap.axt", "axt_fa.fa",
+        "axt.sam")})
+
+    # the genotype caller on pileup's (P, 4) counts at the covered positions
+    pos, counts = [], []
+    with open(f["pileup.txt"]) as fh:
+        for line in fh:
+            if not line.startswith("#"):
+                w = line.split("\t")
+                pos.append((w[0], int(w[1])))
+                counts.append([int(x) for x in w[2:6]])
+    counts = np.array(counts, np.int64)
+    code = {b: i for i, b in enumerate("ACGT")}
+    ref = np.array([code[vm["target"][c][q - 1]] for c, q in pos], np.int64)
+    prior = genotype.make_diploid_base_prior_cache(*VMA_PRIOR)
+    genotype.diploid_base_call_batch(counts[:8], ref[:8], prior, VMA_EPS,
+                                     device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card = genotype.diploid_base_call_batch(counts, ref, prior, VMA_EPS,
+                                            device=dev)
+    times["genotype_card"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu = genotype.diploid_base_call_batch(counts, ref, prior, VMA_EPS,
+                                           device="cpu")
+    times["genotype_cpu"] = time.perf_counter() - t
+
+    step("filterGenotypes", "filterGenotypes", p["trio.vcf"], p["trio_f.vcf"],
+         "-f1", "kiddo", "-parentOne", "momma", "-parentTwo", "poppa")
+    step("filterGenotypes_byname", "filterGenotypes", p["trio.vcf"],
+         p["trio_n.vcf"], "-byname", p["trio_names.txt"])
+    # alleleSplit writes <f1>.<parent>.SNPs.sam into the working directory
+    os.mkdir(p["allele_split"])
+    cwd = os.getcwd()
+    os.chdir(p["allele_split"])
+    try:
+        step("alleleSplit", "alleleSplit", "-f1", "kiddo", "-parentOne",
+             "momma", "-parentTwo", "poppa", f["aln.sam"], p["trio.vcf"])
+    finally:
+        os.chdir(cwd)
+    os.mkdir(p["hap"])
+    step("haplotypeGenerator", "haplotypeGenerator", t_fa, p["trio.vcf"],
+         p["hap.bed"], p["hap"], "-includeRef")
+    seed, n_var, n_sam = VMA_SAMPLE
+    step("sampleVcf", "sampleVcf", p["trio.vcf"], p["sample.vcf"],
+         "-setSeed", str(seed), "-numVariants", str(n_var), "-numSamples",
+         str(n_sam))
+    step("proximityBlockVcf", "proximityBlockVcf", p["trio.vcf"],
+         p["prox.vcf"], str(VMA_PROX[0]), "-setSeed", str(VMA_PROX[1]))
+    step("vcfAncestorAnnotation", "vcfAncestorAnnotation",
+         p["chr1_snps.vcf"], f["pair.fa"], p["aa.vcf"])
+    left, right, points = VMA_AFS
+    step("vcfAfs", "vcfAfs", pg["paths"]["sel.vcf"], p["afs.txt"],
+         "-plotSelectionLikelihood", p["afs_lik.tsv"], "-leftBound",
+         str(left), "-rightBound", str(right), "-numberOfPoints", str(points))
+
+    step("mafFilter", "mafFilter", p["blocks.maf"], p["maf_f.maf"],
+         "-threshold", str(VMA_MAF_THRESHOLD))
+    step("mafToBed", "mafToBed", p["blocks.maf"], p["maf.bed"], "t")
+    step("mafToMultiFa", "mafToMultiFa", p["chr1.maf"], p["t_chr1.fa"],
+         p["maf_species.txt"], p["maf.fa"])
+    step("mafIndels", "mafIndels", p["blocks.maf"], "t", "q",
+         p["maf_ins.bed"], p["maf_del.bed"], "-eiThreshold", str(VMA_EI))
+
+    step("axTools_stats", "axTools", "--stats", "--bedfile",
+         p["axt_stats.txt"], f["c.axt"], f["merged.bed"])
+    step("axTools_minScore", "axTools", "--minScore",
+         str(VMA_AXT_MIN_SCORE), p["n.axt"], p["axt_min.axt"])
+    step("axTools_swap", "axTools", "--swap", "--tLen", f["t.sizes"],
+         "--qLen", p["q.sizes"], p["n.axt"], p["axt_swap.axt"])
+    step("axTools_gap", "axTools", "--gap", p["n.axt"], p["axt_gap.axt"])
+    step("axTools_fasta", "axTools", "--fasta", t_fa, p["nf.axt"],
+         p["axt_fa.fa"])
+    step("axtSam", "axtSam", "--fasta", t_fa, f["c.axt"], p["axt.sam"])
+    return {**vm, "inputs": {k: f[k] for k in (
+        "aln.sam", "c.axt", "merged.bed", "pair.fa", "t.sizes")},
+        "afs_vcf": pg["paths"]["sel.vcf"],
+        "genotype": {"counts": counts, "ref": ref, "pos": pos,
+                     "prior": prior, "card": card, "cpu": cpu}}
+
+
+def genotype_numpy(counts: np.ndarray, ref: np.ndarray, prior: np.ndarray,
+                   eps: float) -> np.ndarray:
+    """The diploid caller's calls in numpy: the flat-error log likelihoods
+    of the ten genotypes AA, AC, AG, AT, CC, CG, CT, GG, GT, TT in float64
+    plus the prior row of each reference base, numpy's argmax, then the
+    homozygous-reference genotype where a row counts no read."""
+    x = counts.astype(np.float64)
+    a, c, g, t = x.T
+    ome, e3 = np.log(1 - eps), np.log(eps / 3)
+    het = np.log(0.5 - eps / 3)
+    ll = np.stack([
+        ome * a + e3 * (c + g + t), het * (a + c) + e3 * (g + t),
+        het * (a + g) + e3 * (c + t), het * (a + t) + e3 * (c + g),
+        ome * c + e3 * (a + g + t), het * (c + g) + e3 * (a + t),
+        het * (c + t) + e3 * (a + g), ome * g + e3 * (a + c + t),
+        het * (g + t) + e3 * (a + c), ome * t + e3 * (a + c + g)], axis=1)
+    calls = np.argmax(ll + prior[ref], axis=1).astype(np.int8)
+    hom = np.array([0, 4, 7, 9], np.int8)
+    return np.where(x.sum(axis=1) < 1, hom[ref], calls)
+
+
+def cigar_runs(r: np.ndarray, q: np.ndarray) -> str:
+    """The =/X/I/D runs of two aligned rows of text bytes, as a CIGAR."""
+    gap = ord("-")
+    op = np.where(r == gap, 2, np.where(q == gap, 3, np.where(r == q, 0, 1)))
+    cut = np.flatnonzero(np.diff(op)) + 1
+    starts = np.concatenate([[0], cut])
+    ends = np.concatenate([cut, [len(op)]])
+    return "".join(f"{e - s}{'=XID'[op[s]]}" for s, e in zip(starts, ends))
+
+
+def maf_rows(path: str) -> list:
+    """The blocks of a MAF as (score text, [s line words]) pairs."""
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("a"):
+                out.append((line.split("score=")[1].split()[0], []))
+            elif line.startswith("s"):
+                out[-1][1].append(line.split())
+    return out
+
+
+def axt_rows(path: str) -> list:
+    """The records of an axt file: (header words, target row, query
+    row)."""
+    with open(path) as fh:
+        lines = [ln.rstrip("\n") for ln in fh if not ln.startswith("#")]
+    return [(lines[i].split(), lines[i + 1], lines[i + 2])
+            for i in range(0, len(lines) - 2, 4)]
+
+
+def vcf_maf_axt_checks(vm: dict) -> dict:
+    """What the gates of phase_tools_cli's item 10 and item 11 MAF and axt
+    steps read from their files, each against numpy or text alone: the
+    genotype calls against each other and genotype_numpy, and the share
+    of covered planted SNPs at depth >= VMA_MIN_DEPTH called homozygous
+    for the query's base; filterGenotypes' records the sites passing
+    numpy's trio test, -byname's columns poppa's and kiddo's;
+    alleleSplit's reads those of numpy's allele counts from each read's
+    CIGAR and bases at the trio SNPs; haplotypeGenerator's records numpy's
+    slices with each sample's alts; sampleVcf's records and columns those
+    of numpy's PCG64 permutations; proximityBlockVcf's kept records
+    VMA_PROX[0] apart and each dropped one near one kept before it in
+    numpy's permutation; the AA alleles the query row's bases at the SNPs'
+    columns; vcfAfs' frequencies and alpha grid numpy's, its likelihoods
+    finite and the largest within a grid step of POP_ALPHA; the MAF
+    tools' outputs numpy's from the blocks; the axt tools' outputs
+    numpy's from the records."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.io import fasta
+
+    p, t, q = vm["paths"], vm["target"], vm["query"]
+    rows, order, snp_at = vm["rows"], vm["order"], vm["snp_at"]
+    out = {}
+
+    gt = vm["genotype"]
+    want = genotype_numpy(gt["counts"], gt["ref"], gt["prior"], VMA_EPS)
+    depth = gt["counts"].sum(axis=1)
+    hom = np.array([0, 4, 7, 9])
+    at = {k: i for i, k in enumerate(gt["pos"])}
+    deep = [(at[k], alt) for k, (_, alt) in snp_at.items()
+            if k in at and depth[at[k]] >= VMA_MIN_DEPTH]
+    called = sum(int(gt["card"][i]) == hom["ACGT".index(alt)]
+                 for i, alt in deep)
+    out["genotype"] = {
+        "positions": len(gt["pos"]),
+        "card_equal_cpu": bool(np.array_equal(gt["card"], gt["cpu"])),
+        "card_equal_numpy": bool(np.array_equal(gt["card"], want)),
+        "dtype": str(gt["card"].dtype), "deep_snps": len(deep),
+        "hom_query_share": called / max(len(deep), 1)}
+
+    def records(path):
+        with open(path) as fh:
+            lines = fh.read().splitlines()
+        return ([ln for ln in lines if ln.startswith("#")],
+                [ln.split("\t") for ln in lines if not ln.startswith("#")])
+
+    def homo(g):
+        return len(g) == 3 and g[0] == g[2]
+
+    passing = [k for k in order
+               if homo(rows[k][2]) and homo(rows[k][3])
+               and len(rows[k][4]) == 3 and rows[k][4][0] != rows[k][4][2]
+               and rows[k][2][0] != rows[k][3][2]]
+    _, got = records(p["trio_f.vcf"])
+    out["filter_genotypes"] = {
+        "records": len(got), "planted": len(snp_at),
+        "equal_numpy": [(r[0], int(r[1])) for r in got] == passing}
+    head, got = records(p["trio_n.vcf"])
+    out["filter_genotypes_byname"] = {
+        "records": len(got),
+        "equal_numpy": head[-1].split("\t")[9:] == ["poppa", "kiddo"]
+        and [(r[0], int(r[1]), *r[9:]) for r in got]
+        == [(*k, rows[k][3], rows[k][4]) for k in order]}
+
+    # alleleSplit: momma's allele is REF, poppa's ALT, at the trio SNPs
+    sites = {}
+    for c, pos in passing:
+        sites.setdefault(c, {})[pos - 1] = rows[c, pos][:2]
+    site_pos = {c: np.array(sorted(v), np.int64) for c, v in sites.items()}
+    want = {"momma": [], "poppa": []}
+    header = []
+    with open(vm["inputs"]["aln.sam"]) as fh:
+        for line in fh:
+            if line.startswith("@"):
+                header.append(line.rstrip("\n"))
+                continue
+            w = line.split("\t")
+            if w[5] == "*" or w[2] not in sites:
+                continue
+            n = [0, 0]
+            tp, qp = int(w[3]) - 1, 0
+            for size, op in re.findall(r"(\d+)([MIDNSHP=X])", w[5]):
+                size = int(size)
+                if op in "SI":
+                    qp += size
+                elif op == "D":
+                    tp += size
+                elif op == "M":
+                    sp = site_pos[w[2]]
+                    for s in sp[np.searchsorted(sp, tp):
+                                np.searchsorted(sp, tp + size)].tolist():
+                        base = w[9][qp + s - tp].upper()
+                        ref, alt = sites[w[2]][s]
+                        n[0] += base == ref
+                        n[1] += base == alt
+                    tp += size
+                    qp += size
+            if n[0] != n[1]:
+                want["momma" if n[0] > n[1] else "poppa"].append(w[0])
+    split = {}
+    for parent in want:
+        with open(os.path.join(p["allele_split"],
+                               f"kiddo.{parent}.SNPs.sam")) as fh:
+            lines = fh.read().splitlines()
+        split[parent] = (lines[:len(header)] == header,
+                         [ln.split("\t")[0] for ln in lines[len(header):]])
+    out["allele_split"] = {
+        "poppa_reads": len(split["poppa"][1]),
+        "momma_reads": len(split["momma"][1]),
+        "headers_equal_input": all(v[0] for v in split.values()),
+        "equal_numpy": all(split[k][1] == want[k] for k in want)}
+
+    # haplotypeGenerator: chr1's windows, each sample's alts on the target
+    hap_ok, files = True, 0
+    for s in range(0, dict(TOOLS_SIZES)["chr1"], VMA_WINDOW):
+        e = s + VMA_WINDOW
+        seqs = fasta_strings(os.path.join(p["hap"], f"chr1.{s}.{e}.fa"))
+        files += 1
+        want_h = {"chr1": t["chr1"][s:e]}
+        for j, name in enumerate(VMA_TRIO):
+            for h, suffix in ((0, "A"), (2, "B")):
+                x = bytearray(t["chr1"][s:e].encode())
+                for c, pos in order:
+                    if c == "chr1" and s < pos <= e \
+                            and rows[c, pos][2 + j][h] == "1":
+                        x[pos - s - 1] = ord(rows[c, pos][1])
+                want_h[f"{name}_{suffix}"] = x.decode()
+        hap_ok &= list(seqs.items()) == list(want_h.items())
+    out["haplotype_generator"] = {"files": files, "equal_numpy": hap_ok}
+
+    seed, n_var, n_sam = VMA_SAMPLE
+    rng = np.random.default_rng(seed)
+    pick = [order[i] for i in rng.permutation(len(order))[:n_var]]
+    keep = rng.permutation(len(VMA_TRIO))[:n_sam].tolist()
+    head, got = records(p["sample.vcf"])
+    out["sample_vcf"] = {
+        "records": len(got),
+        "equal_numpy": head[-1].split("\t")[9:]
+        == [VMA_TRIO[i] for i in keep]
+        and [(r[0], int(r[1]), r[9:]) for r in got]
+        == [(*k, [rows[k][2 + i] for i in keep]) for k in pick]}
+
+    dist, seed = VMA_PROX
+    perm = [order[i] for i in np.random.default_rng(seed).permutation(
+        len(order))]
+    _, got = records(p["prox.vcf"])
+    kept = [(r[0], int(r[1])) for r in got]
+    kept_set, before, prox_ok = set(kept), [], True
+    for k in perm:
+        near = any(c == k[0] and abs(pos - k[1]) < dist for c, pos in before)
+        if k in kept_set:
+            prox_ok &= not near
+            before.append(k)
+        else:
+            prox_ok &= near
+    out["proximity_block_vcf"] = {
+        "kept": len(kept), "records": len(order),
+        "equal_numpy": prox_ok and kept == before}
+
+    pair = list(fasta_strings(vm["inputs"]["pair.fa"]).values())
+    cols = np.flatnonzero(np.frombuffer(pair[0].encode(), np.uint8)
+                          != ord("-"))
+    _, got = records(p["aa.vcf"])
+    out["vcf_ancestor_annotation"] = {
+        "records": len(got),
+        "equal_numpy": [r[7] for r in got]
+        == [f"AA={pair[1][cols[int(r[1]) - 1]]}" for r in got],
+        "aa_is_alt": all(r[7] == f"AA={r[4]}" for r in got)}
+
+    with open(vm["afs_vcf"]) as fh:
+        alts = [ln.split("\t")[9:] for ln in fh if not ln.startswith("#")]
+    n_afs = [sum(g.count("1") for g in a) for a in alts]
+    with open(p["afs.txt"]) as fh:
+        freq = fh.read().splitlines()
+    left, right, points = VMA_AFS
+    grid = left + (np.arange(points + 1) / points) * (right - left)
+    with open(p["afs_lik.tsv"]) as fh:
+        lik = [ln.split("\t") for ln in fh.read().splitlines()[1:]]
+    values = np.array([float(x[1]) for x in lik])
+    best = (float(grid[int(np.argmax(values))]) if len(lik) == len(grid)
+            else None)
+    out["vcf_afs"] = {
+        "sites": len(freq),
+        "freq_equal_numpy": freq == [f"{k / POP_N:f}" for k in n_afs],
+        "alphas_equal_numpy": [x[0] for x in lik] == [f"{a:e}" for a in grid],
+        "likelihoods_finite": bool(np.isfinite(values).all()),
+        "best_alpha": best,
+        "best_within_step": best is not None
+        and abs(best - POP_ALPHA) <= (right - left) / points}
+
+    blocks = vm["blocks"]
+    got = maf_rows(p["maf_f.maf"])
+    want_f = [b for b in blocks if b[4] >= VMA_MAF_THRESHOLD]
+    out["maf_filter"] = {
+        "blocks": len(got), "of": len(blocks),
+        "equal_numpy": [(s, [w[1:6] for w in ws]) for s, ws in got]
+        == [(f"{b[4]:.1f}", [["t." + b[0], str(b[1]), str(b[3]), "+",
+                               str(len(t[b[0]]))]]
+             + ([] if b[5] else [["q." + b[0], str(b[2]), str(b[3]), "+",
+                                  str(len(q[b[0]]))]])) for b in want_f]}
+    got = bed_rows(p["maf.bed"])
+    out["maf_to_bed"] = {
+        "lines": len(got),
+        "equal_numpy": got == [[b[0], str(b[1]), str(b[1] + b[3]), "t;q",
+                                str(int(b[4]))] for b in blocks]}
+    rows_fa = list(fasta_strings(p["maf.fa"]).items())
+    q_want = np.full(len(t["chr1"]), ord("-"), np.uint8)
+    for c, ts, qs, n, _, e in blocks:
+        if c == "chr1" and e is None:
+            q_want[ts:ts + n] = np.frombuffer(q[c][qs:qs + n].encode(),
+                                              np.uint8)
+    out["maf_to_multi_fa"] = {
+        "names": [n for n, _ in rows_fa],
+        "target_equal": rows_fa[0][1] == t["chr1"],
+        "query_equal_numpy": rows_fa[1][1] == q_want.tobytes().decode()}
+    ins, dele = [], []
+    for c, ts, qs, n, score, e in blocks:
+        if e is not None and (e[0] == "C" or e[1] < VMA_EI * n):
+            tag = "eC" if e[0] == "C" else "eI"
+            ins.append([c, str(ts), str(ts + n), f"ins_{tag}",
+                        str(int(score))])
+            dele.append([c, str(qs), str(qs + e[1]), f"del_{tag}",
+                         str(int(score))])
+    got_i, got_d = bed_rows(p["maf_ins.bed"]), bed_rows(p["maf_del.bed"])
+    out["maf_indels"] = {
+        "lines": len(got_i), "ei": sum(r[3] == "ins_eI" for r in got_i),
+        "equal_numpy": got_i == ins and got_d == dele}
+
+    merged = spans_index(bed_rows(vm["inputs"]["merged.bed"]))
+    want_s = ["length\tpercentIdentity"]
+    for w, r, qr in axt_rows(vm["inputs"]["c.axt"]):
+        cs, ce = int(w[2]) - 1, int(w[3])
+        if not len(span_hits(merged, w[1], cs, ce)[1]):
+            continue
+        rb = np.frombuffer(r.upper().encode(), np.uint8)
+        qb = np.frombuffer(qr.upper().encode(), np.uint8)
+        end = int(np.flatnonzero(rb != ord("-"))[-1]) + 1
+        eq = rb[:end] == qb[:end]
+        nn = int((eq & (rb[:end] == ord("N"))).sum())
+        pid = (int(eq.sum()) - nn) / (end - nn) * 100
+        want_s.append(f"{ce - cs}\t{pid:.2f}")
+    with open(p["axt_stats.txt"]) as fh:
+        got = fh.read().splitlines()
+    out["ax_tools_stats"] = {"lines": len(got) - 1,
+                             "equal_numpy": got == want_s}
+    n_axt = vm["n_axt"]
+    got = axt_rows(p["axt_min.axt"])
+    out["ax_tools_min_score"] = {
+        "records": len(got),
+        "equal_numpy": [int(w[8]) for w, _, _ in got]
+        == [a[4] for a in n_axt if a[4] >= VMA_AXT_MIN_SCORE]}
+    got = axt_rows(p["axt_swap.axt"])
+    src = axt_rows(p["n.axt"])
+    out["ax_tools_swap"] = {
+        "records": len(got),
+        "equal_numpy": [(w[1:8], r, qr) for w, r, qr in got]
+        == [([w[4], w[5], w[6], w[1], w[2], w[3], "+"], r, qr)
+            for w, r, qr in src]}
+    got = axt_rows(p["axt_gap.axt"])
+    out["ax_tools_gap"] = {
+        "records": len(got), "of": len(n_axt),
+        "equal_numpy": [(w[1], int(w[2])) for w, _, _ in got]
+        == [(a[0], a[1] + 1) for a in n_axt if a[5]]}
+    got = [(r.name, dna.to_string(r.seq))
+           for r in fasta.read_forced(p["axt_fa.fa"])]
+    fa_want = []
+    for c, ts, qs, n, _, hit in vm["nf_axt"]:
+        x = bytearray(t[c].encode())
+        for pos in hit:
+            x[pos - 1] = ord(snp_at[c, pos][1])
+        fa_want.append((c, x.decode()))
+    out["ax_tools_fasta"] = {"records": len(got),
+                             "equal_numpy": got == fa_want}
+
+    sam_want, x_want = [], []
+    for w, r, qr in axt_rows(vm["inputs"]["c.axt"]):
+        rb, qb = (np.frombuffer(x.encode(), np.uint8) for x in (r, qr))
+        sam_want.append((w[4], w[1], w[2], cigar_runs(rb, qb),
+                         qr.replace("-", "")))
+        x_want.append(sum(1 for c, pos in snp_at
+                          if c == w[1] and int(w[2]) <= pos <= int(w[3])))
+    with open(p["axt.sam"]) as fh:
+        got = [ln.split("\t") for ln in fh.read().splitlines()
+               if not ln.startswith("@")]
+    out["axt_sam"] = {
+        "records": len(got),
+        "equal_numpy": [(r[0], r[2], r[3], r[5], r[9]) for r in got]
+        == sam_want,
+        "x_equal_planted": [sum(int(n) for n, op in re.findall(
+            r"(\d+)([=XID])", r[5]) if op == "X") for r in got] == x_want}
+    return out
+
+
+def vcf_maf_axt_ok(x: dict) -> bool:
+    """Every gate of vcf_maf_axt_checks met."""
+    g, a = x["genotype"], x["allele_split"]
+    return bool(
+        g["card_equal_cpu"] and g["card_equal_numpy"] and g["dtype"] == "int8"
+        and g["deep_snps"] > 0 and g["hom_query_share"] >= VMA_HOM_SHARE
+        and x["filter_genotypes"]["records"]
+        == x["filter_genotypes"]["planted"]
+        and a["poppa_reads"] > a["momma_reads"] and a["headers_equal_input"]
+        and all(v["equal_numpy"] for k, v in x.items()
+                if isinstance(v, dict) and "equal_numpy" in v)
+        and all(x[k]["records"] > 0 for k in (
+            "filter_genotypes_byname", "sample_vcf", "vcf_ancestor_annotation",
+            "ax_tools_min_score", "ax_tools_swap", "ax_tools_gap",
+            "ax_tools_fasta", "axt_sam"))
+        and x["vcf_ancestor_annotation"]["aa_is_alt"]
+        and x["vcf_afs"]["freq_equal_numpy"]
+        and x["vcf_afs"]["alphas_equal_numpy"]
+        and x["vcf_afs"]["likelihoods_finite"]
+        and x["vcf_afs"]["best_within_step"]
+        and x["maf_to_multi_fa"]["target_equal"]
+        and x["maf_to_multi_fa"]["query_equal_numpy"]
+        and x["maf_indels"]["ei"] > 0 and x["axt_sam"]["x_equal_planted"]
+        and 0 < x["ax_tools_gap"]["records"] < x["ax_tools_gap"]["of"]
+        and 0 < x["proximity_block_vcf"]["kept"]
+        < x["proximity_block_vcf"]["records"])
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -6459,7 +7086,42 @@ def phase_tools_cli(dev: torch.device) -> dict:
     probability, numpy's convolution of the Poisson-binomial and scipy's
     normal densities, the library's bounds on scipy's to IL_BINOM_RTOL;
     ``divergenceSpectrum`` of 10 kb windows of chr1 with a VCF of the
-    planted SNPs, its six counts a window numpy's."""
+    planted SNPs, its six counts a window numpy's. (15) Item 10 and item
+    11's MAF and axt tools (``vcf_maf_axt_inputs`` writes the seeded
+    inputs, ``vcf_maf_axt_steps`` runs the steps, ``vcf_maf_axt_checks``
+    reads their files with numpy and text alone, ``vcf_maf_axt_ok`` gates
+    them; ``vcf_maf_axt_tools`` in the phase line): the genotype caller
+    ``diploid_base_call_batch`` on the (P, 4) ACGT counts of pileup's
+    rows, the target's bases as ref, on the card and with
+    ``device="cpu"``, gated on the two being identical, equal to
+    ``genotype_numpy`` (numpy's argmax of the same float64 formula), and
+    on >= VMA_HOM_SHARE of the covered planted SNPs at depth >=
+    VMA_MIN_DEPTH called homozygous for the query's base;
+    ``filterGenotypes`` of the trio VCF (the planted SNPs as momma 0/0,
+    poppa 1/1, kiddo 0/1, and VMA_DECOYS decoys failing the test) and
+    with ``-byname poppa,kiddo``, gated on numpy's trio test and columns;
+    ``alleleSplit -f1 kiddo -parentOne momma -parentTwo poppa`` of the
+    aligner's SAM (in a directory of its own, the working directory
+    restored after), gated on numpy's allele counts from each read's
+    CIGAR and bases at the SNPs; ``haplotypeGenerator -includeRef`` over
+    VMA_WINDOW bp windows of chr1, each record numpy's slice with the
+    sample's alts; ``sampleVcf`` and ``proximityBlockVcf`` at their
+    seeds, gated on numpy's PCG64 permutations (the kept records
+    VMA_PROX[0] apart, each dropped one near one kept before it);
+    ``vcfAncestorAnnotation`` of the chr1 SNPs over multiFaToChain's chr1
+    pair, AA= the query row's base at the SNP's column; ``vcfAfs`` of
+    popgen_steps' AFS VCF with a likelihood grid over VMA_AFS (a grid
+    point at alpha 0 exactly raises), its frequencies and alphas
+    numpy's, its likelihoods finite,
+    the largest within a step of POP_ALPHA; ``mafFilter``, ``mafToBed``,
+    ``mafToMultiFa`` (chr1, species t and q) and ``mafIndels`` of a MAF of
+    the chain's ungapped blocks, each numpy's lines from the blocks;
+    ``axTools --stats`` (the swapped wiring: c.axt, merged.bed and
+    ``--bedfile`` the stats), ``--minScore``, ``--swap --tLen --qLen``,
+    ``--gap`` and ``--fasta`` on axts of the chain's blocks with N
+    planted at the SNPs, and ``axtSam --fasta`` of c.axt, each numpy's
+    from the records (axtSam's CIGARs the rows' =/X/I/D runs, its X count
+    the planted SNPs)."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -6688,6 +7350,8 @@ def phase_tools_cli(dev: torch.device) -> dict:
         gorand_check = rand_seq_steps(step, f, times)
         pg = popgen_steps(step, tmp, times)
         il = interval_lift_steps(step, f, q_fa, chain, snps, tmp, times)
+        vm = vcf_maf_axt_steps(step, f, t_fa, chain, snps, pg, tmp, times,
+                               dev)
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -6734,6 +7398,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["rand_seq"] = {**rand_seq_checks(f), "gorand": gorand_check}
         out["popgen_tools"] = popgen_checks(pg)
         out["interval_lift_tools"] = interval_lift_checks(il)
+        out["vcf_maf_axt_tools"] = vcf_maf_axt_checks(vm)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -6831,6 +7496,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
     if not (host_ok and fasta_ok and seq_ok and vcf_ok and bed_multifa_ok
             and sam_wig_ok and rand_ok and popgen_ok(out["popgen_tools"])
             and interval_lift_ok(out["interval_lift_tools"])
+            and vcf_maf_axt_ok(out["vcf_maf_axt_tools"])
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

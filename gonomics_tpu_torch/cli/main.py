@@ -208,6 +208,35 @@ COMMANDS = {
     "divergenceSpectrum": ("gonomics_tpu_torch.cli.divergence_spectrum",
                            "Six-class substitution spectrum per bed region "
                            "(host)"),
+    "sampleVcf": ("gonomics_tpu_torch.cli.vcf_sampling:main_sample",
+                  "Random sample of VCF variants/samples (host)"),
+    "proximityBlockVcf": ("gonomics_tpu_torch.cli.vcf_sampling:main_proximity",
+                          "Distance-blocked variant sampling (host)"),
+    "filterGenotypes": (
+        "gonomics_tpu_torch.cli.vcf_sampling:main_filter_genotypes",
+        "Allele-specific genotype filter / sample subsetting (host)"),
+    "vcfAncestorAnnotation": (
+        "gonomics_tpu_torch.cli.vcf_sampling:main_ancestor",
+        "Add ancestral alleles to VCF INFO (host)"),
+    "vcfAfs": ("gonomics_tpu_torch.cli.vcf_sampling:main_afs",
+               "Allele frequency spectrum from a VCF (host)"),
+    "haplotypeGenerator": (
+        "gonomics_tpu_torch.cli.vcf_sampling:main_haplotype",
+        "Per-sample haplotype fastas for regions (host)"),
+    "alleleSplit": ("gonomics_tpu_torch.cli.allele_split",
+                    "Split F1-hybrid SAM reads by parental allele (host)"),
+    "mafFilter": ("gonomics_tpu_torch.cli.maf_tools:main_filter",
+                  "Filter maf blocks by score threshold (host)"),
+    "mafToBed": ("gonomics_tpu_torch.cli.maf_tools:main_to_bed",
+                 "Maf blocks to reference-species bed (host)"),
+    "mafToMultiFa": ("gonomics_tpu_torch.cli.maf_tools:main_to_multi_fa",
+                     "Maf alignment to multi-fasta (host)"),
+    "mafIndels": ("gonomics_tpu_torch.cli.maf_tools:main_indels",
+                  "Insertions/deletions from pairwise maf e-lines (host)"),
+    "axTools": ("gonomics_tpu_torch.cli.ax_tools",
+                "Axt utilities: stats/filter/consensus/swap (host)"),
+    "axtSam": ("gonomics_tpu_torch.cli.axt_sam",
+               "Convert axt alignments to sam (host)"),
 }
 
 

@@ -1,7 +1,7 @@
 """DNA base codes and sequence conversion: the subset of
 ``gonomics_tpu/dna.py`` that the read aligners, the variant caller, the
-consensus tools, the fasta tools, digestGenome and the Dunn index
-use.
+consensus tools, the fasta tools, digestGenome, the Dunn index,
+alleleSplit and axTools use.
 
 A sequence is an int8 numpy array of base codes 0..12, the same integer
 codes as the reference's ``dna`` package.
@@ -122,6 +122,11 @@ def dist(a: np.ndarray, b: np.ndarray) -> int:
     if len(a) != len(b):
         raise ValueError("Dist requires equal-length sequences")
     return int((a != b).sum())
+
+
+def count_base(seq: np.ndarray, base: int) -> int:
+    """The codes in seq equal to base (dna.py:136-138)."""
+    return int((np.asarray(seq) == base).sum())
 
 
 def complement(seq: np.ndarray) -> np.ndarray:

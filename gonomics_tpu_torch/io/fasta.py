@@ -1,8 +1,9 @@
 """FASTA records, reading and writing, multiFa coordinates and assembly
 statistics: the subset of ``gonomics_tpu/io/fasta.py`` that the read
-aligner, the ``gsw`` CLI, ``samConsensus`` and the fasta tools use
-(``_parse`` :34, ``read`` :57, ``read_forced`` :67, ``to_map`` :73,
-``write_fasta`` :86, ``write`` :95, ``ref_pos_to_aln_pos`` and
+aligner, the ``gsw`` CLI, ``samConsensus``, the fasta tools and axTools
+use (``_parse`` :34, ``read`` :57, ``read_forced`` :67, ``to_map`` :73,
+``read_to_map`` :82, ``write_fasta`` :86, ``write`` :95,
+``ref_pos_to_aln_pos`` and
 ``ref_pos_to_aln_pos_counter`` :105-126, ``aln_pos_to_ref_pos`` :127,
 ``aln_pos_to_ref_pos_counter`` :133, ``make_contig_list``,
 ``calculate_n50_l50``, ``assembly_stats`` and ``write_assembly_stats``
@@ -80,6 +81,11 @@ def to_map(records: list[Fasta]) -> dict[str, np.ndarray]:
             raise ValueError(f"{r.name} used for multiple fasta records")
         m[r.name] = r.seq
     return m
+
+
+def read_to_map(filename: str) -> dict[str, np.ndarray]:
+    """{name: sequence} of a FASTA file (fasta.py:82-83)."""
+    return to_map(read(filename))
 
 
 def write_fasta(f: IO[str], rec: Fasta, line_length: int = 50) -> None:

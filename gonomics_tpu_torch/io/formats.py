@@ -1,13 +1,17 @@
 """Chain and axt records, as ``gsw ggtools`` and ``mergesort`` read and
 write them: the chain and axt parts of ``gonomics_tpu/io/formats.py``
-that they reach (``Axt`` :22, ``read_axt_with_header`` :48, ``read_axt``
-:60, ``_parse_axt_lines`` :64, ``axt_to_string`` :82, ``_axt_info``,
-``_b2s_upper`` and ``axt_to_vcf`` :159-254, ``chain_to_axt`` :255,
-``is_chain_file`` :291, ``is_axt_file`` :296, ``BaseStats`` and ``Chain``
-:343-365, ``read_chain`` :366), the chain writer of multiFaToChain
-(``chain_to_string`` and ``write_chain`` :394-413), and the liftover of
-a target position that liftCoordinates uses (``t_pos_to_q_pos``
-:415-445). PSL, genePred, MAF and GTF are not ported."""
+that they reach (``Axt`` with its interval properties :22-44,
+``read_axt_with_header`` :48, ``read_axt`` :60, ``_parse_axt_lines``
+:64, ``axt_to_string`` :82, ``_axt_info``, ``_b2s_upper`` and
+``axt_to_vcf`` :159-254, ``chain_to_axt`` :255, ``is_chain_file`` :291,
+``is_axt_file`` :296, ``BaseStats`` and ``Chain`` :343-365,
+``read_chain`` :366), the chain writer of multiFaToChain
+(``chain_to_string`` and ``write_chain`` :394-413), the liftover of a
+target position that liftCoordinates uses (``t_pos_to_q_pos``
+:415-445), and what axTools and axtSam reach: ``write_axt``,
+``swap_axt``, ``pair_seq_to_cigar`` and ``axt_to_sam`` (:90-158),
+``_axt_ref_idx_range`` and ``axt_percent_identity_in_interval``
+(:301-336). PSL, genePred, MAF and GTF are not ported."""
 
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .. import dna, fileio
+from . import cigar as samcigar
+from . import sam as samio
 from . import vcf as vcfio
 
 
@@ -31,6 +37,19 @@ class Axt:
     score: int = 0
     r_seq: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int8))
     q_seq: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int8))
+
+    # the interval protocol: the target's 0-based half-open span
+    @property
+    def chrom(self) -> str:
+        return self.r_name
+
+    @property
+    def chrom_start(self) -> int:
+        return self.r_start - 1
+
+    @property
+    def chrom_end(self) -> int:
+        return self.r_end
 
 
 def read_axt_with_header(filename: str) -> tuple[list[Axt], list[str]]:
@@ -71,6 +90,77 @@ def axt_to_string(a: Axt, aln_id: int) -> str:
     return (f"{aln_id} {a.r_name} {a.r_start} {a.r_end} {a.q_name} "
             f"{a.q_start} {a.q_end} {strand} {a.score}\n"
             f"{dna.to_string(a.r_seq)}\n{dna.to_string(a.q_seq)}\n\n")
+
+
+def write_axt(filename: str, records: list[Axt]) -> None:
+    """The blocks numbered from 0 in list order (formats.py:90-93)."""
+    with fileio.easy_create(filename) as f:
+        for i, a in enumerate(records):
+            f.write(axt_to_string(a, i))
+
+
+def swap_axt(a: Axt, t_len: int, q_len: int) -> None:
+    """In place, the target and query names and coordinates exchanged,
+    minus-strand coordinates flipped onto the other strand
+    (formats.py:96-110). Its two row swaps cancel, so the rows stay
+    where they were; on a minus strand both are reverse-complemented."""
+    a.r_seq, a.q_seq = a.q_seq, a.r_seq
+    a.r_name, a.q_name = a.q_name, a.r_name
+    if not a.q_strand_pos:
+        r_start, r_end = q_len - a.q_end + 1, q_len - a.q_start + 1
+        q_start, q_end = t_len - a.r_end + 1, t_len - a.r_start + 1
+        a.r_start, a.r_end, a.q_start, a.q_end = r_start, r_end, q_start, q_end
+        a.r_seq = dna.reverse_complement(a.r_seq)
+        a.q_seq = dna.reverse_complement(a.q_seq)
+    else:
+        a.r_start, a.r_end, a.q_start, a.q_end = \
+            a.q_start, a.q_end, a.r_start, a.r_end
+    a.r_seq, a.q_seq = a.q_seq, a.r_seq
+
+
+def pair_seq_to_cigar(a: np.ndarray, b: np.ndarray) -> list[samcigar.CigarOp]:
+    """=/X/I/D runs of a gapped pair: a gap in a is I, a gap in b is D; a
+    gap against a gap raises ValueError (formats.py:113-144)."""
+    a, b = np.asarray(a), np.asarray(b)
+    out: list[samcigar.CigarOp] = []
+    i = 0
+    while i < len(a):
+        if a[i] != dna.GAP and b[i] != dna.GAP:
+            op = "=" if a[i] == b[i] else "X"
+        elif a[i] == dna.GAP and b[i] != dna.GAP:
+            op = "I"
+        elif a[i] != dna.GAP and b[i] == dna.GAP:
+            op = "D"
+        else:
+            raise ValueError("gap aligned to gap")
+        j = i + 1
+        while j < len(a):
+            if op == "=" and not (a[j] == b[j] and a[j] != dna.GAP):
+                break
+            if op == "X" and not (a[j] != b[j] and a[j] != dna.GAP
+                                  and b[j] != dna.GAP):
+                break
+            if op == "I" and a[j] != dna.GAP:
+                break
+            if op == "D" and b[j] != dna.GAP:
+                break
+            j += 1
+        out.append(samcigar.CigarOp(run_length=j - i, op=op))
+        i = j
+    return out
+
+
+def axt_to_sam(a: Axt) -> samio.Sam:
+    """One SAM record of a block (formats.py:147-156): POS the target
+    start, TLEN r_end - r_start, MAPQ 255, flag 16 on a minus query, SEQ
+    the query without gaps, AS:i the score, XS:i and XE:i the query
+    span."""
+    q = np.asarray(a.q_seq)
+    return samio.Sam(
+        qname=a.q_name, flag=0 if a.q_strand_pos else 16, rname=a.r_name,
+        pos=a.r_start, mapq=255, cigar=pair_seq_to_cigar(a.r_seq, a.q_seq),
+        rnext="*", pnext=0, tlen=a.r_end - a.r_start, seq=q[q != dna.GAP],
+        qual="*", extra=f"AS:i:{a.score}\tXS:i:{a.q_start}\tXE:i:{a.q_end}")
 
 
 def _axt_info(a: Axt) -> str:
@@ -232,6 +322,45 @@ def is_chain_file(filename: str) -> bool:
 
 def is_axt_file(filename: str) -> bool:
     return filename.endswith(".axt") or filename.endswith(".axt.gz")
+
+
+def _axt_ref_idx_range(a: Axt, chrom_start: int,
+                       chrom_end: int) -> tuple[int, int]:
+    """The alignment columns that cover a target interval
+    (formats.py:301-320)."""
+    r = np.asarray(a.r_seq)
+    start = 0
+    stop = 0
+    for i in range(len(r)):
+        if stop >= chrom_start - (a.r_start - 1):
+            break
+        if r[i] != dna.GAP:
+            stop += 1
+        start += 1
+    end, stop = start, 0
+    for i in range(start, len(r)):
+        if r[i] != dna.GAP:
+            stop += 1
+        end += 1
+        if stop >= chrom_end - chrom_start:
+            break
+    return start, end
+
+
+def axt_percent_identity_in_interval(a: Axt, chrom_start: int,
+                                     chrom_end: int) -> float:
+    """Matches over aligned columns, times 100, in a target interval,
+    case ignored; N against N leaves both counts, a gap against a gap
+    raises ValueError (formats.py:323-336)."""
+    start, end = _axt_ref_idx_range(a, chrom_start, chrom_end)
+    r = dna.to_upper(np.asarray(a.r_seq)[start:end])
+    q = dna.to_upper(np.asarray(a.q_seq)[start:end])
+    eq = r == q
+    if bool((eq & (r == dna.GAP)).any()):
+        raise ValueError("Gaps aligned to each other")
+    aligned_n = int((eq & (r == dna.N)).sum())
+    c = int(eq.sum()) - aligned_n
+    return c / (end - start - aligned_n) * 100
 
 
 def read_chain(filename: str) -> tuple[list[Chain], list[str]]:

@@ -2,7 +2,8 @@
 subset of ``gonomics_tpu/io/sam.py`` that the read aligner emits, the
 variant caller reads and ``mergesort`` writes (the flag tests :72-83, ``parse_header_text`` :94, the text
 reader :122-153, the BAM decoder :156-259 and its tag text :311-366,
-``read`` :262, ``write_sam`` :283 and ``read_header_text`` :469).
+``read`` :262, ``generate_header`` :270-280, ``write_sam`` :283 and
+``read_header_text`` :469).
 Records match the JAX reader's field for field."""
 
 from __future__ import annotations
@@ -250,6 +251,21 @@ def read(filename: str):
         header, _refs, records = read_bam(filename)
         return header, records
     return read_sam_text(filename)
+
+
+def generate_header(chroms: list[ChromInfo],
+                    additional: list[str] | None = None,
+                    sort_order: str = "unsorted",
+                    grouping: str = "") -> Header:
+    """@HD and one @SQ a chrom, then the additional lines, parsed
+    (sam.py:270-280): ``GO:`` only where grouping is set and not
+    ``none``."""
+    text = [f"@HD\tVN:1.6\tSO:{sort_order}"]
+    if grouping and grouping != "none":
+        text[0] += f"\tGO:{grouping}"
+    text.extend(f"@SQ\tSN:{c.name}\tLN:{c.size}" for c in chroms)
+    text.extend(additional or [])
+    return parse_header_text(text)
 
 
 def write_sam(filename: str, header: Header, records: list[Sam]) -> None:

@@ -8,7 +8,12 @@ the reader (``_parse_samples`` :84, ``read`` :114, ``process_vcf_line``
 metadata and typed INFO/FORMAT parsing (:150-284: the type constants,
 ``Key``, ``HeaderMeta``, ``_angle_fields``, ``parse_header_meta``,
 ``get_number``, ``_parse_value``, ``parse_info``, ``parse_format``) that
-vcfFormat, vcfToFa and vcfFilter read. ``to_string`` gives
+vcfFormat, vcfToFa and vcfFilter read; the sample-list helpers
+``header_get_sample_list`` and ``header_update_sample_list`` (:286-303)
+and the genotype and ancestor helpers ``is_homozygous``,
+``is_heterozygous``, ``append_ancestor``,
+``annotate_ancestor_from_multi_fa`` and ``ancestor_flag_to_header``
+(:338-397) of the vcf_sampling tools and alleleSplit. ``to_string`` gives
 Vcf.String()/Sample.String() byte for byte."""
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import IO
 
-from .. import fileio
+from .. import dna, fileio
+from . import fasta as fastaio
 
 
 @dataclass
@@ -287,6 +293,27 @@ def parse_format(v: Vcf, meta: HeaderMeta) -> dict:
     return parsed
 
 
+def header_get_sample_list(header: Header) -> list[str]:
+    """The sample names of the #CHROM line; exits where there is none
+    (vcf.py:286-292)."""
+    for line in header.text:
+        if line.startswith("#CHROM"):
+            return line.split("\t")[9:]
+    raise SystemExit("No Sample info in VCF line, cannot parse sample "
+                     "names.")
+
+
+def header_update_sample_list(header: Header,
+                              new_samples: list[str]) -> Header:
+    """A copy of header whose #CHROM lines name new_samples
+    (vcf.py:295-302)."""
+    out = Header(text=list(header.text))
+    for i, line in enumerate(out.text):
+        if line.startswith("#CHROM"):
+            out.text[i] = "\t".join(line.split("\t")[:9] + new_samples)
+    return out
+
+
 def snp(v: Vcf) -> bool:
     """Info holds SVTYPE=SNP (also true for SVTYPE=SNP;INS and
     SVTYPE=SNP;DEL haplotype blocks)."""
@@ -315,3 +342,68 @@ def new_header() -> Header:
     return Header(text=[
         "##fileformat=VCFv4.2",
         "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT"])
+
+
+def is_homozygous(s: Sample) -> bool:
+    """Two alleles, equal (vcf.py:338-341)."""
+    return (s.alleles is not None and len(s.alleles) == 2
+            and s.alleles[0] == s.alleles[1])
+
+
+def is_heterozygous(s: Sample) -> bool:
+    """Two alleles, different (vcf.py:344-346)."""
+    return (s.alleles is not None and len(s.alleles) == 2
+            and s.alleles[0] != s.alleles[1])
+
+
+def append_ancestor(v: Vcf, bases: str) -> Vcf:
+    """AA=bases appended to INFO, or in place of an INFO of "."
+    (vcf.py:349-353)."""
+    v.info = (f"AA={bases}" if v.info == "."
+              else f"{v.info};AA={bases}")
+    return v
+
+
+def annotate_ancestor_from_multi_fa(v: Vcf, records, ref_start: int,
+                                    aln_start: int):
+    """AA= from row 1 of an alignment at v's column in row 0, the allele
+    running over the gaps that follow it in row 0 (vcf.py:356-374).
+    Returns (v, the reference position and the column to start the next
+    search from)."""
+    p = fastaio.ref_pos_to_aln_pos_counter(records[0], v.pos - 1,
+                                           ref_start, aln_start)
+    ref_seq = records[0].seq
+    anc_seq = records[1].seq
+    if p + 1 < len(ref_seq) and ref_seq[p + 1] == dna.GAP:
+        end = p + 1
+        while end < len(ref_seq) and ref_seq[end] == dna.GAP:
+            end += 1
+        allele = dna.to_string(anc_seq[p:end])
+    else:
+        allele = dna.to_string(anc_seq[p:p + 1])
+    v = append_ancestor(v, allele)
+    return v, v.pos - 1, p
+
+
+def ancestor_flag_to_header(header: Header) -> Header:
+    """A copy of header with the AA INFO line after the last ##INFO,
+    else before the first ##FORMAT, else at the end (vcf.py:377-397)."""
+    line = ('##INFO=<ID=AA,Number=1,Type=String,'
+            'Description="AncestralAllele">')
+    last_info = -1
+    first_format = -1
+    for i, txt in enumerate(header.text):
+        key = txt.split("=")[0]
+        if key == "##INFO":
+            last_info = i
+        if key == "##FORMAT" and first_format == -1:
+            first_format = i
+    out = list(header.text)
+    if last_info == -1:
+        if first_format == -1:
+            out.append(line)
+        else:
+            out.insert(first_format, line)
+    else:
+        out.insert(last_info + 1, line)
+    return Header(text=out)

@@ -1707,6 +1707,28 @@ def test_wright_fisher_on_card_reproducible(card):
     assert bool(((a >= 0) & (a <= 1)).all()) and float(a[-1]) > 0.9
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps,lam", [(0.01, 0.0), (0.01, 0.05), (0.0, 0.0),
+                                     (0.5, 0.6)])
+def test_genotype_batch_on_card_equals_cpu(card, eps, lam):
+    """diploid_base_call_batch on the card (device=None) equals its
+    device="cpu" call, over seeded counts with empty rows and N and
+    lower-case references, both priors; eps = 0 and eps + lam >= 1 give
+    -inf * 0 = NaN posteriors, where both take the first NaN."""
+    from gonomics_tpu_torch import genotype
+
+    rng = np.random.default_rng(31)
+    counts = rng.integers(0, 30, (20_000, 4))
+    counts[::9] = 0
+    refs = rng.integers(0, 7, 20_000)
+    for prior in (genotype.make_diploid_base_prior_cache(0.01, 3.0),
+                  genotype.make_diploid_base_flat_prior_cache()):
+        got = genotype.diploid_base_call_batch(counts, refs, prior, eps, lam)
+        want = genotype.diploid_base_call_batch(counts, refs, prior, eps,
+                                                lam, device="cpu")
+        assert got.dtype == np.int8 and np.array_equal(got, want)
+
+
 # (B, n, m, K, cuts, CL): one forward block cut into strips [cuts[k],
 # cuts[k + 1]) of lanes, each strip a launch of affine_fwd_block's strip
 # mode taking its left edge from the strip before it, exact against the

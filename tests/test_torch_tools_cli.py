@@ -9,10 +9,10 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 80 tools, imports none of them
+lists and dispatches exactly the port's 93 tools, imports none of them
 before dispatch, resolves a ``module:function`` target as the JAX
-umbrella does, runs the popgen tools and the interval and lift tools to
-the JAX umbrella's bytes, and
+umbrella does, runs the popgen tools, the interval and lift tools and
+the VCF, MAF and axt tools to the JAX umbrella's bytes, and
 its ``gsw align`` wants the card; ``pyproject.toml`` installs it as
 ``gonomics-torch``; no new module imports JAX.
 """
@@ -75,27 +75,31 @@ from test_torch_interval_tools import (VCF_HEAD, _bed_rows, _bedpe_rows,
 from test_torch_popgen import GROUPS, _aln, popgen_vcf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORTED = ["assemblyStats", "bamTagToReadGroup", "bedCountBam",
-          "bedDistanceFromChrEnds", "bedFilter", "bedFormat", "bedGraphToWig",
-          "bedMath", "bedMerge", "bedMinimumDistanceName",
-          "bedOverlapByWindow", "bedShear", "bedSimilarity", "bedSplit",
-          "bedToAminoAcid", "bedToFasta", "bedToWig", "bedTrim",
-          "bedValueWig", "bedpeFilter", "bedpeOverlap", "callVariants",
-          "catMultiFa", "cigarToBed", "countPairOfBases", "digestGenome",
-          "divergenceSpectrum", "dunnIndex", "faBin", "faFilter",
-          "faFindFast", "faFormat", "faInfo", "faToPredictSet", "faUniq",
-          "fastqFilter", "fastqFormat", "fastqReplaceSeq", "findAndReplace",
-          "gcContent", "geneAssignmentStats", "globalAlignment", "gsw",
-          "intervalContacts", "intervalOverlap", "intervalSubsetMatrix",
-          "liftCoordinates", "locateCG", "longReadLibStats", "mcmcTraceStats",
-          "mergeMultiFa", "mergesort", "mouseRecon", "multiFaCount",
-          "multiFaExtract", "multiFaReduce", "multiFaScan",
-          "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf",
-          "overlapEnrichments", "pileup", "plotFunctions", "prcompFormat",
-          "primateRecon", "randSeq", "reconstructSeq", "samConsensus",
-          "samInfo", "samToBed", "samToWig", "selectionMcmc", "selectionMle",
-          "simulateWrightFisher", "statCalc", "vcfFilter", "vcfFormat",
-          "vcfInfo", "vcfToFa", "wigTools"]
+PORTED = ["alleleSplit", "assemblyStats", "axTools", "axtSam",
+          "bamTagToReadGroup", "bedCountBam", "bedDistanceFromChrEnds",
+          "bedFilter", "bedFormat", "bedGraphToWig", "bedMath", "bedMerge",
+          "bedMinimumDistanceName", "bedOverlapByWindow", "bedShear",
+          "bedSimilarity", "bedSplit", "bedToAminoAcid", "bedToFasta",
+          "bedToWig", "bedTrim", "bedValueWig", "bedpeFilter", "bedpeOverlap",
+          "callVariants", "catMultiFa", "cigarToBed", "countPairOfBases",
+          "digestGenome", "divergenceSpectrum", "dunnIndex", "faBin",
+          "faFilter", "faFindFast", "faFormat", "faInfo", "faToPredictSet",
+          "faUniq", "fastqFilter", "fastqFormat", "fastqReplaceSeq",
+          "filterGenotypes", "findAndReplace", "gcContent",
+          "geneAssignmentStats", "globalAlignment", "gsw",
+          "haplotypeGenerator", "intervalContacts", "intervalOverlap",
+          "intervalSubsetMatrix", "liftCoordinates", "locateCG",
+          "longReadLibStats", "mafFilter", "mafIndels", "mafToBed",
+          "mafToMultiFa", "mcmcTraceStats", "mergeMultiFa", "mergesort",
+          "mouseRecon", "multiFaCount", "multiFaExtract", "multiFaReduce",
+          "multiFaScan", "multiFaSequenceSwap", "multiFaToChain",
+          "multiFaToVcf", "overlapEnrichments", "pileup", "plotFunctions",
+          "prcompFormat", "primateRecon", "proximityBlockVcf", "randSeq",
+          "reconstructSeq", "samConsensus", "samInfo", "samToBed", "samToWig",
+          "sampleVcf", "selectionMcmc", "selectionMle",
+          "simulateWrightFisher", "statCalc", "vcfAfs",
+          "vcfAncestorAnnotation", "vcfFilter", "vcfFormat", "vcfInfo",
+          "vcfToFa", "wigTools"]
 
 
 def _edge_sam(genome) -> str:
@@ -252,7 +256,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 80 ported tools, each a key of
+    """help (and no argument) lists the 93 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -260,7 +264,7 @@ def test_umbrella_lists_the_ported_tools(capsys):
         listed = [ln.split()[0] for ln in lines if ln.startswith("  ")]
         assert listed == PORTED
     assert sorted(umbrella.COMMANDS) == PORTED
-    assert len(PORTED) == 80
+    assert len(PORTED) == 93
     assert set(PORTED) <= set(jmain.COMMANDS)
     assert all("TPU" not in desc for _, desc in umbrella.COMMANDS.values())
 
@@ -559,7 +563,13 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.gene_assignment_stats,"
             " gonomics_tpu_torch.cli.overlap_enrichments,"
             " gonomics_tpu_torch.cli.lift_coordinates,"
-            " gonomics_tpu_torch.cli.divergence_spectrum\n"
+            " gonomics_tpu_torch.cli.divergence_spectrum,"
+            " gonomics_tpu_torch.genotype,"
+            " gonomics_tpu_torch.cli.vcf_sampling,"
+            " gonomics_tpu_torch.cli.allele_split,"
+            " gonomics_tpu_torch.io.maf, gonomics_tpu_torch.cli.maf_tools,"
+            " gonomics_tpu_torch.cli.ax_tools,"
+            " gonomics_tpu_torch.cli.axt_sam\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
@@ -589,7 +599,11 @@ def test_umbrella_module_function_targets(tmp_path, monkeypatch):
     assert fake_tool_mod.calls == [("other", ["a", "-b"]), ("main", ["c"])]
     for name in ("selectionMle", "selectionMcmc", "dunnIndex",
                  "mcmcTraceStats", "simulateWrightFisher", "statCalc",
-                 "plotFunctions"):
+                 "plotFunctions", "sampleVcf", "proximityBlockVcf",
+                 "filterGenotypes", "vcfAncestorAnnotation", "vcfAfs",
+                 "haplotypeGenerator", "alleleSplit", "mafFilter",
+                 "mafToBed", "mafToMultiFa", "mafIndels", "axTools",
+                 "axtSam"):
         port, jax = umbrella.COMMANDS[name][0], jmain.COMMANDS[name][0]
         assert port.replace("gonomics_tpu_torch.", "gonomics_tpu.") == jax
 
@@ -710,3 +724,108 @@ def test_umbrella_interval_tools_equal_jax_umbrella(interval_inputs,
             out[side] += (_read(path + ".non"),)
     assert out["port"] == out["jax"]
     assert out["jax"][0]
+
+
+@pytest.fixture(scope="module")
+def vcf_maf_axt_inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("vcf_maf_axt_umbrella")
+    rng = np.random.default_rng(3001)
+    g = "".join(rng.choice(list("ACGT"), 400))
+    trio = []
+    for k, p in enumerate(range(20, 380, 23)):
+        alt = "ACGT"[("ACGT".index(g[p - 1]) + 1) % 4]
+        gts = ("0/0\t1/1\t0/1" if k % 3 else "0/0\t0/0\t0/1")
+        trio.append(f"chr1\t{p}\t.\t{g[p - 1]}\t{alt}\t30\tPASS\t.\tGT\t"
+                    + gts)
+    reads = ["@HD\tVN:1.6\tSO:coordinate", "@SQ\tSN:chr1\tLN:400"]
+    for i, s in enumerate(range(0, 340, 17)):
+        seq = list(g[s:s + 50])
+        if i % 2:  # poppa's alleles
+            for row in trio:
+                p = int(row.split("\t")[1])
+                if s < p <= s + 50:
+                    seq[p - 1 - s] = row.split("\t")[4]
+        reads.append(f"r{i}\t0\tchr1\t{s + 1}\t60\t50M\t*\t0\t0\t"
+                     f"{''.join(seq)}\t*")
+    axt = ["0 chr1 11 30 chrQ 1 20 + 120", g[10:30], g[10:20] + "N" + g[21:30],
+           "", "1 chr1 101 120 chrQ 31 51 - 80", g[100:110] + "N" + g[111:120]
+           + "-", g[100:120] + "A", ""]
+    files = {
+        "t.fa": [">chr1", g], "t.sizes": ["chr1\t400"],
+        "q.sizes": ["chrQ\t100"],
+        "trio.vcf": ["##fileformat=VCFv4.2", "#CHROM\tPOS\tID\tREF\tALT\t"
+                     "QUAL\tFILTER\tINFO\tFORMAT\tmomma\tpoppa\tkiddo"]
+        + trio,
+        "reads.sam": reads, "names.txt": ["kiddo", "momma"],
+        "regions.bed": ["chr1\t0\t200", "chr1\t250\t400"],
+        "aln.fa": [">chr1", g[:100] + "--" + g[100:], ">anc",
+                   g[:50] + "T" + g[51:100] + "CC" + g[100:]],
+        "a.maf": ["##maf version=1", "a score=12.0",
+                  f"s t.chr1 10 20 + 400 {g[10:30]}",
+                  f"s q.chr1 0 20 + 100 {g[10:30]}", "",
+                  "a score=3.5", f"s t.chr1 60 15 + 400 {g[60:75]}",
+                  "e q.chr1 30 1 - 100 I", ""],
+        "species.txt": ["t", "q"], "c.axt": axt}
+    for name, lines in files.items():
+        (d / name).write_text("".join(ln + "\n" for ln in lines))
+    popgen_vcf(str(d / "afs.vcf"), 61, sites=8, samples=4)
+    return {k: str(d / k) for k in list(files) + ["afs.vcf"]}
+
+
+@pytest.mark.parametrize("tool", [
+    "sampleVcf", "proximityBlockVcf", "filterGenotypes",
+    "filterGenotypes_byname",
+    "vcfAncestorAnnotation", "vcfAfs", "haplotypeGenerator", "alleleSplit",
+    "mafFilter", "mafToBed", "mafToMultiFa", "mafIndels", "axTools_stats",
+    "axTools_swap", "axTools_fasta", "axtSam"])
+def test_umbrella_vcf_maf_axt_tools_equal_jax_umbrella(
+        vcf_maf_axt_inputs, tmp_path, monkeypatch, capsys, tool):
+    """Each VCF, MAF and axt tool of item 10 and item 11 through
+    gonomics-torch writes what the JAX umbrella's writes, files and
+    stdout (alleleSplit into its working directory)."""
+    f = vcf_maf_axt_inputs
+    out = {}
+    for side, mod in (("jax", jmain), ("port", umbrella)):
+        d = tmp_path / side
+        d.mkdir()
+        monkeypatch.chdir(d)
+        o = str(d / "out")
+        argv = {
+            "sampleVcf": ["sampleVcf", f["trio.vcf"], o, "-numVariants", "5",
+                          "-numSamples", "2", "-setSeed", "3"],
+            "proximityBlockVcf": ["proximityBlockVcf", f["trio.vcf"], o,
+                                  "40", "-setSeed", "4"],
+            "filterGenotypes": ["filterGenotypes", f["trio.vcf"], o, "-f1",
+                                "kiddo", "-parentOne", "momma",
+                                "-parentTwo", "poppa"],
+            "filterGenotypes_byname": ["filterGenotypes", f["trio.vcf"], o,
+                                       "-byname", f["names.txt"]],
+            "vcfAncestorAnnotation": ["vcfAncestorAnnotation", f["trio.vcf"],
+                                      f["aln.fa"], o],
+            "vcfAfs": ["vcfAfs", f["afs.vcf"], o, "-plotSelectionLikelihood",
+                       o + ".lik", "-leftBound", "-2", "-rightBound", "3",
+                       "-numberOfPoints", "2", "-integralError", "1e-5"],
+            "haplotypeGenerator": ["haplotypeGenerator", f["t.fa"],
+                                   f["trio.vcf"], f["regions.bed"], str(d),
+                                   "-includeRef"],
+            "alleleSplit": ["alleleSplit", "-f1", "kiddo", "-parentOne",
+                            "momma", "-parentTwo", "poppa", f["reads.sam"],
+                            f["trio.vcf"]],
+            "mafFilter": ["mafFilter", f["a.maf"], o, "-threshold", "5"],
+            "mafToBed": ["mafToBed", f["a.maf"], o, "t"],
+            "mafToMultiFa": ["mafToMultiFa", f["a.maf"], f["t.fa"],
+                             f["species.txt"], o, "-noMask"],
+            "mafIndels": ["mafIndels", f["a.maf"], "t", "q", o, o + ".del",
+                          "-eiThreshold", "0.5"],
+            "axTools_stats": ["axTools", "--stats", "--bedfile", o,
+                              f["c.axt"], f["regions.bed"]],
+            "axTools_swap": ["axTools", "--swap", "--tLen", f["t.sizes"],
+                             "--qLen", f["q.sizes"], f["c.axt"], o],
+            "axTools_fasta": ["axTools", "--gap", f["c.axt"], o],
+            "axtSam": ["axtSam", "--fasta", f["t.fa"], f["c.axt"], o]}[tool]
+        mod.main(argv)
+        files = {n: _read(str(d / n)) for n in sorted(os.listdir(d))}
+        out[side] = (files, capsys.readouterr().out)
+    assert out["port"] == out["jax"]
+    assert any(out["jax"][0].values())
+
