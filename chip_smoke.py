@@ -336,8 +336,20 @@ exits non-zero:
             --stats, --minScore, --swap, --gap and --fasta, and axtSam.
             Gates: the card's calls the CPU's and numpy's argmax, >= 99%
             of the covered planted SNPs at depth >= 10 homozygous for the
-            query's base; each output numpy's from its inputs. The four
-            kernels launched. Wall time of each step.
+            query's base; each output numpy's from its inputs. Then
+            slice 11.11b (gtf_accel_steps, gtf_accel_checks): gtfTools
+            filter and toBed, getPromoter, geneIdToName, scCount and
+            quickOrthologs of a seeded GTF of 194 genes on chr1, chr2 and
+            chrU (no chain) with the aligner's SAM barcoded 8 ways;
+            multiFaAcceleration (mutation, and SNP over a search space)
+            and branchLengthsMultiFaBed of a four-way alignment of 3,000
+            columns of chr2 with a stretch where hum mutates 10 times
+            faster. Gates: each output numpy's from its inputs (lifts
+            through the chain's blocks, the canonical transcript by the
+            strictly-longer swap, windows, distances from prefix sums,
+            lengths and Q of a plain least-squares fit); the stretch's
+            raw velocity >= 3 times the rest's. The four kernels
+            launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -620,6 +632,25 @@ VMA_SAMPLE, VMA_PROX, VMA_AFS = (2301, 100, 2), (1000, 2302), (-1.0, 11.0, 6)
 VMA_MAF_BLOCK, VMA_E_EVERY, VMA_EI, VMA_AXT_PIECE = 2000, 5, 0.1, 500
 VMA_MAF_THRESHOLD, VMA_AXT_MIN_SCORE = 500, 50_000
 VMA_EPS, VMA_PRIOR, VMA_MIN_DEPTH, VMA_HOM_SHARE = 0.01, (0.01, 3.0), 10, 0.99
+# slice 11.11b: GA_GENES genes a chrom (chrU, GA_CHRU_BP bp, in no chain),
+# those of chr1 and chr2 at least GA_GENE_GAP bp apart (no read spans
+# two), every GA_TIE_EVERY-th of two transcripts of equal lengths; reads
+# barcoded with GA_BARCODES seeded barcodes; getPromoter's -upstream and
+# -downstream; accel.fa's GA_ACCEL_BP columns of chr2 from GA_ACCEL_AT,
+# four rows at GA_RATE with GA_GAP_RUNS gap runs a row (mutant_rows),
+# hum's private rate GA_HOT_X times over in columns GA_HOT; windows of
+# GA_WINDOW; a search space of runs of 100-399 bases between gaps of
+# 40-169 (~70% of the slice) at -searchSpaceProportion GA_PROPORTION;
+# GA_REGIONS regions for branchLengthsMultiFaBed; the planted stretch's
+# mean raw velocity at least GA_VEL_RATIO times the rest's; Q within
+# GA_Q_RTOL or GA_Q_ATOL of the formula's
+GA_SEED, GA_GENES = 3100, (("chr1", 150), ("chr2", 40), ("chrU", 4))
+GA_CHRU_BP, GA_GENE_GAP, GA_TIE_EVERY = 20_000, 1000, 8
+GA_BARCODES, GA_PROMOTER = 8, (1000, 200)
+GA_ACCEL_AT, GA_ACCEL_BP, GA_RATE, GA_GAP_RUNS = 10_000, 3000, 0.02, 3
+GA_HOT, GA_HOT_X = (1200, 1800), 10
+GA_WINDOW, GA_PROPORTION, GA_REGIONS = 100, 0.5, 20
+GA_VEL_RATIO, GA_Q_RTOL, GA_Q_ATOL = 3.0, 1e-9, 1e-12
 # the standard code in TCAG order, and the three-letter names
 CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
 AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
@@ -6937,6 +6968,738 @@ def vcf_maf_axt_ok(x: dict) -> bool:
         < x["proximity_block_vcf"]["records"])
 
 
+def gtf_accel_inputs(f: dict, t_fa: str, tmp: str) -> dict:
+    """The seeded inputs of slice 11.11b in phase_tools_cli, under tmp:
+    genes.gtf, GA_GENES genes a chrom, those of chr1 and chr2 at least
+    GA_GENE_GAP bp apart, chrU's at its ends too (no chain covers chrU);
+    each of 1-3 transcripts of 1-6 exons on either strand, two thirds
+    coding (a CDS line on every exon past a 5UTR, frames 0-2, some 5UTR
+    and 3UTR lines, start_codon and stop_codon lines), about one in ten
+    of chr1's and chr2's with an empty gene_name, every GA_TIE_EVERY-th
+    of two transcripts of equal CDS and cDNA lengths, the second
+    shifted; ga.sizes (t.sizes and chrU); the aligner's SAM with each
+    read's name extended by _BX:<barcode>_UMI:<umi> (GA_BARCODES seeded
+    barcodes), sorted by barcode, stably; a normalisation table for a
+    seeded third of the genes; getPromoter's list, filter's list,
+    geneIdToName's table and its tab file of TSSs named by gene id;
+    accel.fa, four rows (hum, chimp, gor, orang) of GA_ACCEL_BP columns
+    of chr2 from GA_ACCEL_AT in the manner of mutant_rows, hum's private
+    rate GA_HOT_X times over in columns GA_HOT; a search space over about
+    70% of the slice; GA_REGIONS regions for branchLengthsMultiFaBed and
+    one equal to a window of the SNP run.
+    Returns the paths and what the checks need."""
+    rng = np.random.default_rng(GA_SEED)
+    p = {k: os.path.join(tmp, k) for k in (
+        "genes.gtf", "ga.sizes", "bx.sam", "norm.tsv", "promoter_names.txt",
+        "filter_names.txt", "id_table.tsv", "tss_ids.txt", "accel.fa",
+        "space.bed", "regions.bed")}
+    sizes = {**dict(TOOLS_SIZES), "chrU": GA_CHRU_BP}
+    with open(p["ga.sizes"], "w") as fh:
+        fh.writelines(f"{c}\t{n}\n" for c, n in sizes.items())
+    n_all = sum(n for _, n in GA_GENES)
+    ids = [f"ENSG{i:05d}" for i in rng.permutation(n_all) * 7 + 11]
+
+    def transcript(tid, gs, ge, coding):
+        ne = int(rng.integers(1, 7))
+        pts = np.sort(rng.choice(np.arange(gs, ge + 1), 2 * ne,
+                                 replace=False)).tolist()
+        tx = {"id": tid, "exons": [], "cds": [], "utr5": [], "utr3": []}
+        utr5, utr3 = coding and rng.random() < 0.5, coding and \
+            rng.random() < 0.5
+        for i in range(ne):
+            s, e = pts[2 * i], pts[2 * i + 1]
+            tx["exons"].append((s, e))
+            u5 = u3 = cds = None
+            if coding:
+                cs, ce = s, e
+                if i == 0 and utr5 and e - s >= 4:
+                    cut = int(rng.integers(s + 1, e))
+                    u5, cs = (s, cut - 1), cut
+                if i == ne - 1 and utr3 and ce - cs >= 4:
+                    cut = int(rng.integers(cs + 1, ce))
+                    u3, ce = (cut + 1, ce), cut
+                cds = (cs, ce, int(rng.integers(0, 3)))
+            tx["utr5"].append(u5)
+            tx["cds"].append(cds)
+            tx["utr3"].append(u3)
+        return tx
+
+    def shifted(tx, tid, by):
+        def mv(x):
+            return None if x is None else (x[0] + by, x[1] + by, *x[2:])
+        return {"id": tid, **{k: [mv(x) for x in tx[k]]
+                              for k in ("exons", "cds", "utr5", "utr3")}}
+
+    genes, k = [], 0
+    for chrom, n in GA_GENES:
+        size = sizes[chrom]
+        if chrom == "chrU":  # at the ends too: promoters clipped at both
+            spans = [(1, 150), (size // 3, size // 3 + 200),
+                     (2 * size // 3, 2 * size // 3 + 150),
+                     (size - 160, size - 10)][:n]
+        else:
+            slot = (size - 2 * GA_GENE_GAP) // n
+            spans = []
+            for i in range(n):
+                length = int(rng.integers(100, slot - GA_GENE_GAP + 1))
+                off = int(rng.integers(0, slot - GA_GENE_GAP - length + 1))
+                gs = GA_GENE_GAP + i * slot + off + 1
+                spans.append((gs, gs + length - 1))
+        for gs, ge in spans:
+            gid = ids[k]
+            tie = k % GA_TIE_EVERY == 0 and chrom != "chrU"
+            coding = rng.random() < 2 / 3
+            name = ("" if chrom != "chrU" and rng.random() < 0.1
+                    else f"gene{k}")
+            g = {"id": gid, "name": name, "chrom": chrom, "span": (gs, ge),
+                 "strand": "+" if rng.random() < 0.5 else "-", "tx": []}
+            if tie:
+                t0 = transcript(f"{gid}.1", gs, ge - 10, coding)
+                room = ge - t0["exons"][-1][1]
+                g["tx"] = [t0, shifted(t0, f"{gid}.2",
+                                       int(rng.integers(1, room + 1)))]
+            else:
+                g["tx"] = [transcript(f"{gid}.{t + 1}", gs, ge, coding)
+                           for t in range(int(rng.integers(1, 4)))]
+            genes.append(g)
+            k += 1
+
+    def att(**kv):
+        return " ".join(f'{a} "{v}";' for a, v in kv.items())
+
+    lines = ["#!genome-build chip_smoke"]
+    for g in genes:
+        c, st = g["chrom"], g["strand"]
+
+        def row(feature, s, e, score=".", frame="."):
+            return f"{c}\tchip\t{feature}\t{s}\t{e}\t{score}\t{st}\t{frame}\t"
+
+        lines.append(row("gene", *g["span"]) + att(gene_id=g["id"],
+                                                   gene_name=g["name"]))
+        for tx in g["tx"]:
+            ta = att(gene_id=g["id"], transcript_id=tx["id"],
+                     gene_name=g["name"])
+            score = "." if rng.random() < 0.8 else f"{rng.integers(1, 99)}.5"
+            lines.append(row("transcript", tx["exons"][0][0],
+                             tx["exons"][-1][1], score) + ta)
+            ne = len(tx["exons"])
+            for i, (s, e) in enumerate(tx["exons"]):
+                ea = att(gene_id=g["id"], transcript_id=tx["id"],
+                         exon_number=str(i + 1), exon_id=f"{tx['id']}.e{i}",
+                         gene_name=g["name"])
+                lines.append(row("exon", s, e) + ea)
+                u5, cds, u3 = tx["utr5"][i], tx["cds"][i], tx["utr3"][i]
+                if u5:
+                    lines.append(row("5UTR", *u5) + ea)
+                if cds:
+                    lines.append(row("CDS", cds[0], cds[1], ".",
+                                     str(cds[2])) + ea)
+                    if i == 0:
+                        lines.append(row("start_codon", cds[0],
+                                         min(cds[0] + 2, cds[1]), ".", "0")
+                                     + ea)
+                    if i == ne - 1:
+                        lines.append(row("stop_codon", max(cds[1] - 2, cds[0]),
+                                         cds[1], ".", "0") + ea)
+                if u3:
+                    lines.append(row("3UTR", *u3) + ea)
+    with open(p["genes.gtf"], "w") as fh:
+        fh.writelines(ln + "\n" for ln in lines)
+
+    # the aligner's SAM, barcoded and sorted by barcode (stably)
+    codes = ["".join(rng.choice(list("ACGT"), 16)) for _ in range(GA_BARCODES)]
+    head, body = [], []
+    with open(f["aln.sam"]) as fh:
+        for line in fh:
+            if line.startswith("@"):
+                head.append(line)
+                continue
+            w = line.split("\t", 1)
+            bx = codes[int(rng.integers(0, GA_BARCODES))]
+            umi = "".join(rng.choice(list("ACGT"), 10))
+            body.append((bx, f"{w[0]}_BX:{bx}_UMI:{umi}\t{w[1]}"))
+    body.sort(key=lambda r: r[0])
+    with open(p["bx.sam"], "w") as fh:
+        fh.writelines(head)
+        fh.writelines(r for _, r in body)
+    norm = {g["id"]: f"{rng.uniform(0.2, 3.0):.4f}" for g in genes
+            if rng.random() < 1 / 3}
+    with open(p["norm.tsv"], "w") as fh:
+        fh.writelines(f"{a}\t{v}\n" for a, v in norm.items())
+
+    named = [g for g in genes if g["name"]]
+    pick = rng.permutation(len(named))
+    promoter = [named[i]["name"] for i in sorted(pick[:len(named) // 4])]
+    promoter += [promoter[0]] + [g["name"] for g in genes
+                                 if g["chrom"] == "chrU"]
+    listed = [g["name"] for g in named[::9]]
+    for path, names in ((p["promoter_names.txt"], promoter),
+                        (p["filter_names.txt"], listed)):
+        with open(path, "w") as fh:
+            fh.writelines(x + "\n" for x in names)
+    table = {g["id"]: f"sym_{g['id'][4:]}" for g in genes
+             if rng.random() < 0.5}
+    with open(p["id_table.tsv"], "w") as fh:
+        fh.writelines(f"{a}\t{v}\n" for a, v in table.items())
+    tss_ids = []
+    for g in genes:
+        for tx in g["tx"]:
+            s, e = tx["exons"][0][0], tx["exons"][-1][1]
+            at = s if g["strand"] == "+" else e
+            tss_ids.append(f"{g['chrom']}\t{at - 1}\t{at}\t{g['id']}")
+    with open(p["tss_ids.txt"], "w") as fh:
+        fh.writelines(x + "\n" for x in tss_ids)
+
+    # accel.fa: hum, chimp, gor, orang from a slice of chr2
+    base = fasta_strings(t_fa)["chr2"][GA_ACCEL_AT:GA_ACCEL_AT + GA_ACCEL_BP]
+    rows = [np.frombuffer(r.encode(), np.uint8).copy()
+            for r in mutant_rows(rng, base, 4, GA_RATE, GA_GAP_RUNS)]
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    hum, b = rows[0], np.frombuffer(base.encode(), np.uint8)
+    hot = np.zeros(len(b), bool)
+    hot[GA_HOT[0]:GA_HOT[1]] = True
+    extra = hot & (hum != ord("-")) & (rng.random(len(b))
+                                       < (GA_HOT_X - 1) * GA_RATE)
+    hum[extra] = acgt[(np.searchsorted(acgt, hum[extra])
+                       + rng.integers(1, 4, int(extra.sum()))) % 4]
+    hum[0], hum[-1] = b[0], b[-1]  # the reference starts and ends a base
+    rows = [r.tobytes().decode() for r in rows]
+    write_fasta_strings(p["accel.fa"], zip(("hum", "chimp", "gor", "orang"),
+                                           rows))
+    ref_len = sum(ch != "-" for ch in rows[0][:-1])
+    space, at = [], 0
+    while at < ref_len:
+        n_on = int(rng.integers(100, 400))
+        space.append((at, min(at + n_on, ref_len)))
+        at += n_on + int(rng.integers(40, 170))
+    with open(p["space.bed"], "w") as fh:
+        fh.writelines(f"chr2\t{s}\t{e}\n" for s, e in space)
+        fh.write("chr1\t0\t5000\n")
+    bits = np.zeros(ref_len, bool)
+    for s, e in space:
+        bits[s:e] = True
+    snp_windows = accel_windows(rows[0], GA_WINDOW, bits,
+                                int(GA_PROPORTION * GA_WINDOW))
+    twin = snp_windows[len(snp_windows) // 2]
+    starts = np.sort(rng.choice(np.arange(0, ref_len - 320), GA_REGIONS,
+                                replace=False))
+    regions = sorted({(int(s), int(s) + int(rng.integers(50, 301)))
+                      for s in starts} | {twin})
+    with open(p["regions.bed"], "w") as fh:
+        fh.writelines(f"chr2\t{s}\t{e}\n" for s, e in regions)
+    return {"paths": p, "genes": genes, "sizes": sizes, "norm": norm,
+            "promoter": promoter, "listed": listed, "table": table,
+            "tss_ids": tss_ids, "rows": rows, "ref_len": ref_len,
+            "bits": bits, "regions": regions, "twin": twin}
+
+
+def gtf_accel_steps(step, f: dict, t_fa: str, chain: str, tmp: str,
+                    times: dict) -> dict:
+    """The steps of slice 11.11b in phase_tools_cli, on the inputs of
+    gtf_accel_inputs: gtfTools filter (-codingTranscript, -chromFilter
+    chr2, -geneNameList with -chromFilter chr2) and toBed (plain, -tss
+    with and without -merge, -firstTwoCodonBases); getPromoter -upstream
+    and -downstream GA_PROMOTER; geneIdToName with and without
+    -keepMatching (its stdout kept); scCount of the barcoded SAM with and
+    without -expNormalizationFile; quickOrthologs t q through t_q.chain,
+    with and without --canonicalTranscript; multiFaAcceleration chr2 of
+    accel.fa at -windowSize GA_WINDOW with -rawVelOut -rawInitialOut,
+    and with -useSnpDistance -searchSpaceBed at -searchSpaceProportion
+    GA_PROPORTION (raw outputs too); branchLengthsMultiFaBed chr2 of the
+    regions with -qOutFile -useSnpDistance. Returns the paths and what
+    the checks need."""
+    ga = gtf_accel_inputs(f, t_fa, tmp)
+    p = ga["paths"]
+    p.update({k: os.path.join(tmp, k) for k in (
+        "gtf_coding.gtf", "gtf_chr2.gtf", "gtf_listed.gtf", "gtf.bed",
+        "gtf_tss.bed", "gtf_tss_merged.bed", "gtf_codons.bed", "promoter.bed",
+        "named.txt", "named_keep.txt", "sc.tsv", "sc_norm.tsv", "orth.tsv",
+        "orth_un.txt", "orth_canon.tsv", "orth_canon_un.txt", "vel.bed",
+        "acc.bed", "init.bed", "raw_vel.bed", "raw_init.bed", "vel_snp.bed",
+        "acc_snp.bed", "init_snp.bed", "raw_vel_snp.bed", "raw_init_snp.bed",
+        "bl_vel.bed", "bl_init.bed", "bl_ungapped.bed", "bl_q.bed")})
+    gtf, sizes = p["genes.gtf"], p["ga.sizes"]
+    step("gtfTools_filter_coding", "gtfTools", "filter", gtf,
+         p["gtf_coding.gtf"], "-codingTranscript")
+    step("gtfTools_filter_chrom", "gtfTools", "filter", gtf,
+         p["gtf_chr2.gtf"], "-chromFilter", "chr2")
+    step("gtfTools_filter_names", "gtfTools", "filter", gtf,
+         p["gtf_listed.gtf"], "-geneNameList", p["filter_names.txt"],
+         "-chromFilter", "chr2")
+    step("gtfTools_toBed", "gtfTools", "toBed", gtf, p["gtf.bed"])
+    step("gtfTools_toBed_tss", "gtfTools", "toBed", gtf, p["gtf_tss.bed"],
+         "-tss", "-chromSizeFile", sizes)
+    step("gtfTools_toBed_tss_merge", "gtfTools", "toBed", gtf,
+         p["gtf_tss_merged.bed"], "-tss", "-chromSizeFile", sizes, "-merge")
+    step("gtfTools_toBed_codons", "gtfTools", "toBed", gtf,
+         p["gtf_codons.bed"], "-firstTwoCodonBases")
+    step("getPromoter", "getPromoter", p["promoter_names.txt"], gtf,
+         p["promoter.bed"], sizes, "-upstream", str(GA_PROMOTER[0]),
+         "-downstream", str(GA_PROMOTER[1]))
+    stdout = {}
+    for name, out, keep in (("geneIdToName", "named.txt", []),
+                            ("geneIdToName_keep", "named_keep.txt",
+                             ["-keepMatching"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            step(name, "geneIdToName", p["id_table.tsv"], p["tss_ids.txt"],
+                 p[out], *keep)
+        stdout[name] = buf.getvalue()
+    step("scCount", "scCount", p["bx.sam"], gtf, p["sc.tsv"])
+    step("scCount_norm", "scCount", p["bx.sam"], gtf, p["sc_norm.tsv"],
+         "-expNormalizationFile", p["norm.tsv"])
+    step("quickOrthologs", "quickOrthologs", "t", "q", gtf, chain, sizes,
+         p["orth.tsv"], p["orth_un.txt"])
+    step("quickOrthologs_canonical", "quickOrthologs",
+         "--canonicalTranscript", "t", "q", gtf, chain, sizes,
+         p["orth_canon.tsv"], p["orth_canon_un.txt"])
+    step("multiFaAcceleration", "multiFaAcceleration", "chr2", p["accel.fa"],
+         p["vel.bed"], p["acc.bed"], p["init.bed"], "-windowSize",
+         str(GA_WINDOW), "-rawVelOut", p["raw_vel.bed"], "-rawInitialOut",
+         p["raw_init.bed"])
+    step("multiFaAcceleration_snp", "multiFaAcceleration", "chr2",
+         p["accel.fa"], p["vel_snp.bed"], p["acc_snp.bed"], p["init_snp.bed"],
+         "-windowSize", str(GA_WINDOW), "-useSnpDistance", "-searchSpaceBed",
+         p["space.bed"], "-searchSpaceProportion", str(GA_PROPORTION),
+         "-rawVelOut", p["raw_vel_snp.bed"], "-rawInitialOut",
+         p["raw_init_snp.bed"])
+    step("branchLengthsMultiFaBed", "branchLengthsMultiFaBed", "chr2",
+         p["accel.fa"], p["regions.bed"], p["bl_vel.bed"], p["bl_init.bed"],
+         p["bl_ungapped.bed"], "-qOutFile", p["bl_q.bed"], "-useSnpDistance")
+    return {**ga, "stdout": stdout, "chain": chain}
+
+
+def accel_windows(row0: str, window: int, bits=None, threshold: int = 0):
+    """The (start, end) of the rows multiFaAcceleration writes, in numpy:
+    a window at each reference base of the first row while the reference
+    counter stays under the reference length (the non-gap columns before
+    the last) less the window; with a search space, a window needs
+    threshold of its bases in bits, counted by a sum that slides at every
+    alignment column, gap columns too, as the tool slides it."""
+    ref = np.frombuffer(row0.encode(), np.uint8) != ord("-")
+    rc = np.concatenate([[0], np.cumsum(ref)[:-1]])
+    keep = ref & (rc < int(ref[:-1].sum()) - window)
+    if bits is not None:
+        padded = np.concatenate([bits, np.zeros(window + 1, bool)])
+        delta = np.where(rc > 0, padded[rc + window - 1].astype(np.int64)
+                         - padded[np.maximum(rc - 1, 0)].astype(np.int64), 0)
+        keep &= int(bits[:window].sum()) + np.cumsum(delta) >= threshold
+    return [(int(r), int(r) + window) for r in rc[keep]]
+
+
+def accel_q(d, w, b) -> float:
+    """The four-way least-squares objective of lengths b = (hum_hca,
+    chimp_hca, hca_hga, hga_gor, hga_orang) at distances d, weights w,
+    in the reference's form: its first term doubles chimp_hca."""
+    h, c, hh, g, o = b
+    total = w[0] * (d[0] - (c + c)) ** 2
+    total += w[1] * (d[1] - (h + hh + g)) ** 2
+    total += w[2] * (d[2] - (h + hh + o)) ** 2
+    total += w[3] * (d[3] - (c + hh + g)) ** 2
+    total += w[4] * (d[4] - (c + hh + o)) ** 2
+    total += w[5] * (d[5] - (g + o)) ** 2
+    return float(total)
+
+
+def accel_fit_numpy(d, w, zero_constant: float = 1000.0,
+                    epsilon: float = 1e-8) -> list:
+    """The alternating least squares of the four-way tree in plain
+    floats (no negative lengths, the distance weights): each round fits
+    the left triple (hum, chimp, the rest) and then the right one (the
+    hca node, gor, orang) in closed form, a negative length clamped to 0
+    and the other two refit, and keeps the round only while Q falls."""
+    def wt(x):
+        return zero_constant if x == 0 else 1.0 / (x * x)
+
+    def nn(d1, d2, v1, v2, w1, w2):
+        return max((w1 * (d1 - v1) + w2 * (d2 - v2)) / (w1 + w2), 0.0)
+
+    def triple(dab, dac, dbc, wab, wac, wbc, right):
+        va, vb, vc = ((dab + dac - dbc) / 2.0, (dab + dbc - dac) / 2.0,
+                      (dac + dbc - dab) / 2.0)
+        if va < 0 and vb < 0 and vc < 0:
+            return 0.0, 0.0, 0.0
+        if va < 0:
+            va = 0.0
+            if vb < 0:
+                vb = 0.0
+                vc = nn(dac, dbc, va, vb, wac, wbc)
+            elif vc < 0:
+                vc = 0.0
+                vb = nn(dab, dbc, va, vc, wab, wbc)
+            else:
+                vc = nn(dac, dbc, va, vb, wac, wbc)
+                vb = nn(dab, dbc, va, vc, wab, wbc)
+        elif vb < 0:
+            vb = 0.0
+            if vc < 0:
+                vc = 0.0
+                va = nn(dac, dab, vc, vb, wac, wab)
+            elif right:
+                vc = nn(dac, dbc, va, vb, wac, wbc)
+                va = nn(dab, dac, vb, vc, wab, wac)
+            else:
+                va = nn(dac, dab, vc, vb, wac, wab)
+                vc = nn(dac, dbc, va, vb, wac, wbc)
+        elif vc < 0:
+            vc = 0.0
+            if right:
+                vb = nn(dab, dbc, va, vc, wab, wbc)
+                va = nn(dab, dac, vb, vc, wab, wac)
+            else:
+                va = nn(dac, dab, vc, vb, wac, wab)
+                vb = nn(dab, dbc, va, vc, wab, wbc)
+        return va, vb, vc
+
+    b = [1.0] * 5
+    q = accel_q(d, w, b)
+    diff, rounds = epsilon + 1, 0
+    while diff > epsilon and rounds < 100_000:
+        old = list(b)
+        hum_hga = (w[1] * (d[1] - b[3]) + w[2] * (d[2] - b[4])) / (w[1] + w[2])
+        chimp_hga = (w[3] * (d[3] - b[3]) + w[4] * (d[4] - b[4])) / (w[3]
+                                                                    + w[4])
+        b[0], b[1], b[2] = triple(d[0], hum_hga, chimp_hga, wt(d[0]),
+                                  wt(hum_hga), wt(chimp_hga), False)
+        hca_gor = (w[1] * (d[1] - b[0]) + w[3] * (d[3] - b[1])) / (w[1] + w[3])
+        hca_orang = (w[2] * (d[2] - b[0]) + w[4] * (d[4] - b[1])) / (w[2]
+                                                                    + w[4])
+        b[2], b[3], b[4] = triple(hca_gor, hca_orang, d[5], wt(hca_gor),
+                                  wt(hca_orang), wt(d[5]), True)
+        nq = accel_q(d, w, b)
+        diff = abs(q - nq)
+        if nq > q:
+            b, diff = old, 0
+        q = nq
+        rounds += 1
+    return b
+
+
+def gtf_accel_checks(ga: dict) -> dict:
+    """What the gates of phase_tools_cli's slice 11.11b steps read from
+    their files, each against numpy or text alone, importing none of
+    these tools' modules: filter's gene ids and line counts from the
+    generated genes (the name list passing a listed gene whatever its
+    chrom); toBed's lines, TSSs, merged TSSs and codons; getPromoter's
+    windows (minus strand around the transcript's start, clipped);
+    geneIdToName's lines and counts; scCount's matrices from each read's
+    CIGAR span against each gene's first transcript; quickOrthologs'
+    lifts against lift_numpy through chain_maps, chrU unmapped, the
+    canonical transcript by the strictly-longer swap; the acceleration
+    windows, normalisation and planted stretch; branchLengthsMultiFaBed's
+    distances (numpy prefix sums over the ungapped columns), lengths and
+    Q against accel_fit_numpy and accel_q, and the region equal to a
+    window of the SNP run against that run's raw lengths."""
+    p, genes, sizes = ga["paths"], ga["genes"], ga["sizes"]
+    out = {}
+
+    def lines(path):
+        with open(path) as fh:
+            return fh.read().splitlines()
+
+    def rows(path):
+        return [ln.split("\t") for ln in lines(path)]
+
+    def start_end(tx):
+        return tx["exons"][0][0], tx["exons"][-1][1]
+
+    def n_lines(g):
+        return sum(1 + len(tx["exons"]) + sum(
+            x is not None for k in ("cds", "utr5", "utr3") for x in tx[k])
+            for tx in g["tx"])
+
+    listed = set(ga["listed"])
+    for key, path, keep in (
+            ("coding", "gtf_coding.gtf",
+             lambda g: any(x for tx in g["tx"] for x in tx["cds"])),
+            ("chrom", "gtf_chr2.gtf", lambda g: g["chrom"] == "chr2"),
+            ("names", "gtf_listed.gtf",
+             lambda g: g["name"] in listed or g["chrom"] == "chr2")):
+        got = rows(p[path])
+        ids = []
+        for r in got:
+            gid = r[8].split('"')[1]
+            if not ids or ids[-1] != gid:
+                ids.append(gid)
+        want = [g for g in genes if keep(g)]
+        out[f"filter_{key}"] = {
+            "genes": len(ids), "lines": len(got),
+            "equal_numpy": ids == [g["id"] for g in want]
+            and len(got) == sum(n_lines(g) for g in want)
+            and not {r[2] for r in got} - {"transcript", "exon", "5UTR",
+                                            "CDS", "3UTR"}}
+    out["filter_names"]["listed_off_chrom"] = sum(
+        g["name"] in listed and g["chrom"] != "chr2" for g in genes)
+
+    src = [ln.split("\t") for ln in lines(p["genes.gtf"])
+           if not ln.startswith("#")]
+    got = rows(p["gtf.bed"])
+    out["to_bed"] = {"lines": len(got), "equal_numpy": len(got) == len(src)
+                     and all(b[:3] + b[5:] == [w[0], str(int(w[3]) - 1), w[4],
+                                               w[6]]
+                             and b[3] == ":".join([w[1], w[2]] + w[5:])
+                             for b, w in zip(got, src))}
+    tss = []
+    for g in genes:
+        for tx in g["tx"]:
+            s, e = start_end(tx)
+            at = s if g["strand"] == "+" else e
+            tss.append((g["chrom"], max(at - 1, 0), min(at, sizes[g["chrom"]]),
+                        g["name"]))
+    got = [(r[0], int(r[1]), int(r[2]), r[3]) for r in rows(p["gtf_tss.bed"])]
+    out["to_bed_tss"] = {"lines": len(got), "equal_numpy": got == tss}
+    spans = sorted({t[:3] for t in tss})
+    got = [(r[0], int(r[1]), int(r[2])) for r in rows(p["gtf_tss_merged.bed"])]
+    out["to_bed_tss_merge"] = {"lines": len(got), "equal_numpy": got == spans}
+    codons = []
+    for g in genes:
+        for tx in g["tx"]:
+            for cds in tx["cds"]:
+                if cds is None:
+                    continue
+                at = np.arange(cds[0] + cds[2] - 1, cds[1] - 1, 3)
+                lo = at if g["strand"] == "+" else at + 1
+                codons += [(g["chrom"], int(x), int(x) + 2) for x in lo]
+    got = [(r[0], int(r[1]), int(r[2])) for r in rows(p["gtf_codons.bed"])]
+    out["to_bed_codons"] = {"lines": len(got),
+                            "equal_numpy": got == sorted(codons)}
+
+    up, down = GA_PROMOTER
+    want = []
+    for name in ga["promoter"]:
+        for g in genes:
+            if g["name"] != name:
+                continue
+            for tx in g["tx"]:
+                s = start_end(tx)[0]
+                lo, hi = (up, down + 1) if g["strand"] == "+" else (down,
+                                                                     up + 1)
+                want.append((g["chrom"], max(s - lo, 0),
+                             min(s + hi, sizes[g["chrom"]]), name))
+    got = [(r[0], int(r[1]), int(r[2]), r[3]) for r in rows(p["promoter.bed"])]
+    out["get_promoter"] = {
+        "lines": len(got), "equal_numpy": got == want,
+        "clipped": sum(w[1] == 0 or w[2] == sizes[w[0]] for w in want)}
+
+    table = ga["table"]
+    mapped = [ln.split("\t")[:3] + [table[ln.split("\t")[3]]]
+              if ln.split("\t")[3] in table else ln.split("\t")
+              for ln in ga["tss_ids"]]
+    hit = sum(ln.split("\t")[3] in table for ln in ga["tss_ids"])
+    miss = len(ga["tss_ids"]) - hit
+    counts = f"geneIDs lifted: {hit}\ngeneIDs not found: {miss}\n"
+    for key, path, keep in (("gene_id_to_name", "named.txt", False),
+                            ("gene_id_to_name_keep", "named_keep.txt", True)):
+        want = ["\t".join(m) for m, ln in zip(mapped, ga["tss_ids"])
+                if not keep or ln.split("\t")[3] in table]
+        got = lines(p[path])
+        out[key] = {"lines": len(got), "lifted": hit, "missed": miss,
+                    "equal_numpy": got == want,
+                    "counts_printed": ga["stdout"][
+                        "geneIdToName_keep" if keep else "geneIdToName"]
+                    == counts}
+
+    # scCount: a read counts for the gene whose first transcript's
+    # [start - 1, end) its CIGAR span overlaps
+    order = sorted(g["id"] for g in genes)
+    col = {gid: i for i, gid in enumerate(order)}
+    spans = {}
+    for g in genes:
+        s, e = start_end(g["tx"][0])
+        spans.setdefault(g["chrom"], []).append((s - 1, e, col[g["id"]]))
+    index = {c: tuple(np.array(x, np.int64).T) for c, x in
+             ((c, sorted(v)) for c, v in spans.items())}
+    bx_rows, counts = [], {}
+    for r in sam_rows(p["bx.sam"]):
+        if r[5] == "*" or r[2] not in index:
+            continue
+        s, e, _ = ref_span(r)
+        st, en, cols = index[r[2]]
+        lo = int(np.searchsorted(en, s, "right"))
+        hi = int(np.searchsorted(st, e, "left"))
+        if hi <= lo:
+            continue
+        bx = r[0].split("_BX:")[1].split("_")[0]
+        if not bx_rows or bx_rows[-1] != bx:
+            bx_rows.append(bx)
+            counts[bx] = np.zeros(len(order))
+        counts[bx][cols[lo:hi]] += 1
+    norm = np.ones(len(order))
+    for gid, v in ga["norm"].items():
+        norm[col[gid]] = float(v)
+    for key, path, scale in (("sc_count", "sc.tsv", None),
+                             ("sc_count_norm", "sc_norm.tsv", norm)):
+        got = rows(p[path])
+        want = [[bx] + [go_g(x * scale[i] if scale is not None else x)
+                        for i, x in enumerate(counts[bx].tolist())]
+                for bx in bx_rows]
+        out[key] = {"rows": len(got) - 1, "barcodes": len(bx_rows),
+                    "reads": int(sum(v.sum() for v in counts.values())),
+                    "header_equal": got[0] == ["Bx"] + order,
+                    "equal_numpy": got[1:] == want}
+
+    cm = chain_maps(ga["chain"])
+
+    def canonical(tx):
+        def longer(a, b):
+            def cds(t):
+                return sum(x[1] - x[0] + 1 for x in t["cds"] if x)
+
+            def cdna(t):
+                return sum(e - s + 1 for s, e in t["exons"])
+            return cds(a) > cds(b) or (cds(a) == cds(b) and cdna(a) > cdna(b))
+        txs = list(tx)
+        for i in range(1, len(txs)):
+            if longer(txs[i], txs[0]):
+                txs[0], txs[i] = txs[i], txs[0]
+        return txs[:1]
+
+    ties = sum(1 for g in genes if len(g["tx"]) == 2 and g["chrom"] != "chrU"
+               and canonical(g["tx"])[0] is g["tx"][0]
+               and start_end(g["tx"][0]) != start_end(g["tx"][1])
+               and sum(e - s for s, e in g["tx"][0]["exons"])
+               == sum(e - s for s, e in g["tx"][1]["exons"]))
+    for key, tsv, un, pick in (("quick_orthologs", "orth.tsv", "orth_un.txt",
+                                lambda txs: txs),
+                               ("quick_orthologs_canonical", "orth_canon.tsv",
+                                "orth_canon_un.txt", canonical)):
+        want, want_un = [], []
+        for g in genes:
+            for tx in pick(g["tx"]):
+                if not g["name"]:
+                    continue
+                s, e = start_end(tx)
+                at = s if g["strand"] == "+" else e
+                c, a, b = g["chrom"], at - 1, at
+                if c not in cm:
+                    want_un += ["Record below has no ortholog in new "
+                                "assembly:", f"{c}\t{a}\t{b}\t{g['name']}"]
+                    continue
+                _, qs, qe = lift_numpy(cm[c], np.array([a]), np.array([b]))
+                want.append(f"{g['name']}\tt\t{c}\t{a}\t{b}\tq\t{cm[c][0]}\t"
+                            f"{int(qs[0])}\t{int(qe[0])}")
+        got, got_un = lines(p[tsv]), lines(p[un])
+        out[key] = {"lines": len(got) - 1, "unmapped": len(got_un) // 2,
+                    "equal_numpy": got[1:] == want and got_un == want_un,
+                    "header": got[0].startswith("#geneName\ttName")}
+    out["quick_orthologs_canonical"]["tie_genes"] = ties
+
+    # multiFaAcceleration
+    row0 = ga["rows"][0]
+    ref = np.frombuffer(row0.encode(), np.uint8) != ord("-")
+    rc = np.concatenate([[0], np.cumsum(ref)])
+    hot = (int(rc[GA_HOT[0]]), int(rc[GA_HOT[1]]))
+    raw_snp = {}
+    for key, sfx, bits in (("multi_fa_acceleration", "", None),
+                           ("multi_fa_acceleration_snp", "_snp", ga["bits"])):
+        vel, acc, ini, rv, ri = (rows(p[n + sfx + ".bed"]) for n in (
+            "vel", "acc", "init", "raw_vel", "raw_init"))
+        want = accel_windows(row0, GA_WINDOW, bits,
+                             int(GA_PROPORTION * GA_WINDOW))
+        v, a, i_, x, y = (np.array([float(r[3]) for r in t], np.float64)
+                          for t in (vel, acc, ini, rv, ri))
+        tol = 1e-7 * (np.abs(a) + np.abs(v) + np.abs(i_)) + 1e-12
+
+        def constant(raw, norm):
+            ratio = raw[norm != 0] / norm[norm != 0]
+            return bool(len(ratio) and np.allclose(ratio, ratio[0],
+                                                   rtol=1e-6, atol=0))
+        inside = np.array([int(r[1]) >= hot[0] and int(r[2]) <= hot[1]
+                           for r in vel], bool)
+        out[key] = {
+            "windows": len(vel),
+            "windows_equal_numpy": [(int(r[1]), int(r[2])) for r in vel]
+            == want and all(r[0] == "chr2" for r in vel)
+            and all([r[:3] for r in t] == [r[:3] for r in vel]
+                    for t in (acc, ini, rv, ri)),
+            "accel_is_vel_less_initial": bool((np.abs(a - (v - i_))
+                                               <= tol).all()),
+            "vel_mean": float(v.mean()), "initial_mean": float(i_.mean()),
+            "raw_over_norm_constant": constant(x, v) and constant(y, i_),
+            "non_negative": bool(min(v.min(), i_.min(), x.min(), y.min())
+                                 >= 0),
+            "hot_windows": int(inside.sum()),
+            "raw_vel_ratio_hot": float(x[inside].mean()
+                                       / max(x[~inside].mean(), 1e-300))}
+        if sfx:
+            raw_snp = {(int(r[1]), int(r[2])): (float(r[3]), float(q[3]))
+                       for r, q in zip(rv, ri)}
+
+    # branchLengthsMultiFaBed: the SNP distances of each region from
+    # prefix sums over the ungapped columns
+    m = np.stack([np.frombuffer(r.encode(), np.uint8) for r in ga["rows"]])
+    ungapped = np.isin(m, np.frombuffer(b"ACGTacgt", np.uint8)).all(axis=0)
+    cols = np.flatnonzero(ref)
+    pairs = [(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)]
+    pre = np.concatenate([np.zeros((6, 1), np.int64), np.cumsum(
+        [(m[a] != m[b]) & ungapped for a, b in pairs], axis=1)], axis=1)
+    pre_u = np.concatenate([[0], np.cumsum(ungapped)])
+    vel, ini, ung, qs = (rows(p[n]) for n in (
+        "bl_vel.bed", "bl_init.bed", "bl_ungapped.bed", "bl_q.bed"))
+    ok_len = ok_q = ok_below = True
+    for (s, e), rv, ri, ru, rq in zip(ga["regions"], vel, ini, ung, qs):
+        a, b = int(cols[s]), int(cols[e - 1]) + 1
+        d = (pre[:, b] - pre[:, a]).astype(np.float64)
+        w = np.array([1000.0 if x == 0 else 1.0 / (x * x) for x in d])
+        fit = accel_fit_numpy(d, w)
+        h, hh = float(rv[3]), float(ri[3])
+        ok_len &= (abs(h - fit[0]) <= 1e-9 * abs(fit[0]) + 1e-12
+                   and abs(hh - fit[2]) <= 1e-9 * abs(fit[2]) + 1e-12
+                   and int(ru[3]) == int(pre_u[min(a + e - s, len(row0))]
+                                         - pre_u[a]))
+        q = accel_q(d, w, [h, fit[1], hh, fit[3], fit[4]])
+        ok_q &= abs(float(rq[3]) - q) <= max(GA_Q_RTOL * abs(q), GA_Q_ATOL)
+        ok_below &= float(rq[3]) <= accel_q(d, w, [1.0] * 5)
+    twin = ga["twin"]
+    tv = [(float(rv[3]), float(ri[3])) for rv, ri in zip(vel, ini)
+          if (int(rv[1]), int(rv[2])) == twin]
+    want_twin = raw_snp.get(twin)
+
+    def close(x, y):
+        return abs(x - y) <= 1e-7 * max(abs(x), abs(y)) + 1e-12
+    out["branch_lengths"] = {
+        "regions": len(vel), "lines_equal_regions":
+            [(int(r[1]), int(r[2])) for r in ung] == ga["regions"]
+            and all(r[0] == "chr2" for r in ung),
+        "lengths_and_ungapped_equal_numpy": bool(ok_len),
+        "q_equal_formula": bool(ok_q), "q_at_most_ones": bool(ok_below),
+        "twin_equal_snp_window": len(tv) == 1 and want_twin is not None
+        and close(tv[0][0], want_twin[0]) and close(tv[0][1], want_twin[1])}
+    return out
+
+
+def gtf_accel_ok(x: dict) -> bool:
+    """Every gate of gtf_accel_checks met."""
+    mfa = [x["multi_fa_acceleration"], x["multi_fa_acceleration_snp"]]
+    bl, qo = x["branch_lengths"], x["quick_orthologs"]
+    return bool(
+        all(v["equal_numpy"] and v["lines"] > 0 for k, v in x.items()
+            if "lines" in v and "equal_numpy" in v)
+        and x["filter_names"]["listed_off_chrom"] > 0
+        and x["get_promoter"]["clipped"] > 0
+        and 0 < x["gene_id_to_name"]["lifted"]
+        and x["gene_id_to_name"]["missed"] > 0
+        and x["gene_id_to_name"]["counts_printed"]
+        and x["gene_id_to_name_keep"]["counts_printed"]
+        and all(x[k]["equal_numpy"] and x[k]["header_equal"]
+                and x[k]["rows"] == x[k]["barcodes"] == GA_BARCODES
+                and x[k]["reads"] > 0 for k in ("sc_count", "sc_count_norm"))
+        and qo["unmapped"] > 0 and qo["header"]
+        and x["quick_orthologs_canonical"]["tie_genes"] > 0
+        and x["quick_orthologs_canonical"]["header"]
+        and all(m["windows"] > 0 and m["windows_equal_numpy"]
+                and m["accel_is_vel_less_initial"]
+                and abs(m["vel_mean"] - 1) < 1e-6
+                and abs(m["initial_mean"] - 1) < 1e-6
+                and m["raw_over_norm_constant"] and m["non_negative"]
+                for m in mfa)
+        and mfa[0]["hot_windows"] > 0
+        and mfa[0]["raw_vel_ratio_hot"] >= GA_VEL_RATIO
+        and bl["regions"] > 0 and bl["lines_equal_regions"]
+        and bl["lengths_and_ungapped_equal_numpy"] and bl["q_equal_formula"]
+        and bl["q_at_most_ones"] and bl["twin_equal_snp_window"])
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -7121,7 +7884,37 @@ def phase_tools_cli(dev: torch.device) -> dict:
     ``--gap`` and ``--fasta`` on axts of the chain's blocks with N
     planted at the SNPs, and ``axtSam --fasta`` of c.axt, each numpy's
     from the records (axtSam's CIGARs the rows' =/X/I/D runs, its X count
-    the planted SNPs)."""
+    the planted SNPs). (16) Slice 11.11b (``gtf_accel_inputs`` writes the
+    seeded inputs, ``gtf_accel_steps`` runs the steps, ``gtf_accel_checks``
+    reads their files with numpy and text alone, ``gtf_accel_ok`` gates
+    them; ``gtf_accel_tools`` in the phase line): ``gtfTools filter``
+    (-codingTranscript, -chromFilter chr2, -geneNameList with
+    -chromFilter chr2) and ``toBed`` (plain, -tss with and without
+    -merge, -firstTwoCodonBases) of a GTF of GA_GENES seeded genes,
+    gated on numpy's gene ids and line counts (a listed gene passing
+    off the chrom), lines, TSSs, merged TSSs and codons;
+    ``getPromoter`` at GA_PROMOTER, gated on numpy's windows (the minus
+    strand around the transcript's start, clipped at 0 and the chrom's
+    size); ``geneIdToName`` with and without -keepMatching, gated on the
+    lines and the printed counts; ``scCount`` of the aligner's SAM with
+    GA_BARCODES barcodes in the read names, with and without
+    -expNormalizationFile, gated on the header and numpy's matrix from
+    each read's CIGAR span over each gene's first transcript;
+    ``quickOrthologs`` through t_q.chain with and without
+    --canonicalTranscript, gated on ``lift_numpy`` through
+    ``chain_maps``, chrU's TSSs unmapped, no empty name, the canonical
+    transcript by the strictly-longer swap (every GA_TIE_EVERY-th gene a
+    tie); ``multiFaAcceleration`` of a four-way alignment of
+    GA_ACCEL_BP columns (mutation distance, and SNP distance over a
+    search space), gated on numpy's windows, acceleration = velocity -
+    initial, means of 1, raw over normalised one constant, no negative
+    length and the planted stretch's raw velocity >= GA_VEL_RATIO times
+    the rest's; ``branchLengthsMultiFaBed -qOutFile -useSnpDistance`` of
+    GA_REGIONS regions and one SNP window, gated on numpy's distances
+    (prefix sums over the ungapped columns), ``accel_fit_numpy``'s
+    lengths, Q by ``accel_q`` (the doubled chimp_hca) within GA_Q_RTOL
+    and below Q at lengths 1, the ungapped count over size alignment
+    columns, and the window's lengths equal to the SNP run's raw ones."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -7352,6 +8145,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         il = interval_lift_steps(step, f, q_fa, chain, snps, tmp, times)
         vm = vcf_maf_axt_steps(step, f, t_fa, chain, snps, pg, tmp, times,
                                dev)
+        ga = gtf_accel_steps(step, f, t_fa, chain, tmp, times)
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -7399,6 +8193,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["popgen_tools"] = popgen_checks(pg)
         out["interval_lift_tools"] = interval_lift_checks(il)
         out["vcf_maf_axt_tools"] = vcf_maf_axt_checks(vm)
+        out["gtf_accel_tools"] = gtf_accel_checks(ga)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -7497,6 +8292,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
             and sam_wig_ok and rand_ok and popgen_ok(out["popgen_tools"])
             and interval_lift_ok(out["interval_lift_tools"])
             and vcf_maf_axt_ok(out["vcf_maf_axt_tools"])
+            and gtf_accel_ok(out["gtf_accel_tools"])
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

@@ -237,6 +237,23 @@ COMMANDS = {
                 "Axt utilities: stats/filter/consensus/swap (host)"),
     "axtSam": ("gonomics_tpu_torch.cli.axt_sam",
                "Convert axt alignments to sam (host)"),
+    "gtfTools": ("gonomics_tpu_torch.cli.gtf_tools",
+                 "GTF filter/toBed subcommands (host)"),
+    "getPromoter": ("gonomics_tpu_torch.cli.get_promoter",
+                    "Promoter beds for a gene list (host)"),
+    "geneIdToName": ("gonomics_tpu_torch.cli.gene_id_to_name",
+                     "Replace gene IDs with names via a table (host)"),
+    "scCount": ("gonomics_tpu_torch.cli.sc_count",
+                "Count matrix from single-cell sequencing data (host)"),
+    "quickOrthologs": ("gonomics_tpu_torch.cli.quick_orthologs",
+                       "Orthologous TSS positions via liftover chains "
+                       "(host)"),
+    "multiFaAcceleration": ("gonomics_tpu_torch.cli.multi_fa_acceleration",
+                            "Windowed velocity/acceleration scores of a "
+                            "four-way multiFa (host)"),
+    "branchLengthsMultiFaBed": (
+        "gonomics_tpu_torch.cli.branch_lengths_multi_fa_bed",
+        "Fitch-Margoliash branch lengths per bed region (host)"),
 }
 
 

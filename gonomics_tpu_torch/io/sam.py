@@ -1,9 +1,10 @@
 """SAM records and headers, the SAM and BAM readers and the writer: the
 subset of ``gonomics_tpu/io/sam.py`` that the read aligner emits, the
-variant caller reads and ``mergesort`` writes (the flag tests :72-83, ``parse_header_text`` :94, the text
-reader :122-153, the BAM decoder :156-259 and its tag text :311-366,
-``read`` :262, ``generate_header`` :270-280, ``write_sam`` :283 and
-``read_header_text`` :469).
+variant caller reads and ``mergesort`` writes (the interval properties
+:57-68, which scCount's index reads, the flag tests :72-83,
+``parse_header_text`` :94, the text reader :122-153, the BAM decoder
+:156-259 and its tag text :311-366, ``read`` :262, ``generate_header``
+:270-280, ``write_sam`` :283 and ``read_header_text`` :469).
 Records match the JAX reader's field for field."""
 
 from __future__ import annotations
@@ -51,6 +52,19 @@ class Sam:
                 f"{self.pnext}\t{self.tlen}\t{dna.to_string(self.seq)}\t"
                 f"{self.qual}")
         return base + (f"\t{self.extra}" if self.extra else "")
+
+    # interval.Interval methods (sam/methods.go:9-17)
+    @property
+    def chrom(self) -> str:
+        return self.rname
+
+    @property
+    def chrom_start(self) -> int:
+        return get_chrom_start(self)
+
+    @property
+    def chrom_end(self) -> int:
+        return get_chrom_end(self)
 
 
 # flag predicates (sam/flag.go)

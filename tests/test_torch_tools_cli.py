@@ -9,10 +9,11 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 93 tools, imports none of them
+lists and dispatches exactly the port's 100 tools, imports none of them
 before dispatch, resolves a ``module:function`` target as the JAX
-umbrella does, runs the popgen tools, the interval and lift tools and
-the VCF, MAF and axt tools to the JAX umbrella's bytes, and
+umbrella does, runs the popgen tools, the interval and lift tools, the
+VCF, MAF and axt tools and the GTF and acceleration tools to the JAX
+umbrella's bytes, and
 its ``gsw align`` wants the card; ``pyproject.toml`` installs it as
 ``gonomics-torch``; no new module imports JAX.
 """
@@ -81,22 +82,24 @@ PORTED = ["alleleSplit", "assemblyStats", "axTools", "axtSam",
           "bedMinimumDistanceName", "bedOverlapByWindow", "bedShear",
           "bedSimilarity", "bedSplit", "bedToAminoAcid", "bedToFasta",
           "bedToWig", "bedTrim", "bedValueWig", "bedpeFilter", "bedpeOverlap",
-          "callVariants", "catMultiFa", "cigarToBed", "countPairOfBases",
-          "digestGenome", "divergenceSpectrum", "dunnIndex", "faBin",
-          "faFilter", "faFindFast", "faFormat", "faInfo", "faToPredictSet",
-          "faUniq", "fastqFilter", "fastqFormat", "fastqReplaceSeq",
-          "filterGenotypes", "findAndReplace", "gcContent",
-          "geneAssignmentStats", "globalAlignment", "gsw",
+          "branchLengthsMultiFaBed", "callVariants", "catMultiFa",
+          "cigarToBed", "countPairOfBases", "digestGenome",
+          "divergenceSpectrum", "dunnIndex", "faBin", "faFilter", "faFindFast",
+          "faFormat", "faInfo", "faToPredictSet", "faUniq", "fastqFilter",
+          "fastqFormat", "fastqReplaceSeq", "filterGenotypes",
+          "findAndReplace", "gcContent", "geneAssignmentStats", "geneIdToName",
+          "getPromoter", "globalAlignment", "gsw", "gtfTools",
           "haplotypeGenerator", "intervalContacts", "intervalOverlap",
           "intervalSubsetMatrix", "liftCoordinates", "locateCG",
           "longReadLibStats", "mafFilter", "mafIndels", "mafToBed",
           "mafToMultiFa", "mcmcTraceStats", "mergeMultiFa", "mergesort",
-          "mouseRecon", "multiFaCount", "multiFaExtract", "multiFaReduce",
-          "multiFaScan", "multiFaSequenceSwap", "multiFaToChain",
-          "multiFaToVcf", "overlapEnrichments", "pileup", "plotFunctions",
-          "prcompFormat", "primateRecon", "proximityBlockVcf", "randSeq",
+          "mouseRecon", "multiFaAcceleration", "multiFaCount",
+          "multiFaExtract", "multiFaReduce", "multiFaScan",
+          "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf",
+          "overlapEnrichments", "pileup", "plotFunctions", "prcompFormat",
+          "primateRecon", "proximityBlockVcf", "quickOrthologs", "randSeq",
           "reconstructSeq", "samConsensus", "samInfo", "samToBed", "samToWig",
-          "sampleVcf", "selectionMcmc", "selectionMle",
+          "sampleVcf", "scCount", "selectionMcmc", "selectionMle",
           "simulateWrightFisher", "statCalc", "vcfAfs",
           "vcfAncestorAnnotation", "vcfFilter", "vcfFormat", "vcfInfo",
           "vcfToFa", "wigTools"]
@@ -256,7 +259,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 93 ported tools, each a key of
+    """help (and no argument) lists the 100 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -264,7 +267,7 @@ def test_umbrella_lists_the_ported_tools(capsys):
         listed = [ln.split()[0] for ln in lines if ln.startswith("  ")]
         assert listed == PORTED
     assert sorted(umbrella.COMMANDS) == PORTED
-    assert len(PORTED) == 93
+    assert len(PORTED) == 100
     assert set(PORTED) <= set(jmain.COMMANDS)
     assert all("TPU" not in desc for _, desc in umbrella.COMMANDS.values())
 
@@ -569,7 +572,15 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.allele_split,"
             " gonomics_tpu_torch.io.maf, gonomics_tpu_torch.cli.maf_tools,"
             " gonomics_tpu_torch.cli.ax_tools,"
-            " gonomics_tpu_torch.cli.axt_sam\n"
+            " gonomics_tpu_torch.cli.axt_sam,"
+            " gonomics_tpu_torch.io.gtf, gonomics_tpu_torch.cli.gtf_tools,"
+            " gonomics_tpu_torch.cli.get_promoter,"
+            " gonomics_tpu_torch.cli.gene_id_to_name,"
+            " gonomics_tpu_torch.cli.sc_count,"
+            " gonomics_tpu_torch.cli.quick_orthologs,"
+            " gonomics_tpu_torch.phylo.accel,"
+            " gonomics_tpu_torch.cli.multi_fa_acceleration,"
+            " gonomics_tpu_torch.cli.branch_lengths_multi_fa_bed\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
@@ -603,7 +614,9 @@ def test_umbrella_module_function_targets(tmp_path, monkeypatch):
                  "filterGenotypes", "vcfAncestorAnnotation", "vcfAfs",
                  "haplotypeGenerator", "alleleSplit", "mafFilter",
                  "mafToBed", "mafToMultiFa", "mafIndels", "axTools",
-                 "axtSam"):
+                 "axtSam", "gtfTools", "getPromoter", "geneIdToName",
+                 "scCount", "quickOrthologs", "multiFaAcceleration",
+                 "branchLengthsMultiFaBed"):
         port, jax = umbrella.COMMANDS[name][0], jmain.COMMANDS[name][0]
         assert port.replace("gonomics_tpu_torch.", "gonomics_tpu.") == jax
 
@@ -829,3 +842,102 @@ def test_umbrella_vcf_maf_axt_tools_equal_jax_umbrella(
     assert out["port"] == out["jax"]
     assert any(out["jax"][0].values())
 
+
+
+@pytest.fixture(scope="module")
+def gtf_accel_inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("gtf_accel_umbrella")
+    rng = np.random.default_rng(3120)
+
+    def att(**kv):
+        return " ".join(f'{k} "{v}";' for k, v in kv.items())
+
+    gtf = []
+    for k, (chrom, s, strand) in enumerate([
+            ("chr1", 100, "+"), ("chr1", 900, "-"), ("chr1", 1700, "+"),
+            ("chr2", 200, "-"), ("chrU", 50, "+")]):
+        g, t = f"G{k}", f"G{k}.1"
+        name = "" if k == 2 else f"N{k}"
+        gtf.append(f"{chrom}\tt\ttranscript\t{s}\t{s + 300}\t.\t{strand}\t.\t"
+                   + att(gene_id=g, transcript_id=t, gene_name=name))
+        for e, (a, b) in enumerate([(s, s + 100), (s + 200, s + 300)]):
+            ea = att(gene_id=g, transcript_id=t, exon_number=str(e + 1),
+                     exon_id=f"{t}.{e}", gene_name=name)
+            gtf.append(f"{chrom}\tt\texon\t{a}\t{b}\t.\t{strand}\t.\t{ea}")
+            if k % 2 == 0:
+                gtf.append(f"{chrom}\tt\tCDS\t{a + 5}\t{b}\t2.5\t{strand}\t"
+                           f"{e}\t{ea}")
+    sam = ["@SQ\tSN:chr1\tLN:3000", "@SQ\tSN:chr2\tLN:1000"]
+    for i, (bx, pos) in enumerate([("AA", 120), ("AA", 950), ("CC", 130),
+                                   ("CC", 2500), ("GG", 1750)]):
+        sam.append(f"r{i}_BX:{bx}_UMI:U{i}\t0\tchr1\t{pos}\t60\t20M\t*\t0\t"
+                   f"0\t{'A' * 20}\t*")
+    base = rng.choice(list("ACGT"), 240)
+    rows = []
+    for k in range(4):
+        r = base.copy()
+        sub = rng.random(240) < 0.05 * (k + 1)
+        r[sub] = rng.choice(list("ACGT"), int(sub.sum()))
+        r[30 + 40 * k:34 + 40 * k] = "-"
+        rows.append("".join(r))
+    files = {
+        "g.gtf": gtf, "g.sizes": ["chr1\t3000", "chr2\t1000", "chrU\t500"],
+        "names.txt": ["N0", "N3", "N0"], "table.tsv": ["G0\tsym0", "G3\tsym3"],
+        "ids.txt": ["chr1\t1\t2\tG0", "chr1\t3\t4\tG1",
+                    "chr2\t5\t6\tG3\tG0"],
+        "bx.sam": sam, "norm.tsv": ["G1\t2.5"],
+        "t_q.chain": ["chain 1 chr1 3000 + 0 3000 q1 3010 + 0 3010 1",
+                      "1000\t0\t10", "2000", "",
+                      "chain 1 chr2 1000 + 0 1000 q2 1000 - 0 1000 2",
+                      "1000", ""],
+        "a.fa": [x for nm, r in zip(("hum", "chimp", "gor", "orang"), rows)
+                 for x in (f">{nm}", r)],
+        "r.bed": ["chr2\t10\t60", "chr2\t100\t150", "chr2\t150\t200"]}
+    for name, lines in files.items():
+        (d / name).write_text("".join(ln + "\n" for ln in lines))
+    return {k: str(d / k) for k in files}
+
+
+@pytest.mark.parametrize("tool", [
+    "gtfTools_filter", "gtfTools_toBed", "gtfTools_tss", "getPromoter",
+    "geneIdToName", "scCount", "quickOrthologs", "multiFaAcceleration",
+    "branchLengthsMultiFaBed"])
+def test_umbrella_gtf_accel_tools_equal_jax_umbrella(
+        gtf_accel_inputs, tmp_path, capsys, tool):
+    """Each GTF and acceleration tool of slice 11.11b through
+    gonomics-torch writes what the JAX umbrella's writes, files and
+    stdout."""
+    f = gtf_accel_inputs
+    out = {}
+    for side, mod in (("jax", jmain), ("port", umbrella)):
+        d = tmp_path / side
+        d.mkdir()
+        o = str(d / "out")
+        argv = {
+            "gtfTools_filter": ["gtfTools", "filter", f["g.gtf"], o,
+                                "-geneNameList", f["names.txt"],
+                                "-chromFilter", "chr2"],
+            "gtfTools_toBed": ["gtfTools", "toBed", f["g.gtf"], o],
+            "gtfTools_tss": ["gtfTools", "toBed", f["g.gtf"], o, "-tss",
+                             "-chromSizeFile", f["g.sizes"], "-merge"],
+            "getPromoter": ["getPromoter", f["names.txt"], f["g.gtf"], o,
+                            f["g.sizes"], "-upstream", "150"],
+            "geneIdToName": ["geneIdToName", f["table.tsv"], f["ids.txt"], o,
+                             "-keepMatching"],
+            "scCount": ["scCount", f["bx.sam"], f["g.gtf"], o,
+                        "-expNormalizationFile", f["norm.tsv"]],
+            "quickOrthologs": ["quickOrthologs", "--canonicalTranscript", "t",
+                               "q", f["g.gtf"], f["t_q.chain"], f["g.sizes"],
+                               o, o + ".un"],
+            "multiFaAcceleration": ["multiFaAcceleration", "chr2", f["a.fa"],
+                                    o, o + ".acc", o + ".init",
+                                    "-windowSize", "30"],
+            "branchLengthsMultiFaBed": ["branchLengthsMultiFaBed", "chr2",
+                                        f["a.fa"], f["r.bed"], o, o + ".init",
+                                        o + ".ung", "-qOutFile", o + ".q",
+                                        "-useSnpDistance"]}[tool]
+        mod.main(argv)
+        files = {n: _read(str(d / n)) for n in sorted(os.listdir(d))}
+        out[side] = (files, capsys.readouterr().out)
+    assert out["port"] == out["jax"]
+    assert all(out["jax"][0].values())
