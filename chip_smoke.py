@@ -348,7 +348,26 @@ exits non-zero:
             through the chain's blocks, the canonical transcript by the
             strictly-longer swap, windows, distances from prefix sums,
             lengths and Q of a plain least-squares fit); the stretch's
-            raw velocity >= 3 times the rest's. The four kernels
+            raw velocity >= 3 times the rest's. Then slice 12a
+            (sim_tree_steps, sim_tree_checks): simulateSam of t.fa five
+            ways (-n 3000 -setSeed 7; -coverage 2; -n 2000
+            -flatErrorRate 0.01; -n 2000 -ancientErrorRate 0.05 with the
+            deamination table; -n 500 -setSeed 3 as SAM and as BAM);
+            simulateBed of tn.fa's (t.fa with 20 runs of N) ungapped
+            runs, twice and -matchedBed; simulateVcf (100 sites; with
+            -refFile tn.fa; with -refFile of two 12-base chroms);
+            simulateDivergentWindowsVcf; simulatePcr with and without
+            -includePrimer=false; dotToNewick of a 12-leaf digraph;
+            drawNewickTree of the primate tree where PIL imports.
+            Gates: headers, pair fields and the chr1 share of pairs;
+            every read the reference's bases through the fragment
+            buffer's reuse, replayed from the pairs' positions; the flat
+            error share 0.01 +- 0.001; damage C->T and G->A only; the
+            BAM's records the SAM's; beds inside one region and
+            repeatable; VCF records, REF from the FASTA, starts distinct
+            across chroms; windows ordered by alt-ancestor counts; PCR
+            products str.find's; the newick the digraph's edges; the
+            PNG's lines where the draw rule puts them. The four kernels
             launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
@@ -651,6 +670,26 @@ GA_ACCEL_AT, GA_ACCEL_BP, GA_RATE, GA_GAP_RUNS = 10_000, 3000, 0.02, 3
 GA_HOT, GA_HOT_X = (1200, 1800), 10
 GA_WINDOW, GA_PROPORTION, GA_REGIONS = 100, 0.5, 20
 GA_VEL_RATIO, GA_Q_RTOL, GA_Q_ATOL = 3.0, 1e-9, 1e-12
+# slice 12a: tn.fa is t.fa with ST_N_RUNS seeded runs of N of ST_N_LEN
+# bases; simulateSam's runs (a)-(e) as ST_SAM (name: flags), read length
+# ST_READ_LEN, the chr1 share of pairs within ST_SHARE_SD binomial sd,
+# the flat error share within ST_FLAT_TOL; simulateBed's -N, -L and seed;
+# simulateVcf's sites, alpha, alleles and seed, and a reference of two
+# chroms of ST_COLLIDE_BP bases each as many sites as one holds;
+# simulateDivergentWindowsVcf's total sites, window sites, windows and
+# seed; simulatePcr's primers and -maxProductSize; a dot tree of
+# ST_TREE_LEAVES leaves; drawNewickTree's image and its white share
+ST_SEED, ST_N_RUNS, ST_N_LEN = 3200, 20, (50, 500)
+ST_READ_LEN, ST_SHARE_SD, ST_FLAT, ST_FLAT_TOL = 150, 4.0, 0.01, 0.001
+ST_SAM = {"a": ["-n", "3000", "-setSeed", "7"], "b": ["-coverage", "2"],
+          "c": ["-n", "2000", "-flatErrorRate", str(ST_FLAT)],
+          "d": ["-n", "2000", "-ancientErrorRate", "0.05"],
+          "e": ["-n", "500", "-setSeed", "3"]}
+ST_BED = (2000, 1000, 10)
+ST_VCF, ST_COLLIDE_BP = (100, 4, 100, 11), 12
+ST_DIV = (100, 20, 20, 9)
+ST_PRIMERS, ST_PCR_MAX = ("ACGTAC", "GATTACA"), 1000
+ST_TREE_LEAVES, ST_IMG, ST_WHITE = 12, (1500, 400), 0.95
 # the standard code in TCAG order, and the three-letter names
 CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
 AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
@@ -7700,6 +7739,510 @@ def gtf_accel_ok(x: dict) -> bool:
         and bl["q_at_most_ones"] and bl["twin_equal_snp_window"])
 
 
+def fasta_text(path: str) -> dict:
+    """{name: sequence} of a FASTA file, read as plain text."""
+    out, name = {}, None
+    with open(path) as fh:
+        for ln in fh:
+            ln = ln.rstrip("\n")
+            if ln.startswith(">"):
+                name = ln[1:]
+                out[name] = []
+            elif name is not None:
+                out[name].append(ln)
+    return {k: "".join(v) for k, v in out.items()}
+
+
+def sim_tree_inputs(t_fa: str, tmp: str) -> dict:
+    """The inputs of slice 12a's steps, from ST_SEED: tn.fa (t.fa with
+    ST_N_RUNS runs of N, shared among the chroms by length), ng.bed (its
+    ungapped runs by numpy, each named), collide.fa (two chroms of
+    ST_COLLIDE_BP seeded bases), tree.dot (a binary tree of
+    ST_TREE_LEAVES leaves in digraph lines, parents before children, half
+    of the left edges chained one deeper as ``p -> a -> a's left;``) and
+    tree.nh (TOOLS_PRIMATE_TREE). Returns the paths, the sequences, the
+    regions and the tree's edges."""
+    rng = np.random.default_rng(ST_SEED)
+    seqs = fasta_text(t_fa)
+    total = sum(len(s) for s in seqs.values())
+    tn, ng = {}, []
+    for name, s in seqs.items():
+        a = np.frombuffer(s.encode(), np.uint8).copy()
+        for _ in range(max(1, round(ST_N_RUNS * len(s) / total))):
+            n = int(rng.integers(ST_N_LEN[0], ST_N_LEN[1] + 1))
+            at = int(rng.integers(0, len(s) - n))
+            a[at:at + n] = ord("N")
+        tn[name] = a.tobytes().decode()
+        base = np.concatenate([[False], a != ord("N"), [False]])
+        edges = np.flatnonzero(np.diff(base.astype(np.int8)))
+        ng += [(name, int(b), int(e), f"ng{len(ng) + i}")
+               for i, (b, e) in enumerate(zip(edges[0::2], edges[1::2]))]
+    children, nodes = {}, [f"leaf{i}" for i in range(ST_TREE_LEAVES)]
+    while len(nodes) > 1:
+        i, j = sorted(rng.choice(len(nodes), 2, replace=False).tolist())
+        right, left = nodes.pop(j), nodes.pop(i)
+        children[f"anc{len(children)}"] = (left, right)
+        nodes.append(f"anc{len(children) - 1}")
+    root, dot, chained, stack = nodes[0], ["digraph tree {"], set(), [nodes[0]]
+    while stack:
+        node = stack.pop()
+        if node not in children:
+            continue
+        left, right = children[node]
+        if node not in chained:
+            if left in children and rng.random() < 0.5:
+                dot.append(f"{node} -> {left} -> {children[left][0]};")
+                chained.add(left)
+            else:
+                dot.append(f"{node} -> {left};")
+        dot.append(f"{node} -> {right};")
+        stack += [right, left]
+    collide = {c: "".join(rng.choice(list("ACGT"), ST_COLLIDE_BP))
+               for c in ("chrA", "chrB")}
+    paths = {k: os.path.join(tmp, k) for k in (
+        "tn.fa", "ng.bed", "collide.fa", "tree.dot", "tree.nh")}
+    texts = {
+        "tn.fa": [x for k, v in tn.items() for x in (f">{k}", v)],
+        "ng.bed": ["\t".join(map(str, r)) for r in ng],
+        "collide.fa": [x for k, v in collide.items() for x in (f">{k}", v)],
+        "tree.dot": dot + ["}"], "tree.nh": [TOOLS_PRIMATE_TREE]}
+    for k, lines in texts.items():
+        with open(paths[k], "w") as fh:
+            fh.writelines(ln + "\n" for ln in lines)
+    return {"paths": paths, "seqs": seqs, "tn": tn, "ng": ng,
+            "collide": collide, "children": children, "root": root,
+            "chained": len(chained)}
+
+
+def sim_tree_steps(step, t_fa: str, tmp: str) -> dict:
+    """The steps of slice 12a in phase_tools_cli, on t.fa and the inputs
+    of sim_tree_inputs: simulateSam runs ST_SAM (d with
+    -deaminationDistribution, e once more into a .bam); simulateBed of
+    ng.bed twice at ST_BED and once -matchedBed of the first; simulateVcf
+    at ST_VCF, with -refFile tn.fa and with -refFile collide.fa;
+    simulateDivergentWindowsVcf at ST_DIV; simulatePcr of ST_PRIMERS
+    with and without -includePrimer=false (stdout kept); dotToNewick of
+    tree.dot; drawNewickTree of tree.nh at ST_IMG where PIL imports (else
+    a line says why it did not run). Returns the paths and what the
+    checks need."""
+    st = sim_tree_inputs(t_fa, tmp)
+    p = st["paths"]
+    p.update({k: os.path.join(tmp, k) for k in (
+        "st_a.sam", "st_b.sam", "st_c.sam", "st_d.sam", "st_e.sam",
+        "st_e.bam", "st_d.txt", "st_bed1.bed", "st_bed2.bed", "st_bed_m.bed",
+        "st.vcf", "st_ref.vcf", "st_collide.vcf", "st_lo.vcf", "st_up.vcf",
+        "st_p.bed", "st_p.fq", "st_pn.bed", "st_pn.fq", "st_tree.nh",
+        "st_tree.png")})
+    for k, args in ST_SAM.items():
+        extra = ["-deaminationDistribution", p["st_d.txt"]] if k == "d" else []
+        step(f"simulateSam_{k}", "simulateSam", t_fa, p[f"st_{k}.sam"], *args,
+             *extra)
+    step("simulateSam_e_bam", "simulateSam", t_fa, p["st_e.bam"],
+         *ST_SAM["e"])
+    n, length, seed = (str(x) for x in ST_BED)
+    for name in ("bed1", "bed2"):
+        step(f"simulateBed_{name}", "simulateBed", p["ng.bed"],
+             p[f"st_{name}.bed"], "-N", n, "-L", length, "-setSeed", seed)
+    step("simulateBed_matched", "simulateBed", p["ng.bed"], p["st_bed_m.bed"],
+         "-matchedBed", p["st_bed1.bed"], "-setSeed", seed)
+    sites, alpha, alleles, seed = (str(x) for x in ST_VCF)
+    step("simulateVcf", "simulateVcf", p["st.vcf"], "-numSites", sites,
+         "-alpha", alpha, "-numAlleles", alleles, "-setSeed", seed)
+    step("simulateVcf_ref", "simulateVcf", p["st_ref.vcf"], "-refFile",
+         p["tn.fa"], "-numSites", sites, "-setSeed", seed)
+    step("simulateVcf_collide", "simulateVcf", p["st_collide.vcf"],
+         "-refFile", p["collide.fa"], "-numSites", str(ST_COLLIDE_BP),
+         "-setSeed", seed)
+    total, per, windows, seed = (str(x) for x in ST_DIV)
+    step("simulateDivergentWindowsVcf", "simulateDivergentWindowsVcf",
+         p["st_lo.vcf"], p["st_up.vcf"], "-numTotalSites", total,
+         "-numWindowSites", per, "-numWindows", windows, "-setSeed", seed)
+    primers = [x for pr in ST_PRIMERS for x in ("-p", pr)]
+    stdout = {}
+    for name, bed, fq, extra in (
+            ("simulatePcr", "st_p.bed", "st_p.fq", []),
+            ("simulatePcr_no_primer", "st_pn.bed", "st_pn.fq",
+             ["-includePrimer=false"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            step(name, "simulatePcr", *primers, "-t", t_fa, "-bed", p[bed],
+                 "-fastq", p[fq], "-maxProductSize", str(ST_PCR_MAX), *extra)
+        stdout[name] = buf.getvalue()
+    step("dotToNewick", "dotToNewick", p["tree.dot"], p["st_tree.nh"])
+    try:
+        import PIL  # noqa: F401  (drawNewickTree's one extra need)
+    except ImportError:
+        st["draw"] = {"ran": False,
+                      "why": "PIL is not installed on this machine"}
+        emit({"drawNewickTree": st["draw"]})
+    else:
+        step("drawNewickTree", "drawNewickTree", "-imgWidth", str(ST_IMG[0]),
+             "-imgHeight", str(ST_IMG[1]), p["tree.nh"], p["st_tree.png"])
+        st["draw"] = {"ran": True}
+    return {**st, "stdout": stdout}
+
+
+def sim_sam_checks(path: str, seqs: dict, flat: bool = False) -> dict:
+    """What the gates read from one simulateSam run: its header; its
+    pairs' fields; each read against the reference through the fragment
+    buffer's reuse, replayed from the pairs' positions (a fragment of
+    span s from 0-based start b holds the reference's bases up to
+    min(b + 2 * (s // 2), contig end), the rest of its slots what the
+    previous fragments left, A in a new buffer, which grows only where
+    the previous span plus this one passes its size; where b is 0 the
+    midpoint is unknown, so slots from s // 2 on are unknown); and each
+    read against the plain reference at its POS."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    head = [ln for ln in lines if ln.startswith("@")]
+    rows = [ln.split("\t") for ln in lines if not ln.startswith("@")]
+    want_head = ["@HD\tVN:1.6\tSO:unsorted"] + [
+        f"@SQ\tSN:{c}\tLN:{len(s)}" for c, s in seqs.items()]
+    refs = {c: np.frombuffer(s.upper().encode(), np.uint8)
+            for c, s in seqs.items()}
+    rl = ST_READ_LEN
+    fields_ok, names_ok = True, True
+    counts = {"equal_all": 0, "last_base_only": 0, "at_contig_ends": 0,
+              "other": 0, "carried_differ": 0, "model_bases": 0,
+              "model_mismatch_bases": 0}
+    kinds = set()
+    chrom_pairs = {c: 0 for c in seqs}
+    cap, buf, known, length, prev_chrom = 0, None, None, 0, None
+    for k in range(0, len(rows) - 1, 2):
+        r0, r1 = rows[k], rows[k + 1]
+        chrom = r0[2]
+        chrom_pairs[chrom] = chrom_pairs.get(chrom, 0) + 1
+        idx = chrom_pairs[chrom] - 1
+        fields_ok &= (
+            r0[0] == r1[0] == f"{chrom}_Read:{idx}" and r1[2] == chrom
+            and {int(r0[1]), int(r1[1])} in ({99, 147}, {83, 163})
+            and r0[6] == r1[6] == "=" and r0[7] == r1[3] and r1[7] == r0[3]
+            and r0[8] == r1[8] == str(rl) and r0[5] == r1[5] == f"{rl}M"
+            and all(30 <= int(r[4]) < 40 and len(r[9]) == len(r[10]) == rl
+                    and all(63 <= ord(ch) < 73 for ch in r[10])
+                    for r in (r0, r1)))
+        if chrom != prev_chrom:  # a new contig: a new buffer
+            cap, length, prev_chrom = 400 + int(5 * 50.0), 0, chrom
+            buf, known = np.full(cap, ord("A"), np.uint8), np.ones(cap, bool)
+        ref = refs[chrom]
+        n = len(ref)
+        a, b = sorted((r0, r1), key=lambda r: int(r[3]))
+        start = int(a[3]) - 1
+        size = int(b[3]) - int(a[3]) + rl
+        if length + size > cap:
+            cap = length + size
+            buf, known = np.full(cap, ord("A"), np.uint8), np.ones(cap, bool)
+        length = size
+        if start == 0:
+            lo = min(size // 2, n)
+            buf[:lo], known[:lo], known[lo:size] = ref[:lo], True, False
+        else:
+            m = min(size, min(start + 2 * (size // 2), n) - start)
+            buf[:m], known[:m] = ref[start:start + m], True
+        at_end = start == 0 or start + size > n
+        for r, off in ((a, 0), (b, size - rl)):
+            got = np.frombuffer(r[9].encode(), np.uint8)
+            model, kn = buf[off:off + rl], known[off:off + rl]
+            diff = kn & (got != model)
+            counts["model_bases"] += int(kn.sum())
+            counts["model_mismatch_bases"] += int(diff.sum())
+            kinds |= {(chr(x), chr(y)) for x, y in zip(model[diff],
+                                                      got[diff])}
+            pos = int(r[3]) - 1
+            plain = ref[pos:pos + rl]
+            if at_end:
+                counts["at_contig_ends"] += 1
+            elif np.array_equal(got, plain):
+                counts["equal_all"] += 1
+            elif (r is b and size % 2 and np.array_equal(got[:-1],
+                                                          plain[:-1])):
+                counts["last_base_only"] += 1
+                counts["carried_differ"] += int(kn[-1])
+            else:
+                counts["other"] += 1
+    pairs = len(rows) // 2
+    share = chrom_pairs.get("chr1", 0) / max(pairs, 1)
+    p1 = len(seqs["chr1"]) / sum(len(s) for s in seqs.values())
+    sd = (p1 * (1 - p1) / max(pairs, 1)) ** 0.5
+    out = {"header_equal": head == want_head, "records": len(rows),
+           "pairs": pairs, "even_records": len(rows) % 2 == 0,
+           "fields_ok": bool(fields_ok), "chr1_share": share,
+           "chr1_share_sd": sd,
+           "chr1_share_ok": abs(share - p1) <= ST_SHARE_SD * sd, **counts,
+           "mismatch_kinds": sorted("".join(x) for x in kinds)}
+    if flat:
+        out["mismatch_share"] = (counts["model_mismatch_bases"]
+                                 / max(counts["model_bases"], 1))
+    return out
+
+
+def pcr_products(seqs: dict, include_primer: bool) -> list:
+    """The (chrom, start, end, name) products of ST_PRIMERS found afresh
+    by str.find, each hit stepped past: for each reverse site (a primer's
+    reverse complement), the last forward site that ends at or after the
+    previous reverse site's start and before this one's; the primers
+    included or not; within ST_PCR_MAX."""
+    comp = str.maketrans("ACGT", "TGCA")
+    out = []
+    for chrom, t in seqs.items():
+        t = t.upper()
+        fwd, rev = [], []
+        for pr in ST_PRIMERS:
+            rc = pr.translate(comp)[::-1]
+            for seq, sites, end in ((pr, fwd, True), (rc, rev, False)):
+                i = t.find(seq)
+                while i != -1:
+                    sites.append((i + len(seq) if end else i, pr))
+                    i = t.find(seq, i + len(seq))
+        fwd.sort()
+        rev.sort()
+        for k, (r, pr_r) in enumerate(rev):
+            lo = rev[k - 1][0] if k else -1
+            cands = [x for x in fwd if lo <= x[0] < r]
+            if not cands:
+                continue
+            s, pr_f = cands[-1]
+            e = r
+            if include_primer:
+                s, e = s - len(pr_f), e + len(pr_r)
+            if e - s <= ST_PCR_MAX:
+                out.append((chrom, s, e, f"{pr_f}+{pr_r}"))
+    return out
+
+
+def newick_rows(text: str) -> list:
+    """(x_start, x_end) of each node's horizontal line in a drawn newick
+    tree, in the draw's row order (left subtree, node, right subtree):
+    1000 px a unit of branch length from the root's left edge, a node
+    with no length 1.0 long."""
+    def label(s):
+        name, _, bl = s.partition(":")
+        return float(bl) if bl else 1.0
+
+    def parse(s):
+        if "(" not in s:
+            return label(s), None, None
+        close, depth = s.rindex(")"), 0
+        for i in range(1, close):
+            depth += {"(": 1, ")": -1}.get(s[i], 0)
+            if s[i] == "," and depth == 0:
+                break
+        return label(s[close + 1:]), parse(s[1:i]), parse(s[i + 1:close])
+
+    rows = []
+
+    def walk(node, above):
+        bl, left, right = node
+        if left is not None:
+            walk(left, above + bl)
+        rows.append((int(above * 1000.0), int((above + bl) * 1000.0)))
+        if right is not None:
+            walk(right, above + bl)
+
+    walk(parse(text.strip().rstrip(";")), 0.0)
+    return rows
+
+
+def sim_tree_checks(st: dict) -> dict:
+    """What the gates of phase_tools_cli's slice 12a steps read from
+    their files, with numpy and plain text alone, importing none of these
+    tools' modules; the .bam alone is read back through the port's
+    io/sam.read, and the PNG through PIL."""
+    from gonomics_tpu_torch.io import sam as samio
+
+    p, seqs, tn = st["paths"], st["seqs"], st["tn"]
+    out = {k: sim_sam_checks(p[f"st_{k}.sam"], seqs, flat=k == "c")
+           for k in ST_SAM}
+    total = sum(len(s) for s in seqs.values())
+    out["b"]["pairs_want"] = int(2 * total / (2 * ST_READ_LEN))
+    with open(p["st_d.txt"]) as fh:
+        dt = fh.read().splitlines()
+    counts = [int(r.split("\t")[1]) for r in dt[1:]]
+    out["d"]["table"] = {
+        "header": dt[0] == "Position\tCount", "rows": len(dt) - 1,
+        "positions_in_order": [int(r.split("\t")[0]) for r in dt[1:]]
+        == list(range(len(dt) - 1)), "count_0": counts[0] if counts else -1,
+        "count_10": counts[10] if len(counts) > 10 else -1}
+    with open(p["st_e.sam"]) as fh:
+        e_rows = [ln.rstrip("\n") for ln in fh if not ln.startswith("@")]
+    _, bam_recs = samio.read(p["st_e.bam"])
+    out["e"]["bam_equal_sam"] = [r.to_string() for r in bam_recs] == e_rows
+    out["e"]["bam_records"] = len(bam_recs)
+
+    regions = {}
+    for c, b, e, name in st["ng"]:
+        regions.setdefault(c, []).append((b, e, name))
+
+    def in_region(r):
+        rs = regions.get(r[0], [])
+        i = int(np.searchsorted([x[0] for x in rs], int(r[1]), "right")) - 1
+        return (i >= 0 and int(r[2]) <= rs[i][1] and len(r) == 4
+                and r[3] == rs[i][2])
+
+    _, len_bed, _ = ST_BED
+    beds = {k: bed_rows(p[f"st_{k}.bed"]) for k in ("bed1", "bed2", "bed_m")}
+    with open(p["st_bed1.bed"], "rb") as f1, open(p["st_bed2.bed"], "rb") as f2:
+        twice_equal = f1.read() == f2.read()
+    out["simulate_bed"] = {
+        "runs_byte_equal": twice_equal,
+        **{f"{k}_records": len(v) for k, v in beds.items()},
+        **{f"{k}_length_ok": all(int(r[2]) - int(r[1]) == len_bed for r in v)
+           for k, v in beds.items()},
+        **{f"{k}_in_one_region": all(in_region(r) for r in v)
+           for k, v in beds.items()}}
+
+    sites, _, alleles, _ = ST_VCF
+    v = bed_rows(p["st.vcf"])
+    alts = [sum(int(a) for s in r[9:] for a in s.split("/")) for r in v]
+    out["simulate_vcf"] = {
+        "records": len(v),
+        "chrom_pos_ok": [(r[0], int(r[1])) for r in v]
+        == [("chr1", i + 1) for i in range(sites)],
+        "ref_alt_ok": all(r[3:6] == ["A", "T", "100"] for r in v),
+        "diploid_samples": all(len(r) == 9 + alleles // 2 and all(
+            len(s.split("/")) == 2 and set(s.split("/")) <= {"0", "1"}
+            for s in r[9:]) for r in v),
+        "alt_min": min(alts, default=-1), "alt_max": max(alts, default=-1),
+        "aa_ref_or_alt": all(r[7] in (f"AA={r[3]}", f"AA={r[4]}")
+                             for r in v)}
+    for key, path, ref in (("simulate_vcf_ref", "st_ref.vcf", tn),
+                           ("simulate_vcf_collide", "st_collide.vcf",
+                            st["collide"])):
+        v = bed_rows(p[path])
+        starts = [int(r[1]) for r in v]
+        out[key] = {
+            "records": len(v),
+            "ref_equal_fasta": all(r[3] == ref[r[0]][int(r[1]) - 1]
+                                   for r in v),
+            "ref_never_n": all(r[3] in ("A", "C", "G", "T") for r in v),
+            "alt_differs": all(r[4] in ("A", "C", "G", "T") and r[4] != r[3]
+                               for r in v),
+            "starts_distinct_across_chroms": len(set(starts)) == len(starts),
+            "chroms": sorted({r[0] for r in v}), "max_pos": max(starts,
+                                                                default=0)}
+    total_sites, per, windows, _ = ST_DIV
+    lo, up = bed_rows(p["st_lo.vcf"]), bed_rows(p["st_up.vcf"])
+
+    def chunks(rows):
+        return [rows[i:i + per] for i in range(0, len(rows), per)]
+
+    def alt_anc(w):
+        return sum(r[7] == f"AA={r[4]}" for r in w)
+
+    wl, wu = chunks(lo), chunks(up)
+    out["divergent_windows"] = {
+        "lower_windows": len(wl), "upper_windows": len(wu),
+        "window_sizes": sorted({len(w) for w in wl + wu}),
+        "positions_distinct_in_range": all(
+            len({int(r[1]) for r in w}) == len(w)
+            and all(1 <= int(r[1]) <= total_sites for r in w)
+            for w in wl + wu),
+        "lower_alt": [alt_anc(w) for w in wl],
+        "upper_alt": [alt_anc(w) for w in wu]}
+
+    for key, bed, fq, inc in (("simulate_pcr", "st_p.bed", "st_p.fq", True),
+                              ("simulate_pcr_no_primer", "st_pn.bed",
+                               "st_pn.fq", False)):
+        rows = bed_rows(p[bed])
+        exp = pcr_products(seqs, inc)
+        recs = fastq_records(p[fq])
+        out[key] = {
+            "lines": len(rows),
+            "equal_find": [(r[0], int(r[1]), int(r[2]), r[3]) for r in rows]
+            == exp,
+            "fastq_equal_slices": [(n, s, q) for n, s, q in recs] == [
+                (f"{c}:{s}-{e}_{n}", seqs[c].upper()[s:e],
+                 "I" * (e - s)) for c, s, e, n in exp],
+            "printed_equal_lines": st["stdout"][
+                "simulatePcr" if inc else "simulatePcr_no_primer"]
+            == f"found {len(rows)} potential products\n"}
+
+    def newick(node):
+        if node not in st["children"]:
+            return node
+        left, right = st["children"][node]
+        return f"({newick(left)},{newick(right)}){node}"
+
+    with open(p["st_tree.nh"]) as fh:
+        nh = fh.read()
+    out["dot_to_newick"] = {"equal_edges": nh == newick(st["root"]) + ";\n",
+                            "nodes": 2 * ST_TREE_LEAVES - 1,
+                            "chained_lines": st["chained"]}
+    draw = dict(st["draw"])
+    if draw["ran"]:
+        from PIL import Image
+        with Image.open(p["st_tree.png"]) as img:
+            size = img.size
+            px = np.asarray(img.convert("RGB"))
+        rows = newick_rows(TOOLS_PRIMATE_TREE)
+        draw.update({
+            "size": list(size), "nodes": len(rows),
+            "white_share": float((px == 255).all(-1).mean()),
+            "lines_black": all((px[k * 10 + 5, a:b] == 0).all()
+                               for k, (a, b) in enumerate(rows)),
+            "root_line": list(rows[[i for i, (a, _) in enumerate(rows)
+                                    if a == 0][0]])})
+    out["draw_newick_tree"] = draw
+    return out
+
+
+def sim_tree_ok(x: dict) -> bool:
+    """Every gate of sim_tree_checks met (drawNewickTree's where it ran)."""
+    n_bed, _, _ = ST_BED
+    sites, _, alleles, _ = ST_VCF
+    _, per, windows, _ = ST_DIV
+    want_pairs = {k: int(v[1]) for k, v in ST_SAM.items() if v[0] == "-n"}
+    sam_ok = all(
+        x[k]["header_equal"] and x[k]["even_records"] and x[k]["fields_ok"]
+        and x[k]["chr1_share_ok"]
+        and x[k]["pairs"] == want_pairs.get(k, x[k].get("pairs_want"))
+        for k in ST_SAM) and all(
+        x[k]["other"] == 0 and x[k]["model_mismatch_bases"] == 0
+        for k in ("a", "b", "e"))
+    a, c, d = x["a"], x["c"], x["d"]
+    sam_ok = (sam_ok and a["equal_all"] > 0 and a["last_base_only"] > 0
+              and a["carried_differ"] > 0 and a["at_contig_ends"] > 0
+              and abs(c["mismatch_share"] - ST_FLAT) <= ST_FLAT_TOL
+              and d["model_mismatch_bases"] > 0
+              and set(d["mismatch_kinds"]) <= {"CT", "GA"}
+              and d["table"]["header"] and d["table"]["rows"] == ST_READ_LEN
+              and d["table"]["positions_in_order"]
+              and d["table"]["count_0"] > d["table"]["count_10"]
+              and x["e"]["bam_equal_sam"]
+              and x["e"]["bam_records"] == x["e"]["records"] == 2 * int(
+                  ST_SAM["e"][1]))
+    sb = x["simulate_bed"]
+    bed_ok = sb["runs_byte_equal"] and all(
+        sb[f"{k}_records"] == n_bed and sb[f"{k}_length_ok"]
+        and sb[f"{k}_in_one_region"] for k in ("bed1", "bed2", "bed_m"))
+    v, vr, vc = (x["simulate_vcf"], x["simulate_vcf_ref"],
+                 x["simulate_vcf_collide"])
+    vcf_ok = (v["records"] == sites and v["chrom_pos_ok"] and v["ref_alt_ok"]
+              and v["diploid_samples"] and v["alt_min"] >= 1
+              and v["alt_max"] <= alleles - 1 and v["aa_ref_or_alt"]
+              and vr["records"] == sites and vc["records"] == ST_COLLIDE_BP
+              and vc["max_pos"] == ST_COLLIDE_BP
+              and all(r["ref_equal_fasta"] and r["ref_never_n"]
+                      and r["alt_differs"]
+                      and r["starts_distinct_across_chroms"]
+                      for r in (vr, vc)))
+    dw = x["divergent_windows"]
+    div_ok = (dw["lower_windows"] == dw["upper_windows"] == int(0.1 * windows)
+              and dw["window_sizes"] == [per]
+              and dw["positions_distinct_in_range"]
+              and max(dw["lower_alt"]) <= min(dw["upper_alt"]))
+    pcr_ok = all(x[k]["lines"] > 0 and x[k]["equal_find"]
+                 and x[k]["fastq_equal_slices"] and x[k]["printed_equal_lines"]
+                 for k in ("simulate_pcr", "simulate_pcr_no_primer"))
+    dn = x["dot_to_newick"]
+    dr = x["draw_newick_tree"]
+    draw_ok = not dr["ran"] or (
+        dr["size"] == list(ST_IMG) and dr["white_share"] >= ST_WHITE
+        and dr["lines_black"] and dr["root_line"] == [0, 1000])
+    return bool(sam_ok and bed_ok and vcf_ok and div_ok and pcr_ok
+                and dn["equal_edges"] and dn["chained_lines"] > 0 and draw_ok)
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -7914,7 +8457,36 @@ def phase_tools_cli(dev: torch.device) -> dict:
     (prefix sums over the ungapped columns), ``accel_fit_numpy``'s
     lengths, Q by ``accel_q`` (the doubled chimp_hca) within GA_Q_RTOL
     and below Q at lengths 1, the ungapped count over size alignment
-    columns, and the window's lengths equal to the SNP run's raw ones."""
+    columns, and the window's lengths equal to the SNP run's raw ones.
+    (17) Slice 12a (``sim_tree_inputs`` writes the seeded inputs,
+    ``sim_tree_steps`` runs the steps, ``sim_tree_checks`` reads their
+    files with numpy and text alone, the .bam through the port's
+    ``io/sam.read`` and the PNG through PIL, ``sim_tree_ok`` gates them;
+    ``sim_tree_tools`` in the phase line): ``simulateSam`` of t.fa as
+    ST_SAM, gated on the header, each pair's name, flags ({99, 147} or
+    {83, 163}), RNEXT, PNEXT, TLEN, CIGAR, quals and MAPQs, the pair
+    count (-coverage 2: int(2 * 250,000 / 300)), the chr1 share within
+    ST_SHARE_SD binomial sd, each read equal to the reference through
+    the fragment buffer's reuse (``sim_sam_checks``: the last base of an
+    odd span carries the previous fragment's), the flat error share
+    ST_FLAT +- ST_FLAT_TOL, ancient damage C->T or G->A only with the
+    deamination table's count at 0 above its count at 10, and the .bam's
+    records the .sam's; ``simulateBed`` of ng.bed twice (byte-equal) and
+    ``-matchedBed``, each record ST_BED's length inside one named region;
+    ``simulateVcf`` (chr1 at 1..100, A/T, diploid samples, 1-99 alt
+    alleles, AA= REF or ALT), with ``-refFile tn.fa`` and ``-refFile
+    collide.fa`` (REF the FASTA's, never N, ALT another base, starts
+    distinct across chroms: the collide run takes each of its 12 starts
+    once); ``simulateDivergentWindowsVcf`` at ST_DIV (2 windows of 20 a
+    file, positions distinct in 1..100, lower windows' alt-ancestor
+    counts at most the upper's); ``simulatePcr`` of ST_PRIMERS with and
+    without ``-includePrimer=false`` (``pcr_products``: the products
+    str.find gives with the same pairing rule, the FASTQ the template's
+    slices with quals I, the printed count the lines); ``dotToNewick``
+    (the newick the edges give, left child first); ``drawNewickTree`` at
+    ST_IMG where PIL imports (else a line says it did not run): the
+    size, ST_WHITE white, each node's line black where ``newick_rows``
+    puts it."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -8146,6 +8718,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         vm = vcf_maf_axt_steps(step, f, t_fa, chain, snps, pg, tmp, times,
                                dev)
         ga = gtf_accel_steps(step, f, t_fa, chain, tmp, times)
+        stt = sim_tree_steps(step, t_fa, tmp)
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -8194,6 +8767,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["interval_lift_tools"] = interval_lift_checks(il)
         out["vcf_maf_axt_tools"] = vcf_maf_axt_checks(vm)
         out["gtf_accel_tools"] = gtf_accel_checks(ga)
+        out["sim_tree_tools"] = sim_tree_checks(stt)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -8293,6 +8867,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
             and interval_lift_ok(out["interval_lift_tools"])
             and vcf_maf_axt_ok(out["vcf_maf_axt_tools"])
             and gtf_accel_ok(out["gtf_accel_tools"])
+            and sim_tree_ok(out["sim_tree_tools"])
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

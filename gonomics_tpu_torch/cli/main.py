@@ -254,6 +254,22 @@ COMMANDS = {
     "branchLengthsMultiFaBed": (
         "gonomics_tpu_torch.cli.branch_lengths_multi_fa_bed",
         "Fitch-Margoliash branch lengths per bed region (host)"),
+    "simulateSam": ("gonomics_tpu_torch.cli.simulate_sam",
+                    "Simulate Illumina paired reads from a reference "
+                    "(host)"),
+    "simulateBed": ("gonomics_tpu_torch.cli.simulate_tools:main_bed",
+                    "Random bed regions within a search space (host)"),
+    "simulateVcf": ("gonomics_tpu_torch.cli.simulate_tools:main_vcf",
+                    "Simulated VCF variants from an AFS (host)"),
+    "simulateDivergentWindowsVcf": (
+        "gonomics_tpu_torch.cli.simulate_tools:main_divergent_windows",
+        "Upper/lower divergence-percentile VCF windows (host)"),
+    "simulatePcr": ("gonomics_tpu_torch.cli.simulate_tools:main_pcr",
+                    "Predict PCR amplicon products (host)"),
+    "dotToNewick": ("gonomics_tpu_torch.cli.dot_to_newick",
+                    "Newick tree from a dot-format digraph (host)"),
+    "drawNewickTree": ("gonomics_tpu_torch.cli.draw_newick_tree",
+                       "Create PNG of a newick tree (host, needs PIL)"),
 }
 
 

@@ -9,11 +9,12 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 100 tools, imports none of them
+lists and dispatches exactly the port's 107 tools, imports none of them
 before dispatch, resolves a ``module:function`` target as the JAX
 umbrella does, runs the popgen tools, the interval and lift tools, the
-VCF, MAF and axt tools and the GTF and acceleration tools to the JAX
-umbrella's bytes, and
+VCF, MAF and axt tools, the GTF and acceleration tools and the
+simulation and tree tools to the JAX umbrella's bytes, lists its tools
+and runs every tool but drawNewickTree without PIL, and
 its ``gsw align`` wants the card; ``pyproject.toml`` installs it as
 ``gonomics-torch``; no new module imports JAX.
 """
@@ -84,7 +85,7 @@ PORTED = ["alleleSplit", "assemblyStats", "axTools", "axtSam",
           "bedToWig", "bedTrim", "bedValueWig", "bedpeFilter", "bedpeOverlap",
           "branchLengthsMultiFaBed", "callVariants", "catMultiFa",
           "cigarToBed", "countPairOfBases", "digestGenome",
-          "divergenceSpectrum", "dunnIndex", "faBin", "faFilter", "faFindFast",
+          "divergenceSpectrum", "dotToNewick", "drawNewickTree", "dunnIndex", "faBin", "faFilter", "faFindFast",
           "faFormat", "faInfo", "faToPredictSet", "faUniq", "fastqFilter",
           "fastqFormat", "fastqReplaceSeq", "filterGenotypes",
           "findAndReplace", "gcContent", "geneAssignmentStats", "geneIdToName",
@@ -100,7 +101,9 @@ PORTED = ["alleleSplit", "assemblyStats", "axTools", "axtSam",
           "primateRecon", "proximityBlockVcf", "quickOrthologs", "randSeq",
           "reconstructSeq", "samConsensus", "samInfo", "samToBed", "samToWig",
           "sampleVcf", "scCount", "selectionMcmc", "selectionMle",
-          "simulateWrightFisher", "statCalc", "vcfAfs",
+          "simulateBed", "simulateDivergentWindowsVcf", "simulatePcr",
+          "simulateSam", "simulateVcf", "simulateWrightFisher", "statCalc",
+          "vcfAfs",
           "vcfAncestorAnnotation", "vcfFilter", "vcfFormat", "vcfInfo",
           "vcfToFa", "wigTools"]
 
@@ -259,7 +262,7 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 100 ported tools, each a key of
+    """help (and no argument) lists the 107 ported tools, each a key of
     the JAX umbrella's COMMANDS."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
@@ -267,7 +270,7 @@ def test_umbrella_lists_the_ported_tools(capsys):
         listed = [ln.split()[0] for ln in lines if ln.startswith("  ")]
         assert listed == PORTED
     assert sorted(umbrella.COMMANDS) == PORTED
-    assert len(PORTED) == 100
+    assert len(PORTED) == 107
     assert set(PORTED) <= set(jmain.COMMANDS)
     assert all("TPU" not in desc for _, desc in umbrella.COMMANDS.values())
 
@@ -580,7 +583,14 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.quick_orthologs,"
             " gonomics_tpu_torch.phylo.accel,"
             " gonomics_tpu_torch.cli.multi_fa_acceleration,"
-            " gonomics_tpu_torch.cli.branch_lengths_multi_fa_bed\n"
+            " gonomics_tpu_torch.cli.branch_lengths_multi_fa_bed,"
+            " gonomics_tpu_torch.simulate,"
+            " gonomics_tpu_torch.cli.simulate_sam,"
+            " gonomics_tpu_torch.cli.simulate_tools,"
+            " gonomics_tpu_torch.phylo.simpletree,"
+            " gonomics_tpu_torch.cli.dot_to_newick,"
+            " gonomics_tpu_torch.sketch, gonomics_tpu_torch.phylo.draw,"
+            " gonomics_tpu_torch.cli.draw_newick_tree\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
@@ -616,7 +626,9 @@ def test_umbrella_module_function_targets(tmp_path, monkeypatch):
                  "mafToBed", "mafToMultiFa", "mafIndels", "axTools",
                  "axtSam", "gtfTools", "getPromoter", "geneIdToName",
                  "scCount", "quickOrthologs", "multiFaAcceleration",
-                 "branchLengthsMultiFaBed"):
+                 "branchLengthsMultiFaBed", "simulateSam", "simulateBed",
+                 "simulateVcf", "simulateDivergentWindowsVcf",
+                 "simulatePcr", "dotToNewick", "drawNewickTree"):
         port, jax = umbrella.COMMANDS[name][0], jmain.COMMANDS[name][0]
         assert port.replace("gonomics_tpu_torch.", "gonomics_tpu.") == jax
 
@@ -941,3 +953,105 @@ def test_umbrella_gtf_accel_tools_equal_jax_umbrella(
         out[side] = (files, capsys.readouterr().out)
     assert out["port"] == out["jax"]
     assert all(out["jax"][0].values())
+
+
+@pytest.fixture(scope="module")
+def sim_tree_inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("sim_tree_umbrella")
+    rng = np.random.default_rng(3201)
+    seqs = {"chr1": rng.choice(list("ACGTacgt"), 3000),
+            "chr2": rng.choice(list("ACGT"), 1200)}
+    clean = [x for k, v in seqs.items() for x in (f">{k}", "".join(v))]
+    seqs["chr1"][700:760] = "N"
+    seqs["chr2"][400:430] = "N"
+    ng = [("chr1", 0, 700), ("chr1", 760, 3000), ("chr2", 0, 400),
+          ("chr2", 430, 1200)]
+    files = {
+        "ref.fa": [x for k, v in seqs.items() for x in (f">{k}", "".join(v))],
+        "clean.fa": clean,
+        "ng.bed": [f"{c}\t{s}\t{e}\tr{i}" for i, (c, s, e) in enumerate(ng)],
+        "tree.dot": ["digraph G {", "R -> A -> C;", "R -> B;", "A -> D;",
+                     "B -> E;", "B -> F;", "}"],
+        "tree.nh": ["((h:0.1,c:0.2)hc:0.05,(g:0.3,o:0.25)go:0.1)r;"]}
+    for name, lines in files.items():
+        (d / name).write_text("".join(ln + "\n" for ln in lines))
+    return {k: str(d / k) for k in files}
+
+
+@pytest.mark.parametrize("tool", [
+    "simulateSam", "simulateSam_bam", "simulateBed", "simulateVcf",
+    "simulateVcf_ref", "simulateDivergentWindowsVcf", "simulatePcr",
+    "dotToNewick", "drawNewickTree"])
+def test_umbrella_sim_tree_tools_equal_jax_umbrella(
+        sim_tree_inputs, tmp_path, capsys, tool):
+    """Each simulation and tree tool of slice 12a through gonomics-torch
+    writes what the JAX umbrella's writes, files and stdout (the PNG as
+    its bytes)."""
+    f = sim_tree_inputs
+    out = {}
+    for side, mod in (("jax", jmain), ("port", umbrella)):
+        d = tmp_path / side
+        d.mkdir()
+        o = str(d / "out")
+        argv = {
+            "simulateSam": ["simulateSam", f["clean.fa"], o + ".sam", "-n",
+                            "40", "-flatErrorRate", "0.02",
+                            "-ancientErrorRate", "0.05",
+                            "-deaminationDistribution", o + ".d"],
+            "simulateSam_bam": ["simulateSam", f["ref.fa"], o + ".bam",
+                                "-coverage", "1", "-setSeed", "5"],
+            "simulateBed": ["simulateBed", f["ng.bed"], o, "-N", "30", "-L",
+                            "200", "-setSeed", "4"],
+            "simulateVcf": ["simulateVcf", o, "-numSites", "4",
+                            "-numAlleles", "9", "-alpha", "2",
+                            "-setSeed", "3"],
+            "simulateVcf_ref": ["simulateVcf", o, "-numSites", "4",
+                                "-refFile", f["ref.fa"], "-setSeed", "3"],
+            "simulateDivergentWindowsVcf": [
+                "simulateDivergentWindowsVcf", o + ".lo", o + ".up",
+                "-numTotalSites", "6", "-numWindowSites", "3",
+                "-numWindows", "4", "-setSeed", "2", "-lowerPercentile",
+                "0.25", "-upperPercentile", "0.75"],
+            "simulatePcr": ["simulatePcr", "-p", "ACG", "-p", "TTA", "-t",
+                            f["ref.fa"], "-bed", o + ".bed", "-fastq",
+                            o + ".fq", "-maxProductSize", "400"],
+            "dotToNewick": ["dotToNewick", f["tree.dot"], o],
+            "drawNewickTree": ["drawNewickTree", "-imgWidth", "600",
+                               "-imgHeight", "80", f["tree.nh"],
+                               o + ".png"]}[tool]
+        mod.main(argv)
+        files = {n: _read(str(d / n)) for n in sorted(os.listdir(d))}
+        out[side] = (files, capsys.readouterr().out)
+    assert out["port"] == out["jax"]
+    assert all(out["jax"][0].values())
+
+
+def test_only_draw_newick_tree_needs_pil(sim_tree_inputs, tmp_path):
+    """With PIL blocked from import, ``help`` lists all the tools and
+    dotToNewick and simulateBed run; drawNewickTree alone fails, on its
+    import of PIL."""
+    f = sim_tree_inputs
+    code = (
+        "import sys\n"
+        "sys.modules['PIL'] = None\n"
+        "from gonomics_tpu_torch.cli import main as m\n"
+        "m.main(['help'])\n"
+        f"m.main(['dotToNewick', {f['tree.dot']!r}, {str(tmp_path / 'o.nh')!r}])\n"
+        f"m.main(['simulateBed', {f['ng.bed']!r}, {str(tmp_path / 'o.bed')!r},"
+        " '-N', '5', '-L', '50', '-setSeed', '1'])\n"
+        "try:\n"
+        f"    m.main(['drawNewickTree', {f['tree.nh']!r},"
+        f" {str(tmp_path / 'o.png')!r}])\n"
+        "except ImportError as e:\n"
+        "    print('drawNewickTree:', type(e).__name__, e.name)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+    listed = [ln.split()[0] for ln in out.stdout.splitlines()[2:]
+              if ln.startswith("  ")]
+    assert listed == PORTED
+    assert out.stdout.splitlines()[-1] == (
+        "drawNewickTree: ModuleNotFoundError PIL")
+    assert (tmp_path / "o.nh").read_text().endswith(";\n")
+    assert len((tmp_path / "o.bed").read_text().splitlines()) == 5
+    assert not (tmp_path / "o.png").exists()
