@@ -367,8 +367,24 @@ exits non-zero:
             repeatable; VCF records, REF from the FASTA, starts distinct
             across chroms; windows ordered by alt-ancestor counts; PCR
             products str.find's; the newick the digraph's edges; the
-            PNG's lines where the draw rule puts them. The four kernels
-            launched. Wall time of each step.
+            PNG's lines where the draw rule puts them. Then slice 12b
+            (sim_evol_steps, sim_evol_checks): simulateEvol genic of a
+            3,000-base root with a four-exon gene down a 7-leaf tree
+            (leaves, and every node); withIndels of 20,000 bases, with
+            its VCF and again at transition bias 1; nonCoding of 13
+            nodes x 10,000 bases, again with the identity matrix, and
+            over its newick from a FASTA led by n and by a; simRecon, and
+            over the tree with every length 0; ilsReconstructSeq of 3
+            topologies x 50,000 positions and of weights 1 and 0.
+            Gates: genic's records, ATG and a stop codon where the gene
+            puts them, at most one gap; withIndels' ref row less its
+            gaps the input, each VCF line the alignment's columns;
+            nonCoding's records ACGT, the newick its names, the identity
+            run all root, the n and a runs equal past column 0 (an N
+            uses up a draw); simRecon's leaves, one row a node, its exon
+            and nonCoding rows, values in [0, 100], all 100 at length 0;
+            the ILS .pfa numpy's float32 sum, which the float64 sum is
+            not. The four kernels launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -690,6 +706,22 @@ ST_VCF, ST_COLLIDE_BP = (100, 4, 100, 11), 12
 ST_DIV = (100, 20, 20, 9)
 ST_PRIMERS, ST_PCR_MAX = ("ACGTAC", "GATTACA"), 1000
 ST_TREE_LEAVES, ST_IMG, ST_WHITE = 12, (1500, 400), 0.95
+# slice 12b: a root of SE_ROOT_BP seeded bases with a gene of SE_EXONS
+# (0-based half-open) and SE_FRAMES, its start codon at the first exon's
+# start and its stop codon's first base at the last exon's end - 3; the
+# 7-leaf SE_TREE (and a copy with every length 0); withIndels' input
+# length, branch length, propIndel, lambda, transition bias and seed;
+# nonCoding's nodes, length, seed and --fastaFile length; the ILS run's
+# topologies, positions and precision; the root's GC share within
+# SE_GC_TOL of --gcContent's default
+SE_SEED, SE_ROOT_BP = 3300, 3000
+SE_EXONS = ((300, 601), (900, 1300), (1500, 1801), (2200, 2800))
+SE_FRAMES = (0, 2, 1, 0)
+SE_TREE = ("((((l0:0.1,l1:0.05)n1:0.08,l2:0.12)n2:0.04,(l3:0.2,l4:0.07)n3:"
+           "0.1)n4:0.03,(l5:0.09,l6:0.15)n5:0.06)root;")
+SE_WI = (20_000, "0.05", "0.3", "0.5", "2", "5")
+SE_NC, SE_NC_FA_BP = (13, 10_000, 3), 2000
+SE_ILS, SE_GC_TOL = (3, 50_000, 0.001), 0.02
 # the standard code in TCAG order, and the three-letter names
 CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
 AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
@@ -8243,6 +8275,365 @@ def sim_tree_ok(x: dict) -> bool:
                 and dn["equal_edges"] and dn["chained_lines"] > 0 and draw_ok)
 
 
+def newick_names(text: str) -> list:
+    """The node names of a newick string, in the text's order."""
+    return [t.split(":")[0] for t in re.split(r"[(),;]", text.strip()) if t]
+
+
+def read_pfa(path: str) -> tuple:
+    """The (name, length) header lines and the float16 rows, as float32,
+    of a one-record .pfa, read as bytes."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    end = data.index(b"EndHeader\n")
+    head = data[:end].decode().splitlines()
+    rows = np.frombuffer(data[end + len(b"EndHeader\n"):], "<f2")
+    return head, rows.astype(np.float32).reshape(-1, 4)
+
+
+def write_pfa(path: str, name: str, rows: np.ndarray) -> None:
+    """A one-record .pfa: the text header, then the rows as float16."""
+    with open(path, "wb") as fh:
+        fh.write(f"pFasta_format_1.0\n{name}\t{len(rows)}\nEndHeader\n"
+                 .encode())
+        fh.write(rows.astype("<f2").tobytes())
+
+
+def sim_evol_inputs(tmp: str) -> dict:
+    """The inputs of slice 12b's steps, from SE_SEED: root.fa (SE_ROOT_BP
+    bases, ATG at the gene's start, GGC where its stop codon goes);
+    gene.gp (SE_EXONS and SE_FRAMES) and gene_nostop.gp (its CDS end one
+    base short, so no codon starts at end - 3); tree.nh (SE_TREE) and
+    tree0.nh (every length 0); wi.fa (SE_WI's length); ident.txt (the
+    identity substitution matrix); nc_n.fa and nc_a.fa (SE_NC_FA_BP
+    lower-case bases, the first n in one and a in the other); the ILS
+    run's SE_ILS topologies (.pfa rows of multinomial(16) / 16, so
+    float16 keeps them; Dirichlet weights in wigs) and a run with weights
+    1 and 0. Returns the paths and what the checks need."""
+    rng = np.random.default_rng(SE_SEED)
+    root = rng.choice(list("ACGT"), SE_ROOT_BP)
+    start, end = SE_EXONS[0][0], SE_EXONS[-1][1]
+    root[start:start + 3] = list("ATG")
+    root[end - 3:end] = list("GGC")
+    starts = ",".join(str(a) for a, _ in SE_EXONS) + ","
+    ends = ",".join(str(b) for _, b in SE_EXONS) + ","
+    frames = ",".join(map(str, SE_FRAMES)) + ","
+
+    def gene(cds_end):
+        return (f"g1\tchr1\t+\t0\t{SE_ROOT_BP}\t{start}\t{cds_end}\t"
+                f"{len(SE_EXONS)}\t{starts}\t{ends}\t{frames}")
+
+    wi_bp = SE_WI[0]
+    nc_fa = rng.choice(list("acgt"), SE_NC_FA_BP)
+    texts = {
+        "root.fa": [">root", "".join(root)],
+        "gene.gp": [gene(end)], "gene_nostop.gp": [gene(end - 1)],
+        "tree.nh": [SE_TREE], "tree0.nh": [re.sub(r":[0-9.]+", ":0",
+                                                  SE_TREE)],
+        "wi.fa": [">chrW", "".join(rng.choice(list("ACGT"), wi_bp))],
+        "ident.txt": ["\t".join("1" if i == j else "0" for j in range(4))
+                      for i in range(4)],
+        "nc_n.fa": [">inN", "n" + "".join(nc_fa[1:])],
+        "nc_a.fa": [">inA", "a" + "".join(nc_fa[1:])]}
+    n_top, n_pos, _ = SE_ILS
+    weights = rng.dirichlet(np.ones(n_top), n_pos)
+    recons = [(rng.multinomial(16, np.ones(4) / 4, n_pos) / 16).astype(
+        np.float32) for _ in range(n_top)]
+    paths = {k: os.path.join(tmp, "se_" + k) for k in texts}
+    for run, ws in (("ils", weights.T),
+                    ("ils10", (np.ones(n_pos), np.zeros(n_pos)))):
+        wigs, pfas = [], []
+        for k, w in enumerate(ws):
+            name = f"top{k}"
+            wig = os.path.join(tmp, f"se_{run}_{name}.wig")
+            with open(wig, "w") as fh:
+                fh.write(f"fixedStep chrom={name} start=1 step=1\n")
+                fh.writelines(repr(float(x)) + "\n" for x in w)
+            pfa = os.path.join(tmp, f"se_{run}_{name}.pfa")
+            write_pfa(pfa, name, recons[k])
+            wigs.append(wig)
+            pfas.append(pfa)
+        texts[f"{run}_post.list"] = wigs
+        texts[f"{run}_recons.list"] = pfas
+        texts[f"{run}.sizes"] = [f"top{k}\t{n_pos}" for k in range(len(ws))]
+        paths.update({k: os.path.join(tmp, "se_" + k) for k in (
+            f"{run}_post.list", f"{run}_recons.list", f"{run}.sizes")})
+    for k, lines in texts.items():
+        with open(paths[k], "w") as fh:
+            fh.writelines(ln + "\n" for ln in lines)
+    return {"paths": paths, "root": "".join(root),
+            "wi": texts["wi.fa"][1], "nc_fa": texts["nc_n.fa"][1],
+            "weights": weights, "recons": recons}
+
+
+def sim_evol_steps(step, tmp: str) -> dict:
+    """The steps of slice 12b in phase_tools_cli, on sim_evol_inputs:
+    simulateEvol genic of root.fa down tree.nh (leaves; and every node
+    with --completeSimOutput, same seed); withIndels of wi.fa at SE_WI
+    with --vcfOutFile, and again at transition bias 1 (-lambda); nonCoding
+    at SE_NC with --newickOut, again with the identity matrix, and over
+    that newick with nc_n.fa and with nc_a.fa; simRecon with
+    --baseAccFile, and over tree0.nh with gene_nostop.gp;
+    ilsReconstructSeq of the SE_ILS topologies and of weights 1 and 0.
+    Returns the inputs and the output paths."""
+    se = sim_evol_inputs(tmp)
+    p = se["paths"]
+    p.update({k: os.path.join(tmp, "se_" + k) for k in (
+        "leaves.fa", "all.fa", "all_leaves.fa", "wi_out.fa", "wi.vcf",
+        "wi1_out.fa", "nc.fa", "nc.nh", "nc_ident.fa", "nc_ident.nh",
+        "nc_n_out.fa", "nc_a_out.fa", "sr_sim.fa", "sr_leaf.fa",
+        "sr_recon.fa", "sr_acc.txt", "sr_base.txt", "sr0_sim.fa",
+        "sr0_leaf.fa", "sr0_recon.fa", "sr0_acc.txt", "sr0_base.txt",
+        "ils.pfa", "ils10.pfa")})
+    step("simulateEvol_genic", "simulateEvol", "genic", "--setSeed", "7",
+         "--genePred", p["gene.gp"], p["tree.nh"], p["root.fa"],
+         p["leaves.fa"])
+    step("simulateEvol_genic_complete", "simulateEvol", "genic",
+         "--setSeed", "7", "--completeSimOutput", p["all.fa"], "--genePred",
+         p["gene.gp"], p["tree.nh"], p["root.fa"], p["all_leaves.fa"])
+    _, branch, prop, lam, bias, seed = SE_WI
+    step("simulateEvol_withIndels", "simulateEvol", "withIndels",
+         "--branchLength", branch, "--propIndel", prop, "--lambdaValue",
+         lam, "--transitionBias", bias, "--setSeed", seed, "--vcfOutFile",
+         p["wi.vcf"], p["wi.fa"], p["wi_out.fa"])
+    step("simulateEvol_withIndels_bias1", "simulateEvol", "withIndels",
+         "--branchLength", branch, "--propIndel", prop, "-lambda", lam,
+         "--setSeed", seed, p["wi.fa"], p["wi1_out.fa"])
+    nodes, length, seed = (str(x) for x in SE_NC)
+    nc = ["--numNodes", nodes, "--lenSeq", length, "--setSeed", seed]
+    step("simulateEvol_nonCoding", "simulateEvol", "nonCoding", *nc,
+         "--newickOut", p["nc.nh"], p["nc.fa"])
+    step("simulateEvol_nonCoding_identity", "simulateEvol", "nonCoding",
+         *nc, "--substitutionMatrix", p["ident.txt"], "--newickOut",
+         p["nc_ident.nh"], p["nc_ident.fa"])
+    for k in ("n", "a"):
+        step(f"simulateEvol_nonCoding_fasta_{k}", "simulateEvol",
+             "nonCoding", "--treeFile", p["nc.nh"], "--fastaFile",
+             p[f"nc_{k}.fa"], "--setSeed", "9", p[f"nc_{k}_out.fa"])
+    step("simRecon", "simRecon", "--baseAccFile", p["sr_base.txt"],
+         p["root.fa"], p["tree.nh"], p["gene.gp"], p["sr_sim.fa"],
+         p["sr_leaf.fa"], p["sr_recon.fa"], p["sr_acc.txt"])
+    step("simRecon_zero_lengths", "simRecon", "--baseAccFile",
+         p["sr0_base.txt"], p["root.fa"], p["tree0.nh"],
+         p["gene_nostop.gp"], p["sr0_sim.fa"], p["sr0_leaf.fa"],
+         p["sr0_recon.fa"], p["sr0_acc.txt"])
+    for run in ("ils", "ils10"):
+        step(f"ilsReconstructSeq_{run}", "ilsReconstructSeq", "--precision",
+             str(SE_ILS[2]), p[f"{run}_post.list"], p[f"{run}_recons.list"],
+             p[f"{run}.sizes"], p[f"{run}.pfa"])
+    return se
+
+
+def sim_evol_checks(se: dict) -> dict:
+    """What the gates of phase_tools_cli's slice 12b steps read from
+    their files, with numpy and plain text alone, importing none of these
+    tools' modules."""
+    p, root = se["paths"], se["root"]
+    start, end = SE_EXONS[0][0], SE_EXONS[-1][1]
+    leaf_names = sorted(n for n in newick_names(SE_TREE)
+                        if n.startswith("l"))
+    out = {}
+
+    leaves, every = fasta_text(p["leaves.fa"]), fasta_text(p["all.fa"])
+    out["genic"] = {
+        "leaves": sorted(leaves), "records": len(every),
+        "leaves_equal_complete_run": leaves == fasta_text(
+            p["all_leaves.fa"]) and all(every.get(k) == v
+                                        for k, v in leaves.items()),
+        "lengths": sorted({len(v) for v in every.values()}),
+        "start_atg": sum(v[start:start + 3] == "ATG"
+                         for v in every.values()),
+        "stop_codon": sum(v[end - 3:end] in ("TAA", "TAG", "TGA")
+                          for v in every.values()),
+        "start_or_stop_gapped": sum("-" in v[start:start + 3] + v[end - 3:end]
+                                    for v in every.values()),
+        "most_gaps": max(v.count("-") for v in every.values()),
+        "with_gap": sum("-" in v for v in every.values()),
+        "acgt_or_gap": all(set(v) <= set("ACGT-") for v in every.values()),
+        "differing_bases": sum(a != b for v in every.values()
+                               for a, b in zip(v, root))}
+
+    n_wi = SE_WI[0]
+    for key, path, vcf in (("with_indels", "wi_out.fa", "wi.vcf"),
+                           ("with_indels_bias1", "wi1_out.fa", None)):
+        rows = fasta_text(p[path])
+        names = list(rows)
+        ref, alt = rows[names[0]], rows[names[-1]]
+        o = {"names": names, "equal_lengths": len(ref) == len(alt),
+             "ref_ungapped_is_input": ref.replace("-", "") == se["wi"],
+             "columns": len(ref), "ref_gaps": ref.count("-"),
+             "alt_gaps": alt.count("-"),
+             "substitutions": sum(a != b and "-" not in (a, b)
+                                  for a, b in zip(ref, alt))}
+        if vcf:
+            with open(p[vcf]) as fh:
+                lines = fh.read().splitlines()
+            col = [i for i, b in enumerate(ref) if b != "-"]
+            kinds = {"sub": 0, "del": 0, "ins": 0}
+            agree = 0
+            for ln in lines[2:]:
+                f = ln.split("\t")
+                c, r, a = col[int(f[1]) - 1], f[3], f[4]
+                kind = ("sub" if len(r) == len(a) == 1 else
+                        "del" if len(a) == 1 else "ins")
+                kinds[kind] += 1
+                width = max(len(r), len(a))
+                ok = (ref[c:c + width].replace("-", "") == r
+                      and alt[c:c + width].replace("-", "") == a
+                      and f[0] == names[0] and f[2] == "."
+                      and f[5:] == ["100", "PASS", ".", ".", ""])
+                if kind == "sub":
+                    ok = ok and r != a
+                elif kind == "del":
+                    ok = ok and alt[c + 1:c + width] == "-" * (width - 1)
+                else:
+                    ok = ok and ref[c + 1:c + width] == "-" * (width - 1)
+                agree += ok
+            o.update({"vcf_header": lines[:2] == [
+                "##fileformat=VCFv4.2", "#CHROM\tPOS\tID\tREF\tALT\tQUAL\t"
+                "FILTER\tINFO\tFORMAT"], "vcf_lines": len(lines) - 2,
+                "vcf_lines_match_columns": agree, "vcf_kinds": kinds})
+        out[key] = o
+    out["with_indels"]["input_bp"] = n_wi
+
+    nodes, length, _ = SE_NC
+    nc, nci = fasta_text(p["nc.fa"]), fasta_text(p["nc_ident.fa"])
+    with open(p["nc.nh"]) as fh:
+        nh = fh.read()
+    with open(p["nc_ident.nh"]) as fh:
+        nh_ident = fh.read()
+    nc_root = nc.get("root", "")
+    out["non_coding"] = {
+        "records": len(nc), "lengths": sorted({len(v) for v in nc.values()}),
+        "acgt_only": all(set(v) <= set("ACGT") for v in nc.values()),
+        "root_gc": (nc_root.count("G") + nc_root.count("C"))
+        / max(len(nc_root), 1),
+        "newick_nodes": len(newick_names(nh)),
+        "newick_names_equal_records": sorted(newick_names(nh)) == sorted(nc),
+        "newick_one_line": nh.endswith(";\n") and nh.count("\n") == 1,
+        "differing_from_root": sum(a != b for v in nc.values()
+                                   for a, b in zip(v, nc_root)),
+        "identity_records_equal_root": len(nci) == nodes and all(
+            v == nci["root"] for v in nci.values()),
+        "identity_root_equal": nci.get("root") == nc_root,
+        "identity_newick_equal": nh_ident == nh}
+    runs = {k: list(fasta_text(p[f"nc_{k}_out.fa"]).items())
+            for k in ("n", "a")}
+    nn, na = runs["n"], runs["a"]
+    out["non_coding_fasta"] = {
+        "records": [len(nn), len(na)],
+        "root_names": [nn[0][0], na[0][0]],
+        "roots_upper_input": nn[0][1] == se["nc_fa"].upper()
+        and na[0][1] == "A" + se["nc_fa"][1:].upper(),
+        "n_column_all_n": all(v[0] == "N" for _, v in nn),
+        "rest_acgt": all(set(v[1:]) <= set("ACGT") for _, v in nn + na),
+        "rest_equal_a_run": len(nn) == len(na) and all(
+            a[1][1:] == b[1][1:] and (i == 0 or a[0] == b[0])
+            for i, (a, b) in enumerate(zip(nn, na))),
+        "differing_from_root": sum(a != b for _, v in nn
+                                   for a, b in zip(v[1:], nn[0][1][1:]))}
+
+    def table(path):
+        with open(path) as fh:
+            return [ln.split("\t") for ln in fh.read().splitlines()]
+
+    sim = fasta_text(p["sr_sim.fa"])
+    leaf, recon = fasta_text(p["sr_leaf.fa"]), fasta_text(p["sr_recon.fa"])
+    acc, base = table(p["sr_acc.txt"]), table(p["sr_base.txt"])
+    want = [r for n in sim for r in (
+        f"{n}(leaf)" if n in leaf else n, f"{n} exon", f"{n} nonCoding")]
+    values = [float(v) for _, v in acc + base]
+    out["sim_recon"] = {
+        "records": [len(sim), len(leaf), len(recon)],
+        "leaves": sorted(leaf) == leaf_names,
+        "recon_leaves_equal_leaf_fasta": all(recon.get(k) == v
+                                            for k, v in leaf.items()),
+        "recon_names_equal_sim": sorted(recon) == sorted(sim),
+        "rows_equal_nodes": [r[0] for r in acc]
+        == want + ["All Reconstructed Nodes"],
+        "base_rows": len(base), "in_0_100": all(0 <= v <= 100
+                                               for v in values),
+        "six_decimals": all(re.fullmatch(r"-?\d+\.\d{6}", v)
+                            for _, v in acc + base),
+        "all_nodes": float(acc[-1][1]) if acc else -1.0,
+        "zero_lengths_all_100": all(
+            v == "100.000000" for _, v in table(p["sr0_acc.txt"])
+            + table(p["sr0_base.txt"])),
+        "zero_lengths_rows": len(table(p["sr0_acc.txt"]))}
+
+    n_top, n_pos, precision = SE_ILS
+    head, got = read_pfa(p["ils.pfa"])
+    total32 = np.zeros((n_pos, 4), np.float32)
+    total64 = np.zeros((n_pos, 4), np.float64)
+    for k, rec in enumerate(se["recons"]):
+        w = se["weights"][:, k]
+        total32 = total32 + rec * w.astype(np.float32)[:, None]
+        total64 = total64 + rec.astype(np.float64) * w[:, None]
+    want32 = total32.astype("<f2").astype(np.float32)
+    want64 = total64.astype(np.float32).astype("<f2").astype(np.float32)
+    _, got10 = read_pfa(p["ils10.pfa"])
+    out["ils_reconstruct_seq"] = {
+        "header": head == ["pFasta_format_1.0", f"ilsRecon\t{n_pos}"],
+        "rows": len(got),
+        "float32_sum_mismatches": int((got != want32).sum()),
+        "float64_sum_mismatches": int((want64 != want32).sum()),
+        "float32_rows_off_one": float(np.abs(total32.sum(1) - 1).max()),
+        "file_rows_off_one": float(np.abs(got.sum(1) - 1).max()),
+        "weights_1_0_equal_first": np.array_equal(got10, se["recons"][0])}
+    return out
+
+
+def sim_evol_ok(x: dict) -> bool:
+    """Every gate of sim_evol_checks met."""
+    nodes, length, _ = SE_NC
+    n_leaves = (nodes + 1) // 2
+    g = x["genic"]
+    genic_ok = (len(g["leaves"]) == n_leaves and g["records"] == nodes
+                and g["leaves_equal_complete_run"]
+                and g["lengths"] == [SE_ROOT_BP] and g["acgt_or_gap"]
+                and g["start_atg"] + g["start_or_stop_gapped"] >= nodes
+                and g["stop_codon"] + g["start_or_stop_gapped"] >= nodes
+                and g["stop_codon"] > 0 and g["most_gaps"] <= 1
+                and g["differing_bases"] > 0)
+    wi_ok = all(
+        w["equal_lengths"] and w["ref_ungapped_is_input"]
+        and w["names"] == ["chrW", "chrW_evol"] and w["substitutions"] > 0
+        and w["ref_gaps"] > 0 and w["alt_gaps"] > 0
+        for w in (x["with_indels"], x["with_indels_bias1"]))
+    w = x["with_indels"]
+    wi_ok = (wi_ok and w["vcf_header"] and w["vcf_lines"] > 0
+             and w["vcf_lines_match_columns"] == w["vcf_lines"]
+             and all(v > 0 for v in w["vcf_kinds"].values()))
+    nc, ncf = x["non_coding"], x["non_coding_fasta"]
+    nc_ok = (nc["records"] == nodes and nc["lengths"] == [length]
+             and nc["acgt_only"] and abs(nc["root_gc"] - 0.41) <= SE_GC_TOL
+             and nc["newick_nodes"] == nodes
+             and nc["newick_names_equal_records"] and nc["newick_one_line"]
+             and nc["differing_from_root"] > 0
+             and nc["identity_records_equal_root"]
+             and nc["identity_root_equal"] and nc["identity_newick_equal"]
+             and ncf["records"] == [nodes, nodes]
+             and ncf["root_names"] == ["inN", "inA"]
+             and ncf["roots_upper_input"] and ncf["n_column_all_n"]
+             and ncf["rest_acgt"] and ncf["rest_equal_a_run"]
+             and ncf["differing_from_root"] > 0)
+    sr = x["sim_recon"]
+    sr_ok = (sr["records"] == [nodes, n_leaves, nodes] and sr["leaves"]
+             and sr["recon_leaves_equal_leaf_fasta"]
+             and sr["recon_names_equal_sim"] and sr["rows_equal_nodes"]
+             and sr["base_rows"] == 3 * nodes and sr["in_0_100"]
+             and sr["six_decimals"] and sr["all_nodes"] < 100
+             and sr["zero_lengths_all_100"]
+             and sr["zero_lengths_rows"] == 3 * nodes + 1)
+    il = x["ils_reconstruct_seq"]
+    ils_ok = (il["header"] and il["rows"] == SE_ILS[1]
+              and il["float32_sum_mismatches"] == 0
+              and il["float64_sum_mismatches"] > 0
+              and il["float32_rows_off_one"] <= SE_ILS[2]
+              and il["weights_1_0_equal_first"])
+    return bool(genic_ok and wi_ok and nc_ok and sr_ok and ils_ok)
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -8486,7 +8877,29 @@ def phase_tools_cli(dev: torch.device) -> dict:
     (the newick the edges give, left child first); ``drawNewickTree`` at
     ST_IMG where PIL imports (else a line says it did not run): the
     size, ST_WHITE white, each node's line black where ``newick_rows``
-    puts it."""
+    puts it. (18) Slice 12b (``sim_evol_inputs``, ``sim_evol_steps``,
+    ``sim_evol_checks`` with numpy and text alone, ``sim_evol_ok``;
+    ``sim_evol_tools`` in the phase line): ``simulateEvol genic`` of
+    root.fa (SE_ROOT_BP bases) with gene.gp down SE_TREE, gated on 7
+    leaves equal to those of the ``--completeSimOutput`` run's 13
+    records, ATG at the CDS start and TAA, TAG or TGA at its end - 3 in
+    every record (or a gap there), at most one gap a record;
+    ``withIndels`` at SE_WI with ``--vcfOutFile`` and at bias 1 with
+    ``-lambda``, gated on the ref row less its gaps the input, equal row
+    lengths, each VCF line's REF and ALT the alignment's columns at its
+    position (substitution, deletion and insertion each seen);
+    ``nonCoding`` at SE_NC, gated on its records (ACGT, SE_NC's length,
+    the root's GC 0.41 within SE_GC_TOL), the newick's names the
+    records', the identity matrix's run all equal to its root, and runs
+    over that newick from nc_n.fa and nc_a.fa equal past column 0, N
+    there in every record; ``simRecon`` with ``--baseAccFile``, gated on
+    the recon's leaves the leaf FASTA, a row a node with its exon and
+    nonCoding rows and the total, values in [0, 100] with six
+    decimals, and ``100.000000`` on every row over tree0.nh with
+    gene_nostop.gp; ``ilsReconstructSeq`` of SE_ILS, gated on the .pfa
+    equal to numpy's float32 sum (which a float64 sum is not, at some
+    positions), rows within the precision of 1, and with weights 1 and
+    0 the first recon."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -8719,6 +9132,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
                                dev)
         ga = gtf_accel_steps(step, f, t_fa, chain, tmp, times)
         stt = sim_tree_steps(step, t_fa, tmp)
+        se = sim_evol_steps(step, tmp)
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -8768,6 +9182,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["vcf_maf_axt_tools"] = vcf_maf_axt_checks(vm)
         out["gtf_accel_tools"] = gtf_accel_checks(ga)
         out["sim_tree_tools"] = sim_tree_checks(stt)
+        out["sim_evol_tools"] = sim_evol_checks(se)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -8868,6 +9283,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
             and vcf_maf_axt_ok(out["vcf_maf_axt_tools"])
             and gtf_accel_ok(out["gtf_accel_tools"])
             and sim_tree_ok(out["sim_tree_tools"])
+            and sim_evol_ok(out["sim_evol_tools"])
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

@@ -270,6 +270,15 @@ COMMANDS = {
                     "Newick tree from a dot-format digraph (host)"),
     "drawNewickTree": ("gonomics_tpu_torch.cli.draw_newick_tree",
                        "Create PNG of a newick tree (host, needs PIL)"),
+    "ilsReconstructSeq": ("gonomics_tpu_torch.cli.ils_reconstruct_seq",
+                          "ILS-aware weighted ancestral reconstruction "
+                          "(host)"),
+    "simRecon": ("gonomics_tpu_torch.cli.sim_recon",
+                 "Simulate evolution + reconstruct + score accuracy "
+                 "(host)"),
+    "simulateEvol": ("gonomics_tpu_torch.cli.simulate_evol",
+                     "Evolution simulation: genic/withIndels/nonCoding "
+                     "(host)"),
 }
 
 

@@ -1,17 +1,20 @@
-"""Chain and axt records, as ``gsw ggtools`` and ``mergesort`` read and
-write them: the chain and axt parts of ``gonomics_tpu/io/formats.py``
-that they reach (``Axt`` with its interval properties :22-44,
-``read_axt_with_header`` :48, ``read_axt`` :60, ``_parse_axt_lines``
-:64, ``axt_to_string`` :82, ``_axt_info``, ``_b2s_upper`` and
-``axt_to_vcf`` :159-254, ``chain_to_axt`` :255, ``is_chain_file`` :291,
-``is_axt_file`` :296, ``BaseStats`` and ``Chain`` :343-365,
-``read_chain`` :366), the chain writer of multiFaToChain
-(``chain_to_string`` and ``write_chain`` :394-413), the liftover of a
-target position that liftCoordinates uses (``t_pos_to_q_pos``
-:415-445), and what axTools and axtSam reach: ``write_axt``,
-``swap_axt``, ``pair_seq_to_cigar`` and ``axt_to_sam`` (:90-158),
-``_axt_ref_idx_range`` and ``axt_percent_identity_in_interval``
-(:301-336). PSL, genePred, MAF and GTF are not ported."""
+"""Chain, axt, PSL, genePred, MAF and GTF records with their readers
+and writers: a copy of ``gonomics_tpu/io/formats.py`` (699 lines,
+whole), gonomics' axt, chain, psl, genePred, maf and gtf packages.
+
+- axt (:22-336): ``gsw ggtools``, mergesort, axTools and axtSam read,
+  write, swap and convert it (``axt_to_vcf``, ``axt_to_sam``,
+  ``axt_percent_identity_in_interval``);
+- chain (:343-445): its reader and writer, ``chain_to_axt`` and the
+  liftover of a target position (``t_pos_to_q_pos``);
+- PSL and genePred (:447-554): simulateEvol's genic model and simRecon's
+  accuracy read genePred; ``read_psl`` skips a line that starts with a
+  letter or '-' and one of fewer than 21 fields; ``read_gene_pred``
+  reads ``exon_frames`` only from an 11th column; both writers end each
+  list with ',';
+- MAF and GTF (:556-699): readers of their own, separate from
+  ``io/maf.py`` and ``io/gtf.py`` as in the JAX package.
+"""
 
 from __future__ import annotations
 
@@ -448,3 +451,252 @@ def t_pos_to_q_pos(c: Chain, t_pos: int) -> tuple[int, bool]:
             curr_t += a.t_bases
             curr_q -= a.q_bases
     return 0, False
+
+
+@dataclass
+class Psl:
+    match: int = 0
+    mismatch: int = 0
+    repeat_match: int = 0
+    ns: int = 0
+    q_num_ins: int = 0
+    q_base_ins: int = 0
+    t_num_ins: int = 0
+    t_base_ins: int = 0
+    strand: str = "+"
+    q_name: str = ""
+    q_size: int = 0
+    q_start: int = 0
+    q_end: int = 0
+    t_name: str = ""
+    t_size: int = 0
+    t_start: int = 0
+    t_end: int = 0
+    block_count: int = 0
+    block_size: list[int] = field(default_factory=list)
+    q_list: list[int] = field(default_factory=list)
+    t_list: list[int] = field(default_factory=list)
+
+
+def _int_list(s: str) -> list[int]:
+    return [int(x) for x in s.rstrip(",").split(",") if x]
+
+
+def _list_text(v) -> str:
+    """A list as the writers give it: comma-separated, ending in ','."""
+    return ",".join(str(x) for x in v) + ","
+
+
+def read_psl(filename: str) -> list[Psl]:
+    """The records of a PSL file; a line that starts with a letter or
+    '-' (the header) or has fewer than 21 fields is skipped."""
+    out = []
+    for line in fileio.read(filename):
+        if not line or line[0].isalpha() or line.startswith("-"):
+            continue
+        w = line.split("\t")
+        if len(w) < 21:
+            continue
+        out.append(Psl(
+            match=int(w[0]), mismatch=int(w[1]), repeat_match=int(w[2]),
+            ns=int(w[3]), q_num_ins=int(w[4]), q_base_ins=int(w[5]),
+            t_num_ins=int(w[6]), t_base_ins=int(w[7]), strand=w[8],
+            q_name=w[9], q_size=int(w[10]), q_start=int(w[11]),
+            q_end=int(w[12]), t_name=w[13], t_size=int(w[14]),
+            t_start=int(w[15]), t_end=int(w[16]), block_count=int(w[17]),
+            block_size=_int_list(w[18]), q_list=_int_list(w[19]),
+            t_list=_int_list(w[20])))
+    return out
+
+
+def psl_to_string(p: Psl) -> str:
+    return "\t".join(str(x) for x in (
+        p.match, p.mismatch, p.repeat_match, p.ns, p.q_num_ins,
+        p.q_base_ins, p.t_num_ins, p.t_base_ins, p.strand, p.q_name,
+        p.q_size, p.q_start, p.q_end, p.t_name, p.t_size, p.t_start,
+        p.t_end, p.block_count, _list_text(p.block_size),
+        _list_text(p.q_list), _list_text(p.t_list)))
+
+
+@dataclass
+class GenePred:
+    id: str = ""
+    symbol: str = ""
+    chrom: str = ""
+    strand: str = "+"
+    tx_start: int = 0
+    tx_end: int = 0
+    cds_start: int = 0
+    cds_end: int = 0
+    exon_starts: list[int] = field(default_factory=list)
+    exon_ends: list[int] = field(default_factory=list)
+    exon_frames: list[int] = field(default_factory=list)
+    score: int = 0
+
+
+def read_gene_pred(filename: str) -> list[GenePred]:
+    """The records of a genePred file; ``exon_frames`` comes only from an
+    11th column and stays empty without one."""
+    out = []
+    for line in fileio.read(filename):
+        w = line.split("\t")
+        g = GenePred(id=w[0], chrom=w[1], strand=w[2], tx_start=int(w[3]),
+                     tx_end=int(w[4]), cds_start=int(w[5]),
+                     cds_end=int(w[6]),
+                     exon_starts=_int_list(w[8]), exon_ends=_int_list(w[9]))
+        if len(w) > 10:
+            g.exon_frames = _int_list(w[10])
+        out.append(g)
+    return out
+
+
+def gene_pred_to_string(g: GenePred) -> str:
+    return "\t".join(str(x) for x in (
+        g.id, g.chrom, g.strand, g.tx_start, g.tx_end, g.cds_start,
+        g.cds_end, len(g.exon_starts), _list_text(g.exon_starts),
+        _list_text(g.exon_ends), _list_text(g.exon_frames)))
+
+
+@dataclass
+class MafSLine:
+    src: str
+    start: int
+    size: int
+    strand: bool
+    src_size: int
+    seq: np.ndarray
+
+
+@dataclass
+class MafBlock:
+    score: float = 0.0
+    s_lines: list[MafSLine] = field(default_factory=list)
+
+
+def read_maf(filename: str) -> list[MafBlock]:
+    """The 'a' blocks of a MAF file with their 's' lines; every other
+    line kind is skipped."""
+    out: list[MafBlock] = []
+    cur: MafBlock | None = None
+    with fileio.easy_open(filename) as f:
+        for raw in f:
+            line = raw.rstrip("\n")
+            if line.startswith("#"):
+                continue
+            if line.startswith("a"):
+                cur = MafBlock()
+                for fld in line.split()[1:]:
+                    if fld.startswith("score="):
+                        cur.score = float(fld[6:])
+                out.append(cur)
+            elif line.startswith("s ") and cur is not None:
+                w = line.split()
+                cur.s_lines.append(MafSLine(
+                    src=w[1], start=int(w[2]), size=int(w[3]),
+                    strand=w[4] == "+", src_size=int(w[5]),
+                    seq=dna.from_string(w[6])))
+    return out
+
+
+def maf_to_fasta(blocks: list[MafBlock], species_order: list[str]):
+    """One record a species, its s-line sequences joined across the
+    blocks (the part of a source name before its first '.' names the
+    species); a block without the species gives gaps of its width."""
+    from . import fasta as fastaio
+
+    parts = {s: [] for s in species_order}
+    for b in blocks:
+        width = len(b.s_lines[0].seq) if b.s_lines else 0
+        present = {s.src.split(".")[0]: s for s in b.s_lines}
+        for sp in species_order:
+            if sp in present:
+                parts[sp].append(present[sp].seq)
+            else:
+                parts[sp].append(dna.all_gaps(width))
+    return [fastaio.Fasta(sp, np.concatenate(parts[sp])
+                          if parts[sp] else np.zeros(0, np.int8))
+            for sp in species_order]
+
+
+@dataclass
+class GtfFeature:
+    chrom: str
+    source: str
+    feature: str
+    start: int
+    end: int
+    score: float
+    strand: bool
+    frame: int
+    attributes: dict[str, str]
+
+
+@dataclass
+class Transcript:
+    chrom: str = ""
+    source: str = ""
+    start: int = 0
+    end: int = 0
+    strand: bool = True
+    transcript_id: str = ""
+    exons: list[GtfFeature] = field(default_factory=list)
+    cds: list[GtfFeature] = field(default_factory=list)
+
+
+@dataclass
+class Gene:
+    gene_id: str = ""
+    gene_name: str = ""
+    transcripts: list[Transcript] = field(default_factory=list)
+
+
+def _gtf_attributes(s: str) -> dict[str, str]:
+    out = {}
+    for part in s.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        k, _, v = part.partition(" ")
+        out[k] = v.strip().strip('"')
+    return out
+
+
+def read_gtf(filename: str) -> dict[str, Gene]:
+    """{gene_id: Gene} of a GTF file, genes and their transcripts in file
+    order. A feature of a transcript not yet seen opens it; only exon
+    and CDS features are kept on the transcript."""
+    genes: dict[str, Gene] = {}
+    tx_index: dict[str, Transcript] = {}
+    for line in fileio.read(filename):
+        w = line.split("\t")
+        if len(w) < 9:
+            continue
+        feat = GtfFeature(
+            chrom=w[0], source=w[1], feature=w[2], start=int(w[3]),
+            end=int(w[4]), score=0.0 if w[5] == "." else float(w[5]),
+            strand=w[6] == "+", frame=-1 if w[7] == "." else int(w[7]),
+            attributes=_gtf_attributes(w[8]))
+        gid = feat.attributes.get("gene_id", "")
+        tid = feat.attributes.get("transcript_id", "")
+        gene = genes.setdefault(gid, Gene(
+            gene_id=gid, gene_name=feat.attributes.get("gene_name", "")))
+        if feat.feature == "transcript":
+            tx = Transcript(chrom=feat.chrom, source=feat.source,
+                            start=feat.start, end=feat.end,
+                            strand=feat.strand, transcript_id=tid)
+            gene.transcripts.append(tx)
+            tx_index[tid] = tx
+        elif feat.feature in ("exon", "CDS", "5UTR", "3UTR",
+                              "start_codon", "stop_codon"):
+            tx = tx_index.get(tid)
+            if tx is None:
+                tx = Transcript(chrom=feat.chrom, source=feat.source,
+                                start=feat.start, end=feat.end,
+                                strand=feat.strand, transcript_id=tid)
+                gene.transcripts.append(tx)
+                tx_index[tid] = tx
+            if feat.feature == "exon":
+                tx.exons.append(feat)
+            elif feat.feature == "CDS":
+                tx.cds.append(feat)
+    return genes

@@ -1,6 +1,6 @@
 """Newick trees whose nodes carry FASTA records, and their substitution
-matrices: ``gonomics_tpu/phylo/etree.py`` less ``to_newick_string``
-(:1-193), gonomics' ``expandedTree``.
+matrices, and their newick text: a copy of ``gonomics_tpu/phylo/etree.py``
+(209 lines, whole), gonomics' ``expandedTree``.
 
 Parsing follows expandedTree.parseNewick (expandedTree.go:140-196),
 with its default branch length of 1 for topology-only trees, and the
@@ -189,3 +189,21 @@ def populate_substitution_matrices(node: ETree, unit_matrix,
     if node.right is not None:
         populate_substitution_matrices(node.right, unit_matrix,
                                        unit_branch_length)
+
+
+def to_newick_string(node: ETree) -> str:
+    """expandedTree.ToNewickString (expandedTree.go:261): the tree as a
+    ``simpletree.Tree``, written by ``simpletree.to_string`` (``%f``
+    lengths, left child first)."""
+    from . import simpletree
+
+    def convert(n: ETree | None):
+        if n is None:
+            return None
+        t = simpletree.Tree(name=n.name, only_topology=n.only_topology,
+                            branch_length=n.branch_length)
+        t.left = convert(n.left)
+        t.right = convert(n.right)
+        return t
+
+    return simpletree.to_string(convert(node))

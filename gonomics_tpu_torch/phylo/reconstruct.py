@@ -1,10 +1,14 @@
 """Felsenstein ancestral sequence reconstruction over all alignment
-columns at once: ``gonomics_tpu/phylo/reconstruct.py:1-237``, gonomics'
-``reconstruct/reconstruct.go``. ``inside`` and ``fix_fc`` are the JAX's
-``_inside`` and ``_fix_fc`` under the public names it aliases them to
-(:374-375). ``reconstruct_tree`` leaves out the JAX's
-``pdna_node_multi``, which no tool of the port sets, and returns only
-the ``pdna_node`` record.
+columns at once, with its accuracy scores and the ILS-weighted average:
+a copy of ``gonomics_tpu/phylo/reconstruct.py`` (375 lines), gonomics'
+``reconstruct`` package (reconstruct.go, accuracy.go,
+ilsReconstruct.go). ``inside`` and ``fix_fc`` are the JAX's ``_inside``
+and ``_fix_fc`` under the public names it aliases them to (:374-375).
+``reconstruct_tree`` leaves out the JAX's ``pdna_node_multi``, which no
+tool of the port sets (ROADMAP item 14), and returns only the
+``pdna_node`` record. ``recon_accuracy``, ``recon_accuracy_by_base``
+and ``ils_reconstruct_seq`` (:239-372) are simRecon's and
+ilsReconstructSeq's.
 
 The reference walks the tree once a (column, internal node, state):
 FixFc runs bubbleUp again for each of the 4 states of every internal
@@ -30,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import dna
+from ..io import fasta as fastaio
 from ..io.pfasta import PFasta
 from .etree import ETree, find_node, get_branch, get_leaves
 
@@ -227,3 +232,143 @@ def reconstruct_tree(root: ETree, *, bias_leaf_name: str = "",
         if pdna_node and node.name == pdna_node:
             pdna_rec.seq = probs[pres].astype(np.float32)
     return pdna_rec
+
+
+def _calc_location_in_codon(gene, exon: int, position: int) -> int:
+    """reconstruct.calcLocationInCodon (accuracy.go:161)."""
+    return (position - gene.exon_starts[exon] + gene.exon_frames[exon]) % 3
+
+
+def recon_accuracy_by_base(sim_filename: str, recon_filename: str,
+                           gp_filename: str) -> dict[str, list[float]]:
+    """reconstruct.ReconAccuracyByBase (accuracy.go:110): for each
+    simulated record, the percentage of exon bases at the first, second
+    and third codon position that the reconstruction got right."""
+    # simulate imports phylo.etree, so these imports wait for the call
+    from ..io import formats
+    from ..simulate import check_exon
+
+    sim = fastaio.read(sim_filename)
+    recon = fastaio.to_map(fastaio.read(recon_filename))
+    genes = formats.read_gene_pred(gp_filename)
+    answer: dict[str, list[float]] = {}
+    for s in sim:
+        if s.name not in recon:
+            raise SystemExit(f"Cannot find a reconstructed sequence match "
+                             f"for simulated sequence: {s.name}.")
+        r_seq = recon[s.name]
+        mistakes = [0.0, 0.0, 0.0]
+        totals = [0.0, 0.0, 0.0]
+        for i in range(len(s.seq)):
+            for g in genes:
+                in_exon, exon = check_exon(g, i)
+                if in_exon:
+                    loc = _calc_location_in_codon(g, exon, i)
+                    totals[loc] += 1
+                    if s.seq[i] != r_seq[i]:
+                        mistakes[loc] += 1
+        answer[s.name] = [100 - (mistakes[k] / totals[k]) * 100
+                          for k in range(3)]
+    return answer
+
+
+def recon_accuracy(sim_filename: str, recon_filename: str,
+                   leaves_only_file: str, gp_filename: str,
+                   calc_base_acc: bool):
+    """reconstruct.ReconAccuracy (accuracy.go:14): the percentage of
+    bases right for each node ("(leaf)" after a leaf's name), in its exons
+    and outside them, and over all reconstructed nodes; and, with
+    calc_base_acc, recon_accuracy_by_base's table (else None). A record
+    with no exon base, or none outside the exons, raises
+    ZeroDivisionError, as in the JAX."""
+    from ..io import formats
+    from ..simulate import check_exon
+
+    acc_by_base = None
+    if calc_base_acc:
+        acc_by_base = recon_accuracy_by_base(sim_filename, recon_filename,
+                                             gp_filename)
+    sim = fastaio.read(sim_filename)
+    recon = fastaio.read(recon_filename)
+    leaves = fastaio.read(leaves_only_file)
+    leaf_names = {l.name for l in leaves}
+    genes = formats.read_gene_pred(gp_filename) if gp_filename else []
+    answer: dict[str, float] = {}
+    total = 0.0
+    for s in sim:
+        mistakes = exon_mistakes = non_coding_mistakes = 0.0
+        exon_bases = non_coding_bases = 0.0
+        leaf_mistakes = 0.0
+        found = False
+        leaf = False
+        for r in recon:
+            if s.name != r.name:
+                continue
+            leaf = r.name in leaf_names
+            found = True
+            for g in genes:
+                for k in range(len(s.seq)):
+                    exon, _ = check_exon(g, k)
+                    if exon:
+                        exon_bases += 1
+                    else:
+                        non_coding_bases += 1
+                    if s.seq[k] != r.seq[k]:
+                        if not leaf:
+                            mistakes += 1
+                        else:
+                            leaf_mistakes += 1
+                        if exon:
+                            exon_mistakes += 1
+                        else:
+                            non_coding_mistakes += 1
+        if not found:
+            raise SystemExit("Did not find all simulated sequences in "
+                             "reconstructed fasta.")
+        if not leaf:
+            answer[s.name] = 100 - mistakes / len(s.seq) * 100.0
+            total += mistakes
+        else:
+            answer[s.name + "(leaf)"] = 100 - leaf_mistakes / len(s.seq) \
+                * 100.0
+        answer[s.name + " exon"] = 100 - exon_mistakes / exon_bases * 100.0
+        answer[s.name + " nonCoding"] = \
+            100 - non_coding_mistakes / non_coding_bases * 100.0
+    accuracy = total / (float(len(sim) - len(leaves))
+                        * float(len(sim[0].seq))) * 100.0
+    answer["All Reconstructed Nodes"] = 100 - accuracy
+    return answer, acc_by_base
+
+
+def ils_reconstruct_seq(all_post_probs: list[dict], all_recons: list,
+                        precision: float) -> PFasta:
+    """reconstruct.IlsReconstructSeq (ilsReconstruct.go:11): the
+    reconstructions' probabilities summed with each position's weight
+    from its wig; every output position must sum to 1 within precision.
+    The sum is float32, each float64 weight rounded to float32 before it
+    multiplies, in the records' order, as in the JAX: another order
+    changes the ``.pfa`` bytes."""
+    if len(all_post_probs) != len(all_recons):
+        raise SystemExit(
+            f"IlsReconstructSeq requires the same number of postProbs "
+            f"({len(all_post_probs)}) as recons ({len(all_recons)})")
+    for idx in range(len(all_recons) - 1):
+        a = all_post_probs[idx][all_recons[idx].name]
+        b = all_post_probs[idx + 1][all_recons[idx + 1].name]
+        if len(a.values) != len(b.values):
+            raise SystemExit("Requested posterior probabilities do not "
+                             "have the same length.")
+        if len(all_recons[idx].seq) != len(all_recons[idx + 1].seq):
+            raise SystemExit("Requested sequences do not have the same "
+                             "length.")
+    total = np.zeros_like(np.asarray(all_recons[0].seq, np.float32))
+    for pp, rec in zip(all_post_probs, all_recons):
+        w = np.asarray(pp[rec.name].values, np.float64)[:len(rec.seq)]
+        total = total + np.asarray(rec.seq, np.float32) \
+            * w.astype(np.float32)[:, None]
+    sums = total.sum(axis=1)
+    bad = np.flatnonzero(np.abs(sums - 1) > precision)
+    if len(bad):
+        raise SystemExit(f"This reconstruction returns a pDNA base that "
+                         f"does not sum to 1 at {int(bad[0])}")
+    return PFasta("ilsRecon", total)

@@ -9,11 +9,12 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 107 tools, imports none of them
+lists and dispatches exactly the port's 110 tools, imports none of them
 before dispatch, resolves a ``module:function`` target as the JAX
 umbrella does, runs the popgen tools, the interval and lift tools, the
 VCF, MAF and axt tools, the GTF and acceleration tools and the
-simulation and tree tools to the JAX umbrella's bytes, lists its tools
+simulation and tree tools and the evolution, accuracy and ILS tools
+to the JAX umbrella's bytes, lists its tools
 and runs every tool but drawNewickTree without PIL, and
 its ``gsw align`` wants the card; ``pyproject.toml`` installs it as
 ``gonomics-torch``; no new module imports JAX.
@@ -90,7 +91,8 @@ PORTED = ["alleleSplit", "assemblyStats", "axTools", "axtSam",
           "fastqFormat", "fastqReplaceSeq", "filterGenotypes",
           "findAndReplace", "gcContent", "geneAssignmentStats", "geneIdToName",
           "getPromoter", "globalAlignment", "gsw", "gtfTools",
-          "haplotypeGenerator", "intervalContacts", "intervalOverlap",
+          "haplotypeGenerator", "ilsReconstructSeq", "intervalContacts",
+          "intervalOverlap",
           "intervalSubsetMatrix", "liftCoordinates", "locateCG",
           "longReadLibStats", "mafFilter", "mafIndels", "mafToBed",
           "mafToMultiFa", "mcmcTraceStats", "mergeMultiFa", "mergesort",
@@ -101,7 +103,8 @@ PORTED = ["alleleSplit", "assemblyStats", "axTools", "axtSam",
           "primateRecon", "proximityBlockVcf", "quickOrthologs", "randSeq",
           "reconstructSeq", "samConsensus", "samInfo", "samToBed", "samToWig",
           "sampleVcf", "scCount", "selectionMcmc", "selectionMle",
-          "simulateBed", "simulateDivergentWindowsVcf", "simulatePcr",
+          "simRecon", "simulateBed", "simulateDivergentWindowsVcf",
+          "simulateEvol", "simulatePcr",
           "simulateSam", "simulateVcf", "simulateWrightFisher", "statCalc",
           "vcfAfs",
           "vcfAncestorAnnotation", "vcfFilter", "vcfFormat", "vcfInfo",
@@ -262,16 +265,17 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 107 ported tools, each a key of
-    the JAX umbrella's COMMANDS."""
+    """help (and no argument) lists the 110 ported tools, each a key of
+    the JAX umbrella's COMMANDS; 28 of the JAX's are left."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
         lines = capsys.readouterr().out.splitlines()
         listed = [ln.split()[0] for ln in lines if ln.startswith("  ")]
         assert listed == PORTED
     assert sorted(umbrella.COMMANDS) == PORTED
-    assert len(PORTED) == 107
+    assert len(PORTED) == 110
     assert set(PORTED) <= set(jmain.COMMANDS)
+    assert len(set(jmain.COMMANDS) - set(PORTED)) == 28
     assert all("TPU" not in desc for _, desc in umbrella.COMMANDS.values())
 
 
@@ -590,7 +594,11 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.phylo.simpletree,"
             " gonomics_tpu_torch.cli.dot_to_newick,"
             " gonomics_tpu_torch.sketch, gonomics_tpu_torch.phylo.draw,"
-            " gonomics_tpu_torch.cli.draw_newick_tree\n"
+            " gonomics_tpu_torch.cli.draw_newick_tree,"
+            " gonomics_tpu_torch.io.formats,"
+            " gonomics_tpu_torch.cli.simulate_evol,"
+            " gonomics_tpu_torch.cli.sim_recon,"
+            " gonomics_tpu_torch.cli.ils_reconstruct_seq\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
@@ -628,7 +636,8 @@ def test_umbrella_module_function_targets(tmp_path, monkeypatch):
                  "scCount", "quickOrthologs", "multiFaAcceleration",
                  "branchLengthsMultiFaBed", "simulateSam", "simulateBed",
                  "simulateVcf", "simulateDivergentWindowsVcf",
-                 "simulatePcr", "dotToNewick", "drawNewickTree"):
+                 "simulatePcr", "dotToNewick", "drawNewickTree",
+                 "simulateEvol", "simRecon", "ilsReconstructSeq"):
         port, jax = umbrella.COMMANDS[name][0], jmain.COMMANDS[name][0]
         assert port.replace("gonomics_tpu_torch.", "gonomics_tpu.") == jax
 
@@ -1055,3 +1064,75 @@ def test_only_draw_newick_tree_needs_pil(sim_tree_inputs, tmp_path):
     assert (tmp_path / "o.nh").read_text().endswith(";\n")
     assert len((tmp_path / "o.bed").read_text().splitlines()) == 5
     assert not (tmp_path / "o.png").exists()
+
+
+@pytest.fixture(scope="module")
+def sim_evol_inputs(tmp_path_factory):
+    """A 300-base root with a start codon at 30, a two-exon genePred, a
+    three-leaf tree, a 200-base withIndels input and two ILS topologies
+    (.pfa rows on a grid of 1/8, wig weights of 1/4 and 3/4)."""
+    from gonomics_tpu_torch.io import pfasta
+
+    d = tmp_path_factory.mktemp("sim_evol_umbrella")
+    rng = np.random.default_rng(3302)
+    root = rng.choice(list("ACGT"), 300)
+    root[30:33] = list("ATG")
+    files = {
+        "root.fa": [">root", "".join(root)],
+        "in.fa": [">chrI", "".join(rng.choice(list("ACGT"), 200))],
+        "gene.gp": ["g	chr1	+	0	300	30	269	2	30,150,	121,269,	"
+                    "0,2,"],
+        "tree.nh": ["((a:0.1,b:0.2)ab:0.05,c:0.3)root;"],
+        "chrom.sizes": ["t0\t60", "t1\t60"],
+        "post.list": [str(d / "t0.wig"), str(d / "t1.wig")],
+        "recons.list": [str(d / "t0.pfa"), str(d / "t1.pfa")]}
+    for k, w in enumerate((0.25, 0.75)):
+        files[f"t{k}.wig"] = [f"fixedStep chrom=t{k} start=1 step=1"] + [
+            str(w)] * 60
+        counts = rng.multinomial(8, np.ones(4) / 4, 60)
+        pfasta.write(str(d / f"t{k}.pfa"), [pfasta.PFasta(
+            f"t{k}", (counts / 8).astype(np.float32))])
+    for name, lines in files.items():
+        (d / name).write_text("".join(ln + "\n" for ln in lines))
+    return {k: str(d / k) for k in [*files, "t0.pfa", "t1.pfa"]}
+
+
+@pytest.mark.parametrize("tool", [
+    "simulateEvol_genic", "simulateEvol_withIndels", "simulateEvol_nonCoding",
+    "simRecon", "ilsReconstructSeq"])
+def test_umbrella_sim_evol_tools_equal_jax_umbrella(
+        sim_evol_inputs, tmp_path, capsys, tool):
+    """Each command of slice 12b through gonomics-torch writes what the
+    JAX umbrella's writes, files and stdout."""
+    f = sim_evol_inputs
+    out = {}
+    for side, mod in (("jax", jmain), ("port", umbrella)):
+        d = tmp_path / side
+        d.mkdir()
+        o = str(d / "out")
+        argv = {
+            "simulateEvol_genic": [
+                "simulateEvol", "genic", "--setSeed", "4",
+                "--completeSimOutput", o + ".all.fa", "--genePred",
+                f["gene.gp"], f["tree.nh"], f["root.fa"], o + ".fa"],
+            "simulateEvol_withIndels": [
+                "simulateEvol", "withIndels", "--propIndel", "0.4",
+                "--branchLength", "0.2", "--transitionBias", "3",
+                "--setSeed", "6", "--vcfOutFile", o + ".vcf", f["in.fa"],
+                o + ".fa"],
+            "simulateEvol_nonCoding": [
+                "simulateEvol", "nonCoding", "--numNodes", "9", "--lenSeq",
+                "80", "--setSeed", "2", "--newickOut", o + ".nh",
+                o + ".fa"],
+            "simRecon": [
+                "simRecon", "--baseAccFile", o + ".base", f["root.fa"],
+                f["tree.nh"], f["gene.gp"], o + ".sim.fa", o + ".leaf.fa",
+                o + ".recon.fa", o + ".acc"],
+            "ilsReconstructSeq": [
+                "ilsReconstructSeq", f["post.list"], f["recons.list"],
+                f["chrom.sizes"], o + ".pfa"]}[tool]
+        mod.main(argv)
+        files = {n: _read(str(d / n)) for n in sorted(os.listdir(d))}
+        out[side] = (files, capsys.readouterr().out)
+    assert out["port"] == out["jax"]
+    assert out["jax"][0] and all(out["jax"][0].values())
