@@ -384,7 +384,19 @@ exits non-zero:
             uses up a draw); simRecon's leaves, one row a node, its exon
             and nonCoding rows, values in [0, 100], all 100 at length 0;
             the ILS .pfa numpy's float32 sum, which the float64 sum is
-            not. The four kernels launched. Wall time of each step.
+            not. Then item 13 and strawToBedpe (onto_straw_steps,
+            onto_straw_checks): oboTools mapping, gafFilter -removeNot,
+            oboToDot from an alt id and ontologyHistogram over a
+            500-term OBO and two GAFs of 2,500 lines; assignGenomeSpace
+            of genes.gtf by proximity and through 5,000 contacts, an
+            empty contact file and strawToBedpe's output; strawToBedpe
+            of a 200 x 30-bin straw map on chr1; ontologyEnrichment of
+            2,000 queries through the contacts. Gates: the mapping's
+            rows, the filter's records, the dot's nodes and edges, the
+            histogram's counts, tiles contiguous and equal to the plain
+            1D and 3D fills, the straw histogram, cutoffs and calls, the
+            proportions and scipy's binomial tails. The four kernels
+            launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -407,6 +419,7 @@ import contextlib
 import copy
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -722,6 +735,26 @@ SE_TREE = ("((((l0:0.1,l1:0.05)n1:0.08,l2:0.12)n2:0.04,(l3:0.2,l4:0.07)n3:"
 SE_WI = (20_000, "0.05", "0.3", "0.5", "2", "5")
 SE_NC, SE_NC_FA_BP = (13, 10_000, 3), 2000
 SE_ILS, SE_GC_TOL = (3, 50_000, 0.001), 0.02
+# item 13 and strawToBedpe: OS_TERMS OBO terms, each with 1-3 parents
+# among the OS_PARENT_WINDOW terms before it, every OS_ALT_EVERY-th with
+# an alt id (oboToDot starts from term 3's); GAF records in two files, a
+# share OS_NOT of them NOT qualifiers and OS_DUP repeats of an earlier
+# (GO id, symbol) pair (file b starts from file a's pairs); cis contacts
+# and queries, a share OS_HOT of the queries within OS_HOT_BP of
+# OS_HOT_GENES genes' TSSs; one straw map on chr1 at OS_BIN bp bins,
+# OS_STRAW bins by distances, scores 1 + a negative binomial of mean
+# OS_STRAW_MEAN / (1 + d), a share OS_PEAK_SHARE raised by OS_PEAK;
+# strawToBedpe's -minBinDistance, -fdr and -minCutoff; printed %e values
+# within OS_PRINT_RTOL relative or OS_PRINT_ATOL absolute; a cutoff
+# decision whose q lies within OS_Q_RTOL of the fdr is not held
+OS_SEED, OS_TERMS, OS_PARENT_WINDOW, OS_ALT_EVERY = 3400, 500, 50, 10
+OS_GAF, OS_NOT, OS_DUP = (2500, 2500), 0.1, 0.1
+OS_CONTACTS, OS_QUERIES = 5000, 2000
+OS_HOT, OS_HOT_BP, OS_HOT_GENES = 0.1, 2000, 5
+OS_BIN, OS_STRAW, OS_STRAW_MEAN = 1000, (200, 30), 30.0
+OS_PEAK_SHARE, OS_PEAK = 0.01, (40, 80)
+OS_MIN_BIN, OS_FDR, OS_MIN_CUTOFF = 1, 0.05, 10
+OS_PRINT_RTOL, OS_PRINT_ATOL, OS_Q_RTOL = 1e-6, 1e-12, 1e-9
 # the standard code in TCAG order, and the three-letter names
 CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
 AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
@@ -8634,6 +8667,608 @@ def sim_evol_ok(x: dict) -> bool:
     return bool(genic_ok and wi_ok and nc_ok and sr_ok and ils_ok)
 
 
+def onto_straw_inputs(tmp: str, genes: list, sizes: dict, gtf=None, *,
+                      terms: int = OS_TERMS, gaf_lines=OS_GAF,
+                      contacts: int = OS_CONTACTS, queries: int = OS_QUERIES,
+                      straw_bins: int = OS_STRAW[0],
+                      straw_distances: int = OS_STRAW[1]) -> dict:
+    """The seeded inputs of item 13's and strawToBedpe's steps, under tmp,
+    from OS_SEED, over genes (dicts of name, chrom, strand and tx, each a
+    dict of 1-based exons, as gtf_accel_inputs makes them) and sizes:
+    os_in.obo (a header with a # line; terms of 1-3 parents, # lines
+    between and inside stanzas, alt ids, an obsolete term, a [Typedef]
+    and a last stanza with no blank line after it); os_a.gaf and
+    os_b.gaf (15-17 fields, NOT qualifiers, duplicate pairs, # and blank
+    lines; symbols the genes' names, a few upper-cased, and two no gene
+    has); os_chrom.sizes; os_genes.gtf where gtf is None; cis contacts
+    (and ten on chrM, which has no TSS); an empty contact file; queries;
+    a straw map on chr1 led by a # line, a tenth of its pairs with the
+    later bin first. Returns the paths and what the checks need."""
+    rng = np.random.default_rng(OS_SEED)
+    p = {k: os.path.join(tmp, "os_" + k) for k in (
+        "in.obo", "a.gaf", "b.gaf", "gafs.txt", "chrom.sizes", "genes.gtf",
+        "contacts.bedpe", "empty.bedpe", "queries.bed", "chr1.straw",
+        "straw.list")}
+    ids = [f"GO:{i:07d}" for i in range(terms)]
+    alts = {ids[i]: f"GO:9{i:06d}" for i in range(3, terms, OS_ALT_EVERY)}
+    parents = {ids[0]: []}
+    for i in range(1, terms):
+        lo = max(0, i - OS_PARENT_WINDOW)
+        parents[ids[i]] = sorted({ids[int(j)] for j in rng.integers(
+            lo, i, int(rng.integers(1, 4)))})
+    obo = ["format-version: 1.2", "data-version: chip_smoke",
+           "# a header comment", "ontology: go", ""]
+    namespaces = ("biological_process", "molecular_function",
+                  "cellular_component")
+    for i, t in enumerate(ids):
+        obo += ["[Term]", f"id: {t}", f"name: term {i}",
+                f"namespace: {namespaces[i % 3]}", f'def: "term {i}." [cs]']
+        if t in alts:
+            obo.append(f"alt_id: {alts[t]}")
+        obo += [f"is_a: {q} ! term {int(q[3:])}" for q in parents[t]]
+        if i % 11 == 5:
+            obo += ["# inside a stanza", "subset: goslim_generic"]
+        obo.append("")
+        if i % 50 == 49:
+            obo.append("# between stanzas")
+    obo += ["[Term]", "id: GO:0999999", "name: obsolete term",
+            "namespace: biological_process", 'def: "gone." []',
+            "is_obsolete: true", "", "[Typedef]", "id: part_of",
+            "name: part of", "", "[Term]", "id: GO:0888888",
+            "name: unterminated", "namespace: biological_process",
+            'def: "never read." []']
+    complete = [(t, f"term {i}") for i, t in enumerate(ids)]
+    complete.append(("GO:0999999", "obsolete term"))
+
+    named = list(dict.fromkeys(g["name"] for g in genes if g["name"]))
+    symbols = named + [n.upper() for n in named[::15]] + ["orphan1",
+                                                          "orphan2"]
+    alt_ids, quals = list(alts.values()), ("involved_in", "enables",
+                                           "located_in")
+    gafs, pairs = {}, []
+    for name, n in zip("ab", gaf_lines):
+        lines = ["!gaf-version: 2.2", "!generated-by: chip_smoke"]
+        for i in range(n):
+            if pairs and rng.random() < OS_DUP:
+                go, sym = pairs[int(rng.integers(0, len(pairs)))]
+            else:
+                u = rng.random()
+                go = (ids[int(rng.integers(0, terms))] if u < 0.9 else
+                      alt_ids[int(rng.integers(0, len(alt_ids)))]
+                      if u < 0.95 else "GO:7777777")
+                sym = symbols[int(rng.integers(0, len(symbols)))]
+                pairs.append((go, sym))
+            qual = ("NOT|" + quals[i % 3] if rng.random() < OS_NOT
+                    else quals[i % 3])
+            w = ["UniProtKB", f"P{name}{i:05d}", sym, qual, go, "PMID:1",
+                 "IEA", "", "PFC"[i % 3], f"protein {i}", "", "protein",
+                 "taxon:9606", "20260101", "chip_smoke"]
+            w += [[], ["ext"], ["ext", f"UniProtKB:P{i:05d}-1"]][i % 3]
+            lines.append("\t".join(w))
+            if i % 500 == 7:
+                lines += ["# a comment", ""]
+        gafs[name] = lines
+
+    tss = {}  # (chrom, 0-based start) -> names, in the GTF's order
+    for g in genes:
+        for tx in g["tx"]:
+            at = tx["exons"][0][0] if g["strand"] == "+" else \
+                tx["exons"][-1][1]
+            tss.setdefault((g["chrom"], at - 1), []).append(g["name"])
+    chroms = sorted({c for c, _ in tss})
+    weight = np.array([sizes[c] for c in chroms], float)
+    weight /= weight.sum()
+    bedpe = []
+    for _ in range(contacts):
+        c = chroms[int(rng.choice(len(chroms), p=weight))]
+        wa, wb = (int(x) for x in rng.integers(1000, 5000, 2))
+        a = int(rng.integers(0, sizes[c] - wa))
+        b = min(a + int(rng.exponential(20_000)), sizes[c] - wb)
+        (a, wa), (b, wb) = ((a, wa), (b, wb))[::int(rng.choice([1, -1]))]
+        bedpe.append(f"{c}\t{a}\t{a + wa}\t{c}\t{b}\t{b + wb}\t.\t"
+                     f"{int(rng.integers(1, 100))}")
+    bedpe += [f"chrM\t{i * 100}\t{i * 100 + 50}\tchrM\t{i * 300}\t"
+              f"{i * 300 + 50}\t.\t1" for i in range(10)]
+    hot = [list(tss)[int(i)] for i in rng.choice(len(tss), OS_HOT_GENES,
+                                                 replace=False)]
+    beds = []
+    for _ in range(queries):
+        if rng.random() < OS_HOT:
+            c, at = hot[int(rng.integers(0, len(hot)))]
+            s = int(np.clip(at + rng.integers(-OS_HOT_BP, OS_HOT_BP), 0,
+                            sizes[c] - 1))
+        else:
+            c = chroms[int(rng.choice(len(chroms), p=weight))]
+            s = int(rng.integers(0, sizes[c] - 1))
+        beds.append(f"{c}\t{s}\t{min(s + int(rng.integers(1, 500)), sizes[c])}")
+
+    straw = []
+    for i in range(straw_bins):
+        for d in range(min(straw_distances, straw_bins - i)):
+            mean = OS_STRAW_MEAN / (1 + d)
+            score = 1 + int(rng.negative_binomial(2, 2 / (2 + mean)))
+            if rng.random() < OS_PEAK_SHARE:
+                score += int(rng.integers(*OS_PEAK))
+            a, b = i * OS_BIN, (i + d) * OS_BIN
+            straw.append((b, a, score) if rng.random() < 0.1 else
+                         (a, b, score))
+    texts = {
+        "in.obo": obo, "a.gaf": gafs["a"], "b.gaf": gafs["b"],
+        "gafs.txt": [p["a.gaf"], p["b.gaf"]],
+        "chrom.sizes": [f"{c}\t{n}" for c, n in sizes.items()],
+        "contacts.bedpe": bedpe, "empty.bedpe": [], "queries.bed": beds,
+        "chr1.straw": ["# chr1 observed NONE BP 1000"] + [
+            f"{a}\t{b}\t{s}" for a, b, s in straw],
+        "straw.list": [f"{p['chr1.straw']}\tchr1"]}
+    if gtf is None:
+        gtf, rows = p["genes.gtf"], []
+        for k, g in enumerate(genes):
+            att = f'gene_id "OS{k}"; gene_name "{g["name"]}";'
+            for t, tx in enumerate(g["tx"]):
+                s, e = tx["exons"][0][0], tx["exons"][-1][1]
+                ta = f'{att} transcript_id "OS{k}.{t}";'
+                rows.append(f"{g['chrom']}\tcs\ttranscript\t{s}\t{e}\t.\t"
+                            f"{g['strand']}\t.\t{ta}")
+                rows += [f"{g['chrom']}\tcs\texon\t{a}\t{b}\t.\t"
+                         f"{g['strand']}\t.\t{ta} exon_number \"{j + 1}\"; "
+                         f'exon_id "OS{k}.{t}.{j}";'
+                         for j, (a, b) in enumerate(tx["exons"])]
+        texts["genes.gtf"] = rows
+    for k, lines in texts.items():
+        with open(p[k], "w") as fh:
+            fh.writelines(ln + "\n" for ln in lines)
+    return {"paths": p, "gtf": gtf, "ids": ids, "alts": alts,
+            "parents": parents, "complete": complete, "gafs": gafs,
+            "tss": tss, "sizes": dict(sizes), "straw": np.array(straw),
+            "alt_start": ids[3]}
+
+
+def onto_straw_steps(step, os_in: dict) -> dict:
+    """The steps of item 13 and strawToBedpe in phase_tools_cli, on
+    onto_straw_inputs: oboTools mapping; gafFilter -removeNot of os_a.gaf;
+    oboToDot from term 3's alt id; ontologyHistogram of the two GAFs;
+    assignGenomeSpace of the GTF with --proximity, with --contactFile of
+    the seeded contacts, of the empty file and of strawToBedpe's output;
+    strawToBedpe with -fitStatsFile and -contactScoreFile;
+    ontologyEnrichment of the
+    queries with -contactFile. Returns os_in with the output paths."""
+    p = os_in["paths"]
+    tmp = os.path.dirname(p["in.obo"])
+    p.update({k: os.path.join(tmp, "os_" + k) for k in (
+        "map.tsv", "a_filt.gaf", "sub.dot", "hist.tsv", "1d.bed", "3d.bed",
+        "3d_empty.bed", "straw.bedpe", "fit.txt", "scores.txt",
+        "3d_straw.bed", "enrich.bed")})
+    gtf, sizes = os_in["gtf"], p["chrom.sizes"]
+    step("oboTools_mapping", "oboTools", "mapping", p["in.obo"],
+         p["map.tsv"])
+    step("gafFilter_removeNot", "gafFilter", p["a.gaf"], p["a_filt.gaf"],
+         "-removeNot")
+    step("oboToDot_alt_id", "oboToDot", p["in.obo"],
+         os_in["alts"][os_in["alt_start"]], p["sub.dot"])
+    step("ontologyHistogram", "ontologyHistogram", p["in.obo"],
+         p["gafs.txt"], p["hist.tsv"])
+    step("assignGenomeSpace_proximity", "assignGenomeSpace", "--proximity",
+         p["1d.bed"], gtf, sizes)
+    for name, contacts, out in (("contacts", "contacts.bedpe", "3d.bed"),
+                                ("empty_contacts", "empty.bedpe",
+                                 "3d_empty.bed")):
+        step(f"assignGenomeSpace_{name}", "assignGenomeSpace",
+             "--contactFile", p[contacts], "--nearestGeneBed", p[out], gtf,
+             sizes)
+    step("strawToBedpe", "strawToBedpe", p["straw.list"], p["straw.bedpe"],
+         "-binSize", str(OS_BIN), "-minBinDistance", str(OS_MIN_BIN),
+         "-fdr", str(OS_FDR), "-minCutoff", str(OS_MIN_CUTOFF),
+         "-fitStatsFile", p["fit.txt"], "-contactScoreFile", p["scores.txt"])
+    step("assignGenomeSpace_straw", "assignGenomeSpace", "--contactFile",
+         p["straw.bedpe"], "--nearestGeneBed", p["3d_straw.bed"], gtf, sizes)
+    step("ontologyEnrichment_contacts", "ontologyEnrichment",
+         p["queries.bed"], sizes, gtf, p["a.gaf"], p["in.obo"],
+         p["enrich.bed"], "-contactFile", p["contacts.bedpe"])
+    return os_in
+
+
+def tss_plain(tss: dict) -> list:
+    """The TSSs as a merged TSS bed holds them: one 1 bp record a
+    position, sorted, named by its first gene in the GTF's order; as
+    mutable [chrom, start, end, name, score] rows of score 0."""
+    return [[c, s, s + 1, names[0], 0] for (c, s), names in sorted(
+        tss.items())]
+
+
+def fill_1d_plain(tss: list, sizes: dict) -> list:
+    """Every base to its TSS by 1D distance, the boundary after
+    (start + previous end) // 2: [chrom, start, end, name, TSS start]."""
+    out = []
+    for i, (c, s, e, name, _) in enumerate(tss):
+        first = i == 0 or tss[i - 1][0] != c
+        last = i == len(tss) - 1 or tss[i + 1][0] != c
+        lo = 0 if first else (s + tss[i - 1][2]) // 2 + 1
+        hi = sizes[c] if last else (tss[i + 1][1] + e) // 2 + 1
+        out.append([c, lo, hi, name, s])
+    return out
+
+
+def tile_of(tiles: dict, c: str, x: int):
+    """The tile of chrom c that holds base x, or None."""
+    if c not in tiles:
+        return None
+    starts, rows = tiles[c]
+    i = int(np.searchsorted(starts, x, "right")) - 1
+    return rows[i] if i >= 0 and rows[i][1] <= x < rows[i][2] else None
+
+
+def tile_index(rows: list) -> dict:
+    """chrom -> (tile starts, tiles) of sorted, non-overlapping tiles
+    (empty ones left out)."""
+    out = {}
+    for r in rows:
+        if r[2] > r[1]:
+            out.setdefault(r[0], []).append(r)
+    return {c: (np.array([r[1] for r in v]), v) for c, v in out.items()}
+
+
+def fill_3d_plain(tss: list, contact_rows: list, sizes: dict) -> list:
+    """The 3D fill as the reference's rules make it, in plain Python:
+    each contact foot's midpoint takes its 1D tile's TSS and distance,
+    the nearer foot's to both; with the TSSs, one pass of the merge that
+    keeps the lower distance (a lower one carried across a gap as
+    distance + gap), the territory pass to a fixed point, then tiles
+    between the survivors. [chrom, start, end, name] rows."""
+    one_d = fill_1d_plain(tss, sizes)
+    if not contact_rows:
+        return [r[:4] for r in one_d]
+    tiles = tile_index(one_d)
+    recs = [list(t) for t in tss]
+    for w in contact_rows:
+        if w[0] not in tiles:
+            continue
+        halves = []
+        for c, s, e in ((w[0], int(w[1]), int(w[2])),
+                        (w[3], int(w[4]), int(w[5]))):
+            m = (s + e) // 2
+            t = tile_of(tiles, c, m)
+            if t is None:
+                raise SystemExit("fill_3d_plain: a foot off the tiles")
+            halves.append([c, m, m + 1, t[3], abs(m - t[4])])
+        a, b = halves
+        if a[4] < b[4]:
+            b[4], b[3] = a[4], a[3]
+        elif b[4] < a[4]:
+            a[4], a[3] = b[4], b[3]
+        recs += halves
+    recs = [r for r in recs if r[0] in sizes]
+    recs.sort(key=lambda r: (r[0], r[1], r[2]))
+    merged, curr = [], recs[0]
+    for r in recs[1:]:
+        if curr[0] == r[0] and max(curr[1], r[1]) < min(curr[2], r[2]):
+            if r[4] < curr[4]:
+                curr = r
+        elif curr[0] == r[0]:
+            gap = r[1] - curr[2]
+            if curr[4] + gap < r[4]:
+                r[4], r[3] = curr[4] + gap, curr[3]
+            elif r[4] + gap < curr[4]:
+                curr[4], curr[3] = r[4] + gap, r[3]
+            merged.append(curr)
+            curr = r
+        else:
+            merged.append(curr)
+            curr = r
+    merged.append(curr)
+    violation = True
+    while violation:
+        kept, violation = [], False
+        for prev, r in zip(merged, merged[1:]):
+            if prev[0] == r[0] and \
+                    (prev[2] - prev[4] + r[1] + r[4]) // 2 < prev[2]:
+                violation = True
+            else:
+                kept.append(prev)
+        merged = kept + [merged[-1]]
+    out = []
+    curr = [merged[0][0], 0, merged[0][2], merged[0][3], 0]
+    for i, r in enumerate(merged[1:], 1):
+        prev = merged[i - 1]
+        if r[0] != curr[0]:
+            curr[2] = sizes[prev[0]]
+            out.append(curr)
+            curr = [r[0], 0, 0, curr[3], 0]
+        elif curr[3] == r[3]:
+            curr[1], curr[2] = min(curr[1], r[1]), max(curr[2], r[2])
+            curr[4] = min(curr[4], r[4])
+        else:
+            mid = (curr[2] - prev[4] + r[1] + r[4]) // 2
+            curr[2], curr[3] = mid + 1, prev[3]
+            out.append(curr)
+            curr = [r[0], mid + 1, 0, "", 0]
+        curr[2], curr[3] = r[2], r[3]
+    curr[2] = sizes[merged[-1][0]]
+    out.append(curr)
+    return [r[:4] for r in out]
+
+
+def tiles_gates(rows: list, sizes: dict, names: dict) -> dict:
+    """Tiles [chrom, start, end, name, ...] sorted by chrom, a chrom's
+    contiguous over [0, size), no tile reversed, each name a gene of its
+    chrom (names: chrom -> gene names)."""
+    keys = [(r[0], int(r[1])) for r in rows]
+    by = {}
+    for r in rows:
+        by.setdefault(r[0], []).append((int(r[1]), int(r[2]), r[3]))
+    contiguous = all(
+        v[0][0] == 0 and v[-1][1] == sizes[c]
+        and all(a[1] == b[0] for a, b in zip(v, v[1:]))
+        and all(e >= s for s, e, _ in v) for c, v in by.items())
+    return {"tiles": len(rows), "sorted": keys == sorted(keys),
+            "contiguous": contiguous, "chroms": sorted(by),
+            "names_of_chrom": all(n in names.get(c, ()) for c, v in
+                                  by.items() for _, _, n in v)}
+
+
+def onto_straw_checks(os_in: dict) -> dict:
+    """What the gates of item 13's and strawToBedpe's steps read from
+    their files, with numpy, scipy and text alone, importing none of
+    these tools' modules."""
+    from scipy import special, stats
+
+    p, sizes, tss = os_in["paths"], os_in["sizes"], os_in["tss"]
+    out = {}
+    rows = bed_rows(p["map.tsv"])
+    out["obo_mapping"] = {
+        "rows": len(rows),
+        "equal_complete_stanzas": [tuple(r) for r in rows]
+        == os_in["complete"]}
+
+    def records(lines):
+        return [ln.split("\t") for ln in lines
+                if ln and not ln.startswith(("!", "#"))]
+
+    a_lines = os_in["gafs"]["a"]
+    want = [ln for ln in a_lines if ln.startswith("!")] + [
+        "\t".join(w + [""] * (17 - len(w))) for w in records(a_lines)
+        if "NOT" not in w[3]]
+    with open(p["a_filt.gaf"]) as fh:
+        got = fh.read().splitlines()
+    out["gaf_filter"] = {"lines": len(got), "equal_numpy": got == want,
+                         "not_records": sum("NOT" in w[3] for w in
+                                            records(a_lines))}
+
+    children = {t: [] for t in os_in["ids"]}
+    for t in os_in["ids"]:
+        for q in os_in["parents"][t]:
+            children[q].append(t)
+    start, seen, stack = os_in["alt_start"], set(), [os_in["alt_start"]]
+    while stack:
+        t = stack.pop()
+        if t not in seen:
+            seen.add(t)
+            stack += children[t]
+    with open(p["sub.dot"]) as fh:
+        dot = fh.read().splitlines()
+    nodes = {ln.split('"')[1] for ln in dot if "[label" in ln}
+    edges = sorted(tuple(ln.split('"')[1::2]) for ln in dot if "->" in ln)
+    out["obo_to_dot"] = {
+        "nodes": len(nodes), "nodes_equal_descendants": nodes == seen,
+        "edges_equal_children": edges == sorted(
+            (t, c) for t in seen for c in children[t]),
+        "framed": dot[:1] == ["digraph G {"] and dot[-1:] == ["}"]}
+
+    counts = {}
+    for name in "ab":
+        pairs = {(w[4], w[2]) for w in records(os_in["gafs"][name])}
+        for go, _ in pairs:
+            counts[go] = counts.get(go, 0) + 1
+    known = set(os_in["ids"]) | {"GO:0999999"}
+    hist = [f"{k}\t{v}" for k, v in sorted(counts.items()) if k in known]
+    with open(p["hist.tsv"]) as fh:
+        out["ontology_histogram"] = {"terms": len(hist), "equal_numpy":
+                                     fh.read().splitlines() == hist}
+
+    names = {}
+    for (c, _), ns in tss.items():
+        names.setdefault(c, set()).update(ns)
+    plain_tss = tss_plain(tss)
+    one_d = fill_1d_plain(plain_tss, sizes)
+    rows = bed_rows(p["1d.bed"])
+    starts = {}
+    for c, s, *_ in plain_tss:
+        starts.setdefault(c, []).append(s)
+    rng = np.random.default_rng(OS_SEED + 1)
+    idx = tile_index([[r[0], int(r[1]), int(r[2]), r[3], int(r[4])]
+                      for r in rows])
+    farther = []
+    for c, at in starts.items():
+        at = np.array(at)
+        xs = np.concatenate([rng.integers(0, sizes[c], 2000),
+                             idx[c][0] if c in idx else []]).astype(int)
+        for x in xs:
+            t = tile_of(idx, c, int(x))
+            farther.append(10 ** 9 if t is None else
+                           abs(int(x) - t[4]) - int(np.abs(at - x).min()))
+    out["proximity"] = {
+        **tiles_gates(rows, sizes, names),
+        "merged_tss": len(plain_tss),
+        "one_tile_a_tss": sorted((r[0], int(r[4])) for r in rows)
+        == sorted(tss),
+        "sampled": len(farther), "most_bases_farther": int(max(farther)),
+        "equal_plain": [[r[0], int(r[1]), int(r[2]), r[3], int(r[4])]
+                        for r in rows] == one_d}
+
+    contact_rows = bed_rows(p["contacts.bedpe"])
+    for key, path, crows in (
+            ("contacts", "3d.bed", contact_rows),
+            ("straw_contacts", "3d_straw.bed", bed_rows(p["straw.bedpe"]))):
+        rows = bed_rows(p[path])
+        out[key] = {**tiles_gates(rows, sizes, names),
+                    "equal_plain": [[r[0], int(r[1]), int(r[2]), r[3]]
+                                    for r in rows]
+                    == fill_3d_plain(tss_plain(tss), crows, sizes)}
+    with open(p["3d_empty.bed"], "rb") as a, open(p["1d.bed"], "rb") as b:
+        out["contacts"]["empty_file_equal_proximity"] = a.read() == b.read()
+
+    # ontologyEnrichment: the written bed, then numpy's proportions, k
+    # and scipy's tails
+    rows = bed_rows(p["enrich.bed"])
+    three_d = bed_rows(p["3d.bed"])
+    lengths = {}
+    for r in rows:
+        g = r[3].upper()
+        lengths[g] = lengths.get(g, 0) + int(r[2]) - int(r[1])
+    total = sum(lengths.values())
+    gene_p = {g: v / total for g, v in lengths.items()}
+    term_genes, seen_pairs = {t: [] for t in known}, set()
+    for w in records(a_lines):
+        if w[4] + w[2] not in seen_pairs:
+            seen_pairs.add(w[4] + w[2])
+            if w[4] in term_genes:
+                term_genes[w[4]].append(w[2])
+    gene_terms = {}
+    for t in [*os_in["ids"], "GO:0999999"]:
+        for g in term_genes[t]:
+            gene_terms.setdefault(g, []).append(t)
+    term_name = dict(os_in["complete"])
+
+    def close(got, want):
+        return abs(got - want) <= OS_PRINT_RTOL * abs(want) + OS_PRINT_ATOL
+
+    printed = {r[0]: float(r[1]) for r in
+               bed_rows(os.path.splitext(p["enrich.bed"])[0]
+                         + ".geneProportions.txt")[1:]}
+    term_p = {t: math.fsum(gene_p.get(g.upper(), 0.0) for g in gs)
+              for t, gs in term_genes.items()}
+    term_rows = bed_rows(os.path.splitext(p["enrich.bed"])[0]
+                          + ".termProportions.txt")
+    enrich_rows = bed_rows(os.path.splitext(p["enrich.bed"])[0]
+                            + ".termEnrichment.txt")
+    idx = tile_index([[r[0], int(r[1]), int(r[2]), r[3]] for r in rows])
+    k, off = {}, 0
+    queries = bed_rows(p["queries.bed"])
+    for c, s, e in queries:
+        t = tile_of(idx, c, (int(s) + int(e)) // 2)
+        if t is None:
+            off += 1
+            continue
+        for term in gene_terms.get(t[3], []):
+            k[term] = k.get(term, 0) + 1
+    n = len(queries)
+    errs, branches, zmax = [], {"zero": 0, "normal": 0, "exact": 0}, 0.0
+    for r in enrich_rows[1:]:
+        t, pt, kt = r[0], term_p[r[0]], k.get(r[0], 0)
+        if kt == 0:
+            want, branch = 0.0, "zero"
+        elif n * pt > 10 and n * (1 - pt) > 10:
+            z = (kt - 0.5 - n * pt) / math.sqrt(n * pt * (1 - pt))
+            want, branch, zmax = float(special.log_ndtr(-z)), "normal", \
+                max(zmax, z)
+        else:
+            want, branch = float(stats.binom.logsf(kt - 1, n, pt)), "exact"
+        branches[branch] += 1
+        errs.append(not close(float(r[2]), want))
+    annotated = all(r[5] == "." and r[6:] == [
+        term_name[t] for t in gene_terms.get(r[3], [])] for r in rows)
+    out["ontology_enrichment"] = {
+        "tiles_equal_assign": [r[:4] for r in rows] == three_d,
+        "annotations_equal": annotated,
+        "gene_props_equal": set(printed) == set(gene_p) and all(
+            close(printed[g], v) for g, v in gene_p.items()),
+        "gene_props_sum_off_one": abs(math.fsum(printed.values()) - 1),
+        "term_props_equal": [r[0] for r in term_rows[1:]] == [
+            t for t in [*os_in["ids"], "GO:0999999"] if term_p[t] > 0]
+        and all(close(float(r[2]), term_p[r[0]]) and r[1] == term_name[r[0]]
+                for r in term_rows[1:]),
+        "enrichment_terms": len(enrich_rows) - 1,
+        "enrichment_mismatches": sum(errs), "branches": branches,
+        "largest_z": zmax, "queries_off_tiles": off,
+        "terms_with_hits": len(k)}
+
+    # strawToBedpe
+    st = os_in["straw"]
+    d = np.abs(st[:, 0] - st[:, 1]) // OS_BIN
+    length = max(2, int(d.max()) + 1)
+    hist = ["BinDistance\tScore\tCount", ""]
+    for i in range(length):
+        row = np.bincount(st[d == i, 2], minlength=100)
+        hist += [f"{i}\t{s}\t{row[s]}" for s in range(100)]
+    with open(p["scores.txt"]) as fh:
+        scores_equal = fh.read() == "\n".join(hist) + "\n"
+    lo, hi = np.minimum(st[:, 0], st[:, 1]), np.maximum(st[:, 0], st[:, 1])
+    span = (int(hi.max()) - int(lo.min())) // OS_BIN
+    fit = bed_rows(p["fit.txt"])
+    cutoffs = np.full(length, OS_MIN_CUTOFF)
+    mismatches = ambiguous = 0
+    for r in fit[1:]:
+        i, rr, pp, cut = int(r[0]), float(r[1]), float(r[2]), int(r[3])
+        row = np.bincount(st[d == i, 2]) if (d == i).any() else [0]
+        want, rank, near = OS_MIN_CUTOFF, 0, False
+        for s in range(len(row) - 1, OS_MIN_CUTOFF, -1):
+            rank += int(row[s])
+            if not rank:
+                continue
+            q = (1 - stats.nbinom.cdf(s, rr, pp)) * (span - i) / rank
+            near |= abs(q - OS_FDR) <= OS_Q_RTOL * OS_FDR
+            if np.isfinite(q) and q > OS_FDR:
+                want = s
+                break
+        ambiguous += int(near)
+        mismatches += int(want != cut and not near)
+        cutoffs[i] = cut
+    dists = [int(r[0]) for r in fit[1:]]
+    cuts = [int(r[3]) for r in fit[1:]]
+    rows_ok = (fit[:1] == [["BinDistance", "R", "P", "Cutoff"]]
+               and dists == list(range(OS_MIN_BIN, OS_MIN_BIN + len(dists)))
+               and OS_MIN_CUTOFF not in cuts[:-1]
+               and (cuts[-1:] == [OS_MIN_CUTOFF] or dists[-1] == length - 1))
+    keep = (d >= OS_MIN_BIN) & (st[:, 2] > cutoffs[np.minimum(d, length -
+                                                               1)])
+    written = bed_rows(p["straw.bedpe"])
+    got = [(int(w[1]), int(w[4]), int(w[7])) for w in written]
+    out["straw_to_bedpe"] = {
+        "contacts": len(st), "written": len(got), "fit_rows": len(dists),
+        "score_file_equal_numpy": scores_equal,
+        "fit_rows_ordered": rows_ok, "cutoff_mismatches": mismatches,
+        "cutoffs_near_fdr": ambiguous,
+        "written_equal_numpy": got == [tuple(map(int, x)) for x in st[keep]],
+        "feet_one_bin": all(w[0] == w[3] == "chr1"
+                            and int(w[2]) - int(w[1]) == OS_BIN
+                            and int(w[5]) - int(w[4]) == OS_BIN
+                            for w in written)}
+    return out
+
+
+def onto_straw_ok(x: dict) -> bool:
+    """Every gate of onto_straw_checks met."""
+    om, gf, dt, oh = (x["obo_mapping"], x["gaf_filter"], x["obo_to_dot"],
+                      x["ontology_histogram"])
+    obo_ok = (om["equal_complete_stanzas"] and gf["equal_numpy"]
+              and gf["not_records"] > 0 and dt["nodes"] > 1
+              and dt["nodes_equal_descendants"] and dt["edges_equal_children"]
+              and dt["framed"] and oh["equal_numpy"] and oh["terms"] > 0)
+    px = x["proximity"]
+    space_ok = (px["equal_plain"] and px["one_tile_a_tss"]
+                and px["most_bases_farther"] <= 1
+                and px["tiles"] == px["merged_tss"])
+    for key in ("proximity", "contacts", "straw_contacts"):
+        t = x[key]
+        space_ok = (space_ok and t["sorted"] and t["contiguous"]
+                    and t["names_of_chrom"] and t["equal_plain"])
+    space_ok = space_ok and x["contacts"]["empty_file_equal_proximity"]
+    oe = x["ontology_enrichment"]
+    enrich_ok = (oe["tiles_equal_assign"] and oe["annotations_equal"]
+                 and oe["gene_props_equal"]
+                 and oe["gene_props_sum_off_one"] <= 1e-6
+                 and oe["term_props_equal"] and oe["enrichment_terms"] > 0
+                 and oe["enrichment_mismatches"] == 0
+                 and oe["branches"]["normal"] > 0
+                 and oe["branches"]["exact"] > 0
+                 and oe["largest_z"] < 26 and oe["queries_off_tiles"] == 0)
+    sb = x["straw_to_bedpe"]
+    straw_ok = (sb["score_file_equal_numpy"] and sb["fit_rows_ordered"]
+                and sb["fit_rows"] > 0 and sb["cutoff_mismatches"] == 0
+                and sb["written_equal_numpy"] and sb["feet_one_bin"]
+                and 0 < sb["written"] < sb["contacts"])
+    return bool(obo_ok and space_ok and enrich_ok and straw_ok)
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -8899,7 +9534,32 @@ def phase_tools_cli(dev: torch.device) -> dict:
     gene_nostop.gp; ``ilsReconstructSeq`` of SE_ILS, gated on the .pfa
     equal to numpy's float32 sum (which a float64 sum is not, at some
     positions), rows within the precision of 1, and with weights 1 and
-    0 the first recon."""
+    0 the first recon. (19) Item 13 and strawToBedpe
+    (``onto_straw_inputs`` over genes.gtf and its sizes,
+    ``onto_straw_steps``, ``onto_straw_checks`` with numpy, scipy and
+    text alone, ``onto_straw_ok``; ``onto_straw_tools`` in the phase
+    line): ``oboTools mapping`` of OS_TERMS terms, gated on a row a
+    complete stanza in file order (no [Typedef], no unterminated last
+    stanza); ``gafFilter -removeNot``, the header and the non-NOT
+    records padded to 17 fields; ``oboToDot`` from an alt id, its nodes
+    the term's descendants by a walk and its edges their child edges;
+    ``ontologyHistogram`` of two GAFs, numpy's counts of the pairs left
+    after each file's duplicates go; ``assignGenomeSpace --proximity``,
+    a tile a merged TSS, contiguous over each chrom, sampled bases at
+    most one base farther from their tile's TSS than from the nearest,
+    equal to ``fill_1d_plain``; ``--contactFile`` of OS_CONTACTS seeded
+    contacts and of strawToBedpe's output, tiles sorted, contiguous and
+    named by genes of their chrom, equal to ``fill_3d_plain`` (one merge
+    pass), and an empty contact file giving --proximity's bytes;
+    ``strawToBedpe`` of OS_STRAW at OS_BIN bp bins, the score histogram
+    numpy's, the cutoffs re-derived from the fit's R and P with scipy's
+    negative binomial, the written contacts exactly those above their
+    distance's cutoff; ``ontologyEnrichment -contactFile`` of
+    OS_QUERIES queries, its bed the 3D tiles with their terms, gene
+    proportions each upper-cased name's share (summing to 1 within
+    1e-6), term proportions their genes' sums, enrichments scipy's
+    ``binom.logsf(k - 1, n, p)`` or ``log_ndtr(-z)`` within the print
+    precision, k counted from the query midpoints."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -9133,6 +9793,8 @@ def phase_tools_cli(dev: torch.device) -> dict:
         ga = gtf_accel_steps(step, f, t_fa, chain, tmp, times)
         stt = sim_tree_steps(step, t_fa, tmp)
         se = sim_evol_steps(step, tmp)
+        ost = onto_straw_steps(step, onto_straw_inputs(
+            tmp, ga["genes"], ga["sizes"], ga["paths"]["genes.gtf"]))
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -9183,6 +9845,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["gtf_accel_tools"] = gtf_accel_checks(ga)
         out["sim_tree_tools"] = sim_tree_checks(stt)
         out["sim_evol_tools"] = sim_evol_checks(se)
+        out["onto_straw_tools"] = onto_straw_checks(ost)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -9284,6 +9947,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
             and gtf_accel_ok(out["gtf_accel_tools"])
             and sim_tree_ok(out["sim_tree_tools"])
             and sim_evol_ok(out["sim_evol_tools"])
+            and onto_straw_ok(out["onto_straw_tools"])
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

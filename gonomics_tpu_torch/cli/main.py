@@ -279,6 +279,24 @@ COMMANDS = {
     "simulateEvol": ("gonomics_tpu_torch.cli.simulate_evol",
                      "Evolution simulation: genic/withIndels/nonCoding "
                      "(host)"),
+    "oboTools": ("gonomics_tpu_torch.cli.ontology_tools:main_obo_tools",
+                 "OBO manipulation (mapping subcommand) (host)"),
+    "gafFilter": ("gonomics_tpu_torch.cli.ontology_tools:main_gaf_filter",
+                  "Filter GAF annotation records (host)"),
+    "ontologyEnrichment": (
+        "gonomics_tpu_torch.cli.ontology_tools:main_ontology_enrichment",
+        "GREAT-style GO-term enrichment over 1D/3D space (host)"),
+    "oboToDot": ("gonomics_tpu_torch.cli.obo_to_dot",
+                 "Dot-format subtree for a GO term (host)"),
+    "ontologyHistogram": ("gonomics_tpu_torch.cli.ontology_histogram",
+                          "Gene counts per ontology term from gaf files "
+                          "(host)"),
+    "assignGenomeSpace": ("gonomics_tpu_torch.cli.assign_genome_space",
+                          "Nearest gene per base by proximity/3D contacts "
+                          "(host)"),
+    "strawToBedpe": ("gonomics_tpu_torch.cli.straw_to_bedpe",
+                     "HiC straw contact maps to significant bedpe peaks "
+                     "(host)"),
 }
 
 

@@ -1,6 +1,7 @@
 """File handles that read gzip transparently: the subset of
 ``gonomics_tpu/fileio.py`` that the readers, the ``gsw`` CLI and the
 motif reader use, with ``go_v`` (:184-187), which ``samInfo`` writes
+with, and ``next_real_line`` (:142-147), which the straw reader starts
 with.
 
 ``easy_open`` sniffs the gzip magic rather than the extension;
@@ -57,6 +58,15 @@ def read(filename: str) -> list[str]:
     """Every non-comment line of a file (fileio.go:24)."""
     with easy_open(filename) as f:
         return [ln.rstrip("\n") for ln in f if not ln.startswith("#")]
+
+
+def next_real_line(f: IO[str]) -> str | None:
+    """EasyNextRealLine: the next non-comment line without its newline,
+    None at EOF."""
+    for ln in f:
+        if not ln.startswith("#"):
+            return ln.rstrip("\n")
+    return None
 
 
 def go_v(x: float) -> str:

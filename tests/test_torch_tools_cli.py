@@ -9,12 +9,12 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 110 tools, imports none of them
+lists and dispatches exactly the port's 117 tools, imports none of them
 before dispatch, resolves a ``module:function`` target as the JAX
 umbrella does, runs the popgen tools, the interval and lift tools, the
 VCF, MAF and axt tools, the GTF and acceleration tools and the
-simulation and tree tools and the evolution, accuracy and ILS tools
-to the JAX umbrella's bytes, lists its tools
+simulation and tree tools, the evolution, accuracy and ILS tools and
+the ontology tools with strawToBedpe to the JAX umbrella's bytes, lists its tools
 and runs every tool but drawNewickTree without PIL, and
 its ``gsw align`` wants the card; ``pyproject.toml`` installs it as
 ``gonomics-torch``; no new module imports JAX.
@@ -75,40 +75,42 @@ from gonomics_tpu_torch.io import fasta as tfasta
 from test_torch_card import _variant_inputs, _write_reference
 from test_torch_interval_tools import (VCF_HEAD, _bed_rows, _bedpe_rows,
                                        _chain_text, _vcf_line)
+from test_torch_ontology import (contact_lines, gaf_lines, gtf_lines,
+                                  obo_lines, query_lines, tss_lines)
 from test_torch_popgen import GROUPS, _aln, popgen_vcf
+from test_torch_straw import straw_lines
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORTED = ["alleleSplit", "assemblyStats", "axTools", "axtSam",
-          "bamTagToReadGroup", "bedCountBam", "bedDistanceFromChrEnds",
-          "bedFilter", "bedFormat", "bedGraphToWig", "bedMath", "bedMerge",
-          "bedMinimumDistanceName", "bedOverlapByWindow", "bedShear",
-          "bedSimilarity", "bedSplit", "bedToAminoAcid", "bedToFasta",
-          "bedToWig", "bedTrim", "bedValueWig", "bedpeFilter", "bedpeOverlap",
-          "branchLengthsMultiFaBed", "callVariants", "catMultiFa",
-          "cigarToBed", "countPairOfBases", "digestGenome",
-          "divergenceSpectrum", "dotToNewick", "drawNewickTree", "dunnIndex", "faBin", "faFilter", "faFindFast",
+PORTED = ["alleleSplit", "assemblyStats", "assignGenomeSpace", "axTools",
+          "axtSam", "bamTagToReadGroup", "bedCountBam",
+          "bedDistanceFromChrEnds", "bedFilter", "bedFormat", "bedGraphToWig",
+          "bedMath", "bedMerge", "bedMinimumDistanceName",
+          "bedOverlapByWindow", "bedShear", "bedSimilarity", "bedSplit",
+          "bedToAminoAcid", "bedToFasta", "bedToWig", "bedTrim", "bedValueWig",
+          "bedpeFilter", "bedpeOverlap", "branchLengthsMultiFaBed",
+          "callVariants", "catMultiFa", "cigarToBed", "countPairOfBases",
+          "digestGenome", "divergenceSpectrum", "dotToNewick",
+          "drawNewickTree", "dunnIndex", "faBin", "faFilter", "faFindFast",
           "faFormat", "faInfo", "faToPredictSet", "faUniq", "fastqFilter",
           "fastqFormat", "fastqReplaceSeq", "filterGenotypes",
-          "findAndReplace", "gcContent", "geneAssignmentStats", "geneIdToName",
-          "getPromoter", "globalAlignment", "gsw", "gtfTools",
+          "findAndReplace", "gafFilter", "gcContent", "geneAssignmentStats",
+          "geneIdToName", "getPromoter", "globalAlignment", "gsw", "gtfTools",
           "haplotypeGenerator", "ilsReconstructSeq", "intervalContacts",
-          "intervalOverlap",
-          "intervalSubsetMatrix", "liftCoordinates", "locateCG",
-          "longReadLibStats", "mafFilter", "mafIndels", "mafToBed",
+          "intervalOverlap", "intervalSubsetMatrix", "liftCoordinates",
+          "locateCG", "longReadLibStats", "mafFilter", "mafIndels", "mafToBed",
           "mafToMultiFa", "mcmcTraceStats", "mergeMultiFa", "mergesort",
           "mouseRecon", "multiFaAcceleration", "multiFaCount",
           "multiFaExtract", "multiFaReduce", "multiFaScan",
-          "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf",
+          "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf", "oboToDot",
+          "oboTools", "ontologyEnrichment", "ontologyHistogram",
           "overlapEnrichments", "pileup", "plotFunctions", "prcompFormat",
           "primateRecon", "proximityBlockVcf", "quickOrthologs", "randSeq",
           "reconstructSeq", "samConsensus", "samInfo", "samToBed", "samToWig",
-          "sampleVcf", "scCount", "selectionMcmc", "selectionMle",
-          "simRecon", "simulateBed", "simulateDivergentWindowsVcf",
-          "simulateEvol", "simulatePcr",
-          "simulateSam", "simulateVcf", "simulateWrightFisher", "statCalc",
-          "vcfAfs",
-          "vcfAncestorAnnotation", "vcfFilter", "vcfFormat", "vcfInfo",
-          "vcfToFa", "wigTools"]
+          "sampleVcf", "scCount", "selectionMcmc", "selectionMle", "simRecon",
+          "simulateBed", "simulateDivergentWindowsVcf", "simulateEvol",
+          "simulatePcr", "simulateSam", "simulateVcf", "simulateWrightFisher",
+          "statCalc", "strawToBedpe", "vcfAfs", "vcfAncestorAnnotation",
+          "vcfFilter", "vcfFormat", "vcfInfo", "vcfToFa", "wigTools"]
 
 
 def _edge_sam(genome) -> str:
@@ -265,17 +267,17 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 110 ported tools, each a key of
-    the JAX umbrella's COMMANDS; 28 of the JAX's are left."""
+    """help (and no argument) lists the 117 ported tools, each a key of
+    the JAX umbrella's COMMANDS; 21 of the JAX's are left."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
         lines = capsys.readouterr().out.splitlines()
         listed = [ln.split()[0] for ln in lines if ln.startswith("  ")]
         assert listed == PORTED
     assert sorted(umbrella.COMMANDS) == PORTED
-    assert len(PORTED) == 110
+    assert len(PORTED) == 117
     assert set(PORTED) <= set(jmain.COMMANDS)
-    assert len(set(jmain.COMMANDS) - set(PORTED)) == 28
+    assert len(set(jmain.COMMANDS) - set(PORTED)) == 21
     assert all("TPU" not in desc for _, desc in umbrella.COMMANDS.values())
 
 
@@ -598,7 +600,14 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.io.formats,"
             " gonomics_tpu_torch.cli.simulate_evol,"
             " gonomics_tpu_torch.cli.sim_recon,"
-            " gonomics_tpu_torch.cli.ils_reconstruct_seq\n"
+            " gonomics_tpu_torch.cli.ils_reconstruct_seq,"
+            " gonomics_tpu_torch.ontology, gonomics_tpu_torch.ontology.obo,"
+            " gonomics_tpu_torch.ontology.gaf, gonomics_tpu_torch.io.hic,"
+            " gonomics_tpu_torch.cli.ontology_tools,"
+            " gonomics_tpu_torch.cli.obo_to_dot,"
+            " gonomics_tpu_torch.cli.ontology_histogram,"
+            " gonomics_tpu_torch.cli.assign_genome_space,"
+            " gonomics_tpu_torch.cli.straw_to_bedpe\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
@@ -637,7 +646,9 @@ def test_umbrella_module_function_targets(tmp_path, monkeypatch):
                  "branchLengthsMultiFaBed", "simulateSam", "simulateBed",
                  "simulateVcf", "simulateDivergentWindowsVcf",
                  "simulatePcr", "dotToNewick", "drawNewickTree",
-                 "simulateEvol", "simRecon", "ilsReconstructSeq"):
+                 "simulateEvol", "simRecon", "ilsReconstructSeq",
+                 "oboTools", "gafFilter", "ontologyEnrichment", "oboToDot",
+                 "ontologyHistogram", "assignGenomeSpace", "strawToBedpe"):
         port, jax = umbrella.COMMANDS[name][0], jmain.COMMANDS[name][0]
         assert port.replace("gonomics_tpu_torch.", "gonomics_tpu.") == jax
 
@@ -1131,6 +1142,67 @@ def test_umbrella_sim_evol_tools_equal_jax_umbrella(
             "ilsReconstructSeq": [
                 "ilsReconstructSeq", f["post.list"], f["recons.list"],
                 f["chrom.sizes"], o + ".pfa"]}[tool]
+        mod.main(argv)
+        files = {n: _read(str(d / n)) for n in sorted(os.listdir(d))}
+        out[side] = (files, capsys.readouterr().out)
+    assert out["port"] == out["jax"]
+    assert out["jax"][0] and all(out["jax"][0].values())
+
+
+@pytest.fixture(scope="module")
+def onto_straw_inputs(tmp_path_factory):
+    """An OBO, two GAFs, TSS beds, a GTF, chrom sizes, contacts and
+    queries (tests/test_torch_ontology.py's builders), and a straw map on
+    chr1 with its file list (tests/test_torch_straw.py's)."""
+    d = tmp_path_factory.mktemp("onto_straw_umbrella")
+    obo = obo_lines()
+    ids = [ln[4:] for ln in obo if ln.startswith("id: GO:")][:-1]
+    tss = tss_lines()
+    files = {"in.obo": obo, "a.gaf": gaf_lines(ids),
+             "b.gaf": gaf_lines(ids, seed=3407, n=40), "tss.bed": tss,
+             "genes.gtf": gtf_lines(),
+             "chrom.sizes": ["chr1\t6000", "chr2\t3000"],
+             "contacts.bedpe": contact_lines(tss),
+             "queries.bed": query_lines(), "chr1.straw": straw_lines(),
+             "gafs.txt": [str(d / "a.gaf"), str(d / "b.gaf")],
+             "straw.list": [f"{d / 'chr1.straw'}\tchr1"]}
+    for name, lines in files.items():
+        (d / name).write_text("".join(ln + "\n" for ln in lines))
+    return {k: str(d / k) for k in files}
+
+
+@pytest.mark.parametrize("tool", [
+    "oboTools", "gafFilter", "ontologyEnrichment", "oboToDot",
+    "ontologyHistogram", "assignGenomeSpace", "strawToBedpe"])
+def test_umbrella_onto_straw_tools_equal_jax_umbrella(
+        onto_straw_inputs, tmp_path, capsys, tool):
+    """Each tool of item 13 and strawToBedpe through gonomics-torch writes
+    what the JAX umbrella's writes, files and stdout."""
+    f = onto_straw_inputs
+    out = {}
+    for side, mod in (("jax", jmain), ("port", umbrella)):
+        d = tmp_path / side
+        d.mkdir()
+        o = str(d / "out")
+        argv = {
+            "oboTools": ["oboTools", "mapping", f["in.obo"], o + ".tsv"],
+            "gafFilter": ["gafFilter", f["a.gaf"], o + ".gaf", "-removeNot"],
+            "ontologyEnrichment": [
+                "ontologyEnrichment", f["queries.bed"], f["chrom.sizes"],
+                f["genes.gtf"], f["a.gaf"], f["in.obo"], o + ".bed",
+                "-contactFile", f["contacts.bedpe"]],
+            "oboToDot": ["oboToDot", f["in.obo"], "GO:9000002", o + ".dot"],
+            "ontologyHistogram": ["ontologyHistogram", f["in.obo"],
+                                  f["gafs.txt"], o + ".tsv"],
+            "assignGenomeSpace": [
+                "assignGenomeSpace", "--geneBed", "--proximity",
+                o + ".1d.bed", "--contactFile", f["contacts.bedpe"],
+                "--nearestGeneBed", o + ".3d.bed", f["tss.bed"],
+                f["chrom.sizes"]],
+            "strawToBedpe": [
+                "strawToBedpe", f["straw.list"], o + ".bedpe", "-binSize",
+                "1000", "-rStep", "0.01", "-pStep", "0.01", "-fitStatsFile",
+                o + ".fit", "-contactScoreFile", o + ".scores"]}[tool]
         mod.main(argv)
         files = {n: _read(str(d / n)) for n in sorted(os.listdir(d))}
         out[side] = (files, capsys.readouterr().out)
