@@ -395,8 +395,18 @@ exits non-zero:
             rows, the filter's records, the dot's nodes and edges, the
             histogram's counts, tiles contiguous and equal to the plain
             1D and 3D fills, the straw histogram, cutoffs and calls, the
-            proportions and scipy's binomial tails. The four kernels
-            launched. Wall time of each step.
+            proportions and scipy's binomial tails. Then slice 14a
+            (giraf_pfa_steps, giraf_pfa_checks): sortGraph of v.gg;
+            girafSort of the mapped girafs in chunks of 512;
+            girafCompress and -decompress of those the binary format
+            carries; pFaTools faToPfa, vcfToPfa, extract, extractBed,
+            entropyTrack, sample and visualize (two forms), pfaFindFast
+            short and long on a soft 50,000-column .pfa of chr1's
+            alignment. Gates: edges forward; lines kept in .idx key
+            order; the round trip but for the strand; rows, entropies
+            (Go's Log2), PCG64 draws, printed values and window counts
+            against numpy. The four kernels launched. Wall
+            time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -755,6 +765,26 @@ OS_BIN, OS_STRAW, OS_STRAW_MEAN = 1000, (200, 30), 30.0
 OS_PEAK_SHARE, OS_PEAK = 0.01, (40, 80)
 OS_MIN_BIN, OS_FDR, OS_MIN_CUTOFF = 1, 0.05, 10
 OS_PRINT_RTOL, OS_PRINT_ATOL, OS_Q_RTOL = 1e-6, 1e-12, 1e-9
+# slice 14a (giraf_pfa_inputs): girafSort's records a chunk; the soft
+# three-record .pfa over the first GP_SOFT_COLS columns of chr1's multiFa
+# alignment, a share GP_SOFT of its bases blurred by up to GP_BLUR, an N
+# every GP_N_EVERY columns of the second query and a reference gap every
+# GP_REF_GAP_EVERY; GP_SAMPLES genotypes a VCF site; GP_REGIONS beds for
+# extractBed; sample's draws; visualize's start, end and line length;
+# pfaFindFast's window and divergence rate, and its p values' tolerance
+GP_SEED, GP_CHUNK, GP_SOFT_COLS, GP_SOFT, GP_BLUR = 3500, 512, 50_000, 0.3, 0.5
+GP_N_EVERY, GP_REF_GAP_EVERY, GP_SAMPLES, GP_REGIONS = 4999, 1499, 6, 20
+GP_DRAWS, GP_VIS, GP_WINDOW, GP_RATE = 2, (100, 1123, 50), 1000, 0.01
+GP_PVAL_RTOL = 1e-5  # pfaFindFast's printed p values against numpy's tails
+GP_X_SHARE = 0.5  # girafCompress's input records with a base changed
+GP_MIN_CHUNKS = 4  # girafSort's chunk files that its merge must take
+# Go's math.Log constants (FDLIBM e_log.c), for the entropy gate's numpy
+# Log2
+GO_LOG_L = (6.666666666666735130e-01, 3.999999999940941908e-01,
+            2.857142874366239149e-01, 2.222219843214978396e-01,
+            1.818357216161805012e-01, 1.531383769920937332e-01,
+            1.479819860511658591e-01)
+GO_LN2_HI, GO_LN2_LO = 6.93147180369123816490e-01, 1.90821492927058770002e-10
 # the standard code in TCAG order, and the three-letter names
 CODE_TCAG = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
 AA_NAMES = dict(zip("ARNDCQEGHILKMFPSTWYV*", (
@@ -8313,23 +8343,39 @@ def newick_names(text: str) -> list:
     return [t.split(":")[0] for t in re.split(r"[(),;]", text.strip()) if t]
 
 
-def read_pfa(path: str) -> tuple:
-    """The (name, length) header lines and the float16 rows, as float32,
-    of a one-record .pfa, read as bytes."""
+def pfa_records(path: str) -> dict:
+    """{name: (length, 4) float32 rows} of a .pfa, read as bytes;
+    ValueError where its first line is not the format's, a record's name
+    repeats or the header's lengths do not add up to the rows after
+    EndHeader."""
     with open(path, "rb") as fh:
         data = fh.read()
     end = data.index(b"EndHeader\n")
     head = data[:end].decode().splitlines()
+    if head[0] != "pFasta_format_1.0":
+        raise ValueError(f"{path}: not a pFasta file")
     rows = np.frombuffer(data[end + len(b"EndHeader\n"):], "<f2")
-    return head, rows.astype(np.float32).reshape(-1, 4)
+    rows = rows.astype(np.float32).reshape(-1, 4)
+    out, at = {}, 0
+    for name, n in (ln.rsplit("\t", 1) for ln in head[1:]):
+        if name in out:
+            raise ValueError(f"{path}: record {name} repeats")
+        out[name] = rows[at:at + int(n)]
+        at += int(n)
+    if at != len(rows):
+        raise ValueError(f"{path}: header gives {at} rows, file {len(rows)}")
+    return out
 
 
-def write_pfa(path: str, name: str, rows: np.ndarray) -> None:
-    """A one-record .pfa: the text header, then the rows as float16."""
+def write_pfa(path: str, records: dict) -> None:
+    """A .pfa of {name: rows}: the text header, then the rows as
+    float16."""
     with open(path, "wb") as fh:
-        fh.write(f"pFasta_format_1.0\n{name}\t{len(rows)}\nEndHeader\n"
-                 .encode())
-        fh.write(rows.astype("<f2").tobytes())
+        fh.write(("pFasta_format_1.0\n" + "".join(
+            f"{k}\t{len(v)}\n" for k, v in records.items())
+            + "EndHeader\n").encode())
+        for v in records.values():
+            fh.write(np.asarray(v).astype("<f2").tobytes())
 
 
 def sim_evol_inputs(tmp: str) -> dict:
@@ -8383,7 +8429,7 @@ def sim_evol_inputs(tmp: str) -> dict:
                 fh.write(f"fixedStep chrom={name} start=1 step=1\n")
                 fh.writelines(repr(float(x)) + "\n" for x in w)
             pfa = os.path.join(tmp, f"se_{run}_{name}.pfa")
-            write_pfa(pfa, name, recons[k])
+            write_pfa(pfa, {name: recons[k]})
             wigs.append(wig)
             pfas.append(pfa)
         texts[f"{run}_post.list"] = wigs
@@ -8595,7 +8641,8 @@ def sim_evol_checks(se: dict) -> dict:
         "zero_lengths_rows": len(table(p["sr0_acc.txt"]))}
 
     n_top, n_pos, precision = SE_ILS
-    head, got = read_pfa(p["ils.pfa"])
+    ils = pfa_records(p["ils.pfa"])
+    got = ils["ilsRecon"]
     total32 = np.zeros((n_pos, 4), np.float32)
     total64 = np.zeros((n_pos, 4), np.float64)
     for k, rec in enumerate(se["recons"]):
@@ -8604,9 +8651,9 @@ def sim_evol_checks(se: dict) -> dict:
         total64 = total64 + rec.astype(np.float64) * w[:, None]
     want32 = total32.astype("<f2").astype(np.float32)
     want64 = total64.astype(np.float32).astype("<f2").astype(np.float32)
-    _, got10 = read_pfa(p["ils10.pfa"])
+    got10 = next(iter(pfa_records(p["ils10.pfa"]).values()))
     out["ils_reconstruct_seq"] = {
-        "header": head == ["pFasta_format_1.0", f"ilsRecon\t{n_pos}"],
+        "header": list(ils) == ["ilsRecon"] and len(got) == n_pos,
         "rows": len(got),
         "float32_sum_mismatches": int((got != want32).sum()),
         "float64_sum_mismatches": int((want64 != want32).sum()),
@@ -9269,6 +9316,517 @@ def onto_straw_ok(x: dict) -> bool:
     return bool(obo_ok and space_ok and enrich_ok and straw_ok)
 
 
+def gg_text(path: str) -> tuple:
+    """{node id: sequence} and the (from, to) edges of a .gg file, read as
+    plain text."""
+    seqs, edges, cur = {}, [], None
+    with open(path) as fh:
+        for ln in fh:
+            ln = ln.rstrip("\n")
+            if not ln:
+                continue
+            if ln.startswith(">"):
+                cur = int(ln[1:])
+                seqs[cur] = []
+            elif "\t" in ln:
+                w = ln.split("\t")
+                edges += [(int(w[0]), int(w[i + 1]))
+                          for i in range(1, len(w) - 1, 2)]
+            else:
+                seqs[cur].append(ln)
+    return {k: "".join(v) for k, v in seqs.items()}, edges
+
+
+def rebuilt_read(runs: list, read: str, seqs: list, t0: int) -> str | None:
+    """The read that gonomics' binary giraf format gives back from the
+    path's node sequences seqs, its start t0 and the cigar runs. Its
+    writer (getFancySeq) keeps the read's bases under S, X and I runs,
+    its index into the read moving by every run's length, D's too; its
+    reader (addFullSeq) takes = bases from the nodes, moving to the next
+    node's first base past a node's end, and the kept bases in order
+    for S, X and I, X and D stepping over reference bases without
+    changing node. None where the path runs out."""
+    kept, at = [], 0
+    for n, op in runs:
+        if op in "SXI":
+            kept.append(read[at:at + n])
+        at += n
+    out, at, node = [], t0, 0
+    for n, op in runs:
+        if op == "=":
+            for _ in range(n):
+                if at > len(seqs[node]) - 1:
+                    at, node = 0, node + 1
+                    if node == len(seqs):
+                        return None
+                out.append(seqs[node][at])
+                at += 1
+        elif op in "SXI":
+            out.append(kept.pop(0))
+        at += n if op in "XD" else 0
+    return "".join(out)
+
+
+def resolve_match_ops(line: str, nodes: dict) -> str | None:
+    """A mapped giraf line with each M run split into = and X runs
+    against the graph's bases along its path (the binary giraf format
+    keeps =, X, I, D and S, and its reader refuses M); None where the
+    format cannot carry it: a path end is negative (it stores them as
+    uint32) or the read that its reader would rebuild is not the read
+    (rebuilt_read)."""
+    w = line.split("\t")
+    t0, path, t1 = w[5].split(":")
+    if min(int(t0), int(t1)) < 0:
+        return None
+    seqs = [nodes[int(n)] for n in path.split(">")]
+    ref = "".join(seqs)[int(t0):]
+    runs, q, t = [], 0, 0
+    for n, op in re.findall(r"(\d+)([MIDNSHP=X])", w[6]):
+        n = int(n)
+        if op in "M=X":
+            ops = ["=" if a == b else "X"
+                   for a, b in zip(w[9][q:q + n], ref[t:t + n])]
+            q, t = q + n, t + n
+        else:
+            ops = [op] * n
+            q += n if op in "IS" else 0
+            t += n if op == "D" else 0
+        for o in ops:
+            if runs and runs[-1][1] == o:
+                runs[-1][0] += 1
+            else:
+                runs.append([1, o])
+    if rebuilt_read(runs, w[9], seqs, int(t0)) != w[9]:
+        return None
+    w[6] = "".join(f"{n}{o}" for n, o in runs)
+    return "\t".join(w)
+
+
+def one_hot(text: str) -> np.ndarray:
+    """faToPfa's rows of a sequence by numpy: one-hot on A, C, G and T
+    in either case, 0.25 on N, zero on a gap."""
+    a = np.frombuffer(text.upper().encode(), np.uint8)
+    out = np.zeros((len(a), 4), np.float32)
+    for i, c in enumerate(b"ACGT"):
+        out[a == c, i] = 1
+    out[a == ord("N")] = 0.25
+    return out
+
+
+def go_log2_np(x: np.ndarray) -> np.ndarray:
+    """Go's math.Log2 of positive finite float64s by numpy: frexp, exact
+    powers of two, else FDLIBM's Log of the fraction over Ln2 plus the
+    exponent, each step in Go's order."""
+    l1, l2, l3, l4, l5, l6, l7 = GO_LOG_L
+    frac, exp = np.frexp(x)
+    f1, ki = np.frexp(frac)
+    small = f1 < math.sqrt(2) / 2
+    f1 = np.where(small, f1 * 2, f1)
+    k = np.where(small, ki - 1, ki).astype(np.float64)
+    f = f1 - 1
+    s = f / (2 + f)
+    s2 = s * s
+    s4 = s2 * s2
+    t1 = s2 * (l1 + s4 * (l3 + s4 * (l5 + s4 * l7)))
+    t2 = s4 * (l2 + s4 * (l4 + s4 * l6))
+    r = t1 + t2
+    hfsq = 0.5 * f * f
+    log = k * GO_LN2_HI - ((hfsq - (s * (hfsq + r) + k * GO_LN2_LO)) - f)
+    return np.where(frac == 0.5, exp - 1.0,
+                    log * 1.4426950408889634 + exp.astype(np.float64))
+
+
+def entropy_np(rows: np.ndarray) -> np.ndarray:
+    """Shannon entropy in bits of each row, through go_log2_np, summed
+    over A, C, G and T in that order, zero entries skipped."""
+    out = np.zeros(len(rows))
+    for c in range(4):
+        p = rows[:, c].astype(np.float64)
+        term = -p * go_log2_np(np.where(p > 0, p, 1.0))
+        out = out + np.where(p > 0, term, 0.0)
+    return out
+
+
+def giraf_pfa_inputs(tmp: str, giraf: str, gg: str, t_fa: str, vcf: str,
+                     aln: str, *, chunk: int = GP_CHUNK,
+                     soft_cols: int = GP_SOFT_COLS) -> dict:
+    """The inputs of slice 14a's steps, under tmp, from GP_SEED: of the
+    aligner's giraf on the graph gg, gp_mapped.giraf (its records with a
+    path: girafSort keys each by its first node) and gp_match.giraf
+    (those that the binary format can carry, with M runs resolved to =
+    and X, resolve_match_ops, after a share GP_X_SHARE had a seeded base
+    changed, so that X runs and the 3-bit packed bases are there); of the
+    target t_fa, gp_t1.fa (its first chrom alone, as vcfToPfa wants) and
+    gp_regions.bed (GP_REGIONS seeded beds on that chrom); gp_g.vcf (the
+    VCF's biallelic substitutions on that chrom with GP_SAMPLES seeded
+    genotypes each); gp_soft.pfa of the first ``soft_cols`` columns of
+    the multiFa alignment aln: the reference (the target row, a gap
+    every GP_REF_GAP_EVERY columns), ``first`` (the target row) and
+    ``second`` (the query row, N every GP_N_EVERY columns), the bases
+    of both a share GP_SOFT blurred towards a Dirichlet draw by up to
+    GP_BLUR. Returns the paths and what the checks need."""
+    rng = np.random.default_rng(GP_SEED)
+    p = {k: os.path.join(tmp, "gp_" + k) for k in (
+        "mapped.giraf", "match.giraf", "t1.fa", "g.vcf", "soft.pfa",
+        "regions.bed")}
+    with open(giraf) as fh:
+        lines = fh.read().splitlines()
+    mapped = [ln for ln in lines if ln.split("\t")[5].split(":")[1]]
+    nodes, edges = gg_text(gg)
+    matched, uncarried = [], []
+    for ln in mapped:
+        w = ln.split("\t")
+        k = int(rng.integers(len(w[9])))
+        if rng.random() < GP_X_SHARE and w[9][k] in "ACGT":
+            w[9] = (w[9][:k] + "ACGT"[("ACGT".index(w[9][k]) + 1) % 4]
+                    + w[9][k + 1:])
+        m = resolve_match_ops("\t".join(w), nodes)
+        if m is not None:
+            matched.append(m)
+        else:
+            uncarried.append(ln)
+    for key, rows in (("mapped.giraf", mapped), ("match.giraf", matched)):
+        with open(p[key], "w") as fh:
+            fh.writelines(ln + "\n" for ln in rows)
+
+    chrom, target = next(iter(fasta_text(t_fa).items()))
+    with open(p["t1.fa"], "w") as fh:
+        fh.write(f">{chrom}\n")
+        fh.writelines(target[i:i + 60] + "\n"
+                      for i in range(0, len(target), 60))
+    starts = rng.integers(0, len(target) - 1000, GP_REGIONS)
+    beds = [(int(s), int(s + n)) for s, n in
+            zip(starts, rng.integers(1, 1000, GP_REGIONS))]
+    with open(p["regions.bed"], "w") as fh:
+        fh.writelines(f"{chrom}\t{s}\t{e}\n" for s, e in beds)
+
+    head, sites = [], []
+    with open(vcf) as fh:
+        for ln in fh:
+            w = ln.rstrip("\n").split("\t")
+            if ln.startswith("##"):
+                head.append(ln)
+            elif (not ln.startswith("#") and w[0] == chrom
+                  and len(w[3]) == 1 and len(w[4]) == 1):
+                sites.append(w[:8])
+    sites.sort(key=lambda w: int(w[1]))
+    gts = rng.choice(["0/0", "0/1", "1/0", "1/1", "0|1", "1|1"],
+                     (len(sites), GP_SAMPLES))
+    with open(p["g.vcf"], "w") as fh:
+        fh.writelines(head)
+        fh.write("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                 + "\t".join(f"s{i}" for i in range(GP_SAMPLES)) + "\n")
+        fh.writelines("\t".join(w + ["GT"] + list(g)) + "\n"
+                      for w, g in zip(sites, gts))
+
+    t_row, q_row = list(fasta_text(aln).values())[:2]
+    cols = min(soft_cols, len(t_row))
+
+    def blur(rows):
+        sel = (rows.max(axis=1) == 1) & (rng.random(len(rows)) < GP_SOFT)
+        e = rng.uniform(0, GP_BLUR, (int(sel.sum()), 1))
+        mix = rng.dirichlet(np.ones(4), int(sel.sum()))
+        rows[sel] = ((1 - e) * rows[sel] + e * mix).astype(np.float32)
+        return rows
+
+    ref = one_hot(t_row[:cols])
+    ref[GP_REF_GAP_EVERY - 1::GP_REF_GAP_EVERY] = 0
+    second = one_hot(q_row[:cols])
+    second[GP_N_EVERY - 1::GP_N_EVERY] = 0.25
+    soft = {chrom: ref, "first": blur(one_hot(t_row[:cols])),
+            "second": blur(second)}
+    write_pfa(p["soft.pfa"], soft)
+    soft = {k: v.astype("<f2").astype(np.float32) for k, v in soft.items()}
+    return {"paths": p, "gg": gg, "t_fa": t_fa, "chrom": chrom,
+            "target": target, "beds": beds, "sites": sites, "gts": gts,
+            "soft": soft, "nodes": nodes, "edges": edges,
+            "all_records": len(lines), "mapped": mapped, "matched": matched,
+            "uncarried": uncarried, "chunk": chunk}
+
+
+def giraf_pfa_steps(step, gp: dict) -> dict:
+    """The steps of slice 14a in phase_tools_cli, on giraf_pfa_inputs:
+    sortGraph of the graph; girafSort of gp_mapped.giraf in chunks of
+    gp["chunk"] records; girafCompress of a copy of gp_match.giraf, then
+    -decompress of its .fe against the graph; pFaTools faToPfa of the
+    target's first chrom, vcfToPfa of gp_g.vcf over gp_t1.fa, extract
+    and visualize (blocks and -tsvOut) of GP_VIS's columns of the soft
+    second query, extractBed of the regions, entropyTrack and sample of
+    the soft .pfa; pfaFindFast of first against second, short and long.
+    Returns gp with the output paths."""
+    p = gp["paths"]
+    tmp = os.path.dirname(p["soft.pfa"])
+    p.update({k: os.path.join(tmp, "gp_" + k) for k in (
+        "sorted.gg", "sorted.giraf", "rt.giraf", "t.pfa", "v.pfa", "ex.pfa",
+        "exbed.pfa", "ent.wig", "samples", "vis.txt", "vis.tsv", "ff.bed",
+        "ff_long.bed")})
+    chrom, (lo, hi, width) = gp["chrom"], GP_VIS
+    step("sortGraph", "sortGraph", gp["gg"], p["sorted.gg"])
+    step("girafSort", "girafSort", p["mapped.giraf"], gp["gg"],
+         p["sorted.giraf"], "-chunkSize", str(gp["chunk"]))
+    with open(p["match.giraf"]) as src, open(p["rt.giraf"], "w") as dst:
+        dst.write(src.read())
+    step("girafCompress", "girafCompress", p["rt.giraf"])
+    step("girafCompress_decompress", "girafCompress", p["rt.giraf"] + ".fe",
+         "-decompress", "-ref", gp["gg"])
+    step("pFaTools_faToPfa", "pFaTools", "faToPfa", gp["t_fa"], p["t.pfa"],
+         "-chrom", chrom)
+    step("pFaTools_vcfToPfa", "pFaTools", "vcfToPfa", p["g.vcf"], p["t1.fa"],
+         p["v.pfa"], "-end", str(len(gp["target"])))
+    step("pFaTools_extract", "pFaTools", "extract", p["soft.pfa"], "second",
+         str(lo), str(hi), p["ex.pfa"], "-outName", "ex")
+    step("pFaTools_extractBed", "pFaTools", "extractBed", p["t.pfa"],
+         p["regions.bed"], p["exbed.pfa"], "-takeCoords")
+    step("pFaTools_entropyTrack", "pFaTools", "entropyTrack", p["soft.pfa"],
+         p["ent.wig"])
+    os.mkdir(p["samples"])
+    step("pFaTools_sample", "pFaTools", "sample", p["soft.pfa"], "second",
+         p["samples"], "-numSamples", str(GP_DRAWS), "-setseed",
+         str(GP_SEED))
+    step("pFaTools_visualize", "pFaTools", "visualize", p["soft.pfa"],
+         str(lo), str(hi), p["vis.txt"], "-chrom", "second", "-lineLength",
+         str(width))
+    step("pFaTools_visualize_tsv", "pFaTools", "visualize", p["soft.pfa"],
+         str(lo), str(hi), p["vis.tsv"], "-chrom", "second", "-sigFigs", "4",
+         "-tsvOut")
+    ff = [p["soft.pfa"], "-firstQueryName", "first", "-secondQueryName",
+          "second", "-windowSize", str(GP_WINDOW), "-chrom", chrom]
+    step("pfaFindFast", "pfaFindFast", ff[0], p["ff.bed"], *ff[1:])
+    step("pfaFindFast_long", "pfaFindFast", ff[0], p["ff_long.bed"], *ff[1:],
+         "-longOutput", "-divergenceRate", str(GP_RATE), "-outputAlnPos")
+    return gp
+
+
+def printed_within(text: str, value: float) -> bool:
+    """A %.Nf or %.Ne print of value off it by at most half a unit of its
+    last digit."""
+    mant, _, ex = text.partition("e")
+    places = len(mant.partition(".")[2])
+    unit = 10.0 ** ((int(ex) if ex else 0) - places)
+    return abs(float(text) - value) <= 0.5 * unit * (1 + 1e-9)
+
+
+def giraf_pfa_checks(gp: dict) -> dict:
+    """What the gates of slice 14a's steps read from their files, with
+    numpy and text alone, importing none of these tools' modules."""
+    p, nodes, edges = gp["paths"], gp["nodes"], gp["edges"]
+    out = {}
+    with open(p["sorted.giraf"] + ".idx") as fh:
+        idx = [int(x) for x in fh.read().split()]
+    rank = {n: i for i, n in enumerate(idx)}
+    idx_ok = (sorted(idx) == sorted(nodes)
+              and all(rank[u] < rank[v] for u, v in edges))
+    s_nodes, s_edges = gg_text(p["sorted.gg"])
+    out["sort_graph"] = {
+        "nodes": len(s_nodes), "edges": len(s_edges),
+        "edges_forward": all(u < v for u, v in s_edges),
+        "equal_reordered": idx_ok and len(s_nodes) == len(nodes)
+        and all(s_nodes[i] == nodes[n] for i, n in enumerate(idx))
+        and sorted(s_edges) == sorted((rank[u], rank[v]) for u, v in edges)}
+
+    def key(ln):
+        w = ln.split("\t")
+        t0, path, _ = w[5].split(":")
+        r = [rank[int(n)] for n in path.split(">")]
+        return r[0], int(t0), tuple(r[1:])
+
+    with open(p["sorted.giraf"]) as fh:
+        got = fh.read().splitlines()
+    keys = [key(ln) for ln in got]
+    out["giraf_sort"] = {
+        "records": len(got), "unmapped_left_out":
+        gp["all_records"] - len(gp["mapped"]),
+        "chunks": -(-len(gp["mapped"]) // gp["chunk"]),
+        "same_lines": sorted(got) == sorted(gp["mapped"]),
+        "keys_nondecreasing": all(a <= b for a, b in zip(keys, keys[1:])),
+        "idx_topological": idx_ok}
+
+    with open(p["rt.giraf"]) as fh:
+        back = fh.read().splitlines()
+    want = []
+    for ln in gp["matched"]:
+        w = ln.split("\t")
+        w[4] = "+" if int(w[3]) & 8 else "-"
+        want.append("\t".join(w))
+    out["giraf_compress"] = {
+        "records": len(back), "uncarried_left_out": len(gp["uncarried"]),
+        "first_uncarried": "\t".join(
+            gp["uncarried"][0].split("\t")[i] for i in (0, 5, 6))
+        if gp["uncarried"] else None,
+        "equal_but_strand": back == want,
+        "strands_turned": sum(a.split("\t")[4] != b.split("\t")[4]
+                              for a, b in zip(gp["matched"], back)),
+        "x_runs": sum(ln.split("\t")[6].count("X") for ln in gp["matched"]),
+        "fe_bytes": os.path.getsize(p["rt.giraf"] + ".fe"),
+        "giraf_bytes": os.path.getsize(p["match.giraf"])}
+
+    chrom, target, soft = gp["chrom"], gp["target"], gp["soft"]
+    hot = one_hot(target)
+    t_pfa = pfa_records(p["t.pfa"])
+    out["fa_to_pfa_one_hot"] = (list(t_pfa) == [chrom]
+                                and np.array_equal(t_pfa[chrom], hot))
+    want, total = hot.copy(), np.float32(2 * gp["gts"].shape[1])
+    for w, g in zip(gp["sites"], gp["gts"]):
+        if int(w[1]) >= len(target):
+            continue
+        alleles = "/".join(g).replace("|", "/").split("/")
+        row = np.zeros(4, np.float32)
+        for a, base in ((0, w[3]), (1, w[4])):
+            row["ACGT".index(base)] = (np.float32(alleles.count(str(a)))
+                                       / total)
+        want[int(w[1]) - 1] = row
+    v_pfa = pfa_records(p["v.pfa"])
+    out["vcf_to_pfa"] = {
+        "sites": len(gp["sites"]),
+        "equal_numpy": list(v_pfa) == [chrom] and np.array_equal(
+            v_pfa[chrom], want.astype("<f2").astype(np.float32))}
+    lo, hi, width = GP_VIS
+    ex, exbed = pfa_records(p["ex.pfa"]), pfa_records(p["exbed.pfa"])
+    out["extract_equal"] = (list(ex) == ["ex"] and np.array_equal(
+        ex["ex"], soft["second"][lo:hi]))
+    out["extract_bed_equal"] = (
+        list(exbed) == [f"{chrom}:{s}-{e}" for s, e in gp["beds"]]
+        and all(np.array_equal(v, hot[s:e])
+                for v, (s, e) in zip(exbed.values(), gp["beds"])))
+
+    wig, name = {}, None
+    with open(p["ent.wig"]) as fh:
+        for ln in fh:
+            if ln.startswith("fixedStep"):
+                name = ln.split()[1].partition("=")[2]
+                wig[name] = [ln.split()[2:]]
+            else:
+                wig[name].append(float(ln))
+    out["entropy"] = {
+        "records": len(wig),
+        "headers_equal": all(wig[k][0] == ["start=1", "step=1", "span=0"]
+                             for k in wig),
+        "equal_numpy": sorted(wig) == sorted(soft) and all(
+            np.array_equal(np.asarray(wig[k][1:]), entropy_np(soft[k]))
+            for k in soft)}
+
+    rng, sec = np.random.default_rng(GP_SEED), soft["second"]
+    cdf_a, cdf_c = sec[:, 0], sec[:, 0] + sec[:, 1]
+    cdf_g = cdf_c + sec[:, 2]
+    draws_equal = True
+    for i in range(GP_DRAWS):
+        r = rng.random(len(sec), np.float32)
+        bases = np.where(r < cdf_a, "A", np.where(
+            r < cdf_c, "C", np.where(r < cdf_g, "G", "T")))
+        draws_equal &= (fasta_text(os.path.join(p["samples"],
+                                                f"sample_{i}.fa"))
+                        == {"second": "".join(bases)})
+    out["sample_equal_numpy"] = bool(draws_equal)
+
+    with open(p["vis.txt"]) as fh:
+        vis = fh.read().splitlines()
+    seen, vis_ok = [], vis[0] == f"Start: {lo}. End: {hi}. Decimal Places: 5."
+    for i in (i for i, ln in enumerate(vis) if ln.startswith("Position: ")):
+        at = int(vis[i].split()[1])
+        rows = [vis[i + 1 + c].split("\t") for c in range(4)]
+        vis_ok &= all(r[2] == "ACGT"[c] for c, r in enumerate(rows))
+        n = len(rows[0]) - 4
+        seen += range(at, at + n)
+        vis_ok &= all(printed_within(t, float(sec[at + j, c]))
+                      for c, r in enumerate(rows)
+                      for j, t in enumerate(r[4:]))
+    with open(p["vis.tsv"]) as fh:
+        tsv = [ln.split("\t") for ln in fh.read().splitlines()]
+    tsv_ok = tsv[0] == ["Position", "Base", "Probability"] and [
+        (int(w[0]), w[1]) for w in tsv[1:]] == [
+        (i, b) for i in range(lo, hi) for b in "ACGT"]
+    tsv_ok &= all(printed_within(w[2], float(sec[int(w[0]),
+                                                 "ACGT".index(w[1])]))
+                  for w in tsv[1:])
+    out["visualize"] = {"blocks_equal": bool(vis_ok)
+                        and seen == list(range(lo, hi)),
+                        "tsv_equal": bool(tsv_ok), "rows": len(tsv) - 1}
+
+    ref, fq, W = soft[chrom], soft["first"], GP_WINDOW
+
+    def gap(r):
+        return (r == 0).all(axis=1)
+
+    def is_n(r):
+        return (r[:, 0] != 0) & (r == r[:, :1]).all(axis=1)
+
+    def sums(x):
+        c = np.concatenate(([0], np.cumsum(x)))
+        return c[W:] - c[:-W]
+
+    pos = np.flatnonzero(~gap(fq))
+    first, last = pos[:len(pos) - W + 1], pos[W - 1:]
+    keep = ~(gap(ref)[first] | gap(ref)[last])
+    c_ref = np.concatenate(([0], np.cumsum(~gap(ref))))
+    dot = (fq[:, 0] * sec[:, 0] + fq[:, 1] * sec[:, 1]
+           + fq[:, 2] * sec[:, 2] + fq[:, 3] * sec[:, 3]).astype(np.float64)
+    subst = sums((~gap(sec) & (1.0 - dot >= 0.8))[pos])
+    confident = sums((sec.max(axis=1) >= np.float32(0.8))[pos])
+    dirty = np.concatenate(([0], np.cumsum(
+        gap(fq) | gap(sec) | is_n(fq) | is_n(sec))))
+    clean = dirty[last + 1] == dirty[first]
+    aln_pos = np.concatenate(([0], pos[:-1] + 1))[:len(first)]
+    short, long_ = bed_rows(p["ff.bed"]), bed_rows(p["ff_long.bed"])
+    k = np.flatnonzero(keep)
+    lines_ok = len(short) == len(long_) == len(k) and all(
+        w[:5] == v[:5] and w[0] == chrom and w[3] == f"{chrom}_{w[1]}"
+        for w, v in zip(short, long_))
+    cols = np.array([[int(x) for x in (w[1], w[2], w[4], w[8], w[9], w[10],
+                                       w[11], w[12])] for w in long_],
+                    np.int64).reshape(-1, 8)
+    s_, e_, muts, sub, gaps, span, conf, apos = cols.T
+    c = clean[k]
+    pval = np.array([float(w[7]) for w in long_])
+    j = np.arange(W + 1)
+    log_pmf = (np.array([math.lgamma(W + 1) - math.lgamma(x + 1)
+                         - math.lgamma(W - x + 1) for x in j])
+               + j * math.log(GP_RATE) + (W - j) * math.log1p(-GP_RATE))
+    upper = np.logaddexp.accumulate(log_pmf[::-1])[::-1]  # ln P(X >= k)
+    tail = np.where(muts > 0, -upper[muts] / math.log(10), 0.0)
+    out["pfa_find_fast"] = {
+        "windows": len(short), "clean_windows": int(c.sum()),
+        "clean_with_muts": int((c & (muts > 0)).sum()),
+        "lines_equal": bool(lines_ok)
+        and np.array_equal(s_, c_ref[first[k]])
+        and np.array_equal(e_, c_ref[last[k] + 1])
+        and np.array_equal(span, e_ - s_) and np.array_equal(apos, aln_pos[k]),
+        "muts_sum": np.array_equal(muts, sub + gaps),
+        "clean_equal_numpy": np.array_equal(sub[c], subst[k][c])
+        and not gaps[c].any() and np.array_equal(muts[c], subst[k][c]),
+        "confident_equal_numpy": np.array_equal(conf, confident[k]),
+        "pct_equal": all(printed_within(w[6], 100 * (int(w[4]) / W))
+                         for w in long_),
+        "pval_off": float(np.max(np.abs(pval - tail)
+                                 / np.maximum(np.abs(tail), 1e-300),
+                                 initial=0.0))}
+    return out
+
+
+def giraf_pfa_ok(x: dict) -> bool:
+    """Every gate of giraf_pfa_checks met, girafSort's merge over at
+    least GP_MIN_CHUNKS chunks."""
+    sg, gs, gc, ff = (x["sort_graph"], x["giraf_sort"], x["giraf_compress"],
+                      x["pfa_find_fast"])
+    giraf_ok = (sg["edges_forward"] and sg["equal_reordered"]
+                and sg["edges"] > 0 and gs["same_lines"]
+                and gs["keys_nondecreasing"] and gs["idx_topological"]
+                and gs["chunks"] >= GP_MIN_CHUNKS and gc["equal_but_strand"]
+                and gc["records"] > 0 and gc["strands_turned"] > 0
+                and gc["x_runs"] > 0 and gc["fe_bytes"] < gc["giraf_bytes"])
+    pfa_ok = (x["fa_to_pfa_one_hot"] and x["vcf_to_pfa"]["equal_numpy"]
+              and x["vcf_to_pfa"]["sites"] > 0 and x["extract_equal"]
+              and x["extract_bed_equal"] and x["entropy"]["equal_numpy"]
+              and x["entropy"]["headers_equal"] and x["sample_equal_numpy"]
+              and x["visualize"]["blocks_equal"]
+              and x["visualize"]["tsv_equal"])
+    find_ok = (ff["windows"] > 0 and ff["clean_windows"] > 0
+               and ff["clean_with_muts"] > 0 and ff["lines_equal"]
+               and ff["muts_sum"] and ff["clean_equal_numpy"]
+               and ff["confident_equal_numpy"] and ff["pct_equal"]
+               and ff["pval_off"] <= GP_PVAL_RTOL)
+    return bool(giraf_ok and pfa_ok and find_ok)
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -9559,7 +10117,29 @@ def phase_tools_cli(dev: torch.device) -> dict:
     proportions each upper-cased name's share (summing to 1 within
     1e-6), term proportions their genes' sums, enrichments scipy's
     ``binom.logsf(k - 1, n, p)`` or ``log_ndtr(-z)`` within the print
-    precision, k counted from the query midpoints."""
+    precision, k counted from the query midpoints. (20) Slice 14a
+    (``giraf_pfa_inputs`` over the card's g.giraf and v.gg, the target,
+    c.vcf and chr1's multiFa alignment, ``giraf_pfa_steps``,
+    ``giraf_pfa_checks`` with numpy and text alone,
+    ``giraf_pfa_ok``; ``giraf_pfa_tools`` in the phase line):
+    ``sortGraph`` of v.gg, gated on every edge pointing forward and the
+    nodes and edges v.gg's in girafSort's .idx order; ``girafSort
+    -chunkSize GP_CHUNK`` of the mapped records (4 or more chunks),
+    gated on the same multiset of lines in nondecreasing (first rank,
+    start, ranks) order by the .idx, itself a topological order of
+    v.gg; ``girafCompress`` of the records the binary format can carry
+    (M resolved to = and X), then ``-decompress -ref v.gg``, gated on
+    the text equal to the input but for the strand column, which
+    follows flag bit 8, and the .fe smaller; ``pFaTools faToPfa``,
+    one-hot rows; ``vcfToPfa`` of seeded genotypes at c.vcf's chr1
+    substitutions, their shares at the sites; ``extract`` and
+    ``extractBed``, the rows; ``entropyTrack`` of the soft .pfa, equal
+    to a numpy entropy through a numpy copy of Go's Log2; ``sample``,
+    numpy's CDF inversion under the same PCG64 seed; ``visualize`` in
+    blocks and ``-tsvOut``, the probabilities at the printed precision;
+    ``pfaFindFast`` short and long, windows and coordinates numpy's,
+    substitutions in gap- and N-free windows and confident bases a
+    numpy sliding-window sum, p values numpy's binomial tails."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -9795,6 +10375,8 @@ def phase_tools_cli(dev: torch.device) -> dict:
         se = sim_evol_steps(step, tmp)
         ost = onto_straw_steps(step, onto_straw_inputs(
             tmp, ga["genes"], ga["sizes"], ga["paths"]["genes.gtf"]))
+        gp = giraf_pfa_steps(step, giraf_pfa_inputs(
+            tmp, f["g.giraf"], f["v.gg"], t_fa, f["c.vcf"], aln[0]))
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -9846,6 +10428,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["sim_tree_tools"] = sim_tree_checks(stt)
         out["sim_evol_tools"] = sim_evol_checks(se)
         out["onto_straw_tools"] = onto_straw_checks(ost)
+        out["giraf_pfa_tools"] = giraf_pfa_checks(gp)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -9948,6 +10531,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
             and sim_tree_ok(out["sim_tree_tools"])
             and sim_evol_ok(out["sim_evol_tools"])
             and onto_straw_ok(out["onto_straw_tools"])
+            and giraf_pfa_ok(out["giraf_pfa_tools"])
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

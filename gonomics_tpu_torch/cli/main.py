@@ -297,6 +297,19 @@ COMMANDS = {
     "strawToBedpe": ("gonomics_tpu_torch.cli.straw_to_bedpe",
                      "HiC straw contact maps to significant bedpe peaks "
                      "(host)"),
+    "sortGraph": ("gonomics_tpu_torch.cli.sort_graph",
+                  "Topologically sort genome-graph nodes (host)"),
+    "girafCompress": ("gonomics_tpu_torch.cli.giraf_compress",
+                      "GIRAF <-> binary GIRAF.FE conversion (host)"),
+    "girafSort": ("gonomics_tpu_torch.cli.giraf_sort",
+                  "External sort of giraf records by graph topology "
+                  "(host)"),
+    "pFaTools": ("gonomics_tpu_torch.cli.pfa_tools",
+                 "pFasta toolkit: entropy/extract/sample/visualize/convert "
+                 "(host)"),
+    "pfaFindFast": ("gonomics_tpu_torch.cli.pfa_find_fast",
+                    "Sliding-window probabilistic divergence over a pFa "
+                    "(host)"),
 }
 
 

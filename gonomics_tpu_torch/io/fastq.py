@@ -37,8 +37,9 @@ def qual_string(qual: np.ndarray) -> str:
     return (np.asarray(qual, np.uint8) + ASCII_OFFSET).tobytes().decode("latin-1")
 
 
-def _to_qual(s: str) -> np.ndarray:
-    return np.frombuffer(s.encode(), np.uint8) - ASCII_OFFSET
+def to_qual(s: str | bytes) -> np.ndarray:
+    raw = np.frombuffer(s.encode() if isinstance(s, str) else s, np.uint8)
+    return raw - ASCII_OFFSET
 
 
 def _next_fastq(f) -> Fastq | None:
@@ -51,7 +52,7 @@ def _next_fastq(f) -> Fastq | None:
         raise ValueError("malformed fastq: expected '+' line")
     qual = f.readline().rstrip("\n")
     return Fastq(name=name.rstrip("\n")[1:],
-                 seq=dna.from_string(seq), qual=_to_qual(qual))
+                 seq=dna.from_string(seq), qual=to_qual(qual))
 
 
 def read(filename: str) -> list[Fastq]:

@@ -1,5 +1,6 @@
-"""Giraf graph-alignment records and their text form: the subset of
-``gonomics_tpu/io/giraf.py`` (:19-62) that the graph aligner writes.
+"""Giraf graph-alignment records and their text form: a copy of
+``gonomics_tpu/io/giraf.py`` (113 lines, whole), gonomics' ``giraf``
+(giraf.go, convert.go).
 
 Text format: QName QStart QEnd Flag Strand Path Cigar AlnScore MapQ Seq
 Qual [Notes...], the path as TStart:node>node>...:TEnd.
@@ -11,9 +12,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import dna
+from .. import dna, fileio
 from . import cigar as samcigar
-from .fastq import qual_string
+from .fastq import qual_string, to_qual
 
 
 @dataclass
@@ -50,6 +51,7 @@ class Giraf:
 
 
 def _full_path_string(p: Path) -> str:
+    """giraf PathToString (convert.go:48): TStart:node>node>...:TEnd."""
     return f"{p.t_start}:{'>'.join(str(n) for n in p.nodes)}:{p.t_end}"
 
 
@@ -60,3 +62,52 @@ def to_string(g: Giraf) -> str:
     return (f"{g.qname}\t{g.q_start}\t{g.q_end}\t{g.flag}\t{strand}\t"
             f"{_full_path_string(g.path)}\t{cig}\t{g.aln_score}\t{g.mapq}\t"
             f"{dna.to_string(g.seq)}\t{qual_string(g.qual)}{notes}")
+
+
+def write(filename: str, records) -> None:
+    with fileio.easy_create(filename) as f:
+        for g in records:
+            f.write(to_string(g) + "\n")
+
+
+def _path_from_string(column: str) -> Path:
+    """giraf.FromStringToPath (convert.go:56)."""
+    words = column.split(":")
+    if len(words) != 3:
+        raise ValueError(f"Needs exact 3 values, only found {len(words)}")
+    nodes = [int(x) for x in words[1].split(">")] if words[1] else []
+    return Path(t_start=int(words[0]), nodes=nodes, t_end=int(words[2]))
+
+
+def _notes_from_string(s: str) -> list[Note]:
+    """giraf.FromStringToNotes (convert.go:110)."""
+    out = []
+    for v in s.split("\t"):
+        tag, typ, value = v.split(":", 2)
+        out.append(Note(tag=tag, type=typ, value=value))
+    return out
+
+
+def process_giraf_line(line: str) -> Giraf:
+    """giraf processGirafLine (convert.go:25): the notes tail stays one
+    logical column (SplitN with n=12 in Go)."""
+    data = line.split("\t", 11)
+    if len(data) <= 10:
+        raise ValueError(f"Expecting at least 11 columns, but only found "
+                         f"{len(data)} on {line}")
+    g = Giraf(qname=data[0], q_start=int(data[1]), q_end=int(data[2]),
+              flag=int(data[3]), pos_strand=data[4] == "+",
+              path=_path_from_string(data[5]),
+              cigar=samcigar.from_string(data[6]),
+              aln_score=int(data[7]), mapq=int(data[8]),
+              seq=dna.from_string(data[9]), qual=to_qual(data[10]))
+    if len(data) == 12:
+        g.notes = _notes_from_string(data[11])
+    return g
+
+
+def read(filename: str) -> list[Giraf]:
+    """giraf.Read: parse a text .giraf file."""
+    with fileio.easy_open(filename) as f:
+        return [process_giraf_line(ln) for ln in fileio.real_lines(f)
+                if ln.strip()]

@@ -9,12 +9,13 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 117 tools, imports none of them
+lists and dispatches exactly the port's 122 tools, imports none of them
 before dispatch, resolves a ``module:function`` target as the JAX
 umbrella does, runs the popgen tools, the interval and lift tools, the
 VCF, MAF and axt tools, the GTF and acceleration tools and the
 simulation and tree tools, the evolution, accuracy and ILS tools and
-the ontology tools with strawToBedpe to the JAX umbrella's bytes, lists its tools
+the ontology tools with strawToBedpe and the giraf and pFa tools to the
+JAX umbrella's bytes, lists its tools
 and runs every tool but drawNewickTree without PIL, and
 its ``gsw align`` wants the card; ``pyproject.toml`` installs it as
 ``gonomics-torch``; no new module imports JAX.
@@ -94,21 +95,23 @@ PORTED = ["alleleSplit", "assemblyStats", "assignGenomeSpace", "axTools",
           "faFormat", "faInfo", "faToPredictSet", "faUniq", "fastqFilter",
           "fastqFormat", "fastqReplaceSeq", "filterGenotypes",
           "findAndReplace", "gafFilter", "gcContent", "geneAssignmentStats",
-          "geneIdToName", "getPromoter", "globalAlignment", "gsw", "gtfTools",
-          "haplotypeGenerator", "ilsReconstructSeq", "intervalContacts",
-          "intervalOverlap", "intervalSubsetMatrix", "liftCoordinates",
-          "locateCG", "longReadLibStats", "mafFilter", "mafIndels", "mafToBed",
+          "geneIdToName", "getPromoter", "girafCompress", "girafSort",
+          "globalAlignment", "gsw", "gtfTools", "haplotypeGenerator",
+          "ilsReconstructSeq", "intervalContacts", "intervalOverlap",
+          "intervalSubsetMatrix", "liftCoordinates", "locateCG",
+          "longReadLibStats", "mafFilter", "mafIndels", "mafToBed",
           "mafToMultiFa", "mcmcTraceStats", "mergeMultiFa", "mergesort",
           "mouseRecon", "multiFaAcceleration", "multiFaCount",
           "multiFaExtract", "multiFaReduce", "multiFaScan",
           "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf", "oboToDot",
           "oboTools", "ontologyEnrichment", "ontologyHistogram",
-          "overlapEnrichments", "pileup", "plotFunctions", "prcompFormat",
-          "primateRecon", "proximityBlockVcf", "quickOrthologs", "randSeq",
-          "reconstructSeq", "samConsensus", "samInfo", "samToBed", "samToWig",
-          "sampleVcf", "scCount", "selectionMcmc", "selectionMle", "simRecon",
-          "simulateBed", "simulateDivergentWindowsVcf", "simulateEvol",
-          "simulatePcr", "simulateSam", "simulateVcf", "simulateWrightFisher",
+          "overlapEnrichments", "pFaTools", "pfaFindFast", "pileup",
+          "plotFunctions", "prcompFormat", "primateRecon", "proximityBlockVcf",
+          "quickOrthologs", "randSeq", "reconstructSeq", "samConsensus",
+          "samInfo", "samToBed", "samToWig", "sampleVcf", "scCount",
+          "selectionMcmc", "selectionMle", "simRecon", "simulateBed",
+          "simulateDivergentWindowsVcf", "simulateEvol", "simulatePcr",
+          "simulateSam", "simulateVcf", "simulateWrightFisher", "sortGraph",
           "statCalc", "strawToBedpe", "vcfAfs", "vcfAncestorAnnotation",
           "vcfFilter", "vcfFormat", "vcfInfo", "vcfToFa", "wigTools"]
 
@@ -267,17 +270,17 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 117 ported tools, each a key of
-    the JAX umbrella's COMMANDS; 21 of the JAX's are left."""
+    """help (and no argument) lists the 122 ported tools, each a key of
+    the JAX umbrella's COMMANDS; 16 of the JAX's are left."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
         lines = capsys.readouterr().out.splitlines()
         listed = [ln.split()[0] for ln in lines if ln.startswith("  ")]
         assert listed == PORTED
     assert sorted(umbrella.COMMANDS) == PORTED
-    assert len(PORTED) == 117
+    assert len(PORTED) == 122
     assert set(PORTED) <= set(jmain.COMMANDS)
-    assert len(set(jmain.COMMANDS) - set(PORTED)) == 21
+    assert len(set(jmain.COMMANDS) - set(PORTED)) == 16
     assert all("TPU" not in desc for _, desc in umbrella.COMMANDS.values())
 
 
@@ -607,7 +610,15 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.obo_to_dot,"
             " gonomics_tpu_torch.cli.ontology_histogram,"
             " gonomics_tpu_torch.cli.assign_genome_space,"
-            " gonomics_tpu_torch.cli.straw_to_bedpe\n"
+            " gonomics_tpu_torch.cli.straw_to_bedpe,"
+            " gonomics_tpu_torch.numbers.gomath, gonomics_tpu_torch.pdna,"
+            " gonomics_tpu_torch.browser, gonomics_tpu_torch.dna_threebit,"
+            " gonomics_tpu_torch.io.giraf, gonomics_tpu_torch.io.binary_giraf,"
+            " gonomics_tpu_torch.cli.pfa_tools,"
+            " gonomics_tpu_torch.cli.pfa_find_fast,"
+            " gonomics_tpu_torch.cli.sort_graph,"
+            " gonomics_tpu_torch.cli.giraf_compress,"
+            " gonomics_tpu_torch.cli.giraf_sort\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
