@@ -405,8 +405,23 @@ exits non-zero:
             alignment. Gates: edges forward; lines kept in .idx key
             order; the round trip but for the strand; rows, entropies
             (Go's Log2), PCG64 draws, printed values and window counts
-            against numpy. The four kernels launched. Wall
-            time of each step.
+            against numpy. Then slices 14b and 15a (sim_views_steps,
+            sim_views_checks): girafSimulate of 2,000 reads of 150 bp
+            on v.gg, aligned back on the card (K4, K5, gsw_walk_pack),
+            and again with 50 somatic SNVs; multFaVisualizer of a
+            window of chr1's alignment and to its END,
+            multFaVisualizeBeds of 4 SNP regions; faChunkAlign of a 1
+            kb pair at chunk size 1, of 5 records and of a word pair at
+            chunk size 10; faDrawAlnChunks; lastZWriter in its two
+            modes; formatIdeogram two ways; slurmCheck. Gates: reads
+            mapped, on their true path (named in the read); the
+            somatic bases one a location, fewer locations along the
+            forward path than strand-aware; the views against numpy;
+            faChunkAlign's pair and words equal to the routes of the
+            card's K2 trace mode, its records whole chunks; the PNG's
+            chunk colours by rank; the job lines, directories,
+            parameters and matrices; the ideogram points; slurmCheck's
+            report. The five kernels launched. Wall time of each step.
 
 Then the kernels line (launch counts of banded_align_fused from phase 3's
 main batches, of banded_dp and banded_walk_pack from its long reads, of
@@ -778,6 +793,32 @@ GP_DRAWS, GP_VIS, GP_WINDOW, GP_RATE = 2, (100, 1123, 50), 1000, 0.01
 GP_PVAL_RTOL = 1e-5  # pfaFindFast's printed p values against numpy's tails
 GP_X_SHARE = 0.5  # girafCompress's input records with a base changed
 GP_MIN_CHUNKS = 4  # girafSort's chunk files that its merge must take
+# slices 14b and 15a (sim_views_inputs): girafSimulate's reads, read
+# length, seed, somatic SNVs and allele frequency, and the share of its
+# reads that the card's graph aligner must put on their true path (this
+# script's run on the CPU before the card's fixed it); multFaVisualizer's
+# line length and its window, SV_VIS bases before and after the first gap
+# of the alignment's reference row, and the END view's last SV_END_TAIL
+# bases; SV_BEDS planted SNPs padded by SV_BED_PAD for
+# multFaVisualizeBeds; faChunkAlign's pair, SV_PAIR_BP bases around a
+# planted SNP with SV_PAIR_INDELS indels of 1-8 bases in the query; its
+# records and chunks of SV_CHUNK bases (whole-chunk indels, a share
+# SV_MSA_SUB of the chunks with a base changed); the word pair's flank
+# chunks; the fancy job-array file's lines
+SV_SEED, SV_READS, SV_READ_LEN, SV_SNV, SV_AF = 3600, 2000, 150, 50, 0.5
+SV_TRUE_SHARE = 0.994
+SV_LINE, SV_VIS, SV_END_TAIL, SV_BEDS, SV_BED_PAD = 60, (300, 700), 400, 4, 40
+SV_PAIR_BP, SV_PAIR_INDELS = 1000, 3
+SV_MSA, SV_CHUNK, SV_MSA_SUB = (5, 40), 10, 0.3
+SV_WORD_FLANK, SV_SLURM_LINES = 10, 6
+# lastZWriter's parameter sets and matrices by distance category
+# (gonomics lastZWriter.go:86-140); a number <= 0.2 is close, >= 0.7 far
+LZ_SETS = {
+    "close": ("human_chimp_v2.mat",
+              "O=600 E=150 H=2000 T=2 M=254 K=4500 L=3000 Y=15000"),
+    "default": ("default.mat",
+                "O=400 E=30 H=2000 T=1 M=254 K=3000 L=3000 Y=9400"),
+    "far": ("hoxD55.mat", "O=400 E=30 H=2000 T=1 M=50 K=2200 L=6000 Y=3400")}
 # Go's math.Log constants (FDLIBM e_log.c), for the entropy gate's numpy
 # Log2
 GO_LOG_L = (6.666666666666735130e-01, 3.999999999940941908e-01,
@@ -9827,6 +9868,577 @@ def giraf_pfa_ok(x: dict) -> bool:
     return bool(giraf_ok and pfa_ok and find_ok)
 
 
+def route_rows(a: str, b: str, route: list, unit: int = 1) -> tuple:
+    """The two rows that an alignment route of (run, op) pairs over units
+    of ``unit`` characters makes of a and b: op 0 (M) takes a unit of
+    each, 1 (I) a gap in a, 2 (D) a gap in b."""
+    ra, rb, i, j = [], [], 0, 0
+    for run, op in route:
+        for _ in range(run):
+            ra.append("-" * unit if op == 1 else a[i:i + unit])
+            rb.append("-" * unit if op == 2 else b[j:j + unit])
+            i += unit * (op != 1)
+            j += unit * (op != 2)
+    return "".join(ra), "".join(rb)
+
+
+def sim_views_inputs(tmp: str, gg: str, t_fa: str, q_fa: str, aln: str,
+                     snps: dict, *, reads: int = SV_READS,
+                     snv: int = SV_SNV, msa: tuple = SV_MSA) -> dict:
+    """The inputs of slices 14b and 15a's steps, under tmp/sv, from
+    SV_SEED, on the first chrom of t_fa (chrom) and the multiFa
+    alignment aln of chrom: multFaVisualizer's window around the first
+    gap of aln's reference row; vis.bed, SV_BEDS planted SNPs of chrom
+    (snps: {chrom: [(1-based pos, ref, alt)]}) padded by SV_BED_PAD;
+    ideo.bed, every planted SNP padded by 0-19 seeded bases a side, with
+    a name and a seeded score; pair.fa, SV_PAIR_BP bases of chrom around
+    a planted SNP (target) and the same with its alt and SV_PAIR_INDELS
+    indels of 1-8 bases (query); msa.fa, msa[0] records of msa[1] chunks
+    of SV_CHUNK bases of chrom, each with a share SV_MSA_SUB of its
+    chunks given a changed base, one or two whole-chunk deletions and,
+    half the time, a random chunk inserted; words.fa, two records of
+    SV_CHUNK-base words: word 2 three times in a and word 3 three times
+    in b, between flanks of words 0 and 1 (b's left flank one word
+    shorter, its right one longer), word 3 being word 2 with the fewest
+    changed bases that make the three word-2/word-3 columns score
+    between the cost of the two 3-chunk gaps with the extend penalty
+    scaled by the chunk size and without it; a pairwise/ directory of
+    three assemblies' .byChrom/ fasta files (hg t_fa's chroms, pt
+    q_fa's, mm chrom in two halves and q_fa's last chrom), a species
+    list, a ref list and an allDists file of one close, one far and one
+    numeric distance; a fancy job-array file of SV_SLURM_LINES lines.
+    Returns the paths and what the steps and checks need."""
+    from gonomics_tpu_torch import dna
+    from gonomics_tpu_torch.align.matrices import HUMAN_CHIMP_TWO
+
+    rng = np.random.default_rng(SV_SEED)
+    d = os.path.join(tmp, "sv")
+    os.mkdir(d)
+    p = {k: os.path.join(d, k) for k in (
+        "vis.bed", "ideo.bed", "pair.fa", "msa.fa", "words.fa", "slurm.txt",
+        "pairwise", "species.txt", "refs.txt", "dists.txt")}
+    targets, queries = fasta_text(t_fa), fasta_text(q_fa)
+    chrom, ref = next(iter(targets.items()))
+    ref_row = next(iter(fasta_text(aln).values()))
+    g = ref_row.find("-")  # the reference bases before its first gap
+    g = len(ref) // 2 if g < 0 else g
+    vis = (max(0, g - SV_VIS[0]), min(len(ref), g + SV_VIS[1]))
+
+    def rand_bases(n):
+        return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+    def changed(base):
+        return "ACGT"[("ACGT".index(base) + int(rng.integers(1, 4))) % 4]
+
+    on = [pos for pos, _, _ in snps[chrom]
+          if SV_BED_PAD < pos < len(ref) - SV_BED_PAD]
+    regions = [(on[i] - 1 - SV_BED_PAD, on[i] + SV_BED_PAD)
+               for i in sorted(rng.choice(len(on), SV_BEDS, replace=False))]
+    with open(p["vis.bed"], "w") as fh:
+        fh.writelines(f"{chrom}\t{s}\t{e}\tsnp{k}\n"
+                      for k, (s, e) in enumerate(regions))
+    ideo = []
+    for c, sites in snps.items():
+        for pos, _, _ in sites:
+            lo, hi = (int(x) for x in rng.integers(0, 20, 2))
+            ideo.append((c, pos - 1 - lo, pos + hi,
+                         int(rng.integers(1, 1000))))
+    with open(p["ideo.bed"], "w") as fh:
+        fh.writelines(f"{c}\t{s}\t{e}\tsnp_{c}_{s}\t{score}\n"
+                      for c, s, e, score in ideo)
+
+    half = SV_PAIR_BP // 2
+    cand = [(pos, alt) for pos, _, alt in snps[chrom]
+            if SV_PAIR_BP <= pos <= len(ref) - SV_PAIR_BP]
+    pos, alt = cand[int(rng.integers(len(cand)))]
+    pair_t = ref[pos - 1 - half:pos - 1 + half]
+    q = list(pair_t)
+    q[half] = alt
+    spots = np.r_[50:half - 50, half + 50:SV_PAIR_BP - 50]
+    for k, at in enumerate(sorted(rng.choice(spots, SV_PAIR_INDELS,
+                                             replace=False), reverse=True)):
+        n = int(rng.integers(1, 9))
+        if k % 2:
+            q[at:at] = list(rand_bases(n))
+        else:
+            del q[at:at + n]
+    pair_q = "".join(q)
+    with open(p["pair.fa"], "w") as fh:
+        fh.write(f">target\n{pair_t}\n>query\n{pair_q}\n")
+
+    C, (n_rec, n_chunks) = SV_CHUNK, msa
+    at = int(rng.integers(0, len(ref) - n_chunks * C))
+    base = [ref[at + i * C:at + (i + 1) * C] for i in range(n_chunks)]
+    records = {}
+    for r in range(n_rec):
+        ch = list(base)
+        for i, w in enumerate(ch):
+            if rng.random() < SV_MSA_SUB:
+                k = int(rng.integers(C))
+                ch[i] = w[:k] + changed(w[k]) + w[k + 1:]
+        for _ in range(int(rng.integers(1, 3))):
+            k = int(rng.integers(1, 3))
+            at = int(rng.integers(len(ch) - k))
+            del ch[at:at + k]
+        if rng.random() < 0.5:
+            at = int(rng.integers(len(ch) + 1))
+            ch[at:at] = [rand_bases(C)]
+        records[f"s{r}"] = "".join(ch)
+    with open(p["msa.fa"], "w") as fh:
+        fh.writelines(f">{k}\n{v}\n" for k, v in records.items())
+
+    hct = np.asarray(HUMAN_CHIMP_TWO, np.int64)
+
+    def chunk_score(x, y):
+        return int(hct[dna.from_string(x), dna.from_string(y)].sum())
+
+    words = [rand_bases(C) for _ in range(3)]
+    scaled, unscaled = 2 * (-300 - 3 * 40 * C), 2 * (-300 - 3 * 40)
+    for k in range(1, C + 1):
+        w3 = list(words[2])
+        for i in rng.choice(C, k, replace=False):
+            w3[i] = changed(w3[i])
+        if scaled < 3 * chunk_score(words[2], "".join(w3)) < unscaled:
+            break
+    else:
+        raise SystemExit("no word 3 between the two gap costs")
+    words.append("".join(w3))
+    left, right = rng.integers(0, 2, (2, SV_WORD_FLANK)).tolist()
+    b_left = list(left)
+    del b_left[int(rng.integers(SV_WORD_FLANK))]
+    b_right = list(right)
+    b_right.insert(int(rng.integers(SV_WORD_FLANK + 1)), int(rng.integers(2)))
+    letters = (left + [2, 2, 2] + right, b_left + [3, 3, 3] + b_right)
+    scores = np.full((5, 5), -1000, np.int32)
+    scores[:4, :4] = [[chunk_score(x, y) for y in words] for x in words]
+    word_seqs = ["".join(words[i] for i in x) for x in letters]
+    with open(p["words.fa"], "w") as fh:
+        fh.write(f">a\n{word_seqs[0]}\n>b\n{word_seqs[1]}\n")
+
+    pw = p["pairwise"]
+    asm = {"hg": list(targets.items()), "pt": list(queries.items()),
+           "mm": [("c1a", ref[:len(ref) // 2]), ("c1b", ref[len(ref) // 2:]),
+                  ("c2", list(queries.values())[-1])]}
+    for a, recs in asm.items():
+        os.makedirs(f"{pw}/{a}.byChrom")
+        for name, s in recs:
+            with open(f"{pw}/{a}.byChrom/{name}.fa", "w") as fh:
+                fh.write(f">{name}\n{s}\n")
+    species, refs = ["hg", "pt", "mm"], ["hg", "mm"]
+    for key, rows in (("species.txt", species), ("refs.txt", refs),
+                      ("dists.txt", ["hg\tpt\tclose", "mm\thg\tfar",
+                                     "pt\tmm\t0.45"])):
+        with open(p[key], "w") as fh:
+            fh.writelines(r + "\n" for r in rows)
+
+    with open(p["slurm.txt"], "w") as fh:
+        for i in range(SV_SLURM_LINES):
+            kind = ("exists", "exists+", "line", "line+")[rng.integers(4)]
+            fh.write(f"sbatch --mem={rng.integers(1, 65)}G job_{i}.sh "
+                     f"{{check {i} {kind} {d}/out_{i}.txt}} "
+                     f"--tail={rng.integers(100)}\n")
+    return {"paths": p, "gg": gg, "aln": aln, "chrom": chrom, "ref": ref,
+            "reads": reads, "snv": snv, "vis": vis,
+            "end_start": len(ref) - SV_END_TAIL, "regions": regions,
+            "ideo": ideo, "pair": (pair_t, pair_q), "msa": records,
+            "words": word_seqs, "letters": letters, "word_scores": scores,
+            "asm": {a: [n for n, _ in r] for a, r in asm.items()},
+            "species": species, "refs": refs,
+            "lz_pairs": {("hg", "pt"): "close", ("hg", "mm"): "far",
+                         ("mm", "hg"): "far", ("mm", "pt"): "default"}}
+
+
+def sim_views_steps(step, sv: dict, dev: torch.device, times: dict) -> dict:
+    """The steps of slices 14b and 15a in phase_tools_cli, on
+    sim_views_inputs: girafSimulate of the graph; its records as FASTQ
+    aligned back to the graph by ``gsw align`` on dev (K4, K5 and the
+    graph walk, counted); girafSimulate again with -somaticSNV;
+    multFaVisualizer of the window and an END view of the last
+    SV_END_TAIL bases, multFaVisualizeBeds of vis.bed and
+    multFaVisualizer of each of its regions; faChunkAlign of the pair at
+    chunk size 1 and of the records and the words at SV_CHUNK;
+    faDrawAlnChunks of the records' alignment; lastZWriter in the
+    default mode (-m false) and, on a copy of the pairwise tree made
+    before, in -simple mode; formatIdeogram with and without --noScore;
+    slurmCheck, its stdout kept. Then the routes of the card's
+    ``align.affine_gap`` (K2's trace mode, counted) for the pair (its
+    bases, HUMAN_CHIMP_TWO, -300, -40) and for the words (a letter a
+    word, their chunk scores, -300, -40 x SV_CHUNK). Returns sv with the
+    output paths, the routes, slurmCheck's stdout and the launches."""
+    import shutil
+
+    from gonomics_tpu_torch import align, dna
+    from gonomics_tpu_torch.ops import gsw_dp, wavefront
+
+    p = sv["paths"]
+    d = os.path.dirname(p["pair.fa"])
+    p.update({k: os.path.join(d, k) for k in (
+        "sim.giraf", "sim.fq", "sim_aln.giraf", "som.giraf", "vis.txt",
+        "vis_end.txt", "beds", "bed_vis", "pair_aln.fa", "msa_aln.fa",
+        "words_aln.fa", "msa.png", "mats", "pairwise_simple", "lz.txt",
+        "lz_simple.txt", "ideo.txt", "ideo_noscore.txt")})
+    sim = ["-numReads", str(sv["reads"]), "-readLen", str(SV_READ_LEN),
+           "-seed", str(SV_SEED)]
+    step("girafSimulate", "girafSimulate", sv["gg"], p["sim.giraf"], *sim)
+    with open(p["sim.giraf"]) as src, open(p["sim.fq"], "w") as dst:
+        for ln in src:
+            w = ln.rstrip("\n").split("\t")
+            dst.write(f"@{w[0]}\n{w[9]}\n+\n{w[10]}\n")
+    wavefront.local_launches = wavefront.gsw_right_launches = 0
+    gsw_dp.walk_launches = 0
+    step("gsw_align_simulated", "gsw", "align", sv["gg"], p["sim.fq"], "-o",
+         p["sim_aln.giraf"], "--device", dev.type)
+    launches = {"local_wavefront": wavefront.local_launches,
+                "gsw_right_wavefront": wavefront.gsw_right_launches,
+                "gsw_walk_pack": gsw_dp.walk_launches}
+    step("girafSimulate_somatic", "girafSimulate", sv["gg"], p["som.giraf"],
+         *sim, "-somaticSNV", str(sv["snv"]), "-somaticAF", str(SV_AF))
+
+    line = ["-lineLength", str(SV_LINE)]
+    step("multFaVisualizer", "multFaVisualizer", sv["aln"], p["vis.txt"],
+         *(str(x) for x in sv["vis"]), *line)
+    step("multFaVisualizer_end", "multFaVisualizer", sv["aln"],
+         p["vis_end.txt"], str(sv["end_start"]), "END", *line)
+    os.mkdir(p["beds"])
+    os.mkdir(p["bed_vis"])
+    step("multFaVisualizeBeds", "multFaVisualizeBeds", p["vis.bed"],
+         sv["aln"], *line, "-outDir", p["beds"] + "/")
+    for k, (s, e) in enumerate(sv["regions"]):
+        step(f"multFaVisualizer_bed{k}", "multFaVisualizer", sv["aln"],
+             os.path.join(p["bed_vis"], f"{sv['chrom']}_{s}_{e}.txt"),
+             str(s), str(e), *line)
+
+    step("faChunkAlign_pair", "faChunkAlign", p["pair.fa"], "1",
+         p["pair_aln.fa"])
+    step("faChunkAlign_msa", "faChunkAlign", p["msa.fa"], str(SV_CHUNK),
+         p["msa_aln.fa"])
+    step("faChunkAlign_words", "faChunkAlign", p["words.fa"], str(SV_CHUNK),
+         p["words_aln.fa"])
+    step("faDrawAlnChunks", "faDrawAlnChunks", p["msa_aln.fa"],
+         str(SV_CHUNK), p["msa.png"])
+
+    shutil.copytree(p["pairwise"], p["pairwise_simple"])
+    lists = [p["species.txt"], p["refs.txt"], p["dists.txt"]]
+    step("lastZWriter", "lastZWriter", "-m", "false", "-mPath", p["mats"],
+         "lastz", p["pairwise"], *lists, p["lz.txt"])
+    step("lastZWriter_simple", "lastZWriter", "-simple", "-parameters", "M=0",
+         "lastz", p["pairwise_simple"], *lists, p["lz_simple.txt"])
+    step("formatIdeogram", "formatIdeogram", p["ideo.bed"], p["ideo.txt"])
+    step("formatIdeogram_noScore", "formatIdeogram", "--noScore",
+         p["ideo.bed"], p["ideo_noscore.txt"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        step("slurmCheck", "slurmCheck", p["slurm.txt"])
+    sv["slurm_stdout"] = buf.getvalue()
+
+    wavefront.affine_launches = 0
+    t = time.perf_counter()
+    _, r_pair = align.affine_gap(*(dna.from_string(s) for s in sv["pair"]),
+                                 align.HUMAN_CHIMP_TWO, -300, -40, device=dev)
+    _, r_words = align.affine_gap(
+        *(np.asarray(x, np.int8) for x in sv["letters"]), sv["word_scores"],
+        -300, -40 * SV_CHUNK, device=dev)
+    times["k2_routes"] = time.perf_counter() - t
+    launches["affine_wavefront"] = wavefront.affine_launches
+    sv["routes"] = {k: [(c.run_length, c.op) for c in r]
+                    for k, r in (("pair", r_pair), ("words", r_words))}
+    sv["launches"] = launches
+    return sv
+
+
+def locate_in_path(lens: dict, nodes: list, t0: int, k: int) -> tuple:
+    """(node, position) of base k along a read's forward path: node ids
+    ``nodes`` of lengths ``lens``, from position t0 of the first."""
+    off = t0 + k
+    for n in nodes:
+        if off < lens[n]:
+            return n, off
+        off -= lens[n]
+    return nodes[-1], off + lens[nodes[-1]]
+
+
+def multi_fa_view(rows: list, start: int, end, line: int) -> tuple:
+    """What multFaVisualizer prints of the multiFa rows [(name, text)]
+    from reference base start to end (None: the alignment's end), by
+    numpy: the header, each block's Position and rows (a query's
+    character a dot where it equals the reference row's)."""
+    ref = np.frombuffer(rows[0][1].encode(), np.uint8)
+    cols = np.flatnonzero(ref != ord("-"))
+    c0 = int(cols[start - 1]) + 1 if start else 0
+    c1 = len(ref) if end is None else int(cols[end - 1]) + 1
+    width = max(len(n) for n, _ in rows)
+    header = f"Start: {start}. refCounter: {start}. alignCounter: {c0}"
+    at, positions, blocks = start, [], []
+    for k in range(c0, c1, line):
+        stop = min(c1, k + line)
+        positions.append(at)
+        block = []
+        for i, (name, text) in enumerate(rows):
+            seg = np.frombuffer(text[k:stop].encode(), np.uint8)
+            if i:
+                seg = np.where(seg == ref[k:stop], ord("."), seg)
+            block.append(f"|{name:<{width}}| "
+                         + seg.astype(np.uint8).tobytes().decode())
+        blocks.append(block)
+        at += line - int((ref[k:stop] == ord("-")).sum())
+    return header, positions, blocks
+
+
+def read_view(path: str) -> tuple:
+    """A multFaVisualizer file's header, Position values and blocks of
+    rows."""
+    with open(path) as fh:
+        lines = fh.read().split("\n")
+    positions, blocks = [], []
+    for ln in lines[1:]:
+        if ln.startswith("Position: "):
+            positions.append(int(ln.split()[1]))
+            blocks.append([])
+        elif ln:
+            blocks[-1].append(ln)
+    return lines[0], positions, blocks
+
+
+def sim_views_checks(sv: dict) -> dict:
+    """What the gates of slices 14b and 15a's steps read from their files,
+    with numpy and text alone and the card's routes from the steps,
+    importing none of these tools' modules."""
+    from PIL import Image
+
+    from gonomics_tpu_torch.sketch import BLACK, TRUBETSKOY_PALETTE
+
+    p, out, C = sv["paths"], {}, SV_CHUNK
+    nodes, _ = gg_text(sv["gg"])
+    lens = {k: len(v) for k, v in nodes.items()}
+    sim, aln = bed_rows(p["sim.giraf"]), bed_rows(p["sim_aln.giraf"])
+    truth, own = [], True
+    for w in sim:
+        n0, s1, nl, e1, strand = w[0].split("_")
+        t0, path, t1 = w[5].split(":")
+        ns = [int(x) for x in path.split(">")]
+        truth.append((strand, int(n0), int(s1) - 1, int(nl), int(e1) - 1))
+        own &= (w[4], ns[0], int(t0), ns[-1], int(t1)) == truth[-1]
+    mapped = placed = 0
+    for w, tr in zip(aln, truth):
+        t0, path, t1 = w[5].split(":")
+        if not path or int(w[7]) < 1200:
+            continue
+        mapped += 1
+        ns = [int(x) for x in path.split(">")]
+        placed += (w[4], ns[0], int(t0), ns[-1], int(t1)) == tr
+    out["giraf_simulate"] = {
+        "reads": len(sim), "aligned": len(aln),
+        "order_kept": [w[0] for w in aln] == [w[0] for w in sim],
+        "qname_is_path": bool(own),
+        "lengths": sorted({len(w[9]) for w in sim}),
+        "minus_strand": sum(w[4] == "-" for w in sim),
+        "cross_edges": sum(">" in w[5] for w in sim),
+        "mapped": mapped, "true_path": placed,
+        "mapped_frac": mapped / max(len(sim), 1),
+        "true_path_share": placed / max(len(sim), 1)}
+
+    som = bed_rows(p["som.giraf"])
+    fwd, aware, reads, bases = {}, set(), 0, 0
+    for a, b in zip(sim, som):
+        diff = [k for k, (x, y) in enumerate(zip(a[9], b[9])) if x != y]
+        if not diff:
+            continue
+        reads += 1
+        bases += len(diff)
+        t0, path, _ = a[5].split(":")
+        ns = [int(x) for x in path.split(">")]
+        for k in diff:
+            fwd.setdefault(locate_in_path(lens, ns, int(t0), k),
+                           set()).add(b[9][k])
+            mirror = k if a[4] == "+" else len(a[9]) - 1 - k
+            aware.add(locate_in_path(lens, ns, int(t0), mirror))
+    out["somatic"] = {
+        "snv": sv["snv"], "records_equal_but_seq": len(som) == len(sim)
+        and all(a[:9] + a[10:] == b[:9] + b[10:] and len(a[9]) == len(b[9])
+                for a, b in zip(sim, som)),
+        "reads_mutated": reads, "bases_mutated": bases,
+        "locations": len(fwd), "strand_aware_locations": len(aware),
+        "one_base_a_location": all(len(v) == 1 for v in fwd.values())}
+
+    rows = list(fasta_text(sv["aln"]).items())
+    ref = sv["ref"]
+    vis = {}
+    for key, name, (s, e) in (("window", "vis.txt", sv["vis"]),
+                              ("end", "vis_end.txt", (sv["end_start"], None))):
+        head, at, blocks = read_view(p[name])
+        want = multi_fa_view(rows, s, e, SV_LINE)
+        bases = [b[0].partition("| ")[2].replace("-", "") for b in blocks]
+        starts = s + np.cumsum([0] + [len(x) for x in bases[:-1]])
+        vis[key] = {
+            "blocks": len(blocks), "header_equal": head == want[0],
+            "positions_equal": at == want[1],
+            "ref_bases_equal": "".join(bases) == ref[s:e] and all(
+                x == ref[i:i + len(x)] for x, i in zip(bases, starts)),
+            "rows_equal": blocks == want[2],
+            "dots": sum(r.partition("| ")[2].count(".") for b in blocks
+                        for r in b[1:])}
+    names = sorted(f"{sv['chrom']}_{s}_{e}.txt" for s, e in sv["regions"])
+
+    def same(name):
+        with open(os.path.join(p["beds"], name), "rb") as x, \
+                open(os.path.join(p["bed_vis"], name), "rb") as y:
+            return x.read() == y.read()
+
+    vis["beds"] = {"files_named": sorted(os.listdir(p["beds"])) == names,
+                   "equal_visualizer": all(same(n) for n in names)}
+    out["visualizer"] = vis
+
+    pair = fasta_text(p["pair_aln.fa"])
+    want = route_rows(*sv["pair"], sv["routes"]["pair"])
+    words = fasta_text(p["words_aln.fa"])
+    want_words = route_rows(*sv["words"], sv["routes"]["words"], C)
+    msa = fasta_text(p["msa_aln.fa"])
+    chunks = [[r[i:i + C] for i in range(0, len(r), C)] for r in msa.values()]
+    out["chunk_align"] = {
+        "pair_equal_card": list(pair) == ["target", "query"]
+        and tuple(pair.values()) == want,
+        "pair_gaps": sum(r.count("-") for r in want),
+        "words_equal_card": list(words) == ["a", "b"]
+        and tuple(words.values()) == want_words,
+        "words_gap_chunks": sum(r.count("-" * C) for r in want_words),
+        "msa_rows": len(msa), "msa_columns": len(next(iter(msa.values()))),
+        "msa_inputs_kept": sorted(msa) == sorted(sv["msa"]) and all(
+            msa[k].replace("-", "") == v for k, v in sv["msa"].items()),
+        "msa_one_length": len({len(r) for r in msa.values()}) == 1
+        and all(len(r) % C == 0 for r in msa.values()),
+        "msa_whole_chunk_gaps": all(c.count("-") in (0, C)
+                                    for r in chunks for c in r),
+        "msa_gap_chunks": sum(c == "-" * C for r in chunks for c in r)}
+
+    img = np.asarray(Image.open(p["msa.png"]).convert("RGB"))
+    counts = {}
+    for r in chunks:
+        for c in r:
+            if c != "-" * C:
+                counts[c] = counts.get(c, 0) + 1
+    rank = {c: i for i, c in enumerate(sorted(counts,
+                                              key=lambda c: -counts[c]))}
+    colours = [[BLACK if c == "-" * C
+                else TRUBETSKOY_PALETTE[min(rank[c], 19)] for c in r]
+               for r in chunks]
+    top = sorted(counts.values(), reverse=True)[:19]
+    out["draw"] = {
+        "size": list(img.shape[:2]),
+        "size_equal": list(img.shape[:2]) == [
+            12 * len(chunks), len(chunks[0]) * 6 + 10 + 200],
+        "centres_equal": all(
+            tuple(img[i * 12 + 6, j * 6 + 3]) == tuple(col)
+            for i, r in enumerate(colours) for j, col in enumerate(r)),
+        "distinct_chunks": len(counts), "past_rank_19": len(counts) - 19,
+        "tied_in_top_19": sum(top.count(v) > 1 for v in top)}
+
+    lz = {}
+    mats = p["mats"]
+    for key, pw, simple in (("default", p["pairwise"], False),
+                            ("simple", p["pairwise_simple"], True)):
+        with open(p["lz_simple.txt" if simple else "lz.txt"]) as fh:
+            lines = fh.read().splitlines()
+        want = sorted((r, t, s, q) for r in sv["refs"] for s in sv["species"]
+                      if s != r for t in sv["asm"][r] for q in sv["asm"][s])
+        got, dirs, params = [], True, True
+        for ln in lines:
+            w = ln.split(" ")
+            r, _, t = w[1][len(pw) + 1:].partition(".byChrom/")
+            s, _, q = w[2][len(pw) + 1:].partition(".byChrom/")
+            t, q = t.removesuffix(".fa"), q.removesuffix(".fa")
+            got.append((r, t, s, q))
+            o = w[3].removeprefix("--output=")
+            dirs &= (o == (f"{pw}/{r}.{s}/{q}/{t}.{q}.axt" if simple
+                           else f"{pw}/{r}.{s}/{t}/{q}.{t}.axt")
+                     and os.path.isdir(os.path.dirname(o)))
+            if simple:
+                params &= ln.endswith(" --format=axt M=0") and "--scores" \
+                    not in ln
+            else:
+                mat, par = LZ_SETS[sv["lz_pairs"][(r, s)]]
+                params &= (w[4] == f"--scores={mats}/{mat}"
+                           and ln.endswith(f" --format=axt {par} "))
+        lz[key] = {"lines": len(lines), "lines_expected": len(want),
+                   "pairs_equal": sorted(got) == want,
+                   "output_dirs": bool(dirs), "params_by_distance":
+                   bool(params)}
+    files = sorted(os.listdir(mats)) if os.path.isdir(mats) else []
+
+    def matrix_ok(name):
+        with open(os.path.join(mats, name)) as fh:
+            m = [ln.split("\t") for ln in fh.read().splitlines()]
+        return (m[0] == list("ACGT") and len(m) == 5
+                and all(len(x) == 5 and x[0] == "ACGT"[i]
+                        for i, x in enumerate(m[1:])))
+
+    lz["matrices"] = files == sorted(m for m, _ in LZ_SETS.values()) and all(
+        matrix_ok(f) for f in files)
+    out["last_z_writer"] = lz
+
+    ideo = np.array([(s, e, score) for _, s, e, score in sv["ideo"]],
+                    np.int64).reshape(-1, 3)
+    mid = (ideo[:, 0] + ideo[:, 1]) // 2
+    for key, name, score in (("ideogram", "ideo.txt", ideo[:, 2]),
+                             ("ideogram_no_score", "ideo_noscore.txt",
+                              np.full(len(ideo), 10))):
+        with open(p[name]) as fh:
+            got = fh.read().splitlines()
+        want = [f"{c}\t{m + dm}\t{v if dm == 0 else 1}"
+                for (c, *_), m, v in zip(sv["ideo"], mid, score)
+                for dm in (-1, 0, 1)]
+        out[key] = {"lines": len(got), "equal_numpy": got == want}
+
+    with open(p["slurm.txt"]) as fh:
+        first = fh.readline().rstrip("\n")
+    begin, _, rest = first.partition("{")
+    inner, _, end = rest.partition("}")
+    w = inner.split()
+    out["slurm_check_equal"] = sv["slurm_stdout"] == (
+        f"begin: {begin} \n out: {w[3]} \n check: {w[2]} \n end: {end} \n")
+    out["launches"] = sv["launches"]
+    return out
+
+
+def sim_views_ok(x: dict, true_share: float = SV_TRUE_SHARE) -> bool:
+    """Every gate of sim_views_checks met: the simulated reads mapped
+    (>= 0.99) and on their true path (>= true_share); the somatic run
+    the clean one's but for the bases, on at most as many locations as
+    SNVs, one base a location, fewer locations along the forward path
+    than strand-aware (the reverse complement taken before the
+    mutations); the views, faChunkAlign against the card's routes,
+    the drawing, lastZWriter, formatIdeogram and slurmCheck."""
+    g, s, v, ca = (x["giraf_simulate"], x["somatic"], x["visualizer"],
+                   x["chunk_align"])
+    lz = x["last_z_writer"]
+    sim_ok = (g["order_kept"] and g["qname_is_path"]
+              and g["lengths"] == [SV_READ_LEN] and g["minus_strand"] > 0
+              and g["cross_edges"] > 0 and g["mapped_frac"] >= 0.99
+              and g["true_path_share"] >= true_share
+              and s["records_equal_but_seq"] and s["reads_mutated"] > 0
+              and 0 < s["locations"] <= s["snv"]
+              and s["locations"] < s["strand_aware_locations"]
+              and s["one_base_a_location"])
+    vis_ok = all(v[k]["header_equal"] and v[k]["positions_equal"]
+                 and v[k]["ref_bases_equal"] and v[k]["rows_equal"]
+                 and v[k]["blocks"] > 1 and v[k]["dots"] > 0
+                 for k in ("window", "end")) and all(v["beds"].values())
+    align_ok = (ca["pair_equal_card"] and ca["pair_gaps"] > 0
+                and ca["words_equal_card"] and ca["words_gap_chunks"] > 0
+                and ca["msa_inputs_kept"] and ca["msa_one_length"]
+                and ca["msa_whole_chunk_gaps"] and ca["msa_gap_chunks"] > 0
+                and x["draw"]["size_equal"] and x["draw"]["centres_equal"]
+                and x["draw"]["past_rank_19"] > 0
+                and x["draw"]["tied_in_top_19"] > 0)
+    lz_ok = lz["matrices"] and all(
+        lz[k]["lines"] == lz[k]["lines_expected"] > 0
+        and lz[k]["pairs_equal"] and lz[k]["output_dirs"]
+        and lz[k]["params_by_distance"] for k in ("default", "simple"))
+    return bool(sim_ok and vis_ok and align_ok and lz_ok
+                and x["ideogram"]["equal_numpy"] and x["ideogram"]["lines"] > 0
+                and x["ideogram_no_score"]["equal_numpy"]
+                and x["slurm_check_equal"])
+
+
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools around the engines, through the umbrella
     (``gonomics_tpu_torch.cli.main.main``), in process, on the data of
@@ -10139,7 +10751,24 @@ def phase_tools_cli(dev: torch.device) -> dict:
     blocks and ``-tsvOut``, the probabilities at the printed precision;
     ``pfaFindFast`` short and long, windows and coordinates numpy's,
     substitutions in gap- and N-free windows and confident bases a
-    numpy sliding-window sum, p values numpy's binomial tails."""
+    numpy sliding-window sum, p values numpy's binomial tails. (21)
+    Slices 14b and 15a (``sim_views_inputs`` over v.gg, the target and
+    query, chr1's multiFa alignment and the planted SNPs,
+    ``sim_views_steps``, ``sim_views_checks`` with numpy, text and the
+    card's K2 routes, ``sim_views_ok``; ``sim_views_tools`` in the phase
+    line, its launches added to the phase's): girafSimulate's reads
+    aligned back on the card, >= 0.99 mapped and >= SV_TRUE_SHARE on the
+    path their names give; the somatic run the clean one but for
+    bases, one base a location along the forward path, fewer locations
+    so than strand-aware; multFaVisualizer's header, positions,
+    reference bases and dots, multFaVisualizeBeds' files equal to
+    multFaVisualizer's; faChunkAlign at chunk size 1 equal to the route
+    of the card's ``align.affine_gap`` (K2's trace mode), a word pair at
+    chunk size 10 equal to K2's route over one letter a word scored by
+    their chunk scores, 5 records kept whole in whole-chunk gaps;
+    faDrawAlnChunks' size and each chunk's centre pixel by its rank;
+    lastZWriter's job lines, output directories, parameter sets and
+    matrices; formatIdeogram's points; slurmCheck's report."""
     from gonomics_tpu_torch import dna
     from gonomics_tpu_torch.cli.main import main as gonomics_torch
     from gonomics_tpu_torch.io import fai, fasta
@@ -10377,6 +11006,10 @@ def phase_tools_cli(dev: torch.device) -> dict:
             tmp, ga["genes"], ga["sizes"], ga["paths"]["genes.gtf"]))
         gp = giraf_pfa_steps(step, giraf_pfa_inputs(
             tmp, f["g.giraf"], f["v.gg"], t_fa, f["c.vcf"], aln[0]))
+        sv = sim_views_steps(step, sim_views_inputs(
+            tmp, f["v.gg"], t_fa, q_fa, aln[0], snps), dev, times)
+        for k, v in sv["launches"].items():
+            launches[k] = launches.get(k, 0) + v
 
         rows = {}
         with open(f["pileup.txt"]) as fh:
@@ -10429,6 +11062,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         out["sim_evol_tools"] = sim_evol_checks(se)
         out["onto_straw_tools"] = onto_straw_checks(ost)
         out["giraf_pfa_tools"] = giraf_pfa_checks(gp)
+        out["sim_views_tools"] = sim_views_checks(sv)
     out["times_s"] = times
     out["launches"] = launches
     emit(out)
@@ -10532,6 +11166,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
             and sim_evol_ok(out["sim_evol_tools"])
             and onto_straw_ok(out["onto_straw_tools"])
             and giraf_pfa_ok(out["giraf_pfa_tools"])
+            and sim_views_ok(out["sim_views_tools"])
             and out["ggtools"]["planted_snps_in_vcf"] == len(planted)
             and g["mapped_frac"] >= 0.99 and g["card_equals_cpu"]
             and c["covered_planted_snps"] > 0.9 * len(planted)

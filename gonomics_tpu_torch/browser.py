@@ -1,7 +1,7 @@
-"""Terminal views of a pFasta record: the pFa part of
-``gonomics_tpu/browser.py`` (:1-25 and :83-183), gonomics'
-``browser/pFa.go``. ``multi_fa_visualizer`` (:26-82, browser/multiFa.go)
-comes with multFaVisualizer in a later slice.
+"""Terminal genome-browser views of multiFa and pFasta alignments: a
+copy of ``gonomics_tpu/browser.py`` (183 lines, whole), gonomics'
+``browser/multiFa.go`` (``multi_fa_visualizer``, :26-82) and
+``browser/pFa.go`` (the pFa views, :83-183).
 """
 
 from __future__ import annotations
@@ -11,7 +11,8 @@ import sys
 
 import numpy as np
 
-from . import fileio
+from . import dna, fileio
+from .io import fasta as fastaio
 from .io import pfasta
 
 
@@ -23,6 +24,63 @@ def _out(filename: str):
     finally:
         if f is not sys.stdout:
             f.close()
+
+
+def multi_fa_visualizer(infile: str, outfile: str, start: int, end: int,
+                        no_mask: bool, line_length: int,
+                        end_of_alignment: bool) -> None:
+    """browser.MultiFaVisualizer (multiFa.go:17-74): matched bases in
+    non-reference rows print as dots; windows of lineLength columns."""
+    if not start < end and not end_of_alignment:
+        raise ValueError("Invalid arguments, start must be lower than end")
+    records = fastaio.read(infile)
+    if no_mask:
+        for r in records:
+            r.seq = dna.to_upper(r.seq)
+    ref = records[0].seq
+    for rec in records[1:]:
+        rec.seq = np.where(rec.seq == ref, np.int8(dna.DOT), rec.seq)
+    long = max(len(r.name) for r in records)
+
+    # alignment column of the start-th reference base (multiFa.go:35-42)
+    ref_counter = start_counter = 0
+    t = 0
+    while ref_counter < start:
+        start_counter += 1
+        if t == len(ref):
+            raise ValueError("Ran out of chromosome")
+        if ref[t] != dna.GAP:
+            ref_counter += 1
+        t += 1
+    chrom_start = ref_counter
+
+    with _out(outfile) as out:
+        # header printed before the end scan, so refCounter == start
+        # (multiFa.go:48)
+        out.write(f"Start: {start}. refCounter: {ref_counter}. "
+                  f"alignCounter: {start_counter}\n")
+        if end_of_alignment:
+            end_counter = len(ref)
+        else:
+            ref_counter = 0
+            end_counter = 0
+            n = 0
+            while ref_counter < end:
+                end_counter += 1
+                if n == len(ref):
+                    raise ValueError("Ran off the chromosome")
+                if ref[n] != dna.GAP:
+                    ref_counter += 1
+                n += 1
+        for k in range(start_counter, end_counter, line_length):
+            out.write(f"Position: {chrom_start}\n")
+            stop = min(end_counter, k + line_length)
+            for rec in records:
+                out.write(f"|{rec.name:<{long}}| "
+                          f"{dna.to_string(rec.seq[k:stop])}\n")
+            out.write("\n\n")
+            gaps = int((ref[k:stop] == dna.GAP).sum())
+            chrom_start = chrom_start + line_length - gaps
 
 
 def _fmt_row(vals: np.ndarray, sig_figs: int, decimal_places: int) -> str:

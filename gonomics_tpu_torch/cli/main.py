@@ -310,6 +310,24 @@ COMMANDS = {
     "pfaFindFast": ("gonomics_tpu_torch.cli.pfa_find_fast",
                     "Sliding-window probabilistic divergence over a pFa "
                     "(host)"),
+    "girafSimulate": ("gonomics_tpu_torch.cli.giraf_simulate",
+                      "Simulated giraf alignments from a genome graph "
+                      "(host)"),
+    "multFaVisualizer": ("gonomics_tpu_torch.cli.mult_fa_visualizer",
+                         "Human-readable multiFa alignment view (host)"),
+    "multFaVisualizeBeds": ("gonomics_tpu_torch.cli.mult_fa_visualize_beds",
+                            "Per-bed-region multiFa alignment views (host)"),
+    "faChunkAlign": ("gonomics_tpu_torch.cli.fa_chunk_align",
+                     "Align sequences by chunks of bases (host)"),
+    "faDrawAlnChunks": ("gonomics_tpu_torch.cli.fa_draw_aln_chunks",
+                        "Render a chunk alignment to PNG (host)"),
+    "lastZWriter": ("gonomics_tpu_torch.cli.last_z_writer",
+                    "lastZ pairwise job inputs by contig (host)"),
+    "formatIdeogram": ("gonomics_tpu_torch.cli.format_ideogram",
+                       "UCSC Genome Graphs ideogram points from a bed "
+                       "(host)"),
+    "slurmCheck": ("gonomics_tpu_torch.cli.slurm_check",
+                   "Check SLURM job-array completion (host)"),
 }
 
 

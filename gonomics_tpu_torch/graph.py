@@ -1,8 +1,10 @@
 """Genome graphs: nodes of sequence joined by weighted edges. Mirrors the
-parts of ``gonomics_tpu/graph.py`` that the graph aligner uses: the
-records, the .gg/.sg reader and writer (:45-96), the topological sort
-(:99-147), the linear graph of a FASTA reference (:150-158), the construction of a variant graph from VCF records
-(:325-556) and the k-mer seed index (:563-615).
+parts of ``gonomics_tpu/graph.py`` that the graph aligner and the graph
+tools use: the records, the .gg/.sg reader and writer (:45-96), the
+topological sort (:99-147), the linear graph of a FASTA reference
+(:150-158), the random giraf reads and somatic mutations of
+girafSimulate (:161-318), the construction of a variant graph from VCF
+records (:325-556) and the k-mer seed index (:563-615).
 
 Nodes live in an index-addressed list (edges hold node indices) and
 sequences are int8 code arrays.
@@ -153,6 +155,166 @@ def from_fasta(records) -> tuple[GenomeGraph, dict[int, str]]:
         g.nodes.append(Node(id=i, seq=dna.to_upper(rec.seq).astype(np.int8)))
         names[i] = rec.name
     return g, names
+
+
+# ---------------------------------------------------------------------------
+# random giraf simulation (genomeGraph/giraf.go:15-145, randomReads.go:57-95)
+# ---------------------------------------------------------------------------
+
+def bases_in_graph(g: GenomeGraph) -> int:
+    return sum(len(n.seq) for n in g.nodes)
+
+
+def _rand_int_in_range(rng, x: int, y: int) -> int:
+    return int(rng.float64() * (y - x)) + x
+
+
+def rand_location_fast(g: GenomeGraph, total_bases: int, rng):
+    """RandLocationFast (randomReads.go:57)."""
+    r = _rand_int_in_range(rng, 0, total_bases)
+    for i, n in enumerate(g.nodes):
+        if r < len(n.seq):
+            return i, r
+        r -= len(n.seq)
+    raise RuntimeError("trouble selecting a random location in the graph")
+
+
+def rand_path_fwd(g: GenomeGraph, node_idx: int, pos: int, length: int,
+                  rng):
+    """RandPathFwd (randomReads.go:70): random forward walk collecting
+    `length` bases; edge choices via RandIntInRange."""
+    answer: list[int] = []
+    node = g.nodes[node_idx]
+    while len(answer) < length and pos < len(node.seq):
+        answer.append(int(node.seq[pos]))
+        pos += 1
+    if len(answer) == length or not node.next:
+        return [node_idx], pos, np.array(answer, np.int8)
+    path = [node_idx]
+    while True:
+        edge_idx = _rand_int_in_range(rng, 0, len(node.next))
+        node_idx = node.next[edge_idx].dest
+        node = g.nodes[node_idx]
+        path.append(node_idx)
+        pos = 0
+        while len(answer) < length and pos < len(node.seq):
+            answer.append(int(node.seq[pos]))
+            pos += 1
+        if len(answer) == length or not node.next:
+            return path, pos, np.array(answer, np.int8)
+
+
+def _generate_diverse_quals(read_len: int, rng):
+    """generateDiverseQuals (genomeGraph/giraf.go:60)."""
+    prob = rng.intn(100)
+    if prob == 0:
+        aln_score = _rand_int_in_range(rng, 6000, 8000)
+        mapq = rng.intn(5)
+    elif prob < 10:
+        aln_score = _rand_int_in_range(rng, 8000, 10000)
+        mapq = _rand_int_in_range(rng, 5, 15)
+    elif prob < 20:
+        aln_score = _rand_int_in_range(rng, 10000, 15000)
+        mapq = _rand_int_in_range(rng, 15, 30)
+    else:
+        aln_score = _rand_int_in_range(rng, 15000, 20000)
+        mapq = _rand_int_in_range(rng, 30, 40)
+    quals = np.zeros(read_len, np.uint8)
+    for i in range(read_len):
+        p = rng.intn(100)
+        base = rng.intn(10)
+        if p == 0:
+            quals[i] = base
+        elif p < 10:
+            quals[i] = base + 10
+        elif p < 20:
+            quals[i] = base + 20
+        else:
+            quals[i] = base + 30
+    return quals, aln_score, mapq
+
+
+def rand_giraf(g: GenomeGraph, num_reads: int, read_len: int,
+               rand_seed: int):
+    """genomeGraph.RandGiraf (giraf.go:15)."""
+    from .io.cigar import CigarOp
+    from .io.giraf import Giraf, Path
+    from .numbers.gorand import GoRand
+
+    total = bases_in_graph(g)
+    if read_len > total:
+        raise SystemExit("Cannot request more bases than is present in "
+                         "graph")
+    rng = GoRand(rand_seed)
+    answer = []
+    while len(answer) < num_reads:
+        node_idx, pos = rand_location_fast(g, total, rng)
+        path, end_pos, seq = rand_path_fwd(g, node_idx, pos, read_len, rng)
+        strand = rng.intn(2) == 0
+        if len(seq) == read_len and not (seq == dna.N).any():
+            qual, aln_score, mapq = _generate_diverse_quals(read_len, rng)
+            strand_c = "+" if strand else "-"
+            cur = Giraf(
+                qname=f"{path[0]}_{pos + 1}_{path[-1]}_{end_pos + 1}_"
+                      f"{strand_c}",
+                q_start=0, q_end=read_len, pos_strand=strand,
+                path=Path(t_start=pos, nodes=list(path), t_end=end_pos),
+                cigar=[CigarOp(read_len, "M")], aln_score=aln_score,
+                mapq=mapq, seq=seq, qual=qual)
+            if not strand:
+                cur.seq = dna.reverse_complement(cur.seq).astype(np.int8)
+            answer.append(cur)
+    return answer
+
+
+def node_pos_to_read_pos(g: GenomeGraph, read, node: int, pos: int) -> int:
+    """NodePosToReadPos (genomeGraph/giraf.go:146)."""
+    pos_in_path = 0
+    for i, nid in enumerate(read.path.nodes):
+        if nid == node:
+            pos_in_path = i
+            break
+    read_pos = sum(len(g.nodes[read.path.nodes[i]].seq)
+                   for i in range(pos_in_path))
+    return read_pos + pos - read.path.t_start
+
+
+def rand_somatic_mutations(g: GenomeGraph, reads, num_snv: int,
+                           allele_frequency: float, rand_seed: int):
+    """genomeGraph.RandSomaticMutations (giraf.go:100)."""
+    from .numbers.gorand import GoRand
+
+    total = bases_in_graph(g)
+    rng = GoRand(rand_seed)
+    mut_nodes: list[int] = []
+    mut_pos: list[int] = []
+    for _ in range(num_snv):
+        node_idx, pos = rand_location_fast(g, total, rng)
+        mut_nodes.append(node_idx)
+        mut_pos.append(pos)
+        mutant = 4
+        for read in reads:
+            for k, nid in enumerate(read.path.nodes):
+                if nid != node_idx:
+                    continue
+                if read.path.nodes[0] == node_idx and \
+                        read.path.t_start > pos:
+                    continue
+                if read.path.nodes[-1] == node_idx and \
+                        read.path.t_end < pos:
+                    continue
+                read_pos = node_pos_to_read_pos(g, read, node_idx, pos)
+                if read_pos >= len(read.seq):
+                    continue
+                if mutant == 4:
+                    base = int(read.seq[read_pos])
+                    while True:
+                        mutant = rng.intn(4)
+                        if mutant != base:
+                            break
+                if rng.intn(100) / 100 <= allele_frequency:
+                    read.seq[read_pos] = mutant
+    return mut_nodes, mut_pos
 
 
 # ---------------------------------------------------------------------------

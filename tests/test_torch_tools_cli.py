@@ -9,15 +9,15 @@ a small hand-made file of the edge cases (an insertion near a
 chromosome's start, a deletion running to a chromosome's end, an N
 skip and an insertion at the uncovered base before the next reads, a
 chromosome with no reads, an unmapped read). Also: the umbrella
-lists and dispatches exactly the port's 122 tools, imports none of them
+lists and dispatches exactly the port's 130 tools, imports none of them
 before dispatch, resolves a ``module:function`` target as the JAX
 umbrella does, runs the popgen tools, the interval and lift tools, the
 VCF, MAF and axt tools, the GTF and acceleration tools and the
 simulation and tree tools, the evolution, accuracy and ILS tools and
-the ontology tools with strawToBedpe and the giraf and pFa tools to the
-JAX umbrella's bytes, lists its tools
-and runs every tool but drawNewickTree without PIL, and
-its ``gsw align`` wants the card; ``pyproject.toml`` installs it as
+the ontology tools with strawToBedpe, the giraf and pFa tools and the
+tools of slices 14b and 15a to the JAX umbrella's bytes, lists its tools
+and runs every tool but drawNewickTree and faDrawAlnChunks without PIL,
+and its ``gsw align`` wants the card; ``pyproject.toml`` installs it as
 ``gonomics-torch``; no new module imports JAX.
 """
 
@@ -91,17 +91,19 @@ PORTED = ["alleleSplit", "assemblyStats", "assignGenomeSpace", "axTools",
           "bedpeFilter", "bedpeOverlap", "branchLengthsMultiFaBed",
           "callVariants", "catMultiFa", "cigarToBed", "countPairOfBases",
           "digestGenome", "divergenceSpectrum", "dotToNewick",
-          "drawNewickTree", "dunnIndex", "faBin", "faFilter", "faFindFast",
-          "faFormat", "faInfo", "faToPredictSet", "faUniq", "fastqFilter",
-          "fastqFormat", "fastqReplaceSeq", "filterGenotypes",
-          "findAndReplace", "gafFilter", "gcContent", "geneAssignmentStats",
-          "geneIdToName", "getPromoter", "girafCompress", "girafSort",
-          "globalAlignment", "gsw", "gtfTools", "haplotypeGenerator",
-          "ilsReconstructSeq", "intervalContacts", "intervalOverlap",
-          "intervalSubsetMatrix", "liftCoordinates", "locateCG",
-          "longReadLibStats", "mafFilter", "mafIndels", "mafToBed",
-          "mafToMultiFa", "mcmcTraceStats", "mergeMultiFa", "mergesort",
-          "mouseRecon", "multiFaAcceleration", "multiFaCount",
+          "drawNewickTree", "dunnIndex", "faBin", "faChunkAlign",
+          "faDrawAlnChunks", "faFilter", "faFindFast", "faFormat", "faInfo",
+          "faToPredictSet", "faUniq", "fastqFilter", "fastqFormat",
+          "fastqReplaceSeq", "filterGenotypes", "findAndReplace",
+          "formatIdeogram", "gafFilter", "gcContent", "geneAssignmentStats",
+          "geneIdToName", "getPromoter", "girafCompress", "girafSimulate",
+          "girafSort", "globalAlignment", "gsw", "gtfTools",
+          "haplotypeGenerator", "ilsReconstructSeq", "intervalContacts",
+          "intervalOverlap", "intervalSubsetMatrix", "lastZWriter",
+          "liftCoordinates", "locateCG", "longReadLibStats", "mafFilter",
+          "mafIndels", "mafToBed", "mafToMultiFa", "mcmcTraceStats",
+          "mergeMultiFa", "mergesort", "mouseRecon", "multFaVisualizeBeds",
+          "multFaVisualizer", "multiFaAcceleration", "multiFaCount",
           "multiFaExtract", "multiFaReduce", "multiFaScan",
           "multiFaSequenceSwap", "multiFaToChain", "multiFaToVcf", "oboToDot",
           "oboTools", "ontologyEnrichment", "ontologyHistogram",
@@ -111,9 +113,10 @@ PORTED = ["alleleSplit", "assemblyStats", "assignGenomeSpace", "axTools",
           "samInfo", "samToBed", "samToWig", "sampleVcf", "scCount",
           "selectionMcmc", "selectionMle", "simRecon", "simulateBed",
           "simulateDivergentWindowsVcf", "simulateEvol", "simulatePcr",
-          "simulateSam", "simulateVcf", "simulateWrightFisher", "sortGraph",
-          "statCalc", "strawToBedpe", "vcfAfs", "vcfAncestorAnnotation",
-          "vcfFilter", "vcfFormat", "vcfInfo", "vcfToFa", "wigTools"]
+          "simulateSam", "simulateVcf", "simulateWrightFisher", "slurmCheck",
+          "sortGraph", "statCalc", "strawToBedpe", "vcfAfs",
+          "vcfAncestorAnnotation", "vcfFilter", "vcfFormat", "vcfInfo",
+          "vcfToFa", "wigTools"]
 
 
 def _edge_sam(genome) -> str:
@@ -270,17 +273,17 @@ def test_sam_to_bed_byte_identical(inputs, tmp_path, data, fmt, frag):
 
 
 def test_umbrella_lists_the_ported_tools(capsys):
-    """help (and no argument) lists the 122 ported tools, each a key of
-    the JAX umbrella's COMMANDS; 16 of the JAX's are left."""
+    """help (and no argument) lists the 130 ported tools, each a key of
+    the JAX umbrella's COMMANDS; 8 of the JAX's are left."""
     for argv in ([], ["help"], ["-h"]):
         umbrella.main(argv)
         lines = capsys.readouterr().out.splitlines()
         listed = [ln.split()[0] for ln in lines if ln.startswith("  ")]
         assert listed == PORTED
     assert sorted(umbrella.COMMANDS) == PORTED
-    assert len(PORTED) == 122
+    assert len(PORTED) == 130
     assert set(PORTED) <= set(jmain.COMMANDS)
-    assert len(set(jmain.COMMANDS) - set(PORTED)) == 16
+    assert len(set(jmain.COMMANDS) - set(PORTED)) == 8
     assert all("TPU" not in desc for _, desc in umbrella.COMMANDS.values())
 
 
@@ -618,7 +621,17 @@ def test_new_modules_import_no_jax():
             " gonomics_tpu_torch.cli.pfa_find_fast,"
             " gonomics_tpu_torch.cli.sort_graph,"
             " gonomics_tpu_torch.cli.giraf_compress,"
-            " gonomics_tpu_torch.cli.giraf_sort\n"
+            " gonomics_tpu_torch.cli.giraf_sort,"
+            " gonomics_tpu_torch.graph, gonomics_tpu_torch.align.draw,"
+            " gonomics_tpu_torch.lastz_writer,"
+            " gonomics_tpu_torch.cli.giraf_simulate,"
+            " gonomics_tpu_torch.cli.mult_fa_visualizer,"
+            " gonomics_tpu_torch.cli.mult_fa_visualize_beds,"
+            " gonomics_tpu_torch.cli.fa_chunk_align,"
+            " gonomics_tpu_torch.cli.fa_draw_aln_chunks,"
+            " gonomics_tpu_torch.cli.last_z_writer,"
+            " gonomics_tpu_torch.cli.format_ideogram,"
+            " gonomics_tpu_torch.cli.slurm_check\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'gonomics_tpu')]\n"
             "print(bad)\n"
@@ -1059,8 +1072,8 @@ def test_umbrella_sim_tree_tools_equal_jax_umbrella(
 
 def test_only_draw_newick_tree_needs_pil(sim_tree_inputs, tmp_path):
     """With PIL blocked from import, ``help`` lists all the tools and
-    dotToNewick and simulateBed run; drawNewickTree alone fails, on its
-    import of PIL."""
+    dotToNewick and simulateBed run; drawNewickTree and faDrawAlnChunks
+    alone fail, on their import of PIL."""
     f = sim_tree_inputs
     code = (
         "import sys\n"
@@ -1074,18 +1087,25 @@ def test_only_draw_newick_tree_needs_pil(sim_tree_inputs, tmp_path):
         f"    m.main(['drawNewickTree', {f['tree.nh']!r},"
         f" {str(tmp_path / 'o.png')!r}])\n"
         "except ImportError as e:\n"
-        "    print('drawNewickTree:', type(e).__name__, e.name)\n")
+        "    print('drawNewickTree:', type(e).__name__, e.name)\n"
+        "try:\n"
+        f"    m.main(['faDrawAlnChunks', {f['tree.nh']!r}, '3',"
+        f" {str(tmp_path / 'c.png')!r}])\n"
+        "except ImportError as e:\n"
+        "    print('faDrawAlnChunks:', type(e).__name__, e.name)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stdout + out.stderr
     listed = [ln.split()[0] for ln in out.stdout.splitlines()[2:]
               if ln.startswith("  ")]
     assert listed == PORTED
-    assert out.stdout.splitlines()[-1] == (
-        "drawNewickTree: ModuleNotFoundError PIL")
+    assert out.stdout.splitlines()[-2:] == [
+        "drawNewickTree: ModuleNotFoundError PIL",
+        "faDrawAlnChunks: ModuleNotFoundError PIL"]
     assert (tmp_path / "o.nh").read_text().endswith(";\n")
     assert len((tmp_path / "o.bed").read_text().splitlines()) == 5
     assert not (tmp_path / "o.png").exists()
+    assert not (tmp_path / "c.png").exists()
 
 
 @pytest.fixture(scope="module")
@@ -1219,3 +1239,84 @@ def test_umbrella_onto_straw_tools_equal_jax_umbrella(
         out[side] = (files, capsys.readouterr().out)
     assert out["port"] == out["jax"]
     assert out["jax"][0] and all(out["jax"][0].values())
+
+
+@pytest.fixture(scope="module")
+def sim_view_inputs(tmp_path_factory):
+    """A variant graph of 600 seeded bases with a SNP every 50; a
+    two-row multiFa alignment with gaps and a bed of two of its regions;
+    four records of 10-base chunks and a chunk alignment of 3-base
+    chunks; a lastZ pairwise tree (tests/test_torch_lastz_misc.py's
+    ``layout``); a bed with scores; a fancy job-array file."""
+    from gonomics_tpu import graph as jgraph
+    from gonomics_tpu.io.fasta import Fasta as JFasta
+    from gonomics_tpu.io.vcf import Vcf as JVcf
+    from test_torch_lastz_misc import layout
+    from test_torch_sim_views import _chunk_records
+
+    d = tmp_path_factory.mktemp("sim_view_umbrella")
+    rng = np.random.default_rng(3605)
+    ref = rng.integers(0, 4, 600).astype(np.int8)
+    vcfs = [JVcf(chrom="chr1", pos=p, id=".", ref="ACGT"[ref[p - 1]],
+                 alt=["ACGT"[(ref[p - 1] + 1) % 4]], info="SVTYPE=SNP")
+            for p in range(30, 580, 50)]
+    jgraph.write(str(d / "g.gg"),
+                 jgraph.variant_graph([JFasta("chr1", ref)], {"chr1": vcfs}))
+    t_row = "".join("ACGT"[i] for i in ref[:300])
+    t_row = t_row[:100] + "---" + t_row[100:]
+    q_row = t_row[:50] + "T" + t_row[51:200] + "--" + t_row[202:]
+    layout(str(d))
+    files = {
+        "aln.fa": [">ref", t_row, ">qry", q_row],
+        "r.bed": ["ref\t10\t90\ta", "ref\t150\t260\tb"],
+        "chunks.fa": [x for n, s in _chunk_records(3606, 4, 10, 10)
+                      for x in (">" + n, s)],
+        "chunk_aln.fa": [">s1", "ACGTAA---CCC", ">s2", "ACG---TTTCCC"],
+        "ideo.bed": ["chr1\t10\t21\tx\t5", "chr2\t40\t80\ty\t900"],
+        "slurm.txt": ["sbatch a.sh {check 1 line+ out.txt} --x 3",
+                      "sbatch b.sh {check 2 exists out2.txt} --x 4"]}
+    for name, lines in files.items():
+        (d / name).write_text("".join(ln + "\n" for ln in lines))
+    return {k: str(d / k) for k in [*files, "g.gg", "pairwise",
+                                    "species.txt", "refs.txt", "dists.txt"]}
+
+
+@pytest.mark.parametrize("tool", [
+    "girafSimulate", "multFaVisualizer", "multFaVisualizeBeds",
+    "faChunkAlign", "faDrawAlnChunks", "lastZWriter", "formatIdeogram",
+    "slurmCheck"])
+def test_umbrella_sim_view_tools_equal_jax_umbrella(
+        sim_view_inputs, tmp_path, capsys, tool):
+    """Each tool of slices 14b and 15a through gonomics-torch writes what
+    the JAX umbrella's writes, files and stdout."""
+    f = sim_view_inputs
+    out = {}
+    for side, mod in (("jax", jmain), ("port", umbrella)):
+        d = tmp_path / side
+        d.mkdir()
+        o = str(d / "out")
+        argv = {
+            "girafSimulate": [
+                "girafSimulate", f["g.gg"], o + ".giraf", "-numReads", "25",
+                "-readLen", "80", "-seed", "9", "-somaticSNV", "4",
+                "-somaticAF", "0.6"],
+            "multFaVisualizer": [
+                "multFaVisualizer", f["aln.fa"], o + ".txt", "20", "END",
+                "-lineLength", "70"],
+            "multFaVisualizeBeds": [
+                "multFaVisualizeBeds", f["r.bed"], f["aln.fa"], "-outDir",
+                str(d) + "/", "-outFormatName"],
+            "faChunkAlign": ["faChunkAlign", f["chunks.fa"], "10", o + ".fa"],
+            "faDrawAlnChunks": ["faDrawAlnChunks", f["chunk_aln.fa"], "3",
+                                o + ".png"],
+            "lastZWriter": [
+                "lastZWriter", "-m", "true", "lastz", f["pairwise"],
+                f["species.txt"], f["refs.txt"], f["dists.txt"],
+                o + ".jobs"],
+            "formatIdeogram": ["formatIdeogram", f["ideo.bed"], o + ".txt"],
+            "slurmCheck": ["slurmCheck", f["slurm.txt"]]}[tool]
+        mod.main(argv)
+        files = {n: _read(str(d / n)) for n in sorted(os.listdir(d))}
+        out[side] = (files, capsys.readouterr().out)
+    assert out["port"] == out["jax"]
+    assert (out["jax"][0] and all(out["jax"][0].values())) or out["jax"][1]
